@@ -1,0 +1,54 @@
+"""Environment knobs this package reads, under the JAX package's names so
+that one variable drives both packages.
+
+``MXTPU_PALLAS`` and ``MXTPU_PALLAS_MIN_FLOPS`` keep their names but select
+the hand-written Hopper kernels of `ops/hopper_kernels.py` here:
+``MXTPU_PALLAS=auto`` means "the bound device is CUDA with compute
+capability (9, 0)", ``1`` swaps on any device (a CPU tensor then takes the
+kernel's plain PyTorch version), ``0`` never swaps.
+"""
+from __future__ import annotations
+
+import os
+from collections import namedtuple
+from typing import Any, Dict, Optional
+
+__all__ = ["EnvVar", "get_env"]
+
+EnvVar = namedtuple("EnvVar", ["name", "type", "default", "doc"])
+
+_R: Dict[str, EnvVar] = {}
+
+
+def _reg(name, typ, default, doc):
+    _R[name] = EnvVar(name, typ, default, doc)
+
+
+_reg("MXTPU_GRAPH_OPT", str, "1",
+     "graph-rewrite pipeline kill switch; '0'/'false'/'off' runs the bound "
+     "symbol unoptimized (graph_opt.graph_opt_enabled)")
+_reg("MXTPU_GRAPH_OPT_SKIP", str, "",
+     "comma-separated pass names to disable individually "
+     "(graph_opt.skipped_passes)")
+_reg("MXTPU_PALLAS", str, "auto",
+     "Hopper kernel selection: 'auto' swaps matched subgraphs only when "
+     "the bound device is CUDA capability (9, 0), '1' on any device, "
+     "'0'/'off' never (graph_opt.pallas_mode)")
+_reg("MXTPU_PALLAS_MIN_FLOPS", float, 1e6,
+     "kernel-selection floor: an attention site below this analytic flop "
+     "count keeps the unfused graph (graph_opt pallas_select)")
+
+
+def get_env(name: str, default: Optional[Any] = None):
+    """Typed env lookup; unregistered names return the raw string (or
+    ``default``)."""
+    spec = _R.get(name)
+    raw = os.environ.get(name)
+    if spec is None:
+        return raw if raw is not None else default
+    if raw is None:
+        return default if default is not None else spec.default
+    try:
+        return spec.type(raw)
+    except (TypeError, ValueError):
+        return spec.default

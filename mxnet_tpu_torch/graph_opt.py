@@ -1,0 +1,348 @@
+"""Graph optimizer: rewrite passes over the bound Symbol graph (the
+counterpart of `mxnet_tpu/graph_opt.py`).
+
+Ported so far: **pallas_select**, which keeps the JAX package's pass name
+so that the two packages' reports compare one to one.  It pattern-matches
+MXNet's attention idiom ``batch_dot(softmax(batch_dot(Q, Kᵀ)[·s]), V)``
+and swaps in the `_fused_attention` op of `ops/hopper_kernels.py` when the
+analytic flop count ``4·B·Lq·Lk·d`` clears ``MXTPU_PALLAS_MIN_FLOPS``.
+Behind ``MXTPU_PALLAS``: ``auto`` swaps only when the bound device is CUDA
+with compute capability (9, 0), ``1`` on any device, ``0`` never.  A site
+keeps its unfused graph by the JAX package's rule alone (a ragged sequence,
+see `hopper_kernels.check_attention`).  On CUDA a site whose head dim the
+kernel is not built for makes the bind fail: ``MXTPU_PALLAS=0`` is then
+the caller's choice, never a silent one.
+
+The JAX package's other inference passes (fold_const, fold_bn, eliminate,
+cse) and the LSTM-cell matcher wait for later slices.
+
+Every pass is pure: the input symbol is never modified, and untouched
+regions are shared by identity with the result.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from . import config
+from .attribute import strip_annotations
+from .base import MXNetError
+from .ops.hopper_kernels import check_attention, check_kernel_inputs
+from .ops.registry import Attrs
+from .symbol.symbol import Symbol, _Node, _topo
+
+__all__ = ["PassReport", "PipelineResult", "optimize", "graph_opt_enabled",
+           "skipped_passes", "pallas_mode", "INFER_PASSES"]
+
+
+def graph_opt_enabled() -> bool:
+    """Pipeline kill switch (``MXTPU_GRAPH_OPT``, default on)."""
+    return config.get_env("MXTPU_GRAPH_OPT", "1").strip().lower() \
+        not in ("0", "false", "off")
+
+
+def skipped_passes() -> frozenset:
+    """Per-pass disable set (``MXTPU_GRAPH_OPT_SKIP=pallas_select``)."""
+    raw = config.get_env("MXTPU_GRAPH_OPT_SKIP", "")
+    return frozenset(t.strip() for t in raw.split(",") if t.strip())
+
+
+def pallas_mode() -> str:
+    """``MXTPU_PALLAS``: 'auto', '1'/'on' or '0'/'off'."""
+    return config.get_env("MXTPU_PALLAS", "auto").strip().lower()
+
+
+@dataclass
+class PassReport:
+    """Structured result of one pass run on one graph."""
+    name: str
+    nodes_before: int
+    nodes_after: int
+    rewrites: int
+    wall_ms: float
+    #: "bitwise" (value-identical by construction) or "ulp" (kernel swap:
+    #: parity within a documented float tolerance)
+    parity: str
+    details: Dict[str, Any] = field(default_factory=dict)
+
+
+@dataclass
+class PipelineResult:
+    """The optimized symbol and the per-pass reports."""
+    symbol: Any
+    reports: List[PassReport]
+    enabled: bool
+
+
+# ---------------------------------------------------------------------------
+# rewrite machinery
+# ---------------------------------------------------------------------------
+
+def _n_compute(symbol) -> int:
+    return sum(1 for n in _topo(symbol._heads) if not n.is_var)
+
+
+def _node_attrs(node) -> Attrs:
+    return Attrs(strip_annotations(node.attrs))
+
+
+class _Ctx:
+    """Fresh-name allocator for nodes a pass creates (names key the
+    executor's value dict, so they stay unique within the graph)."""
+
+    def __init__(self, symbol):
+        self._names = {n.name for n in _topo(symbol._heads)}
+        self._i = 0
+
+    def name(self, hint: str) -> str:
+        while True:
+            nm = f"__opt_{hint}_{self._i}"
+            self._i += 1
+            if nm not in self._names:
+                self._names.add(nm)
+                return nm
+
+
+def _substitute(symbol, entry_map):
+    """Memoized clone of the DAG applying an entry-level substitution map
+    ``{(id(node), out_idx): (replacement_node, out_idx)}``.  Replacement
+    nodes may reference original nodes in their inputs; untouched nodes
+    are kept by identity."""
+    if not entry_map:
+        return symbol
+    memo: Dict[int, Any] = {}
+
+    def resolve(entry):
+        node, idx = entry
+        hops = 0
+        while (id(node), idx) in entry_map:
+            node, idx = entry_map[(id(node), idx)]
+            hops += 1
+            if hops > 100000:
+                raise MXNetError("graph_opt: cyclic entry substitution")
+        return node, idx
+
+    def rebuild(root):
+        # depth-first over the RESOLVED edges, with an explicit stack so
+        # deep graphs need no recursion
+        stack = [root]
+        while stack:
+            node = stack[-1]
+            if id(node) in memo:
+                stack.pop()
+                continue
+            if node.is_var:
+                memo[id(node)] = node
+                stack.pop()
+                continue
+            ins = [resolve(e) for e in node.inputs]
+            pending = [n for (n, _) in ins if id(n) not in memo]
+            if pending:
+                stack.extend(pending)
+                continue
+            new_inputs = [(memo[id(n)], i) for (n, i) in ins]
+            same = all(a is b and ai == bi for (a, ai), (b, bi)
+                       in zip(new_inputs, node.inputs))
+            memo[id(node)] = node if same else _Node(
+                node.op, node.name, dict(node.attrs), new_inputs)
+            stack.pop()
+        return memo[id(root)]
+
+    heads = [resolve(e) for e in symbol._heads]
+    return Symbol([(rebuild(n), i) for (n, i) in heads])
+
+
+def _consumer_counts(symbol) -> Dict[Tuple[int, int], int]:
+    """(id(node), out_idx) -> number of consuming slots (+1 per head)."""
+    counts: Dict[Tuple[int, int], int] = {}
+    for n in _topo(symbol._heads):
+        for (inp, idx) in n.inputs:
+            k = (id(inp), idx)
+            counts[k] = counts.get(k, 0) + 1
+    for (node, idx) in symbol._heads:
+        k = (id(node), idx)
+        counts[k] = counts.get(k, 0) + 1
+    return counts
+
+
+def _infer_entry_shapes(symbol, shapes):
+    """(id(node), out_idx) -> shape for every entry shape inference can
+    resolve from ``shapes``; {} when inference cannot run."""
+    if not shapes:
+        return {}
+    heads = [(node, i) for node in _topo(symbol._heads)
+             for i in range(node.num_outputs)]
+    try:
+        _, out_shapes, _ = Symbol(heads).infer_shape_partial(**shapes)
+    except MXNetError:
+        return {}
+    return {(id(node), idx): tuple(s)
+            for (node, idx), s in zip(heads, out_shapes) if s is not None}
+
+
+# ---------------------------------------------------------------------------
+# pallas_select
+# ---------------------------------------------------------------------------
+
+def _attention_flops(q_shape, k_shape):
+    """2·(QKᵀ) + 2·(PV) multiply-adds: 4·B·Lq·Lk·d."""
+    batch = 1
+    for s in q_shape[:-2]:
+        batch *= int(s)
+    return 4.0 * batch * q_shape[-2] * k_shape[-2] * q_shape[-1]
+
+
+def _match_attention(symbol, ctx, entry_shapes, counts, entry_map, details,
+                     on_cuda):
+    """batch_dot(softmax(batch_dot(Q, Kᵀ)[·s], axis=-1), V) →
+    _fused_attention(Q, K, V, scale=s); the op takes rank 3 and 4 alike,
+    so Q, K and V are rewired as they are."""
+    min_flops = float(config.get_env("MXTPU_PALLAS_MIN_FLOPS", 1e6))
+    swapped = 0
+    for n in _topo(symbol._heads):
+        if n.is_var or n.op != "batch_dot":
+            continue
+        a2 = _node_attrs(n)
+        if a2.get_bool("transpose_a", False) or \
+                a2.get_bool("transpose_b", False):
+            continue
+        sm, smi = n.inputs[0]
+        if sm.is_var or sm.op != "softmax" or smi != 0 \
+                or len(sm.inputs) != 1:
+            continue
+        sa = _node_attrs(sm)
+        if sa.get_int("axis", -1) != -1:
+            continue
+        t = sa.get_attr("temperature", None)
+        if t not in (None, "None") and float(t) != 1.0:
+            continue
+        if counts.get((id(sm), 0), 0) != 1:
+            continue
+        s_node, s_idx = sm.inputs[0]
+        scale = 1.0
+        if not s_node.is_var and s_node.op == "_mul_scalar" and s_idx == 0 \
+                and counts.get((id(s_node), 0), 0) == 1:
+            scale = _node_attrs(s_node).get_float("scalar", 0.0)
+            s_node, s_idx = s_node.inputs[0]
+        if s_node.is_var or s_node.op != "batch_dot" or s_idx != 0 \
+                or counts.get((id(s_node), 0), 0) != 1:
+            continue
+        a1 = _node_attrs(s_node)
+        if a1.get_bool("transpose_a", False) or \
+                not a1.get_bool("transpose_b", False):
+            continue
+        q_e, k_e = s_node.inputs[0], s_node.inputs[1]
+        v_e = n.inputs[1]
+
+        def shp(e):
+            node, idx = e
+            return entry_shapes.get((id(node), idx))
+
+        qs, ks, vs = shp(q_e), shp(k_e), shp(v_e)
+        if qs is None or ks is None or vs is None:
+            continue
+        rank = len(qs)
+        if rank not in (3, 4) or len(ks) != rank or len(vs) != rank:
+            continue
+        d = qs[-1]
+        lk = ks[-2]
+        if ks[-1] != d or vs[-2] != lk or vs[-1] != d:
+            continue
+        if qs[:-2] != ks[:-2] or qs[:-2] != vs[:-2]:
+            continue
+        # per-site fallback by the JAX package's rule only (ragged L)
+        try:
+            check_attention(qs, ks, vs)
+        except ValueError as e:
+            details.setdefault("fallback_sites", []).append(
+                f"{n.name}: {e}")
+            continue
+        flops = _attention_flops(qs, ks)
+        if flops < min_flops:
+            details.setdefault("below_threshold", []).append(
+                f"{n.name}: {flops:.3g} < {min_flops:.3g}")
+            continue
+        if on_cuda:
+            try:
+                check_kernel_inputs(d, None)
+            except ValueError as e:
+                raise MXNetError(
+                    f"pallas_select: attention site {n.name}: {e}; set "
+                    "MXTPU_PALLAS=0 to serve this graph without the "
+                    "kernel") from None
+        fused = _Node("_fused_attention", ctx.name("attn"),
+                      {"causal": False, "scale": float(scale)},
+                      [q_e, k_e, v_e])
+        entry_map[(id(n), 0)] = (fused, 0)
+        swapped += 1
+        details.setdefault("attention_sites", []).append(
+            f"{n.name}: flops={flops:.3g} scale={scale}")
+    return swapped
+
+
+def _pass_pallas_select(symbol, shapes, device):
+    """Swap matched attention subgraphs for the Hopper kernel when the
+    device gate and the flop floor say so.  Parity is documented-ULP (the
+    online softmax reassociates)."""
+    mode = pallas_mode()
+    if mode in ("0", "false", "off"):
+        return symbol, 0, "ulp", {"skipped": "MXTPU_PALLAS=0"}
+    on_cuda = device is not None and device.type == "cuda"
+    if mode == "auto" and not (
+            on_cuda and torch.cuda.get_device_capability(device) == (9, 0)):
+        return symbol, 0, "ulp", {
+            "skipped": f"MXTPU_PALLAS=auto and the bound device {device} is "
+                       "not a CUDA device of capability (9, 0)"}
+    entry_shapes = _infer_entry_shapes(symbol, shapes)
+    if not entry_shapes:
+        return symbol, 0, "ulp", {"skipped": "no input shapes available "
+                                             "for pattern matching"}
+    ctx = _Ctx(symbol)
+    entry_map: Dict[Tuple[int, int], Any] = {}
+    details: Dict[str, Any] = {}
+    n_attn = _match_attention(symbol, ctx, entry_shapes,
+                              _consumer_counts(symbol), entry_map, details,
+                              on_cuda)
+    if not entry_map:
+        return symbol, 0, "ulp", details
+    details["note"] = ("kernel swap: parity within documented ULP "
+                       "(online softmax reassociates; verified at "
+                       "rtol/atol 2e-4 by tests)")
+    return _substitute(symbol, entry_map), n_attn, "ulp", details
+
+
+# ---------------------------------------------------------------------------
+# the pipeline
+# ---------------------------------------------------------------------------
+
+#: inference pipeline, in order
+INFER_PASSES: Tuple[str, ...] = ("pallas_select",)
+
+_PASS_FNS: Dict[str, Callable] = {
+    "pallas_select": _pass_pallas_select,
+}
+
+
+def optimize(symbol, shapes: Optional[Dict] = None,
+             device: Optional[torch.device] = None) -> PipelineResult:
+    """Run the inference pass pipeline over ``symbol``.  ``shapes`` ({input
+    name -> shape}) feeds the pattern matcher; ``device`` is where the
+    graph will run, which the ``auto`` kernel gate reads."""
+    if not graph_opt_enabled():
+        return PipelineResult(symbol, [], False)
+    skip = skipped_passes()
+    reports: List[PassReport] = []
+    for name in INFER_PASSES:
+        if name in skip:
+            continue
+        before = _n_compute(symbol)
+        t0 = time.perf_counter()
+        symbol, rewrites, parity, details = _PASS_FNS[name](symbol, shapes,
+                                                            device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        reports.append(PassReport(name, before, _n_compute(symbol), rewrites,
+                                  round(wall_ms, 3), parity, details))
+    return PipelineResult(symbol, reports, True)

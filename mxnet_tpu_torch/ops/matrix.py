@@ -1,0 +1,92 @@
+"""Shape and product ops of the encoder path (the counterparts of
+`mxnet_tpu/ops/matrix.py`): batch_dot, transpose, reshape and Embedding."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .registry import alias, register
+
+
+@register("batch_dot", num_inputs=2, input_names=["lhs", "rhs"])
+def _batch_dot(attrs, lhs, rhs):
+    """Batched matmul over the leading axes."""
+    if attrs.get_bool("transpose_a", False):
+        lhs = lhs.transpose(-1, -2)
+    if attrs.get_bool("transpose_b", False):
+        rhs = rhs.transpose(-1, -2)
+    return torch.matmul(lhs, rhs)
+
+
+@register("transpose", num_inputs=1, input_names=["data"])
+def _transpose(attrs, x):
+    axes = attrs.get_tuple("axes", None)
+    if not axes:
+        axes = tuple(reversed(range(x.dim())))
+    return x.permute(*axes)
+
+
+def infer_reshape(old_shape, new_shape):
+    """MXNet reshape codes (reference `matrix_op-inl.h` ReshapeParam): 0
+    copies a dim, -1 infers one dim, -2 copies all remaining dims, -3
+    merges the next two input dims, -4 splits one input dim into the two
+    spec values that follow."""
+    out = []
+    src = 0
+    spec = list(new_shape)
+    i = 0
+    while i < len(spec):
+        s = spec[i]
+        if s == 0:
+            out.append(old_shape[src])
+            src += 1
+        elif s == -1:
+            out.append(-1)
+            src += 1
+        elif s == -2:
+            out.extend(old_shape[src:])
+            src = len(old_shape)
+        elif s == -3:
+            out.append(old_shape[src] * old_shape[src + 1])
+            src += 2
+        elif s == -4:
+            d1, d2 = spec[i + 1], spec[i + 2]
+            if d1 == -1:
+                d1 = old_shape[src] // d2
+            elif d2 == -1:
+                d2 = old_shape[src] // d1
+            out.extend([int(d1), int(d2)])
+            src += 1
+            i += 2
+        else:
+            out.append(int(s))
+            src += 1
+        i += 1
+    if -1 in out:
+        known = math.prod(s for s in out if s != -1)
+        out[out.index(-1)] = math.prod(old_shape) // max(known, 1)
+    return tuple(out)
+
+
+@register("reshape", num_inputs=1, input_names=["data"])
+def _reshape(attrs, x):
+    shape = attrs.get_tuple("shape")
+    if attrs.get_bool("reverse", False):
+        inferred = infer_reshape(tuple(reversed(x.shape)),
+                                 tuple(reversed(shape)))
+        return x.reshape(tuple(reversed(inferred)))
+    return x.reshape(infer_reshape(tuple(x.shape), shape))
+
+
+alias("reshape", "Reshape")
+
+
+@register("Embedding", num_inputs=2, input_names=["data", "weight"])
+def _embedding(attrs, data, weight):
+    """weight[(int)data]: float ids truncate to integers, out-of-range ids
+    clip to the table."""
+    idx = data.to(torch.int64).clamp(0, weight.shape[0] - 1)
+    out = weight[idx]
+    dtype = attrs.get_dtype("dtype", None)
+    return out if dtype is None else out.to(dtype)

@@ -1,0 +1,138 @@
+"""Operator registry: one plain PyTorch function per op name.
+
+The counterpart of `mxnet_tpu/ops/registry.py`, with the same op names and
+attrs.  Each op registers ``fn(attrs, *tensors) -> tensor | tuple``; the
+same function runs eagerly in the executor and, on ``meta`` tensors,
+answers shape inference (the reference traces it with `jax.eval_shape`).
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+import torch
+
+from ..base import MXNetError, _Null, str_to_attr, torch_dtype
+
+__all__ = ["Attrs", "OpDef", "register", "alias", "get_op", "list_ops",
+           "apply_op", "eval_shape_op"]
+
+
+class Attrs(dict):
+    """Op attributes with string-tolerant typed accessors: Symbol JSON
+    stores every attr as a string, live calls pass python values, and both
+    parse the same way."""
+
+    def get_attr(self, key, default=None):
+        v = self.get(key, _Null)
+        if v is _Null or v is None:
+            return default
+        if isinstance(v, str):
+            return str_to_attr(v)
+        return v
+
+    def get_int(self, key, default=None):
+        v = self.get_attr(key, default)
+        return None if v is None else int(v)
+
+    def get_float(self, key, default=None):
+        v = self.get_attr(key, default)
+        return None if v is None else float(v)
+
+    def get_bool(self, key, default=None):
+        v = self.get_attr(key, default)
+        if isinstance(v, str):
+            return v.strip().lower() not in ("0", "false", "")
+        return default if v is None else bool(v)
+
+    def get_tuple(self, key, default=None):
+        v = self.get_attr(key, default)
+        if v is None:
+            return default
+        if isinstance(v, (int, float)):
+            return (v,)
+        return tuple(v)
+
+    def get_str(self, key, default=None):
+        v = self.get(key, _Null)
+        if v is _Null or v is None or v == "None":
+            return default
+        return str(v)
+
+    def get_dtype(self, key, default=None):
+        v = self.get_str(key, None)
+        return default if v is None else torch_dtype(v)
+
+
+class OpDef:
+    """One registered operator."""
+
+    def __init__(self, name: str, fn: Callable, *,
+                 num_inputs: Optional[int] = None, num_outputs: int = 1,
+                 input_names: Optional[Sequence[str]] = None):
+        self.name = name
+        self.fn = fn
+        self.num_inputs = num_inputs          # None => variadic
+        self._num_outputs = num_outputs
+        self.input_names = list(input_names) if input_names else None
+        self.doc = fn.__doc__ or ""
+        self.aliases: List[str] = []
+
+    def num_outputs(self, attrs: Attrs) -> int:
+        if callable(self._num_outputs):
+            return self._num_outputs(attrs)
+        return self._num_outputs
+
+    def __repr__(self):
+        return f"<OpDef {self.name}>"
+
+
+_REGISTRY: Dict[str, OpDef] = {}
+
+
+def register(name: str, **opts) -> Callable:
+    """Decorator: register a function as op ``name``."""
+    def deco(fn):
+        if name in _REGISTRY:
+            raise MXNetError(f"op {name!r} already registered")
+        _REGISTRY[name] = OpDef(name, fn, **opts)
+        return fn
+    return deco
+
+
+def alias(name: str, *names: str):
+    """Register alternate public names for op ``name``."""
+    op = _REGISTRY[name]
+    for n in names:
+        _REGISTRY[n] = op
+        op.aliases.append(n)
+
+
+def get_op(name: str) -> OpDef:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise MXNetError(f"operator {name!r} is not registered") from None
+
+
+def list_ops() -> List[str]:
+    return sorted(_REGISTRY)
+
+
+def _attrs(kwargs: Dict[str, Any]) -> Attrs:
+    return Attrs({k: v for k, v in kwargs.items() if v is not _Null})
+
+
+def apply_op(name: str, tensors: Sequence[torch.Tensor],
+             kwargs: Dict[str, Any]):
+    """Run op ``name`` on tensors; returns a tuple of output tensors."""
+    out = get_op(name).fn(_attrs(kwargs), *tensors)
+    return out if isinstance(out, tuple) else (out,)
+
+
+def eval_shape_op(name: str, in_shapes, in_dtypes, kwargs: Dict[str, Any]):
+    """Output shapes and dtypes of op ``name`` for the given inputs, by
+    running it on ``meta`` tensors (no storage, no arithmetic)."""
+    args = [torch.empty(tuple(s), dtype=d, device="meta")
+            for s, d in zip(in_shapes, in_dtypes)]
+    outs = apply_op(name, args, kwargs)
+    return [tuple(o.shape) for o in outs], [o.dtype for o in outs]

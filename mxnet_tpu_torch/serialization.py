@@ -1,0 +1,220 @@
+"""NDArray save/load in MXNet's `.params` binary format, byte-compatible
+with `mxnet_tpu/serialization.py` (and so with MXNet): one blob loads in
+both packages.
+
+The stream is little-endian::
+
+    uint64 0x112; uint64 reserved
+    uint64 ndarray_count; [ndarray blobs]
+    uint64 name_count;    [uint64 len + utf8 bytes]
+
+and each dense ndarray blob (`src/ndarray/ndarray.cc` NDArray::Save)::
+
+    uint32 0xF993FAC9; int32 stype = 0
+    uint32 ndim; int64 dims; int32 dev_type; int32 dev_id
+    int32 type_flag; raw data bytes
+
+A blob may end in the JAX package's 24-byte CRC32 footer (`make_footer`),
+which `loads_ndarrays` verifies and strips.  Sparse storage and the
+pre-V2 layouts are not ported.
+"""
+from __future__ import annotations
+
+import struct
+import zlib
+from typing import Dict, List, Mapping, Sequence, Union
+
+import numpy as np
+import torch
+
+from .base import DTYPE_TO_ID, ID_TO_DTYPE, MXNetError
+from .context import Context
+from .ndarray.ndarray import NDArray
+
+__all__ = ["dumps_ndarrays", "loads_ndarrays", "make_footer",
+           "split_footer", "params_from_numpy", "CheckpointCorruptError"]
+
+_LIST_MAGIC = 0x112
+_ND_MAGIC_V2 = 0xF993FAC9
+_STYPE_DENSE = 0
+
+FOOTER_MAGIC = b"MXTPCKF1"
+FOOTER_VERSION = 1
+_FOOTER_STRUCT = struct.Struct("<QII")          # payload_len, crc32, version
+FOOTER_SIZE = _FOOTER_STRUCT.size + len(FOOTER_MAGIC)
+
+
+class CheckpointCorruptError(MXNetError):
+    """A blob failed its footer check (torn write, bit rot, truncation)."""
+
+    def __init__(self, what, offset, expected, actual, kind="checksum"):
+        self.what = what
+        self.offset = int(offset)
+        self.expected = expected
+        self.actual = actual
+        self.kind = kind
+        super().__init__(
+            f"corrupt checkpoint {what}: {kind} mismatch at offset "
+            f"{offset}: expected {expected!r}, actual {actual!r}")
+
+
+def make_footer(payload) -> bytes:
+    """The 24-byte versioned footer for ``payload``, appended past the
+    legacy stream so that readers without footers never see it."""
+    return _FOOTER_STRUCT.pack(len(payload),
+                               zlib.crc32(payload) & 0xFFFFFFFF,
+                               FOOTER_VERSION) + FOOTER_MAGIC
+
+
+def split_footer(raw: bytes, what: str = "<memory>"):
+    """Verify and strip a footer: ``(payload, footer_dict_or_None)``.  No
+    trailing magic means a legacy blob, returned unchanged."""
+    if len(raw) < FOOTER_SIZE or raw[-len(FOOTER_MAGIC):] != FOOTER_MAGIC:
+        return raw, None
+    foot_off = len(raw) - FOOTER_SIZE
+    payload_len, crc, version = _FOOTER_STRUCT.unpack_from(raw, foot_off)
+    if version > FOOTER_VERSION:
+        raise CheckpointCorruptError(what, foot_off, FOOTER_VERSION,
+                                     version, kind="footer version")
+    if payload_len != foot_off:
+        raise CheckpointCorruptError(what, foot_off, payload_len, foot_off,
+                                     kind="payload length")
+    actual = zlib.crc32(raw[:foot_off]) & 0xFFFFFFFF
+    if actual != crc:
+        raise CheckpointCorruptError(what, foot_off, f"crc32=0x{crc:08x}",
+                                     f"crc32=0x{actual:08x}")
+    return raw[:foot_off], {"payload_len": payload_len, "crc32": crc,
+                            "version": version}
+
+
+def _need(view, off, nbytes, what):
+    """Every read of the stream is bounds-checked: a truncated blob fails
+    with its offset instead of a short read."""
+    if off < 0 or off + nbytes > len(view):
+        raise MXNetError(
+            f"truncated NDArray file {what} at offset {off}: need "
+            f"{nbytes} bytes, have {max(0, len(view) - off)}")
+
+
+def _tensor_bytes(t: torch.Tensor) -> bytes:
+    t = t.detach().to("cpu").contiguous()
+    return t.reshape(-1).view(torch.uint8).numpy().tobytes()
+
+
+def _write_ndarray(buf: bytearray, arr: NDArray):
+    t = arr.data
+    if t.dtype not in DTYPE_TO_ID:
+        raise MXNetError(f"cannot serialize dtype {t.dtype}")
+    buf += struct.pack("<Ii", _ND_MAGIC_V2, _STYPE_DENSE)
+    buf += struct.pack("<I", t.dim())
+    for d in t.shape:
+        buf += struct.pack("<q", int(d))
+    buf += struct.pack("<ii", 1, 0)                  # saved from cpu(0)
+    buf += struct.pack("<i", DTYPE_TO_ID[t.dtype])
+    buf += _tensor_bytes(t)
+
+
+def _read_ndarray(view: memoryview, off: int, what: str):
+    _need(view, off, 8, what)
+    magic, stype = struct.unpack_from("<Ii", view, off)
+    off += 8
+    if magic != _ND_MAGIC_V2:
+        raise MXNetError(f"NDArray file {what} at offset {off - 8}: only "
+                         "the V2 layout is read here")
+    if stype not in (_STYPE_DENSE, -1):
+        raise MXNetError(f"NDArray file {what} at offset {off - 4}: "
+                         f"sparse storage type {stype} is not ported")
+    _need(view, off, 4, what)
+    (ndim,) = struct.unpack_from("<I", view, off)
+    off += 4
+    _need(view, off, 8 * ndim + 12, what)
+    shape = struct.unpack_from(f"<{ndim}q", view, off) if ndim else ()
+    off += 8 * ndim + 8                              # dims, dev_type, dev_id
+    if any(d < 0 for d in shape):
+        raise MXNetError(f"truncated NDArray file {what} at offset {off}: "
+                         f"negative dimension in shape {tuple(shape)}")
+    (type_flag,) = struct.unpack_from("<i", view, off)
+    if type_flag not in ID_TO_DTYPE:
+        raise MXNetError(f"truncated NDArray file {what} at offset {off}: "
+                         f"unknown dtype id {type_flag}")
+    off += 4
+    dtype = ID_TO_DTYPE[type_flag]
+    count = 1
+    for d in shape:
+        count *= int(d)
+    nbytes = count * torch.empty((), dtype=dtype).element_size()
+    _need(view, off, nbytes, what)
+    if nbytes == 0:
+        return NDArray(torch.empty(shape, dtype=dtype)), off
+    raw = np.frombuffer(view, dtype=np.uint8, count=nbytes, offset=off)
+    t = torch.from_numpy(raw.copy()).view(dtype).reshape(shape)
+    return NDArray(t), off + nbytes
+
+
+def dumps_ndarrays(data: Union[NDArray, Sequence[NDArray],
+                               Mapping[str, NDArray]]) -> bytes:
+    """Encode the `.params` payload (no footer), byte for byte what the
+    JAX package and MXNet write."""
+    if isinstance(data, NDArray):
+        data = [data]
+    if isinstance(data, Mapping):
+        names = list(data.keys())
+        arrays = [data[k] for k in names]
+    else:
+        names = []
+        arrays = list(data)
+    for a in arrays:
+        if not isinstance(a, NDArray):
+            raise MXNetError("save expects NDArrays")
+    buf = bytearray()
+    buf += struct.pack("<QQQ", _LIST_MAGIC, 0, len(arrays))
+    for a in arrays:
+        _write_ndarray(buf, a)
+    buf += struct.pack("<Q", len(names))
+    for n in names:
+        raw = n.encode("utf-8")
+        buf += struct.pack("<Q", len(raw))
+        buf += raw
+    return bytes(buf)
+
+
+def loads_ndarrays(raw: bytes, what: str = "<memory>"
+                   ) -> Union[List[NDArray], Dict[str, NDArray]]:
+    """Parse a `.params` blob (footer verified and stripped when present);
+    a dict when the blob carries names, else a list.  Arrays land on the
+    CPU."""
+    raw, _ = split_footer(bytes(raw), what=what)
+    view = memoryview(raw)
+    _need(view, 0, 24, what)
+    magic, _, count = struct.unpack_from("<QQQ", view, 0)
+    if magic != _LIST_MAGIC:
+        raise MXNetError(f"invalid NDArray data {what}")
+    off = 24
+    arrays: List[NDArray] = []
+    for _ in range(count):
+        arr, off = _read_ndarray(view, off, what)
+        arrays.append(arr)
+    _need(view, off, 8, what)
+    (name_count,) = struct.unpack_from("<Q", view, off)
+    off += 8
+    names = []
+    for _ in range(name_count):
+        _need(view, off, 8, what)
+        (ln,) = struct.unpack_from("<Q", view, off)
+        off += 8
+        _need(view, off, ln, what)
+        names.append(bytes(view[off:off + ln]).decode("utf-8"))
+        off += ln
+    if names:
+        return dict(zip(names, arrays))
+    return arrays
+
+
+def params_from_numpy(arrays: Mapping[str, np.ndarray],
+                      ctx: Context) -> Dict[str, NDArray]:
+    """Carry parameters across as numpy arrays (for example the JAX
+    package's ``{name: nd.asnumpy()}``): the port's NDArrays on ``ctx``,
+    dtypes kept."""
+    return {name: NDArray(torch.tensor(np.ascontiguousarray(a),
+                                       device=ctx.device))
+            for name, a in arrays.items()}

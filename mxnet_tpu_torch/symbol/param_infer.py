@@ -1,0 +1,60 @@
+"""Backward parameter-shape inference for the layered ops (the FC,
+LayerNorm and Embedding rules of `mxnet_tpu/symbol/param_infer.py`): the
+shapes of a node's parameter variables from its data shape, so a graph
+binds from data shapes alone."""
+from __future__ import annotations
+
+from typing import Dict
+
+from ..attribute import strip_annotations
+from ..ops.registry import Attrs
+
+__all__ = ["infer_param_shapes"]
+
+
+def _fc(a, data):
+    nh = a.get_int("num_hidden")
+    if a.get_bool("flatten", True):
+        in_dim = 1
+        for s in data[1:]:
+            in_dim *= s
+    else:
+        in_dim = data[-1]
+    out = {1: (nh, in_dim)}
+    if not a.get_bool("no_bias", False):
+        out[2] = (nh,)
+    return out
+
+
+def _ln(a, data):
+    c = data[a.get_int("axis", -1)]
+    return {1: (c,), 2: (c,)}
+
+
+def _embedding(a, data):
+    return {1: (a.get_int("input_dim"), a.get_int("output_dim"))}
+
+
+_RULES = {
+    "FullyConnected": _fc,
+    "LayerNorm": _ln,
+    "Embedding": _embedding,
+}
+
+
+def infer_param_shapes(node, shapes) -> Dict[str, tuple]:
+    """Shapes of ``node``'s variable inputs deducible from its data input
+    (slot 0), given ``shapes`` {value key -> shape or None}."""
+    rule = _RULES.get(node.op)
+    if rule is None or not node.inputs:
+        return {}
+    inp, idx = node.inputs[0]
+    data = shapes.get(inp.name if inp.is_var else f"{inp.name}#{idx}")
+    if data is None:
+        return {}
+    out = {}
+    for slot, shape in rule(Attrs(strip_annotations(node.attrs)),
+                            data).items():
+        if slot < len(node.inputs) and node.inputs[slot][0].is_var:
+            out[node.inputs[slot][0].name] = tuple(int(s) for s in shape)
+    return out

@@ -1,0 +1,70 @@
+"""Generated `sym.*` surface: one composer per registered op (the
+counterpart of `mxnet_tpu/symbol/register.py`), so the same builder code
+produces the same graph, and the same JSON, in both packages."""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+from ..base import _Null
+from ..ops import registry as _reg
+from ..ops.registry import Attrs
+from .symbol import Symbol, _NAMES, _new_op_node, var
+
+__all__ = ["invoke_sym", "make_sym_functions"]
+
+
+# which named inputs an op consumes given its attrs; composition creates a
+# `<node>_<input>` variable for each one not passed (reference ListArguments)
+_SYM_INPUTS = {
+    "FullyConnected": lambda a: ["data", "weight"] + (
+        [] if a.get_bool("no_bias", False) else ["bias"]),
+    "LayerNorm": lambda a: ["data", "gamma", "beta"],
+    "Embedding": lambda a: ["data", "weight"],
+    "LeakyReLU": lambda a: (["data", "gamma"]
+                            if a.get_str("act_type", "leaky") == "prelu"
+                            else ["data"]),
+}
+
+
+def invoke_sym(op_name: str, *args, name=None, **kwargs) -> Symbol:
+    op = _reg.get_op(op_name)
+    inputs = [a for a in args if a is not None]
+    named = {k: kwargs.pop(k) for k in list(kwargs)
+             if isinstance(kwargs[k], Symbol)}
+    # an explicit None is kept: Attrs accessors read it as "not given"
+    attrs: Dict[str, Any] = {k: v for k, v in kwargs.items()
+                             if v is not _Null}
+    if name is None:
+        name = _NAMES.get(op_name.lstrip("_"))
+
+    if op_name in _SYM_INPUTS:
+        want = _SYM_INPUTS[op_name](Attrs(attrs))
+        pos = {want[i]: s for i, s in enumerate(inputs) if i < len(want)}
+        pos.update(named)
+        inputs = [pos[n] if n in pos else var(f"{name}_{n}") for n in want]
+    elif named and op.input_names:
+        pos = {op.input_names[i]: s for i, s in enumerate(inputs)}
+        pos.update(named)
+        inputs = [pos[n] for n in op.input_names if n in pos]
+    elif named:
+        inputs.extend(named.values())
+
+    heads = []
+    for s in inputs:
+        if not isinstance(s, Symbol):
+            raise TypeError(
+                f"sym.{op_name}: inputs must be Symbols, got {type(s)}")
+        heads.extend(s._heads)
+    return _new_op_node(op_name, heads, attrs, name)
+
+
+def make_sym_functions(module_dict: Dict[str, Any]) -> None:
+    for op_name in _reg.list_ops():
+        if op_name in module_dict:
+            continue
+
+        def f(*args, _n=op_name, name=None, **kwargs):
+            return invoke_sym(_n, *args, name=name, **kwargs)
+        f.__name__ = op_name
+        f.__doc__ = _reg.get_op(op_name).doc
+        module_dict[op_name] = f

@@ -1,0 +1,284 @@
+"""Symbol: declarative graph construction (the counterpart of
+`mxnet_tpu/symbol/symbol.py`, with the subset a deploy `Predictor` needs).
+
+A Symbol is a list of output entries ``(node, out_index)`` over an
+immutable DAG of nodes.  The JSON format (`tojson` / `load_json`) is the
+JAX package's, character for character, so one symbol file means the same
+graph in both packages.  Shape inference runs each op on ``meta`` tensors
+in topological order, with the backward rules of `param_infer.py` filling
+parameter shapes from data shapes.
+"""
+from __future__ import annotations
+
+import json
+import threading
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from ..attribute import strip_annotations
+from ..base import MXNetError, str_to_attr
+from ..ops import registry as _reg
+from ..ops.registry import Attrs
+from .param_infer import infer_param_shapes
+
+__all__ = ["Symbol", "var", "Group", "load_json"]
+
+
+class _NameManager(threading.local):
+    def __init__(self):
+        super().__init__()
+        self.counters: Dict[str, int] = {}
+
+    def get(self, hint: str) -> str:
+        i = self.counters.get(hint, 0)
+        self.counters[hint] = i + 1
+        return f"{hint.lower()}{i}"
+
+
+_NAMES = _NameManager()
+
+
+class _Node:
+    """One graph node (op instance or variable)."""
+    __slots__ = ("op", "name", "attrs", "inputs", "num_outputs")
+
+    def __init__(self, op: Optional[str], name: str, attrs: Dict[str, Any],
+                 inputs: List[Tuple["_Node", int]]):
+        self.op = op                      # None => variable
+        self.name = name
+        self.attrs = attrs
+        self.inputs = inputs
+        self.num_outputs = 1 if op is None else _reg.get_op(op).num_outputs(
+            Attrs(strip_annotations(attrs)))
+
+    @property
+    def is_var(self) -> bool:
+        return self.op is None
+
+
+def _topo(heads: Sequence[Tuple[_Node, int]]) -> List[_Node]:
+    """Post-order DFS over the DAG (inputs first), iterative so that deep
+    graphs do not hit the recursion limit."""
+    seen = set()
+    order: List[_Node] = []
+    for (head, _) in heads:
+        if id(head) in seen:
+            continue
+        seen.add(id(head))
+        stack = [(head, iter(head.inputs))]
+        while stack:
+            node, it = stack[-1]
+            for (inp, _) in it:
+                if id(inp) not in seen:
+                    seen.add(id(inp))
+                    stack.append((inp, iter(inp.inputs)))
+                    break
+            else:
+                stack.pop()
+                order.append(node)
+    return order
+
+
+def _entry_key(entry: Tuple[_Node, int]) -> str:
+    node, idx = entry
+    return f"{node.name}#{idx}"
+
+
+def _value_key(entry: Tuple[_Node, int]) -> str:
+    """Key of an entry's value: a variable under its plain name."""
+    node, idx = entry
+    return node.name if node.is_var else f"{node.name}#{idx}"
+
+
+class Symbol:
+    """A list of output entries over the node DAG."""
+
+    def __init__(self, heads: List[Tuple[_Node, int]]):
+        self._heads = heads
+
+    @property
+    def name(self) -> str:
+        return self._heads[0][0].name if len(self._heads) == 1 else "group"
+
+    def __repr__(self):
+        return f"<Symbol {self.name}>"
+
+    def __len__(self):
+        return len(self._heads)
+
+    def __getitem__(self, idx):
+        if isinstance(idx, str):
+            names = self.list_outputs()
+            if idx not in names:
+                raise MXNetError(f"no output named {idx!r}")
+            idx = names.index(idx)
+        if isinstance(idx, slice):
+            return Symbol(self._heads[idx])
+        return Symbol([self._heads[idx]])
+
+    # -- listing ----------------------------------------------------------
+    def _nodes(self) -> List[_Node]:
+        return _topo(self._heads)
+
+    def list_arguments(self) -> List[str]:
+        return [n.name for n in self._nodes() if n.is_var]
+
+    def list_auxiliary_states(self) -> List[str]:
+        """Empty: no ported op mutates its inputs (BatchNorm's moving
+        statistics are the reference's auxiliary states)."""
+        return []
+
+    def list_outputs(self) -> List[str]:
+        out = []
+        for (node, idx) in self._heads:
+            if node.is_var:
+                out.append(node.name)
+            elif node.num_outputs == 1:
+                out.append(f"{node.name}_output")
+            else:
+                out.append(f"{node.name}_output{idx}")
+        return out
+
+    # -- shape inference ----------------------------------------------------
+    def infer_shape(self, **shapes):
+        """``(arg_shapes, out_shapes, aux_shapes)`` from known input
+        shapes; raises when an argument stays unresolved."""
+        return self._infer_shape_impl(False, shapes)
+
+    def infer_shape_partial(self, **shapes):
+        """`infer_shape` leaving unresolved entries as None."""
+        return self._infer_shape_impl(True, shapes)
+
+    def _infer_shape_impl(self, partial, shapes):
+        known = {k: tuple(v) for k, v in shapes.items() if v is not None}
+        inferred = _infer_graph(self._heads, known, partial)
+        arg_shapes = [inferred.get(n) for n in self.list_arguments()]
+        out_shapes = [inferred.get(_value_key(e)) for e in self._heads]
+        return arg_shapes, out_shapes, []
+
+    # -- serialization ------------------------------------------------------
+    def tojson(self) -> str:
+        nodes = self._nodes()
+        nid = {id(n): i for i, n in enumerate(nodes)}
+        graph = {
+            "nodes": [{
+                "op": "null" if n.is_var else n.op,
+                "name": n.name,
+                "attrs": {k: _attr_str(v) for k, v in n.attrs.items()},
+                "inputs": [[nid[id(s)], i, 0] for (s, i) in n.inputs],
+            } for n in nodes],
+            "arg_nodes": [i for i, n in enumerate(nodes) if n.is_var],
+            "node_row_ptr": list(range(len(nodes) + 1)),
+            "heads": [[nid[id(n)], i, 0] for (n, i) in self._heads],
+            "attrs": {"mxnet_version": ["int", 10400]},
+        }
+        return json.dumps(graph, indent=2)
+
+    # -- execution ----------------------------------------------------------
+    def bind(self, ctx=None, args=None, grad_req="null", aux_states=None):
+        """An inference `Executor` over this graph with ``args`` bound."""
+        from ..executor import Executor  # the executor imports symbols
+        return Executor(self, ctx, args=args, grad_req=grad_req,
+                        aux_states=aux_states)
+
+
+def _attr_str(v) -> str:
+    """The JAX package's JSON spelling of an attr value."""
+    if isinstance(v, bool):
+        return str(int(v))
+    if isinstance(v, (list, tuple)):
+        if len(v) == 1:
+            # trailing comma so the string parses back to a 1-tuple
+            return "(" + str(v[0]) + ",)"
+        return "(" + ", ".join(str(x) for x in v) + ")"
+    return str(v)
+
+
+def _var_shape(node: _Node) -> Optional[tuple]:
+    raw = node.attrs.get("__shape__")
+    if raw is None:
+        return None
+    shape = tuple(str_to_attr(raw) if isinstance(raw, str) else raw)
+    # the reference's 0-as-unknown convention: a partial declaration does
+    # not pin the shape
+    return None if 0 in shape else shape
+
+
+def _infer_graph(heads, known: Dict[str, tuple], partial: bool):
+    """{value key -> shape} for every entry this pass can resolve: each op
+    runs on meta tensors once all its inputs are known; parameter inputs
+    are back-filled from data shapes first (the reference's bidirectional
+    InferShape for the layered ops)."""
+    nodes = _topo(heads)
+    shapes: Dict[str, Optional[tuple]] = {}
+    dtypes: Dict[str, torch.dtype] = {}
+    for n in nodes:
+        if n.is_var:
+            shapes[n.name] = (known[n.name] if n.name in known
+                              else _var_shape(n))
+            dtypes[n.name] = torch.float32
+    for node in nodes:
+        if node.is_var:
+            continue
+        keys = [_value_key(e) for e in node.inputs]
+        if any(shapes.get(k) is None for k in keys):
+            for vname, shp in infer_param_shapes(node, shapes).items():
+                if shapes.get(vname) is None:
+                    shapes[vname] = shp
+        in_shapes = [shapes.get(k) for k in keys]
+        if any(s is None for s in in_shapes):
+            continue
+        try:
+            out_shapes, out_dtypes = _reg.eval_shape_op(
+                node.op, in_shapes, [dtypes[k] for k in keys],
+                strip_annotations(node.attrs))
+        except Exception as e:
+            raise MXNetError(f"shape inference failed at node {node.name} "
+                             f"({node.op}): {e}") from e
+        for i, (s, d) in enumerate(zip(out_shapes, out_dtypes)):
+            shapes[_entry_key((node, i))] = s
+            dtypes[_entry_key((node, i))] = d
+    missing = [n.name for n in nodes if n.is_var and shapes.get(n.name) is None]
+    if missing and not partial:
+        raise MXNetError(f"infer_shape: unresolved arguments {missing}")
+    return shapes
+
+
+# ---------------------------------------------------------------------------
+# constructors
+# ---------------------------------------------------------------------------
+
+def var(name: str, shape=None, **kwargs) -> Symbol:
+    """A variable symbol; ``shape`` becomes its ``__shape__`` annotation."""
+    attrs: Dict[str, Any] = {}
+    if shape is not None:
+        attrs["__shape__"] = tuple(shape)
+    attrs.update({k: v for k, v in kwargs.items() if v is not None})
+    return Symbol([(_Node(None, name, attrs, []), 0)])
+
+
+def Group(symbols: Sequence[Symbol]) -> Symbol:
+    heads = []
+    for s in symbols:
+        heads.extend(s._heads)
+    return Symbol(heads)
+
+
+def load_json(json_str: str) -> Symbol:
+    graph = json.loads(json_str)
+    built: List[_Node] = []
+    for nj in graph["nodes"]:
+        inputs = [(built[i[0]], i[1]) for i in nj.get("inputs", [])]
+        op = None if nj["op"] == "null" else nj["op"]
+        built.append(_Node(op, nj["name"], dict(nj.get("attrs") or {}),
+                           inputs))
+    return Symbol([(built[h[0]], h[1]) for h in graph["heads"]])
+
+
+def _new_op_node(op_name: str, inputs: List[Tuple[_Node, int]],
+                 attrs: Dict[str, Any], name: Optional[str]) -> Symbol:
+    if name is None:
+        name = _NAMES.get(op_name.lstrip("_"))
+    node = _Node(op_name, name, attrs, inputs)
+    return Symbol([(node, i) for i in range(node.num_outputs)])

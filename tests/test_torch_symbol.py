@@ -1,0 +1,117 @@
+"""Graph and weight interchange between the JAX package and the port:
+identical Symbol JSON from one builder, JSON loaded across, shape
+inference, and `.params` blobs that round-trip bitwise both ways."""
+import numpy as np
+import pytest
+import torch
+
+import mxnet_tpu as mx
+from mxnet_tpu import serialization as jser
+
+import mxnet_tpu_torch as mt
+from mxnet_tpu_torch import serialization as tser
+from mxnet_tpu_torch.model_zoo import BERT_BASE, bert_encoder
+from mxnet_tpu_torch.ndarray.ndarray import NDArray
+
+TINY = dict(num_layers=2, hidden=64, heads=4, ffn=256, vocab=100,
+            max_len=128)
+
+
+@pytest.mark.parametrize("cfg", [TINY, BERT_BASE], ids=["tiny", "base"])
+def test_builder_gives_identical_json(cfg):
+    assert bert_encoder(mt.sym, **cfg).tojson() == \
+        bert_encoder(mx.sym, **cfg).tojson()
+
+
+def test_reference_json_loads_and_round_trips():
+    ref = bert_encoder(mx.sym, **TINY)
+    loaded = mt.sym.load_json(ref.tojson())
+    assert loaded.tojson() == ref.tojson()
+    assert loaded.list_arguments() == ref.list_arguments()
+    assert loaded.list_outputs() == ref.list_outputs()
+
+
+@pytest.mark.parametrize("batch,seq", [(2, 128), (3, 64)])
+def test_infer_shape_agrees(batch, seq):
+    shapes = {"data": (batch, seq), "positions": (1, seq)}
+    ref = bert_encoder(mx.sym, **TINY).infer_shape(**shapes)
+    got = bert_encoder(mt.sym, **TINY).infer_shape(**shapes)
+    assert [tuple(s) for s in got[0]] == [tuple(s) for s in ref[0]]
+    assert [tuple(s) for s in got[1]] == [tuple(s) for s in ref[1]]
+    assert got[2] == list(ref[2]) == []
+
+
+def test_infer_shape_partial_leaves_unknowns():
+    sym = bert_encoder(mt.sym, **TINY)
+    args, outs, _ = sym.infer_shape_partial(positions=(1, 8))
+    by_name = dict(zip(sym.list_arguments(), args))
+    assert by_name["data"] is None and outs == [None]
+    assert by_name["position_embed_weight"] == (128, 64)
+    with pytest.raises(mt.MXNetError):
+        sym.infer_shape(positions=(1, 8))
+
+
+# dtypes both packages hold without conversion (the JAX package narrows
+# 64-bit arrays with x64 off)
+_DTYPES = ["float32", "float16", "bfloat16", "int32", "int8", "uint8",
+           "bool"]
+
+
+def _arrays(seed):
+    rng = np.random.RandomState(seed)
+    out = {}
+    for i, dt in enumerate(_DTYPES):
+        shape = [(3, 4), (5,), (), (2, 0, 3), (2, 3, 2), (7,), (4, 2)][i]
+        out[f"arg:p{i}_{dt}"] = np.asarray(rng.randn(*shape) * 10,
+                                           dtype=np.float32)
+    return out
+
+
+def _to_ref(arrays):
+    return {k: mx.nd.array(v, dtype=k.rsplit("_", 1)[1])
+            for k, v in arrays.items()}
+
+
+def _to_port(arrays):
+    return {k: NDArray(torch.from_numpy(v).to(getattr(torch,
+                                                      k.rsplit("_", 1)[1])))
+            for k, v in arrays.items()}
+
+
+def test_params_blob_round_trips_reference_to_port():
+    blob = jser.dumps_ndarrays(_to_ref(_arrays(0)))
+    loaded = tser.loads_ndarrays(blob)
+    assert list(loaded) == list(_arrays(0))
+    assert tser.dumps_ndarrays(loaded) == blob
+
+
+def test_params_blob_round_trips_port_to_reference():
+    blob = tser.dumps_ndarrays(_to_port(_arrays(1)))
+    loaded = jser.loads_ndarrays(blob)
+    assert jser.dumps_ndarrays(loaded) == blob
+    for k, v in tser.loads_ndarrays(blob).items():
+        assert np.array_equal(v.asnumpy(),
+                              np.asarray(loaded[k].asnumpy(), np.float32)
+                              if k.endswith("bfloat16")
+                              else loaded[k].asnumpy())
+
+
+def test_params_footer_is_shared_and_verified():
+    payload = tser.dumps_ndarrays(_to_port(_arrays(2)))
+    assert tser.make_footer(payload) == jser.make_footer(payload)
+    framed = payload + tser.make_footer(payload)
+    assert jser.dumps_ndarrays(jser.loads_ndarrays(framed)) == payload
+    assert tser.dumps_ndarrays(tser.loads_ndarrays(framed)) == payload
+    bad = bytearray(framed)
+    bad[40] ^= 0xFF
+    with pytest.raises(tser.CheckpointCorruptError):
+        tser.loads_ndarrays(bytes(bad))
+    with pytest.raises(mt.MXNetError, match="truncated"):
+        tser.loads_ndarrays(payload[:-3])
+
+
+def test_unnamed_params_blob_loads_as_a_list():
+    arrays = [mx.nd.array(np.arange(6, dtype=np.float32).reshape(2, 3))]
+    loaded = tser.loads_ndarrays(jser.dumps_ndarrays(arrays))
+    assert isinstance(loaded, list)
+    np.testing.assert_array_equal(loaded[0].asnumpy(), arrays[0].asnumpy())
