@@ -12,10 +12,16 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    capability check, TF32 off (parity is held in fp32).
 2. build   -- every kernel of `mxnet_tpu_torch/csrc`, one ``nvcc`` per
    source, all started together; prints the seconds and the ptxas report.
-3. kernels -- each kernel against its plain PyTorch version on the same
-   inputs on the card (fp32 at 2e-4, bf16 compared in bf16 at 2e-2), at
-   the main path's shape and others, with the kernel's, the plain
-   version's and one PyTorch library call's times beside the bound.
+3. kernels -- K1 against its plain PyTorch version on the same inputs on
+   the card (fp32 at 2e-4, bf16 compared in bf16 at 2e-2), at the main
+   path's shape and others, with the kernel's, the plain version's and one
+   PyTorch library call's times beside the bound.
+3b. backward kernels -- K2 (dq) and K3 (dk, dv) against their plain
+   versions on K1's residuals with a nonzero dLSE: BERT-base's
+   [8, 12, 512, 64] and [8, 12, 128, 64] calls, causal, bf16, head dims
+   16/32/128 and Lq != Lk; fp32 within 2e-3, bf16 within 2e-2 of the
+   gradient's largest magnitude; times beside the bound and one library
+   call (the backward of PyTorch's fused attention, for K2 + K3).
 4. slice   -- BERT-base (12 x 768, 12 heads, FFN 3072, vocab 30522, random
    weights from a seed, handed over as a `.params` blob) served by
    `mxnet_tpu_torch.Predictor` on cuda:0: 4 requests at (8, 512), a reshape
@@ -24,6 +30,18 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    must match a second Predictor that runs the unfused graph on the card
    (``MXTPU_PALLAS=0``).  At each shape, after the checked requests and
    one warm-up, a few hundred more are timed for the latency percentiles.
+5. train   -- BERT-base masked-LM pretraining (`bert_mlm`, the encoder
+   with `_fused_attention`, BERT's MLM head and a decoder tied to the word
+   embedding) through `mxnet_tpu_torch.mod.Module` on cuda:0 at batch
+   8 x 512 in fp32, weights from a seed through ``arg_params``.  One
+   forward/backward with dropout 0 must match the unfused graph
+   (``attention="batch_dot"``) on every parameter's gradient; then with
+   dropout 0.1 and BERT's Adam, 20 steps on a fixed batch must lower the
+   loss, and 20 more (after 2 warm-ups) are timed.  Every step must launch
+   K1, K2 and K3 once per layer.  One warm step is profiled.
+
+If the run nears its time limit, cut the serving phase's ``TIMED`` counts
+before anything of the training phase.
 
 The line before the last is the JSON kernel report; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -43,7 +61,7 @@ import torch  # noqa: E402
 
 import mxnet_tpu_torch as mt  # noqa: E402
 from mxnet_tpu_torch.model_zoo import (BERT_BASE, bert_encoder,  # noqa: E402
-                                       random_params)
+                                       bert_mlm, random_params)
 from mxnet_tpu_torch.ndarray.ndarray import NDArray  # noqa: E402
 from mxnet_tpu_torch.ops import cuda_build, hopper_kernels as hk  # noqa: E402
 from mxnet_tpu_torch.serialization import dumps_ndarrays  # noqa: E402
@@ -54,11 +72,25 @@ SEED = 0
 MEM_BPS = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+# attention gradients: the reference's own tolerance (tests/test_pallas.py,
+# rtol = atol = 2e-3) in fp32; bf16 relative to the gradient's largest
+# magnitude
+GRAD_TOL = 2e-3
+BF16_GRAD_TOL = 2e-2
 # 12 LayerNorm'd layers of fp32 sums taken in another order
 SLICE_TOL = 1e-3
 # requests timed per bound sequence length, after the checked ones and one
 # warm-up
 TIMED = {512: 200, 128: 400}
+# training slice: each parameter's gradient against the unfused graph's,
+# relative to its largest magnitude (the reference's attention-gradient
+# tolerance); the key biases, zero in exact arithmetic, are held below
+# KEY_BIAS_TOL of the largest gradient of all
+TRAIN_GRAD_TOL = 2e-3
+KEY_BIAS_TOL = 1e-5
+TRAIN_STEPS, WARM_STEPS, TIMED_STEPS = 20, 2, 20
+# BERT's published Adam settings, in MXNet's L2 form of weight decay
+ADAM = dict(learning_rate=1e-4, wd=0.01, beta2=0.999, epsilon=1e-6)
 
 
 def log(*parts):
@@ -193,6 +225,112 @@ def phase_kernels():
         recs = [check_attention(*c, gen) for c in cases]
     # the main path's call: BERT-base attention at seq 512, fp32, no mask
     return recs[0]
+
+
+def _backward_bound(q, k, causal, dkv):
+    """Least time for K2's (``dkv`` False) or K3's work on these inputs:
+    q, k, v, dO and the three fp32 rows read once, dq (or dk and dv)
+    written once, or 6 (K2: s, dp, dq) or 8 (K3: s, dv, dp, dk) operations
+    per visible (query, key, d) over the peak rate for the input type."""
+    lq, d = q.shape[-2:]
+    lk = k.shape[-2]
+    bh = q.numel() // (lq * d)
+    elem = q.element_size()
+    reads = (2 * bh * lq * d + 2 * bh * lk * d) * elem + 3 * bh * lq * 4
+    writes = (2 * bh * lk * d if dkv else bh * lq * d) * elem
+    pairs = sum(min(i + 1, lk) for i in range(lq)) if causal else lq * lk
+    flops = (8.0 if dkv else 6.0) * bh * d * pairs
+    t_mem = (reads + writes) / MEM_BPS
+    t_ops = flops / PEAK_FLOPS[q.dtype]
+    return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem > t_ops
+                                     else "operations")
+
+
+def _grad_err(got, want, dtype):
+    """Max |got - want| in fp32; fp32 must be within GRAD_TOL (rtol and
+    atol, the reference's attention-gradient tolerance), bf16 within
+    BF16_GRAD_TOL of the gradient's largest magnitude."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=GRAD_TOL, atol=GRAD_TOL)
+    elif err > BF16_GRAD_TOL * want.abs().max().item():
+        raise AssertionError(f"bf16 gradient off by {err}")
+    return err
+
+
+def check_attention_backward(name, q_shape, lk, dtype, causal, gen):
+    """K2 and K3 against their plain versions on one input, the forward
+    residuals from K1 and a nonzero dLSE; returns the two records."""
+    d = q_shape[-1]
+    kv_shape = tuple(q_shape[:-2]) + (lk, d)
+    dev = torch.device("cuda", 0)
+    q, do = (torch.randn(q_shape, generator=gen, device=dev).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(kv_shape, generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    dlse = torch.randn(q_shape[:-1], generator=gen, device=dev)
+    scale = d ** -0.5
+    o, lse = hk.flash_attention_with_lse(q, k, v, causal=causal)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, dlse)
+    kw = dict(causal=causal, scale=scale)
+    dq = hk._attn_dq_cuda(*args, **kw)
+    dk, dv = hk._attn_dkv_cuda(*args, **kw)
+    dq_ref = hk._attn_dq_plain(*args, **kw)
+    dk_ref, dv_ref = hk._attn_dkv_plain(*args, **kw)
+    torch.cuda.synchronize()
+    errs = {"dq": _grad_err(dq, dq_ref, dtype),
+            "dk": _grad_err(dk, dk_ref, dtype),
+            "dv": _grad_err(dv, dv_ref, dtype)}
+    lib_ms = None
+    if name == "bert_base" and not causal and dtype == torch.float32:
+        # one library call for the three gradients (dLSE = 0 there): the
+        # backward of PyTorch's fused attention on the same tensors
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        with torch.enable_grad():
+            out = torch.nn.functional.scaled_dot_product_attention(
+                *leaves, scale=scale)
+            lib_ms = time_ms(lambda: torch.autograd.grad(
+                out, leaves, do, retain_graph=True))
+    recs = []
+    for kernel, fn, plain, dkv, err in (
+            ("flash_attn_bwd_dq", lambda: hk._attn_dq_cuda(*args, **kw),
+             lambda: hk._attn_dq_plain(*args, **kw), False, errs["dq"]),
+            ("flash_attn_bwd_dkv", lambda: hk._attn_dkv_cuda(*args, **kw),
+             lambda: hk._attn_dkv_plain(*args, **kw), True,
+             max(errs["dk"], errs["dv"]))):
+        rec = {"check": name, "kernel": kernel, "q": list(q_shape), "lk": lk,
+               "dtype": str(dtype).replace("torch.", ""), "causal": causal,
+               "max_abs_err": err, "ms": time_ms(fn),
+               "plain_ms": time_ms(plain),
+               "library_ms": lib_ms}
+        rec["bound_ms"], rec["bound_by"] = _backward_bound(q, k, causal, dkv)
+        log(json.dumps(rec))
+        recs.append(rec)
+    return recs
+
+
+def phase_backward_kernels():
+    """K2 and K3 against their plain versions; returns the records of the
+    main path's call (BERT-base's [8, 12, 512, 64] fp32 attention)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    cases = [("bert_base", (8, 12, 512, 64), 512, torch.float32, False),
+             ("bert_base_128", (8, 12, 128, 64), 128, torch.float32, False),
+             ("bert_base", (8, 12, 512, 64), 512, torch.float32, True)]
+    for causal in (False, True):
+        cases.append(("bert_base", (8, 12, 512, 64), 512, torch.bfloat16,
+                      causal))
+    for causal in (False, True):
+        cases += [("d16", (2, 3, 256, 16), 256, torch.float32, causal),
+                  ("d32", (1, 2, 128, 32), 128, torch.float32, causal),
+                  ("d128", (2, 2, 256, 128), 256, torch.float32, causal),
+                  ("d128", (2, 2, 256, 128), 256, torch.bfloat16, causal),
+                  ("lq_ne_lk", (1, 2, 64, 16), 256, torch.float32, causal),
+                  ("lq_ne_lk", (2, 4, 64, 64), 256, torch.float32, causal)]
+    with torch.no_grad():
+        recs = [check_attention_backward(*c, gen) for c in cases]
+    return {r["kernel"]: r for r in recs[0]}
 
 
 def _serve(pred, requests, positions, launches_per_forward=None,
@@ -365,23 +503,258 @@ def phase_slice(card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 5: BERT-base masked-LM training through Module
+# ---------------------------------------------------------------------------
+
+def _mlm_batch(vocab, batch, seq):
+    """One fixed batch on the card: token ids, positions, and labels that
+    hold the token at 15 % of the positions and -1 elsewhere."""
+    rng = np.random.RandomState(SEED + 3)
+    data = rng.randint(0, vocab, (batch, seq)).astype(np.float32)
+    label = np.where(rng.rand(batch, seq) < 0.15, data, -1.0) \
+        .astype(np.float32)
+    pos = np.arange(seq, dtype=np.float32)[None]
+    dev = mt.gpu(0)
+    return mt.io.DataBatch([mt.nd.array(data, ctx=dev),
+                            mt.nd.array(pos, ctx=dev)],
+                           [mt.nd.array(label, ctx=dev)])
+
+
+def _mlm_module(sym, params, batch, seq):
+    """`Module` on the default context (the card), bound for training and
+    initialized from ``params`` through ``arg_params``."""
+    mod = mt.mod.Module(sym, data_names=("data", "positions"),
+                        label_names=("mlm_label",))
+    mod.bind([("data", (batch, seq)), ("positions", (1, seq))],
+             [("mlm_label", (batch, seq))])
+    mod.init_params(arg_params=params)
+    return mod
+
+
+def _mlm_loss(mod, label):
+    """Mean -log p(label) over the masked positions."""
+    prob = mod.get_outputs()[0].data
+    flat = label.reshape(-1)
+    rows = torch.nonzero(flat >= 0).squeeze(1)
+    return -torch.log(prob[rows, flat[rows].long()]).mean().item()
+
+
+def _check_launches(what, launches, want):
+    for name, n in launches.items():
+        if n != want:
+            raise AssertionError(f"{what}: {name} launched {n} times, want "
+                                 f"{want} ({launches})")
+
+
+def _grad_parity(fused, unfused):
+    """Every parameter's gradient in the fused graph against the unfused
+    one: max |diff| over the gradient's largest magnitude."""
+    gf, gu = fused._exec.grad_dict, unfused._exec.grad_dict
+    if set(gf) != set(gu):
+        raise AssertionError(f"gradient sets differ: {set(gf) ^ set(gu)}")
+    scale = max(g.data.abs().max().item() for g in gu.values())
+    worst, key_bias = {}, {}
+    for name in gf:
+        got, want = gf[name].data, gu[name].data
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"gradient of {name} is not finite")
+        if name.endswith("_key_bias"):
+            # zero in exact arithmetic: a shift shared by a row's scores
+            # leaves its softmax unchanged; both graphs give roundoff
+            key_bias[name] = max(got.abs().max().item(),
+                                 want.abs().max().item()) / scale
+            continue
+        worst[name] = ((got - want).abs().max() /
+                       want.abs().max().clamp_min(1e-30)).item()
+    ranked = sorted(worst.items(), key=lambda kv: -kv[1])
+    name, err = ranked[0]
+    log(f"train: worst gradients {[(n, f'{e:.3e}') for n, e in ranked[:4]]} "
+        f"(relative to each one's largest magnitude); key biases at most "
+        f"{max(key_bias.values()):.3e} of the largest gradient")
+    if err > TRAIN_GRAD_TOL:
+        raise AssertionError(f"gradient of {name} off by {err} relative")
+    if max(key_bias.values()) > KEY_BIAS_TOL:
+        raise AssertionError(f"key-bias gradients {key_bias}")
+    return name, err
+
+
+def _kernel_ms(rows, part):
+    return sum(ms for key, ms in rows if part in key)
+
+
+def profile_step(mod, batch_data):
+    """Device time by kind over one warm training step: the fp32 GEMMs,
+    K1, K2, K3, SoftmaxOutput (forward and its defined backward) and the
+    optimizer update, beside the device-busy total and the wall time.
+    The forward and the update are spans of this thread; autograd runs the
+    backward's kernels from a thread of its own, so the backward is the
+    rest of the busy time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    spans = ("forward", "optimizer_update")
+    mod.forward_backward(batch_data)
+    mod.update()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with record_function(spans[0]):
+            mod.forward(batch_data, is_train=True)
+        mod.backward()
+        with record_function(spans[1]):
+            mod.update()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    kernels = [(e.key, e.self_device_time_total / 1e3) for e in events
+               if e.device_type == DeviceType.CUDA and e.key not in spans
+               and not getattr(e, "is_user_annotation", False)]
+    host = {e.key: e.device_time_total / 1e3 for e in events
+            if e.device_type == DeviceType.CPU}
+    busy = sum(ms for _, ms in kernels)
+    gemm = sum(ms for key, ms in kernels
+               if "gemm" in key.lower() or "gemv" in key.lower())
+    smo_keys = [k for k in host if k == "_SoftmaxOutput" or
+                k.endswith(": _SoftmaxOutputBackward")]
+    kernels.sort(key=lambda r: -r[1])
+    fwd, upd = (host.get(s, 0.0) for s in spans)
+    rec = {"profile": "train step", "wall_ms": wall_ms,
+           "device_busy_ms": busy,
+           "idle_share": (1.0 - busy / wall_ms) if busy else "not measured",
+           "forward_ms": fwd, "backward_ms": busy - fwd - upd,
+           "optimizer_update_ms": upd, "fp32_gemm_ms": gemm,
+           "k1_ms": _kernel_ms(kernels, "flash_attn_fwd_kernel"),
+           "k2_ms": _kernel_ms(kernels, "flash_attn_bwd_dq_kernel"),
+           "k3_ms": _kernel_ms(kernels, "flash_attn_bwd_dkv_kernel"),
+           "softmax_output_ms": (sum(host[k] for k in smo_keys)
+                                 if smo_keys else "not measured"),
+           "softmax_output_events": smo_keys,
+           "top": [[name[:90], ms] for name, ms in kernels[:12]]}
+    log(json.dumps(rec))
+    return rec
+
+
+def phase_train(card, cfg=None, batch=8, seq=512):
+    """BERT-base masked-LM pretraining steps through `Module` on cuda:0.
+    ``cfg`` cuts the model for a rehearsal; the smoke runs BERT_BASE."""
+    cfg = dict(BERT_BASE if cfg is None else cfg)
+    n_layers = cfg["num_layers"]
+    shapes = {"data": (batch, seq), "positions": (1, seq),
+              "mlm_label": (batch, seq)}
+    fused_sym = bert_mlm(mt.sym, **dict(cfg, dropout=0.0))
+    arg_shapes, _, _ = fused_sym.infer_shape(**shapes)
+    t0 = time.perf_counter()
+    params = random_params({n: s for n, s in zip(fused_sym.list_arguments(),
+                                                 arg_shapes)
+                            if n not in shapes}, SEED)
+    log(f"train: BERT-base MLM {sum(a.size for a in params.values())} "
+        f"parameters made in {time.perf_counter() - t0:.2f} s")
+    data = _mlm_batch(cfg["vocab"], batch, seq)
+    label = data.label[0].data
+
+    # 1. gradient parity: dropout 0, one forward/backward, against the
+    # unfused graph (batch_dot attention) on the same weights and batch
+    fused = _mlm_module(fused_sym, params, batch, seq)
+    hk.reset_launch_counts()
+    fused.forward(data, is_train=True)
+    fused.backward()
+    torch.cuda.synchronize()
+    _check_launches("parity step", dict(hk.LAUNCHES), n_layers)
+    unfused = _mlm_module(bert_mlm(mt.sym, **dict(cfg, dropout=0.0),
+                                   attention="batch_dot"),
+                          params, batch, seq)
+    unfused.forward(data, is_train=True)
+    unfused.backward()
+    out, out_ref = fused.get_outputs()[0].data, unfused.get_outputs()[0].data
+    if tuple(out.shape) != (batch * seq, cfg["vocab"]) or \
+            not torch.isfinite(out).all():
+        raise AssertionError(f"MLM output {tuple(out.shape)} not finite")
+    out_err = (out - out_ref).abs().max().item()
+    if out_err > SLICE_TOL:
+        raise AssertionError(f"MLM probabilities off by {out_err}")
+    worst = _grad_parity(fused, unfused)
+    del fused, unfused, out, out_ref
+    torch.cuda.empty_cache()
+
+    # 2. training: dropout 0.1, BERT's Adam, the same fixed batch
+    mod = _mlm_module(bert_mlm(mt.sym, **cfg), params, batch, seq)
+    del params
+    mod.init_optimizer(optimizer="adam", optimizer_params=ADAM)
+    mt.random.seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    hk.reset_launch_counts()
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        mod.forward(data, is_train=True)
+        losses.append(_mlm_loss(mod, label))
+        mod.backward()
+        mod.update()
+    lat = []
+    for _ in range(WARM_STEPS + TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod.forward_backward(data)
+        mod.update()
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(hk.LAUNCHES)
+    steps = TRAIN_STEPS + WARM_STEPS + TIMED_STEPS
+    _check_launches(f"{steps} training steps", launches, n_layers * steps)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"train: losses {losses}")
+    if not np.isfinite(losses).all() or \
+            not np.mean(losses[-5:]) < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    prof = profile_step(mod, data)
+    q = np.percentile(lat[WARM_STEPS:], [50, 90])
+    rec = {"slice": "bert_base_mlm_module", "card": card, "batch": batch,
+           "seq": seq, "layers": n_layers, "dtype": "float32",
+           "first_loss": losses[0], "last5_mean_loss":
+           float(np.mean(losses[-5:])),
+           "step_p50_ms": float(q[0]), "step_p90_ms": float(q[1]),
+           "tokens_per_s": batch * seq / (q[0] / 1e3),
+           "step_ms": lat[WARM_STEPS:],
+           "peak_memory_gib": peak_gb, "output_max_abs_diff_vs_unfused":
+           out_err, "worst_grad": worst, "launches": launches,
+           "device_busy_ms": prof["device_busy_ms"]}
+    log(json.dumps(rec))
+    return launches
+
+
 def main():
     card = phase_device()
     phase_build()
     k1 = phase_kernels()
-    launches = phase_slice(card)
+    bwd = phase_backward_kernels()
+    serve_launches = phase_slice(card)
+    train_launches = phase_train(card)
     leaked = [m for m in ("jax", "mxnet_tpu") if m in sys.modules]
     if leaked:
         raise SystemExit(f"chip_smoke: the port imported {leaked}")
+    log(f"launches: serving {serve_launches}, training {train_launches}")
     kernels = [{
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:92",
-        "launches": launches["flash_attn_fwd"],
+        "launches": serve_launches["flash_attn_fwd"] +
+        train_launches["flash_attn_fwd"],
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
     }]
+    for name, line in (("flash_attn_bwd_dq", 141),
+                       ("flash_attn_bwd_dkv", 184)):
+        rec = bwd[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/flash_attn_bwd.cu",
+            "replaces": f"mxnet_tpu/ops/pallas_kernels.py:{line}",
+            "launches": train_launches[name],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+        })
     if any(k["launches"] == 0 for k in kernels):
         raise SystemExit("chip_smoke: a kernel of the path never launched")
     print(json.dumps({"kernels": kernels}))

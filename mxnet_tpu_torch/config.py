@@ -37,6 +37,10 @@ _reg("MXTPU_PALLAS", str, "auto",
 _reg("MXTPU_PALLAS_MIN_FLOPS", float, 1e6,
      "kernel-selection floor: an attention site below this analytic flop "
      "count keeps the unfused graph (graph_opt pallas_select)")
+_reg("MXTPU_UNIFIED_STEP", str, "1",
+     "training pass list: on, the unified list (eliminate, cse, dead_aux); "
+     "'0'/'false'/'off', the legacy pair (cse, dead_aux) "
+     "(graph_opt.train_passes)")
 
 
 def get_env(name: str, default: Optional[Any] = None):

@@ -1,10 +1,13 @@
 """Executor: a Symbol bound to arrays on one device (the counterpart of
-`mxnet_tpu/executor.py`, inference only).
+`mxnet_tpu/executor.py`; reference `include/mxnet/executor.h`).
 
 ``forward`` runs the bound graph as composed; ``compiled_forward`` runs it
-through the executor's `GraphProgram`, the graph optimizer's output (the
-path `Predictor` serves).  Training (``is_train=True``, backward) arrives
-with the slice that ports the attention backward kernels.
+through the executor's `GraphProgram` for the mode, the graph optimizer's
+output (the path `Predictor` serves and `Module` trains).  With
+``is_train=True`` and gradient arguments bound, the forward records an
+autograd tape with those arguments as leaves; ``backward`` (or
+``compiled_backward``) turns the head gradients, ones by default, into
+``grad_dict`` by each argument's ``grad_req``.
 """
 from __future__ import annotations
 
@@ -13,55 +16,83 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from . import random as _random
 from .base import MXNetError
 from .context import Context, default_context
-from .graph_compile import GraphProgram, build_steps, run_steps
+from .graph_compile import (GraphCompiler, GraphProgram, Tape, backward_tape,
+                            build_steps, record_steps, run_steps)
 from .ndarray.ndarray import NDArray
 
 __all__ = ["Executor", "build_graph_fn"]
 
 
-def build_graph_fn(symbol):
-    """The symbol DAG as a function ``fn(feed: {name: tensor}) ->
-    [outputs]``: each op's registered function runs in topological
-    order."""
+def build_graph_fn(symbol, train: bool = False):
+    """The symbol DAG as a function ``fn(feed: {name: tensor}, generator)
+    -> [outputs]``: each op's registered function runs in topological
+    order, under `torch.inference_mode`."""
     plan = build_steps(symbol)
 
-    def fn(feed: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
-        return run_steps(plan, feed)
+    def fn(feed: Dict[str, torch.Tensor],
+           generator: Optional[torch.Generator] = None) -> List[torch.Tensor]:
+        return run_steps(plan, feed, train, generator)
 
     return fn
 
 
+_GRAD_REQS = ("null", "write", "add")
+
+
 class Executor:
-    """Reference `include/mxnet/executor.h` surface for inference:
-    arg_dict/aux_dict, forward, outputs."""
+    """Reference `include/mxnet/executor.h` surface: arg_dict, grad_dict,
+    aux_dict, forward, backward, outputs."""
 
     def __init__(self, symbol, ctx: Optional[Context] = None, args=None,
-                 grad_req="null", aux_states=None):
-        if grad_req != "null":
-            raise NotImplementedError(
-                "gradients arrive with the training slice: bind with "
-                "grad_req='null'")
+                 args_grad=None, grad_req="write", aux_states=None):
         self._symbol = symbol
         self._ctx = ctx if ctx is not None else default_context("bind")
         self.arg_names = symbol.list_arguments()
+        self.aux_names = symbol.list_auxiliary_states()
         self.output_names = symbol.list_outputs()
         device = self._ctx.device
-        if isinstance(args, (list, tuple)):
-            args = dict(zip(self.arg_names, args))
-        args = args or {}
-        missing = [n for n in self.arg_names if n not in args]
-        if missing:
-            raise MXNetError(f"executor: args missing entries {missing}")
         self.arg_dict: Dict[str, NDArray] = {
-            n: NDArray(_tensor(args[n]).to(device)) for n in self.arg_names}
+            n: NDArray(_tensor(a).to(device))
+            for n, a in _by_name(args, self.arg_names, "args").items()}
         self.aux_dict: Dict[str, NDArray] = {
             n: NDArray(_tensor(a).to(device))
-            for n, a in (aux_states or {}).items()}
+            for n, a in _by_name(aux_states, self.aux_names, "aux_states",
+                                 allow_missing=True).items()}
+        if isinstance(grad_req, str):
+            self._grad_req = {n: grad_req for n in self.arg_names}
+        elif isinstance(grad_req, (list, tuple)):
+            self._grad_req = dict(zip(self.arg_names, grad_req))
+        else:
+            self._grad_req = {n: grad_req.get(n, "null")
+                              for n in self.arg_names}
+        bad = {r for r in self._grad_req.values() if r not in _GRAD_REQS}
+        if bad:
+            raise MXNetError(f"grad_req must be one of {_GRAD_REQS}, got "
+                             f"{sorted(bad)}")
+        # a gradient buffer lives where its argument does
+        self.grad_dict: Dict[str, NDArray] = {
+            n: NDArray(_tensor(g).to(device))
+            for n, g in _by_name(args_grad, self.arg_names, "args_grad",
+                                 allow_missing=True).items()}
         self.outputs: List[NDArray] = []
-        self._program: Optional[GraphProgram] = None
-        self._graph_fn = None
+        self._programs: Dict[bool, GraphProgram] = {}
+        self._graph_plan = None
+        self._tape: Optional[Tape] = None
+        self._tape_program: Optional[GraphProgram] = None
+
+    @property
+    def _grad_arg_names(self) -> List[str]:
+        """The arguments whose gradients this executor computes."""
+        return [n for n in self.arg_names
+                if self._grad_req.get(n, "null") != "null"
+                and n in self.grad_dict]
+
+    @property
+    def grad_arrays(self) -> List[Optional[NDArray]]:
+        return [self.grad_dict.get(n) for n in self.arg_names]
 
     def _ingest_inputs(self, kwargs):
         """Copy forward kwargs into the bound arrays, in place (device and
@@ -76,43 +107,108 @@ class Executor:
         feed.update({n: a.data for n, a in self.aux_dict.items()})
         return feed
 
+    def _record(self, program: Optional[GraphProgram], names):
+        """A train-mode forward of the composed graph (``program`` None)
+        or of the training program, recorded for backward."""
+        gen = _random.generator(self._ctx.device)
+        if program is None:
+            return record_steps(self._graph_plan, self._feed(), names, gen)
+        if not program.train:
+            program = self.graph_program(True)
+        return program.forward_train(self._feed(), names, gen)
+
+    def _run(self, program: Optional[GraphProgram],
+             is_train: bool) -> List[NDArray]:
+        self._tape_program = program
+        names = self._grad_arg_names if is_train else []
+        if names:
+            outs, self._tape = self._record(program, names)
+        else:
+            feed, gen = self._feed(), _random.generator(self._ctx.device)
+            outs = run_steps(self._graph_plan, feed, is_train, gen) \
+                if program is None else program.forward(feed, gen)
+            self._tape = None
+        self.outputs = [NDArray(o) for o in outs]
+        return self.outputs
+
     def forward(self, is_train=False, **kwargs) -> List[NDArray]:
         """Run the graph as composed (no rewrites)."""
-        _check_inference(is_train)
         self._ingest_inputs(kwargs)
-        if self._graph_fn is None:
-            self._graph_fn = build_graph_fn(self._symbol)
-        self.outputs = [NDArray(o) for o in self._graph_fn(self._feed())]
-        return self.outputs
+        if self._graph_plan is None:
+            self._graph_plan = build_steps(self._symbol)
+        return self._run(None, bool(is_train))
 
     def graph_program(self, train=False) -> GraphProgram:
-        """This executor's `GraphProgram`, built on first use from the
-        bound shapes and device."""
-        _check_inference(train)
-        if self._program is None:
-            shapes = {n: a.shape for n, a in self.arg_dict.items()}
-            shapes.update({n: a.shape for n, a in self.aux_dict.items()})
-            self._program = GraphProgram(self._symbol, input_shapes=shapes,
-                                         device=self._ctx.device)
-        return self._program
+        """This executor's `GraphProgram` for ``train`` mode, built on
+        first use from the bound shapes and device."""
+        return GraphCompiler.program_for(self, train)
 
     def compiled_forward(self, is_train=False, **kwargs) -> List[NDArray]:
-        """Forward through the optimized `GraphProgram`."""
+        """Forward through the optimized `GraphProgram` of the mode."""
         program = self.graph_program(is_train)
         self._ingest_inputs(kwargs)
-        self.outputs = [NDArray(o) for o in program.forward(self._feed())]
-        return self.outputs
+        return self._run(program, bool(is_train))
+
+    def backward(self, out_grads=None) -> List[Optional[NDArray]]:
+        """Reference `Executor::Backward`: head gradients default to ones
+        (a loss head such as SoftmaxOutput ignores them).  After a forward
+        that recorded no tape (``is_train=False``, or a backward already
+        taken), the forward runs again in train mode, as the reference's
+        backward recomputes it."""
+        if not self.outputs:
+            raise MXNetError("backward called before forward")
+        names = self._grad_arg_names
+        if not names:
+            return self.grad_arrays
+        if self._tape is None:
+            _, self._tape = self._record(self._tape_program, names)
+        if out_grads is None:
+            cts = [torch.ones_like(o.data) for o in self.outputs]
+        else:
+            if isinstance(out_grads, (NDArray, np.ndarray, torch.Tensor)):
+                out_grads = [out_grads]
+            cts = [_tensor(g) for g in out_grads]
+        tape, self._tape = self._tape, None
+        backward_tape(tape, cts, self._grad_req,
+                      {n: self.grad_dict[n].data for n in names})
+        return self.grad_arrays
+
+    def compiled_backward(self, out_grads=None) -> List[Optional[NDArray]]:
+        """Backward of the last `compiled_forward` (the same tape walk as
+        `backward`; the training program built no other)."""
+        return self.backward(out_grads)
+
+    def copy_params_from(self, arg_params, aux_params=None,
+                         allow_extra_params=False) -> None:
+        """Copy parameters into the bound arrays, in place (reference
+        `executor.py:copy_params_from`)."""
+        for src, dst, what in ((arg_params, self.arg_dict, "argument"),
+                               (aux_params or {}, self.aux_dict, "aux")):
+            for name, arr in src.items():
+                if name in dst:
+                    with torch.no_grad():
+                        dst[name].data.copy_(_tensor(arr))
+                elif not allow_extra_params:
+                    raise MXNetError(f"copy_params_from: no {what} "
+                                     f"{name!r} in the executor")
 
     def __repr__(self):
         return (f"<Executor outputs={self.output_names} "
                 f"args={len(self.arg_names)} ctx={self._ctx}>")
 
 
-def _check_inference(train):
-    if train:
-        raise NotImplementedError(
-            "training arrives with the slice that ports the attention "
-            "backward kernels (K2, K3)")
+def _by_name(values, names, what, allow_missing=False) -> Dict:
+    """``values`` (a dict, or a list in ``names`` order) as a dict over
+    ``names``."""
+    if values is None:
+        values = {}
+    elif isinstance(values, (list, tuple)):
+        values = dict(zip(names, values))
+    if not allow_missing:
+        missing = [n for n in names if n not in values]
+        if missing:
+            raise MXNetError(f"executor: {what} missing entries {missing}")
+    return {n: values[n] for n in names if n in values}
 
 
 def _tensor(v) -> torch.Tensor:

@@ -13,8 +13,14 @@ see `hopper_kernels.check_attention`).  On CUDA a site whose head dim the
 kernel is not built for makes the bind fail: ``MXTPU_PALLAS=0`` is then
 the caller's choice, never a silent one.
 
-The JAX package's other inference passes (fold_const, fold_bn, eliminate,
-cse) and the LSTM-cell matcher wait for later slices.
+The training pipeline (`optimize(..., train=True)`, `training_result`)
+runs the JAX package's training pass list, which never holds
+``pallas_select``: a training graph reaches the attention kernels only by
+naming `_fused_attention` itself.  Its passes (``eliminate``, ``cse``,
+``dead_aux``) are not ported yet and report 0 rewrites under their own
+names; on the graphs the port trains the JAX package's make 0 rewrites
+too.  The JAX package's other inference passes (fold_const, fold_bn,
+eliminate, cse) and the LSTM-cell matcher wait for later slices.
 
 Every pass is pure: the input symbol is never modified, and untouched
 regions are shared by identity with the result.
@@ -30,12 +36,14 @@ import torch
 from . import config
 from .attribute import strip_annotations
 from .base import MXNetError
+from .ops import registry as _reg
 from .ops.hopper_kernels import check_attention, check_kernel_inputs
 from .ops.registry import Attrs
 from .symbol.symbol import Symbol, _Node, _topo
 
 __all__ = ["PassReport", "PipelineResult", "optimize", "graph_opt_enabled",
-           "skipped_passes", "pallas_mode", "INFER_PASSES"]
+           "skipped_passes", "pallas_mode", "train_passes", "training_result",
+           "INFER_PASSES", "TRAIN_PASSES", "TRAIN_PASSES_UNIFIED"]
 
 
 def graph_opt_enabled() -> bool:
@@ -320,22 +328,46 @@ def _pass_pallas_select(symbol, shapes, device):
 
 #: inference pipeline, in order
 INFER_PASSES: Tuple[str, ...] = ("pallas_select",)
+#: legacy training pipeline (the JAX package's pre-unification subset)
+TRAIN_PASSES: Tuple[str, ...] = ("cse", "dead_aux")
+#: the training pipeline of the JAX package's unified step
+TRAIN_PASSES_UNIFIED: Tuple[str, ...] = ("eliminate", "cse", "dead_aux")
+
+
+def train_passes() -> Tuple[str, ...]:
+    """The training pass list in effect (``MXTPU_UNIFIED_STEP``, default
+    on, selects the unified list, as in the JAX package)."""
+    on = config.get_env("MXTPU_UNIFIED_STEP", "1").strip().lower() \
+        not in ("0", "false", "off")
+    return TRAIN_PASSES_UNIFIED if on else TRAIN_PASSES
+
+
+def _pass_not_ported(symbol, shapes, device):
+    """A training pass of the JAX package that waits for a later slice:
+    the graph passes through unchanged, reported under the pass's name."""
+    return symbol, 0, "bitwise", {"skipped": "not ported yet"}
+
 
 _PASS_FNS: Dict[str, Callable] = {
     "pallas_select": _pass_pallas_select,
+    "eliminate": _pass_not_ported,
+    "cse": _pass_not_ported,
+    "dead_aux": _pass_not_ported,
 }
 
 
 def optimize(symbol, shapes: Optional[Dict] = None,
-             device: Optional[torch.device] = None) -> PipelineResult:
-    """Run the inference pass pipeline over ``symbol``.  ``shapes`` ({input
-    name -> shape}) feeds the pattern matcher; ``device`` is where the
-    graph will run, which the ``auto`` kernel gate reads."""
+             device: Optional[torch.device] = None,
+             train: bool = False) -> PipelineResult:
+    """Run the pass pipeline over ``symbol``: the inference list, or with
+    ``train`` the training list.  ``shapes`` ({input name -> shape}) feeds
+    the pattern matcher; ``device`` is where the graph will run, which the
+    ``auto`` kernel gate reads."""
     if not graph_opt_enabled():
         return PipelineResult(symbol, [], False)
     skip = skipped_passes()
     reports: List[PassReport] = []
-    for name in INFER_PASSES:
+    for name in (train_passes() if train else INFER_PASSES):
         if name in skip:
             continue
         before = _n_compute(symbol)
@@ -346,3 +378,33 @@ def optimize(symbol, shapes: Optional[Dict] = None,
         reports.append(PassReport(name, before, _n_compute(symbol), rewrites,
                                   round(wall_ms, 3), parity, details))
     return PipelineResult(symbol, reports, True)
+
+
+def _check_train_invariants(orig, opt) -> None:
+    """What a training rewrite must keep: the output count, the number of
+    nodes that draw random numbers, and the auxiliary state set."""
+    if len(orig._heads) != len(opt._heads):
+        raise MXNetError("graph_opt: training rewrite changed the output "
+                         "count")
+
+    def rng_count(sym):
+        return sum(1 for n in _topo(sym._heads)
+                   if not n.is_var and _reg.get_op(n.op).needs_rng)
+
+    if rng_count(orig) != rng_count(opt):
+        raise MXNetError("graph_opt: training rewrite changed the rng node "
+                         "count")
+    if orig._aux_var_names() != opt._aux_var_names():
+        raise MXNetError("graph_opt: training rewrite changed the aux "
+                         "state set")
+
+
+def training_result(symbol):
+    """`train_passes()` over a training graph: ``(symbol, reports)``, with
+    the invariants checked whenever a pass rewrote the graph; the reports
+    are empty when the optimizer is disabled."""
+    res = optimize(symbol, train=True)
+    if not res.enabled or res.symbol is symbol:
+        return symbol, list(res.reports)
+    _check_train_invariants(symbol, res.symbol)
+    return res.symbol, list(res.reports)

@@ -1,2 +1,2 @@
-"""Model graphs the port serves."""
-from .bert import BERT_BASE, bert_encoder, random_params  # noqa: F401
+"""Model graphs the port serves and trains."""
+from .bert import BERT_BASE, bert_encoder, bert_mlm, random_params  # noqa: F401

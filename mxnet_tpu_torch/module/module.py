@@ -1,0 +1,238 @@
+"""Module: symbolic training on one device (the counterpart of
+`mxnet_tpu/module/module.py`; reference `python/mxnet/module/module.py`).
+
+``bind`` → ``init_params`` → ``init_optimizer``, then per batch
+``forward`` / ``backward`` / ``update``.  The module trains through its
+executor's training `GraphProgram` and updates its parameters in place
+with the local `Updater`.  Without a ``context`` it runs on the card.
+KVStore, ``fit``/``score`` and checkpoints come with later slices.
+"""
+from __future__ import annotations
+
+import logging
+import warnings
+from typing import Dict
+
+import torch
+
+from .. import initializer as init_mod
+from .. import optimizer as opt_mod
+from ..base import MXNetError
+from ..context import default_context
+from ..executor import _tensor
+from ..io import DataDesc
+from ..ndarray.ndarray import NDArray
+from .base_module import BaseModule
+
+__all__ = ["Module"]
+
+
+class Module(BaseModule):
+    def __init__(self, symbol, data_names=("data",),
+                 label_names=("softmax_label",), logger=logging,
+                 context=None, fixed_param_names=None):
+        super().__init__(logger)
+        self.symbol = symbol
+        self._data_names = list(data_names)
+        self._label_names = list(label_names or [])
+        if isinstance(context, (list, tuple)):
+            if len(context) != 1:
+                raise MXNetError("Module: one context per module until "
+                                 "data parallelism is ported")
+            context = context[0]
+        self._context = context if context is not None else \
+            default_context("Module")
+        self._fixed_param_names = set(fixed_param_names or [])
+        self._exec = None
+        self._optimizer = None
+        self._updater = None
+        self._data_shapes = None
+        self._label_shapes = None
+
+    # ------------------------------------------------------------------
+    @property
+    def data_names(self):
+        return self._data_names
+
+    @property
+    def label_names(self):
+        return self._label_names
+
+    @property
+    def output_names(self):
+        return self.symbol.list_outputs()
+
+    @property
+    def data_shapes(self):
+        return self._data_shapes
+
+    @property
+    def label_shapes(self):
+        return self._label_shapes
+
+    def _input_names(self):
+        return {d.name for d in self._data_shapes + self._label_shapes}
+
+    # ------------------------------------------------------------------
+    def bind(self, data_shapes, label_shapes=None, for_training=True,
+             inputs_need_grad=False, force_rebind=False, grad_req="write"):
+        """Allocate the executor for these input shapes (reference
+        `module.py:364` → simple_bind).  Labels and fixed parameters
+        never take gradients; data only with ``inputs_need_grad``."""
+        if self.binded and not force_rebind:
+            return self
+        self._data_shapes, self._label_shapes, shapes = _parse_shapes(
+            data_shapes, label_shapes)
+        type_dict = {d.name: d.dtype
+                     for d in self._data_shapes + self._label_shapes}
+        self._exec = self.symbol.simple_bind(
+            ctx=self._context, grad_req=grad_req if for_training else "null",
+            type_dict=type_dict, **shapes)
+        keep = set(self._data_names) if inputs_need_grad else set()
+        for name in list(self._exec._grad_req):
+            if name in keep:
+                continue
+            if name in shapes or name in self._fixed_param_names:
+                self._exec._grad_req[name] = "null"
+                self._exec.grad_dict.pop(name, None)
+        self.binded = True
+        self.for_training = for_training
+        return self
+
+    def init_params(self, initializer=None, arg_params=None, aux_params=None,
+                    allow_missing=False, force_init=False, allow_extra=False):
+        """Fill every parameter (each argument that is not an input): from
+        ``arg_params`` where it names one, else by ``initializer``
+        (`Uniform(0.01)` when neither is given)."""
+        if self.params_initialized and not force_init:
+            return
+        if not self.binded:
+            raise MXNetError("call bind before init_params")
+        if initializer is None and not (arg_params or aux_params):
+            initializer = init_mod.Uniform(0.01)
+        inputs = self._input_names()
+        attr_dict = self.symbol.attr_dict()
+        with torch.no_grad():
+            for name, arr in self._exec.arg_dict.items():
+                if name in inputs:
+                    continue
+                if arg_params and name in arg_params:
+                    arr.data.copy_(_tensor(arg_params[name]))
+                elif initializer is not None:
+                    desc = init_mod.InitDesc(name,
+                                             attrs=attr_dict.get(name, {}))
+                    init_mod.create(initializer)(desc, arr)
+                elif not allow_missing:
+                    raise MXNetError(f"parameter {name} missing and no "
+                                     "initializer")
+            for name, arr in self._exec.aux_dict.items():
+                if aux_params and name in aux_params:
+                    arr.data.copy_(_tensor(aux_params[name]))
+                else:
+                    arr.data.fill_(1.0 if name.endswith("var") else 0.0)
+        if arg_params and not allow_extra:
+            extra = set(arg_params) - set(self._exec.arg_dict)
+            if extra:
+                raise MXNetError(f"arg_params names unknown parameters "
+                                 f"{sorted(extra)}")
+        self.params_initialized = True
+
+    def init_optimizer(self, kvstore="local", optimizer="sgd",
+                       optimizer_params=None, force_init=False):
+        """Create the optimizer and its updater.  A named optimizer gets
+        ``rescale_grad = 1/batch``, because the loss head's gradients are
+        summed over the batch (reference `module.py:332-333`)."""
+        if self.optimizer_initialized and not force_init:
+            return
+        if kvstore not in (None, "local", "device"):
+            raise MXNetError("Module: only the local update is ported; "
+                             f"kvstore {kvstore!r} waits for KVStore")
+        batch_size = self._data_shapes[0].shape[0] if self._data_shapes \
+            else None
+        idx2name = dict(enumerate(self._exec.arg_names))
+        if isinstance(optimizer, str):
+            optimizer_params = dict(optimizer_params or {})
+            if batch_size and "rescale_grad" not in optimizer_params:
+                optimizer_params["rescale_grad"] = 1.0 / batch_size
+            optimizer_params.setdefault("param_idx2name", idx2name)
+            optimizer_params.setdefault("sym", self.symbol)
+            optimizer = opt_mod.create(optimizer, **optimizer_params)
+        elif batch_size and \
+                abs(optimizer.rescale_grad - 1.0 / batch_size) > 1e-12:
+            warnings.warn(
+                "Optimizer created manually outside Module but rescale_grad "
+                f"is not normalized to 1.0/batch_size "
+                f"({optimizer.rescale_grad} vs {1.0 / batch_size}). Is this "
+                "intended?", stacklevel=2)
+        optimizer.idx2name = idx2name
+        if not optimizer.sym_info:
+            optimizer.sym_info = (self.symbol.attr_dict(),
+                                  self.symbol.list_arguments())
+            optimizer.set_lr_mult(optimizer._args_lr_mult)
+            optimizer.set_wd_mult(optimizer._args_wd_mult)
+        self._optimizer = optimizer
+        self._updater = opt_mod.get_updater(optimizer)
+        self.optimizer_initialized = True
+
+    # ------------------------------------------------------------------
+    def forward(self, data_batch, is_train=None):
+        """Feed the batch and run the graph (training mode records the
+        tape for `backward`)."""
+        if not (self.binded and self.params_initialized):
+            raise MXNetError("call bind and init_params before forward")
+        if is_train is None:
+            is_train = self.for_training
+        feeds = dict(zip((d.name for d in self._data_shapes),
+                         data_batch.data))
+        if self._label_shapes and data_batch.label is not None:
+            feeds.update(zip((d.name for d in self._label_shapes),
+                             data_batch.label))
+        for name, arr in feeds.items():
+            if tuple(arr.shape) != tuple(self._exec.arg_dict[name].shape):
+                raise MXNetError(
+                    f"input {name!r}: shape {tuple(arr.shape)} is not the "
+                    f"bound {tuple(self._exec.arg_dict[name].shape)}; "
+                    "reshape waits for a later slice")
+        self._exec.compiled_forward(is_train=is_train, **feeds)
+
+    def backward(self, out_grads=None):
+        if not (self.binded and self.params_initialized):
+            raise MXNetError("call bind and init_params before backward")
+        self._exec.compiled_backward(out_grads)
+
+    def update(self):
+        """Apply the optimizer to every parameter that has a gradient
+        (reference `module.py:644`, local updater)."""
+        if not self.optimizer_initialized:
+            raise MXNetError("call init_optimizer before update")
+        skip = self._input_names() | self._fixed_param_names
+        items = [(i, self._exec.grad_dict[name], self._exec.arg_dict[name])
+                 for i, name in enumerate(self._exec.arg_names)
+                 if name not in skip and name in self._exec.grad_dict]
+        self._updater.update_multi(items)
+
+    # ------------------------------------------------------------------
+    def get_outputs(self, merge_multi_context=True):
+        return self._exec.outputs
+
+    def get_input_grads(self, merge_multi_context=True):
+        return [self._exec.grad_dict.get(n) for n in self._data_names]
+
+    def get_params(self):
+        """Copies of the parameters: ``(arg_params, aux_params)``."""
+        inputs = self._input_names()
+        arg = {n: NDArray(a.data.detach().clone())
+               for n, a in self._exec.arg_dict.items() if n not in inputs}
+        aux = {n: NDArray(a.data.detach().clone())
+               for n, a in self._exec.aux_dict.items()}
+        return arg, aux
+
+
+def _parse_shapes(data_shapes, label_shapes):
+    data = [d if isinstance(d, DataDesc) else DataDesc(*d[:2])
+            for d in data_shapes]
+    label = [d if isinstance(d, DataDesc) else DataDesc(*d[:2])
+             for d in (label_shapes or [])]
+    shapes: Dict[str, tuple] = {d.name: tuple(d.shape) for d in data}
+    shapes.update({d.name: tuple(d.shape) for d in label})
+    return data, label, shapes

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 from typing import Any, Dict
 
+from .. import random as _random
 from ..base import _Null
 from ..ops import registry as _reg
 from .ndarray import NDArray
@@ -17,7 +18,10 @@ def invoke(op_name: str, *args, **kwargs):
     op = _reg.get_op(op_name)
     inputs = [a for a in args if a is not None]
     attrs = {k: v for k, v in kwargs.items() if v is not _Null}
-    outs = _reg.apply_op(op_name, [a.data for a in inputs], attrs)
+    tensors = [a.data for a in inputs]
+    gen = _random.generator(tensors[0].device) if op.needs_rng and tensors \
+        else None
+    outs = _reg.apply_op(op_name, tensors, attrs, generator=gen)
     res = [NDArray(o) for o in outs[:op.num_outputs(_reg.Attrs(attrs))]]
     return res[0] if len(res) == 1 else res
 

@@ -1,4 +1,5 @@
 """Operators: importing this package registers every ported op."""
 from . import registry  # noqa: F401
 from . import nn, matrix, elemwise, broadcast_reduce  # noqa: F401
+from . import optimizer_ops  # noqa: F401
 from . import hopper_kernels  # noqa: F401

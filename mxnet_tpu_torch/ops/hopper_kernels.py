@@ -3,9 +3,13 @@
 
 * `flash_attention` / `flash_attention_with_lse` — K1, the streaming
   online-softmax attention forward, in CUDA C++ (`csrc/flash_attn_fwd.cu`,
-  replacing `pallas_kernels.py:_attn_fwd_kernel`).  It backs the
-  `_fused_attention` op that `graph_opt`'s ``pallas_select`` pass swaps in
-  for MXNet's batch_dot/softmax attention idiom.
+  replacing `pallas_kernels.py:_attn_fwd_kernel`), and its gradient: K2
+  (dq) and K3 (dk, dv) in `csrc/flash_attn_bwd.cu`, replacing
+  `_attn_dq_kernel` and `_attn_dkv_kernel`.  The pair is one
+  `torch.autograd.Function`, as the JAX package's is one `jax.custom_vjp`.
+  It backs the `_fused_attention` op, which `graph_opt`'s
+  ``pallas_select`` pass swaps in for MXNet's batch_dot/softmax attention
+  idiom and which a training graph may hold itself.
 
 Each kernel sits beside its plain PyTorch version.  A wrapper takes the
 plain version only for a tensor on the CPU (``meta`` tensors, which carry
@@ -19,6 +23,7 @@ import ctypes
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..base import MXNetError
 from . import cuda_build
@@ -29,7 +34,8 @@ __all__ = ["flash_attention", "flash_attention_with_lse", "check_attention",
            "reset_launch_counts"]
 
 #: launches per kernel since the last `reset_launch_counts`
-LAUNCHES: Dict[str, int] = {"flash_attn_fwd": 0}
+LAUNCHES: Dict[str, int] = {"flash_attn_fwd": 0, "flash_attn_bwd_dq": 0,
+                            "flash_attn_bwd_dkv": 0}
 
 
 def reset_launch_counts() -> None:
@@ -38,13 +44,13 @@ def reset_launch_counts() -> None:
 
 
 _NEG_INF = -1e30
-#: head dims the CUDA kernel is instantiated for
+#: head dims the CUDA kernels are instantiated for
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 # ---------------------------------------------------------------------------
-# K1: flash attention forward
+# shape rules
 # ---------------------------------------------------------------------------
 
 def check_attention(q_shape, k_shape, v_shape) -> None:
@@ -73,14 +79,87 @@ def check_attention(q_shape, k_shape, v_shape) -> None:
 
 def check_kernel_inputs(head_dim: int, dtype: Optional[torch.dtype]) -> None:
     """Raise `ValueError` for a head dim (or, when given, a dtype) the CUDA
-    kernel is not built for.  The JAX package's kernel takes any of them,
-    so on the card such a site fails rather than run unfused unasked."""
+    kernels are not built for.  The JAX package's kernels take any of
+    them, so on the card such a site fails rather than run unfused
+    unasked."""
     if head_dim not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash_attention: the kernel takes head dims "
                          f"{KERNEL_HEAD_DIMS}, got {head_dim}")
     if dtype is not None and dtype not in _DTYPE_CODES:
         raise ValueError(f"flash_attention: the kernel takes float32 "
                          f"and bfloat16, got {dtype}")
+
+
+def _check_cuda_inputs(*tensors) -> None:
+    """What every kernel wrapper checks before it hands out pointers: one
+    device, one dtype the kernel is built for, contiguous [.., L, D]."""
+    first = tensors[0]
+    if any(t.device != first.device for t in tensors):
+        raise ValueError("flash_attention: inputs must be on one device")
+    if any(t.dtype != first.dtype for t in tensors):
+        raise ValueError("flash_attention: q, k, v must share a dtype")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("flash_attention: the kernel takes contiguous "
+                         "[B,H,L,D] tensors")
+    check_kernel_inputs(first.shape[-1], first.dtype)
+
+
+def _bind(lib, name, n_ptrs):
+    """Declare a kernel entry point's C signature: ``n_ptrs`` pointers,
+    the sizes and flags as ints, the scale, the stream."""
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + \
+        [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.mxtt_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.mxtt_cuda_error_string.restype = ctypes.c_char_p
+    return fn
+
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _kernel_lib(source: str) -> ctypes.CDLL:
+    """The library built from ``csrc/<source>.cu``, its entry points
+    declared (built at first use)."""
+    lib = _LIBS.get(source)
+    if lib is None:
+        lib = cuda_build.load(source)
+        if source == "flash_attn_fwd":
+            _bind(lib, "mxtt_flash_attn_fwd", 5)
+        else:
+            _bind(lib, "mxtt_flash_attn_bwd_dq", 8)
+            _bind(lib, "mxtt_flash_attn_bwd_dkv", 9)
+        _LIBS[source] = lib
+    return lib
+
+
+def _launch(source: str, entry: str, counter: str, q, k, ptrs, causal,
+            scale) -> None:
+    """Call one kernel entry point on the current stream of q's device;
+    raise if the launch was refused, count it if not."""
+    lib = _kernel_lib(source)
+    lq, d = q.shape[-2:]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        # the kernels see the leading dims flattened into one b·h axis
+        err = getattr(lib, entry)(
+            *[t.data_ptr() for t in ptrs], q.numel() // (lq * d), lq,
+            k.shape[-2], d, _DTYPE_CODES[q.dtype], int(causal), scale,
+            stream)
+    if err != 0:
+        raise MXNetError(f"{counter} launch failed: CUDA error {err} "
+                         f"({lib.mxtt_cuda_error_string(err).decode()})")
+    LAUNCHES[counter] += 1
+
+
+# ---------------------------------------------------------------------------
+# K1: flash attention forward
+# ---------------------------------------------------------------------------
+
+def _causal_keep(lq: int, lk: int, device) -> torch.Tensor:
+    """Key j is visible to query i when j <= i (top-left aligned)."""
+    return torch.ones((lq, lk), dtype=torch.bool, device=device).tril()
 
 
 def _flash_attention_with_lse_plain(q, k, v, *, causal: bool = False,
@@ -90,61 +169,118 @@ def _flash_attention_with_lse_plain(q, k, v, *, causal: bool = False,
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
     s = torch.matmul(q.float() * scale, k.float().transpose(-1, -2))
     if causal:
-        keep = torch.ones(s.shape[-2:], dtype=torch.bool,
-                          device=s.device).tril()
-        s = s.masked_fill(~keep, _NEG_INF)
+        s = s.masked_fill(~_causal_keep(*s.shape[-2:], s.device), _NEG_INF)
     lse = torch.logsumexp(s, dim=-1)
     o = torch.matmul(torch.softmax(s, dim=-1), v.float())
     return o.to(q.dtype), lse
 
 
-_K1 = None
-
-
-def _k1():
-    """The K1 entry point, with its C signature declared."""
-    global _K1
-    if _K1 is None:
-        lib = cuda_build.load("flash_attn_fwd")
-        fn = lib.mxtt_flash_attn_fwd
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + \
-            [ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.mxtt_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.mxtt_cuda_error_string.restype = ctypes.c_char_p
-        _K1 = lib
-    return _K1
-
-
 def _flash_attention_with_lse_cuda(q, k, v, causal: bool, scale: float):
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention on CUDA is forward-only until the backward "
-            "kernels (K2 dq, K3 dk/dv) arrive with the training slice")
-    if not (k.device == v.device == q.device):
-        raise ValueError("flash_attention: q, k, v must be on one device")
-    if not (k.dtype == v.dtype == q.dtype):
-        raise ValueError("flash_attention: q, k, v must share a dtype")
-    if not all(t.is_contiguous() for t in (q, k, v)):
-        raise ValueError("flash_attention: the kernel takes contiguous "
-                         "[B,H,L,D] tensors")
-    lq, d = q.shape[-2:]
-    check_kernel_inputs(d, q.dtype)
+    _check_cuda_inputs(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
-    lib = _k1()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        # the kernel sees the leading dims flattened into one b·h axis
-        err = lib.mxtt_flash_attn_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), q.numel() // (lq * d), lq, k.shape[-2], d,
-            _DTYPE_CODES[q.dtype], int(causal), scale, stream)
-    if err != 0:
-        raise MXNetError(f"flash_attn_fwd launch failed: CUDA error {err} "
-                         f"({lib.mxtt_cuda_error_string(err).decode()})")
-    LAUNCHES["flash_attn_fwd"] += 1
+    _launch("flash_attn_fwd", "mxtt_flash_attn_fwd", "flash_attn_fwd", q, k,
+            (q, k, v, o, lse), causal, scale)
     return o, lse
+
+
+# ---------------------------------------------------------------------------
+# K2 / K3: flash attention backward
+# ---------------------------------------------------------------------------
+
+def _attn_p_ds(q, k, v, do, lse, delta, dlse, causal, scale):
+    """The kernels' shared algebra in fp32: P recomputed from the saved
+    logsumexp, and dS = P ∘ (dO·Vᵀ − Δ + dLSE) · scale."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        s = s.masked_fill(~_causal_keep(*s.shape[-2:], s.device), _NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    return p, p * (dp - delta[..., None] + dlse[..., None]) * scale
+
+
+def _attn_dq_plain(q, k, v, do, lse, delta, dlse, *, causal: bool,
+                   scale: float):
+    """Plain version of K2: dq = dS·K, in q's dtype."""
+    _, ds = _attn_p_ds(q, k, v, do, lse, delta, dlse, causal, scale)
+    return torch.matmul(ds, k.float()).to(q.dtype)
+
+
+def _attn_dkv_plain(q, k, v, do, lse, delta, dlse, *, causal: bool,
+                    scale: float):
+    """Plain version of K3: dk = dSᵀ·Q and dv = Pᵀ·dO, in k's and v's
+    dtypes."""
+    p, ds = _attn_p_ds(q, k, v, do, lse, delta, dlse, causal, scale)
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    dv = torch.matmul(p.transpose(-1, -2), do.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _attn_dq_cuda(q, k, v, do, lse, delta, dlse, *, causal, scale):
+    _check_cuda_inputs(q, k, v, do)
+    dq = torch.empty_like(q)
+    _launch("flash_attn_bwd", "mxtt_flash_attn_bwd_dq", "flash_attn_bwd_dq",
+            q, k, (q, k, v, do, lse, delta, dlse, dq), causal, scale)
+    return dq
+
+
+def _attn_dkv_cuda(q, k, v, do, lse, delta, dlse, *, causal, scale):
+    _check_cuda_inputs(q, k, v, do)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("flash_attn_bwd", "mxtt_flash_attn_bwd_dkv",
+            "flash_attn_bwd_dkv", q, k,
+            (q, k, v, do, lse, delta, dlse, dk, dv), causal, scale)
+    return dk, dv
+
+
+def _attention_backward(q, k, v, o, lse, do, dlse, causal: bool,
+                        scale: float):
+    """(dq, dk, dv) for the cotangents ``do`` of O and ``dlse`` of the
+    logsumexp (either may be None: no gradient flows into that output).
+    Δ = rowsum(dO∘O) is taken here in fp32, as the JAX package takes it
+    outside its kernels; K2 and K3 run on CUDA tensors, their plain
+    versions on CPU tensors."""
+    do = torch.zeros_like(o) if do is None else do.to(q.dtype).contiguous()
+    dlse = torch.zeros_like(lse) if dlse is None else \
+        dlse.float().contiguous()
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, dlse)
+    if q.device.type == "cuda":
+        return (_attn_dq_cuda(*args, causal=causal, scale=scale),
+                *_attn_dkv_cuda(*args, causal=causal, scale=scale))
+    if q.device.type != "cpu":
+        raise MXNetError(f"flash_attention: no kernel for device {q.device}")
+    return (_attn_dq_plain(*args, causal=causal, scale=scale),
+            *_attn_dkv_plain(*args, causal=causal, scale=scale))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 forward, K2 + K3 backward (the JAX package's `custom_vjp` at
+    `pallas_kernels.py:275`).  Both outputs, O and the logsumexp, take a
+    gradient.  There is no double backward, as in the reference."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        if q.device.type == "cuda":
+            o, lse = _flash_attention_with_lse_cuda(q, k, v, causal, scale)
+        elif q.device.type in ("cpu", "meta"):
+            o, lse = _flash_attention_with_lse_plain(q, k, v, causal=causal,
+                                                     scale=scale)
+        else:
+            raise MXNetError(
+                f"flash_attention: no kernel for device {q.device}")
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _attention_backward(q, k, v, o, lse, do, dlse,
+                                         ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
@@ -154,15 +290,11 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
     """Attention over q [B,H,Lq,D], k and v [B,H,Lk,D] (flash-attention
     style) that also returns the row logsumexp [B,H,Lq] in fp32.  The B
     axis may be left out ([H,L,D], MXNet's batch_dot layout).  ``scale``
-    defaults to D^-0.5; ``causal`` masks key j > query i."""
+    defaults to D^-0.5; ``causal`` masks key j > query i.  Differentiable
+    in q, k and v through both outputs."""
     check_attention(q.shape, k.shape, v.shape)
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
-    if q.device.type == "cuda":
-        return _flash_attention_with_lse_cuda(q, k, v, causal, scale)
-    if q.device.type not in ("cpu", "meta"):
-        raise MXNetError(f"flash_attention: no kernel for device {q.device}")
-    return _flash_attention_with_lse_plain(q, k, v, causal=causal,
-                                           scale=scale)
+    return _FlashAttention.apply(q, k, v, bool(causal), scale)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -175,8 +307,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 @register("_fused_attention", num_inputs=3,
           input_names=["query", "key", "value"])
 def _fused_attention_op(attrs, q, k, v):
-    """nd/sym surface of K1 (what `graph_opt`'s ``pallas_select`` rewires
-    matched attention subgraphs to)."""
+    """nd/sym surface of the attention kernels (what `graph_opt`'s
+    ``pallas_select`` rewires matched attention subgraphs to, and what a
+    training graph names itself).  The copies to contiguous layout stay
+    inside the autograd graph, so gradients flow back through them to a
+    transposed input."""
     return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                            causal=attrs.get_bool("causal", False),
                            scale=attrs.get_float("scale", None))

@@ -1,18 +1,21 @@
-"""Neural-network ops of the encoder path (the counterparts of
+"""Neural-network ops of the BERT path (the counterparts of
 `mxnet_tpu/ops/nn.py`): FullyConnected, Activation, LeakyReLU, softmax,
-LayerNorm and Dropout, as plain PyTorch functions.
+LayerNorm, Dropout and SoftmaxOutput, as plain PyTorch functions whose
+gradients are autograd's own, except SoftmaxOutput's, which is the op's
+defined gradient.
 
 The large products go to `torch.nn.functional.linear`, as the JAX package
-leaves them to XLA outside any Pallas kernel.  Only inference is ported:
-the ops that draw random numbers in training raise there.
+leaves them to XLA outside any Pallas kernel.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from torch.autograd.function import once_differentiable
+
 from ..base import MXNetError
-from .registry import register
+from .registry import alias, register
 
 
 @register("FullyConnected", num_inputs=None,
@@ -98,13 +101,115 @@ def _layer_norm(attrs, data, gamma, beta):
     return out
 
 
-@register("Dropout", num_inputs=1, input_names=["data"])
-def _dropout(attrs, data):
-    """Identity at inference; ``mode='always'`` would draw a random mask,
-    which arrives with the training slice."""
-    if attrs.get_str("mode", "training") == "always" and \
-            attrs.get_float("p", 0.5) > 0.0:
-        raise NotImplementedError(
-            "Dropout(mode='always') draws random masks: not ported yet "
-            "(training slice)")
-    return data
+@register("Dropout", num_inputs=1, input_names=["data"], needs_rng=True,
+          uses_train_mode=True)
+def _dropout(attrs, generator, data):
+    """Reference `Dropout` (`src/operator/nn/dropout.cc`): in training (or
+    with ``mode='always'``) each element is kept with probability 1 - p
+    and scaled by 1/(1 - p); the identity at inference or when p is 0.
+    ``axes`` shares one mask value along each listed axis (variational
+    dropout).  The mask comes from ``generator``, the device's stream."""
+    p = attrs.get_float("p", 0.5)
+    train = attrs.get_bool("__train", False)
+    if (not train and attrs.get_str("mode", "training") != "always") \
+            or p == 0.0:
+        return data
+    axes = attrs.get_tuple("axes", None) or ()
+    shape = [1 if a in axes else n for a, n in enumerate(data.shape)]
+    keep = torch.empty(shape, device=data.device).bernoulli_(
+        1.0 - p, generator=generator)
+    return torch.where(keep.bool(), data / (1.0 - p),
+                       torch.zeros((), dtype=data.dtype, device=data.device))
+
+
+# ---------------------------------------------------------------------------
+# SoftmaxOutput (reference src/operator/softmax_output.cc)
+# ---------------------------------------------------------------------------
+
+class _SoftmaxOutput(torch.autograd.Function):
+    """Forward softmax over the last axis; backward the op's *defined*
+    gradient (reference `softmax_output-inl.h:156-270`, the JAX package's
+    `_smo_bwd`), which folds the cross-entropy loss into the op:
+
+    * soft labels (label.shape == out.shape): (out - label)·grad_scale,
+      no normalization;
+    * hard labels: out - target, the target label-smoothed by
+      ``smooth_alpha``, rows of ``ignore_label`` zeroed under
+      ``use_ignore``; 'batch' divides by N (times the spatial positions
+      with ``multi_output``), 'valid' by the count of labels other than
+      ``ignore_label`` (counted even without ``use_ignore``), 'null' by
+      the spatial positions only;
+    * the incoming gradient is ignored unless ``out_grad``.
+
+    The target is never materialized as a one-hot: the gradient is the
+    probabilities with the label's entry lowered in place, which keeps a
+    (4096, 30522) head at one extra copy of the logits."""
+
+    @staticmethod
+    def forward(ctx, data, label, ignore_label, use_ignore, grad_scale,
+                normalization, multi, out_grad, smooth_alpha):
+        out = torch.softmax(data, dim=-1)
+        ctx.save_for_backward(out, label)
+        ctx.opts = (ignore_label, use_ignore, grad_scale, normalization,
+                    multi, out_grad, smooth_alpha)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        (ignore_label, use_ignore, grad_scale, normalization, multi,
+         out_grad, smooth_alpha) = ctx.opts
+        if tuple(label.shape) == tuple(out.shape):
+            grad = (out - label) * grad_scale
+            return (grad * g if out_grad else grad), None, *([None] * 7)
+        k = out.shape[-1]
+        idx = label.to(torch.int64)
+        # a label outside [0, k) has an all-zero one-hot row
+        hit = ((idx >= 0) & (idx < k)).to(out.dtype)
+        if smooth_alpha:
+            off = smooth_alpha / max(k - 1, 1)
+            grad = out - off
+            hit = hit * (1.0 - smooth_alpha - off)
+        else:
+            grad = out.clone()
+        grad.scatter_add_(-1, idx.clamp(0, k - 1).unsqueeze(-1),
+                          -hit.unsqueeze(-1))
+        if use_ignore:
+            grad *= (label != ignore_label).to(out.dtype).unsqueeze(-1)
+        spatial = (label.numel() // label.shape[0]) if multi else 1
+        if normalization == "batch":
+            denom = float(label.shape[0] * spatial)
+        elif normalization == "valid":
+            denom = (idx != int(ignore_label)).sum().to(out.dtype) \
+                .clamp_min(1.0)
+        else:  # null
+            denom = float(spatial)
+        grad *= grad_scale / denom
+        if out_grad:
+            grad *= g
+        return grad, None, *([None] * 7)
+
+
+@register("SoftmaxOutput", num_inputs=2, input_names=["data", "label"])
+def _softmax_output(attrs, data, label):
+    """Reference `SoftmaxOutput`: forward is softmax over the last axis
+    (over axis 1 with ``multi_output``); the gradient is the op's defined
+    one, (softmax - one_hot(label)) normalized as the attrs say (see
+    `_SoftmaxOutput`)."""
+    multi = attrs.get_bool("multi_output", False)
+    if multi:  # (N, C, d...) -> softmax over C
+        data = data.movedim(1, -1)
+        if label.dim() == data.dim():
+            label = label.movedim(1, -1)
+    out = _SoftmaxOutput.apply(
+        data, label.detach(), attrs.get_float("ignore_label", -1.0),
+        attrs.get_bool("use_ignore", False),
+        attrs.get_float("grad_scale", 1.0),
+        attrs.get_str("normalization", "null"), multi,
+        attrs.get_bool("out_grad", False),
+        attrs.get_float("smooth_alpha", 0.0))
+    return out.movedim(-1, 1) if multi else out
+
+
+alias("SoftmaxOutput", "Softmax")

@@ -4,10 +4,17 @@ The counterpart of `mxnet_tpu/ops/registry.py`, with the same op names and
 attrs.  Each op registers ``fn(attrs, *tensors) -> tensor | tuple``; the
 same function runs eagerly in the executor and, on ``meta`` tensors,
 answers shape inference (the reference traces it with `jax.eval_shape`).
+
+Flags, as in the reference: an op that ``needs_rng`` takes an explicit
+`torch.Generator` after its attrs (``fn(attrs, generator, *tensors)``,
+where the JAX op takes a key); one that ``uses_train_mode`` reads the
+``__train`` attr the executor injects; ``mutate_inputs`` names the input
+slots whose new values follow the visible outputs (MXNet's
+FMutateInputs).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -68,11 +75,16 @@ class OpDef:
 
     def __init__(self, name: str, fn: Callable, *,
                  num_inputs: Optional[int] = None, num_outputs: int = 1,
+                 needs_rng: bool = False, uses_train_mode: bool = False,
+                 mutate_inputs: Sequence[int] = (),
                  input_names: Optional[Sequence[str]] = None):
         self.name = name
         self.fn = fn
         self.num_inputs = num_inputs          # None => variadic
         self._num_outputs = num_outputs
+        self.needs_rng = needs_rng            # fn(attrs, generator, *arrays)
+        self.uses_train_mode = uses_train_mode  # executor injects __train
+        self.mutate_inputs = tuple(mutate_inputs)
         self.input_names = list(input_names) if input_names else None
         self.doc = fn.__doc__ or ""
         self.aliases: List[str] = []
@@ -81,6 +93,10 @@ class OpDef:
         if callable(self._num_outputs):
             return self._num_outputs(attrs)
         return self._num_outputs
+
+    def mutate_slots(self, attrs: Attrs) -> Tuple[int, ...]:
+        """The input slots this op writes back (FMutateInputs)."""
+        return self.mutate_inputs
 
     def __repr__(self):
         return f"<OpDef {self.name}>"
@@ -123,9 +139,15 @@ def _attrs(kwargs: Dict[str, Any]) -> Attrs:
 
 
 def apply_op(name: str, tensors: Sequence[torch.Tensor],
-             kwargs: Dict[str, Any]):
-    """Run op ``name`` on tensors; returns a tuple of output tensors."""
-    out = get_op(name).fn(_attrs(kwargs), *tensors)
+             kwargs: Dict[str, Any],
+             generator: Optional[torch.Generator] = None):
+    """Run op ``name`` on tensors; returns a tuple of output tensors.  An
+    op that needs randomness draws it from ``generator``."""
+    op = get_op(name)
+    if op.needs_rng:
+        out = op.fn(_attrs(kwargs), generator, *tensors)
+    else:
+        out = op.fn(_attrs(kwargs), *tensors)
     return out if isinstance(out, tuple) else (out,)
 
 

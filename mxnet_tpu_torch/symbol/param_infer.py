@@ -1,7 +1,8 @@
 """Backward parameter-shape inference for the layered ops (the FC,
-LayerNorm and Embedding rules of `mxnet_tpu/symbol/param_infer.py`): the
-shapes of a node's parameter variables from its data shape, so a graph
-binds from data shapes alone."""
+LayerNorm, Embedding and SoftmaxOutput rules of
+`mxnet_tpu/symbol/param_infer.py`): the shapes of a node's parameter and
+label variables from its data shape, so a graph binds from data shapes
+alone."""
 from __future__ import annotations
 
 from typing import Dict
@@ -35,10 +36,20 @@ def _embedding(a, data):
     return {1: (a.get_int("input_dim"), a.get_int("output_dim"))}
 
 
+def _softmax_output_label(a, data):
+    """The label has the data's shape without the class axis: the last
+    one, or axis 1 with ``multi_output``."""
+    if a.get_bool("multi_output", False):
+        return {1: (data[0],) + tuple(data[2:])}
+    return {1: tuple(data[:-1])}
+
+
 _RULES = {
     "FullyConnected": _fc,
     "LayerNorm": _ln,
     "Embedding": _embedding,
+    "SoftmaxOutput": _softmax_output_label,
+    "Softmax": _softmax_output_label,
 }
 
 

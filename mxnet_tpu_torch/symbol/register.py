@@ -23,6 +23,9 @@ _SYM_INPUTS = {
     "LeakyReLU": lambda a: (["data", "gamma"]
                             if a.get_str("act_type", "leaky") == "prelu"
                             else ["data"]),
+    # output heads create their `<name>_label` variable when not given
+    "SoftmaxOutput": lambda a: ["data", "label"],
+    "Softmax": lambda a: ["data", "label"],
 }
 
 

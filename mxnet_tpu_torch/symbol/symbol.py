@@ -18,6 +18,7 @@ import torch
 
 from ..attribute import strip_annotations
 from ..base import MXNetError, str_to_attr
+from ..context import default_context
 from ..ops import registry as _reg
 from ..ops.registry import Attrs
 from .param_infer import infer_param_shapes
@@ -121,13 +122,30 @@ class Symbol:
     def _nodes(self) -> List[_Node]:
         return _topo(self._heads)
 
+    def _aux_var_names(self) -> set:
+        """Variables every consumer of which mutates them (MXNet's
+        FMutateInputs, e.g. BatchNorm's moving statistics): the graph's
+        auxiliary states."""
+        consumers: Dict[str, List[bool]] = {}
+        for node in self._nodes():
+            if node.is_var:
+                continue
+            mut = _reg.get_op(node.op).mutate_slots(
+                Attrs(strip_annotations(node.attrs)))
+            for slot, (inp, _) in enumerate(node.inputs):
+                if inp.is_var:
+                    consumers.setdefault(inp.name, []).append(slot in mut)
+        return {name for name, slots in consumers.items()
+                if slots and all(slots)}
+
     def list_arguments(self) -> List[str]:
-        return [n.name for n in self._nodes() if n.is_var]
+        aux = self._aux_var_names()
+        return [n.name for n in self._nodes() if n.is_var
+                and n.name not in aux]
 
     def list_auxiliary_states(self) -> List[str]:
-        """Empty: no ported op mutates its inputs (BatchNorm's moving
-        statistics are the reference's auxiliary states)."""
-        return []
+        aux = self._aux_var_names()
+        return [n.name for n in self._nodes() if n.is_var and n.name in aux]
 
     def list_outputs(self) -> List[str]:
         out = []
@@ -141,6 +159,12 @@ class Symbol:
         return out
 
     # -- shape inference ----------------------------------------------------
+    def attr_dict(self):
+        """Node name -> its attrs as strings, for the nodes that have any
+        (reference `symbol.py:attr_dict()`)."""
+        return {n.name: {k: _attr_str(v) for k, v in n.attrs.items()}
+                for n in self._nodes() if n.attrs}
+
     def infer_shape(self, **shapes):
         """``(arg_shapes, out_shapes, aux_shapes)`` from known input
         shapes; raises when an argument stays unresolved."""
@@ -155,7 +179,8 @@ class Symbol:
         inferred = _infer_graph(self._heads, known, partial)
         arg_shapes = [inferred.get(n) for n in self.list_arguments()]
         out_shapes = [inferred.get(_value_key(e)) for e in self._heads]
-        return arg_shapes, out_shapes, []
+        aux_shapes = [inferred.get(n) for n in self.list_auxiliary_states()]
+        return arg_shapes, out_shapes, aux_shapes
 
     # -- serialization ------------------------------------------------------
     def tojson(self) -> str:
@@ -176,11 +201,37 @@ class Symbol:
         return json.dumps(graph, indent=2)
 
     # -- execution ----------------------------------------------------------
-    def bind(self, ctx=None, args=None, grad_req="null", aux_states=None):
-        """An inference `Executor` over this graph with ``args`` bound."""
+    def bind(self, ctx=None, args=None, args_grad=None, grad_req="write",
+             aux_states=None):
+        """An `Executor` over this graph with ``args`` bound (and, where
+        ``args_grad`` gives buffers, their gradients per ``grad_req``)."""
         from ..executor import Executor  # the executor imports symbols
-        return Executor(self, ctx, args=args, grad_req=grad_req,
-                        aux_states=aux_states)
+        return Executor(self, ctx, args=args, args_grad=args_grad,
+                        grad_req=grad_req, aux_states=aux_states)
+
+    def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
+                    **shapes):
+        """Bind with every argument, gradient and auxiliary state
+        allocated as zeros on ``ctx`` (the card when none is given), their
+        shapes inferred from the given input ``shapes`` (reference
+        `symbol.py:1369`).  ``type_dict`` names dtypes other than
+        float32."""
+        from ..executor import Executor
+        from ..ndarray.ndarray import zeros
+        if ctx is None:
+            ctx = default_context("simple_bind")
+        arg_shapes, _, aux_shapes = self.infer_shape(**shapes)
+        type_dict = dict(type_dict or {})
+        args = {n: zeros(s, ctx=ctx, dtype=type_dict.get(n, "float32"))
+                for n, s in zip(self.list_arguments(), arg_shapes)}
+        aux = {n: zeros(s, ctx=ctx, dtype=type_dict.get(n, "float32"))
+               for n, s in zip(self.list_auxiliary_states(), aux_shapes)}
+        args_grad = None
+        if grad_req != "null":
+            args_grad = {n: zeros(a.shape, ctx=ctx, dtype=a.dtype)
+                         for n, a in args.items()}
+        return Executor(self, ctx, args=args, args_grad=args_grad,
+                        grad_req=grad_req, aux_states=aux)
 
 
 def _attr_str(v) -> str:

@@ -1,6 +1,7 @@
-"""The port's flash-attention op (`mxnet_tpu_torch.ops.hopper_kernels`)
-against the JAX package's Pallas kernel in interpret mode, on the CPU,
-where the port takes the kernel's plain PyTorch version."""
+"""The port's flash-attention op and its gradient
+(`mxnet_tpu_torch.ops.hopper_kernels`) against the JAX package's Pallas
+kernels in interpret mode, on the CPU, where the port takes each kernel's
+plain PyTorch version."""
 import numpy as np
 import pytest
 import torch
@@ -81,7 +82,8 @@ def test_cpu_tensor_never_touches_the_kernel_library(monkeypatch):
     hk.reset_launch_counts()
     q, k, v = (torch.from_numpy(a) for a in _qkv(3, (1, 1, 64, 32), 64))
     hk.flash_attention(q, k, v)
-    assert hk.LAUNCHES == {"flash_attn_fwd": 0}
+    assert hk.LAUNCHES == {"flash_attn_fwd": 0, "flash_attn_bwd_dq": 0,
+                           "flash_attn_bwd_dkv": 0}
 
 
 @pytest.mark.parametrize("d,dtype,ok", [(64, torch.float32, True),
@@ -108,3 +110,118 @@ def test_plain_version_keeps_bf16_and_meta_shapes():
     m = torch.empty((2, 3, 128, 64), device="meta")
     o, lse = hk.flash_attention_with_lse(m, m, m)
     assert o.shape == (2, 3, 128, 64) and lse.shape == (2, 3, 128)
+
+
+# ---------------------------------------------------------------------------
+# K2 / K3: the attention backward
+# ---------------------------------------------------------------------------
+
+# the reference's attention-gradient tolerance (tests/test_pallas.py:101);
+# the worst difference seen on these cases is 1.7e-6
+GRAD_TOL = 2e-3
+
+# (q shape, lk, block_q, block_k): the JAX kernel's own blocks, and
+# Lq != Lk as in tests/test_pallas.py:105
+BWD_CASES = [((1, 2, 128, 16), 128, 128, 128),
+             ((2, 2, 128, 64), 128, 64, 64),
+             ((1, 2, 64, 16), 256, 32, 64),
+             ((1, 2, 64, 64), 256, 32, 64)]
+
+
+def _bwd_inputs(seed, q_shape, lk):
+    q, k, v = _qkv(seed, q_shape, lk)
+    rng = np.random.RandomState(seed + 100)
+    return (q, k, v, rng.randn(*q_shape).astype(np.float32),
+            rng.randn(*q_shape[:-1]).astype(np.float32))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("q_shape,lk,block_q,block_k", BWD_CASES)
+def test_backward_plain_versions_match_pallas_bwd(causal, q_shape, lk,
+                                                   block_q, block_k):
+    """`_attn_dq_plain` / `_attn_dkv_plain` against the JAX package's
+    `_pallas_attention_bwd` (K2 and K3 in interpret mode) on the same
+    forward residuals and a nonzero dLSE."""
+    q, k, v, do, dlse = _bwd_inputs(5, q_shape, lk)
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    scale = q_shape[-1] ** -0.5
+    o, lse = pk._pallas_attention_fwd(jq, jk, jv, causal=causal, scale=scale,
+                                      block_q=block_q, block_k=block_k,
+                                      interpret=True)
+    ref = pk._pallas_attention_bwd(jq, jk, jv, o, lse, jnp.asarray(do),
+                                   jnp.asarray(dlse), causal=causal,
+                                   scale=scale, block_q=block_q,
+                                   block_k=block_k, interpret=True)
+    t = [torch.from_numpy(np.array(a)) for a in (q, k, v, do, o, lse,
+                                                    dlse)]
+    tq, tk, tv, tdo, to, tlse, tdlse = t
+    delta = (tdo * to).sum(-1)
+    args = (tq, tk, tv, tdo, tlse, delta, tdlse)
+    dq = hk._attn_dq_plain(*args, causal=causal, scale=scale)
+    dk, dv = hk._attn_dkv_plain(*args, causal=causal, scale=scale)
+    for got, want in zip((dq, dk, dv), ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=GRAD_TOL, atol=GRAD_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("q_shape,lk,block_q,block_k", BWD_CASES)
+def test_autograd_backward_matches_jax_vjp(causal, q_shape, lk, block_q,
+                                           block_k):
+    """`flash_attention_with_lse`'s autograd backward on CPU tensors
+    against `jax.vjp` of the JAX package's `flash_attention_with_lse`
+    (its custom_vjp runs K2 and K3 in interpret mode), with cotangents on
+    both O and the logsumexp."""
+    import jax
+    q, k, v, do, dlse = _bwd_inputs(6, q_shape, lk)
+
+    def f(q, k, v):
+        return pk.flash_attention_with_lse(q, k, v, causal=causal,
+                                           block_q=block_q, block_k=block_k,
+                                           interpret=True)
+
+    (o_ref, lse_ref), vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v))
+    ref = vjp((jnp.asarray(do), jnp.asarray(dlse)))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True)
+                  for a in (q, k, v))
+    o, lse = hk.flash_attention_with_lse(tq, tk, tv, causal=causal)
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(o_ref),
+                               rtol=TOL, atol=TOL)
+    got = torch.autograd.grad((o, lse), (tq, tk, tv),
+                              (torch.from_numpy(do), torch.from_numpy(dlse)))
+    for g, want in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(want),
+                                   rtol=GRAD_TOL, atol=GRAD_TOL)
+
+
+def test_backward_through_the_op_reaches_transposed_inputs():
+    """The op's contiguous copies stay in the autograd graph: a gradient
+    flows back to q, k, v handed over as [B, L, H, d] transposes, and only
+    O's gradient (no lse cotangent) is needed."""
+    q, k, v = (torch.from_numpy(a).transpose(1, 2).contiguous()
+               .requires_grad_(True) for a in _qkv(7, (1, 2, 128, 16), 128))
+    args = [t.transpose(1, 2) for t in (q, k, v)]
+    out = mt.ops.registry.apply_op("_fused_attention", args, {})[0]
+    out.sum().backward()
+    ref = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    o2, _ = hk._flash_attention_with_lse_plain(
+        *[t.transpose(1, 2) for t in ref])
+    o2.sum().backward()
+    for t, r in zip((q, k, v), ref):
+        np.testing.assert_allclose(t.grad.numpy(), r.grad.numpy(),
+                                   rtol=GRAD_TOL, atol=GRAD_TOL)
+
+
+def test_backward_counts_no_launch_on_the_cpu(monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("the CUDA kernel library was loaded")
+    monkeypatch.setattr(cuda_build, "load", refuse)
+    hk.reset_launch_counts()
+    q, k, v = (torch.from_numpy(a).requires_grad_(True)
+               for a in _qkv(8, (1, 1, 64, 32), 64))
+    hk.flash_attention(q, k, v, causal=True).sum().backward()
+    assert q.grad is not None and k.grad is not None and v.grad is not None
+    assert set(hk.LAUNCHES) == {"flash_attn_fwd", "flash_attn_bwd_dq",
+                                "flash_attn_bwd_dkv"}
+    assert not any(hk.LAUNCHES.values())
