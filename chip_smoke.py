@@ -22,6 +22,11 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    16/32/128 and Lq != Lk; fp32 within 2e-3, bf16 within 2e-2 of the
    gradient's largest magnitude; times beside the bound and one library
    call (the backward of PyTorch's fused attention, for K2 + K3).
+3c. LSTM kernel -- K4 against its plain version: the LM's [32, 800] gates
+   and [32, 200] cell, [20, 6000], [4096, 4096], an odd H = 13, and bf16
+   gates with fp32 or bf16 cells; fp32 within 1e-5, bf16 within 2e-2
+   (compared in fp32); times beside the bound and PyTorch's fused CUDA
+   LSTM cell (``aten._thnn_fused_lstm_cell``) as the library call.
 4. slice   -- BERT-base (12 x 768, 12 heads, FFN 3072, vocab 30522, random
    weights from a seed, handed over as a `.params` blob) served by
    `mxnet_tpu_torch.Predictor` on cuda:0: 4 requests at (8, 512), a reshape
@@ -39,9 +44,18 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    dropout 0.1 and BERT's Adam, 20 steps on a fixed batch must lower the
    loss, and 20 more (after 2 warm-ups) are timed.  Every step must launch
    K1, K2 and K3 once per layer.  One warm step is profiled.
+6. LSTM    -- MXNet's PTB LSTM language model (the reference's
+   ``example/rnn/bucketing/lstm_bucketing.py`` at its defaults: 2 layers
+   of 200, embed 200, vocab 10000, batch 32; random weights from a seed in
+   one `.params` blob) served by one `mxnet_tpu_torch.Predictor` per
+   bucket, T = 60 and T = 10.  The graph optimizer must swap all 2·T LSTM
+   cells onto K4 (and no attention site); each forward must launch K4 2·T
+   times and K1 never; 4 requests per bucket must match a Predictor of the
+   unfused graph within 1e-4; then 200 (T = 60) and 400 (T = 10) warm
+   requests are timed and one forward at T = 60 is profiled.
 
-If the run nears its time limit, cut the serving phase's ``TIMED`` counts
-before anything of the training phase.
+If the run nears its time limit, cut the serving phases' ``TIMED`` and
+``LSTM_TIMED`` counts before anything of the training phase.
 
 The line before the last is the JSON kernel report; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -60,8 +74,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import mxnet_tpu_torch as mt  # noqa: E402
-from mxnet_tpu_torch.model_zoo import (BERT_BASE, bert_encoder,  # noqa: E402
-                                       bert_mlm, random_params)
+from mxnet_tpu_torch.model_zoo import (BERT_BASE, PTB_LSTM,  # noqa: E402
+                                       bert_encoder, bert_mlm, lstm_lm,
+                                       random_params)
 from mxnet_tpu_torch.ndarray.ndarray import NDArray  # noqa: E402
 from mxnet_tpu_torch.ops import cuda_build, hopper_kernels as hk  # noqa: E402
 from mxnet_tpu_torch.serialization import dumps_ndarrays  # noqa: E402
@@ -91,6 +106,21 @@ KEY_BIAS_TOL = 1e-5
 TRAIN_STEPS, WARM_STEPS, TIMED_STEPS = 20, 2, 20
 # BERT's published Adam settings, in MXNet's L2 form of weight decay
 ADAM = dict(learning_rate=1e-4, wd=0.01, beta2=0.999, epsilon=1e-6)
+ATTN_KERNELS = ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
+# K4 against its plain version: the reference's LSTM-gate tolerance
+# (tests/test_pallas.py:68) in fp32; bf16 in either input compared in fp32
+# after the cast
+LSTM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# operations per (b, j) of K4, counted from its source: 3 sigmoids (exp,
+# add, divide) and 2 tanh at one each, 2 multiplies and an add for c', a
+# multiply for h'
+LSTM_OPS = 3 * 3 + 2 + 3 + 1
+# the served LSTM LM against its unfused graph: 2·T recurrent applications
+# of the cell, so the 1e-5 per-step tolerance is loosened to 1e-4
+LSTM_SLICE_TOL = 1e-4
+# LSTM LM: requests timed per bucket, after the checked ones and one warm-up
+LSTM_BATCH = 32
+LSTM_TIMED = {60: 200, 10: 400}
 
 
 def log(*parts):
@@ -333,54 +363,124 @@ def phase_backward_kernels():
     return {r["kernel"]: r for r in recs[0]}
 
 
-def _serve(pred, requests, positions, launches_per_forward=None,
-           keep=True):
-    """Answer each request: forward plus the output copy to the host;
-    returns the outputs (when ``keep``) and the latencies in ms.  With
-    ``launches_per_forward``, each forward must launch K1 that many
-    times."""
+def _lstm_bound(gates, c):
+    """Least time for K4's work on these inputs: the gates and c read once,
+    c' and h' written once, over HBM, or LSTM_OPS fp32 operations per
+    (b, j) over the fp32 rate, whichever is larger."""
+    nbytes = gates.numel() * gates.element_size() + \
+        3 * c.numel() * c.element_size()
+    t_mem = nbytes / MEM_BPS
+    t_ops = LSTM_OPS * c.numel() / PEAK_FLOPS[torch.float32]
+    return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem > t_ops
+                                     else "operations")
+
+
+def check_lstm(name, b, h, gates_dtype, c_dtype, gen):
+    """K4 against its plain version on one input; returns the record."""
+    dev = torch.device("cuda", 0)
+    gates = torch.randn((b, 4 * h), generator=gen, device=dev) \
+        .to(gates_dtype)
+    c = torch.randn((b, h), generator=gen, device=dev).to(c_dtype)
+    c_new, h_new = hk.lstm_gates(gates, c)
+    c_ref, h_ref = hk._lstm_gates_plain(gates, c)
+    torch.cuda.synchronize()
+    if c_new.dtype != c_dtype or tuple(h_new.shape) != (b, h):
+        raise AssertionError(f"K4 gave {c_new.dtype} {tuple(h_new.shape)}")
+    err = max((c_new.float() - c_ref.float()).abs().max().item(),
+              (h_new.float() - h_ref.float()).abs().max().item())
+    tol = LSTM_TOL[torch.bfloat16 if torch.bfloat16 in (gates_dtype, c_dtype)
+                   else torch.float32]
+    if not err <= tol:
+        raise AssertionError(f"K4 {name} off by {err} (tolerance {tol})")
+    rec = {"check": name, "kernel": "lstm_gates", "gates": [b, 4 * h],
+           "c": [b, h], "gates_dtype": str(gates_dtype)[6:],
+           "c_dtype": str(c_dtype)[6:], "max_abs_err": err,
+           "ms": time_ms(lambda: hk.lstm_gates(gates, c), iters=100),
+           "plain_ms": time_ms(lambda: hk._lstm_gates_plain(gates, c),
+                               iters=100),
+           "library_ms": None, "library_max_abs_err": None}
+    # PyTorch's fused CUDA LSTM cell (gate order i|f|g|o) on the same gates
+    # with zero hidden-side gates: for the table only, never on the path
+    lib = torch.ops.aten._thnn_fused_lstm_cell
+    if gates_dtype == c_dtype == torch.float32:
+        zeros = torch.zeros_like(gates)
+        hy, cy, _ = lib(gates, zeros, c)
+        rec["library_max_abs_err"] = max(
+            (cy - c_ref).abs().max().item(), (hy - h_ref).abs().max().item())
+        rec["library_ms"] = time_ms(lambda: lib(gates, zeros, c), iters=100)
+    rec["bound_ms"], rec["bound_by"] = _lstm_bound(gates, c)
+    log(json.dumps(rec))
+    return rec
+
+
+def phase_lstm_kernels():
+    """K4 against its plain version; returns the records of the main
+    path's call ([32, 800] gates and [32, 200] c in fp32) and of the
+    [4096, 4096] call, where the share of the bound means something."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [("ptb_lstm", LSTM_BATCH, PTB_LSTM["num_hidden"], f32, f32),
+             ("wide", 20, 1500, f32, f32),
+             ("large", 4096, 1024, f32, f32),
+             ("odd_h13", 7, 13, f32, f32),
+             ("ptb_lstm", LSTM_BATCH, PTB_LSTM["num_hidden"], bf16, f32),
+             ("ptb_lstm", LSTM_BATCH, PTB_LSTM["num_hidden"], bf16, bf16),
+             ("large", 4096, 1024, bf16, f32),
+             ("large", 4096, 1024, bf16, bf16)]
+    with torch.no_grad():
+        recs = [check_lstm(*c, gen) for c in cases]
+    return recs[0], recs[2]
+
+
+def _serve(pred, feeds, expect=None, keep=True):
+    """Answer each request (a dict of inputs): forward plus the output copy
+    to the host; returns the outputs (when ``keep``) and the latencies in
+    ms.  ``expect`` {kernel: n} holds each forward to n launches of each
+    named kernel."""
+    expect = expect or {}
     outs, lat = [], []
-    for data in requests:
-        before = hk.LAUNCHES["flash_attn_fwd"]
+    for feed in feeds:
+        before = dict(hk.LAUNCHES)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pred.forward(data=data, positions=positions)
+        pred.forward(**feed)
         out = pred.get_output(0).asnumpy()
         lat.append((time.perf_counter() - t0) * 1e3)
         if keep:
             outs.append(out)
-        launched = hk.LAUNCHES["flash_attn_fwd"] - before
-        if launches_per_forward is not None and \
-                launched != launches_per_forward:
-            raise AssertionError(f"a forward launched K1 {launched} times, "
-                                 f"want {launches_per_forward}")
+        for kernel, want in expect.items():
+            launched = hk.LAUNCHES[kernel] - before[kernel]
+            if launched != want:
+                raise AssertionError(f"a forward launched {kernel} "
+                                     f"{launched} times, want {want}")
     return outs, lat
 
 
-def _latency(pred, requests, positions, n, launches_per_forward=None):
-    """Latency summary of ``n`` requests cycled from ``requests``, after one
+def _latency(pred, feeds, n, expect=None):
+    """Latency summary of ``n`` requests cycled from ``feeds``, after one
     untimed warm-up request at the bound shape."""
-    _serve(pred, requests[:1], positions, launches_per_forward, keep=False)
-    _, lat = _serve(pred, [requests[i % len(requests)] for i in range(n)],
-                    positions, launches_per_forward, keep=False)
+    _serve(pred, feeds[:1], expect, keep=False)
+    _, lat = _serve(pred, [feeds[i % len(feeds)] for i in range(n)], expect,
+                    keep=False)
     q = np.percentile(lat, [50, 90, 99])
     return {"n": n, "p50_ms": float(q[0]), "p90_ms": float(q[1]),
             "p99_ms": float(q[2]), "min_ms": float(min(lat)),
             "max_ms": float(max(lat))}
 
 
-def profile_forward(tag, pred, data, positions):
+def profile_forward(tag, pred, feed):
     """Device time by kernel over one warm forward (with the output copy
-    to the host), and the device's idle share of that wall time."""
+    to the host), and the device's idle share of that wall time; K1's,
+    K4's and the GEMMs' totals are summed out of the kernel rows."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    pred.forward(data=data, positions=positions)
+    pred.forward(**feed)
     pred.get_output(0).asnumpy()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pred.forward(data=data, positions=positions)
+        pred.forward(**feed)
         pred.get_output(0).asnumpy()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -392,13 +492,30 @@ def profile_forward(tag, pred, data, positions):
     rec = {"profile": tag, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else
            "not measured",
+           "k1_ms": sum(ms for key, ms, _ in rows
+                        if "flash_attn_fwd_kernel" in key),
+           "k4_ms": sum(ms for key, ms, _ in rows
+                        if "lstm_gates_kernel" in key),
+           "k4_launches": sum(n for key, _, n in rows
+                              if "lstm_gates_kernel" in key),
+           "gemm_ms": sum(ms for key, ms, _ in rows
+                          if "gemm" in key.lower() or "gemv" in key.lower()),
            "top": [[name[:90], ms, n] for name, ms, n in rows[:12]]}
     log(json.dumps(rec))
+    return rec
+
+
+def _site_counts(pred):
+    """``(rewrites, attention sites, LSTM sites)`` of the Predictor's
+    ``pallas_select`` report."""
+    rep = [r for r in pred._program.opt_reports
+           if r.name == "pallas_select"][0]
+    return (rep.rewrites, len(rep.details.get("attention_sites", [])),
+            len(rep.details.get("lstm_sites", [])))
 
 
 def _rewrites(pred):
-    return [r.rewrites for r in pred._program.opt_reports
-            if r.name == "pallas_select"][0]
+    return _site_counts(pred)[0]
 
 
 @contextlib.contextmanager
@@ -439,20 +556,23 @@ def phase_slice(card):
                   .astype(np.float32) for _ in range(2)]
     pos = np.arange(seq, dtype=np.float32)[None]
     pos_short = np.arange(short, dtype=np.float32)[None]
+    feeds = [dict(data=d, positions=pos) for d in reqs]
+    feeds_short = [dict(data=d, positions=pos_short) for d in reqs_short]
     short_shapes = {"data": (batch, short), "positions": (1, short)}
+    expect = {"flash_attn_fwd": n_layers, "lstm_gates": 0}
 
     # the reference: the unfused graph on the same card
     with pallas_mode("0"):
         ref = mt.Predictor(sym.tojson(), blob, shapes)
         if _rewrites(ref) != 0:
             raise AssertionError("MXTPU_PALLAS=0 still swapped kernels in")
-        ref_out, _ = _serve(ref, reqs, pos)
-        ref_lat = _latency(ref, reqs, pos, TIMED[seq])
+        ref_out, _ = _serve(ref, feeds)
+        ref_lat = _latency(ref, feeds, TIMED[seq])
         ref.reshape(short_shapes)
-        ref_out_s, _ = _serve(ref, reqs_short, pos_short)
-        ref_lat_s = _latency(ref, reqs_short, pos_short, TIMED[short])
+        ref_out_s, _ = _serve(ref, feeds_short)
+        ref_lat_s = _latency(ref, feeds_short, TIMED[short])
         ref.reshape(shapes)
-        profile_forward("unfused seq 512", ref, reqs[0], pos)
+        profile_forward("unfused seq 512", ref, feeds[0])
     del ref
     torch.cuda.empty_cache()
 
@@ -463,23 +583,23 @@ def phase_slice(card):
             raise AssertionError(f"pallas_select rewrote {_rewrites(pred)} "
                                  f"attention sites, want {n_layers}")
         hk.reset_launch_counts()
-        outs, _ = _serve(pred, reqs, pos, n_layers)
-        lat = _latency(pred, reqs, pos, TIMED[seq], n_layers)
+        outs, _ = _serve(pred, feeds, expect)
+        lat = _latency(pred, feeds, TIMED[seq], expect)
         pred.reshape(short_shapes)
         if _rewrites(pred) != n_layers:
             raise AssertionError("pallas_select after reshape rewrote "
                                  f"{_rewrites(pred)} sites")
-        outs_s, _ = _serve(pred, reqs_short, pos_short, n_layers)
-        lat_s = _latency(pred, reqs_short, pos_short, TIMED[short], n_layers)
+        outs_s, _ = _serve(pred, feeds_short, expect)
+        lat_s = _latency(pred, feeds_short, TIMED[short], expect)
         launches = dict(hk.LAUNCHES)
         forwards = len(reqs) + len(reqs_short) + TIMED[seq] + TIMED[short] + 2
         if launches["flash_attn_fwd"] != n_layers * forwards:
             raise AssertionError(f"K1 launched {launches} times over "
                                  f"{forwards} forwards")
         # diagnostics after the counted run: where a forward's time goes
-        profile_forward("K1 seq 128", pred, reqs_short[0], pos_short)
+        profile_forward("K1 seq 128", pred, feeds_short[0])
         pred.reshape(shapes)
-        profile_forward("K1 seq 512", pred, reqs[0], pos)
+        profile_forward("K1 seq 512", pred, feeds[0])
 
     worst = 0.0
     for got, want, shape in ([(g, w, (batch, seq, cfg["hidden"]))
@@ -541,10 +661,13 @@ def _mlm_loss(mod, label):
 
 
 def _check_launches(what, launches, want):
-    for name, n in launches.items():
-        if n != want:
-            raise AssertionError(f"{what}: {name} launched {n} times, want "
-                                 f"{want} ({launches})")
+    """K1, K2 and K3 launched ``want`` times each, K4 never."""
+    expect = dict.fromkeys(ATTN_KERNELS, want)
+    expect["lstm_gates"] = 0
+    for name, n in expect.items():
+        if launches[name] != n:
+            raise AssertionError(f"{what}: {name} launched {launches[name]} "
+                                 f"times, want {n} ({launches})")
 
 
 def _grad_parity(fused, unfused):
@@ -722,17 +845,148 @@ def phase_train(card, cfg=None, batch=8, seq=512):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the PTB LSTM language model served through Predictor
+# ---------------------------------------------------------------------------
+
+def _check_lm_outputs(outs, refs, batch, seq, vocab):
+    """Each output finite, (batch·seq, vocab), rows summing to 1, and
+    within LSTM_SLICE_TOL of the unfused graph's; returns the worst
+    difference."""
+    worst = 0.0
+    for got, want in zip(outs, refs):
+        if got.shape != (batch * seq, vocab) or not np.isfinite(got).all():
+            raise AssertionError(f"LM output {got.shape} not finite "
+                                 f"({batch * seq}, {vocab})")
+        np.testing.assert_allclose(got.sum(-1), 1.0, rtol=0,
+                                   atol=LSTM_SLICE_TOL)
+        np.testing.assert_allclose(got, want, rtol=LSTM_SLICE_TOL,
+                                   atol=LSTM_SLICE_TOL)
+        worst = max(worst, float(np.abs(got - want).max()))
+    return worst
+
+
+def _forward_and_copy(pred, feed, n=20):
+    """Median ms of the forward alone (ending in a device synchronize) and
+    of the output's copy to the host after it, over ``n`` requests."""
+    fwd, copy = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred.forward(**feed)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pred.get_output(0).asnumpy()
+        copy.append((time.perf_counter() - t1) * 1e3)
+        fwd.append((t1 - t0) * 1e3)
+    return {"n": n, "forward_p50_ms": float(np.median(fwd)),
+            "copy_p50_ms": float(np.median(copy))}
+
+
+def phase_lstm_serving(card):
+    """MXNet's PTB LSTM LM (2 x 200, vocab 10000, batch 32) served one
+    `Predictor` per bucket from one `.params` blob, at T = 60 and T = 10:
+    the fused graph (every cell on K4) against the unfused one on the
+    card.  Returns the K4 launches of the fused Predictors' run."""
+    cfg = dict(PTB_LSTM)
+    batch, vocab, buckets = LSTM_BATCH, cfg["vocab"], tuple(LSTM_TIMED)
+    syms = {t: lstm_lm(mt, t, **cfg) for t in buckets}
+    shapes = {t: {"data": (batch, t)} for t in buckets}
+    sym = syms[buckets[0]]
+    arg_shapes, _, _ = sym.infer_shape(**shapes[buckets[0]])
+    params = random_params({n: s for n, s in zip(sym.list_arguments(),
+                                                 arg_shapes)
+                            if n != "data"}, SEED)
+    blob = dumps_ndarrays({"arg:" + n: NDArray(torch.from_numpy(a))
+                           for n, a in params.items()})
+    log(f"lstm: PTB LSTM LM {sum(a.size for a in params.values())} "
+        f"parameters, blob {len(blob)} bytes")
+    del params
+    rng = np.random.RandomState(SEED + 4)
+    feeds = {t: [dict(data=rng.randint(0, vocab, (batch, t))
+                      .astype(np.float32)) for _ in range(4)]
+             for t in buckets}
+
+    # the reference: the unfused graph of each bucket on the same card
+    ref_out, ref_lat, ref_split = {}, {}, {}
+    with pallas_mode("0"):
+        for t in buckets:
+            ref = mt.Predictor(syms[t].tojson(), blob, shapes[t])
+            if _rewrites(ref) != 0:
+                raise AssertionError("MXTPU_PALLAS=0 still swapped kernels")
+            ref_out[t], _ = _serve(ref, feeds[t])
+            ref_lat[t] = _latency(ref, feeds[t], LSTM_TIMED[t])
+            ref_split[t] = _forward_and_copy(ref, feeds[t][0])
+            if t == buckets[0]:
+                profile_forward(f"unfused LSTM T {t}", ref, feeds[t][0])
+            del ref
+
+    # the main path: one Predictor per bucket with the default selection
+    with pallas_mode("auto"):
+        preds, opt_ms = {}, {}
+        for t in buckets:
+            preds[t] = mt.Predictor(syms[t].tojson(), blob, shapes[t])
+            rewrites, attn, lstm = _site_counts(preds[t])
+            if (rewrites, attn, lstm) != (2 * t, 0, 2 * t):
+                raise AssertionError(
+                    f"pallas_select at T {t}: {rewrites} rewrites, {attn} "
+                    f"attention and {lstm} LSTM sites; want {2 * t} LSTM")
+            opt_ms[t] = [r.wall_ms for r in preds[t]._program.opt_reports
+                         if r.name == "pallas_select"][0]
+        hk.reset_launch_counts()
+        outs, lat = {}, {}
+        for t in buckets:
+            expect = {"lstm_gates": 2 * t, "flash_attn_fwd": 0}
+            outs[t], _ = _serve(preds[t], feeds[t], expect)
+            lat[t] = _latency(preds[t], feeds[t], LSTM_TIMED[t], expect)
+        launches = dict(hk.LAUNCHES)
+        want = sum(2 * t * (len(feeds[t]) + 1 + LSTM_TIMED[t])
+                   for t in buckets)
+        if launches["lstm_gates"] != want or \
+                any(launches[k] for k in ATTN_KERNELS):
+            raise AssertionError(f"LSTM serving launched {launches}; want "
+                                 f"{want} of lstm_gates only")
+        # diagnostics after the counted run
+        split = {t: _forward_and_copy(preds[t], feeds[t][0])
+                 for t in buckets}
+        prof = profile_forward(f"K4 LSTM T {buckets[0]}", preds[buckets[0]],
+                               feeds[buckets[0]][0])
+    worst = {t: _check_lm_outputs(outs[t], ref_out[t], batch, t, vocab)
+             for t in buckets}
+    log(f"lstm: max |fused - unfused| {worst} (tolerance {LSTM_SLICE_TOL})")
+    rec = {"slice": "ptb_lstm_lm_predictor", "card": card, "batch": batch,
+           "config": cfg, "buckets": list(buckets),
+           "pallas_select_wall_ms": opt_ms,
+           "latency": {str(t): lat[t] for t in buckets},
+           "tokens_per_s": {str(t): batch * t / (lat[t]["p50_ms"] / 1e3)
+                            for t in buckets},
+           "unfused_latency": {str(t): ref_lat[t] for t in buckets},
+           "forward_and_copy": {str(t): split[t] for t in buckets},
+           "unfused_forward_and_copy": {str(t): ref_split[t]
+                                        for t in buckets},
+           "max_abs_diff_vs_unfused": {str(t): worst[t] for t in buckets},
+           "launches": launches,
+           "profile": {k: prof[k] for k in ("wall_ms", "device_busy_ms",
+                                            "idle_share", "k4_ms",
+                                            "gemm_ms")}}
+    log(json.dumps(rec))
+    return launches
+
+
 def main():
     card = phase_device()
     phase_build()
     k1 = phase_kernels()
     bwd = phase_backward_kernels()
+    k4, _ = phase_lstm_kernels()
     serve_launches = phase_slice(card)
     train_launches = phase_train(card)
+    lstm_launches = phase_lstm_serving(card)
     leaked = [m for m in ("jax", "mxnet_tpu") if m in sys.modules]
     if leaked:
         raise SystemExit(f"chip_smoke: the port imported {leaked}")
-    log(f"launches: serving {serve_launches}, training {train_launches}")
+    log(f"launches: serving {serve_launches}, training {train_launches}, "
+        f"LSTM serving {lstm_launches}")
     kernels = [{
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -755,6 +1009,15 @@ def main():
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
         })
+    kernels.append({
+        "name": "lstm_gates", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/lstm_gates.cu",
+        "replaces": "mxnet_tpu/ops/pallas_kernels.py:452",
+        "launches": lstm_launches["lstm_gates"],
+        "max_abs_err": k4["max_abs_err"], "ms": k4["ms"],
+        "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
+        "bound_by": k4["bound_by"], "library_ms": k4["library_ms"],
+    })
     if any(k["launches"] == 0 for k in kernels):
         raise SystemExit("chip_smoke: a kernel of the path never launched")
     print(json.dumps({"kernels": kernels}))

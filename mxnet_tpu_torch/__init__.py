@@ -8,21 +8,24 @@ JAX package's Pallas kernels are rewritten by hand for Hopper
 the JAX package.
 
 Ported so far: the deploy path ``Predictor(symbol_json, params,
-input_shapes)`` over the ops a BERT encoder uses, with the graph
-optimizer's attention swap onto the flash-attention forward kernel; and
-symbolic training through ``mod.Module`` (bind, init_params,
-init_optimizer, forward, backward, update) with SGD and Adam, where
-attention's gradient runs on the flash-attention backward kernels.
+input_shapes)`` over the ops a BERT encoder and an unrolled LSTM language
+model use, with the graph optimizer's swaps onto the flash-attention
+forward kernel and the fused LSTM cell-update kernel; the legacy symbolic
+RNN cells (`rnn.LSTMCell`, `rnn.SequentialRNNCell`); and symbolic training
+through ``mod.Module`` (bind, init_params, init_optimizer, forward,
+backward, update) with SGD and Adam, where attention's gradient runs on
+the flash-attention backward kernels.
 """
 from . import base, config, ops  # noqa: F401
 from .base import MXNetError
 from .context import Context, cpu, gpu
 from . import ndarray as nd
 from . import symbol as sym
-from . import random, io, initializer, optimizer  # noqa: F401
+from . import random, io, initializer, optimizer, rnn  # noqa: F401
 from . import initializer as init
 from . import module as mod
 from .predictor import Predictor
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "nd", "sym", "random",
-           "io", "init", "initializer", "optimizer", "mod", "Predictor"]
+           "io", "init", "initializer", "optimizer", "mod", "rnn",
+           "Predictor"]

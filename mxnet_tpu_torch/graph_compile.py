@@ -134,10 +134,11 @@ class GraphProgram:
 
     def __init__(self, symbol, train: bool = False,
                  input_shapes: Optional[Dict[str, Tuple]] = None,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None,
+                 input_dtypes: Optional[Dict[str, torch.dtype]] = None):
         self.train = bool(train)
         opt = graph_opt.optimize(symbol, shapes=input_shapes, device=device,
-                                 train=self.train)
+                                 train=self.train, dtypes=input_dtypes)
         if self.train and opt.symbol is not symbol:
             graph_opt._check_train_invariants(symbol, opt.symbol)
         self._run_symbol = opt.symbol
@@ -170,9 +171,12 @@ class GraphCompiler:
         train = bool(train)
         prog = executor._programs.get(train)
         if prog is None:
-            shapes = {n: a.shape for n, a in executor.arg_dict.items()}
-            shapes.update({n: a.shape for n, a in executor.aux_dict.items()})
-            prog = GraphProgram(executor._symbol, train, input_shapes=shapes,
-                                device=executor._ctx.device)
+            bound = {**executor.arg_dict, **executor.aux_dict}
+            prog = GraphProgram(executor._symbol, train,
+                                input_shapes={n: a.shape
+                                              for n, a in bound.items()},
+                                device=executor._ctx.device,
+                                input_dtypes={n: a.data.dtype
+                                              for n, a in bound.items()})
             executor._programs[train] = prog
         return prog

@@ -3,15 +3,22 @@ counterpart of `mxnet_tpu/graph_opt.py`).
 
 Ported so far: **pallas_select**, which keeps the JAX package's pass name
 so that the two packages' reports compare one to one.  It pattern-matches
-MXNet's attention idiom ``batch_dot(softmax(batch_dot(Q, Kᵀ)[·s]), V)``
-and swaps in the `_fused_attention` op of `ops/hopper_kernels.py` when the
-analytic flop count ``4·B·Lq·Lk·d`` clears ``MXTPU_PALLAS_MIN_FLOPS``.
+two idioms and swaps in the ops of `ops/hopper_kernels.py`:
+
+* MXNet's attention ``batch_dot(softmax(batch_dot(Q, Kᵀ)[·s]), V)`` →
+  `_fused_attention` (K1), when the analytic flop count ``4·B·Lq·Lk·d``
+  clears ``MXTPU_PALLAS_MIN_FLOPS``;
+* the unfused LSTM cell of `rnn.LSTMCell` — ``SliceChannel(gates, 4)``,
+  σ/σ/tanh/σ, ``f·c + i·g`` and ``o·tanh(c')`` → `_fused_lstm_gates` (K4),
+  at every site, as in the JAX package.
+
 Behind ``MXTPU_PALLAS``: ``auto`` swaps only when the bound device is CUDA
 with compute capability (9, 0), ``1`` on any device, ``0`` never.  A site
-keeps its unfused graph by the JAX package's rule alone (a ragged sequence,
-see `hopper_kernels.check_attention`).  On CUDA a site whose head dim the
-kernel is not built for makes the bind fail: ``MXTPU_PALLAS=0`` is then
-the caller's choice, never a silent one.
+keeps its unfused graph by the JAX package's rules alone (a ragged
+sequence, see `hopper_kernels.check_attention`; gates not of rank 2).  On
+CUDA a site the kernel is not built for (an attention head dim, an LSTM
+dtype other than float32 or bfloat16) makes the bind fail:
+``MXTPU_PALLAS=0`` is then the caller's choice, never a silent one.
 
 The training pipeline (`optimize(..., train=True)`, `training_result`)
 runs the JAX package's training pass list, which never holds
@@ -20,7 +27,7 @@ naming `_fused_attention` itself.  Its passes (``eliminate``, ``cse``,
 ``dead_aux``) are not ported yet and report 0 rewrites under their own
 names; on the graphs the port trains the JAX package's make 0 rewrites
 too.  The JAX package's other inference passes (fold_const, fold_bn,
-eliminate, cse) and the LSTM-cell matcher wait for later slices.
+eliminate, cse) wait for later slices.
 
 Every pass is pure: the input symbol is never modified, and untouched
 regions are shared by identity with the result.
@@ -37,9 +44,10 @@ from . import config
 from .attribute import strip_annotations
 from .base import MXNetError
 from .ops import registry as _reg
-from .ops.hopper_kernels import check_attention, check_kernel_inputs
+from .ops.hopper_kernels import (check_attention, check_kernel_inputs,
+                                 check_lstm_kernel_inputs)
 from .ops.registry import Attrs
-from .symbol.symbol import Symbol, _Node, _topo
+from .symbol.symbol import Symbol, _Node, _infer_graph, _topo, _value_key
 
 __all__ = ["PassReport", "PipelineResult", "optimize", "graph_opt_enabled",
            "skipped_passes", "pallas_mode", "train_passes", "training_result",
@@ -176,19 +184,26 @@ def _consumer_counts(symbol) -> Dict[Tuple[int, int], int]:
     return counts
 
 
-def _infer_entry_shapes(symbol, shapes):
-    """(id(node), out_idx) -> shape for every entry shape inference can
-    resolve from ``shapes``; {} when inference cannot run."""
+def _infer_entries(symbol, shapes, dtypes=None):
+    """``({(id(node), out_idx): shape}, {(id(node), out_idx): dtype})`` for
+    every entry inference can resolve from the input ``shapes`` (and
+    ``dtypes``, float32 where not given); ({}, {}) when it cannot run."""
     if not shapes:
-        return {}
-    heads = [(node, i) for node in _topo(symbol._heads)
-             for i in range(node.num_outputs)]
+        return {}, {}
+    known = {k: tuple(v) for k, v in shapes.items() if v is not None}
     try:
-        _, out_shapes, _ = Symbol(heads).infer_shape_partial(**shapes)
+        by_key, dtype_by_key = _infer_graph(symbol._heads, known, True,
+                                            dtypes)
     except MXNetError:
-        return {}
-    return {(id(node), idx): tuple(s)
-            for (node, idx), s in zip(heads, out_shapes) if s is not None}
+        return {}, {}
+    entry_shapes, entry_dtypes = {}, {}
+    for node in _topo(symbol._heads):
+        for i in range(node.num_outputs):
+            key = _value_key((node, i))
+            if by_key.get(key) is not None:
+                entry_shapes[(id(node), i)] = tuple(by_key[key])
+                entry_dtypes[(id(node), i)] = dtype_by_key[key]
+    return entry_shapes, entry_dtypes
 
 
 # ---------------------------------------------------------------------------
@@ -291,10 +306,123 @@ def _match_attention(symbol, ctx, entry_shapes, counts, entry_map, details,
     return swapped
 
 
-def _pass_pallas_select(symbol, shapes, device):
-    """Swap matched attention subgraphs for the Hopper kernel when the
-    device gate and the flop floor say so.  Parity is documented-ULP (the
-    online softmax reassociates)."""
+_MUL_OPS = frozenset({"broadcast_mul", "elemwise_mul", "_mul", "_Mul"})
+_ADD_OPS = frozenset({"broadcast_add", "elemwise_add", "_add", "_plus",
+                      "_Plus"})
+
+
+def _match_lstm(symbol, ctx, entry_shapes, entry_dtypes, entry_map,
+                details, on_cuda):
+    """sigmoid/tanh LSTM gate math over one SliceChannel(gates, 4) →
+    _fused_lstm_gates(gates, c_prev) (outputs: c_new, h_new), by the JAX
+    package's rules: every matched site swaps (no flop floor), the gates
+    must be rank 2 where their shape is known, and h = σ(o)·tanh(c_new)
+    is rewired to output 1 where it is present."""
+
+    def act_input(entry, kind):
+        node, idx = entry
+        if node.is_var or idx != 0:
+            return None
+        if node.op == kind:
+            return node.inputs[0]
+        if node.op == "Activation" and \
+                _node_attrs(node).get_str("act_type", "relu") == kind:
+            return node.inputs[0]
+        return None
+
+    def gate_slot(entry, kind):
+        """entry is act(kind) over SliceChannel out k -> (slice_node, k)."""
+        src = act_input(entry, kind)
+        if src is None:
+            return None
+        s, k = src
+        if s.is_var or s.op != "SliceChannel":
+            return None
+        sa = _node_attrs(s)
+        if sa.get_int("num_outputs") != 4 or \
+                sa.get_int("axis", 1) not in (1, -1) or \
+                sa.get_bool("squeeze_axis", False):
+            return None
+        return (s, k)
+
+    swapped = 0
+    nodes = _topo(symbol._heads)
+    for n in nodes:
+        if n.is_var or n.op not in _ADD_OPS:
+            continue
+        l_e, r_e = n.inputs[0], n.inputs[1]
+        if l_e[0].is_var or r_e[0].is_var:
+            continue
+        if l_e[0].op not in _MUL_OPS or r_e[0].op not in _MUL_OPS:
+            continue
+        found = None
+        for f_mul, i_mul in ((l_e, r_e), (r_e, l_e)):
+            fa, fb = f_mul[0].inputs[0], f_mul[0].inputs[1]
+            ia, ib = i_mul[0].inputs[0], i_mul[0].inputs[1]
+            for f_sig_e, c_prev_e in ((fa, fb), (fb, fa)):
+                fslot = gate_slot(f_sig_e, "sigmoid")
+                if fslot is None or fslot[1] != 1:
+                    continue
+                for i_sig_e, g_tanh_e in ((ia, ib), (ib, ia)):
+                    islot = gate_slot(i_sig_e, "sigmoid")
+                    gslot = gate_slot(g_tanh_e, "tanh")
+                    if islot is None or gslot is None:
+                        continue
+                    if islot[1] != 0 or gslot[1] != 2:
+                        continue
+                    if islot[0] is not fslot[0] or gslot[0] is not fslot[0]:
+                        continue
+                    found = (fslot[0], c_prev_e)
+                    break
+                if found:
+                    break
+            if found:
+                break
+        if not found:
+            continue
+        slice_node, c_prev_e = found
+        gates_e = slice_node.inputs[0]
+        gkey, ckey = (id(gates_e[0]), gates_e[1]), (id(c_prev_e[0]),
+                                                    c_prev_e[1])
+        gs = entry_shapes.get(gkey)
+        if gs is not None and len(gs) != 2:
+            continue
+        cs = entry_shapes.get(ckey)
+        if on_cuda and gs is not None and cs is not None:
+            try:
+                check_lstm_kernel_inputs(
+                    torch.empty(gs, dtype=entry_dtypes[gkey], device="meta"),
+                    torch.empty(cs, dtype=entry_dtypes[ckey], device="meta"))
+            except ValueError as e:
+                raise MXNetError(
+                    f"pallas_select: LSTM site {n.name}: {e}; set "
+                    "MXTPU_PALLAS=0 to serve this graph without the "
+                    "kernel") from None
+        fused = _Node("_fused_lstm_gates", ctx.name("lstm"), {},
+                      [gates_e, c_prev_e])
+        entry_map[(id(n), 0)] = (fused, 0)   # c_new
+        # h = o_sig * tanh(c_new): rewire when present
+        for h in nodes:
+            if h.is_var or h.op not in _MUL_OPS or (id(h), 0) in entry_map:
+                continue
+            for o_e, t_e in (tuple(h.inputs), tuple(reversed(h.inputs))):
+                oslot = gate_slot(o_e, "sigmoid")
+                if oslot is None or oslot[1] != 3 \
+                        or oslot[0] is not slice_node:
+                    continue
+                t_src = act_input(t_e, "tanh")
+                if t_src is not None and t_src[0] is n and t_src[1] == 0:
+                    entry_map[(id(h), 0)] = (fused, 1)
+                    break
+        swapped += 1
+        details.setdefault("lstm_sites", []).append(n.name)
+    return swapped
+
+
+def _pass_pallas_select(symbol, shapes, device, dtypes):
+    """Swap matched attention subgraphs and LSTM cells for the Hopper
+    kernels when the device gate (and, for attention, the flop floor) say
+    so.  Parity is documented-ULP (the online softmax reassociates)."""
     mode = pallas_mode()
     if mode in ("0", "false", "off"):
         return symbol, 0, "ulp", {"skipped": "MXTPU_PALLAS=0"}
@@ -304,7 +432,7 @@ def _pass_pallas_select(symbol, shapes, device):
         return symbol, 0, "ulp", {
             "skipped": f"MXTPU_PALLAS=auto and the bound device {device} is "
                        "not a CUDA device of capability (9, 0)"}
-    entry_shapes = _infer_entry_shapes(symbol, shapes)
+    entry_shapes, entry_dtypes = _infer_entries(symbol, shapes, dtypes)
     if not entry_shapes:
         return symbol, 0, "ulp", {"skipped": "no input shapes available "
                                              "for pattern matching"}
@@ -314,12 +442,14 @@ def _pass_pallas_select(symbol, shapes, device):
     n_attn = _match_attention(symbol, ctx, entry_shapes,
                               _consumer_counts(symbol), entry_map, details,
                               on_cuda)
+    n_lstm = _match_lstm(symbol, ctx, entry_shapes, entry_dtypes, entry_map,
+                         details, on_cuda)
     if not entry_map:
         return symbol, 0, "ulp", details
     details["note"] = ("kernel swap: parity within documented ULP "
                        "(online softmax reassociates; verified at "
                        "rtol/atol 2e-4 by tests)")
-    return _substitute(symbol, entry_map), n_attn, "ulp", details
+    return _substitute(symbol, entry_map), n_attn + n_lstm, "ulp", details
 
 
 # ---------------------------------------------------------------------------
@@ -342,7 +472,7 @@ def train_passes() -> Tuple[str, ...]:
     return TRAIN_PASSES_UNIFIED if on else TRAIN_PASSES
 
 
-def _pass_not_ported(symbol, shapes, device):
+def _pass_not_ported(symbol, shapes, device, dtypes):
     """A training pass of the JAX package that waits for a later slice:
     the graph passes through unchanged, reported under the pass's name."""
     return symbol, 0, "bitwise", {"skipped": "not ported yet"}
@@ -358,10 +488,13 @@ _PASS_FNS: Dict[str, Callable] = {
 
 def optimize(symbol, shapes: Optional[Dict] = None,
              device: Optional[torch.device] = None,
-             train: bool = False) -> PipelineResult:
+             train: bool = False,
+             dtypes: Optional[Dict[str, torch.dtype]] = None
+             ) -> PipelineResult:
     """Run the pass pipeline over ``symbol``: the inference list, or with
-    ``train`` the training list.  ``shapes`` ({input name -> shape}) feeds
-    the pattern matcher; ``device`` is where the graph will run, which the
+    ``train`` the training list.  ``shapes`` ({input name -> shape}) and
+    ``dtypes`` ({input name -> dtype}, float32 where not given) feed the
+    pattern matcher; ``device`` is where the graph will run, which the
     ``auto`` kernel gate reads."""
     if not graph_opt_enabled():
         return PipelineResult(symbol, [], False)
@@ -373,7 +506,7 @@ def optimize(symbol, shapes: Optional[Dict] = None,
         before = _n_compute(symbol)
         t0 = time.perf_counter()
         symbol, rewrites, parity, details = _PASS_FNS[name](symbol, shapes,
-                                                            device)
+                                                            device, dtypes)
         wall_ms = (time.perf_counter() - t0) * 1e3
         reports.append(PassReport(name, before, _n_compute(symbol), rewrites,
                                   round(wall_ms, 3), parity, details))

@@ -26,7 +26,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "mxnet_tpu_torch")
 
 #: every kernel source, by name (``csrc/<name>.cu``)
-KERNELS = ("flash_attn_fwd", "flash_attn_bwd")
+KERNELS = ("flash_attn_fwd", "flash_attn_bwd", "lstm_gates")
 
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

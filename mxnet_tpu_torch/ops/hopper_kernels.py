@@ -10,6 +10,11 @@
   It backs the `_fused_attention` op, which `graph_opt`'s
   ``pallas_select`` pass swaps in for MXNet's batch_dot/softmax attention
   idiom and which a training graph may hold itself.
+* `lstm_gates` — K4, the fused LSTM cell update (c' and h' from the [B, 4H]
+  gate pre-activations and c), in CUDA C++ (`csrc/lstm_gates.cu`,
+  replacing `pallas_kernels.py:_lstm_gate_kernel`), forward only as in the
+  reference.  It backs the `_fused_lstm_gates` op, which ``pallas_select``
+  swaps in for the unfused cell math of `rnn.LSTMCell`.
 
 Each kernel sits beside its plain PyTorch version.  A wrapper takes the
 plain version only for a tensor on the CPU (``meta`` tensors, which carry
@@ -30,12 +35,12 @@ from . import cuda_build
 from .registry import register
 
 __all__ = ["flash_attention", "flash_attention_with_lse", "check_attention",
-           "check_kernel_inputs", "KERNEL_HEAD_DIMS", "LAUNCHES",
-           "reset_launch_counts"]
+           "check_kernel_inputs", "KERNEL_HEAD_DIMS", "lstm_gates",
+           "check_lstm_kernel_inputs", "LAUNCHES", "reset_launch_counts"]
 
 #: launches per kernel since the last `reset_launch_counts`
 LAUNCHES: Dict[str, int] = {"flash_attn_fwd": 0, "flash_attn_bwd_dq": 0,
-                            "flash_attn_bwd_dkv": 0}
+                            "flash_attn_bwd_dkv": 0, "lstm_gates": 0}
 
 
 def reset_launch_counts() -> None:
@@ -104,12 +109,13 @@ def _check_cuda_inputs(*tensors) -> None:
     check_kernel_inputs(first.shape[-1], first.dtype)
 
 
-def _bind(lib, name, n_ptrs):
+def _bind(lib, name, n_ptrs, n_ints=6, scale=True):
     """Declare a kernel entry point's C signature: ``n_ptrs`` pointers,
-    the sizes and flags as ints, the scale, the stream."""
+    ``n_ints`` sizes and flags as ints, the scale (where ``scale``), the
+    stream."""
     fn = getattr(lib, name)
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + \
-        [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + \
+        ([ctypes.c_float] if scale else []) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.mxtt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.mxtt_cuda_error_string.restype = ctypes.c_char_p
@@ -127,11 +133,19 @@ def _kernel_lib(source: str) -> ctypes.CDLL:
         lib = cuda_build.load(source)
         if source == "flash_attn_fwd":
             _bind(lib, "mxtt_flash_attn_fwd", 5)
-        else:
+        elif source == "flash_attn_bwd":
             _bind(lib, "mxtt_flash_attn_bwd_dq", 8)
             _bind(lib, "mxtt_flash_attn_bwd_dkv", 9)
+        else:
+            _bind(lib, "mxtt_lstm_gates", 4, n_ints=4, scale=False)
         _LIBS[source] = lib
     return lib
+
+
+def _raise_if_failed(lib, counter: str, err: int) -> None:
+    if err != 0:
+        raise MXNetError(f"{counter} launch failed: CUDA error {err} "
+                         f"({lib.mxtt_cuda_error_string(err).decode()})")
 
 
 def _launch(source: str, entry: str, counter: str, q, k, ptrs, causal,
@@ -147,9 +161,7 @@ def _launch(source: str, entry: str, counter: str, q, k, ptrs, causal,
             *[t.data_ptr() for t in ptrs], q.numel() // (lq * d), lq,
             k.shape[-2], d, _DTYPE_CODES[q.dtype], int(causal), scale,
             stream)
-    if err != 0:
-        raise MXNetError(f"{counter} launch failed: CUDA error {err} "
-                         f"({lib.mxtt_cuda_error_string(err).decode()})")
+    _raise_if_failed(lib, counter, err)
     LAUNCHES[counter] += 1
 
 
@@ -315,3 +327,96 @@ def _fused_attention_op(attrs, q, k, v):
     return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                            causal=attrs.get_bool("causal", False),
                            scale=attrs.get_float("scale", None))
+
+
+# ---------------------------------------------------------------------------
+# K4: the fused LSTM cell update
+# ---------------------------------------------------------------------------
+
+def _check_lstm_shapes(gates_shape, c_shape) -> None:
+    """Raise `ValueError` unless gates is [B, 4H] and c_prev [B, H]."""
+    gates_shape, c_shape = tuple(gates_shape), tuple(c_shape)
+    if len(gates_shape) != 2 or len(c_shape) != 2 or \
+            gates_shape != (c_shape[0], 4 * c_shape[1]):
+        raise ValueError(f"lstm_gates: want gates [B, 4H] and c_prev "
+                         f"[B, H]; got {gates_shape} and {c_shape}")
+
+
+def check_lstm_kernel_inputs(gates: torch.Tensor,
+                             c_prev: torch.Tensor) -> None:
+    """Raise `ValueError` for inputs the CUDA kernel does not take: shapes
+    other than [B, 4H] and [B, H], two devices, a dtype other than
+    float32 or bfloat16 (each input on its own), or a strided input."""
+    _check_lstm_shapes(gates.shape, c_prev.shape)
+    if gates.device != c_prev.device:
+        raise ValueError("lstm_gates: gates and c_prev must be on one "
+                         "device")
+    for name, t in (("gates", gates), ("c_prev", c_prev)):
+        if t.dtype not in _DTYPE_CODES:
+            raise ValueError(f"lstm_gates: the kernel takes float32 and "
+                             f"bfloat16 {name}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"lstm_gates: the kernel takes a contiguous "
+                             f"{name}")
+
+
+def _lstm_gates_plain(gates: torch.Tensor, c_prev: torch.Tensor):
+    """Plain version of K4, the JAX kernel's body line for line: fp32 math
+    over the i|f|g|o quarters of the gates, outputs in c_prev's dtype."""
+    hidden = gates.shape[1] // 4
+    g = gates.float()
+    c = c_prev.float()
+    i = torch.sigmoid(g[:, 0 * hidden:1 * hidden])
+    f = torch.sigmoid(g[:, 1 * hidden:2 * hidden])
+    gg = torch.tanh(g[:, 2 * hidden:3 * hidden])
+    o = torch.sigmoid(g[:, 3 * hidden:4 * hidden])
+    c_new = f * c + i * gg
+    return c_new.to(c_prev.dtype), (o * torch.tanh(c_new)).to(c_prev.dtype)
+
+
+def _lstm_gates_cuda(gates: torch.Tensor, c_prev: torch.Tensor):
+    check_lstm_kernel_inputs(gates, c_prev)
+    if torch.is_grad_enabled() and (gates.requires_grad or
+                                    c_prev.requires_grad):
+        raise MXNetError("lstm_gates: the kernel is forward only, as the "
+                         "reference's; a gradient through it is not "
+                         "defined")
+    c_new, h_new = torch.empty_like(c_prev), torch.empty_like(c_prev)
+    if c_prev.numel() == 0:
+        return c_new, h_new
+    lib = _kernel_lib("lstm_gates")
+    with torch.cuda.device(gates.device):
+        stream = torch.cuda.current_stream(gates.device).cuda_stream
+        err = lib.mxtt_lstm_gates(
+            gates.data_ptr(), c_prev.data_ptr(), c_new.data_ptr(),
+            h_new.data_ptr(), c_prev.shape[0], c_prev.shape[1],
+            _DTYPE_CODES[gates.dtype], _DTYPE_CODES[c_prev.dtype], stream)
+    _raise_if_failed(lib, "lstm_gates", err)
+    LAUNCHES["lstm_gates"] += 1
+    return c_new, h_new
+
+
+def lstm_gates(gates: torch.Tensor, c_prev: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused LSTM elementwise update: gates [B, 4H] (i|f|g|o
+    pre-activations) and c_prev [B, H] → (c_new, h_new) in c_prev's dtype,
+    c' = σ(f)·c + σ(i)·tanh(g) and h' = σ(o)·tanh(c'), in fp32 math.
+    Forward only, as in the reference."""
+    _check_lstm_shapes(gates.shape, c_prev.shape)
+    if gates.device.type == "cuda":
+        return _lstm_gates_cuda(gates, c_prev)
+    if gates.device.type in ("cpu", "meta") and \
+            c_prev.device == gates.device:
+        return _lstm_gates_plain(gates, c_prev)
+    raise MXNetError(f"lstm_gates: no kernel for devices {gates.device} "
+                     f"and {c_prev.device}")
+
+
+@register("_fused_lstm_gates", num_inputs=2, num_outputs=2,
+          input_names=["gates", "c_prev"])
+def _fused_lstm_gates_op(attrs, gates, c_prev):
+    """nd/sym surface of K4, what `graph_opt`'s ``pallas_select`` rewires
+    the matched LSTM gate math to (outputs: c_new, h_new).  A first step's
+    zero state arrives as a broadcast view; the copy to contiguous layout
+    is a no-op for every other input."""
+    return lstm_gates(gates.contiguous(), c_prev.contiguous())

@@ -1,5 +1,7 @@
-"""Shape and product ops of the encoder path (the counterparts of
-`mxnet_tpu/ops/matrix.py`): batch_dot, transpose, reshape and Embedding."""
+"""Shape and product ops of the ported paths (the counterparts of
+`mxnet_tpu/ops/matrix.py`): batch_dot, transpose, reshape, Embedding, and
+the sequence plumbing of the unrolled RNN cells: SliceChannel/split,
+slice_axis, Concat and expand_dims."""
 from __future__ import annotations
 
 import math
@@ -90,3 +92,48 @@ def _embedding(attrs, data, weight):
     out = weight[idx]
     dtype = attrs.get_dtype("dtype", None)
     return out if dtype is None else out.to(dtype)
+
+
+@register("expand_dims", num_inputs=1, input_names=["data"])
+def _expand_dims(attrs, x):
+    return x.unsqueeze(attrs.get_int("axis", 0))
+
+
+@register("slice_axis", num_inputs=1, input_names=["data"])
+def _slice_axis(attrs, x):
+    """x[begin:end] along ``axis`` (``end`` None runs to the end)."""
+    ax = attrs.get_int("axis")
+    b = attrs.get_int("begin", 0)
+    e = attrs.get_attr("end", None)
+    idx = [slice(None)] * x.dim()
+    idx[ax % x.dim()] = slice(b, None if e in (None, "None") else int(e))
+    return x[tuple(idx)]
+
+
+@register("Concat", num_inputs=None, input_names=None)
+def _concat(attrs, *xs):
+    """Reference `Concat` (`src/operator/nn/concat.cc`), along ``dim``."""
+    return torch.cat(xs, dim=attrs.get_int("dim", 1))
+
+
+alias("Concat", "concat")
+
+
+@register("SliceChannel", num_inputs=1, input_names=["data"],
+          num_outputs=lambda a: a.get_int("num_outputs"))
+def _slice_channel(attrs, x):
+    """Reference `SliceChannel`/`split` (`src/operator/slice_channel.cc`):
+    ``num_outputs`` equal parts along ``axis``, each a view, squeezed with
+    ``squeeze_axis``."""
+    n = attrs.get_int("num_outputs")
+    ax = attrs.get_int("axis", 1) % x.dim()
+    if x.shape[ax] % n:
+        raise ValueError(f"SliceChannel: axis {ax} of length {x.shape[ax]} "
+                         f"does not split into {n} equal parts")
+    parts = torch.split(x, x.shape[ax] // n, dim=ax)
+    if attrs.get_bool("squeeze_axis", False):
+        parts = tuple(p.squeeze(ax) for p in parts)
+    return tuple(parts)
+
+
+alias("SliceChannel", "split")

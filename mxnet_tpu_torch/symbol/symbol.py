@@ -1,10 +1,12 @@
 """Symbol: declarative graph construction (the counterpart of
-`mxnet_tpu/symbol/symbol.py`, with the subset a deploy `Predictor` needs).
+`mxnet_tpu/symbol/symbol.py`, with the subset the ported paths need).
 
 A Symbol is a list of output entries ``(node, out_index)`` over an
-immutable DAG of nodes.  The JSON format (`tojson` / `load_json`) is the
-JAX package's, character for character, so one symbol file means the same
-graph in both packages.  Shape inference runs each op on ``meta`` tensors
+immutable DAG of nodes.  Arithmetic composes as in the JAX package: ``+``,
+``-``, ``*`` and ``/`` between Symbols make broadcast nodes, and with a
+number the scalar ops (``2 - s`` is ``_rminus_scalar``).  The JSON format
+(`tojson` / `load_json`) is the JAX package's, character for character, so
+one symbol file means the same graph in both packages.  Shape inference runs each op on ``meta`` tensors
 in topological order, with the backward rules of `param_infer.py` filling
 parameter shapes from data shapes.
 """
@@ -14,6 +16,7 @@ import json
 import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..attribute import strip_annotations
@@ -105,6 +108,10 @@ class Symbol:
     def __repr__(self):
         return f"<Symbol {self.name}>"
 
+    def __iter__(self):
+        for i in range(len(self._heads)):
+            yield self[i]
+
     def __len__(self):
         return len(self._heads)
 
@@ -117,6 +124,48 @@ class Symbol:
         if isinstance(idx, slice):
             return Symbol(self._heads[idx])
         return Symbol([self._heads[idx]])
+
+    # -- composition sugar --------------------------------------------------
+    def _binop(self, other, op, scalar_op, reverse=False):
+        """``self op other``: a broadcast node for a Symbol, a scalar node
+        (the reversed one where ``reverse``) for a number."""
+        from .register import invoke_sym  # register imports this module
+        if isinstance(other, Symbol):
+            a, b = (other, self) if reverse else (self, other)
+            return invoke_sym(op, a, b)
+        if isinstance(other, (int, float, bool, np.number)):
+            name = _REVERSE_SCALAR.get(scalar_op, scalar_op) if reverse \
+                else scalar_op
+            return invoke_sym(name, self, scalar=float(other))
+        return NotImplemented
+
+    def __add__(self, o):
+        return self._binop(o, "broadcast_add", "_plus_scalar")
+
+    def __radd__(self, o):
+        return self._binop(o, "broadcast_add", "_plus_scalar", True)
+
+    def __sub__(self, o):
+        return self._binop(o, "broadcast_sub", "_minus_scalar")
+
+    def __rsub__(self, o):
+        return self._binop(o, "broadcast_sub", "_minus_scalar", True)
+
+    def __mul__(self, o):
+        return self._binop(o, "broadcast_mul", "_mul_scalar")
+
+    def __rmul__(self, o):
+        return self._binop(o, "broadcast_mul", "_mul_scalar", True)
+
+    def __truediv__(self, o):
+        return self._binop(o, "broadcast_div", "_div_scalar")
+
+    def __rtruediv__(self, o):
+        return self._binop(o, "broadcast_div", "_div_scalar", True)
+
+    def __neg__(self):
+        from .register import invoke_sym
+        return invoke_sym("negative", self)
 
     # -- listing ----------------------------------------------------------
     def _nodes(self) -> List[_Node]:
@@ -176,7 +225,7 @@ class Symbol:
 
     def _infer_shape_impl(self, partial, shapes):
         known = {k: tuple(v) for k, v in shapes.items() if v is not None}
-        inferred = _infer_graph(self._heads, known, partial)
+        inferred, _ = _infer_graph(self._heads, known, partial)
         arg_shapes = [inferred.get(n) for n in self.list_arguments()]
         out_shapes = [inferred.get(_value_key(e)) for e in self._heads]
         aux_shapes = [inferred.get(n) for n in self.list_auxiliary_states()]
@@ -234,6 +283,13 @@ class Symbol:
                         grad_req=grad_req, aux_states=aux)
 
 
+#: the op that computes ``scalar op x`` for a scalar op of ``x op scalar``
+_REVERSE_SCALAR = {
+    "_minus_scalar": "_rminus_scalar",
+    "_div_scalar": "_rdiv_scalar",
+}
+
+
 def _attr_str(v) -> str:
     """The JAX package's JSON spelling of an attr value."""
     if isinstance(v, bool):
@@ -256,19 +312,22 @@ def _var_shape(node: _Node) -> Optional[tuple]:
     return None if 0 in shape else shape
 
 
-def _infer_graph(heads, known: Dict[str, tuple], partial: bool):
-    """{value key -> shape} for every entry this pass can resolve: each op
-    runs on meta tensors once all its inputs are known; parameter inputs
-    are back-filled from data shapes first (the reference's bidirectional
-    InferShape for the layered ops)."""
+def _infer_graph(heads, known: Dict[str, tuple], partial: bool,
+                 known_dtypes: Optional[Dict[str, torch.dtype]] = None):
+    """``({value key -> shape}, {value key -> dtype})`` for every entry
+    this pass can resolve: each op runs on meta tensors once all its
+    inputs are known; parameter inputs are back-filled from data shapes
+    first (the reference's bidirectional InferShape for the layered ops).
+    A variable's dtype is float32 unless ``known_dtypes`` names it."""
     nodes = _topo(heads)
+    known_dtypes = known_dtypes or {}
     shapes: Dict[str, Optional[tuple]] = {}
     dtypes: Dict[str, torch.dtype] = {}
     for n in nodes:
         if n.is_var:
             shapes[n.name] = (known[n.name] if n.name in known
                               else _var_shape(n))
-            dtypes[n.name] = torch.float32
+            dtypes[n.name] = known_dtypes.get(n.name, torch.float32)
     for node in nodes:
         if node.is_var:
             continue
@@ -293,7 +352,7 @@ def _infer_graph(heads, known: Dict[str, tuple], partial: bool):
     missing = [n.name for n in nodes if n.is_var and shapes.get(n.name) is None]
     if missing and not partial:
         raise MXNetError(f"infer_shape: unresolved arguments {missing}")
-    return shapes
+    return shapes, dtypes
 
 
 # ---------------------------------------------------------------------------

@@ -83,7 +83,7 @@ def test_cpu_tensor_never_touches_the_kernel_library(monkeypatch):
     q, k, v = (torch.from_numpy(a) for a in _qkv(3, (1, 1, 64, 32), 64))
     hk.flash_attention(q, k, v)
     assert hk.LAUNCHES == {"flash_attn_fwd": 0, "flash_attn_bwd_dq": 0,
-                           "flash_attn_bwd_dkv": 0}
+                           "flash_attn_bwd_dkv": 0, "lstm_gates": 0}
 
 
 @pytest.mark.parametrize("d,dtype,ok", [(64, torch.float32, True),
@@ -223,5 +223,125 @@ def test_backward_counts_no_launch_on_the_cpu(monkeypatch):
     hk.flash_attention(q, k, v, causal=True).sum().backward()
     assert q.grad is not None and k.grad is not None and v.grad is not None
     assert set(hk.LAUNCHES) == {"flash_attn_fwd", "flash_attn_bwd_dq",
-                                "flash_attn_bwd_dkv"}
+                                "flash_attn_bwd_dkv", "lstm_gates"}
     assert not any(hk.LAUNCHES.values())
+
+
+# ---------------------------------------------------------------------------
+# K4: the fused LSTM cell update
+# ---------------------------------------------------------------------------
+
+# the reference's LSTM-gate tolerance (tests/test_pallas.py:68); bf16
+# inputs are compared in fp32 after the cast
+LSTM_TOL = 1e-5
+LSTM_BF16_TOL = 2e-2
+
+
+def _lstm_inputs(seed, b, h):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(b, 4 * h).astype(np.float32) * 2,
+            rng.randn(b, h).astype(np.float32))
+
+
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("h", [8, 13, 32])
+def test_lstm_gates_plain_matches_pallas(b, h):
+    gates, c = _lstm_inputs(h * 10 + b, b, h)
+    ref = pk.lstm_gates(jnp.asarray(gates), jnp.asarray(c), interpret=True)
+    got = hk.lstm_gates(torch.from_numpy(gates), torch.from_numpy(c))
+    for g, r in zip(got, ref):
+        assert g.shape == (b, h) and g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=LSTM_TOL,
+                                   atol=LSTM_TOL)
+
+
+@pytest.mark.parametrize("gates_bf16,c_bf16", [(True, False), (True, True),
+                                               (False, True)])
+def test_lstm_gates_bf16_matches_pallas(gates_bf16, c_bf16):
+    """Each input upcasts on its own; the outputs take c_prev's dtype."""
+    gates, c = _lstm_inputs(9, 4, 16)
+    jg, jc = jnp.asarray(gates), jnp.asarray(c)
+    tg, tc = torch.from_numpy(gates), torch.from_numpy(c)
+    if gates_bf16:
+        jg, tg = jg.astype(jnp.bfloat16), tg.to(torch.bfloat16)
+    if c_bf16:
+        jc, tc = jc.astype(jnp.bfloat16), tc.to(torch.bfloat16)
+    ref = pk.lstm_gates(jg, jc, interpret=True)
+    got = hk.lstm_gates(tg, tc)
+    for g, r in zip(got, ref):
+        assert g.dtype == tc.dtype
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(r, dtype=np.float32),
+                                   rtol=LSTM_BF16_TOL, atol=LSTM_BF16_TOL)
+
+
+def test_fused_lstm_gates_op_takes_a_broadcast_state():
+    """The op through the registry, with c_prev the broadcast view a first
+    step's zero state is (`broadcast_axis`)."""
+    gates, c = _lstm_inputs(10, 3, 16)
+    cpu = mt.cpu()
+    c_view = mt.nd.broadcast_axis(mt.nd.array(c[:, :1], ctx=cpu), axis=1,
+                                  size=16)
+    assert not c_view.data.is_contiguous()
+    c_new, h_new = mt.nd._fused_lstm_gates(mt.nd.array(gates, ctx=cpu),
+                                           c_view)
+    ref = pk.lstm_gates(jnp.asarray(gates),
+                        jnp.broadcast_to(jnp.asarray(c[:, :1]), (3, 16)),
+                        interpret=True)
+    for g, r in zip((c_new, h_new), ref):
+        np.testing.assert_allclose(g.asnumpy(), np.asarray(r), rtol=LSTM_TOL,
+                                   atol=LSTM_TOL)
+
+
+@pytest.mark.parametrize("gates_shape,c_shape,dtype,why", [
+    ((4, 32), (4, 8), torch.float32, None),
+    ((4, 32), (4, 8), torch.bfloat16, None),
+    ((4, 32, 1), (4, 8), torch.float32, "rank"),
+    ((4, 30), (4, 8), torch.float32, "4H"),
+    ((3, 32), (4, 8), torch.float32, "batch"),
+    ((4, 32), (4, 8), torch.float16, "dtype"),
+    ((4, 32), (4, 8), torch.float64, "dtype")])
+def test_lstm_kernel_input_rules_on_cuda(gates_shape, c_shape, dtype, why):
+    """What the CUDA wrapper checks before it launches: [B, 4H] and [B, H]
+    (the shape rule holds on every device), float32 or bfloat16."""
+    gates = torch.zeros(gates_shape, dtype=dtype)
+    c = torch.zeros(c_shape, dtype=dtype)
+    if why is None:
+        hk.check_lstm_kernel_inputs(gates, c)
+        hk.check_lstm_kernel_inputs(gates.float(), c.bfloat16())
+        return
+    with pytest.raises(ValueError):
+        hk.check_lstm_kernel_inputs(gates, c)
+    if why != "dtype":
+        with pytest.raises(ValueError):
+            hk.lstm_gates(gates, c)
+
+
+def test_lstm_kernel_refuses_strided_and_split_inputs():
+    gates = torch.zeros(4, 64)[:, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        hk.check_lstm_kernel_inputs(gates, torch.zeros(4, 8))
+    with pytest.raises(ValueError, match="one device"):
+        hk.check_lstm_kernel_inputs(torch.zeros(4, 32),
+                                    torch.zeros(4, 8, device="meta"))
+
+
+def test_lstm_gates_cpu_never_touches_the_kernel_library(monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("the CUDA kernel library was loaded")
+    monkeypatch.setattr(cuda_build, "load", refuse)
+    monkeypatch.setattr(cuda_build, "build", refuse)
+    hk.reset_launch_counts()
+    gates, c = _lstm_inputs(11, 2, 8)
+    hk.lstm_gates(torch.from_numpy(gates), torch.from_numpy(c))
+    assert hk.LAUNCHES["lstm_gates"] == 0
+    assert "lstm_gates" in cuda_build.KERNELS
+
+
+def test_lstm_gates_keeps_meta_shapes():
+    c_new, h_new = hk.lstm_gates(
+        torch.empty((32, 800), device="meta"),
+        torch.empty((32, 200), dtype=torch.bfloat16, device="meta"))
+    assert c_new.shape == h_new.shape == (32, 200)
+    assert c_new.dtype == h_new.dtype == torch.bfloat16
+    assert c_new.device.type == "meta"

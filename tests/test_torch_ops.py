@@ -88,6 +88,53 @@ CASES = {
     "plus": ("_plus", [_randn(2, 3), _randn(2, 3)], {}),
     "Plus": ("_Plus", [_randn(2, 3), _randn(2, 3)], {}),
     "add": ("_add", [_randn(2, 3), _randn(2, 3)], {}),
+    # the LSTM path: unary ops, scalar sugar, broadcasts, sequence plumbing
+    "sigmoid": ("sigmoid", [_randn(3, 4)], {}),
+    "tanh": ("tanh", [_randn(3, 4)], {}),
+    "negative": ("negative", [_randn(3, 4)], {}),
+    "np_negative": ("_np_negative", [_randn(3, 4)], {}),
+    "plus_scalar": ("_plus_scalar", [_randn(3, 4)], {"scalar": 1.5}),
+    "PlusScalar": ("_PlusScalar", [_randn(3, 4)], {"scalar": "-2.0"}),
+    "minus_scalar": ("_minus_scalar", [_randn(3, 4)], {"scalar": 0.5}),
+    "MinusScalar": ("_MinusScalar", [_randn(3, 4)], {"scalar": 3}),
+    "rminus_scalar": ("_rminus_scalar", [_randn(3, 4)], {"scalar": 2.0}),
+    "MulScalar": ("_MulScalar", [_randn(3, 4)], {"scalar": "0.0"}),
+    "div_scalar": ("_div_scalar", [_randn(3, 4)], {"scalar": 3.0}),
+    "DivScalar": ("_DivScalar", [_randn(3, 4)], {"scalar": 0.7}),
+    "rdiv_scalar": ("_rdiv_scalar", [_randn(3, 4)], {"scalar": 2.5}),
+    "broadcast_sub": ("broadcast_sub", [_randn(2, 1, 4), _randn(3, 1)], {}),
+    "elemwise_sub": ("elemwise_sub", [_randn(2, 3), _randn(2, 3)], {}),
+    "minus": ("_minus", [_randn(2, 3), _randn(2, 3)], {}),
+    "Minus": ("_Minus", [_randn(2, 3), _randn(2, 3)], {}),
+    "sub": ("_sub", [_randn(2, 3), _randn(2, 3)], {}),
+    "broadcast_mul": ("broadcast_mul", [_randn(4, 1), _randn(1, 5)], {}),
+    "elemwise_mul": ("elemwise_mul", [_randn(2, 3), _randn(2, 3)], {}),
+    "mul": ("_mul", [_randn(2, 3), _randn(2, 3)], {}),
+    "Mul": ("_Mul", [_randn(2, 3), _randn(2, 3)], {}),
+    "broadcast_div": ("broadcast_div", [_randn(2, 3), _randn(1, 3)], {}),
+    "elemwise_div": ("elemwise_div", [_randn(2, 3), _randn(2, 3)], {}),
+    "div": ("_div", [_randn(2, 3), _randn(2, 3)], {}),
+    "Div": ("_Div", [_randn(2, 3), _randn(2, 3)], {}),
+    "broadcast_axis": ("broadcast_axis", [_randn(3, 1)],
+                       {"axis": 1, "size": 5}),
+    "broadcast_axes_tuple": ("broadcast_axes", [_randn(1, 4, 1)],
+                             {"axis": "(0, 2)", "size": (2, 3)}),
+    "expand_dims": ("expand_dims", [_randn(3, 4)], {"axis": 1}),
+    "expand_dims_last": ("expand_dims", [_randn(3, 4)], {"axis": "-1"}),
+    "slice_axis": ("slice_axis", [_randn(3, 5)],
+                   {"axis": -1, "begin": 0, "end": 1}),
+    "slice_axis_open": ("slice_axis", [_randn(4, 5, 2)],
+                        {"axis": "1", "begin": "2", "end": "None"}),
+    "concat": ("concat", [_randn(3, 1, 4), _randn(3, 1, 4),
+                          _randn(3, 2, 4)], {"dim": 1}),
+    "Concat_dim0": ("Concat", [_randn(2, 4), _randn(3, 4)], {"dim": "0"}),
+    "slice_channel_4": ("SliceChannel", [_randn(3, 32)],
+                        {"num_outputs": 4}),
+    "slice_channel_last": ("SliceChannel", [_randn(3, 2, 8)],
+                           {"num_outputs": "2", "axis": "-1"}),
+    "split_squeeze_60": ("split", [_randn(2, 60, 3)],
+                         {"num_outputs": 60, "axis": 1,
+                          "squeeze_axis": True}),
 }
 
 
@@ -123,7 +170,9 @@ def test_port_ops_are_reference_ops():
 
 
 @pytest.mark.parametrize("case", ["fc_flatten", "layernorm_mean_var",
-                                  "reshape_split", "embedding"])
+                                  "reshape_split", "embedding",
+                                  "broadcast_axes_tuple", "concat",
+                                  "slice_axis_open", "split_squeeze_60"])
 def test_shape_inference_on_meta_matches_reference(case):
     op, specs, attrs = CASES[case]
     shapes = [s[1] if s[0] == "randn" else s[2] for s in specs]

@@ -221,7 +221,10 @@ def test_predictor_validates_inputs(model):
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = ("import sys; sys.path.insert(0, sys.argv[1]); "
             "import mxnet_tpu_torch, mxnet_tpu_torch.model_zoo, "
-            "mxnet_tpu_torch.serialization, chip_smoke; "
+            "mxnet_tpu_torch.serialization, mxnet_tpu_torch.rnn, "
+            "mxnet_tpu_torch.model_zoo.lstm_lm, chip_smoke; "
+            "from mxnet_tpu_torch.model_zoo import lstm_lm; "
+            "lstm_lm(mxnet_tpu_torch, 3); "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'mxnet_tpu')))")
     r = subprocess.run([sys.executable, "-c", code, ROOT],

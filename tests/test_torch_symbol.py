@@ -23,6 +23,65 @@ def test_builder_gives_identical_json(cfg):
         bert_encoder(mx.sym, **cfg).tojson()
 
 
+# Symbol arithmetic: each expression over variables a and b, and the node
+# op it must make in both packages
+SUGAR = {
+    "add": (lambda a, b: a + b, "broadcast_add"),
+    "add_scalar": (lambda a, b: a + 2, "_plus_scalar"),
+    "radd_scalar": (lambda a, b: 2 + a, "_plus_scalar"),
+    "sub": (lambda a, b: a - b, "broadcast_sub"),
+    "sub_scalar": (lambda a, b: a - 0.5, "_minus_scalar"),
+    "rsub_scalar": (lambda a, b: 1 - a, "_rminus_scalar"),
+    "mul": (lambda a, b: a * b, "broadcast_mul"),
+    "mul_scalar": (lambda a, b: a * 0.0, "_mul_scalar"),
+    "rmul_scalar": (lambda a, b: 3 * a, "_mul_scalar"),
+    "div": (lambda a, b: a / b, "broadcast_div"),
+    "div_scalar": (lambda a, b: a / 4, "_div_scalar"),
+    "rdiv_scalar": (lambda a, b: 1.5 / a, "_rdiv_scalar"),
+    "neg": (lambda a, b: -a, "negative"),
+    "chain": (lambda a, b: (a * b + 1.0) / (2 - b), "broadcast_div"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SUGAR))
+def test_arithmetic_sugar_matches_reference(case):
+    """The same expression makes the same node ops and the same JSON in
+    both packages (auto-name counters reset), and the same values."""
+    from mxnet_tpu.symbol import symbol as jsym
+    from mxnet_tpu_torch.symbol import symbol as tsym
+    expr, op = SUGAR[case]
+    syms = []
+    saved = [(m, dict(m.counters)) for m in (jsym._NAMES, tsym._NAMES)]
+    try:
+        for pkg, names in ((mx, jsym._NAMES), (mt, tsym._NAMES)):
+            names.counters.clear()
+            syms.append(expr(pkg.sym.var("a"), pkg.sym.var("b")))
+    finally:
+        for m, counters in saved:
+            m.counters.clear()
+            m.counters.update(counters)
+    ref, got = syms
+    assert got._heads[0][0].op == op
+    assert got.tojson() == ref.tojson()
+    rng = np.random.RandomState(3)
+    feed = {n: rng.rand(2, 3).astype(np.float32) + 0.5
+            for n in got.list_arguments()}
+    want = ref.bind(mx.cpu(), args={n: mx.nd.array(v)
+                                    for n, v in feed.items()}).forward()
+    out = got.bind(mt.cpu(), args={n: mt.nd.array(v, ctx=mt.cpu())
+                                   for n, v in feed.items()}).forward()
+    np.testing.assert_allclose(out[0].asnumpy(), want[0].asnumpy(),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_sugar_refuses_what_is_neither_symbol_nor_number():
+    with pytest.raises(TypeError):
+        mt.sym.var("a") + "b"
+    parts = list(mt.sym.SliceChannel(mt.sym.var("x"), num_outputs=3))
+    assert [p.list_outputs()[0] for p in parts] == [
+        f"{parts[0].name}_output{i}" for i in range(3)]
+
+
 def test_reference_json_loads_and_round_trips():
     ref = bert_encoder(mx.sym, **TINY)
     loaded = mt.sym.load_json(ref.tojson())
