@@ -19,9 +19,11 @@ Phases; any failure ends the run with a non-zero exit and no result line:
 3b. backward kernels -- K2 (dq) and K3 (dk, dv) against their plain
    versions on K1's residuals with a nonzero dLSE: BERT-base's
    [8, 12, 512, 64] and [8, 12, 128, 64] calls, causal, bf16, head dims
-   16/32/128 and Lq != Lk; fp32 within 2e-3, bf16 within 2e-2 of the
-   gradient's largest magnitude; times beside the bound and one library
-   call (the backward of PyTorch's fused attention, for K2 + K3).
+   16/32/128, Lq != Lk and inputs off 16-byte alignment; fp32 within
+   2e-3, bf16 within 2e-2 of the gradient's largest magnitude; times
+   beside the bound, its share (bound / ms) and one library call (the
+   backward of PyTorch's fused attention, for K2 + K3, printed beside
+   K2 + K3).
 3c. LSTM kernel -- K4 against its plain version: the LM's [32, 800] gates
    and [32, 200] cell, [20, 6000], [4096, 4096], an odd H = 13, and bf16
    gates with fp32 or bf16 cells; fp32 within 1e-5, bf16 within 2e-2
@@ -82,10 +84,14 @@ from mxnet_tpu_torch.ops import cuda_build, hopper_kernels as hk  # noqa: E402
 from mxnet_tpu_torch.serialization import dumps_ndarrays  # noqa: E402
 
 SEED = 0
-# H100 SXM data-sheet peaks (dense): HBM bytes/s and FLOP/s by input type;
-# fp32 is the rate outside the tensor cores
+# H100 SXM data-sheet peaks (dense): HBM bytes/s; fp32 FLOP/s outside the
+# tensor cores (K4's elementwise work)
 MEM_BPS = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+FP32_FLOPS = 67e12
+# the attention kernels' products: an fp32-accurate product on this card
+# is three TF32 tensor-core passes (split operands), 495 / 3 TFLOP/s, which
+# beats the 67 TFLOP/s outside the tensor cores; bf16 at the bf16 rate
+ATTN_PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 # attention gradients: the reference's own tolerance (tests/test_pallas.py,
 # rtol = atol = 2e-3) in fp32; bf16 relative to the gradient's largest
@@ -183,7 +189,8 @@ def phase_build():
 def _attention_bound(q, k, causal):
     """Least time for K1's work on these inputs: each input read once and
     each output written once over HBM, or the operations this mask needs
-    over the peak rate for the input type, whichever is larger."""
+    over the attention product rate for the input type, whichever is
+    larger."""
     lq, d = q.shape[-2:]
     lk = k.shape[-2]
     bh = q.numel() // (lq * d)
@@ -192,7 +199,7 @@ def _attention_bound(q, k, causal):
     pairs = sum(min(i + 1, lk) for i in range(lq)) if causal else lq * lk
     flops = 4.0 * bh * d * pairs
     t_mem = nbytes / MEM_BPS
-    t_ops = flops / PEAK_FLOPS[q.dtype]
+    t_ops = flops / ATTN_PEAK_FLOPS[q.dtype]
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem > t_ops
                                      else "operations")
 
@@ -261,7 +268,8 @@ def _backward_bound(q, k, causal, dkv):
     """Least time for K2's (``dkv`` False) or K3's work on these inputs:
     q, k, v, dO and the three fp32 rows read once, dq (or dk and dv)
     written once, or 6 (K2: s, dp, dq) or 8 (K3: s, dv, dp, dk) operations
-    per visible (query, key, d) over the peak rate for the input type."""
+    per visible (query, key, d) over the attention product rate for the
+    input type."""
     lq, d = q.shape[-2:]
     lk = k.shape[-2]
     bh = q.numel() // (lq * d)
@@ -271,7 +279,7 @@ def _backward_bound(q, k, causal, dkv):
     pairs = sum(min(i + 1, lk) for i in range(lq)) if causal else lq * lk
     flops = (8.0 if dkv else 6.0) * bh * d * pairs
     t_mem = (reads + writes) / MEM_BPS
-    t_ops = flops / PEAK_FLOPS[q.dtype]
+    t_ops = flops / ATTN_PEAK_FLOPS[q.dtype]
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem > t_ops
                                      else "operations")
 
@@ -336,9 +344,45 @@ def check_attention_backward(name, q_shape, lk, dtype, causal, gen):
                "plain_ms": time_ms(plain),
                "library_ms": lib_ms}
         rec["bound_ms"], rec["bound_by"] = _backward_bound(q, k, causal, dkv)
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
         log(json.dumps(rec))
         recs.append(rec)
+    if lib_ms is not None:
+        both = recs[0]["ms"] + recs[1]["ms"]
+        log(json.dumps({"check": name, "k2_plus_k3_ms": both,
+                        "library_ms": lib_ms,
+                        "k2_plus_k3_over_library": both / lib_ms}))
     return recs
+
+
+def check_misaligned_backward(gen):
+    """K2 and K3 on inputs whose storage starts 4 bytes past a 16-byte
+    boundary (a contiguous view at an odd offset): the wrappers copy them
+    to aligned memory for cp.async; the gradients must match the plain
+    versions."""
+    dev = torch.device("cuda", 0)
+    shape = (1, 2, 128, 32)
+    n = int(np.prod(shape))
+
+    def odd(t):
+        flat = torch.empty(n + 1, device=dev)
+        flat[1:] = t.reshape(-1)
+        return flat[1:].view(shape)
+
+    q, k, v, do = (odd(torch.randn(shape, generator=gen, device=dev))
+                   for _ in range(4))
+    if q.data_ptr() % 16 == 0:
+        raise AssertionError("the misaligned view is aligned")
+    o, lse = hk.flash_attention_with_lse(q, k, v)
+    delta = (do * o).sum(-1)
+    args = (q, k, v, do, lse, delta, torch.zeros_like(lse))
+    kw = dict(causal=False, scale=shape[-1] ** -0.5)
+    got = (hk._attn_dq_cuda(*args, **kw), *hk._attn_dkv_cuda(*args, **kw))
+    want = (hk._attn_dq_plain(*args, **kw), *hk._attn_dkv_plain(*args, **kw))
+    torch.cuda.synchronize()
+    errs = [_grad_err(g, w, torch.float32) for g, w in zip(got, want)]
+    log(json.dumps({"check": "misaligned", "q": list(shape),
+                    "max_abs_err": max(errs)}))
 
 
 def phase_backward_kernels():
@@ -360,6 +404,7 @@ def phase_backward_kernels():
                   ("lq_ne_lk", (2, 4, 64, 64), 256, torch.float32, causal)]
     with torch.no_grad():
         recs = [check_attention_backward(*c, gen) for c in cases]
+        check_misaligned_backward(gen)
     return {r["kernel"]: r for r in recs[0]}
 
 
@@ -370,7 +415,7 @@ def _lstm_bound(gates, c):
     nbytes = gates.numel() * gates.element_size() + \
         3 * c.numel() * c.element_size()
     t_mem = nbytes / MEM_BPS
-    t_ops = LSTM_OPS * c.numel() / PEAK_FLOPS[torch.float32]
+    t_ops = LSTM_OPS * c.numel() / FP32_FLOPS
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem > t_ops
                                      else "operations")
 

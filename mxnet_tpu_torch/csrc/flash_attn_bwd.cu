@@ -17,38 +17,47 @@
 // in as fp32 rows; every sum is taken in fp32 whatever the input type, and
 // each output is cast to its input's type on the store.
 //
-// Design.  The TPU kernels walk one operand's blocks on a sequential grid
+// Split.  The TPU kernels walk one operand's blocks on a sequential grid
 // axis and carry the accumulator in VMEM scratch.  CUDA blocks run in
-// parallel and in no order, so here one block owns one output tile for its
+// parallel and in no order, so one block owns one output tile for its
 // whole life and a loop inside the block walks the streamed operand:
-//   K2: a block owns (b*h, 64 query rows); K/V tiles stream through shared
-//       memory; dq accumulates in registers.
+//   K2: a block owns (b*h, 64 query rows); K/V tiles stream in; dq
+//       accumulates in registers and is written once.
 //   K3: a block owns (b*h, 64 key rows); Q/dO tiles and their lse, delta
-//       and dlse rows stream through shared memory; dk and dv accumulate in
-//       registers.
-// This is the Pallas split: each output is written once, by one block, and
-// no atomics are needed.  256 threads form a 16 x 16 grid; each thread owns
-// a 4 x 4 piece of the 64 x 64 score tile and a 4 x D/16 piece of each
-// accumulator, with rows and columns strided by 16 so that shared-memory
-// reads are broadcasts or conflict-free (tile rows are padded by one
-// float).  Shared memory holds four 64 x D fp32 tiles and one or two
-// 64 x 64 tiles: up to 166 KB at D = 128, so it is dynamic shared memory,
-// raised above the 48 KB default with cudaFuncSetAttribute.
-//
-// Causal tiles: K2 skips key tiles past its last query row; K3 starts at
-// the first query tile that reaches its first key (the TPU kernels' skips
-// at pallas_kernels.py:156 and :198, on this kernel's 64-row tiles).
-// Inside a tile the mask is top-left aligned (key j > query i is masked),
-// so Lq != Lk keeps the TPU kernels' row >= col rule.
+//       and dlse rows stream in; dk and dv accumulate in registers and are
+//       written once.
+// No atomics, so the gradients are deterministic.  Causal tiles: K2 skips
+// key tiles past its last query row; K3 starts at the first query tile
+// that reaches its first key (the TPU kernels' skips at
+// pallas_kernels.py:156 and :198).  Inside a tile the mask is top-left
+// aligned (key j > query i is masked), so Lq != Lk keeps the TPU kernels'
+// row >= col rule; rows past a ragged end load as zeros and get p = 0.
 //
 // What bounds them on the H100.  Per (b, h), K2 does 6*Lq*Lk*D operations
 // (s, dp, dq) and K3 8*Lq*Lk*D (s, dv, dp, dk) against 4*L*D elements read
-// and 1-2*L*D written; at BERT's L = 512, D = 64 in fp32 that is well above
-// the card's fp32 ridge (67 TFLOP/s over 3.35 TB/s, about 20 operations
-// per byte), so both are bound by arithmetic.  They do that arithmetic as
-// fp32 FMAs from shared memory, which keeps them exact to fp32 and simple;
-// the products belong on the tensor cores (wgmma on bf16 tiles fed by TMA),
-// which is later work.
+// and 1-2*L*D written; at BERT's L = 512, D = 64 that is well above the
+// card's ridge, so both are bound by the product rate.  The design puts
+// every product on the tensor cores (hopper_mma.cuh): mma.sync m16n8k8 in
+// three TF32 passes for fp32 inputs, which keeps fp32-level accuracy at up
+// to 495/3 TFLOP/s, and m16n8k16 bf16 for bf16 inputs.  In bf16, s and dp
+// are exact products of bf16 values summed in fp32, and p and ds are
+// rounded to bf16 before they feed dv, dk and dq, as FlashAttention does:
+// one rounding of a value in [0, 1] or of a gradient term, 2^-9 relative,
+// well inside the 2e-2 (of the largest magnitude) that bf16 is held to.
+//
+// Each block is four warps; each warp owns 16 rows of the block's tile,
+// so its s, dp, p and ds stay in registers, and the accumulator layout is
+// reused as the A operand of the next product (see hopper_mma.cuh).
+// Fragments of row-major operands come by ldmatrix, four registers an
+// instruction; the transposed B operands of dq, dv and dk by scalar
+// loads.  In fp32 every fragment is split into its TF32 parts in
+// registers as it is loaded.  The streamed tiles arrive by cp.async in a
+// two-stage shared-memory ring: the next tile copies in while this one
+// computes.  Streamed tiles are 64 rows
+// for D <= 64 and 32 at D = 128, which keeps K3's dk and dv accumulators
+// (2 * 16 * D floats a warp) and its scores in registers.  Shared memory
+// is above 48 KB for fp32 at D >= 64, so it is dynamic shared memory,
+// raised with cudaFuncSetAttribute.
 //
 // The C entry points launch on the caller's stream, allocate nothing, do
 // not synchronise, and return cudaGetLastError() after the launch.
@@ -57,173 +66,187 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "hopper_mma.cuh"
+
 namespace {
 
-constexpr int BM = 64;   // rows of the owned tile
-constexpr int BN = 64;   // rows of the streamed tile
-constexpr int NT = 256;  // threads per block: a 16 x 16 grid
-constexpr int SP = BN + 1;
+using hmma::bf16;
+
+constexpr int BM = 64;      // rows of the owned tile: 16 per warp
+constexpr int NW = 4;       // warps per block
+constexpr int NT = 32 * NW;
+// Both kernels declare one block an SM as their minimum: with no minimum,
+// ptxas capped some instantiations at 96 or 128 registers and spilled.
 constexpr float MASKED = -1e30f;
 
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
+// rows of a streamed tile
+template <int D>
+__host__ __device__ constexpr int stream_rows() {
+  return D <= 64 ? 64 : 32;
 }
 
-// rows [row0, row0 + 64) of a [rows, D] matrix into a padded fp32 tile;
-// rows past the end read as zeros
+// shared memory: the owned pair of tiles, two stages of the streamed pair,
+// and (K3) two stages of the streamed lse, delta and dlse rows
+template <int D, typename T, bool DKV>
+__host__ __device__ constexpr int smem_bytes() {
+  constexpr int ST = D + hmma::row_pad<T>();
+  return (2 * BM + 4 * stream_rows<D>()) * ST * (int)sizeof(T) +
+         (DKV ? 2 * 3 * stream_rows<D>() * (int)sizeof(float) : 0);
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// write a warp's 16 x D accumulator (rows r0.. of a [rows, D] output)
 template <int D, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
-                                          int rows) {
-  constexpr int DP = D + 1;
-  for (int e = threadIdx.x; e < BM * D; e += NT) {
-    const int r = e / D, c = e % D;
-    dst[r * DP + c] =
-        (row0 + r < rows) ? load_f(src + (size_t)(row0 + r) * D + c) : 0.f;
+__device__ __forceinline__ void store_rows(T* out, const float (&acc)[D / 8][4],
+                                           int r0, int rows) {
+  const int g = hmma::lane_g(), t = hmma::lane_t();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + g + 8 * h;
+    if (r < rows) {
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        store2(out + (size_t)r * D + n * 8 + 2 * t, acc[n][2 * h],
+               acc[n][2 * h + 1]);
+    }
   }
-}
-
-// shared memory, in floats
-template <int D>
-constexpr int dq_smem_floats() {
-  return 4 * BM * (D + 1) + BM * SP + 2 * BM;
-}
-template <int D>
-constexpr int dkv_smem_floats() {
-  return 4 * BM * (D + 1) + 2 * BM * SP + 2 * BM;
 }
 
 // ---------------------------------------------------------------------------
 // K2: dq for one (b*h, 64-query) tile, key/value tiles streamed
 // ---------------------------------------------------------------------------
 template <int D, typename T, bool CAUSAL>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 1)
 flash_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          const float* __restrict__ dlse, T* __restrict__ dq,
                          int lq, int lk, int n_qt, float scale) {
-  constexpr int DP = D + 1;
-  constexpr int TN = D / 16;
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* dos = qs + BM * DP;
-  float* ks = dos + BM * DP;
-  float* vs = ks + BM * DP;
-  float* ss = vs + BM * DP;        // ds tile [query][key]
-  float* lse_s = ss + BM * SP;     // per query row: lse
-  float* c_s = lse_s + BM;         // per query row: dlse - delta
+  using A = typename hmma::Frag<T>::A;
+  using B = typename hmma::Frag<T>::B;
+  constexpr int KS = hmma::Frag<T>::K;
+  constexpr int BN = stream_rows<D>();
+  constexpr int ST = D + hmma::row_pad<T>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* qs = reinterpret_cast<T*>(smem);
+  T* dos = qs + BM * ST;
+  T* ring = dos + BM * ST;  // stage i: K at ring + 2*i*BN*ST, then V
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
+  const int warp = threadIdx.x / 32;
+  const int g = hmma::lane_g(), t = hmma::lane_t();
   const int bh = blockIdx.x / n_qt;
   const int q0 = (blockIdx.x % n_qt) * BM;
   const T* kb = k + (size_t)bh * lk * D;
   const T* vb = v + (size_t)bh * lk * D;
-
-  load_tile<D>(qs, q + (size_t)bh * lq * D, q0, lq);
-  load_tile<D>(dos, dout + (size_t)bh * lq * D, q0, lq);
-  if (tid < BM) {
-    const bool live = q0 + tid < lq;
-    const size_t row = (size_t)bh * lq + q0 + tid;
-    lse_s[tid] = live ? lse[row] : 0.f;
-    c_s[tid] = live ? dlse[row] - delta[row] : 0.f;
-  }
-
-  float acc[4][TN];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
   // causal: keys past this tile's last query row contribute nothing
   const int k_end = CAUSAL ? min(lk, min(q0 + BM, lq)) : lk;
-  for (int k0 = 0; k0 < k_end; k0 += BN) {
-    __syncthreads();  // the previous ds tile is consumed
-    load_tile<D>(ks, kb, k0, lk);
-    load_tile<D>(vs, vb, k0, lk);
-    __syncthreads();
+  const int n_kt = (k_end + BN - 1) / BN;
 
-    // s = q k^T and dp = dO v^T for this tile, side by side
-    float s[4][4], dp[4][4];
+  hmma::load_tile_async<BM, D, NT>(qs, q + (size_t)bh * lq * D, q0, lq);
+  hmma::load_tile_async<BM, D, NT>(dos, dout + (size_t)bh * lq * D, q0, lq);
+  if (n_kt > 0) {
+    hmma::load_tile_async<BN, D, NT>(ring, kb, 0, lk);
+    hmma::load_tile_async<BN, D, NT>(ring + BN * ST, vb, 0, lk);
+  }
+  hmma::cp_async_commit();
+
+  // this lane's two query rows: lse and dlse - delta
+  float l_row[2], c_row[2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + warp * 16 + g + 8 * h;
+    const size_t i = (size_t)bh * lq + r;
+    l_row[h] = r < lq ? lse[i] : 0.f;
+    c_row[h] = r < lq ? dlse[i] - delta[i] : 0.f;
+  }
+
+  float acc[D / 8][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[4], o[4], b[4], w[4];
+  for (int n = 0; n < D / 8; ++n)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = qs[(i * 16 + ty) * DP + d];
-        o[i] = dos[(i * 16 + ty) * DP + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        b[j] = ks[(j * 16 + tx) * DP + d];
-        w[j] = vs[(j * 16 + tx) * DP + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i], b[j], s[i][j]);
-          dp[i][j] = fmaf(o[i], w[j], dp[i][j]);
-        }
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int it = 0; it < n_kt; ++it) {
+    const int k0 = it * BN;
+    if (it + 1 < n_kt) {
+      T* nxt = ring + ((it + 1) & 1) * 2 * BN * ST;
+      hmma::load_tile_async<BN, D, NT>(nxt, kb, k0 + BN, lk);
+      hmma::load_tile_async<BN, D, NT>(nxt + BN * ST, vb, k0 + BN, lk);
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = i * 16 + ty;
-      const float l = lse_s[r], c = c_s[r];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = j * 16 + tx;
-        float x = s[i][j] * scale;
-        if (CAUSAL && k0 + col > q0 + r) x = MASKED;
-        float p = expf(x - l);
-        if (k0 + col >= lk || q0 + r >= lq) p = 0.f;
-        ss[r * SP + col] = p * (dp[i][j] + c) * scale;
-      }
-    }
+    hmma::cp_async_commit();
+    hmma::cp_async_wait<1>();
     __syncthreads();
+    const T* ks = ring + (it & 1) * 2 * BN * ST;
+    const T* vs = ks + BN * ST;
+
+    // s = q k^T and dp = dO v^T for this warp's 16 rows
+    float s[BN / 8][4], dp[BN / 8][4];
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D; kk += KS) {
+      A aq, ado;
+      hmma::load_a(aq, qs, ST, warp * 16, kk);
+      hmma::load_a(ado, dos, ST, warp * 16, kk);
+#pragma unroll
+      for (int j = 0; j < BN / 8; j += 2) {
+        B bk0, bk1, bv0, bv1;
+        hmma::load_bt2(bk0, bk1, ks, ST, j * 8, kk);
+        hmma::load_bt2(bv0, bv1, vs, ST, j * 8, kk);
+        hmma::mma(s[j], aq, bk0);
+        hmma::mma(dp[j], ado, bv0);
+        hmma::mma(s[j + 1], aq, bk1);
+        hmma::mma(dp[j + 1], ado, bv1);
+      }
+    }
+
+    // ds, in place of s
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = warp * 16 + g + 8 * (e >> 1);
+        const int col = j * 8 + 2 * t + (e & 1);
+        float x = s[j][e] * scale;
+        if (CAUSAL && k0 + col > q0 + row) x = MASKED;
+        float p = expf(x - l_row[e >> 1]);
+        if (k0 + col >= lk || q0 + row >= lq) p = 0.f;
+        s[j][e] = p * (dp[j][e] + c_row[e >> 1]) * scale;
+      }
 
     // dq += ds k
-#pragma unroll 4
-    for (int n = 0; n < BN; ++n) {
-      float g[4], w[TN];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) g[i] = ss[(i * 16 + ty) * SP + n];
+    for (int kc = 0; kc < BN / KS; ++kc) {
+      A a;
+      hmma::a_from_c(a, s, kc);
 #pragma unroll
-      for (int j = 0; j < TN; ++j) w[j] = ks[n * DP + j * 16 + tx];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(g[i], w[j], acc[i][j]);
+      for (int n = 0; n < D / 8; ++n) {
+        B b;
+        hmma::load_b(b, ks, ST, kc * KS, n * 8);
+        hmma::mma(acc[n], a, b);
+      }
     }
+    __syncthreads();  // this stage is free for the tile after next
   }
+  hmma::cp_async_wait<0>();
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = i * 16 + ty;
-    if (q0 + r < lq) {
-      T* row = dq + ((size_t)bh * lq + q0 + r) * D;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) store_f(row + j * 16 + tx, acc[i][j]);
-    }
-  }
+  store_rows<D>(dq + (size_t)bh * lq * D, acc, q0 + warp * 16, lq);
 }
 
 // ---------------------------------------------------------------------------
 // K3: dk and dv for one (b*h, 64-key) tile, query/dO tiles streamed
 // ---------------------------------------------------------------------------
 template <int D, typename T, bool CAUSAL>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 1)
 flash_attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const T* __restrict__ dout,
                           const float* __restrict__ lse,
@@ -231,130 +254,126 @@ flash_attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const float* __restrict__ dlse, T* __restrict__ dk,
                           T* __restrict__ dv, int lq, int lk, int n_kt,
                           float scale) {
-  constexpr int DP = D + 1;
-  constexpr int TN = D / 16;
-  extern __shared__ float smem[];
-  float* ks = smem;
-  float* vs = ks + BM * DP;
-  float* qs = vs + BM * DP;
-  float* dos = qs + BM * DP;
-  float* ps = dos + BM * DP;       // p tile [key][query]
-  float* dss = ps + BM * SP;       // ds tile [key][query]
-  float* lse_s = dss + BM * SP;    // per query row of the current tile
-  float* c_s = lse_s + BN;
+  using A = typename hmma::Frag<T>::A;
+  using B = typename hmma::Frag<T>::B;
+  constexpr int KS = hmma::Frag<T>::K;
+  constexpr int BN = stream_rows<D>();
+  constexpr int ST = D + hmma::row_pad<T>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ks = reinterpret_cast<T*>(smem);
+  T* vs = ks + BM * ST;
+  T* ring = vs + BM * ST;  // stage i: Q at ring + 2*i*BN*ST, then dO
+  // stage i: lse, delta, dlse rows at rows + 3*i*BN
+  float* rows = reinterpret_cast<float*>(ring + 4 * BN * ST);
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
+  const int warp = threadIdx.x / 32;
+  const int g = hmma::lane_g(), t = hmma::lane_t();
   const int bh = blockIdx.x / n_kt;
   const int k0 = (blockIdx.x % n_kt) * BM;
   const T* qb = q + (size_t)bh * lq * D;
   const T* dob = dout + (size_t)bh * lq * D;
-  const float* lse_b = lse + (size_t)bh * lq;
-  const float* delta_b = delta + (size_t)bh * lq;
-  const float* dlse_b = dlse + (size_t)bh * lq;
-
-  load_tile<D>(ks, k + (size_t)bh * lk * D, k0, lk);
-  load_tile<D>(vs, v + (size_t)bh * lk * D, k0, lk);
-
-  float adk[4][TN], adv[4][TN];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) adk[i][j] = adv[i][j] = 0.f;
-
   // causal: query tiles wholly before this tile's first key see none of it
   const int q_begin = CAUSAL ? (k0 / BN) * BN : 0;
-  for (int q0 = q_begin; q0 < lq; q0 += BN) {
-    __syncthreads();  // the previous p and ds tiles are consumed
-    load_tile<D>(qs, qb, q0, lq);
-    load_tile<D>(dos, dob, q0, lq);
-    if (tid < BN) {
-      const bool live = q0 + tid < lq;
-      lse_s[tid] = live ? lse_b[q0 + tid] : 0.f;
-      c_s[tid] = live ? dlse_b[q0 + tid] - delta_b[q0 + tid] : 0.f;
-    }
-    __syncthreads();
+  const int n_it = q_begin < lq ? (lq - q_begin + BN - 1) / BN : 0;
 
-    // s^T = k q^T and dp^T = v dO^T: rows are keys, columns queries
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[4], w[4], b[4], o[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = ks[(i * 16 + ty) * DP + d];
-        w[i] = vs[(i * 16 + ty) * DP + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        b[j] = qs[(j * 16 + tx) * DP + d];
-        o[j] = dos[(j * 16 + tx) * DP + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i], b[j], s[i][j]);
-          dp[i][j] = fmaf(w[i], o[j], dp[i][j]);
-        }
+  auto load_stage = [&](int stage, int qt0) {
+    T* dst = ring + stage * 2 * BN * ST;
+    hmma::load_tile_async<BN, D, NT>(dst, qb, qt0, lq);
+    hmma::load_tile_async<BN, D, NT>(dst + BN * ST, dob, qt0, lq);
+    float* rdst = rows + stage * 3 * BN;
+    for (int e = threadIdx.x; e < 3 * BN; e += NT) {
+      const int a = e / BN, r = e % BN;
+      const bool valid = qt0 + r < lq;
+      const float* src = a == 0 ? lse : a == 1 ? delta : dlse;
+      hmma::cp_async4(rdst + e, src + (size_t)bh * lq + (valid ? qt0 + r : 0),
+                      valid);
     }
+  };
+
+  hmma::load_tile_async<BM, D, NT>(ks, k + (size_t)bh * lk * D, k0, lk);
+  hmma::load_tile_async<BM, D, NT>(vs, v + (size_t)bh * lk * D, k0, lk);
+  if (n_it > 0) load_stage(0, q_begin);
+  hmma::cp_async_commit();
+
+  float adk[D / 8][4], adv[D / 8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kr = i * 16 + ty;
+  for (int n = 0; n < D / 8; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qr = j * 16 + tx;
-        float x = s[i][j] * scale;
-        if (CAUSAL && k0 + kr > q0 + qr) x = MASKED;
-        float p = expf(x - lse_s[qr]);
-        if (k0 + kr >= lk || q0 + qr >= lq) p = 0.f;
-        ps[kr * SP + qr] = p;
-        dss[kr * SP + qr] = p * (dp[i][j] + c_s[qr]) * scale;
-      }
-    }
+    for (int e = 0; e < 4; ++e) adk[n][e] = adv[n][e] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int q0 = q_begin + it * BN;
+    if (it + 1 < n_it) load_stage((it + 1) & 1, q0 + BN);
+    hmma::cp_async_commit();
+    hmma::cp_async_wait<1>();
     __syncthreads();
+    const T* qs = ring + (it & 1) * 2 * BN * ST;
+    const T* dos = qs + BN * ST;
+    const float* lse_s = rows + (it & 1) * 3 * BN;
+    const float* delta_s = lse_s + BN;
+    const float* dlse_s = delta_s + BN;
+
+    // s^T = k q^T and dp^T = v dO^T: rows are this warp's 16 keys,
+    // columns the tile's queries
+    float s[BN / 8][4], dp[BN / 8][4];
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D; kk += KS) {
+      A ak, av;
+      hmma::load_a(ak, ks, ST, warp * 16, kk);
+      hmma::load_a(av, vs, ST, warp * 16, kk);
+#pragma unroll
+      for (int j = 0; j < BN / 8; j += 2) {
+        B bq0, bq1, bdo0, bdo1;
+        hmma::load_bt2(bq0, bq1, qs, ST, j * 8, kk);
+        hmma::load_bt2(bdo0, bdo1, dos, ST, j * 8, kk);
+        hmma::mma(s[j], ak, bq0);
+        hmma::mma(dp[j], av, bdo0);
+        hmma::mma(s[j + 1], ak, bq1);
+        hmma::mma(dp[j + 1], av, bdo1);
+      }
+    }
+
+    // p^T in place of s^T, ds^T in place of dp^T
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kr = warp * 16 + g + 8 * (e >> 1);
+        const int qc = j * 8 + 2 * t + (e & 1);
+        float x = s[j][e] * scale;
+        if (CAUSAL && k0 + kr > q0 + qc) x = MASKED;
+        float p = expf(x - lse_s[qc]);
+        if (k0 + kr >= lk || q0 + qc >= lq) p = 0.f;
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] + (dlse_s[qc] - delta_s[qc])) * scale;
+      }
 
     // dv += p^T dO and dk += ds^T q
-#pragma unroll 4
-    for (int r = 0; r < BN; ++r) {
-      float pk[4], gk[4], o[TN], x[TN];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pk[i] = ps[(i * 16 + ty) * SP + r];
-        gk[i] = dss[(i * 16 + ty) * SP + r];
+    for (int kc = 0; kc < BN / KS; ++kc) {
+      A ap, ads;
+      hmma::a_from_c(ap, s, kc);
+      hmma::a_from_c(ads, dp, kc);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        B bdo, bq;
+        hmma::load_b(bdo, dos, ST, kc * KS, n * 8);
+        hmma::load_b(bq, qs, ST, kc * KS, n * 8);
+        hmma::mma(adv[n], ap, bdo);
+        hmma::mma(adk[n], ads, bq);
       }
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        o[j] = dos[r * DP + j * 16 + tx];
-        x[j] = qs[r * DP + j * 16 + tx];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          adv[i][j] = fmaf(pk[i], o[j], adv[i][j]);
-          adk[i][j] = fmaf(gk[i], x[j], adk[i][j]);
-        }
     }
+    __syncthreads();  // this stage is free for the tile after next
   }
+  hmma::cp_async_wait<0>();
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = i * 16 + ty;
-    if (k0 + r < lk) {
-      const size_t off = ((size_t)bh * lk + k0 + r) * D;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        store_f(dk + off + j * 16 + tx, adk[i][j]);
-        store_f(dv + off + j * 16 + tx, adv[i][j]);
-      }
-    }
-  }
+  const size_t off = (size_t)bh * lk * D;
+  store_rows<D>(dk + off, adk, k0 + warp * 16, lk);
+  store_rows<D>(dv + off, adv, k0 + warp * 16, lk);
 }
 
 struct Args {
@@ -369,7 +388,7 @@ struct Args {
 template <int D, typename T, bool CAUSAL>
 cudaError_t launch_dq(const Args& a) {
   auto kernel = flash_attn_bwd_dq_kernel<D, T, CAUSAL>;
-  const int smem = dq_smem_floats<D>() * (int)sizeof(float);
+  constexpr int smem = smem_bytes<D, T, false>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -386,7 +405,7 @@ cudaError_t launch_dq(const Args& a) {
 template <int D, typename T, bool CAUSAL>
 cudaError_t launch_dkv(const Args& a) {
   auto kernel = flash_attn_bwd_dkv_kernel<D, T, CAUSAL>;
-  const int smem = dkv_smem_floats<D>() * (int)sizeof(float);
+  constexpr int smem = smem_bytes<D, T, true>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -434,8 +453,8 @@ int dispatch(int d, int dtype, int causal, const Args& a) {
     err = causal ? dispatch_head_dim<DKV, float, true>(d, a)
                  : dispatch_head_dim<DKV, float, false>(d, a);
   } else if (dtype == 1) {
-    err = causal ? dispatch_head_dim<DKV, __nv_bfloat16, true>(d, a)
-                 : dispatch_head_dim<DKV, __nv_bfloat16, false>(d, a);
+    err = causal ? dispatch_head_dim<DKV, bf16, true>(d, a)
+                 : dispatch_head_dim<DKV, bf16, false>(d, a);
   }
   return static_cast<int>(err);
 }
@@ -443,7 +462,8 @@ int dispatch(int d, int dtype, int causal, const Args& a) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  q, dout, dq are [bh, lq, d]; k, v are
-// [bh, lk, d]; lse, delta, dlse are fp32 [bh, lq].  Returns a cudaError_t.
+// [bh, lk, d]; lse, delta, dlse are fp32 [bh, lq].  q, k, v, dout and the
+// outputs must be 16-byte aligned (cp.async).  Returns a cudaError_t.
 extern "C" int mxtt_flash_attn_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* delta,

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles, at first use, with ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, bound with
 `ctypes`.  Libraries go to ``build/mxnet_tpu_torch/`` beside the package
-and are named by a hash of their source and flags, so an edited source
-never loads a stale library.  Nothing here runs at import: the CPU tests
+and are named by a hash of their source, the local headers it includes
+(``csrc/*.cuh``) and the flags, so an edited source or header never loads
+a stale library.  Nothing here runs at import: the CPU tests
 import every module on a host without ``nvcc``.
 """
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -44,9 +46,32 @@ def _nvcc() -> str:
     return path
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _source_digest(path: str, seen=None) -> bytes:
+    """SHA-1 over a source and, depth first, every local header it
+    includes (``#include "..."``, resolved beside the including file), so
+    that an edited header changes the digest too.  Each file counts once."""
+    seen = set() if seen is None else seen
+    path = os.path.realpath(path)
+    if path in seen:
+        return b""
+    seen.add(path)
+    with open(path, "rb") as f:
+        text = f.read()
+    parts = [text]
+    for inc in _LOCAL_INCLUDE.findall(text):
+        header = os.path.join(os.path.dirname(path), inc.decode())
+        if os.path.exists(header):
+            parts.append(_source_digest(header, seen))
+    return hashlib.sha1(b"\0".join(parts)).digest()
+
+
 def _library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(_NVCC_FLAGS).encode())
+    digest = hashlib.sha1(
+        _source_digest(os.path.join(CSRC_DIR, name + ".cu")) +
+        " ".join(_NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

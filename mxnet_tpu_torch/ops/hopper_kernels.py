@@ -228,8 +228,16 @@ def _attn_dkv_plain(q, k, v, do, lse, delta, dlse, *, causal: bool,
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _aligned(*tensors):
+    """K2 and K3 copy their [L, D] tiles with 16-byte cp.async: a tensor
+    whose storage starts elsewhere (a contiguous view at an odd offset)
+    is copied to fresh, aligned memory first."""
+    return [t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors]
+
+
 def _attn_dq_cuda(q, k, v, do, lse, delta, dlse, *, causal, scale):
     _check_cuda_inputs(q, k, v, do)
+    q, k, v, do = _aligned(q, k, v, do)
     dq = torch.empty_like(q)
     _launch("flash_attn_bwd", "mxtt_flash_attn_bwd_dq", "flash_attn_bwd_dq",
             q, k, (q, k, v, do, lse, delta, dlse, dq), causal, scale)
@@ -238,6 +246,7 @@ def _attn_dq_cuda(q, k, v, do, lse, delta, dlse, *, causal, scale):
 
 def _attn_dkv_cuda(q, k, v, do, lse, delta, dlse, *, causal, scale):
     _check_cuda_inputs(q, k, v, do)
+    q, k, v, do = _aligned(q, k, v, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("flash_attn_bwd", "mxtt_flash_attn_bwd_dkv",
             "flash_attn_bwd_dkv", q, k,

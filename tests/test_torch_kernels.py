@@ -213,6 +213,161 @@ def test_backward_through_the_op_reaches_transposed_inputs():
                                    rtol=GRAD_TOL, atol=GRAD_TOL)
 
 
+# ---------------------------------------------------------------------------
+# K2 / K3 arithmetic on the card, emulated on the CPU: split-TF32 products
+# for fp32 inputs, bf16 products with p and ds rounded to bf16
+# ---------------------------------------------------------------------------
+
+# sign, exponent and TF32's 10 mantissa bits (0xffffe000 as an int32)
+_TF32_MASK = -8192
+# bf16 gradients against the reference: relative to the largest magnitude
+BF16_GRAD_TOL = 2e-2
+
+
+def _tf32_round(x):
+    """x rounded to TF32 to nearest, ties away (cvt.rna.tf32.f32), by
+    mantissa masking: how the kernels take an operand's big part."""
+    return ((x.view(torch.int32) + 0x1000) & _TF32_MASK).view(torch.float32)
+
+
+def _tf32_cut(x):
+    """x cut to TF32 toward zero: how the kernels take the small part."""
+    return (x.view(torch.int32) & _TF32_MASK).view(torch.float32)
+
+
+def _mm3(a, b):
+    """a @ b as the fp32 kernels take it: three TF32 passes over the split
+    operands (big·big + big·small + small·big) summed in fp32; TF32
+    products are exact in fp32."""
+    a_hi, b_hi = _tf32_round(a), _tf32_round(b)
+    a_lo, b_lo = _tf32_cut(a - a_hi), _tf32_cut(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _emulated_backward(q, k, v, do, lse, delta, dlse, causal, scale,
+                       scheme):
+    """(dq, dk, dv) with K2's and K3's rounding on the card.  "fp32": every
+    product in three TF32 passes.  "bf16" (inputs hold bf16 values): the
+    products of bf16 values are exact and summed in fp32, p and ds are
+    rounded to bf16 before dv, dk and dq, each gradient on the store."""
+    if scheme == "fp32":
+        mm, cast = _mm3, (lambda t: t)
+    else:
+        mm, cast = torch.matmul, (lambda t: t.bfloat16().float())
+    s = mm(q, k.transpose(-1, -2)) * scale
+    if causal:
+        s = s.masked_fill(~hk._causal_keep(*s.shape[-2:], s.device), -1e30)
+    p = torch.exp(s - lse[..., None])
+    dp = mm(do, v.transpose(-1, -2))
+    ds = p * (dp + (dlse - delta)[..., None]) * scale
+    p, ds = cast(p), cast(ds)
+    return [cast(g) for g in (mm(ds, k), mm(ds.transpose(-1, -2), q),
+                              mm(p.transpose(-1, -2), do))]
+
+
+@pytest.mark.parametrize("scheme,tol", [("fp32", GRAD_TOL),
+                                        ("bf16", BF16_GRAD_TOL)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("q_shape,lk,block_q,block_k",
+                         [BWD_CASES[0], BWD_CASES[1], BWD_CASES[3]])
+def test_kernel_rounding_matches_pallas_bwd(scheme, tol, causal, q_shape,
+                                            lk, block_q, block_k):
+    """The card's arithmetic (emulated) against the JAX package's
+    `_pallas_attention_bwd` in interpret mode, within the tolerance of
+    each scheme relative to the gradient's largest magnitude: the
+    chip-free evidence that the precision choice keeps parity.  bf16
+    inputs are bf16 values handed to both as fp32."""
+    arrays = _bwd_inputs(13, q_shape, lk)
+    if scheme == "bf16":
+        arrays = [torch.from_numpy(a).bfloat16().float().numpy()
+                  for a in arrays]
+    q, k, v, do, dlse = arrays
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    scale = q_shape[-1] ** -0.5
+    o, lse = pk._pallas_attention_fwd(jq, jk, jv, causal=causal, scale=scale,
+                                      block_q=block_q, block_k=block_k,
+                                      interpret=True)
+    ref = pk._pallas_attention_bwd(jq, jk, jv, o, lse, jnp.asarray(do),
+                                   jnp.asarray(dlse), causal=causal,
+                                   scale=scale, block_q=block_q,
+                                   block_k=block_k, interpret=True)
+    tq, tk, tv, tdo, to, tlse, tdlse = (
+        torch.from_numpy(np.array(a)) for a in (q, k, v, do, o, lse, dlse))
+    if scheme == "bf16":
+        to = to.bfloat16().float()  # K1 stores O in bf16
+    delta = (tdo * to).sum(-1)
+    got = _emulated_backward(tq, tk, tv, tdo, tlse, delta, tdlse, causal,
+                             scale, scheme)
+    for g, want in zip(got, ref):
+        want = np.asarray(want)
+        err = np.abs(g.numpy() - want).max()
+        assert err <= tol * np.abs(want).max(), (err, np.abs(want).max())
+
+
+def test_three_pass_tf32_product_keeps_fp32_accuracy():
+    """At BERT's head width (a 64-deep product), the three-pass product
+    stays within 1e-5 of a plain fp32 matmul; one TF32 pass does not."""
+    rng = np.random.RandomState(14)
+    a = torch.from_numpy(rng.randn(128, 64).astype(np.float32))
+    b = torch.from_numpy(rng.randn(64, 128).astype(np.float32))
+    plain = a @ b
+    np.testing.assert_allclose(_mm3(a, b).numpy(), plain.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    one_pass = _tf32_round(a) @ _tf32_round(b)
+    assert (one_pass - plain).abs().max() > 1e-4
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    x = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -12,
+                      -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12, 3.0])
+    want = [1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0,
+            3.0]
+    assert _tf32_round(x).tolist() == want
+    hi = _tf32_round(x)
+    assert (hi + (x - hi)).tolist() == x.tolist()
+
+
+def test_attention_bounds_at_bert_base():
+    """`chip_smoke`'s bounds at BERT-base's [8, 12, 512, 64] fp32 call:
+    operations over three TF32 passes' rate (495/3 TFLOP/s) for K1-K3."""
+    import chip_smoke as cs
+    q = torch.empty((8, 12, 512, 64), device="meta")
+    k1, k1_by = cs._attention_bound(q, q, False)
+    k2, k2_by = cs._backward_bound(q, q, False, dkv=False)
+    k3, k3_by = cs._backward_bound(q, q, False, dkv=True)
+    assert (k1_by, k2_by, k3_by) == ("operations",) * 3
+    np.testing.assert_allclose([k1, k2, k3], [0.0390, 0.0586, 0.0781],
+                               rtol=2e-3)
+    # the bytes each would take, for the record: 0.019 and 0.023 ms
+    reads = 4 * 8 * 12 * 512 * 64 * 4 + 3 * 8 * 12 * 512 * 4
+    np.testing.assert_allclose(
+        [(reads + 8 * 12 * 512 * 64 * 4 * n) / cs.MEM_BPS * 1e3
+         for n in (1, 2)], [0.019, 0.023], rtol=2e-2)
+    assert cs._attention_bound(q.bfloat16(), q.bfloat16(), False)[0] < k1
+
+
+def test_library_name_follows_included_headers(tmp_path, monkeypatch):
+    """An edit to a header a source includes (directly or through another
+    header) names a new library; an edit to a header it does not include,
+    or a cycle of includes, does not disturb the name."""
+    (tmp_path / "k.cu").write_text(
+        '#include <cuda_runtime.h>\n#include "a.cuh"\nint k;\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text('#include "a.cuh"\nint b;\n')
+    (tmp_path / "other.cuh").write_text("int other;\n")
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", str(tmp_path))
+    first = cuda_build._library_path("k")
+    assert cuda_build._library_path("k") == first
+    (tmp_path / "other.cuh").write_text("int other2;\n")
+    assert cuda_build._library_path("k") == first
+    (tmp_path / "b.cuh").write_text('#include "a.cuh"\nint b2;\n')
+    second = cuda_build._library_path("k")
+    assert second != first
+    (tmp_path / "k.cu").write_text(
+        '#include <cuda_runtime.h>\n#include "a.cuh"\nint k2;\n')
+    assert cuda_build._library_path("k") not in (first, second)
+
+
 def test_backward_counts_no_launch_on_the_cpu(monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("the CUDA kernel library was loaded")
