@@ -98,6 +98,11 @@ TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 # magnitude
 GRAD_TOL = 2e-3
 BF16_GRAD_TOL = 2e-2
+# fp32 K2/K3 are also held within SPLIT_TF32_TOL of the gradient's largest
+# magnitude: emulated on phase 3b's fp32 shapes (tests/test_torch_kernels.py),
+# the three TF32 passes stay below 1e-5 of it and one TF32 pass goes above
+# 3e-4, so this limit fails a kernel that has lost its small parts
+SPLIT_TF32_TOL = 1e-4
 # 12 LayerNorm'd layers of fp32 sums taken in another order
 SLICE_TOL = 1e-3
 # requests timed per bound sequence length, after the checked ones and one
@@ -285,16 +290,21 @@ def _backward_bound(q, k, causal, dkv):
 
 
 def _grad_err(got, want, dtype):
-    """Max |got - want| in fp32; fp32 must be within GRAD_TOL (rtol and
-    atol, the reference's attention-gradient tolerance), bf16 within
-    BF16_GRAD_TOL of the gradient's largest magnitude."""
+    """(max |got - want|, the same over max |want|) in fp32; fp32 must be
+    within GRAD_TOL (rtol and atol, the reference's attention-gradient
+    tolerance) and within SPLIT_TF32_TOL of the gradient's largest
+    magnitude, bf16 within BF16_GRAD_TOL of it."""
     got, want = got.float(), want.float()
     err = (got - want).abs().max().item()
+    rel = err / want.abs().max().item()
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=GRAD_TOL, atol=GRAD_TOL)
-    elif err > BF16_GRAD_TOL * want.abs().max().item():
+        if rel > SPLIT_TF32_TOL:
+            raise AssertionError(f"fp32 gradient off by {rel} of its largest "
+                                 f"magnitude, above {SPLIT_TF32_TOL}")
+    elif rel > BF16_GRAD_TOL:
         raise AssertionError(f"bf16 gradient off by {err}")
-    return err
+    return err, rel
 
 
 def check_attention_backward(name, q_shape, lk, dtype, causal, gen):
@@ -332,15 +342,15 @@ def check_attention_backward(name, q_shape, lk, dtype, causal, gen):
             lib_ms = time_ms(lambda: torch.autograd.grad(
                 out, leaves, do, retain_graph=True))
     recs = []
-    for kernel, fn, plain, dkv, err in (
+    for kernel, fn, plain, dkv, (err, rel) in (
             ("flash_attn_bwd_dq", lambda: hk._attn_dq_cuda(*args, **kw),
              lambda: hk._attn_dq_plain(*args, **kw), False, errs["dq"]),
             ("flash_attn_bwd_dkv", lambda: hk._attn_dkv_cuda(*args, **kw),
              lambda: hk._attn_dkv_plain(*args, **kw), True,
-             max(errs["dk"], errs["dv"]))):
+             tuple(map(max, errs["dk"], errs["dv"])))):
         rec = {"check": name, "kernel": kernel, "q": list(q_shape), "lk": lk,
                "dtype": str(dtype).replace("torch.", ""), "causal": causal,
-               "max_abs_err": err, "ms": time_ms(fn),
+               "max_abs_err": err, "max_rel_err": rel, "ms": time_ms(fn),
                "plain_ms": time_ms(plain),
                "library_ms": lib_ms}
         rec["bound_ms"], rec["bound_by"] = _backward_bound(q, k, causal, dkv)
@@ -380,9 +390,10 @@ def check_misaligned_backward(gen):
     got = (hk._attn_dq_cuda(*args, **kw), *hk._attn_dkv_cuda(*args, **kw))
     want = (hk._attn_dq_plain(*args, **kw), *hk._attn_dkv_plain(*args, **kw))
     torch.cuda.synchronize()
-    errs = [_grad_err(g, w, torch.float32) for g, w in zip(got, want)]
+    err, rel = map(max, *(_grad_err(g, w, torch.float32)
+                          for g, w in zip(got, want)))
     log(json.dumps({"check": "misaligned", "q": list(shape),
-                    "max_abs_err": max(errs)}))
+                    "max_abs_err": err, "max_rel_err": rel}))
 
 
 def phase_backward_kernels():

@@ -7,10 +7,14 @@
 // x = big + small, with big = x rounded to TF32 to nearest, ties away
 // (what cvt.rna.tf32.f32 gives), and small = x - big, exact in fp32, then
 // cut to TF32 toward zero; big*big + big*small + small*big is accumulated.
-// The dropped small*small term and the cut of small are each at most
-// 2^-22 of the product.  The split is done in integer ops: with
-// cvt.rna.tf32.f32 instead, the attention backward took about 1.5x as
-// long on the H100.
+// The dropped small*small term is at most 2^-22 of the product and the cut
+// of each operand's small part at most 2^-21 (2^-22 if it were rounded to
+// nearest too): the same order, three decades under what one TF32 pass
+// loses.  Rounding small to nearest costs one integer add more a split and
+// made K2 and K3 about a fifth slower on the H100 (PERF.md), so small is
+// cut.  Big is rounded in integer ops (add half a TF32 ulp to the bit
+// pattern, clear the 13 low bits), which run faster than the cvt
+// instruction.
 //
 // Fragments follow PTX's mma layouts.  In a warp, lane = 4*g + t
 // (g = lane / 4, t = lane % 4); an m16n8 accumulator holds
@@ -82,16 +86,9 @@ __host__ __device__ constexpr int row_pad() {
 
 constexpr uint32_t TF32_MASK = 0xffffe000u;  // sign, exponent, 10 mantissa
 
-// HMMA_CVT_SPLIT=1 rounds both parts with cvt.rna.tf32.f32 instead, for
-// timing the two against each other (tools/attn_bwd_variants.py)
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-#if defined(HMMA_CVT_SPLIT) && HMMA_CVT_SPLIT
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
-#else
   hi = (__float_as_uint(x) + 0x1000u) & TF32_MASK;
   lo = __float_as_uint(x - __uint_as_float(hi)) & TF32_MASK;
-#endif
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

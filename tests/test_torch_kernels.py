@@ -244,14 +244,21 @@ def _mm3(a, b):
     return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
 
 
+def _mm1(a, b):
+    """a @ b in one TF32 pass: what a kernel that lost the small parts
+    would take."""
+    return _tf32_round(a) @ _tf32_round(b)
+
+
 def _emulated_backward(q, k, v, do, lse, delta, dlse, causal, scale,
                        scheme):
     """(dq, dk, dv) with K2's and K3's rounding on the card.  "fp32": every
-    product in three TF32 passes.  "bf16" (inputs hold bf16 values): the
-    products of bf16 values are exact and summed in fp32, p and ds are
-    rounded to bf16 before dv, dk and dq, each gradient on the store."""
-    if scheme == "fp32":
-        mm, cast = _mm3, (lambda t: t)
+    product in three TF32 passes ("tf32": in one).  "bf16" (inputs hold
+    bf16 values): the products of bf16 values are exact and summed in fp32,
+    p and ds are rounded to bf16 before dv, dk and dq, each gradient on the
+    store."""
+    if scheme in ("fp32", "tf32"):
+        mm, cast = (_mm3 if scheme == "fp32" else _mm1), (lambda t: t)
     else:
         mm, cast = torch.matmul, (lambda t: t.bfloat16().float())
     s = mm(q, k.transpose(-1, -2)) * scale
@@ -313,8 +320,39 @@ def test_three_pass_tf32_product_keeps_fp32_accuracy():
     plain = a @ b
     np.testing.assert_allclose(_mm3(a, b).numpy(), plain.numpy(), rtol=1e-5,
                                atol=1e-5)
-    one_pass = _tf32_round(a) @ _tf32_round(b)
-    assert (one_pass - plain).abs().max() > 1e-4
+    assert (_mm1(a, b) - plain).abs().max() > 1e-4
+
+
+# phase 3b's fp32 K2/K3 cases, one (batch, head) each
+SPLIT_CASES = [((1, 1, 512, 64), 512), ((1, 1, 128, 64), 128),
+               ((1, 1, 256, 16), 256), ((1, 1, 128, 32), 128),
+               ((1, 1, 256, 128), 256), ((1, 1, 64, 16), 256),
+               ((1, 1, 64, 64), 256)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("q_shape,lk", SPLIT_CASES)
+def test_split_tf32_limit_tells_three_passes_from_one(causal, q_shape, lk):
+    """`chip_smoke`'s SPLIT_TF32_TOL against the fp32 plain versions, as
+    phase 3b holds K2/K3 on the card: the emulated three-pass backward
+    stays within it and a one-pass TF32 backward breaks it."""
+    import chip_smoke as cs
+    q, k, v, do, dlse = (torch.from_numpy(a)
+                         for a in _bwd_inputs(15, q_shape, lk))
+    scale = q_shape[-1] ** -0.5
+    o, lse = hk._flash_attention_with_lse_plain(q, k, v, causal=causal,
+                                                scale=scale)
+    args = (q, k, v, do, lse, (do * o).sum(-1), dlse)
+    want = (hk._attn_dq_plain(*args, causal=causal, scale=scale),
+            *hk._attn_dkv_plain(*args, causal=causal, scale=scale))
+
+    def rel(scheme):
+        got = _emulated_backward(*args, causal, scale, scheme)
+        return max(((g - w).abs().max() / w.abs().max()).item()
+                   for g, w in zip(got, want))
+
+    assert rel("fp32") < cs.SPLIT_TF32_TOL / 10
+    assert rel("tf32") > 3 * cs.SPLIT_TF32_TOL
 
 
 def test_tf32_rounding_is_to_nearest_ties_away():
