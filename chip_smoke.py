@@ -13,9 +13,11 @@ Phases; any failure ends the run with a non-zero exit and no result line:
 2. build   -- every kernel of `mxnet_tpu_torch/csrc`, one ``nvcc`` per
    source, all started together; prints the seconds and the ptxas report.
 3. kernels -- K1 against its plain PyTorch version on the same inputs on
-   the card (fp32 at 2e-4, bf16 compared in bf16 at 2e-2), at the main
-   path's shape and others, with the kernel's, the plain version's and one
-   PyTorch library call's times beside the bound.
+   the card (fp32 at 2e-4 and within K1_SPLIT_TOL of O's largest
+   magnitude, bf16 compared in bf16 at 2e-2), at the main path's shape and
+   others and on an input off 16-byte alignment, with the kernel's, the
+   plain version's and one PyTorch library call's times beside the bound
+   and its share (bound / ms).
 3b. backward kernels -- K2 (dq) and K3 (dk, dv) against their plain
    versions on K1's residuals with a nonzero dLSE: BERT-base's
    [8, 12, 512, 64] and [8, 12, 128, 64] calls, causal, bf16, head dims
@@ -27,8 +29,12 @@ Phases; any failure ends the run with a non-zero exit and no result line:
 3c. LSTM kernel -- K4 against its plain version: the LM's [32, 800] gates
    and [32, 200] cell, [20, 6000], [4096, 4096], an odd H = 13, and bf16
    gates with fp32 or bf16 cells; fp32 within 1e-5, bf16 within 2e-2
-   (compared in fp32); times beside the bound and PyTorch's fused CUDA
-   LSTM cell (``aten._thnn_fused_lstm_cell``) as the library call.
+   (compared in fp32); times beside the bound and its share and PyTorch's
+   fused CUDA LSTM cell (``aten._thnn_fused_lstm_cell``) as the library
+   call.  At the LM's call (the kernel's vector path) and at H = 13 (its
+   scalar path), the host's µs a call (back-to-back wall time, no
+   synchronize) and the device's µs a call (profiler), each beside the
+   library call's.
 4. slice   -- BERT-base (12 x 768, 12 heads, FFN 3072, vocab 30522, random
    weights from a seed, handed over as a `.params` blob) served by
    `mxnet_tpu_torch.Predictor` on cuda:0: 4 requests at (8, 512), a reshape
@@ -65,6 +71,7 @@ The line before the last is the JSON kernel report; the last line is
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -103,6 +110,11 @@ BF16_GRAD_TOL = 2e-2
 # the three TF32 passes stay below 1e-5 of it and one TF32 pass goes above
 # 3e-4, so this limit fails a kernel that has lost its small parts
 SPLIT_TF32_TOL = 1e-4
+# fp32 K1 is also held within K1_SPLIT_TOL of O's largest magnitude:
+# emulated on phase 3's fp32 shapes (tests/test_torch_kernels.py), the three
+# TF32 passes stay below 2e-6 of it and one TF32 pass goes above 3e-4 (the
+# 2e-4 absolute tolerance alone lets some one-pass cases through)
+K1_SPLIT_TOL = 2e-5
 # 12 LayerNorm'd layers of fp32 sums taken in another order
 SLICE_TOL = 1e-3
 # requests timed per bound sequence length, after the checked ones and one
@@ -136,6 +148,19 @@ LSTM_TIMED = {60: 200, 10: 400}
 
 def log(*parts):
     print(*parts, flush=True)
+
+
+def best_ms(fns, rounds=5, iters=100):
+    """Per-call ms of each of ``fns``: the best of ``rounds`` rounds of
+    `time_ms` over ``iters`` calls, the functions taking turns in each
+    round, so that a slow spell of the host falls on all of them alike
+    (host-bound calls, such as K4's at the LM's size, vary by a third from
+    one process to the next)."""
+    best = [float("inf")] * len(fns)
+    for _ in range(rounds):
+        for i, fn in enumerate(fns):
+            best[i] = min(best[i], time_ms(fn, iters=iters))
+    return best
 
 
 def time_ms(fn, iters=20, warmup=3):
@@ -179,15 +204,26 @@ def phase_device():
     return card
 
 
+def _instantiation(entry):
+    """``kernel<template args>`` from a mangled entry name, e.g.
+    ``flash_attn_fwd_kernel<Li64EfLb0>`` (D 64, float, not causal)."""
+    m = re.search(r"((?:flash_attn|lstm_gates)\w*?_kernel)I(.*?)EEv", entry)
+    return f"{m.group(1)}<{m.group(2).rstrip('E')}>" if m else entry
+
+
 def phase_build():
     t0 = time.perf_counter()
     logs = cuda_build.build()
     secs = time.perf_counter() - t0
     log(f"build: {len(logs)} kernel source(s) in {secs:.2f} s")
     for name, text in logs.items():
+        entry = name
         for line in text.splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                entry = _instantiation(m.group(1))
+            elif "Used" in line or "spill" in line:
+                log(f"  {entry}: {line.strip()}")
     return secs
 
 
@@ -225,15 +261,11 @@ def check_attention(name, q_shape, lk, dtype, causal, gen):
     # the library call gets the same tensors as [B, H, L, D] views, the
     # layout it is fastest on
     lib_qkv = (q, k, v) if q.dim() == 4 else (q[None], k[None], v[None])
-    tol = TOL[dtype]
-    torch.testing.assert_close(o, o_ref, rtol=tol, atol=tol)
-    torch.testing.assert_close(lse, lse_ref, rtol=TOL[torch.float32],
-                               atol=TOL[torch.float32])
-    err = (o.float() - o_ref.float()).abs().max().item()
+    err, rel = _forward_err(o, lse, o_ref, lse_ref)
     rec = {
         "check": name, "q": list(q_shape), "lk": lk,
         "dtype": str(dtype).replace("torch.", ""), "causal": causal,
-        "max_abs_err": err,
+        "max_abs_err": err, "max_rel_err": rel,
         "lse_max_abs_err": (lse - lse_ref).abs().max().item(),
         "ms": time_ms(lambda: hk.flash_attention_with_lse(
             q, k, v, causal=causal)),
@@ -244,8 +276,53 @@ def check_attention(name, q_shape, lk, dtype, causal, gen):
                 *lib_qkv, is_causal=causal, scale=scale)),
     }
     rec["bound_ms"], rec["bound_by"] = _attention_bound(q, k, causal)
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
     log(json.dumps(rec))
     return rec
+
+
+def _forward_err(o, lse, o_ref, lse_ref):
+    """(max |o - o_ref|, the same over max |o_ref|); O within TOL of its
+    dtype (and, in fp32, within K1_SPLIT_TOL of its largest magnitude),
+    the logsumexp within the fp32 TOL."""
+    tol = TOL[o.dtype]
+    torch.testing.assert_close(o, o_ref, rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, lse_ref, rtol=TOL[torch.float32],
+                               atol=TOL[torch.float32])
+    err = (o.float() - o_ref.float()).abs().max().item()
+    rel = err / o_ref.float().abs().max().item()
+    if o.dtype == torch.float32 and rel > K1_SPLIT_TOL:
+        raise AssertionError(f"fp32 K1 output off by {rel} of its largest "
+                             f"magnitude, above {K1_SPLIT_TOL}")
+    return err, rel
+
+
+def _odd_view(t):
+    """A contiguous copy of ``t`` whose storage starts 4 bytes past a
+    16-byte boundary (a view at an odd offset)."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    flat[1:] = t.reshape(-1)
+    view = flat[1:].view(t.shape)
+    if view.data_ptr() % 16 == 0:
+        raise AssertionError("the misaligned view is aligned")
+    return view
+
+
+def check_misaligned_forward(gen):
+    """K1 on inputs off 16-byte alignment: the wrapper copies them to
+    aligned memory for cp.async; O and lse must match the plain version."""
+    dev = torch.device("cuda", 0)
+    shape = (1, 2, 128, 32)
+    q, k, v = (_odd_view(torch.randn(shape, generator=gen, device=dev))
+               for _ in range(3))
+    o, lse = hk.flash_attention_with_lse(q, k, v, causal=True)
+    o_ref, lse_ref = hk._flash_attention_with_lse_plain(
+        q, k, v, causal=True, scale=shape[-1] ** -0.5)
+    torch.cuda.synchronize()
+    err, rel = _forward_err(o, lse, o_ref, lse_ref)
+    log(json.dumps({"check": "misaligned", "kernel": "flash_attn_fwd",
+                    "q": list(shape), "max_abs_err": err,
+                    "max_rel_err": rel}))
 
 
 def phase_kernels():
@@ -265,6 +342,7 @@ def phase_kernels():
                   ("d128", (2, 2, 256, 128), 256, torch.bfloat16, causal)]
     with torch.no_grad():
         recs = [check_attention(*c, gen) for c in cases]
+        check_misaligned_forward(gen)
     # the main path's call: BERT-base attention at seq 512, fp32, no mask
     return recs[0]
 
@@ -372,17 +450,8 @@ def check_misaligned_backward(gen):
     versions."""
     dev = torch.device("cuda", 0)
     shape = (1, 2, 128, 32)
-    n = int(np.prod(shape))
-
-    def odd(t):
-        flat = torch.empty(n + 1, device=dev)
-        flat[1:] = t.reshape(-1)
-        return flat[1:].view(shape)
-
-    q, k, v, do = (odd(torch.randn(shape, generator=gen, device=dev))
+    q, k, v, do = (_odd_view(torch.randn(shape, generator=gen, device=dev))
                    for _ in range(4))
-    if q.data_ptr() % 16 == 0:
-        raise AssertionError("the misaligned view is aligned")
     o, lse = hk.flash_attention_with_lse(q, k, v)
     delta = (do * o).sum(-1)
     args = (q, k, v, do, lse, delta, torch.zeros_like(lse))
@@ -448,23 +517,94 @@ def check_lstm(name, b, h, gates_dtype, c_dtype, gen):
                    else torch.float32]
     if not err <= tol:
         raise AssertionError(f"K4 {name} off by {err} (tolerance {tol})")
-    rec = {"check": name, "kernel": "lstm_gates", "gates": [b, 4 * h],
-           "c": [b, h], "gates_dtype": str(gates_dtype)[6:],
-           "c_dtype": str(c_dtype)[6:], "max_abs_err": err,
-           "ms": time_ms(lambda: hk.lstm_gates(gates, c), iters=100),
-           "plain_ms": time_ms(lambda: hk._lstm_gates_plain(gates, c),
-                               iters=100),
-           "library_ms": None, "library_max_abs_err": None}
+    kernel = (lambda: hk.lstm_gates(gates, c))
     # PyTorch's fused CUDA LSTM cell (gate order i|f|g|o) on the same gates
-    # with zero hidden-side gates: for the table only, never on the path
+    # with zero hidden-side gates: for the table only, never on the path;
+    # it and the kernel take turns (best_ms)
     lib = torch.ops.aten._thnn_fused_lstm_cell
+    lib_err = lib_ms = None
     if gates_dtype == c_dtype == torch.float32:
         zeros = torch.zeros_like(gates)
         hy, cy, _ = lib(gates, zeros, c)
-        rec["library_max_abs_err"] = max(
-            (cy - c_ref).abs().max().item(), (hy - h_ref).abs().max().item())
-        rec["library_ms"] = time_ms(lambda: lib(gates, zeros, c), iters=100)
+        lib_err = max((cy - c_ref).abs().max().item(),
+                      (hy - h_ref).abs().max().item())
+        ms, lib_ms = best_ms([kernel, lambda: lib(gates, zeros, c)])
+    else:
+        ms, = best_ms([kernel])
+    rec = {"check": name, "kernel": "lstm_gates", "gates": [b, 4 * h],
+           "c": [b, h], "gates_dtype": str(gates_dtype)[6:],
+           "c_dtype": str(c_dtype)[6:], "max_abs_err": err, "ms": ms,
+           "plain_ms": time_ms(lambda: hk._lstm_gates_plain(gates, c),
+                               iters=100),
+           "library_ms": lib_ms, "library_max_abs_err": lib_err}
     rec["bound_ms"], rec["bound_by"] = _lstm_bound(gates, c)
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    log(json.dumps(rec))
+    return rec
+
+
+def _lstm_vector_path(gates, c):
+    """Whether K4 takes its vector path on these inputs (the rule of
+    `launch` in csrc/lstm_gates.cu): H a multiple of 4 (8 when either input
+    is bf16) and both inputs 16-byte aligned (the outputs are fresh
+    allocations, aligned)."""
+    vec = 8 if torch.bfloat16 in (gates.dtype, c.dtype) else 4
+    return c.shape[1] % vec == 0 and gates.data_ptr() % 16 == 0 and \
+        c.data_ptr() % 16 == 0
+
+
+def _host_us(fn, n=1000):
+    """Host µs a call of ``fn`` over ``n`` back-to-back calls: wall time to
+    issue them, with no synchronize inside the timed loop."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
+def _device_us(fn, n=200):
+    """Device µs a call of ``fn``: the profiler's kernel time over ``n``
+    calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    return total / n if total else "not measured"
+
+
+def lstm_call_split(name, b, h, gen):
+    """K4's host µs and device µs a call at one fp32 width, beside the
+    library cell's, and which path of the kernel the width takes.  Host
+    times are the best of three rounds in turns, all taken before the
+    profiler runs (profiling slows the host's later calls)."""
+    dev = torch.device("cuda", 0)
+    gates = torch.randn((b, 4 * h), generator=gen, device=dev)
+    c = torch.randn((b, h), generator=gen, device=dev)
+    zeros = torch.zeros_like(gates)
+    lib = torch.ops.aten._thnn_fused_lstm_cell
+    kernel, library = (lambda: hk.lstm_gates(gates, c)), \
+        (lambda: lib(gates, zeros, c))
+    host_k = host_l = float("inf")
+    for _ in range(3):
+        host_k = min(host_k, _host_us(kernel))
+        host_l = min(host_l, _host_us(library))
+    rec = {"check": name, "kernel": "lstm_gates", "gates": [b, 4 * h],
+           "path": "vector" if _lstm_vector_path(gates, c) else "scalar",
+           "host_us_per_call": host_k,
+           "device_us_per_call": _device_us(kernel),
+           "library_host_us_per_call": host_l,
+           "library_device_us_per_call": _device_us(library)}
     log(json.dumps(rec))
     return rec
 
@@ -485,6 +625,9 @@ def phase_lstm_kernels():
              ("large", 4096, 1024, bf16, bf16)]
     with torch.no_grad():
         recs = [check_lstm(*c, gen) for c in cases]
+        for name, b, h in (("ptb_lstm", LSTM_BATCH, PTB_LSTM["num_hidden"]),
+                           ("odd_h13", 7, 13)):
+            lstm_call_split(name, b, h, gen)
     return recs[0], recs[2]
 
 

@@ -2,32 +2,55 @@
 //
 // Replaces mxnet_tpu/ops/pallas_kernels.py:_attn_fwd_kernel (driven by
 // _pallas_attention_fwd).  It computes what that kernel computes:
-// online-softmax attention over contiguous [B, H, L, D] inputs with the
-// running (acc, m, l) state in fp32, masked scores set to -1e30, key tiles
-// above the causal diagonal skipped (top-left aligned, so Lq != Lk keeps
-// the TPU kernel's row >= col rule), l clamped at 1e-30, and two outputs:
-// O in the input dtype and lse = m + log(l) in fp32.
+// online-softmax attention over contiguous [B, H, L, D] inputs flattened
+// to [B*H, L, D], with the running (acc, m, l) state in fp32, masked
+// scores set to -1e30, key tiles above the causal diagonal skipped
+// (top-left aligned, so Lq != Lk keeps the TPU kernel's row >= col rule),
+// l clamped at 1e-30, and two outputs: O in the input dtype and
+// lse = m + log(l) in fp32.
 //
-// Design.  The TPU kernel walks K/V blocks on a sequential grid axis and
+// Split.  The TPU kernel walks K/V blocks on a sequential grid axis and
 // carries its state in VMEM scratch from one grid step to the next.  CUDA
-// blocks run in parallel and in no order, so here one block owns one
-// (b*h, tile of 64 query rows) for its whole life: a loop inside the block
-// walks the key tiles, each K/V tile is staged in shared memory, the
-// running max and sum live in shared memory and the output accumulator in
-// registers.  256 threads form a 16 x 16 grid; each owns a 4 x 4 tile of
-// the 64 x 64 score block and a 4 x D/16 tile of the 64 x D accumulator,
-// with rows and columns strided by 16 so that shared-memory reads are
-// broadcasts or conflict-free.  Scores never leave the SM: device memory
-// sees each of Q, K, V read once per query tile and O, lse written once.
+// blocks run in parallel and in no order, so one block owns one (b*h, 64
+// query rows) tile for its whole life and a loop inside the block walks
+// the key tiles.  Scores never leave the SM: device memory sees Q, K and V
+// read once per query tile and O and lse written once.
 //
 // What bounds it on the H100.  Per (b, h) the work is 4*Lq*Lk*D operations
-// against (2*Lq + 2*Lk)*D elements moved; at BERT's L = 512, D = 64 in fp32
-// that is about 128 operations per byte, far above the card's fp32 ridge
-// (67 TFLOP/s over 3.35 TB/s, about 20), so the kernel is bound by
-// arithmetic.  This version does that arithmetic as fp32 FMAs fed from
-// shared memory, which keeps it exact to fp32 and simple; moving the two
-// products onto the tensor cores (wgmma on bf16 tiles fed by TMA) is where
-// the remaining factor lies, and is later work.
+// (s = q k^T and p v) against (2*Lq + 2*Lk)*D elements moved; at BERT's
+// L = 512, D = 64 that is far above the card's ridge, so it is bound by
+// the product rate.  Both products run on the tensor cores
+// (hopper_mma.cuh): mma.sync m16n8k8 in three TF32 passes over split
+// operands for fp32 inputs, which keeps fp32-level accuracy at up to 495/3
+// TFLOP/s, and m16n8k16 bf16 for bf16 inputs.
+//
+// Design, as K2's dq kernel (flash_attn_bwd.cu), which does most of this
+// work too.  Each block is four warps and each warp owns 16 query rows,
+// so its scores, its row max and sum, and its 16 x D output accumulator
+// stay in registers:
+//   * Q.  The tile is read once.  In fp32 it is multiplied by the scale
+//     before the product, as the TPU kernel scales q, and split into its
+//     TF32 big and small parts once for the block, not once per key tile;
+//     the fragments stay in registers, except at D = 128, where they would
+//     crowd out the accumulator and are read again from shared memory for
+//     each key tile.  In bf16 the product is exact in fp32 and the scale is
+//     applied to s after it (rounding q * scale to bf16 would add an error).
+//   * K and V stream through a two-stage cp.async ring (64-row tiles, 32
+//     at D = 128) with rows padded by 16 bytes; each warp splits the
+//     fragments it loads in registers, as K2 does.
+//   * s = q k^T by mma.sync; the causal mask (-1e30) and keys past lk
+//     (-inf) are applied in registers.  Lanes 4g..4g+3 hold rows g and g+8
+//     of the warp's 16, so a row's max takes two quad shuffles; each lane
+//     keeps its own part of the row sum, added up once at the end.
+//   * acc = alpha * acc + p v, with p's accumulator taken as the A operand
+//     of the product (k permuted inside each 8-wide chunk in fp32, V loaded
+//     to match; in bf16 p is rounded to bf16, as FlashAttention-2 does).
+//     In fp32 every SUM_CHUNKS 8-key chunks of p v are summed in an
+//     accumulator of their own and added to acc in fp32: the tensor cores
+//     truncate as they accumulate, and an O summed inside them over the
+//     whole sequence drifts toward zero, which the training step's
+//     gradients showed (PERF.md).
+// Rows past a ragged end load as zeros and are not stored.
 //
 // The C entry point launches on the caller's stream, allocates nothing,
 // does not synchronise, and returns cudaGetLastError() after the launch.
@@ -36,181 +59,278 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "hopper_mma.cuh"
+
 namespace {
 
-constexpr int BM = 64;    // query rows per block
-constexpr int BN = 64;    // key rows per tile
-constexpr int NT = 256;   // threads per block: a 16 x 16 grid
+using hmma::bf16;
+
+constexpr int BM = 64;  // query rows of a block: 16 per warp
+constexpr int NW = 4;   // warps per block
+constexpr int NT = 32 * NW;
 constexpr float MASKED = -1e30f;
+// fp32: 8-key chunks of p v summed in the tensor cores before each fp32
+// add into O (see the acc = alpha acc + p v step).  On the H100, 4 kept the
+// training gradients as close to the unfused graph's as 1 did, without
+// 1's and 2's register spills, and 8 let them drift (PERF.md).
+constexpr int SUM_CHUNKS = 4;
 
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// shared memory, in floats: Q tile, K tile (rows padded by one), V tile,
-// score tile (padded), and the per-row max, sum and rescale factor
+// rows of a streamed K/V tile
 template <int D>
-constexpr int smem_floats() {
-  return BM * (D + 1) + BN * (D + 1) + BN * D + BM * (BN + 1) + 3 * BM;
+__host__ __device__ constexpr int key_rows() {
+  return D <= 64 ? 64 : 32;
+}
+
+// whether Q's fragments stay in registers for the whole block: fp32 at
+// D = 128 would hold 128 registers of them beside a 64-register accumulator
+template <int D, typename T>
+__host__ __device__ constexpr bool q_in_registers() {
+  return sizeof(T) == 2 || D <= 64;
+}
+
+// shared memory: the Q tile (fp32: its big parts, then its small parts)
+// and two stages of the K and V tiles
+template <int D, typename T>
+__host__ __device__ constexpr int smem_bytes() {
+  constexpr int ST = D + hmma::row_pad<T>();
+  constexpr int q_tiles = sizeof(T) == 4 ? 2 : 1;
+  return (q_tiles * BM + 4 * key_rows<D>()) * ST * (int)sizeof(T);
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// the fp32 Q tile in place: x * scale split into its big part (kept in
+// qs) and its small part (written to qlo)
+template <int D>
+__device__ __forceinline__ void scale_and_split_q(float* qs, float* qlo,
+                                                  float scale) {
+  constexpr int ST = D + hmma::row_pad<float>();
+  for (int e = threadIdx.x; e < BM * D; e += NT) {
+    const int i = (e / D) * ST + e % D;
+    uint32_t hi, lo;
+    hmma::split(qs[i] * scale, hi, lo);
+    qs[i] = __uint_as_float(hi);
+    qlo[i] = __uint_as_float(lo);
+  }
 }
 
 template <int D, typename T, bool CAUSAL>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 2)
 flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ o,
                       float* __restrict__ lse, int lq, int lk, int n_qt,
                       float scale) {
-  constexpr int DP = D + 1;
-  constexpr int SP = BN + 1;
-  constexpr int TN = D / 16;
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* ks = qs + BM * DP;
-  float* vs = ks + BN * DP;
-  float* ss = vs + BN * D;
-  float* m_s = ss + BM * SP;
-  float* l_s = m_s + BM;
-  float* a_s = l_s + BM;
+  using A = typename hmma::Frag<T>::A;
+  using B = typename hmma::Frag<T>::B;
+  constexpr bool FP32 = sizeof(T) == 4;
+  constexpr bool Q_REGS = q_in_registers<D, T>();
+  constexpr int KS = hmma::Frag<T>::K;
+  constexpr int BN = key_rows<D>();
+  constexpr int ST = D + hmma::row_pad<T>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* qs = reinterpret_cast<T*>(smem);
+  T* ring = qs + (FP32 ? 2 : 1) * BM * ST;  // stage i: K at 2*i*BN*ST, V
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
+  const int warp = threadIdx.x / 32;
+  const int g = hmma::lane_g(), t = hmma::lane_t();
   const int bh = blockIdx.x / n_qt;
   const int q0 = (blockIdx.x % n_qt) * BM;
-  const T* qb = q + (size_t)bh * lq * D;
+  const int row0 = q0 + warp * 16 + g;  // this lane's rows: row0, row0 + 8
   const T* kb = k + (size_t)bh * lk * D;
   const T* vb = v + (size_t)bh * lk * D;
-
-  // the Q tile, pre-scaled as the TPU kernel scales q before the product
-  for (int e = tid; e < BM * D; e += NT) {
-    const int r = e / D, c = e % D;
-    qs[r * DP + c] =
-        (q0 + r < lq) ? load_f(qb + (size_t)(q0 + r) * D + c) * scale : 0.f;
-  }
-  if (tid < BM) {
-    m_s[tid] = MASKED;
-    l_s[tid] = 0.f;
-  }
-
-  float acc[4][TN];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
   // causal: keys past this tile's last query row contribute nothing
   const int k_end = CAUSAL ? min(lk, min(q0 + BM, lq)) : lk;
-  for (int k0 = 0; k0 < k_end; k0 += BN) {
-    __syncthreads();  // the previous tile is consumed; Q, m, l are written
-    for (int e = tid; e < BN * D; e += NT) {
-      const int r = e / D, c = e % D;
-      const bool live = k0 + r < lk;
-      const size_t off = (size_t)(k0 + r) * D + c;
-      ks[r * DP + c] = live ? load_f(kb + off) : 0.f;
-      vs[r * D + c] = live ? load_f(vb + off) : 0.f;
-    }
-    __syncthreads();
+  const int n_kt = (k_end + BN - 1) / BN;
 
-    // S = (scale * Q) K^T for this tile
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[(i * 16 + ty) * DP + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ks[(j * 16 + tx) * DP + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = i * 16 + ty, c = j * 16 + tx;
-        float x = s[i][j];
-        if (CAUSAL && k0 + c > q0 + r) x = MASKED;
-        if (k0 + c >= lk) x = -INFINITY;  // past the last key: weight 0
-        ss[r * SP + c] = x;
-      }
-    __syncthreads();
-
-    // online softmax: four neighbouring lanes per row, 16 columns each
-    {
-      const int r = tid / 4, part = tid % 4;
-      float* row = ss + r * SP + part * 16;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < 16; ++c) mx = fmaxf(mx, row[c]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 16; ++c) {
-        const float p = expf(row[c] - m_new);
-        row[c] = p;
-        sum += p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      __syncwarp();  // all four lanes have read m_s[r] before it changes
-      if (part == 0) {
-        const float alpha = expf(m_prev - m_new);
-        a_s[r] = alpha;
-        l_s[r] = l_s[r] * alpha + sum;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = alpha * acc + P V
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float alpha = a_s[i * 16 + ty];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] *= alpha;
-    }
-#pragma unroll 4
-    for (int n = 0; n < BN; ++n) {
-      float p[4], w[TN];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ss[(i * 16 + ty) * SP + n];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) w[j] = vs[n * D + j * 16 + tx];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(p[i], w[j], acc[i][j]);
-    }
+  // Q and the first two key tiles in flight: groups 0 and 1
+  hmma::load_tile_async<BM, D, NT>(qs, q + (size_t)bh * lq * D, q0, lq);
+  if (n_kt > 0) {
+    hmma::load_tile_async<BN, D, NT>(ring, kb, 0, lk);
+    hmma::load_tile_async<BN, D, NT>(ring + BN * ST, vb, 0, lk);
   }
+  hmma::cp_async_commit();
+  if (n_kt > 1) {
+    hmma::load_tile_async<BN, D, NT>(ring + 2 * BN * ST, kb, BN, lk);
+    hmma::load_tile_async<BN, D, NT>(ring + 3 * BN * ST, vb, BN, lk);
+  }
+  hmma::cp_async_commit();
+  hmma::cp_async_wait<1>();
   __syncthreads();
 
+  // Q's A fragments: fp32 scaled and split once, in place
+  float* qlo = nullptr;
+  if constexpr (FP32) {
+    qlo = reinterpret_cast<float*>(qs) + BM * ST;
+    scale_and_split_q<D>(reinterpret_cast<float*>(qs), qlo, scale);
+    __syncthreads();
+  }
+  A qf[Q_REGS ? D / KS : 1];
+  auto q_frag = [&](A& a, int kk) {
+    if constexpr (FP32) {
+      hmma::load_a(a, reinterpret_cast<const float*>(qs), qlo, ST,
+                   warp * 16, kk);
+    } else {
+      hmma::load_a(a, qs, ST, warp * 16, kk);
+    }
+  };
+  if constexpr (Q_REGS) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = i * 16 + ty;
-    if (q0 + r < lq) {
-      const float l = fmaxf(l_s[r], 1e-30f);
-      T* orow = o + ((size_t)bh * lq + q0 + r) * D;
+    for (int kk = 0; kk < D; kk += KS) q_frag(qf[kk / KS], kk);
+  }
+
+  float acc[D / 8][4];
 #pragma unroll
-      for (int j = 0; j < TN; ++j) store_f(orow + j * 16 + tx, acc[i][j] / l);
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  // per row h of this lane's two: the running max and this lane's share
+  // of the running sum
+  float m_row[2] = {MASKED, MASKED}, l_row[2] = {0.f, 0.f};
+
+  for (int it = 0; it < n_kt; ++it) {
+    const int k0 = it * BN;
+    hmma::cp_async_wait<1>();
+    __syncthreads();
+    const T* ks = ring + (it & 1) * 2 * BN * ST;
+    const T* vs = ks + BN * ST;
+
+    // s = (scale q) k^T for this warp's 16 rows
+    float s[BN / 8][4];
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    auto qk_chunk = [&](const A& aq, int kk) {
+#pragma unroll
+      for (int j = 0; j < BN / 8; j += 2) {
+        B bk0, bk1;
+        hmma::load_bt2(bk0, bk1, ks, ST, j * 8, kk);
+        hmma::mma(s[j], aq, bk0);
+        hmma::mma(s[j + 1], aq, bk1);
+      }
+    };
+#pragma unroll
+    for (int kk = 0; kk < D; kk += KS) {
+      if constexpr (Q_REGS) {
+        qk_chunk(qf[kk / KS], kk);
+      } else {
+        A aq;
+        q_frag(aq, kk);
+        qk_chunk(aq, kk);
+      }
+    }
+
+    // masks and the tile's row max
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + 8 * (e >> 1);
+        const int col = k0 + j * 8 + 2 * t + (e & 1);
+        float x = FP32 ? s[j][e] : s[j][e] * scale;
+        if (CAUSAL && col > row) x = MASKED;
+        if (col >= lk) x = -INFINITY;  // past the last key: weight 0
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m_row[h], mx[h]);
+      alpha[h] = expf(m_row[h] - m_new);
+      m_row[h] = m_new;
+    }
+
+    // p in place of s; l = alpha l + rowsum(p)
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[j][e] - m_row[e >> 1]);
+        s[j][e] = p;
+        sum[e >> 1] += p;
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l_row[h] = l_row[h] * alpha[h] + sum[h];
+
+    // acc = alpha acc + p v.  In fp32 every SUM_CHUNKS chunks of p v are
+    // summed alone (started by hmma::mma_alone) and added in fp32, so that
+    // O carries no drift toward zero: the backward's delta = rowsum(dO * O)
+    // must match its own sum of p * dp.  In bf16 acc accumulates in place.
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+    if constexpr (FP32) {
+      float pv[D / 8][4];
+#pragma unroll
+      for (int kc = 0; kc < BN / KS; ++kc) {
+        A a;
+        hmma::a_from_c(a, s, kc);
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          B b;
+          hmma::load_b(b, vs, ST, kc * KS, n * 8);
+          if (kc % SUM_CHUNKS == 0) {
+            hmma::mma_alone(pv[n], a, b);
+          } else {
+            hmma::mma(pv[n], a, b);
+          }
+          if (kc % SUM_CHUNKS == SUM_CHUNKS - 1) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[n][e] += pv[n][e];
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kc = 0; kc < BN / KS; ++kc) {
+        A a;
+        hmma::a_from_c(a, s, kc);
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          B b;
+          hmma::load_b(b, vs, ST, kc * KS, n * 8);
+          hmma::mma(acc[n], a, b);
+        }
+      }
+    }
+    __syncthreads();  // this stage is free for the tile after next
+    if (it + 2 < n_kt) {
+      T* nxt = ring + (it & 1) * 2 * BN * ST;
+      hmma::load_tile_async<BN, D, NT>(nxt, kb, k0 + 2 * BN, lk);
+      hmma::load_tile_async<BN, D, NT>(nxt + BN * ST, vb, k0 + 2 * BN, lk);
+    }
+    hmma::cp_async_commit();
+  }
+  hmma::cp_async_wait<0>();
+
+  // O = acc / l and lse = m + log(l), l the quad's sum of its lanes' shares
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float l = l_row[h];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l = fmaxf(l, 1e-30f);
+    const int r = row0 + 8 * h;
+    if (r < lq) {
+      T* orow = o + ((size_t)bh * lq + r) * D;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        store2(orow + n * 8 + 2 * t, acc[n][2 * h] / l,
+               acc[n][2 * h + 1] / l);
+      if (t == 0) lse[(size_t)bh * lq + r] = m_row[h] + logf(l);
     }
   }
-  if (tid < BM && q0 + tid < lq)
-    lse[(size_t)bh * lq + q0 + tid] =
-        m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
 }
 
 template <int D, typename T, bool CAUSAL>
@@ -218,10 +338,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int bh, int lq, int lk, float scale,
                    cudaStream_t stream) {
   auto kernel = flash_attn_fwd_kernel<D, T, CAUSAL>;
-  const int smem = smem_floats<D>() * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  constexpr int smem = smem_bytes<D, T>();
+  // the shared-memory limit is raised once per device: at BERT's seq 128
+  // the call's host time is the kernel's time
+  static bool raised[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64 || !raised[dev]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    if (dev >= 0 && dev < 64) raised[dev] = true;
+  }
   const int n_qt = (lq + BM - 1) / BM;
   const long long blocks = (long long)bh * n_qt;
   if (blocks <= 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
@@ -254,7 +383,9 @@ cudaError_t dispatch_head_dim(int d, const void* q, const void* k,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t value.
+// dtype: 0 = float32, 1 = bfloat16.  q and o are [bh, lq, d], k and v
+// [bh, lk, d], lse fp32 [bh, lq]; q, k and v must be 16-byte aligned
+// (cp.async).  Returns a cudaError_t value.
 extern "C" int mxtt_flash_attn_fwd(const void* q, const void* k, const void* v,
                                    void* o, void* lse, int bh, int lq, int lk,
                                    int d, int dtype, int causal, float scale,
@@ -267,10 +398,10 @@ extern "C" int mxtt_flash_attn_fwd(const void* q, const void* k, const void* v,
                  : dispatch_head_dim<float, false>(d, q, k, v, o, lse, bh, lq,
                                                    lk, scale, s);
   } else if (dtype == 1) {
-    err = causal ? dispatch_head_dim<__nv_bfloat16, true>(
-                       d, q, k, v, o, lse, bh, lq, lk, scale, s)
-                 : dispatch_head_dim<__nv_bfloat16, false>(
-                       d, q, k, v, o, lse, bh, lq, lk, scale, s);
+    err = causal ? dispatch_head_dim<bf16, true>(d, q, k, v, o, lse, bh, lq,
+                                                 lk, scale, s)
+                 : dispatch_head_dim<bf16, false>(d, q, k, v, o, lse, bh, lq,
+                                                  lk, scale, s);
   }
   return static_cast<int>(err);
 }

@@ -25,7 +25,7 @@ so a run can show that its path went through the kernels.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -99,70 +99,88 @@ def _check_cuda_inputs(*tensors) -> None:
     """What every kernel wrapper checks before it hands out pointers: one
     device, one dtype the kernel is built for, contiguous [.., L, D]."""
     first = tensors[0]
-    if any(t.device != first.device for t in tensors):
-        raise ValueError("flash_attention: inputs must be on one device")
-    if any(t.dtype != first.dtype for t in tensors):
-        raise ValueError("flash_attention: q, k, v must share a dtype")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("flash_attention: the kernel takes contiguous "
-                         "[B,H,L,D] tensors")
-    check_kernel_inputs(first.shape[-1], first.dtype)
+    device, dtype = first.device, first.dtype
+    for t in tensors:
+        if t.device != device:
+            raise ValueError("flash_attention: inputs must be on one device")
+        if t.dtype != dtype:
+            raise ValueError("flash_attention: q, k, v must share a dtype")
+        if not t.is_contiguous():
+            raise ValueError("flash_attention: the kernel takes contiguous "
+                             "[B,H,L,D] tensors")
+    check_kernel_inputs(first.shape[-1], dtype)
 
 
-def _bind(lib, name, n_ptrs, n_ints=6, scale=True):
-    """Declare a kernel entry point's C signature: ``n_ptrs`` pointers,
-    ``n_ints`` sizes and flags as ints, the scale (where ``scale``), the
-    stream."""
-    fn = getattr(lib, name)
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + \
-        ([ctypes.c_float] if scale else []) + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.mxtt_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.mxtt_cuda_error_string.restype = ctypes.c_char_p
+#: each C entry point: (source, counter, pointers, ints, takes a scale);
+#: every entry point takes the stream last
+_ENTRIES = {
+    "mxtt_flash_attn_fwd": ("flash_attn_fwd", "flash_attn_fwd", 5, 6, True),
+    "mxtt_flash_attn_bwd_dq": ("flash_attn_bwd", "flash_attn_bwd_dq", 8, 6,
+                               True),
+    "mxtt_flash_attn_bwd_dkv": ("flash_attn_bwd", "flash_attn_bwd_dkv", 9, 6,
+                                True),
+    "mxtt_lstm_gates": ("lstm_gates", "lstm_gates", 4, 4, False),
+}
+_FNS: Dict[str, Callable[..., int]] = {}
+
+
+def _kernel_fn(entry: str) -> Callable[..., int]:
+    """The `ctypes` function of a kernel entry point with its C signature
+    declared, bound once (the library is built at first use)."""
+    fn = _FNS.get(entry)
+    if fn is None:
+        source, _, n_ptrs, n_ints, scale = _ENTRIES[entry]
+        fn = getattr(cuda_build.load(source), entry)
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + \
+            [ctypes.c_int] * n_ints + \
+            ([ctypes.c_float] if scale else []) + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FNS[entry] = fn
     return fn
 
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+def _cuda_error(entry: str, err: int) -> MXNetError:
+    lib = cuda_build.load(_ENTRIES[entry][0])
+    lib.mxtt_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.mxtt_cuda_error_string.restype = ctypes.c_char_p
+    return MXNetError(f"{_ENTRIES[entry][1]} launch failed: CUDA error {err} "
+                      f"({lib.mxtt_cuda_error_string(err).decode()})")
 
 
-def _kernel_lib(source: str) -> ctypes.CDLL:
-    """The library built from ``csrc/<source>.cu``, its entry points
-    declared (built at first use)."""
-    lib = _LIBS.get(source)
-    if lib is None:
-        lib = cuda_build.load(source)
-        if source == "flash_attn_fwd":
-            _bind(lib, "mxtt_flash_attn_fwd", 5)
-        elif source == "flash_attn_bwd":
-            _bind(lib, "mxtt_flash_attn_bwd_dq", 8)
-            _bind(lib, "mxtt_flash_attn_bwd_dkv", 9)
-        else:
-            _bind(lib, "mxtt_lstm_gates", 4, n_ints=4, scale=False)
-        _LIBS[source] = lib
-    return lib
+def _current_device() -> int:
+    """The current CUDA device's index (the tensors that reach a kernel
+    wrapper have initialized CUDA already)."""
+    return torch._C._cuda_getDevice()
 
 
-def _raise_if_failed(lib, counter: str, err: int) -> None:
-    if err != 0:
-        raise MXNetError(f"{counter} launch failed: CUDA error {err} "
-                         f"({lib.mxtt_cuda_error_string(err).decode()})")
+def _current_stream(index: int) -> int:
+    """The raw handle of CUDA device ``index``'s current stream (no
+    `torch.cuda.Stream` object is built for it)."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
-def _launch(source: str, entry: str, counter: str, q, k, ptrs, causal,
-            scale) -> None:
-    """Call one kernel entry point on the current stream of q's device;
-    raise if the launch was refused, count it if not."""
-    lib = _kernel_lib(source)
+def _call(entry: str, index: int, *args) -> None:
+    """Launch one kernel entry point with ``args`` on the current stream of
+    CUDA device ``index``, which is made the current device only when it is
+    not already; raise if the launch was refused, count it if not."""
+    fn = _kernel_fn(entry)
+    if _current_device() == index:
+        err = fn(*args, _current_stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, _current_stream(index))
+    if err:
+        raise _cuda_error(entry, err)
+    LAUNCHES[_ENTRIES[entry][1]] += 1
+
+
+def _launch(entry: str, q, k, ptrs, causal, scale) -> None:
+    """Launch an attention kernel over q [.., Lq, D] and k [.., Lk, D],
+    the leading dims flattened into one b·h axis."""
     lq, d = q.shape[-2:]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        # the kernels see the leading dims flattened into one b·h axis
-        err = getattr(lib, entry)(
-            *[t.data_ptr() for t in ptrs], q.numel() // (lq * d), lq,
-            k.shape[-2], d, _DTYPE_CODES[q.dtype], int(causal), scale,
-            stream)
-    _raise_if_failed(lib, counter, err)
-    LAUNCHES[counter] += 1
+    _call(entry, q.get_device(), *[t.data_ptr() for t in ptrs],
+          q.numel() // (lq * d), lq, k.shape[-2], d, _DTYPE_CODES[q.dtype],
+          int(causal), scale)
 
 
 # ---------------------------------------------------------------------------
@@ -189,10 +207,10 @@ def _flash_attention_with_lse_plain(q, k, v, *, causal: bool = False,
 
 def _flash_attention_with_lse_cuda(q, k, v, causal: bool, scale: float):
     _check_cuda_inputs(q, k, v)
+    q, k, v = _aligned(q, k, v)
     o = torch.empty_like(q)
-    lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
-    _launch("flash_attn_fwd", "mxtt_flash_attn_fwd", "flash_attn_fwd", q, k,
-            (q, k, v, o, lse), causal, scale)
+    lse = q.new_empty(q.shape[:-1], dtype=torch.float32)
+    _launch("mxtt_flash_attn_fwd", q, k, (q, k, v, o, lse), causal, scale)
     return o, lse
 
 
@@ -229,7 +247,7 @@ def _attn_dkv_plain(q, k, v, do, lse, delta, dlse, *, causal: bool,
 
 
 def _aligned(*tensors):
-    """K2 and K3 copy their [L, D] tiles with 16-byte cp.async: a tensor
+    """K1-K3 copy their [L, D] tiles with 16-byte cp.async: a tensor
     whose storage starts elsewhere (a contiguous view at an odd offset)
     is copied to fresh, aligned memory first."""
     return [t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors]
@@ -239,8 +257,8 @@ def _attn_dq_cuda(q, k, v, do, lse, delta, dlse, *, causal, scale):
     _check_cuda_inputs(q, k, v, do)
     q, k, v, do = _aligned(q, k, v, do)
     dq = torch.empty_like(q)
-    _launch("flash_attn_bwd", "mxtt_flash_attn_bwd_dq", "flash_attn_bwd_dq",
-            q, k, (q, k, v, do, lse, delta, dlse, dq), causal, scale)
+    _launch("mxtt_flash_attn_bwd_dq", q, k,
+            (q, k, v, do, lse, delta, dlse, dq), causal, scale)
     return dq
 
 
@@ -248,8 +266,7 @@ def _attn_dkv_cuda(q, k, v, do, lse, delta, dlse, *, causal, scale):
     _check_cuda_inputs(q, k, v, do)
     q, k, v, do = _aligned(q, k, v, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("flash_attn_bwd", "mxtt_flash_attn_bwd_dkv",
-            "flash_attn_bwd_dkv", q, k,
+    _launch("mxtt_flash_attn_bwd_dkv", q, k,
             (q, k, v, do, lse, delta, dlse, dk, dv), causal, scale)
     return dk, dv
 
@@ -344,22 +361,26 @@ def _fused_attention_op(attrs, q, k, v):
 
 def _check_lstm_shapes(gates_shape, c_shape) -> None:
     """Raise `ValueError` unless gates is [B, 4H] and c_prev [B, H]."""
-    gates_shape, c_shape = tuple(gates_shape), tuple(c_shape)
     if len(gates_shape) != 2 or len(c_shape) != 2 or \
-            gates_shape != (c_shape[0], 4 * c_shape[1]):
+            gates_shape[0] != c_shape[0] or gates_shape[1] != 4 * c_shape[1]:
         raise ValueError(f"lstm_gates: want gates [B, 4H] and c_prev "
-                         f"[B, H]; got {gates_shape} and {c_shape}")
+                         f"[B, H]; got {tuple(gates_shape)} and "
+                         f"{tuple(c_shape)}")
 
 
 def check_lstm_kernel_inputs(gates: torch.Tensor,
                              c_prev: torch.Tensor) -> None:
     """Raise `ValueError` for inputs the CUDA kernel does not take: shapes
     other than [B, 4H] and [B, H], two devices, a dtype other than
-    float32 or bfloat16 (each input on its own), or a strided input."""
+    float32 or bfloat16 (each input on its own), or a strided input.  The
+    kernel's wrapper calls it once a launch, so it stays cheap."""
     _check_lstm_shapes(gates.shape, c_prev.shape)
     if gates.device != c_prev.device:
         raise ValueError("lstm_gates: gates and c_prev must be on one "
                          "device")
+    if gates.dtype in _DTYPE_CODES and c_prev.dtype in _DTYPE_CODES and \
+            gates.is_contiguous() and c_prev.is_contiguous():
+        return
     for name, t in (("gates", gates), ("c_prev", c_prev)):
         if t.dtype not in _DTYPE_CODES:
             raise ValueError(f"lstm_gates: the kernel takes float32 and "
@@ -384,24 +405,24 @@ def _lstm_gates_plain(gates: torch.Tensor, c_prev: torch.Tensor):
 
 
 def _lstm_gates_cuda(gates: torch.Tensor, c_prev: torch.Tensor):
+    """K4 on the card.  The LM's path calls it 2·T times a forward at a
+    size where the kernel takes about 2 µs, so the host's share is kept
+    small: one validation, the raw device index and stream handle, and the
+    `ctypes` function bound once.  The outputs are two allocations: the two
+    halves of one [2, B, H] allocation would cost two views, and a view
+    costs PyTorch's dispatcher more host time than an allocation."""
     check_lstm_kernel_inputs(gates, c_prev)
     if torch.is_grad_enabled() and (gates.requires_grad or
                                     c_prev.requires_grad):
         raise MXNetError("lstm_gates: the kernel is forward only, as the "
                          "reference's; a gradient through it is not "
                          "defined")
+    b, h = c_prev.shape
     c_new, h_new = torch.empty_like(c_prev), torch.empty_like(c_prev)
-    if c_prev.numel() == 0:
-        return c_new, h_new
-    lib = _kernel_lib("lstm_gates")
-    with torch.cuda.device(gates.device):
-        stream = torch.cuda.current_stream(gates.device).cuda_stream
-        err = lib.mxtt_lstm_gates(
-            gates.data_ptr(), c_prev.data_ptr(), c_new.data_ptr(),
-            h_new.data_ptr(), c_prev.shape[0], c_prev.shape[1],
-            _DTYPE_CODES[gates.dtype], _DTYPE_CODES[c_prev.dtype], stream)
-    _raise_if_failed(lib, "lstm_gates", err)
-    LAUNCHES["lstm_gates"] += 1
+    if b * h:
+        _call("mxtt_lstm_gates", gates.get_device(), gates.data_ptr(),
+              c_prev.data_ptr(), c_new.data_ptr(), h_new.data_ptr(), b, h,
+              _DTYPE_CODES[gates.dtype], _DTYPE_CODES[c_prev.dtype])
     return c_new, h_new
 
 
@@ -411,9 +432,9 @@ def lstm_gates(gates: torch.Tensor, c_prev: torch.Tensor
     pre-activations) and c_prev [B, H] → (c_new, h_new) in c_prev's dtype,
     c' = σ(f)·c + σ(i)·tanh(g) and h' = σ(o)·tanh(c'), in fp32 math.
     Forward only, as in the reference."""
-    _check_lstm_shapes(gates.shape, c_prev.shape)
-    if gates.device.type == "cuda":
+    if gates.is_cuda:
         return _lstm_gates_cuda(gates, c_prev)
+    _check_lstm_shapes(gates.shape, c_prev.shape)
     if gates.device.type in ("cpu", "meta") and \
             c_prev.device == gates.device:
         return _lstm_gates_plain(gates, c_prev)

@@ -365,6 +365,224 @@ def test_tf32_rounding_is_to_nearest_ties_away():
     assert (hi + (x - hi)).tolist() == x.tolist()
 
 
+# ---------------------------------------------------------------------------
+# K1 arithmetic on the card, emulated on the CPU: the scaled Q and the
+# online softmax over the kernel's key tiles, with split-TF32 products for
+# fp32 inputs and bf16 products with p rounded to bf16 for bf16 inputs
+# ---------------------------------------------------------------------------
+
+def _k1_key_rows(d):
+    """Rows of K1's streamed key tile (`key_rows` in flash_attn_fwd.cu)."""
+    return 64 if d <= 64 else 32
+
+
+def _emulated_forward(q, k, v, causal, scale, scheme):
+    """(O, lse) with K1's rounding on the card.  "fp32": q is scaled, then
+    both products run in three TF32 passes ("tf32": in one).  "bf16"
+    (inputs hold bf16 values): products of bf16 values are exact and summed
+    in fp32, the scale is applied to s after the product, p is rounded to
+    bf16 before p·v, and O to bf16 on the store.  The running max and sum
+    are taken tile by tile at the kernel's key-tile width."""
+    lq, d = q.shape[-2:]
+    lk = k.shape[-2]
+    if scheme in ("fp32", "tf32"):
+        mm, q, post = (_mm3 if scheme == "fp32" else _mm1), q * scale, 1.0
+        round_p = (lambda t: t)
+    else:
+        mm, post = torch.matmul, scale
+        round_p = (lambda t: t.bfloat16().float())
+    m = torch.full(q.shape[:-1], -1e30)
+    l = torch.zeros(q.shape[:-1])
+    acc = torch.zeros_like(q)
+    rows = torch.arange(lq)[:, None]
+    bn = _k1_key_rows(d)
+    for k0 in range(0, lk, bn):
+        s = mm(q, k[..., k0:k0 + bn, :].transpose(-1, -2)) * post
+        if causal:
+            cols = torch.arange(k0, min(k0 + bn, lk))[None]
+            s = s.masked_fill(cols > rows, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + mm(round_p(p), v[..., k0:k0 + bn, :])
+        m = m_new
+    l = l.clamp_min(1e-30)
+    o = acc / l[..., None]
+    return (o if scheme != "bf16" else o.bfloat16().float()), m + torch.log(l)
+
+
+# (q shape, lk): D 16/32/64/128 (128 streams 32-row key tiles), Lq != Lk
+FWD_EMULATION_CASES = [((2, 2, 128, 16), 128), ((1, 2, 128, 32), 128),
+                       ((1, 2, 64, 64), 256), ((1, 1, 256, 128), 256)]
+
+
+@pytest.mark.parametrize("scheme,tol", [("fp32", TOL), ("bf16", 2e-2)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("q_shape,lk", FWD_EMULATION_CASES)
+def test_k1_rounding_matches_pallas_fwd(scheme, tol, causal, q_shape, lk):
+    """The new K1's arithmetic (emulated) against the JAX package's
+    `_pallas_attention_fwd` in interpret mode, on O and the logsumexp:
+    the chip-free evidence that the precision choice keeps parity.  bf16
+    inputs are bf16 values handed to both as fp32."""
+    arrays = _qkv(17, q_shape, lk)
+    if scheme == "bf16":
+        arrays = [torch.from_numpy(a).bfloat16().float().numpy()
+                  for a in arrays]
+    q, k, v = arrays
+    scale = q_shape[-1] ** -0.5
+    o_ref, lse_ref = pk._pallas_attention_fwd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        scale=scale, block_q=min(128, q_shape[2]), block_k=min(128, lk),
+        interpret=True)
+    o, lse = _emulated_forward(*(torch.from_numpy(a) for a in (q, k, v)),
+                               causal, scale, scheme)
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_ref), rtol=tol,
+                               atol=tol)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref), rtol=TOL,
+                               atol=TOL)
+
+
+# phase 3's fp32 K1 cases, one (batch, head) each
+K1_SPLIT_CASES = [((1, 1, 512, 64), 512), ((1, 1, 128, 64), 128),
+                  ((1, 1, 256, 16), 256), ((1, 1, 128, 64), 256),
+                  ((1, 1, 128, 32), 128)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("q_shape,lk", K1_SPLIT_CASES)
+def test_k1_split_tf32_limit_tells_three_passes_from_one(causal, q_shape,
+                                                         lk):
+    """`chip_smoke`'s K1_SPLIT_TOL against the fp32 plain version, as phase
+    3 holds K1's O on the card: the emulated three-pass forward stays
+    within a tenth of it and a one-pass TF32 forward breaks it three
+    times over."""
+    import chip_smoke as cs
+    q, k, v = (torch.from_numpy(a) for a in _qkv(21, q_shape, lk))
+    scale = q_shape[-1] ** -0.5
+    want, _ = hk._flash_attention_with_lse_plain(q, k, v, causal=causal,
+                                                 scale=scale)
+
+    def rel(scheme):
+        got, _ = _emulated_forward(q, k, v, causal, scale, scheme)
+        return ((got - want).abs().max() / want.abs().max()).item()
+
+    assert rel("fp32") < cs.K1_SPLIT_TOL / 10
+    assert rel("tf32") > 3 * cs.K1_SPLIT_TOL
+
+
+def _rz(x):
+    """float64 to float32 rounded toward zero: how the tensor cores leave
+    each sum they accumulate."""
+    f = x.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(x)
+    f[over] = np.nextafter(f[over], np.float32(0))
+    return f
+
+
+# 8-key chunks of K1's fp32 p·v summed before each fp32 add into O
+# (`SUM_CHUNKS` in flash_attn_fwd.cu)
+K1_SUM_CHUNKS = 4
+
+
+def test_k1_chunk_sums_keep_o_unbiased_under_truncation():
+    """Why K1 sums every K1_SUM_CHUNKS chunks of p·v in an accumulator of
+    their own (started by `mma_alone`) and adds them to O in fp32: with
+    every mma modelled as exact products added to its accumulator and cut
+    to fp32 toward zero, O summed in one running accumulator over the sequence
+    drifts toward zero at BERT-like scores (small, so O is a mean with
+    cancellation), and its error grows far past a plain fp32 product's;
+    the backward's delta = rowsum(dO∘O) carries that error into every
+    dsᵢⱼ.  Sums of a few chunks added in fp32 keep O within a plain
+    product's error."""
+    rng = np.random.RandomState(23)
+    lk, d = 512, 64
+    q, k, v = (rng.randn(lk, d).astype(np.float32) * 0.55 for _ in range(3))
+    s = (q.astype(np.float64) @ k.T.astype(np.float64)) * d ** -0.5
+    p64 = np.exp(s - s.max(1, keepdims=True))
+    l64 = p64.sum(1, keepdims=True)
+    o_exact = p64 @ v.astype(np.float64) / l64
+    p = torch.from_numpy(p64.astype(np.float32))
+    tv = torch.from_numpy(v)
+    (ph, pl), (vh, vl) = ((_tf32_round(t), _tf32_cut(t - _tf32_round(t)))
+                          for t in (p, tv))
+
+    def chunk(c, kc):
+        sl = slice(8 * kc, 8 * kc + 8)
+        for a, b in ((pl, vh), (ph, vl), (ph, vh)):
+            c = _rz(c.astype(np.float64) + a[:, sl].double().numpy() @
+                    b[sl].double().numpy())
+        return c
+
+    running = np.zeros((lk, d), np.float32)
+    summed = np.zeros((lk, d), np.float32)
+    for k0 in range(0, lk // 8, K1_SUM_CHUNKS):
+        part = np.zeros((lk, d), np.float32)
+        for kc in range(k0, k0 + K1_SUM_CHUNKS):
+            running = chunk(running, kc)
+            part = chunk(part, kc)
+        summed = summed + part
+    plain = (p @ tv).numpy()
+
+    def drift(acc):
+        """(signed drift of O toward zero over mean |O|, max |error| over
+        max |O|)"""
+        err = acc / l64.astype(np.float32) - o_exact
+        return ((err * np.sign(o_exact)).mean() / np.abs(o_exact).mean(),
+                np.abs(err).max() / np.abs(o_exact).max())
+
+    (run_bias, run_err), (sum_bias, sum_err), (_, plain_err) = \
+        map(drift, (running, summed, plain))
+    assert run_bias < -1e-6 and abs(sum_bias) < abs(run_bias) / 10
+    assert run_err > 5 * plain_err and sum_err < 2 * plain_err
+
+
+def _fake_kernel(monkeypatch, current_device=-1):
+    """Replace the kernel library and the CUDA runtime calls of
+    `hopper_kernels._call` so that a wrapper runs on CPU tensors: returns
+    the list the fake kernel records its arguments in, and the list of
+    devices entered."""
+    calls, entered = [], []
+
+    class _Device:
+        def __init__(self, index):
+            self.index = index
+
+        def __enter__(self):
+            entered.append(self.index)
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(hk, "_kernel_fn",
+                        lambda entry: lambda *a: calls.append(a) or 0)
+    monkeypatch.setattr(hk, "_current_stream", lambda index: 1234)
+    monkeypatch.setattr(hk, "_current_device", lambda: current_device)
+    monkeypatch.setattr(torch.cuda, "device", _Device)
+    return calls, entered
+
+
+def test_attention_wrapper_aligns_and_passes_shapes(monkeypatch):
+    """K1's wrapper with the library faked: an input whose storage starts
+    off a 16-byte boundary reaches the kernel as an aligned copy, and the
+    kernel gets b·h, Lq, Lk, D, the dtype code, the mask flag, the scale
+    and the stream; one launch is counted."""
+    calls, entered = _fake_kernel(monkeypatch)
+    q = torch.zeros(2 * 3 * 64 * 16 + 1)[1:].view(2, 3, 64, 16)
+    k = v = torch.zeros(2, 3, 128, 16)
+    assert q.data_ptr() % 16
+    hk.reset_launch_counts()
+    o, lse = hk._flash_attention_with_lse_cuda(q, k, v, True, 0.25)
+    (args,) = calls
+    assert args[0] % 16 == 0 and args[0] != q.data_ptr()
+    assert args[1:5] == (k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                         lse.data_ptr())
+    assert args[5:] == (6, 64, 128, 16, 0, 1, 0.25, 1234)
+    assert o.shape == q.shape and lse.shape == (2, 3, 64)
+    assert lse.dtype == torch.float32 and not entered
+    assert hk.LAUNCHES["flash_attn_fwd"] == 1
+
+
 def test_attention_bounds_at_bert_base():
     """`chip_smoke`'s bounds at BERT-base's [8, 12, 512, 64] fp32 call:
     operations over three TF32 passes' rate (495/3 TFLOP/s) for K1-K3."""
@@ -529,6 +747,55 @@ def test_lstm_gates_cpu_never_touches_the_kernel_library(monkeypatch):
     hk.lstm_gates(torch.from_numpy(gates), torch.from_numpy(c))
     assert hk.LAUNCHES["lstm_gates"] == 0
     assert "lstm_gates" in cuda_build.KERNELS
+
+
+@pytest.mark.parametrize("on_current_device", [True, False])
+@pytest.mark.parametrize("gates_dtype,c_dtype",
+                         [(torch.float32, torch.float32),
+                          (torch.bfloat16, torch.float32),
+                          (torch.float32, torch.bfloat16)])
+def test_lstm_wrapper_validates_once_and_launches_once(
+        monkeypatch, on_current_device, gates_dtype, c_dtype):
+    """K4's wrapper with the library faked: it validates once, hands the
+    kernel the inputs' and outputs' pointers, B, H and the dtype codes and
+    the stream, enters a device context only for a device that is not the
+    current one, counts one launch, and returns contiguous [B, H] outputs
+    in c's dtype."""
+    calls, entered = _fake_kernel(
+        monkeypatch, current_device=-1 if on_current_device else 3)
+    checks = []
+    real_check = hk.check_lstm_kernel_inputs
+    monkeypatch.setattr(hk, "check_lstm_kernel_inputs",
+                        lambda g, c: checks.append(1) or real_check(g, c))
+    gates = torch.zeros(5, 4 * 24, dtype=gates_dtype)
+    c = torch.zeros(5, 24, dtype=c_dtype)
+    hk.reset_launch_counts()
+    c_new, h_new = hk._lstm_gates_cuda(gates, c)
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    assert checks == [1]
+    assert calls == [(gates.data_ptr(), c.data_ptr(), c_new.data_ptr(),
+                      h_new.data_ptr(), 5, 24, codes[gates_dtype],
+                      codes[c_dtype], 1234)]
+    assert entered == ([] if on_current_device else [-1])
+    assert hk.LAUNCHES == {"flash_attn_fwd": 0, "flash_attn_bwd_dq": 0,
+                           "flash_attn_bwd_dkv": 0, "lstm_gates": 1}
+    for t in (c_new, h_new):
+        assert t.shape == (5, 24) and t.dtype == c_dtype
+        assert t.is_contiguous()
+    assert h_new.data_ptr() != c_new.data_ptr()
+
+
+def test_lstm_wrapper_raises_on_a_refused_launch(monkeypatch):
+    """A nonzero cudaError_t from the entry point raises and counts no
+    launch."""
+    _fake_kernel(monkeypatch)
+    monkeypatch.setattr(hk, "_kernel_fn", lambda entry: lambda *a: 1)
+    monkeypatch.setattr(hk, "_cuda_error",
+                        lambda entry, err: mt.base.MXNetError(f"{err}"))
+    hk.reset_launch_counts()
+    with pytest.raises(mt.base.MXNetError):
+        hk._lstm_gates_cuda(torch.zeros(2, 32), torch.zeros(2, 8))
+    assert hk.LAUNCHES["lstm_gates"] == 0
 
 
 def test_lstm_gates_keeps_meta_shapes():
