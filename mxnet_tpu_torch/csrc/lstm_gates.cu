@@ -14,29 +14,23 @@
 //
 // Design.  The TPU kernel reads the whole [B, 4H] block into VMEM in one
 // grid step.  Here there is nothing to stage: each output element needs
-// five inputs that no other element needs.  Two code paths share the one
-// kernel, chosen per launch:
-//   vector: where H is a multiple of VEC (4 when both inputs are fp32, 8
-//     when either is bf16) and every pointer is 16-byte aligned, a thread
-//     owns VEC neighbouring columns of one row and moves 16 bytes (32 for
-//     fp32 c beside bf16 gates) per gate, per c and per output.  H = 200
-//     on the LSTM LM's path qualifies.
-//   scalar: any other H (an odd width, a view at an odd offset) takes one
-//     element a thread.
-// Neighbouring threads take neighbouring columns, so every access of a
-// warp is one coalesced run per gate.  The grid is sized from the SM
-// count (8 blocks of 256 threads an SM, a full SM's threads) and each
-// thread strides over as many groups as there are.  expf and tanhf are the
-// accurate ones: the build takes no fast-math flag.
+// five inputs that no other element needs, so one thread owns one (b, j),
+// j < H, reads g[b, j], g[b, H+j], g[b, 2H+j], g[b, 3H+j] and c[b, j], and
+// writes c'[b, j] and h'[b, j].  Neighbouring threads take neighbouring j,
+// so every load and store of a warp is one coalesced run per gate.  H is
+// any width (200 on the LSTM LM's path, 13 in a test); a grid-stride loop
+// over B*H covers the tail.  A 16-byte vector path for widths that allow
+// it read 80 % of the bytes bound at [4096, 4096], a size no path runs,
+// and made the LM's [32, 800] launch slower, so it is not kept (PERF.md).
+// expf and tanhf are the accurate ones: the build takes no fast-math flag.
 //
 // What bounds it on the H100.  Per element it moves 4 gate values in and
 // c in, c' and h' out, for about fifteen operations: it is bound by bytes.
 // At the LSTM LM's [32, 800] call that is 179 KB, about 0.05 us at 3.35
-// TB/s, far below one launch, so on that path the launch and the host's
-// call are its time (the wrapper in ops/hopper_kernels.py keeps that call
-// lean).  At [4096, 4096] (117 MB) the vector path keeps five 16-byte
-// loads in flight a thread, with streaming cache hints; it reads about 80 %
-// of the bytes bound on the H100 (PERF.md).
+// TB/s, far below one launch, so on that path the launch latency and the
+// host's call are its time (ops/hopper_kernels.py keeps that call lean).
+// Only at widths like [4096, 4096] (117 MB) does the share of the
+// memory bound mean anything.
 //
 // The C entry point launches on the caller's stream, allocates nothing,
 // does not synchronise, and returns cudaGetLastError() after the launch.
@@ -44,120 +38,30 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int NT = 256;          // threads per block
-constexpr int BLOCKS_PER_SM = 8;  // 2048 threads: a full SM
+constexpr int NT = 256;           // threads per block
+constexpr int MAX_BLOCKS = 4096;  // 132 SMs x 31; the loop strides past it
 
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const bf16* p) {
+__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 __device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f(bf16* p, float x) {
+__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
-}
-
-// N neighbouring elements (a multiple of 16 bytes, 16-byte aligned) as
-// floats, and back; each byte is touched once, so loads and stores are
-// streaming (evict-first) and leave L2 to data that is read again
-template <int N>
-__device__ __forceinline__ void load_vec(const float* p, float (&x)[N]) {
-#pragma unroll
-  for (int i = 0; i < N / 4; ++i) {
-    const float4 v = __ldcs(reinterpret_cast<const float4*>(p) + i);
-    x[4 * i] = v.x;
-    x[4 * i + 1] = v.y;
-    x[4 * i + 2] = v.z;
-    x[4 * i + 3] = v.w;
-  }
-}
-template <int N>
-__device__ __forceinline__ void load_vec(const bf16* p, float (&x)[N]) {
-#pragma unroll
-  for (int i = 0; i < N / 8; ++i) {
-    const uint4 v = __ldcs(reinterpret_cast<const uint4*>(p) + i);
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f =
-          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
-      x[8 * i + 2 * j] = f.x;
-      x[8 * i + 2 * j + 1] = f.y;
-    }
-  }
-}
-template <int N>
-__device__ __forceinline__ void store_vec(float* p, const float (&x)[N]) {
-#pragma unroll
-  for (int i = 0; i < N / 4; ++i)
-    __stcs(reinterpret_cast<float4*>(p) + i,
-           make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]));
-}
-template <int N>
-__device__ __forceinline__ void store_vec(bf16* p, const float (&x)[N]) {
-#pragma unroll
-  for (int i = 0; i < N / 8; ++i) {
-    uint32_t w[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const __nv_bfloat162 v =
-          __floats2bfloat162_rn(x[8 * i + 2 * j], x[8 * i + 2 * j + 1]);
-      w[j] = *reinterpret_cast<const uint32_t*>(&v);
-    }
-    __stcs(reinterpret_cast<uint4*>(p) + i,
-           make_uint4(w[0], w[1], w[2], w[3]));
-  }
 }
 
 __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-// elements a thread owns on the vector path: 16 bytes of the narrower type
-template <typename TG, typename TC>
-__host__ __device__ constexpr int vec_width() {
-  return sizeof(TG) == 2 || sizeof(TC) == 2 ? 8 : 4;
-}
-
 template <typename TG, typename TC>
 __global__ void __launch_bounds__(NT)
 lstm_gates_kernel(const TG* __restrict__ gates, const TC* __restrict__ c,
                   TC* __restrict__ c_out, TC* __restrict__ h_out, int b,
-                  int h, bool vector_path) {
-  if (vector_path) {
-    // groups of VEC columns; the launcher keeps their count below 2^31,
-    // so no unsigned index below wraps
-    constexpr int VEC = vec_width<TG, TC>();
-    const unsigned hv = (unsigned)h / VEC;
-    const unsigned n = (unsigned)b * hv;
-    const unsigned stride = gridDim.x * NT;
-    for (unsigned e = blockIdx.x * NT + threadIdx.x; e < n; e += stride) {
-      const unsigned row = e / hv;
-      const unsigned j = (e - row * hv) * VEC;
-      const TG* g = gates + (size_t)row * 4 * h + j;
-      const size_t off = (size_t)row * h + j;
-      float ig[VEC], fg[VEC], gg[VEC], og[VEC], cv[VEC];
-      load_vec(g, ig);
-      load_vec(g + h, fg);
-      load_vec(g + 2 * h, gg);
-      load_vec(g + 3 * h, og);
-      load_vec(c + off, cv);
-      float cn[VEC], hn[VEC];
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        cn[i] = sigmoid_f(fg[i]) * cv[i] + sigmoid_f(ig[i]) * tanhf(gg[i]);
-        hn[i] = sigmoid_f(og[i]) * tanhf(cn[i]);
-      }
-      store_vec(c_out + off, cn);
-      store_vec(h_out + off, hn);
-    }
-    return;
-  }
+                  int h) {
   const long long n = (long long)b * h;
   const long long stride = (long long)gridDim.x * NT;
   for (long long e = (long long)blockIdx.x * NT + threadIdx.x; e < n;
@@ -175,42 +79,16 @@ lstm_gates_kernel(const TG* __restrict__ gates, const TC* __restrict__ c,
   }
 }
 
-// SMs of the current device, read once per device
-int sm_count() {
-  static int cache[64] = {0};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
-  if (cache[dev] == 0) {
-    int n = 0;
-    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess ||
-        n <= 0)
-      return 132;
-    cache[dev] = n;
-  }
-  return cache[dev];
-}
-
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
 template <typename TG, typename TC>
 cudaError_t launch(const void* gates, const void* c, void* c_out, void* h_out,
                    int b, int h, cudaStream_t stream) {
+  const long long n = (long long)b * h;
   if (b <= 0 || h <= 0) return cudaErrorInvalidValue;
-  constexpr int VEC = vec_width<TG, TC>();
-  const long long groups = (long long)b * (h / VEC);
-  const bool vector_path = h % VEC == 0 && groups < (1LL << 31) &&
-                           aligned16(gates) && aligned16(c) &&
-                           aligned16(c_out) && aligned16(h_out);
-  const long long work = vector_path ? groups : (long long)b * h;
-  const long long want = (work + NT - 1) / NT;
-  const long long most = (long long)sm_count() * BLOCKS_PER_SM;
-  const int blocks = (int)(want < most ? want : most);
+  const long long want = (n + NT - 1) / NT;
+  const int blocks = (int)(want < MAX_BLOCKS ? want : MAX_BLOCKS);
   lstm_gates_kernel<TG, TC><<<blocks, NT, 0, stream>>>(
       static_cast<const TG*>(gates), static_cast<const TC*>(c),
-      static_cast<TC*>(c_out), static_cast<TC*>(h_out), b, h, vector_path);
+      static_cast<TC*>(c_out), static_cast<TC*>(h_out), b, h);
   return cudaGetLastError();
 }
 
@@ -222,7 +100,7 @@ cudaError_t dispatch_c(int c_dtype, const void* gates, const void* c,
     case 0:
       return launch<TG, float>(gates, c, c_out, h_out, b, h, stream);
     case 1:
-      return launch<TG, bf16>(gates, c, c_out, h_out, b, h, stream);
+      return launch<TG, __nv_bfloat16>(gates, c, c_out, h_out, b, h, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -240,7 +118,7 @@ extern "C" int mxtt_lstm_gates(const void* gates, const void* c, void* c_out,
   if (gates_dtype == 0) {
     err = dispatch_c<float>(c_dtype, gates, c, c_out, h_out, b, h, s);
   } else if (gates_dtype == 1) {
-    err = dispatch_c<bf16>(c_dtype, gates, c, c_out, h_out, b, h, s);
+    err = dispatch_c<__nv_bfloat16>(c_dtype, gates, c, c_out, h_out, b, h, s);
   }
   return static_cast<int>(err);
 }

@@ -480,24 +480,27 @@ def _rz(x):
     return f
 
 
-# 8-key chunks of K1's fp32 p·v summed before each fp32 add into O
-# (`SUM_CHUNKS` in flash_attn_fwd.cu)
-K1_SUM_CHUNKS = 4
+def _k1_sum_chunks():
+    """8-key chunks of K1's fp32 p·v summed before each fp32 add into O:
+    `SUM_CHUNKS`, read from flash_attn_fwd.cu."""
+    import os
+    import re
+    with open(os.path.join(cuda_build.CSRC_DIR, "flash_attn_fwd.cu")) as f:
+        m = re.search(r"constexpr int SUM_CHUNKS = (\d+);", f.read())
+    return int(m.group(1))
 
 
-def test_k1_chunk_sums_keep_o_unbiased_under_truncation():
-    """Why K1 sums every K1_SUM_CHUNKS chunks of p·v in an accumulator of
-    their own (started by `mma_alone`) and adds them to O in fp32: with
-    every mma modelled as exact products added to its accumulator and cut
-    to fp32 toward zero, O summed in one running accumulator over the sequence
-    drifts toward zero at BERT-like scores (small, so O is a mean with
-    cancellation), and its error grows far past a plain fp32 product's;
-    the backward's delta = rowsum(dO∘O) carries that error into every
-    dsᵢⱼ.  Sums of a few chunks added in fp32 keep O within a plain
-    product's error."""
-    rng = np.random.RandomState(23)
-    lk, d = 512, 64
-    q, k, v = (rng.randn(lk, d).astype(np.float32) * 0.55 for _ in range(3))
+def _truncated_pv_drift(seed, std, chunks, rows=512, lk=512, d=64):
+    """K1's fp32 O for one head of q, k, v ~ N(0, std²), with every mma
+    modelled as exact products added to its accumulator and cut to fp32
+    toward zero: p·v summed in one running accumulator over the sequence
+    (``chunks`` None) or in sums of ``chunks`` 8-key chunks added in fp32.
+    Returns (signed drift of O toward zero over mean |O|, max |error| over
+    max |O|) of that O and of one plain fp32 product, against the exact
+    O."""
+    rng = np.random.RandomState(seed)
+    q = rng.randn(rows, d).astype(np.float32) * std
+    k, v = (rng.randn(lk, d).astype(np.float32) * std for _ in range(2))
     s = (q.astype(np.float64) @ k.T.astype(np.float64)) * d ** -0.5
     p64 = np.exp(s - s.max(1, keepdims=True))
     l64 = p64.sum(1, keepdims=True)
@@ -514,27 +517,52 @@ def test_k1_chunk_sums_keep_o_unbiased_under_truncation():
                     b[sl].double().numpy())
         return c
 
-    running = np.zeros((lk, d), np.float32)
-    summed = np.zeros((lk, d), np.float32)
-    for k0 in range(0, lk // 8, K1_SUM_CHUNKS):
-        part = np.zeros((lk, d), np.float32)
-        for kc in range(k0, k0 + K1_SUM_CHUNKS):
-            running = chunk(running, kc)
-            part = chunk(part, kc)
-        summed = summed + part
-    plain = (p @ tv).numpy()
+    acc = np.zeros((rows, d), np.float32)
+    if chunks is None:
+        for kc in range(lk // 8):
+            acc = chunk(acc, kc)
+    else:
+        for k0 in range(0, lk // 8, chunks):
+            part = np.zeros((rows, d), np.float32)
+            for kc in range(k0, k0 + chunks):
+                part = chunk(part, kc)
+            acc = acc + part
 
-    def drift(acc):
-        """(signed drift of O toward zero over mean |O|, max |error| over
-        max |O|)"""
-        err = acc / l64.astype(np.float32) - o_exact
+    def drift(o):
+        err = o - o_exact
         return ((err * np.sign(o_exact)).mean() / np.abs(o_exact).mean(),
                 np.abs(err).max() / np.abs(o_exact).max())
 
-    (run_bias, run_err), (sum_bias, sum_err), (_, plain_err) = \
-        map(drift, (running, summed, plain))
+    l32 = l64.astype(np.float32)
+    return drift(acc / l32), drift((p @ tv).numpy() / l32)
+
+
+def test_k1_chunk_sums_keep_o_unbiased_under_truncation():
+    """Why K1 sums every `SUM_CHUNKS` chunks of p·v in an accumulator of
+    their own (started by `mma_alone`) and adds them to O in fp32: O
+    summed in one running accumulator over the sequence drifts toward zero
+    at BERT-like scores (small, so O is a mean with cancellation), and its
+    error grows far past a plain fp32 product's; the backward's
+    delta = rowsum(dO∘O) carries that error into every dsᵢⱼ.  Sums of a
+    few chunks added in fp32 keep O within a plain product's error."""
+    (run_bias, run_err), (_, plain_err) = _truncated_pv_drift(23, 0.55, None)
+    (sum_bias, sum_err), _ = _truncated_pv_drift(23, 0.55, _k1_sum_chunks())
     assert run_bias < -1e-6 and abs(sum_bias) < abs(run_bias) / 10
     assert run_err > 5 * plain_err and sum_err < 2 * plain_err
+
+
+@pytest.mark.parametrize("std", [1.0, 0.55])
+def test_k1_bias_limit_tells_chunk_sums_from_one_running_sum(std):
+    """`chip_smoke`'s K1_BIAS_TOL, as phase 3 holds fp32 K1's signed drift
+    on randn inputs (std 1) and as BERT's small scores give it (0.55): the
+    modelled running sum breaks it, which K1_SPLIT_TOL does not, and the
+    kernel's chunk sums stay within half of it."""
+    import chip_smoke as cs
+    (run_bias, run_err), _ = _truncated_pv_drift(29, std, None, rows=256)
+    (sum_bias, _), _ = _truncated_pv_drift(29, std, _k1_sum_chunks(),
+                                           rows=256)
+    assert run_bias < -cs.K1_BIAS_TOL and run_err < cs.K1_SPLIT_TOL
+    assert abs(sum_bias) < cs.K1_BIAS_TOL / 2
 
 
 def _fake_kernel(monkeypatch, current_device=-1):
