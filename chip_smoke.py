@@ -43,6 +43,11 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    must match a second Predictor that runs the unfused graph on the card
    (``MXTPU_PALLAS=0``).  At each shape, after the checked requests and
    one warm-up, a few hundred more are timed for the latency percentiles.
+   Each forward replays a CUDA graph: one replay must launch K1 12 times
+   inside one ``cudaGraphLaunch`` by the profiler's trace, and a third
+   Predictor runs the same path eagerly (``MXTPU_GRAPH_COMPILE=0``), whose
+   outputs the captured ones must give within CAPTURE_TOL of the largest
+   magnitude; the captured and eager p50 are printed side by side.
 5. train   -- BERT-base masked-LM pretraining (`bert_mlm`, the encoder
    with `_fused_attention`, BERT's MLM head and a decoder tied to the word
    embedding) through `mxnet_tpu_torch.mod.Module` on cuda:0 at batch
@@ -60,7 +65,21 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    cells onto K4 (and no attention site); each forward must launch K4 2·T
    times and K1 never; 4 requests per bucket must match a Predictor of the
    unfused graph within 1e-4; then 200 (T = 60) and 400 (T = 10) warm
-   requests are timed and one forward at T = 60 is profiled.
+   requests are timed and one forward at T = 60 is profiled.  As in
+   phase 4, one replay per bucket must launch K4 2·T times in the trace,
+   and an eager Predictor per bucket must give the captured outputs.
+7. fit     -- BERT-base MLM (phase 5's model) through ``Module.fit`` over
+   an `NDArrayIter` of FIT_BATCHES fixed batches (token ids, one row of
+   positions per sample, labels), FIT_EPOCHS epochs, BERT's Adam with a
+   PolyScheduler warm-up, the accuracy accumulated inside the step; each
+   step (forward, backward, the multi-tensor update, the metric) is one
+   CUDA graph replay.  With dropout 0, FIT_K captured steps must leave
+   every parameter within FIT_TOL of FIT_K eager ones under a changing
+   lr, and two replays at lr 0 the same outputs; with dropout 0.1 the
+   loss must fall, two replays at lr 0 must draw different masks, one
+   replay must launch K1, K2 and K3 12 times each in the trace, and the
+   in-step accuracy must equal a host ``update_metric``.  The step's p50
+   is timed captured, eager and with the per-parameter update.
 
 If the run nears its time limit, cut the serving phases' ``TIMED`` and
 ``LSTM_TIMED`` counts before anything of the training phase.
@@ -124,6 +143,10 @@ K1_SPLIT_TOL = 2e-5
 K1_BIAS_TOL = 1.5e-6
 # 12 LayerNorm'd layers of fp32 sums taken in another order
 SLICE_TOL = 1e-3
+# a captured forward (a CUDA graph replay) against the same program run
+# eagerly: the same kernels on the same inputs, within CAPTURE_TOL of the
+# output's largest magnitude
+CAPTURE_TOL = 1e-6
 # requests timed per bound sequence length, after the checked ones and one
 # warm-up
 TIMED = {512: 200, 128: 400}
@@ -137,6 +160,12 @@ TRAIN_STEPS, WARM_STEPS, TIMED_STEPS = 20, 2, 20
 # BERT's published Adam settings, in MXNet's L2 form of weight decay
 ADAM = dict(learning_rate=1e-4, wd=0.01, beta2=0.999, epsilon=1e-6)
 ATTN_KERNELS = ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
+# fit phase: FIT_BATCHES fixed batches, FIT_EPOCHS epochs; FIT_K captured
+# steps against as many eager ones, whose weights must agree within FIT_TOL
+# of each parameter's largest magnitude; FIT_TIMED steps timed per path
+FIT_BATCHES, FIT_EPOCHS, FIT_K, FIT_TIMED = 4, 3, 4, 10
+FIT_TOL = 1e-5
+FIT_WARMUP, FIT_MAX_UPDATE = 2, 100
 # K4 against its plain version: the reference's LSTM-gate tolerance
 # (tests/test_pallas.py:68) in fp32; bf16 in either input compared in fp32
 # after the cast
@@ -720,17 +749,79 @@ def _rewrites(pred):
 
 
 @contextlib.contextmanager
-def pallas_mode(value):
-    """``MXTPU_PALLAS`` for the Predictors built and reshaped inside."""
-    old = os.environ.get("MXTPU_PALLAS")
-    os.environ["MXTPU_PALLAS"] = value
+def env(**values):
+    """Environment switches for the Predictors and modules built and run
+    inside."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
     try:
         yield
     finally:
-        if old is None:
-            os.environ.pop("MXTPU_PALLAS", None)
-        else:
-            os.environ["MXTPU_PALLAS"] = old
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def pallas_mode(value):
+    """``MXTPU_PALLAS`` for the Predictors built and reshaped inside."""
+    return env(MXTPU_PALLAS=value)
+
+
+def eager():
+    """``MXTPU_GRAPH_COMPILE=0``: every program and step runs eagerly."""
+    return env(MXTPU_GRAPH_COMPILE="0")
+
+
+def replay_launches(run):
+    """Kernel launches of one call of ``run`` (after a warm one), from a
+    profiler trace: ``({kernel name: launches}, {runtime launch call:
+    calls})``; a captured call shows its kernels inside one
+    ``cudaGraphLaunch``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = {e.key: e.count for e in events
+               if e.device_type == DeviceType.CUDA}
+    host = {e.key: e.count for e in events
+            if e.device_type == DeviceType.CPU and ("LaunchKernel" in e.key
+                                                   or "GraphLaunch" in e.key)}
+    return kernels, host
+
+
+def _named(kernels, part):
+    return sum(n for key, n in kernels.items() if part in key)
+
+
+def check_replay(what, run, want):
+    """One captured call of ``run`` launches each kernel of ``want``
+    {kernel name: launches} that many times in the profiler's trace, and
+    the host launched a CUDA graph."""
+    kernels, host = replay_launches(run)
+    got = {name: _named(kernels, name) for name in want}
+    graphs = sum(n for key, n in host.items() if "GraphLaunch" in key)
+    log(json.dumps({"replay": what, "kernel_launches": got,
+                    "all_kernels": sum(kernels.values()),
+                    "host_launch_calls": host}))
+    if got != want or graphs < 1:
+        raise AssertionError(f"{what}: one replay launched {got} in "
+                             f"{graphs} graph launch(es), want {want}")
+    return {"kernels": sum(kernels.values()), "host": host,
+            "multi_tensor": _named(kernels, "multi_tensor_apply_kernel")}
+
+
+def _capture_err(got, want):
+    """max |got - want| over the largest |want| of a list of outputs."""
+    scale = max(float(np.abs(w).max()) for w in want)
+    return max(float(np.abs(g - w).max()) for g, w in zip(got, want)) / \
+        max(scale, 1e-30)
 
 
 def phase_slice(card):
@@ -797,10 +888,35 @@ def phase_slice(card):
         if launches["flash_attn_fwd"] != n_layers * forwards:
             raise AssertionError(f"K1 launched {launches} times over "
                                  f"{forwards} forwards")
+        # each forward replays its CUDA graph: K1 inside it, by the trace
+        check_replay("BERT serving seq 128",
+                     lambda: pred.forward(**feeds_short[0]),
+                     {"flash_attn_fwd_kernel": n_layers})
         # diagnostics after the counted run: where a forward's time goes
         profile_forward("K1 seq 128", pred, feeds_short[0])
         pred.reshape(shapes)
+        check_replay("BERT serving seq 512", lambda: pred.forward(**feeds[0]),
+                     {"flash_attn_fwd_kernel": n_layers})
         profile_forward("K1 seq 512", pred, feeds[0])
+
+    # the same path run eagerly (MXTPU_GRAPH_COMPILE=0), whose outputs the
+    # captured forwards must give
+    with pallas_mode("auto"), eager():
+        eag = mt.Predictor(sym.tojson(), blob, shapes)
+        eag_out, _ = _serve(eag, feeds, expect)
+        eag_lat = _latency(eag, feeds, TIMED[seq], expect)
+        eag.reshape(short_shapes)
+        eag_out_s, _ = _serve(eag, feeds_short, expect)
+        eag_lat_s = _latency(eag, feeds_short, TIMED[short], expect)
+        del eag
+    cap_err = max(_capture_err(outs, eag_out), _capture_err(outs_s, eag_out_s))
+    log(f"slice: p50 ms captured / eager: seq {seq} {lat['p50_ms']:.3f} / "
+        f"{eag_lat['p50_ms']:.3f}, seq {short} {lat_s['p50_ms']:.3f} / "
+        f"{eag_lat_s['p50_ms']:.3f}; captured against eager {cap_err:.3e} "
+        "of the largest output")
+    if cap_err > CAPTURE_TOL:
+        raise AssertionError(f"captured BERT forward off the eager one by "
+                             f"{cap_err} of the output's largest magnitude")
 
     worst = 0.0
     for got, want, shape in ([(g, w, (batch, seq, cfg["hidden"]))
@@ -818,6 +934,8 @@ def phase_slice(card):
         "tokens_per_s": batch * seq / (lat["p50_ms"] / 1e3),
         "tokens_per_s_short": batch * short / (lat_s["p50_ms"] / 1e3),
         "unfused_latency": ref_lat, "unfused_latency_short": ref_lat_s,
+        "eager_latency": eag_lat, "eager_latency_short": eag_lat_s,
+        "captured_vs_eager_rel_err": cap_err,
         "max_abs_diff_vs_unfused": worst, "launches": launches,
     }
     log(json.dumps(rec))
@@ -1147,11 +1265,37 @@ def phase_lstm_serving(card):
                 any(launches[k] for k in ATTN_KERNELS):
             raise AssertionError(f"LSTM serving launched {launches}; want "
                                  f"{want} of lstm_gates only")
+        for t in buckets:
+            check_replay(f"LSTM LM T {t}",
+                         lambda t=t: preds[t].forward(**feeds[t][0]),
+                         {"lstm_gates_kernel": 2 * t,
+                          "flash_attn_fwd_kernel": 0})
         # diagnostics after the counted run
         split = {t: _forward_and_copy(preds[t], feeds[t][0])
                  for t in buckets}
         prof = profile_forward(f"K4 LSTM T {buckets[0]}", preds[buckets[0]],
                                feeds[buckets[0]][0])
+    del preds
+    # the same path run eagerly (MXTPU_GRAPH_COMPILE=0)
+    eag_out, eag_lat, eag_split = {}, {}, {}
+    with pallas_mode("auto"), eager():
+        for t in buckets:
+            eag = mt.Predictor(syms[t].tojson(), blob, shapes[t])
+            expect = {"lstm_gates": 2 * t, "flash_attn_fwd": 0}
+            eag_out[t], _ = _serve(eag, feeds[t], expect)
+            eag_lat[t] = _latency(eag, feeds[t], LSTM_TIMED[t], expect)
+            eag_split[t] = _forward_and_copy(eag, feeds[t][0])
+            del eag
+    cap_err = {t: _capture_err(outs[t], eag_out[t]) for t in buckets}
+    for t in buckets:
+        log(f"lstm: T {t} p50 ms captured / eager {lat[t]['p50_ms']:.3f} / "
+            f"{eag_lat[t]['p50_ms']:.3f}; forward alone "
+            f"{split[t]['forward_p50_ms']:.3f} / "
+            f"{eag_split[t]['forward_p50_ms']:.3f}; captured against eager "
+            f"{cap_err[t]:.3e} of the largest output")
+    if max(cap_err.values()) > CAPTURE_TOL:
+        raise AssertionError(f"captured LM forward off the eager one: "
+                             f"{cap_err}")
     worst = {t: _check_lm_outputs(outs[t], ref_out[t], batch, t, vocab)
              for t in buckets}
     log(f"lstm: max |fused - unfused| {worst} (tolerance {LSTM_SLICE_TOL})")
@@ -1165,11 +1309,234 @@ def phase_lstm_serving(card):
            "forward_and_copy": {str(t): split[t] for t in buckets},
            "unfused_forward_and_copy": {str(t): ref_split[t]
                                         for t in buckets},
+           "eager_latency": {str(t): eag_lat[t] for t in buckets},
+           "eager_forward_and_copy": {str(t): eag_split[t]
+                                      for t in buckets},
+           "captured_vs_eager_rel_err": {str(t): cap_err[t]
+                                         for t in buckets},
            "max_abs_diff_vs_unfused": {str(t): worst[t] for t in buckets},
            "launches": launches,
            "profile": {k: prof[k] for k in ("wall_ms", "device_busy_ms",
                                             "idle_share", "k4_ms",
                                             "gemm_ms")}}
+    log(json.dumps(rec))
+    return launches
+
+# ---------------------------------------------------------------------------
+# phase 7: BERT-base masked-LM training through Module.fit, one CUDA graph
+# a step
+# ---------------------------------------------------------------------------
+
+def _fit_iter(vocab, batch, seq):
+    """An `NDArrayIter` over FIT_BATCHES fixed batches made from the seed:
+    token ids, positions (one row per sample) and labels that hold the
+    token at 15 % of the positions and -1 elsewhere."""
+    rng = np.random.RandomState(SEED + 5)
+    n = FIT_BATCHES * batch
+    data = rng.randint(0, vocab, (n, seq)).astype(np.float32)
+    label = np.where(rng.rand(n, seq) < 0.15, data, -1.0).astype(np.float32)
+    pos = np.tile(np.arange(seq, dtype=np.float32), (n, 1))
+    return mt.io.NDArrayIter({"data": data, "positions": pos},
+                             {"mlm_label": label}, batch_size=batch)
+
+
+def _fit_adam():
+    """BERT's Adam with a linear warm-up and linear decay (PolyScheduler,
+    pwr 1), in MXNet's optimizer_params form: a fresh schedule each call."""
+    sched = mt.lr_scheduler.PolyScheduler(
+        max_update=FIT_MAX_UPDATE, base_lr=ADAM["learning_rate"], pwr=1,
+        warmup_steps=FIT_WARMUP)
+    return dict(ADAM, lr_scheduler=sched)
+
+
+def _fit_module(sym, it, params):
+    mod = mt.mod.Module(sym, data_names=("data", "positions"),
+                        label_names=("mlm_label",))
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(arg_params=params)
+    mod.init_optimizer(optimizer="adam", optimizer_params=_fit_adam())
+    return mod
+
+
+def _batch_loss(mod, data_batch):
+    """Mean -log p(label) of a step's outputs over the masked positions."""
+    prob = mod.get_outputs()[0].data
+    flat = data_batch.label[0].data.to(prob.device).reshape(-1)
+    rows = torch.nonzero(flat >= 0).squeeze(1)
+    return -torch.log(prob[rows, flat[rows].long()]).mean().item()
+
+
+def _params_err(a, b):
+    """Worst parameter of module ``a`` against module ``b``: max |diff|
+    over the parameter's largest magnitude in ``b``."""
+    pa, pb = a._exec.arg_dict, b._exec.arg_dict
+    worst = {}
+    for name in a._exec._grad_arg_names:
+        x, y = pa[name].data, pb[name].data
+        worst[name] = ((x - y).abs().max() /
+                       y.abs().max().clamp_min(1e-30)).item()
+    name = max(worst, key=worst.get)
+    return name, worst[name]
+
+
+def _step_ms(step, n):
+    """Median ms of ``n`` calls of ``step``, each ending in a device
+    synchronize."""
+    lat = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(lat))
+
+
+def phase_fit(card, cfg=None, batch=8, seq=512):
+    """BERT-base masked-LM pretraining through `Module.fit` on cuda:0, the
+    whole step (forward, backward, the multi-tensor Adam update, the
+    accuracy) captured as one CUDA graph.  ``cfg`` cuts the model for a
+    rehearsal; the smoke runs BERT_BASE.  Returns the fit's launches."""
+    cfg = dict(BERT_BASE if cfg is None else cfg)
+    n_layers = cfg["num_layers"]
+    it = _fit_iter(cfg["vocab"], batch, seq)
+    shapes = {d.name: d.shape for d in it.provide_data + it.provide_label}
+    sym0 = bert_mlm(mt.sym, **dict(cfg, dropout=0.0))
+    arg_shapes, _, _ = sym0.infer_shape(**shapes)
+    params = random_params({n: s for n, s in zip(sym0.list_arguments(),
+                                                 arg_shapes)
+                            if n not in shapes}, SEED)
+    batches = list(it)
+    want = {"flash_attn_fwd_kernel": n_layers,
+            "flash_attn_bwd_dq_kernel": n_layers,
+            "flash_attn_bwd_dkv_kernel": n_layers}
+
+    # 1. the captured step against the eager one: dropout 0, the same
+    # weights and batches, the scheduler's lr new at every step
+    cap = _fit_module(sym0, it, params)
+    ref = _fit_module(sym0, it, params)
+    lrs = []
+    for k in range(FIT_K):
+        b = batches[k % len(batches)]
+        if not cap.fused_step(b):
+            raise AssertionError("Module.fused_step declined the step")
+        lrs.append(cap._optimizer.learning_rate)
+        with env(MXTPU_FUSED_STEP="0"):
+            ref.forward_backward(b)
+            ref.update()
+    if not cap._fused_train_step.captured or len(set(lrs)) != len(lrs):
+        raise AssertionError(f"steps not captured, or lr not new each step "
+                             f"({lrs})")
+    name, step_err = _params_err(cap, ref)
+    log(f"fit: after {FIT_K} steps at lr {lrs}, captured against eager: "
+        f"worst parameter {name} off by {step_err:.3e} of its largest "
+        "magnitude")
+    if step_err > FIT_TOL:
+        raise AssertionError(f"captured step's {name} off by {step_err}")
+    # with no dropout and lr 0, two replays give the same outputs: the
+    # control for the dropout check below
+    opt = cap._optimizer
+    opt.lr_scheduler, opt.lr = None, 0.0
+    cap.fused_step(batches[0])
+    o1 = cap.get_outputs()[0].data.clone()
+    cap.fused_step(batches[0])
+    if not torch.equal(o1, cap.get_outputs()[0].data):
+        raise AssertionError("two replays without dropout differ")
+    del cap, ref, o1
+    torch.cuda.empty_cache()
+
+    # 2. fit: dropout 0.1, the accuracy inside the step
+    mod = mt.mod.Module(bert_mlm(mt.sym, **cfg),
+                        data_names=("data", "positions"),
+                        label_names=("mlm_label",))
+    losses, metric = [], mt.metric.create("acc")
+
+    def on_batch(param):
+        losses.append(_batch_loss(mod, param.locals["data_batch"]))
+
+    torch.cuda.reset_peak_memory_stats()
+    hk.reset_launch_counts()
+    mt.random.seed(SEED)
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=FIT_EPOCHS, optimizer="adam",
+            optimizer_params=_fit_adam(), eval_metric=metric,
+            arg_params=params, batch_end_callback=on_batch)
+    fit_s = time.perf_counter() - t0
+    launches = dict(hk.LAUNCHES)
+    steps = FIT_EPOCHS * FIT_BATCHES
+    _check_launches(f"fit over {steps} steps", launches, n_layers * steps)
+    step = mod._fused_train_step
+    if not (step.captured and mod.last_step_metric_done):
+        raise AssertionError("fit's steps were not captured with the "
+                             "metric inside")
+    first = float(np.mean(losses[:FIT_BATCHES]))
+    last = float(np.mean(losses[-FIT_BATCHES:]))
+    log(f"fit: {steps} steps in {fit_s:.2f} s; losses {losses}")
+    if not np.isfinite(losses).all() or not last < first:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    del params
+
+    # 3. the in-step accuracy against a host update_metric on the same
+    # outputs and labels
+    b = batches[0]
+    acc = mt.metric.Accuracy()
+    if not (mod.fused_step(b, eval_metric=acc) and
+            mod.last_step_metric_done):
+        raise AssertionError("the metric did not ride the step")
+    host = mt.metric.Accuracy()
+    mod.update_metric(host, b.label)
+    if acc.get() != host.get() or acc.num_inst != host.num_inst:
+        raise AssertionError(f"in-step accuracy {acc.get()} "
+                             f"({acc.num_inst}) against host {host.get()} "
+                             f"({host.num_inst})")
+
+    # 4. dropout: at lr 0 the weights stand still, so two replays on one
+    # batch differ by their masks alone
+    opt = mod._optimizer
+    lr_sched = opt.lr_scheduler
+    opt.lr_scheduler, opt.lr = None, 0.0
+    w0 = mod._exec.arg_dict["word_embed_weight"].data.clone()
+    mod.fused_step(b, eval_metric=acc)
+    o1 = mod.get_outputs()[0].data.clone()
+    mod.fused_step(b, eval_metric=acc)
+    masks_differ = not torch.equal(o1, mod.get_outputs()[0].data)
+    if not masks_differ or not torch.equal(
+            w0, mod._exec.arg_dict["word_embed_weight"].data):
+        raise AssertionError("two replays drew the same dropout masks (or "
+                             "lr 0 moved the weights)")
+    opt.lr_scheduler = lr_sched
+    del o1, w0
+
+    # 5. launches and time of one step, captured and eager
+    replay = check_replay("fit step", lambda: mod.fused_step(b, acc), want)
+    eager_kernels, eager_host = replay_launches(
+        lambda: (mod.forward_backward(b), mod.update()))
+    captured_ms = _step_ms(lambda: mod.fused_step(b, acc), FIT_TIMED)
+    with eager():
+        unified_eager_ms = _step_ms(lambda: mod.fused_step(b, acc),
+                                    FIT_TIMED)
+    with env(MXTPU_FUSED_STEP="0"):
+        classic_ms = _step_ms(lambda: (mod.forward_backward(b),
+                                       mod.update()), FIT_TIMED)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    rec = {"slice": "bert_base_mlm_fit", "card": card, "batch": batch,
+           "seq": seq, "layers": n_layers, "dtype": "float32",
+           "epochs": FIT_EPOCHS, "batches": FIT_BATCHES,
+           "captured_vs_eager_param_rel_err": step_err, "lrs": lrs,
+           "first_epoch_loss": first, "last_epoch_loss": last,
+           "train_accuracy": metric.get()[1],
+           "step_p50_ms": {"captured": captured_ms,
+                           "eager_one_update": unified_eager_ms,
+                           "eager_per_parameter_update": classic_ms},
+           "tokens_per_s": batch * seq / (captured_ms / 1e3),
+           "kernels_per_step": {"captured": replay["kernels"],
+                                "eager": sum(eager_kernels.values())},
+           "update_launches_per_step": {
+               "captured": replay["multi_tensor"],
+               "eager": _named(eager_kernels, "multi_tensor_apply_kernel")},
+           "host_launch_calls_per_step": {"captured": replay["host"],
+                                          "eager": eager_host},
+           "peak_memory_gib": peak_gb, "launches": launches}
     log(json.dumps(rec))
     return launches
 
@@ -1183,17 +1550,18 @@ def main():
     serve_launches = phase_slice(card)
     train_launches = phase_train(card)
     lstm_launches = phase_lstm_serving(card)
+    fit_launches = phase_fit(card)
     leaked = [m for m in ("jax", "mxnet_tpu") if m in sys.modules]
     if leaked:
         raise SystemExit(f"chip_smoke: the port imported {leaked}")
     log(f"launches: serving {serve_launches}, training {train_launches}, "
-        f"LSTM serving {lstm_launches}")
+        f"LSTM serving {lstm_launches}, fit {fit_launches}")
     kernels = [{
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:92",
         "launches": serve_launches["flash_attn_fwd"] +
-        train_launches["flash_attn_fwd"],
+        train_launches["flash_attn_fwd"] + fit_launches["flash_attn_fwd"],
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
@@ -1205,7 +1573,7 @@ def main():
             "name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/flash_attn_bwd.cu",
             "replaces": f"mxnet_tpu/ops/pallas_kernels.py:{line}",
-            "launches": train_launches[name],
+            "launches": train_launches[name] + fit_launches[name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],

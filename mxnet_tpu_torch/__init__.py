@@ -9,12 +9,16 @@ the JAX package.
 
 Ported so far: the deploy path ``Predictor(symbol_json, params,
 input_shapes)`` over the ops a BERT encoder and an unrolled LSTM language
-model use, with the graph optimizer's swaps onto the flash-attention
-forward kernel and the fused LSTM cell-update kernel; the legacy symbolic
-RNN cells (`rnn.LSTMCell`, `rnn.SequentialRNNCell`); and symbolic training
-through ``mod.Module`` (bind, init_params, init_optimizer, forward,
-backward, update) with SGD and Adam, where attention's gradient runs on
-the flash-attention backward kernels.
+model use, with the graph optimizer's five inference passes (constant
+and BatchNorm folding, elimination, CSE, and the swaps onto the
+flash-attention forward kernel and the fused LSTM cell-update kernel);
+the legacy symbolic RNN cells (`rnn.LSTMCell`, `rnn.SequentialRNNCell`);
+and symbolic training through ``mod.Module`` (bind, init_params,
+init_optimizer, forward, backward, update, and ``fit``/``score``/
+``predict`` over `io.NDArrayIter` with `metric`, `lr_scheduler` and
+`callback`) with SGD and Adam, where attention's gradient runs on the
+flash-attention backward kernels.  On the card, inference forwards and
+the whole training step run as CUDA graphs.
 """
 from . import base, config, ops  # noqa: F401
 from .base import MXNetError
@@ -22,10 +26,11 @@ from .context import Context, cpu, gpu
 from . import ndarray as nd
 from . import symbol as sym
 from . import random, io, initializer, optimizer, rnn  # noqa: F401
+from . import lr_scheduler, metric, callback  # noqa: F401
 from . import initializer as init
 from . import module as mod
 from .predictor import Predictor
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "nd", "sym", "random",
            "io", "init", "initializer", "optimizer", "mod", "rnn",
-           "Predictor"]
+           "lr_scheduler", "metric", "callback", "Predictor"]

@@ -1,0 +1,88 @@
+"""Training callbacks (the counterpart of `mxnet_tpu/callback.py`;
+reference `python/mxnet/callback.py`): `Speedometer`,
+`LogValidationMetricsCallback`, `log_train_metric` and `ProgressBar`.
+``do_checkpoint`` and ``module_checkpoint`` wait for checkpoints."""
+from __future__ import annotations
+
+import logging
+import sys
+import time
+
+__all__ = ["Speedometer", "log_train_metric", "ProgressBar",
+           "LogValidationMetricsCallback"]
+
+
+class Speedometer:
+    """Log throughput every `frequent` batches (reference
+    `callback.py:Speedometer`)."""
+
+    def __init__(self, batch_size, frequent=50, auto_reset=True):
+        self.batch_size = batch_size
+        self.frequent = frequent
+        self.auto_reset = auto_reset
+        self.init = False
+        self.tic = 0
+        self.last_count = 0
+
+    def __call__(self, param):
+        count = param.nbatch
+        if self.last_count > count:
+            self.init = False
+        self.last_count = count
+        if self.init:
+            if count % self.frequent == 0:
+                speed = self.frequent * self.batch_size / (
+                    time.time() - self.tic)
+                if param.eval_metric is not None:
+                    name_value = param.eval_metric.get_name_value()
+                    if self.auto_reset:
+                        param.eval_metric.reset()
+                    msg = "Epoch[%d] Batch [%d]\tSpeed: %.2f samples/sec"
+                    msg += "\t%s=%f" * len(name_value)
+                    logging.info(msg, param.epoch, count, speed,
+                                 *sum(name_value, ()))
+                else:
+                    logging.info(
+                        "Iter[%d] Batch [%d]\tSpeed: %.2f samples/sec",
+                        param.epoch, count, speed)
+                self.tic = time.time()
+        else:
+            self.init = True
+            self.tic = time.time()
+
+
+class LogValidationMetricsCallback:
+    """Log eval metrics at the end of an epoch (reference
+    `callback.py:LogValidationMetricsCallback`)."""
+
+    def __call__(self, param):
+        if not param.eval_metric:
+            return
+        for name, value in param.eval_metric.get_name_value():
+            logging.info('Epoch[%d] Validation-%s=%f', param.epoch, name,
+                         value)
+
+
+def log_train_metric(period, auto_reset=False):
+    def _callback(param):
+        if param.nbatch % period == 0 and param.eval_metric is not None:
+            name_value = param.eval_metric.get_name_value()
+            for name, value in name_value:
+                logging.info("Iter[%d] Batch[%d] Train-%s=%f",
+                             param.epoch, param.nbatch, name, value)
+            if auto_reset:
+                param.eval_metric.reset()
+    return _callback
+
+
+class ProgressBar:
+    def __init__(self, total, length=80):
+        self.total = total
+        self.length = length
+
+    def __call__(self, param):
+        count = param.nbatch
+        filled = int(round(self.length * count / float(self.total)))
+        pct = round(100.0 * count / float(self.total), 1)
+        bar = "=" * filled + "-" * (self.length - filled)
+        sys.stdout.write(f"[{bar}] {pct}%\r")

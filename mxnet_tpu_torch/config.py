@@ -43,6 +43,35 @@ _reg("MXTPU_UNIFIED_STEP", str, "1",
      "(graph_opt.train_passes)")
 
 
+_reg("MXTPU_GRAPH_OPT_FOLD_MAX_MB", int, 64,
+     "constant-folding budget: skip the fold when the baked constants "
+     "would exceed this many MB (graph_opt fold_const)")
+_reg("MXTPU_GRAPH_COMPILE", str, "1",
+     "CUDA-graph capture of inference programs and training steps; "
+     "'0'/'false'/'off' runs their steps eagerly "
+     "(graph_compile.graph_compile_enabled)")
+_reg("MXTPU_FUSED_STEP", str, "1",
+     "one-step training plane; '0'/'false'/'off' makes Module.fit run "
+     "forward_backward + the per-parameter update "
+     "(fused_step.fused_enabled)")
+_reg("MXTPU_UNIFIED_METRIC", str, "1",
+     "fit's metric accumulated inside the training step; "
+     "'0'/'false'/'off' keeps the per-step host update_metric "
+     "(unified_step.metric_in_trace_enabled)")
+
+
+def _flag(raw) -> bool:
+    """dmlc's bool: "0", "false" and "" are false, anything else true."""
+    return str(raw).strip().lower() not in ("0", "false", "")
+
+
+_reg("MXTPU_ANOMALY_GUARD", _flag, False,
+     "device-side finite check of the loss outputs and the global "
+     "gradient norm inside the training step: a non-finite step leaves "
+     "the parameters, optimizer states and aux states as they were "
+     "(unified_step.anomaly_guard_enabled)")
+
+
 def get_env(name: str, default: Optional[Any] = None):
     """Typed env lookup; unregistered names return the raw string (or
     ``default``)."""

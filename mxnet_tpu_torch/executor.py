@@ -7,7 +7,10 @@ output (the path `Predictor` serves and `Module` trains).  With
 ``is_train=True`` and gradient arguments bound, the forward records an
 autograd tape with those arguments as leaves; ``backward`` (or
 ``compiled_backward``) turns the head gradients, ones by default, into
-``grad_dict`` by each argument's ``grad_req``.
+``grad_dict`` by each argument's ``grad_req``.  A train-mode forward
+writes the new values of the auxiliary states it mutates (BatchNorm's
+moving statistics) into ``aux_dict``, in place.  ``make_fused_step``
+builds the one-step training program of `fused_step`.
 """
 from __future__ import annotations
 
@@ -28,12 +31,12 @@ __all__ = ["Executor", "build_graph_fn"]
 
 def build_graph_fn(symbol, train: bool = False):
     """The symbol DAG as a function ``fn(feed: {name: tensor}, generator)
-    -> [outputs]``: each op's registered function runs in topological
-    order, under `torch.inference_mode`."""
+    -> (outputs, aux_updates)``: each op's registered function runs in
+    topological order, under `torch.inference_mode`."""
     plan = build_steps(symbol)
 
     def fn(feed: Dict[str, torch.Tensor],
-           generator: Optional[torch.Generator] = None) -> List[torch.Tensor]:
+           generator: Optional[torch.Generator] = None):
         return run_steps(plan, feed, train, generator)
 
     return fn
@@ -107,6 +110,13 @@ class Executor:
         feed.update({n: a.data for n, a in self.aux_dict.items()})
         return feed
 
+    def _write_aux(self, aux: Dict[str, torch.Tensor]) -> None:
+        """The mutated auxiliary states' new values, copied in place."""
+        with torch.no_grad():
+            for name, val in aux.items():
+                if name in self.aux_dict:
+                    self.aux_dict[name].data.copy_(val)
+
     def _record(self, program: Optional[GraphProgram], names):
         """A train-mode forward of the composed graph (``program`` None)
         or of the training program, recorded for backward."""
@@ -122,12 +132,14 @@ class Executor:
         self._tape_program = program
         names = self._grad_arg_names if is_train else []
         if names:
-            outs, self._tape = self._record(program, names)
+            outs, aux, self._tape = self._record(program, names)
         else:
             feed, gen = self._feed(), _random.generator(self._ctx.device)
-            outs = run_steps(self._graph_plan, feed, is_train, gen) \
+            outs, aux = run_steps(self._graph_plan, feed, is_train, gen) \
                 if program is None else program.forward(feed, gen)
             self._tape = None
+        if is_train:
+            self._write_aux(aux)
         self.outputs = [NDArray(o) for o in outs]
         return self.outputs
 
@@ -161,7 +173,7 @@ class Executor:
         if not names:
             return self.grad_arrays
         if self._tape is None:
-            _, self._tape = self._record(self._tape_program, names)
+            _, _, self._tape = self._record(self._tape_program, names)
         if out_grads is None:
             cts = [torch.ones_like(o.data) for o in self.outputs]
         else:
@@ -177,6 +189,12 @@ class Executor:
         """Backward of the last `compiled_forward` (the same tape walk as
         `backward`; the training program built no other)."""
         return self.backward(out_grads)
+
+    def make_fused_step(self, optimizer, updater, train_names):
+        """The whole training step of this executor (forward, backward,
+        the multi-tensor update) as one program (`fused_step`)."""
+        from .fused_step import FusedTrainStep
+        return FusedTrainStep(self, optimizer, updater, train_names)
 
     def copy_params_from(self, arg_params, aux_params=None,
                          allow_extra_params=False) -> None:

@@ -1,33 +1,47 @@
 """Graph optimizer: rewrite passes over the bound Symbol graph (the
-counterpart of `mxnet_tpu/graph_opt.py`).
+counterpart of `mxnet_tpu/graph_opt.py`), under the JAX package's pass
+names, in its order, with its rewrites, details and parity labels, so the
+two packages' reports compare one to one.
 
-Ported so far: **pallas_select**, which keeps the JAX package's pass name
-so that the two packages' reports compare one to one.  It pattern-matches
-two idioms and swaps in the ops of `ops/hopper_kernels.py`:
+Inference passes, in order:
 
-* MXNet's attention ``batch_dot(softmax(batch_dot(Q, Kᵀ)[·s]), V)`` →
-  `_fused_attention` (K1), when the analytic flop count ``4·B·Lq·Lk·d``
-  clears ``MXTPU_PALLAS_MIN_FLOPS``;
-* the unfused LSTM cell of `rnn.LSTMCell` — ``SliceChannel(gates, 4)``,
-  σ/σ/tanh/σ, ``f·c + i·g`` and ``o·tanh(c')`` → `_fused_lstm_gates` (K4),
-  at every site, as in the JAX package.
+* **fold_const** -- subgraphs whose inputs are all constants (roots:
+  the zero-input constructors ``_zeros``/``_ones``/``_full``/``_arange``/
+  ``_eye``) run once at build through `registry.apply_op`, the dispatch
+  the executor uses, so folding is bitwise; their values enter the
+  program as ``const_feed`` inputs, under ``MXTPU_GRAPH_OPT_FOLD_MAX_MB``.
+* **fold_bn** -- eval-mode BatchNorm folds into the FullyConnected or
+  Convolution before it, as graph nodes over the same parameter
+  variables (``W' = W·scale``, ``b' = beta + (b - mm)·scale``, ``scale =
+  gamma·rsqrt(mv + eps)``): an algebraic rewrite, parity within ULP.
+* **eliminate** -- inverse transpose/swapaxes pairs, identity-axes
+  transposes, reshape∘reshape chains, identity/_copy (and, on inference
+  graphs, BlockGrad) forwarding.
+* **cse** -- common-subexpression elimination keyed by (op, canonical
+  attrs, input entries); ops that draw random numbers or mutate inputs
+  never merge.
+* **pallas_select** -- pattern-matches two idioms and swaps in the ops of
+  `ops/hopper_kernels.py`: MXNet's attention
+  ``batch_dot(softmax(batch_dot(Q, Kᵀ)[·s]), V)`` → `_fused_attention`
+  (K1), when the reference's flop count (XLA's cost analysis of the
+  unfused lowering, in closed form: ``4·B·Lq·Lk·d + B·Lq·(4·Lk - 1)``)
+  clears ``MXTPU_PALLAS_MIN_FLOPS``; and the unfused LSTM cell of
+  `rnn.LSTMCell` → `_fused_lstm_gates` (K4), at every site.  The op takes
+  rank 3 and 4 alike, so a rank-3 site needs none of the reference's
+  reshape shims.  Behind ``MXTPU_PALLAS``: ``auto`` swaps only when the
+  bound device is CUDA with compute capability (9, 0), ``1`` on any
+  device, ``0`` never.  A site keeps its unfused graph by the JAX
+  package's rules alone (a ragged sequence, see
+  `hopper_kernels.check_attention`; gates not of rank 2).  On CUDA a site
+  the kernel is not built for (an attention head dim, an LSTM dtype other
+  than float32 or bfloat16) makes the bind fail: ``MXTPU_PALLAS=0`` is
+  then the caller's choice, never a silent one.
 
-Behind ``MXTPU_PALLAS``: ``auto`` swaps only when the bound device is CUDA
-with compute capability (9, 0), ``1`` on any device, ``0`` never.  A site
-keeps its unfused graph by the JAX package's rules alone (a ragged
-sequence, see `hopper_kernels.check_attention`; gates not of rank 2).  On
-CUDA a site the kernel is not built for (an attention head dim, an LSTM
-dtype other than float32 or bfloat16) makes the bind fail:
-``MXTPU_PALLAS=0`` is then the caller's choice, never a silent one.
-
-The training pipeline (`optimize(..., train=True)`, `training_result`)
-runs the JAX package's training pass list, which never holds
-``pallas_select``: a training graph reaches the attention kernels only by
-naming `_fused_attention` itself.  Its passes (``eliminate``, ``cse``,
-``dead_aux``) are not ported yet and report 0 rewrites under their own
-names; on the graphs the port trains the JAX package's make 0 rewrites
-too.  The JAX package's other inference passes (fold_const, fold_bn,
-eliminate, cse) wait for later slices.
+Training graphs run ``eliminate`` (BlockGrad kept), ``cse`` and
+``dead_aux`` (identity forwarding only), or with ``MXTPU_UNIFIED_STEP=0``
+the legacy ``cse`` and ``dead_aux``; `training_result` checks that a
+rewrite kept the output count, the random-number nodes and the aux
+state set.
 
 Every pass is pure: the input symbol is never modified, and untouched
 regions are shared by identity with the result.
@@ -46,7 +60,7 @@ from .base import MXNetError
 from .ops import registry as _reg
 from .ops.hopper_kernels import (check_attention, check_kernel_inputs,
                                  check_lstm_kernel_inputs)
-from .ops.registry import Attrs
+from .ops.registry import Attrs, canonical_attrs
 from .symbol.symbol import Symbol, _Node, _infer_graph, _topo, _value_key
 
 __all__ = ["PassReport", "PipelineResult", "optimize", "graph_opt_enabled",
@@ -87,8 +101,10 @@ class PassReport:
 
 @dataclass
 class PipelineResult:
-    """The optimized symbol and the per-pass reports."""
+    """The optimized symbol, the constants it now feeds on (to be merged
+    into every feed of it), and the per-pass reports."""
     symbol: Any
+    const_feed: Dict[str, torch.Tensor]
     reports: List[PassReport]
     enabled: bool
 
@@ -99,6 +115,10 @@ class PipelineResult:
 
 def _n_compute(symbol) -> int:
     return sum(1 for n in _topo(symbol._heads) if not n.is_var)
+
+
+def _var_names(symbol) -> set:
+    return {n.name for n in _topo(symbol._heads) if n.is_var}
 
 
 def _node_attrs(node) -> Attrs:
@@ -207,15 +227,288 @@ def _infer_entries(symbol, shapes, dtypes=None):
 
 
 # ---------------------------------------------------------------------------
+# fold_const
+# ---------------------------------------------------------------------------
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _pass_fold_const(symbol, train, ctx, const_feed):
+    """Evaluate variable-free subgraphs once at build.  A node is constant
+    when all its inputs are and it neither draws random numbers, reads
+    train mode nor mutates inputs; the constant entries that feed the rest
+    of the graph become variables with their values in ``const_feed``."""
+    nodes = _topo(symbol._heads)
+    is_const: Dict[int, bool] = {}
+    for n in nodes:
+        if n.is_var:
+            is_const[id(n)] = False
+            continue
+        op = _reg.get_op(n.op)
+        if op.needs_rng or op.uses_train_mode or \
+                op.mutate_slots(_node_attrs(n)):
+            is_const[id(n)] = False
+            continue
+        is_const[id(n)] = all(is_const[id(i)] for (i, _) in n.inputs)
+
+    frontier, seen = [], set()
+
+    def note(entry):
+        node, idx = entry
+        if is_const.get(id(node)) and (id(node), idx) not in seen:
+            seen.add((id(node), idx))
+            frontier.append(entry)
+
+    for n in nodes:
+        if n.is_var or is_const[id(n)]:
+            continue
+        for e in n.inputs:
+            note(e)
+    for e in symbol._heads:
+        note(e)
+    if not frontier:
+        return symbol, 0, "bitwise", {}
+
+    vals: Dict[Tuple[int, int], torch.Tensor] = {}
+    with torch.inference_mode():
+        for n in nodes:
+            if n.is_var or not is_const[id(n)]:
+                continue
+            ins = [vals[(id(i), idx)] for (i, idx) in n.inputs]
+            outs = _reg.apply_op(n.op, ins, strip_annotations(n.attrs))
+            for i, o in enumerate(outs):
+                vals[(id(n), i)] = o
+
+    cap_mb = config.get_env("MXTPU_GRAPH_OPT_FOLD_MAX_MB", 64)
+    total = sum(_nbytes(vals[(id(n), i)]) for (n, i) in frontier)
+    if total > int(cap_mb) * (1 << 20):
+        return symbol, 0, "bitwise", {
+            "skipped": f"folded constants {total}B exceed "
+                       f"MXTPU_GRAPH_OPT_FOLD_MAX_MB={cap_mb}"}
+    entry_map, folded = {}, []
+    for (node, idx) in frontier:
+        name = ctx.name("const")
+        const_feed[name] = vals[(id(node), idx)]
+        entry_map[(id(node), idx)] = (_Node(None, name, {}, []), 0)
+        folded.append(f"{node.name}#{idx}")
+    return _substitute(symbol, entry_map), len(frontier), "bitwise", {
+        "folded_entries": folded, "const_bytes": total}
+
+
+# ---------------------------------------------------------------------------
+# fold_bn
+# ---------------------------------------------------------------------------
+
+def _pass_fold_bn(symbol, train, ctx, const_feed):
+    """Fold eval-mode BatchNorm into the single-consumer FullyConnected or
+    Convolution before it, as graph nodes over the same parameter
+    variables (reloading parameters keeps working):
+
+        scale = gamma · rsqrt(moving_var + eps)     (gamma ≡ 1 if fix_gamma)
+        W'    = W · reshape(scale, (C, 1, ...))
+        b'    = beta + (b − moving_mean) · scale    (b ≡ 0 if no_bias)
+
+    Only a BatchNorm that emits output 0 alone (no output_mean_var)
+    folds; its eval-mode aux writes are identities."""
+    if train:
+        return symbol, 0, "ulp", {"skipped": "training graph"}
+    nodes = _topo(symbol._heads)
+    counts = _consumer_counts(symbol)
+    entry_map, folded = {}, []
+
+    def mk(op, inputs, hint, **attrs):
+        return _Node(op, ctx.name(hint), dict(attrs), list(inputs))
+
+    for bn in nodes:
+        if bn.is_var or bn.op != "BatchNorm":
+            continue
+        a = _node_attrs(bn)
+        if a.get_bool("output_mean_var", False):
+            continue
+        if any(counts.get((id(bn), i), 0) for i in range(1, bn.num_outputs)):
+            continue
+        axis = a.get_int("axis", 1)
+        prev, pidx = bn.inputs[0]
+        if prev.is_var or pidx != 0 or (id(prev), 0) not in counts:
+            continue
+        if prev.op not in ("Convolution", "FullyConnected"):
+            continue
+        if counts[(id(prev), 0)] != 1 or (id(prev), 0) in entry_map:
+            continue
+        pa = _node_attrs(prev)
+        if prev.op == "Convolution":
+            kernel = pa.get_tuple("kernel", None)
+            if (pa.get_str("layout", None) or "NCHW") != "NCHW" \
+                    or axis != 1 or kernel is None:
+                continue
+            w_rank = 2 + len(kernel)
+        else:
+            if axis not in (1, -1):
+                continue
+            w_rank = 2
+        gamma_e, beta_e, mm_e, mv_e = bn.inputs[1:5]
+        inv = mk("rsqrt", [(mk("_plus_scalar", [mv_e], "bn_eps",
+                               scalar=a.get_float("eps", 1e-3)), 0)],
+                 "bn_inv")
+        scale_e = (inv, 0)
+        if not a.get_bool("fix_gamma", True):
+            scale_e = (mk("broadcast_mul", [gamma_e, scale_e], "bn_scale"),
+                       0)
+        scale_r = mk("reshape", [scale_e], "bn_scale_r",
+                     shape=(-1,) + (1,) * (w_rank - 1))
+        w_new = mk("broadcast_mul", [prev.inputs[1], (scale_r, 0)], "bn_w")
+        if pa.get_bool("no_bias", False):
+            b_new = mk("broadcast_sub",
+                       [beta_e, (mk("broadcast_mul", [mm_e, scale_e],
+                                    "bn_mmsc"), 0)], "bn_b")
+        else:
+            diff = mk("broadcast_sub", [prev.inputs[2], mm_e], "bn_bm")
+            b_new = mk("broadcast_add",
+                       [beta_e, (mk("broadcast_mul", [(diff, 0), scale_e],
+                                    "bn_bmsc"), 0)], "bn_b")
+        new_attrs = dict(prev.attrs)
+        new_attrs["no_bias"] = False
+        fused = _Node(prev.op, ctx.name(prev.op.lower()), new_attrs,
+                      [prev.inputs[0], (w_new, 0), (b_new, 0)])
+        entry_map[(id(bn), 0)] = (fused, 0)
+        folded.append(f"{prev.name}+{bn.name}")
+    if not entry_map:
+        return symbol, 0, "ulp", {}
+    return _substitute(symbol, entry_map), len(folded), "ulp", {
+        "folded": folded,
+        "note": "algebraic rewrite: parity within float ULP, verified "
+                "at rtol/atol 1e-5 by tests/test_graph_opt.py; eval-mode "
+                "BN identity aux writes dropped"}
+
+
+# ---------------------------------------------------------------------------
+# eliminate, dead_aux and cse
+# ---------------------------------------------------------------------------
+
+def _pass_eliminate(symbol, train, ctx, const_feed, safe_only=False):
+    """Layout-pair and no-op elimination.  ``safe_only`` (the training
+    list's ``dead_aux``) forwards identity/_copy alone; the full pass also
+    removes inverse transpose/swapaxes pairs and identity-axes
+    transposes, collapses reshape∘reshape chains, and on inference graphs
+    forwards BlockGrad/stop_gradient.  Dead nodes and orphaned variables
+    drop out in the rebuild."""
+    nodes = _topo(symbol._heads)
+    vars_before = _var_names(symbol)
+    entry_map, removed = {}, []
+    fwd_ops = {"identity", "_copy"}
+    if not train and not safe_only:
+        fwd_ops |= {"BlockGrad", "stop_gradient"}
+
+    def axes_of(node):
+        return _node_attrs(node).get_tuple("axes", None)
+
+    for n in nodes:
+        if n.is_var:
+            continue
+        if n.op in fwd_ops:
+            entry_map[(id(n), 0)] = n.inputs[0]
+            removed.append(n.name)
+            continue
+        if safe_only:
+            continue
+        inp, iidx = n.inputs[0] if n.inputs else (None, 0)
+        chained = inp is not None and not inp.is_var and iidx == 0 \
+            and inp.op == n.op and (id(inp), 0) not in entry_map
+        if n.op == "transpose":
+            ax = axes_of(n)
+            if ax is not None and tuple(ax) == tuple(range(len(ax))):
+                entry_map[(id(n), 0)] = n.inputs[0]
+                removed.append(n.name)
+                continue
+            if chained:
+                in_ax = axes_of(inp)
+                if (ax is None and in_ax is None) or (
+                        ax is not None and in_ax is not None
+                        and len(ax) == len(in_ax)
+                        and all(in_ax[ax[k]] == k for k in range(len(ax)))):
+                    entry_map[(id(n), 0)] = inp.inputs[0]
+                    removed.append(n.name)
+                    continue
+        if n.op == "swapaxes" and chained:
+            a, ia = _node_attrs(n), _node_attrs(inp)
+            if {a.get_int("dim1", 0), a.get_int("dim2", 0)} == \
+                    {ia.get_int("dim1", 0), ia.get_int("dim2", 0)}:
+                entry_map[(id(n), 0)] = inp.inputs[0]
+                removed.append(n.name)
+                continue
+        if n.op == "reshape" and chained:
+            a = _node_attrs(n)
+            shape = a.get_tuple("shape", None)
+            if shape is not None and not a.get_bool("reverse", False) \
+                    and all(int(s) > 0 or int(s) == -1 for s in shape):
+                nn = _Node("reshape", ctx.name("reshape"),
+                           {"shape": tuple(shape)}, [inp.inputs[0]])
+                entry_map[(id(n), 0)] = (nn, 0)
+                removed.append(inp.name)
+
+    new_sym = _substitute(symbol, entry_map)
+    dropped_vars = sorted(vars_before - _var_names(new_sym))
+    details: Dict[str, Any] = {}
+    if removed:
+        details["removed"] = removed
+    if dropped_vars:
+        details["dropped_vars"] = dropped_vars
+    return new_sym, len(removed), "bitwise", details
+
+
+def _pass_dead_aux(symbol, train, ctx, const_feed):
+    return _pass_eliminate(symbol, train, ctx, const_feed, safe_only=True)
+
+
+def _pass_cse(symbol, train, ctx, const_feed):
+    """Merge nodes of one (op, canonical attrs, input entries) key.  A
+    duplicate and its keeper share their input subtrees by identity, so
+    removing the duplicate reorders no surviving random-number node."""
+    nodes = _topo(symbol._heads)
+    sub: Dict[int, Any] = {}
+    seen: Dict[Any, Any] = {}
+    entry_map, merged = {}, []
+    for n in nodes:
+        if n.is_var:
+            continue
+        op = _reg.get_op(n.op)
+        stripped = strip_annotations(n.attrs)
+        if op.needs_rng or op.mutate_slots(Attrs(stripped)):
+            continue
+        rins = tuple((id(sub.get(id(i), i)), idx) for (i, idx) in n.inputs)
+        try:
+            key = (n.op, canonical_attrs(stripped), rins)
+            hash(key)
+        except TypeError:
+            continue
+        keeper = seen.get(key)
+        if keeper is None:
+            seen[key] = n
+            continue
+        sub[id(n)] = keeper
+        for i in range(n.num_outputs):
+            entry_map[(id(n), i)] = (keeper, i)
+        merged.append(f"{n.name}->{keeper.name}")
+    details = {"merged": merged} if merged else {}
+    return _substitute(symbol, entry_map), len(merged), "bitwise", details
+
+
+# ---------------------------------------------------------------------------
 # pallas_select
 # ---------------------------------------------------------------------------
 
-def _attention_flops(q_shape, k_shape):
-    """2·(QKᵀ) + 2·(PV) multiply-adds: 4·B·Lq·Lk·d."""
+def _attention_flops(q_shape, k_shape, v_shape):
+    """The reference's flop count of the unfused attention: XLA's cost
+    analysis of ``softmax(Q·Kᵀ)·V``, which reads 2·(QKᵀ) + 2·(PV)
+    multiply-adds, ``4·B·Lq·Lk·d``, plus the softmax's ``B·Lq·(4·Lk - 1)``
+    (``v_shape``, the reference's third argument, adds nothing: V is
+    [.., Lk, d])."""
     batch = 1
     for s in q_shape[:-2]:
         batch *= int(s)
-    return 4.0 * batch * q_shape[-2] * k_shape[-2] * q_shape[-1]
+    lq, d, lk = int(q_shape[-2]), int(q_shape[-1]), int(k_shape[-2])
+    return 4.0 * batch * lq * lk * d + batch * lq * (4.0 * lk - 1.0)
 
 
 def _match_attention(symbol, ctx, entry_shapes, counts, entry_map, details,
@@ -283,7 +576,7 @@ def _match_attention(symbol, ctx, entry_shapes, counts, entry_map, details,
             details.setdefault("fallback_sites", []).append(
                 f"{n.name}: {e}")
             continue
-        flops = _attention_flops(qs, ks)
+        flops = _attention_flops(qs, ks, vs)
         if flops < min_flops:
             details.setdefault("below_threshold", []).append(
                 f"{n.name}: {flops:.3g} < {min_flops:.3g}")
@@ -419,7 +712,8 @@ def _match_lstm(symbol, ctx, entry_shapes, entry_dtypes, entry_map,
     return swapped
 
 
-def _pass_pallas_select(symbol, shapes, device, dtypes):
+def _pass_pallas_select(symbol, train, ctx, const_feed, shapes=None,
+                        device=None, dtypes=None):
     """Swap matched attention subgraphs and LSTM cells for the Hopper
     kernels when the device gate (and, for attention, the flop floor) say
     so.  Parity is documented-ULP (the online softmax reassociates)."""
@@ -436,7 +730,6 @@ def _pass_pallas_select(symbol, shapes, device, dtypes):
     if not entry_shapes:
         return symbol, 0, "ulp", {"skipped": "no input shapes available "
                                              "for pattern matching"}
-    ctx = _Ctx(symbol)
     entry_map: Dict[Tuple[int, int], Any] = {}
     details: Dict[str, Any] = {}
     n_attn = _match_attention(symbol, ctx, entry_shapes,
@@ -457,10 +750,11 @@ def _pass_pallas_select(symbol, shapes, device, dtypes):
 # ---------------------------------------------------------------------------
 
 #: inference pipeline, in order
-INFER_PASSES: Tuple[str, ...] = ("pallas_select",)
-#: legacy training pipeline (the JAX package's pre-unification subset)
+INFER_PASSES: Tuple[str, ...] = ("fold_const", "fold_bn", "eliminate",
+                                 "cse", "pallas_select")
+#: legacy training pipeline (``MXTPU_UNIFIED_STEP=0``)
 TRAIN_PASSES: Tuple[str, ...] = ("cse", "dead_aux")
-#: the training pipeline of the JAX package's unified step
+#: the training pipeline of the unified step
 TRAIN_PASSES_UNIFIED: Tuple[str, ...] = ("eliminate", "cse", "dead_aux")
 
 
@@ -472,17 +766,13 @@ def train_passes() -> Tuple[str, ...]:
     return TRAIN_PASSES_UNIFIED if on else TRAIN_PASSES
 
 
-def _pass_not_ported(symbol, shapes, device, dtypes):
-    """A training pass of the JAX package that waits for a later slice:
-    the graph passes through unchanged, reported under the pass's name."""
-    return symbol, 0, "bitwise", {"skipped": "not ported yet"}
-
-
 _PASS_FNS: Dict[str, Callable] = {
+    "fold_const": _pass_fold_const,
+    "fold_bn": _pass_fold_bn,
+    "eliminate": _pass_eliminate,
+    "cse": _pass_cse,
+    "dead_aux": _pass_dead_aux,
     "pallas_select": _pass_pallas_select,
-    "eliminate": _pass_not_ported,
-    "cse": _pass_not_ported,
-    "dead_aux": _pass_not_ported,
 }
 
 
@@ -495,22 +785,27 @@ def optimize(symbol, shapes: Optional[Dict] = None,
     ``train`` the training list.  ``shapes`` ({input name -> shape}) and
     ``dtypes`` ({input name -> dtype}, float32 where not given) feed the
     pattern matcher; ``device`` is where the graph will run, which the
-    ``auto`` kernel gate reads."""
+    ``auto`` kernel gate reads.  The result's ``const_feed`` (CPU
+    tensors) must be merged into every feed of the optimized graph."""
     if not graph_opt_enabled():
-        return PipelineResult(symbol, [], False)
+        return PipelineResult(symbol, {}, [], False)
     skip = skipped_passes()
+    ctx = _Ctx(symbol)
+    const_feed: Dict[str, torch.Tensor] = {}
     reports: List[PassReport] = []
     for name in (train_passes() if train else INFER_PASSES):
         if name in skip:
             continue
         before = _n_compute(symbol)
         t0 = time.perf_counter()
-        symbol, rewrites, parity, details = _PASS_FNS[name](symbol, shapes,
-                                                            device, dtypes)
+        extra = dict(shapes=shapes, device=device, dtypes=dtypes) \
+            if name == "pallas_select" else {}
+        symbol, rewrites, parity, details = _PASS_FNS[name](
+            symbol, train, ctx, const_feed, **extra)
         wall_ms = (time.perf_counter() - t0) * 1e3
         reports.append(PassReport(name, before, _n_compute(symbol), rewrites,
                                   round(wall_ms, 3), parity, details))
-    return PipelineResult(symbol, reports, True)
+    return PipelineResult(symbol, const_feed, reports, True)
 
 
 def _check_train_invariants(orig, opt) -> None:

@@ -2,10 +2,13 @@
 `mxnet_tpu/module/module.py`; reference `python/mxnet/module/module.py`).
 
 ``bind`` → ``init_params`` → ``init_optimizer``, then per batch
-``forward`` / ``backward`` / ``update``.  The module trains through its
-executor's training `GraphProgram` and updates its parameters in place
-with the local `Updater`.  Without a ``context`` it runs on the card.
-KVStore, ``fit``/``score`` and checkpoints come with later slices.
+``forward`` / ``backward`` / ``update``, or ``fit`` over a data iterator.
+The module trains through its executor's training `GraphProgram` and
+updates its parameters in place with the local `Updater` (one
+multi-tensor update under ``MXTPU_FUSED_STEP``, the default).
+`fused_step` runs the whole step as one program (`fused_step`), captured
+as a CUDA graph on the card.  Without a ``context`` it runs on the card.
+KVStore, monitors and checkpoints come with later slices.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch
 from .. import initializer as init_mod
 from .. import optimizer as opt_mod
 from ..base import MXNetError
+from ..fused_step import fused_enabled
 from ..context import default_context
 from ..executor import _tensor
 from ..io import DataDesc
@@ -48,6 +52,7 @@ class Module(BaseModule):
         self._updater = None
         self._data_shapes = None
         self._label_shapes = None
+        self._fused_train_step = None
 
     # ------------------------------------------------------------------
     @property
@@ -175,13 +180,8 @@ class Module(BaseModule):
         self.optimizer_initialized = True
 
     # ------------------------------------------------------------------
-    def forward(self, data_batch, is_train=None):
-        """Feed the batch and run the graph (training mode records the
-        tape for `backward`)."""
-        if not (self.binded and self.params_initialized):
-            raise MXNetError("call bind and init_params before forward")
-        if is_train is None:
-            is_train = self.for_training
+    def _batch_feeds(self, data_batch):
+        """The batch's arrays by input name, each of the bound shape."""
         feeds = dict(zip((d.name for d in self._data_shapes),
                          data_batch.data))
         if self._label_shapes and data_batch.label is not None:
@@ -193,23 +193,83 @@ class Module(BaseModule):
                     f"input {name!r}: shape {tuple(arr.shape)} is not the "
                     f"bound {tuple(self._exec.arg_dict[name].shape)}; "
                     "reshape waits for a later slice")
-        self._exec.compiled_forward(is_train=is_train, **feeds)
+        return feeds
+
+    def forward(self, data_batch, is_train=None):
+        """Feed the batch and run the graph (training mode records the
+        tape for `backward`)."""
+        if not (self.binded and self.params_initialized):
+            raise MXNetError("call bind and init_params before forward")
+        if is_train is None:
+            is_train = self.for_training
+        self._exec.compiled_forward(is_train=is_train,
+                                    **self._batch_feeds(data_batch))
 
     def backward(self, out_grads=None):
         if not (self.binded and self.params_initialized):
             raise MXNetError("call bind and init_params before backward")
         self._exec.compiled_backward(out_grads)
 
+    def fused_step(self, data_batch, eval_metric=None):
+        """Forward, backward and the update of every parameter as one
+        step (`fused_step.FusedTrainStep`), with ``eval_metric``
+        accumulated inside it where it can be.  False, with nothing
+        changed, where the reference's returns False (reference
+        `module.py:fused_step`): ``MXTPU_FUSED_STEP=0``, a module not
+        bound for training or not initialized, a gradient of an input
+        (``inputs_need_grad``), a ``grad_req`` other than 'write', a
+        batch without every input, or an optimizer without a
+        multi-tensor plan.  The caller then runs ``forward_backward()``
+        + ``update()``."""
+        self.last_step_metric_done = False
+        if not (fused_enabled() and self.binded and self.params_initialized
+                and self.optimizer_initialized and self.for_training):
+            return False
+        inputs = self._input_names()
+        train_names = []
+        for name in self._exec._grad_arg_names:
+            if name in inputs or self._exec._grad_req.get(name) != "write":
+                return False
+            train_names.append(name)
+        if not train_names:
+            return False
+        if data_batch.label is None and self._label_shapes:
+            return False
+        feeds = self._batch_feeds(data_batch)
+        if set(feeds) != inputs:
+            return False
+        fst = self._fused_train_step
+        if (fst is None or fst._exec is not self._exec
+                or fst._optimizer is not self._optimizer
+                or fst._updater is not self._updater
+                or fst._train_names != train_names):
+            fst = self._fused_train_step = self._exec.make_fused_step(
+                self._optimizer, self._updater, train_names)
+        fst.attach_metric(eval_metric,
+                          [d.name for d in self._label_shapes])
+        if not fst.step(feeds):
+            return False
+        self.last_step_metric_done = fst.metric_in_trace
+        return True
+
     def update(self):
         """Apply the optimizer to every parameter that has a gradient
-        (reference `module.py:644`, local updater)."""
+        (reference `module.py:644`, local updater): one multi-tensor
+        update, or with ``MXTPU_FUSED_STEP=0`` (or an optimizer without
+        a multi-tensor plan) the per-parameter loop."""
         if not self.optimizer_initialized:
             raise MXNetError("call init_optimizer before update")
         skip = self._input_names() | self._fixed_param_names
         items = [(i, self._exec.grad_dict[name], self._exec.arg_dict[name])
                  for i, name in enumerate(self._exec.arg_names)
                  if name not in skip and name in self._exec.grad_dict]
-        self._updater.update_multi(items)
+        if fused_enabled() and self._updater.update_multi(items):
+            return
+        for index, grad, weight in items:
+            self._updater(index, grad, weight)
+
+    def update_metric(self, eval_metric, labels, pre_sliced=False):
+        eval_metric.update(labels, self.get_outputs())
 
     # ------------------------------------------------------------------
     def get_outputs(self, merge_multi_context=True):

@@ -1,7 +1,9 @@
 """Elementwise ops of the ported paths (the counterparts of
-`mxnet_tpu/ops/elemwise.py`): the unary ``sigmoid``, ``tanh`` and
-``negative`` that the LSTM cell and the Symbol sugar emit, and the scalar
-arithmetic ``_plus/_minus/_rminus/_mul/_div/_rdiv_scalar``."""
+`mxnet_tpu/ops/elemwise.py`): the unary ``sigmoid``, ``tanh``,
+``negative`` and ``rsqrt`` (the LSTM cell, the Symbol sugar and the
+``fold_bn`` rewrite emit them), ``identity``/``_copy`` and
+``BlockGrad``/``stop_gradient`` (which the ``eliminate`` pass forwards),
+and the scalar arithmetic ``_plus/_minus/_rminus/_mul/_div/_rdiv_scalar``."""
 from __future__ import annotations
 
 import torch
@@ -17,10 +19,21 @@ def _unary(name, fn):
 
 
 for _name, _fn in {"sigmoid": torch.sigmoid, "tanh": torch.tanh,
-                   "negative": torch.neg}.items():
+                   "negative": torch.neg, "rsqrt": torch.rsqrt,
+                   "identity": lambda x: x}.items():
     _unary(_name, _fn)
 
 alias("negative", "_np_negative")
+alias("identity", "_copy")
+
+
+@register("BlockGrad", num_inputs=1, input_names=["data"])
+def _block_grad(attrs, x):
+    """The value, with no gradient flowing back (reference `BlockGrad`)."""
+    return x.detach()
+
+
+alias("BlockGrad", "stop_gradient")
 
 
 def _scalar_op(name, fn):

@@ -1,14 +1,21 @@
 """Shape and product ops of the ported paths (the counterparts of
-`mxnet_tpu/ops/matrix.py`): batch_dot, transpose, reshape, Embedding, and
-the sequence plumbing of the unrolled RNN cells: SliceChannel/split,
-slice_axis, Concat and expand_dims."""
+`mxnet_tpu/ops/matrix.py`): batch_dot, transpose, swapaxes, reshape,
+Embedding, the sequence plumbing of the unrolled RNN cells
+(SliceChannel/split, slice_axis, Concat and expand_dims), and the
+zero-input constructors ``_zeros``, ``_ones``, ``_full``, ``_arange`` and
+``_eye`` that the ``fold_const`` pass folds.
+
+A constructor has no input to take a device from: the executor hands it
+the device its graph runs on as the ``__device`` attr (`registry.DEVICE`),
+and shape inference hands it ``meta``; without one it builds on the
+CPU."""
 from __future__ import annotations
 
 import math
 
 import torch
 
-from .registry import alias, register
+from .registry import DEVICE, alias, register
 
 
 @register("batch_dot", num_inputs=2, input_names=["lhs", "rhs"])
@@ -27,6 +34,64 @@ def _transpose(attrs, x):
     if not axes:
         axes = tuple(reversed(range(x.dim())))
     return x.permute(*axes)
+
+
+@register("swapaxes", num_inputs=1, input_names=["data"])
+def _swapaxes(attrs, x):
+    return x.transpose(attrs.get_int("dim1", 0), attrs.get_int("dim2", 0))
+
+
+alias("swapaxes", "SwapAxis")
+
+
+# ---------------------------------------------------------------------------
+# zero-input constructors (reference src/operator/tensor/init_op.h)
+# ---------------------------------------------------------------------------
+
+def _where(attrs):
+    return dict(device=attrs.get(DEVICE),
+                dtype=attrs.get_dtype("dtype", torch.float32))
+
+
+@register("_zeros", num_inputs=0)
+def _zeros(attrs):
+    return torch.zeros(attrs.get_tuple("shape", ()), **_where(attrs))
+
+
+@register("_ones", num_inputs=0)
+def _ones(attrs):
+    return torch.ones(attrs.get_tuple("shape", ()), **_where(attrs))
+
+
+@register("_full", num_inputs=0)
+def _full(attrs):
+    return torch.full(attrs.get_tuple("shape", ()),
+                      attrs.get_float("value"), **_where(attrs))
+
+
+@register("_arange", num_inputs=0)
+def _arange(attrs):
+    """start, start + step, ... below stop (``stop`` None: 0 up to
+    ``start``), each value ``repeat`` times."""
+    start = attrs.get_float("start", 0.0)
+    stop = attrs.get_attr("stop", None)
+    step = attrs.get_float("step", 1.0)
+    if stop in (None, "None"):
+        start, stop = 0.0, start
+    arr = torch.arange(start, float(stop), step, **_where(attrs))
+    rep = attrs.get_int("repeat", 1)
+    return arr.repeat_interleave(rep) if rep > 1 else arr
+
+
+@register("_eye", num_inputs=0)
+def _eye(attrs):
+    """Ones on diagonal ``k`` of an N x M matrix (M 0 means N)."""
+    n = attrs.get_int("N")
+    m = attrs.get_int("M", 0) or n
+    where = _where(attrs)
+    rows = torch.arange(n, device=where["device"])[:, None]
+    cols = torch.arange(m, device=where["device"])[None, :]
+    return (cols - rows == attrs.get_int("k", 0)).to(where["dtype"])
 
 
 def infer_reshape(old_shape, new_shape):

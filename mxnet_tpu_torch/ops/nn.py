@@ -1,8 +1,8 @@
 """Neural-network ops of the BERT path (the counterparts of
 `mxnet_tpu/ops/nn.py`): FullyConnected, Activation, LeakyReLU, softmax,
-LayerNorm, Dropout and SoftmaxOutput, as plain PyTorch functions whose
-gradients are autograd's own, except SoftmaxOutput's, which is the op's
-defined gradient.
+LayerNorm, BatchNorm, Dropout and SoftmaxOutput, as plain PyTorch
+functions whose gradients are autograd's own, except SoftmaxOutput's,
+which is the op's defined gradient.
 
 The large products go to `torch.nn.functional.linear`, as the JAX package
 leaves them to XLA outside any Pallas kernel.
@@ -51,10 +51,13 @@ def _activation(attrs, x):
     return _ACTIVATIONS[act](x)
 
 
-@register("LeakyReLU", num_inputs=None, input_names=["data", "gamma"])
-def _leaky_relu(attrs, x, gamma=None):
+@register("LeakyReLU", num_inputs=None, input_names=["data", "gamma"],
+          needs_rng=True, uses_train_mode=True)
+def _leaky_relu(attrs, generator, x, gamma=None):
     """leaky/prelu/elu/selu/gelu/rrelu family; gelu is the exact (erf)
-    form, rrelu uses its mean slope (inference)."""
+    form.  rrelu draws one slope per element, uniform in [lower_bound,
+    upper_bound], from ``generator`` in training, and takes the mean
+    slope at inference."""
     act = attrs.get_str("act_type", "leaky")
     slope = attrs.get_float("slope", 0.25)
     if act == "leaky":
@@ -73,7 +76,12 @@ def _leaky_relu(attrs, x, gamma=None):
     if act == "rrelu":
         lo = attrs.get_float("lower_bound", 0.125)
         hi = attrs.get_float("upper_bound", 0.334)
-        return torch.where(x > 0, x, (lo + hi) / 2.0 * x)
+        if attrs.get_bool("__train", False):
+            r = torch.empty(x.shape, dtype=x.dtype, device=x.device) \
+                .uniform_(lo, hi, generator=generator)
+        else:
+            r = (lo + hi) / 2.0
+        return torch.where(x > 0, x, r * x)
     raise ValueError(f"unknown act_type {act}")
 
 
@@ -99,6 +107,46 @@ def _layer_norm(attrs, data, gamma, beta):
         var = data.var(dim=ax, keepdim=True, unbiased=False)
         return out, mean, torch.sqrt(var + eps)
     return out
+
+
+@register("BatchNorm", num_inputs=5,
+          input_names=["data", "gamma", "beta", "moving_mean", "moving_var"],
+          num_outputs=lambda a: 3 if a.get_bool("output_mean_var", False)
+          else 1,
+          mutate_inputs=(3, 4), uses_train_mode=True)
+def _batch_norm(attrs, data, gamma, beta, moving_mean, moving_var):
+    """Reference `BatchNorm` (`src/operator/nn/batch_norm.cc`): normalizes
+    over every axis but ``axis``.  In training (unless
+    ``use_global_stats``) it uses the batch's mean and variance and moves
+    the moving statistics toward them by ``momentum``; the new moving
+    statistics follow the visible outputs (MXNet's FMutateInputs), and
+    ``output_mean_var`` adds the mean and variance it used."""
+    ax = attrs.get_int("axis", 1) % data.dim()
+    eps = attrs.get_float("eps", 1e-3)
+    momentum = attrs.get_float("momentum", 0.9)
+    train = attrs.get_bool("__train", False) and \
+        not attrs.get_bool("use_global_stats", False)
+    red = tuple(i for i in range(data.dim()) if i != ax)
+    bshape = [1] * data.dim()
+    bshape[ax] = data.shape[ax]
+    if attrs.get_bool("fix_gamma", True):
+        gamma = torch.ones_like(gamma)
+    if train:
+        x = data.float()
+        mean = x.mean(dim=red)
+        var = x.var(dim=red, unbiased=False)
+        new_mm = (momentum * moving_mean + (1 - momentum) * mean).detach()
+        new_mv = (momentum * moving_var + (1 - momentum) * var).detach()
+    else:
+        mean, var = moving_mean, moving_var
+        new_mm, new_mv = moving_mean, moving_var
+    inv = torch.rsqrt(var + eps)
+    out = (data - mean.reshape(bshape).to(data.dtype)) \
+        * (inv.reshape(bshape) * gamma.reshape(bshape)).to(data.dtype) \
+        + beta.reshape(bshape).to(data.dtype)
+    if attrs.get_bool("output_mean_var", False):
+        return out, mean, var, new_mm, new_mv
+    return out, new_mm, new_mv
 
 
 @register("Dropout", num_inputs=1, input_names=["data"], needs_rng=True,

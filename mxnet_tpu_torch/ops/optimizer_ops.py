@@ -2,19 +2,70 @@
 and `adam_update` in `mxnet_tpu/ops/optimizer_ops.py`; reference
 `src/operator/optimizer_op.cc`).
 
-Each op updates its weight and states in place under `torch.no_grad()`
-and returns the new weight, as MXNet's ``out=weight`` calls do.  The JAX
-package computes these in XLA, outside any Pallas kernel, so plain
-in-place torch is their counterpart here.  The gradient is prepared in
-the reference's order: rescale, then clip, then add ``wd·w``.
+Each update is written once, over lists of tensors and a set of list
+ops: `apply_multi` runs it with ``torch._foreach_*`` on a whole group of
+weights that share the op, its static hyperparameters and their dtype,
+in a few launches for the group (the JAX package computes these updates
+in XLA, outside any Pallas kernel, so PyTorch's multi-tensor ops are
+their counterpart here), and the registered op on one weight with the
+plain tensor ops.  Static hyperparameters ride the fused ``alpha`` and
+``value`` forms.  The per-step
+scalars ``lr`` and ``wd`` may be Python floats or 0-dim tensors on the
+weights' device (a captured step rewrites those before each replay); on
+the CPU both give the same bits.  Weights and states update in place
+under `torch.no_grad()`; the gradient is prepared in the reference's
+order: rescale, then clip, then add ``wd·w``.
 """
 from __future__ import annotations
+
+from typing import Callable, Dict, List, Sequence, Union
 
 import torch
 
 from .registry import register
 
-__all__ = ["sgd_update", "sgd_mom_update", "adam_update"]
+__all__ = ["sgd_update", "sgd_mom_update", "adam_update", "apply_multi",
+           "MULTI_UPDATES"]
+
+Scalar = Union[float, torch.Tensor]
+
+
+class _Lists:
+    """An update's arithmetic over lists of tensors: ``torch._foreach_*``,
+    a few launches for a whole group."""
+    mul = staticmethod(torch._foreach_mul)
+    mul_ = staticmethod(torch._foreach_mul_)
+    add = staticmethod(torch._foreach_add)
+    add_ = staticmethod(torch._foreach_add_)
+    sub_ = staticmethod(torch._foreach_sub_)
+    addcmul_ = staticmethod(torch._foreach_addcmul_)
+    addcdiv_ = staticmethod(torch._foreach_addcdiv_)
+    sqrt = staticmethod(torch._foreach_sqrt)
+    clamp_min_ = staticmethod(torch._foreach_clamp_min_)
+    clamp_max_ = staticmethod(torch._foreach_clamp_max_)
+
+
+def _x(other):
+    return other[0] if isinstance(other, list) else other
+
+
+class _One:
+    """The same arithmetic over a one-tensor list by the plain tensor ops,
+    which a single weight's update takes (one launch each, without the
+    multi-tensor launch's setup).  On the CPU the multi-tensor ops run
+    these very ops, so both give the same bits."""
+    mul = staticmethod(lambda ts, s: [ts[0] * s])
+    mul_ = staticmethod(lambda ts, s: ts[0].mul_(s))
+    add = staticmethod(lambda ts, o: [ts[0] + _x(o)])
+    add_ = staticmethod(lambda ts, o, alpha=1: ts[0].add_(o[0], alpha=alpha))
+    sub_ = staticmethod(lambda ts, o: ts[0].sub_(o[0]))
+    addcmul_ = staticmethod(
+        lambda ts, a, b, value: ts[0].addcmul_(a[0], b[0], value=value))
+    addcdiv_ = staticmethod(
+        lambda ts, a, b, value: ts[0].addcdiv_(a[0], b[0], value=value))
+    sqrt = staticmethod(lambda ts: [ts[0].sqrt()])
+    clamp_min_ = staticmethod(lambda ts, v: ts[0].clamp_min_(v))
+    clamp_max_ = staticmethod(lambda ts, v: ts[0].clamp_max_(v))
 
 
 def _common(attrs):
@@ -23,46 +74,87 @@ def _common(attrs):
             attrs.get_float("clip_gradient", -1.0))
 
 
-def _prep_grad(grad, rescale, clip, dtype):
-    g = grad.to(dtype) * rescale
+def _grads(ops, ws, gs, wd: Scalar, rescale, clip):
+    """rescale·g, clipped to ±clip, plus wd·w (in w's dtype)."""
+    g = ops.mul([x.to(w.dtype) for x, w in zip(gs, ws)], rescale)
     if clip is not None and clip > 0:
-        g = g.clamp_(-clip, clip)
-    return g
+        ops.clamp_min_(g, -clip)
+        ops.clamp_max_(g, clip)
+    return ops.add(g, ops.mul(ws, wd))
+
+
+def _sgd(ops, ws, gs, states, lr, wd, rescale, clip, static):
+    """w -= lr·(g + wd·w)."""
+    ops.sub_(ws, ops.mul(_grads(ops, ws, gs, wd, rescale, clip), lr))
+
+
+def _sgd_mom(ops, ws, gs, states, lr, wd, rescale, clip, static):
+    """mom = momentum·mom - lr·(g + wd·w); w += mom."""
+    (moms,) = states
+    d = _grads(ops, ws, gs, wd, rescale, clip)
+    ops.mul_(moms, float(static.get("momentum", 0.0)))
+    ops.sub_(moms, ops.mul(d, lr))
+    ops.add_(ws, moms)
+
+
+def _adam(ops, ws, gs, states, lr, wd, rescale, clip, static):
+    """Adam with the bias correction folded into lr by the caller; wd
+    joins the gradient after clipping (MXNet's L2 form)."""
+    means, vars_ = states
+    b1 = float(static.get("beta1", 0.9))
+    b2 = float(static.get("beta2", 0.999))
+    eps = float(static.get("epsilon", 1e-8))
+    g = _grads(ops, ws, gs, wd, rescale, clip)
+    ops.mul_(means, b1)
+    ops.add_(means, g, alpha=1 - b1)
+    ops.mul_(vars_, b2)
+    ops.addcmul_(vars_, g, g, value=1 - b2)
+    denom = ops.add(ops.sqrt(vars_), eps)
+    ops.addcdiv_(ws, ops.mul(means, lr), denom, value=-1.0)
+
+
+#: op name -> its update ``fn(ops, ws, gs, state lists, lr, wd, rescale,
+#: clip, static attrs)``
+MULTI_UPDATES: Dict[str, Callable] = {
+    "sgd_update": _sgd,
+    "sgd_mom_update": _sgd_mom,
+    "adam_update": _adam,
+}
+
+
+@torch.no_grad()
+def apply_multi(op_name: str, static: Dict, ws: Sequence[torch.Tensor],
+                gs: Sequence[torch.Tensor],
+                states: Sequence[Sequence[torch.Tensor]], lr: Scalar,
+                wd: Scalar, rescale: float, clip, ops=_Lists) -> None:
+    """Update op ``op_name`` over a group of weights in place: ``states``
+    holds one list per state slot (momentum; Adam's mean and var), in the
+    op's input order; ``lr`` and ``wd`` are the group's."""
+    MULTI_UPDATES[op_name](ops, list(ws), list(gs),
+                           [list(s) for s in states], lr, wd, rescale,
+                           clip, static)
+
+
+def _single(op_name, attrs, weight, grad, states: List[torch.Tensor]):
+    lr, wd, rescale, clip = _common(attrs)
+    apply_multi(op_name, attrs, [weight], [grad], [[s] for s in states],
+                lr, wd, rescale, clip, ops=_One)
+    return weight
 
 
 @register("sgd_update", num_inputs=2, input_names=["weight", "grad"])
-@torch.no_grad()
 def sgd_update(attrs, weight, grad):
-    """w -= lr·(g + wd·w)."""
-    lr, wd, rescale, clip = _common(attrs)
-    g = _prep_grad(grad, rescale, clip, weight.dtype)
-    return weight.sub_(lr * (g + wd * weight))
+    return _single("sgd_update", attrs, weight, grad, [])
 
 
 @register("sgd_mom_update", num_inputs=3,
           input_names=["weight", "grad", "mom"], mutate_inputs=(2,))
-@torch.no_grad()
 def sgd_mom_update(attrs, weight, grad, mom):
-    """mom = momentum·mom - lr·(g + wd·w); w += mom."""
-    lr, wd, rescale, clip = _common(attrs)
-    momentum = attrs.get_float("momentum", 0.0)
-    g = _prep_grad(grad, rescale, clip, weight.dtype)
-    mom.mul_(momentum).sub_(lr * (g + wd * weight))
-    return weight.add_(mom)
+    return _single("sgd_mom_update", attrs, weight, grad, [mom])
 
 
 @register("adam_update", num_inputs=4,
           input_names=["weight", "grad", "mean", "var"],
           mutate_inputs=(2, 3))
-@torch.no_grad()
 def adam_update(attrs, weight, grad, mean, var):
-    """Adam with the bias correction folded into lr by the caller; wd
-    joins the gradient after clipping (MXNet's L2 form)."""
-    lr, wd, rescale, clip = _common(attrs)
-    b1 = attrs.get_float("beta1", 0.9)
-    b2 = attrs.get_float("beta2", 0.999)
-    eps = attrs.get_float("epsilon", 1e-8)
-    g = _prep_grad(grad, rescale, clip, weight.dtype).add_(weight, alpha=wd)
-    mean.mul_(b1).add_(g, alpha=1 - b1)
-    var.mul_(b2).addcmul_(g, g, value=1 - b2)
-    return weight.sub_(lr * mean / (var.sqrt() + eps))
+    return _single("adam_update", attrs, weight, grad, [mean, var])

@@ -21,7 +21,10 @@ import torch
 from ..base import MXNetError, _Null, str_to_attr, torch_dtype
 
 __all__ = ["Attrs", "OpDef", "register", "alias", "get_op", "list_ops",
-           "apply_op", "eval_shape_op"]
+           "apply_op", "eval_shape_op", "canonical_attrs", "DEVICE"]
+
+#: the attr through which a zero-input op learns the device to build on
+DEVICE = "__device"
 
 
 class Attrs(dict):
@@ -94,6 +97,12 @@ class OpDef:
             return self._num_outputs(attrs)
         return self._num_outputs
 
+    @property
+    def takes_device(self) -> bool:
+        """A zero-input op: it builds its output on the ``__device``
+        attr's device."""
+        return self.num_inputs == 0
+
     def mutate_slots(self, attrs: Attrs) -> Tuple[int, ...]:
         """The input slots this op writes back (FMutateInputs)."""
         return self.mutate_inputs
@@ -134,6 +143,19 @@ def list_ops() -> List[str]:
     return sorted(_REGISTRY)
 
 
+def canonical_attrs(kwargs: Dict[str, Any]) -> Tuple[Tuple[str, Any], ...]:
+    """A hashable form of an attr dict, in key order (the ``cse`` key)."""
+    items = []
+    for k in sorted(kwargs):
+        v = kwargs[k]
+        if v is _Null:
+            continue
+        if isinstance(v, list):
+            v = tuple(v)
+        items.append((k, v))
+    return tuple(items)
+
+
 def _attrs(kwargs: Dict[str, Any]) -> Attrs:
     return Attrs({k: v for k, v in kwargs.items() if v is not _Null})
 
@@ -156,5 +178,7 @@ def eval_shape_op(name: str, in_shapes, in_dtypes, kwargs: Dict[str, Any]):
     running it on ``meta`` tensors (no storage, no arithmetic)."""
     args = [torch.empty(tuple(s), dtype=d, device="meta")
             for s, d in zip(in_shapes, in_dtypes)]
+    if get_op(name).takes_device:
+        kwargs = dict(kwargs, **{DEVICE: "meta"})
     outs = apply_op(name, args, kwargs)
     return [tuple(o.shape) for o in outs], [o.dtype for o in outs]

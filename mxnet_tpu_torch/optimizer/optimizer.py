@@ -1,11 +1,15 @@
 """Optimizers (the counterpart of `mxnet_tpu/optimizer/optimizer.py`; reference
-`python/mxnet/optimizer/optimizer.py`): `Optimizer` with its per-parameter
-lr/wd multipliers, `SGD`, `Adam`, and the `Updater` that holds their
-states.
+`python/mxnet/optimizer/optimizer.py`): `Optimizer` with its learning-rate
+schedule, per-parameter lr/wd multipliers (from the symbol's attrs, the
+names, or ``param_dict``) and multi-precision master weights, `SGD`,
+`Adam`, and the `Updater` that holds their states.
 
 Each `update` runs one registered update op of `ops/optimizer_ops.py` on
-the weight's own tensors, in place.  States live on the weight's device,
-which is the card unless the caller bound elsewhere.
+the weight's own tensors, in place.  ``_fused_plan`` names that op for the
+multi-tensor path (`unified_step.multi_tensor_apply`, which
+`Updater.update_multi` takes), and ``_fused_scalars`` the lr and wd it
+passes, so both paths give the same numbers.  States live on the weight's
+device, which is the card unless the caller bound elsewhere.
 """
 from __future__ import annotations
 
@@ -54,16 +58,26 @@ class Optimizer:
     """Base optimizer (reference `optimizer.py:37`)."""
 
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
-                 clip_gradient=None, learning_rate=0.01, sym=None,
-                 begin_num_update=0):
+                 clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
+                 sym=None, begin_num_update=0, multi_precision=False,
+                 param_dict=None):
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
+        self.lr_scheduler = lr_scheduler
+        if lr_scheduler is not None:
+            self.lr_scheduler.base_lr = learning_rate
         self.wd = wd
         self.clip_gradient = clip_gradient
         self.begin_num_update = begin_num_update
         self.num_update = begin_num_update
-        self._index_update_count: Dict[Any, int] = {}
+        # per-device update counts (reference `_all_index_update_counts`):
+        # each replica of a weight sees t = 1, 2, 3, ...
+        self._all_index_update_counts: Dict[int, Dict[Any, int]] = {0: {}}
+        self._index_update_count: Dict[Any, int] = \
+            self._all_index_update_counts[0]
+        self.multi_precision = multi_precision
         self.idx2name = dict(param_idx2name or {})
+        self.param_dict = dict(param_dict or {})
         # (attr_dict, arg_names) read by set_lr_mult/set_wd_mult for the
         # per-variable __lr_mult__/__wd_mult__ attrs
         self.sym_info = ((sym.attr_dict(), sym.list_arguments())
@@ -104,9 +118,22 @@ class Optimizer:
                     self.wd_mult[name] = float(attr[name]["__wd_mult__"])
         self.wd_mult.update(args_wd_mult)
 
+    def set_learning_rate(self, lr):
+        self.lr = lr
+
     @property
     def learning_rate(self):
+        """The schedule's rate at the current update count, or ``lr``."""
+        if self.lr_scheduler is not None:
+            return self.lr_scheduler(self.num_update)
         return self.lr
+
+    def _set_current_context(self, device_id: int):
+        """Switch to ``device_id``'s update-count table (reference
+        `optimizer.py:_set_current_context`)."""
+        if device_id not in self._all_index_update_counts:
+            self._all_index_update_counts[device_id] = {}
+        self._index_update_count = self._all_index_update_counts[device_id]
 
     def _update_count(self, index):
         count = self._index_update_count.setdefault(index,
@@ -116,7 +143,9 @@ class Optimizer:
 
     def _get_lr(self, index):
         lr = self.learning_rate
-        if index in self.lr_mult:
+        if index in self.param_dict:
+            lr *= self.param_dict[index].lr_mult
+        elif index in self.lr_mult:
             lr *= self.lr_mult[index]
         elif index in self.idx2name:
             lr *= self.lr_mult.get(self.idx2name[index], 1.0)
@@ -124,7 +153,9 @@ class Optimizer:
 
     def _get_wd(self, index):
         wd = self.wd
-        if index in self.wd_mult:
+        if index in self.param_dict:
+            wd *= self.param_dict[index].wd_mult
+        elif index in self.wd_mult:
             wd *= self.wd_mult[index]
         elif index in self.idx2name:
             wd *= self.wd_mult.get(self.idx2name[index], 1.0)
@@ -140,8 +171,48 @@ class Optimizer:
     def create_state(self, index, weight):
         return None
 
+    def _mp_active(self, weight) -> bool:
+        return self.multi_precision and weight.data.element_size() < 4
+
+    def create_state_multi_precision(self, index, weight):
+        """With ``multi_precision``, a float32 master copy beside the
+        state of a weight narrower than 32 bits (reference
+        `optimizer.py:375`)."""
+        if self._mp_active(weight):
+            w32 = NDArray(weight.data.float())
+            return (self.create_state(index, w32), w32)
+        return self.create_state(index, weight)
+
     def update(self, index, weight, grad, state):
         raise NotImplementedError
+
+    def update_multi_precision(self, index, weight, grad, state):
+        """`update`, on the float32 master copy when multi-precision
+        holds one, which is then copied down into the weight."""
+        if not self._mp_active(weight):
+            return self.update(index, weight, grad, state)
+        inner, w32 = state
+        self.update(index, w32, NDArray(grad.data.float()), inner)
+        weight.data.copy_(w32.data)
+
+    def _fused_plan(self, index, weight, state):
+        """``(op name, static attrs, state NDArrays)``: the one update op
+        `update` runs for this weight, for the multi-tensor path; None
+        when there is none (the caller then loops `update`)."""
+        return None
+
+    def _fused_scalars(self, index):
+        """``(lr, wd)`` for the multi-tensor path after
+        ``_update_count(index)``, with the host-side factors `update`
+        folds into lr."""
+        return self._get_lr(index), self._get_wd(index)
+
+    def multi_update(self, items) -> bool:
+        """Update many weights (``items``: ``[(index, weight, grad,
+        state)]`` in the per-parameter order) through the multi-tensor
+        path; False, with nothing changed, when a weight has no plan."""
+        from ..unified_step import multi_tensor_apply
+        return multi_tensor_apply(self, items)
 
     def __repr__(self):
         return f"{type(self).__name__}(learning_rate={self.learning_rate})"
@@ -168,6 +239,13 @@ class SGD(Optimizer):
         else:
             _run("sgd_update", (weight, grad), **kw)
 
+    def _fused_plan(self, index, weight, state):
+        if self._mp_active(weight):
+            return None
+        if state is not None:
+            return ("sgd_mom_update", {"momentum": self.momentum}, [state])
+        return ("sgd_update", {}, [])
+
 
 @register
 class Adam(Optimizer):
@@ -193,6 +271,19 @@ class Adam(Optimizer):
         _run("adam_update", (weight, grad, mean, var), beta1=self.beta1,
              beta2=self.beta2, epsilon=self.epsilon, **kw)
 
+    def _fused_plan(self, index, weight, state):
+        if self._mp_active(weight):
+            return None
+        mean, var = state
+        return ("adam_update", {"beta1": self.beta1, "beta2": self.beta2,
+                                "epsilon": self.epsilon}, [mean, var])
+
+    def _fused_scalars(self, index):
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        t = self._index_update_count[index]
+        lr *= math.sqrt(1.0 - self.beta2 ** t) / (1.0 - self.beta1 ** t)
+        return lr, wd
+
 
 class Updater:
     """The optimizer's states, one entry per parameter index (reference
@@ -201,19 +292,35 @@ class Updater:
     def __init__(self, optimizer: Optimizer):
         self.optimizer = optimizer
         self.states: Dict[Any, Any] = {}
+        self.states_synced: Dict[Any, bool] = {}
+
+    def _state(self, index, weight):
+        if index not in self.states:
+            self.states[index] = \
+                self.optimizer.create_state_multi_precision(index, weight)
+            self.states_synced[index] = True
+        return self.states[index]
+
+    def _set_context(self, weight) -> None:
+        self.optimizer._set_current_context(weight.context.device_id)
 
     def __call__(self, index, grad, weight):
-        if index not in self.states:
-            self.states[index] = self.optimizer.create_state(index, weight)
-        self.optimizer.update(index, weight, grad, self.states[index])
+        self._set_context(weight)
+        self.optimizer.update_multi_precision(index, weight, grad,
+                                              self._state(index, weight))
 
     def update_multi(self, items) -> bool:
-        """Update many parameters (``items``: ``[(index, grad,
-        weight)]``), one update op each.  Returns True; one fused update
-        over all of them is later work."""
-        for index, grad, weight in items:
-            self(index, grad, weight)
-        return True
+        """Update many parameters (``items``: ``[(index, grad, weight)]``)
+        through the multi-tensor path, the same numbers as calling the
+        updater on each.  False, having at most created the states the
+        per-parameter path would create, when the optimizer has no plan
+        for one of them."""
+        if not items:
+            return True
+        self._set_context(items[0][2])
+        prepared = [(index, weight, grad, self._state(index, weight))
+                    for index, grad, weight in items]
+        return self.optimizer.multi_update(prepared)
 
 
 def get_updater(optimizer: Optimizer) -> Updater:

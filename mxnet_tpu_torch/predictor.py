@@ -4,8 +4,10 @@ params blob, bind for input shapes, forward only.
 
 A `Predictor` binds to ``cuda:0`` unless the caller passes ``ctx``; with
 no CUDA device it raises rather than run on the CPU unasked.  It serves
-through its executor's `GraphProgram`, so the graph optimizer's kernel
-selection applies.  `export_compiled`/`load_compiled` come with the
+through its executor's `GraphProgram`, so the graph optimizer's passes
+apply, and on the card each forward replays the program's CUDA graph for
+the bound shapes (a reshape binds, and captures, anew).  Every forward's
+outputs are its own.  `export_compiled`/`load_compiled` come with the
 serving slice.
 """
 from __future__ import annotations
@@ -54,9 +56,8 @@ class Predictor:
         self._arg_params = {k[4:] if k.startswith("arg:") else k: v
                             for k, v in loaded.items()
                             if not k.startswith("aux:")}
-        if any(k.startswith("aux:") for k in loaded):
-            raise MXNetError("aux states belong to ops this package has not "
-                             "ported yet")
+        self._aux_params = {k[4:]: v for k, v in loaded.items()
+                            if k.startswith("aux:")}
         self._inputs: Dict[str, object] = {}
         self._bind(dict(input_shapes))
 
@@ -72,11 +73,18 @@ class Predictor:
             else:
                 raise MXNetError(f"parameter {name!r} missing from params "
                                  "and not declared as an input")
-        self._executor = self._sym.bind(self._ctx, args=args)
+        missing = set(self._sym.list_auxiliary_states()) - \
+            set(self._aux_params)
+        if missing:
+            raise MXNetError(f"aux states {sorted(missing)} missing from "
+                             "params")
+        self._executor = self._sym.bind(self._ctx, args=args,
+                                        aux_states=self._aux_params)
         # keep the device copies: a reshape rebinds without copying again
         self._arg_params.update(
             {n: a for n, a in self._executor.arg_dict.items()
              if n not in input_shapes})
+        self._aux_params.update(self._executor.aux_dict)
         # the bind-time program: live forwards all run this one artifact
         self._program = self._executor.graph_program(train=False)
         self._outputs: Optional[List[NDArray]] = None

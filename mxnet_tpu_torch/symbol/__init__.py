@@ -5,4 +5,31 @@ from .symbol import Group, Symbol, load_json, var
 
 make_sym_functions(globals())
 
-__all__ = ["Symbol", "var", "Group", "load_json", "invoke_sym"]
+
+def zeros(shape, dtype=None, name=None):
+    return invoke_sym("_zeros", name=name, shape=shape,
+                      dtype=dtype or "float32")
+
+
+def ones(shape, dtype=None, name=None):
+    return invoke_sym("_ones", name=name, shape=shape,
+                      dtype=dtype or "float32")
+
+
+def full(shape, val, name=None, dtype=None):
+    return invoke_sym("_full", name=name, shape=shape, value=float(val),
+                      dtype=dtype or "float32")
+
+
+def arange(start, stop=None, step=1.0, repeat=1, name=None, dtype=None):
+    return invoke_sym("_arange", name=name, start=start, stop=stop,
+                      step=step, repeat=repeat, dtype=dtype or "float32")
+
+
+def eye(N, M=0, k=0, name=None, dtype=None):
+    return invoke_sym("_eye", name=name, N=N, M=M, k=k,
+                      dtype=dtype or "float32")
+
+
+__all__ = ["Symbol", "var", "Group", "load_json", "invoke_sym", "zeros",
+           "ones", "full", "arange", "eye"]

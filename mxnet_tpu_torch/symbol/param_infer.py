@@ -1,5 +1,5 @@
 """Backward parameter-shape inference for the layered ops (the FC,
-LayerNorm, Embedding and SoftmaxOutput rules of
+LayerNorm, BatchNorm, Embedding and SoftmaxOutput rules of
 `mxnet_tpu/symbol/param_infer.py`): the shapes of a node's parameter and
 label variables from its data shape, so a graph binds from data shapes
 alone."""
@@ -32,6 +32,11 @@ def _ln(a, data):
     return {1: (c,), 2: (c,)}
 
 
+def _bn(a, data):
+    c = (data[a.get_int("axis", 1)],)
+    return {1: c, 2: c, 3: c, 4: c}
+
+
 def _embedding(a, data):
     return {1: (a.get_int("input_dim"), a.get_int("output_dim"))}
 
@@ -47,6 +52,7 @@ def _softmax_output_label(a, data):
 _RULES = {
     "FullyConnected": _fc,
     "LayerNorm": _ln,
+    "BatchNorm": _bn,
     "Embedding": _embedding,
     "SoftmaxOutput": _softmax_output_label,
     "Softmax": _softmax_output_label,

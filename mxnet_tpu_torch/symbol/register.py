@@ -18,6 +18,8 @@ __all__ = ["invoke_sym", "make_sym_functions"]
 _SYM_INPUTS = {
     "FullyConnected": lambda a: ["data", "weight"] + (
         [] if a.get_bool("no_bias", False) else ["bias"]),
+    "BatchNorm": lambda a: ["data", "gamma", "beta", "moving_mean",
+                            "moving_var"],
     "LayerNorm": lambda a: ["data", "gamma", "beta"],
     "Embedding": lambda a: ["data", "weight"],
     "LeakyReLU": lambda a: (["data", "gamma"]

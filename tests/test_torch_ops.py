@@ -1,5 +1,8 @@
-"""Each op of the port's encoder path against the JAX package's
-`registry.apply_op` on the same inputs, at 1e-5."""
+"""Each op of the port's encoder path, and of the graph passes (the
+zero-input constructors, identity/_copy, BlockGrad, swapaxes, rsqrt,
+BatchNorm), against the JAX package's `registry.apply_op` on the same
+inputs, at 1e-5; and the train-mode ops (rrelu's sampled slopes,
+BatchNorm's moving statistics) through both packages' executors."""
 import numpy as np
 import pytest
 import torch
@@ -20,6 +23,10 @@ def _randn(*shape):
 
 def _ids(high, *shape):
     return ("ids", high, shape)
+
+
+def _pos(*shape):
+    return ("pos", shape)
 
 
 # (op, inputs, attrs); attrs are given as the strings Symbol JSON carries
@@ -135,12 +142,48 @@ CASES = {
     "split_squeeze_60": ("split", [_randn(2, 60, 3)],
                          {"num_outputs": 60, "axis": 1,
                           "squeeze_axis": True}),
+    # what the graph passes fold, forward and emit
+    "zeros": ("_zeros", [], {"shape": "(2, 3)"}),
+    "ones": ("_ones", [], {"shape": (4,), "dtype": "float32"}),
+    "full": ("_full", [], {"shape": "(2, 2)", "value": "0.75"}),
+    "arange": ("_arange", [], {"start": 1.0, "stop": "7", "step": 1.5}),
+    "arange_repeat": ("_arange", [], {"start": 4, "repeat": 2}),
+    "eye": ("_eye", [], {"N": 4}),
+    "eye_k": ("_eye", [], {"N": "3", "M": "5", "k": "1"}),
+    "identity": ("identity", [_randn(3, 4)], {}),
+    "copy": ("_copy", [_randn(3, 4)], {}),
+    "block_grad": ("BlockGrad", [_randn(3, 4)], {}),
+    "stop_gradient": ("stop_gradient", [_randn(3, 4)], {}),
+    "swapaxes": ("swapaxes", [_randn(2, 3, 4)], {"dim1": 0, "dim2": 2}),
+    "SwapAxis": ("SwapAxis", [_randn(2, 3, 4)], {"dim1": "1", "dim2": "2"}),
+    "rsqrt": ("rsqrt", [_pos(3, 4)], {}),
+    "batchnorm_eval": ("BatchNorm", [_randn(4, 3, 5), _randn(3), _randn(3),
+                                     _randn(3), _pos(3)],
+                       {"fix_gamma": "False", "eps": 1e-3}),
+    "batchnorm_eval_fix_gamma": ("BatchNorm",
+                                 [_randn(4, 3), _randn(3), _randn(3),
+                                  _randn(3), _pos(3)], {}),
+    "batchnorm_train": ("BatchNorm", [_randn(4, 3, 5), _randn(3), _randn(3),
+                                      _randn(3), _pos(3)],
+                        {"fix_gamma": False, "momentum": 0.8,
+                         "__train": True}),
+    "batchnorm_train_axis": ("BatchNorm", [_randn(4, 5, 3), _randn(3),
+                                           _randn(3), _randn(3), _pos(3)],
+                             {"axis": -1, "__train": True}),
+    "batchnorm_global_stats": ("BatchNorm", [_randn(4, 3), _randn(3),
+                                             _randn(3), _randn(3), _pos(3)],
+                               {"use_global_stats": True, "__train": True}),
+    "batchnorm_mean_var": ("BatchNorm", [_randn(4, 3, 2), _randn(3),
+                                         _randn(3), _randn(3), _pos(3)],
+                           {"output_mean_var": True, "__train": True}),
 }
 
 
 def _make(spec, rng):
     if spec[0] == "randn":
         return rng.randn(*spec[1]).astype(np.float32)
+    if spec[0] == "pos":
+        return rng.uniform(0.5, 2.0, spec[1]).astype(np.float32)
     # float ids past both ends of the table, fractional parts truncated
     return (rng.uniform(-2, spec[1], spec[2])).astype(np.float32)
 
@@ -170,14 +213,87 @@ def test_port_ops_are_reference_ops():
 
 
 @pytest.mark.parametrize("case", ["fc_flatten", "layernorm_mean_var",
-                                  "reshape_split", "embedding",
+                                  "reshape_split", "embedding", "eye_k",
+                                  "arange_repeat", "batchnorm_mean_var",
                                   "broadcast_axes_tuple", "concat",
                                   "slice_axis_open", "split_squeeze_60"])
 def test_shape_inference_on_meta_matches_reference(case):
     op, specs, attrs = CASES[case]
-    shapes = [s[1] if s[0] == "randn" else s[2] for s in specs]
+    shapes = [s[1] if s[0] in ("randn", "pos") else s[2] for s in specs]
     want, _ = jreg.eval_shape_op(op, shapes, [jnp.float32] * len(shapes),
                                  dict(attrs))
     got, _ = treg.eval_shape_op(op, shapes, [torch.float32] * len(shapes),
                                 dict(attrs))
     assert got == [tuple(w) for w in want]
+
+
+def _leaky(pkg, x, train, ctx):
+    """rrelu's output through ``pkg``'s executor, in train mode or not."""
+    data = pkg.sym.var("data")
+    net = pkg.sym.LeakyReLU(data, act_type="rrelu", lower_bound=0.1,
+                            upper_bound=0.4)
+    arr = pkg.nd.array(x) if ctx is None else pkg.nd.array(x, ctx=ctx)
+    exe = net.bind(ctx or pkg.cpu(), args={"data": arr})
+    return exe.forward(is_train=train)[0].asnumpy()
+
+
+@pytest.mark.parametrize("pkg_name", ["mxnet_tpu", "mxnet_tpu_torch"])
+def test_rrelu_samples_its_slopes_in_training(pkg_name):
+    """One slope per element, uniform in [lower_bound, upper_bound], in
+    training; the mean slope at inference.  The two packages' streams
+    differ, so each is held to the uniform law: the slopes' mean and
+    standard deviation within 4 sigma of their sampling spread."""
+    import importlib
+    pkg = importlib.import_module(pkg_name)
+    ctx = pkg.cpu() if pkg_name == "mxnet_tpu_torch" else None
+    lo, hi, n = 0.1, 0.4, 20000
+    x = -np.random.RandomState(3).uniform(0.5, 2.0, n).astype(np.float32)
+    slopes = _leaky(pkg, x, True, ctx) / x
+    assert slopes.min() >= lo - 1e-6 and slopes.max() <= hi + 1e-6
+    mean, sd = (lo + hi) / 2, (hi - lo) / np.sqrt(12)
+    assert abs(slopes.mean() - mean) < 4 * sd / np.sqrt(n)
+    # the sample sd's spread: sd·sqrt((kurtosis - 1) / 4n), kurtosis 1.8
+    assert abs(slopes.std() - sd) < 4 * sd * np.sqrt(0.8 / (4 * n))
+    assert len(np.unique(slopes.round(6))) > n // 10
+    np.testing.assert_allclose(_leaky(pkg, x, False, ctx) / x, mean,
+                               rtol=1e-6)
+
+
+def test_batchnorm_train_forward_moves_the_aux_states_like_the_reference():
+    """A train-mode forward through each package's executor writes the
+    moving mean and variance back into ``aux_dict``."""
+    import mxnet_tpu as mx
+    import mxnet_tpu_torch as mt
+    rng = np.random.RandomState(8)
+    x = rng.randn(6, 4).astype(np.float32)
+    g, b = rng.randn(4).astype(np.float32), rng.randn(4).astype(np.float32)
+    mm = rng.randn(4).astype(np.float32)
+    mv = rng.uniform(0.5, 2, 4).astype(np.float32)
+    out = []
+    for pkg, ctx in ((mx, mx.cpu()), (mt, mt.cpu())):
+        net = pkg.sym.BatchNorm(pkg.sym.var("data"), fix_gamma=False,
+                                momentum=0.7, name="bn")
+        arr = (lambda v: pkg.nd.array(v)) if pkg is mx else \
+            (lambda v: pkg.nd.array(v, ctx=ctx))
+        exe = net.bind(ctx, args={"data": arr(x), "bn_gamma": arr(g),
+                                  "bn_beta": arr(b)},
+                       aux_states={"bn_moving_mean": arr(mm),
+                                   "bn_moving_var": arr(mv)})
+        y = exe.forward(is_train=True)[0].asnumpy()
+        out.append((y, exe.aux_dict["bn_moving_mean"].asnumpy(),
+                    exe.aux_dict["bn_moving_var"].asnumpy()))
+    for got, want in zip(out[1], out[0]):
+        np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+    assert not np.allclose(out[1][1], mm)
+
+
+def test_block_grad_passes_no_gradient():
+    import mxnet_tpu_torch as mt
+    a = mt.sym.var("a")
+    net = mt.sym.broadcast_add(mt.sym.BlockGrad(a * 3.0), a)
+    x = mt.nd.array(np.ones((2, 2), np.float32), ctx=mt.cpu())
+    g = mt.nd.zeros((2, 2), ctx=mt.cpu())
+    exe = net.bind(mt.cpu(), args={"a": x}, args_grad={"a": g})
+    exe.forward(is_train=True)
+    exe.backward()
+    np.testing.assert_array_equal(g.asnumpy(), np.ones((2, 2)))

@@ -96,8 +96,8 @@ def _serve_port(json_str, params, monkeypatch, mode):
 
 
 def test_reference_passes_that_wait_make_no_rewrites(reference):
-    """fold_const, fold_bn, eliminate and cse are not ported yet; on this
-    graph they rewrite nothing in the JAX package either."""
+    """fold_const, fold_bn, eliminate and cse rewrite nothing on this
+    graph in the JAX package (and the port reports the same, below)."""
     reports = reference["1"][0]
     assert {k: reports[k] for k in ("fold_const", "fold_bn", "eliminate",
                                     "cse")} == dict.fromkeys(
@@ -114,7 +114,8 @@ def test_port_matches_reference_with_fused_attention(model, reference,
         "arg:" + n: a for n, a in params_from_numpy(params, mt.cpu()).items()}
     reports, long_out, short_out = _serve_port(json_str, given, monkeypatch,
                                                "1")
-    assert reports == {"pallas_select": CFG["num_layers"]}
+    assert reports == reference["1"][0]
+    assert reports["pallas_select"] == CFG["num_layers"]
     _, ref_long, ref_short = reference["1"]
     assert long_out.shape == (2, 128, CFG["hidden"])
     np.testing.assert_allclose(long_out, ref_long, rtol=FUSED_TOL,
@@ -127,7 +128,8 @@ def test_port_matches_reference_unfused(model, reference, monkeypatch):
     json_str, _, blob = model
     reports, long_out, short_out = _serve_port(json_str, blob, monkeypatch,
                                                "0")
-    assert reports == {"pallas_select": 0}
+    assert reports == reference["0"][0]
+    assert reports["pallas_select"] == 0
     _, ref_long, ref_short = reference["0"]
     np.testing.assert_allclose(long_out, ref_long, rtol=UNFUSED_TOL,
                                atol=UNFUSED_TOL)
@@ -148,32 +150,63 @@ def test_fused_graph_runs_the_kernel_op(model, monkeypatch):
     assert ops.count("reshape") == unfused.count("reshape")
 
 
+def _select(res):
+    """The ``pallas_select`` report of a pipeline result."""
+    return [r for r in res.reports if r.name == "pallas_select"][0]
+
+
 def test_selector_gates(model, monkeypatch):
     sym = mt.sym.load_json(model[0])
     # auto: only a CUDA device of capability (9, 0) gets the kernel
     monkeypatch.setenv("MXTPU_PALLAS", "auto")
     res = graph_opt.optimize(sym, shapes=SHAPES, device=torch.device("cpu"))
-    assert res.reports[0].rewrites == 0 and "skipped" in res.reports[0].details
+    assert _select(res).rewrites == 0 and "skipped" in _select(res).details
     # head dim 80: the JAX package's rule takes it, so the CPU graph swaps
     # both sites; the CUDA kernel lacks it, so a bind on the card fails
     # rather than quietly run unfused
     monkeypatch.setenv("MXTPU_PALLAS", "1")
     wide = bert_encoder(mt.sym, **dict(CFG, hidden=320))
     res = graph_opt.optimize(wide, shapes=SHAPES, device=torch.device("cpu"))
-    assert res.reports[0].rewrites == 2
-    assert "fallback_sites" not in res.reports[0].details
+    assert _select(res).rewrites == 2
+    assert "fallback_sites" not in _select(res).details
     with pytest.raises(mt.MXNetError, match="MXTPU_PALLAS=0"):
         graph_opt.optimize(wide, shapes=SHAPES, device=torch.device("cuda"))
     monkeypatch.setenv("MXTPU_PALLAS", "0")
-    assert graph_opt.optimize(wide, shapes=SHAPES,
-                              device=torch.device("cuda")
-                              ).reports[0].rewrites == 0
+    assert _select(graph_opt.optimize(wide, shapes=SHAPES,
+                                      device=torch.device("cuda"))
+                   ).rewrites == 0
     monkeypatch.setenv("MXTPU_PALLAS", "1")
     # kill switches
     monkeypatch.setenv("MXTPU_GRAPH_OPT_SKIP", "pallas_select")
-    assert graph_opt.optimize(sym, shapes=SHAPES).reports == []
+    assert [r.name for r in graph_opt.optimize(sym, shapes=SHAPES).reports] \
+        == ["fold_const", "fold_bn", "eliminate", "cse"]
     monkeypatch.setenv("MXTPU_GRAPH_OPT", "0")
     assert not graph_opt.optimize(sym, shapes=SHAPES).enabled
+
+
+def _attention_graph(pkg):
+    q, k, v = (pkg.sym.var(n) for n in "qkv")
+    s = pkg.sym.batch_dot(q, k, transpose_b=True, name="scores")
+    p = pkg.sym.softmax(s * 0.25, axis=-1, name="probs")
+    return pkg.sym.batch_dot(p, v, name="attn")
+
+
+@pytest.mark.parametrize("shape", [(15, 32, 16), (16, 32, 16)])
+def test_selector_floor_matches_reference(shape, monkeypatch):
+    """Near ``MXTPU_PALLAS_MIN_FLOPS`` (1e6) both packages count a site's
+    flops alike, so both swap the same sites: the reference's count is
+    1.044e6 at [15, 32, 16] (4·B·Lq·Lk·d alone would read 9.83e5)."""
+    from mxnet_tpu import graph_opt as jopt
+    monkeypatch.setenv("MXTPU_PALLAS", "1")
+    json_str = _attention_graph(mx).tojson()
+    shapes = dict.fromkeys("qkv", shape)
+    ref = _select(jopt.optimize(mx.sym.load_json(json_str), train=False,
+                                shapes=shapes))
+    got = _select(graph_opt.optimize(mt.sym.load_json(json_str),
+                                     shapes=shapes,
+                                     device=torch.device("cpu")))
+    assert (got.rewrites, got.details) == (ref.rewrites, ref.details)
+    assert got.rewrites == 1
 
 
 def test_predictor_without_ctx_needs_cuda(model, monkeypatch):

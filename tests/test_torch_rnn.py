@@ -176,9 +176,8 @@ def test_fused_lm_matches_unfused_and_runs_the_kernel_op(model, monkeypatch):
 
 def test_pallas_select_matches_reference_report(model, monkeypatch):
     """The two packages' ``pallas_select`` on the same JSON: 2·T rewrites
-    and as many LSTM sites each.  The JAX package runs cse before it (it
-    merges each layer's two zero states), so only the pass reports and
-    the surviving ops are compared, not node counts."""
+    and as many LSTM sites each, after the same cse (it merges each
+    layer's two zero states)."""
     monkeypatch.setenv("MXTPU_PALLAS", "1")
     json_str = model[0]
     ref = jopt.optimize(mx.sym.load_json(json_str), train=False,
@@ -186,7 +185,7 @@ def test_pallas_select_matches_reference_report(model, monkeypatch):
     ref_sel = [r for r in ref.reports if r.name == "pallas_select"][0]
     got = graph_opt.optimize(mt.sym.load_json(json_str), shapes=SHAPES,
                              device=torch.device("cpu"))
-    sel = got.reports[0]
+    sel = _select(got)
     assert sel.rewrites == ref_sel.rewrites == 2 * T
     assert len(sel.details["lstm_sites"]) == \
         len(ref_sel.details["lstm_sites"])
@@ -198,12 +197,17 @@ def test_pallas_select_matches_reference_report(model, monkeypatch):
     assert slices(got.symbol) == slices(ref.symbol) == [T]
 
 
+def _select(res):
+    """The ``pallas_select`` report of a pipeline result."""
+    return [r for r in res.reports if r.name == "pallas_select"][0]
+
+
 def test_selector_gates_for_lstm_sites(model, monkeypatch):
     sym = mt.sym.load_json(model[0])
     # auto: only a CUDA device of capability (9, 0) gets the kernel
     monkeypatch.setenv("MXTPU_PALLAS", "auto")
     res = graph_opt.optimize(sym, shapes=SHAPES, device=torch.device("cpu"))
-    assert res.reports[0].rewrites == 0 and "skipped" in res.reports[0].details
+    assert _select(res).rewrites == 0 and "skipped" in _select(res).details
     # a dtype the kernel is not built for: swapped on the CPU, which runs
     # the plain version; a bind on the card fails rather than serve the
     # unfused graph unasked
@@ -211,7 +215,7 @@ def test_selector_gates_for_lstm_sites(model, monkeypatch):
     half = {n: torch.float16 for n in sym.list_arguments()}
     res = graph_opt.optimize(sym, shapes=SHAPES, dtypes=half,
                              device=torch.device("cpu"))
-    assert res.reports[0].rewrites == 2 * T
+    assert _select(res).rewrites == 2 * T
     with pytest.raises(mt.MXNetError, match="LSTM site .*MXTPU_PALLAS=0"):
         graph_opt.optimize(sym, shapes=SHAPES, dtypes=half,
                            device=torch.device("cuda"))
@@ -220,11 +224,11 @@ def test_selector_gates_for_lstm_sites(model, monkeypatch):
         res = graph_opt.optimize(
             sym, shapes=SHAPES, device=torch.device("cuda"),
             dtypes={n: dt for n in sym.list_arguments()})
-        assert res.reports[0].rewrites == 2 * T
+        assert _select(res).rewrites == 2 * T
     monkeypatch.setenv("MXTPU_PALLAS", "0")
-    assert graph_opt.optimize(sym, shapes=SHAPES, dtypes=half,
-                              device=torch.device("cuda")
-                              ).reports[0].rewrites == 0
+    assert _select(graph_opt.optimize(sym, shapes=SHAPES, dtypes=half,
+                                      device=torch.device("cuda"))
+                   ).rewrites == 0
 
 
 def test_one_blob_serves_every_bucket(model, monkeypatch):
