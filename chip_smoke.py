@@ -80,6 +80,27 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    replay must launch K1, K2 and K3 12 times each in the trace, and the
    in-step accuracy must equal a host ``update_metric``.  The step's p50
    is timed captured, eager and with the per-parameter update.
+8. Gluon ResNet-50 -- `gluon.model_zoo.vision.resnet50_v1()` at its
+   published widths (1000 classes, 224 x 224, random weights from a
+   seed) on cuda:0 in fp32.  Serving at batch 8: the hybridized forward
+   (a CUDA graph replay) must give the imperative one within
+   RESNET_CAPTURE_TOL of the largest output; the net is exported and its
+   JSON and `.params` served by `Predictor`, whose ``fold_bn`` must fold
+   all 53 BatchNorms, within RESNET_EXPORT_TOL of Gluon's output; 200
+   requests each way are timed with the output copy.  Training at batch
+   32 with `SoftmaxCrossEntropyLoss` and `gluon.Trainer` (SGD, momentum
+   0.9, wd 1e-4, lr 0.05): every convolution of one step, run by cuDNN in
+   fp32 on the float64 step's own inputs, must give its output, input
+   gradient and weight gradient within RESNET_GRAD_TOL of float64, and the
+   step's gradients (BatchNorm on its moving statistics) must lie within
+   RESNET_GRAD_TOL of the float64 step's by their norm; element-wise and
+   train-mode figures are printed beside them; then 2 untimed and 10
+   timed steps (the lr ramped linearly to 0.05 over the 12) on 2 fixed
+   batches must lower the loss and move BatchNorm's moving statistics.
+   One captured forward and one training step are profiled (device busy
+   time, convolutions, BatchNorm, the update, the rest).  The phase's
+   kernels are PyTorch's and cuDNN's: the JAX package runs this path on
+   no Pallas kernel.
 
 If the run nears its time limit, cut the serving phases' ``TIMED`` and
 ``LSTM_TIMED`` counts before anything of the training phase.
@@ -105,6 +126,7 @@ import mxnet_tpu_torch as mt  # noqa: E402
 from mxnet_tpu_torch.model_zoo import (BERT_BASE, PTB_LSTM,  # noqa: E402
                                        bert_encoder, bert_mlm, lstm_lm,
                                        random_params)
+from mxnet_tpu_torch.gluon.model_zoo import vision  # noqa: E402
 from mxnet_tpu_torch.ndarray.ndarray import NDArray  # noqa: E402
 from mxnet_tpu_torch.ops import cuda_build, hopper_kernels as hk  # noqa: E402
 from mxnet_tpu_torch.serialization import dumps_ndarrays  # noqa: E402
@@ -180,6 +202,37 @@ LSTM_SLICE_TOL = 1e-4
 # LSTM LM: requests timed per bucket, after the checked ones and one warm-up
 LSTM_BATCH = 32
 LSTM_TIMED = {60: 200, 10: 400}
+# Gluon ResNet-50: serving batch and requests timed per way; training batch,
+# warm-up and timed steps; the train_cifar10.py optimizer settings, the lr
+# reached by a linear ramp over the 12 updates: at a constant 0.05 (8x the
+# linear-scaling rate of the ImageNet recipe at batch 32) the loss fell
+# over 12 steps in 3 runs of 10, with the ramp in 7 of 7
+# (tools/torch_resnet_diag.py lr; NVIDIA H100 80GB HBM3, 700 W)
+RESNET_BATCH, RESNET_TIMED = 8, 200
+RESNET_TRAIN_BATCH, RESNET_WARM, RESNET_STEPS = 32, 2, 10
+RESNET_SGD = dict(learning_rate=0.05, momentum=0.9, wd=1e-4)
+# a replay runs the same cuDNN calls as the imperative forward
+RESNET_CAPTURE_TOL = 1e-6
+# the exported graph with its 53 BatchNorms folded into the convolutions
+RESNET_EXPORT_TOL = 1e-3
+RESNET_BN = 53
+# cuDNN's fp32 convolutions (TF32 off) against float64: every convolution
+# of the training step, fed the float64 step's own inputs and output
+# gradients, gives its output, input gradient and weight gradient within
+# RESNET_GRAD_TOL of their largest magnitudes.  The whole step's fp32
+# gradients are held against the float64 step by their norm, BatchNorm on
+# its moving statistics.  Element by element they are not: a ReLU input
+# or a max-pool pair within fp32 rounding of its switching point routes a
+# gradient elsewhere (the stem's output gradient read 8.0e-2 off at one
+# element, its weight gradient 4.8e-3, while cuDNN's weight gradient on
+# the same inputs was within 9.0e-7), and in train mode random-init
+# ResNet-50's batch statistics make it worse (1.3e-1; alike with cuDNN's
+# deterministic algorithms and with cuDNN off) (tools/torch_resnet_diag.py
+# stem and grads; NVIDIA H100 80GB HBM3, 700 W).
+# Those element-wise errors are printed, not held.  A convolution bias
+# that feeds a train-mode BatchNorm has a gradient that is zero in exact
+# arithmetic and is measured relative to its weight's gradient instead
+RESNET_GRAD_TOL = 2e-3
 
 
 def log(*parts):
@@ -1541,6 +1594,333 @@ def phase_fit(card, cfg=None, batch=8, seq=512):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: Gluon ResNet-50
+# ---------------------------------------------------------------------------
+
+def _resnet(model, classes, ctx, x):
+    """A seeded net on ``ctx`` (weights drawn on the host, so every call
+    gives the same ones), its deferred shapes settled by one forward."""
+    mt.random.seed(SEED)
+    net = model(classes=classes, prefix="resnet50_v1_")
+    net.initialize(mt.init.Xavier(magnitude=2), ctx=ctx)
+    net(x)
+    return net
+
+
+def _blocks(net, kind):
+    found = []
+    net.apply(lambda b: found.append(b) if isinstance(b, kind) else None)
+    return found
+
+
+def _bias_feeds_bn(net):
+    """{bias name: weight name} of each convolution whose output goes
+    straight into a BatchNorm: in train mode that bias's gradient is zero
+    in exact arithmetic."""
+    nn = mt.gluon.nn
+    out = {}
+    for seq in _blocks(net, nn.HybridSequential):
+        kids = list(seq._children.values())
+        for a, b in zip(kids, kids[1:]):
+            if isinstance(a, nn.Conv2D) and isinstance(b, nn.BatchNorm) \
+                    and a.bias is not None:
+                out[a.bias.name] = a.weight.name
+    return out
+
+
+def _gluon_grads(net, x, y, train=True):
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    with mt.autograd.record(train_mode=train):
+        loss = loss_fn(net(x), y)
+    loss.backward()
+    return {n: p.grad().data.double() for n, p in
+            net.collect_params().items() if p.grad_req != "null"}
+
+
+def _rel(got, want):
+    return float((got.double() - want).abs().max()) / \
+        max(float(want.abs().max()), 1e-30)
+
+
+def _conv_checks(convs):
+    """Each recorded convolution's output, input gradient and weight
+    gradient computed by cuDNN in fp32 and in float64 from the float64
+    step's own input, weight and output gradient: the worst error of each
+    kind (relative to its largest magnitude) and where."""
+    from torch.nn.grad import conv2d_input, conv2d_weight
+    worst = {"fprop": (0.0, None), "dgrad": (0.0, None),
+             "wgrad": (0.0, None)}
+    for name, blk, x, dz in convs:
+        w = blk.weight.data().data.detach()
+        kw = blk._kwargs
+        args = (kw["stride"], kw["pad"], kw["dilate"], kw["num_group"])
+        with torch.no_grad():
+            pairs = {
+                "fprop": (torch.nn.functional.conv2d(x.float(), w.float(),
+                                                     None, *args),
+                          torch.nn.functional.conv2d(x, w, None, *args)),
+                "dgrad": (conv2d_input(x.shape, w.float(), dz.float(),
+                                       *args),
+                          conv2d_input(x.shape, w, dz, *args)),
+                "wgrad": (conv2d_weight(x.float(), w.shape, dz.float(),
+                                        *args),
+                          conv2d_weight(x, w.shape, dz, *args))}
+        for kind, (got, want) in pairs.items():
+            e = _rel(got, want)
+            if e > worst[kind][0]:
+                worst[kind] = (e, name)
+    return worst
+
+
+def _resnet_grad_check(model, classes, x, y, train):
+    """One training step in fp32 against the same step in float64 on the
+    card, with BatchNorm on batch statistics (``train``) or on its moving
+    ones: all gradients together (relative to their norm), the worst
+    single parameter (relative to its largest magnitude; in train mode a
+    bias feeding a BatchNorm relative to its weight's) and, from the
+    float64 step's recorded convolutions, cuDNN's fp32 against float64
+    (`_conv_checks`)."""
+    gpu = mt.gpu(0)
+    net = _resnet(model, classes, gpu, x)
+    exact = _resnet(model, classes, gpu, x)
+    exact.cast("float64")
+    got = _gluon_grads(net, x, y, train)
+    convs, hooks = [], []
+
+    def keep(name):
+        def hook(blk, args, out):
+            out.data.retain_grad()
+            convs.append((name, blk, args[0].data.detach(), out.data))
+        return hook
+    for blk in _blocks(exact, mt.gluon.nn.Conv2D):
+        hooks.append(blk.register_forward_hook(keep(blk.name)))
+    want = _gluon_grads(exact, x.astype("float64"), y.astype("float64"),
+                        train)
+    for h in hooks:
+        h.detach()
+    conv = _conv_checks([(n, b, x_, out.grad) for n, b, x_, out in convs])
+    n_convs = len(convs)
+    zero = _bias_feeds_bn(net) if train else {}
+    worst, err, num, den = None, 0.0, 0.0, 0.0
+    for name, w in want.items():
+        scale = float(want[zero.get(name, name)].abs().max())
+        e = float((got[name] - w).abs().max()) / max(scale, 1e-30)
+        if e > err:
+            worst, err = name, e
+        num += float(((got[name] - w) ** 2).sum())
+        den += float((w ** 2).sum())
+    del net, exact, got, want, convs
+    torch.cuda.empty_cache()
+    return {"norm_rel_err": (num / den) ** 0.5, "worst": worst,
+            "rel_err": err, "convs": n_convs,
+            **{f"{k}_rel_err": v[0] for k, v in conv.items()},
+            **{f"{k}_worst": v[1] for k, v in conv.items()}}
+
+
+def _gluon_latency(fn, xs, n):
+    """p50/p90/p99 ms of ``n`` requests cycled from ``xs`` (forward plus
+    the output copy to the host), after one warm request."""
+    fn(xs[0]).asnumpy()
+    lat = []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(xs[i % len(xs)]).asnumpy()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    q = np.percentile(lat, [50, 90, 99])
+    return {"n": n, "p50_ms": float(q[0]), "p90_ms": float(q[1]),
+            "p99_ms": float(q[2])}
+
+
+def _kind(kernel):
+    """The kind of a kernel of the ResNet path, from its name."""
+    low = kernel.lower()
+    if any(k in low for k in ("conv", "fprop", "dgrad", "wgrad",
+                              "implicit")):
+        return "conv"
+    if "batch_norm" in low or "bn_fw" in low or "bn_bw" in low:
+        return "batchnorm"
+    if "multi_tensor_apply" in low:
+        return "update"
+    return "rest"
+
+
+def profile_gluon(tag, run):
+    """Device time by kind over one warm call of ``run``: convolutions,
+    BatchNorm, the optimizer update and the rest, beside the device-busy
+    total and the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    kinds = {k: 0.0 for k in ("conv", "batchnorm", "update", "rest")}
+    for key, ms, _ in rows:
+        kinds[_kind(key)] += ms
+    busy = sum(kinds.values())
+    rows.sort(key=lambda r: -r[1])
+    rec = {"profile": tag, "wall_ms": wall_ms, "device_busy_ms": busy,
+           "idle_share": (1.0 - busy / wall_ms) if busy else "not measured",
+           **{f"{k}_ms": v for k, v in kinds.items()},
+           "kernels": sum(n for _, _, n in rows),
+           "top": [[name[:90], ms, n] for name, ms, n in rows[:12]]}
+    log(json.dumps(rec))
+    return rec
+
+
+def phase_gluon(card, model=None, classes=1000, image=224,
+                batch=RESNET_BATCH, train_batch=RESNET_TRAIN_BATCH,
+                timed=RESNET_TIMED):
+    """ResNet-50 v1 through Gluon on cuda:0: serving (imperative,
+    hybridized, exported to `Predictor`) and training through
+    `autograd.record`, ``backward`` and `Trainer.step`.  ``model`` and the
+    sizes cut the net for a rehearsal; the smoke runs resnet50_v1 at its
+    published widths."""
+    t_phase = time.perf_counter()
+    model = model or vision.resnet50_v1
+    gpu = mt.gpu(0)
+    rng = np.random.RandomState(SEED)
+    reqs = [mt.nd.array(rng.uniform(-1, 1, (batch, 3, image, image)),
+                        ctx=gpu) for _ in range(4)]
+
+    # 1. serving: imperative, then hybridized (captured), then exported
+    net = _resnet(model, classes, gpu, reqs[0])
+    n_bn = len(_blocks(net, mt.gluon.nn.BatchNorm))
+    imp = [net(r).asnumpy() for r in reqs]
+    lat = {"imperative": _gluon_latency(net, reqs, timed)}
+    net.hybridize()
+    cap = [net(r).asnumpy() for r in reqs]
+    if net._cached_op.num_programs != 1:
+        raise AssertionError("the hybridized forward was not captured once")
+    cap_err = _capture_err(cap, imp)
+    _, host = replay_launches(lambda: net(reqs[0]).asnumpy())
+    graphs = sum(n for key, n in host.items() if "GraphLaunch" in key)
+    log(f"gluon: captured against imperative {cap_err:.3e} of the largest "
+        f"output; {graphs} graph launch(es) a forward")
+    if cap_err > RESNET_CAPTURE_TOL or graphs < 1:
+        raise AssertionError(f"captured forward off by {cap_err} or not "
+                             f"replayed ({host})")
+    lat["hybridized"] = _gluon_latency(net, reqs, timed)
+    out_dir = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    prefix = os.path.join(out_dir, "resnet50_v1")
+    net.export(prefix)
+    with open(prefix + "-symbol.json") as f:
+        sym_json = f.read()
+    with open(prefix + "-0000.params", "rb") as f:
+        blob = f.read()
+    pred = mt.Predictor(sym_json, blob, {"data": (batch, 3, image, image)})
+    folded = {r.name: r.rewrites for r in pred._program.opt_reports}
+    served = []
+    for r in reqs:
+        pred.forward(data=r)
+        served.append(pred.get_output(0).asnumpy())
+    export_err = _capture_err(served, imp)
+    log(f"gluon: exported graph through Predictor against Gluon "
+        f"{export_err:.3e}; fold_bn folded {folded.get('fold_bn')} of "
+        f"{n_bn} BatchNorms")
+    if export_err > RESNET_EXPORT_TOL or folded.get("fold_bn") != n_bn:
+        raise AssertionError(f"Predictor off by {export_err}, or fold_bn "
+                             f"folded {folded.get('fold_bn')} of {n_bn}")
+
+    def predict(r):
+        pred.forward(data=r)
+        return pred.get_output(0)
+
+    lat["predictor"] = _gluon_latency(predict, reqs, timed)
+    for rec in lat.values():
+        rec["images_per_s"] = batch / (rec["p50_ms"] / 1e3)
+    log(json.dumps({"gluon_serving": lat}))
+    serve_profile = profile_gluon("gluon serving forward (captured)",
+                                  lambda: net(reqs[0]).asnumpy())
+    del net, pred, reqs, imp, cap, served
+    torch.cuda.empty_cache()
+
+    # 2. training: the float64 check of one step, then the loop
+    data = [(mt.nd.array(rng.uniform(-1, 1, (train_batch, 3, image, image)),
+                         ctx=gpu),
+             mt.nd.array(rng.randint(0, classes, (train_batch,)), ctx=gpu))
+            for _ in range(2)]
+    checks = {}
+    for mode, train in (("moving_stats", False), ("batch_stats", True)):
+        c = checks[mode] = _resnet_grad_check(model, classes, *data[0],
+                                              train)
+        log(f"gluon: one step against float64, BatchNorm on "
+            f"{mode.replace('_', ' ')}: gradients {c['norm_rel_err']:.3e} "
+            f"of their norm (worst element {c['worst']} {c['rel_err']:.3e}"
+            f"); cuDNN over its convolutions: fprop "
+            f"{c['fprop_rel_err']:.3e}, dgrad {c['dgrad_rel_err']:.3e}, "
+            f"wgrad {c['wgrad_rel_err']:.3e}")
+        held = [c[f"{k}_rel_err"] for k in ("fprop", "dgrad", "wgrad")]
+        if mode == "moving_stats":
+            held.append(c["norm_rel_err"])
+        if max(held) > RESNET_GRAD_TOL:
+            raise AssertionError(f"the step against float64 ({mode}): {c}")
+    net = _resnet(model, classes, gpu, data[0][0])
+    ramp = mt.lr_scheduler.FactorScheduler(
+        step=10 ** 6, base_lr=RESNET_SGD["learning_rate"],
+        warmup_steps=RESNET_WARM + RESNET_STEPS, warmup_begin_lr=0.0)
+    trainer = mt.gluon.Trainer(net.collect_params(), "sgd",
+                               dict(RESNET_SGD, lr_scheduler=ramp))
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    stats0 = {n: p.data().data.clone() for n, p in
+              net.collect_params().items() if "running_" in n}
+
+    def step(k):
+        x, y = data[k % 2]
+        with mt.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(train_batch)
+        return loss
+
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for k in range(RESNET_WARM + RESNET_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(k).mean().asscalar()))
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    moved = sum(not torch.equal(p.data().data, stats0[n])
+                for n, p in net.collect_params().items() if n in stats0)
+    first, last = np.mean(losses[:2]), np.mean(losses[-2:])
+    log(f"gluon: losses {losses}; {moved} of {len(stats0)} moving "
+        "statistics moved")
+    if not np.isfinite(losses).all() or not last < first \
+            or moved != len(stats0):
+        raise AssertionError(f"the loss did not fall ({losses}) or the "
+                             f"moving statistics stood still ({moved})")
+    step_ms = float(np.median(times[RESNET_WARM:]))
+    train_profile = profile_gluon("gluon training step",
+                                  lambda: step(0).asnumpy())
+    rec = {"slice": "gluon_resnet50_v1", "card": card, "dtype": "float32",
+           "image": image, "classes": classes, "serve_batch": batch,
+           "capture_rel_err": cap_err, "export_rel_err": export_err,
+           "fold_bn": folded.get("fold_bn"), "serving": lat,
+           "train_batch": train_batch, "grads_vs_float64": checks,
+           "losses": losses,
+           "step_p50_ms": step_ms,
+           "images_per_s": train_batch / (step_ms / 1e3),
+           "peak_memory_gib": peak_gb,
+           "serve_profile": serve_profile, "train_profile": train_profile,
+           "phase_s": time.perf_counter() - t_phase}
+    log(json.dumps(rec))
+    del net, trainer, data
+    torch.cuda.empty_cache()
+    log(f"gluon: phase 8 in {rec['phase_s']:.1f} s")
+    return rec
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -1551,6 +1931,7 @@ def main():
     train_launches = phase_train(card)
     lstm_launches = phase_lstm_serving(card)
     fit_launches = phase_fit(card)
+    phase_gluon(card)
     leaked = [m for m in ("jax", "mxnet_tpu") if m in sys.modules]
     if leaked:
         raise SystemExit(f"chip_smoke: the port imported {leaked}")

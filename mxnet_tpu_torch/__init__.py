@@ -17,8 +17,13 @@ and symbolic training through ``mod.Module`` (bind, init_params,
 init_optimizer, forward, backward, update, and ``fit``/``score``/
 ``predict`` over `io.NDArrayIter` with `metric`, `lr_scheduler` and
 `callback`) with SGD and Adam, where attention's gradient runs on the
-flash-attention backward kernels.  On the card, inference forwards and
-the whole training step run as CUDA graphs.
+flash-attention backward kernels; and the imperative path: an NDArray
+with arithmetic, slicing and gradients, `autograd` (record, backward,
+grad, Function) over torch's autograd, and `gluon` (Parameter, Block and
+HybridBlock with ``hybridize``, the `nn` layers, the losses, `Trainer`,
+`utils` and the ResNets of `model_zoo.vision`).  On the card, inference
+forwards, hybridized predict-mode forwards and Module's whole training
+step run as CUDA graphs.
 """
 from . import base, config, ops  # noqa: F401
 from .base import MXNetError
@@ -30,7 +35,9 @@ from . import lr_scheduler, metric, callback  # noqa: F401
 from . import initializer as init
 from . import module as mod
 from .predictor import Predictor
+from . import autograd, gluon  # noqa: E402
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "nd", "sym", "random",
            "io", "init", "initializer", "optimizer", "mod", "rnn",
-           "lr_scheduler", "metric", "callback", "Predictor"]
+           "lr_scheduler", "metric", "callback", "Predictor", "autograd",
+           "gluon"]

@@ -1,0 +1,265 @@
+"""Gluon losses (the counterpart of `mxnet_tpu/gluon/loss.py`; reference
+`python/mxnet/gluon/loss.py`), each a HybridBlock over the registered
+ops, with the reference's ``weight``, ``batch_axis``, ``sparse_label``,
+``from_logits`` and ``axis``.  `CTCLoss` waits for the CTC op."""
+from __future__ import annotations
+
+from .block import HybridBlock
+
+__all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
+           "SigmoidBCELoss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss",
+           "KLDivLoss", "HuberLoss", "HingeLoss", "SquaredHingeLoss",
+           "LogisticLoss", "TripletLoss", "CosineEmbeddingLoss",
+           "PoissonNLLLoss"]
+
+
+def _apply_weighting(F, loss, weight=None, sample_weight=None):
+    """Reference `loss.py:_apply_weighting`."""
+    if sample_weight is not None:
+        loss = F.broadcast_mul(loss, sample_weight)
+    if weight is not None:
+        loss = loss * weight
+    return loss
+
+
+def _reshape_like(F, pred, label):
+    if pred.shape != label.shape:
+        return label.reshape(pred.shape)
+    return label
+
+
+class Loss(HybridBlock):
+    def __init__(self, weight, batch_axis, **kwargs):
+        super().__init__(**kwargs)
+        self._weight = weight
+        self._batch_axis = batch_axis
+
+
+class L2Loss(Loss):
+    def __init__(self, weight=1.0, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = _reshape_like(F, pred, label)
+        loss = F.square(label - pred)
+        loss = _apply_weighting(F, loss, self._weight / 2, sample_weight)
+        return F.mean(loss, axis=tuple(
+            i for i in range(loss.ndim) if i != self._batch_axis)) \
+            if loss.ndim > 1 else loss
+
+
+class L1Loss(Loss):
+    def __init__(self, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = _reshape_like(F, pred, label)
+        loss = F.abs(label - pred)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=tuple(
+            i for i in range(loss.ndim) if i != self._batch_axis)) \
+            if loss.ndim > 1 else loss
+
+
+class SigmoidBinaryCrossEntropyLoss(Loss):
+    """Reference `loss.py:SigmoidBinaryCrossEntropyLoss`: numerically stable
+    log-sum-exp form."""
+
+    def __init__(self, from_sigmoid=False, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._from_sigmoid = from_sigmoid
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None,
+                       pos_weight=None):
+        label = _reshape_like(F, pred, label)
+        if not self._from_sigmoid:
+            if pos_weight is None:
+                loss = F.relu(pred) - pred * label + \
+                    F.Activation(-F.abs(pred), act_type="softrelu")
+            else:
+                # reference weighted form: (1-z)·x + (1+z(pw-1))·softplus(-x)
+                # with softplus(-x) = softrelu(-|x|) + relu(-x)
+                log_weight = 1 + F.broadcast_mul(pos_weight - 1, label)
+                loss = pred - pred * label + log_weight * (
+                    F.Activation(-F.abs(pred), act_type="softrelu")
+                    + F.relu(-pred))
+        else:
+            eps = 1e-12
+            if pos_weight is None:
+                loss = -(F.log(pred + eps) * label
+                         + F.log(1. - pred + eps) * (1. - label))
+            else:
+                loss = -(F.broadcast_mul(F.log(pred + eps) * label,
+                                         pos_weight)
+                         + F.log(1. - pred + eps) * (1. - label))
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=tuple(
+            i for i in range(loss.ndim) if i != self._batch_axis)) \
+            if loss.ndim > 1 else loss
+
+
+SigmoidBCELoss = SigmoidBinaryCrossEntropyLoss
+
+
+class SoftmaxCrossEntropyLoss(Loss):
+    """Reference `loss.py:SoftmaxCrossEntropyLoss`."""
+
+    def __init__(self, axis=-1, sparse_label=True, from_logits=False,
+                 weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._axis = axis
+        self._sparse_label = sparse_label
+        self._from_logits = from_logits
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        if not self._from_logits:
+            pred = F.log_softmax(pred, axis=self._axis)
+        if self._sparse_label:
+            loss = -F.pick(pred, label, axis=self._axis, keepdims=True)
+        else:
+            label = _reshape_like(F, pred, label)
+            loss = -F.sum(pred * label, axis=self._axis, keepdims=True)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=tuple(
+            i for i in range(loss.ndim) if i != self._batch_axis))
+
+
+SoftmaxCELoss = SoftmaxCrossEntropyLoss
+
+
+class KLDivLoss(Loss):
+    def __init__(self, from_logits=True, axis=-1, weight=None, batch_axis=0,
+                 **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._from_logits = from_logits
+        self._axis = axis
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        if not self._from_logits:
+            pred = F.log_softmax(pred, axis=self._axis)
+        loss = label * (F.log(label + 1e-12) - pred)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=tuple(
+            i for i in range(loss.ndim) if i != self._batch_axis))
+
+
+class HuberLoss(Loss):
+    def __init__(self, rho=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._rho = rho
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = _reshape_like(F, pred, label)
+        loss = F.abs(label - pred)
+        loss = F.where(loss > self._rho,
+                       loss - 0.5 * self._rho,
+                       (0.5 / self._rho) * F.square(loss))
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=tuple(
+            i for i in range(loss.ndim) if i != self._batch_axis))
+
+
+class HingeLoss(Loss):
+    def __init__(self, margin=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = _reshape_like(F, pred, label)
+        loss = F.relu(self._margin - pred * label)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=tuple(
+            i for i in range(loss.ndim) if i != self._batch_axis))
+
+
+class SquaredHingeLoss(Loss):
+    def __init__(self, margin=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = _reshape_like(F, pred, label)
+        loss = F.square(F.relu(self._margin - pred * label))
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=tuple(
+            i for i in range(loss.ndim) if i != self._batch_axis))
+
+
+class LogisticLoss(Loss):
+    def __init__(self, weight=None, batch_axis=0, label_format="signed",
+                 **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._label_format = label_format
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = _reshape_like(F, pred, label)
+        if self._label_format == "signed":
+            label = (label + 1.0) / 2.0
+        loss = F.relu(pred) - pred * label + \
+            F.Activation(-F.abs(pred), act_type="softrelu")
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=tuple(
+            i for i in range(loss.ndim) if i != self._batch_axis))
+
+
+class TripletLoss(Loss):
+    def __init__(self, margin=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def hybrid_forward(self, F, pred, positive, negative, sample_weight=None):
+        positive = _reshape_like(F, pred, positive)
+        negative = _reshape_like(F, pred, negative)
+        loss = F.sum(F.square(pred - positive) - F.square(pred - negative),
+                     axis=self._batch_axis, exclude=True)
+        loss = F.relu(loss + self._margin)
+        return _apply_weighting(F, loss, self._weight, sample_weight)
+
+
+class PoissonNLLLoss(Loss):
+    """Poisson negative log likelihood (reference `gluon/loss.py:713-770`):
+    from_logits -> exp(pred) - target*pred, else pred - target*log(pred+eps);
+    compute_full adds the Stirling approximation for target > 1.  Returns
+    the MEAN over all elements (scalar), matching the reference."""
+
+    def __init__(self, weight=None, from_logits=True, batch_axis=0,
+                 compute_full=False, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._from_logits = from_logits
+        self._compute_full = compute_full
+
+    def hybrid_forward(self, F, pred, target, sample_weight=None,
+                       epsilon=1e-08):
+        import math
+        target = _reshape_like(F, pred, target)
+        if self._from_logits:
+            loss = F.exp(pred) - target * pred
+        else:
+            loss = pred - target * F.log(pred + epsilon)
+        if self._compute_full:
+            # mask BEFORE the log: the reference multiplies log(0)=-inf by
+            # a zero mask, which is NaN in IEEE arithmetic — clamp the
+            # argument where the mask will zero the term anyway
+            safe_t = F.where(target > 1, target, F.ones_like(target))
+            stirling = (safe_t * F.log(safe_t) - safe_t
+                        + 0.5 * F.log(2 * safe_t * math.pi))
+            loss = loss + stirling * (target > 1)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss)
+
+
+class CosineEmbeddingLoss(Loss):
+    def __init__(self, weight=None, batch_axis=0, margin=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def hybrid_forward(self, F, input1, input2, label, sample_weight=None):
+        input1 = input1.reshape((input1.shape[0], -1))
+        input2 = input2.reshape((input2.shape[0], -1))
+        num = F.sum(input1 * input2, axis=1)
+        denom = F.sqrt(F.sum(F.square(input1), axis=1)
+                       * F.sum(F.square(input2), axis=1) + 1e-12)
+        cos = num / denom
+        label = label.reshape((-1,))
+        loss = F.where(label == 1, 1.0 - cos, F.relu(cos - self._margin))
+        return _apply_weighting(F, loss, self._weight, sample_weight)

@@ -1,0 +1,6 @@
+"""Model zoo (the counterpart of `mxnet_tpu/gluon/model_zoo`): the vision
+ResNets."""
+from . import vision
+from .vision import get_model
+
+__all__ = ["vision", "get_model"]

@@ -1,28 +1,85 @@
 """Generated `nd.*` surface: one eager function per registered op (the
-counterpart of `mxnet_tpu/ndarray/register.py`)."""
+counterpart of `mxnet_tpu/ndarray/register.py`).
+
+`invoke` runs an op on NDArrays as the reference's does: tensor inputs may
+be passed by name, numbers and arrays become NDArrays on the first
+input's device, an op that reads ``__train`` gets
+`autograd.is_training()` unless the caller set it, an op's mutated inputs
+(MXNet's FMutateInputs, BatchNorm's moving statistics) are written back
+into the caller's arrays, and ``out=`` (an NDArray or a list of them)
+receives the results and is returned.  Under `autograd.record` the op
+runs with torch's grad mode on, so autograd records it; otherwise under
+`torch.no_grad()`.
+"""
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List, Sequence
 
+import numpy as np
+import torch
+
+from .. import autograd
 from .. import random as _random
 from ..base import _Null
+from ..context import default_context
 from ..ops import registry as _reg
-from .ndarray import NDArray
+from ..ops.registry import DEVICE, Attrs
+from .ndarray import NDArray, array
 
 __all__ = ["invoke", "make_nd_functions"]
 
 
-def invoke(op_name: str, *args, **kwargs):
-    """Run op ``op_name`` on NDArrays; returns an NDArray, or a list of
-    them for a multi-output op."""
-    op = _reg.get_op(op_name)
-    inputs = [a for a in args if a is not None]
+def _split_args(op: _reg.OpDef, args: Sequence, kwargs: Dict[str, Any]):
+    """Tensor inputs (positional, then named ones in the op's declared
+    order) and attrs (an explicit None is kept, as the reference keeps
+    it)."""
+    inputs: List = [a for a in args if a is not None]
+    if op.input_names:
+        named = {n: kwargs.pop(n) for n in list(kwargs)
+                 if n in op.input_names}
+        if named:
+            pos = {op.input_names[i]: v for i, v in enumerate(inputs)}
+            pos.update(named)
+            inputs = [pos[n] for n in op.input_names if n in pos]
     attrs = {k: v for k, v in kwargs.items() if v is not _Null}
-    tensors = [a.data for a in inputs]
+    return inputs, attrs
+
+
+def invoke(op_name: str, *args, out=None, **kwargs):
+    """Run op ``op_name`` on NDArrays; returns an NDArray, a list of them
+    for a multi-output op, or ``out``."""
+    op = _reg.get_op(op_name)
+    inputs, attrs = _split_args(op, args, kwargs)
+    first = next((x for x in inputs if isinstance(x, NDArray)), None)
+    ctx = first.context if first is not None else attrs.pop("ctx", None)
+    nd_inputs: List[NDArray] = []
+    for x in inputs:
+        if isinstance(x, NDArray):
+            nd_inputs.append(x)
+        elif isinstance(x, (int, float, list, tuple, np.ndarray,
+                            torch.Tensor)):
+            nd_inputs.append(array(x, ctx=ctx or default_context(op_name)))
+        else:
+            raise TypeError(f"op {op_name}: unsupported input type {type(x)}")
+    if op.uses_train_mode and "__train" not in attrs:
+        attrs["__train"] = autograd.is_training()
+    if op.takes_device and DEVICE not in attrs:
+        attrs[DEVICE] = (ctx or default_context(op_name)).device
+    tensors = [x.data for x in nd_inputs]
     gen = _random.generator(tensors[0].device) if op.needs_rng and tensors \
         else None
-    outs = _reg.apply_op(op_name, tensors, attrs, generator=gen)
-    res = [NDArray(o) for o in outs[:op.num_outputs(_reg.Attrs(attrs))]]
+    with autograd.grad_mode():
+        outs = _reg.apply_op(op_name, tensors, attrs, generator=gen)
+    a = Attrs(attrs)
+    n_vis = op.num_outputs(a)
+    for slot, val in zip(op.mutate_slots(a), outs[n_vis:]):
+        nd_inputs[slot]._set_data(val)
+    res = [NDArray(o) for o in outs[:n_vis]]
+    if out is not None:
+        dsts = out if isinstance(out, (list, tuple)) else [out]
+        for dst, src in zip(dsts, res):
+            dst._set_data(src.data.to(dst.dtype))
+        return out
     return res[0] if len(res) == 1 else res
 
 
@@ -31,8 +88,8 @@ def make_nd_functions(module_dict: Dict[str, Any]) -> None:
         if name in module_dict:
             continue
 
-        def f(*args, _n=name, **kwargs):
-            return invoke(_n, *args, **kwargs)
+        def f(*args, _n=name, out=None, **kwargs):
+            return invoke(_n, *args, out=out, **kwargs)
         f.__name__ = name
         f.__doc__ = _reg.get_op(name).doc
         module_dict[name] = f

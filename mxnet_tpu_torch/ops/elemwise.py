@@ -1,9 +1,9 @@
-"""Elementwise ops of the ported paths (the counterparts of
-`mxnet_tpu/ops/elemwise.py`): the unary ``sigmoid``, ``tanh``,
-``negative`` and ``rsqrt`` (the LSTM cell, the Symbol sugar and the
-``fold_bn`` rewrite emit them), ``identity``/``_copy`` and
+"""Elementwise ops (the counterparts of `mxnet_tpu/ops/elemwise.py`):
+the unary math ops (``sigmoid``, ``tanh``, ``relu``, ``abs``, ``square``,
+``sqrt``, ``exp``, ``log``, ...), ``identity``/``_copy``,
 ``BlockGrad``/``stop_gradient`` (which the ``eliminate`` pass forwards),
-and the scalar arithmetic ``_plus/_minus/_rminus/_mul/_div/_rdiv_scalar``."""
+``cast``, and the scalar arithmetic and comparisons (``_plus_scalar``,
+``_rdiv_scalar``, ``_greater_scalar``, ...)."""
 from __future__ import annotations
 
 import torch
@@ -18,9 +18,19 @@ def _unary(name, fn):
     register(name, num_inputs=1, input_names=["data"])(compute)
 
 
-for _name, _fn in {"sigmoid": torch.sigmoid, "tanh": torch.tanh,
-                   "negative": torch.neg, "rsqrt": torch.rsqrt,
-                   "identity": lambda x: x}.items():
+_UNARY = {
+    "sigmoid": torch.sigmoid, "tanh": torch.tanh, "negative": torch.neg,
+    "rsqrt": torch.rsqrt, "identity": lambda x: x, "relu": torch.relu,
+    "abs": torch.abs, "sign": torch.sign, "square": torch.square,
+    "sqrt": torch.sqrt, "exp": torch.exp, "log": torch.log,
+    "log2": torch.log2, "log10": torch.log10, "log1p": torch.log1p,
+    "expm1": torch.expm1, "floor": torch.floor, "ceil": torch.ceil,
+    "trunc": torch.trunc, "sin": torch.sin, "cos": torch.cos,
+    "erf": torch.erf, "softsign": torch.nn.functional.softsign,
+    "reciprocal": lambda x: 1.0 / x,
+}
+
+for _name, _fn in _UNARY.items():
     _unary(_name, _fn)
 
 alias("negative", "_np_negative")
@@ -34,6 +44,14 @@ def _block_grad(attrs, x):
 
 
 alias("BlockGrad", "stop_gradient")
+
+
+@register("cast", num_inputs=1, input_names=["data"])
+def _cast(attrs, x):
+    return x.to(attrs.get_dtype("dtype"))
+
+
+alias("cast", "Cast")
 
 
 def _scalar_op(name, fn):
@@ -58,6 +76,18 @@ _SCALAR = {
     "_mul_scalar": lambda x, s: x * s,
     "_div_scalar": lambda x, s: x / s,
     "_rdiv_scalar": _rdiv,
+    "_mod_scalar": lambda x, s: torch.remainder(x, s),
+    "_power_scalar": lambda x, s: torch.pow(x, s),
+    "_rpower_scalar": lambda x, s: torch.pow(
+        torch.as_tensor(s, dtype=x.dtype, device=x.device), x),
+    "_maximum_scalar": lambda x, s: torch.clamp_min(x, s),
+    "_minimum_scalar": lambda x, s: torch.clamp_max(x, s),
+    "_equal_scalar": lambda x, s: (x == s).to(x.dtype),
+    "_not_equal_scalar": lambda x, s: (x != s).to(x.dtype),
+    "_greater_scalar": lambda x, s: (x > s).to(x.dtype),
+    "_greater_equal_scalar": lambda x, s: (x >= s).to(x.dtype),
+    "_lesser_scalar": lambda x, s: (x < s).to(x.dtype),
+    "_lesser_equal_scalar": lambda x, s: (x <= s).to(x.dtype),
 }
 
 for _name, _fn in _SCALAR.items():

@@ -1,8 +1,8 @@
 """Shape and product ops of the ported paths (the counterparts of
 `mxnet_tpu/ops/matrix.py`): batch_dot, transpose, swapaxes, reshape,
-Embedding, the sequence plumbing of the unrolled RNN cells
-(SliceChannel/split, slice_axis, Concat and expand_dims), and the
-zero-input constructors ``_zeros``, ``_ones``, ``_full``, ``_arange`` and
+Flatten, Pad, where, zeros_like/ones_like, Embedding, the sequence
+plumbing of the unrolled RNN cells (SliceChannel/split, slice_axis,
+Concat and expand_dims), and the zero-input constructors ``_zeros``, ``_ones``, ``_full``, ``_arange`` and
 ``_eye`` that the ``fold_const`` pass folds.
 
 A constructor has no input to take a device from: the executor hands it
@@ -14,6 +14,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from .registry import DEVICE, alias, register
 
@@ -48,25 +49,25 @@ alias("swapaxes", "SwapAxis")
 # zero-input constructors (reference src/operator/tensor/init_op.h)
 # ---------------------------------------------------------------------------
 
-def _where(attrs):
+def _placement(attrs):
     return dict(device=attrs.get(DEVICE),
                 dtype=attrs.get_dtype("dtype", torch.float32))
 
 
 @register("_zeros", num_inputs=0)
 def _zeros(attrs):
-    return torch.zeros(attrs.get_tuple("shape", ()), **_where(attrs))
+    return torch.zeros(attrs.get_tuple("shape", ()), **_placement(attrs))
 
 
 @register("_ones", num_inputs=0)
 def _ones(attrs):
-    return torch.ones(attrs.get_tuple("shape", ()), **_where(attrs))
+    return torch.ones(attrs.get_tuple("shape", ()), **_placement(attrs))
 
 
 @register("_full", num_inputs=0)
 def _full(attrs):
     return torch.full(attrs.get_tuple("shape", ()),
-                      attrs.get_float("value"), **_where(attrs))
+                      attrs.get_float("value"), **_placement(attrs))
 
 
 @register("_arange", num_inputs=0)
@@ -78,7 +79,7 @@ def _arange(attrs):
     step = attrs.get_float("step", 1.0)
     if stop in (None, "None"):
         start, stop = 0.0, start
-    arr = torch.arange(start, float(stop), step, **_where(attrs))
+    arr = torch.arange(start, float(stop), step, **_placement(attrs))
     rep = attrs.get_int("repeat", 1)
     return arr.repeat_interleave(rep) if rep > 1 else arr
 
@@ -88,7 +89,7 @@ def _eye(attrs):
     """Ones on diagonal ``k`` of an N x M matrix (M 0 means N)."""
     n = attrs.get_int("N")
     m = attrs.get_int("M", 0) or n
-    where = _where(attrs)
+    where = _placement(attrs)
     rows = torch.arange(n, device=where["device"])[:, None]
     cols = torch.arange(m, device=where["device"])[None, :]
     return (cols - rows == attrs.get_int("k", 0)).to(where["dtype"])
@@ -202,3 +203,59 @@ def _slice_channel(attrs, x):
 
 
 alias("SliceChannel", "split")
+
+
+@register("Flatten", num_inputs=1, input_names=["data"])
+def _flatten(attrs, x):
+    """Reference `Flatten`: every axis but the first collapsed into one."""
+    return x.reshape(x.shape[0], -1)
+
+
+alias("Flatten", "flatten")
+
+
+_PAD_MODES = {"edge": "replicate", "reflect": "reflect"}
+
+
+@register("Pad", num_inputs=1, input_names=["data"])
+def _pad(attrs, x):
+    """Reference `Pad` (`src/operator/pad.cc`): ``pad_width`` is a flat
+    (before, after) pair per axis; ``constant`` fills with
+    ``constant_value``, ``edge`` repeats the border and ``reflect``
+    mirrors it, on the spatial axes only (the first two pairs are 0)."""
+    pw = [int(p) for p in attrs.get_tuple("pad_width")]
+    mode = attrs.get_str("mode", "constant")
+    if mode == "constant":
+        flat = []
+        for i in reversed(range(x.dim())):
+            flat += [pw[2 * i], pw[2 * i + 1]]
+        return F.pad(x, flat, value=attrs.get_float("constant_value", 0.0))
+    if any(pw[:4]):
+        raise ValueError(f"Pad: mode {mode!r} pads the spatial axes only; "
+                         f"got pad_width {tuple(pw)}")
+    flat = []
+    for i in reversed(range(2, x.dim())):
+        flat += [pw[2 * i], pw[2 * i + 1]]
+    return F.pad(x, flat, mode=_PAD_MODES[mode])
+
+
+alias("Pad", "pad")
+
+
+@register("where", num_inputs=3, input_names=["condition", "x", "y"])
+def _where(attrs, cond, x, y):
+    """Reference `where` (`control_flow_op.h`): ``condition`` has x's
+    shape, or is 1-D of length x.shape[0] and selects whole rows."""
+    if cond.dim() == 1 and x.dim() > 1 and cond.shape[0] == x.shape[0]:
+        cond = cond.reshape((-1,) + (1,) * (x.dim() - 1))
+    return torch.where(cond != 0, x, y)
+
+
+@register("zeros_like", num_inputs=1, input_names=["data"])
+def _zeros_like(attrs, x):
+    return torch.zeros_like(x)
+
+
+@register("ones_like", num_inputs=1, input_names=["data"])
+def _ones_like(attrs, x):
+    return torch.ones_like(x)

@@ -1,11 +1,14 @@
-"""Neural-network ops of the BERT path (the counterparts of
-`mxnet_tpu/ops/nn.py`): FullyConnected, Activation, LeakyReLU, softmax,
-LayerNorm, BatchNorm, Dropout and SoftmaxOutput, as plain PyTorch
-functions whose gradients are autograd's own, except SoftmaxOutput's,
-which is the op's defined gradient.
+"""Neural-network ops (the counterparts of `mxnet_tpu/ops/nn.py`):
+FullyConnected, Convolution, Deconvolution, Pooling, Activation,
+LeakyReLU, softmax, log_softmax, LayerNorm, InstanceNorm, BatchNorm,
+Dropout and SoftmaxOutput, as plain PyTorch functions whose gradients are
+autograd's own, except SoftmaxOutput's, which is the op's defined
+gradient.
 
-The large products go to `torch.nn.functional.linear`, as the JAX package
-leaves them to XLA outside any Pallas kernel.
+The large products and the convolutions go to
+`torch.nn.functional.linear` and ``conv*d`` (cuDNN on the card), as the
+JAX package leaves them to XLA (``dot_general``,
+``conv_general_dilated``) outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -16,6 +19,16 @@ from torch.autograd.function import once_differentiable
 
 from ..base import MXNetError
 from .registry import alias, register
+
+
+def _pair(v, n):
+    """An n-tuple of ints from an int, a shorter tuple or None (ones)."""
+    if v is None:
+        return (1,) * n
+    if isinstance(v, int):
+        return (v,) * n
+    t = tuple(int(x) for x in v)
+    return t if len(t) == n else t * n
 
 
 @register("FullyConnected", num_inputs=None,
@@ -32,6 +45,205 @@ def _fully_connected(attrs, data, weight, bias=None):
     if attrs.get_bool("no_bias", False):
         bias = None
     return F.linear(data, weight, bias)
+
+
+# ---------------------------------------------------------------------------
+# Convolution / Deconvolution (reference src/operator/nn/convolution.cc,
+# deconvolution.cc)
+# ---------------------------------------------------------------------------
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+def _layout_perm(layout):
+    """The permutation taking an operand in ``layout`` (e.g. NHWC, whose
+    weight is OHWI) to N, C, then the spatial axes in the layout's order;
+    None for the default NC* layouts."""
+    n = len(layout) - 2
+    if layout in (None, "None") or layout == "NC" + "DHW"[-n:]:
+        return None
+    sp = [i for i, c in enumerate(layout) if c not in "NC"]
+    return [layout.index("N"), layout.index("C")] + sp
+
+
+def _conv_args(attrs, n):
+    return (_pair(attrs.get_tuple("stride", None), n),
+            _pair(attrs.get_tuple("pad", None) or (0,) * n, n),
+            _pair(attrs.get_tuple("dilate", None), n))
+
+
+@register("Convolution", num_inputs=None,
+          input_names=["data", "weight", "bias"])
+def _convolution(attrs, data, weight, bias=None):
+    """Reference `Convolution`: weight (num_filter, C / num_group, *kernel)
+    in the NC* layouts; an explicit ``layout`` (NWC, NHWC, NDHWC) takes
+    the operands in that layout, the weight with N -> O and C -> I
+    (NHWC's weight is OHWI), and gives the output in it."""
+    n = len(attrs.get_tuple("kernel"))
+    stride, pad, dilate = _conv_args(attrs, n)
+    if attrs.get_bool("no_bias", False):
+        bias = None
+    layout = attrs.get_str("layout", None) or \
+        attrs.get_str("__layout__", None)
+    perm = _layout_perm(layout) if layout else None
+    if perm is not None:
+        data = data.permute(perm)
+        weight = weight.permute(perm)
+    out = _CONV[n](data, weight, bias, stride, pad, dilate,
+                   attrs.get_int("num_group", 1))
+    if perm is not None:
+        inv = [perm.index(i) for i in range(len(perm))]
+        out = out.permute(inv)
+    return out
+
+
+@register("Deconvolution", num_inputs=None,
+          input_names=["data", "weight", "bias"])
+def _deconvolution(attrs, data, weight, bias=None):
+    """Reference `Deconvolution`, the gradient of a convolution with
+    respect to its input: weight (C, num_filter / num_group, *kernel);
+    ``adj`` adds rows at the high edge and ``target_shape`` overrides pad
+    and adj (`deconvolution-inl.h:121-142`).  NC* layouts only, as in the
+    reference."""
+    kernel = attrs.get_tuple("kernel")
+    n = len(kernel)
+    layout = attrs.get_str("layout", None)
+    if layout is not None and _layout_perm(layout) is not None:
+        raise NotImplementedError(
+            f"Deconvolution: layout={layout!r} is not supported; use the "
+            "default NC* layouts")
+    stride, pad, dilate = _conv_args(attrs, n)
+    adj = _pair(attrs.get_tuple("adj", None) or (0,) * n, n)
+    target = attrs.get_tuple("target_shape", None)
+    if target and any(t != 0 for t in target):
+        if len(target) != n:
+            raise ValueError(
+                f"Deconvolution: target_shape {target} must have "
+                f"{n} dims to match kernel {kernel}")
+        pad, adj = list(pad), list(adj)
+        for i in range(n):
+            dk = (kernel[i] - 1) * dilate[i] + 1
+            total = stride[i] * (data.shape[2 + i] - 1) + dk - target[i]
+            if total < 0:
+                raise ValueError(
+                    f"Deconvolution: too big target shape {target[i]} "
+                    f"for dim {i} (max "
+                    f"{stride[i] * (data.shape[2 + i] - 1) + dk})")
+            adj[i] = total % 2
+            pad[i] = (total + 1) // 2
+    if attrs.get_bool("no_bias", True):
+        bias = None
+    return _CONV_T[n](data, weight, bias, stride, tuple(pad), tuple(adj),
+                      attrs.get_int("num_group", 1), dilate)
+
+
+# ---------------------------------------------------------------------------
+# Pooling (reference src/operator/nn/pooling.cc, pool.h)
+# ---------------------------------------------------------------------------
+
+def _window_sum(x, kernel, stride, pads):
+    """The sum over each window of ``x`` (N, C, *spatial) after zero
+    padding ``pads`` [(lo, hi)] per spatial axis."""
+    n = len(kernel)
+    flat = [p for lo_hi in reversed(pads) for p in lo_hi]
+    if any(flat):
+        x = F.pad(x, flat)
+    if n == 1:
+        return F.avg_pool2d(x.unsqueeze(2), (1,) + kernel, (1,) + stride,
+                            divisor_override=1).squeeze(2)
+    pool = F.avg_pool2d if n == 2 else F.avg_pool3d
+    return pool(x, kernel, stride, divisor_override=1)
+
+
+def _window_max(x, kernel, stride, pads):
+    n = len(kernel)
+    pool = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}[n]
+    sym = [lo for lo, hi in pads]
+    if all(lo == hi and lo <= k // 2 for (lo, hi), k in zip(pads, kernel)):
+        return pool(x, kernel, stride, sym)
+    low = -float("inf") if x.is_floating_point() \
+        else torch.iinfo(x.dtype).min
+    flat = [p for lo_hi in reversed(pads) for p in lo_hi]
+    return pool(F.pad(x, flat, value=low), kernel, stride)
+
+
+@register("Pooling", num_inputs=1, input_names=["data"])
+def _pooling(attrs, data):
+    """Reference `Pooling`: max, avg, sum or lp over windows of the
+    spatial axes the ``layout`` names (NC* by default), or over all of
+    them with ``global_pool``.  The ``full`` convention (out = ceil((x + 2p
+    - k) / s) + 1) pads the high edge; ``same`` gives ceil(x / s) windows
+    clipped at the right edge.  An average with ``count_include_pad``
+    divides by the window clipped to the padded extent (`pool.h:376-377`),
+    so a ``full`` edge window divides by less than the kernel's size;
+    without it, by the count of real elements."""
+    kernel = tuple(attrs.get_tuple("kernel", None) or (1, 1))
+    n = len(kernel)
+    pool_type = attrs.get_str("pool_type", "max")
+    stride = _pair(attrs.get_tuple("stride", None), n)
+    pad = _pair(attrs.get_tuple("pad", None) or (0,) * n, n)
+    conv = attrs.get_str("pooling_convention", "valid")
+    layout = attrs.get_str("layout", None) or "NC" + "DHW"[-n:]
+    sp_axes = tuple(i for i, ch in enumerate(layout) if ch not in "NC")
+    if len(sp_axes) != n:
+        raise ValueError(f"Pooling: layout {layout} for kernel {kernel}")
+    if attrs.get_bool("global_pool", False):
+        if pool_type == "max":
+            return data.amax(dim=sp_axes, keepdim=True)
+        if pool_type == "sum":
+            return data.sum(dim=sp_axes, keepdim=True)
+        return data.mean(dim=sp_axes, keepdim=True)
+    perm = _layout_perm(layout)
+    x = data.permute(perm) if perm is not None else data
+    size = x.shape[2:]
+    if conv == "full":
+        pads = []
+        for i in range(n):
+            out = -(-(size[i] + 2 * pad[i] - kernel[i]) // stride[i]) + 1
+            need = (out - 1) * stride[i] + kernel[i] - size[i]
+            pads.append((pad[i], max(need - pad[i], pad[i])))
+    elif conv == "same":
+        if any(p != 0 for p in pad):
+            raise ValueError("'same' pooling convention disables the pad "
+                             "parameter (reference pooling.cc:106)")
+        pads = []
+        for i in range(n):
+            out = -(-size[i] // stride[i])
+            pads.append((0, max((out - 1) * stride[i] + kernel[i]
+                                - size[i], 0)))
+    else:
+        pads = [(p, p) for p in pad]
+    if pool_type == "max":
+        out = _window_max(x, kernel, stride, pads)
+    elif pool_type in ("avg", "sum"):
+        out = _window_sum(x, kernel, stride, pads)
+        if pool_type == "avg":
+            if not attrs.get_bool("count_include_pad", True):
+                ones = torch.ones((1, 1) + tuple(size), dtype=x.dtype,
+                                  device=x.device)
+                out = out / _window_sum(ones, kernel, stride, pads)
+            elif any(hi > p for (_, hi), p in zip(pads, pad)):
+                ext = torch.ones((1, 1) + tuple(s + 2 * p for s, p in
+                                                zip(size, pad)),
+                                 dtype=x.dtype, device=x.device)
+                out = out / _window_sum(ext, kernel, stride,
+                                        [(0, hi - p) for (_, hi), p in
+                                         zip(pads, pad)])
+            else:
+                denom = 1.0
+                for k in kernel:
+                    denom *= k
+                out = out / denom
+    elif pool_type == "lp":
+        p = attrs.get_int("p_value", 2)
+        out = _window_sum(x.abs() ** p, kernel, stride, pads) ** (1.0 / p)
+    else:
+        raise ValueError(f"unknown pool_type {pool_type}")
+    if perm is not None:
+        out = out.permute([perm.index(i) for i in range(len(perm))])
+    return out
 
 
 _ACTIVATIONS = {
@@ -93,6 +305,14 @@ def _softmax(attrs, x):
     return torch.softmax(x, dim=attrs.get_int("axis", -1))
 
 
+@register("log_softmax", num_inputs=1, input_names=["data"])
+def _log_softmax(attrs, x):
+    t = attrs.get_attr("temperature", None)
+    if t not in (None, "None"):
+        x = x / float(t)
+    return torch.log_softmax(x, dim=attrs.get_int("axis", -1))
+
+
 @register("LayerNorm", num_inputs=3, input_names=["data", "gamma", "beta"],
           num_outputs=lambda a: 3 if a.get_bool("output_mean_var", False)
           else 1)
@@ -107,6 +327,20 @@ def _layer_norm(attrs, data, gamma, beta):
         var = data.var(dim=ax, keepdim=True, unbiased=False)
         return out, mean, torch.sqrt(var + eps)
     return out
+
+
+@register("InstanceNorm", num_inputs=3,
+          input_names=["data", "gamma", "beta"])
+def _instance_norm(attrs, data, gamma, beta):
+    """Reference `InstanceNorm`: each (sample, channel) normalized over
+    its spatial axes."""
+    eps = attrs.get_float("eps", 1e-3)
+    red = tuple(range(2, data.dim()))
+    mean = data.mean(dim=red, keepdim=True)
+    var = data.var(dim=red, keepdim=True, unbiased=False)
+    shape = (1, -1) + (1,) * (data.dim() - 2)
+    return ((data - mean) * torch.rsqrt(var + eps) * gamma.reshape(shape)
+            + beta.reshape(shape))
 
 
 @register("BatchNorm", num_inputs=5,
@@ -130,7 +364,24 @@ def _batch_norm(attrs, data, gamma, beta, moving_mean, moving_var):
     bshape = [1] * data.dim()
     bshape[ax] = data.shape[ax]
     if attrs.get_bool("fix_gamma", True):
-        gamma = torch.ones_like(gamma)
+        # ones that stay on the graph: gamma gets its zero gradient
+        gamma = gamma * 0 + 1
+    if not attrs.get_bool("output_mean_var", False):
+        # one fused normalization (cuDNN's on the card); the moving
+        # statistics take the batch's biased variance, as MXNet's do
+        x = data.movedim(ax, 1) if ax != 1 else data
+        if train:
+            out = F.batch_norm(x, None, None, gamma, beta, True, 0.0, eps)
+            with torch.no_grad():
+                var, mean = torch.var_mean(data.float(), dim=red,
+                                           unbiased=False)
+                new_mm = momentum * moving_mean + (1 - momentum) * mean
+                new_mv = momentum * moving_var + (1 - momentum) * var
+        else:
+            out = F.batch_norm(x, moving_mean, moving_var, gamma, beta,
+                               False, 0.0, eps)
+            new_mm, new_mv = moving_mean, moving_var
+        return (out.movedim(1, ax) if ax != 1 else out), new_mm, new_mv
     if train:
         x = data.float()
         mean = x.mean(dim=red)
@@ -144,9 +395,7 @@ def _batch_norm(attrs, data, gamma, beta, moving_mean, moving_var):
     out = (data - mean.reshape(bshape).to(data.dtype)) \
         * (inv.reshape(bshape) * gamma.reshape(bshape)).to(data.dtype) \
         + beta.reshape(bshape).to(data.dtype)
-    if attrs.get_bool("output_mean_var", False):
-        return out, mean, var, new_mm, new_mv
-    return out, new_mm, new_mv
+    return out, mean, var, new_mm, new_mv
 
 
 @register("Dropout", num_inputs=1, input_names=["data"], needs_rng=True,

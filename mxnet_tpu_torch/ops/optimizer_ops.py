@@ -1,6 +1,6 @@
-"""Optimizer update ops (the counterparts of `sgd_update`, `sgd_mom_update`
-and `adam_update` in `mxnet_tpu/ops/optimizer_ops.py`; reference
-`src/operator/optimizer_op.cc`).
+"""Optimizer update ops (the counterparts of `sgd_update`, `sgd_mom_update`,
+`adam_update`, `multi_sgd_update` and `multi_sgd_mom_update` in
+`mxnet_tpu/ops/optimizer_ops.py`; reference `src/operator/optimizer_op.cc`).
 
 Each update is written once, over lists of tensors and a set of list
 ops: `apply_multi` runs it with ``torch._foreach_*`` on a whole group of
@@ -12,9 +12,14 @@ plain tensor ops.  Static hyperparameters ride the fused ``alpha`` and
 ``value`` forms.  The per-step
 scalars ``lr`` and ``wd`` may be Python floats or 0-dim tensors on the
 weights' device (a captured step rewrites those before each replay); on
-the CPU both give the same bits.  Weights and states update in place
-under `torch.no_grad()`; the gradient is prepared in the reference's
-order: rescale, then clip, then add ``wd·w``.
+the CPU both give the same bits.  `apply_multi` updates weights and
+states in place under `torch.no_grad()`; the gradient is prepared in the
+reference's order: rescale, then clip, then add ``wd·w``.
+
+The registered ops keep MXNet's contract: the weight input is left as it
+was and the new weight is returned (callers pass ``out=weight`` to update
+it), while the state inputs (momentum, Adam's mean and var) are updated
+in place (MXNet's FMutateInputs).
 """
 from __future__ import annotations
 
@@ -24,7 +29,8 @@ import torch
 
 from .registry import register
 
-__all__ = ["sgd_update", "sgd_mom_update", "adam_update", "apply_multi",
+__all__ = ["sgd_update", "sgd_mom_update", "adam_update",
+           "multi_sgd_update", "multi_sgd_mom_update", "apply_multi",
            "MULTI_UPDATES"]
 
 Scalar = Union[float, torch.Tensor]
@@ -136,10 +142,13 @@ def apply_multi(op_name: str, static: Dict, ws: Sequence[torch.Tensor],
 
 
 def _single(op_name, attrs, weight, grad, states: List[torch.Tensor]):
+    """The new weight (the input stays as it was); ``states`` update in
+    place."""
     lr, wd, rescale, clip = _common(attrs)
-    apply_multi(op_name, attrs, [weight], [grad], [[s] for s in states],
+    new = weight.detach().clone()
+    apply_multi(op_name, attrs, [new], [grad], [[s] for s in states],
                 lr, wd, rescale, clip, ops=_One)
-    return weight
+    return new
 
 
 @register("sgd_update", num_inputs=2, input_names=["weight", "grad"])
@@ -158,3 +167,43 @@ def sgd_mom_update(attrs, weight, grad, mom):
           mutate_inputs=(2, 3))
 def adam_update(attrs, weight, grad, mean, var):
     return _single("adam_update", attrs, weight, grad, [mean, var])
+
+
+def _multi(op_name, attrs, tensors, per):
+    """The reference's multi-weight form: inputs interleaved per weight
+    (``per`` tensors each: weight, grad, then states), ``lrs`` and ``wds``
+    one per weight.  Returns the new weights; states update in place.
+    Weights sharing (lr, wd) update as one `apply_multi` group."""
+    n = attrs.get_int("num_weights", len(tensors) // per)
+    lrs = [float(v) for v in attrs.get_tuple("lrs")][:n]
+    wds = [float(v) for v in attrs.get_tuple("wds")][:n]
+    rescale = attrs.get_float("rescale_grad", 1.0)
+    clip = attrs.get_float("clip_gradient", -1.0)
+    news = [tensors[per * i].detach().clone() for i in range(n)]
+    groups: Dict[tuple, List[int]] = {}
+    for i in range(n):
+        groups.setdefault((lrs[i], wds[i]), []).append(i)
+    for (lr, wd), idx in groups.items():
+        apply_multi(op_name, attrs, [news[i] for i in idx],
+                    [tensors[per * i + 1] for i in idx],
+                    [[tensors[per * i + k] for i in idx]
+                     for k in range(2, per)], lr, wd, rescale, clip)
+    return tuple(news)
+
+
+def _multi_outputs(attrs):
+    return attrs.get_int("num_weights", 1)
+
+
+@register("multi_sgd_update", num_inputs=None, num_outputs=_multi_outputs)
+def multi_sgd_update(attrs, *tensors):
+    """Reference `multi_sgd_update`: [w0, g0, w1, g1, ...]."""
+    return _multi("sgd_update", attrs, tensors, 2)
+
+
+@register("multi_sgd_mom_update", num_inputs=None,
+          num_outputs=_multi_outputs)
+def multi_sgd_mom_update(attrs, *tensors):
+    """Reference `multi_sgd_mom_update`: [w0, g0, m0, ...]; the momenta
+    update in place."""
+    return _multi("sgd_mom_update", attrs, tensors, 3)

@@ -5,7 +5,8 @@ names, or ``param_dict``) and multi-precision master weights, `SGD`,
 `Adam`, and the `Updater` that holds their states.
 
 Each `update` runs one registered update op of `ops/optimizer_ops.py` on
-the weight's own tensors, in place.  ``_fused_plan`` names that op for the
+the weight's own tensors and writes the new weight it returns into the
+weight, as the reference's ``out=weight`` does.  ``_fused_plan`` names that op for the
 multi-tensor path (`unified_step.multi_tensor_apply`, which
 `Updater.update_multi` takes), and ``_fused_scalars`` the lr and wd it
 passes, so both paths give the same numbers.  States live on the weight's
@@ -50,8 +51,12 @@ def _zeros_like(weight: NDArray) -> NDArray:
     return NDArray(torch.zeros_like(weight.data))
 
 
+@torch.no_grad()
 def _run(op_name: str, tensors, **attrs) -> None:
-    _reg.apply_op(op_name, [t.data for t in tensors], attrs)
+    """Op ``op_name`` on ``tensors`` (weight, grad, states): the states
+    update in place, and the new weight is written into the weight."""
+    new = _reg.apply_op(op_name, [t.data for t in tensors], attrs)[0]
+    tensors[0].data.copy_(new)
 
 
 class Optimizer:
@@ -309,6 +314,25 @@ class Updater:
         self.optimizer.update_multi_precision(index, weight, grad,
                                               self._state(index, weight))
 
+    def get_states(self, dump_optimizer=False) -> bytes:
+        """The states as one pickled blob of host arrays, with each
+        parameter's update count (reference `optimizer.py:1668`)."""
+        import pickle
+        return pickle.dumps({
+            "states": {k: _state_to_host(v) for k, v in self.states.items()},
+            "counts": dict(self.optimizer._index_update_count),
+            "num_update": self.optimizer.num_update})
+
+    def set_states(self, blob: bytes) -> None:
+        import pickle
+        obj = pickle.loads(blob)
+        self.states = {k: _state_from_host(v)
+                       for k, v in obj["states"].items()}
+        self.states_synced = {k: True for k in self.states}
+        self.optimizer._index_update_count.clear()
+        self.optimizer._index_update_count.update(obj["counts"])
+        self.optimizer.num_update = obj["num_update"]
+
     def update_multi(self, items) -> bool:
         """Update many parameters (``items``: ``[(index, grad, weight)]``)
         through the multi-tensor path, the same numbers as calling the
@@ -321,6 +345,22 @@ class Updater:
         prepared = [(index, weight, grad, self._state(index, weight))
                     for index, grad, weight in items]
         return self.optimizer.multi_update(prepared)
+
+
+def _state_to_host(state):
+    if isinstance(state, NDArray):
+        return ("nd", state.asnumpy(), str(state.data.device))
+    if isinstance(state, (tuple, list)):
+        return tuple(_state_to_host(s) for s in state)
+    return state
+
+
+def _state_from_host(state):
+    if isinstance(state, tuple) and len(state) == 3 and state[0] == "nd":
+        return NDArray(torch.from_numpy(state[1]).to(state[2]))
+    if isinstance(state, tuple):
+        return tuple(_state_from_host(s) for s in state)
+    return state
 
 
 def get_updater(optimizer: Optimizer) -> Updater:

@@ -20,7 +20,9 @@ pre-V2 layouts are not ported.
 """
 from __future__ import annotations
 
+import os
 import struct
+import tempfile
 import zlib
 from typing import Dict, List, Mapping, Sequence, Union
 
@@ -31,8 +33,10 @@ from .base import DTYPE_TO_ID, ID_TO_DTYPE, MXNetError
 from .context import Context
 from .ndarray.ndarray import NDArray
 
-__all__ = ["dumps_ndarrays", "loads_ndarrays", "make_footer",
-           "split_footer", "params_from_numpy", "CheckpointCorruptError"]
+__all__ = ["dumps_ndarrays", "loads_ndarrays", "save_ndarrays",
+           "load_ndarrays", "strip_arg_aux", "atomic_write", "read_payload",
+           "make_footer", "split_footer", "params_from_numpy",
+           "CheckpointCorruptError"]
 
 _LIST_MAGIC = 0x112
 _ND_MAGIC_V2 = 0xF993FAC9
@@ -218,3 +222,54 @@ def params_from_numpy(arrays: Mapping[str, np.ndarray],
     return {name: NDArray(torch.tensor(np.ascontiguousarray(a),
                                        device=ctx.device))
             for name, a in arrays.items()}
+
+
+def atomic_write(fname: str, payload: bytes, checksum: bool = True) -> None:
+    """Write ``payload`` (with the CRC32 footer when ``checksum``) through
+    a temporary file in the same directory and an atomic rename, so a
+    crash leaves the old file or the new one, never a torn one."""
+    payload = bytes(payload)
+    if checksum:
+        payload += make_footer(payload)
+    d = os.path.dirname(os.path.abspath(fname))
+    fd, tmp = tempfile.mkstemp(dir=d, prefix=".tmp-")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            f.write(payload)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, fname)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+
+
+def read_payload(fname: str) -> bytes:
+    """A file written by `atomic_write`, its footer verified and
+    stripped."""
+    with open(fname, "rb") as f:
+        raw = f.read()
+    return split_footer(raw, what=fname)[0]
+
+
+def save_ndarrays(fname: str, data) -> None:
+    """Reference `mx.nd.save`: the `.params` stream, with the footer."""
+    atomic_write(fname, dumps_ndarrays(data), checksum=True)
+
+
+def load_ndarrays(fname: str):
+    """Reference `mx.nd.load`: a dict when names were saved, else a
+    list; arrays land on the CPU."""
+    with open(fname, "rb") as f:
+        return loads_ndarrays(f.read(), what=fname)
+
+
+def strip_arg_aux(loaded):
+    """``(name -> array, had_prefixes)``: `export` files key by
+    ``arg:``/``aux:``-prefixed names, plain saves by bare ones."""
+    had = any(k.startswith(("arg:", "aux:")) for k in loaded)
+    if not had:
+        return dict(loaded), False
+    return {(k[4:] if k.startswith(("arg:", "aux:")) else k): v
+            for k, v in loaded.items()}, True

@@ -1,5 +1,6 @@
 """Backward parameter-shape inference for the layered ops (the FC,
-LayerNorm, BatchNorm, Embedding and SoftmaxOutput rules of
+Convolution, Deconvolution, LayerNorm, InstanceNorm, BatchNorm, PReLU,
+Embedding and SoftmaxOutput rules of
 `mxnet_tpu/symbol/param_infer.py`): the shapes of a node's parameter and
 label variables from its data shape, so a graph binds from data shapes
 alone."""
@@ -27,6 +28,34 @@ def _fc(a, data):
     return out
 
 
+def _conv(a, data):
+    nf = a.get_int("num_filter")
+    out = {1: (nf, data[1] // a.get_int("num_group", 1))
+           + tuple(a.get_tuple("kernel"))}
+    if not a.get_bool("no_bias", False):
+        out[2] = (nf,)
+    return out
+
+
+def _deconv(a, data):
+    nf = a.get_int("num_filter")
+    out = {1: (data[1], nf // a.get_int("num_group", 1))
+           + tuple(a.get_tuple("kernel"))}
+    if not a.get_bool("no_bias", True):
+        out[2] = (nf,)
+    return out
+
+
+def _in_norm(a, data):
+    return {1: (data[1],), 2: (data[1],)}
+
+
+def _leaky(a, data):
+    if a.get_str("act_type", "leaky") == "prelu":
+        return {1: (data[1],)}
+    return {}
+
+
 def _ln(a, data):
     c = data[a.get_int("axis", -1)]
     return {1: (c,), 2: (c,)}
@@ -51,7 +80,11 @@ def _softmax_output_label(a, data):
 
 _RULES = {
     "FullyConnected": _fc,
+    "Convolution": _conv,
+    "Deconvolution": _deconv,
     "LayerNorm": _ln,
+    "InstanceNorm": _in_norm,
+    "LeakyReLU": _leaky,
     "BatchNorm": _bn,
     "Embedding": _embedding,
     "SoftmaxOutput": _softmax_output_label,

@@ -18,6 +18,11 @@ __all__ = ["invoke_sym", "make_sym_functions"]
 _SYM_INPUTS = {
     "FullyConnected": lambda a: ["data", "weight"] + (
         [] if a.get_bool("no_bias", False) else ["bias"]),
+    "Convolution": lambda a: ["data", "weight"] + (
+        [] if a.get_bool("no_bias", False) else ["bias"]),
+    "Deconvolution": lambda a: ["data", "weight"] + (
+        [] if a.get_bool("no_bias", True) else ["bias"]),
+    "InstanceNorm": lambda a: ["data", "gamma", "beta"],
     "BatchNorm": lambda a: ["data", "gamma", "beta", "moving_mean",
                             "moving_var"],
     "LayerNorm": lambda a: ["data", "gamma", "beta"],

@@ -249,6 +249,11 @@ class Symbol:
         }
         return json.dumps(graph, indent=2)
 
+    def save(self, fname: str) -> None:
+        """Write `tojson` to ``fname``."""
+        with open(fname, "w") as f:
+            f.write(self.tojson())
+
     # -- execution ----------------------------------------------------------
     def bind(self, ctx=None, args=None, args_grad=None, grad_req="write",
              aux_states=None):

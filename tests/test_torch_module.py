@@ -423,7 +423,8 @@ def test_adam_update_op_matches_reference():
     jw, jm, jv = mx.nd.array(w), mx.nd.array(m), mx.nd.array(v)
     mx.nd.adam_update(jw, mx.nd.array(g), jm, jv, out=jw, **attrs)
     tw, tm, tv = (mt.nd.array(a, ctx=mt.cpu()) for a in (w, m, v))
-    mt.nd.adam_update(tw, mt.nd.array(g, ctx=mt.cpu()), tm, tv, **attrs)
+    mt.nd.adam_update(tw, mt.nd.array(g, ctx=mt.cpu()), tm, tv, out=tw,
+                      **attrs)
     for got, want in ((tw, jw), (tm, jm), (tv, jv)):
         np.testing.assert_allclose(got.asnumpy(), want.asnumpy(),
                                    rtol=OPT_TOL, atol=OPT_TOL)
@@ -463,7 +464,8 @@ def test_sgd_mom_update_op_matches_reference():
     jw, jm = mx.nd.array(w), mx.nd.array(mom)
     mx.nd.sgd_mom_update(jw, mx.nd.array(g), jm, out=jw, **attrs)
     tw, tm = mt.nd.array(w, ctx=mt.cpu()), mt.nd.array(mom, ctx=mt.cpu())
-    mt.nd.sgd_mom_update(tw, mt.nd.array(g, ctx=mt.cpu()), tm, **attrs)
+    mt.nd.sgd_mom_update(tw, mt.nd.array(g, ctx=mt.cpu()), tm, out=tw,
+                         **attrs)
     np.testing.assert_allclose(tw.asnumpy(), jw.asnumpy(), rtol=OPT_TOL,
                                atol=OPT_TOL)
     np.testing.assert_allclose(tm.asnumpy(), jm.asnumpy(), rtol=OPT_TOL,

@@ -176,6 +176,210 @@ CASES = {
     "batchnorm_mean_var": ("BatchNorm", [_randn(4, 3, 2), _randn(3),
                                          _randn(3), _randn(3), _pos(3)],
                            {"output_mean_var": True, "__train": True}),
+    # the Gluon path: convolutions, pooling, norms, reductions and the
+    # elementwise ops the layers and losses call
+    "conv2d": ("Convolution", [_randn(2, 4, 9, 8), _randn(6, 4, 3, 3),
+                               _randn(6)],
+               {"kernel": "(3, 3)", "num_filter": 6, "pad": (1, 1)}),
+    "conv2d_stride_dilate_nobias": ("Convolution",
+                                    [_randn(2, 4, 11, 10),
+                                     _randn(6, 4, 3, 2)],
+                                    {"kernel": (3, 2), "num_filter": 6,
+                                     "stride": (2, 1), "dilate": (2, 1),
+                                     "pad": (2, 0), "no_bias": True}),
+    "conv2d_groups": ("Convolution", [_randn(2, 6, 7, 7),
+                                      _randn(9, 2, 3, 3), _randn(9)],
+                      {"kernel": (3, 3), "num_filter": 9, "num_group": 3}),
+    "conv2d_nhwc": ("Convolution", [_randn(2, 9, 8, 4), _randn(6, 3, 3, 4),
+                                    _randn(6)],
+                    {"kernel": (3, 3), "num_filter": 6, "pad": (1, 1),
+                     "stride": (2, 1), "layout": "NHWC"}),
+    "conv2d_nhwc_1x1_nobias": ("Convolution", [_randn(2, 5, 5, 8),
+                                               _randn(4, 1, 1, 8)],
+                               {"kernel": (1, 1), "num_filter": 4,
+                                "no_bias": True, "layout": "NHWC"}),
+    "conv1d": ("Convolution", [_randn(2, 3, 12), _randn(5, 3, 3),
+                               _randn(5)],
+               {"kernel": (3,), "num_filter": 5, "stride": (2,),
+                "pad": (1,)}),
+    "conv1d_nwc": ("Convolution", [_randn(2, 12, 3), _randn(5, 3, 3),
+                                   _randn(5)],
+                   {"kernel": (3,), "num_filter": 5, "layout": "NWC"}),
+    "conv3d": ("Convolution", [_randn(1, 2, 5, 6, 4), _randn(3, 2, 3, 3, 3),
+                               _randn(3)],
+               {"kernel": (3, 3, 3), "num_filter": 3, "pad": (1, 1, 0)}),
+    "conv3d_ndhwc": ("Convolution", [_randn(1, 5, 6, 4, 2),
+                                     _randn(3, 3, 3, 3, 2)],
+                     {"kernel": (3, 3, 3), "num_filter": 3, "no_bias": True,
+                      "layout": "NDHWC"}),
+    "deconv2d": ("Deconvolution", [_randn(2, 4, 5, 6), _randn(4, 3, 3, 3),
+                                   _randn(3)],
+                 {"kernel": (3, 3), "num_filter": 3, "stride": (2, 2),
+                  "pad": (1, 1), "adj": (1, 0), "no_bias": False}),
+    "deconv2d_groups_dilate": ("Deconvolution",
+                               [_randn(2, 4, 5, 5), _randn(4, 3, 3, 3)],
+                               {"kernel": (3, 3), "num_filter": 6,
+                                "num_group": 2, "dilate": (2, 1)}),
+    "deconv2d_target_shape": ("Deconvolution",
+                              [_randn(1, 2, 4, 4), _randn(2, 3, 4, 4)],
+                              {"kernel": (4, 4), "num_filter": 3,
+                               "stride": (2, 2), "target_shape": (8, 9)}),
+    "deconv1d": ("Deconvolution", [_randn(2, 3, 7), _randn(3, 2, 3),
+                                   _randn(2)],
+                 {"kernel": (3,), "num_filter": 2, "stride": (3,),
+                  "no_bias": False}),
+    "pool_max": ("Pooling", [_randn(2, 3, 9, 8)],
+                 {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1),
+                  "pool_type": "max"}),
+    "pool_max_full": ("Pooling", [_randn(2, 3, 10, 9)],
+                      {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1),
+                       "pool_type": "max", "pooling_convention": "full"}),
+    "pool_max_pad_over_half": ("Pooling", [_randn(1, 2, 7, 7)],
+                               {"kernel": (2, 2), "stride": (2, 2),
+                                "pad": (1, 1), "pool_type": "max"}),
+    "pool_avg": ("Pooling", [_randn(2, 3, 8, 8)],
+                 {"kernel": (2, 2), "stride": (2, 2), "pool_type": "avg"}),
+    "pool_avg_full_pad_include": ("Pooling", [_randn(2, 3, 10, 9)],
+                                  {"kernel": (3, 3), "stride": (2, 2),
+                                   "pad": (1, 1), "pool_type": "avg",
+                                   "pooling_convention": "full",
+                                   "count_include_pad": True}),
+    "pool_avg_full_pad_exclude": ("Pooling", [_randn(2, 3, 10, 9)],
+                                  {"kernel": (3, 3), "stride": (2, 2),
+                                   "pad": (1, 1), "pool_type": "avg",
+                                   "pooling_convention": "full",
+                                   "count_include_pad": False}),
+    "pool_avg_pad_exclude": ("Pooling", [_randn(2, 3, 7, 7)],
+                             {"kernel": (3, 3), "stride": (1, 1),
+                              "pad": (1, 1), "pool_type": "avg",
+                              "count_include_pad": "False"}),
+    "pool_sum_full": ("Pooling", [_randn(2, 3, 7, 6)],
+                      {"kernel": (2, 2), "stride": (2, 2),
+                       "pool_type": "sum", "pooling_convention": "full"}),
+    "pool_max_same_1d": ("Pooling", [_randn(2, 3, 11)],
+                         {"kernel": (3,), "stride": (2,), "pool_type": "max",
+                          "pooling_convention": "same"}),
+    "pool_avg_1d": ("Pooling", [_randn(2, 3, 11)],
+                    {"kernel": (3,), "stride": (2,), "pad": (1,),
+                     "pool_type": "avg"}),
+    "pool_avg_3d_full": ("Pooling", [_randn(1, 2, 5, 6, 7)],
+                         {"kernel": (2, 2, 2), "stride": (2, 2, 2),
+                          "pad": (1, 0, 1), "pool_type": "avg",
+                          "pooling_convention": "full"}),
+    "pool_lp": ("Pooling", [_randn(2, 2, 6, 6)],
+                {"kernel": (2, 2), "stride": (2, 2), "pool_type": "lp",
+                 "p_value": 2}),
+    "pool_max_nhwc": ("Pooling", [_randn(2, 9, 8, 3)],
+                      {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1),
+                       "pool_type": "max", "layout": "NHWC"}),
+    "pool_avg_nhwc_full": ("Pooling", [_randn(2, 9, 8, 3)],
+                           {"kernel": (3, 3), "stride": (2, 2),
+                            "pad": (1, 1), "pool_type": "avg",
+                            "pooling_convention": "full",
+                            "layout": "NHWC"}),
+    "pool_global_avg": ("Pooling", [_randn(2, 3, 7, 5)],
+                        {"kernel": (1, 1), "global_pool": True,
+                         "pool_type": "avg"}),
+    "pool_global_max_nhwc": ("Pooling", [_randn(2, 7, 5, 3)],
+                             {"kernel": (1, 1), "global_pool": "True",
+                              "pool_type": "max", "layout": "NHWC"}),
+    "pool_global_sum": ("Pooling", [_randn(2, 3, 4)],
+                        {"kernel": (1,), "global_pool": True,
+                         "pool_type": "sum"}),
+    "instance_norm": ("InstanceNorm", [_randn(2, 3, 4, 5), _randn(3),
+                                       _randn(3)], {"eps": 1e-5}),
+    "log_softmax": ("log_softmax", [_randn(3, 7)], {}),
+    "log_softmax_axis1_t": ("log_softmax", [_randn(2, 5, 3)],
+                            {"axis": 1, "temperature": 2.0}),
+    "Flatten": ("Flatten", [_randn(2, 3, 4, 5)], {}),
+    "flatten": ("flatten", [_randn(4, 3, 2)], {}),
+    "pad_constant": ("pad", [_randn(2, 3, 4, 5)],
+                     {"mode": "constant", "constant_value": 1.5,
+                      "pad_width": (0, 0, 0, 0, 1, 2, 2, 1)}),
+    "pad_edge": ("Pad", [_randn(2, 3, 4, 5)],
+                 {"mode": "edge", "pad_width": (0, 0, 0, 0, 1, 2, 2, 1)}),
+    "pad_reflect": ("pad", [_randn(2, 3, 4, 5)],
+                    {"mode": "reflect",
+                     "pad_width": "(0, 0, 0, 0, 2, 1, 3, 3)"}),
+    "where": ("where", [_ids(2, 3, 4), _randn(3, 4), _randn(3, 4)], {}),
+    "where_rows": ("where", [_ids(2, 3), _randn(3, 4), _randn(3, 4)], {}),
+    "ones_like": ("ones_like", [_randn(2, 3)], {}),
+    "zeros_like": ("zeros_like", [_randn(2, 3)], {}),
+    "pick": ("pick", [_randn(4, 5), _ids(7, 4)], {"axis": -1}),
+    "pick_keepdims_axis0": ("pick", [_randn(4, 5), _ids(5, 5)],
+                            {"axis": 0, "keepdims": True}),
+    "pick_wrap": ("pick", [_randn(4, 5), _ids(9, 4)],
+                  {"axis": 1, "mode": "wrap"}),
+    "sum_all": ("sum", [_randn(3, 4)], {}),
+    "sum_axis_keepdims": ("sum", [_randn(3, 4, 5)],
+                          {"axis": 1, "keepdims": True}),
+    "sum_exclude": ("sum", [_randn(3, 4, 5)],
+                    {"axis": 0, "exclude": True}),
+    "sum_axis_tuple": ("sum_axis", [_randn(3, 4, 5)], {"axis": (0, 2)}),
+    "mean_axis": ("mean", [_randn(3, 4, 5)], {"axis": "(1, 2)"}),
+    "mean_empty_axis": ("mean", [_randn(3, 4)], {"axis": ()}),
+    "mean_exclude_keepdims": ("mean", [_randn(3, 4, 5)],
+                              {"axis": (1,), "exclude": True,
+                               "keepdims": True}),
+    "max_axis": ("max", [_randn(3, 4)], {"axis": 1}),
+    "min_axis": ("min", [_randn(3, 4)], {"axis": 0, "keepdims": True}),
+    "prod_axis": ("prod", [_pos(3, 4, 2)], {"axis": (0, 2)}),
+    "broadcast_greater": ("broadcast_greater", [_randn(3, 4), _randn(1, 4)],
+                          {}),
+    "broadcast_equal": ("broadcast_equal", [_ids(2, 3, 4), _ids(2, 3, 1)],
+                        {}),
+    "broadcast_lesser_equal": ("broadcast_lesser_equal",
+                               [_randn(3, 4), _randn(3, 1)], {}),
+    "broadcast_maximum": ("broadcast_maximum", [_randn(3, 4), _randn(4)],
+                          {}),
+    "broadcast_minimum": ("broadcast_minimum", [_randn(3, 4), _randn(4)],
+                          {}),
+    "broadcast_power": ("broadcast_power", [_pos(3, 4), _randn(3, 4)], {}),
+    "greater_scalar": ("_greater_scalar", [_randn(3, 4)], {"scalar": 0.1}),
+    "lesser_scalar": ("_lesser_scalar", [_randn(3, 4)], {"scalar": -0.1}),
+    "equal_scalar": ("_equal_scalar", [_ids(3, 3, 4)], {"scalar": 1}),
+    "not_equal_scalar": ("_not_equal_scalar", [_ids(3, 3, 4)],
+                         {"scalar": 1}),
+    "greater_equal_scalar": ("_greater_equal_scalar", [_randn(3, 4)],
+                             {"scalar": 0.0}),
+    "lesser_equal_scalar": ("_lesser_equal_scalar", [_randn(3, 4)],
+                            {"scalar": 0.0}),
+    "power_scalar": ("_power_scalar", [_pos(3, 4)], {"scalar": 2.5}),
+    "rpower_scalar": ("_rpower_scalar", [_randn(3, 4)], {"scalar": 2.0}),
+    "maximum_scalar": ("_maximum_scalar", [_randn(3, 4)], {"scalar": 0.2}),
+    "minimum_scalar": ("_minimum_scalar", [_randn(3, 4)], {"scalar": 0.2}),
+    "mod_scalar": ("_mod_scalar", [_randn(3, 4)], {"scalar": 0.7}),
+    "relu": ("relu", [_randn(3, 4)], {}),
+    "abs": ("abs", [_randn(3, 4)], {}),
+    "sign": ("sign", [_randn(3, 4)], {}),
+    "square": ("square", [_randn(3, 4)], {}),
+    "sqrt": ("sqrt", [_pos(3, 4)], {}),
+    "exp": ("exp", [_randn(3, 4)], {}),
+    "log": ("log", [_pos(3, 4)], {}),
+    "log2": ("log2", [_pos(3, 4)], {}),
+    "log10": ("log10", [_pos(3, 4)], {}),
+    "log1p": ("log1p", [_pos(3, 4)], {}),
+    "expm1": ("expm1", [_randn(3, 4)], {}),
+    "floor": ("floor", [_randn(3, 4)], {}),
+    "ceil": ("ceil", [_randn(3, 4)], {}),
+    "trunc": ("trunc", [_randn(3, 4)], {}),
+    "sin": ("sin", [_randn(3, 4)], {}),
+    "cos": ("cos", [_randn(3, 4)], {}),
+    "erf": ("erf", [_randn(3, 4)], {}),
+    "softsign": ("softsign", [_randn(3, 4)], {}),
+    "reciprocal": ("reciprocal", [_pos(3, 4)], {}),
+    "cast_f64": ("cast", [_randn(3, 4)], {"dtype": "float64"}),
+    "Cast_i32": ("Cast", [_randn(3, 4)], {"dtype": "int32"}),
+    "multi_sgd_update": ("multi_sgd_update",
+                         [_randn(3, 4), _randn(3, 4), _randn(5), _randn(5)],
+                         {"num_weights": 2, "lrs": (0.1, 0.2),
+                          "wds": (0.01, 0.0), "rescale_grad": 0.5,
+                          "clip_gradient": 0.4}),
+    "multi_sgd_mom_update": ("multi_sgd_mom_update",
+                             [_randn(3, 4), _randn(3, 4), _randn(3, 4),
+                              _randn(5), _randn(5), _randn(5)],
+                             {"num_weights": 2, "lrs": (0.1, 0.1),
+                              "wds": (0.01, 0.01), "momentum": 0.9}),
 }
 
 
@@ -216,7 +420,12 @@ def test_port_ops_are_reference_ops():
                                   "reshape_split", "embedding", "eye_k",
                                   "arange_repeat", "batchnorm_mean_var",
                                   "broadcast_axes_tuple", "concat",
-                                  "slice_axis_open", "split_squeeze_60"])
+                                  "slice_axis_open", "split_squeeze_60",
+                                  "conv2d_nhwc", "conv3d", "deconv2d",
+                                  "deconv2d_target_shape", "pool_max_full",
+                                  "pool_avg_nhwc_full", "pool_max_same_1d",
+                                  "pool_global_avg", "pick_keepdims_axis0",
+                                  "sum_exclude", "pad_reflect"])
 def test_shape_inference_on_meta_matches_reference(case):
     op, specs, attrs = CASES[case]
     shapes = [s[1] if s[0] in ("randn", "pos") else s[2] for s in specs]
@@ -297,3 +506,79 @@ def test_block_grad_passes_no_gradient():
     exe.forward(is_train=True)
     exe.backward()
     np.testing.assert_array_equal(g.asnumpy(), np.ones((2, 2)))
+
+
+# ---------------------------------------------------------------------------
+# nd.invoke's contract: out=, and the update ops' untouched weight
+# ---------------------------------------------------------------------------
+
+def _pkgs():
+    import mxnet_tpu as jx
+    import mxnet_tpu_torch as tx
+    return ((jx, lambda a: jx.nd.array(a)),
+            (tx, lambda a: tx.nd.array(a, ctx=tx.cpu())))
+
+
+def test_out_argument_matches_reference():
+    """``out=`` receives the result and is what the call returns, for one
+    output and a list of them; a mutated input (BatchNorm's moving mean in
+    training) is written back into the caller's array."""
+    rng = np.random.RandomState(21)
+    x = rng.randn(4, 6).astype(np.float32)
+    bn = [rng.randn(4, 3, 2).astype(np.float32)] + \
+        [rng.randn(3).astype(np.float32) for _ in range(3)] + \
+        [rng.uniform(0.5, 2, 3).astype(np.float32)]
+    got = {}
+    for pkg, arr in _pkgs():
+        y = arr(np.zeros((4, 6), np.float32))
+        r = pkg.nd.Activation(arr(x), act_type="relu", out=y)
+        assert r is y
+        parts = [arr(np.zeros((4, 3), np.float32)) for _ in range(2)]
+        r2 = pkg.nd.split(arr(x), num_outputs=2, axis=1, out=parts)
+        assert r2 is parts
+        mm, mv = arr(bn[3]), arr(bn[4])
+        with pkg.autograd.train_mode():
+            pkg.nd.BatchNorm(*[arr(a) for a in bn[:3]], mm, mv,
+                             fix_gamma=False, momentum=0.7)
+        got[pkg.__name__] = [y.asnumpy()] + [p.asnumpy() for p in parts] \
+            + [mm.asnumpy(), mv.asnumpy()]
+    want = got["mxnet_tpu"]
+    np.testing.assert_array_equal(want[0], np.maximum(x, 0))
+    assert not np.allclose(want[3], bn[3])
+    for g, w in zip(got["mxnet_tpu_torch"], want):
+        np.testing.assert_allclose(g, w, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("op", ["sgd_update", "sgd_mom_update",
+                                "adam_update"])
+def test_update_ops_leave_weight_untouched(op):
+    """An update op returns the new weight and leaves its weight input as
+    it was; its state inputs (momentum, mean, var) are updated in place,
+    as in the reference (MXNet's FMutateInputs)."""
+    rng = np.random.RandomState(22)
+    w = np.ones((2, 3), np.float32)
+    g = np.full((2, 3), 2.0, np.float32)
+    states = {"sgd_update": [],
+              "sgd_mom_update": [rng.randn(2, 3).astype(np.float32)],
+              "adam_update": [rng.randn(2, 3).astype(np.float32),
+                              rng.uniform(0.1, 1, (2, 3)).astype(
+                                  np.float32)]}[op]
+    attrs = dict(lr=0.1, wd=0.01, momentum=0.9) if op != "adam_update" \
+        else dict(lr=0.1, wd=0.01)
+    if op == "sgd_update":
+        attrs.pop("momentum")
+    got = {}
+    for pkg, arr in _pkgs():
+        W, S = arr(w), [arr(s) for s in states]
+        new = getattr(pkg.nd, op)(W, arr(g), *S, **attrs)
+        got[pkg.__name__] = (W.asnumpy(), new.asnumpy(),
+                             [s.asnumpy() for s in S])
+    (jw, jnew, js), (tw, tnew, ts) = got["mxnet_tpu"], got["mxnet_tpu_torch"]
+    np.testing.assert_array_equal(jw, w)
+    np.testing.assert_array_equal(tw, w)
+    if op == "sgd_update":
+        np.testing.assert_allclose(tnew, 1 - 0.1 * (2 + 0.01), rtol=1e-6)
+    np.testing.assert_allclose(tnew, jnew, rtol=TOL, atol=TOL)
+    for t, j, s0 in zip(ts, js, states):
+        assert not np.allclose(j, s0)
+        np.testing.assert_allclose(t, j, rtol=TOL, atol=TOL)
