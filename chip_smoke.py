@@ -98,9 +98,33 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    timed steps (the lr ramped linearly to 0.05 over the 12) on 2 fixed
    batches must lower the loss and move BatchNorm's moving statistics.
    One captured forward and one training step are profiled (device busy
-   time, convolutions, BatchNorm, the update, the rest).  The phase's
-   kernels are PyTorch's and cuDNN's: the JAX package runs this path on
-   no Pallas kernel.
+   time, convolutions, BatchNorm, the update, the rest).  The training
+   net is hybridized: its recorded forward and its backward replay as two
+   CUDA graphs, and the step is timed captured and eager
+   (``MXTPU_GRAPH_COMPILE=0``) in turns.  The phase's kernels are
+   PyTorch's and cuDNN's: the JAX package runs this path on no Pallas
+   kernel.
+9. Gluon zoo and data -- AlexNet, VGG-16, VGG-16-BN, DenseNet-121,
+   SqueezeNet 1.1 and MobileNet v2 1.0 at 224 x 224 and Inception-v3 at
+   299 x 299, 1000 classes, Xavier weights from a seed, served at batch 8
+   hybridized (a CUDA graph replay, within RESNET_CAPTURE_TOL of the
+   imperative forward) with each one's p50.  Inception-v3 trained at
+   batch 32 on batches of a `gluon.data.DataLoader` (2 worker threads,
+   shuffled) over an `ArrayDataset` of seeded uint8 images through
+   ``ToTensor`` and ``Normalize``, each batch moved to the card: SGD with
+   phase 8's settings and ramp over 12 steps, the loss must fall; on one
+   batch the captured step must give the eager step's loss (ZOO_LOSS_TOL)
+   and gradients (ZOO_GRAD_TOL of their norm) with the Dropout generator
+   reseeded, and a replay without the reseed other masks; the captured
+   and eager step p50, images/s, the loader's wait a batch and one
+   profiled step's idle share are printed.  The trained net is exported
+   and loaded back by `SymbolBlock.imports` on the card (within
+   ZOO_IMPORT_TOL of the net) and served by `Predictor` with all 94
+   BatchNorms folded, both timed.  `gluon.loss.CTCLoss` at T = 80, N = 32,
+   38 classes, labels of 4-20 and varying input lengths, imperative and
+   hybridized (its recorded call captured), must give its float64 loss
+   and gradient on the CPU within CTC_TOL; both are timed.  No TPU kernel
+   lies on this path either.
 
 If the run nears its time limit, cut the serving phases' ``TIMED`` and
 ``LSTM_TIMED`` counts before anything of the training phase.
@@ -233,6 +257,36 @@ RESNET_BN = 53
 # that feeds a train-mode BatchNorm has a gradient that is zero in exact
 # arithmetic and is measured relative to its weight's gradient instead
 RESNET_GRAD_TOL = 2e-3
+# phase 9, the other vision families: the served models at their
+# published widths (name, image side), the serving batch, and the requests
+# timed per way after one warm request
+ZOO_SERVE = (("alexnet", 224), ("vgg16", 224), ("vgg16_bn", 224),
+             ("densenet121", 224), ("squeezenet1.1", 224),
+             ("mobilenetv2_1.0", 224), ("inceptionv3", 299))
+ZOO_BATCH, ZOO_TIMED = 8, 50
+# Inception-v3 training (docs/faq/perf.md:66,177,190 in the reference
+# measure it at batch 32): ZOO_SAMPLES synthetic images cycled by a
+# shuffling DataLoader, 2 warm-up and 10 timed steps with phase 8's SGD and
+# lr ramp; ZOO_EAGER_STEPS eager steps timed beside the captured ones
+ZOO_TRAIN_BATCH, ZOO_SAMPLES = 32, 64
+ZOO_WARM, ZOO_STEPS, ZOO_EAGER_STEPS = 2, 10, 6
+IMAGENET_MEAN, IMAGENET_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+# the captured training step against the eager one on the same batch with
+# the same Dropout masks (the generator reseeded before each): the loss
+# within ZOO_LOSS_TOL relative, all gradients together within
+# ZOO_GRAD_TOL of their norm.  cuDNN's backward picks nondeterministic
+# algorithms (PERF.md), so two eager steps differ too; both figures print
+ZOO_LOSS_TOL = 1e-6
+ZOO_GRAD_TOL = 1e-4
+# the trained net's export through `SymbolBlock.imports` against the
+# hybridized net (the same ops in one graph); through `Predictor` with its
+# BatchNorms folded into the convolutions, RESNET_EXPORT_TOL
+ZOO_IMPORT_TOL = 1e-5
+# CTC at an OCR-like shape: T steps, N sequences, 37 classes and the blank,
+# labels of 4-20; the card's fp32 loss and gradient against the port's op
+# on the CPU in float64
+CTC_T, CTC_N, CTC_C, CTC_LABELS = 80, 32, 38, (4, 20)
+CTC_TOL = 1e-4
 
 
 def log(*parts):
@@ -1777,6 +1831,56 @@ def profile_gluon(tag, run):
     return rec
 
 
+def _check_hybridized(name, net, reqs):
+    """The hybridized (captured) forward against the imperative one on the
+    same requests; one replay is one graph launch."""
+    imp = [net(r).asnumpy() for r in reqs]
+    net.hybridize()
+    cap = [net(r).asnumpy() for r in reqs]
+    if net._cached_op.num_programs != 1:
+        raise AssertionError(f"{name}: the hybridized forward was not "
+                             "captured once")
+    err = _capture_err(cap, imp)
+    _, host = replay_launches(lambda: net(reqs[0]).asnumpy())
+    graphs = sum(n for key, n in host.items() if "GraphLaunch" in key)
+    if err > RESNET_CAPTURE_TOL or graphs < 1:
+        raise AssertionError(f"{name}: captured forward off by {err} or not "
+                             f"replayed ({host})")
+    return err, imp
+
+
+def captured_and_eager(step, what, rounds=2, n=5):
+    """A recorded Gluon step (``step(k)`` returns its loss) timed captured
+    and eager (``MXTPU_GRAPH_COMPILE=0``) in turns, captured-eager-eager-
+    captured per round, ``n`` steps a turn: each way's p50 ms.  One
+    captured step must replay its forward and backward graphs (two graph
+    launches in the profiler's trace)."""
+    _, host = replay_launches(lambda: step(0).asnumpy())
+    graphs = sum(c for key, c in host.items() if "GraphLaunch" in key)
+    if graphs < 2:
+        raise AssertionError(f"{what}: a captured training step launched "
+                             f"{graphs} graph(s), want the forward's and "
+                             f"the backward's ({host})")
+    times = {"captured": [], "eager": []}
+    k = 0
+    for _ in range(rounds):
+        for way in ("captured", "eager", "eager", "captured"):
+            with (eager() if way == "eager" else contextlib.nullcontext()):
+                for _ in range(n):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    step(k)
+                    torch.cuda.synchronize()
+                    times[way].append((time.perf_counter() - t0) * 1e3)
+                    k += 1
+    rec = {f"{way}_p50_ms": float(np.median(ts[1:]))
+           for way, ts in times.items()}
+    rec["graph_launches_a_step"] = graphs
+    log(f"{what}: step captured {rec['captured_p50_ms']:.2f} ms, eager "
+        f"{rec['eager_p50_ms']:.2f} ms (p50, in turns)")
+    return rec
+
+
 def phase_gluon(card, model=None, classes=1000, image=224,
                 batch=RESNET_BATCH, train_batch=RESNET_TRAIN_BATCH,
                 timed=RESNET_TIMED):
@@ -1795,20 +1899,10 @@ def phase_gluon(card, model=None, classes=1000, image=224,
     # 1. serving: imperative, then hybridized (captured), then exported
     net = _resnet(model, classes, gpu, reqs[0])
     n_bn = len(_blocks(net, mt.gluon.nn.BatchNorm))
-    imp = [net(r).asnumpy() for r in reqs]
     lat = {"imperative": _gluon_latency(net, reqs, timed)}
-    net.hybridize()
-    cap = [net(r).asnumpy() for r in reqs]
-    if net._cached_op.num_programs != 1:
-        raise AssertionError("the hybridized forward was not captured once")
-    cap_err = _capture_err(cap, imp)
-    _, host = replay_launches(lambda: net(reqs[0]).asnumpy())
-    graphs = sum(n for key, n in host.items() if "GraphLaunch" in key)
+    cap_err, imp = _check_hybridized("ResNet-50", net, reqs)
     log(f"gluon: captured against imperative {cap_err:.3e} of the largest "
-        f"output; {graphs} graph launch(es) a forward")
-    if cap_err > RESNET_CAPTURE_TOL or graphs < 1:
-        raise AssertionError(f"captured forward off by {cap_err} or not "
-                             f"replayed ({host})")
+        "output, one graph launch a forward")
     lat["hybridized"] = _gluon_latency(net, reqs, timed)
     out_dir = os.path.join(HERE, "build", "chip_smoke")
     os.makedirs(out_dir, exist_ok=True)
@@ -1842,7 +1936,7 @@ def phase_gluon(card, model=None, classes=1000, image=224,
     log(json.dumps({"gluon_serving": lat}))
     serve_profile = profile_gluon("gluon serving forward (captured)",
                                   lambda: net(reqs[0]).asnumpy())
-    del net, pred, reqs, imp, cap, served
+    del net, pred, reqs, imp, served
     torch.cuda.empty_cache()
 
     # 2. training: the float64 check of one step, then the loop
@@ -1866,6 +1960,7 @@ def phase_gluon(card, model=None, classes=1000, image=224,
         if max(held) > RESNET_GRAD_TOL:
             raise AssertionError(f"the step against float64 ({mode}): {c}")
     net = _resnet(model, classes, gpu, data[0][0])
+    net.hybridize()
     ramp = mt.lr_scheduler.FactorScheduler(
         step=10 ** 6, base_lr=RESNET_SGD["learning_rate"],
         warmup_steps=RESNET_WARM + RESNET_STEPS, warmup_begin_lr=0.0)
@@ -1901,7 +1996,8 @@ def phase_gluon(card, model=None, classes=1000, image=224,
         raise AssertionError(f"the loss did not fall ({losses}) or the "
                              f"moving statistics stood still ({moved})")
     step_ms = float(np.median(times[RESNET_WARM:]))
-    train_profile = profile_gluon("gluon training step",
+    turns = captured_and_eager(step, "ResNet-50")
+    train_profile = profile_gluon("gluon training step (captured)",
                                   lambda: step(0).asnumpy())
     rec = {"slice": "gluon_resnet50_v1", "card": card, "dtype": "float32",
            "image": image, "classes": classes, "serve_batch": batch,
@@ -1909,7 +2005,7 @@ def phase_gluon(card, model=None, classes=1000, image=224,
            "fold_bn": folded.get("fold_bn"), "serving": lat,
            "train_batch": train_batch, "grads_vs_float64": checks,
            "losses": losses,
-           "step_p50_ms": step_ms,
+           "step_p50_ms": step_ms, "step_turns": turns,
            "images_per_s": train_batch / (step_ms / 1e3),
            "peak_memory_gib": peak_gb,
            "serve_profile": serve_profile, "train_profile": train_profile,
@@ -1918,6 +2014,330 @@ def phase_gluon(card, model=None, classes=1000, image=224,
     del net, trainer, data
     torch.cuda.empty_cache()
     log(f"gluon: phase 8 in {rec['phase_s']:.1f} s")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the Gluon zoo and data
+# ---------------------------------------------------------------------------
+
+def _zoo_net(name, ctx, x, classes=1000):
+    """A zoo net by name, Xavier weights drawn on the host from seed 0, its
+    deferred shapes settled by one forward of ``x``."""
+    mt.random.seed(SEED)
+    net = vision.get_model(name, classes=classes)
+    net.initialize(mt.init.Xavier(magnitude=2), ctx=ctx)
+    net(x)
+    return net
+
+
+def zoo_serving(serve=ZOO_SERVE, batch=ZOO_BATCH, timed=ZOO_TIMED,
+                classes=1000):
+    """9a: each family served at batch ``batch``, imperative and
+    hybridized, the captured outputs within RESNET_CAPTURE_TOL of the
+    imperative ones."""
+    gpu = mt.gpu(0)
+    rng = np.random.RandomState(SEED)
+    out = {}
+    for name, side in serve:
+        t0 = time.perf_counter()
+        reqs = [mt.nd.array(rng.uniform(-1, 1, (batch, 3, side, side)),
+                            ctx=gpu) for _ in range(2)]
+        net = _zoo_net(name, gpu, reqs[0], classes)
+        n_params = sum(p.data().size for p in net.collect_params().values())
+        lat = {"imperative": _gluon_latency(net, reqs, max(timed // 5, 5))}
+        err, imp = _check_hybridized(name, net, reqs)
+        if not all(np.isfinite(o).all() and o.shape == (batch, classes)
+                   for o in imp):
+            raise AssertionError(f"{name}: outputs not finite or of shape "
+                                 f"{(batch, classes)}")
+        lat["hybridized"] = _gluon_latency(net, reqs, timed)
+        rec = {"image": side, "parameters": n_params, "capture_rel_err": err,
+               "images_per_s": batch / (lat["hybridized"]["p50_ms"] / 1e3),
+               **{f"{k}_p50_ms": v["p50_ms"] for k, v in lat.items()},
+               "hybridized_p99_ms": lat["hybridized"]["p99_ms"],
+               "s": time.perf_counter() - t0}
+        log(f"zoo: {name} at batch {batch}, {side} x {side}: hybridized p50 "
+            f"{rec['hybridized_p50_ms']:.3f} ms, imperative "
+            f"{rec['imperative_p50_ms']:.3f} ms, captured against "
+            f"imperative {err:.3e}")
+        out[name] = rec
+        del net, reqs, imp
+        torch.cuda.empty_cache()
+    return out
+
+
+def _synthetic_images(n, side, classes, seed):
+    """``n`` uint8 HWC images and int32 labels, each class's images shifted
+    by its own offset (the datasets' synthetic recipe), so that a few
+    steps can fit them."""
+    rng = np.random.RandomState(seed)
+    labels = rng.randint(0, classes, n).astype(np.int32)
+    images = rng.randint(0, 200, (n, side, side, 3)).astype(np.int32)
+    images += (labels % 56)[:, None, None, None]
+    return images.astype(np.uint8), labels
+
+
+def zoo_training(name="inceptionv3", side=299, batch=ZOO_TRAIN_BATCH,
+                 samples=ZOO_SAMPLES, classes=1000, warm=ZOO_WARM,
+                 steps=ZOO_STEPS, eager_steps=ZOO_EAGER_STEPS):
+    """9b: the net hybridized and trained through `autograd.record`,
+    ``backward`` and `Trainer.step` on batches of a `DataLoader` (2 worker
+    threads, shuffled) over an `ArrayDataset` of uint8 images through
+    ``ToTensor`` and ``Normalize``; each batch moved to the card.  The loss
+    must fall; the captured step must give the eager one's loss and
+    gradients on one batch with the same Dropout masks.  Returns the
+    record and the trained net."""
+    gpu = mt.gpu(0)
+    tr = mt.gluon.data.vision.transforms
+    images, labels = _synthetic_images(samples, side, classes, SEED + 9)
+    data = mt.gluon.data.ArrayDataset(images, labels).transform_first(
+        tr.Compose([tr.ToTensor(), tr.Normalize(IMAGENET_MEAN,
+                                                IMAGENET_STD)]))
+    loader = mt.gluon.data.DataLoader(data, batch_size=batch, shuffle=True,
+                                      num_workers=2, last_batch="discard")
+    np.random.seed(SEED)
+    x0 = mt.nd.array(np.zeros((batch, 3, side, side), np.float32), ctx=gpu)
+    net = _zoo_net(name, gpu, x0, classes)
+    net.hybridize()
+    n_total = warm + steps
+    ramp = mt.lr_scheduler.FactorScheduler(
+        step=10 ** 6, base_lr=RESNET_SGD["learning_rate"],
+        warmup_steps=n_total, warmup_begin_lr=0.0)
+    trainer = mt.gluon.Trainer(net.collect_params(), "sgd",
+                               dict(RESNET_SGD, lr_scheduler=ramp))
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def step(xy):
+        x, y = xy
+        with mt.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(batch)
+        return loss
+
+    def batches():
+        while True:
+            for b in loader:
+                yield b
+
+    feed = batches()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, load_ms = [], [], []
+    for _ in range(n_total):
+        t0 = time.perf_counter()
+        hx, hy = next(feed)
+        xy = (hx.as_in_context(gpu), hy.as_in_context(gpu))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses.append(float(step(xy).mean().asscalar()))
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        load_ms.append((t1 - t0) * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    first, last = np.mean(losses[:2]), np.mean(losses[-2:])
+    log(f"zoo: {name} training losses {losses}")
+    if not np.isfinite(losses).all() or not last < first:
+        raise AssertionError(f"{name}: the loss did not fall ({losses})")
+    if net._cached_op.num_train_programs < 1:
+        raise AssertionError(f"{name}: no training step was captured")
+    check = _captured_against_eager(net, loss_fn, xy)
+    eager_ms = []
+    with eager():
+        for _ in range(eager_steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(xy)
+            torch.cuda.synchronize()
+            eager_ms.append((time.perf_counter() - t0) * 1e3)
+    cap_p50 = float(np.median(step_ms[warm:]))
+    rec = {"model": name, "image": side, "batch": batch, "samples": samples,
+           "losses": losses, "step_p50_ms": cap_p50,
+           "eager_step_p50_ms": float(np.median(eager_ms[1:])),
+           "images_per_s": batch / (cap_p50 / 1e3),
+           "loader_ms_a_batch": float(np.median(load_ms[warm:])),
+           "peak_memory_gib": peak_gb, "captured_vs_eager": check,
+           "train_programs": net._cached_op.num_train_programs}
+    rec["profile"] = profile_gluon(f"{name} training step (captured)",
+                                   lambda: step(xy).asnumpy())
+    log(f"zoo: {name} step p50 captured {cap_p50:.2f} ms, eager "
+        f"{rec['eager_step_p50_ms']:.2f} ms, {rec['images_per_s']:.1f} "
+        f"images/s, loader {rec['loader_ms_a_batch']:.2f} ms a batch, idle "
+        f"{rec['profile']['idle_share']}")
+    return rec, net
+
+
+def _step_grads(net, loss_fn, xy):
+    """One recorded step's loss and every gradient (no update), Dropout's
+    generator reseeded first."""
+    mt.random.seed(SEED)
+    x, y = xy
+    with mt.autograd.record():
+        loss = loss_fn(net(x), y)
+    loss.backward()
+    return (loss.data.detach().double(),
+            [p.grad().data.detach().double() for p in
+             net.collect_params().values() if p.grad_req != "null"])
+
+
+def _captured_against_eager(net, loss_fn, xy):
+    """The captured step's loss and gradients against the eager step's on
+    one batch, the Dropout generator reseeded before each (so both draw
+    the same masks), and two eager steps against each other; a replay
+    without the reseed draws other masks."""
+    def norm_err(a, b):
+        num = sum(float(((g - w) ** 2).sum()) for g, w in zip(a, b))
+        den = sum(float((w ** 2).sum()) for w in b)
+        return (num / den) ** 0.5
+
+    cap_loss, cap_g = _step_grads(net, loss_fn, xy)
+    x, y = xy
+    with mt.autograd.record():
+        again = loss_fn(net(x), y).data.detach().double()
+    if torch.equal(again, cap_loss):
+        raise AssertionError("two captured steps drew the same Dropout "
+                             "masks")
+    with eager():
+        eag_loss, eag_g = _step_grads(net, loss_fn, xy)
+        eag2_loss, eag2_g = _step_grads(net, loss_fn, xy)
+    rec = {"loss_rel_err": float((cap_loss - eag_loss).abs().max()
+                                 / eag_loss.abs().max()),
+           "grad_norm_rel_err": norm_err(cap_g, eag_g),
+           "eager_vs_eager_loss_rel_err": float(
+               (eag2_loss - eag_loss).abs().max() / eag_loss.abs().max()),
+           "eager_vs_eager_grad_norm_rel_err": norm_err(eag2_g, eag_g)}
+    log(f"zoo: captured step against eager: loss {rec['loss_rel_err']:.3e}"
+        f", gradients {rec['grad_norm_rel_err']:.3e} of their norm (eager "
+        f"against eager: {rec['eager_vs_eager_loss_rel_err']:.3e}, "
+        f"{rec['eager_vs_eager_grad_norm_rel_err']:.3e})")
+    if rec["loss_rel_err"] > ZOO_LOSS_TOL or \
+            rec["grad_norm_rel_err"] > ZOO_GRAD_TOL:
+        raise AssertionError(f"captured step against eager: {rec}")
+    return rec
+
+
+def zoo_serve_back(net, name="inceptionv3", side=299, batch=ZOO_BATCH,
+                   timed=ZOO_TIMED):
+    """9c: the trained net exported, loaded back by `SymbolBlock.imports`
+    on the card (hybridized) within ZOO_IMPORT_TOL of the hybridized net,
+    and served by `Predictor` with every BatchNorm folded."""
+    gpu = mt.gpu(0)
+    rng = np.random.RandomState(SEED + 3)
+    reqs = [mt.nd.array(rng.uniform(-1, 1, (batch, 3, side, side)),
+                        ctx=gpu) for _ in range(2)]
+    want = [net(r).asnumpy() for r in reqs]
+    n_bn = len(_blocks(net, mt.gluon.nn.BatchNorm))
+    out_dir = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    prefix = os.path.join(out_dir, name)
+    net.export(prefix)
+    blk = mt.gluon.SymbolBlock.imports(prefix + "-symbol.json", ["data"],
+                                       prefix + "-0000.params", ctx=gpu)
+    blk.hybridize()
+    got = [blk(r).asnumpy() for r in reqs]
+    import_err = _capture_err(got, want)
+    with open(prefix + "-symbol.json") as f:
+        sym_json = f.read()
+    with open(prefix + "-0000.params", "rb") as f:
+        blob = f.read()
+    pred = mt.Predictor(sym_json, blob, {"data": (batch, 3, side, side)})
+    folded = {r.name: r.rewrites for r in pred._program.opt_reports}
+    served = []
+    for r in reqs:
+        pred.forward(data=r)
+        served.append(pred.get_output(0).asnumpy())
+    export_err = _capture_err(served, want)
+    log(f"zoo: {name} exported: SymbolBlock.imports against the net "
+        f"{import_err:.3e}, Predictor {export_err:.3e}, fold_bn folded "
+        f"{folded.get('fold_bn')} of {n_bn} BatchNorms")
+    if import_err > ZOO_IMPORT_TOL or export_err > RESNET_EXPORT_TOL \
+            or folded.get("fold_bn") != n_bn:
+        raise AssertionError(f"{name} export: imports {import_err}, "
+                             f"Predictor {export_err}, fold_bn "
+                             f"{folded.get('fold_bn')} of {n_bn}")
+
+    def predict(r):
+        pred.forward(data=r)
+        return pred.get_output(0)
+
+    return {"import_rel_err": import_err, "export_rel_err": export_err,
+            "fold_bn": folded.get("fold_bn"), "batchnorms": n_bn,
+            "symbol_block_p50_ms": _gluon_latency(blk, reqs, timed)["p50_ms"],
+            "predictor_p50_ms": _gluon_latency(predict, reqs,
+                                               timed)["p50_ms"]}
+
+
+def zoo_ctc(T=CTC_T, N=CTC_N, C=CTC_C, lengths=CTC_LABELS):
+    """9d: `gluon.loss.CTCLoss` (TNC, blank last) on the card at an OCR
+    shape, imperative and hybridized (the recorded call captured), its
+    loss and gradient against the same block on the CPU in float64
+    within CTC_TOL relative; each way's time a warm call."""
+    rng = np.random.RandomState(SEED + 4)
+    pred = rng.randn(T, N, C).astype(np.float32)
+    lab_len = rng.randint(lengths[0], lengths[1] + 1, N)
+    label = np.full((N, lengths[1]), -1, np.float32)
+    for n, k in enumerate(lab_len):
+        label[n, :k] = rng.randint(0, C - 1, k)
+    pred_len = rng.randint(max(2 * lengths[1] + 1, T // 2), T + 1, N)
+    feeds = (pred, label, pred_len.astype(np.float32),
+             lab_len.astype(np.float32))
+
+    def make(ctx, dtype, hybrid):
+        arrs = [mt.nd.array(a, ctx=ctx, dtype=dtype) for a in feeds]
+        arrs[0].attach_grad()
+        loss_fn = mt.gluon.loss.CTCLoss(layout="TNC")
+        if hybrid:
+            loss_fn.hybridize()
+
+        def run():
+            with mt.autograd.record():
+                loss = loss_fn(*arrs)
+            loss.backward()
+            return loss.data.detach().double().cpu(), \
+                arrs[0].grad.data.double().cpu()
+        return run
+
+    want_loss, want_grad = make(mt.cpu(), "float64", False)()
+    rec = {"mean_loss": float(want_loss.mean())}
+    for way, hybrid in (("imperative", False), ("hybridized", True)):
+        run = make(mt.gpu(0), "float32", hybrid)
+        for _ in range(3):
+            loss, grad = run()
+        t0 = time.perf_counter()
+        run()
+        rec[f"{way}_ms"] = (time.perf_counter() - t0) * 1e3
+        rec[f"{way}_loss_rel_err"] = float(((loss - want_loss).abs()
+                                           / want_loss.abs()).max())
+        rec[f"{way}_grad_rel_err"] = float((grad - want_grad).abs().max()
+                                           / want_grad.abs().max())
+        if not torch.isfinite(loss).all() or \
+                rec[f"{way}_loss_rel_err"] > CTC_TOL or \
+                rec[f"{way}_grad_rel_err"] > CTC_TOL:
+            raise AssertionError(f"CTCLoss on the card, {way}: {rec}")
+    log(f"zoo: CTCLoss at T {T}, N {N}, {C} classes against float64 on the "
+        f"CPU: loss {rec['imperative_loss_rel_err']:.3e} / "
+        f"{rec['hybridized_loss_rel_err']:.3e}, gradient "
+        f"{rec['imperative_grad_rel_err']:.3e} / "
+        f"{rec['hybridized_grad_rel_err']:.3e} (imperative / hybridized); "
+        f"forward and backward {rec['imperative_ms']:.2f} / "
+        f"{rec['hybridized_ms']:.2f} ms")
+    return rec
+
+
+def phase_zoo(card):
+    """Phase 9: the Gluon zoo and data on cuda:0."""
+    t_phase = time.perf_counter()
+    serving = zoo_serving()
+    train, net = zoo_training()
+    served_back = zoo_serve_back(net)
+    del net
+    torch.cuda.empty_cache()
+    ctc = zoo_ctc()
+    rec = {"phase": "gluon_zoo", "card": card, "dtype": "float32",
+           "serving": serving, "training": train,
+           "served_back": served_back, "ctc": ctc,
+           "phase_s": time.perf_counter() - t_phase}
+    log(json.dumps(rec))
+    log(f"zoo: phase 9 in {rec['phase_s']:.1f} s")
     return rec
 
 
@@ -1932,6 +2352,7 @@ def main():
     lstm_launches = phase_lstm_serving(card)
     fit_launches = phase_fit(card)
     phase_gluon(card)
+    phase_zoo(card)
     leaked = [m for m in ("jax", "mxnet_tpu") if m in sys.modules]
     if leaked:
         raise SystemExit(f"chip_smoke: the port imported {leaked}")

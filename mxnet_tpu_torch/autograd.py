@@ -13,7 +13,7 @@ copies, 'add' accumulates, 'null' variables are not variables at all.
 rebound to them), so a second `backward` gives second derivatives.
 
 `Function` is a user-defined op over `torch.autograd.Function`.
-`get_symbol` waits for a later slice.
+`get_symbol` raises, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -27,7 +27,8 @@ from .base import MXNetError
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
            "is_training", "set_recording", "set_training", "grad_mode",
-           "mark_variables", "backward", "grad", "get_symbol", "Function"]
+           "mark_variables", "backward", "grad", "get_symbol", "Function",
+           "NotImplementedForSymbolError"]
 
 
 class _State(threading.local):
@@ -238,9 +239,14 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
 
 def get_symbol(x):
     """Reference `autograd.get_symbol`: lifting recorded history into a
-    Symbol comes with a later slice of the port."""
-    raise MXNetError("autograd.get_symbol is not ported yet; it comes with "
-                     "a later slice of the PyTorch port")
+    Symbol.  Not provided, as in the JAX package (a block's graph comes
+    from the Symbol tracer, `HybridBlock.export`): raises
+    `NotImplementedForSymbolError`."""
+    raise NotImplementedForSymbolError()
+
+
+class NotImplementedForSymbolError(MXNetError):
+    """`get_symbol` is not provided (the JAX package's error)."""
 
 
 class Function:

@@ -3,18 +3,35 @@ counterpart of `mxnet_tpu/cached_op.py`; reference
 `src/imperative/cached_op.cc`).
 
 The JAX package compiles one jitted program per (train mode, input
-signature).  Here, a predict-mode forward on a CUDA device is captured as
-a CUDA graph once per input signature (the structure, shapes, dtypes and
-devices of the inputs, and the addresses, shapes and dtypes of the
-parameters) and replayed: the inputs are copied into the graph's static
-input tensors, and every call hands back outputs of its own.  The first
-call of a signature runs eagerly on a side stream (`graph_compile.warm_up`,
-so cuDNN picks its algorithms and workspace outside the capture) and
-returns that run's outputs; the capture follows.  A forward under
-`autograd.record`, in train mode, on the CPU or with
-``MXTPU_GRAPH_COMPILE=0`` runs eagerly, so torch's autograd records it
-and Dropout draws its masks from the device's stream as the imperative
-forward does.
+signature), and under `autograd.record` adds one tape node whose vjp is
+the whole compiled backward.  Here, on a CUDA device:
+
+* a predict-mode forward is captured as a CUDA graph once per input
+  signature (the structure, shapes, dtypes and devices of the inputs, and
+  the addresses, shapes and dtypes of the parameters) and replayed: the
+  inputs are copied into the graph's static input tensors, and every call
+  hands back outputs of its own;
+* a forward under `autograd.record` in train mode is captured as two CUDA
+  graphs per signature (which inputs require gradients is part of it): the
+  forward, with torch's autograd recording inside the capture, and its
+  backward (`torch.autograd.grad` of the outputs with respect to the
+  inputs and parameters that require gradients), in one memory pool.  A
+  call replays the forward and records one node on torch's tape (a
+  `torch.autograd.Function`) whose backward replays the second graph.
+  BatchNorm's moving statistics are written in place inside the forward
+  graph; Dropout draws from the device's generator, registered with the
+  capture, so each replay draws new masks.  While a call's backward is
+  still to come, the next call of the signature captures a program of its
+  own (a replay would overwrite the saved activations); a backward after
+  its program has run again raises.
+
+The first call of a signature runs eagerly on a side stream
+(`graph_compile.warm_up`, so cuDNN and cuBLAS set up outside a capture);
+in predict mode the capture follows at once, in training at the next call
+(after the warm-up's backward has run).  A forward in train mode outside
+`record`, in predict mode under `record`, with nothing to differentiate,
+on the CPU or with ``MXTPU_GRAPH_COMPILE=0`` runs eagerly under torch's
+autograd.  A capture that fails raises.
 
 Before the first call, one predict-mode forward settles deferred
 initialization without moving BatchNorm's statistics.  While a CachedOp
@@ -25,11 +42,14 @@ consumes nothing of the random stream, hybridized or not.
 from __future__ import annotations
 
 import threading
+import weakref
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from . import autograd
+from . import random as _random
+from .base import MXNetError
 from .graph_compile import CapturedGraph, graph_compile_enabled, warm_up
 from .ndarray.ndarray import NDArray
 
@@ -80,6 +100,13 @@ def _flatten(obj) -> Tuple[List[Any], Callable]:
     return [obj], lambda vals: vals[0]
 
 
+def _captures(device) -> bool:
+    """Whether calls on ``device`` are captured: a CUDA device, with
+    ``MXTPU_GRAPH_COMPILE`` on."""
+    return device is not None and device.type == "cuda" and \
+        graph_compile_enabled()
+
+
 def _leaf_key(x):
     if isinstance(x, NDArray):
         t = x.data
@@ -98,17 +125,121 @@ class _Program:
         self.rebuild_out = rebuild_out
 
 
+class _Call:
+    """What one training replay leaves for its backward: the program's
+    run it belongs to, and whether a backward has read it."""
+    __slots__ = ("run", "done", "__weakref__")
+
+    def __init__(self, run: int):
+        self.run = run
+        self.done = False
+
+
+class _TrainProgram:
+    """A recorded train-mode forward and its backward, captured as two
+    CUDA graphs over one memory pool."""
+
+    def __init__(self, cached_op, leaves, rebuild, params, device):
+        self.static = [
+            x.data.detach().clone().requires_grad_(x.data.requires_grad)
+            if isinstance(x, NDArray) else None for x in leaves]
+        call_args = rebuild([NDArray(s) if s is not None else x
+                             for s, x in zip(self.static, leaves)])
+        diff_in = [s for s in self.static
+                   if s is not None and s.requires_grad] + \
+            [p for p in params if p.requires_grad]
+        structure = {}
+
+        def forward():
+            out_leaves, rebuild_out = _flatten(cached_op._forward(call_args))
+            structure["rebuild"] = rebuild_out
+            return [o.data for o in out_leaves]
+
+        pool = torch.cuda.graph_pool_handle()
+        self.fwd = CapturedGraph(forward, device,
+                                 _random.generator(device), pool)
+        outs = self.fwd.outputs
+        self.rebuild_out = structure["rebuild"]
+        self.diff_out = [i for i, o in enumerate(outs) if o.requires_grad]
+        self.grad_out = [torch.empty_like(outs[i]) for i in self.diff_out]
+
+        def backward():
+            return torch.autograd.grad([outs[i] for i in self.diff_out],
+                                       diff_in, grad_outputs=self.grad_out,
+                                       allow_unused=True)
+
+        self.bwd = CapturedGraph(backward, device, pool=pool)
+        self.fwd.outputs = [o.detach() for o in outs]
+        self.runs = 0
+        self.pending = None
+
+    @property
+    def busy(self) -> bool:
+        """Whether a replay's backward is still to come."""
+        call = self.pending() if self.pending is not None else None
+        return call is not None and not call.done
+
+    def __call__(self, leaves, params):
+        diff = [x.data for x in leaves
+                if isinstance(x, NDArray) and x.data.requires_grad] + \
+            [p for p in params if p.requires_grad]
+        with torch.no_grad():
+            for s, x in zip(self.static, leaves):
+                if s is not None:
+                    s.copy_(x.data)
+        outs = _Replay.apply(self, *diff)
+        return self.rebuild_out([NDArray(o) for o in outs])
+
+
+class _Replay(torch.autograd.Function):
+    """One training replay as one node of torch's tape."""
+
+    @staticmethod
+    def forward(ctx, prog, *diff):
+        outs = [o.clone() for o in prog.fwd.replay()]
+        prog.runs += 1
+        ctx.prog = prog
+        ctx.call = _Call(prog.runs)
+        prog.pending = weakref.ref(ctx.call)
+        ctx.mark_non_differentiable(*[o for i, o in enumerate(outs)
+                                      if i not in prog.diff_out])
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        prog = ctx.prog
+        if ctx.call.run != prog.runs:
+            raise MXNetError(
+                "CachedOp: this recorded call's captured forward has run "
+                "again since; backward through it once, before the next "
+                "call (or set MXTPU_GRAPH_COMPILE=0)")
+        with torch.no_grad():
+            for buf, i in zip(prog.grad_out, prog.diff_out):
+                buf.copy_(grads[i])
+        gs = prog.bwd.replay()
+        ctx.call.done = True
+        return (None,) + tuple(g.clone() if g is not None else None
+                               for g in gs)
+
+
 class CachedOp:
-    """One captured forward per input signature of a hybridized block."""
+    """One captured forward per input signature of a hybridized block, and
+    one captured forward and backward per signature of a recorded
+    train-mode call."""
 
     def __init__(self, block):
         self.block = block
         self._params = None
         self._programs: Dict[Tuple, _Program] = {}
+        self._train_programs: Dict[Tuple, List[_TrainProgram]] = {}
 
     @property
     def num_programs(self) -> int:
         return len(self._programs)
+
+    @property
+    def num_train_programs(self) -> int:
+        return sum(len(v) for v in self._train_programs.values())
 
     def _settle_init(self, args):
         """One eager predict-mode forward to finish deferred
@@ -129,9 +260,11 @@ class CachedOp:
         leaves, rebuild = _flatten(list(args))
         nds = [x for x in leaves if isinstance(x, NDArray)]
         device = nds[0].data.device if nds else None
-        if (autograd.is_recording() or autograd.is_training()
-                or device is None or device.type != "cuda"
-                or not graph_compile_enabled()):
+        if not _captures(device):
+            return self._forward(args)
+        if autograd.is_recording() and autograd.is_training():
+            return self._train_call(args, leaves, rebuild, device)
+        if autograd.is_recording() or autograd.is_training():
             return self._forward(args)
         key = (tuple(_leaf_key(x) for x in leaves),
                tuple((d.data.data_ptr(), tuple(d.shape), d.dtype)
@@ -145,6 +278,32 @@ class CachedOp:
                     s.copy_(x.data)
         outs = prog.graph.replay()
         return prog.rebuild_out([NDArray(o.clone()) for o in outs])
+
+    def _train_call(self, args, leaves, rebuild, device):
+        params = [d.data for p in self._params for d in p.list_data()]
+        if not any(p.requires_grad for p in params) and not any(
+                isinstance(x, NDArray) and x.data.requires_grad
+                for x in leaves):
+            return self._forward(args)
+        key = (tuple(_leaf_key(x) + ((x.data.requires_grad,)
+                                     if isinstance(x, NDArray) else ())
+                     for x in leaves),
+               tuple((p.data_ptr(), tuple(p.shape), p.dtype,
+                      p.requires_grad) for p in params))
+        progs = self._train_programs.get(key)
+        if progs is None:
+            self._train_programs[key] = []
+
+            def run():
+                out_leaves, rebuild_out = _flatten(self._forward(args))
+                return [o.data for o in out_leaves], rebuild_out
+            outs, rebuild_out = warm_up(run, device)
+            return rebuild_out([NDArray(o) for o in outs])
+        prog = next((p for p in progs if not p.busy), None)
+        if prog is None:
+            prog = _TrainProgram(self, leaves, rebuild, params, device)
+            progs.append(prog)
+        return prog(leaves, params)
 
     def _capture(self, key, leaves, rebuild, device):
         static = [x.data.detach().clone() if isinstance(x, NDArray)

@@ -1,17 +1,17 @@
 """Gluon: the imperative and hybrid network API (the counterpart of
-`mxnet_tpu/gluon`; reference `python/mxnet/gluon/`).  `SymbolBlock`, the
-recurrent layers, the data pipeline and the contrib layers wait for
-later slices."""
+`mxnet_tpu/gluon`; reference `python/mxnet/gluon/`).  The recurrent
+layers and the contrib layers wait for later slices."""
 from . import parameter
 from .parameter import Constant, Parameter, ParameterDict
 from . import block
-from .block import Block, HybridBlock
+from .block import Block, HybridBlock, SymbolBlock
 from . import nn
 from . import loss
+from . import data
 from .trainer import Trainer
 from . import model_zoo
 from . import utils
 
-__all__ = ["Block", "HybridBlock", "Parameter", "Constant", "ParameterDict",
-           "Trainer", "nn", "loss", "model_zoo", "utils", "parameter",
-           "block"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "Parameter", "Constant",
+           "ParameterDict", "Trainer", "nn", "loss", "data", "model_zoo",
+           "utils", "parameter", "block"]

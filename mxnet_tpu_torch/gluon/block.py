@@ -9,8 +9,9 @@ HybridBlock's ``hybrid_forward(F, x, **params)`` runs with ``F = nd`` on
 NDArrays and ``F = sym`` on Symbols (`export`, the Symbol tracer).
 ``hybridize()`` routes NDArray calls through a `cached_op.CachedOp`: on
 the card a predict-mode forward is captured as a CUDA graph per input
-signature; a recorded or train-mode forward runs eagerly under torch's
-autograd.  `SymbolBlock` waits for a later slice.
+signature, and a forward recorded in train mode as a forward and a
+backward graph (one node on torch's tape).  `SymbolBlock` wraps a Symbol
+graph (a loaded export, or `get_internals` of a net) as a Block.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from ..ndarray.ndarray import NDArray
 from .parameter import (DeferredInitializationError, Parameter,
                         ParameterDict, load_into)
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock"]
 
 
 class _BlockScope(threading.local):
@@ -322,3 +323,80 @@ class HybridBlock(Block):
         save_ndarrays(f"{path}-{epoch:04d}.params",
                       {(f"aux:{k}" if k in aux else f"arg:{k}"): v
                        for k, v in arg_dict.items()})
+
+
+class SymbolBlock(HybridBlock):
+    """A Symbol graph as a Block (reference `block.py:952`).
+
+    ``outputs`` is the graph (a Symbol, or a list of them), ``inputs`` its
+    input variables (or their names).  ``params`` maps parameter names to
+    values: a `Parameter` (for instance from ``net.collect_params()``) is
+    adopted, so training the source net shows here; an NDArray becomes a
+    new Parameter on its own context, with no gradient for the graph's
+    auxiliary states.  The forward runs the graph's steps
+    (`graph_compile.build_steps`, the executor's plan) on the inputs and
+    the parameters' arrays, under `autograd.record` as recorded ops.  As
+    in the JAX package, it runs in predict mode (BatchNorm on its moving
+    statistics, no Dropout) whatever the autograd mode.  ``hybridize()``
+    captures it like any other HybridBlock.
+    """
+
+    def __init__(self, outputs, inputs, params=None):
+        super().__init__(prefix="", params=None)
+        from ..symbol.symbol import Group, Symbol
+        if isinstance(outputs, (list, tuple)):
+            outputs = Group(list(outputs))
+        inputs = inputs if isinstance(inputs, (list, tuple)) else [inputs]
+        self._symbol_outputs = outputs
+        self._input_names = [s.name if isinstance(s, Symbol) else s
+                             for s in inputs]
+        aux = set(outputs.list_auxiliary_states())
+        for name, value in dict((params or {}).items()).items():
+            if isinstance(value, Parameter):
+                p = value
+            else:
+                p = Parameter(name, shape=value.shape, dtype=value.dtype,
+                              grad_req="null" if name in aux else "write")
+                p.initialize(ctx=value.context)
+                p.set_data(value)
+            self._params._params[name] = p
+            self._reg_params[name] = p
+        self._plan = None
+
+    @staticmethod
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        """The block of an export: ``path-symbol.json`` and, where given,
+        its ``.params`` file, loaded onto ``ctx`` (the card when none is
+        given) (reference `block.py:imports`)."""
+        from ..context import default_context
+        from ..serialization import load_ndarrays
+        from ..symbol.symbol import load, var
+        sym = load(symbol_file)
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        params = {}
+        if param_file:
+            ctx = ctx if ctx is not None else \
+                default_context("SymbolBlock.imports")
+            for k, v in load_ndarrays(param_file).items():
+                params[k.split(":", 1)[1] if ":" in k else k] = \
+                    v.as_in_context(ctx)
+        return SymbolBlock(sym, [var(n) for n in input_names], params)
+
+    def forward(self, *args):
+        from .. import autograd
+        from ..graph_compile import build_steps, run_plan
+        from ..symbol.symbol import Symbol
+        if isinstance(args[0], Symbol):
+            raise MXNetError("SymbolBlock: composing it into a Symbol "
+                             "graph is not supported; call it on NDArrays")
+        if self._plan is None:
+            self._plan = build_steps(self._symbol_outputs)
+        ctx = args[0].context
+        feed = {n: a.data for n, a in zip(self._input_names, args)}
+        feed.update({n: p.data(ctx).data
+                     for n, p in self._reg_params.items()})
+        with autograd.grad_mode():
+            outs, _ = run_plan(self._plan, feed)
+        res = [NDArray(o) for o in outs]
+        return res[0] if len(res) == 1 else res

@@ -1,7 +1,7 @@
 """Gluon losses (the counterpart of `mxnet_tpu/gluon/loss.py`; reference
 `python/mxnet/gluon/loss.py`), each a HybridBlock over the registered
 ops, with the reference's ``weight``, ``batch_axis``, ``sparse_label``,
-``from_logits`` and ``axis``.  `CTCLoss` waits for the CTC op."""
+``from_logits`` and ``axis``."""
 from __future__ import annotations
 
 from .block import HybridBlock
@@ -10,7 +10,7 @@ __all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
            "SigmoidBCELoss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss",
            "KLDivLoss", "HuberLoss", "HingeLoss", "SquaredHingeLoss",
            "LogisticLoss", "TripletLoss", "CosineEmbeddingLoss",
-           "PoissonNLLLoss"]
+           "PoissonNLLLoss", "CTCLoss"]
 
 
 def _apply_weighting(F, loss, weight=None, sample_weight=None):
@@ -262,4 +262,31 @@ class CosineEmbeddingLoss(Loss):
         cos = num / denom
         label = label.reshape((-1,))
         loss = F.where(label == 1, 1.0 - cos, F.relu(cos - self._margin))
+        return _apply_weighting(F, loss, self._weight, sample_weight)
+
+
+class CTCLoss(Loss):
+    """Connectionist temporal classification loss (reference
+    `loss.py:CTCLoss`) over the ``CTCLoss`` op, with the blank as the last
+    class and labels padded with -1.  ``layout`` is the prediction's
+    ("NTC" or "TNC"), ``label_layout`` the label's ("NT" or "TN")."""
+
+    def __init__(self, layout="NTC", label_layout="NT", weight=None,
+                 **kwargs):
+        super().__init__(weight, 0, **kwargs)
+        self._layout = layout
+        self._label_layout = label_layout
+
+    def hybrid_forward(self, F, pred, label, pred_lengths=None,
+                       label_lengths=None, sample_weight=None):
+        if self._layout == "NTC":
+            pred = F.transpose(pred, axes=(1, 0, 2))
+        if self._label_layout == "TN":
+            label = F.transpose(label, axes=(1, 0))
+        if label_lengths is not None and pred_lengths is None:
+            raise ValueError(
+                "CTCLoss: pass pred_lengths together with label_lengths "
+                "(without label_lengths, -1-padded labels are counted)")
+        lengths = [a for a in (pred_lengths, label_lengths) if a is not None]
+        loss = F.CTCLoss(pred, label, *lengths, blank_label="last")
         return _apply_weighting(F, loss, self._weight, sample_weight)

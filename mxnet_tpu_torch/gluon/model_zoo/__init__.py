@@ -1,5 +1,5 @@
 """Model zoo (the counterpart of `mxnet_tpu/gluon/model_zoo`): the vision
-ResNets."""
+families."""
 from . import vision
 from .vision import get_model
 

@@ -9,7 +9,6 @@ repository holds no weights.
 """
 from __future__ import annotations
 
-from ....base import MXNetError
 from ...block import HybridBlock
 from ... import nn
 
@@ -284,10 +283,8 @@ def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
     block_class = resnet_block_versions[version - 1][block_type]
     net = resnet_class(block_class, layers, channels, **kwargs)
     if pretrained:
-        raise MXNetError(
-            f"resnet{num_layers}_v{version}: pretrained weights are not "
-            "available (the repository holds none); load a .params file "
-            "with load_parameters instead")
+        from ..model_store import load_pretrained
+        load_pretrained(net, f"resnet{num_layers}_v{version}", root, ctx)
     return net
 
 

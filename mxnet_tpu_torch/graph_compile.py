@@ -43,7 +43,7 @@ from .ops.registry import DEVICE, Attrs
 from .symbol.symbol import _entry_key, _topo, _value_key
 
 __all__ = ["GraphProgram", "GraphCompiler", "Tape", "CapturedGraph",
-           "graph_compile_enabled", "build_steps", "run_steps",
+           "graph_compile_enabled", "build_steps", "run_plan", "run_steps",
            "record_steps", "tape_grads", "backward_tape", "warm_up",
            "feed_key"]
 
@@ -77,8 +77,13 @@ def build_steps(symbol):
             [_value_key(e) for e in symbol._heads])
 
 
-def _run(plan, feed, train, generator
-         ) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
+def run_plan(plan, feed: Mapping[str, torch.Tensor], train: bool = False,
+             generator: Optional[torch.Generator] = None
+             ) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
+    """A `build_steps` plan run on ``feed`` under the caller's grad mode
+    (with grad on, autograd records the steps on the feed's own tensors,
+    as a `gluon.SymbolBlock` under `autograd.record` needs): the outputs
+    and the mutated variables' new values."""
     var_names, steps, head_keys = plan
     vals: Dict[str, torch.Tensor] = {}
     for name in var_names:
@@ -113,7 +118,7 @@ def run_steps(plan, feed: Mapping[str, torch.Tensor], train: bool = False,
     (Dropout draws from ``generator``).  Returns the outputs and the new
     values of the mutated variables."""
     with torch.inference_mode():
-        return _run(plan, feed, train, generator)
+        return run_plan(plan, feed, train, generator)
 
 
 class Tape:
@@ -138,7 +143,7 @@ def record_steps(plan, feed: Mapping[str, torch.Tensor],
     values, and the tape."""
     leaves = {n: feed[n].detach().requires_grad_(True) for n in grad_names}
     with torch.enable_grad():
-        outs, aux = _run(plan, {**feed, **leaves}, True, generator)
+        outs, aux = run_plan(plan, {**feed, **leaves}, True, generator)
     return [o.detach() for o in outs], aux, Tape(leaves, outs)
 
 
@@ -221,10 +226,13 @@ class CapturedGraph:
     `warm_up`), its outputs kept as the graph's static tensors.  The
     kernel launches the capture records count at each `replay`, not at
     the capture; ``generator`` (the stream Dropout draws from) is
-    registered, so each replay draws new numbers."""
+    registered, so each replay draws new numbers.  Graphs given one
+    ``pool`` (`torch.cuda.graph_pool_handle`) share their memory, so a
+    later capture may read what an earlier one left (a backward reading
+    its forward's saved tensors)."""
 
     def __init__(self, fn: Callable, device: torch.device,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, pool=None):
         self.graph = torch.cuda.CUDAGraph()
         if generator is not None:
             if not hasattr(self.graph, "register_generator_state"):
@@ -234,7 +242,8 @@ class CapturedGraph:
             self.graph.register_generator_state(generator)
         before = dict(LAUNCHES)
         try:
-            with torch.cuda.device(device), torch.cuda.graph(self.graph):
+            with torch.cuda.device(device), \
+                    torch.cuda.graph(self.graph, pool=pool):
                 self.outputs = fn()
         except Exception as e:
             raise MXNetError(f"CUDA graph capture failed: {e}; set "

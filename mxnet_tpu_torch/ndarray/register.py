@@ -34,6 +34,9 @@ def _split_args(op: _reg.OpDef, args: Sequence, kwargs: Dict[str, Any]):
     order) and attrs (an explicit None is kept, as the reference keeps
     it)."""
     inputs: List = [a for a in args if a is not None]
+    inputs, pos_attrs = _reg.split_positional_attrs(op, inputs, kwargs,
+                                                    NDArray)
+    kwargs = {**kwargs, **pos_attrs}
     if op.input_names:
         named = {n: kwargs.pop(n) for n in list(kwargs)
                  if n in op.input_names}

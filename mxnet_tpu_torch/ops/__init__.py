@@ -1,5 +1,6 @@
 """Operators: importing this package registers every ported op."""
 from . import registry  # noqa: F401
 from . import nn, matrix, elemwise, broadcast_reduce  # noqa: F401
+from . import tensor_extra, image_ops, nn_legacy  # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import hopper_kernels  # noqa: F401

@@ -2,8 +2,8 @@
 the unary math ops (``sigmoid``, ``tanh``, ``relu``, ``abs``, ``square``,
 ``sqrt``, ``exp``, ``log``, ...), ``identity``/``_copy``,
 ``BlockGrad``/``stop_gradient`` (which the ``eliminate`` pass forwards),
-``cast``, and the scalar arithmetic and comparisons (``_plus_scalar``,
-``_rdiv_scalar``, ``_greater_scalar``, ...)."""
+``cast``, ``clip``, and the scalar arithmetic and comparisons
+(``_plus_scalar``, ``_rdiv_scalar``, ``_greater_scalar``, ...)."""
 from __future__ import annotations
 
 import torch
@@ -52,6 +52,22 @@ def _cast(attrs, x):
 
 
 alias("cast", "Cast")
+
+
+@register("clip", num_inputs=1, input_names=["data"],
+          attr_names=["a_min", "a_max"])
+def _clip(attrs, x):
+    """``x`` limited to [a_min, a_max]; a bound not given leaves that side
+    open.  The gradient passes on the closed interval, bounds included,
+    as the reference's does (a `torch.where` per bound, not
+    `torch.clamp`)."""
+    lo = attrs.get_float("a_min", None)
+    hi = attrs.get_float("a_max", None)
+    if hi is not None:
+        x = torch.where(x > hi, x.new_full((), hi), x)
+    if lo is not None:
+        x = torch.where(x < lo, x.new_full((), lo), x)
+    return x
 
 
 def _scalar_op(name, fn):

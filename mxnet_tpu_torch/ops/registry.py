@@ -21,7 +21,8 @@ import torch
 from ..base import MXNetError, _Null, str_to_attr, torch_dtype
 
 __all__ = ["Attrs", "OpDef", "register", "alias", "get_op", "list_ops",
-           "apply_op", "eval_shape_op", "canonical_attrs", "DEVICE"]
+           "apply_op", "eval_shape_op", "canonical_attrs",
+           "split_positional_attrs", "DEVICE"]
 
 #: the attr through which a zero-input op learns the device to build on
 DEVICE = "__device"
@@ -80,7 +81,8 @@ class OpDef:
                  num_inputs: Optional[int] = None, num_outputs: int = 1,
                  needs_rng: bool = False, uses_train_mode: bool = False,
                  mutate_inputs: Sequence[int] = (),
-                 input_names: Optional[Sequence[str]] = None):
+                 input_names: Optional[Sequence[str]] = None,
+                 attr_names: Optional[Sequence[str]] = None):
         self.name = name
         self.fn = fn
         self.num_inputs = num_inputs          # None => variadic
@@ -89,6 +91,9 @@ class OpDef:
         self.uses_train_mode = uses_train_mode  # executor injects __train
         self.mutate_inputs = tuple(mutate_inputs)
         self.input_names = list(input_names) if input_names else None
+        # attrs that may follow the tensors positionally, in this order
+        # (``clip(data, a_min, a_max)``)
+        self.attr_names = list(attr_names) if attr_names else None
         self.doc = fn.__doc__ or ""
         self.aliases: List[str] = []
 
@@ -141,6 +146,30 @@ def get_op(name: str) -> OpDef:
 
 def list_ops() -> List[str]:
     return sorted(_REGISTRY)
+
+
+def split_positional_attrs(op: OpDef, inputs: Sequence, kwargs: Dict,
+                           tensor_type: type):
+    """``(tensor inputs, attrs)``: the positional arguments past
+    ``op.num_inputs`` mapped onto ``op.attr_names``, as the reference's
+    generated signatures take them (the JAX package's
+    `registry.split_positional_attrs`)."""
+    if (op.num_inputs is None or not op.attr_names
+            or len(inputs) <= op.num_inputs):
+        return list(inputs), {}
+    extra = inputs[op.num_inputs:]
+    if len(extra) > len(op.attr_names):
+        raise TypeError(
+            f"op {op.name}: takes at most {op.num_inputs} tensor inputs "
+            f"and {len(op.attr_names)} positional params, got "
+            f"{len(inputs)} positional arguments")
+    attrs = {}
+    for pname, v in zip(op.attr_names, extra):
+        if isinstance(v, tensor_type) or pname in kwargs:
+            raise TypeError(f"op {op.name}: too many tensor inputs or "
+                            f"duplicate value for {pname!r}")
+        attrs[pname] = v
+    return list(inputs[:op.num_inputs]), attrs
 
 
 def canonical_attrs(kwargs: Dict[str, Any]) -> Tuple[Tuple[str, Any], ...]:

@@ -1,7 +1,7 @@
 """`mx.sym`: graph construction plus one composer per registered op."""
 from .. import ops as _ops  # noqa: F401  (registers the ops)
 from .register import invoke_sym, make_sym_functions
-from .symbol import Group, Symbol, load_json, var
+from .symbol import Group, Symbol, load, load_json, var
 
 make_sym_functions(globals())
 
@@ -31,5 +31,5 @@ def eye(N, M=0, k=0, name=None, dtype=None):
                       dtype=dtype or "float32")
 
 
-__all__ = ["Symbol", "var", "Group", "load_json", "invoke_sym", "zeros",
+__all__ = ["Symbol", "var", "Group", "load", "load_json", "invoke_sym", "zeros",
            "ones", "full", "arange", "eye"]

@@ -38,7 +38,9 @@ _SYM_INPUTS = {
 
 def invoke_sym(op_name: str, *args, name=None, **kwargs) -> Symbol:
     op = _reg.get_op(op_name)
-    inputs = [a for a in args if a is not None]
+    inputs, pos_attrs = _reg.split_positional_attrs(
+        op, [a for a in args if a is not None], kwargs, Symbol)
+    kwargs.update(pos_attrs)
     named = {k: kwargs.pop(k) for k in list(kwargs)
              if isinstance(kwargs[k], Symbol)}
     # an explicit None is kept: Attrs accessors read it as "not given"

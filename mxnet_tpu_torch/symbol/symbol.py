@@ -26,7 +26,7 @@ from ..ops import registry as _reg
 from ..ops.registry import Attrs
 from .param_infer import infer_param_shapes
 
-__all__ = ["Symbol", "var", "Group", "load_json"]
+__all__ = ["Symbol", "var", "Group", "load", "load_json"]
 
 
 class _NameManager(threading.local):
@@ -186,6 +186,12 @@ class Symbol:
                     consumers.setdefault(inp.name, []).append(slot in mut)
         return {name for name, slots in consumers.items()
                 if slots and all(slots)}
+
+    def get_internals(self) -> "Symbol":
+        """Every output of every node, variables included, as one group
+        (reference `symbol.py:get_internals`)."""
+        return Symbol([(node, i) for node in self._nodes()
+                       for i in range(node.num_outputs)])
 
     def list_arguments(self) -> List[str]:
         aux = self._aux_var_names()
@@ -389,6 +395,12 @@ def load_json(json_str: str) -> Symbol:
         built.append(_Node(op, nj["name"], dict(nj.get("attrs") or {}),
                            inputs))
     return Symbol([(built[h[0]], h[1]) for h in graph["heads"]])
+
+
+def load(fname: str) -> Symbol:
+    """The Symbol of a JSON file (`Symbol.save`, `HybridBlock.export`)."""
+    with open(fname) as f:
+        return load_json(f.read())
 
 
 def _new_op_node(op_name: str, inputs: List[Tuple[_Node, int]],

@@ -12,6 +12,7 @@ reference's, the stale-gradient guard, states, the refused kvstore) and
 `gluon.utils`."""
 import numpy as np
 import pytest
+import torch
 
 import mxnet_tpu as jx
 import mxnet_tpu_torch as tx
@@ -650,4 +651,216 @@ def test_model_zoo_names_and_pretrained():
     with pytest.raises(tx.MXNetError, match="pretrained"):
         vision.resnet18_v1(pretrained=True)
     with pytest.raises(ValueError):
-        vision.get_model("vgg16")
+        vision.get_model("vgg17")
+
+
+# ---------------------------------------------------------------------------
+# CTCLoss, hybridized training on the CPU, get_symbol
+# ---------------------------------------------------------------------------
+
+def _ctc_batch(layout, label_layout, seed):
+    """Activations in ``layout`` (T = 8, N = 4, 5 classes with the blank
+    last), -1-padded labels in ``label_layout`` (sample 0's longer than
+    its input allows), input and label lengths, and sample weights."""
+    rng = np.random.RandomState(seed)
+    T, N, C, L = 8, 4, 5, 4
+    pred = rng.randn(T, N, C).astype(np.float32)
+    if layout == "NTC":
+        pred = pred.transpose(1, 0, 2).copy()
+    lens = np.array([4, 2, 0, 3], np.float32)
+    label = np.full((N, L), -1, np.float32)
+    for n, k in enumerate(lens.astype(int)):
+        label[n, :k] = rng.randint(0, C - 1, k)
+    if label_layout == "TN":
+        label = label.T.copy()
+    pred_lens = np.array([3, 8, 6, 7], np.float32)
+    weight = rng.uniform(0.5, 2, (N,)).astype(np.float32)
+    return pred, label, pred_lens, lens, weight
+
+
+@pytest.mark.parametrize("layout,label_layout,inputs,weight", [
+    ("NTC", "NT", "labels", None), ("TNC", "NT", "pred", None),
+    ("NTC", "TN", "both", None), ("TNC", "TN", "both", 0.5),
+    ("NTC", "NT", "sample_weight", None)])
+def test_ctc_loss_block_matches_reference(layout, label_layout, inputs,
+                                          weight):
+    """`gluon.loss.CTCLoss` against the JAX package's at 1e-5 (the loss
+    and the prediction's gradient): layouts NTC/TNC, labels NT/TN, padded
+    labels alone, with the prediction lengths, with both lengths, with a
+    weight and with sample weights."""
+    pred, label, pred_lens, lens, sw = _ctc_batch(layout, label_layout, 3)
+    args = {"labels": [pred, label],
+            "pred": [pred, label, pred_lens],
+            "both": [pred, label, pred_lens, lens],
+            "sample_weight": [pred, label, None, None, sw]}[inputs]
+    got = {}
+    for pkg in (jx, tx):
+        blk = pkg.gluon.loss.CTCLoss(layout=layout, label_layout=label_layout,
+                                     weight=weight)
+        nds = [_arr(pkg, a) if a is not None else None for a in args]
+        nds[0].attach_grad()
+        with pkg.autograd.record():
+            out = blk(*nds)
+        out.backward()
+        got[pkg] = (out.asnumpy(), nds[0].grad.asnumpy())
+    for g, w in zip(got[tx], got[jx]):
+        np.testing.assert_allclose(g, w, rtol=TOL, atol=TOL)
+
+
+def test_ctc_loss_block_needs_pred_lengths_with_label_lengths():
+    pred, label, _, lens, _ = _ctc_batch("NTC", "NT", 0)
+    for pkg in (jx, tx):
+        blk = pkg.gluon.loss.CTCLoss()
+        with pytest.raises(ValueError, match="pred_lengths"):
+            blk(_arr(pkg, pred), _arr(pkg, label), None, _arr(pkg, lens))
+
+
+def _conv_bn_net(pkg):
+    nn = pkg.gluon.nn
+    net = nn.HybridSequential(prefix="h_")
+    with net.name_scope():
+        net.add(nn.Conv2D(4, 3, padding=1), nn.BatchNorm(),
+                nn.Activation("relu"), nn.Dense(3))
+    return net
+
+
+@pytest.mark.parametrize("compile_env", ["1", "0"])
+def test_hybridized_training_on_cpu_stays_eager(compile_env, monkeypatch):
+    """On the CPU (and with MXTPU_GRAPH_COMPILE=0) a hybridized block under
+    `autograd.record` in train mode runs eagerly and captures nothing:
+    its loss, gradients and moving statistics equal the imperative net's
+    bit for bit over two steps, and both match the JAX package's within
+    1e-5."""
+    monkeypatch.setenv("MXTPU_GRAPH_COMPILE", compile_env)
+    rng = np.random.RandomState(11)
+    xs = [rng.randn(4, 2, 5, 5).astype(np.float32) for _ in range(2)]
+    ys = [rng.randint(0, 3, 4).astype(np.float32) for _ in range(2)]
+    runs = {}
+    for name, pkg, hybrid in (("imperative", tx, False),
+                              ("hybridized", tx, True),
+                              ("reference", jx, True)):
+        net = _conv_bn_net(pkg)
+        _init(pkg, net)
+        net(_arr(pkg, xs[0]))
+        _set(pkg, net, _values(net.collect_params(), 12))
+        if hybrid:
+            net.hybridize()
+        trainer = pkg.gluon.Trainer(net.collect_params(), "sgd",
+                                    {"learning_rate": 0.1, "momentum": 0.9})
+        loss_fn = pkg.gluon.loss.SoftmaxCrossEntropyLoss()
+        rec = []
+        for x, y in zip(xs, ys):
+            with pkg.autograd.record():
+                loss = loss_fn(net(_arr(pkg, x)), _arr(pkg, y))
+            loss.backward()
+            rec.append(loss.asnumpy())
+            rec += [p.grad().asnumpy() for p in
+                    net.collect_params().values() if p.grad_req != "null"]
+            trainer.step(4)
+        rec += [p.data().asnumpy() for p in net.collect_params().values()]
+        runs[name] = rec
+        if pkg is tx and hybrid:
+            assert net._cached_op.num_programs == 0
+            assert net._cached_op.num_train_programs == 0
+    for h, i in zip(runs["hybridized"], runs["imperative"]):
+        assert np.array_equal(h, i)
+    for t, j in zip(runs["imperative"], runs["reference"]):
+        np.testing.assert_allclose(t, j, rtol=TOL, atol=TOL)
+
+
+def test_get_symbol_raises_like_reference():
+    for pkg in (jx, tx):
+        x = _arr(pkg, np.ones((2, 2), np.float32))
+        with pytest.raises(pkg.MXNetError):
+            pkg.autograd.get_symbol(x)
+    assert issubclass(tx.autograd.NotImplementedForSymbolError,
+                      tx.MXNetError)
+
+
+class _StandInGraph:
+    """A CUDA graph's contract on the CPU: ``fn`` runs at capture and again
+    at every replay, its new values copied into the first outputs (which
+    stay the same tensors, as a graph's static outputs do).  A capture
+    computes nothing, so the tensors in ``kept`` get their values back
+    after it (BatchNorm's moving statistics)."""
+    kept = []
+
+    def __init__(self, fn, device, generator=None, pool=None):
+        self._fn = fn
+        saved = [t.clone() for t in self.kept]
+        self._first = fn()
+        with torch.no_grad():
+            for t, v in zip(self.kept, saved):
+                t.copy_(v)
+        self.outputs = self._first
+
+    def replay(self):
+        new = self._fn()
+        with torch.no_grad():
+            for dst, src in zip(self.outputs, new):
+                if dst is not None:
+                    dst.copy_(src)
+        if isinstance(self._first, list):
+            self._first[:] = new
+        return self.outputs
+
+
+def test_training_capture_replays_one_tape_node(monkeypatch):
+    """The recorded train-mode path of `CachedOp` with a stand-in for the
+    CUDA graph (the card alone captures): the first call runs eagerly, the
+    second captures, later calls replay as one node of the tape; loss,
+    gradients and BatchNorm's statistics equal the imperative net's over
+    three steps.  A call while an earlier one's backward is pending takes
+    a program of its own; a backward after its program ran again raises."""
+    from mxnet_tpu_torch import cached_op
+    monkeypatch.setattr(cached_op, "_captures", lambda device: True)
+    monkeypatch.setattr(cached_op, "CapturedGraph", _StandInGraph)
+    monkeypatch.setattr(cached_op, "warm_up", lambda fn, device: fn())
+    monkeypatch.setattr(cached_op.torch.cuda, "graph_pool_handle",
+                        lambda: None)
+    rng = np.random.RandomState(13)
+    xs = [rng.randn(4, 2, 5, 5).astype(np.float32) for _ in range(3)]
+    ys = [rng.randint(0, 3, 4).astype(np.float32) for _ in range(3)]
+    runs = {}
+    for hybrid in (False, True):
+        net = _conv_bn_net(tx)
+        _init(tx, net)
+        net(_arr(tx, xs[0]))
+        _set(tx, net, _values(net.collect_params(), 12))
+        if hybrid:
+            net.hybridize()
+            monkeypatch.setattr(_StandInGraph, "kept", [
+                p.data().data for p in net.collect_params().values()
+                if p.grad_req == "null"])
+        trainer = tx.gluon.Trainer(net.collect_params(), "sgd",
+                                   {"learning_rate": 0.1})
+        loss_fn = tx.gluon.loss.SoftmaxCrossEntropyLoss()
+        rec = []
+        for x, y in zip(xs, ys):
+            with tx.autograd.record():
+                loss = loss_fn(net(_arr(tx, x)), _arr(tx, y))
+            loss.backward()
+            trainer.step(4)
+            rec.append(loss.asnumpy())
+            rec += [p.data().asnumpy() for p in
+                    net.collect_params().values()]
+        runs[hybrid] = (rec, net)
+    for h, i in zip(runs[True][0], runs[False][0]):
+        np.testing.assert_allclose(h, i, rtol=1e-6, atol=1e-7)
+    net = runs[True][1]
+    assert net._cached_op.num_train_programs == 1
+    x = _arr(tx, xs[0])
+    with tx.autograd.record():
+        first = net(x)
+        second = net(x)
+    assert net._cached_op.num_train_programs == 2
+    first.backward()
+    second.backward()
+    with tx.autograd.record():
+        held = net(x)
+    held.backward(retain_graph=True)
+    with tx.autograd.record():
+        net(x).backward()
+    assert net._cached_op.num_train_programs == 2
+    with pytest.raises(tx.MXNetError, match="run again"):
+        held.backward()

@@ -582,3 +582,194 @@ def test_update_ops_leave_weight_untouched(op):
     for t, j, s0 in zip(ts, js, states):
         assert not np.allclose(j, s0)
         np.testing.assert_allclose(t, j, rtol=TOL, atol=TOL)
+
+
+# ---------------------------------------------------------------------------
+# clip, add_n, the image ops and CTCLoss
+# ---------------------------------------------------------------------------
+
+def _vjp_both(op, arrays, attrs, cotangent_seed=0):
+    """Outputs and input gradients of ``op`` in both packages for one
+    seeded cotangent of the first output (the gradient of the first
+    input only)."""
+    x0 = jnp.asarray(arrays[0])
+    rest = [jnp.asarray(a) for a in arrays[1:]]
+
+    def f(x):
+        return jreg.apply_op(op, [x] + rest, dict(attrs))[0]
+    want, vjp = jax.vjp(f, x0)
+    ct = np.random.RandomState(cotangent_seed).randn(
+        *want.shape).astype(np.float32)
+    (want_g,) = vjp(jnp.asarray(ct))
+    tx0 = torch.from_numpy(arrays[0]).requires_grad_(True)
+    got = treg.apply_op(op, [tx0] + [torch.from_numpy(a)
+                                     for a in arrays[1:]], dict(attrs))[0]
+    (got_g,) = torch.autograd.grad(got, tx0, torch.from_numpy(ct))
+    return (got.detach().numpy(), np.asarray(want),
+            got_g.numpy(), np.asarray(want_g))
+
+
+@pytest.mark.parametrize("attrs", [{"a_min": 0, "a_max": 6},
+                                   {"a_min": "0.0", "a_max": "6.0"},
+                                   {"a_max": 6}, {"a_min": 0}])
+def test_clip_and_its_gradient_at_the_bounds_match_reference(attrs):
+    """Inputs lie exactly on 0 and 6, beside and between them: the
+    gradient passes on the closed interval, as the JAX package's does."""
+    x = np.array([[-2.0, -1e-7, 0.0, 1e-7, 3.0],
+                  [6.0 - 4e-7, 6.0, 6.0 + 5e-7, 7.0, -0.0]], np.float32)
+    got, want, got_g, want_g = _vjp_both("clip", [x], attrs)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got_g, want_g)
+
+
+def test_clip_takes_its_bounds_positionally():
+    import mxnet_tpu as jx
+    import mxnet_tpu_torch as tx
+    x = np.array([-1.0, 2.0, 9.0], np.float32)
+    want = jx.nd.clip(jx.nd.array(x), 0, 6).asnumpy()
+    got = tx.nd.clip(tx.nd.array(x, ctx=tx.cpu()), 0, 6).asnumpy()
+    np.testing.assert_array_equal(got, want)
+    assert tx.sym.clip(tx.sym.var("x"), 0, 6).attr_dict()["clip0"] == \
+        {"a_min": "0", "a_max": "6"}
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_add_n_matches_reference(n):
+    rng = np.random.RandomState(n)
+    arrays = [rng.randn(3, 4).astype(np.float32) for _ in range(n)]
+    want = jreg.apply_op("add_n", [jnp.asarray(a) for a in arrays], {})[0]
+    got = treg.apply_op("ElementWiseSum",
+                        [torch.from_numpy(a) for a in arrays], {})[0]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)
+
+
+def _image(kind, shape, seed):
+    rng = np.random.RandomState(seed)
+    if kind == "u8":
+        return (rng.rand(*shape) * 255).astype(np.uint8)
+    return (rng.rand(*shape) * 255).astype(np.float32)
+
+
+# (op, image kind, shape, attrs)
+IMAGE_CASES = {
+    "to_tensor_hwc": ("_image_to_tensor", "u8", (5, 7, 3), {}),
+    "to_tensor_nhwc": ("_image_to_tensor", "u8", (2, 5, 7, 3), {}),
+    "normalize_chw": ("_image_normalize", "f32", (3, 5, 7),
+                      {"mean": (0.4, 0.5, 0.6), "std": (0.2, 0.3, 0.4)}),
+    "normalize_nchw_one": ("_image_normalize", "f32", (2, 1, 5, 7),
+                           {"mean": 0.5, "std": 2.0}),
+    "resize_down_f32": ("_image_resize", "f32", (13, 17, 3),
+                        {"size": (8, 6)}),
+    "resize_down_u8": ("_image_resize", "u8", (13, 17, 3), {"size": (8, 6)}),
+    "resize_up_u8": ("_image_resize", "u8", (13, 17, 3), {"size": (30, 20)}),
+    "resize_square": ("_image_resize", "f32", (13, 17, 3), {"size": 5}),
+    "resize_keep_ratio": ("_image_resize", "u8", (13, 17, 3),
+                          {"size": (10, 10), "keep_ratio": True}),
+    "resize_batch": ("_image_resize", "f32", (2, 7, 9, 3), {"size": (4, 5)}),
+    "crop": ("_image_crop", "u8", (9, 8, 3),
+             {"x": 2, "y": 3, "width": 5, "height": 4}),
+    "crop_batch": ("_image_crop", "f32", (2, 9, 8, 3),
+                   {"x": 1, "y": 0, "width": 3, "height": 6}),
+    "flip_left_right": ("_image_flip_left_right", "u8", (4, 5, 3), {}),
+    "flip_top_bottom": ("_image_flip_top_bottom", "f32", (2, 4, 5, 3), {}),
+    "brightness_u8": ("_image_adjust_lighting_scale", "u8", (6, 5, 3),
+                      {"alpha": 1.3}),
+    "brightness_alias": ("_image_random_brightness_scale", "f32", (6, 5, 3),
+                         {"alpha": 0.7}),
+    "contrast_u8": ("_image_adjust_contrast", "u8", (6, 5, 3),
+                    {"alpha": 0.6}),
+    "contrast_f32": ("_image_adjust_contrast", "f32", (6, 5, 3),
+                     {"alpha": 1.5}),
+    "saturation_u8": ("_image_adjust_saturation", "u8", (6, 5, 3),
+                      {"alpha": 1.4}),
+    "saturation_f32": ("_image_adjust_saturation", "f32", (6, 5, 3),
+                       {"alpha": 0.3}),
+    "hue_u8": ("_image_adjust_hue", "u8", (6, 5, 3), {"alpha": 0.3}),
+    "hue_f32": ("_image_adjust_hue", "f32", (6, 5, 3), {"alpha": -0.45}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(IMAGE_CASES))
+def test_image_op_matches_reference(case):
+    """Each image op on the same image; uint8 results (rounded half to
+    even and clipped, as the reference does) are held equal, float ones
+    within 1e-5 relative."""
+    op, kind, shape, attrs = IMAGE_CASES[case]
+    x = _image(kind, shape, sorted(IMAGE_CASES).index(case))
+    want = np.asarray(jreg.apply_op(op, [jnp.asarray(x)], dict(attrs))[0])
+    got = treg.apply_op(op, [torch.from_numpy(x)], dict(attrs))[0].numpy()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if got.dtype == np.uint8:
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=TOL, atol=0)
+
+
+@pytest.mark.parametrize("op,axis", [("_image_random_flip_left_right", 1),
+                                     ("_image_random_flip_top_bottom", 0)])
+def test_random_flip_draws_both_ways(op, axis):
+    """The random flips give the image or its flip, each about half the
+    time over 400 draws (the packages' streams differ, so the law is
+    held, not the draws)."""
+    x = _image("u8", (4, 5, 3), 0)
+    gen = torch.Generator().manual_seed(0)
+    flipped = 0
+    for _ in range(400):
+        got = treg.get_op(op).fn(treg.Attrs(), gen, torch.from_numpy(x))
+        if np.array_equal(got.numpy(), np.flip(x, axis)):
+            flipped += 1
+        else:
+            np.testing.assert_array_equal(got.numpy(), x)
+    assert 200 - 4 * 10 < flipped < 200 + 4 * 10
+
+
+def _ctc_inputs(blank, T=7, N=5, C=6, L=4, seed=0):
+    """Activations, labels padded by the blank's convention (0 for
+    "first", -1 for "last"), input and label lengths; sequence 0's label
+    is longer than its input allows (infeasible), sequence 1 repeats a
+    label, sequence 2 has an empty label."""
+    rng = np.random.RandomState(seed)
+    data = rng.randn(T, N, C).astype(np.float32)
+    lo, hi = (1, C) if blank == "first" else (0, C - 1)
+    pad = 0 if blank == "first" else -1
+    lengths = [L, 3, 0, 2, 4]
+    label = np.full((N, L), pad, np.float32)
+    for n, k in enumerate(lengths):
+        label[n, :k] = rng.randint(lo, hi, k)
+    label[1, :3] = [lo, lo, lo + 1]
+    data_len = np.array([2, T, T, 3, T - 1], np.float32)
+    return data, label, data_len, np.array(lengths, np.float32)
+
+
+@pytest.mark.parametrize("blank", ["first", "last"])
+@pytest.mark.parametrize("lengths", ["none", "data", "both"])
+def test_ctc_loss_and_gradient_match_reference(blank, lengths):
+    """The loss and its gradient with respect to the activations, against
+    the JAX op, at 1e-5: blank first or last, labels delimited by padding
+    or by label_lengths, sequences cut by data_lengths; an infeasible
+    alignment gives 1e30, as the reference's floor does."""
+    data, label, data_len, label_len = _ctc_inputs(blank)
+    arrays = [data, label] + {"none": [], "data": [data_len],
+                              "both": [data_len, label_len]}[lengths]
+    got, want, got_g, want_g = _vjp_both("CTCLoss", arrays,
+                                         {"blank_label": blank})
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(got_g, want_g, rtol=TOL, atol=TOL)
+    if lengths != "none":
+        assert got[0] == np.float32(1e30)
+
+
+def test_ctc_loss_in_float64_agrees_with_float32():
+    """The port computes a float64 input in float64 (the card's check
+    holds its float32 loss against it)."""
+    data, label, data_len, label_len = _ctc_inputs("last", seed=3)
+    arrays = [torch.from_numpy(a) for a in (label, data_len, label_len)]
+    lo = treg.apply_op("CTCLoss", [torch.from_numpy(data)] + arrays,
+                       {"blank_label": "last"})[0]
+    hi = treg.apply_op("CTCLoss", [torch.from_numpy(data).double()] + arrays,
+                       {"blank_label": "last"})[0]
+    assert hi.dtype == torch.float64
+    feasible = lo < 1e29
+    np.testing.assert_allclose(lo[feasible].numpy(),
+                               hi[feasible].numpy(), rtol=1e-5)
