@@ -25,10 +25,11 @@ on its moving statistics (frozen-BatchNorm fine-tuning), as ResNet-50 does
 in `tests/test_torch_resnet.py`: in train mode at batch 2, a ReLU input
 that a BatchNorm puts within fp32 rounding of zero routes a gradient
 elsewhere, so no two fp32 computations agree.  Against the same step in
-float64, the worst fp32 gradient of MobileNet v2 read 1.4e-1 in the port
-and 4.8e-4 in the JAX package; of Inception-v3, 1.4e-1 in the port and
-8.9e-2 in the JAX package (frozen: 9.0e-4 and 1.4e-5).  Their train-mode
-forward and loss are held all the same.
+float64 (`tools/torch_zoo_grad_diag.py`), the worst fp32 gradient of
+MobileNet v2 read 1.4e-1 in the port and 1.4e-4 in the JAX package; of
+Inception-v3, 1.4e-1 in the port and 8.9e-2 in the JAX package (frozen:
+9.0e-4 and 1.4e-5).  Their train-mode forward and loss are held all the
+same.
 
 Inception-v3 runs whole at 299 x 299, in
 `tests/test_torch_zoo_inception.py` (a file of its own, so that it runs
@@ -60,16 +61,18 @@ WEIGHT_TOL = 1e-4
 #: rounding: a convolution bias that feeds a train-mode BatchNorm (VGG with
 #: BatchNorm), and a BatchNorm scale whose channel reaches the loss only
 #: through train-mode BatchNorms while its bias is 0 (DenseNet's stem:
-#: 2.6e-6 against 1.6e-2 elsewhere).  Biases start at 0, so after one step
-#: theirs is as small as their gradient
+#: 2.7e-6 against 0.90 at the largest, `tools/torch_zoo_grad_diag.py`).
+#: Biases start at 0, so after one step theirs is as small as their
+#: gradient
 ZERO_FLOOR = 1e-3
 #: nets whose gradients (and weights after the step) are held together,
 #: by their norm, as phase 8 of chip_smoke.py holds ResNet-50's: even with
 #: BatchNorm on its moving statistics, Inception-v3's 94 BatchNorm + ReLU
 #: pairs leave some ReLU inputs within fp32 rounding of zero, which route a
-#: gradient elsewhere in one package and not in the other (one weight of
-#: its last E block read 2.9e-3 of its largest magnitude from the JAX
-#: package's, a BatchNorm bias after the step 2.1e-4)
+#: gradient elsewhere in one package and not in the other: one BatchNorm
+#: bias's gradient read 9.1e-4 of its largest magnitude from the JAX
+#: package's, all gradients together 2.6e-6 of their norm
+#: (`tools/torch_zoo_grad_diag.py`)
 BY_NORM = {"inceptionv3"}
 SGD = {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}
 BATCH, CLASSES = 2, 10
