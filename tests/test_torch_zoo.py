@@ -26,10 +26,11 @@ in `tests/test_torch_resnet.py`: in train mode at batch 2, a ReLU input
 that a BatchNorm puts within fp32 rounding of zero routes a gradient
 elsewhere, so no two fp32 computations agree.  Against the same step in
 float64 (`tools/torch_zoo_grad_diag.py`), the worst fp32 gradient of
-MobileNet v2 read 1.4e-1 in the port and 1.4e-4 in the JAX package; of
-Inception-v3, 1.4e-1 in the port and 8.9e-2 in the JAX package (frozen:
-9.0e-4 and 1.4e-5).  Their train-mode forward and loss are held all the
-same.
+MobileNet v2 read 1.4e-1 in the port (one ReLU6 input of 273,280
+flipped) and 1.4e-4 in the JAX package (none flipped); of Inception-v3,
+1.4e-1 in the port and 8.9e-2 in the JAX package (56 and 81 flips;
+frozen: 9.0e-4 and 1.4e-5).  Their train-mode forward and loss are held
+all the same.
 
 Inception-v3 runs whole at 299 x 299, in
 `tests/test_torch_zoo_inception.py` (a file of its own, so that it runs

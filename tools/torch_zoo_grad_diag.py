@@ -14,7 +14,11 @@ and the port's against the JAX package's (each relative to the float64
 gradient's largest magnitude, or to 1e-3 of the net's largest where that
 is more, as the test measures), then every gradient's error together,
 relative to their norm, and the largest and smallest of the parameters'
-largest gradient magnitudes.
+largest gradient magnitudes.  In train mode it also counts, for each
+package, the ReLU and ReLU6 inputs that fall on the other side of a
+switching point (0, and 6 for ReLU6) than in float64, and the inputs'
+largest error relative to their largest magnitude: one such flip routes
+a gradient elsewhere.
 
 Run from the repository root: ``JAX_PLATFORMS=cpu python3
 tools/torch_zoo_grad_diag.py [family ...]`` (the test's family names;
@@ -48,6 +52,46 @@ def _grads(pkg, net, x, y, train, dtype="float32"):
     return {k: p.grad().asnumpy().astype(np.float64)
             for k, p in net._collect_params_with_prefix().items()
             if p.grad_req != "null"}
+
+
+def _relu_inputs(pkg, net, x, dtype="float32"):
+    """The input of every ReLU and ReLU6 block of one train-mode forward,
+    with the mask of inputs a gradient passes."""
+    seen = []
+
+    def hook(blk, args, out):
+        a = args[0].asnumpy().astype(np.float64)
+        six = type(blk).__name__ == "RELU6"
+        seen.append((a, (a >= 0) & (a <= 6) if six else a > 0))
+
+    handles = []
+
+    def attach(blk):
+        if type(blk).__name__ == "RELU6" or \
+                getattr(blk, "_act", None) == "relu":
+            handles.append(blk.register_forward_hook(hook))
+    net.apply(attach)
+    arr = (lambda a: tx.nd.array(a, ctx=tx.cpu(), dtype=dtype)) \
+        if pkg is tx else jx.nd.array
+    with zoo._fed_masks():
+        with pkg.autograd.record(train_mode=True):
+            net(arr(x))
+    for h in handles:
+        h.detach()
+    return seen
+
+
+def _flips(name):
+    jnet, tnet, x = zoo._nets(name)
+    want = _relu_inputs(tx, _float64_copy(name, jnet, x), x, "float64")
+    for label, pkg, net in (("port", tx, tnet), ("jax", jx, jnet)):
+        got = _relu_inputs(pkg, net, x)
+        flips = sum(int((g[1] != w[1]).sum()) for g, w in zip(got, want))
+        err = max(float(np.abs(g[0] - w[0]).max() / np.abs(w[0]).max())
+                  for g, w in zip(got, want))
+        print(f"  {label}: {flips} ReLU inputs flipped of "
+              f"{sum(w[0].size for w in want)}; their largest error "
+              f"{err:.3g}", flush=True)
 
 
 def _float64_copy(name, jnet, x):
@@ -86,6 +130,8 @@ def diagnose(name):
                  zoo._norm_err(tg, jg)))
         print("  largest gradient magnitudes: max %.3g, min %.3g" %
               (max(mags.values()), min(mags.values())), flush=True)
+        if train:
+            _flips(name)
 
 
 def main():
