@@ -22,8 +22,13 @@ the whole compiled backward.  Here, on a CUDA device:
   graph; Dropout draws from the device's generator, registered with the
   capture, so each replay draws new masks.  While a call's backward is
   still to come, the next call of the signature captures a program of its
-  own (a replay would overwrite the saved activations); a backward after
-  its program has run again raises.
+  own (a replay would overwrite the saved activations), up to
+  `MAX_TRAIN_PROGRAMS` per signature; past that a call runs eagerly, so
+  the pools kept stay bounded.  A backward after its program has run
+  again raises, and so does a ``create_graph`` backward through a replay
+  (the JAX package raises for its CachedOp node too).  Programs captured
+  over parameter tensors the block no longer holds (``reset_ctx``,
+  ``cast``, a ``set_data`` of another shape) are dropped.
 
 The first call of a signature runs eagerly on a side stream
 (`graph_compile.warm_up`, so cuDNN and cuBLAS set up outside a capture);
@@ -54,6 +59,10 @@ from .graph_compile import CapturedGraph, graph_compile_enabled, warm_up
 from .ndarray.ndarray import NDArray
 
 __all__ = ["CachedOp", "is_tracing", "tracing_scope"]
+
+# captured training programs kept per input signature: each holds a pool
+# with one call's saved activations
+MAX_TRAIN_PROGRAMS = 2
 
 
 class _TraceState(threading.local):
@@ -137,21 +146,35 @@ class _Call:
 
 class _TrainProgram:
     """A recorded train-mode forward and its backward, captured as two
-    CUDA graphs over one memory pool."""
+    CUDA graphs over one memory pool.  The capture reads the parameters
+    through aliases (new leaves over the same memory), so the captured
+    autograd graph holds none of the parameters' own gradient
+    accumulators: those belong to the caller's tape, which may be alive
+    during a capture on another stream (a recorded call still pending, a
+    loss kept from the step before)."""
 
-    def __init__(self, cached_op, leaves, rebuild, params, device):
+    def __init__(self, cached_op, leaves, rebuild, param_nds, device):
         self.static = [
             x.data.detach().clone().requires_grad_(x.data.requires_grad)
             if isinstance(x, NDArray) else None for x in leaves]
         call_args = rebuild([NDArray(s) if s is not None else x
                              for s, x in zip(self.static, leaves)])
+        params = [d.data for d in param_nds]
+        alias = [p.detach().requires_grad_(p.requires_grad) for p in params]
         diff_in = [s for s in self.static
                    if s is not None and s.requires_grad] + \
-            [p for p in params if p.requires_grad]
+            [a for a in alias if a.requires_grad]
         structure = {}
 
         def forward():
-            out_leaves, rebuild_out = _flatten(cached_op._forward(call_args))
+            for d, a in zip(param_nds, alias):
+                d.data = a
+            try:
+                out_leaves, rebuild_out = _flatten(
+                    cached_op._forward(call_args))
+            finally:
+                for d, p in zip(param_nds, params):
+                    d.data = p
             structure["rebuild"] = rebuild_out
             return [o.data for o in out_leaves]
 
@@ -207,6 +230,11 @@ class _Replay(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
+        if torch.is_grad_enabled():
+            raise MXNetError(
+                "create_graph=True: a captured CachedOp graph is not "
+                "supported for higher-order gradients (set "
+                "MXTPU_GRAPH_COMPILE=0 to differentiate it eagerly)")
         prog = ctx.prog
         if ctx.call.run != prog.runs:
             raise MXNetError(
@@ -232,6 +260,7 @@ class CachedOp:
         self._params = None
         self._programs: Dict[Tuple, _Program] = {}
         self._train_programs: Dict[Tuple, List[_TrainProgram]] = {}
+        self._addrs: Optional[Tuple[int, ...]] = None
 
     @property
     def num_programs(self) -> int:
@@ -254,6 +283,16 @@ class CachedOp:
         with tracing_scope():
             return self.block.forward(*args)
 
+    def _drop_stale(self, params: List[torch.Tensor]):
+        """Drop every program when the block's parameter tensors are no
+        longer those the programs were captured over (a pending replay
+        keeps its own program until its backward)."""
+        addrs = tuple(p.data_ptr() for p in params)
+        if addrs != self._addrs:
+            self._addrs = addrs
+            self._programs.clear()
+            self._train_programs.clear()
+
     def __call__(self, *args):
         if self._params is None:
             self._settle_init(args)
@@ -266,6 +305,8 @@ class CachedOp:
             return self._train_call(args, leaves, rebuild, device)
         if autograd.is_recording() or autograd.is_training():
             return self._forward(args)
+        self._drop_stale([d.data for p in self._params
+                          for d in p.list_data()])
         key = (tuple(_leaf_key(x) for x in leaves),
                tuple((d.data.data_ptr(), tuple(d.shape), d.dtype)
                      for p in self._params for d in p.list_data()))
@@ -280,11 +321,13 @@ class CachedOp:
         return prog.rebuild_out([NDArray(o.clone()) for o in outs])
 
     def _train_call(self, args, leaves, rebuild, device):
-        params = [d.data for p in self._params for d in p.list_data()]
+        param_nds = [d for p in self._params for d in p.list_data()]
+        params = [d.data for d in param_nds]
         if not any(p.requires_grad for p in params) and not any(
                 isinstance(x, NDArray) and x.data.requires_grad
                 for x in leaves):
             return self._forward(args)
+        self._drop_stale(params)
         key = (tuple(_leaf_key(x) + ((x.data.requires_grad,)
                                      if isinstance(x, NDArray) else ())
                      for x in leaves),
@@ -301,7 +344,9 @@ class CachedOp:
             return rebuild_out([NDArray(o) for o in outs])
         prog = next((p for p in progs if not p.busy), None)
         if prog is None:
-            prog = _TrainProgram(self, leaves, rebuild, params, device)
+            if len(progs) >= MAX_TRAIN_PROGRAMS:
+                return self._forward(args)
+            prog = _TrainProgram(self, leaves, rebuild, param_nds, device)
             progs.append(prog)
         return prog(leaves, params)
 

@@ -805,6 +805,22 @@ class _StandInGraph:
         return self.outputs
 
 
+def _stand_in_capture(monkeypatch):
+    """`CachedOp` captures on the CPU, through `_StandInGraph`."""
+    from mxnet_tpu_torch import cached_op
+    monkeypatch.setattr(cached_op, "_captures", lambda device: True)
+    monkeypatch.setattr(cached_op, "CapturedGraph", _StandInGraph)
+    monkeypatch.setattr(cached_op, "warm_up", lambda fn, device: fn())
+    monkeypatch.setattr(cached_op.torch.cuda, "graph_pool_handle",
+                        lambda: None)
+
+
+def _keep_moving_stats(monkeypatch, net):
+    monkeypatch.setattr(_StandInGraph, "kept", [
+        p.data().data for p in net.collect_params().values()
+        if p.grad_req == "null"])
+
+
 def test_training_capture_replays_one_tape_node(monkeypatch):
     """The recorded train-mode path of `CachedOp` with a stand-in for the
     CUDA graph (the card alone captures): the first call runs eagerly, the
@@ -812,12 +828,7 @@ def test_training_capture_replays_one_tape_node(monkeypatch):
     gradients and BatchNorm's statistics equal the imperative net's over
     three steps.  A call while an earlier one's backward is pending takes
     a program of its own; a backward after its program ran again raises."""
-    from mxnet_tpu_torch import cached_op
-    monkeypatch.setattr(cached_op, "_captures", lambda device: True)
-    monkeypatch.setattr(cached_op, "CapturedGraph", _StandInGraph)
-    monkeypatch.setattr(cached_op, "warm_up", lambda fn, device: fn())
-    monkeypatch.setattr(cached_op.torch.cuda, "graph_pool_handle",
-                        lambda: None)
+    _stand_in_capture(monkeypatch)
     rng = np.random.RandomState(13)
     xs = [rng.randn(4, 2, 5, 5).astype(np.float32) for _ in range(3)]
     ys = [rng.randint(0, 3, 4).astype(np.float32) for _ in range(3)]
@@ -829,9 +840,7 @@ def test_training_capture_replays_one_tape_node(monkeypatch):
         _set(tx, net, _values(net.collect_params(), 12))
         if hybrid:
             net.hybridize()
-            monkeypatch.setattr(_StandInGraph, "kept", [
-                p.data().data for p in net.collect_params().values()
-                if p.grad_req == "null"])
+            _keep_moving_stats(monkeypatch, net)
         trainer = tx.gluon.Trainer(net.collect_params(), "sgd",
                                    {"learning_rate": 0.1})
         loss_fn = tx.gluon.loss.SoftmaxCrossEntropyLoss()
@@ -864,3 +873,91 @@ def test_training_capture_replays_one_tape_node(monkeypatch):
     assert net._cached_op.num_train_programs == 2
     with pytest.raises(tx.MXNetError, match="run again"):
         held.backward()
+
+
+def test_captured_call_refuses_create_graph(monkeypatch):
+    """A ``create_graph`` gradient through a captured training call raises
+    (the captured backward is not differentiable; the JAX package raises
+    for its CachedOp node), while the same net's eager first call and the
+    imperative net give second-order gradients."""
+    _stand_in_capture(monkeypatch)
+    x = _arr(tx, np.random.RandomState(5).randn(4, 2, 5, 5)
+             .astype(np.float32))
+    penalties = []
+    for hybrid in (False, True):
+        net = _conv_bn_net(tx)
+        _init(tx, net)
+        net(x)
+        _set(tx, net, _values(net.collect_params(), 12))
+        if hybrid:
+            net.hybridize()
+            _keep_moving_stats(monkeypatch, net)
+        w = net[0].weight.data()
+        with tx.autograd.record():
+            out = net(x)
+            g, = tx.autograd.grad((out * out).sum(), [w], create_graph=True)
+            penalty = (g * g).sum()
+        penalty.backward()
+        penalties.append(net[0].weight.grad().asnumpy())
+    np.testing.assert_allclose(penalties[1], penalties[0], rtol=1e-6,
+                               atol=1e-7)
+    assert np.abs(penalties[1]).max() > 0
+    for _ in range(2):
+        with tx.autograd.record():
+            out = net(x)
+            loss = (out * out).sum()
+            assert net._cached_op.num_train_programs == 1
+            with pytest.raises(tx.MXNetError, match="higher-order"):
+                tx.autograd.grad(loss, [w], create_graph=True)
+        del out, loss
+    with tx.autograd.record():
+        net(x).sum().backward()
+
+
+def test_training_programs_bounded_and_dropped_with_their_parameters(
+        monkeypatch):
+    """Calls made while earlier ones' backwards are pending capture up to
+    `MAX_TRAIN_PROGRAMS` programs per signature and run eagerly past it,
+    the gradients and moving statistics equal to the imperative net's;
+    parameters rebound to new tensors drop every program."""
+    from mxnet_tpu_torch import cached_op
+    _stand_in_capture(monkeypatch)
+    rng = np.random.RandomState(21)
+    calls = 4
+    xs = [_arr(tx, rng.randn(4, 2, 5, 5).astype(np.float32))
+          for _ in range(calls)]
+    runs = {}
+    for hybrid in (False, True):
+        net = _conv_bn_net(tx)
+        _init(tx, net)
+        net(xs[0])
+        _set(tx, net, _values(net.collect_params(), 12))
+        if hybrid:
+            net.hybridize()
+            _keep_moving_stats(monkeypatch, net)
+        rec = []
+        for _ in range(2):
+            with tx.autograd.record():
+                outs = [net(x) for x in xs]
+                heads = [(o * o).sum() for o in outs]
+            tx.autograd.backward(heads)
+            rec += [o.asnumpy() for o in outs]
+            rec += [p.grad().asnumpy() for p in
+                    net.collect_params().values() if p.grad_req != "null"]
+        rec += [p.data().asnumpy() for p in net.collect_params().values()]
+        runs[hybrid] = (rec, net)
+    for h, i in zip(runs[True][0], runs[False][0]):
+        np.testing.assert_allclose(h, i, rtol=1e-6, atol=1e-6)
+    op = runs[True][1]._cached_op
+    assert op.num_train_programs == cached_op.MAX_TRAIN_PROGRAMS < calls
+    net = runs[True][1]
+    net(xs[0])
+    assert op.num_programs == 1
+    net.collect_params().reset_ctx(tx.cpu())
+    _keep_moving_stats(monkeypatch, net)
+    for want in (0, 1):
+        with tx.autograd.record():
+            loss = net(xs[0]).sum()
+        loss.backward()
+        assert op.num_train_programs == want
+    assert op.num_programs == 0
