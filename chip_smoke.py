@@ -129,6 +129,42 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    must give its float64 loss and gradient on the CPU within CTC_TOL;
    each way's p50 is printed.  No TPU kernel
    lies on this path either.
+10. RNN -- the rest of the RNN package, fp32 with TF32 off, weights from
+   a seed.  10a: the ``RNN`` op (cuDNN's RNN on the card) against its
+   step loop (`rnn_op.rnn_forward_plain`) on the card, every mode at 1
+   and 2 layers, one and two directions, at the LM's [60, 32, 200] and
+   [7, 3, 13]: outputs and states within LSTM_SLICE_TOL, the gradients of
+   data, parameters and states within RNN_GRAD_TOL of their largest
+   magnitudes (rnn_relu's within RNN_RELU_GRAD_TOL of their norm, since a
+   ReLU input within fp32 rounding of 0 switches in one path and not the
+   other; both paths' errors against the loop in float64 and the
+   switches are printed); with dropout 0.5 between layers and the generator
+   reseeded, the same masks as the loop; a training call (forward and
+   backward) captured as a CUDA graph must give the eager call from the
+   same seed within CAPTURE_TOL and redraw its masks at the next replay;
+   then the op's and the loop's p50, forward and forward + backward, at
+   the LM's shape, and the copies' share of one call's device time.
+   10b: the PTB LSTM LM of phase 6 as the reference's
+   ``lstm_bucketing.py`` trains it (`FusedRNNCell(200, 2 layers)`, embed
+   200, vocab 10000, batch 32, buckets 10-60, Xavier in 2.34, SGD lr
+   0.01) through ``BucketingModule.fit`` on synthetic Markov sentences
+   encoded by ``encode_sentences`` and batched by `BucketSentenceIter`,
+   RNN_EPOCHS epochs over every bucket, ``do_rnn_checkpoint`` writing
+   each epoch to a temporary directory: the perplexity must fall.  10c:
+   ``load_rnn_checkpoint`` repacks the last checkpoint into phase 6's
+   unfused graph, served by `Predictor` with all 2·T cells on K4 (2·T
+   launches a forward) at T = 60 and 10, within LSTM_SLICE_TOL of a
+   `Predictor` of the fused graph and of the module's own inference
+   forward.  Then each bucket's step p50 and tokens/s, the host metric's
+   cost, and one profiled step at T = 60 (idle share).  10d: the
+   reference's Gluon word LM (Embedding, Dropout, `gluon.rnn.LSTM` of 2
+   x 200 with dropout, Dropout, Dense; bptt 35, batch 32, SGD lr 20, the
+   gradients' norm clipped to 0.2) hybridized and trained on a synthetic
+   token stream: the loss must fall, the captured step must give the
+   eager step's loss and gradients (ZOO_LOSS_TOL, ZOO_GRAD_TOL) with the
+   generator reseeded and a replay without the reseed other masks; the
+   step is timed captured and eager in turns.  K4 is this phase's only
+   TPU kernel, in 10c.
 
 If the run nears its time limit, cut the serving phases' ``TIMED`` and
 ``LSTM_TIMED`` counts before anything of the training phase.
@@ -142,6 +178,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -156,7 +193,10 @@ from mxnet_tpu_torch.model_zoo import (BERT_BASE, PTB_LSTM,  # noqa: E402
                                        random_params)
 from mxnet_tpu_torch.gluon.model_zoo import vision  # noqa: E402
 from mxnet_tpu_torch.ndarray.ndarray import NDArray  # noqa: E402
+from mxnet_tpu_torch.graph_compile import CapturedGraph, warm_up  # noqa: E402
 from mxnet_tpu_torch.ops import cuda_build, hopper_kernels as hk  # noqa: E402
+from mxnet_tpu_torch.ops import rnn_op  # noqa: E402
+from mxnet_tpu_torch.ops.registry import Attrs  # noqa: E402
 from mxnet_tpu_torch.serialization import dumps_ndarrays  # noqa: E402
 
 SEED = 0
@@ -295,6 +335,49 @@ ZOO_IMPORT_TOL = 1e-5
 CTC_T, CTC_N, CTC_C, CTC_LABELS = 80, 32, 38, (4, 20)
 CTC_TIMED = 10
 CTC_TOL = 1e-4
+# phase 10, the RNN package.  10a: the RNN op (cuDNN's RNN) against its
+# step loop on the card, every mode at 1 and 2 layers, one and two
+# directions, at the LM's (T, N, C, H) and an odd small one.  Outputs and
+# states within LSTM_SLICE_TOL of their largest magnitude (phase 6's
+# recurrent limit); the gradients of data, parameters and states within
+# RNN_GRAD_TOL of theirs: they run back through the same T steps of fp32
+# sums taken in another order, so they get the outputs' loosened limit.
+# rnn_relu's gradients are held within RNN_RELU_GRAD_TOL of their norm,
+# their element-wise error printed beside each fp32 path's error against
+# the loop in float64 and the ReLU outputs that switched against it: a
+# ReLU input within fp32 rounding of 0 routes its gradient elsewhere.  At
+# the LM's shape, 2 layers, both directions, cuDNN switched 1 of the
+# 768,000 visible outputs, the loop none, and the op's gradients lay
+# 3.0e-3 from the loop's (and from float64) at one element and 1.7e-4 by
+# norm, while every other case agreed within 2.4e-5 (this phase on an
+# NVIDIA H100 80GB HBM3, 700 W; PERF.md).  The other modes run the same
+# cuDNN products, held element-wise, so a fault in the products' precision
+# shows there.  RNN_TIMED calls timed per way for the op's p50.
+RNN_OP_SHAPES = ((60, 32, 200, 200), (7, 3, 13, 13))
+RNN_GRAD_TOL = 1e-4
+RNN_RELU_GRAD_TOL = 1e-3
+RNN_TIMED = 20
+# 10b: the reference's example/rnn/bucketing/lstm_bucketing.py at its
+# defaults (FusedRNNCell(200, 2 layers), embed 200, vocab 10000, batch 32,
+# buckets 10-60, Xavier(factor_type='in', magnitude=2.34), Perplexity(0),
+# SGD lr 0.01, momentum 0, wd 1e-5) on synthetic Markov sentences: a
+# Zipfian successor table of RNN_SUCCESSORS next words per word, each
+# sentence's length drawn within one bucket, RNN_SENTENCES of them per
+# bucket, RNN_EPOCHS epochs; RNN_STEP_TIMED steps timed per bucket
+RNN_BUCKETS = (10, 20, 30, 40, 50, 60)
+RNN_BATCH, RNN_SENTENCES, RNN_EPOCHS = 32, 128, 3
+RNN_SUCCESSORS, RNN_ZIPF = 4, 1.1
+RNN_SGD = dict(learning_rate=0.01, momentum=0.0, wd=1e-5)
+RNN_STEP_TIMED = 10
+# 10d: the reference's example/gluon/word_language_model at its defaults:
+# Embedding(10000, 200) -> Dropout(0.2) -> LSTM(200, 2 layers, dropout
+# 0.2) -> Dropout(0.2) -> Dense(10000); bptt 35, batch 32, SGD lr 20 on
+# the loss averaged over the bptt·batch tokens, the gradients' global norm
+# clipped to 0.2 (the example's ``L / (bptt * batch_size)``,
+# ``clip_global_norm(grads, clip)``, ``trainer.step(1)``), the states
+# detached between batches
+WORD_LM = dict(vocab=10000, embed=200, hidden=200, layers=2, dropout=0.2)
+WORD_BPTT, WORD_BATCH, WORD_LR, WORD_CLIP, WORD_STEPS = 35, 32, 20.0, 0.2, 16
 
 
 def log(*parts):
@@ -2458,6 +2541,635 @@ def phase_zoo(card):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the RNN package -- the RNN op, BucketingModule training of the
+# PTB LSTM LM, its weights served back onto K4, and the Gluon word LM
+# ---------------------------------------------------------------------------
+
+def _rel_err(got, want):
+    """max |got - want| over the largest |want|."""
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def _event_p50_ms(fn, n=RNN_TIMED, warm=3):
+    """p50 of ``n`` calls of ``fn``, each timed alone by CUDA events."""
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def _rnn_case(mode, layers, bidir, shape, gen, device):
+    """Seeded inputs of one RNN op call: data, packed vector and states,
+    all requiring gradients."""
+    t, n, c, h = shape
+    d = 2 if bidir else 1
+    size = rnn_op.param_size(mode, layers, c, h, d)
+    ins = [torch.randn(t, n, c, generator=gen),
+           torch.rand(size, generator=gen) * 0.2 - 0.1,
+           0.5 * torch.randn(layers * d, n, h, generator=gen)]
+    if mode == "lstm":
+        ins.append(0.5 * torch.randn(layers * d, n, h, generator=gen))
+    return [x.to(device).requires_grad_() for x in ins]
+
+
+def _rnn_attrs(mode, layers, bidir, h, p=0.0, train=True):
+    return Attrs(mode=mode, state_size=h, num_layers=layers,
+                 bidirectional=bidir, state_outputs=True, p=p,
+                 __train=train)
+
+
+def _rnn_plain(mode, layers, bidir, h, ins, p=0.0, gen=None):
+    """The step loop on the op's inputs (its outputs in the op's order)."""
+    d = 2 if bidir else 1
+    params = rnn_op.unpack_params(ins[1], mode, layers, ins[0].shape[-1],
+                                  h, d)
+    out = rnn_op.rnn_forward_plain(
+        mode, ins[0], (ins[2], ins[3] if mode == "lstm" else None), params,
+        bidir, p, gen)
+    return [o for o in out if o is not None]
+
+
+def _norm_err(got, want):
+    """|got - want| over |want| of a list of tensors, as one vector."""
+    num = sum(float((g.double() - w.double()).square().sum())
+              for g, w in zip(got, want))
+    return (num / max(sum(float(w.double().square().sum()) for w in want),
+                      1e-300)) ** 0.5
+
+
+def _rnn_check(mode, layers, bidir, shape, gen, device):
+    """10a, one case: the registered op against the step loop on the same
+    inputs and head gradients, and both against the loop in float64.
+    Returns the outputs' and the gradients' largest element error, the
+    gradients' norm error, each fp32 path's gradient error against
+    float64 and the outputs that are zero on one side of float64 (ReLU
+    switches: rnn_relu only)."""
+    ins = _rnn_case(mode, layers, bidir, shape, gen, device)
+    attrs = _rnn_attrs(mode, layers, bidir, shape[3])
+    got = list(rnn_op._rnn(attrs, None, *ins))
+    want = _rnn_plain(mode, layers, bidir, shape[3], ins)
+    heads = [torch.randn(o.shape, generator=gen).to(device) for o in want]
+    g_got = torch.autograd.grad(got, ins, heads)
+    g_want = torch.autograd.grad(want, ins, heads)
+    ins64 = [x.detach().double().requires_grad_() for x in ins]
+    exact = _rnn_plain(mode, layers, bidir, shape[3], ins64)
+    g_exact = torch.autograd.grad(exact, ins64, [h.double() for h in heads])
+
+    def flips(out):
+        return int(((out[0] > 0) != (exact[0] > 0)).sum()) \
+            if mode == "rnn_relu" else 0
+
+    return {"out": max(_rel_err(a.detach(), b.detach())
+                       for a, b in zip(got, want)),
+            "grad": max(_rel_err(a, b) for a, b in zip(g_got, g_want)),
+            "grad_norm": _norm_err(g_got, g_want),
+            "op_grad_vs_f64": max(_rel_err(a.double(), b)
+                                  for a, b in zip(g_got, g_exact)),
+            "loop_grad_vs_f64": max(_rel_err(a.double(), b)
+                                    for a, b in zip(g_want, g_exact)),
+            "op_relu_flips": flips(got), "loop_relu_flips": flips(want)}
+
+
+def _rnn_case_ok(name, err):
+    """The outputs element-wise; the gradients element-wise, but for
+    rnn_relu by their norm (a ReLU input within fp32 rounding of 0 routes
+    a gradient elsewhere in one of the two)."""
+    if name.startswith("rnn_relu"):
+        grad_ok = err["grad_norm"] <= RNN_RELU_GRAD_TOL
+    else:
+        grad_ok = err["grad"] <= RNN_GRAD_TOL
+    return err["out"] <= LSTM_SLICE_TOL and grad_ok
+
+
+def _rnn_masks_and_capture(device):
+    """10a: dropout between layers.  With the generator reseeded, the op
+    and the step loop draw the same masks; captured as one CUDA graph
+    (forward and backward in training mode), a replay from the reseeded
+    generator gives the eager call and a replay without the reseed other
+    masks."""
+    gen = torch.Generator().manual_seed(SEED + 10)
+    t, n, c, h = RNN_OP_SHAPES[0]
+    ins = _rnn_case("lstm", 2, False, (t, n, c, h), gen, device)
+    attrs = _rnn_attrs("lstm", 2, False, h, p=0.5)
+    dgen = mt.random.generator(device)
+    # no tape here: a live one would hold the inputs' gradient
+    # accumulators on this stream, which the capture below may not reach
+    with torch.no_grad():
+        dgen.manual_seed(SEED)
+        got = rnn_op._rnn(attrs, dgen, *ins)
+        dgen.manual_seed(SEED)
+        want = _rnn_plain("lstm", 2, False, h, ins, 0.5, dgen)
+    mask_err = max(_rel_err(a, b) for a, b in zip(got, want))
+
+    def step():
+        out = rnn_op._rnn(attrs, dgen, *ins)
+        return [out[0].detach()] + list(torch.autograd.grad(
+            out[0].square().sum(), ins[:2]))
+
+    warm_up(step, device)
+    graph = CapturedGraph(step, device, dgen)
+    dgen.manual_seed(SEED + 1)
+    eager_out = step()
+    dgen.manual_seed(SEED + 1)
+    replay = [o.clone() for o in graph.replay()]
+    other = graph.replay()
+    cap_err = max(_rel_err(a, b) for a, b in zip(replay, eager_out))
+    redrawn = not torch.equal(other[0], replay[0])
+    return {"mask_err": mask_err, "capture_err": cap_err,
+            "replay_redraws": redrawn}
+
+
+def _rnn_op_profile(ins, attrs):
+    """Device time of one forward + backward of the op at the LM's shape,
+    with the copies' share (cuDNN's repack of the weight views among
+    them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def run():
+        out = rnn_op._rnn(attrs, None, *ins)
+        torch.autograd.grad(out[0].sum(), ins)
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(ms for _, ms, _ in rows)
+    copies = sum(ms for key, ms, _ in rows
+                 if "copy" in key.lower() or "memcpy" in key.lower())
+    rows.sort(key=lambda r: -r[1])
+    return {"device_ms": busy, "copy_ms": copies,
+            "copy_share": copies / busy if busy else "not measured",
+            "top": [[k[:80], ms, c] for k, ms, c in rows[:8]]}
+
+
+def rnn_op_phase(shapes=RNN_OP_SHAPES, timed=RNN_TIMED):
+    """10a: the RNN op on the card against its step loop, all modes, 1 and
+    2 layers, one and two directions, at ``shapes``; dropout masks and
+    the captured training call; then the op's and the loop's p50 at the
+    first shape (the LM's), forward and forward + backward."""
+    device = mt.gpu(0).device
+    if torch.backends.cudnn.allow_tf32 or \
+            torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 must stay off for the RNN op's parity")
+    gen = torch.Generator().manual_seed(SEED + 9)
+    cases = {}
+    for mode in ("lstm", "gru", "rnn_tanh", "rnn_relu"):
+        for layers, bidir in ((1, False), (1, True), (2, False),
+                              (2, True)):
+            for shape in shapes:
+                cases[f"{mode} L{layers} D{2 if bidir else 1} "
+                      f"{list(shape)}"] = _rnn_check(mode, layers, bidir,
+                                                     shape, gen, device)
+    worst = {k: max(c[k] for c in cases.values())
+             for k in next(iter(cases.values()))}
+    relu = {k: c for k, c in cases.items() if k.startswith("rnn_relu")}
+    worst_relu = {k: max(c[k] for c in relu.values())
+                  for k in next(iter(relu.values()))}
+    log(f"rnn: op against its step loop, {len(cases)} cases: outputs "
+        f"{worst['out']:.3e}, gradients {worst['grad']:.3e} element-wise "
+        f"and {worst['grad_norm']:.3e} by norm (limits {LSTM_SLICE_TOL}, "
+        f"{RNN_GRAD_TOL}; rnn_relu's {RNN_RELU_GRAD_TOL} by norm); "
+        f"against float64 the op's gradients "
+        f"{worst['op_grad_vs_f64']:.3e}, the loop's "
+        f"{worst['loop_grad_vs_f64']:.3e}")
+    rest = [c for k, c in cases.items() if not k.startswith("rnn_relu")]
+    log(f"rnn: lstm, gru and rnn_tanh: gradients "
+        f"{max(c['grad'] for c in rest):.3e} element-wise")
+    log(f"rnn: rnn_relu: gradients {worst_relu['grad']:.3e} element-wise, "
+        f"{worst_relu['grad_norm']:.3e} by norm; ReLU outputs switched "
+        f"against float64 {sum(c['op_relu_flips'] for c in relu.values())}"
+        f" in the op, {sum(c['loop_relu_flips'] for c in relu.values())} "
+        f"in the loop")
+    bad = {k: v for k, v in cases.items() if not _rnn_case_ok(k, v)}
+    if bad:
+        raise AssertionError(f"RNN op off its step loop: {bad}")
+    masks = _rnn_masks_and_capture(device)
+    log(f"rnn: dropout p 0.5 against the loop with the same masks "
+        f"{masks['mask_err']:.3e}; captured training call against eager "
+        f"{masks['capture_err']:.3e}, a replay redraws: "
+        f"{masks['replay_redraws']}")
+    if masks["mask_err"] > LSTM_SLICE_TOL or \
+            masks["capture_err"] > CAPTURE_TOL or \
+            not masks["replay_redraws"]:
+        raise AssertionError(f"RNN op dropout or capture: {masks}")
+    t, n, c, h = shapes[0]
+    ins = _rnn_case("lstm", 2, False, shapes[0], gen, device)
+    attrs = _rnn_attrs("lstm", 2, False, h)
+
+    def fwd(fn):
+        with torch.no_grad():
+            fn()
+
+    def fwd_bwd(fn):
+        torch.autograd.grad(fn()[0].sum(), ins)
+
+    op = lambda: rnn_op._rnn(attrs, None, *ins)  # noqa: E731
+    plain = lambda: _rnn_plain("lstm", 2, False, h, ins)  # noqa: E731
+    times = {"forward_ms": _event_p50_ms(lambda: fwd(op), timed),
+             "plain_forward_ms": _event_p50_ms(lambda: fwd(plain), timed),
+             "forward_backward_ms": _event_p50_ms(lambda: fwd_bwd(op),
+                                                  timed),
+             "plain_forward_backward_ms": _event_p50_ms(
+                 lambda: fwd_bwd(plain), timed)}
+    prof = _rnn_op_profile(ins, attrs)
+    log(f"rnn: op p50 at [{t}, {n}, {c}] H {h}, 2 layers: forward "
+        f"{times['forward_ms']:.3f} ms (loop {times['plain_forward_ms']:.3f}"
+        f"), forward + backward {times['forward_backward_ms']:.3f} ms (loop "
+        f"{times['plain_forward_backward_ms']:.3f}); copies "
+        f"{prof['copy_ms']:.4f} of {prof['device_ms']:.4f} device ms")
+    return {"cases": len(cases), "worst": worst, "worst_relu": worst_relu,
+            **masks, **times, "profile": prof}
+
+
+def _zipf_chain(vocab, seed):
+    """A Markov chain over ids 1..vocab-1: each id's RNN_SUCCESSORS next
+    ids drawn from a Zipf law over a shuffled vocabulary (as words are
+    drawn in text), and the law itself for first words."""
+    rng = np.random.RandomState(seed)
+    ids = rng.permutation(np.arange(1, vocab))
+    law = 1.0 / np.arange(1, vocab) ** RNN_ZIPF
+    law /= law.sum()
+    succ = rng.choice(ids, size=(vocab, RNN_SUCCESSORS), p=law)
+    return rng, ids, law, succ
+
+
+def _markov_sentences(vocab, buckets, per_bucket, seed):
+    """``per_bucket`` sentences whose lengths fall in each bucket, as
+    lists of word strings."""
+    rng, ids, law, succ = _zipf_chain(vocab, seed)
+    sents = []
+    lo = 1
+    for hi in buckets:
+        for _ in range(per_bucket):
+            length = int(rng.randint(lo + 1, hi + 1))
+            s = [int(rng.choice(ids, p=law))]
+            for _ in range(length - 1):
+                s.append(int(succ[s[-1], rng.randint(RNN_SUCCESSORS)]))
+            sents.append([f"w{i}" for i in s])
+        lo = hi
+    return sents
+
+
+def _markov_stream(vocab, n, seed):
+    """One stream of ``n`` token ids from the same kind of chain."""
+    rng, ids, law, succ = _zipf_chain(vocab, seed)
+    toks = [int(rng.choice(ids, p=law))]
+    picks = rng.randint(RNN_SUCCESSORS, size=n)
+    for i in range(n - 1):
+        toks.append(int(succ[toks[-1], picks[i]]))
+    return np.asarray(toks, np.float32)
+
+
+def _fused_lm(seq_len, cfg, cell, head):
+    """The LM's bucket graph over one `FusedRNNCell` (the reference
+    example's ``sym_gen``) with ``head``: 'train' ends in SoftmaxOutput
+    over the shifted labels, 'serve' in softmax."""
+    sym = mt.sym
+    embed = sym.Embedding(sym.var("data"), input_dim=cfg["vocab"],
+                          output_dim=cfg["num_embed"], name="embed")
+    cell.reset()
+    out, _ = cell.unroll(seq_len, inputs=embed, merge_outputs=True)
+    pred = sym.Reshape(out, shape=(-1, cfg["num_hidden"]))
+    pred = sym.FullyConnected(pred, num_hidden=cfg["vocab"], name="pred")
+    if head == "serve":
+        return sym.softmax(pred, axis=-1, name="softmax")
+    label = sym.Reshape(sym.var("softmax_label"), shape=(-1,))
+    return sym.SoftmaxOutput(pred, label, name="softmax")
+
+
+def _unfused_stack(cfg):
+    """Phase 6's unfused layers: the cells that `lstm_lm` unrolls."""
+    stack = mt.rnn.SequentialRNNCell()
+    for i in range(cfg["num_layers"]):
+        stack.add(mt.rnn.LSTMCell(cfg["num_hidden"], prefix=f"lstm_l{i}_"))
+    return stack
+
+
+def _bucket_batches(it):
+    """One batch of each bucket from the iterator."""
+    it.reset()
+    out = {}
+    for b in it:
+        out.setdefault(b.bucket_key, b)
+    return out
+
+
+def _step_timing(mod, batches, n):
+    """Per bucket: the training step's p50 (forward, backward and the
+    update, ending in a device synchronize), tokens/s, and the host
+    metric's p50 (the probabilities' copy to the host and the sum)."""
+    rec = {}
+    metric = mt.metric.Perplexity(0)
+    for key in sorted(batches):
+        b = batches[key]
+        times, mtimes = [], []
+        for i in range(n + 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mod.forward_backward(b)
+            mod.update()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            mod.update_metric(metric, b.label)
+            if i >= 2:
+                times.append((t1 - t0) * 1e3)
+                mtimes.append((time.perf_counter() - t1) * 1e3)
+        p50 = float(np.median(times))
+        tokens = b.data[0].shape[0] * key
+        rec[str(key)] = {"step_p50_ms": p50, "tokens_per_s":
+                         tokens / (p50 / 1e3),
+                         "metric_p50_ms": float(np.median(mtimes))}
+        log(f"rnn: bucket {key} step p50 {p50:.2f} ms, "
+            f"{tokens / (p50 / 1e3):.0f} tokens/s; host metric "
+            f"{rec[str(key)]['metric_p50_ms']:.2f} ms")
+    return rec
+
+
+def rnn_lm_training(card, cfg=None, buckets=RNN_BUCKETS, batch=RNN_BATCH,
+                    per_bucket=RNN_SENTENCES, epochs=RNN_EPOCHS,
+                    timed=RNN_STEP_TIMED):
+    """10b and 10c: the PTB LSTM LM trained through ``BucketingModule.fit``
+    over `BucketSentenceIter` batches of every bucket, checkpointed each
+    epoch by ``do_rnn_checkpoint``; then the last checkpoint served back
+    through phase 6's unfused graph onto K4 against the fused graph and
+    the module's own inference forward; then each bucket's step timed and
+    one step at the largest bucket profiled."""
+    cfg = dict(cfg or PTB_LSTM)
+    gpu = mt.gpu(0)
+    t0 = time.perf_counter()
+    sents = _markov_sentences(cfg["vocab"], buckets, per_bucket, SEED + 11)
+    coded, vocab = mt.rnn.encode_sentences(sents, invalid_label=0,
+                                           start_label=1)
+    if len(vocab) > cfg["vocab"]:
+        raise AssertionError(f"{len(vocab)} words for a vocabulary of "
+                             f"{cfg['vocab']}")
+    it = mt.rnn.BucketSentenceIter(coded, batch, buckets=list(buckets),
+                                   invalid_label=0)
+    data_s = time.perf_counter() - t0
+    cell = mt.rnn.FusedRNNCell(cfg["num_hidden"],
+                               num_layers=cfg["num_layers"], mode="lstm",
+                               prefix="lstm_")
+
+    def sym_gen(seq_len):
+        return (_fused_lm(seq_len, cfg, cell, "train"), ("data",),
+                ("softmax_label",))
+
+    mt.random.seed(SEED)
+    mod = mt.mod.BucketingModule(sym_gen,
+                                 default_bucket_key=it.default_bucket_key,
+                                 context=gpu)
+    ppl = []
+    out_dir = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as ckpt_dir:
+        prefix = os.path.join(ckpt_dir, "ptb_lstm")
+        save = mt.rnn.do_rnn_checkpoint(cell, prefix)
+        metric = mt.metric.Perplexity(0)
+
+        def epoch_end(epoch, sym, arg, aux):
+            ppl.append(metric.get()[1])
+            save(epoch, sym, arg, aux)
+
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mod.fit(it, eval_metric=metric, num_epoch=epochs,
+                optimizer="sgd", optimizer_params=dict(RNN_SGD),
+                initializer=mt.init.Xavier(factor_type="in",
+                                           magnitude=2.34),
+                epoch_end_callback=epoch_end)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t1
+        log(f"rnn: BucketingModule.fit {epochs} epochs of "
+            f"{len(it.idx)} batches in {fit_s:.1f} s; perplexity by epoch "
+            f"{ppl}; buckets {sorted(mod._buckets)}")
+        if sorted(mod._buckets) != sorted(buckets):
+            raise AssertionError(f"trained buckets {sorted(mod._buckets)},"
+                                 f" want {list(buckets)}")
+        if not (np.isfinite(ppl).all() and ppl[-1] < ppl[0]):
+            raise AssertionError(f"perplexity did not fall: {ppl}")
+        files = sorted(os.listdir(ckpt_dir))
+        if len([f for f in files if f.endswith(".params")]) != epochs:
+            raise AssertionError(f"checkpoints written: {files}")
+        batches = _bucket_batches(it)
+        served = rnn_serve_back(mod, cell, cfg, prefix, epochs, batches,
+                                (max(buckets), min(buckets)))
+    timing = _step_timing(mod, batches, timed)
+    big = batches[max(buckets)]
+
+    def train_step():
+        mod.forward_backward(big)
+        mod.update()
+
+    prof = profile_gluon(f"PTB LSTM LM training step T {max(buckets)}",
+                         train_step)
+    return {"config": cfg, "batch": batch, "buckets": list(buckets),
+            "sentences": len(coded), "batches_an_epoch": len(it.idx),
+            "data_s": data_s, "fit_s": fit_s, "perplexity": ppl,
+            "steps": timing, "profile": prof, "served_back": served}
+
+
+def _module_probs(mod, batch):
+    mod.forward(batch, is_train=False)
+    return mod.get_outputs()[0].asnumpy()
+
+
+def rnn_serve_back(mod, cell, cfg, prefix, epoch, batches, keys):
+    """10c: the last checkpoint through ``load_rnn_checkpoint`` into phase
+    6's unfused graph (`lstm_lm`), served by `Predictor` with every cell
+    on K4, against a `Predictor` of the fused graph on the packed weights
+    and the module's own inference forward, per bucket of ``keys`` (the
+    largest first); the K4 launches of the unfused Predictors' forwards
+    counted."""
+    _, unfused_args, _ = mt.rnn.load_rnn_checkpoint(_unfused_stack(cfg),
+                                                     prefix, epoch)
+    _, fused_args, _ = mt.rnn.load_rnn_checkpoint(cell, prefix, epoch)
+    blobs = {way: dumps_ndarrays({"arg:" + n: a for n, a in args.items()})
+             for way, args in (("unfused", unfused_args),
+                               ("fused", fused_args))}
+    rec = {}
+    launches = 0
+    for t in keys:
+        b = batches[t]
+        feed = {"data": b.data[0].asnumpy()}
+        shapes = {"data": feed["data"].shape}
+        with pallas_mode("auto"):
+            pred = mt.Predictor(lstm_lm(mt, t, **cfg).tojson(),
+                                blobs["unfused"], shapes)
+            rewrites, attn, lstm = _site_counts(pred)
+            if (rewrites, attn, lstm) != (2 * t, 0, 2 * t):
+                raise AssertionError(f"serve-back T {t}: {rewrites} "
+                                     f"rewrites, {lstm} LSTM sites")
+            before = hk.LAUNCHES["lstm_gates"]
+            outs, _ = _serve(pred, [feed, feed], {"lstm_gates": 2 * t})
+            launches += hk.LAUNCHES["lstm_gates"] - before
+        fused = mt.Predictor(_fused_lm(t, cfg, cell, "serve").tojson(),
+                             blobs["fused"], shapes)
+        ref, _ = _serve(fused, [feed], {"lstm_gates": 0})
+        own = _module_probs(mod, b)
+        vocab = cfg["vocab"]
+        err_fused = _check_lm_outputs(outs[:1], ref, b.data[0].shape[0], t,
+                                      vocab)
+        err_mod = _check_lm_outputs(outs[1:], [own], b.data[0].shape[0], t,
+                                    vocab)
+        rec[str(t)] = {"max_abs_diff_vs_fused": err_fused,
+                       "max_abs_diff_vs_module": err_mod}
+        log(f"rnn: served back at T {t} on K4 ({2 * t} launches a "
+            f"forward): against the fused graph {err_fused:.3e}, against "
+            f"the module's forward {err_mod:.3e} (limit {LSTM_SLICE_TOL})")
+    rec["k4_launches"] = launches
+    return rec
+
+
+class _WordLM(mt.gluon.HybridBlock):
+    """The reference's example/gluon/word_language_model model."""
+
+    def __init__(self, vocab, embed, hidden, layers, dropout, **kwargs):
+        super().__init__(**kwargs)
+        self._hidden = hidden
+        with self.name_scope():
+            self.drop = mt.gluon.nn.Dropout(dropout)
+            self.encoder = mt.gluon.nn.Embedding(
+                vocab, embed, weight_initializer=mt.init.Uniform(0.1))
+            self.rnn = mt.gluon.rnn.LSTM(hidden, layers, dropout=dropout,
+                                         input_size=embed)
+            self.decoder = mt.gluon.nn.Dense(vocab, in_units=hidden)
+
+    def hybrid_forward(self, F, inputs, hidden):
+        emb = self.drop(self.encoder(inputs))
+        output, hidden = self.rnn(emb, hidden)
+        output = self.drop(output)
+        return self.decoder(F.reshape(output, shape=(-1, self._hidden))), \
+            hidden
+
+
+def gluon_word_lm(cfg=None, bptt=WORD_BPTT, batch=WORD_BATCH,
+                  steps=WORD_STEPS):
+    """10d: the word LM hybridized and trained on a synthetic token stream
+    (SGD lr 20 on the mean loss, the gradients' norm clipped to WORD_CLIP,
+    the states detached between batches): the loss must fall; with the Dropout
+    generator reseeded the captured step must give the eager step's loss
+    and gradients, and a replay without the reseed other masks; the step
+    timed captured and eager in turns."""
+    cfg = dict(cfg or WORD_LM)
+    gpu = mt.gpu(0)
+    stream = _markov_stream(cfg["vocab"], bptt * batch * (steps + 1) + 1,
+                            SEED + 12)
+    n = (len(stream) - 1) // batch
+    src = stream[:n * batch].reshape(batch, n).T        # (n, batch)
+    tgt = stream[1:n * batch + 1].reshape(batch, n).T
+    pairs = [(mt.nd.array(src[i * bptt:(i + 1) * bptt], ctx=gpu),
+              mt.nd.array(tgt[i * bptt:(i + 1) * bptt].reshape(-1),
+                          ctx=gpu)) for i in range(n // bptt)]
+    mt.random.seed(SEED)
+    net = _WordLM(**cfg, prefix="wordlm_")
+    net.initialize(mt.init.Xavier(), ctx=gpu)
+    net.hybridize()
+    params = [p for p in net.collect_params().values()
+              if p.grad_req != "null"]
+    trainer = mt.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": WORD_LR, "momentum": 0,
+                                "wd": 0})
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    zeros = net.rnn.begin_state(batch_size=batch, ctx=gpu)
+    state = {"hidden": zeros}
+
+    def forward_backward(x, y, hidden):
+        with mt.autograd.record():
+            out, new = net(x, hidden)
+            loss = loss_fn(out, y) / (bptt * batch)
+        loss.backward()
+        return loss, new
+
+    def step(k):
+        x, y = pairs[k % len(pairs)]
+        hidden = [h.detach() for h in state["hidden"]]
+        loss, state["hidden"] = forward_backward(x, y, hidden)
+        mt.gluon.utils.clip_global_norm([p.grad() for p in params],
+                                        WORD_CLIP)
+        trainer.step(1)
+        return loss
+
+    losses = [float(step(k).sum().asscalar()) for k in range(steps)]
+    log(f"rnn: word LM losses {[round(v, 4) for v in losses]}")
+    if not (np.isfinite(losses).all() and
+            np.mean(losses[-3:]) < np.mean(losses[:3])):
+        raise AssertionError(f"word LM: the loss did not fall ({losses})")
+    if net._cached_op.num_train_programs < 1:
+        raise AssertionError("word LM: no training step was captured")
+
+    def grads_once(x, y):
+        mt.random.seed(SEED)
+        loss, _ = forward_backward(x, y, zeros)
+        return (loss.data.detach().double(),
+                [p.grad().data.detach().double() for p in params])
+
+    x, y = pairs[0]
+    cap_loss, cap_g = grads_once(x, y)
+    with mt.autograd.record():
+        again = loss_fn(net(x, zeros)[0], y).data.detach().double()
+    with eager():
+        eag_loss, eag_g = grads_once(x, y)
+        eag2_loss, eag2_g = grads_once(x, y)
+
+    check = {"loss_rel_err": _rel_err(cap_loss, eag_loss),
+             "grad_norm_rel_err": _norm_err(cap_g, eag_g),
+             "eager_vs_eager_loss_rel_err": _rel_err(eag2_loss, eag_loss),
+             "eager_vs_eager_grad_norm_rel_err": _norm_err(eag2_g, eag_g),
+             "replay_redraws": not torch.equal(again, cap_loss)}
+    log(f"rnn: word LM captured step against eager: loss "
+        f"{check['loss_rel_err']:.3e}, gradients "
+        f"{check['grad_norm_rel_err']:.3e} of their norm (eager against "
+        f"eager {check['eager_vs_eager_loss_rel_err']:.3e}, "
+        f"{check['eager_vs_eager_grad_norm_rel_err']:.3e}); a replay "
+        f"redraws: {check['replay_redraws']}")
+    if check["loss_rel_err"] > ZOO_LOSS_TOL or \
+            check["grad_norm_rel_err"] > ZOO_GRAD_TOL or \
+            not check["replay_redraws"]:
+        raise AssertionError(f"word LM captured step against eager: {check}")
+    turns = captured_and_eager(step, "word LM")
+    return {"config": cfg, "bptt": bptt, "batch": batch, "losses": losses,
+            "captured_vs_eager": check, "step_turns": turns,
+            "tokens_per_s_captured": bptt * batch /
+            (turns["captured_p50_ms"] / 1e3)}
+
+
+def phase_rnn(card):
+    """Phase 10: the RNN package on cuda:0.  Returns the K4 launches of
+    its main path (10c's unfused Predictors)."""
+    t_phase = time.perf_counter()
+    op = rnn_op_phase()
+    hk.reset_launch_counts()
+    lm = rnn_lm_training(card)
+    launches = dict(hk.LAUNCHES)
+    if launches["lstm_gates"] != lm["served_back"]["k4_launches"] or \
+            any(launches[k] for k in ATTN_KERNELS):
+        raise AssertionError(f"phase 10 launched {launches}; want only the "
+                             "served-back forwards' K4")
+    torch.cuda.empty_cache()
+    word = gluon_word_lm()
+    rec = {"phase": "rnn", "card": card, "dtype": "float32", "op": op,
+           "bucketing_lm": lm, "word_lm": word, "launches": launches,
+           "phase_s": time.perf_counter() - t_phase}
+    log(json.dumps(rec))
+    log(f"rnn: phase 10 in {rec['phase_s']:.1f} s")
+    return launches
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -2470,11 +3182,13 @@ def main():
     fit_launches = phase_fit(card)
     phase_gluon(card)
     phase_zoo(card)
+    rnn_launches = phase_rnn(card)
     leaked = [m for m in ("jax", "mxnet_tpu") if m in sys.modules]
     if leaked:
         raise SystemExit(f"chip_smoke: the port imported {leaked}")
     log(f"launches: serving {serve_launches}, training {train_launches}, "
-        f"LSTM serving {lstm_launches}, fit {fit_launches}")
+        f"LSTM serving {lstm_launches}, fit {fit_launches}, RNN "
+        f"{rnn_launches}")
     kernels = [{
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -2501,7 +3215,8 @@ def main():
         "name": "lstm_gates", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/lstm_gates.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:452",
-        "launches": lstm_launches["lstm_gates"],
+        "launches": lstm_launches["lstm_gates"] +
+        rnn_launches["lstm_gates"],
         "max_abs_err": k4["max_abs_err"], "ms": k4["ms"],
         "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
         "bound_by": k4["bound_by"], "library_ms": k4["library_ms"],

@@ -12,16 +12,19 @@ input_shapes)`` over the ops a BERT encoder and an unrolled LSTM language
 model use, with the graph optimizer's five inference passes (constant
 and BatchNorm folding, elimination, CSE, and the swaps onto the
 flash-attention forward kernel and the fused LSTM cell-update kernel);
-the legacy symbolic RNN cells (`rnn.LSTMCell`, `rnn.SequentialRNNCell`);
-and symbolic training through ``mod.Module`` (bind, init_params,
-init_optimizer, forward, backward, update, and ``fit``/``score``/
-``predict`` over `io.NDArrayIter` with `metric`, `lr_scheduler` and
+the legacy symbolic RNN package (`rnn`: every cell, the fused ``RNN``
+op's `rnn.FusedRNNCell`, its checkpoints and `rnn.BucketSentenceIter`);
+symbolic training through ``mod.Module`` and ``mod.BucketingModule``
+(bind, init_params, init_optimizer, forward, backward, update, and
+``fit``/``score``/``predict`` with `metric`, `lr_scheduler` and
 `callback`) with SGD and Adam, where attention's gradient runs on the
-flash-attention backward kernels; and the imperative path: an NDArray
-with arithmetic, slicing and gradients, `autograd` (record, backward,
-grad, Function) over torch's autograd, and `gluon` (Parameter, Block and
-HybridBlock with ``hybridize``, the `nn` layers, the losses, `Trainer`,
-`utils` and the ResNets of `model_zoo.vision`).  On the card, inference
+flash-attention backward kernels, and its checkpoints (`model`); and the
+imperative path: an NDArray with arithmetic, slicing and gradients,
+`autograd` (record, backward, grad, Function) over torch's autograd, and
+`gluon` (Parameter, Block and HybridBlock with ``hybridize``, the `nn`
+layers, the recurrent cells and layers of `gluon.rnn`, the losses,
+`Trainer`, `data`, `utils` and the vision families of
+`model_zoo.vision`).  On the card, inference
 forwards, hybridized predict-mode forwards and Module's whole training
 step run as CUDA graphs.
 """
@@ -31,7 +34,7 @@ from .context import Context, cpu, gpu
 from . import ndarray as nd
 from . import symbol as sym
 from . import random, io, initializer, optimizer, rnn  # noqa: F401
-from . import lr_scheduler, metric, callback  # noqa: F401
+from . import lr_scheduler, metric, callback, model  # noqa: F401
 from . import initializer as init
 from . import module as mod
 from .predictor import Predictor
@@ -39,5 +42,5 @@ from . import autograd, gluon  # noqa: E402
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "nd", "sym", "random",
            "io", "init", "initializer", "optimizer", "mod", "rnn",
-           "lr_scheduler", "metric", "callback", "Predictor", "autograd",
-           "gluon"]
+           "lr_scheduler", "metric", "callback", "model", "Predictor",
+           "autograd", "gluon"]

@@ -1,14 +1,16 @@
 """Training callbacks (the counterpart of `mxnet_tpu/callback.py`;
-reference `python/mxnet/callback.py`): `Speedometer`,
-`LogValidationMetricsCallback`, `log_train_metric` and `ProgressBar`.
-``do_checkpoint`` and ``module_checkpoint`` wait for checkpoints."""
+reference `python/mxnet/callback.py`): `Speedometer`, `do_checkpoint`,
+`module_checkpoint`, `LogValidationMetricsCallback`, `log_train_metric`
+and `ProgressBar`.  `module_checkpoint` takes a file prefix; the JAX
+package's `checkpoint.CheckpointManager` form waits for that module."""
 from __future__ import annotations
 
 import logging
 import sys
 import time
 
-__all__ = ["Speedometer", "log_train_metric", "ProgressBar",
+__all__ = ["Speedometer", "do_checkpoint", "log_train_metric",
+           "ProgressBar", "module_checkpoint",
            "LogValidationMetricsCallback"]
 
 
@@ -49,6 +51,30 @@ class Speedometer:
         else:
             self.init = True
             self.tic = time.time()
+
+
+def do_checkpoint(prefix, period=1):
+    """Epoch-end callback saving ``prefix-symbol.json`` and
+    ``prefix-NNNN.params`` every ``period`` epochs (reference
+    `callback.py:do_checkpoint`)."""
+    from .model import save_checkpoint
+    period = int(max(1, period))
+
+    def _callback(iter_no, sym=None, arg=None, aux=None):
+        if (iter_no + 1) % period == 0:
+            save_checkpoint(prefix, iter_no + 1, sym, arg or {}, aux or {})
+    return _callback
+
+
+def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):
+    """Epoch-end callback running ``mod.save_checkpoint(prefix, ...)``
+    every ``period`` epochs (reference `callback.py:module_checkpoint`)."""
+    period = int(max(1, period))
+
+    def _callback(iter_no, sym=None, arg=None, aux=None):
+        if (iter_no + 1) % period == 0:
+            mod.save_checkpoint(prefix, iter_no + 1, save_optimizer_states)
+    return _callback
 
 
 class LogValidationMetricsCallback:

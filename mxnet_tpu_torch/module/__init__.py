@@ -1,5 +1,6 @@
 """The symbolic training workflow (the counterpart of `mxnet_tpu/module`)."""
 from .base_module import BaseModule
+from .bucketing_module import BucketingModule
 from .module import Module
 
-__all__ = ["BaseModule", "Module"]
+__all__ = ["BaseModule", "Module", "BucketingModule"]

@@ -8,7 +8,12 @@ updates its parameters in place with the local `Updater` (one
 multi-tensor update under ``MXTPU_FUSED_STEP``, the default).
 `fused_step` runs the whole step as one program (`fused_step`), captured
 as a CUDA graph on the card.  Without a ``context`` it runs on the card.
-KVStore, monitors and checkpoints come with later slices.
+``state_names`` are inputs the module holds across batches (a recurrent
+net's carried states): zeros at bind, never trained, read and written by
+`get_states` / `set_states`.  ``save_checkpoint`` / `Module.load` write
+and read the JAX package's ``prefix-symbol.json`` + ``prefix-NNNN.params``
+(and ``.states`` for the optimizer).  KVStore and monitors come with
+later slices.
 """
 from __future__ import annotations
 
@@ -34,7 +39,7 @@ __all__ = ["Module"]
 class Module(BaseModule):
     def __init__(self, symbol, data_names=("data",),
                  label_names=("softmax_label",), logger=logging,
-                 context=None, fixed_param_names=None):
+                 context=None, fixed_param_names=None, state_names=None):
         super().__init__(logger)
         self.symbol = symbol
         self._data_names = list(data_names)
@@ -47,12 +52,17 @@ class Module(BaseModule):
         self._context = context if context is not None else \
             default_context("Module")
         self._fixed_param_names = set(fixed_param_names or [])
+        self._state_names = list(state_names or [])
         self._exec = None
         self._optimizer = None
         self._updater = None
         self._data_shapes = None
         self._label_shapes = None
         self._fused_train_step = None
+        # `Module.load`'s checkpoint, taken by bind/init_params and
+        # init_optimizer
+        self._preloaded = None
+        self._preload_states = None
 
     # ------------------------------------------------------------------
     @property
@@ -76,14 +86,18 @@ class Module(BaseModule):
         return self._label_shapes
 
     def _input_names(self):
-        return {d.name for d in self._data_shapes + self._label_shapes}
+        """Data, label and state names: the arguments that are not
+        parameters."""
+        return {d.name for d in self._data_shapes + self._label_shapes} | \
+            set(self._state_names)
 
     # ------------------------------------------------------------------
     def bind(self, data_shapes, label_shapes=None, for_training=True,
              inputs_need_grad=False, force_rebind=False, grad_req="write"):
         """Allocate the executor for these input shapes (reference
         `module.py:364` → simple_bind).  Labels and fixed parameters
-        never take gradients; data only with ``inputs_need_grad``."""
+        never take gradients, nor do states; data only with
+        ``inputs_need_grad``."""
         if self.binded and not force_rebind:
             return self
         self._data_shapes, self._label_shapes, shapes = _parse_shapes(
@@ -97,22 +111,30 @@ class Module(BaseModule):
         for name in list(self._exec._grad_req):
             if name in keep:
                 continue
-            if name in shapes or name in self._fixed_param_names:
+            if name in shapes or name in self._fixed_param_names or \
+                    name in self._state_names:
                 self._exec._grad_req[name] = "null"
                 self._exec.grad_dict.pop(name, None)
         self.binded = True
         self.for_training = for_training
+        if not self.params_initialized and self._preloaded is not None:
+            # `Module.load` leaves the parameters ready, as the
+            # reference's does: load -> bind -> forward
+            self.init_params()
         return self
 
     def init_params(self, initializer=None, arg_params=None, aux_params=None,
                     allow_missing=False, force_init=False, allow_extra=False):
-        """Fill every parameter (each argument that is not an input): from
-        ``arg_params`` where it names one, else by ``initializer``
-        (`Uniform(0.01)` when neither is given)."""
+        """Fill every parameter (each argument that is not an input), in
+        place: from ``arg_params`` where it names one, else by
+        ``initializer`` (`Uniform(0.01)` when neither is given).  After
+        `Module.load` the checkpoint's parameters are the default."""
         if self.params_initialized and not force_init:
             return
         if not self.binded:
             raise MXNetError("call bind before init_params")
+        if arg_params is None and self._preloaded is not None:
+            arg_params, aux_params = self._preloaded
         if initializer is None and not (arg_params or aux_params):
             initializer = init_mod.Uniform(0.01)
         inputs = self._input_names()
@@ -177,6 +199,9 @@ class Module(BaseModule):
             optimizer.set_wd_mult(optimizer._args_wd_mult)
         self._optimizer = optimizer
         self._updater = opt_mod.get_updater(optimizer)
+        if self._preload_states:
+            self.load_optimizer_states(self._preload_states)
+            self._preload_states = None
         self.optimizer_initialized = True
 
     # ------------------------------------------------------------------
@@ -236,7 +261,7 @@ class Module(BaseModule):
         if data_batch.label is None and self._label_shapes:
             return False
         feeds = self._batch_feeds(data_batch)
-        if set(feeds) != inputs:
+        if set(feeds) != inputs - set(self._state_names):
             return False
         fst = self._fused_train_step
         if (fst is None or fst._exec is not self._exec
@@ -286,6 +311,75 @@ class Module(BaseModule):
         aux = {n: NDArray(a.data.detach().clone())
                for n, a in self._exec.aux_dict.items()}
         return arg, aux
+
+    # -- states held across batches (reference `module.py:get_states`) ----
+    def get_states(self, merge_multi_context=True):
+        """Copies of the state arrays, one per ``state_names`` entry, so a
+        later `set_states` cannot change a saved snapshot."""
+        if not (self.binded and self.params_initialized):
+            raise MXNetError("call bind and init_params before get_states")
+        states = [NDArray(self._exec.arg_dict[n].data.detach().clone())
+                  for n in self._state_names]
+        return states if merge_multi_context else [[s] for s in states]
+
+    def set_states(self, states=None, value=None):
+        """Write the states in place, from arrays (`get_states`' merged or
+        per-device form) or one scalar ``value``."""
+        if not (self.binded and self.params_initialized):
+            raise MXNetError("call bind and init_params before set_states")
+        if (states is None) == (value is None):
+            raise MXNetError("set_states: give exactly one of states and "
+                             "value")
+        with torch.no_grad():
+            if value is not None:
+                for name in self._state_names:
+                    self._exec.arg_dict[name].data.fill_(float(value))
+                return
+            if len(states) != len(self._state_names):
+                raise MXNetError(f"set_states: {len(states)} states for "
+                                 f"{len(self._state_names)} state_names")
+            for name, src in zip(self._state_names, states):
+                if isinstance(src, (list, tuple)):
+                    src = src[0]
+                self._exec.arg_dict[name].data.copy_(_tensor(src))
+
+    # -- checkpoints (reference `module.py:save_checkpoint`) ---------------
+    def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
+        """``prefix-symbol.json`` and ``prefix-NNNN.params``, and with
+        ``save_optimizer_states`` the updater's ``prefix-NNNN.states``."""
+        from ..model import save_checkpoint
+        arg, aux = self.get_params()
+        save_checkpoint(prefix, epoch, self.symbol, arg, aux)
+        if save_optimizer_states:
+            self.save_optimizer_states(f"{prefix}-{epoch:04d}.states")
+
+    @staticmethod
+    def load(prefix, epoch, load_optimizer_states=False, **kwargs):
+        """A Module of a checkpoint's symbol whose bind or init_params
+        takes the checkpoint's parameters, and whose init_optimizer the
+        ``.states`` with ``load_optimizer_states``; ``kwargs`` go to the
+        constructor."""
+        from ..model import load_checkpoint
+        sym, arg, aux = load_checkpoint(prefix, epoch)
+        mod = Module(sym, **kwargs)
+        mod._preloaded = (arg, aux)
+        mod._preload_states = (f"{prefix}-{epoch:04d}.states"
+                               if load_optimizer_states else None)
+        return mod
+
+    def save_optimizer_states(self, fname):
+        from ..serialization import atomic_write
+        if self._updater is None:
+            raise MXNetError("call init_optimizer before "
+                             "save_optimizer_states")
+        atomic_write(fname, self._updater.get_states(), checksum=True)
+
+    def load_optimizer_states(self, fname):
+        from ..serialization import read_payload
+        if self._updater is None:
+            raise MXNetError("call init_optimizer before "
+                             "load_optimizer_states")
+        self._updater.set_states(read_payload(fname))
 
 
 def _parse_shapes(data_shapes, label_shapes):

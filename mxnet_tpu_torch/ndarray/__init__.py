@@ -6,5 +6,12 @@ from .register import invoke, make_nd_functions
 
 make_nd_functions(globals())
 
+
+def concat_nd(arrays, axis=0):
+    """``Concat`` of a list of NDArrays along ``axis`` (the JAX package's
+    `ndarray.concat_nd`)."""
+    return invoke("Concat", *arrays, dim=axis, num_args=len(arrays))
+
+
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
-           "waitall", "invoke"]
+           "waitall", "invoke", "concat_nd"]

@@ -2,8 +2,9 @@
 `mxnet_tpu/ops/matrix.py`): batch_dot, transpose, swapaxes, reshape,
 Flatten, Pad, where, zeros_like/ones_like, Embedding, the sequence
 plumbing of the unrolled RNN cells (SliceChannel/split, slice_axis,
-Concat and expand_dims), and the zero-input constructors ``_zeros``, ``_ones``, ``_full``, ``_arange`` and
-``_eye`` that the ``fold_const`` pass folds.
+Concat, stack, squeeze and expand_dims), and the zero-input
+constructors ``_zeros``, ``_ones``, ``_full``, ``_arange`` and ``_eye``
+that the ``fold_const`` pass folds.
 
 A constructor has no input to take a device from: the executor hands it
 the device its graph runs on as the ``__device`` attr (`registry.DEVICE`),
@@ -183,6 +184,24 @@ def _concat(attrs, *xs):
 
 
 alias("Concat", "concat")
+
+
+@register("stack", num_inputs=None)
+def _stack(attrs, *xs):
+    return torch.stack(xs, dim=attrs.get_int("axis", 0))
+
+
+@register("squeeze", num_inputs=1, input_names=["data"],
+          attr_names=["axis"])
+def _squeeze(attrs, x):
+    ax = attrs.get_attr("axis", None)
+    if ax is None:
+        return x.squeeze()
+    axes = ax if isinstance(ax, tuple) else (ax,)
+    for a in axes:
+        if x.shape[a] != 1:
+            raise ValueError(f"squeeze: axis {a} has size {x.shape[a]}")
+    return x.squeeze(tuple(a % x.dim() for a in axes))
 
 
 @register("SliceChannel", num_inputs=1, input_names=["data"],

@@ -1,9 +1,10 @@
 """Neural-network ops (the counterparts of `mxnet_tpu/ops/nn.py`):
 FullyConnected, Convolution, Deconvolution, Pooling, Activation,
-LeakyReLU, softmax, log_softmax, LayerNorm, InstanceNorm, BatchNorm,
-Dropout and SoftmaxOutput, as plain PyTorch functions whose gradients are
-autograd's own, except SoftmaxOutput's, which is the op's defined
-gradient.
+LeakyReLU, softmax (with its ``length`` input), softmin, log_softmax,
+LayerNorm, InstanceNorm, BatchNorm, Dropout, SequenceMask, SequenceLast,
+SequenceReverse and SoftmaxOutput, as plain PyTorch functions whose
+gradients are autograd's own, except SoftmaxOutput's, which is the op's
+defined gradient.
 
 The large products and the convolutions go to
 `torch.nn.functional.linear` and ``conv*d`` (cuDNN on the card), as the
@@ -297,12 +298,24 @@ def _leaky_relu(attrs, generator, x, gamma=None):
     raise ValueError(f"unknown act_type {act}")
 
 
-@register("softmax", num_inputs=1, input_names=["data"])
-def _softmax(attrs, x):
+@register("softmax", num_inputs=None, input_names=["data", "length"])
+def _softmax(attrs, x, length=None):
+    """Reference `softmax` (`softmax-inl.h`); with ``length`` (data's shape
+    without the softmax axis) the lanes past each length are masked and
+    output exactly 0."""
+    ax = attrs.get_int("axis", -1)
     t = attrs.get_attr("temperature", None)
     if t not in (None, "None"):
         x = x / float(t)
-    return torch.softmax(x, dim=attrs.get_int("axis", -1))
+    if length is None:
+        return torch.softmax(x, dim=ax)
+    axp = ax % x.dim()
+    pos = torch.arange(x.shape[axp], device=x.device).reshape(
+        [-1 if i == axp else 1 for i in range(x.dim())])
+    mask = pos < length.to(torch.int32).unsqueeze(axp)
+    out = torch.softmax(x.masked_fill(~mask, float("-inf")), dim=ax)
+    return torch.where(mask, out, torch.zeros((), dtype=out.dtype,
+                                              device=out.device))
 
 
 @register("log_softmax", num_inputs=1, input_names=["data"])
@@ -311,6 +324,11 @@ def _log_softmax(attrs, x):
     if t not in (None, "None"):
         x = x / float(t)
     return torch.log_softmax(x, dim=attrs.get_int("axis", -1))
+
+
+@register("softmin", num_inputs=1, input_names=["data"])
+def _softmin(attrs, x):
+    return torch.softmax(-x, dim=attrs.get_int("axis", -1))
 
 
 @register("LayerNorm", num_inputs=3, input_names=["data", "gamma", "beta"],
@@ -417,6 +435,66 @@ def _dropout(attrs, generator, data):
         1.0 - p, generator=generator)
     return torch.where(keep.bool(), data / (1.0 - p),
                        torch.zeros((), dtype=data.dtype, device=data.device))
+
+
+# ---------------------------------------------------------------------------
+# sequence ops (reference src/operator/sequence_{mask,last,reverse}.cc):
+# data is (T, N, ...) with ``axis`` 0, or (N, T, ...) with ``axis`` 1
+# ---------------------------------------------------------------------------
+
+def _lengths(sequence_length, like):
+    """The per-sample lengths as int64 indices on ``like``'s device."""
+    return sequence_length.to(device=like.device, dtype=torch.int64)
+
+
+@register("SequenceMask", num_inputs=None,
+          input_names=["data", "sequence_length"])
+def _sequence_mask(attrs, data, sequence_length=None):
+    """Positions at or past each sample's length set to ``value``."""
+    if not attrs.get_bool("use_sequence_length", False) \
+            or sequence_length is None:
+        return data
+    ax = attrs.get_int("axis", 0)
+    pos = torch.arange(data.shape[ax], device=data.device)
+    lens = _lengths(sequence_length, data)
+    mask = pos[:, None] < lens[None, :] if ax == 0 else \
+        pos[None, :] < lens[:, None]
+    mask = mask.reshape(mask.shape + (1,) * (data.dim() - 2))
+    return torch.where(mask, data, torch.full(
+        (), attrs.get_float("value", 0.0), dtype=data.dtype,
+        device=data.device))
+
+
+@register("SequenceLast", num_inputs=None,
+          input_names=["data", "sequence_length"])
+def _sequence_last(attrs, data, sequence_length=None):
+    """Each sample's last valid step."""
+    ax = attrs.get_int("axis", 0)
+    if not attrs.get_bool("use_sequence_length", False) \
+            or sequence_length is None:
+        return data.select(ax, data.shape[ax] - 1)
+    idx = _lengths(sequence_length, data) - 1
+    shape = ((1, -1) if ax == 0 else (-1, 1)) + (1,) * (data.dim() - 2)
+    idx = idx.reshape(shape).expand(
+        *((1,) + data.shape[1:] if ax == 0
+          else (data.shape[0], 1) + data.shape[2:]))
+    return torch.gather(data, ax, idx).squeeze(ax)
+
+
+@register("SequenceReverse", num_inputs=None,
+          input_names=["data", "sequence_length"])
+def _sequence_reverse(attrs, data, sequence_length=None):
+    """The first ``length`` steps of each sample reversed along axis 0,
+    the padding after them left in place."""
+    if not attrs.get_bool("use_sequence_length", False) \
+            or sequence_length is None:
+        return torch.flip(data, (0,))
+    lens = _lengths(sequence_length, data)[None, :]
+    pos = torch.arange(data.shape[0], device=data.device)[:, None]
+    src = torch.where(pos < lens, lens - 1 - pos, pos)
+    src = src.reshape(src.shape + (1,) * (data.dim() - 2)).expand(
+        data.shape)
+    return torch.gather(data, 0, src)
 
 
 # ---------------------------------------------------------------------------

@@ -1,29 +1,44 @@
 """Legacy symbolic RNN cells (the counterpart of
 `mxnet_tpu/rnn/rnn_cell.py`; reference `python/mxnet/rnn/rnn_cell.py`):
-cells compose `Symbol` graphs that `Predictor` serves and `Module` trains,
-the pre-Gluon recurrent workflow of the reference's `example/rnn/`.
+cells compose `Symbol` graphs that `Predictor` serves and `Module` /
+`BucketingModule` train, the pre-Gluon recurrent workflow of the
+reference's `example/rnn/`.
 
-Ported: `RNNParams`, `BaseRNNCell` (``begin_state``, the batch-shaped
-symbolic zero states, ``unroll``), `LSTMCell` and `SequentialRNNCell`,
-which build the same graph, node for node and name for name, as the JAX
-package's.  As there, ``unroll(begin_state=None)`` derives the zero states
-from the first input (``slice_axis(x, -1, 0, 1) * 0`` broadcast to the
-state width) rather than ``sym.zeros((0, H))``: shape inference has no
-"0 = unknown dim" convention.
+Every cell of the JAX package is here and builds the same graph, node for
+node and name for name: `RNNCell`, `LSTMCell`, `GRUCell`,
+`FusedRNNCell`, `SequentialRNNCell`, `DropoutCell`, `ModifierCell`,
+`ZoneoutCell`, `ResidualCell` and `BidirectionalCell`.  As there,
+``unroll(begin_state=None)`` derives the zero states from the first input
+(``slice_axis(x, -1, 0, 1) * 0`` broadcast to the state width) rather
+than ``sym.zeros((0, H))``: shape inference has no "0 = unknown dim"
+convention.
 
 `LSTMCell` emits the unfused cell (``SliceChannel(gates, 4)``, σ/σ/tanh/σ,
 ``f·c + i·g``, ``o·tanh(c')``), which `graph_opt`'s ``pallas_select``
-rewrites onto the fused cell-update kernel at inference.
+rewrites onto the fused cell-update kernel at inference.  `FusedRNNCell`
+emits one ``RNN`` op for the whole sequence (`ops/rnn_op.py`) over one
+packed parameter vector; `unpack_weights` / `pack_weights` convert it to
+and from the unfused cells' ``<prefix>{l,r}<layer>_{i2h,h2h}_{weight,
+bias}``, so a checkpoint of either loads into the other, and `unfuse`
+builds the equivalent stack of unfused cells.
 """
 from __future__ import annotations
 
 from typing import Dict, List
 
+import numpy as np
+import torch
+
 from .. import symbol as sym_mod
 from ..base import MXNetError
+from ..ndarray.ndarray import NDArray
+from ..ops.rnn_op import _GATES as _FUSED_GATES
 from ..symbol.symbol import Symbol, var
 
-__all__ = ["RNNParams", "BaseRNNCell", "LSTMCell", "SequentialRNNCell"]
+__all__ = ["RNNParams", "BaseRNNCell", "RNNCell", "LSTMCell", "GRUCell",
+           "FusedRNNCell", "SequentialRNNCell", "DropoutCell",
+           "ModifierCell", "ZoneoutCell", "ResidualCell",
+           "BidirectionalCell"]
 
 
 class RNNParams:
@@ -164,6 +179,44 @@ class BaseRNNCell:
         return outputs, states
 
 
+class RNNCell(BaseRNNCell):
+    """Vanilla RNN: h' = act(W_i x + b_i + W_h h + b_h) (reference
+    `rnn_cell.py:RNNCell`)."""
+
+    def __init__(self, num_hidden, activation="tanh", prefix="rnn_",
+                 params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._num_hidden = num_hidden
+        self._activation = activation
+        self._iW = self.params.get("i2h_weight")
+        self._iB = self.params.get("i2h_bias")
+        self._hW = self.params.get("h2h_weight")
+        self._hB = self.params.get("h2h_bias")
+
+    @property
+    def state_info(self):
+        return [{"shape": (0, self._num_hidden), "__layout__": "NC"}]
+
+    @property
+    def _gate_names(self):
+        return ("",)
+
+    def __call__(self, inputs, states):
+        self._counter += 1
+        name = f"{self._prefix}t{self._counter}_"
+        i2h = sym_mod.FullyConnected(inputs, weight=self._iW,
+                                     bias=self._iB,
+                                     num_hidden=self._num_hidden,
+                                     name=f"{name}i2h")
+        h2h = sym_mod.FullyConnected(states[0], weight=self._hW,
+                                     bias=self._hB,
+                                     num_hidden=self._num_hidden,
+                                     name=f"{name}h2h")
+        output = sym_mod.Activation(i2h + h2h, act_type=self._activation,
+                                    name=f"{name}out")
+        return output, [output]
+
+
 class LSTMCell(BaseRNNCell):
     """LSTM, gate order [i, f, g, o] (reference `rnn_cell.py:LSTMCell`).
     ``forget_bias`` is kept for the reference's signature; as in the JAX
@@ -210,6 +263,231 @@ class LSTMCell(BaseRNNCell):
         next_c = forget_gate * states[1] + in_gate * in_transform
         next_h = out_gate * sym_mod.Activation(next_c, act_type="tanh")
         return next_h, [next_h, next_c]
+
+
+class GRUCell(BaseRNNCell):
+    """GRU, gate order [r, z, n] (reference `rnn_cell.py:GRUCell`)."""
+
+    def __init__(self, num_hidden, prefix="gru_", params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._num_hidden = num_hidden
+        self._iW = self.params.get("i2h_weight")
+        self._iB = self.params.get("i2h_bias")
+        self._hW = self.params.get("h2h_weight")
+        self._hB = self.params.get("h2h_bias")
+
+    @property
+    def state_info(self):
+        return [{"shape": (0, self._num_hidden), "__layout__": "NC"}]
+
+    @property
+    def _gate_names(self):
+        return ("_r", "_z", "_o")
+
+    def __call__(self, inputs, states):
+        self._counter += 1
+        name = f"{self._prefix}t{self._counter}_"
+        i2h = sym_mod.FullyConnected(inputs, weight=self._iW,
+                                     bias=self._iB,
+                                     num_hidden=3 * self._num_hidden,
+                                     name=f"{name}i2h")
+        h2h = sym_mod.FullyConnected(states[0], weight=self._hW,
+                                     bias=self._hB,
+                                     num_hidden=3 * self._num_hidden,
+                                     name=f"{name}h2h")
+        ig = sym_mod.SliceChannel(i2h, num_outputs=3)
+        hg = sym_mod.SliceChannel(h2h, num_outputs=3)
+        reset = sym_mod.Activation(ig[0] + hg[0], act_type="sigmoid")
+        update = sym_mod.Activation(ig[1] + hg[1], act_type="sigmoid")
+        next_h_tmp = sym_mod.Activation(ig[2] + reset * hg[2],
+                                        act_type="tanh")
+        next_h = (sym_mod.ones_like(update) - update) * next_h_tmp \
+            + update * states[0]
+        return next_h, [next_h]
+
+
+def _host_or_tensor(v) -> torch.Tensor:
+    """An NDArray's tensor, or an array-like as a CPU tensor."""
+    if isinstance(v, NDArray):
+        return v.data
+    if isinstance(v, torch.Tensor):
+        return v
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(v)))
+
+
+class FusedRNNCell(BaseRNNCell):
+    """The whole sequence through the ``RNN`` op (reference
+    `rnn_cell.py:FusedRNNCell`, which wraps cuDNN): `unroll` emits one op
+    for the sequence, the weights one packed vector
+    ``<prefix>parameters`` (layout in `ops/rnn_op.py`)."""
+
+    def __init__(self, num_hidden, num_layers=1, mode="lstm",
+                 bidirectional=False, dropout=0.0, get_next_state=False,
+                 prefix=None, params=None):
+        if mode not in _FUSED_GATES:
+            raise MXNetError(f"unknown mode {mode!r}")
+        if prefix is None:
+            prefix = f"{mode}_"
+        super().__init__(prefix=prefix, params=params)
+        self._num_hidden = num_hidden
+        self._num_layers = num_layers
+        self._mode = mode
+        self._bidirectional = bidirectional
+        self._dropout = dropout
+        self._get_next_state = get_next_state
+        self._param = self.params.get("parameters")
+
+    @property
+    def _num_directions(self):
+        return 2 if self._bidirectional else 1
+
+    @property
+    def state_info(self):
+        b = self._num_layers * self._num_directions
+        info = [{"shape": (b, 0, self._num_hidden), "__layout__": "LNC"}]
+        if self._mode == "lstm":
+            info.append({"shape": (b, 0, self._num_hidden),
+                         "__layout__": "LNC"})
+        return info
+
+    @property
+    def _gate_names(self):
+        return {"rnn_relu": ("",), "rnn_tanh": ("",),
+                "lstm": ("_i", "_f", "_c", "_o"),
+                "gru": ("_r", "_z", "_o")}[self._mode]
+
+    def _slice_weights(self, arr, input_size):
+        """The packed vector split into the unfused cells' i2h/h2h weights
+        and biases, by name (views of ``arr``)."""
+        args = {}
+        gates = _FUSED_GATES[self._mode]
+        h, d = self._num_hidden, self._num_directions
+        dirs = ["l", "r"][:d]
+        pos = 0
+        for layer in range(self._num_layers):
+            in_sz = input_size if layer == 0 else h * d
+            for dname in dirs:
+                for kind, cols in (("i2h", in_sz), ("h2h", h)):
+                    n = gates * h * cols
+                    name = f"{self._prefix}{dname}{layer}_{kind}_weight"
+                    args[name] = arr[pos:pos + n].reshape(gates * h, cols)
+                    pos += n
+        for layer in range(self._num_layers):
+            for dname in dirs:
+                for kind in ("i2h", "h2h"):
+                    n = gates * h
+                    args[f"{self._prefix}{dname}{layer}_{kind}_bias"] = \
+                        arr[pos:pos + n]
+                    pos += n
+        if pos != arr.numel():
+            raise MXNetError(
+                f"packed parameter size {arr.numel()} inconsistent with "
+                f"cell config (expected {pos})")
+        return args
+
+    def unpack_weights(self, args):
+        """``args`` with ``<prefix>parameters`` replaced by the unfused
+        cells' weights and biases (reference `unpack_weights`); each
+        array stays on the packed vector's device."""
+        args = dict(args)
+        data = _host_or_tensor(args.pop(self._prefix + "parameters"))
+        gates = _FUSED_GATES[self._mode]
+        h, d = self._num_hidden, self._num_directions
+        # the input width from the total size: the sum over layers of
+        # d·gates·h·(in_l + h), plus 2·gates·h·L·d biases
+        rest = data.numel() - 2 * gates * h * self._num_layers * d
+        later = (self._num_layers - 1) * d * gates * h * (h * d + h)
+        input_size = (rest - later) // (d * gates * h) - h
+        for k, v in self._slice_weights(data, input_size).items():
+            args[k] = NDArray(v.detach().clone())
+        return args
+
+    def pack_weights(self, args):
+        """The inverse of `unpack_weights`."""
+        args = dict(args)
+        dirs = ["l", "r"][:self._num_directions]
+        chunks = []
+        for group in ("weight", "bias"):
+            for layer in range(self._num_layers):
+                for dname in dirs:
+                    for kind in ("i2h", "h2h"):
+                        v = args.pop(f"{self._prefix}{dname}{layer}_{kind}_"
+                                     f"{group}")
+                        chunks.append(_host_or_tensor(v).reshape(-1))
+        args[self._prefix + "parameters"] = NDArray(
+            torch.cat([c.to(chunks[0].device) for c in chunks]))
+        return args
+
+    def __call__(self, inputs, states):
+        raise MXNetError("FusedRNNCell cannot step; call unroll()")
+
+    def unroll(self, length, inputs, begin_state=None, layout="NTC",
+               merge_outputs=None):
+        """One ``RNN`` op over the sequence (it takes (T, N, C): an NTC
+        input is swapped in and its output swapped back)."""
+        self.reset()
+        if isinstance(inputs, (list, tuple)):
+            inputs, _ = _normalize_sequence(length, inputs, layout, True)
+        if layout == "NTC":
+            inputs = sym_mod.swapaxes(inputs, dim1=0, dim2=1)
+        if begin_state is None:
+            b = self._num_layers * self._num_directions
+            zrow = sym_mod.slice_axis(inputs, axis=-1, begin=0,
+                                      end=1) * 0.0      # (T, N, 1)
+            zrow = sym_mod.slice_axis(zrow, axis=0, begin=0, end=1)
+            base = sym_mod.broadcast_axis(zrow, axis=2,
+                                          size=self._num_hidden)
+            h0 = sym_mod.broadcast_axis(base, axis=0, size=b)
+            states = [h0, h0] if self._mode == "lstm" else [h0]
+        else:
+            states = list(begin_state)
+        out = sym_mod.RNN(inputs, self._param, *states,
+                          state_size=self._num_hidden,
+                          num_layers=self._num_layers, mode=self._mode,
+                          bidirectional=self._bidirectional,
+                          p=self._dropout,
+                          state_outputs=self._get_next_state,
+                          name=f"{self._prefix}rnn")
+        n = len(out.list_outputs())
+        if self._get_next_state:
+            outputs = out[0]
+            next_states = [out[i] for i in range(1, n)]
+        else:
+            outputs = out[0] if n > 1 else out
+            next_states = []
+        if layout == "NTC":
+            outputs = sym_mod.swapaxes(outputs, dim1=0, dim2=1)
+        if merge_outputs is False:
+            outputs = list(sym_mod.split(outputs, num_outputs=length,
+                                         axis=layout.find("T"),
+                                         squeeze_axis=True))
+        return outputs, next_states
+
+    def unfuse(self):
+        """The equivalent stack of unfused cells (reference
+        `FusedRNNCell.unfuse`), named as `unpack_weights` names the
+        weights."""
+        stack = SequentialRNNCell()
+        make = {
+            "rnn_relu": lambda p: RNNCell(self._num_hidden,
+                                          activation="relu", prefix=p),
+            "rnn_tanh": lambda p: RNNCell(self._num_hidden,
+                                          activation="tanh", prefix=p),
+            "lstm": lambda p: LSTMCell(self._num_hidden, prefix=p),
+            "gru": lambda p: GRUCell(self._num_hidden, prefix=p),
+        }[self._mode]
+        for i in range(self._num_layers):
+            if self._bidirectional:
+                stack.add(BidirectionalCell(
+                    make(f"{self._prefix}l{i}_"),
+                    make(f"{self._prefix}r{i}_"),
+                    output_prefix=f"{self._prefix}bi_l{i}_"))
+            else:
+                stack.add(make(f"{self._prefix}l{i}_"))
+            if self._dropout > 0 and i != self._num_layers - 1:
+                stack.add(DropoutCell(self._dropout,
+                                      prefix=f"{self._prefix}_dropout{i}_"))
+        return stack
 
 
 class SequentialRNNCell(BaseRNNCell):
@@ -276,3 +554,175 @@ class SequentialRNNCell(BaseRNNCell):
                 layout=layout, merge_outputs=merge)
             next_states.extend(states)
         return inputs, next_states
+
+
+class DropoutCell(BaseRNNCell):
+    """Dropout on the outputs (reference `rnn_cell.py:DropoutCell`)."""
+
+    def __init__(self, dropout, prefix="dropout_", params=None):
+        super().__init__(prefix=prefix, params=params)
+        self.dropout = dropout
+
+    @property
+    def state_info(self):
+        return []
+
+    def __call__(self, inputs, states):
+        if self.dropout > 0:
+            inputs = sym_mod.Dropout(inputs, p=self.dropout)
+        return inputs, states
+
+    def unroll(self, length, inputs, begin_state=None, layout="NTC",
+               merge_outputs=None):
+        self.reset()
+        if isinstance(inputs, Symbol):
+            out, _ = self(inputs, [])
+            return out, []
+        outs = [self(x, [])[0] for x in inputs]
+        if merge_outputs:
+            outs, _ = _normalize_sequence(length, outs, layout, True)
+        return outs, []
+
+
+class ModifierCell(BaseRNNCell):
+    """A cell wrapped around a base cell whose parameters it uses
+    (reference `rnn_cell.py:ModifierCell`)."""
+
+    def __init__(self, base_cell):
+        super().__init__()
+        base_cell._modified = True
+        self.base_cell = base_cell
+
+    @property
+    def params(self):
+        self._own_params = False
+        return self.base_cell.params
+
+    @property
+    def state_info(self):
+        return self.base_cell.state_info
+
+    def begin_state(self, func=None, **kwargs):
+        self.base_cell._modified = False
+        begin = self.base_cell.begin_state(func=func, **kwargs)
+        self.base_cell._modified = True
+        return begin
+
+    def unpack_weights(self, args):
+        return self.base_cell.unpack_weights(args)
+
+    def pack_weights(self, args):
+        return self.base_cell.pack_weights(args)
+
+
+class ZoneoutCell(ModifierCell):
+    """Zoneout (reference `rnn_cell.py:ZoneoutCell`): each output and
+    state keeps its previous value where a Dropout mask of ones is 0."""
+
+    def __init__(self, base_cell, zoneout_outputs=0.0, zoneout_states=0.0):
+        if isinstance(base_cell, FusedRNNCell):
+            raise MXNetError("FusedRNNCell does not support zoneout; "
+                             "unfuse() first")
+        super().__init__(base_cell)
+        self.zoneout_outputs = zoneout_outputs
+        self.zoneout_states = zoneout_states
+        self.prev_output = None
+
+    def reset(self):
+        super().reset()
+        self.prev_output = None
+
+    def __call__(self, inputs, states):
+        next_output, next_states = self.base_cell(inputs, states)
+        po, ps = self.zoneout_outputs, self.zoneout_states
+
+        def mask(p, like):
+            return sym_mod.Dropout(sym_mod.ones_like(like), p=p)
+
+        prev_output = self.prev_output if self.prev_output is not None \
+            else next_output * 0.0
+        if po > 0.0:
+            next_output = sym_mod.where(mask(po, next_output), next_output,
+                                        prev_output)
+        if ps > 0.0:
+            next_states = [sym_mod.where(mask(ps, ns), ns, s)
+                           for ns, s in zip(next_states, states)]
+        self.prev_output = next_output
+        return next_output, next_states
+
+
+class ResidualCell(ModifierCell):
+    """The base cell's output plus its input (reference
+    `rnn_cell.py:ResidualCell`)."""
+
+    def __call__(self, inputs, states):
+        output, states = self.base_cell(inputs, states)
+        return output + inputs, states
+
+    def unroll(self, length, inputs, begin_state=None, layout="NTC",
+               merge_outputs=None):
+        self.reset()
+        self.base_cell._modified = False
+        outputs, states = self.base_cell.unroll(
+            length, inputs, begin_state=begin_state, layout=layout,
+            merge_outputs=merge_outputs)
+        self.base_cell._modified = True
+        if isinstance(outputs, Symbol):
+            ins, _ = _normalize_sequence(length, inputs, layout, True)
+            outputs = outputs + ins
+        else:
+            ins, _ = _normalize_sequence(length, inputs, layout, False)
+            outputs = [o + i for o, i in zip(outputs, ins)]
+        return outputs, states
+
+
+class BidirectionalCell(BaseRNNCell):
+    """Two cells over the sequence in opposite directions, their outputs
+    concatenated (reference `rnn_cell.py:BidirectionalCell`)."""
+
+    def __init__(self, l_cell, r_cell, params=None, output_prefix="bi_"):
+        super().__init__(prefix="", params=params)
+        self._output_prefix = output_prefix
+        self._cells = [l_cell, r_cell]
+
+    @property
+    def state_info(self):
+        return [info for c in self._cells for info in c.state_info]
+
+    def begin_state(self, func=None, **kwargs):
+        return [s for c in self._cells
+                for s in c.begin_state(func=func, **kwargs)]
+
+    def unpack_weights(self, args):
+        for c in self._cells:
+            args = c.unpack_weights(args)
+        return args
+
+    def pack_weights(self, args):
+        for c in self._cells:
+            args = c.pack_weights(args)
+        return args
+
+    def __call__(self, inputs, states):
+        raise MXNetError("BidirectionalCell cannot step; call unroll()")
+
+    def unroll(self, length, inputs, begin_state=None, layout="NTC",
+               merge_outputs=None):
+        self.reset()
+        steps, _ = _normalize_sequence(length, inputs, layout, False)
+        l_cell, r_cell = self._cells
+        n_l = len(l_cell.state_info)
+        l_begin = None if begin_state is None else begin_state[:n_l]
+        r_begin = None if begin_state is None else begin_state[n_l:]
+        l_out, l_states = l_cell.unroll(length, steps, begin_state=l_begin,
+                                        layout=layout, merge_outputs=False)
+        r_out, r_states = r_cell.unroll(length, list(reversed(steps)),
+                                        begin_state=r_begin, layout=layout,
+                                        merge_outputs=False)
+        r_out = list(reversed(r_out))
+        outputs = [sym_mod.concat(l, r, dim=1,
+                                  name=f"{self._output_prefix}t{i}")
+                   for i, (l, r) in enumerate(zip(l_out, r_out))]
+        if merge_outputs:
+            outputs, _ = _normalize_sequence(length, outputs, layout, True)
+        return outputs, l_states + r_states

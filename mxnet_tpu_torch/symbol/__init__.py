@@ -6,6 +6,13 @@ from .symbol import Group, Symbol, load, load_json, var
 make_sym_functions(globals())
 
 
+def concat_nd(symbols, axis=0, name=None):
+    """``Concat`` of a list of Symbols along ``axis``, the symbol front's
+    form of `nd.concat_nd` (a HybridBlock's ``F.concat_nd``)."""
+    return invoke_sym("Concat", *symbols, name=name, dim=axis,
+                      num_args=len(symbols))
+
+
 def zeros(shape, dtype=None, name=None):
     return invoke_sym("_zeros", name=name, shape=shape,
                       dtype=dtype or "float32")
@@ -31,5 +38,5 @@ def eye(N, M=0, k=0, name=None, dtype=None):
                       dtype=dtype or "float32")
 
 
-__all__ = ["Symbol", "var", "Group", "load", "load_json", "invoke_sym", "zeros",
-           "ones", "full", "arange", "eye"]
+__all__ = ["Symbol", "var", "Group", "load", "load_json", "invoke_sym",
+           "concat_nd", "zeros", "ones", "full", "arange", "eye"]

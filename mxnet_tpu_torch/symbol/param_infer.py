@@ -1,6 +1,6 @@
 """Backward parameter-shape inference for the layered ops (the FC,
 Convolution, Deconvolution, LayerNorm, InstanceNorm, BatchNorm, PReLU,
-Embedding and SoftmaxOutput rules of
+Embedding, RNN and SoftmaxOutput rules of
 `mxnet_tpu/symbol/param_infer.py`): the shapes of a node's parameter and
 label variables from its data shape, so a graph binds from data shapes
 alone."""
@@ -70,6 +70,20 @@ def _embedding(a, data):
     return {1: (a.get_int("input_dim"), a.get_int("output_dim"))}
 
 
+def _rnn(a, data):
+    """The fused ``RNN`` op's packed vector and (L·D, N, H) states from
+    (T, N, C) data."""
+    from ..ops.rnn_op import param_size
+    mode = a.get_str("mode", "lstm")
+    nl, nh = a.get_int("num_layers", 1), a.get_int("state_size")
+    d = 2 if a.get_bool("bidirectional", False) else 1
+    out = {1: (param_size(mode, nl, data[2], nh, d),),
+           2: (nl * d, data[1], nh)}
+    if mode == "lstm":
+        out[3] = out[2]
+    return out
+
+
 def _softmax_output_label(a, data):
     """The label has the data's shape without the class axis: the last
     one, or axis 1 with ``multi_output``."""
@@ -87,6 +101,7 @@ _RULES = {
     "LeakyReLU": _leaky,
     "BatchNorm": _bn,
     "Embedding": _embedding,
+    "RNN": _rnn,
     "SoftmaxOutput": _softmax_output_label,
     "Softmax": _softmax_output_label,
 }

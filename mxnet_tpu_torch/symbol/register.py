@@ -30,6 +30,8 @@ _SYM_INPUTS = {
     "LeakyReLU": lambda a: (["data", "gamma"]
                             if a.get_str("act_type", "leaky") == "prelu"
                             else ["data"]),
+    "RNN": lambda a: ["data", "parameters", "state"] + (
+        ["state_cell"] if a.get_str("mode", "lstm") == "lstm" else []),
     # output heads create their `<name>_label` variable when not given
     "SoftmaxOutput": lambda a: ["data", "label"],
     "Softmax": lambda a: ["data", "label"],

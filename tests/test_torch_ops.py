@@ -29,6 +29,11 @@ def _pos(*shape):
     return ("pos", shape)
 
 
+def _lens(high, *shape):
+    """Sequence lengths in 1..high, as floats."""
+    return ("lens", high, shape)
+
+
 # (op, inputs, attrs); attrs are given as the strings Symbol JSON carries
 # where the spelling matters to the parser
 CASES = {
@@ -57,6 +62,38 @@ CASES = {
     "softmax_axis1": ("softmax", [_randn(2, 3, 7)], {"axis": "1"}),
     "softmax_temperature": ("softmax", [_randn(2, 7)],
                             {"temperature": 2.0}),
+    "softmax_length": ("softmax", [_randn(2, 3, 7), _lens(7, 2, 3)], {}),
+    "softmax_length_axis1": ("softmax", [_randn(2, 5, 3), _lens(5, 2, 3)],
+                             {"axis": 1}),
+    "softmax_length_temperature": ("softmax",
+                                   [_randn(4, 6), _lens(6, 4)],
+                                   {"temperature": 0.5}),
+    "softmin": ("softmin", [_randn(2, 3, 7)], {}),
+    "softmin_axis0": ("softmin", [_randn(4, 3)], {"axis": 0}),
+    # the sequence ops of the recurrent cells: (T, N, C) data, or (N, T, C)
+    # with axis 1, and per-sample lengths
+    "sequence_mask": ("SequenceMask", [_randn(6, 4, 3), _lens(6, 4)],
+                      {"use_sequence_length": True}),
+    "sequence_mask_axis1_value": ("SequenceMask",
+                                  [_randn(4, 6, 3), _lens(6, 4)],
+                                  {"use_sequence_length": "True",
+                                   "axis": 1, "value": -1.5}),
+    "sequence_mask_off": ("SequenceMask", [_randn(6, 4, 3)], {}),
+    "sequence_last": ("SequenceLast", [_randn(6, 4, 3), _lens(6, 4)],
+                      {"use_sequence_length": True}),
+    "sequence_last_axis1": ("SequenceLast", [_randn(4, 6, 3), _lens(6, 4)],
+                            {"use_sequence_length": True, "axis": 1}),
+    "sequence_last_2d": ("SequenceLast", [_randn(6, 4), _lens(6, 4)],
+                         {"use_sequence_length": True}),
+    "sequence_last_off": ("SequenceLast", [_randn(6, 4, 3)], {}),
+    "sequence_reverse": ("SequenceReverse", [_randn(6, 4, 3), _lens(6, 4)],
+                         {"use_sequence_length": True}),
+    "sequence_reverse_off": ("SequenceReverse", [_randn(6, 4, 3)], {}),
+    "squeeze_all": ("squeeze", [_randn(1, 3, 1, 4)], {}),
+    "squeeze_axis": ("squeeze", [_randn(1, 3, 1, 4)], {"axis": 2}),
+    "squeeze_axes": ("squeeze", [_randn(1, 3, 1, 4)], {"axis": "(0, 2)"}),
+    "stack": ("stack", [_randn(3, 4), _randn(3, 4), _randn(3, 4)], {}),
+    "stack_axis2": ("stack", [_randn(3, 4), _randn(3, 4)], {"axis": 2}),
     "layernorm_eps12": ("LayerNorm", [_randn(2, 5, 8), _randn(8), _randn(8)],
                         {"eps": 1e-12}),
     "layernorm_axis1": ("LayerNorm", [_randn(2, 5, 8), _randn(5), _randn(5)],
@@ -388,6 +425,8 @@ def _make(spec, rng):
         return rng.randn(*spec[1]).astype(np.float32)
     if spec[0] == "pos":
         return rng.uniform(0.5, 2.0, spec[1]).astype(np.float32)
+    if spec[0] == "lens":
+        return rng.randint(1, spec[1] + 1, spec[2]).astype(np.float32)
     # float ids past both ends of the table, fractional parts truncated
     return (rng.uniform(-2, spec[1], spec[2])).astype(np.float32)
 
@@ -425,7 +464,10 @@ def test_port_ops_are_reference_ops():
                                   "deconv2d_target_shape", "pool_max_full",
                                   "pool_avg_nhwc_full", "pool_max_same_1d",
                                   "pool_global_avg", "pick_keepdims_axis0",
-                                  "sum_exclude", "pad_reflect"])
+                                  "sum_exclude", "pad_reflect",
+                                  "softmax_length", "sequence_last_axis1",
+                                  "sequence_reverse", "squeeze_axes",
+                                  "stack_axis2"])
 def test_shape_inference_on_meta_matches_reference(case):
     op, specs, attrs = CASES[case]
     shapes = [s[1] if s[0] in ("randn", "pos") else s[2] for s in specs]
