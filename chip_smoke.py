@@ -165,6 +165,36 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    generator reseeded and a replay without the reseed other masks; the
    step is timed captured and eager in turns.  K4 is this phase's only
    TPU kernel, in 10c.
+11. state and sparse storage.  11a: the reference's
+   ``example/sparse/linear_classification.py`` local-store loop
+   (``_train_local``) at the width of LIBSVM's avazu-app (AVAZU: 1,000,000
+   features, the example's batch 8192 and lr 4), on 64 synthetic CSR
+   batches built from their components (15 one-hot fields a row, Zipf
+   categories): forward ``sparse.dot(X, w)``, gradient the transposed dot
+   cast to row_sparse, ``kv.push``/``kv.pull`` through a local KVStore
+   with SGD on push.  One batch's dot and transposed dot within
+   SPARSE_TOL of float64 on the same rows, the transposed dot rerun
+   bit-equal, the weight after 64 steps within SPARSE_TOL of the same
+   steps in float64 on the host, ``row_sparse_pull`` of 4096 ids equal to
+   the pulled rows, the loss falling; the p50 of the step, both dots,
+   the cast, push and pull, examples/s and one profiled step's idle
+   share.  11b: `tests/test_sparse_fm_train.py`'s factorization machine
+   at the reference test's widths (FM) through ``Module.fit`` over a
+   `LibSVMIter` on a file the phase writes, SGD, Adam and AdaGrad each
+   under that test's MSE; the trained ``v`` (row_sparse) and a csr batch
+   through one ``.params``.  11c: phase 7's fit (dropout 0.1, BERT's
+   Adam) with ``MXTPU_CKPT_DIR``: run A in this process; run B in a child
+   SIGKILLed while epoch 2's checkpoint is written (the window widened by
+   ``MXTPU_CKPT_COMMIT_DELAY``), after which ``latest_valid()`` must name
+   epoch 1's; a second child resumes and must end bit-equal to run A,
+   parameters and Adam states; a truncated newest ``params.params`` must
+   make ``latest_valid()`` fall back a step; a save's and a restore's
+   seconds and bytes, the children's start-up seconds (they reuse the
+   kernel build).  11d: one epoch of fit at dropout 0 on a local KVStore
+   (update-on-kvstore) with a `Monitor` over the outputs, within FIT_TOL
+   of a store-less eager fit, the monitor's statistics equal to those of
+   the outputs; one push of the gradients under 2-bit compression exact;
+   the step's p50 beside phase 7's captured step.  11c and 11d run K1-K3.
 
 If the run nears its time limit, cut the serving phases' ``TIMED`` and
 ``LSTM_TIMED`` counts before anything of the training phase.
@@ -176,6 +206,7 @@ import contextlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -378,6 +409,31 @@ RNN_STEP_TIMED = 10
 # detached between batches
 WORD_LM = dict(vocab=10000, embed=200, hidden=200, layers=2, dropout=0.2)
 WORD_BPTT, WORD_BATCH, WORD_LR, WORD_CLIP, WORD_STEPS = 35, 32, 20.0, 0.2, 16
+# phase 11a: the reference's example/sparse/linear_classification.py
+# local-store loop at the width of LIBSVM's avazu-app (1,000,000 features)
+# and the example's batch 8192 and lr; rows one-hot in 15 fields with
+# Zipf-skewed categories (a chosen density: the repo holds no Avazu data)
+AVAZU = dict(dim=1_000_000, batch=8192, steps=64, nnz=15, lr=4.0,
+             pull_ids=4096)
+AVAZU_ZIPF = 1.1
+# products and the trained weight against float64, relative to the largest
+# magnitude of the float64 result
+SPARSE_TOL = 1e-5
+SPARSE_TIMED = 20
+# phase 11b: tests/test_sparse_fm_train.py's factorization machine at the
+# widths of the reference's tests/python/train/test_sparse_fm.py, with
+# that test's optimizers, epochs and MSE thresholds
+FM = dict(dim=10000, factor=4, batch=64, batches=5, density=0.1)
+FM_RUNS = (("sgd", 18, 0.02), ("adam", 10, 0.05), ("adagrad", 20, 0.09))
+# phase 11c: the seconds each checkpoint commit waits before its manifest
+# in the child that is killed (the window it is killed in), and a child's
+# time limit
+CKPT_COMMIT_DELAY = 5.0
+CKPT_CHILD_TIMEOUT = 600
+# how 11c starts a child (a CPU rehearsal puts its own entry here)
+CHILD_ENTRY = "import sys, chip_smoke as cs; cs.ckpt_child(sys.argv[1])"
+# phase 7's record, which 11d prints its step beside
+FIT_RECORD = {}
 
 
 def log(*parts):
@@ -1736,6 +1792,7 @@ def phase_fit(card, cfg=None, batch=8, seq=512):
                                           "eager": eager_host},
            "peak_memory_gib": peak_gb, "launches": launches}
     log(json.dumps(rec))
+    FIT_RECORD.update(rec)
     return launches
 
 
@@ -3170,6 +3227,667 @@ def phase_rnn(card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: training state and sparse storage
+# ---------------------------------------------------------------------------
+
+def _zipf_ranks(rng, shape, n, s):
+    """Ranks in [0, n) with P(r) ∝ 1 / (r + 1)^s (a truncated Zipf law,
+    drawn by the inverse of its cumulative weights)."""
+    cdf = np.cumsum(1.0 / np.arange(1, n + 1) ** s)
+    cdf /= cdf[-1]
+    return np.minimum(np.searchsorted(cdf, rng.rand(*shape)), n - 1)
+
+
+def _avazu_batches(dim, batch, steps, nnz, seed):
+    """``steps`` CSR batches of ``batch`` rows at ``dim`` features, made
+    from the seed: each row one-hot in ``nnz`` fields of dim / nnz
+    columns (ascending, value 1), each field's category drawn
+    Zipf-skewed; labels from a hidden logistic model.  Returned as numpy
+    (indptr, indices, values, labels)."""
+    rng = np.random.RandomState(seed)
+    field = dim // nnz
+    w_true = rng.randn(dim) * 0.5
+    out = []
+    for _ in range(steps):
+        cols = _zipf_ranks(rng, (batch, nnz), field, AVAZU_ZIPF) + \
+            np.arange(nnz) * field
+        z = w_true[cols].sum(1) + 0.5 * rng.randn(batch)
+        out.append((np.arange(batch + 1, dtype=np.int64) * nnz,
+                    cols.reshape(-1).astype(np.int64),
+                    np.ones(batch * nnz, np.float32),
+                    (z > 0).astype(np.float32).reshape(-1, 1)))
+    return out
+
+
+def _rel_max(got, want):
+    want = np.asarray(want, np.float64)
+    return float(np.abs(np.asarray(got, np.float64) - want).max() /
+                 max(np.abs(want).max(), 1e-30))
+
+
+def _wall_p50(fn, n):
+    """Median ms of ``n`` calls of ``fn``, each ending in a device
+    synchronize (host-bound calls: the wall time is what a step pays)."""
+    fn()
+    return _step_ms(fn, n)
+
+
+def sparse_linear(card, dim=AVAZU["dim"], batch=AVAZU["batch"],
+                  steps=AVAZU["steps"], nnz=AVAZU["nnz"], lr=AVAZU["lr"],
+                  n_ids=AVAZU["pull_ids"], timed=SPARSE_TIMED):
+    """11a: the reference's ``example/sparse/linear_classification.py``
+    local-store loop (`_train_local`) on ``mt.gpu(0)``: the weight lives
+    in a local KVStore with SGD on push, the forward is ``sparse.dot(X,
+    w)``, the gradient the transposed dot cast to row_sparse and pushed,
+    the weight pulled back; the same steps in float64 on the host are the
+    reference."""
+    import scipy.sparse as spsp
+    from mxnet_tpu_torch.ndarray import sparse as msp
+    ctx = mt.gpu(0)
+    t0 = time.perf_counter()
+    data = _avazu_batches(dim, batch, steps, nnz, SEED + 11)
+    host = [spsp.csr_matrix((v.astype(np.float64), i, p), shape=(batch, dim))
+            for p, i, v, _ in data]
+    xs = [msp.csr_matrix((v, i, p), shape=(batch, dim), ctx=ctx)
+          for p, i, v, _ in data]
+    setup_s = time.perf_counter() - t0
+    for x in xs[:2]:
+        x.check_format()
+
+    kv = mt.kv.create("local")
+    kv.init("w", mt.nd.zeros((dim, 1), ctx=ctx))
+    kv.set_optimizer(mt.optimizer.SGD(learning_rate=lr))
+    weight = mt.nd.zeros((dim, 1), ctx=ctx)
+    bias = np.zeros((1,), np.float32)
+    w64, b64 = np.zeros(dim), 0.0
+    losses, eps = [], 1e-7
+
+    def step(k, train_host=False):
+        nonlocal bias, w64, b64
+        xb, yb = xs[k], data[k][3]
+        z = msp.dot(xb, weight).asnumpy() + bias
+        with np.errstate(over="ignore"):       # exp(-z) = inf gives p = 0
+            p = 1.0 / (1.0 + np.exp(-z))
+        loss = float(-(yb * np.log(p + eps) +
+                       (1 - yb) * np.log(1 - p + eps)).mean())
+        gz = mt.nd.array((p - yb) / batch, ctx=ctx)
+        grad = msp.dot(xb, gz, transpose_a=True).tostype("row_sparse")
+        kv.push("w", grad)
+        kv.pull("w", out=weight)
+        bias -= lr * float((p - yb).mean())
+        if train_host:
+            z64 = host[k] @ w64 + b64
+            p64 = 1.0 / (1.0 + np.exp(-z64))
+            g64 = (p64 - yb[:, 0]) / batch
+            w64 -= lr * (host[k].T @ g64)
+            b64 -= lr * g64.sum()
+        return loss
+
+    t0 = time.perf_counter()
+    for k in range(steps):
+        losses.append(step(k, train_host=True))
+    train_s = time.perf_counter() - t0
+    w_err = _rel_max(weight.asnumpy()[:, 0], w64)
+    first, last = np.mean(losses[:8]), np.mean(losses[-8:])
+    log(f"11a: {steps} steps at {dim} features, batch {batch}: loss "
+        f"{first:.5f} -> {last:.5f}; weight against float64 "
+        f"{w_err:.3e} of its largest magnitude")
+    if not (np.isfinite(losses).all() and last < first):
+        raise AssertionError(f"11a: the loss did not fall: {losses}")
+    if w_err > SPARSE_TOL:
+        raise AssertionError(f"11a: weight off float64 by {w_err}")
+
+    # one batch's products against float64 on the same rows, and the
+    # transposed product's determinism
+    w_now = weight.asnumpy()[:, 0].astype(np.float64)
+    g = np.random.RandomState(SEED + 12).randn(batch, 1).astype(np.float32)
+    gnd = mt.nd.array(g, ctx=ctx)
+    dot_err = _rel_max(msp.dot(xs[0], weight).asnumpy()[:, 0],
+                       host[0] @ w_now)
+    t1 = msp.dot(xs[0], gnd, transpose_a=True).data
+    t2 = msp.dot(xs[0], gnd, transpose_a=True).data
+    dot_t_err = _rel_max(t1.cpu().numpy()[:, 0],
+                         host[0].T @ g[:, 0].astype(np.float64))
+    rerun_equal = bool(torch.equal(t1, t2))
+    log(f"11a: dot {dot_err:.3e}, transposed dot {dot_t_err:.3e} of the "
+        f"float64 result's largest magnitude; transposed rerun bit-equal "
+        f"{rerun_equal}")
+    if max(dot_err, dot_t_err) > SPARSE_TOL or not rerun_equal:
+        raise AssertionError("11a: a sparse dot is off float64 or not "
+                             "deterministic")
+
+    # row_sparse_pull of n_ids ids (repeats included) against the rows of
+    # the pulled dense weight
+    rng = np.random.RandomState(SEED + 13)
+    touched = np.unique(np.concatenate([d[1] for d in data[:4]]))
+    ids = np.concatenate([rng.choice(touched, n_ids // 2),
+                          rng.randint(0, dim, n_ids - n_ids // 2)])
+    out = msp.zeros("row_sparse", (dim, 1), ctx=ctx)
+    kv.row_sparse_pull("w", out=out, row_ids=mt.nd.array(ids, ctx=ctx))
+    out.check_format()
+    uids = np.unique(ids)
+    pulled_ok = bool(np.array_equal(out.indices.asnumpy(), uids) and
+                     np.array_equal(out.sp_data.asnumpy()[:, 0],
+                                    weight.asnumpy()[uids, 0]))
+    if not pulled_ok:
+        raise AssertionError("11a: row_sparse_pull rows differ from the "
+                             "pulled weight")
+
+    # times (after the checks: the timed steps train on)
+    k = [0]
+
+    def next_step():
+        k[0] = (k[0] + 1) % steps
+        step(k[0])
+    xb = xs[1]
+    gz = mt.nd.array(np.full((batch, 1), 1e-3, np.float32), ctx=ctx)
+    grad = msp.dot(xb, gz, transpose_a=True).tostype("row_sparse")
+    ms = {"step": _wall_p50(next_step, timed),
+          "dot": _wall_p50(lambda: msp.dot(xb, weight), timed),
+          "dot_transposed": _wall_p50(
+              lambda: msp.dot(xb, gz, transpose_a=True), timed),
+          "cast_row_sparse": _wall_p50(
+              lambda: msp.dot(xb, gz, transpose_a=True).tostype(
+                  "row_sparse"), timed),
+          "push": _wall_p50(lambda: kv.push("w", grad), timed),
+          "pull": _wall_p50(lambda: kv.pull("w", out=weight), timed)}
+    prof = profile_gluon("11a sparse linear step", next_step)
+    rec = {"sub": "11a_sparse_linear", "card": card, "dim": dim,
+           "batch": batch, "steps": steps, "nnz_per_row": nnz,
+           "zipf_s": AVAZU_ZIPF, "lr": lr, "setup_s": setup_s,
+           "train_s_with_host_float64": train_s,
+           "loss_first8": first, "loss_last8": last,
+           "weight_rel_err_vs_float64": w_err, "dot_rel_err": dot_err,
+           "dot_transposed_rel_err": dot_t_err,
+           "dot_transposed_rerun_bit_equal": rerun_equal,
+           "row_sparse_pull_ids": int(n_ids),
+           "row_sparse_pull_unique": int(uids.size),
+           "p50_ms": ms, "examples_per_s": batch / (ms["step"] / 1e3),
+           "idle_share": prof["idle_share"]}
+    log(json.dumps(rec))
+    return rec
+
+
+def _write_libsvm(path, rows, dim, density, seed):
+    """A LIBSVM file of ``rows`` rows at ``dim`` features, each feature
+    present with probability ``density`` (a uniform value in (0, 1)),
+    label 1: `tests/test_sparse_fm_train.py`'s data."""
+    rng = np.random.RandomState(seed)
+    with open(path, "w") as f:
+        for _ in range(rows):
+            cols = np.nonzero(rng.rand(dim) < density)[0]
+            vals = rng.rand(cols.size)
+            f.write("1 " + " ".join(f"{c}:{v:.6f}" for c, v in
+                                    zip(cols, vals)) + "\n")
+
+
+def _fm_symbol(factor, dim, init):
+    """`tests/test_sparse_fm_train.py`'s factorization machine."""
+    sym = mt.sym
+    x = sym.Variable("data", stype="csr")
+    v = sym.var("v", shape=(dim, factor), init=init, stype="row_sparse")
+    w1_weight = sym.var("w1_weight", shape=(dim, 1), init=init,
+                        stype="row_sparse")
+    w1_bias = sym.var("w1_bias", shape=(1,))
+    w1 = sym.broadcast_add(sym.dot(x, w1_weight), w1_bias)
+    v_s = sym._internal._square_sum(data=v, axis=1, keepdims=True)
+    bd_sum = sym.dot(sym.square(data=x), v_s)
+    w2_squared = 0.5 * sym.square(data=sym.dot(x, v))
+    sum1 = sym.sum(data=sym.Concat(w1, w2_squared, dim=1), axis=1,
+                   keepdims=True)
+    model = sym.elemwise_add(sum1, 0.5 * sym.negative(bd_sum))
+    return sym.LinearRegressionOutput(data=model, label=sym.Variable("label"))
+
+
+def fm_libsvm(card, dim=FM["dim"], factor=FM["factor"], batch=FM["batch"],
+              batches=FM["batches"], runs=FM_RUNS):
+    """11b: the factorization machine through ``Module.fit`` over a
+    `LibSVMIter` on a file this phase writes, each optimizer of
+    `tests/test_sparse_fm_train.py` with its settings, epochs and MSE
+    threshold; then ``v`` (row_sparse) and a batch (csr) through one
+    ``.params`` file."""
+    from mxnet_tpu_torch import serialization as ser
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fm_")
+    path = os.path.join(tmp, "fm.libsvm")
+    _write_libsvm(path, batch * batches, dim, FM["density"], SEED + 14)
+    opts = {"sgd": lambda: mt.optimizer.SGD(
+                momentum=0.1, clip_gradient=5.0, learning_rate=0.01,
+                rescale_grad=1.0 / batch),
+            "adam": lambda: mt.optimizer.Adam(
+                clip_gradient=5.0, learning_rate=0.0005,
+                rescale_grad=1.0 / batch),
+            "adagrad": lambda: mt.optimizer.AdaGrad(
+                clip_gradient=5.0, learning_rate=0.01,
+                rescale_grad=1.0 / batch)}
+    results = {}
+    mod = None
+    for name, epochs, limit in runs:
+        mt.random.seed(SEED)
+        init = mt.initializer.Normal(sigma=0.01)
+        it = mt.io.LibSVMIter(path, data_shape=(dim,), batch_size=batch)
+        mod = mt.mod.Module(_fm_symbol(factor, dim, init),
+                            data_names=["data"], label_names=["label"])
+        metric = mt.metric.create("MSE")
+        t0 = time.perf_counter()
+        mod.fit(it, num_epoch=epochs, optimizer=opts[name](),
+                initializer=init, eval_metric=metric)
+        secs = time.perf_counter() - t0
+        mse = metric.get()[1]
+        results[name] = {"epochs": epochs, "final_mse": mse,
+                         "threshold": limit, "fit_s": secs,
+                         "step_ms": secs * 1e3 / (epochs * batches)}
+        log(f"11b: FM with {name}: MSE {mse:.5f} after {epochs} epochs "
+            f"(limit {limit}), {secs:.2f} s")
+        if not mse < limit:
+            raise AssertionError(f"11b: {name} MSE {mse} not under {limit}")
+    first = next(iter(mt.io.LibSVMIter(path, data_shape=(dim,),
+                                       batch_size=batch))).data[0]
+    v = mod._exec.arg_dict["v"].tostype("row_sparse")
+    f = os.path.join(tmp, "fm.params")
+    ser.save_ndarrays(f, {"arg:v": v, "data": first})
+    back = ser.load_ndarrays(f)
+    same = (back["arg:v"].stype == "row_sparse" and
+            back["data"].stype == "csr" and
+            np.array_equal(back["arg:v"].asnumpy(), v.asnumpy()) and
+            np.array_equal(back["data"].asnumpy(), first.asnumpy()))
+    nbytes = os.path.getsize(f)
+    if not same:
+        raise AssertionError("11b: sparse .params did not load back equal")
+    rec = {"sub": "11b_fm_libsvm", "card": card, "feature_dim": dim,
+           "factor": factor, "batch": batch, "batches": batches,
+           "runs": results, "sparse_params_bytes": nbytes,
+           "v_rows_stored": int(v._sp_indices.numel()),
+           "batch_nnz": int(first.nnz)}
+    log(json.dumps(rec))
+    shutil.rmtree(tmp, ignore_errors=True)
+    return rec
+
+
+def _ckpt_job(cfg, batch, seq, init_file):
+    """The fit of 11c, run alike by this process and its children:
+    phase 7's model with dropout 0.1 and BERT's Adam, FIT_EPOCHS epochs of
+    FIT_BATCHES batches, weights from ``init_file``."""
+    from mxnet_tpu_torch.serialization import load_ndarrays
+    it = _fit_iter(cfg["vocab"], batch, seq)
+    mod = mt.mod.Module(bert_mlm(mt.sym, **cfg),
+                        data_names=("data", "positions"),
+                        label_names=("mlm_label",))
+    mt.random.seed(SEED)
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=FIT_EPOCHS, optimizer="adam",
+            optimizer_params=_fit_adam(), arg_params=load_ndarrays(init_file))
+    return mod, time.perf_counter() - t0
+
+
+def _module_state(mod):
+    """The parameters and the Adam states of ``mod``, as numpy."""
+    arg, _ = mod.get_params()
+    out = {f"arg:{k}": v.asnumpy() for k, v in arg.items()}
+    for k, st in mod._active_updater().states.items():
+        for i, s in enumerate(st):
+            out[f"state:{k}:{i}"] = s.asnumpy()
+    return out
+
+
+def ckpt_child(job_file):
+    """A child process of 11c: run `_ckpt_job` under the environment it
+    was given (``MXTPU_CKPT_DIR``, ``MXTPU_CKPT_COMMIT_DELAY``), writing
+    its start-up time, whether the kernels were built already, and at the
+    end the module's state."""
+    t_start = time.time()
+    with open(job_file) as f:
+        job = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    built = all(os.path.exists(cuda_build._library_path(n))
+                for n in ("flash_attn_fwd", "flash_attn_bwd"))
+    with open(job["ready"], "w") as f:
+        json.dump({"ready_wall": time.time(), "own_s": time.time() - t_start,
+                   "kernels_built_already": built}, f)
+    hk.reset_launch_counts()
+    mod, fit_s = _ckpt_job(job["cfg"], job["batch"], job["seq"], job["init"])
+    state = _module_state(mod)
+    np.savez(job["out"], **state)
+    with open(job["done"], "w") as f:
+        json.dump({"fit_s": fit_s, "launches": dict(hk.LAUNCHES)}, f)
+
+
+def _spawn_child(job, env_extra):
+    path = job["job"]
+    with open(path, "w") as f:
+        json.dump(job, f)
+    env_ = dict(os.environ, **env_extra)
+    t0 = time.time()
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-c", CHILD_ENTRY, path],
+        cwd=HERE, env=env_, stdout=open(job["log"], "w"),
+        stderr=subprocess.STDOUT)
+    return proc, t0
+
+
+def _child_log(job):
+    with open(job["log"]) as f:
+        return f.read()[-4000:]
+
+
+def _files_bytes(directory):
+    return sum(os.path.getsize(os.path.join(directory, n))
+               for n in os.listdir(directory))
+
+
+def ckpt_resume(card, cfg=None, batch=8, seq=512):
+    """11c: ``Module.fit`` with ``MXTPU_CKPT_DIR``: run A in this
+    process; run B in a child killed (SIGKILL) while its second epoch's
+    checkpoint is being written, the window widened by
+    ``MXTPU_CKPT_COMMIT_DELAY``; a second child resumes from
+    ``latest_valid()`` and must end bit-equal to A, parameters and Adam
+    states; a truncated newest ``params.params`` must make
+    ``latest_valid()`` fall back one step.  Returns the launches of run A
+    (this process's)."""
+    import signal
+    from mxnet_tpu_torch.checkpoint import CheckpointManager, MANIFEST_NAME
+    from mxnet_tpu_torch.serialization import save_ndarrays
+    cfg = dict(BERT_BASE if cfg is None else cfg)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    it = _fit_iter(cfg["vocab"], batch, seq)
+    shapes = {d.name: d.shape for d in it.provide_data + it.provide_label}
+    sym = bert_mlm(mt.sym, **cfg)
+    arg_shapes, _, _ = sym.infer_shape(**shapes)
+    init = os.path.join(tmp, "init.params")
+    save_ndarrays(init, {n: NDArray(torch.from_numpy(v)) for n, v in
+                         random_params({n: s for n, s in
+                                        zip(sym.list_arguments(), arg_shapes)
+                                        if n not in shapes}, SEED).items()})
+
+    # run A: uninterrupted, in this process, its saves timed
+    dir_a = os.path.join(tmp, "a")
+    saves = []
+    real_save = CheckpointManager.save_module
+
+    def timed_save(self, module, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck = real_save(self, module, *a, **k)
+        saves.append((time.perf_counter() - t0, _files_bytes(ck.directory)))
+        return ck
+    hk.reset_launch_counts()
+    CheckpointManager.save_module = timed_save
+    try:
+        with env(MXTPU_CKPT_DIR=dir_a, MXTPU_CKPT_KEEP="2"):
+            mod, fit_a_s = _ckpt_job(cfg, batch, seq, init)
+    finally:
+        CheckpointManager.save_module = real_save
+    launches = dict(hk.LAUNCHES)
+    _check_launches(f"11c run A over {FIT_EPOCHS * FIT_BATCHES} steps",
+                    launches, cfg["num_layers"] * FIT_EPOCHS * FIT_BATCHES)
+    want = _module_state(mod)
+    mgr_a = CheckpointManager(dir_a, keep_n=2)
+    t0 = time.perf_counter()
+    mgr_a.restore(module=mod)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    del mod
+    shutil.rmtree(dir_a, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # run B: killed inside epoch 2's save
+    dir_b = os.path.join(tmp, "b")
+    job = {"cfg": cfg, "batch": batch, "seq": seq, "init": init,
+           "job": os.path.join(tmp, "b.json"),
+           "log": os.path.join(tmp, "b.log"),
+           "ready": os.path.join(tmp, "b.ready"),
+           "out": os.path.join(tmp, "b.npz"),
+           "done": os.path.join(tmp, "b.done")}
+    proc, t_spawn = _spawn_child(job, {
+        "MXTPU_CKPT_DIR": dir_b, "MXTPU_CKPT_KEEP": "2",
+        "MXTPU_CKPT_COMMIT_DELAY": str(CKPT_COMMIT_DELAY)})
+    target = os.path.join(dir_b, "step-00000001")
+    deadline = time.time() + CKPT_CHILD_TIMEOUT
+    try:
+        while not os.path.exists(os.path.join(target, "optimizer.states")):
+            if proc.poll() is not None:
+                raise AssertionError("11c: child B ended before its "
+                                     f"second save:\n{_child_log(job)}")
+            if time.time() > deadline:
+                raise AssertionError("11c: child B never reached its "
+                                     f"second save:\n{_child_log(job)}")
+            time.sleep(0.02)
+        killed_uncommitted = not os.path.exists(
+            os.path.join(target, MANIFEST_NAME))
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(job["ready"]) as f:
+        ready_b = json.load(f)
+    mgr_b = CheckpointManager(dir_b, keep_n=2)
+    ck_b = mgr_b.latest_valid()
+    aborted_left = os.path.isdir(target) and not os.path.exists(
+        os.path.join(target, MANIFEST_NAME))
+    log(f"11c: child B killed with step 1 uncommitted "
+        f"({killed_uncommitted}); latest_valid {ck_b}; the aborted step "
+        f"left on disk {aborted_left}")
+    if not (killed_uncommitted and aborted_left and ck_b is not None
+            and ck_b.step == 0 and ck_b.epoch == 0):
+        raise AssertionError("11c: the kill did not leave epoch 1's "
+                             "checkpoint as the newest valid one")
+
+    # run C: a fresh child resumes from it and finishes
+    job_c = dict(job, job=os.path.join(tmp, "c.json"),
+                 log=os.path.join(tmp, "c.log"),
+                 ready=os.path.join(tmp, "c.ready"),
+                 out=os.path.join(tmp, "c.npz"),
+                 done=os.path.join(tmp, "c.done"))
+    proc, t_spawn_c = _spawn_child(job_c, {
+        "MXTPU_CKPT_DIR": dir_b, "MXTPU_CKPT_KEEP": "2",
+        "MXTPU_CKPT_COMMIT_DELAY": "0"})
+    try:
+        rc = proc.wait(timeout=CKPT_CHILD_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0:
+        raise AssertionError(f"11c: child C failed (rc {rc}):\n"
+                             f"{_child_log(job_c)}")
+    with open(job_c["ready"]) as f:
+        ready_c = json.load(f)
+    with open(job_c["done"]) as f:
+        done_c = json.load(f)
+    got = dict(np.load(job_c["out"]))
+    diff = sorted(k for k in want if k not in got or
+                  not np.array_equal(got[k], want[k]))
+    log(f"11c: resumed run C against run A: {len(want) - len(diff)} of "
+        f"{len(want)} parameters and Adam states bit-equal")
+    if diff or set(got) != set(want):
+        raise AssertionError(f"11c: resumed run differs from run A in "
+                             f"{diff[:8]} ({len(diff)} arrays)")
+    c_launches = done_c["launches"]
+    if c_launches["flash_attn_fwd"] != cfg["num_layers"] * \
+            (FIT_EPOCHS - 1) * FIT_BATCHES:
+        raise AssertionError(f"11c: child C launched {c_launches}; it "
+                             "should have trained the last two epochs")
+
+    # a torn newest params.params: latest_valid falls back one step
+    newest = mgr_b.latest_valid()
+    p = os.path.join(newest.directory, "params.params")
+    with open(p, "r+b") as f:
+        f.truncate(os.path.getsize(p) // 2)
+    fallback = mgr_b.latest_valid()
+    if fallback is None or fallback.step != newest.step - 1:
+        raise AssertionError(f"11c: after truncating step {newest.step}'s "
+                             f"params, latest_valid gave {fallback}")
+    rec = {"sub": "11c_checkpoint_resume", "card": card, "batch": batch,
+           "seq": seq, "layers": cfg["num_layers"], "epochs": FIT_EPOCHS,
+           "batches": FIT_BATCHES, "fit_a_s": fit_a_s,
+           "save_s": [t for t, _ in saves],
+           "save_bytes": saves[-1][1], "restore_s": restore_s,
+           "child_startup_s": {"b": ready_b["ready_wall"] - t_spawn,
+                               "c": ready_c["ready_wall"] - t_spawn_c},
+           "child_kernels_built_already": [ready_b["kernels_built_already"],
+                                           ready_c["kernels_built_already"]],
+           "child_c_fit_s": done_c["fit_s"],
+           "resumed_bit_equal_arrays": len(want),
+           "truncated_step_fallback": [newest.step, fallback.step],
+           "commit_delay_s": CKPT_COMMIT_DELAY,
+           "launches_run_a": launches, "launches_child_c": c_launches}
+    log(json.dumps(rec))
+    if not all(rec["child_kernels_built_already"]):
+        raise AssertionError("11c: a child found no kernel build to reuse")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+def _compression_check(mod, threshold, scales=(1.0, 1000.0)):
+    """Pushes of the module's gradients through a local store with 2-bit
+    compression, once as they are and then scaled by 1000 (BERT's raw
+    gradients rarely reach 0.5, the scaled ones do): each pushed value in
+    {-t, 0, +t}, and the pushed value and the residual equal to the plain
+    formula, r = residual + g, q = ±t where |r| >= t, residual' = r - q,
+    bit for bit."""
+    kv = mt.kv.create("local")
+    kv.set_gradient_compression({"type": "2bit", "threshold": threshold})
+    names = mod._exec._grad_arg_names
+    grads = [mod._exec.grad_dict[n] for n in names]
+    kv.init(names, [mt.nd.zeros(g.shape, ctx=g.context) for g in grads])
+    pushed = {}
+    kv.set_updater(lambda k, r, s: pushed.__setitem__(k, r.data.clone()))
+    residual = {n: torch.zeros_like(g.data, dtype=torch.float32)
+                for n, g in zip(names, grads)}
+    exact, nonzero = True, []
+    for scale in scales:
+        kv.push(names, [g * scale if scale != 1.0 else g for g in grads])
+        count = 0
+        for n, g in zip(names, grads):
+            r = residual[n] + (g.data * scale if scale != 1.0
+                               else g.data).float()
+            t = torch.full((), threshold, device=r.device)
+            q = torch.where(r >= t, t, torch.where(r <= -t, -t,
+                                                   torch.zeros_like(t)))
+            got = pushed[n]
+            exact &= set(torch.unique(got).cpu().tolist()) <= \
+                {-threshold, 0.0, threshold}
+            exact &= bool(torch.equal(got, q.to(got.dtype)))
+            residual[n] = r - q
+            exact &= bool(torch.equal(kv._gc._residuals[n], residual[n]))
+            count += int((got != 0).sum())
+        nonzero.append(count)
+    return {"keys": len(names), "scales": list(scales),
+            "nonzero_codes": nonzero, "exact": exact}
+
+
+def kv_monitor_fit(card, cfg=None, batch=8, seq=512):
+    """11d: ``Module.fit`` on a local KVStore (update-on-kvstore) with a
+    `Monitor` over the outputs, one epoch at dropout 0, against a
+    store-less eager fit of the same batches; then one push of the
+    gradients under 2-bit compression.  Returns the launches."""
+    cfg = dict(BERT_BASE if cfg is None else cfg, dropout=0.0)
+    it = _fit_iter(cfg["vocab"], batch, seq)
+    shapes = {d.name: d.shape for d in it.provide_data + it.provide_label}
+    sym = bert_mlm(mt.sym, **cfg)
+    arg_shapes, _, _ = sym.infer_shape(**shapes)
+    params = random_params({n: s for n, s in zip(sym.list_arguments(),
+                                                 arg_shapes)
+                            if n not in shapes}, SEED)
+    hk.reset_launch_counts()
+    stats, outs_stat = [], []
+
+    def stat(x):
+        return float(x.data.abs().mean())
+
+    mon = mt.Monitor(1, stat_func=stat, pattern=".*")
+    real = mon.toc_print
+    mon.toc_print = lambda: stats.extend(real()) or []
+    mod = mt.mod.Module(sym, data_names=("data", "positions"),
+                        label_names=("mlm_label",))
+    mod.fit(it, num_epoch=1, optimizer="adam", optimizer_params=_fit_adam(),
+            arg_params=params, kvstore=mt.kv.create("local"), monitor=mon,
+            batch_end_callback=lambda p: outs_stat.append(
+                [stat(o) for o in mod.get_outputs()]))
+    launches = dict(hk.LAUNCHES)
+    _check_launches(f"11d fit over {FIT_BATCHES} steps", launches,
+                    cfg["num_layers"] * FIT_BATCHES)
+    with env(MXTPU_FUSED_STEP="0"):
+        ref = mt.mod.Module(sym, data_names=("data", "positions"),
+                            label_names=("mlm_label",))
+        ref.fit(it, num_epoch=1, optimizer="adam",
+                optimizer_params=_fit_adam(), arg_params=params)
+    name, err = _params_err(mod, ref)
+    names = [n for _s, n, _v in stats]
+    mon_equal = [v for _s, _n, v in stats] == \
+        [v for row in outs_stat for v in row] and \
+        names == list(mod.output_names) * FIT_BATCHES
+    log(f"11d: fit on a local store with a Monitor against store-less "
+        f"eager fit: worst parameter {name} off by {err:.3e}; the monitor's "
+        f"{len(stats)} statistics equal the outputs' {mon_equal}")
+    if err > FIT_TOL or not mon_equal:
+        raise AssertionError("11d: the store's fit or the monitor differ")
+    if not isinstance(mod._active_updater().optimizer, mt.optimizer.Adam) \
+            or mod._kvstore is None:
+        raise AssertionError("11d: the fit did not update on the store")
+    it.reset()
+    b = next(it)
+    mod.forward_backward(b)
+    gc = _compression_check(mod, 0.5)
+    log(f"11d: 2-bit compression of {gc['keys']} gradients, pushed at "
+        f"scales {gc['scales']}: values in {{-t, 0, t}} and residual r - q "
+        f"exact {gc['exact']}, nonzero codes {gc['nonzero_codes']}")
+    if not gc["exact"]:
+        raise AssertionError("11d: 2-bit compression is not exact")
+
+    def store_step():
+        mon.tic()
+        mod.forward_backward(b)
+        mod.update()
+        mon.toc()
+    ms = _step_ms(store_step, FIT_TIMED)
+    with env(MXTPU_FUSED_STEP="0"):
+        eager_ms = _step_ms(lambda: (ref.forward_backward(b), ref.update()),
+                            FIT_TIMED)
+    rec = {"sub": "11d_kvstore_monitor_fit", "card": card, "batch": batch,
+           "seq": seq, "layers": cfg["num_layers"],
+           "param_rel_err_vs_storeless": err, "worst_param": name,
+           "monitor_stats": len(stats), "monitor_equal": mon_equal,
+           "compression": gc,
+           "step_p50_ms": {"store_and_monitor": ms,
+                           "storeless_eager_per_parameter": eager_ms,
+                           "phase7_captured": FIT_RECORD.get(
+                               "step_p50_ms", {}).get("captured",
+                                                      "not measured")},
+           "launches": launches}
+    log(json.dumps(rec))
+    return launches
+
+
+def phase_state(card):
+    """Phase 11: sparse storage, the local KVStore, Monitor and
+    crash-consistent checkpoints.  Returns the K1-K3 launches of its main
+    path in this process (11c's run A and 11d)."""
+    t_phase = time.perf_counter()
+    subs = {"11a": sparse_linear(card)}
+    torch.cuda.empty_cache()
+    subs["11b"] = fm_libsvm(card)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches = ckpt_resume(card)
+    subs["11c_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    more = kv_monitor_fit(card)
+    subs["11d_s"] = time.perf_counter() - t0
+    launches = {k: launches[k] + more[k] for k in launches}
+    torch.cuda.empty_cache()
+    rec = {"phase": "state_and_sparse", "card": card, "launches": launches,
+           "11c_s": subs["11c_s"], "11d_s": subs["11d_s"],
+           "phase_s": time.perf_counter() - t_phase}
+    log(json.dumps(rec))
+    log(f"state: phase 11 in {rec['phase_s']:.1f} s")
+    return launches
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -3183,18 +3901,20 @@ def main():
     phase_gluon(card)
     phase_zoo(card)
     rnn_launches = phase_rnn(card)
+    state_launches = phase_state(card)
     leaked = [m for m in ("jax", "mxnet_tpu") if m in sys.modules]
     if leaked:
         raise SystemExit(f"chip_smoke: the port imported {leaked}")
     log(f"launches: serving {serve_launches}, training {train_launches}, "
         f"LSTM serving {lstm_launches}, fit {fit_launches}, RNN "
-        f"{rnn_launches}")
+        f"{rnn_launches}, state {state_launches}")
     kernels = [{
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:92",
         "launches": serve_launches["flash_attn_fwd"] +
-        train_launches["flash_attn_fwd"] + fit_launches["flash_attn_fwd"],
+        train_launches["flash_attn_fwd"] + fit_launches["flash_attn_fwd"] +
+        state_launches["flash_attn_fwd"],
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
@@ -3206,7 +3926,8 @@ def main():
             "name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/flash_attn_bwd.cu",
             "replaces": f"mxnet_tpu/ops/pallas_kernels.py:{line}",
-            "launches": train_launches[name] + fit_launches[name],
+            "launches": train_launches[name] + fit_launches[name] +
+            state_launches[name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],

@@ -24,7 +24,11 @@ imperative path: an NDArray with arithmetic, slicing and gradients,
 `gluon` (Parameter, Block and HybridBlock with ``hybridize``, the `nn`
 layers, the recurrent cells and layers of `gluon.rnn`, the losses,
 `Trainer`, `data`, `utils` and the vision families of
-`model_zoo.vision`).  On the card, inference
+`model_zoo.vision`); the training state and sparse storage: CSR and
+row-sparse NDArrays (`nd.sparse`, `sym.sparse`) with their `.params`
+form, `io.LibSVMIter`, the local `kvstore` with 2-bit compression,
+`monitor.Monitor`, and crash-consistent `checkpoint`s with `fit`'s
+``MXTPU_CKPT_DIR`` auto-resume.  On the card, inference
 forwards, hybridized predict-mode forwards and Module's whole training
 step run as CUDA graphs.
 """
@@ -39,8 +43,13 @@ from . import initializer as init
 from . import module as mod
 from .predictor import Predictor
 from . import autograd, gluon  # noqa: E402
+from . import kvstore, monitor, checkpoint  # noqa: E402
+from . import kvstore as kv  # noqa: E402
+from . import monitor as mon  # noqa: E402
+from .monitor import Monitor  # noqa: E402
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "nd", "sym", "random",
            "io", "init", "initializer", "optimizer", "mod", "rnn",
            "lr_scheduler", "metric", "callback", "model", "Predictor",
-           "autograd", "gluon"]
+           "autograd", "gluon", "kvstore", "kv", "monitor", "mon", "Monitor",
+           "checkpoint"]

@@ -68,8 +68,18 @@ def do_checkpoint(prefix, period=1):
 
 def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):
     """Epoch-end callback running ``mod.save_checkpoint(prefix, ...)``
-    every ``period`` epochs (reference `callback.py:module_checkpoint`)."""
+    every ``period`` epochs (reference `callback.py:module_checkpoint`).
+    ``prefix`` may be a `checkpoint.CheckpointManager`: each firing then
+    commits a crash-consistent step directory (parameters, optimizer
+    states, generators, epoch)."""
     period = int(max(1, period))
+    if hasattr(prefix, "save_module"):
+        manager = prefix
+
+        def _manager_callback(iter_no, sym=None, arg=None, aux=None):
+            if (iter_no + 1) % period == 0:
+                manager.save_module(mod, step=iter_no, epoch=iter_no)
+        return _manager_callback
 
     def _callback(iter_no, sym=None, arg=None, aux=None):
         if (iter_no + 1) % period == 0:

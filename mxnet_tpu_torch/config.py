@@ -72,6 +72,20 @@ _reg("MXTPU_ANOMALY_GUARD", _flag, False,
      "(unified_step.anomaly_guard_enabled)")
 
 
+_reg("MXTPU_CKPT_DIR", str, "",
+     "root directory of the CheckpointManager auto-resume path: set, "
+     "Module.fit checkpoints every epoch and resumes from latest_valid() "
+     "on restart (params, optimizer states, RNG, epoch); empty = off "
+     "(checkpoint.auto_manager)")
+_reg("MXTPU_CKPT_KEEP", int, 3,
+     "rolling retention: committed checkpoints the CheckpointManager keeps; "
+     "older ones (and stale aborted saves) are deleted at each commit")
+_reg("MXTPU_CKPT_COMMIT_DELAY", float, 0.0,
+     "seconds slept between writing a checkpoint's data files and "
+     "committing its MANIFEST.json, which widens the window a crash test "
+     "kills in")
+
+
 def get_env(name: str, default: Optional[Any] = None):
     """Typed env lookup; unregistered names return the raw string (or
     ``default``)."""

@@ -11,6 +11,9 @@ autograd tape with those arguments as leaves; ``backward`` (or
 writes the new values of the auxiliary states it mutates (BatchNorm's
 moving statistics) into ``aux_dict``, in place.  ``make_fused_step``
 builds the one-step training program of `fused_step`.
+`set_monitor_callback` installs a callback that every forward calls
+with each output's name and value (`monitor.Monitor`).  Bound arrays are
+dense: a sparse array fed or bound is densified through its ``data``.
 """
 from __future__ import annotations
 
@@ -85,6 +88,7 @@ class Executor:
         self._graph_plan = None
         self._tape: Optional[Tape] = None
         self._tape_program: Optional[GraphProgram] = None
+        self._monitor = None
 
     @property
     def _grad_arg_names(self) -> List[str]:
@@ -141,7 +145,17 @@ class Executor:
         if is_train:
             self._write_aux(aux)
         self.outputs = [NDArray(o) for o in outs]
+        if self._monitor is not None:
+            for name, arr in zip(self.output_names, self.outputs):
+                self._monitor(name, arr)
         return self.outputs
+
+    def set_monitor_callback(self, callback, monitor_all=False):
+        """Call ``callback(name, NDArray)`` for each output after every
+        forward (reference `Executor.set_monitor_callback`); as in the
+        JAX package, the outputs are what it sees, with or without
+        ``monitor_all``."""
+        self._monitor = callback
 
     def forward(self, is_train=False, **kwargs) -> List[NDArray]:
         """Run the graph as composed (no rewrites)."""

@@ -139,12 +139,24 @@ class Trainer:
         for _, _, arr in batch:
             arr._fresh_grad = False
 
+    def state_bytes(self) -> bytes:
+        """The optimizer's states with the optimizer and its update counts,
+        as one blob (what `checkpoint.CheckpointManager.save(trainer=...)`
+        keeps)."""
+        return self._updater.get_states(dump_optimizer=True)
+
+    def load_state_bytes(self, states: bytes) -> None:
+        """Load a `state_bytes` blob; its optimizer becomes the trainer's,
+        over the trainer's parameters."""
+        self._updater.set_states(states)
+        self._optimizer = self._updater.optimizer
+
     def save_states(self, fname):
-        """The optimizer's states (and its update counts) to ``fname``,
-        written atomically."""
+        """`state_bytes` to ``fname``, written atomically with the CRC32
+        footer."""
         from ..serialization import atomic_write
-        atomic_write(fname, self._updater.get_states(), checksum=True)
+        atomic_write(fname, self.state_bytes(), checksum=True)
 
     def load_states(self, fname):
         from ..serialization import read_payload
-        self._updater.set_states(read_payload(fname))
+        self.load_state_bytes(read_payload(fname))

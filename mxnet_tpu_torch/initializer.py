@@ -38,6 +38,11 @@ def create(name, **kwargs):
         return name
     if not name:
         return Uniform()
+    if isinstance(name, str) and name.startswith("["):
+        # the JSON spelling `Initializer.dumps` writes into ``__init__``
+        import json
+        name, kw = json.loads(name)
+        kwargs = dict(kw, **kwargs)
     key = _NAME_ALIASES.get(str(name).lower(), str(name).lower())
     if key not in _INIT_REGISTRY:
         raise MXNetError(f"unknown initializer {name!r}")
@@ -61,6 +66,12 @@ class Initializer:
 
     def __init__(self, **kwargs):
         self._kwargs = kwargs
+
+    def dumps(self):
+        """``'["name", {kwargs}]'``, which `create` reads back (reference
+        `initializer.py:97-120`)."""
+        import json
+        return json.dumps([type(self).__name__.lower(), self._kwargs])
 
     def __call__(self, name, arr: NDArray):
         """A ``__init__`` attr on an `InitDesc` routes to that

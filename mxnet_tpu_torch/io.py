@@ -1,6 +1,6 @@
 """Data descriptors and iterators (the counterparts of `DataDesc`,
-`DataBatch`, `DataIter` and `NDArrayIter` in `mxnet_tpu/io.py`; reference
-`python/mxnet/io/io.py`).
+`DataBatch`, `DataIter`, `NDArrayIter` and `LibSVMIter` in
+`mxnet_tpu/io.py`; reference `python/mxnet/io/io.py`).
 
 `NDArrayIter` batches in-memory arrays with ``shuffle`` (numpy's global
 stream, as the reference's) and the ``pad``, ``discard`` and
@@ -8,6 +8,9 @@ stream, as the reference's) and the ``pad``, ``discard`` and
 tail), over a single array, a list or a dict.  Numpy sources stay on the
 host as CPU NDArrays and an NDArray stays where it is: the batch is
 copied into the bound inputs on the card by the module that consumes it.
+A CSR source is batched by row slices that keep its storage; a batch
+that joins two slices (``pad``, ``roll_over``) and a shuffle densify, as
+in the JAX package.  `LibSVMIter` streams a LIBSVM file as CSR batches.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import torch
 from .base import MXNetError, numpy_dtype
 from .ndarray.ndarray import NDArray
 
-__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter"]
+__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "LibSVMIter"]
 
 
 class DataDesc(namedtuple("DataDesc", ["name", "shape"])):
@@ -215,7 +218,7 @@ class NDArrayIter(DataIter):
             start = 0
         if end is None:
             end = data_source[0][1].shape[0] if data_source else 0
-        return [NDArray(x[1].data[start:end]) for x in data_source]
+        return [x[1][start:end] for x in data_source]
 
     @staticmethod
     def _concat(first_data, second_data):
@@ -267,3 +270,96 @@ class NDArrayIter(DataIter):
         np.random.shuffle(self.idx)
         self.data = [(k, _take(v, self.idx)) for k, v in self.data]
         self.label = [(k, _take(v, self.idx)) for k, v in self.label]
+
+
+class LibSVMIter(DataIter):
+    """A LIBSVM file (``label index:value ...`` lines) as CSR data batches
+    of ``batch_size`` rows (reference `src/io/iter_libsvm.cc`; the JAX
+    package's `io.LibSVMIter`).  The file is read once into its CSR
+    components and never densified.  ``num_parts``/``part_index`` keep
+    every ``num_parts``-th row from ``part_index``; ``round_batch`` fills
+    the last batch from the start of the file (else it is dropped).
+    ``label_libsvm`` and ``label_shape`` are accepted and unused, as in
+    the JAX package: the labels are each line's first field."""
+
+    def __init__(self, data_libsvm, data_shape, batch_size=1,
+                 label_libsvm=None, label_shape=None, round_batch=True,
+                 num_parts=1, part_index=0, **kwargs):
+        super().__init__(batch_size)
+        if int(num_parts) > 1 and not 0 <= int(part_index) < int(num_parts):
+            raise MXNetError(f"part_index {part_index} out of range for "
+                             f"{num_parts} parts")
+        self._data_shape = tuple(data_shape)
+        self._ncol = int(np.prod(self._data_shape))
+        values, indices, indptr, labels = [], [], [0], []
+        row = 0
+        with open(data_libsvm) as fin:
+            for line in fin:
+                parts = line.split()
+                if not parts:
+                    continue
+                keep = (num_parts <= 1
+                        or row % int(num_parts) == int(part_index))
+                row += 1
+                if not keep:
+                    continue
+                labels.append(float(parts[0]))
+                for tok in parts[1:]:
+                    k, v = tok.split(":")
+                    indices.append(int(k))
+                    values.append(float(v))
+                indptr.append(len(values))
+        self._values = np.asarray(values, np.float32)
+        self._indices = np.asarray(indices, np.int32)
+        self._indptr = np.asarray(indptr, np.int64)
+        self._n = len(labels)
+        self._labels = np.asarray(labels, np.float32)
+        self._cursor = -batch_size
+        self.round_batch = round_batch
+        self._source = data_libsvm
+        self.num_parts = int(num_parts)
+        self.part_index = int(part_index)
+
+    def repartition(self, num_parts, part_index):
+        """Read this worker's new shard of the same file and rewind."""
+        self.__init__(self._source, self._data_shape,
+                      batch_size=self.batch_size,
+                      round_batch=self.round_batch,
+                      num_parts=num_parts, part_index=part_index)
+
+    @property
+    def provide_data(self):
+        return [DataDesc("data", (self.batch_size,) + self._data_shape)]
+
+    @property
+    def provide_label(self):
+        return [DataDesc("label", (self.batch_size,))]
+
+    def reset(self):
+        self._cursor = -self.batch_size
+
+    def next(self):
+        from .ndarray.sparse import CSRNDArray
+        self._cursor += self.batch_size
+        if self._cursor >= self._n:
+            raise StopIteration
+        end = self._cursor + self.batch_size
+        if end > self._n:
+            if not self.round_batch:
+                raise StopIteration
+            idx = np.concatenate([np.arange(self._cursor, self._n),
+                                  np.arange(end - self._n)])
+        else:
+            idx = np.arange(self._cursor, end)
+        lo, hi = self._indptr[idx], self._indptr[idx + 1]
+        counts = hi - lo
+        gather = np.concatenate([np.arange(a, b) for a, b in zip(lo, hi)]) \
+            if len(idx) else np.zeros(0, np.int64)
+        bindptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+        data = CSRNDArray(torch.from_numpy(self._values[gather]),
+                          torch.from_numpy(self._indices[gather]),
+                          torch.from_numpy(bindptr),
+                          (len(idx), self._ncol))
+        label = NDArray(torch.from_numpy(self._labels[idx]))
+        return DataBatch(data=[data], label=[label],
+                         pad=max(0, end - self._n), index=None)

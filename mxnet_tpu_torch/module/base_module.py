@@ -8,6 +8,14 @@ program, captured as a CUDA graph on the card) where the module has one,
 else ``forward_backward()`` + ``update()``; the metric is updated on the
 host unless the step accumulated it itself (``last_step_metric_done``).
 ``score`` and ``predict`` run inference forwards.
+
+With ``MXTPU_CKPT_DIR`` set, ``fit`` commits a checkpoint after every
+epoch (`checkpoint.CheckpointManager.save_module`) and, on a restart,
+resumes after the newest valid one: parameters, optimizer states (with
+their update counts) and the generators restored, so that the resumed
+run ends where an uninterrupted one does.  The JAX package's preemption
+supervisor (`train_driver.py`) and its mid-epoch ``preempted`` resume
+wait for the port of that module.
 """
 from __future__ import annotations
 
@@ -18,6 +26,7 @@ from typing import List
 import torch
 
 from .. import metric as metric_mod
+from ..base import MXNetError
 from ..ndarray.ndarray import NDArray
 
 __all__ = ["BaseModule"]
@@ -133,23 +142,52 @@ class BaseModule:
             begin_epoch=0, num_epoch=None, validation_metric=None,
             monitor=None):
         """The epoch/batch training loop (reference
-        `base_module.py:409`).  The JAX package's ``MXTPU_CKPT_DIR``
-        auto-resume waits for the port's checkpoints; ``monitor`` is not
-        ported and must be None."""
+        `base_module.py:409`), with ``MXTPU_CKPT_DIR``'s checkpoint after
+        each epoch and resume on restart (the module's docstring), and
+        ``monitor``'s ``tic``/``toc_print`` around each batch."""
         assert num_epoch is not None, "please specify num_epoch"
-        if monitor is not None:
-            raise NotImplementedError("Module.fit: monitors are not ported")
         from .. import initializer as init_mod
+        from ..checkpoint import auto_manager, split_arg_aux
         optimizer_params = dict(optimizer_params or {"learning_rate": 0.01})
         initializer = initializer or init_mod.Uniform(0.01)
+        ckpt_mgr = auto_manager(logger=self.logger)
+        resume = None
+        if ckpt_mgr is not None:
+            ck = ckpt_mgr.latest_valid()
+            if ck is not None:
+                resume = ckpt_mgr.load(ck)
+                arg_r, aux_r = split_arg_aux(resume.get("params") or {})
+                arg_params = dict(arg_params or {}, **arg_r)
+                aux_params = dict(aux_params or {}, **aux_r)
+                if (resume.get("extra") or {}).get("preempted") and \
+                        resume.get("batch") is not None:
+                    raise MXNetError(
+                        f"{ck} is a mid-epoch preemption snapshot of the "
+                        "JAX package's train_driver; resuming inside an "
+                        "epoch waits for the port of that module")
+                done = ck.epoch if ck.epoch is not None else ck.step
+                begin_epoch = max(begin_epoch, int(done) + 1)
+                self.logger.info("MXTPU_CKPT_DIR auto-resume: restored %s; "
+                                 "continuing at epoch %d", ck, begin_epoch)
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
+        if monitor is not None:
+            self.install_monitor(monitor)
         self.init_params(initializer=initializer, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
-                         force_init=force_init)
+                         force_init=force_init or (resume is not None
+                                                   and bool(arg_params)))
         self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
                             optimizer_params=optimizer_params)
+        if resume is not None:
+            if resume.get("optimizer_states"):
+                self.load_optimizer_states_bytes(resume["optimizer_states"])
+            if resume.get("rng"):
+                # after the parameters' and the optimizer's set-up, so the
+                # stream continues where the saved run's stood
+                from .. import random as rnd_mod
+                rnd_mod.set_state(resume["rng"])
         if validation_metric is None:
             validation_metric = eval_metric
         if not isinstance(eval_metric, metric_mod.EvalMetric):
@@ -161,11 +199,15 @@ class BaseModule:
             nbatch = 0
             train_data.reset()
             for data_batch in train_data:
+                if monitor is not None:
+                    monitor.tic()
                 if not self.fused_step(data_batch, eval_metric=eval_metric):
                     self.forward_backward(data_batch)
                     self.update()
                 if not self.last_step_metric_done:
                     self.update_metric(eval_metric, data_batch.label)
+                if monitor is not None:
+                    monitor.toc_print()
                 if batch_end_callback is not None:
                     for cb in _as_list(batch_end_callback):
                         cb(_BatchEndParam(epoch, nbatch, eval_metric,
@@ -180,6 +222,9 @@ class BaseModule:
             if epoch_end_callback is not None:
                 for cb in _as_list(epoch_end_callback):
                     cb(epoch, self.symbol, arg_p, aux_p)
+            if ckpt_mgr is not None:
+                ckpt_mgr.save_module(self, step=epoch, epoch=epoch,
+                                     batch=nbatch)
             if eval_data is not None:
                 res = self.score(eval_data, validation_metric,
                                  batch_end_callback=eval_batch_end_callback,
@@ -187,6 +232,12 @@ class BaseModule:
                 for name, val in res:
                     self.logger.info("Epoch[%d] Validation-%s=%f",
                                      epoch, name, val)
+
+    def install_monitor(self, mon):
+        raise NotImplementedError
+
+    def load_optimizer_states_bytes(self, blob: bytes) -> None:
+        raise NotImplementedError
 
     def set_params(self, arg_params, aux_params, allow_missing=False,
                    force_init=True, allow_extra=False):

@@ -119,6 +119,8 @@ class BucketingModule(BaseModule):
         default = self._buckets[self._default_bucket_key]
         mod._optimizer = default._optimizer
         mod._updater = default._updater
+        mod._kvstore = default._kvstore
+        mod._kv_inited = default._kv_inited
         mod.optimizer_initialized = default.optimizer_initialized
 
     def switch_bucket(self, bucket_key, data_shapes, label_shapes=None):
@@ -218,3 +220,18 @@ class BucketingModule(BaseModule):
 
     def update_metric(self, eval_metric, labels, pre_sliced=False):
         self._curr_module.update_metric(eval_metric, labels)
+
+    def install_monitor(self, mon):
+        """Hand every bucket's forward outputs to ``mon``."""
+        for mod in self._buckets.values():
+            mod.install_monitor(mon)
+
+    def _active_updater(self):
+        return self._buckets[self._default_bucket_key]._active_updater()
+
+    def load_optimizer_states_bytes(self, blob: bytes) -> None:
+        default = self._buckets[self._default_bucket_key]
+        default.load_optimizer_states_bytes(blob)
+        for mod in self._buckets.values():
+            if mod is not default:
+                self._share_optimizer(mod)

@@ -12,8 +12,12 @@ as a CUDA graph on the card.  Without a ``context`` it runs on the card.
 net's carried states): zeros at bind, never trained, read and written by
 `get_states` / `set_states`.  ``save_checkpoint`` / `Module.load` write
 and read the JAX package's ``prefix-symbol.json`` + ``prefix-NNNN.params``
-(and ``.states`` for the optimizer).  KVStore and monitors come with
-later slices.
+(and ``.states`` for the optimizer).  With a `kvstore.KVStore` object
+(or a ``dist`` type name) ``init_optimizer`` updates on the store: the
+store runs the optimizer, and each update pushes the gradients and pulls
+the weights back.  A store, a `monitor.Monitor` (`install_monitor`) or
+a sparse input batch takes the step off the fused path onto
+``forward_backward`` + ``update``, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -59,6 +63,8 @@ class Module(BaseModule):
         self._data_shapes = None
         self._label_shapes = None
         self._fused_train_step = None
+        self._kvstore = None
+        self._kv_inited = set()
         # `Module.load`'s checkpoint, taken by bind/init_params and
         # init_optimizer
         self._preloaded = None
@@ -168,14 +174,22 @@ class Module(BaseModule):
                        optimizer_params=None, force_init=False):
         """Create the optimizer and its updater.  A named optimizer gets
         ``rescale_grad = 1/batch``, because the loss head's gradients are
-        summed over the batch (reference `module.py:332-333`)."""
+        summed over the batch (reference `module.py:332-333`; times the
+        workers of a ``dist_*_sync`` store).  A `KVStore` object, or a
+        type name with ``dist``, updates on the store (reference
+        `_update_params_on_kvstore`); another name updates locally."""
         if self.optimizer_initialized and not force_init:
             return
-        if kvstore not in (None, "local", "device"):
-            raise MXNetError("Module: only the local update is ported; "
-                             f"kvstore {kvstore!r} waits for KVStore")
+        self._kvstore = None
+        self._kv_inited = set()
+        if isinstance(kvstore, str) and "dist" in kvstore:
+            from .. import kvstore as kv_mod
+            kvstore = kv_mod.create(kvstore)
         batch_size = self._data_shapes[0].shape[0] if self._data_shapes \
             else None
+        if batch_size and kvstore and not isinstance(kvstore, str) and \
+                "dist" in kvstore.type and "_sync" in kvstore.type:
+            batch_size *= kvstore.num_workers
         idx2name = dict(enumerate(self._exec.arg_names))
         if isinstance(optimizer, str):
             optimizer_params = dict(optimizer_params or {})
@@ -199,6 +213,9 @@ class Module(BaseModule):
             optimizer.set_wd_mult(optimizer._args_wd_mult)
         self._optimizer = optimizer
         self._updater = opt_mod.get_updater(optimizer)
+        if kvstore and not isinstance(kvstore, str):
+            self._kvstore = kvstore
+            kvstore.set_optimizer(self._optimizer)
         if self._preload_states:
             self.load_optimizer_states(self._preload_states)
             self._preload_states = None
@@ -248,7 +265,11 @@ class Module(BaseModule):
         + ``update()``."""
         self.last_step_metric_done = False
         if not (fused_enabled() and self.binded and self.params_initialized
-                and self.optimizer_initialized and self.for_training):
+                and self.optimizer_initialized and self.for_training
+                and self._kvstore is None and self._exec._monitor is None):
+            return False
+        if any(getattr(a, "stype", "default") != "default"
+               for a in list(data_batch.data) + list(data_batch.label or [])):
             return False
         inputs = self._input_names()
         train_names = []
@@ -279,15 +300,27 @@ class Module(BaseModule):
 
     def update(self):
         """Apply the optimizer to every parameter that has a gradient
-        (reference `module.py:644`, local updater): one multi-tensor
-        update, or with ``MXTPU_FUSED_STEP=0`` (or an optimizer without
-        a multi-tensor plan) the per-parameter loop."""
+        (reference `module.py:644`).  Locally: one multi-tensor update, or
+        with ``MXTPU_FUSED_STEP=0`` (or an optimizer without a
+        multi-tensor plan) the per-parameter loop.  On a store: one
+        ``pushpull`` of every gradient into its weight, keyed by name, in
+        parameter order (priority -position)."""
         if not self.optimizer_initialized:
             raise MXNetError("call init_optimizer before update")
         skip = self._input_names() | self._fixed_param_names
         items = [(i, self._exec.grad_dict[name], self._exec.arg_dict[name])
                  for i, name in enumerate(self._exec.arg_names)
                  if name not in skip and name in self._exec.grad_dict]
+        if self._kvstore is not None:
+            names = [self._exec.arg_names[i] for i, _g, _w in items]
+            for name, (_i, _g, weight) in zip(names, items):
+                if name not in self._kv_inited:
+                    self._kvstore.init(name, weight)
+                    self._kv_inited.add(name)
+            self._kvstore.pushpull(names, [g for _i, g, _w in items],
+                                   out=[w for _i, _g, w in items],
+                                   priority=[-j for j in range(len(items))])
+            return
         if fused_enabled() and self._updater.update_multi(items):
             return
         for index, grad, weight in items:
@@ -295,6 +328,19 @@ class Module(BaseModule):
 
     def update_metric(self, eval_metric, labels, pre_sliced=False):
         eval_metric.update(labels, self.get_outputs())
+
+    def install_monitor(self, mon):
+        """Hand every forward's outputs to ``mon`` (reference
+        `module.py:install_monitor`)."""
+        mon.install(self._exec)
+
+    def _active_updater(self):
+        """The updater that applies the updates: the store's under
+        update-on-kvstore, else the module's."""
+        if self._kvstore is not None and \
+                self._kvstore._updater_obj is not None:
+            return self._kvstore._updater_obj
+        return self._updater
 
     # ------------------------------------------------------------------
     def get_outputs(self, merge_multi_context=True):
@@ -372,14 +418,24 @@ class Module(BaseModule):
         if self._updater is None:
             raise MXNetError("call init_optimizer before "
                              "save_optimizer_states")
-        atomic_write(fname, self._updater.get_states(), checksum=True)
+        atomic_write(fname, self._active_updater().get_states(),
+                     checksum=True)
 
     def load_optimizer_states(self, fname):
         from ..serialization import read_payload
+        self.load_optimizer_states_bytes(read_payload(fname))
+
+    def load_optimizer_states_bytes(self, blob: bytes) -> None:
+        """Load `Updater.get_states` bytes of either package into the
+        active updater; an optimizer in them (with its update counts)
+        becomes the module's."""
         if self._updater is None:
             raise MXNetError("call init_optimizer before "
                              "load_optimizer_states")
-        self._updater.set_states(read_payload(fname))
+        upd = self._active_updater()
+        upd.set_states(blob)
+        if upd is self._updater:
+            self._optimizer = upd.optimizer
 
 
 def _parse_shapes(data_shapes, label_shapes):

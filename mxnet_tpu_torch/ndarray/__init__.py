@@ -3,6 +3,7 @@ from .. import ops as _ops  # noqa: F401  (registers the ops)
 from .ndarray import (NDArray, arange, array, empty, full, ones, waitall,
                       zeros)
 from .register import invoke, make_nd_functions
+from . import sparse  # noqa: E402
 
 make_nd_functions(globals())
 
@@ -14,4 +15,4 @@ def concat_nd(arrays, axis=0):
 
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
-           "waitall", "invoke", "concat_nd"]
+           "waitall", "invoke", "concat_nd", "sparse"]

@@ -214,7 +214,9 @@ class NDArray:
     # -- autograd -----------------------------------------------------------
     def attach_grad(self, grad_req: str = "write", stype=None):
         """Make this array a variable to differentiate (reference
-        `Imperative::MarkVariables`), with a zeroed gradient buffer."""
+        `Imperative::MarkVariables`), with a zeroed gradient buffer.
+        ``stype`` is accepted and the buffer stays dense, as in the JAX
+        package."""
         from .. import autograd
         autograd.mark_variables(self, NDArray(torch.zeros_like(
             self.data, memory_format=torch.contiguous_format)), grad_req)
@@ -359,6 +361,13 @@ class NDArray:
     def zeros_like(self):
         return _invoke("zeros_like", self)
 
+    def tostype(self, stype: str):
+        """This array in storage ``stype`` (`sparse.cast_storage`)."""
+        if stype == "default":
+            return self
+        from .sparse import cast_storage
+        return cast_storage(self, stype)
+
     def ones_like(self):
         return _invoke("ones_like", self)
 
@@ -370,7 +379,12 @@ def _device(ctx: Optional[Context], what: str) -> torch.device:
 def array(source, ctx: Optional[Context] = None, dtype=None) -> NDArray:
     """An NDArray from an NDArray, tensor or array-like on ``ctx`` (the
     card when none is given); like MXNet, a non-array source defaults to
-    float32."""
+    float32.  A sparse NDArray or a scipy.sparse source keeps its storage
+    (`sparse.array`)."""
+    if getattr(source, "stype", "default") != "default" or \
+            type(source).__module__.startswith("scipy.sparse"):
+        from . import sparse
+        return sparse.array(source, ctx=ctx, dtype=dtype)
     if isinstance(source, NDArray):
         t = source.data.detach()
     elif isinstance(source, torch.Tensor):

@@ -39,6 +39,13 @@ _BINARY = {
     "broadcast_lesser": (lambda l, r: (l < r).to(l.dtype), ("_lesser",)),
     "broadcast_lesser_equal": (lambda l, r: (l <= r).to(l.dtype),
                                ("_lesser_equal",)),
+    "broadcast_hypot": (torch.hypot, ("_hypot",)),
+    "broadcast_logical_and": (
+        lambda l, r: ((l != 0) & (r != 0)).to(l.dtype), ("_logical_and",)),
+    "broadcast_logical_or": (
+        lambda l, r: ((l != 0) | (r != 0)).to(l.dtype), ("_logical_or",)),
+    "broadcast_logical_xor": (
+        lambda l, r: ((l != 0) ^ (r != 0)).to(l.dtype), ("_logical_xor",)),
 }
 
 for _name, (_fn, _aliases) in _BINARY.items():

@@ -104,6 +104,13 @@ _SCALAR = {
     "_greater_equal_scalar": lambda x, s: (x >= s).to(x.dtype),
     "_lesser_scalar": lambda x, s: (x < s).to(x.dtype),
     "_lesser_equal_scalar": lambda x, s: (x <= s).to(x.dtype),
+    "_rmod_scalar": lambda x, s: torch.remainder(
+        torch.as_tensor(s, dtype=x.dtype, device=x.device), x),
+    "_hypot_scalar": lambda x, s: torch.hypot(
+        x, torch.as_tensor(s, dtype=x.dtype, device=x.device)),
+    "_logical_and_scalar": lambda x, s: ((x != 0) & (s != 0)).to(x.dtype),
+    "_logical_or_scalar": lambda x, s: ((x != 0) | (s != 0)).to(x.dtype),
+    "_logical_xor_scalar": lambda x, s: ((x != 0) ^ (s != 0)).to(x.dtype),
 }
 
 for _name, _fn in _SCALAR.items():
@@ -113,3 +120,38 @@ alias("_plus_scalar", "_PlusScalar")
 alias("_minus_scalar", "_MinusScalar")
 alias("_mul_scalar", "_MulScalar")
 alias("_div_scalar", "_DivScalar")
+
+
+class _MakeLoss(torch.autograd.Function):
+    """Identity forward; the backward ignores the incoming gradient and
+    seeds grad_scale, over the batch ('batch') or over the count of
+    elements above valid_thresh ('valid') (reference
+    `make_loss-inl.h:91-119`)."""
+
+    @staticmethod
+    def forward(ctx, x, grad_scale, normalization, valid_thresh):
+        ctx.save_for_backward(x if normalization == "valid" else None)
+        ctx.opts = (grad_scale, normalization, valid_thresh)
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        grad_scale, normalization, valid_thresh = ctx.opts
+        if normalization == "batch":
+            seed = torch.full_like(g, grad_scale / g.shape[0])
+        elif normalization == "valid":
+            (x,) = ctx.saved_tensors
+            count = (x > valid_thresh).to(g.dtype).sum().clamp_min(1.0)
+            seed = torch.full_like(g, grad_scale) / count
+        else:  # null
+            seed = torch.full_like(g, grad_scale)
+        return seed, None, None, None
+
+
+@register("make_loss", num_inputs=1, input_names=["data"])
+def _make_loss(attrs, x):
+    """Reference `MakeLoss`: x forward; as the loss head, its gradient is
+    the seed `_MakeLoss` computes, whatever comes in."""
+    return _MakeLoss.apply(x, attrs.get_float("grad_scale", 1.0),
+                           attrs.get_str("normalization", "null"),
+                           attrs.get_float("valid_thresh", 0.0))

@@ -1,5 +1,5 @@
 """Shape and product ops of the ported paths (the counterparts of
-`mxnet_tpu/ops/matrix.py`): batch_dot, transpose, swapaxes, reshape,
+`mxnet_tpu/ops/matrix.py`): dot, batch_dot, transpose, swapaxes, reshape,
 Flatten, Pad, where, zeros_like/ones_like, Embedding, the sequence
 plumbing of the unrolled RNN cells (SliceChannel/split, slice_axis,
 Concat, stack, squeeze and expand_dims), and the zero-input
@@ -18,6 +18,20 @@ import torch
 import torch.nn.functional as F
 
 from .registry import DEVICE, alias, register
+
+
+@register("dot", num_inputs=2, input_names=["lhs", "rhs"])
+def _dot(attrs, lhs, rhs):
+    """Reference `dot` (`src/operator/tensor/dot-inl.h`): the last axis of
+    lhs against the first of rhs (matrix semantics for N-D), with
+    ``transpose_a``/``transpose_b`` reversing an operand's axes."""
+    if attrs.get_bool("transpose_a", False):
+        lhs = lhs.permute(*reversed(range(lhs.dim())))
+    if attrs.get_bool("transpose_b", False):
+        rhs = rhs.permute(*reversed(range(rhs.dim())))
+    if lhs.dim() == 1 and rhs.dim() == 1:
+        return torch.dot(lhs, rhs)
+    return torch.tensordot(lhs, rhs, dims=([lhs.dim() - 1], [0]))
 
 
 @register("batch_dot", num_inputs=2, input_names=["lhs", "rhs"])

@@ -588,3 +588,37 @@ def _softmax_output(attrs, data, label):
 
 
 alias("SoftmaxOutput", "Softmax")
+
+
+# ---------------------------------------------------------------------------
+# LinearRegressionOutput (reference src/operator/regression_output-inl.h)
+# ---------------------------------------------------------------------------
+
+class _LinearRegressionOutput(torch.autograd.Function):
+    """Identity forward; backward (data - label)·grad_scale / num_output,
+    the incoming gradient ignored (a loss head)."""
+
+    @staticmethod
+    def forward(ctx, data, label, scale):
+        ctx.save_for_backward(data, label)
+        ctx.scale = scale
+        return data.clone()
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        data, label = ctx.saved_tensors
+        return (data - label.reshape(data.shape)) * ctx.scale, None, None
+
+
+@register("LinearRegressionOutput", num_inputs=2,
+          input_names=["data", "label"])
+def _linear_regression_output(attrs, data, label):
+    """Reference `LinearRegressionOutput`: the gradient's seed is
+    grad_scale / num_output, num_output = label.size / batch
+    (`regression_output-inl.h:200-206`)."""
+    num_output = 1
+    for s in label.shape[1:]:
+        num_output *= int(s)
+    scale = attrs.get_float("grad_scale", 1.0) / max(num_output, 1)
+    return _LinearRegressionOutput.apply(data, label.detach(), scale)

@@ -1,5 +1,6 @@
 """Optimizer update ops (the counterparts of `sgd_update`, `sgd_mom_update`,
-`adam_update`, `multi_sgd_update` and `multi_sgd_mom_update` in
+`adam_update`, `adagrad_update` (alias `_sparse_adagrad_update`),
+`multi_sgd_update` and `multi_sgd_mom_update` in
 `mxnet_tpu/ops/optimizer_ops.py`; reference `src/operator/optimizer_op.cc`).
 
 Each update is written once, over lists of tensors and a set of list
@@ -27,9 +28,9 @@ from typing import Callable, Dict, List, Sequence, Union
 
 import torch
 
-from .registry import register
+from .registry import alias, register
 
-__all__ = ["sgd_update", "sgd_mom_update", "adam_update",
+__all__ = ["sgd_update", "sgd_mom_update", "adam_update", "adagrad_update",
            "multi_sgd_update", "multi_sgd_mom_update", "apply_multi",
            "MULTI_UPDATES"]
 
@@ -47,6 +48,7 @@ class _Lists:
     addcmul_ = staticmethod(torch._foreach_addcmul_)
     addcdiv_ = staticmethod(torch._foreach_addcdiv_)
     sqrt = staticmethod(torch._foreach_sqrt)
+    div = staticmethod(torch._foreach_div)
     clamp_min_ = staticmethod(torch._foreach_clamp_min_)
     clamp_max_ = staticmethod(torch._foreach_clamp_max_)
 
@@ -70,6 +72,7 @@ class _One:
     addcdiv_ = staticmethod(
         lambda ts, a, b, value: ts[0].addcdiv_(a[0], b[0], value=value))
     sqrt = staticmethod(lambda ts: [ts[0].sqrt()])
+    div = staticmethod(lambda ts, o: [ts[0] / o[0]])
     clamp_min_ = staticmethod(lambda ts, v: ts[0].clamp_min_(v))
     clamp_max_ = staticmethod(lambda ts, v: ts[0].clamp_max_(v))
 
@@ -119,12 +122,26 @@ def _adam(ops, ws, gs, states, lr, wd, rescale, clip, static):
     ops.addcdiv_(ws, ops.mul(means, lr), denom, value=-1.0)
 
 
+def _adagrad(ops, ws, gs, states, lr, wd, rescale, clip, static):
+    """history += g²; w -= lr·(g / sqrt(history + eps) + wd·w), the
+    gradient rescaled and clipped first (the JAX package's
+    `adagrad_update`: wd stays out of the history)."""
+    (hist,) = states
+    eps = float(static.get("epsilon", 1e-7))
+    g = _grads(ops, ws, gs, 0.0, rescale, clip)
+    ops.addcmul_(hist, g, g, value=1.0)
+    step = ops.add(ops.div(g, ops.sqrt(ops.add(hist, eps))),
+                   ops.mul(ws, wd))
+    ops.sub_(ws, ops.mul(step, lr))
+
+
 #: op name -> its update ``fn(ops, ws, gs, state lists, lr, wd, rescale,
 #: clip, static attrs)``
 MULTI_UPDATES: Dict[str, Callable] = {
     "sgd_update": _sgd,
     "sgd_mom_update": _sgd_mom,
     "adam_update": _adam,
+    "adagrad_update": _adagrad,
 }
 
 
@@ -167,6 +184,15 @@ def sgd_mom_update(attrs, weight, grad, mom):
           mutate_inputs=(2, 3))
 def adam_update(attrs, weight, grad, mean, var):
     return _single("adam_update", attrs, weight, grad, [mean, var])
+
+
+@register("adagrad_update", num_inputs=3,
+          input_names=["weight", "grad", "history"], mutate_inputs=(2,))
+def adagrad_update(attrs, weight, grad, history):
+    return _single("adagrad_update", attrs, weight, grad, [history])
+
+
+alias("adagrad_update", "_sparse_adagrad_update")
 
 
 def _multi(op_name, attrs, tensors, per):

@@ -2,7 +2,9 @@
 `python/mxnet/optimizer/optimizer.py`): `Optimizer` with its learning-rate
 schedule, per-parameter lr/wd multipliers (from the symbol's attrs, the
 names, or ``param_dict``) and multi-precision master weights, `SGD`,
-`Adam`, and the `Updater` that holds their states.
+`Adam`, `AdaGrad`, and the `Updater` that holds their states.  A
+row-sparse gradient is densified and updates every row, as in the JAX
+package: ``lazy_update`` is accepted and stored, with no lazy rows.
 
 Each `update` runs one registered update op of `ops/optimizer_ops.py` on
 the weight's own tensors and writes the new weight it returns into the
@@ -11,20 +13,29 @@ multi-tensor path (`unified_step.multi_tensor_apply`, which
 `Updater.update_multi` takes), and ``_fused_scalars`` the lr and wd it
 passes, so both paths give the same numbers.  States live on the weight's
 device, which is the card unless the caller bound elsewhere.
+
+`Updater.get_states` writes the JAX package's pickle: each state as numpy
+arrays, and with ``dump_optimizer`` the optimizer too.  Classes in it are
+named by the JAX package's module paths (`_StatePickler`) and read back
+onto the port's (`_StateUnpickler`), so a states file of either package
+loads in the other; the port never imports the JAX package to do so.
 """
 from __future__ import annotations
 
+import io
 import math
+import pickle
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
 from ..base import MXNetError
 from ..ndarray.ndarray import NDArray
 from ..ops import registry as _reg
 
-__all__ = ["Optimizer", "SGD", "Adam", "Updater", "get_updater", "create",
-           "register"]
+__all__ = ["Optimizer", "SGD", "Adam", "AdaGrad", "Updater", "get_updater",
+           "create", "register"]
 
 _OPT_REGISTRY: Dict[str, type] = {}
 
@@ -93,6 +104,13 @@ class Optimizer:
         self.set_wd_mult({})
 
     create_optimizer = staticmethod(create)
+
+    def __getstate__(self):
+        # a Trainer's ``param_dict`` holds its live Parameters: the
+        # trainer attaches them again after a load
+        state = dict(self.__dict__)
+        state["param_dict"] = {}
+        return state
 
     def set_lr_mult(self, args_lr_mult):
         """Symbol ``__lr_mult__`` attrs seed the table; explicit args
@@ -253,6 +271,30 @@ class SGD(Optimizer):
 
 
 @register
+class AdaGrad(Optimizer):
+    """AdaGrad (reference `optimizer.py:AdaGrad`): ``eps`` keeps the
+    history's square root off zero."""
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return _zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        _run("adagrad_update", (weight, grad, state),
+             epsilon=self.float_stable_eps, **self._base_kwargs(index))
+
+    def _fused_plan(self, index, weight, state):
+        if self._mp_active(weight):
+            return None
+        return ("adagrad_update", {"epsilon": self.float_stable_eps},
+                [state])
+
+
+@register
 class Adam(Optimizer):
     """Adam (reference `optimizer.py:1107`)."""
 
@@ -304,6 +346,12 @@ class Updater:
             self.states[index] = \
                 self.optimizer.create_state_multi_precision(index, weight)
             self.states_synced[index] = True
+        elif not self.states_synced.get(index, True):
+            # loaded states land on the host; they join their weight's
+            # device at first use
+            self.states[index] = _to_device(self.states[index],
+                                            weight.data.device)
+            self.states_synced[index] = True
         return self.states[index]
 
     def _set_context(self, weight) -> None:
@@ -315,23 +363,29 @@ class Updater:
                                               self._state(index, weight))
 
     def get_states(self, dump_optimizer=False) -> bytes:
-        """The states as one pickled blob of host arrays, with each
-        parameter's update count (reference `optimizer.py:1668`)."""
-        import pickle
-        return pickle.dumps({
-            "states": {k: _state_to_host(v) for k, v in self.states.items()},
-            "counts": dict(self.optimizer._index_update_count),
-            "num_update": self.optimizer.num_update})
+        """The states as the JAX package pickles them (reference
+        `optimizer.py:1668`): ``{index: numpy state}``, or with
+        ``dump_optimizer`` ``(states, optimizer)``, the optimizer carrying
+        the update counts."""
+        states = {k: _state_to_numpy(v) for k, v in self.states.items()}
+        obj = (states, self.optimizer) if dump_optimizer else states
+        buf = io.BytesIO()
+        _StatePickler(buf, pickle.DEFAULT_PROTOCOL).dump(obj)
+        return buf.getvalue()
 
     def set_states(self, blob: bytes) -> None:
-        import pickle
-        obj = pickle.loads(blob)
-        self.states = {k: _state_from_host(v)
-                       for k, v in obj["states"].items()}
-        self.states_synced = {k: True for k in self.states}
-        self.optimizer._index_update_count.clear()
-        self.optimizer._index_update_count.update(obj["counts"])
-        self.optimizer.num_update = obj["num_update"]
+        """Load `get_states`' blob, of either package; an optimizer in it
+        replaces this updater's (its update counts with it)."""
+        obj = _StateUnpickler(io.BytesIO(blob)).load()
+        if isinstance(obj, tuple) and len(obj) == 2 and \
+                isinstance(obj[1], Optimizer):
+            states, loaded = obj
+            loaded.param_dict = self.optimizer.param_dict
+            self.optimizer = loaded
+        else:
+            states = obj
+        self.states = {k: _state_from_numpy(v) for k, v in states.items()}
+        self.states_synced = {k: False for k in self.states}
 
     def update_multi(self, items) -> bool:
         """Update many parameters (``items``: ``[(index, grad, weight)]``)
@@ -347,20 +401,66 @@ class Updater:
         return self.optimizer.multi_update(prepared)
 
 
-def _state_to_host(state):
+def _state_to_numpy(state):
     if isinstance(state, NDArray):
-        return ("nd", state.asnumpy(), str(state.data.device))
+        return state.asnumpy()
     if isinstance(state, (tuple, list)):
-        return tuple(_state_to_host(s) for s in state)
+        return tuple(_state_to_numpy(s) for s in state)
     return state
 
 
-def _state_from_host(state):
-    if isinstance(state, tuple) and len(state) == 3 and state[0] == "nd":
-        return NDArray(torch.from_numpy(state[1]).to(state[2]))
+def _state_from_numpy(state):
+    if isinstance(state, np.ndarray):
+        return NDArray(torch.from_numpy(np.ascontiguousarray(state)))
     if isinstance(state, tuple):
-        return tuple(_state_from_host(s) for s in state)
+        return tuple(_state_from_numpy(s) for s in state)
     return state
+
+
+def _to_device(state, device):
+    if isinstance(state, NDArray):
+        return NDArray(state.data.to(device))
+    if isinstance(state, tuple):
+        return tuple(_to_device(s, device) for s in state)
+    return state
+
+
+_REF, _PORT = "mxnet_tpu", "mxnet_tpu_torch"
+
+
+def _renamed(module: str, src: str, dst: str):
+    """``module`` moved from package ``src`` to ``dst``, or None."""
+    if module == src or module.startswith(src + "."):
+        return dst + module[len(src):]
+    return None
+
+
+class _StatePickler(pickle._Pickler):
+    """Names the port's classes by the JAX package's module paths (the
+    same path below the package), without importing that package."""
+
+    def save_global(self, obj, name=None):
+        ref = _renamed(getattr(obj, "__module__", "") or "", _PORT, _REF)
+        if ref is None or self.proto < 4:
+            return super().save_global(obj, name)
+        self.save(ref)
+        self.save(name or obj.__qualname__)
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
+
+
+class _StateUnpickler(pickle.Unpickler):
+    """Reads the JAX package's classes as the port's of the same path."""
+
+    def find_class(self, module, name):
+        port = _renamed(module, _REF, _PORT)
+        if port is None:
+            return super().find_class(module, name)
+        try:
+            return super().find_class(port, name)
+        except (ImportError, AttributeError) as e:
+            raise MXNetError(f"optimizer states name {module}.{name}, which "
+                             "the PyTorch port does not have") from e
 
 
 def get_updater(optimizer: Optimizer) -> Updater:

@@ -7,17 +7,28 @@ generator of the device they run on.  The streams are torch's Philox and
 Mersenne Twister, not JAX's threefry: the same seed gives other numbers
 than the JAX package, so stochastic ops are compared by their
 statistics.
+
+`get_state` / `set_state` snapshot and restore the seed and every
+device's generator (a CUDA generator's state is its seed and Philox
+offset, which each replay of a captured graph advances), as JSON for a
+checkpoint manifest.  A state is this package's own: the JAX package's
+(a threefry key) is refused.
 """
 from __future__ import annotations
 
+import base64
 import threading
 from typing import Dict, Optional, Union
 
 import torch
 
+from .base import MXNetError
 from .context import Context
 
-__all__ = ["seed", "current_seed", "generator"]
+__all__ = ["seed", "current_seed", "generator", "get_state", "set_state"]
+
+#: the key under which `get_state` keeps the generators' states
+_STATE_KEY = "torch_generators"
 
 
 class _Streams:
@@ -73,3 +84,36 @@ def generator(device: Optional[Union[Context, torch.device, str]] = None
             gen.manual_seed(_STREAMS.seed)
             _STREAMS.generators[device] = gen
         return gen
+
+
+def get_state() -> dict:
+    """The seed and each device generator's state, JSON-serializable."""
+    with _STREAMS.lock:
+        gens = {str(dev): base64.b64encode(
+            gen.get_state().numpy().tobytes()).decode("ascii")
+            for dev, gen in _STREAMS.generators.items()}
+        return {"seed": int(_STREAMS.seed), _STATE_KEY: gens}
+
+
+def set_state(state: dict) -> None:
+    """Restore a `get_state` snapshot: the saved devices' generators
+    continue where they were, the others start over from the seed (as
+    they would have started in the saved run)."""
+    if _STATE_KEY not in state:
+        raise MXNetError("random.set_state: not a state of this package "
+                         "(the JAX package's threefry key cannot drive "
+                         "torch's generators)")
+    saved = state[_STATE_KEY]
+    with _STREAMS.lock:
+        _STREAMS.seed = int(state.get("seed", 0))
+        for dev, gen in _STREAMS.generators.items():
+            if str(dev) not in saved:
+                gen.manual_seed(_STREAMS.seed)
+        for dev_str, raw in saved.items():
+            device = _device(dev_str)
+            gen = _STREAMS.generators.get(device)
+            if gen is None:
+                gen = _STREAMS.generators[device] = torch.Generator(
+                    device=device)
+            gen.set_state(torch.frombuffer(bytearray(base64.b64decode(raw)),
+                                           dtype=torch.uint8))

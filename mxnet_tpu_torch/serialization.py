@@ -8,15 +8,20 @@ The stream is little-endian::
     uint64 ndarray_count; [ndarray blobs]
     uint64 name_count;    [uint64 len + utf8 bytes]
 
-and each dense ndarray blob (`src/ndarray/ndarray.cc` NDArray::Save)::
+and each ndarray blob (`src/ndarray/ndarray.cc` NDArray::Save)::
 
-    uint32 0xF993FAC9; int32 stype = 0
-    uint32 ndim; int64 dims; int32 dev_type; int32 dev_id
-    int32 type_flag; raw data bytes
+    uint32 0xF993FAC9; int32 stype (0 dense, 1 row_sparse, 2 csr)
+    [sparse: uint32 ndim; int64 dims of the stored values]
+    uint32 ndim; int64 dims; int32 dev_type; int32 dev_id; int32 type_flag
+    [sparse: per aux array (csr: indptr, indices; row_sparse: indices)
+     int32 type_flag; uint32 ndim; int64 dims]
+    raw data bytes; [raw aux bytes, int64]
 
 A blob may end in the JAX package's 24-byte CRC32 footer (`make_footer`),
-which `loads_ndarrays` verifies and strips.  Sparse storage and the
-pre-V2 layouts are not ported.
+which `loads_ndarrays` verifies and strips.  The pre-V2 layouts are not
+ported.  `atomic_write` is the JAX package's crash-consistent writer
+(a temporary file beside the target, fsync, rename, fsync of the
+directory); `crc32_file` is the checksum a checkpoint manifest records.
 """
 from __future__ import annotations
 
@@ -35,12 +40,13 @@ from .ndarray.ndarray import NDArray
 
 __all__ = ["dumps_ndarrays", "loads_ndarrays", "save_ndarrays",
            "load_ndarrays", "strip_arg_aux", "atomic_write", "read_payload",
-           "make_footer", "split_footer", "params_from_numpy",
+           "make_footer", "split_footer", "params_from_numpy", "crc32_file",
            "CheckpointCorruptError"]
 
 _LIST_MAGIC = 0x112
 _ND_MAGIC_V2 = 0xF993FAC9
-_STYPE_DENSE = 0
+# the reference's storage-type enum (`include/mxnet/ndarray.h:62`)
+_STYPE_DENSE, _STYPE_RSP, _STYPE_CSR = 0, 1, 2
 
 FOOTER_MAGIC = b"MXTPCKF1"
 FOOTER_VERSION = 1
@@ -105,17 +111,72 @@ def _tensor_bytes(t: torch.Tensor) -> bytes:
     return t.reshape(-1).view(torch.uint8).numpy().tobytes()
 
 
-def _write_ndarray(buf: bytearray, arr: NDArray):
-    t = arr.data
-    if t.dtype not in DTYPE_TO_ID:
-        raise MXNetError(f"cannot serialize dtype {t.dtype}")
-    buf += struct.pack("<Ii", _ND_MAGIC_V2, _STYPE_DENSE)
-    buf += struct.pack("<I", t.dim())
-    for d in t.shape:
+def _write_shape(buf: bytearray, shape):
+    buf += struct.pack("<I", len(shape))
+    for d in shape:
         buf += struct.pack("<q", int(d))
+
+
+def _write_ndarray(buf: bytearray, arr: NDArray):
+    stype = arr.stype
+    if stype == "csr":
+        data = arr._sp_data
+        aux = [arr._sp_indptr.to(torch.int64), arr._sp_indices.to(torch.int64)]
+    elif stype == "row_sparse":
+        data = arr._sp_data
+        aux = [arr._sp_indices.to(torch.int64)]
+    else:
+        data, aux = arr.data, []
+    if data.dtype not in DTYPE_TO_ID:
+        raise MXNetError(f"cannot serialize dtype {data.dtype}")
+    buf += struct.pack("<Ii", _ND_MAGIC_V2,
+                       {"csr": _STYPE_CSR, "row_sparse": _STYPE_RSP}.get(
+                           stype, _STYPE_DENSE))
+    if aux:
+        _write_shape(buf, data.shape)                # the stored values
+    _write_shape(buf, arr.shape)
     buf += struct.pack("<ii", 1, 0)                  # saved from cpu(0)
-    buf += struct.pack("<i", DTYPE_TO_ID[t.dtype])
-    buf += _tensor_bytes(t)
+    buf += struct.pack("<i", DTYPE_TO_ID[data.dtype])
+    for a in aux:
+        buf += struct.pack("<i", DTYPE_TO_ID[a.dtype])
+        _write_shape(buf, a.shape)
+    buf += _tensor_bytes(data)
+    for a in aux:
+        buf += _tensor_bytes(a)
+
+
+def _read_shape(view, off, what):
+    _need(view, off, 4, what)
+    (ndim,) = struct.unpack_from("<I", view, off)
+    off += 4
+    _need(view, off, 8 * ndim, what)
+    shape = struct.unpack_from(f"<{ndim}q", view, off) if ndim else ()
+    if any(d < 0 for d in shape):
+        raise MXNetError(f"truncated NDArray file {what} at offset {off}: "
+                         f"negative dimension in shape {tuple(shape)}")
+    return tuple(shape), off + 8 * ndim
+
+
+def _read_dtype(view, off, what):
+    _need(view, off, 4, what)
+    (type_flag,) = struct.unpack_from("<i", view, off)
+    if type_flag not in ID_TO_DTYPE:
+        raise MXNetError(f"truncated NDArray file {what} at offset {off}: "
+                         f"unknown dtype id {type_flag}")
+    return ID_TO_DTYPE[type_flag], off + 4
+
+
+def _read_tensor(view, off, shape, dtype, what):
+    count = 1
+    for d in shape:
+        count *= int(d)
+    nbytes = count * torch.empty((), dtype=dtype).element_size()
+    _need(view, off, nbytes, what)
+    if nbytes == 0:
+        return torch.empty(shape, dtype=dtype), off
+    raw = np.frombuffer(view, dtype=np.uint8, count=nbytes, offset=off)
+    return torch.from_numpy(raw.copy()).view(dtype).reshape(shape), \
+        off + nbytes
 
 
 def _read_ndarray(view: memoryview, off: int, what: str):
@@ -125,34 +186,37 @@ def _read_ndarray(view: memoryview, off: int, what: str):
     if magic != _ND_MAGIC_V2:
         raise MXNetError(f"NDArray file {what} at offset {off - 8}: only "
                          "the V2 layout is read here")
-    if stype not in (_STYPE_DENSE, -1):
+    # aux arrays per storage type; -1 (old revisions of the JAX package)
+    # loads as dense, like the reference's kUndefinedStorage
+    n_aux = {_STYPE_RSP: 1, _STYPE_CSR: 2}.get(stype, 0)
+    if stype not in (_STYPE_DENSE, -1) and not n_aux:
         raise MXNetError(f"NDArray file {what} at offset {off - 4}: "
-                         f"sparse storage type {stype} is not ported")
-    _need(view, off, 4, what)
-    (ndim,) = struct.unpack_from("<I", view, off)
-    off += 4
-    _need(view, off, 8 * ndim + 12, what)
-    shape = struct.unpack_from(f"<{ndim}q", view, off) if ndim else ()
-    off += 8 * ndim + 8                              # dims, dev_type, dev_id
-    if any(d < 0 for d in shape):
-        raise MXNetError(f"truncated NDArray file {what} at offset {off}: "
-                         f"negative dimension in shape {tuple(shape)}")
-    (type_flag,) = struct.unpack_from("<i", view, off)
-    if type_flag not in ID_TO_DTYPE:
-        raise MXNetError(f"truncated NDArray file {what} at offset {off}: "
-                         f"unknown dtype id {type_flag}")
-    off += 4
-    dtype = ID_TO_DTYPE[type_flag]
-    count = 1
-    for d in shape:
-        count *= int(d)
-    nbytes = count * torch.empty((), dtype=dtype).element_size()
-    _need(view, off, nbytes, what)
-    if nbytes == 0:
-        return NDArray(torch.empty(shape, dtype=dtype)), off
-    raw = np.frombuffer(view, dtype=np.uint8, count=nbytes, offset=off)
-    t = torch.from_numpy(raw.copy()).view(dtype).reshape(shape)
-    return NDArray(t), off + nbytes
+                         f"unknown storage type {stype}")
+    sshape = None
+    if n_aux:
+        sshape, off = _read_shape(view, off, what)
+    shape, off = _read_shape(view, off, what)
+    _need(view, off, 8, what)
+    off += 8                                         # dev_type, dev_id
+    dtype, off = _read_dtype(view, off, what)
+    if not n_aux:
+        t, off = _read_tensor(view, off, shape, dtype, what)
+        return NDArray(t), off
+    aux_meta = []
+    for _ in range(n_aux):
+        adtype, off = _read_dtype(view, off, what)
+        ashape, off = _read_shape(view, off, what)
+        aux_meta.append((adtype, ashape))
+    data, off = _read_tensor(view, off, sshape, dtype, what)
+    auxs = []
+    for adtype, ashape in aux_meta:
+        a, off = _read_tensor(view, off, ashape, adtype, what)
+        auxs.append(a)
+    from .ndarray.sparse import CSRNDArray, RowSparseNDArray
+    if stype == _STYPE_CSR:
+        indptr, indices = auxs
+        return CSRNDArray(data, indices, indptr, shape), off
+    return RowSparseNDArray(data, auxs[0], shape), off
 
 
 def dumps_ndarrays(data: Union[NDArray, Sequence[NDArray],
@@ -224,18 +288,34 @@ def params_from_numpy(arrays: Mapping[str, np.ndarray],
             for name, a in arrays.items()}
 
 
-def atomic_write(fname: str, payload: bytes, checksum: bool = True) -> None:
-    """Write ``payload`` (with the CRC32 footer when ``checksum``) through
-    a temporary file in the same directory and an atomic rename, so a
-    crash leaves the old file or the new one, never a torn one."""
+def _fsync_dir(dirname: str) -> None:
+    """Persist a rename (the directory entry); best effort, since some
+    file systems refuse to fsync a directory."""
+    try:
+        fd = os.open(dirname, os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    except OSError:
+        pass
+    finally:
+        os.close(fd)
+
+
+def atomic_write(fname: str, payload, checksum: bool = True) -> str:
+    """Write ``payload`` (with the CRC32 footer when ``checksum``) so that a
+    crash at any instant leaves the old file or the new one whole: a
+    temporary file beside ``fname``, fsync, `os.replace`, fsync of the
+    directory (the JAX package's order).  Returns ``fname``."""
     payload = bytes(payload)
-    if checksum:
-        payload += make_footer(payload)
-    d = os.path.dirname(os.path.abspath(fname))
-    fd, tmp = tempfile.mkstemp(dir=d, prefix=".tmp-")
+    blob = payload + make_footer(payload) if checksum else payload
+    dirname = os.path.dirname(os.path.abspath(fname)) or "."
+    fd, tmp = tempfile.mkstemp(prefix=os.path.basename(fname) + ".tmp.",
+                               dir=dirname)
     try:
         with os.fdopen(fd, "wb") as f:
-            f.write(payload)
+            f.write(blob)
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, fname)
@@ -243,6 +323,21 @@ def atomic_write(fname: str, payload: bytes, checksum: bool = True) -> None:
         if os.path.exists(tmp):
             os.unlink(tmp)
         raise
+    _fsync_dir(dirname)
+    return fname
+
+
+def crc32_file(fname: str, chunk: int = 1 << 20) -> int:
+    """CRC32 of a file's whole contents, streamed (what a checkpoint
+    manifest records for each member file)."""
+    crc = 0
+    with open(fname, "rb") as f:
+        while True:
+            block = f.read(chunk)
+            if not block:
+                break
+            crc = zlib.crc32(block, crc)
+    return crc & 0xFFFFFFFF
 
 
 def read_payload(fname: str) -> bytes:

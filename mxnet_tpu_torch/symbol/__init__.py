@@ -1,9 +1,24 @@
 """`mx.sym`: graph construction plus one composer per registered op."""
 from .. import ops as _ops  # noqa: F401  (registers the ops)
 from .register import invoke_sym, make_sym_functions
-from .symbol import Group, Symbol, load, load_json, var
+from .symbol import Group, Symbol, Variable, load, load_json, var
 
 make_sym_functions(globals())
+
+
+class _Internal:
+    """``sym._internal``: the reference's underscore-prefixed op surface
+    (`sym._internal._square_sum`); the composers live on `sym` itself."""
+
+    def __getattr__(self, name):
+        fn = globals().get(name)
+        if fn is None:
+            raise AttributeError(f"module 'mxnet_tpu_torch.symbol._internal' "
+                                 f"has no attribute {name!r}")
+        return fn
+
+
+_internal = _Internal()
 
 
 def concat_nd(symbols, axis=0, name=None):
@@ -38,5 +53,8 @@ def eye(N, M=0, k=0, name=None, dtype=None):
                       dtype=dtype or "float32")
 
 
-__all__ = ["Symbol", "var", "Group", "load", "load_json", "invoke_sym",
-           "concat_nd", "zeros", "ones", "full", "arange", "eye"]
+from . import sparse  # noqa: E402
+
+__all__ = ["Symbol", "var", "Variable", "Group", "sparse", "load",
+           "load_json", "invoke_sym", "concat_nd", "zeros", "ones", "full",
+           "arange", "eye"]

@@ -370,13 +370,32 @@ def _infer_graph(heads, known: Dict[str, tuple], partial: bool,
 # constructors
 # ---------------------------------------------------------------------------
 
-def var(name: str, shape=None, **kwargs) -> Symbol:
-    """A variable symbol; ``shape`` becomes its ``__shape__`` annotation."""
+def var(name: str, shape=None, dtype=None, init=None, lr_mult=None,
+        wd_mult=None, **kwargs) -> Symbol:
+    """A variable symbol: ``shape``, ``dtype``, ``init``, ``lr_mult`` and
+    ``wd_mult`` become its ``__shape__``, ``__dtype__``, ``__init__`` (the
+    initializer's JSON), ``__lr_mult__`` and ``__wd_mult__`` attrs, and
+    other keywords (``stype``, ``attr={...}``) plain attrs, as in the JAX
+    package.  A sparse ``stype`` is a note: the bound array is dense, and
+    a sparse input is densified when fed."""
     attrs: Dict[str, Any] = {}
     if shape is not None:
         attrs["__shape__"] = tuple(shape)
+    if dtype is not None:
+        attrs["__dtype__"] = str(dtype).replace("torch.", "")
+    if init is not None:
+        attrs["__init__"] = init.dumps() if hasattr(init, "dumps") \
+            else str(init)
+    if lr_mult is not None:
+        attrs["__lr_mult__"] = str(lr_mult)
+    if wd_mult is not None:
+        attrs["__wd_mult__"] = str(wd_mult)
+    attrs.update(kwargs.pop("attr", None) or {})
     attrs.update({k: v for k, v in kwargs.items() if v is not None})
     return Symbol([(_Node(None, name, attrs, []), 0)])
+
+
+Variable = var
 
 
 def Group(symbols: Sequence[Symbol]) -> Symbol:
