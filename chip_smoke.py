@@ -195,6 +195,30 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    of a store-less eager fit, the monitor's statistics equal to those of
    the outputs; one push of the gradients under 2-bit compression exact;
    the step's p50 beside phase 7's captured step.  11c and 11d run K1-K3.
+12. the op surface, the samplers and DCGAN.  12a: every case of the CPU
+   op sweep (`tests/torch_sweep_cases.py`: `tests/test_op_sweep.py`'s spec
+   table and the port sweep's own cases) on the card in fp32, forward and
+   the gradient of a fixed projection, against the port on the CPU in
+   float64: within SWEEP_TOL of the float64 result's largest magnitude,
+   SWEEP_FACTOR_TOL for the factorizations and solves (eigenvectors with
+   their signs aligned); the count held and the worst error per ported
+   file, and the factorizations' worst apart.  12b: each distribution at SAMPLER_N samples from the
+   card's generator, held by its mean and a KS or chi-square test against
+   `scipy.stats` (p > SAMPLER_P); reruns under `random.seed` bit-equal,
+   `shuffle` a permutation, `multinomial`'s ``get_prob`` gradient finite
+   and count / p.  12c: MXNet's DCGAN (`model_zoo.dcgan`, the reference's
+   ``example/gan/dcgan.py``: Z 100, ngf = ndf = 64, 64 x 64 images, batch
+   64, Adam lr 0.0002 beta1 0.5) through two `mod.Module`s with the
+   reference's loop on synthetic images from the seed: one iteration in
+   fp32 against the same iteration in float64 on the CPU, each ReLU and
+   LeakyReLU element of the float64 iteration on the branch the card's
+   took (an element that switched lies within DCGAN_SWITCH_TOL of zero),
+   the gradients within DCGAN_GRAD_TOL by their norm, D's outputs within
+   DCGAN_OUT_TOL,
+   then DCGAN_WARM + DCGAN_TIMED iterations with the noise drawn on the
+   card by ``nd.random.normal``: the iteration's p50 and images/s, one
+   profiled iteration's idle share, and D's losses on real and on fake,
+   which must move.  No TPU kernel lies on this path.
 
 If the run nears its time limit, cut the serving phases' ``TIMED`` and
 ``LSTM_TIMED`` counts before anything of the training phase.
@@ -219,9 +243,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import mxnet_tpu_torch as mt  # noqa: E402
-from mxnet_tpu_torch.model_zoo import (BERT_BASE, PTB_LSTM,  # noqa: E402
-                                       bert_encoder, bert_mlm, lstm_lm,
-                                       random_params)
+from mxnet_tpu_torch.model_zoo import (BERT_BASE, DCGAN,  # noqa: E402
+                                       PTB_LSTM, bert_encoder, bert_mlm,
+                                       lstm_lm, random_params)
 from mxnet_tpu_torch.gluon.model_zoo import vision  # noqa: E402
 from mxnet_tpu_torch.ndarray.ndarray import NDArray  # noqa: E402
 from mxnet_tpu_torch.graph_compile import CapturedGraph, warm_up  # noqa: E402
@@ -434,6 +458,44 @@ CKPT_CHILD_TIMEOUT = 600
 CHILD_ENTRY = "import sys, chip_smoke as cs; cs.ckpt_child(sys.argv[1])"
 # phase 7's record, which 11d prints its step beside
 FIT_RECORD = {}
+# phase 12a: the CPU sweep's cases (tests/torch_sweep_cases.py) on the card
+# in fp32, forward and gradient, against the port on the CPU in float64,
+# each output and gradient within its tolerance of the float64 result's
+# largest magnitude: SWEEP_TOL, and SWEEP_FACTOR_TOL for the
+# factorizations and solves (cuSOLVER against LAPACK; their worst read
+# 6.2e-7, syevd's, on an NVIDIA H100 80GB HBM3 at 700 W); an eigenvector
+# is compared with its sign aligned
+SWEEP_TOL = 1e-5
+SWEEP_FACTOR_TOL = 2e-5
+SWEEP_FACTOR_OPS = frozenset({
+    "linalg_potrf", "linalg_potri", "linalg_trsm", "linalg_inverse",
+    "linalg_det", "linalg_slogdet", "linalg_syevd", "linalg_gelqf",
+    "linalg_sumlogdiag"})
+# phase 12b: samples per distribution, and the least p-value of its KS or
+# chi-square test against scipy.stats
+SAMPLER_N = 10_000_000
+SAMPLER_P = 1e-3
+# phase 12c: MXNet's DCGAN (model_zoo.DCGAN: Z 100, ngf = ndf = 64, nc 3,
+# 64 x 64, batch 64, Adam lr 0.0002 beta1 0.5, Normal(0.02)); one fp32
+# iteration's gradients within DCGAN_GRAD_TOL of the float64 iteration's
+# by their norm, D's outputs within DCGAN_OUT_TOL; then DCGAN_WARM +
+# DCGAN_TIMED iterations, D's BCE losses on real and on fake each moving
+# by more than DCGAN_LOSS_MOVE from the first iteration's.  The float64
+# iteration takes each ReLU and LeakyReLU element's branch from the card's
+# fp32 iteration: an element within fp32 rounding of zero may switch
+# between the two, and one switch routes a gradient elsewhere.  Unpinned,
+# the gradients read 2.4e-6, 2.2e-3 or 8.4e-3 from float64 by norm in
+# processes alike, with cuDNN's default, deterministic or benchmarked
+# algorithms and with TF32 forced off, while each of the ten
+# convolutions alone at its shape read within 1.6e-6 in every such
+# process (tools/torch_dcgan_diag.py; NVIDIA H100 80GB HBM3, 700 W).  A
+# switched element must lie within DCGAN_SWITCH_TOL of its layer's
+# largest magnitude from zero.
+DCGAN_GRAD_TOL = 1e-5
+DCGAN_SWITCH_TOL = 1e-5
+DCGAN_OUT_TOL = 1e-4
+DCGAN_WARM, DCGAN_TIMED = 2, 20
+DCGAN_LOSS_MOVE = 0.01
 
 
 def log(*parts):
@@ -3888,6 +3950,519 @@ def phase_state(card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the op surface, the samplers, DCGAN
+# ---------------------------------------------------------------------------
+
+def _sweep_cases():
+    """The CPU sweep's cases that the port registers: the spec table of
+    `tests/test_op_sweep.py` and `tests/torch_sweep_cases.py`'s own, by
+    name, as ``(op name, inputs, attrs, wrt, unprojected outputs)``."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import torch_sweep_cases as cases
+    ported = set(mt.ops.registry.list_ops())
+    out = {n: cases.spec_case(n) for n in sorted(cases.SPECS)
+           if n in ported}
+    out.update({c: cases.extra_case(c) for c in sorted(cases.CASES)})
+    return cases, out
+
+
+def _sweep_err(got, ref):
+    """max |got - ref| over the largest |ref| on the finite entries; inf
+    where the finite entries differ, exact for integers."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    if got.shape != ref.shape:
+        return float("inf")
+    if not np.issubdtype(ref.dtype, np.floating):
+        return 0.0 if np.array_equal(got, ref) else float("inf")
+    got, ref = got.astype(np.float64), ref.astype(np.float64)
+    fin = np.isfinite(ref)
+    if not np.array_equal(fin, np.isfinite(got)):
+        return float("inf")
+    if not fin.any():
+        return 0.0
+    return float(np.abs(got[fin] - ref[fin]).max()
+                 / max(np.abs(ref[fin]).max(), 1e-30))
+
+
+def _sweep_tol(name):
+    return SWEEP_FACTOR_TOL if name in SWEEP_FACTOR_OPS else SWEEP_TOL
+
+
+def ops_sweep(device="cuda"):
+    """12a: every case of the CPU sweep on ``device`` in fp32, forward and
+    gradient, against the port on the CPU in float64; the count held and
+    the worst error per ported file."""
+    cases, todo = _sweep_cases()
+    dev = mt.gpu(0) if device == "cuda" else mt.cpu()
+    per_file, failed, factor_worst = {}, [], (0.0, None)
+    t0 = time.perf_counter()
+    for case, (name, inputs, attrs, wrt, free) in todo.items():
+        with dev:
+            out, grads = cases.run_case(
+                mt, name, inputs, attrs, wrt, free,
+                make=lambda x: mt.nd.array(x, ctx=dev, dtype=x.dtype))
+        with mt.cpu():
+            rout, rgrads = cases.run_case(
+                mt, name, inputs, attrs, wrt, free,
+                make=lambda x: mt.nd.array(x, ctx=mt.cpu(),
+                                           dtype="float64"))
+        errs = []
+        for k, (o, r) in enumerate(zip(out, rout)):
+            if k in free:
+                o = cases.align_rows(o, r)
+            errs.append(_sweep_err(o, r))
+        errs += [_sweep_err(g, r) for g, r in zip(grads, rgrads)]
+        if len(out) != len(rout) or len(grads) != len(rgrads):
+            errs.append(float("inf"))
+        err = max(errs) if errs else 0.0
+        fname = mt.ops.registry.get_op(name).fn.__module__.rsplit(".", 1)[1]
+        rec = per_file.setdefault(fname, {"held": 0, "worst": 0.0,
+                                          "worst_case": None})
+        if err <= _sweep_tol(name):
+            rec["held"] += 1
+        else:
+            failed.append((case, err, _sweep_tol(name)))
+        if err >= rec["worst"]:
+            rec["worst"], rec["worst_case"] = err, case
+        if name in SWEEP_FACTOR_OPS and err >= factor_worst[0]:
+            factor_worst = (err, case)
+    for fname, rec in sorted(per_file.items()):
+        log(f"ops 12a: {fname}: {rec['held']} held, worst "
+            f"{rec['worst']:.3e} ({rec['worst_case']})")
+    log(f"ops 12a: factorizations and solves worst {factor_worst[0]:.3e} "
+        f"({factor_worst[1]})")
+    log(json.dumps({"phase": "12a", "cases": len(todo),
+                    "factor_worst": factor_worst,
+                    "held": sum(r["held"] for r in per_file.values()),
+                    "tol": SWEEP_TOL, "factor_tol": SWEEP_FACTOR_TOL,
+                    "per_file": per_file,
+                    "seconds": time.perf_counter() - t0}))
+    if failed:
+        raise SystemExit(f"chip_smoke: ops past their tolerance on "
+                         f"{device}: {failed}")
+    return per_file
+
+
+def _ks(samples, dist):
+    import scipy.stats as ss
+    return float(ss.kstest(samples.astype(np.float64), dist.cdf).pvalue)
+
+
+def _chi2(samples, dist, top):
+    """Chi-square over 0..top-1 with the tail folded into the last bin."""
+    import scipy.stats as ss
+    s = samples.astype(np.int64)
+    counts = np.bincount(np.minimum(s, top - 1), minlength=top)[:top]
+    probs = dist.pmf(np.arange(top - 1))
+    probs = np.append(probs, 1.0 - probs.sum())
+    return float(ss.chisquare(counts.astype(np.float64),
+                              probs * len(s)).pvalue)
+
+
+def _sampler_cases(n, ctx):
+    """name -> (draw, scipy distribution, chi-square bins or None for the
+    KS test): each distribution of 12b at ``n`` samples on ``ctx``."""
+    import scipy.stats as ss
+    nd = mt.nd
+    row = dict(shape=(n,))
+
+    def second_row(fn, *params):
+        return lambda: fn(*[nd.array(p, ctx=ctx) for p in params],
+                          **row)[1]
+
+    return {
+        "normal": (lambda: nd.random.normal(1.5, 2.0, ctx=ctx, **row),
+                   ss.norm(1.5, 2.0), None),
+        "uniform": (lambda: nd.random.uniform(-2.0, 3.0, ctx=ctx, **row),
+                    ss.uniform(-2.0, 5.0), None),
+        "gamma": (lambda: nd.random.gamma(3.0, 2.0, ctx=ctx, **row),
+                  ss.gamma(a=3.0, scale=2.0), None),
+        "gamma_a0.5": (lambda: nd.random.gamma(0.5, 1.0, ctx=ctx, **row),
+                       ss.gamma(a=0.5), None),
+        "exponential": (lambda: nd.random.exponential(2.5, ctx=ctx, **row),
+                        ss.expon(scale=2.5), None),
+        "poisson": (lambda: nd.random.poisson(4.0, ctx=ctx, **row),
+                    ss.poisson(4.0), 14),
+        "negative_binomial": (
+            lambda: nd.random.negative_binomial(5, 0.4, ctx=ctx, **row),
+            ss.nbinom(5, 0.4), 24),
+        "generalized_negative_binomial": (
+            lambda: nd.random.generalized_negative_binomial(
+                3.0, 0.4, ctx=ctx, **row),
+            ss.nbinom(1 / 0.4, 1 / (1 + 0.4 * 3.0)), 16),
+        "randint": (lambda: nd.random.randint(0, 10, ctx=ctx, **row),
+                    ss.randint(0, 10), 10),
+        "multinomial": (lambda: nd.random.multinomial(
+            nd.array([0.1, 0.2, 0.3, 0.4], ctx=ctx), shape=(n,)),
+            ss.rv_discrete(values=([0, 1, 2, 3], [0.1, 0.2, 0.3, 0.4])),
+            4),
+        "sample_normal": (second_row(nd.sample_normal, [0.0, 5.0],
+                                    [1.0, 0.1]), ss.norm(5.0, 0.1), None),
+        "sample_gamma": (second_row(nd.sample_gamma, [2.0, 9.0],
+                                    [1.0, 0.5]),
+                         ss.gamma(a=9.0, scale=0.5), None),
+        "sample_poisson": (second_row(nd.sample_poisson, [1.0, 6.0]),
+                           ss.poisson(6.0), 16),
+    }
+
+
+def samplers_check(n=SAMPLER_N, device="cuda"):
+    """12b: each distribution at ``n`` samples from ``device``'s generator,
+    by its moments and a KS or chi-square test against `scipy.stats`;
+    bit-equal reruns under `random.seed`; `shuffle` a permutation;
+    `multinomial`'s ``get_prob`` gradient finite (count / p)."""
+    ctx = mt.gpu(0) if device == "cuda" else mt.cpu()
+    recs, bad = {}, []
+    t0 = time.perf_counter()
+    for name, (draw, dist, bins) in _sampler_cases(n, ctx).items():
+        mt.random.seed(SEED + 12)
+        arr = draw()
+        if arr.context != ctx:
+            raise SystemExit(f"chip_smoke: {name} drew on {arr.context}")
+        s = arr.asnumpy().ravel()
+        p = _chi2(s, dist, bins) if bins else _ks(s, dist)
+        z = abs(s.mean() - dist.mean()) / (dist.std() / np.sqrt(len(s)))
+        recs[name] = {"p": p, "mean": float(s.mean()),
+                      "want_mean": float(dist.mean()), "mean_z": float(z),
+                      "var": float(s.var()), "want_var": float(dist.var())}
+        if not (p > SAMPLER_P and z < 5.0):
+            bad.append(name)
+    # the same seed, the same draws, on the card's generator
+    def draws():
+        mt.random.seed(SEED + 3)
+        return [mt.nd.random.normal(0, 1, shape=(1000,), ctx=ctx).asnumpy(),
+                mt.nd.random.gamma(2.0, 1.0, shape=(1000,),
+                                   ctx=ctx).asnumpy(),
+                mt.nd.random.poisson(3.0, shape=(1000,), ctx=ctx).asnumpy(),
+                mt.nd.random.shuffle(mt.nd.arange(1000, ctx=ctx)).asnumpy()]
+    reruns_equal = all(np.array_equal(a, b)
+                       for a, b in zip(draws(), draws()))
+    perm = mt.nd.random.shuffle(mt.nd.arange(100_000, ctx=ctx)).asnumpy()
+    is_perm = np.array_equal(np.sort(perm), np.arange(100_000))
+    probs_np = np.array([[0.1, 0.2, 0.3, 0.4], [0.4, 0.3, 0.2, 0.1]],
+                        np.float32)
+    probs = mt.nd.array(probs_np, ctx=ctx)
+    probs.attach_grad()
+    with mt.autograd.record():
+        s, lp = mt.nd.random.multinomial(probs, shape=1000, get_prob=True)
+        lp.sum().backward()
+    g = probs.grad.asnumpy()
+    counts = np.stack([np.bincount(r, minlength=4)
+                       for r in s.asnumpy().astype(int)])
+    grad_ok = bool(np.isfinite(g).all()) and np.allclose(
+        g, counts / probs_np, rtol=1e-5)
+    rec = {"phase": "12b", "n": n, "p_min": SAMPLER_P,
+           "distributions": recs, "reruns_bit_equal": reruns_equal,
+           "shuffle_is_permutation": bool(is_perm),
+           "multinomial_get_prob_grad_ok": grad_ok,
+           "seconds": time.perf_counter() - t0}
+    log(json.dumps(rec))
+    log("samplers 12b: " + ", ".join(
+        f"{k} p={v['p']:.3g}" for k, v in recs.items()))
+    if bad or not (reruns_equal and is_perm and grad_ok):
+        raise SystemExit(f"chip_smoke: samplers failed: {bad}, reruns "
+                         f"{reruns_equal}, permutation {is_perm}, get_prob "
+                         f"gradient {grad_ok}")
+    return rec
+
+
+def _dcgan_weights(sym, shapes, seed):
+    """The reference's ``mx.init.Normal(0.02)`` from a numpy seed; the
+    BatchNorms' gamma 1 and beta 0."""
+    rs = np.random.RandomState(seed)
+    arg_shapes, _, _ = sym.infer_shape(**shapes)
+    out = {}
+    for name, shp in zip(sym.list_arguments(), arg_shapes):
+        if name in shapes:
+            continue
+        if name.endswith("_gamma"):
+            out[name] = np.ones(shp, np.float32)
+        elif name.endswith("_beta"):
+            out[name] = np.zeros(shp, np.float32)
+        else:
+            out[name] = (rs.randn(*shp) * DCGAN["sigma"]).astype(np.float32)
+    return out
+
+
+def _dcgan_modules(cfg, ctx, dtype="float32"):
+    """The reference's two Modules over `model_zoo.dcgan`: G bound on the
+    noise, D on images and labels with ``inputs_need_grad``, both with
+    Adam (lr 0.0002, beta1 0.5), weights from the seed."""
+    from mxnet_tpu_torch.model_zoo import dcgan
+    symG, symD = dcgan(mt.sym, cfg["ngf"], cfg["ndf"], cfg["nc"])
+    b, z, side = cfg["batch"], cfg["Z"], cfg["image"]
+    shapesG = {"rand": (b, z, 1, 1)}
+    shapesD = {"data": (b, cfg["nc"], side, side), "label": (b,)}
+    wG = _dcgan_weights(symG, shapesG, SEED + 1)
+    wD = _dcgan_weights(symD, shapesD, SEED + 2)
+    opt = {"learning_rate": cfg["lr"], "wd": 0.0, "beta1": cfg["beta1"]}
+    modG = mt.mod.Module(symG, data_names=("rand",), label_names=None,
+                         context=ctx)
+    modG.bind(data_shapes=[mt.io.DataDesc("rand", shapesG["rand"], dtype)])
+    modG.init_params(arg_params={k: mt.nd.array(v, ctx=ctx, dtype=dtype)
+                                 for k, v in wG.items()})
+    modG.init_optimizer(optimizer="adam", optimizer_params=opt)
+    modD = mt.mod.Module(symD, data_names=("data",), label_names=("label",),
+                         context=ctx)
+    modD.bind(data_shapes=[mt.io.DataDesc("data", shapesD["data"], dtype)],
+              label_shapes=[mt.io.DataDesc("label", (b,), dtype)],
+              inputs_need_grad=True)
+    modD.init_params(arg_params={k: mt.nd.array(v, ctx=ctx, dtype=dtype)
+                                 for k, v in wD.items()})
+    modD.init_optimizer(optimizer="adam", optimizer_params=opt)
+    return modG, modD
+
+
+def _dcgan_iteration(modG, modD, noise, real, label, grads=None):
+    """One iteration of the reference's loop (``example/gan/dcgan.py``):
+    D on G's batch with label 0, its gradients kept; D on the real batch
+    with label 1 and the kept gradients added, one D update; D on G's
+    batch with label 1 and G's backward from D's input gradient, one G
+    update.  ``grads``, when given, receives copies of D's summed and G's
+    gradients before their updates.  Returns D's outputs on fake and on
+    real."""
+    modG.forward(mt.io.DataBatch([noise], None), is_train=True)
+    outG = modG.get_outputs()
+    label[:] = 0
+    modD.forward(mt.io.DataBatch(outG, [label]), is_train=True)
+    modD.backward()
+    out_fake = modD.get_outputs()[0].copy()
+    gradD = [g.copy() for g in modD._exec.grad_arrays if g is not None]
+    label[:] = 1
+    modD.forward(mt.io.DataBatch([real], [label]), is_train=True)
+    modD.backward()
+    out_real = modD.get_outputs()[0].copy()
+    for gr, gf in zip([g for g in modD._exec.grad_arrays if g is not None],
+                      gradD):
+        gr += gf
+    if grads is not None:
+        grads.update({f"D:{n}": g.asnumpy().astype(np.float64)
+                      for n, g in modD._exec.grad_dict.items()
+                      if n != "data"})
+    modD.update()
+    modD.forward(mt.io.DataBatch(outG, [label]), is_train=True)
+    modD.backward()
+    modG.backward(modD.get_input_grads())
+    if grads is not None:
+        grads.update({f"G:{n}": g.asnumpy().astype(np.float64)
+                      for n, g in modG._exec.grad_dict.items()})
+    modG.update()
+    return out_fake, out_real
+
+
+def _dcgan_images(cfg, seed):
+    """Synthetic "real" images in [-1, 1]: smooth random colour fields
+    (a few low-frequency waves per channel) from the seed."""
+    rs = np.random.RandomState(seed)
+    b, c, side = cfg["batch"], cfg["nc"], cfg["image"]
+    yy, xx = np.meshgrid(np.linspace(0, 1, side), np.linspace(0, 1, side),
+                         indexing="ij")
+    img = np.zeros((b, c, side, side))
+    for _ in range(3):
+        fy, fx, ph = (rs.uniform(0.5, 3.0, (b, c, 1, 1)),
+                      rs.uniform(0.5, 3.0, (b, c, 1, 1)),
+                      rs.uniform(0, 2 * np.pi, (b, c, 1, 1)))
+        img += np.sin(2 * np.pi * (fy * yy + fx * xx) + ph)
+    return np.tanh(img).astype(np.float32)
+
+
+def _bce(p, label):
+    p = np.clip(np.asarray(p, np.float64).ravel(), 1e-12, 1 - 1e-12)
+    return float(-np.mean(np.log(p) if label else np.log(1 - p)))
+
+
+@contextlib.contextmanager
+def _pinned_branches(masks, replay, flips):
+    """Within the block every relu ``Activation`` and leaky ``LeakyReLU``
+    of the port records in ``masks``, call by call, the branch each
+    element takes (``x > 0``, on the host); with ``replay`` it takes each
+    element's branch from ``masks`` instead and appends to ``flips`` the
+    farthest distance from zero of an element whose branch that changed,
+    relative to the call's largest magnitude (0.0 where none did)."""
+    from mxnet_tpu_torch.ops.registry import get_op
+    act, leaky = get_op("Activation"), get_op("LeakyReLU")
+    act_fn, leaky_fn = act.fn, leaky.fn
+    calls = iter(masks)
+
+    def branch(x):
+        pos = x > 0
+        if not replay:
+            masks.append(pos.cpu())
+            return pos
+        want = next(calls).to(x.device)
+        moved = want != pos
+        top = float(x.detach().abs().max())
+        flips.append(float(x.detach()[moved].abs().max()) / top
+                     if bool(moved.any()) else 0.0)
+        return want
+
+    def act_pinned(attrs, x):
+        if attrs.get_str("act_type", "relu") != "relu":
+            return act_fn(attrs, x)
+        pos = branch(x)
+        return act_fn(attrs, x) if not replay else \
+            torch.where(pos, x, torch.zeros_like(x))
+
+    def leaky_pinned(attrs, generator, x, gamma=None):
+        if attrs.get_str("act_type", "leaky") != "leaky":
+            return leaky_fn(attrs, generator, x, gamma)
+        pos = branch(x)
+        return leaky_fn(attrs, generator, x, gamma) if not replay else \
+            torch.where(pos, x, attrs.get_float("slope", 0.25) * x)
+
+    act.fn, leaky.fn = act_pinned, leaky_pinned
+    try:
+        yield
+    finally:
+        act.fn, leaky.fn = act_fn, leaky_fn
+
+
+def _grad_errors(g32, g64):
+    """The error of all gradients together and of D's and G's apart,
+    relative to their norm, and the worst element relative to its
+    gradient's largest magnitude."""
+    def norm_err(names):
+        return float(np.sqrt(
+            sum(((g32[n] - g64[n]) ** 2).sum() for n in names)
+            / sum((g64[n] ** 2).sum() for n in names)))
+    names = sorted(g64)
+    per_net = {net: norm_err([n for n in names if n.startswith(net)])
+               for net in ("D", "G")}
+    elem = max(float(np.abs(g32[n] - g64[n]).max()
+                     / max(np.abs(g64[n]).max(), 1e-30)) for n in names)
+    return norm_err(names), per_net, elem
+
+
+def dcgan_check(cfg=None, device="cuda"):
+    """12c first part: one full iteration on ``device`` in fp32 against
+    the same iteration on the CPU in float64, the same weights, noise and
+    images, each ReLU and LeakyReLU element of the float64 iteration on
+    the branch the fp32 iteration took (`_pinned_branches`; an element
+    that switched must lie within DCGAN_SWITCH_TOL of zero): D's outputs
+    and both networks' gradients, the gradients held by their norm.  The
+    element-wise error, and the error against the float64 iteration left
+    to its own branches, are printed, not held."""
+    cfg = cfg or DCGAN
+    ctx = mt.gpu(0) if device == "cuda" else mt.cpu()
+    rs = np.random.RandomState(SEED + 5)
+    noise = rs.randn(cfg["batch"], cfg["Z"], 1, 1).astype(np.float32)
+    real = _dcgan_images(cfg, SEED + 6)
+    masks, flips, res = [], [], {}
+    t0 = time.perf_counter()
+    for where, c, dt, pin in (("card", ctx, "float32", False),
+                              ("float64", mt.cpu(), "float64", True),
+                              ("free", mt.cpu(), "float64", None)):
+        modG, modD = _dcgan_modules(cfg, c, dt)
+        grads = {}
+        label = mt.nd.zeros((cfg["batch"],), ctx=c, dtype=dt)
+        with contextlib.ExitStack() as stack:
+            if pin is not None:
+                stack.enter_context(_pinned_branches(masks, pin, flips))
+            out_fake, out_real = _dcgan_iteration(
+                modG, modD, mt.nd.array(noise, ctx=c, dtype=dt),
+                mt.nd.array(real, ctx=c, dtype=dt), label, grads)
+        res[where] = (grads, out_fake.asnumpy(), out_real.asnumpy())
+        res[where + "_s"] = time.perf_counter() - t0
+    g32, f32, r32 = res["card"]
+    g64, f64, r64 = res["float64"]
+    norm_err, per_net, elem = _grad_errors(g32, g64)
+    free_err, free_per_net, _ = _grad_errors(g32, res["free"][0])
+    out_err = max(float(np.abs(f32 - f64).max()),
+                  float(np.abs(r32 - r64).max()))
+    rec = {"phase": "12c_check", "grad_norm_err": norm_err,
+           "grad_norm_err_by_net": per_net,
+           "grad_elementwise_err": elem, "d_out_err": out_err,
+           "branch_calls": len(flips),
+           "switched_calls": sum(f > 0 for f in flips),
+           "switch_worst": max(flips, default=0.0),
+           "unpinned_grad_norm_err": free_err,
+           "unpinned_by_net": free_per_net,
+           "grad_tol": DCGAN_GRAD_TOL, "out_tol": DCGAN_OUT_TOL,
+           "switch_tol": DCGAN_SWITCH_TOL,
+           "float64_s": res["float64_s"] - res["card_s"]}
+    log(json.dumps(rec))
+    if not (len(flips) == len(masks) and norm_err <= DCGAN_GRAD_TOL
+            and out_err <= DCGAN_OUT_TOL
+            and rec["switch_worst"] <= DCGAN_SWITCH_TOL):
+        raise SystemExit(f"chip_smoke: DCGAN's fp32 iteration on {device} "
+                         f"left float64's: {rec}")
+    return rec
+
+
+def dcgan_training(card, cfg=None, warm=DCGAN_WARM, timed=DCGAN_TIMED,
+                   device="cuda"):
+    """12c second part: ``warm`` + ``timed`` iterations at ``cfg``'s widths
+    with the noise drawn on the card each iteration by
+    ``nd.random.normal(0, 1, shape=(batch, Z, 1, 1), ctx=gpu(0))``: the
+    iteration's p50 and images/s, the idle share of one profiled
+    iteration, and D's losses on real and on fake, which must move from
+    their first values."""
+    cfg = cfg or DCGAN
+    ctx = mt.gpu(0) if device == "cuda" else mt.cpu()
+    modG, modD = _dcgan_modules(cfg, ctx)
+    real = mt.nd.array(_dcgan_images(cfg, SEED + 7), ctx=ctx)
+    label = mt.nd.zeros((cfg["batch"],), ctx=ctx)
+    shape = (cfg["batch"], cfg["Z"], 1, 1)
+    losses = []
+
+    def step():
+        noise = mt.nd.random.normal(0, 1, shape=shape, ctx=ctx)
+        f, r = _dcgan_iteration(modG, modD, noise, real, label)
+        losses.append((_bce(r.asnumpy(), 1), _bce(f.asnumpy(), 0)))
+
+    mt.random.seed(SEED + 8)
+    times = []
+    for i in range(warm + timed):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize() if device == "cuda" else None
+        if i >= warm:
+            times.append((time.perf_counter() - t0) * 1e3)
+    p50 = float(np.median(times))
+    prof = profile_gluon("dcgan_iteration", step) if device == "cuda" \
+        else {"idle_share": "not measured"}
+    (real0, fake0), (real1, fake1) = losses[0], losses[-1]
+    rec = {"phase": "12c_train", "card": card, "batch": cfg["batch"],
+           "iterations": warm + timed, "timed": timed, "p50_ms": p50,
+           "images_per_s": cfg["batch"] / p50 * 1e3,
+           "idle_share": prof["idle_share"],
+           "d_loss_real": [real0, real1], "d_loss_fake": [fake0, fake1]}
+    log(json.dumps(rec))
+    log(f"dcgan 12c: iteration p50 {p50:.2f} ms, "
+        f"{rec['images_per_s']:.0f} images/s, idle share "
+        f"{prof['idle_share']}; D loss real {real0:.4f} -> {real1:.4f}, "
+        f"fake {fake0:.4f} -> {fake1:.4f} ({card})")
+    moved = (abs(real1 - real0) > DCGAN_LOSS_MOVE
+             and abs(fake1 - fake0) > DCGAN_LOSS_MOVE)
+    if not (moved and np.isfinite([real1, fake1]).all()):
+        raise SystemExit(f"chip_smoke: DCGAN's D losses did not move: "
+                         f"{rec}")
+    return rec
+
+
+def phase_ops(card):
+    """Phase 12: the ported op surface on the card (12a), the samplers
+    (12b) and MXNet's DCGAN at its published widths (12c).  No TPU kernel
+    lies on this path; returns its K1-K4 launches (none)."""
+    t_phase = time.perf_counter()
+    before = dict(hk.LAUNCHES)
+    ops_sweep()
+    torch.cuda.empty_cache()
+    samplers_check()
+    torch.cuda.empty_cache()
+    dcgan_check()
+    torch.cuda.empty_cache()
+    dcgan_training(card)
+    torch.cuda.empty_cache()
+    launches = {k: hk.LAUNCHES[k] - before.get(k, 0) for k in hk.LAUNCHES}
+    rec = {"phase": "ops_samplers_dcgan", "card": card,
+           "launches": launches, "phase_s": time.perf_counter() - t_phase}
+    log(json.dumps(rec))
+    log(f"ops: phase 12 in {rec['phase_s']:.1f} s")
+    return launches
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -3902,12 +4477,13 @@ def main():
     phase_zoo(card)
     rnn_launches = phase_rnn(card)
     state_launches = phase_state(card)
+    ops_launches = phase_ops(card)
     leaked = [m for m in ("jax", "mxnet_tpu") if m in sys.modules]
     if leaked:
         raise SystemExit(f"chip_smoke: the port imported {leaked}")
     log(f"launches: serving {serve_launches}, training {train_launches}, "
         f"LSTM serving {lstm_launches}, fit {fit_launches}, RNN "
-        f"{rnn_launches}, state {state_launches}")
+        f"{rnn_launches}, state {state_launches}, ops {ops_launches}")
     kernels = [{
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",

@@ -28,13 +28,18 @@ layers, the recurrent cells and layers of `gluon.rnn`, the losses,
 row-sparse NDArrays (`nd.sparse`, `sym.sparse`) with their `.params`
 form, `io.LibSVMIter`, the local `kvstore` with 2-bit compression,
 `monitor.Monitor`, and crash-consistent `checkpoint`s with `fit`'s
-``MXTPU_CKPT_DIR`` auto-resume.  On the card, inference
+``MXTPU_CKPT_DIR`` auto-resume; the op surface of the JAX package's
+elementwise, broadcast/reduce, matrix, linear-algebra, random and nn
+files (`nd.random`, `nd.linalg`, their `sym` forms, `mx.rnd`), the fluent
+methods of NDArray and Symbol, `nd.save`/`nd.load`, ``with ctx:`` scopes
+(`current_context`), `name`, `AttrScope` and `visualization`.  On the card, inference
 forwards, hybridized predict-mode forwards and Module's whole training
 step run as CUDA graphs.
 """
 from . import base, config, ops  # noqa: F401
 from .base import MXNetError
-from .context import Context, cpu, gpu
+from .context import (Context, cpu, cpu_pinned, cpu_shared,
+                      current_context, gpu, num_gpus)
 from . import ndarray as nd
 from . import symbol as sym
 from . import random, io, initializer, optimizer, rnn  # noqa: F401
@@ -47,8 +52,17 @@ from . import kvstore, monitor, checkpoint  # noqa: E402
 from . import kvstore as kv  # noqa: E402
 from . import monitor as mon  # noqa: E402
 from .monitor import Monitor  # noqa: E402
+from . import random as rnd  # noqa: E402
+from . import name, attribute, visualization  # noqa: E402
+from . import visualization as viz  # noqa: E402
+from .attribute import AttrScope  # noqa: E402
+from .ndarray import NDArray  # noqa: E402
+from .executor import Executor  # noqa: E402
 
-__all__ = ["MXNetError", "Context", "cpu", "gpu", "nd", "sym", "random",
+__all__ = ["MXNetError", "Context", "cpu", "gpu", "cpu_pinned",
+           "cpu_shared", "current_context", "num_gpus", "nd", "sym",
+           "random", "rnd", "name", "attribute", "AttrScope",
+           "visualization", "viz", "NDArray", "Executor",
            "io", "init", "initializer", "optimizer", "mod", "rnn",
            "lr_scheduler", "metric", "callback", "model", "Predictor",
            "autograd", "gluon", "kvstore", "kv", "monitor", "mon", "Monitor",

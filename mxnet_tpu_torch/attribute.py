@@ -1,9 +1,14 @@
 """Annotation attrs: keys a node carries for passes and serialization that
-are not operator parameters (the counterpart of the strip rule in
-`mxnet_tpu/attribute.py`)."""
+are not operator parameters, and `AttrScope`, which attaches attrs to the
+symbols made inside it (the counterpart of `mxnet_tpu/attribute.py`;
+reference `python/mxnet/attribute.py`)."""
 from __future__ import annotations
 
-__all__ = ["ANNOTATION_KEYS", "USER_KEYS_ATTR", "strip_annotations"]
+import threading
+from typing import Any, Dict
+
+__all__ = ["ANNOTATION_KEYS", "USER_KEYS_ATTR", "strip_annotations",
+           "AttrScope", "current"]
 
 ANNOTATION_KEYS = frozenset({
     "ctx_group", "lr_mult", "wd_mult", "force_mirroring", "__shape__",
@@ -24,3 +29,45 @@ def strip_annotations(attrs):
         set(user or ())
     return {k: v for k, v in attrs.items()
             if k not in ANNOTATION_KEYS and k not in user_set}
+
+
+class _State(threading.local):
+    def __init__(self):
+        super().__init__()
+        self.stack = []
+
+
+_STATE = _State()
+
+
+class AttrScope:
+    """``with AttrScope(ctx_group='dev1'): ...``: every symbol node made
+    inside carries these attrs as strings (merged over nested scopes, the
+    inner one winning; a node's own attrs win over the scope's), as the
+    JAX package's `AttrScope`."""
+
+    def __init__(self, **attrs):
+        self._attrs = {k: str(v) for k, v in attrs.items()}
+
+    def get(self, attrs: Dict[str, Any]) -> Dict[str, Any]:
+        merged = dict(self._attrs)
+        if attrs:
+            merged.update(attrs)
+        return merged
+
+    def __enter__(self):
+        merged = dict(current()._attrs) if _STATE.stack else {}
+        merged.update(self._attrs)
+        _STATE.stack.append(AttrScope(**merged))
+        return self
+
+    def __exit__(self, *exc):
+        _STATE.stack.pop()
+
+
+_EMPTY = AttrScope()
+
+
+def current() -> AttrScope:
+    """The innermost open scope (an empty one outside any)."""
+    return _STATE.stack[-1] if _STATE.stack else _EMPTY

@@ -15,13 +15,48 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["MXNetError", "_Null", "str_to_attr", "DTYPE_TO_ID",
-           "ID_TO_DTYPE", "numpy_dtype", "torch_dtype"]
+__all__ = ["MXNetError", "NotImplementedForSymbol", "InternalNamespace",
+           "_Null", "str_to_attr", "DTYPE_TO_ID", "ID_TO_DTYPE",
+           "numpy_dtype", "torch_dtype"]
 
 
 class MXNetError(RuntimeError):
     """Default error type raised by the framework (reference
     `python/mxnet/base.py:74`)."""
+
+
+class NotImplementedForSymbol(MXNetError):
+    """An NDArray-only feature used on a Symbol (reference
+    `python/mxnet/base.py:90`)."""
+
+    def __init__(self, function, alias=None, *args):
+        super().__init__()
+        self.function = getattr(function, "__name__", str(function))
+        self.alias = alias
+
+    def __str__(self):
+        msg = f"Function {self.function} is not implemented for Symbol."
+        if self.alias:
+            msg += f" Please use {self.alias} instead."
+        return msg
+
+
+class InternalNamespace:
+    """``nd._internal`` / ``sym._internal``: the reference's
+    underscore-prefixed op surface (``nd._internal._square_sum``), read
+    from the namespace whose ``globals()`` it is given, where the
+    functions live."""
+
+    def __init__(self, namespace, module_name):
+        self._namespace = namespace
+        self._module_name = module_name
+
+    def __getattr__(self, name):
+        fn = self._namespace.get(name)
+        if fn is None:
+            raise AttributeError(f"module '{self._module_name}._internal' "
+                                 f"has no attribute {name!r}")
+        return fn
 
 
 class _NullType:

@@ -101,6 +101,14 @@ class Executor:
     def grad_arrays(self) -> List[Optional[NDArray]]:
         return [self.grad_dict.get(n) for n in self.arg_names]
 
+    @property
+    def arg_arrays(self) -> List[NDArray]:
+        return [self.arg_dict[n] for n in self.arg_names]
+
+    @property
+    def aux_arrays(self) -> List[NDArray]:
+        return [self.aux_dict[n] for n in self.aux_names]
+
     def _ingest_inputs(self, kwargs):
         """Copy forward kwargs into the bound arrays, in place (device and
         dtype stay those of the bind)."""

@@ -11,9 +11,11 @@ the middle, the whole update runs through the multi-tensor path
 op and hyperparameters), with the same numbers as the per-parameter loop,
 which runs otherwise and under ``MXTPU_FUSED_STEP=0``.
 
-A store is not ported yet: the default ``kvstore='device'`` with one
-replica per parameter needs none (its reduce is the identity, as in the
-reference); anything that would need one raises.
+With one context per parameter and no ``dist`` store the Trainer skips
+the store, whether ``kvstore`` names one or is a `kvstore.KVStore` (its
+reduce is the identity, as in the reference's and the JAX package's
+`_init_kvstore`); several contexts, or a ``dist`` store, raise until the
+port's SPMD trainer comes.
 """
 from __future__ import annotations
 
@@ -68,19 +70,21 @@ class Trainer:
         self._updater = opt.get_updater(self._optimizer)
 
     def _check_kvstore(self):
-        """Refuse what needs a store: one is not ported yet."""
+        """Skip the store where one context holds every parameter and the
+        store is not ``dist`` (the JAX package's `_init_kvstore`); refuse
+        the rest, which needs data parallelism."""
         self._kv_checked = True
         kv = self._kv_type
         if kv is None or kv is False:
             return
         replicas = max((len(p.list_ctx()) for p in self._params), default=1)
-        if not isinstance(kv, str) or "dist" in kv or replicas > 1:
-            raise MXNetError(
-                f"Trainer: kvstore={kv!r} over {replicas} replica(s) needs "
-                "a key-value store, which the PyTorch port does not have "
-                "yet; it comes with the port's SPMD trainer over "
-                "torch.distributed.  Use one context per parameter, or "
-                "kvstore=None")
+        if replicas <= 1 and "dist" not in str(kv):
+            return
+        raise MXNetError(
+            f"Trainer: kvstore={kv!r} over {replicas} context(s) needs data "
+            "parallelism across devices or processes, which comes with the "
+            "port's SPMD trainer over torch.distributed.  Use one context "
+            "per parameter, or kvstore=None")
 
     @property
     def learning_rate(self):

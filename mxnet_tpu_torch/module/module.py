@@ -91,6 +91,14 @@ class Module(BaseModule):
     def label_shapes(self):
         return self._label_shapes
 
+    @property
+    def output_shapes(self):
+        """``[(output name, shape)]`` for the bound input shapes."""
+        _, out_shapes, _ = self.symbol.infer_shape(
+            **{d.name: d.shape for d in (self._data_shapes or [])},
+            **{d.name: d.shape for d in (self._label_shapes or [])})
+        return list(zip(self.output_names, out_shapes))
+
     def _input_names(self):
         """Data, label and state names: the arguments that are not
         parameters."""

@@ -49,13 +49,15 @@ def _invoke(op_name, *args, **kwargs):
 class NDArray:
     """An array on one device."""
 
-    __slots__ = ("data", "_grad", "_grad_req", "_fresh_grad", "__weakref__")
+    __slots__ = ("data", "_grad", "_grad_req", "_fresh_grad", "_version",
+                 "__weakref__")
 
     def __init__(self, data: torch.Tensor):
         self.data = data
         self._grad: Optional[NDArray] = None
         self._grad_req = "null"
         self._fresh_grad = False
+        self._version = 0
 
     # -- properties ---------------------------------------------------------
     @property
@@ -79,6 +81,16 @@ class NDArray:
         return Context.of(self.data.device)
 
     @property
+    def ctx(self) -> Context:
+        return self.context
+
+    @property
+    def version(self) -> int:
+        """The count of writes into this array (reference engine var
+        version)."""
+        return self._version
+
+    @property
     def stype(self) -> str:
         return "default"
 
@@ -97,6 +109,7 @@ class NDArray:
         recorded) by rebinding the handle."""
         if value is self.data:
             return
+        self._version += 1
         d = self.data
         recorded = value.requires_grad and torch.is_grad_enabled()
         if (not recorded and value.shape == d.shape
@@ -252,9 +265,27 @@ class NDArray:
                                     device=self.data.device)
         with torch.no_grad():
             self.data[self._key(key)] = value
+        self._version += 1
+
+    def slice(self, begin, end, step=None) -> "NDArray":
+        return _invoke("slice", self, begin=begin, end=end, step=step)
 
     def slice_axis(self, axis, begin, end) -> "NDArray":
         return _invoke("slice_axis", self, axis=axis, begin=begin, end=end)
+
+    def take(self, indices, axis=0, mode="clip") -> "NDArray":
+        return _invoke("take", self, indices, axis=axis, mode=mode)
+
+    def squeeze(self, axis=None) -> "NDArray":
+        return _invoke("squeeze", self, axis=axis)
+
+    def to_dlpack_for_read(self):
+        """The tensor itself, a DLPack exporter (``__dlpack__``) sharing
+        this array's storage."""
+        return self.data
+
+    def to_dlpack_for_write(self):
+        return self.data
 
     # -- arithmetic ---------------------------------------------------------
     # the scalar op for a scalar on the left (s <op> x)
@@ -266,6 +297,7 @@ class NDArray:
         "_greater_equal_scalar": "_lesser_equal_scalar",
         "_lesser_scalar": "_greater_scalar",
         "_lesser_equal_scalar": "_greater_equal_scalar",
+        "_mod_scalar": "_rmod_scalar",
     }
 
     def _binop(self, other, op, scalar_op, reverse=False):
@@ -290,6 +322,7 @@ class NDArray:
     def __truediv__(self, o): return self._binop(o, "broadcast_div", "_div_scalar")
     def __rtruediv__(self, o): return self._binop(o, "broadcast_div", "_div_scalar", True)
     def __mod__(self, o): return self._binop(o, "broadcast_mod", "_mod_scalar")
+    def __rmod__(self, o): return self._binop(o, "broadcast_mod", "_mod_scalar", True)
     def __pow__(self, o): return self._binop(o, "broadcast_power", "_power_scalar")
     def __rpow__(self, o): return self._binop(o, "broadcast_power", "_power_scalar", True)
     def __eq__(self, o): return self._binop(o, "broadcast_equal", "_equal_scalar")
@@ -331,8 +364,23 @@ class NDArray:
     def min(self, axis=None, keepdims=False):
         return _invoke("min", self, axis=axis, keepdims=keepdims)
 
+    def argmax(self, axis=None, keepdims=False):
+        return _invoke("argmax", self, axis=axis, keepdims=keepdims)
+
+    def argmin(self, axis=None, keepdims=False):
+        return _invoke("argmin", self, axis=axis, keepdims=keepdims)
+
     def abs(self):
         return _invoke("abs", self)
+
+    def clip(self, a_min, a_max):
+        return _invoke("clip", self, a_min=a_min, a_max=a_max)
+
+    def dot(self, other):
+        return _invoke("dot", self, other)
+
+    def norm(self, ord=2, axis=None, keepdims=False):
+        return _invoke("norm", self, ord=ord, axis=axis, keepdims=keepdims)
 
     def square(self):
         return _invoke("square", self)
@@ -433,3 +481,42 @@ def waitall():
     """Wait for every device's queued work (reference `nd.waitall`)."""
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
+
+
+#: ops attached as methods, ``x.topk(k=2)`` for ``nd.topk(x, k=2)`` (the
+#: JAX package's `FLUENT_OP_METHODS`, reference `ndarray.py`'s fluent
+#: surface); a method the class defines wins
+FLUENT_OP_METHODS = (
+    "arccos", "arccosh", "arcsin", "arcsinh", "arctan", "arctanh",
+    "argmax_channel", "argsort", "broadcast_axes", "broadcast_like",
+    "broadcast_to", "cbrt", "ceil", "cos", "cosh", "degrees",
+    "depth_to_space", "diag", "exp", "expm1", "fix", "flip", "floor",
+    "log", "log10", "log1p", "log2", "log_softmax", "nanprod", "nansum",
+    "one_hot", "pad", "pick", "prod", "radians", "rcbrt", "reciprocal",
+    "relu", "repeat", "rint", "round", "rsqrt", "shape_array", "sigmoid",
+    "sign", "sin", "sinh", "size_array", "slice_like", "softmax",
+    "softmin", "sort", "space_to_depth", "split", "split_v2", "swapaxes",
+    "tan", "tanh", "tile", "topk", "trunc",
+)
+
+
+def _fluent(op_name):
+    def method(self, *args, **kwargs):
+        return _invoke(op_name, self, *args, **kwargs)
+    method.__name__ = op_name
+    method.__qualname__ = f"NDArray.{op_name}"
+    method.__doc__ = f"``nd.{op_name}(self, ...)``."
+    return method
+
+
+def _fluent_split_v2(self, indices_or_sections, axis=0, squeeze_axis=False):
+    """``nd.split_v2(self, ...)``."""
+    from . import split_v2
+    return split_v2(self, indices_or_sections, axis=axis,
+                    squeeze_axis=squeeze_axis)
+
+
+for _n in FLUENT_OP_METHODS:
+    if not hasattr(NDArray, _n):
+        setattr(NDArray, _n, _fluent_split_v2 if _n == "split_v2"
+                else _fluent(_n))

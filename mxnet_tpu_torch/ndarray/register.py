@@ -48,13 +48,43 @@ def _split_args(op: _reg.OpDef, args: Sequence, kwargs: Dict[str, Any]):
     return inputs, attrs
 
 
+class _ZeroGrad(torch.autograd.Function):
+    """``out`` unchanged, with a zero gradient back to ``inputs``."""
+
+    @staticmethod
+    def forward(ctx, out, *inputs):
+        ctx.metas = [(i.shape, i.dtype, i.device) for i in inputs]
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None,) + tuple(torch.zeros(s, dtype=d, device=v)
+                               for s, d, v in ctx.metas)
+
+
+def _keep_on_tape(outs, n_vis, tensors):
+    """A recorded op whose float outputs carry no gradient (a comparison,
+    ``BlockGrad``) still stands on the tape with a zero gradient, as in
+    the reference: a backward from it writes zeros into the variables
+    upstream instead of finding nothing to differentiate."""
+    live = [t for t in tensors if t.requires_grad]
+    if not live:
+        return outs
+    return tuple(_ZeroGrad.apply(o, *live)
+                 if i < n_vis and o.is_floating_point()
+                 and not o.requires_grad else o
+                 for i, o in enumerate(outs))
+
+
 def invoke(op_name: str, *args, out=None, **kwargs):
     """Run op ``op_name`` on NDArrays; returns an NDArray, a list of them
     for a multi-output op, or ``out``."""
     op = _reg.get_op(op_name)
     inputs, attrs = _split_args(op, args, kwargs)
     first = next((x for x in inputs if isinstance(x, NDArray)), None)
-    ctx = first.context if first is not None else attrs.pop("ctx", None)
+    ctx = attrs.pop("ctx", None)
+    if first is not None:
+        ctx = first.context
     nd_inputs: List[NDArray] = []
     for x in inputs:
         if isinstance(x, NDArray):
@@ -69,12 +99,16 @@ def invoke(op_name: str, *args, out=None, **kwargs):
     if op.takes_device and DEVICE not in attrs:
         attrs[DEVICE] = (ctx or default_context(op_name)).device
     tensors = [x.data for x in nd_inputs]
-    gen = _random.generator(tensors[0].device) if op.needs_rng and tensors \
-        else None
-    with autograd.grad_mode():
-        outs = _reg.apply_op(op_name, tensors, attrs, generator=gen)
+    gen = None
+    if op.needs_rng:
+        gen = _random.generator(tensors[0].device if tensors
+                                else attrs[DEVICE])
     a = Attrs(attrs)
     n_vis = op.num_outputs(a)
+    with autograd.grad_mode():
+        outs = _reg.apply_op(op_name, tensors, attrs, generator=gen)
+        if torch.is_grad_enabled():
+            outs = _keep_on_tape(outs, n_vis, tensors)
     for slot, val in zip(op.mutate_slots(a), outs[n_vis:]):
         nd_inputs[slot]._set_data(val)
     res = [NDArray(o) for o in outs[:n_vis]]

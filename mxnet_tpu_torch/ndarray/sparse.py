@@ -67,6 +67,7 @@ class BaseSparseNDArray(NDArray):
         self._grad = None
         self._grad_req = "null"
         self._fresh_grad = False
+        self._version = 0
         self._sp_shape = tuple(int(d) for d in shape)
         self._dense_src = None
         self._cache = {}
@@ -154,6 +155,7 @@ class BaseSparseNDArray(NDArray):
                              f"{self._sp_shape}")
         value = value.detach().to(device=self._sp_data.device,
                                   dtype=self.dtype)
+        self._version += 1
         self._adopt(_compress(value, self.stype))
 
     def _adopt(self, other: "BaseSparseNDArray") -> None:

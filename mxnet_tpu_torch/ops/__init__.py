@@ -2,5 +2,5 @@
 from . import registry  # noqa: F401
 from . import nn, matrix, elemwise, broadcast_reduce  # noqa: F401
 from . import tensor_extra, image_ops, nn_legacy  # noqa: F401
-from . import optimizer_ops, rnn_op  # noqa: F401
+from . import optimizer_ops, rnn_op, linalg_ops, random_ops  # noqa: F401
 from . import hopper_kernels  # noqa: F401

@@ -1,9 +1,12 @@
 """Broadcasting ops and reductions (the counterparts of
 `mxnet_tpu/ops/broadcast_reduce.py`): the binary arithmetic and
-comparisons with their elemwise aliases, the axis reductions (``sum``,
-``mean``, ``prod``, ``max``, ``min`` with ``axis``, ``keepdims`` and
-``exclude``), ``pick`` and ``broadcast_axis``.  A comparison gives 1 or 0
-in the left operand's dtype, as MXNet's do."""
+comparisons with their elemwise aliases and ``arctan2``, the axis
+reductions (``sum``, ``mean``, ``prod``, ``nansum``, ``nanprod``, ``max``,
+``min`` with ``axis``, ``keepdims`` and ``exclude``), ``norm``, the index
+reductions ``argmax``/``argmin``/``argmax_channel``, ``pick`` and the
+broadcasts ``broadcast_axis``, ``broadcast_to`` and ``broadcast_like``.
+A comparison gives 1 or 0 in the left operand's dtype, as MXNet's do; an
+index reduction gives float32 indices, the first of tied entries."""
 from __future__ import annotations
 
 import torch
@@ -46,6 +49,7 @@ _BINARY = {
         lambda l, r: ((l != 0) | (r != 0)).to(l.dtype), ("_logical_or",)),
     "broadcast_logical_xor": (
         lambda l, r: ((l != 0) ^ (r != 0)).to(l.dtype), ("_logical_xor",)),
+    "arctan2": (torch.atan2, ("_arctan2",)),
 }
 
 for _name, (_fn, _aliases) in _BINARY.items():
@@ -73,10 +77,17 @@ def _prod(x, dim, keepdim):
     return x
 
 
+def _nanprod(x, dim, keepdim):
+    return _prod(torch.where(torch.isnan(x), torch.ones_like(x), x), dim,
+                 keepdim)
+
+
 _REDUCE = {
     "sum": torch.sum,
     "mean": torch.mean,
     "prod": _prod,
+    "nansum": torch.nansum,
+    "nanprod": _nanprod,
     "max": torch.amax,
     "min": torch.amin,
 }
@@ -132,3 +143,59 @@ def _broadcast_axis(attrs, x):
 
 
 alias("broadcast_axis", "broadcast_axes")
+
+
+@register("norm", num_inputs=1, input_names=["data"])
+def _norm(attrs, x):
+    """The L2 (``ord=2``, the default) or L1 norm over ``axis`` (every axis
+    when none is given)."""
+    ax = attrs.get_attr("axis", None)
+    if ax is None or ax == ():
+        axes = tuple(range(x.dim()))
+    else:
+        axes = (ax,) if isinstance(ax, int) else tuple(ax)
+    keep = attrs.get_bool("keepdims", False)
+    if not axes:
+        return x.abs() if attrs.get_int("ord", 2) == 1 else x
+    if attrs.get_int("ord", 2) == 1:
+        return torch.sum(torch.abs(x), dim=axes, keepdim=keep)
+    return torch.sqrt(torch.sum(torch.square(x), dim=axes, keepdim=keep))
+
+
+def _arg_reduce(name, fn):
+    def compute(attrs, x, _fn=fn):
+        ax = attrs.get_attr("axis", None)
+        if ax is None:
+            return _fn(x.reshape(-1), 0).to(torch.float32)
+        res = _fn(x, int(ax))
+        if attrs.get_bool("keepdims", False):
+            res = res.unsqueeze(int(ax))
+        return res.to(torch.float32)
+    compute.__doc__ = (f"{name} along ``axis`` (the flattened array when "
+                       "none is given), as float32 indices.")
+    register(name, num_inputs=1, input_names=["data"])(compute)
+
+
+_arg_reduce("argmax", lambda x, d: torch.argmax(x, dim=d))
+_arg_reduce("argmin", lambda x, d: torch.argmin(x, dim=d))
+
+
+@register("argmax_channel", num_inputs=1, input_names=["data"])
+def _argmax_channel(attrs, x):
+    return torch.argmax(x, dim=1).to(torch.float32)
+
+
+@register("broadcast_to", num_inputs=1, input_names=["data"])
+def _broadcast_to(attrs, x):
+    """``x`` broadcast to ``shape``, where a 0 keeps that axis's size."""
+    shape = attrs.get_tuple("shape")
+    tgt = tuple(x.shape[i] if s == 0 else int(s)
+                for i, s in enumerate(shape))
+    return x.expand(tgt)
+
+
+@register("broadcast_like", num_inputs=2, input_names=["lhs", "rhs"])
+def _broadcast_like(attrs, lhs, rhs):
+    """``lhs`` broadcast to ``rhs``'s shape (the JAX package's form: the
+    ``lhs_axes``/``rhs_axes`` attrs are not read)."""
+    return lhs.expand(rhs.shape)

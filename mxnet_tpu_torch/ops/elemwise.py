@@ -1,14 +1,30 @@
 """Elementwise ops (the counterparts of `mxnet_tpu/ops/elemwise.py`):
 the unary math ops (``sigmoid``, ``tanh``, ``relu``, ``abs``, ``square``,
-``sqrt``, ``exp``, ``log``, ...), ``identity``/``_copy``,
+``sqrt``, ``exp``, ``log``, the trigonometric and hyperbolic functions
+and their inverses, ``gamma``, ``gammaln``, ``erfinv``, ``gelu``,
+``hard_sigmoid``, the roundings, ...), ``identity``/``_copy``,
 ``BlockGrad``/``stop_gradient`` (which the ``eliminate`` pass forwards),
-``cast``, ``clip``, and the scalar arithmetic and comparisons
-(``_plus_scalar``, ``_rdiv_scalar``, ``_greater_scalar``, ...)."""
+``cast``, ``clip``, ``smooth_l1``, and the scalar arithmetic and
+comparisons (``_plus_scalar``, ``_rdiv_scalar``, ``_greater_scalar``,
+...).
+
+Each follows the JAX package's definition: ``round`` and ``rint`` round
+half to even (``jnp.round``, where the reference rounds half away from
+zero), ``gamma`` is ``exp(gammaln(x))`` and ``gelu`` the tanh
+approximation."""
 from __future__ import annotations
 
 import torch
 
 from .registry import alias, register
+
+
+_GELU_C = 0.7978845608028654  # sqrt(2/pi)
+
+
+def _cbrt(x):
+    """The real cube root (``jnp.cbrt``), negative for negative x."""
+    return torch.sign(x) * torch.abs(x).pow(1.0 / 3.0)
 
 
 def _unary(name, fn):
@@ -28,6 +44,17 @@ _UNARY = {
     "trunc": torch.trunc, "sin": torch.sin, "cos": torch.cos,
     "erf": torch.erf, "softsign": torch.nn.functional.softsign,
     "reciprocal": lambda x: 1.0 / x,
+    "tan": torch.tan, "arcsin": torch.asin, "arccos": torch.acos,
+    "arctan": torch.atan, "sinh": torch.sinh, "cosh": torch.cosh,
+    "arcsinh": torch.asinh, "arccosh": torch.acosh, "arctanh": torch.atanh,
+    "degrees": torch.rad2deg, "radians": torch.deg2rad,
+    "round": torch.round, "rint": torch.round, "fix": torch.trunc,
+    "cbrt": _cbrt, "rcbrt": lambda x: 1.0 / _cbrt(x),
+    "erfinv": torch.erfinv, "gammaln": torch.lgamma,
+    "gamma": lambda x: torch.exp(torch.lgamma(x)),
+    "logical_not": lambda x: (x == 0).to(x.dtype),
+    "gelu": lambda x: 0.5 * x * (1.0 + torch.tanh(
+        _GELU_C * (x + 0.044715 * x ** 3))),
 }
 
 for _name, _fn in _UNARY.items():
@@ -35,6 +62,25 @@ for _name, _fn in _UNARY.items():
 
 alias("negative", "_np_negative")
 alias("identity", "_copy")
+
+
+@register("hard_sigmoid", num_inputs=1, input_names=["data"])
+def _hard_sigmoid(attrs, x):
+    """clip(alpha*x + beta, 0, 1); the gradient is alpha strictly inside
+    (0, 1) and 0 at and beyond the bounds (reference
+    `hard_sigmoid_backward`)."""
+    lin = attrs.get_float("alpha", 0.2) * x + attrs.get_float("beta", 0.5)
+    inside = (lin > 0) & (lin < 1)
+    return torch.where(inside, lin, lin.detach().clamp(0.0, 1.0))
+
+
+@register("smooth_l1", num_inputs=1, input_names=["data"])
+def _smooth_l1(attrs, x):
+    """0.5 (sigma x)^2 where |x| < 1 / sigma^2, else |x| - 0.5 / sigma^2
+    (``scalar`` is sigma)."""
+    s2 = attrs.get_float("scalar", 1.0) ** 2
+    absx = torch.abs(x)
+    return torch.where(absx < 1.0 / s2, 0.5 * s2 * x * x, absx - 0.5 / s2)
 
 
 @register("BlockGrad", num_inputs=1, input_names=["data"])

@@ -1,10 +1,21 @@
-"""Shape and product ops of the ported paths (the counterparts of
-`mxnet_tpu/ops/matrix.py`): dot, batch_dot, transpose, swapaxes, reshape,
-Flatten, Pad, where, zeros_like/ones_like, Embedding, the sequence
-plumbing of the unrolled RNN cells (SliceChannel/split, slice_axis,
-Concat, stack, squeeze and expand_dims), and the zero-input
-constructors ``_zeros``, ``_ones``, ``_full``, ``_arange`` and ``_eye``
-that the ``fold_const`` pass folds.
+"""Shape, indexing, ordering and product ops (the counterparts of
+`mxnet_tpu/ops/matrix.py`): dot, batch_dot, transpose, swapaxes,
+moveaxis, reshape and reshape_like, Flatten, Pad, where,
+zeros_like/ones_like, the sequence plumbing of the unrolled RNN cells
+(SliceChannel/split, slice_axis, Concat, stack, squeeze and
+expand_dims), slice/crop and slice_like, tile, repeat, flip/reverse,
+diag, shape_array and size_array; the indexing ops take, one_hot,
+Embedding, gather_nd, scatter_nd and ``_scatter_set_nd``; the ordering
+ops sort, argsort and topk; and the zero-input constructors ``_zeros``,
+``_ones``, ``_full``, ``_arange``, ``_linspace`` and ``_eye`` that the
+``fold_const`` pass folds.
+
+Ordering follows ``jnp.argsort``/``lax.top_k``: ascending sorts are
+stable (tied entries keep their order), a descending sort or argsort is
+the ascending one reversed, and ``topk`` takes the lower index first among
+tied entries.  Index outputs are float32 unless ``dtype`` says otherwise;
+``shape_array``/``size_array`` give int64 (the reference's dtype; the JAX
+package narrows them to int32 without x64).
 
 A constructor has no input to take a device from: the executor hands it
 the device its graph runs on as the ``__device`` attr (`registry.DEVICE`),
@@ -52,7 +63,8 @@ def _transpose(attrs, x):
     return x.permute(*axes)
 
 
-@register("swapaxes", num_inputs=1, input_names=["data"])
+@register("swapaxes", num_inputs=1, input_names=["data"],
+          attr_names=["dim1", "dim2"])
 def _swapaxes(attrs, x):
     return x.transpose(attrs.get_int("dim1", 0), attrs.get_int("dim2", 0))
 
@@ -175,7 +187,8 @@ def _embedding(attrs, data, weight):
     return out if dtype is None else out.to(dtype)
 
 
-@register("expand_dims", num_inputs=1, input_names=["data"])
+@register("expand_dims", num_inputs=1, input_names=["data"],
+          attr_names=["axis"])
 def _expand_dims(attrs, x):
     return x.unsqueeze(attrs.get_int("axis", 0))
 
@@ -292,3 +305,245 @@ def _zeros_like(attrs, x):
 @register("ones_like", num_inputs=1, input_names=["data"])
 def _ones_like(attrs, x):
     return torch.ones_like(x)
+
+
+@register("_linspace", num_inputs=0,
+          attr_names=["start", "stop", "num", "endpoint"])
+def _linspace(attrs):
+    """``num`` evenly spaced values from start to stop (stop excluded
+    without ``endpoint``)."""
+    start, stop = attrs.get_float("start"), attrs.get_float("stop")
+    num = attrs.get_int("num")
+    where = _placement(attrs)
+    if attrs.get_bool("endpoint", True):
+        return torch.linspace(start, stop, num, **where)
+    step = (stop - start) / num
+    return (start + step * torch.arange(num, device=where["device"],
+                                        dtype=torch.float64)
+            ).to(where["dtype"])
+
+
+alias("_linspace", "linspace")
+
+
+@register("reshape_like", num_inputs=2, input_names=["lhs", "rhs"])
+def _reshape_like(attrs, lhs, rhs):
+    return lhs.reshape(rhs.shape)
+
+
+@register("moveaxis", num_inputs=1, input_names=["data"],
+          attr_names=["source", "destination"])
+def _moveaxis(attrs, x):
+    return torch.movedim(x, attrs.get_attr("source"),
+                         attrs.get_attr("destination"))
+
+
+def _axis_slice(x, axis, start, stop, step):
+    """x[start:stop:step] along ``axis``; a negative step (which torch's
+    basic slicing refuses) selects the same indices as Python's."""
+    if step is None or step > 0:
+        idx = [slice(None)] * x.dim()
+        idx[axis] = slice(start, stop, step)
+        return x[tuple(idx)]
+    picks = list(range(*slice(start, stop, step).indices(x.shape[axis])))
+    return x.index_select(axis, torch.tensor(picks, dtype=torch.int64,
+                                             device=x.device))
+
+
+def _opt(v):
+    return None if v in (None, "None") else int(v)
+
+
+@register("slice", num_inputs=1, input_names=["data"])
+def _slice(attrs, x):
+    """Python slicing per leading axis: ``begin``/``end``/``step`` tuples,
+    None for the full range (reference `SliceParam`)."""
+    begin = attrs.get_tuple("begin")
+    end = attrs.get_tuple("end")
+    step = attrs.get_tuple("step", None) or (None,) * len(begin)
+    for ax, (b, e) in enumerate(zip(begin, end)):
+        s = _opt(step[ax]) if ax < len(step) else None
+        x = _axis_slice(x, ax, _opt(b), _opt(e), s)
+    return x
+
+
+alias("slice", "crop")
+
+
+@register("slice_like", num_inputs=2, input_names=["data", "shape_like"])
+def _slice_like(attrs, x, like):
+    """``x`` cut to ``shape_like``'s extent on ``axes`` (every shared axis
+    when none is given)."""
+    axes = attrs.get_tuple("axes", None)
+    if axes is None:
+        axes = range(min(x.dim(), like.dim()))
+    idx = [slice(None)] * x.dim()
+    for a in axes:
+        idx[a] = slice(0, like.shape[a])
+    return x[tuple(idx)]
+
+
+@register("tile", num_inputs=1, input_names=["data"])
+def _tile(attrs, x):
+    return x.tile(tuple(int(r) for r in attrs.get_tuple("reps")))
+
+
+@register("repeat", num_inputs=1, input_names=["data"])
+def _repeat(attrs, x):
+    """Each element ``repeats`` times along ``axis`` (of the flattened
+    array when none is given)."""
+    ax = attrs.get_attr("axis", None)
+    return torch.repeat_interleave(x, attrs.get_int("repeats"),
+                                   dim=None if ax is None else int(ax))
+
+
+@register("reverse", num_inputs=1, input_names=["data"])
+def _reverse(attrs, x):
+    ax = attrs.get_attr("axis")
+    return torch.flip(x, (ax,) if isinstance(ax, int) else tuple(ax))
+
+
+alias("reverse", "flip")
+
+
+@register("diag", num_inputs=1, input_names=["data"])
+def _diag(attrs, x):
+    """The k-th diagonal of a matrix (of ``axis1``/``axis2`` for N-D), or
+    a matrix with a vector on its k-th diagonal."""
+    k = attrs.get_int("k", 0)
+    if x.dim() == 1:
+        return torch.diag(x, k)
+    return torch.diagonal(x, offset=k, dim1=attrs.get_int("axis1", 0),
+                          dim2=attrs.get_int("axis2", 1))
+
+
+@register("shape_array", num_inputs=1, input_names=["data"])
+def _shape_array(attrs, x):
+    return torch.tensor(tuple(x.shape), dtype=torch.int64, device=x.device)
+
+
+@register("size_array", num_inputs=1, input_names=["data"])
+def _size_array(attrs, x):
+    return torch.tensor([x.numel()], dtype=torch.int64, device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# indexing (reference src/operator/tensor/indexing_op.h)
+# ---------------------------------------------------------------------------
+
+@register("take", num_inputs=2, input_names=["a", "indices"])
+def _take(attrs, a, indices):
+    """Slices of ``a`` along ``axis`` at ``indices``; an index outside the
+    axis is clipped into it (``mode='clip'``, also for ``'raise'``) or
+    wrapped (``'wrap'``)."""
+    ax = attrs.get_int("axis", 0) % a.dim()
+    n = a.shape[ax]
+    idx = indices.to(torch.int64)
+    if attrs.get_str("mode", "clip") == "wrap":
+        idx = torch.remainder(idx, n)
+    else:
+        idx = idx.clamp(0, n - 1)
+    out = a.index_select(ax, idx.reshape(-1))
+    return out.reshape(a.shape[:ax] + idx.shape + a.shape[ax + 1:])
+
+
+alias("Embedding", "_contrib_SparseEmbedding")
+
+
+@register("one_hot", num_inputs=1, input_names=["indices"])
+def _one_hot(attrs, indices):
+    """``on_value`` at each index of a ``depth``-long last axis,
+    ``off_value`` elsewhere (an index outside [0, depth) gives a row of
+    ``off_value``), in ``dtype`` (float32 by default)."""
+    depth = attrs.get_int("depth")
+    on = attrs.get_float("on_value", 1.0)
+    off = attrs.get_float("off_value", 0.0)
+    dt = attrs.get_dtype("dtype", torch.float32)
+    hot = (indices.to(torch.int64)[..., None]
+           == torch.arange(depth, device=indices.device)).to(torch.float32)
+    return (hot * (on - off) + off).to(dt)
+
+
+def _nd_index(indices):
+    idx = indices.to(torch.int64)
+    return tuple(idx[i] for i in range(idx.shape[0]))
+
+
+@register("gather_nd", num_inputs=2, input_names=["data", "indices"])
+def _gather_nd(attrs, data, indices):
+    """``indices`` (M, ...) index the first M axes of ``data``; a repeated
+    index adds its gradients."""
+    return data[_nd_index(indices)]
+
+
+@register("scatter_nd", num_inputs=2, input_names=["data", "indices"])
+def _scatter_nd(attrs, data, indices):
+    """Zeros of ``shape`` with ``data`` written at ``indices`` (gather_nd's
+    inverse; where an index repeats, one of its values is kept)."""
+    out = torch.zeros(tuple(attrs.get_tuple("shape")), dtype=data.dtype,
+                      device=data.device)
+    return out.index_put(_nd_index(indices), data)
+
+
+@register("_scatter_set_nd", num_inputs=3,
+          input_names=["lhs", "rhs", "indices"])
+def _scatter_set_nd(attrs, lhs, rhs, indices):
+    return lhs.index_put(_nd_index(indices), rhs)
+
+
+# ---------------------------------------------------------------------------
+# ordering (reference src/operator/tensor/ordering_op-inl.h)
+# ---------------------------------------------------------------------------
+
+def _ordering_axis(attrs, x):
+    """``(x, axis)``: an explicit ``axis=None`` sorts the flattened array,
+    a missing one means -1."""
+    raw = attrs.get("axis", -1)
+    if raw in (None, "None"):
+        return x.reshape(-1), 0
+    return x, attrs.get_int("axis", -1) % max(x.dim(), 1)
+
+
+def _index_dtype(attrs):
+    return attrs.get_dtype("dtype", torch.float32)
+
+
+@register("sort", num_inputs=1, input_names=["data"])
+def _sort(attrs, x):
+    x, ax = _ordering_axis(attrs, x)
+    out = torch.sort(x, dim=ax, stable=True).values
+    return out if attrs.get_bool("is_ascend", True) else out.flip(ax)
+
+
+@register("argsort", num_inputs=1, input_names=["data"])
+def _argsort(attrs, x):
+    x, ax = _ordering_axis(attrs, x)
+    idx = torch.sort(x, dim=ax, stable=True).indices
+    if not attrs.get_bool("is_ascend", True):
+        idx = idx.flip(ax)
+    return idx.to(_index_dtype(attrs))
+
+
+@register("topk", num_inputs=1, input_names=["data"],
+          num_outputs=lambda a: 2 if a.get_str("ret_typ", "indices")
+          == "both" else 1)
+def _topk(attrs, x):
+    """The ``k`` largest (smallest with ``is_ascend``) entries along
+    ``axis``: their values, indices, a 0/1 mask of them, or values and
+    indices (``ret_typ`` value, indices, mask, both)."""
+    x, ax = _ordering_axis(attrs, x)
+    k = attrs.get_int("k", 1)
+    ret = attrs.get_str("ret_typ", "indices")
+    dt = _index_dtype(attrs)
+    desc = not attrs.get_bool("is_ascend", False)
+    order = torch.sort(x, dim=ax, descending=desc, stable=True)
+    vals = order.values.narrow(ax, 0, k)
+    idxs = order.indices.narrow(ax, 0, k)
+    if ret == "value":
+        return vals
+    if ret == "indices":
+        return idxs.to(dt)
+    if ret == "mask":
+        return torch.zeros(x.shape, dtype=dt, device=x.device).scatter(
+            ax, idxs, 1)
+    return vals, idxs.to(dt)

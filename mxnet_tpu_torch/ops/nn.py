@@ -1,10 +1,12 @@
 """Neural-network ops (the counterparts of `mxnet_tpu/ops/nn.py`):
 FullyConnected, Convolution, Deconvolution, Pooling, Activation,
 LeakyReLU, softmax (with its ``length`` input), softmin, log_softmax,
-LayerNorm, InstanceNorm, BatchNorm, Dropout, SequenceMask, SequenceLast,
-SequenceReverse and SoftmaxOutput, as plain PyTorch functions whose
-gradients are autograd's own, except SoftmaxOutput's, which is the op's
-defined gradient.
+LayerNorm, InstanceNorm, BatchNorm, L2Normalization, LRN, UpSampling,
+Dropout, SequenceMask, SequenceLast, SequenceReverse, SoftmaxOutput,
+softmax_cross_entropy and the regression heads (Linear-, MAE- and
+LogisticRegressionOutput), as plain PyTorch functions whose gradients are
+autograd's own, except the output heads', which are the ops' defined
+gradients.
 
 The large products and the convolutions go to
 `torch.nn.functional.linear` and ``conv*d`` (cuDNN on the card), as the
@@ -591,34 +593,118 @@ alias("SoftmaxOutput", "Softmax")
 
 
 # ---------------------------------------------------------------------------
-# LinearRegressionOutput (reference src/operator/regression_output-inl.h)
+# the regression heads (reference src/operator/regression_output-inl.h)
 # ---------------------------------------------------------------------------
 
-class _LinearRegressionOutput(torch.autograd.Function):
-    """Identity forward; backward (data - label)·grad_scale / num_output,
-    the incoming gradient ignored (a loss head)."""
+class _RegressionOutput(torch.autograd.Function):
+    """Forward the identity (sigmoid for ``logistic``); backward
+    (out - label)·scale (sign(data - label)·scale for ``mae``), the
+    incoming gradient ignored (a loss head)."""
 
     @staticmethod
-    def forward(ctx, data, label, scale):
-        ctx.save_for_backward(data, label)
-        ctx.scale = scale
-        return data.clone()
+    def forward(ctx, data, label, scale, kind):
+        out = torch.sigmoid(data) if kind == "logistic" else data.clone()
+        ctx.save_for_backward(out if kind == "logistic" else data, label)
+        ctx.scale, ctx.kind = scale, kind
+        return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        data, label = ctx.saved_tensors
-        return (data - label.reshape(data.shape)) * ctx.scale, None, None
+        pred, label = ctx.saved_tensors
+        diff = pred - label.reshape(pred.shape)
+        if ctx.kind == "mae":
+            diff = torch.sign(diff)
+        return diff * ctx.scale, None, None, None
 
 
-@register("LinearRegressionOutput", num_inputs=2,
-          input_names=["data", "label"])
-def _linear_regression_output(attrs, data, label):
-    """Reference `LinearRegressionOutput`: the gradient's seed is
+def _regression(kind):
+    def compute(attrs, data, label):
+        num_output = 1
+        for s in label.shape[1:]:
+            num_output *= int(s)
+        scale = attrs.get_float("grad_scale", 1.0) / max(num_output, 1)
+        return _RegressionOutput.apply(data, label.detach(), scale, kind)
+    return compute
+
+
+_REGRESSION_DOC = """Reference `{name}`: the gradient's seed is
     grad_scale / num_output, num_output = label.size / batch
-    (`regression_output-inl.h:200-206`)."""
-    num_output = 1
-    for s in label.shape[1:]:
-        num_output *= int(s)
-    scale = attrs.get_float("grad_scale", 1.0) / max(num_output, 1)
-    return _LinearRegressionOutput.apply(data, label.detach(), scale)
+    (`regression_output-inl.h:200-206`), whatever gradient comes in."""
+
+for _kind, _name in (("linear", "LinearRegressionOutput"),
+                     ("mae", "MAERegressionOutput"),
+                     ("logistic", "LogisticRegressionOutput")):
+    _fn = _regression(_kind)
+    _fn.__doc__ = _REGRESSION_DOC.format(name=_name)
+    register(_name, num_inputs=2, input_names=["data", "label"])(_fn)
+
+
+@register("softmax_cross_entropy", num_inputs=2,
+          input_names=["data", "label"])
+def _softmax_cross_entropy(attrs, data, label):
+    """The summed negative log-likelihood of ``label`` under the softmax
+    of ``data``'s last axis, as a 1-element vector."""
+    logp = torch.log_softmax(data, dim=-1)
+    nll = -logp.gather(-1, label.to(torch.int64)[..., None])
+    return nll.sum().reshape(1)
+
+
+@register("L2Normalization", num_inputs=1, input_names=["data"])
+def _l2_normalization(attrs, data):
+    """``data`` over its L2 norm (plus ``eps`` under the root) per
+    instance (every axis but the first), per ``channel`` (axis 1) or per
+    ``spatial`` position set (the axes past 1)."""
+    eps = attrs.get_float("eps", 1e-10)
+    mode = attrs.get_str("mode", "instance")
+    if mode == "instance":
+        red = tuple(range(1, data.dim()))
+    elif mode == "channel":
+        red = (1,)
+    else:
+        red = tuple(range(2, data.dim()))
+    return data / torch.sqrt(torch.sum(torch.square(data), dim=red,
+                                       keepdim=True) + eps)
+
+
+@register("LRN", num_inputs=1, input_names=["data"])
+def _lrn(attrs, data):
+    """Local response normalization across channels (`lrn.cc`):
+    x / (knorm + alpha / nsize · Σ x²)^beta over a window of ``nsize``
+    channels centred on each."""
+    alpha = attrs.get_float("alpha", 1e-4)
+    beta = attrs.get_float("beta", 0.75)
+    knorm = attrs.get_float("knorm", 2.0)
+    nsize = attrs.get_int("nsize")
+    half = nsize // 2
+    c = data.shape[1]
+    sq = torch.square(data)
+    pad = [0, 0] * (data.dim() - 2) + [half, half]
+    sq = F.pad(sq, pad)
+    ssum = sq.narrow(1, 0, c)
+    for i in range(1, nsize):
+        ssum = ssum + sq.narrow(1, i, c)
+    return data / torch.pow(knorm + alpha / nsize * ssum, beta)
+
+
+@register("UpSampling", num_inputs=None, input_names=None)
+def _upsampling(attrs, *inputs):
+    """``nearest``: each input's pixels repeated ``scale`` times in both
+    spatial axes, the inputs brought to the largest size and concatenated
+    along channels; ``bilinear``: the first input resized by ``scale``
+    with half-pixel centres (the JAX package's `jax.image.resize`)."""
+    scale = attrs.get_int("scale")
+    if attrs.get_str("sample_type", "nearest") == "nearest":
+        outs = [x.repeat_interleave(scale, 2).repeat_interleave(scale, 3)
+                for x in inputs]
+        if len(outs) == 1:
+            return outs[0]
+        h = max(o.shape[2] for o in outs)
+        w = max(o.shape[3] for o in outs)
+        outs = [o if (o.shape[2] == h and o.shape[3] == w) else
+                o.repeat_interleave(h // o.shape[2], 2)
+                .repeat_interleave(w // o.shape[3], 3) for o in outs]
+        return torch.cat(outs, 1)
+    x = inputs[0]
+    return F.interpolate(x, scale_factor=scale, mode="bilinear",
+                         align_corners=False)

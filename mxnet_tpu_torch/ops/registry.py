@@ -22,7 +22,7 @@ from ..base import MXNetError, _Null, str_to_attr, torch_dtype
 
 __all__ = ["Attrs", "OpDef", "register", "alias", "get_op", "list_ops",
            "apply_op", "eval_shape_op", "canonical_attrs",
-           "split_positional_attrs", "DEVICE"]
+           "split_positional_attrs", "attach_prefixed", "DEVICE"]
 
 #: the attr through which a zero-input op learns the device to build on
 DEVICE = "__device"
@@ -146,6 +146,30 @@ def get_op(name: str) -> OpDef:
 
 def list_ops() -> List[str]:
     return sorted(_REGISTRY)
+
+
+def attach_prefixed(target_globals: Dict, prefixes: Sequence[str],
+                    invoke_fn: Callable,
+                    target_all: Optional[List[str]] = None) -> None:
+    """Fill a namespace (`nd.random`, `sym.linalg`, ...) with one wrapper
+    per registered op whose name starts with one of ``prefixes``, under
+    the name less the prefix (the JAX package's `attach_prefixed`)."""
+    for name in list_ops():
+        for prefix in prefixes:
+            if not name.startswith(prefix):
+                continue
+            short = name[len(prefix):]
+            if short in target_globals:
+                continue
+
+            def f(*args, _n=name, **kwargs):
+                return invoke_fn(_n, *args, **kwargs)
+            f.__name__ = short
+            f.__doc__ = get_op(name).doc
+            target_globals[short] = f
+            if target_all is not None:
+                target_all.append(short)
+            break
 
 
 def split_positional_attrs(op: OpDef, inputs: Sequence, kwargs: Dict,

@@ -117,3 +117,21 @@ def set_state(state: dict) -> None:
                     device=device)
             gen.set_state(torch.frombuffer(bytearray(base64.b64decode(raw)),
                                            dtype=torch.uint8))
+
+
+def _delegate(name):
+    def f(*args, **kwargs):
+        from .ndarray import random as _ndr
+        return getattr(_ndr, name)(*args, **kwargs)
+    f.__name__ = name
+    f.__doc__ = f"`nd.random.{name}`."
+    return f
+
+
+# the samplers of `nd.random` at the top of the package (`mx.random.normal`)
+for _name in ("uniform", "normal", "randn", "randint", "poisson",
+              "exponential", "gamma", "multinomial", "shuffle",
+              "negative_binomial", "generalized_negative_binomial"):
+    globals()[_name] = _delegate(_name)
+    __all__.append(_name)
+del _name

@@ -19,28 +19,47 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..attribute import current as _attr_scope
 from ..attribute import strip_annotations
-from ..base import MXNetError, str_to_attr
+from ..base import (MXNetError, NotImplementedForSymbol, numpy_dtype,
+                    str_to_attr)
 from ..context import default_context
 from ..ops import registry as _reg
 from ..ops.registry import Attrs
 from .param_infer import infer_param_shapes
 
-__all__ = ["Symbol", "var", "Group", "load", "load_json"]
+__all__ = ["Symbol", "var", "Group", "load", "load_json",
+           "name_prefix_scope"]
 
 
 class _NameManager(threading.local):
     def __init__(self):
         super().__init__()
         self.counters: Dict[str, int] = {}
+        self.prefix: List[str] = []
 
     def get(self, hint: str) -> str:
         i = self.counters.get(hint, 0)
         self.counters[hint] = i + 1
-        return f"{hint.lower()}{i}"
+        return "".join(self.prefix) + f"{hint.lower()}{i}"
 
 
 _NAMES = _NameManager()
+
+
+class name_prefix_scope:
+    """``with name_prefix_scope("stage1_"): ...``: every name made inside
+    starts with the prefix (reference `name.py` `Prefix`)."""
+
+    def __init__(self, prefix: str):
+        self.prefix = prefix
+
+    def __enter__(self):
+        _NAMES.prefix.append(self.prefix)
+        return self
+
+    def __exit__(self, *exc):
+        _NAMES.prefix.pop()
 
 
 class _Node:
@@ -163,6 +182,42 @@ class Symbol:
     def __rtruediv__(self, o):
         return self._binop(o, "broadcast_div", "_div_scalar", True)
 
+    def __pow__(self, o):
+        return self._binop(o, "broadcast_power", "_power_scalar")
+
+    def __mod__(self, o):
+        return self._binop(o, "broadcast_mod", "_mod_scalar")
+
+    def __rmod__(self, o):
+        return self._binop(o, "broadcast_mod", "_mod_scalar", True)
+
+    def __eq__(self, o):
+        if isinstance(o, (Symbol, int, float, np.number)):
+            return self._binop(o, "broadcast_equal", "_equal_scalar")
+        return NotImplemented
+
+    def __ne__(self, o):
+        if isinstance(o, (Symbol, int, float, np.number)):
+            return self._binop(o, "broadcast_not_equal", "_not_equal_scalar")
+        return NotImplemented
+
+    def __gt__(self, o):
+        return self._binop(o, "broadcast_greater", "_greater_scalar")
+
+    def __ge__(self, o):
+        return self._binop(o, "broadcast_greater_equal",
+                           "_greater_equal_scalar")
+
+    def __lt__(self, o):
+        return self._binop(o, "broadcast_lesser", "_lesser_scalar")
+
+    def __le__(self, o):
+        return self._binop(o, "broadcast_lesser_equal",
+                           "_lesser_equal_scalar")
+
+    def __hash__(self):
+        return id(self)
+
     def __neg__(self):
         from .register import invoke_sym
         return invoke_sym("negative", self)
@@ -202,6 +257,21 @@ class Symbol:
         aux = self._aux_var_names()
         return [n.name for n in self._nodes() if n.is_var and n.name in aux]
 
+    def list_inputs(self) -> List[str]:
+        """Every variable, arguments and auxiliary states alike."""
+        return [n.name for n in self._nodes() if n.is_var]
+
+    def get_children(self) -> Optional["Symbol"]:
+        """The inputs of the head nodes (a node with several heads counts
+        once), or None for a variable."""
+        heads, seen = [], set()
+        for (node, _) in self._heads:
+            if id(node) in seen:
+                continue
+            seen.add(id(node))
+            heads.extend(node.inputs)
+        return Symbol(heads) if heads else None
+
     def list_outputs(self) -> List[str]:
         out = []
         for (node, idx) in self._heads:
@@ -213,12 +283,38 @@ class Symbol:
                 out.append(f"{node.name}_output{idx}")
         return out
 
-    # -- shape inference ----------------------------------------------------
+    # -- attributes ---------------------------------------------------------
     def attr_dict(self):
         """Node name -> its attrs as strings, for the nodes that have any
         (reference `symbol.py:attr_dict()`)."""
         return {n.name: {k: _attr_str(v) for k, v in n.attrs.items()}
                 for n in self._nodes() if n.attrs}
+
+    def attr(self, key):
+        """An attr of the head node as a string, under its plain or its
+        dunder spelling (``attr('lr_mult') == attr('__lr_mult__')``)."""
+        if len(self._heads) != 1:
+            return None
+        attrs = self._heads[0][0].attrs
+        v = attrs.get(key)
+        if v is None and key.startswith("__") and key.endswith("__"):
+            v = attrs.get(key[2:-2])
+        elif v is None:
+            v = attrs.get(f"__{key}__")
+        return _attr_str(v) if v is not None else None
+
+    def list_attr(self, recursive=False):
+        """The head node's attrs as strings; ``recursive`` is `attr_dict`
+        now, and raises as the reference does."""
+        if recursive:
+            raise DeprecationWarning(
+                "Symbol.list_attr with recursive=True has been deprecated. "
+                "Please use attr_dict instead.")
+        if len(self._heads) != 1:
+            return {}
+        return {k: _attr_str(v) for k, v in self._heads[0][0].attrs.items()}
+
+    # -- shape and type inference -----------------------------------------
 
     def infer_shape(self, **shapes):
         """``(arg_shapes, out_shapes, aux_shapes)`` from known input
@@ -237,7 +333,113 @@ class Symbol:
         aux_shapes = [inferred.get(n) for n in self.list_auxiliary_states()]
         return arg_shapes, out_shapes, aux_shapes
 
+    def infer_type(self, *args, **kwargs):
+        """``(arg_types, out_types, aux_types)`` as numpy dtypes, from the
+        known inputs' dtypes (positional in `list_arguments` order, or by
+        name): each node's output takes its ``dtype`` attr, else the
+        promotion of its inputs' dtypes, and an unknown variable input
+        adopts what the node's known inputs agree on (the JAX package's
+        propagation)."""
+        known: Dict[str, np.dtype] = {}
+        arg_names = self.list_arguments()
+        for name, t in zip(arg_names, args):
+            if t is not None:
+                known[name] = np.dtype(t)
+        known.update({k: np.dtype(v) for k, v in kwargs.items()
+                      if v is not None})
+        dtypes: Dict[str, np.dtype] = {}
+        for node in self._nodes():
+            if node.is_var:
+                if node.name in known:
+                    dtypes[node.name] = known[node.name]
+                else:
+                    forced = Attrs(node.attrs).get_dtype("__dtype__", None)
+                    if forced is not None:
+                        dtypes[node.name] = numpy_dtype(forced)
+                continue
+            keys = [(_value_key(e), e[0].is_var) for e in node.inputs]
+            in_dts = [dtypes.get(k) for k, _ in keys]
+            resolved = [d for d in in_dts if d is not None]
+            fill = (np.result_type(*resolved) if resolved
+                    else np.dtype(np.float32))
+            for (k, is_var), d in zip(keys, in_dts):
+                if d is None and is_var:
+                    dtypes[k] = fill
+            forced = Attrs(node.attrs).get_dtype("dtype", None)
+            out_dt = numpy_dtype(forced) if forced is not None else fill
+            for i in range(node.num_outputs):
+                dtypes[_entry_key((node, i))] = out_dt
+        f32 = np.dtype(np.float32)
+        return ([dtypes.get(n, f32) for n in arg_names],
+                [dtypes.get(_value_key(e)) for e in self._heads],
+                [dtypes.get(n, f32) for n in self.list_auxiliary_states()])
+
+    def infer_type_partial(self, *args, **kwargs):
+        """`infer_type`, which already tolerates unknown inputs."""
+        return self.infer_type(*args, **kwargs)
+
+    # -- what only an NDArray does ------------------------------------------
+    def gradient(self, wrt):
+        """Not implemented, as in the reference: gradients come from an
+        executor's backward or from autograd."""
+        raise NotImplementedError(
+            "Symbol.gradient is not implemented (same as the reference); "
+            "use executor.backward or autograd")
+
+    def get_backend_symbol(self, backend):
+        """Partition the graph for a subgraph backend: the port has no
+        subgraph properties yet, so every backend is refused."""
+        raise MXNetError(f"get_backend_symbol: no subgraph backend "
+                         f"{backend!r} in the PyTorch port")
+
+    def astype(self, dtype=None, **kwargs):
+        """``sym.cast(self, dtype=...)``."""
+        from .register import invoke_sym
+        if dtype is not None:
+            kwargs.setdefault("dtype", dtype)
+        return invoke_sym("cast", self, **kwargs)
+
+    def _nifs(self, fn, alias=None):
+        raise NotImplementedForSymbol(fn, alias)
+
+    def wait_to_read(self):
+        self._nifs(self.wait_to_read)
+
+    def asnumpy(self):
+        self._nifs(self.asnumpy)
+
+    def asscalar(self):
+        self._nifs(self.asscalar)
+
+    def copy(self):
+        self._nifs(self.copy)
+
+    def as_in_context(self, context):
+        self._nifs(self.as_in_context)
+
+    def detach(self):
+        self._nifs(self.detach)
+
+    def backward(self):
+        self._nifs(self.backward)
+
+    def __bool__(self):
+        raise NotImplementedForSymbol(self.__bool__, "bool")
+
     # -- serialization ------------------------------------------------------
+    def tojson_dict(self):
+        return json.loads(self.tojson())
+
+    def debug_str(self):
+        """One line per node, inputs first: its op (``Variable``), name and
+        inputs."""
+        lines = []
+        for n in self._nodes():
+            kind = "Variable" if n.is_var else n.op
+            ins = ", ".join(f"{s.name}[{i}]" for (s, i) in n.inputs)
+            lines.append(f"{kind} {n.name}({ins})")
+        return "\n".join(lines)
+
     def tojson(self) -> str:
         nodes = self._nodes()
         nid = {id(n): i for i, n in enumerate(nodes)}
@@ -261,6 +463,11 @@ class Symbol:
             f.write(self.tojson())
 
     # -- execution ----------------------------------------------------------
+    def eval(self, ctx=None, **kwargs):
+        """The outputs for the input arrays ``kwargs`` (a bind and one
+        forward)."""
+        return self.bind(ctx, args=kwargs, grad_req="null").forward()
+
     def bind(self, ctx=None, args=None, args_grad=None, grad_req="write",
              aux_states=None):
         """An `Executor` over this graph with ``args`` bound (and, where
@@ -275,17 +482,28 @@ class Symbol:
         allocated as zeros on ``ctx`` (the card when none is given), their
         shapes inferred from the given input ``shapes`` (reference
         `symbol.py:1369`).  ``type_dict`` names dtypes other than
-        float32."""
+        float32; the arguments it does not name take the float dtype
+        `infer_type` propagates to them."""
         from ..executor import Executor
         from ..ndarray.ndarray import zeros
         if ctx is None:
             ctx = default_context("simple_bind")
         arg_shapes, _, aux_shapes = self.infer_shape(**shapes)
         type_dict = dict(type_dict or {})
-        args = {n: zeros(s, ctx=ctx, dtype=type_dict.get(n, "float32"))
-                for n, s in zip(self.list_arguments(), arg_shapes)}
-        aux = {n: zeros(s, ctx=ctx, dtype=type_dict.get(n, "float32"))
-               for n, s in zip(self.list_auxiliary_states(), aux_shapes)}
+        # the other arguments take the float dtype `infer_type` gives them
+        # (float64 data, float64 weights), as in the JAX package
+        arg_types, _, aux_types = self.infer_type(**type_dict)
+
+        def dtype(name, inferred):
+            if name in type_dict:
+                return type_dict[name]
+            return inferred if np.issubdtype(inferred, np.floating) \
+                else "float32"
+
+        args = {n: zeros(s, ctx=ctx, dtype=dtype(n, t)) for n, s, t in
+                zip(self.list_arguments(), arg_shapes, arg_types)}
+        aux = {n: zeros(s, ctx=ctx, dtype=dtype(n, t)) for n, s, t in
+               zip(self.list_auxiliary_states(), aux_shapes, aux_types)}
         args_grad = None
         if grad_req != "null":
             args_grad = {n: zeros(a.shape, ctx=ctx, dtype=a.dtype)
@@ -298,6 +516,8 @@ class Symbol:
 _REVERSE_SCALAR = {
     "_minus_scalar": "_rminus_scalar",
     "_div_scalar": "_rdiv_scalar",
+    "_mod_scalar": "_rmod_scalar",
+    "_power_scalar": "_rpower_scalar",
 }
 
 
@@ -392,6 +612,7 @@ def var(name: str, shape=None, dtype=None, init=None, lr_mult=None,
         attrs["__wd_mult__"] = str(wd_mult)
     attrs.update(kwargs.pop("attr", None) or {})
     attrs.update({k: v for k, v in kwargs.items() if v is not None})
+    attrs = _attr_scope().get(attrs)
     return Symbol([(_Node(None, name, attrs, []), 0)])
 
 
@@ -426,5 +647,5 @@ def _new_op_node(op_name: str, inputs: List[Tuple[_Node, int]],
                  attrs: Dict[str, Any], name: Optional[str]) -> Symbol:
     if name is None:
         name = _NAMES.get(op_name.lstrip("_"))
-    node = _Node(op_name, name, attrs, inputs)
+    node = _Node(op_name, name, _attr_scope().get(attrs), inputs)
     return Symbol([(node, i) for i in range(node.num_outputs)])

@@ -6,6 +6,7 @@ hidden 8) trained through both packages' ``BucketingModule.fit`` across
 three buckets from the same ``arg_params`` and batches; the buckets share
 one set of parameter arrays and one optimizer; checkpoints interchange."""
 import logging
+import random
 
 import numpy as np
 import pytest
@@ -15,6 +16,7 @@ import mxnet_tpu as mx
 from mxnet_tpu.symbol import symbol as jsym
 
 import mxnet_tpu_torch as mt
+from mxnet_tpu_torch.rnn import io as tio
 from mxnet_tpu_torch.symbol import symbol as tsym
 
 # the reference's SGD parity tolerance (tests/test_torch_fit.py)
@@ -199,9 +201,22 @@ def test_force_rebind_keeps_trained_values():
                                       before[n].asnumpy())
 
 
-def test_bucketing_lm_learns_from_bucket_sentence_iter():
-    """The reference example's workflow on Markov sentences through
-    `BucketSentenceIter`: perplexity falls and every bucket trains."""
+#: the seed of the iterator's shuffles in the test below (final perplexity
+#: 5.74 against the limit of 6.67); of seeds 0-39, all but 24 and 33 pass
+SHUFFLE_SEED = 0
+
+
+def _bucket_lm_perplexities(monkeypatch, shuffle_seed):
+    """Per-epoch perplexity of the reference example's workflow on Markov
+    sentences through `BucketSentenceIter`.  The iterator shuffles
+    unseeded, as the reference's; here its Python and numpy streams are
+    seeded, so the run is the same every time."""
+    real_rng = np.random.default_rng
+    rng = real_rng(shuffle_seed)
+    monkeypatch.setattr(tio, "_pyrandom", random.Random(shuffle_seed))
+    monkeypatch.setattr(tio.np.random, "default_rng",
+                        lambda seed=None: rng if seed is None
+                        else real_rng(seed))
     rs = np.random.RandomState(0)
     succ = rs.randint(1, VOCAB, (VOCAB, 2))
     sents = []
@@ -223,6 +238,13 @@ def test_bucketing_lm_learns_from_bucket_sentence_iter():
             epoch_end_callback=lambda e, s, a, x: seen.append(
                 mod.score(it, mt.metric.Perplexity(0))[0][1]))
     assert sorted(mod._buckets) == list(BUCKETS)
+    return seen
+
+
+def test_bucketing_lm_learns_from_bucket_sentence_iter(monkeypatch):
+    """The reference example's workflow on Markov sentences through
+    `BucketSentenceIter`: perplexity falls and every bucket trains."""
+    seen = _bucket_lm_perplexities(monkeypatch, SHUFFLE_SEED)
     assert seen[-1] < seen[0] and seen[-1] < VOCAB / 3, seen
 
 

@@ -308,3 +308,38 @@ def test_optimizer_pickles_without_live_parameters():
     opt = mt.optimizer.SGD(learning_rate=0.1, param_dict={0: object()})
     back = pickle.loads(pickle.dumps(opt))
     assert back.param_dict == {} and back.lr == 0.1
+
+
+@pytest.mark.parametrize("update_on_kvstore", [None, False, True])
+def test_trainer_with_a_local_store_on_one_context(update_on_kvstore):
+    """A `KVStore` object on one context: the Trainer skips it, as the JAX
+    package's `_init_kvstore` does, and two SGD-momentum steps match."""
+    rs = np.random.RandomState(5)
+    w0 = rs.randn(3, 4).astype(np.float32)
+    b0 = rs.randn(3).astype(np.float32)
+    xs = [rs.randn(2, 4).astype(np.float32) for _ in range(2)]
+
+    def train(pkg, ctx):
+        net = pkg.gluon.nn.Dense(3, in_units=4, prefix="dense_")
+        net.initialize(ctx=ctx)
+        net.weight.set_data(pkg.nd.array(w0, ctx=ctx))
+        net.bias.set_data(pkg.nd.array(b0, ctx=ctx))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            kv = pkg.kv.create("local")
+        tr = pkg.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.1, "momentum": 0.9},
+                               kvstore=kv,
+                               update_on_kvstore=update_on_kvstore)
+        for x in xs:
+            with pkg.autograd.record():
+                loss = (net(pkg.nd.array(x, ctx=ctx)) ** 2).sum()
+            loss.backward()
+            tr.step(2)
+        return net.weight.data().asnumpy(), net.bias.data().asnumpy()
+
+    jw, jb = train(mx, mx.cpu())
+    tw, tb = train(mt, CPU)
+    np.testing.assert_allclose(tw, jw, rtol=0, atol=TOL)
+    np.testing.assert_allclose(tb, jb, rtol=0, atol=TOL)
+    assert not np.allclose(tw, w0)
