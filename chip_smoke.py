@@ -219,6 +219,40 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    card by ``nd.random.normal``: the iteration's p50 and images/s, one
    profiled iteration's idle share, and D's losses on real and on fake,
    which must move.  No TPU kernel lies on this path.
+13. the optimizers, the initializers and the image data plane.  13a:
+   every registered optimizer (and RMSProp centered) OPT_STEPS steps at
+   ResNet-50 v1's parameter set (193 arrays, 25,575,912 numbers) in fp32
+   on the card from seeded gradients, with wd, rescale_grad and
+   clip_gradient set, through `Updater.update_multi` where it has a
+   multi-tensor plan, against the same port code in float64 on the card:
+   each array within OPT_TOL of its largest magnitude, except that for
+   Signum and Ftrl (a sign or a threshold per element) at most
+   OPT_SWITCH_SHARE of the elements may pass it; SGLD's noise within 5
+   standard errors of N(0, lr) in mean and variance; multi_precision on
+   fp16 weights for SGD, NAG and Adam within OPT_HALF_TOL of fp32, their
+   masters within OPT_TOL; ``multi_sgd_mom_update`` and
+   ``multi_mp_sgd_mom_update`` over every array within MULTI_TOL of the
+   per-array ops; each optimizer's update ms a step beside its compulsory
+   bytes over MEM_BPS.  The initializers at those shapes: Xavier
+   (gaussian, in, 2) and MSRAPrelu by their std (pooled within
+   INIT_STD_TOL, each array within 5 standard errors), Orthogonal within
+   ORTHO_TOL of orthonormal, Bilinear and LSTMBias equal to numpy, Mixed
+   routed by pattern.  13b: IMG_RECORDS synthetic 224 x 224 JPEGs (10
+   classes of smooth prototypes plus noise, quality 95) packed by the
+   port's `recordio`; `resnet50_v1()` hybridized, Xavier(gaussian, in,
+   2), `Trainer('nag')` at IMG_NAG with a linear warm-up, trained for
+   IMG_EPOCHS epochs of 20 batches of 32 from `io.ImageRecordIter`
+   (shuffle, rand_mirror, mean, std, preprocess_threads = the host's
+   cores); the line names the iterator class and decoder that served.
+   Held: the loss falls; the first batch on the card within IMG_CHECK_TOL
+   of the same records decoded on the host and mirrored and normalized
+   in float64 with the flags its seeded stream draws, labels equal; two
+   passes under the NaiveEngine with equal checksums; a batch unchanged
+   after 3 more fetches.  Printed: the step p50 fed by the iterator and
+   on one fixed batch, the loader's wait, the loader alone and decode
+   alone in images/s, the H2D bytes and ms a batch, one profiled fed
+   step's idle share, and the Python `ImageIter` (resize, random crop)
+   images/s over 4 batches.  No TPU kernel lies on this path.
 
 If the run nears its time limit, cut the serving phases' ``TIMED`` and
 ``LSTM_TIMED`` counts before anything of the training phase.
@@ -228,6 +262,7 @@ The line before the last is the JSON kernel report; the last line is
 """
 import contextlib
 import json
+import math
 import os
 import re
 import shutil
@@ -251,6 +286,7 @@ from mxnet_tpu_torch.ndarray.ndarray import NDArray  # noqa: E402
 from mxnet_tpu_torch.graph_compile import CapturedGraph, warm_up  # noqa: E402
 from mxnet_tpu_torch.ops import cuda_build, hopper_kernels as hk  # noqa: E402
 from mxnet_tpu_torch.ops import rnn_op  # noqa: E402
+from mxnet_tpu_torch import io_native  # noqa: E402
 from mxnet_tpu_torch.ops.registry import Attrs  # noqa: E402
 from mxnet_tpu_torch.serialization import dumps_ndarrays  # noqa: E402
 
@@ -496,6 +532,40 @@ DCGAN_SWITCH_TOL = 1e-5
 DCGAN_OUT_TOL = 1e-4
 DCGAN_WARM, DCGAN_TIMED = 2, 20
 DCGAN_LOSS_MOVE = 0.01
+# phase 13a: the optimizers at ResNet-50 v1's parameter set, OPT_STEPS
+# steps in fp32 against float64, each array within OPT_TOL of its
+# largest float64 magnitude; where an element's update turns on a sign or
+# a threshold (OPT_DECISIONS), an element whose decision lies within
+# rounding may switch: at most OPT_SWITCH_SHARE of the elements may pass
+# OPT_TOL.  fp16 weights under multi_precision within OPT_HALF_TOL of
+# fp32, their masters within OPT_TOL; the multi_ ops within MULTI_TOL of
+# their per-array ops; initializers' stds within INIT_STD_TOL (pooled),
+# Orthogonal within ORTHO_TOL of orthonormal
+OPT_STEPS = 10
+OPT_TOL = 1e-5
+OPT_SWITCH_SHARE = 1e-6
+OPT_HALF_TOL = 1e-3
+OPT_DECISIONS = {"signum", "ftrl"}
+OPT_COMMON = dict(learning_rate=0.01, wd=1e-4, rescale_grad=1 / 32,
+                  clip_gradient=5.0)
+OPT_CASES = {
+    "sgd": dict(momentum=0.9), "ccsgd": dict(momentum=0.9),
+    "nag": dict(momentum=0.9), "signum": dict(momentum=0.9),
+    "adam": dict(learning_rate=1e-3), "adagrad": {}, "rmsprop": {},
+    "rmsprop_centered": dict(centered=True), "adadelta": {}, "ftrl": {},
+    "adamax": {}, "nadam": {}, "ftml": {}, "dcasgd": dict(momentum=0.9),
+    "sgld": {}, "lbsgd": dict(momentum=0.9, warmup_strategy="lars"),
+    "test": {}, "groupadagrad": {},
+}
+MULTI_TOL = 1e-6
+INIT_STD_TOL = 0.01
+ORTHO_TOL = 1e-4
+# phase 13b: the image data plane, trained (example/gluon/
+# image_classification.py's feed, fit.py's NAG and Xavier)
+IMG_RECORDS, IMG_SIDE, IMG_CLASSES, IMG_QUALITY = 640, 224, 10, 95
+IMG_BATCH, IMG_EPOCHS, IMG_TIMED = 32, 2, 12
+IMG_NAG = dict(learning_rate=0.025, momentum=0.9, wd=1e-4)
+IMG_CHECK_TOL = 1e-6
 
 
 def log(*parts):
@@ -4463,6 +4533,587 @@ def phase_ops(card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the optimizers, the initializers and the image data plane
+# ---------------------------------------------------------------------------
+
+def _resnet_params(model, classes, device):
+    """The trainable parameters of a seeded ``model`` as (names, float32
+    tensors): ResNet-50 v1's are 193 arrays of 25,575,912 numbers (the
+    reference's 161 and the biases of 32 convolutions that feed a
+    BatchNorm)."""
+    ctx = mt.gpu(0) if device == "cuda" else mt.cpu()
+    mt.random.seed(SEED)
+    net = model(classes=classes, prefix="resnet50_v1_")
+    net.initialize(mt.init.Xavier(magnitude=2), ctx=ctx)
+    net(mt.nd.zeros((1, 3, 224, 224), ctx=ctx))
+    params = [(n, p.data().data.detach().clone())
+              for n, p in net.collect_params().items()
+              if p.grad_req != "null"]
+    del net
+    return [n for n, _ in params], [t for _, t in params]
+
+
+def _opt_grads(ws, steps, seed):
+    gen = torch.Generator(device=ws[0].device).manual_seed(seed)
+    return [[torch.randn(w.shape, generator=gen, device=w.device) * 64
+             for w in ws] for _ in range(steps)]
+
+
+def _opt_create(key, names):
+    name = key.split("_")[0]
+    kw = dict(OPT_COMMON, **OPT_CASES[key],
+              param_idx2name=dict(enumerate(names)))
+    if name == "groupadagrad":
+        kw.pop("wd")
+    return mt.optimizer.create(name, **kw)
+
+
+def _opt_steps(key, names, ws, grads, dtype, multi=True, mp=False):
+    """``len(grads)`` steps of optimizer ``key`` from weights ``ws`` in
+    ``dtype``, through `Updater.update_multi` where the optimizer has a
+    multi-tensor plan (``multi``), else parameter by parameter; returns
+    the weights, the updater and each step's ms (ending in a
+    synchronize)."""
+    opt = _opt_create(key, names)
+    opt.multi_precision = mp
+    upd = mt.optimizer.get_updater(opt)
+    w_nd = [NDArray(w.to(dtype).clone()) for w in ws]
+    times = []
+    for step in grads:
+        g_nd = [NDArray(g.to(dtype)) for g in step]
+        _sync(ws[0])
+        t0 = time.perf_counter()
+        items = [(i, g, w) for i, (g, w) in enumerate(zip(g_nd, w_nd))]
+        if not (multi and upd.update_multi(items)):
+            for i, g, w in items:
+                upd(i, g, w)
+        _sync(ws[0])
+        times.append((time.perf_counter() - t0) * 1e3)
+    return w_nd, upd, times
+
+
+def _sync(t):
+    if t.device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _array_errs(got, want):
+    """Per array: max |got - want| over want's largest magnitude, and the
+    elements past OPT_TOL of it."""
+    errs, switched = [], 0
+    for g, w in zip(got, want):
+        w = w.double()
+        d = (g.double() - w).abs()
+        scale = max(float(w.abs().max()), 1e-30)
+        errs.append(float(d.max()) / scale)
+        switched += int((d > OPT_TOL * scale).sum())
+    return errs, switched
+
+
+def _state_numel(state):
+    if state is None:
+        return 0
+    if isinstance(state, (tuple, list)):
+        return sum(_state_numel(s) for s in state)
+    return state.data.numel()
+
+
+def _sgld_check(names, ws, grads):
+    """SGLD's noise: the step minus its deterministic half step, in
+    float64 from the same inputs, is N(0, lr)."""
+    w32, _, _ = _opt_steps("sgld", names, ws, grads[:1], torch.float32,
+                           multi=False)
+    lr = OPT_COMMON["learning_rate"]
+    noise = []
+    for k, (w, g, new) in enumerate(zip(ws, grads[0], w32)):
+        wd = OPT_COMMON["wd"] * (1.0 if names[k].endswith(
+            ("_weight", "_gamma")) else 0.0)
+        gd = (g.double() * OPT_COMMON["rescale_grad"]).clamp(
+            -OPT_COMMON["clip_gradient"], OPT_COMMON["clip_gradient"])
+        det = w.double() - lr / 2 * (gd + wd * w.double())
+        noise.append((new.data.double() - det).reshape(-1))
+    noise = torch.cat(noise)
+    n = noise.numel()
+    mean_z = float(noise.mean()) / math.sqrt(lr / n)
+    var_z = (float(noise.var()) / lr - 1) / math.sqrt(2.0 / n)
+    return {"n": n, "mean_z": mean_z, "var_z": var_z}
+
+
+def optimizer_checks(card, model=None, classes=1000, steps=OPT_STEPS,
+                     device="cuda"):
+    """13a, the optimizers at ResNet-50 v1's parameter set: every
+    registered optimizer ``steps`` steps in fp32 against the same port
+    code in float64 from the same seeded gradients (wd, rescale_grad and
+    clip_gradient set, no weight decay on biases and betas by their
+    names); SGLD by its noise; ``multi_precision`` fp16 for SGD, NAG and
+    Adam against fp32; the ``multi_`` ops over every array against their
+    per-array ops.  Each optimizer's update ms a step beside its
+    compulsory bytes over MEM_BPS."""
+    names, ws = _resnet_params(model or vision.resnet50_v1, classes, device)
+    numel = sum(w.numel() for w in ws)
+    log(f"optimizers 13a: {len(ws)} arrays, {numel} parameters ({card})")
+    grads = _opt_grads(ws, steps, SEED + 13)
+    rows, failed = {}, []
+    for key in sorted(OPT_CASES):
+        if key == "sgld":
+            continue
+        w32, upd, times = _opt_steps(key, names, ws, grads, torch.float32)
+        w64, _, _ = _opt_steps(key, names, ws, grads, torch.float64,
+                               multi=False)
+        errs, switched = _array_errs([w.data for w in w32],
+                                     [w.data for w in w64])
+        states = sum(_state_numel(s) for s in upd.states.values())
+        nbytes = 4 * (3 * numel + 2 * states)
+        rec = {"worst_rel_err": max(errs), "switched": switched,
+               "step_ms": float(np.median(times[1:] or times)),
+               "bytes": nbytes, "bound_ms": nbytes / MEM_BPS * 1e3}
+        rows[key] = rec
+        decides = key.split("_")[0] in OPT_DECISIONS
+        ok = (switched <= OPT_SWITCH_SHARE * numel) if decides \
+            else rec["worst_rel_err"] <= OPT_TOL
+        if not ok:
+            failed.append(key)
+        log(f"optimizers 13a: {key:18s} fp32 against float64 "
+            f"{rec['worst_rel_err']:.3e} ({switched} elements past "
+            f"{OPT_TOL:g}), update {rec['step_ms']:.2f} ms a step, "
+            f"{nbytes / 1e6:.1f} MB, bound {rec['bound_ms']:.3f} ms")
+        del w32, w64, upd
+    sgld = rows["sgld"] = _sgld_check(names, ws, grads)
+    log(f"optimizers 13a: sgld noise over {sgld['n']} elements: mean "
+        f"{sgld['mean_z']:.2f} and variance {sgld['var_z']:.2f} standard "
+        "errors from N(0, lr)")
+    if abs(sgld["mean_z"]) > 5 or abs(sgld["var_z"]) > 5:
+        failed.append("sgld")
+    for key in ("sgd", "nag", "adam"):
+        half = [w.half().float() for w in ws]
+        g16 = [[g.half() for g in step] for step in grads]
+        w16, upd, _ = _opt_steps(key, names, half, g16, torch.float16,
+                                 mp=True)
+        ref, _, _ = _opt_steps(key, names, half,
+                               [[g.float() for g in s] for s in g16],
+                               torch.float32, multi=False)
+        werr, _ = _array_errs([w.data for w in w16], [w.data for w in ref])
+        merr, _ = _array_errs([upd.states[i][1].data
+                               for i in range(len(ws))],
+                              [w.data for w in ref])
+        rows[f"{key}_mp"] = {"fp16_rel_err": max(werr),
+                             "master_rel_err": max(merr)}
+        log(f"optimizers 13a: {key} multi_precision: fp16 weights "
+            f"{max(werr):.3e}, fp32 masters {max(merr):.3e} from fp32")
+        if max(werr) > OPT_HALF_TOL or max(merr) > OPT_TOL:
+            failed.append(f"{key}_mp")
+    rows["multi_ops"] = _multi_op_checks(ws, grads[0])
+    if max(rows["multi_ops"].values()) > MULTI_TOL:
+        failed.append("multi_ops")
+    rows["initializers"] = init_checks(names, ws)
+    rec = {"phase": "13a", "card": card, "arrays": len(ws),
+           "parameters": numel, "steps": steps, "rows": rows}
+    log(json.dumps(rec))
+    if failed or not rows["initializers"]["ok"]:
+        raise SystemExit(f"chip_smoke: 13a failed {failed}: {rec}")
+    return rec
+
+
+def _multi_op_checks(ws, grads):
+    """``multi_sgd_mom_update`` and ``multi_mp_sgd_mom_update`` over every
+    array against ``sgd_mom_update`` and ``mp_sgd_mom_update`` on each."""
+    from mxnet_tpu_torch.ndarray.register import invoke
+    n = len(ws)
+    lrs = tuple(0.01 * (1 + k % 3) for k in range(n))
+    wds = tuple(1e-4 * (k % 2) for k in range(n))
+    kw = dict(momentum=0.9, rescale_grad=OPT_COMMON["rescale_grad"],
+              clip_gradient=OPT_COMMON["clip_gradient"])
+    out = {}
+    for mp in (False, True):
+        dt = torch.float16 if mp else torch.float32
+        groups = [[NDArray(w.to(dt).clone()), NDArray(g.to(dt)),
+                   NDArray(torch.zeros_like(w))] +
+                  ([NDArray(w.to(dt).float())] if mp else [])
+                  for w, g in zip(ws, grads)]
+        singles = [[NDArray(a.data.clone()) for a in grp] for grp in groups]
+        name = "mp_sgd_mom_update" if mp else "sgd_mom_update"
+        invoke("multi_" + name, *[a for grp in groups for a in grp],
+               out=[grp[0] for grp in groups], num_weights=n, lrs=lrs,
+               wds=wds, **kw)
+        for k, grp in enumerate(singles):
+            invoke(name, *grp, out=grp[0], lr=lrs[k], wd=wds[k], **kw)
+        errs, _ = _array_errs([a.data for grp in groups for a in grp],
+                              [a.data for grp in singles for a in grp])
+        out[f"multi_{name}"] = max(errs)
+        log(f"optimizers 13a: multi_{name} over {n} arrays against "
+            f"{name} on each: {max(errs):.3e}")
+    return out
+
+
+def init_checks(names, ws):
+    """The initializers at the parameter set's shapes: Xavier (gaussian,
+    in, magnitude 2) and MSRAPrelu by their std (pooled over every weight
+    within INIT_STD_TOL of the formula, each array within 5 standard
+    errors), Orthogonal's rows or columns orthonormal within ORTHO_TOL,
+    Bilinear and LSTMBias equal to numpy, Mixed routed by pattern."""
+    dev = ws[0].device
+    ctx = mt.gpu(0) if dev.type == "cuda" else mt.cpu()
+    weights = [(n, w.shape) for n, w in zip(names, ws) if w.dim() >= 2]
+    res, ok = {}, True
+    mt.random.seed(SEED + 14)
+    for label, init, mag in (
+            ("xavier", mt.init.Xavier("gaussian", "in", 2), 2.0),
+            ("msraprelu", mt.init.MSRAPrelu("in", 0.25), 2.0 / 1.0625)):
+        zs, worst_se = [], 0.0
+        for n, shape in weights:
+            arr = mt.nd.zeros(shape, ctx=ctx)
+            init(n, arr)
+            fan_in = shape[1] * math.prod(shape[2:])
+            z = arr.data.double() / math.sqrt(mag / fan_in)
+            zs.append(z.reshape(-1))
+            se = math.sqrt(1.0 / (2 * z.numel()))
+            worst_se = max(worst_se, abs(float(z.std()) - 1) / se)
+        pooled = float(torch.cat(zs).std())
+        res[label] = {"pooled_std_ratio": pooled, "worst_array_se": worst_se}
+        ok &= abs(pooled - 1) <= INIT_STD_TOL and worst_se <= 5
+    worst = 0.0
+    for shape in sorted({s for _, s in weights}):
+        arr = mt.nd.zeros(shape, ctx=ctx)
+        mt.init.Orthogonal(scale=1.5)("o_weight", arr)
+        m = arr.data.double().reshape(shape[0], -1) / 1.5
+        q = m @ m.T if m.shape[0] <= m.shape[1] else m.T @ m
+        worst = max(worst, float((q - torch.eye(q.shape[0], device=dev,
+                                                dtype=q.dtype)).abs().max()))
+    res["orthogonal_max_err"] = worst
+    ok &= worst <= ORTHO_TOL
+    exact = True
+    for n, shape in weights:
+        if len(shape) == 4:
+            arr = mt.nd.zeros(shape, ctx=ctx)
+            mt.init.Bilinear()("b_weight", arr)
+            f = np.ceil(shape[3] / 2.0)
+            c = (2 * f - 1 - f % 2) / (2.0 * f)
+            kern = np.outer(1 - np.abs(np.arange(shape[2]) / f - c),
+                            1 - np.abs(np.arange(shape[3]) / f - c))
+            exact &= bool(np.array_equal(
+                arr.asnumpy(), np.broadcast_to(kern.astype(np.float32),
+                                               shape)))
+    for n, w in zip(names, ws):
+        if w.dim() == 1 and w.shape[0] % 4 == 0:
+            arr = mt.nd.zeros(tuple(w.shape), ctx=ctx)
+            mt.init.LSTMBias(1.0)._init_weight(n, arr)
+            want = np.zeros(w.shape, np.float32)
+            want[w.shape[0] // 4:w.shape[0] // 2] = 1.0
+            exact &= bool(np.array_equal(arr.asnumpy(), want))
+    mixed = mt.init.Mixed([".*conv.*weight", ".*dense.*weight", ".*"],
+                          [mt.init.Constant(0.5), mt.init.One(),
+                           mt.init.Zero()])
+    routed = True
+    for n, w in zip(names, ws):
+        arr = mt.nd.zeros(tuple(w.shape), ctx=ctx)
+        mixed(n, arr)
+        want = (0.5 if ("conv" in n and n.endswith("weight")) else
+                1.0 if (("dense" in n and n.endswith("weight"))
+                        or n.endswith("gamma")) else 0.0)
+        routed &= bool((arr.data == want).all())
+    res.update(exact=exact, mixed_routed=routed)
+    res["ok"] = bool(ok and exact and routed)
+    log(f"initializers 13a: {json.dumps(res)}")
+    return res
+
+
+def _pack_records(prefix, n, side, classes, seed):
+    """``n`` JPEGs (quality IMG_QUALITY) of ``classes`` smooth prototypes
+    plus noise, with their labels, into ``prefix``.rec/.idx by the port's
+    `recordio`; returns the labels."""
+    rng = np.random.RandomState(seed)
+    protos = torch.nn.functional.interpolate(
+        torch.from_numpy(rng.uniform(40, 215, (classes, 3, 4, 4))),
+        size=(side, side), mode="bilinear", align_corners=False)
+    protos = protos.permute(0, 2, 3, 1).numpy()
+    labels = rng.randint(0, classes, n)
+    rec = mt.recordio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec",
+                                        "w")
+    for i, lab in enumerate(labels):
+        img = np.clip(protos[lab] + rng.normal(0, 12, (side, side, 3)),
+                      0, 255).astype(np.uint8)
+        rec.write_idx(i, mt.recordio.pack_img((0, float(lab), i, 0), img,
+                                              quality=IMG_QUALITY))
+    rec.close()
+    return labels
+
+
+def _iter_kind(it):
+    inner = it.iters[0]
+    native = isinstance(inner, mt.io.NativeImageRecordIter)
+    decoder = ("the native library (libjpeg)" if native else
+               "PIL in image.imdecode (the native library built without "
+               "libjpeg: RecordIO only)")
+    return inner, native, decoder
+
+
+def _host_batch(inner, native, rec_path, batch, seed_aug):
+    """The first batch of a fresh epoch decoded on the host and mirrored
+    and normalized in float64 with the flags the iterator's seeded
+    stream draws, and its labels."""
+    import random as pyrandom
+    keys = (inner._keys if native else inner._records)[:batch]
+    if native:
+        flags = np.random.RandomState(seed_aug).rand(batch) < 0.5
+    else:
+        rng = pyrandom.Random(seed_aug)
+        flags = np.array([rng.random() < 0.5 for _ in keys])
+    rec = mt.recordio.MXIndexedRecordIO(rec_path[:-4] + ".idx", rec_path,
+                                        "r")
+    heads, bufs = zip(*(mt.recordio.unpack(rec.read_idx(k)) for k in keys))
+    rec.close()
+    if native:
+        c, h, w = inner.data_shape
+        imgs, _ = io_native.decode_jpeg_batch(
+            bufs, h, w, c, fast=inner._fast_decode)
+    else:
+        imgs = np.stack([mt.image.imdecode(b).asnumpy() for b in bufs])
+    x = imgs.astype(np.float64)
+    x[flags] = x[flags][:, :, ::-1]
+    mean = np.array([123.68, 116.28, 103.53], np.float32).astype(np.float64)
+    std = np.array([58.395, 57.12, 57.375], np.float32).astype(np.float64)
+    x = ((x - mean) / std).transpose(0, 3, 1, 2)
+    return x, np.array([hd.label for hd in heads], np.float64)
+
+
+def _checksums(it, n):
+    out = []
+    for _ in range(n):
+        b = it.next()
+        d = b.data[0].data.double()
+        out.append((float(d.sum()), float((d * d).sum()),
+                    float(b.label[0].data.double().sum())))
+    return out
+
+
+def data_plane_training(card, model=None, classes=1000, side=IMG_SIDE,
+                        records=IMG_RECORDS, batch=IMG_BATCH,
+                        epochs=IMG_EPOCHS, timed=IMG_TIMED, device="cuda",
+                        workdir=None):
+    """13b: ``model`` (ResNet-50 v1) hybridized and trained by `Trainer`
+    ('nag') from `io.ImageRecordIter` over a RecordIO file of ``records``
+    synthetic JPEGs packed by the port's `recordio`, with the iterator's
+    checks, the step fed by it and by one fixed batch, the loader's wait,
+    decode and copy numbers and one profiled step's idle share; then the
+    Python `ImageIter` (resize, random crop) for 4 batches."""
+    ctx = mt.gpu(0) if device == "cuda" else mt.cpu()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rec_", dir=workdir)
+    try:
+        prefix = os.path.join(tmp, "synthetic")
+        t0 = time.perf_counter()
+        _pack_records(prefix, records, side, IMG_CLASSES, SEED + 15)
+        pack_s = time.perf_counter() - t0
+        rec_path = prefix + ".rec"
+        args = dict(path_imgrec=rec_path, data_shape=(3, side, side),
+                    batch_size=batch, shuffle=True, rand_mirror=True,
+                    mean=True, std=True, preprocess_threads=os.cpu_count(),
+                    seed=SEED, seed_aug=SEED + 16)
+        with ctx:
+            it = mt.io.ImageRecordIter(**args)
+        inner, native, decoder = _iter_kind(it)
+        log(f"data 13b: {type(inner).__name__} serves every batch of "
+            f"ImageRecordIter, decoded by {decoder}; {records} records "
+            f"packed in {pack_s:.1f} s ({card})")
+        if device == "cuda" and native != io_native.decode_available():
+            raise SystemExit("chip_smoke: ImageRecordIter served "
+                             f"{type(inner).__name__} against the decoder")
+        checks = _data_checks(args, ctx, rec_path, batch, epochs)
+        mt.random.seed(SEED)
+        net = (model or vision.resnet50_v1)(classes=classes,
+                                            prefix="resnet50_v1_")
+        net.initialize(mt.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                      magnitude=2), ctx=ctx)
+        net.hybridize()
+        steps_total = epochs * (records // batch)
+        ramp = mt.lr_scheduler.FactorScheduler(
+            step=10 ** 6, base_lr=IMG_NAG["learning_rate"],
+            warmup_steps=steps_total // 2, warmup_begin_lr=0.0)
+        trainer = mt.gluon.Trainer(net.collect_params(), "nag",
+                                   dict(IMG_NAG, lr_scheduler=ramp))
+        loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+
+        def step(x, y):
+            with mt.autograd.record():
+                loss = loss_fn(net(x), y)
+            loss.backward()
+            trainer.step(batch)
+            return float(loss.mean().asscalar())
+
+        losses, waits, times = [], [], []
+        for _ in range(epochs):
+            it.reset()
+            for _ in range(records // batch):
+                t0 = time.perf_counter()
+                b = it.next()
+                t1 = time.perf_counter()
+                losses.append(step(b.data[0], b.label[0]))
+                times.append((time.perf_counter() - t0) * 1e3)
+                waits.append((t1 - t0) * 1e3)
+        first, last = np.mean(losses[:4]), np.mean(losses[-4:])
+        log(f"data 13b: losses {[round(v, 4) for v in losses]}")
+        if not (np.isfinite(losses).all() and last < first):
+            raise SystemExit(f"chip_smoke: 13b's loss did not fall: {losses}")
+        fed_p50 = float(np.median(times[4:]))
+        h2d = inner._stager.h2d_ms()
+        copy = {"bytes": inner._stager.bytes_per_batch,
+                "ms_p50": float(np.median(h2d)) if h2d else "not measured"}
+        # the step on one fixed batch: debug_skip_load where the iterator
+        # is native, else the first batch kept by hand
+        it.reset()
+        if native:
+            inner.debug_skip_load()
+        fixed = it.next()
+        fixed_times = []
+        for _ in range(timed):
+            b = it.next() if native else fixed
+            t0 = time.perf_counter()
+            step(b.data[0], b.label[0])
+            fixed_times.append((time.perf_counter() - t0) * 1e3)
+        fixed_p50 = float(np.median(fixed_times[2:]))
+        with ctx:
+            it = mt.io.ImageRecordIter(**args)
+        inner = it.iters[0]
+        alone = _loader_alone_ips(inner, batch, device)
+        decode = _decode_ips(rec_path, batch, native, inner)
+
+        def profiled():
+            b = it.next()
+            step(b.data[0], b.label[0])
+
+        it.reset()
+        prof = profile_gluon("13b step fed by ImageRecordIter", profiled) \
+            if device == "cuda" else {"idle_share": "not measured"}
+        del net, trainer, it
+        python_path = _python_imageiter(rec_path, side, batch, ctx, device)
+        rec = {"phase": "13b", "card": card, "iterator": type(inner).__name__,
+               "decoder": decoder, "records": records, "batch": batch,
+               "steps": len(losses), "losses": losses,
+               "step_p50_ms_fed": fed_p50, "step_p50_ms_fixed": fixed_p50,
+               "fixed_by": "debug_skip_load" if native else "one batch kept",
+               "loader_wait_ms_p50": float(np.median(waits[4:])),
+               "loader_wait_ms_mean": float(np.mean(waits[4:])),
+               "loader_alone_images_per_s": alone,
+               "decode_images_per_s": decode, "h2d": copy,
+               "images_per_s_fed": batch / fed_p50 * 1e3,
+               "idle_share": prof["idle_share"], "checks": checks,
+               "python_imageiter": python_path, "pack_s": pack_s}
+        log(json.dumps(rec))
+        log(f"data 13b: step p50 {fed_p50:.2f} ms fed by the iterator, "
+            f"{fixed_p50:.2f} ms on one fixed batch; loader wait "
+            f"{rec['loader_wait_ms_p50']:.2f} ms a batch; loader alone "
+            f"{alone:.0f} images/s, decode alone {decode:.0f} images/s; "
+            f"H2D {copy['bytes']} bytes, {copy['ms_p50']} ms a batch; idle "
+            f"share {prof['idle_share']}; ImageIter (resize, crop) "
+            f"{python_path['images_per_s']:.0f} images/s ({card})")
+        return rec
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _data_checks(args, ctx, rec_path, batch, epochs):
+    """The iterator's holds: a batch on the device against the host's
+    float64 decode, mirror and normalize with the same flags; two passes
+    under the NaiveEngine with equal checksums; a batch unchanged after 3
+    more fetches."""
+    with ctx:
+        it = mt.io.ImageRecordIter(**args)
+    inner, native, _ = _iter_kind(it)
+    b = it.next()
+    want_x, want_y = _host_batch(inner, native, rec_path, batch,
+                                 args["seed_aug"])
+    got_x = b.data[0].data.double().cpu().numpy()
+    x_err = float(np.abs(got_x - want_x).max())
+    y_ok = bool(np.array_equal(b.label[0].asnumpy(), want_y))
+    snap = b.data[0].data.clone()
+    for _ in range(3):
+        it.next()
+    _sync(snap)
+    unchanged = bool(torch.equal(b.data[0].data, snap))
+    passes = []
+    for _ in range(2):
+        with ctx:
+            fresh = mt.io.ImageRecordIter(**args).iters[0]
+        naive = mt.io.PrefetchingIter(fresh,
+                                      engine=mt.engine.Engine("NaiveEngine"))
+        passes.append(_checksums(naive, 4))
+    out = {"batch_vs_host_float64": x_err, "labels_equal": y_ok,
+           "unchanged_after_3_fetches": unchanged,
+           "naive_passes_equal": passes[0] == passes[1]}
+    log(f"data 13b: {json.dumps(out)}")
+    if not (x_err <= IMG_CHECK_TOL and y_ok and unchanged
+            and out["naive_passes_equal"]):
+        raise SystemExit(f"chip_smoke: 13b's iterator checks failed: {out}")
+    return out
+
+
+def _loader_alone_ips(inner, batch, device, n=8):
+    """Images/s of the iterator alone (decode, augment, stage, device
+    step), ``n`` batches after a first one."""
+    inner.reset()
+    inner._staged_next()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        b = inner._staged_next()
+    _sync(b.data[0].data)
+    return n * batch / (time.perf_counter() - t0)
+
+
+def _decode_ips(rec_path, batch, native, inner, n=4):
+    """Images/s of the host's decode alone over ``n`` batches' records."""
+    rec = mt.recordio.MXRecordIO(rec_path, "r")
+    bufs = [mt.recordio.unpack(rec.read())[1] for _ in range(n * batch)]
+    rec.close()
+    t0 = time.perf_counter()
+    if native:
+        c, h, w = inner.data_shape
+        for k in range(n):
+            io_native.decode_jpeg_batch(bufs[k * batch:(k + 1) * batch], h,
+                                        w, c, inner._threads)
+    else:
+        for buf in bufs:
+            mt.image.imdecode(buf)
+    return len(bufs) / (time.perf_counter() - t0)
+
+
+def _python_imageiter(rec_path, side, batch, ctx, device, n=4):
+    """`image.ImageIter` with CreateAugmenter's resize and random crop
+    (the per-image path), ``n`` batches: images/s."""
+    with ctx:
+        it = mt.image.ImageIter(batch_size=batch, data_shape=(3, side, side),
+                                path_imgrec=rec_path, resize=side + 32,
+                                rand_crop=True, rand_mirror=True, mean=True,
+                                std=True, seed_aug=SEED)
+    it.next()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        b = it.next()
+    _sync(b.data[0].data)
+    ips = n * batch / (time.perf_counter() - t0)
+    if b.data[0].shape != (batch, 3, side, side) or \
+            not torch.isfinite(b.data[0].data).all():
+        raise SystemExit("chip_smoke: ImageIter's batch is malformed")
+    return {"images_per_s": ips, "device_tail": it._tail is not None}
+
+
+def phase_data(card):
+    """Phase 13: the optimizers and initializers (13a) and the image data
+    plane trained on ResNet-50 v1 (13b).  No TPU kernel lies on this
+    path; returns its K1-K4 launches (none)."""
+    t_phase = time.perf_counter()
+    before = dict(hk.LAUNCHES)
+    optimizer_checks(card)
+    torch.cuda.empty_cache()
+    data_plane_training(card)
+    torch.cuda.empty_cache()
+    launches = {k: hk.LAUNCHES[k] - before.get(k, 0) for k in hk.LAUNCHES}
+    rec = {"phase": "optimizers_data_plane", "card": card,
+           "launches": launches, "phase_s": time.perf_counter() - t_phase}
+    log(json.dumps(rec))
+    log(f"data: phase 13 in {rec['phase_s']:.1f} s")
+    return launches
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -4478,12 +5129,14 @@ def main():
     rnn_launches = phase_rnn(card)
     state_launches = phase_state(card)
     ops_launches = phase_ops(card)
+    data_launches = phase_data(card)
     leaked = [m for m in ("jax", "mxnet_tpu") if m in sys.modules]
     if leaked:
         raise SystemExit(f"chip_smoke: the port imported {leaked}")
     log(f"launches: serving {serve_launches}, training {train_launches}, "
         f"LSTM serving {lstm_launches}, fit {fit_launches}, RNN "
-        f"{rnn_launches}, state {state_launches}, ops {ops_launches}")
+        f"{rnn_launches}, state {state_launches}, ops {ops_launches}, "
+        f"data {data_launches}")
     kernels = [{
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",

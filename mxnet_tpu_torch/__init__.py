@@ -32,7 +32,12 @@ form, `io.LibSVMIter`, the local `kvstore` with 2-bit compression,
 elementwise, broadcast/reduce, matrix, linear-algebra, random and nn
 files (`nd.random`, `nd.linalg`, their `sym` forms, `mx.rnd`), the fluent
 methods of NDArray and Symbol, `nd.save`/`nd.load`, ``with ctx:`` scopes
-(`current_context`), `name`, `AttrScope` and `visualization`.  On the card, inference
+(`current_context`), `name`, `AttrScope` and `visualization`; every
+optimizer and initializer of the JAX package; and the data plane:
+`recordio`, the native host library (`io_native`), `image` (`img`) with
+its detection pipeline, the image iterators of `io` staging uint8
+batches to the card through pinned buffers, and the `engine` that runs
+`io.PrefetchingIter`'s fetches.  On the card, inference
 forwards, hybridized predict-mode forwards and Module's whole training
 step run as CUDA graphs.
 """
@@ -53,6 +58,8 @@ from . import kvstore as kv  # noqa: E402
 from . import monitor as mon  # noqa: E402
 from .monitor import Monitor  # noqa: E402
 from . import random as rnd  # noqa: E402
+from . import engine, recordio, image  # noqa: E402
+from . import image as img  # noqa: E402
 from . import name, attribute, visualization  # noqa: E402
 from . import visualization as viz  # noqa: E402
 from .attribute import AttrScope  # noqa: E402
@@ -66,4 +73,4 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "cpu_pinned",
            "io", "init", "initializer", "optimizer", "mod", "rnn",
            "lr_scheduler", "metric", "callback", "model", "Predictor",
            "autograd", "gluon", "kvstore", "kv", "monitor", "mon", "Monitor",
-           "checkpoint"]
+           "checkpoint", "engine", "recordio", "image", "img"]

@@ -72,6 +72,20 @@ _reg("MXTPU_ANOMALY_GUARD", _flag, False,
      "(unified_step.anomaly_guard_enabled)")
 
 
+_reg("MXNET_ENGINE_TYPE", str, "ThreadedEnginePerDevice",
+     "engine kind: 'NaiveEngine' runs every push synchronously on the "
+     "caller's turn (engine.Engine)")
+_reg("MXNET_CPU_WORKER_NTHREADS", int, 1,
+     "host worker threads: the engine's pool and the native JPEG decode "
+     "pool")
+_reg("MXTPU_PREFETCH_DEPTH", int, 2,
+     "batches PrefetchingIter keeps in flight ahead of the consumer "
+     "(io.PrefetchingIter)")
+_reg("MXTPU_FAST_DECODE", _flag, True,
+     "native JPEG decode with the IFAST DCT and plain chroma upsampling "
+     "(about 1 LSB of luma error); 0 decodes exactly (ISLOW)")
+
+
 _reg("MXTPU_CKPT_DIR", str, "",
      "root directory of the CheckpointManager auto-resume path: set, "
      "Module.fit checkpoints every epoch and resumes from latest_valid() "

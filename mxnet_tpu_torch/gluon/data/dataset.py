@@ -2,12 +2,14 @@
 reference `python/mxnet/gluon/data/dataset.py`)."""
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 from ...context import cpu
 from ...ndarray.ndarray import NDArray, array
 
-__all__ = ["Dataset", "SimpleDataset", "ArrayDataset"]
+__all__ = ["Dataset", "SimpleDataset", "ArrayDataset", "RecordFileDataset"]
 
 
 class Dataset:
@@ -114,3 +116,19 @@ class ArrayDataset(Dataset):
 
     def __len__(self):
         return self._length
+
+
+class RecordFileDataset(Dataset):
+    """The records of a RecordIO file, by position, through its ``.idx``
+    (reference `dataset.py:RecordFileDataset`)."""
+
+    def __init__(self, filename):
+        from ...recordio import MXIndexedRecordIO
+        idx_file = os.path.splitext(filename)[0] + ".idx"
+        self._record = MXIndexedRecordIO(idx_file, filename, "r")
+
+    def __getitem__(self, idx):
+        return self._record.read_idx(self._record.keys[idx])
+
+    def __len__(self):
+        return len(self._record.keys)

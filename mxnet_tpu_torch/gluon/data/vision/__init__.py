@@ -1,6 +1,8 @@
 """Vision datasets and transforms (the counterpart of
 `mxnet_tpu/gluon/data/vision`)."""
 from . import transforms
-from .datasets import CIFAR10, CIFAR100, MNIST, FashionMNIST
+from .datasets import (CIFAR10, CIFAR100, MNIST, FashionMNIST,
+                       ImageFolderDataset, ImageRecordDataset)
 
-__all__ = ["MNIST", "FashionMNIST", "CIFAR10", "CIFAR100", "transforms"]
+__all__ = ["MNIST", "FashionMNIST", "CIFAR10", "CIFAR100",
+           "ImageFolderDataset", "ImageRecordDataset", "transforms"]

@@ -7,7 +7,7 @@ downloaded.  Otherwise each dataset holds the JAX package's deterministic
 synthetic samples (numpy from fixed seeds, the real shapes and label
 counts, bit-equal to the JAX package's).  Samples are numpy HWC uint8
 images and int32 labels.  `ImageFolderDataset` and `ImageRecordDataset`
-wait for `image.py` and `recordio.py`.
+decode their images with `image.imdecode` into CPU NDArrays.
 """
 from __future__ import annotations
 
@@ -19,7 +19,8 @@ import numpy as np
 
 from ..dataset import Dataset
 
-__all__ = ["MNIST", "FashionMNIST", "CIFAR10", "CIFAR100"]
+__all__ = ["MNIST", "FashionMNIST", "CIFAR10", "CIFAR100",
+           "ImageFolderDataset", "ImageRecordDataset"]
 
 
 class _DownloadedDataset(Dataset):
@@ -154,3 +155,64 @@ class CIFAR100(CIFAR10):
             self._data, self._label = _synthetic(
                 self._shape, 100 if self._fine_label else 20,
                 8192 if self._train else 1024, seed=11)
+
+
+class ImageFolderDataset(Dataset):
+    """The images of ``root/<class>/*.jpg|jpeg|png``, labelled by their
+    folder's position in sorted order (reference
+    `datasets.py:ImageFolderDataset`)."""
+
+    def __init__(self, root, flag=1, transform=None):
+        self._root = os.path.expanduser(root)
+        self._flag = flag
+        self._transform = transform
+        self._exts = [".jpg", ".jpeg", ".png"]
+        self._list_images(self._root)
+
+    def _list_images(self, root):
+        self.synsets = []
+        self.items = []
+        for folder in sorted(os.listdir(root)):
+            path = os.path.join(root, folder)
+            if not os.path.isdir(path):
+                continue
+            label = len(self.synsets)
+            self.synsets.append(folder)
+            for filename in sorted(os.listdir(path)):
+                if os.path.splitext(filename)[1].lower() in self._exts:
+                    self.items.append((os.path.join(path, filename), label))
+
+    def __getitem__(self, idx):
+        from ....image import imread
+        img = imread(self.items[idx][0], self._flag)
+        label = self.items[idx][1]
+        if self._transform is not None:
+            return self._transform(img, label)
+        return img, label
+
+    def __len__(self):
+        return len(self.items)
+
+
+class ImageRecordDataset(Dataset):
+    """``(image, label)`` of each record of a RecordIO file of packed
+    images (reference `datasets.py:ImageRecordDataset`)."""
+
+    def __init__(self, filename, flag=1, transform=None):
+        from ....recordio import MXIndexedRecordIO
+        idx_file = os.path.splitext(filename)[0] + ".idx"
+        self._record = MXIndexedRecordIO(idx_file, filename, "r")
+        self._flag = flag
+        self._transform = transform
+
+    def __getitem__(self, idx):
+        from ....image import imdecode
+        from ....recordio import unpack
+        header, img = unpack(self._record.read_idx(self._record.keys[idx]))
+        img = imdecode(img, self._flag)
+        if self._transform is not None:
+            return self._transform(img, header.label)
+        return img, header.label
+
+    def __len__(self):
+        return len(self._record.keys)

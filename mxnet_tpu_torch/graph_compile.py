@@ -242,8 +242,12 @@ class CapturedGraph:
             self.graph.register_generator_state(generator)
         before = dict(LAUNCHES)
         try:
+            # thread-local: a loader thread staging the next batch on its
+            # own stream (io._Stager) may synchronize or allocate while
+            # this thread captures
             with torch.cuda.device(device), \
-                    torch.cuda.graph(self.graph, pool=pool):
+                    torch.cuda.graph(self.graph, pool=pool,
+                                     capture_error_mode="thread_local"):
                 self.outputs = fn()
         except Exception as e:
             raise MXNetError(f"CUDA graph capture failed: {e}; set "

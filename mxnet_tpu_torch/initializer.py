@@ -1,7 +1,8 @@
 """Weight initializers (the counterpart of `mxnet_tpu/initializer.py`;
 reference `python/mxnet/initializer.py`): `InitDesc`, the name-suffix
 dispatch of `Initializer`, and `Zero`, `One`, `Constant`, `Uniform`,
-`Normal` and `Xavier`.
+`Normal`, `Orthogonal`, `Xavier`, `MSRAPrelu`, `Bilinear`, `LSTMBias` and
+`Mixed`.
 
 Random draws come from the generator of the array's device
 (`mxnet_tpu_torch.random`), so `random.seed` makes initialization
@@ -10,8 +11,10 @@ repeatable; the numbers differ from the JAX package's for the same seed.
 from __future__ import annotations
 
 import math
+import re
 from typing import Dict
 
+import numpy as np
 import torch
 
 from . import random as _random
@@ -19,7 +22,8 @@ from .base import MXNetError
 from .ndarray.ndarray import NDArray
 
 __all__ = ["InitDesc", "Initializer", "Zero", "One", "Constant", "Uniform",
-           "Normal", "Xavier", "register", "create"]
+           "Normal", "Orthogonal", "Xavier", "MSRAPrelu", "Bilinear",
+           "LSTMBias", "Mixed", "register", "create"]
 
 _INIT_REGISTRY: Dict[str, type] = {}
 # the reference's string aliases
@@ -111,14 +115,14 @@ class Initializer:
         self._write(arr, torch.ones((), device=arr.data.device))
 
     @staticmethod
-    def _uniform(arr, low, high):
-        t = torch.empty(arr.shape, device=arr.data.device)
+    def _uniform(arr, low, high, shape=None):
+        t = torch.empty(shape or arr.shape, device=arr.data.device)
         return t.uniform_(low, high,
                           generator=_random.generator(arr.data.device))
 
     @staticmethod
-    def _normal(arr, sigma):
-        t = torch.empty(arr.shape, device=arr.data.device)
+    def _normal(arr, sigma, shape=None):
+        t = torch.empty(shape or arr.shape, device=arr.data.device)
         return t.normal_(0.0, sigma,
                          generator=_random.generator(arr.data.device))
 
@@ -174,6 +178,32 @@ class Normal(Initializer):
 
 
 @register
+class Orthogonal(Initializer):
+    """A scaled orthogonal matrix (Saxe et al.; reference `initializer.py`
+    Orthogonal): the SVD factor of a uniform or gaussian draw of shape
+    (rows, the product of the other dims) whose shape matches it,
+    factorized in float64."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, name, arr):
+        nout = arr.shape[0]
+        nin = math.prod(arr.shape[1:])
+        if self.rand_type == "uniform":
+            tmp = self._uniform(arr, -1.0, 1.0, (nout, nin))
+        else:
+            tmp = self._normal(arr, 1.0, (nout, nin))
+        # the factorization in float64: a float32 SVD leaves the factor
+        # orthonormal only to about 4e-4 at ResNet-50's shapes
+        u, _, v = torch.linalg.svd(tmp.double(), full_matrices=False)
+        q = u if u.shape == tmp.shape else v
+        self._write(arr, (self.scale * q).reshape(arr.shape))
+
+
+@register
 class Xavier(Initializer):
     """Reference `Xavier` (`initializer.py:540`): uniform or gaussian with
     variance magnitude / fan, the fan averaged, in or out."""
@@ -197,3 +227,61 @@ class Xavier(Initializer):
             self._write(arr, self._uniform(arr, -scale, scale))
         else:
             self._write(arr, self._normal(arr, scale))
+
+
+@register
+class MSRAPrelu(Xavier):
+    """He et al.'s initialization for PReLU nets: gaussian Xavier with
+    magnitude 2 / (1 + slope²) (reference `initializer.py` MSRAPrelu)."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2))
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register
+class Bilinear(Initializer):
+    """A bilinear upsampling kernel in every (out, in) slice of a 4-d
+    deconvolution weight (reference `initializer.py` Bilinear)."""
+
+    def _init_weight(self, name, arr):
+        shape = arr.shape
+        f = np.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        x = np.arange(shape[3])
+        y = np.arange(shape[2])
+        kern = np.outer(1 - np.abs(y / f - c), 1 - np.abs(x / f - c))
+        self._write(arr, torch.from_numpy(np.broadcast_to(
+            kern.astype(np.float32), shape).copy()).to(arr.data.device))
+
+
+@register
+class LSTMBias(Initializer):
+    """An LSTM's 4-gate bias: the forget gate's quarter ``forget_bias``,
+    the rest 0 (reference `initializer.py` LSTMBias)."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, name, arr):
+        b = torch.zeros(arr.shape, device=arr.data.device)
+        n = arr.shape[0] // 4
+        b[n:2 * n] = self.forget_bias
+        self._write(arr, b)
+
+
+class Mixed:
+    """The first initializer whose pattern matches the name (``re.match``)
+    initializes it (reference `initializer.py` Mixed)."""
+
+    def __init__(self, patterns, initializers):
+        self.map = [(re.compile(p), init) for p, init in
+                    zip(patterns, initializers)]
+
+    def __call__(self, name, arr):
+        for pat, init in self.map:
+            if pat.match(name):
+                init(name, arr)
+                return
+        raise ValueError(f"parameter {name} did not match any pattern")

@@ -7,7 +7,14 @@ written out: per resized axis, a weight matrix of the triangle kernel,
 widened by the scale when shrinking (antialiased), normalized per output
 sample and applied as a product, H before W.  Integer images are rounded
 (half to even) and clipped to [0, 255] after each adjustment, as in the
-reference.  `_image_normalize_mirror_batch` comes with `io.py`.
+reference.
+
+`batch_normalize_mirror` (registered as ``_image_normalize_mirror_batch``)
+is the data plane's device step: a uint8 NHWC batch, staged to the card
+as it was decoded, is cast, its flagged rows mirrored, normalized and
+transposed to NCHW in a few elementwise launches.  The JAX package jits
+the same arithmetic in XLA, outside any Pallas kernel, so plain tensor ops
+are its counterpart here.
 """
 from __future__ import annotations
 
@@ -46,6 +53,37 @@ def _normalize(attrs, x):
                        device=x.device)
     shape = (-1, 1, 1) if x.dim() == 3 else (1, -1, 1, 1)
     return (x - mean.reshape(shape)) / std.reshape(shape)
+
+
+def batch_normalize_mirror(x: torch.Tensor, flip: torch.Tensor,
+                           mean: torch.Tensor, std: torch.Tensor,
+                           layout: str = "NCHW") -> torch.Tensor:
+    """``(x - mean) / std`` in float32 of a uint8 NHWC batch whose rows
+    with ``flip`` set are mirrored along the width; ``mean`` and ``std``
+    are (C,) or (1,); NCHW (contiguous) or NHWC out."""
+    xf = x.to(torch.float32)
+    xf = torch.where(flip.reshape(-1, 1, 1, 1), xf.flip(2), xf)
+    xf = (xf - mean) / std
+    if layout == "NCHW":
+        xf = xf.permute(0, 3, 1, 2).contiguous()
+    return xf
+
+
+@register("_image_normalize_mirror_batch", num_inputs=2,
+          input_names=["data", "flip"])
+def _normalize_mirror_batch(attrs, x, flip):
+    """`batch_normalize_mirror` with ``mean``, ``std`` and ``layout``
+    as attrs."""
+    if x.dim() != 4:
+        raise MXNetError(f"normalize_mirror_batch expects a 4D NHWC input, "
+                         f"got {x.dim()}D")
+    layout = attrs.get_str("layout", "NCHW")
+    if layout not in ("NCHW", "NHWC"):
+        raise MXNetError(f"unsupported layout {layout!r}")
+    kw = dict(dtype=torch.float32, device=x.device)
+    mean = torch.tensor(attrs.get_tuple("mean", (0.0,)), **kw)
+    std = torch.tensor(attrs.get_tuple("std", (1.0,)), **kw)
+    return batch_normalize_mirror(x, flip.to(torch.bool), mean, std, layout)
 
 
 def _weight_mat(n_in: int, n_out: int, device) -> torch.Tensor:

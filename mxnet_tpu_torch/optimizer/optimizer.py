@@ -1,8 +1,15 @@
 """Optimizers (the counterpart of `mxnet_tpu/optimizer/optimizer.py`; reference
 `python/mxnet/optimizer/optimizer.py`): `Optimizer` with its learning-rate
 schedule, per-parameter lr/wd multipliers (from the symbol's attrs, the
-names, or ``param_dict``) and multi-precision master weights, `SGD`,
-`Adam`, `AdaGrad`, and the `Updater` that holds their states.  A
+names, or ``param_dict``) and multi-precision master weights, every
+optimizer the JAX package registers (`SGD` with its ``mp_sgd`` ops,
+`ccSGD`, `Signum`, `NAG`, `Adam`, `AdaGrad`, `RMSProp`, `AdaDelta`,
+`Ftrl`, `Adamax`, `Nadam`, `FTML`, `DCASGD`, `SGLD`, `LBSGD`, `Test`;
+`GroupAdaGrad` in `contrib`), and the `Updater` that holds their states.
+The optimizers the JAX package writes in NDArray arithmetic are written
+here in the same order of operations on the weight's tensors; SGLD's
+noise comes from the weight's device generator, so it matches the JAX
+package's in distribution only.  A
 row-sparse gradient is densified and updates every row, as in the JAX
 package: ``lazy_update`` is accepted and stored, with no lazy rows.
 
@@ -30,12 +37,15 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from .. import random as _random
 from ..base import MXNetError
 from ..ndarray.ndarray import NDArray
 from ..ops import registry as _reg
 
-__all__ = ["Optimizer", "SGD", "Adam", "AdaGrad", "Updater", "get_updater",
-           "create", "register"]
+__all__ = ["Optimizer", "SGD", "ccSGD", "Signum", "NAG", "Adam", "AdaGrad",
+           "RMSProp", "AdaDelta", "Ftrl", "Adamax", "Nadam", "FTML", "DCASGD",
+           "SGLD", "LBSGD", "Test", "Updater", "get_updater", "create",
+           "register"]
 
 _OPT_REGISTRY: Dict[str, type] = {}
 
@@ -215,8 +225,15 @@ class Optimizer:
         if not self._mp_active(weight):
             return self.update(index, weight, grad, state)
         inner, w32 = state
-        self.update(index, w32, NDArray(grad.data.float()), inner)
-        weight.data.copy_(w32.data)
+        self._update_mp(index, weight, NDArray(grad.data.float()), inner,
+                        w32)
+
+    def _update_mp(self, index, weight, grad32, state, weight32):
+        """The update on the master copy, rounded into the weight
+        (reference `optimizer.py:179`); an optimizer with ``mp_`` ops
+        overrides it."""
+        self.update(index, weight32, grad32, state)
+        weight.data.copy_(weight32.data)
 
     def _fused_plan(self, index, weight, state):
         """``(op name, static attrs, state NDArrays)``: the one update op
@@ -253,6 +270,14 @@ class SGD(Optimizer):
     def create_state(self, index, weight):
         return None if self.momentum == 0.0 else _zeros_like(weight)
 
+    def create_state_multi_precision(self, index, weight):
+        """``(float32 momentum or None, float32 master)`` for a narrow
+        weight under ``multi_precision``."""
+        if self._mp_active(weight):
+            w32 = NDArray(weight.data.float())
+            return (None if self.momentum == 0.0 else _zeros_like(w32), w32)
+        return self.create_state(index, weight)
+
     def update(self, index, weight, grad, state):
         self._update_count(index)
         kw = self._base_kwargs(index)
@@ -262,9 +287,23 @@ class SGD(Optimizer):
         else:
             _run("sgd_update", (weight, grad), **kw)
 
+    def update_multi_precision(self, index, weight, grad, state):
+        """The ``mp_sgd`` ops on the master copy (reference
+        `optimizer.py:258`)."""
+        if not self._mp_active(weight):
+            return self.update(index, weight, grad, state)
+        self._update_count(index)
+        kw = self._base_kwargs(index)
+        mom, w32 = state
+        if mom is not None:
+            _run("mp_sgd_mom_update", (weight, grad, mom, w32),
+                 momentum=self.momentum, **kw)
+        else:
+            _run("mp_sgd_update", (weight, grad, w32), **kw)
+
     def _fused_plan(self, index, weight, state):
         if self._mp_active(weight):
-            return None
+            return None  # the per-parameter ``mp_sgd`` ops
         if state is not None:
             return ("sgd_mom_update", {"momentum": self.momentum}, [state])
         return ("sgd_update", {}, [])
@@ -330,6 +369,380 @@ class Adam(Optimizer):
         t = self._index_update_count[index]
         lr *= math.sqrt(1.0 - self.beta2 ** t) / (1.0 - self.beta1 ** t)
         return lr, wd
+
+
+@register
+class ccSGD(SGD):  # noqa: N801  (the reference's name)
+    """The deprecated alias of SGD (reference `optimizer.py:1101`)."""
+
+
+@register
+class Signum(Optimizer):
+    """signSGD, and Signum with momentum (reference `optimizer.py:644`);
+    ``wd_lh`` decays the weight outside the sign."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.9, wd_lh=0.0,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+        self.wd_lh = wd_lh
+
+    def create_state(self, index, weight):
+        return None if self.momentum == 0.0 else _zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        kw = self._base_kwargs(index)
+        if state is not None:
+            _run("signum_update", (weight, grad, state),
+                 momentum=self.momentum, wd_lh=self.wd_lh, **kw)
+        else:
+            _run("signsgd_update", (weight, grad), **kw)
+
+    def _fused_plan(self, index, weight, state):
+        if self._mp_active(weight):
+            return None
+        if state is not None:
+            return ("signum_update",
+                    {"momentum": self.momentum, "wd_lh": self.wd_lh},
+                    [state])
+        return ("signsgd_update", {}, [])
+
+
+@register
+class NAG(Optimizer):
+    """SGD with Nesterov momentum (reference `optimizer.py` NAG)."""
+
+    def __init__(self, momentum=0.0, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+
+    def create_state(self, index, weight):
+        return None if self.momentum == 0.0 else _zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        kw = self._base_kwargs(index)
+        if state is not None:
+            _run("nag_mom_update", (weight, grad, state),
+                 momentum=self.momentum, **kw)
+        else:
+            _run("sgd_update", (weight, grad), **kw)
+
+    def _fused_plan(self, index, weight, state):
+        if self._mp_active(weight):
+            return None
+        if state is not None:
+            return ("nag_mom_update", {"momentum": self.momentum}, [state])
+        return ("sgd_update", {}, [])
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp, plain (Tieleman and Hinton) or ``centered`` (Graves)
+    (reference `optimizer.py` RMSProp); ``clip_weights`` is accepted and
+    unused, as in the JAX package."""
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1 = gamma1
+        self.gamma2 = gamma2
+        self.epsilon = epsilon
+        self.centered = centered
+
+    def create_state(self, index, weight):
+        if self.centered:
+            return tuple(_zeros_like(weight) for _ in range(3))
+        return _zeros_like(weight)
+
+    def _static(self):
+        if self.centered:
+            return {"gamma1": self.gamma1, "gamma2": self.gamma2,
+                    "epsilon": self.epsilon}
+        return {"gamma1": self.gamma1, "epsilon": self.epsilon}
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        kw = dict(self._base_kwargs(index), **self._static())
+        if self.centered:
+            _run("rmspropalex_update", (weight, grad) + tuple(state), **kw)
+        else:
+            _run("rmsprop_update", (weight, grad, state), **kw)
+
+    def _fused_plan(self, index, weight, state):
+        if self._mp_active(weight):
+            return None
+        if self.centered:
+            return ("rmspropalex_update", self._static(), list(state))
+        return ("rmsprop_update", self._static(), [state])
+
+
+def _clipped(opt, g: torch.Tensor) -> torch.Tensor:
+    if opt.clip_gradient is not None:
+        return g.clamp(-opt.clip_gradient, opt.clip_gradient)
+    return g
+
+
+@register
+class AdaDelta(Optimizer):
+    """AdaDelta (Zeiler; reference `optimizer.py` AdaDelta): running means
+    of g² and of the squared steps; wd decays the weight after the
+    step."""
+
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho = rho
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return _zeros_like(weight), _zeros_like(weight)
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        wd = self._get_wd(index)
+        acc_g, acc_delta = (s.data for s in state)
+        w = weight.data
+        g = _clipped(self, grad.data * self.rescale_grad)
+        new_acc_g = self.rho * acc_g + (1.0 - self.rho) * g * g
+        delta = ((acc_delta + self.epsilon).sqrt()
+                 / (new_acc_g + self.epsilon).sqrt()) * g
+        acc_delta.copy_(self.rho * acc_delta
+                        + (1.0 - self.rho) * delta * delta)
+        acc_g.copy_(new_acc_g)
+        w.copy_(w - delta - wd * w)
+
+
+@register
+class Ftrl(Optimizer):
+    """FTRL-Proximal (reference `optimizer.py` Ftrl): the ``ftrl_update``
+    op."""
+
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1 = lamda1
+        self.beta = beta
+
+    def create_state(self, index, weight):
+        return _zeros_like(weight), _zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        z, n = state
+        _run("ftrl_update", (weight, grad, z, n), lamda1=self.lamda1,
+             beta=self.beta, **self._base_kwargs(index))
+
+
+@register
+class Adamax(Optimizer):
+    """AdaMax (Kingma and Ba; reference `optimizer.py` Adamax): the
+    infinity norm in place of Adam's second moment."""
+
+    def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+
+    def create_state(self, index, weight):
+        return _zeros_like(weight), _zeros_like(weight)
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        t = self._index_update_count[index]
+        lr = self._get_lr(index) / (1.0 - self.beta1 ** t)
+        wd = self._get_wd(index)
+        m, u = (s.data for s in state)
+        w = weight.data
+        g = _clipped(self, grad.data * self.rescale_grad + wd * w)
+        m.copy_(self.beta1 * m + (1.0 - self.beta1) * g)
+        u.copy_(torch.maximum(self.beta2 * u, g.abs()))
+        w.copy_(w - lr * m / u)
+
+
+@register
+class Nadam(Optimizer):
+    """Adam with Nesterov momentum (Dozat; reference `optimizer.py`
+    Nadam); the momentum schedule's product is the optimizer's, as in the
+    reference."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, schedule_decay=0.004, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.schedule_decay = schedule_decay
+        self.m_schedule = 1.0
+
+    def create_state(self, index, weight):
+        return _zeros_like(weight), _zeros_like(weight)
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        t = self._index_update_count[index]
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        w = weight.data
+        g = _clipped(self, grad.data * self.rescale_grad + wd * w)
+        mom_t = self.beta1 * (1.0 - 0.5 * 0.96 ** (t * self.schedule_decay))
+        mom_t1 = self.beta1 * (
+            1.0 - 0.5 * 0.96 ** ((t + 1) * self.schedule_decay))
+        self.m_schedule = self.m_schedule * mom_t
+        m_schedule_next = self.m_schedule * mom_t1
+        m, v = (s.data for s in state)
+        g_prime = g / (1.0 - self.m_schedule)
+        m.copy_(self.beta1 * m + (1.0 - self.beta1) * g)
+        v.copy_(self.beta2 * v + (1.0 - self.beta2) * g * g)
+        m_prime = m / (1.0 - m_schedule_next)
+        v_prime = v / (1.0 - self.beta2 ** t)
+        m_bar = (1.0 - mom_t) * g_prime + mom_t1 * m_prime
+        w.copy_(w - lr * m_bar / (v_prime.sqrt() + self.epsilon))
+
+
+@register
+class FTML(Optimizer):
+    """FTML (Zheng and Kwok; reference `optimizer.py:711`): the gradient
+    takes wd before it is clipped, as the reference class has it."""
+
+    def __init__(self, learning_rate=0.0025, beta1=0.6, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return tuple(_zeros_like(weight) for _ in range(3))
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        t = self._index_update_count[index]
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        w = weight.data
+        g = _clipped(self, grad.data * self.rescale_grad + wd * w)
+        d, v, z = (s.data for s in state)
+        v.copy_(self.beta2 * v + (1.0 - self.beta2) * g * g)
+        d_t = ((1.0 - self.beta1 ** t) / lr) * (
+            (v / (1.0 - self.beta2 ** t)).sqrt() + self.epsilon)
+        sigma_t = d_t - self.beta1 * d
+        z.copy_(self.beta1 * z + (1.0 - self.beta1) * g - sigma_t * w)
+        d.copy_(d_t)
+        w.copy_(-z / d_t)
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated asynchronous SGD (Zheng et al.; reference
+    `optimizer.py` DCASGD): the state keeps the previous weight."""
+
+    def __init__(self, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.weight_previous: Dict[Any, NDArray] = {}
+        self.lamda = lamda
+
+    def create_state(self, index, weight):
+        mom = None if self.momentum == 0.0 else _zeros_like(weight)
+        return (mom, NDArray(weight.data.clone()))
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        w = weight.data
+        g = _clipped(self, grad.data * self.rescale_grad)
+        mom, previous = state
+        prev = previous.data
+        delta = -lr * (g + wd * w + self.lamda * g * g * (w - prev))
+        if mom is not None:
+            mom.data.copy_(self.momentum * mom.data + delta)
+            delta = mom.data
+        prev.copy_(w)
+        w.add_(delta)
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics (Welling and Teh; reference
+    `optimizer.py` SGLD): a half step plus N(0, lr) noise from the
+    weight's device generator."""
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        w = weight.data
+        g = _clipped(self, grad.data * self.rescale_grad)
+        noise = torch.empty_like(w).normal_(
+            0.0, 1.0, generator=_random.generator(w.device)) * math.sqrt(lr)
+        w.copy_(w - lr / 2 * (g + wd * w) + noise)
+
+
+@register
+class LBSGD(Optimizer):
+    """Large-batch SGD (reference `optimizer.py:769`): with
+    ``warmup_strategy='lars'`` the lr of each layer scales by its weight
+    and gradient norms (LARS)."""
+
+    def __init__(self, momentum=0.0, multi_precision=False,
+                 warmup_strategy="linear", warmup_epochs=5, batch_scale=1,
+                 updates_per_epoch=32, begin_epoch=0, num_epochs=60,
+                 **kwargs):
+        super().__init__(multi_precision=multi_precision, **kwargs)
+        self.momentum = momentum
+        self.warmup_strategy = warmup_strategy
+        self.warmup_epochs = warmup_epochs
+        self.batch_scale = batch_scale
+        self.updates_per_epoch = updates_per_epoch
+        self.init_updates = begin_epoch * updates_per_epoch
+        self.num_epochs = num_epochs
+        self.adaptive = warmup_strategy == "lars"
+
+    def create_state(self, index, weight):
+        return None if self.momentum == 0.0 else _zeros_like(weight)
+
+    @staticmethod
+    def _get_lars(weight, g, wd):
+        w_norm = float(weight.data.norm())
+        g_norm = float(g.data.norm())
+        if w_norm > 0 and g_norm > 0:
+            return w_norm / (g_norm + wd * w_norm + 1e-9) * 0.001
+        return 1.0
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        kw = self._base_kwargs(index)
+        if self.adaptive:
+            kw["lr"] *= self._get_lars(weight, grad, kw["wd"])
+        if state is not None:
+            _run("sgd_mom_update", (weight, grad, state),
+                 momentum=self.momentum, **kw)
+        else:
+            _run("sgd_update", (weight, grad), **kw)
+
+
+class Test(Optimizer):
+    """The reference's test optimizer: w += rescale·g, and the state
+    holds the new weight."""
+
+    def create_state(self, index, weight):
+        return _zeros_like(weight)
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        weight.data.add_(grad.data * self.rescale_grad)
+        state.data.copy_(weight.data)
+
+
+register(Test)
 
 
 class Updater:

@@ -54,6 +54,9 @@ EXEMPT = {
     **{n: "optimizer update: tests/test_torch_optimizer*.py and "
           "tests/test_torch_fit.py" for n in treg.list_ops()
        if n.endswith("_update")},
+    "multi_sum_sq": "tests/test_torch_optimizers.py",
+    "_image_normalize_mirror_batch": "uint8 NHWC batches: "
+                                     "tests/test_torch_io.py",
 }
 
 
