@@ -253,6 +253,40 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    alone in images/s, the H2D bytes and ms a batch, one profiled fed
    step's idle share, and the Python `ImageIter` (resize, random crop)
    images/s over 4 batches.  No TPU kernel lies on this path.
+14. control flow, custom ops, partitioning and reshape, on phase 6's PTB
+   LSTM LM (2 x 200, embed 200, vocab 10000, batch 32) with its time loop
+   as one ``sym.contrib.foreach`` scan over the `rnn.LSTMCell`s
+   (`model_zoo.foreach_lm`), fp32 with TF32 off, on synthetic Markov
+   text.  14a: against the same LM unrolled by ``cell.unroll`` on the
+   same weights over one batch (outputs within CF_FWD_TOL, gradients
+   within CF_GRAD_TOL of the largest magnitude); two captured one-graph
+   steps bit-equal to two eager ones; ``Module.fit`` CF_EPOCHS epochs of
+   CF_BATCHES batches at T = CF_T with phase 10's SGD as one captured
+   step, the perplexity falling; the step p50 captured and eager in turns
+   and one profiled step's idle share, beside phase 10's
+   `BucketingModule` step at T = 60.  14b: the trained parameters saved
+   as `.params` and served on the unrolled LM by a `Predictor` whose
+   forwards launch K4 2·T times each, its logits within CF_FWD_TOL of the
+   foreach graph's captured forward.  14c: greedy decoding as a
+   ``sym.contrib.while_loop`` (`model_zoo.greedy_decoder`; condition ``i
+   < n_steps``, max_iterations CF_DECODE_ITERS, n_steps CF_DECODE_STEPS)
+   run as one captured inference forward: tokens equal to the imperative
+   ``nd.contrib.while_loop``'s, the rows past n_steps zero, replays
+   bit-equal; ms a decode.  14d: the LM with
+   `example/numpy-ops/custom_softmax.py`'s numpy head as a ``Custom`` op:
+   the program's islands and one fallback node, the island-plan forward
+   (each island a CUDA graph, the Custom eager between them) against the
+   eager whole graph; CF_HEAD_STEPS classic-path steps against the same
+   steps with ``SoftmaxOutput`` (first gradients and weights within
+   CF_FWD_TOL); the step's ms, the host crossings' ms and bytes each way;
+   `lower_step_fn` refusing the graph; ``Module.reshape`` from (32, 60)
+   to (32, CF_RESHAPE_T) and back over the root buffer, equal to a fresh
+   bind.  14e: `example/module/sequential_module.py`'s MLP (SEQ_MLP) as a
+   `SequentialModule` of two `Module`s against one `Module` of the joined
+   graph after 5 steps (SEQ_TOL); a hybridized ``F.contrib.foreach`` over
+   ``gluon.rnn.LSTMCell(200)`` against its imperative run; ``_cond`` on
+   the card (the island plan) against the CPU, both branches.  K4 is the
+   phase's only TPU kernel, in 14b.
 
 If the run nears its time limit, cut the serving phases' ``TIMED`` and
 ``LSTM_TIMED`` counts before anything of the training phase.
@@ -280,7 +314,9 @@ import torch  # noqa: E402
 import mxnet_tpu_torch as mt  # noqa: E402
 from mxnet_tpu_torch.model_zoo import (BERT_BASE, DCGAN,  # noqa: E402
                                        PTB_LSTM, bert_encoder, bert_mlm,
-                                       lstm_lm, random_params)
+                                       foreach_lm, greedy_decoder,
+                                       lm_weight_names, lstm_lm, lstm_step,
+                                       random_params)
 from mxnet_tpu_torch.gluon.model_zoo import vision  # noqa: E402
 from mxnet_tpu_torch.ndarray.ndarray import NDArray  # noqa: E402
 from mxnet_tpu_torch.graph_compile import CapturedGraph, warm_up  # noqa: E402
@@ -566,6 +602,23 @@ IMG_RECORDS, IMG_SIDE, IMG_CLASSES, IMG_QUALITY = 640, 224, 10, 95
 IMG_BATCH, IMG_EPOCHS, IMG_TIMED = 32, 2, 12
 IMG_NAG = dict(learning_rate=0.025, momentum=0.9, wd=1e-4)
 IMG_CHECK_TOL = 1e-6
+# phase 14: the PTB LSTM LM of phase 6 (PTB_LSTM, batch 32) with its time
+# loop as one sym.contrib.foreach scan at T = CF_T, trained through
+# Module.fit for CF_EPOCHS epochs of CF_BATCHES batches of synthetic Markov
+# text with phase 10's SGD; outputs held within CF_FWD_TOL and gradients
+# within CF_GRAD_TOL of the largest magnitude (the unrolled LM, the served
+# logits, the island plan, the Custom head against SoftmaxOutput)
+CF_T, CF_BATCH, CF_BATCHES, CF_EPOCHS = 60, 32, 12, 2
+CF_FWD_TOL, CF_GRAD_TOL = 1e-5, 1e-4
+CF_DECODE_ITERS, CF_DECODE_STEPS = 60, 45
+CF_HEAD_STEPS, CF_RESHAPE_T, CF_TIMED = 3, 35, 10
+# 14e: calls of a hybridized host-reading block, each with new inputs
+CF_HOST_CALLS = 6
+# 14e: example/module/sequential_module.py's MLP on MNIST-shaped data
+SEQ_MLP = dict(features=784, batch=100, steps=5, lr=0.1)
+SEQ_TOL = 1e-6
+# phase 10's BucketingModule step at the largest bucket, for phase 14
+RNN_RECORD = {}
 
 
 def log(*parts):
@@ -3158,6 +3211,7 @@ def rnn_lm_training(card, cfg=None, buckets=RNN_BUCKETS, batch=RNN_BATCH,
         served = rnn_serve_back(mod, cell, cfg, prefix, epochs, batches,
                                 (max(buckets), min(buckets)))
     timing = _step_timing(mod, batches, timed)
+    RNN_RECORD["step_p50_ms"] = timing[str(max(buckets))]["step_p50_ms"]
     big = batches[max(buckets)]
 
     def train_step():
@@ -5114,6 +5168,653 @@ def phase_data(card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: control flow, custom ops, partitioning and reshape
+# ---------------------------------------------------------------------------
+
+@mt.operator.register("numpy_softmax_loss")
+class _NumpySoftmaxLossProp(mt.operator.CustomOpProp):
+    """`example/numpy-ops/custom_softmax.py`'s softmax + cross-entropy
+    head written in numpy, on the port's `nd`."""
+
+    def __init__(self):
+        super().__init__(need_top_grad=False)
+
+    def list_arguments(self):
+        return ["data", "label"]
+
+    def list_outputs(self):
+        return ["output"]
+
+    def infer_shape(self, in_shape):
+        return [in_shape[0], [in_shape[0][0]]], [in_shape[0]], []
+
+    def create_operator(self, ctx, in_shapes, in_dtypes):
+        class NumpySoftmaxLoss(mt.operator.CustomOp):
+            def forward(self, is_train, req, in_data, out_data, aux):
+                x = in_data[0].asnumpy()
+                e = np.exp(x - x.max(axis=1, keepdims=True))
+                self.assign(out_data[0], req[0],
+                            mt.nd.array(e / e.sum(axis=1, keepdims=True)))
+
+            def backward(self, req, out_grad, in_data, out_data, in_grad,
+                         aux):
+                p = np.array(out_data[0].asnumpy())
+                label = in_data[1].asnumpy().astype(int)
+                p[np.arange(len(label)), label] -= 1.0
+                self.assign(in_grad[0], req[0], mt.nd.array(p))
+                self.assign(in_grad[1], req[1],
+                            mt.nd.zeros(in_data[1].shape))
+        return NumpySoftmaxLoss()
+
+
+class _HostCalls:
+    """Times every host crossing of a custom op (`operator.CustomCall`'s
+    forward and backward, the copies included) and counts its bytes each
+    way, while installed."""
+
+    def __init__(self):
+        self.calls = {"forward": [], "backward": []}
+
+    def __enter__(self):
+        self._saved = (mt.operator.CustomCall.forward,
+                       mt.operator.CustomCall.backward)
+        fwd, bwd = self._saved
+        calls = self.calls
+
+        def nbytes(ts):
+            return sum(t.numel() * t.element_size() for t in ts
+                       if t is not None)
+
+        def timed(kind, fn, host_args):
+            def run(call, *args):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(call, *args)
+                torch.cuda.synchronize()
+                calls[kind].append({
+                    "ms": (time.perf_counter() - t0) * 1e3,
+                    "to_host_bytes": sum(nbytes(a) for a in host_args(args)),
+                    "to_device_bytes": nbytes(out)})
+                return out
+            return run
+
+        mt.operator.CustomCall.forward = timed(
+            "forward", fwd, lambda a: [a[0]])
+        mt.operator.CustomCall.backward = timed(
+            "backward", bwd, lambda a: [a[0], a[1], a[2]])
+        return self
+
+    def __exit__(self, *exc):
+        mt.operator.CustomCall.forward, mt.operator.CustomCall.backward = \
+            self._saved
+
+    def summary(self):
+        out = {}
+        for kind, rows in self.calls.items():
+            if rows:
+                out[kind] = {"calls": len(rows),
+                             "p50_ms": float(np.median([r["ms"]
+                                                        for r in rows])),
+                             "to_host_bytes": rows[-1]["to_host_bytes"],
+                             "to_device_bytes": rows[-1]["to_device_bytes"]}
+        return out
+
+
+def _cf_data(cfg, n_batches, batch, seq, seed):
+    """Token ids (n·batch, seq) from one Markov stream and the next-token
+    labels."""
+    n = n_batches * batch
+    stream = _markov_stream(cfg["vocab"], n * (seq + 1), seed)
+    rows = stream.reshape(n, seq + 1)
+    return rows[:, :-1].copy(), rows[:, 1:].copy()
+
+
+def _lm_head(pred, head):
+    label = mt.sym.Reshape(mt.sym.var("softmax_label"), shape=(-1,))
+    if head == "custom":
+        return mt.sym.Custom(pred, label, op_type="numpy_softmax_loss",
+                             name="softmax")
+    return mt.sym.SoftmaxOutput(pred, label, name="softmax")
+
+
+def _unrolled_pred(cfg, seq):
+    """The LM's logits with its loop unrolled by `cell.unroll` (phase
+    6's graph, no head)."""
+    return lstm_lm(mt, seq, **cfg).get_internals()["pred_output"]
+
+
+def _lm_grads(sym, params, ids, label, ctx):
+    """One recorded forward and backward of ``sym`` on the card: the
+    outputs and every parameter's gradient."""
+    args = {k: mt.nd.array(v, ctx=ctx) for k, v in params.items()}
+    args["data"] = mt.nd.array(ids, ctx=ctx)
+    args["softmax_label"] = mt.nd.array(label, ctx=ctx)
+    ex = sym.bind(ctx, args=args,
+                  args_grad={k: mt.nd.zeros(v.shape, ctx=ctx)
+                             for k, v in params.items()},
+                  grad_req={k: "write" for k in params})
+    out = ex.forward(is_train=True)[0].data.clone()
+    ex.backward()
+    return out, {k: ex.grad_dict[k].data.clone() for k in params}
+
+
+def _cf_module(sym, ctx, params, batch, seq):
+    mod = mt.mod.Module(sym, context=ctx)
+    mod.bind([("data", (batch, seq))], [("softmax_label", (batch, seq))])
+    mod.init_params(arg_params={k: mt.nd.array(v, ctx=ctx)
+                                for k, v in params.items()})
+    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(RNN_SGD))
+    return mod
+
+
+def _cf_batch(ids, label, i, batch, ctx):
+    sl = slice(i * batch, (i + 1) * batch)
+    return mt.io.DataBatch([mt.nd.array(ids[sl], ctx=ctx)],
+                           [mt.nd.array(label[sl], ctx=ctx)])
+
+
+def _step_turns(step, n=CF_TIMED, rounds=2):
+    """``step()`` timed captured and eager (``MXTPU_GRAPH_COMPILE=0``) in
+    turns, captured-eager-eager-captured per round: each way's p50 ms."""
+    times = {"captured": [], "eager": []}
+    for _ in range(rounds):
+        for way in ("captured", "eager", "eager", "captured"):
+            with (eager() if way == "eager" else contextlib.nullcontext()):
+                step()
+                for _ in range(n):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    step()
+                    torch.cuda.synchronize()
+                    times[way].append((time.perf_counter() - t0) * 1e3)
+    return {f"{w}_p50_ms": float(np.median(t)) for w, t in times.items()}
+
+
+def foreach_lm_training(card, cfg=None, seq=CF_T, batch=CF_BATCH,
+                        n_batches=CF_BATCHES, epochs=CF_EPOCHS):
+    """14a: the foreach LM trained through ``Module.fit`` as one captured
+    step; returns the module, its parameters, the data and the record."""
+    cfg = dict(cfg or PTB_LSTM)
+    gpu = mt.gpu(0)
+    ids, label = _cf_data(cfg, n_batches, batch, seq, SEED + 14)
+    sym = _lm_head(foreach_lm(mt, seq, batch, **cfg), "softmax_output")
+    shapes = dict(zip(sym.list_arguments(), sym.infer_shape(
+        data=(batch, seq), softmax_label=(batch, seq))[0]))
+    params = random_params({k: v for k, v in shapes.items()
+                            if k not in ("data", "softmax_label")},
+                           SEED + 15)
+    # against the unrolled LM on the same weights, over one batch
+    out_f, g_f = _lm_grads(sym, params, ids[:batch], label[:batch], gpu)
+    out_u, g_u = _lm_grads(_lm_head(_unrolled_pred(cfg, seq),
+                                    "softmax_output"),
+                           params, ids[:batch], label[:batch], gpu)
+    err_out = _rel_err(out_f, out_u)
+    err_grad = max(_rel_err(g_f[k], g_u[k]) for k in params)
+    log(f"cf: foreach LM against the unrolled LM: outputs {err_out:.3e} "
+        f"(limit {CF_FWD_TOL}), gradients {err_grad:.3e} (limit "
+        f"{CF_GRAD_TOL}) of the largest magnitude")
+    if not (err_out <= CF_FWD_TOL and err_grad <= CF_GRAD_TOL):
+        raise AssertionError(f"foreach LM off the unrolled LM: outputs "
+                             f"{err_out}, gradients {err_grad}")
+    # captured against eager, bit-equal over two steps from one state
+    finals = {}
+    for way in ("captured", "eager"):
+        with (eager() if way == "eager" else contextlib.nullcontext()):
+            m = _cf_module(sym, gpu, params, batch, seq)
+            for i in range(2):
+                if not m.fused_step(_cf_batch(ids, label, i, batch, gpu)):
+                    raise AssertionError("the foreach LM took no one-graph "
+                                         "step")
+            finals[way] = {k: v.data.clone() for k, v in
+                           m._exec.arg_dict.items() if k in params}
+            if way == "captured" and not m._fused_train_step._graphs:
+                raise AssertionError("the foreach LM step was not captured")
+    bit_equal = all(torch.equal(finals["captured"][k], finals["eager"][k])
+                    for k in params)
+    worst = max(_rel_err(finals["captured"][k], finals["eager"][k])
+                for k in params)
+    log(f"cf: two captured steps against two eager ones: bit-equal "
+        f"{bit_equal} (worst {worst:.3e})")
+    if not bit_equal:
+        raise AssertionError(f"captured steps off eager by {worst}")
+    del finals
+    # Module.fit, Perplexity per epoch
+    it = mt.io.NDArrayIter(ids, label, batch_size=batch)
+    mod = mt.mod.Module(sym, context=gpu)
+    metric = mt.metric.Perplexity(None)
+    ppl = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mod.fit(it, eval_metric=metric, num_epoch=epochs, optimizer="sgd",
+            optimizer_params=dict(RNN_SGD),
+            arg_params={k: mt.nd.array(v, ctx=gpu)
+                        for k, v in params.items()},
+            epoch_end_callback=lambda *a: ppl.append(metric.get()[1]))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    step = mod._fused_train_step
+    if step is None or not step._graphs:
+        raise AssertionError("fit did not run the captured step")
+    log(f"cf: Module.fit {epochs} epochs of {n_batches} batches in "
+        f"{fit_s:.1f} s; perplexity by epoch {ppl}")
+    if not (np.isfinite(ppl).all() and ppl[-1] < ppl[0]):
+        raise AssertionError(f"perplexity did not fall: {ppl}")
+    b0 = _cf_batch(ids, label, 0, batch, gpu)
+    check_replay("foreach LM fit step", lambda: mod.fused_step(b0), {})
+    turns = _step_turns(lambda: mod.fused_step(b0))
+    prof = profile_gluon(f"foreach LM training step T {seq}",
+                         lambda: mod.fused_step(b0))
+    rec = {"config": cfg, "seq": seq, "batch": batch,
+           "batches_an_epoch": n_batches, "epochs": epochs,
+           "vs_unrolled": {"outputs": err_out, "gradients": err_grad},
+           "captured_vs_eager_bit_equal": bit_equal, "fit_s": fit_s,
+           "perplexity": ppl, **turns,
+           "idle_share": prof["idle_share"],
+           "phase10_bucketing_step_p50_ms": RNN_RECORD.get(
+               "step_p50_ms", "not measured")}
+    log(f"cf: foreach LM step at T {seq}: captured "
+        f"{turns['captured_p50_ms']:.2f} ms, eager "
+        f"{turns['eager_p50_ms']:.2f} ms (p50, in turns), idle share "
+        f"{prof['idle_share']}; phase 10's BucketingModule step at T 60 "
+        f"{rec['phase10_bucketing_step_p50_ms']} ms ({card})")
+    return mod, params, (ids, label), rec
+
+
+def foreach_served_on_k4(mod, cfg, seq, batch, ids):
+    """14b: the trained parameters saved as `.params` and served on the
+    unrolled LM by a `Predictor` whose forward runs K4; its logits against
+    the foreach graph's captured inference forward."""
+    out_dir = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    feed = {"data": ids[:batch]}
+    with tempfile.TemporaryDirectory(dir=out_dir) as d:
+        prefix = os.path.join(d, "foreach_lm")
+        mod.save_checkpoint(prefix, 1)
+        with open(f"{prefix}-0001.params", "rb") as f:
+            blob = f.read()
+    shapes = {"data": (batch, seq)}
+    with pallas_mode("auto"):
+        pred = mt.Predictor(_unrolled_pred(cfg, seq).tojson(), blob, shapes)
+        rewrites, attn, lstm = _site_counts(pred)
+        if (lstm, attn) != (2 * seq, 0):
+            raise AssertionError(f"served LM: {lstm} LSTM sites on K4, want "
+                                 f"{2 * seq}")
+        before = hk.LAUNCHES["lstm_gates"]
+        outs, _ = _serve(pred, [feed, feed], {"lstm_gates": 2 * seq})
+        k4 = hk.LAUNCHES["lstm_gates"] - before
+    scan = mt.Predictor(foreach_lm(mt, seq, batch, **cfg).tojson(), blob,
+                        shapes)
+    ref, _ = _serve(scan, [feed, feed], {"lstm_gates": 0})
+    err = max(float(np.abs(o - ref[-1]).max()) for o in outs) / \
+        float(np.abs(ref[-1]).max())
+    log(f"cf: foreach-trained weights served on K4 ({k4} launches, "
+        f"{2 * seq} a forward): logits against the foreach graph's "
+        f"{err:.3e} (limit {CF_FWD_TOL})")
+    if not err <= CF_FWD_TOL:
+        raise AssertionError(f"served logits off the foreach graph by {err}")
+    return {"k4_launches": k4, "logits_vs_foreach": err}
+
+
+def while_decode(params, cfg, batch, ids, max_iter=CF_DECODE_ITERS,
+                 n_steps=CF_DECODE_STEPS):
+    """14c: greedy decoding as a `sym.contrib.while_loop` run as one
+    captured inference forward, against the imperative host loop."""
+    gpu = mt.gpu(0)
+    H = cfg["num_hidden"]
+    dec = greedy_decoder(mt, max_iter, **cfg)
+    feed = dict(params, tok=ids[:batch, 0], i=np.zeros(1, np.float32),
+                n_steps=np.array([n_steps], np.float32),
+                **{f"s{k}": np.zeros((batch, H), np.float32)
+                   for k in range(2 * cfg["num_layers"])})
+    ex = dec.bind(gpu, args={k: mt.nd.array(v, ctx=gpu)
+                             for k, v in feed.items()}, grad_req="null")
+    runs = [ex.compiled_forward(is_train=False)[0].data.clone()
+            for _ in range(4)]
+    prog = ex.graph_program(False)
+    if len(prog._graphs) != 1 or not prog.one_graph:
+        raise AssertionError("the decode was not one captured forward")
+    replays_equal = all(torch.equal(runs[1], r) for r in runs[2:])
+    toks = runs[-1]
+    w = {k: mt.nd.array(feed[k], ctx=gpu) for k in lm_weight_names(
+        cfg["num_layers"])}
+    n_nd = mt.nd.array(feed["n_steps"], ctx=gpu)
+
+    def func(tok, i, *st):
+        nxt, new = lstm_step(mt.nd, tok, list(st), w, cfg["num_layers"], H,
+                             cfg["num_embed"], cfg["vocab"])
+        return nxt, [nxt, i + 1.0] + new
+
+    imp, _ = mt.nd.contrib.while_loop(
+        lambda tok, i, *s: i < n_nd, func,
+        [mt.nd.array(feed["tok"], ctx=gpu), mt.nd.zeros((1,), ctx=gpu)] +
+        [mt.nd.zeros((batch, H), ctx=gpu)
+         for _ in range(2 * cfg["num_layers"])], max_iterations=max_iter)
+    equal_imp = torch.equal(toks, imp.data)
+    pad_zero = not bool(toks[n_steps:].any())
+    check_replay("while_loop decode", lambda: ex.compiled_forward(), {})
+    ms = _event_p50_ms(lambda: ex.compiled_forward(), n=CF_TIMED)
+    log(f"cf: while_loop greedy decode ({max_iter} iterations, n_steps "
+        f"{n_steps}, batch {batch}): tokens equal the host loop's "
+        f"{equal_imp}, rows {n_steps}-{max_iter - 1} zero {pad_zero}, "
+        f"replays bit-equal {replays_equal}; {ms:.2f} ms a decode")
+    if not (equal_imp and pad_zero and replays_equal):
+        raise AssertionError("while_loop decode failed its holds")
+    return {"ms_per_decode": ms, "tokens_equal_host_loop": equal_imp,
+            "padding_zero": pad_zero, "replays_bit_equal": replays_equal,
+            "max_iterations": max_iter, "n_steps": n_steps}
+
+
+def custom_head_islands(params, cfg, seq, batch, data):
+    """14d: the LM with the numpy softmax head as a ``Custom`` op: its
+    island plan, 3 classic-path fit steps against the built-in head, the
+    host crossings' cost, `lower_step_fn`'s refusal."""
+    from mxnet_tpu_torch import graph_compile as gc
+    gpu = mt.gpu(0)
+    ids, label = data
+    pred = foreach_lm(mt, seq, batch, **cfg)
+    sym = _lm_head(pred, "custom")
+    args = {k: mt.nd.array(v, ctx=gpu) for k, v in params.items()}
+    args["data"] = mt.nd.array(ids[:batch], ctx=gpu)
+    args["softmax_label"] = mt.nd.array(label[:batch], ctx=gpu)
+    ex = sym.bind(gpu, args=args, grad_req="null")
+    prog = ex.graph_program(False)
+    islands = (prog.islands, prog.fallback_nodes)
+    plan = [ex.compiled_forward(is_train=False)[0].data.clone()
+            for _ in range(3)][-1]
+    whole = ex.forward(is_train=False)[0].data.clone()
+    err_plan = _rel_err(plan, whole)
+    log(f"cf: Custom head: {islands[0]} islands, {islands[1]} fallback "
+        f"node(s); the island plan against the eager whole graph "
+        f"{err_plan:.3e} (limit {CF_FWD_TOL})")
+    if islands[1] != 1 or islands[0] < 1 or not err_plan <= CF_FWD_TOL:
+        raise AssertionError(f"island plan: {islands}, off by {err_plan}")
+    try:
+        gc.lower_step_fn(sym)
+    except mt.MXNetError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("lower_step_fn took a graph with a Custom op")
+    mods = {h: _cf_module(_lm_head(pred, h), gpu, params, batch, seq)
+            for h in ("custom", "softmax_output")}
+    b0 = _cf_batch(ids, label, 0, batch, gpu)
+    grads = {}
+    for h, m in mods.items():
+        m.forward_backward(b0)
+        grads[h] = {k: m._exec.grad_dict[k].data.clone() for k in params}
+    grads_err = max(_rel_err(grads["custom"][k], grads["softmax_output"][k])
+                    for k in params)
+    del grads
+    steps_ms = []
+    with _HostCalls() as host:
+        for i in range(CF_HEAD_STEPS):
+            b = _cf_batch(ids, label, i, batch, gpu)
+            for h, m in mods.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if not m.fused_step(b):
+                    m.forward_backward(b)
+                    m.update()
+                torch.cuda.synchronize()
+                if h == "custom":
+                    steps_ms.append((time.perf_counter() - t0) * 1e3)
+    if mods["custom"]._fused_train_step is not None:
+        raise AssertionError("the Custom-head module built a one-graph step")
+    w_err = max(_rel_err(mods["custom"]._exec.arg_dict[k].data,
+                         mods["softmax_output"]._exec.arg_dict[k].data)
+                for k in params)
+    crossing = host.summary()
+    log(f"cf: {CF_HEAD_STEPS} fit steps with the Custom head on the classic"
+        f" path against SoftmaxOutput's one-graph steps: first gradients "
+        f"{grads_err:.3e}, weights after {CF_HEAD_STEPS} {w_err:.3e} (limit"
+        f" {CF_FWD_TOL}); step {float(np.median(steps_ms)):.2f} ms; host "
+        f"crossings {json.dumps(crossing)}")
+    if not (grads_err <= CF_FWD_TOL and w_err <= CF_FWD_TOL):
+        raise AssertionError(f"Custom head off SoftmaxOutput: gradients "
+                             f"{grads_err}, weights {w_err}")
+    return {"islands": islands[0], "fallback_nodes": islands[1],
+            "island_plan_vs_eager": err_plan, "grads_vs_builtin": grads_err,
+            "weights_vs_builtin": w_err,
+            "step_ms": float(np.median(steps_ms)), "host": crossing,
+            "lower_step_fn": refused}
+
+
+def module_reshape(mod, cfg, params, data, seq, batch, short=CF_RESHAPE_T):
+    """14d: `Module.reshape` of the trained module from (batch, seq) to
+    (batch, short) and back: the shrunk inputs view the root buffer; the
+    outputs equal a fresh bind at ``short``."""
+    gpu = mt.gpu(0)
+    ids, label = data
+    exec0 = mod._exec
+    root = exec0.arg_dict["data"].data.data_ptr()
+    mod.reshape([("data", (batch, short))], [("softmax_label",
+                                               (batch, short))])
+    shrunk = mod._exec.arg_dict["data"].data.data_ptr() == root
+    b = mt.io.DataBatch([mt.nd.array(ids[:batch, :short], ctx=gpu)],
+                        [mt.nd.array(label[:batch, :short], ctx=gpu)])
+    mod.forward(b, is_train=False)
+    got = mod.get_outputs()[0].data.clone()
+    arg, aux = mod.get_params()
+    fresh = mt.mod.Module(mod.symbol, context=gpu)
+    fresh.bind([("data", (batch, short))], [("softmax_label",
+                                             (batch, short))],
+               for_training=False)
+    fresh.init_params(arg_params=arg, aux_params=aux)
+    fresh.forward(b, is_train=False)
+    err = _rel_err(got, fresh.get_outputs()[0].data)
+    mod.reshape([("data", (batch, seq))], [("softmax_label", (batch, seq))])
+    back = mod._exec.arg_dict["data"].data.data_ptr() == root and \
+        mod._exec is exec0
+    log(f"cf: Module.reshape ({batch}, {seq}) -> ({batch}, {short}) -> "
+        f"back: root buffer shared {shrunk} / {back}; outputs against a "
+        f"fresh bind {err:.3e} (limit {CF_FWD_TOL})")
+    if not (shrunk and back and err <= CF_FWD_TOL):
+        raise AssertionError(f"Module.reshape: shared {shrunk}/{back}, "
+                             f"off by {err}")
+    return {"root_shared": [shrunk, back], "vs_fresh_bind": err}
+
+
+def _seq_mlp(joined, ctx):
+    """`example/module/sequential_module.py`: fc1 (128) | fc2 (64), fc3
+    (10), SoftmaxOutput, as two modules or one."""
+    S = mt.sym
+    net1 = S.Activation(S.FullyConnected(S.var("data"), name="fc1",
+                                         num_hidden=128),
+                        name="relu1", act_type="relu")
+    net2 = S.Activation(S.FullyConnected(net1 if joined else S.var("data"),
+                                         name="fc2", num_hidden=64),
+                        name="relu2", act_type="relu")
+    net2 = S.SoftmaxOutput(S.FullyConnected(net2, name="fc3",
+                                            num_hidden=10), name="softmax")
+    if joined:
+        return mt.mod.Module(net2, context=ctx)
+    seq = mt.mod.SequentialModule()
+    seq.add(mt.mod.Module(net1, label_names=[], context=ctx))
+    seq.add(mt.mod.Module(net2, context=ctx), take_labels=True,
+            auto_wiring=True)
+    return seq
+
+
+def other_surfaces(card, cfg=SEQ_MLP):
+    """14e: a SequentialModule against one Module of the joined graph; a
+    hybridized foreach over `gluon.rnn.LSTMCell(200)` against its
+    imperative run; a hybridized block with a ``_cond`` called with new
+    inputs; `_cond` on the card against the CPU, and inside a scan."""
+    from mxnet_tpu_torch import graph_compile as gc
+    gpu = mt.gpu(0)
+    rng = np.random.RandomState(SEED + 16)
+    n = cfg["batch"] * cfg["steps"]
+    X = rng.rand(n, cfg["features"]).astype(np.float32)
+    y = rng.randint(0, 10, n).astype(np.float32)
+    w0 = {"fc1_weight": rng.randn(128, cfg["features"]) * 0.05,
+          "fc1_bias": np.zeros(128), "fc2_weight": rng.randn(64, 128) * 0.1,
+          "fc2_bias": np.zeros(64), "fc3_weight": rng.randn(10, 64) * 0.1,
+          "fc3_bias": np.zeros(10)}
+    weights = {}
+    for joined in (False, True):
+        m = _seq_mlp(joined, gpu)
+        m.fit(mt.io.NDArrayIter(X, y, batch_size=cfg["batch"]), num_epoch=1,
+              optimizer="sgd", optimizer_params={"learning_rate": cfg["lr"]},
+              arg_params={k: mt.nd.array(v.astype(np.float32), ctx=gpu)
+                          for k, v in w0.items()})
+        weights[joined] = {k: v.data for k, v in m.get_params()[0].items()}
+    seq_err = max(_rel_err(weights[False][k], weights[True][k]) for k in w0)
+    # F.contrib.foreach over a Gluon LSTMCell, hybridized
+    cell_h, steps = 200, CF_RESHAPE_T
+
+    class Scan(mt.gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.cell = mt.gluon.rnn.LSTMCell(cell_h, input_size=cell_h)
+
+        def hybrid_forward(self, F, x, h, c):
+            outs, _ = F.contrib.foreach(lambda item, st: self.cell(item, st),
+                                        x, [h, c])
+            return outs
+
+    net = Scan(prefix="scan_")
+    net.initialize(mt.init.Xavier(), ctx=gpu)
+    x = mt.nd.array(rng.randn(steps, CF_BATCH, cell_h).astype(np.float32),
+                    ctx=gpu)
+    h0 = mt.nd.zeros((CF_BATCH, cell_h), ctx=gpu)
+    c0 = mt.nd.zeros((CF_BATCH, cell_h), ctx=gpu)
+    imp = net(x, h0, c0).data.clone()
+    net.hybridize()
+    hyb = [net(x, h0, c0).data.clone() for _ in range(3)][-1]
+    if net._cached_op.num_programs != 1:
+        raise AssertionError("the hybridized foreach was not captured once")
+    scan_err = _rel_err(hyb, imp)
+    gate_err, gate_programs = _host_block_calls(gpu, rng, cell_h)
+    # _cond on the card, both branches, against the CPU
+    S = mt.sym
+    xs, a, b = S.var("x"), S.var("a"), S.var("b")
+    cond = S.contrib.cond(S.sum(xs) > 0.0,
+                          lambda: S.exp(S.FullyConnected(a, num_hidden=8,
+                                                         name="fc")),
+                          lambda: b * 3.0)
+    av = rng.randn(4, 8).astype(np.float32)
+    cond_err = 0.0
+    for scale in (1.0, -1.0):
+        feed = {"x": np.full((2,), scale, np.float32), "a": av,
+                "b": rng.randn(4, 8).astype(np.float32),
+                "fc_weight": rng.randn(8, 8).astype(np.float32) * 0.3,
+                "fc_bias": np.zeros(8, np.float32)}
+        outs = []
+        for ctx in (gpu, mt.cpu()):
+            e = cond.bind(ctx, args={k: mt.nd.array(v, ctx=ctx)
+                                     for k, v in feed.items()},
+                          grad_req="null")
+            outs.append([e.compiled_forward(is_train=False)[0].data.cpu()
+                         for _ in range(3)][-1])
+        cond_err = max(cond_err, _rel_err(outs[0], outs[1]))
+    # a _cond inside a foreach body: the scan runs eagerly between islands
+    nested, _ = S.contrib.foreach(
+        lambda item, st: [S.contrib.cond(S.sum(item) > 0.0,
+                                         lambda: st + item,
+                                         lambda: st * 0.5)] * 2,
+        xs, b)
+    if gc.one_graph(nested):
+        raise AssertionError("a _cond inside a foreach body counted as "
+                             "capturable")
+    feed = {"x": rng.randn(6, 4, 8).astype(np.float32),
+            "b": rng.randn(4, 8).astype(np.float32)}
+    outs = []
+    for ctx in (gpu, mt.cpu()):
+        e = nested.bind(ctx, args={k: mt.nd.array(v, ctx=ctx)
+                                   for k, v in feed.items()},
+                        grad_req="null")
+        outs.append([e.compiled_forward(is_train=False)[0].data.cpu()
+                     for _ in range(3)][-1])
+    nested_err = _rel_err(outs[0], outs[1])
+    log(f"cf: SequentialModule of 2 Modules against the joined Module after "
+        f"{cfg['steps']} steps {seq_err:.3e} (limit {SEQ_TOL}); hybridized "
+        f"foreach over LSTMCell({cell_h}) against imperative "
+        f"{scan_err:.3e}; a hybridized block with a _cond over "
+        f"{CF_HOST_CALLS} calls of new inputs against imperative "
+        f"{gate_err:.3e}, {gate_programs} program(s) kept; _cond on the "
+        f"card against the CPU, both branches, {cond_err:.3e}, inside a "
+        f"foreach body {nested_err:.3e} (limit {CF_FWD_TOL}) ({card})")
+    if not (seq_err <= SEQ_TOL and scan_err <= CF_FWD_TOL
+            and gate_err <= CF_FWD_TOL and cond_err <= CF_FWD_TOL
+            and nested_err <= CF_FWD_TOL):
+        raise AssertionError(f"14e: sequential {seq_err}, scan {scan_err}, "
+                             f"host block {gate_err}, cond {cond_err}, "
+                             f"nested cond {nested_err}")
+    return {"sequential_vs_joined": seq_err, "hybrid_foreach": scan_err,
+            "host_block": gate_err, "host_block_programs": gate_programs,
+            "cond_vs_cpu": cond_err, "cond_in_foreach_vs_cpu": nested_err}
+
+
+def _host_block_calls(gpu, rng, width, calls=CF_HOST_CALLS):
+    """A hybridized block whose forward reads the host (a ``_cond``),
+    called with a new input array each time, as a server calls it: every
+    output equals the block's imperative run, and the block keeps one
+    program whose islands each hold one capture."""
+
+    class Gate(mt.gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.fc = mt.gluon.nn.Dense(width, in_units=width)
+
+        def hybrid_forward(self, F, x):
+            y = self.fc(x)
+            return F.contrib.cond(F.sum(y) > 0.0, lambda: F.tanh(y),
+                                  lambda: y * 0.5)
+
+    net = Gate(prefix="gate_")
+    net.initialize(mt.init.Xavier(), ctx=gpu)
+    xs = [rng.randn(CF_BATCH, width).astype(np.float32) * s
+          for s in (1.0, -1.0) * (calls // 2)]
+    imp = [net(mt.nd.array(x, ctx=gpu)).data.clone() for x in xs]
+    net.hybridize()
+    errs, counts = [], set()
+    for x, want in zip(xs, imp):
+        errs.append(_rel_err(net(mt.nd.array(x, ctx=gpu)).data, want))
+        progs = net._cached_op._graph_programs
+        prog = next(iter(progs.values()))[0]
+        counts.add((len(progs), len(prog._graphs),
+                    tuple(len(i._graphs) for i in
+                          prog._islands_of.values())))
+    (n_progs, whole, per_island), = counts
+    if n_progs != 1 or whole or not per_island or \
+            any(n != 1 for n in per_island):
+        raise AssertionError(f"host block captures grew over {calls} "
+                             f"calls: {sorted(counts)}")
+    return max(errs), n_progs
+
+
+def phase_control_flow(card):
+    """Phase 14: control flow, custom ops, partitioning and reshape on the
+    foreach LM.  Returns its main path's K1-K4 launches (14b's K4)."""
+    t_phase = time.perf_counter()
+    cfg = dict(PTB_LSTM)
+    hk.reset_launch_counts()
+    mod, params, data, train = foreach_lm_training(card, cfg)
+    served = foreach_served_on_k4(mod, cfg, CF_T, CF_BATCH, data[0])
+    launches = dict(hk.LAUNCHES)
+    if launches["lstm_gates"] != served["k4_launches"] or \
+            any(launches[k] for k in ATTN_KERNELS):
+        raise AssertionError(f"phase 14 launched {launches}; want only the "
+                             "served forwards' K4")
+    trained = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    decode = while_decode(trained, cfg, CF_BATCH, data[0])
+    custom = custom_head_islands(params, cfg, CF_T, CF_BATCH, data)
+    reshape = module_reshape(mod, cfg, params, data, CF_T, CF_BATCH)
+    del mod
+    torch.cuda.empty_cache()
+    other = other_surfaces(card)
+    rec = {"phase": "control_flow", "card": card, "dtype": "float32",
+           "foreach_lm": train, "served_on_k4": served, "decode": decode,
+           "custom_head": custom, "reshape": reshape, "other": other,
+           "launches": launches,
+           "phase_s": time.perf_counter() - t_phase}
+    log(json.dumps(rec))
+    log(f"cf: phase 14 in {rec['phase_s']:.1f} s")
+    return launches
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -5130,13 +5831,14 @@ def main():
     state_launches = phase_state(card)
     ops_launches = phase_ops(card)
     data_launches = phase_data(card)
+    cf_launches = phase_control_flow(card)
     leaked = [m for m in ("jax", "mxnet_tpu") if m in sys.modules]
     if leaked:
         raise SystemExit(f"chip_smoke: the port imported {leaked}")
     log(f"launches: serving {serve_launches}, training {train_launches}, "
         f"LSTM serving {lstm_launches}, fit {fit_launches}, RNN "
         f"{rnn_launches}, state {state_launches}, ops {ops_launches}, "
-        f"data {data_launches}")
+        f"data {data_launches}, control flow {cf_launches}")
     kernels = [{
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -5166,7 +5868,7 @@ def main():
         "source": "mxnet_tpu_torch/csrc/lstm_gates.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:452",
         "launches": lstm_launches["lstm_gates"] +
-        rnn_launches["lstm_gates"],
+        rnn_launches["lstm_gates"] + cf_launches["lstm_gates"],
         "max_abs_err": k4["max_abs_err"], "ms": k4["ms"],
         "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
         "bound_by": k4["bound_by"], "library_ms": k4["library_ms"],

@@ -65,6 +65,7 @@ from . import visualization as viz  # noqa: E402
 from .attribute import AttrScope  # noqa: E402
 from .ndarray import NDArray  # noqa: E402
 from .executor import Executor  # noqa: E402
+from . import operator, subgraph  # noqa: E402
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "cpu_pinned",
            "cpu_shared", "current_context", "num_gpus", "nd", "sym",
@@ -73,4 +74,5 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "cpu_pinned",
            "io", "init", "initializer", "optimizer", "mod", "rnn",
            "lr_scheduler", "metric", "callback", "model", "Predictor",
            "autograd", "gluon", "kvstore", "kv", "monitor", "mon", "Monitor",
-           "checkpoint", "engine", "recordio", "image", "img"]
+           "checkpoint", "engine", "recordio", "image", "img", "operator",
+           "subgraph"]

@@ -38,6 +38,18 @@ in predict mode the capture follows at once, in training at the next call
 on the CPU or with ``MXTPU_GRAPH_COMPILE=0`` runs eagerly under torch's
 autograd.  A capture that fails raises.
 
+A block whose imperative forward reads the host (`nd.contrib.cond`'s
+predicate, `nd.contrib.while_loop`'s condition, a Python `Custom` op: each
+calls `note_host_op`, seen during the settling forward below) is not
+captured whole.  Its predict-mode calls on the card run the block's traced
+graph (``F = sym``) through a `graph_compile.GraphProgram` over the
+parameters, one per input signature, fed from static input tensors the
+call's inputs are copied into (so the program's captures stay one per
+signature): one CUDA graph where every op can be captured (a symbolic
+``while_loop`` can), else the island plan, with the ``Custom`` and
+``_cond`` nodes run eagerly between captured islands.  Its recorded
+training calls run eagerly.
+
 Before the first call, one predict-mode forward settles deferred
 initialization without moving BatchNorm's statistics.  While a CachedOp
 runs its block, hybridized children inline into it (`is_tracing`).  A
@@ -69,9 +81,18 @@ class _TraceState(threading.local):
     def __init__(self):
         super().__init__()
         self.active = False
+        # the host-reading ops a settling forward met, while one runs
+        self.host_ops = None
 
 
 _TRACE = _TraceState()
+
+
+def note_host_op(name: str) -> None:
+    """Called by an imperative op that reads the host: a CachedOp
+    settling its block then runs it as a graph (the module docstring)."""
+    if _TRACE.host_ops is not None:
+        _TRACE.host_ops.add(name)
 
 
 def is_tracing() -> bool:
@@ -261,6 +282,10 @@ class CachedOp:
         self._programs: Dict[Tuple, _Program] = {}
         self._train_programs: Dict[Tuple, List[_TrainProgram]] = {}
         self._addrs: Optional[Tuple[int, ...]] = None
+        #: the host-reading ops of the block's imperative forward
+        self.host_ops = frozenset()
+        # input signature -> (GraphProgram, its static feed, output count)
+        self._graph_programs: Dict[Tuple, Tuple[Any, Dict, int]] = {}
 
     @property
     def num_programs(self) -> int:
@@ -274,8 +299,13 @@ class CachedOp:
         """One eager predict-mode forward to finish deferred
         initialization (reference `_deferred_infer_shape`); the user's
         forward hooks do not see it."""
-        with autograd.pause(train_mode=False), tracing_scope():
-            self.block.forward(*args)
+        _TRACE.host_ops = set()
+        try:
+            with autograd.pause(train_mode=False), tracing_scope():
+                self.block.forward(*args)
+        finally:
+            self.host_ops = frozenset(_TRACE.host_ops)
+            _TRACE.host_ops = None
         self._params = [p for _, p in
                         sorted(self.block.collect_params().items())]
 
@@ -292,6 +322,7 @@ class CachedOp:
             self._addrs = addrs
             self._programs.clear()
             self._train_programs.clear()
+            self._graph_programs.clear()
 
     def __call__(self, *args):
         if self._params is None:
@@ -301,10 +332,13 @@ class CachedOp:
         device = nds[0].data.device if nds else None
         if not _captures(device):
             return self._forward(args)
-        if autograd.is_recording() and autograd.is_training():
-            return self._train_call(args, leaves, rebuild, device)
         if autograd.is_recording() or autograd.is_training():
-            return self._forward(args)
+            if self.host_ops or not (autograd.is_recording()
+                                     and autograd.is_training()):
+                return self._forward(args)
+            return self._train_call(args, leaves, rebuild, device)
+        if self.host_ops and all(isinstance(x, NDArray) for x in args):
+            return self._graph_call(args, device)
         self._drop_stale([d.data for p in self._params
                           for d in p.list_data()])
         key = (tuple(_leaf_key(x) for x in leaves),
@@ -319,6 +353,39 @@ class CachedOp:
                     s.copy_(x.data)
         outs = prog.graph.replay()
         return prog.rebuild_out([NDArray(o.clone()) for o in outs])
+
+    def _graph_call(self, args, device):
+        """A predict-mode call of a host-reading block: its traced graph
+        run by a `GraphProgram` per input signature (captured whole, or
+        as islands around the uncapturable nodes), fed from static
+        inputs."""
+        from .graph_compile import GraphProgram
+        from .symbol.tracer import trace_block
+        self._drop_stale([d.data for p in self._params
+                          for d in p.list_data()])
+        params = {p.name: p.data(args[0].context).data
+                  for p in self._params}
+        key = tuple(_leaf_key(x) for x in args)
+        entry = self._graph_programs.get(key)
+        if entry is None:
+            names = [f"data{i}" for i in range(len(args))]
+            with tracing_scope():
+                sym, _ = trace_block(self.block, names)
+            feed = {n: a.data.detach().clone() for n, a in zip(names, args)}
+            feed.update(params)
+            prog = GraphProgram(sym, False,
+                                {n: t.shape for n, t in feed.items()},
+                                device, {n: t.dtype for n, t in
+                                         feed.items()})
+            entry = self._graph_programs[key] = (prog, feed,
+                                                 len(sym.list_outputs()))
+        prog, feed, n_out = entry
+        with torch.no_grad():
+            for i, a in enumerate(args):
+                feed[f"data{i}"].copy_(a.data)
+            outs, _ = prog.forward(feed)
+        res = [NDArray(o) for o in outs]
+        return res[0] if n_out == 1 else res
 
     def _train_call(self, args, leaves, rebuild, device):
         param_nds = [d for p in self._params for d in p.list_data()]

@@ -50,6 +50,13 @@ _reg("MXTPU_GRAPH_COMPILE", str, "1",
      "CUDA-graph capture of inference programs and training steps; "
      "'0'/'false'/'off' runs their steps eagerly "
      "(graph_compile.graph_compile_enabled)")
+_reg("MXTPU_GRAPH_COMPILE_DENY", str, "",
+     "comma-separated op names added to the non-lowerable deny set — "
+     "the escape hatch for an op that mis-lowers in one trace "
+     "(graph_compile.deny_ops)")
+_reg("MXNET_SUBGRAPH_BACKEND", str, "",
+     "applies the named subgraph-partition pass at bind (subgraph.py); "
+     "low-level op fusion itself remains XLA's job")
 _reg("MXTPU_FUSED_STEP", str, "1",
      "one-step training plane; '0'/'false'/'off' makes Module.fit run "
      "forward_backward + the per-parameter update "

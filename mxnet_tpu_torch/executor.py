@@ -14,6 +14,13 @@ builds the one-step training program of `fused_step`.
 `set_monitor_callback` installs a callback that every forward calls
 with each output's name and value (`monitor.Monitor`).  Bound arrays are
 dense: a sparse array fed or bound is densified through its ``data``.
+
+A graph that holds a denied op (`graph_compile.deny_ops`, ``Custom`` by
+default) trains on the classic path: ``compiled_forward`` in train mode
+runs the composed graph recorded on the tape, as the JAX package's
+executor does for a program with fallback islands.  `reshape` gives an
+executor at new input shapes over the same parameters, with the
+reference's rules (`reshape`'s docstring).
 """
 from __future__ import annotations
 
@@ -84,11 +91,16 @@ class Executor:
             for n, g in _by_name(args_grad, self.arg_names, "args_grad",
                                  allow_missing=True).items()}
         self.outputs: List[NDArray] = []
-        self._programs: Dict[bool, GraphProgram] = {}
+        # mode -> {signature: program}, shared with reshaped executors
+        # (`GraphCompiler`); this executor's own by mode
+        self._programs: Dict[bool, Dict[tuple, GraphProgram]] = {}
+        self._own_programs: Dict[bool, GraphProgram] = {}
         self._graph_plan = None
         self._tape: Optional[Tape] = None
         self._tape_program: Optional[GraphProgram] = None
         self._monitor = None
+        # name -> the storage a shrunk argument views (`reshape`)
+        self._roots: Dict[str, torch.Tensor] = {}
 
     @property
     def _grad_arg_names(self) -> List[str]:
@@ -178,8 +190,12 @@ class Executor:
         return GraphCompiler.program_for(self, train)
 
     def compiled_forward(self, is_train=False, **kwargs) -> List[NDArray]:
-        """Forward through the optimized `GraphProgram` of the mode."""
+        """Forward through the optimized `GraphProgram` of the mode; a
+        training forward over a graph with fallback islands runs the
+        composed graph instead (`forward`)."""
         program = self.graph_program(is_train)
+        if is_train and program.has_islands:
+            return self.forward(is_train=True, **kwargs)
         self._ingest_inputs(kwargs)
         return self._run(program, bool(is_train))
 
@@ -211,6 +227,65 @@ class Executor:
         """Backward of the last `compiled_forward` (the same tape walk as
         `backward`; the training program built no other)."""
         return self.backward(out_grads)
+
+    def reshape(self, partial_shaping=False, allow_up_sizing=False,
+                **kwargs) -> "Executor":
+        """A new executor over the same parameters at new input shapes
+        (reference `GraphExecutor::Reshape`): an array whose shape stays
+        is shared; a shrunk one is a write-through view of the first
+        elements of its *root* storage (the buffer of the executor it was
+        first bound in), so shrinking and growing back reuses the
+        original storage; a larger one needs ``allow_up_sizing`` and is
+        new zeros; an argument not named in ``kwargs`` may change shape
+        only with ``partial_shaping``.  Gradients are reallocated, the
+        monitor carries over and the program cache is shared."""
+        arg_shapes, _, aux_shapes = self._symbol.infer_shape(**kwargs)
+        roots: Dict[str, torch.Tensor] = {}
+
+        def remap(name, cur, shape):
+            if tuple(cur.shape) == tuple(shape):
+                if name in self._roots:
+                    roots[name] = self._roots[name]
+                return cur
+            if not (partial_shaping or name in kwargs):
+                raise MXNetError(
+                    f"Shape of unspecified array arg:{name} changed. This "
+                    "can cause the new executor to not share parameters "
+                    "with the old one. Please check for error in network. "
+                    "If this is intended, set partial_shaping=True to "
+                    "suppress this warning.")
+            root = self._roots.get(name, cur.data)
+            n = int(np.prod(shape))
+            if n <= root.numel():
+                roots[name] = root
+                return NDArray(root.view(-1)[:n].view(tuple(shape)))
+            if not allow_up_sizing:
+                raise MXNetError(
+                    f"New shape of arg:{name} larger than original. First "
+                    "making a big executor then down sizing it is more "
+                    "efficient than the reverse. If you really want to "
+                    "up size, set allow_up_sizing=True to enable "
+                    "allocation of new arrays.")
+            return NDArray(torch.zeros(tuple(shape), dtype=cur.dtype,
+                                       device=cur.data.device))
+
+        args = {n: remap(n, self.arg_dict[n], s)
+                for n, s in zip(self.arg_names, arg_shapes)}
+        aux = {n: remap(n, self.aux_dict[n], s)
+               for n, s in zip(self.aux_names, aux_shapes)
+               if n in self.aux_dict}
+        grads = {n: torch.zeros(args[n].shape, dtype=args[n].dtype,
+                                device=args[n].data.device)
+                 for n in self.grad_dict}
+        new = Executor(self._symbol, self._ctx, args=args, args_grad=grads,
+                       grad_req=dict(self._grad_req), aux_states=aux)
+        # the same arrays, not new handles over their tensors
+        new.arg_dict.update(args)
+        new.aux_dict.update(aux)
+        new._roots = roots
+        new._monitor = self._monitor
+        new._programs = self._programs
+        return new
 
     def make_fused_step(self, optimizer, updater, train_names):
         """The whole training step of this executor (forward, backward,

@@ -231,6 +231,28 @@ class Block:
         for child in self._children.values():
             child.hybridize(active, **kwargs)
 
+    def summary(self, *inputs):
+        """Each block's name, output shape and parameter count for one
+        forward of ``inputs``, as text (reference `block.py:summary`)."""
+        lines = [f"{'Layer':<40}{'Output shape':<24}{'#Params':<12}"]
+        handles = []
+
+        def hook(b, inp, out):
+            o = out[0] if isinstance(out, (list, tuple)) else out
+            nparam = sum(p.data().size for p in b._reg_params.values()
+                         if p._data is not None)
+            lines.append(f"{b.name:<40}{str(getattr(o, 'shape', '?')):<24}"
+                         f"{nparam:<12}")
+
+        self.apply(lambda blk:
+                   handles.append(blk.register_forward_hook(hook)))
+        try:
+            self(*inputs)
+        finally:
+            for h in handles:
+                h.detach()
+        return "\n".join(lines)
+
     def __repr__(self):
         lines = [type(self).__name__ + "("]
         for name, child in self._children.items():
@@ -323,6 +345,12 @@ class HybridBlock(Block):
         save_ndarrays(f"{path}-{epoch:04d}.params",
                       {(f"aux:{k}" if k in aux else f"arg:{k}"): v
                        for k, v in arg_dict.items()})
+
+    def optimize_for(self, x, backend=None, **kwargs):
+        """Hybridize and run ``x`` (the JAX package's `optimize_for`: the
+        captured program is the backend)."""
+        self.hybridize(True)
+        return self(x)
 
 
 class SymbolBlock(HybridBlock):

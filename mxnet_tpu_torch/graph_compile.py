@@ -27,10 +27,34 @@ folded in.  The whole training step's capture is `unified_step`'s.
 A kernel launch inside a capture runs no kernel: `CapturedGraph` keeps
 the launches each capture records out of `hopper_kernels.LAUNCHES` and
 adds them there at every replay.
+
+Fallback islands.  `deny_ops` (``DEFAULT_DENY_OPS`` = ``{"Custom"}`` plus
+``MXTPU_GRAPH_COMPILE_DENY``) are the ops that stay out of one program, as
+in the JAX package: a program over a graph that holds one is partitioned
+by `GraphCompileProperty` (`subgraph.partition`) and counts its
+``islands`` and ``fallback_nodes``.  The port cannot capture a host read
+either, so its own set, `uncapturable_ops`, adds ``_cond`` (whose
+predicate is read on the host; XLA traces `lax.cond` into one program, a
+CUDA graph cannot hold it).  On the card an inference forward over a graph
+holding one of those runs the island plan: each `_subgraph_op` island is
+captured as a CUDA graph of its own (keyed by the bound tensors it reads;
+what an eager node made is copied into the island's static inputs) and the
+uncapturable nodes run eagerly between them.  A training program with
+islands takes no tape: its graph trains on the executor's classic path
+(`forward_train` and `backward` raise), and `Module` never builds the
+one-graph training step over a graph that holds an uncapturable op
+(`one_graph`).  `lower_step_fn` refuses denied ops, with the JAX
+package's message.  An op inside a control-flow body (`_foreach`,
+`_while_loop`, `_cond`, `_subgraph_op`) counts as the node's own for
+these decisions (`graph_ops`): a ``_foreach`` whose body holds a
+``_cond`` runs eagerly between islands, its body included.  The island
+counts follow the JAX package, which looks at the top level only.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
+
+import functools
 
 import torch
 
@@ -39,13 +63,18 @@ from .attribute import strip_annotations
 from .base import MXNetError
 from .ops import registry as _reg
 from .ops.hopper_kernels import LAUNCHES
-from .ops.registry import DEVICE, Attrs
+from .ops.registry import DEVICE, PROGRAM_STATE, Attrs
+from .subgraph import (SubgraphProperty, SubgraphSelector,
+                       register_subgraph_property)
 from .symbol.symbol import _entry_key, _topo, _value_key
 
 __all__ = ["GraphProgram", "GraphCompiler", "Tape", "CapturedGraph",
            "graph_compile_enabled", "build_steps", "run_plan", "run_steps",
            "record_steps", "tape_grads", "backward_tape", "warm_up",
-           "feed_key"]
+           "feed_key", "deny_ops", "DEFAULT_DENY_OPS", "uncapturable_ops",
+           "one_graph", "graph_ops", "lower_step_fn",
+           "GraphCompileProperty",
+           "program_for"]
 
 
 def graph_compile_enabled() -> bool:
@@ -55,12 +84,105 @@ def graph_compile_enabled() -> bool:
         not in ("0", "false", "off")
 
 
+#: ops the whole-graph program refuses by default, the JAX package's set:
+#: `Custom` runs user Python on the host (`ops/custom_op.py`), so it runs
+#: between captured islands instead
+DEFAULT_DENY_OPS = frozenset({"Custom"})
+
+
+def deny_ops() -> frozenset:
+    """The active non-lowerable op set: :data:`DEFAULT_DENY_OPS` plus
+    ``MXTPU_GRAPH_COMPILE_DENY`` (comma-separated op names -- the test
+    hook and escape hatch for an op that mis-lowers in one trace)."""
+    extra = config.get_env("MXTPU_GRAPH_COMPILE_DENY", "")
+    return DEFAULT_DENY_OPS | {t.strip() for t in extra.split(",")
+                               if t.strip()}
+
+
+def uncapturable_ops() -> frozenset:
+    """The ops a CUDA graph cannot hold: `deny_ops` and ``_cond``, whose
+    predicate is read on the host."""
+    return deny_ops() | {"_cond"}
+
+
+#: the attrs that carry a control-flow node's body graphs as JSON
+_BODY_ATTRS = ("__subgraph__", "__body__", "__cond__", "__then__",
+               "__else__")
+
+
+@functools.lru_cache(maxsize=None)
+def _json_ops(graph_json: str) -> frozenset:
+    from .symbol.symbol import load_json
+    return graph_ops(load_json(graph_json))
+
+
+def node_ops(node) -> frozenset:
+    """A compute node's op and every op inside its bodies, at any
+    depth."""
+    ops = {node.op}
+    for key in _BODY_ATTRS:
+        text = node.attrs.get(key)
+        if isinstance(text, str):
+            ops |= _json_ops(text)
+    return frozenset(ops)
+
+
+def graph_ops(symbol) -> frozenset:
+    """Every op ``symbol`` runs, those inside control-flow bodies too."""
+    ops = set()
+    for n in _topo(symbol._heads):
+        if not n.is_var:
+            ops |= node_ops(n)
+    return frozenset(ops)
+
+
+def one_graph(symbol) -> bool:
+    """Whether every op of ``symbol``, inside bodies too, can sit in one
+    CUDA graph."""
+    return not graph_ops(symbol) & uncapturable_ops()
+
+
+class _LowerableSelector(SubgraphSelector):
+    """Select every compute node outside the denied set; with ``nested``,
+    a node whose body holds a denied op is denied too."""
+
+    def __init__(self, deny, nested=False):
+        self._deny = frozenset(deny)
+        self._nested = nested
+
+    def select(self, node) -> bool:
+        if node.is_var:
+            return False
+        ops = node_ops(node) if self._nested else {node.op}
+        return not ops & self._deny
+
+
+@register_subgraph_property("graph_compile")
+class GraphCompileProperty(SubgraphProperty):
+    """Partition property behind the fallback-island carve-out: maximal
+    convex lowerable regions fuse into `_subgraph_op` islands (one
+    captured graph each); whatever remains -- denied ops, plus lowerable
+    nodes the convexity shrink evicted -- runs op by op between them.  A
+    single-node island is still one captured unit, hence min_nodes=1."""
+
+    def __init__(self, deny=None, nested=False):
+        self._deny = frozenset(deny) if deny is not None else deny_ops()
+        self._nested = nested
+
+    def create_subgraph_selector(self):
+        return _LowerableSelector(self._deny, self._nested)
+
+    def min_nodes(self) -> int:
+        return 1
+
+
 def build_steps(symbol):
     """Plan ``symbol`` for execution: ``(var_names, steps, head_keys)``
     where each step is ``(op, attrs, input keys, output keys, mutated
     variable names)``; an op's mutated inputs (MXNet's FMutateInputs,
     BatchNorm's moving statistics) take the values that follow its
-    visible outputs."""
+    visible outputs.  A ``program_state`` op's step gets a state dict of
+    its own (`registry.PROGRAM_STATE`)."""
     nodes = _topo(symbol._heads)
     steps = []
     for node in nodes:
@@ -68,6 +190,8 @@ def build_steps(symbol):
             continue
         attrs = Attrs(strip_annotations(node.attrs))
         op = _reg.get_op(node.op)
+        if op.program_state:
+            attrs[PROGRAM_STATE] = {}
         mutated = [node.inputs[s][0].name if node.inputs[s][0].is_var
                    else None for s in op.mutate_slots(attrs)]
         steps.append((op, attrs, [_value_key(e) for e in node.inputs],
@@ -78,12 +202,14 @@ def build_steps(symbol):
 
 
 def run_plan(plan, feed: Mapping[str, torch.Tensor], train: bool = False,
-             generator: Optional[torch.Generator] = None
+             generator: Optional[torch.Generator] = None,
+             device: Optional[torch.device] = None
              ) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
     """A `build_steps` plan run on ``feed`` under the caller's grad mode
     (with grad on, autograd records the steps on the feed's own tensors,
     as a `gluon.SymbolBlock` under `autograd.record` needs): the outputs
-    and the mutated variables' new values."""
+    and the mutated variables' new values.  Zero-input ops build on
+    ``device``, by default the feed's."""
     var_names, steps, head_keys = plan
     vals: Dict[str, torch.Tensor] = {}
     for name in var_names:
@@ -91,23 +217,29 @@ def run_plan(plan, feed: Mapping[str, torch.Tensor], train: bool = False,
             vals[name] = feed[name]
         except KeyError:
             raise MXNetError(f"executor: missing input {name!r}") from None
-    device = next(iter(feed.values())).device if feed else None
+    if device is None and feed:
+        device = next(iter(feed.values())).device
     aux: Dict[str, torch.Tensor] = {}
     for op, attrs, in_keys, out_keys, mutated in steps:
-        if op.uses_train_mode:
-            attrs = Attrs(attrs, __train=train)
-        if op.takes_device:
-            attrs = Attrs(attrs, **{DEVICE: device})
-        ins = [vals[k] for k in in_keys]
-        out = op.fn(attrs, generator, *ins) if op.needs_rng else \
-            op.fn(attrs, *ins)
-        outs = out if isinstance(out, tuple) else (out,)
+        outs = _call(op, attrs, [vals[k] for k in in_keys], train,
+                     generator, device)
         for k, o in zip(out_keys, outs):
             vals[k] = o
         for name, o in zip(mutated, outs[len(out_keys):]):
             if name is not None:
                 aux[name] = vals[name] = o
     return [vals[k] for k in head_keys], aux
+
+
+def _call(op, attrs, ins, train, generator, device) -> Tuple:
+    """One plan step's op on ``ins``: its outputs as a tuple."""
+    if op.uses_train_mode:
+        attrs = Attrs(attrs, __train=train)
+    if op.takes_device:
+        attrs = Attrs(attrs, **{DEVICE: device})
+    out = op.fn(attrs, generator, *ins) if op.needs_rng else \
+        op.fn(attrs, *ins)
+    return out if isinstance(out, tuple) else (out,)
 
 
 def run_steps(plan, feed: Mapping[str, torch.Tensor], train: bool = False,
@@ -263,6 +395,42 @@ class CapturedGraph:
         return self.outputs
 
 
+class _Island:
+    """One `_subgraph_op` step of the island plan, captured once per set
+    of the bound tensors it reads.  An input an eager node made is copied
+    into the island's static input first."""
+
+    def __init__(self, op, attrs, in_keys, bound):
+        self.op = op
+        self.attrs = attrs
+        self.direct = [k in bound for k in in_keys]
+        self._graphs: Dict[Tuple, Tuple[List, CapturedGraph]] = {}
+
+    def __call__(self, ins, device):
+        key = tuple((t.data_ptr(),) + _sig(t) if d else _sig(t)
+                    for t, d in zip(ins, self.direct))
+        entry = self._graphs.get(key)
+        if entry is None:
+            static = [t if d else t.clone() for t, d in zip(ins, self.direct)]
+
+            def run():
+                with torch.inference_mode():
+                    return list(_call(self.op, self.attrs, static, False,
+                                      None, device))
+            outs = warm_up(run, device)
+            self._graphs[key] = (static, CapturedGraph(run, device))
+            return outs
+        static, graph = entry
+        for s_, t, d in zip(static, ins, self.direct):
+            if not d:
+                s_.copy_(t)
+        return graph.replay()
+
+
+def _sig(t: torch.Tensor) -> Tuple:
+    return (tuple(t.shape), t.stride(), t.dtype)
+
+
 class GraphProgram:
     """The program for one bound graph in one mode."""
 
@@ -270,6 +438,7 @@ class GraphProgram:
                  input_shapes: Optional[Dict[str, Tuple]] = None,
                  device: Optional[torch.device] = None,
                  input_dtypes: Optional[Dict[str, torch.dtype]] = None):
+        from .subgraph import partition
         self.train = bool(train)
         self.device = device if device is not None else torch.device("cpu")
         opt = graph_opt.optimize(symbol, shapes=input_shapes, device=device,
@@ -282,6 +451,42 @@ class GraphProgram:
                            for n, v in opt.const_feed.items()}
         self._plan = build_steps(self._run_symbol)
         self._graphs: Dict[Tuple, CapturedGraph] = {}
+        run_nodes = [n for n in _topo(self._run_symbol._heads)
+                     if not n.is_var]
+        # the JAX package's counts, over its deny set
+        deny = deny_ops()
+        self._psym = None
+        self.islands = self.fallback_nodes = 0
+        if any(n.op in deny for n in run_nodes):
+            self._psym = partition(self._run_symbol,
+                                   GraphCompileProperty(deny))
+            for n in _topo(self._psym._heads):
+                if n.is_var:
+                    continue
+                if n.op == SubgraphProperty.subgraph_op:
+                    self.islands += 1
+                else:
+                    self.fallback_nodes += 1
+        # the capture's own plan, over what a CUDA graph cannot hold,
+        # inside bodies too
+        bad = uncapturable_ops()
+        self._island_plan = None
+        self._islands_of: Dict[int, _Island] = {}
+        if any(node_ops(n) & bad for n in run_nodes):
+            self._island_plan = build_steps(partition(
+                self._run_symbol, GraphCompileProperty(bad, nested=True)))
+
+    @property
+    def has_islands(self) -> bool:
+        """True when the graph holds a denied op: it runs islands and
+        fallback nodes, and trains on the executor's classic path."""
+        return self._psym is not None
+
+    @property
+    def one_graph(self) -> bool:
+        """Whether an inference forward is one CUDA graph (no island
+        plan)."""
+        return self._island_plan is None
 
     @property
     def captured(self) -> bool:
@@ -298,6 +503,8 @@ class GraphProgram:
         feed = {**feed, **self.const_feed}
         if not self.captured:
             return run_steps(self._plan, feed, self.train, generator)
+        if not self.one_graph:
+            return self._forward_islands(feed), {}
         key = feed_key(feed)
         graph = self._graphs.get(key)
         if graph is None:
@@ -308,32 +515,104 @@ class GraphProgram:
             return outs, {}
         return [o.clone() for o in graph.replay()], {}
 
+    def _forward_islands(self, feed) -> List[torch.Tensor]:
+        """The island plan: each island a captured graph of its own (run
+        eagerly where nothing is captured), the uncapturable nodes
+        eagerly between them."""
+        var_names, steps, head_keys = self._island_plan
+        vals = {n: feed[n] for n in var_names}
+        gen = None
+        for i, (op, attrs, in_keys, out_keys, _mut) in enumerate(steps):
+            ins = [vals[k] for k in in_keys]
+            if op.name == SubgraphProperty.subgraph_op and self.captured:
+                island = self._islands_of.get(i)
+                if island is None:
+                    island = self._islands_of[i] = _Island(
+                        op, attrs, in_keys, set(var_names))
+                outs = island(ins, self.device)
+            else:
+                if op.needs_rng and gen is None:
+                    from . import random as _random
+                    gen = _random.generator(self.device)
+                with torch.inference_mode():
+                    outs = _call(op, attrs, ins, False, gen, self.device)
+            vals.update(zip(out_keys, outs))
+        return [vals[k].clone() for k in head_keys]
+
     def forward_train(self, feed: Mapping[str, torch.Tensor],
                       grad_names: Sequence[str],
                       generator: torch.Generator):
-        """A train-mode forward recorded for `backward_tape`: outputs,
-        mutated variables and the tape."""
+        """A train-mode forward recorded for `backward`: outputs, mutated
+        variables and the tape."""
         if not self.train:
             raise MXNetError("GraphProgram: an inference program records "
                              "no tape")
+        if self.has_islands:
+            raise MXNetError(
+                "GraphProgram.forward_train: graph has fallback islands; "
+                "use Executor.forward")
         return record_steps(self._plan, {**feed, **self.const_feed},
                             grad_names, generator)
 
+    def backward(self, tape: Tape, head_grads: Sequence[torch.Tensor],
+                 grad_req: Mapping[str, str],
+                 grad_dict: Mapping[str, torch.Tensor]) -> None:
+        """`backward_tape` of a `forward_train` tape."""
+        if self.has_islands:
+            raise MXNetError(
+                "GraphProgram.backward: graph has fallback islands; "
+                "use Executor.backward")
+        backward_tape(tape, head_grads, grad_req, grad_dict)
+
+    def __repr__(self):
+        return (f"<GraphProgram train={self.train} islands={self.islands} "
+                f"fallback_nodes={self.fallback_nodes}>")
+
 
 class GraphCompiler:
-    """Builds and caches an executor's `GraphProgram`s, one per mode."""
+    """Builds and caches an executor's `GraphProgram`s, one per mode and
+    bound signature (each bound array's name, shape and dtype).  The cache
+    ``executor._programs`` maps a mode to ``{signature: program}`` and is
+    shared by the executors `Executor.reshape` makes (and by a bucket's
+    modules), so a reshape back finds its program.  An executor's bound
+    shapes never change, so it computes its signature and looks up each
+    mode's program once."""
 
     @staticmethod
     def program_for(executor, train: bool) -> GraphProgram:
         train = bool(train)
-        prog = executor._programs.get(train)
+        prog = executor._own_programs.get(train)
+        if prog is not None:
+            return prog
+        bound = {**executor.arg_dict, **executor.aux_dict}
+        sig = tuple(sorted((n, tuple(a.shape), a.data.dtype)
+                           for n, a in bound.items()))
+        by_sig = executor._programs.setdefault(train, {})
+        prog = by_sig.get(sig)
         if prog is None:
-            bound = {**executor.arg_dict, **executor.aux_dict}
-            prog = GraphProgram(executor._symbol, train,
-                                input_shapes={n: a.shape
-                                              for n, a in bound.items()},
-                                device=executor._ctx.device,
-                                input_dtypes={n: a.data.dtype
-                                              for n, a in bound.items()})
-            executor._programs[train] = prog
+            prog = by_sig[sig] = GraphProgram(
+                executor._symbol, train,
+                input_shapes={n: a.shape for n, a in bound.items()},
+                device=executor._ctx.device,
+                input_dtypes={n: a.data.dtype for n, a in bound.items()})
+        executor._own_programs[train] = prog
         return prog
+
+
+program_for = GraphCompiler.program_for
+
+
+def lower_step_fn(symbol, train: bool = False):
+    """``symbol`` as one function ``fn(feed, generator) -> (outputs,
+    aux_updates)`` to embed inside a larger captured program (the
+    generation plane's decode step).  Any op of `deny_ops`, inside a
+    control-flow body too, is refused with the JAX package's message: an
+    island inside a decode loop would cross to the host at every step."""
+    bad = sorted(graph_ops(symbol) & deny_ops())
+    if bad:
+        raise MXNetError(
+            f"lower_step_fn: op(s) {bad} cannot lower into a donated "
+            "step program (host-callback islands are denied inside "
+            "scan bodies); run them op-by-op outside the decode loop")
+    from .executor import build_graph_fn
+    return build_graph_fn(symbol, train=train)

@@ -17,7 +17,14 @@ and read the JAX package's ``prefix-symbol.json`` + ``prefix-NNNN.params``
 store runs the optimizer, and each update pushes the gradients and pulls
 the weights back.  A store, a `monitor.Monitor` (`install_monitor`) or
 a sparse input batch takes the step off the fused path onto
-``forward_backward`` + ``update``, as in the JAX package.
+``forward_backward`` + ``update``, as in the JAX package.  So does a graph
+that holds an op no CUDA graph can hold (`graph_compile.one_graph`: a
+``Custom`` op, a ``_cond``), decided from the graph before any capture;
+a graph with fallback islands (a ``Custom`` op) also runs its forward on
+the executor's classic path, as the JAX package's module does.  A batch
+of other input shapes reshapes the executor (`reshape`); the module keeps
+each executor it reshaped to, by input shapes, with its fused step, so a
+ragged tail batch and the change back reuse their captures.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ from .. import optimizer as opt_mod
 from ..base import MXNetError
 from ..fused_step import fused_enabled
 from ..context import default_context
+from ..graph_compile import one_graph
 from ..executor import _tensor
 from ..io import DataDesc
 from ..ndarray.ndarray import NDArray
@@ -63,12 +71,16 @@ class Module(BaseModule):
         self._data_shapes = None
         self._label_shapes = None
         self._fused_train_step = None
+        # input shapes -> (the executor bound or reshaped to them, its
+        # fused step or None)
+        self._execs: Dict[tuple, list] = {}
         self._kvstore = None
         self._kv_inited = set()
         # `Module.load`'s checkpoint, taken by bind/init_params and
         # init_optimizer
         self._preloaded = None
         self._preload_states = None
+        self._one_graph_of = (None, False)
 
     # ------------------------------------------------------------------
     @property
@@ -121,6 +133,8 @@ class Module(BaseModule):
         self._exec = self.symbol.simple_bind(
             ctx=self._context, grad_req=grad_req if for_training else "null",
             type_dict=type_dict, **shapes)
+        self._execs = {}
+        self._fused_train_step = None
         keep = set(self._data_names) if inputs_need_grad else set()
         for name in list(self._exec._grad_req):
             if name in keep:
@@ -231,19 +245,38 @@ class Module(BaseModule):
 
     # ------------------------------------------------------------------
     def _batch_feeds(self, data_batch):
-        """The batch's arrays by input name, each of the bound shape."""
+        """The batch's arrays by input name; a batch of other shapes
+        first reshapes the executor (reference `module.py:_reshape_exec`:
+        up-sizing allowed, a parameter's shape change still raises)."""
         feeds = dict(zip((d.name for d in self._data_shapes),
                          data_batch.data))
         if self._label_shapes and data_batch.label is not None:
             feeds.update(zip((d.name for d in self._label_shapes),
                              data_batch.label))
-        for name, arr in feeds.items():
-            if tuple(arr.shape) != tuple(self._exec.arg_dict[name].shape):
-                raise MXNetError(
-                    f"input {name!r}: shape {tuple(arr.shape)} is not the "
-                    f"bound {tuple(self._exec.arg_dict[name].shape)}; "
-                    "reshape waits for a later slice")
+        if any(tuple(a.shape) != tuple(self._exec.arg_dict[n].shape)
+               for n, a in feeds.items()):
+            self._reshape_exec({n: tuple(a.shape) for n, a in feeds.items()})
         return feeds
+
+    def _reshape_exec(self, shapes):
+        """Switch to the executor at ``shapes``: one this module reshaped
+        to before, while it still holds the current executor's parameter
+        arrays, else a new `Executor.reshape`."""
+        cur = self._exec
+        self._execs[_shape_key(cur)] = [cur, self._fused_train_step]
+        entry = self._execs.get(_shape_key(cur, shapes))
+        if entry is None or not _same_params(entry[0], cur, shapes):
+            entry = [cur.reshape(allow_up_sizing=True, **shapes), None]
+        self._exec, self._fused_train_step = entry
+
+    def reshape(self, data_shapes, label_shapes=None):
+        """Bind to new input shapes over the same parameters (reference
+        `module.py:reshape` -> `Executor.reshape`)."""
+        if not self.binded:
+            raise MXNetError("call bind before reshape")
+        self._data_shapes, self._label_shapes, shapes = _parse_shapes(
+            data_shapes, label_shapes)
+        self._reshape_exec(shapes)
 
     def forward(self, data_batch, is_train=None):
         """Feed the batch and run the graph (training mode records the
@@ -252,8 +285,8 @@ class Module(BaseModule):
             raise MXNetError("call bind and init_params before forward")
         if is_train is None:
             is_train = self.for_training
-        self._exec.compiled_forward(is_train=is_train,
-                                    **self._batch_feeds(data_batch))
+        feeds = self._batch_feeds(data_batch)
+        self._exec.compiled_forward(is_train=is_train, **feeds)
 
     def backward(self, out_grads=None):
         if not (self.binded and self.params_initialized):
@@ -269,12 +302,14 @@ class Module(BaseModule):
         bound for training or not initialized, a gradient of an input
         (``inputs_need_grad``), a ``grad_req`` other than 'write', a
         batch without every input, or an optimizer without a
-        multi-tensor plan.  The caller then runs ``forward_backward()``
-        + ``update()``."""
+        multi-tensor plan; and, unlike the JAX package, a graph holding
+        an op no CUDA graph can hold (`graph_compile.one_graph`).  The
+        caller then runs ``forward_backward()`` + ``update()``."""
         self.last_step_metric_done = False
         if not (fused_enabled() and self.binded and self.params_initialized
                 and self.optimizer_initialized and self.for_training
-                and self._kvstore is None and self._exec._monitor is None):
+                and self._kvstore is None and self._exec._monitor is None
+                and self._one_graph()):
             return False
         if any(getattr(a, "stype", "default") != "default"
                for a in list(data_batch.data) + list(data_batch.label or [])):
@@ -305,6 +340,13 @@ class Module(BaseModule):
             return False
         self.last_step_metric_done = fst.metric_in_trace
         return True
+
+    def _one_graph(self) -> bool:
+        """`graph_compile.one_graph` of the module's symbol, computed
+        once."""
+        if self._one_graph_of[0] is not self.symbol:
+            self._one_graph_of = (self.symbol, one_graph(self.symbol))
+        return self._one_graph_of[1]
 
     def update(self):
         """Apply the optimizer to every parameter that has a gradient
@@ -444,6 +486,22 @@ class Module(BaseModule):
         upd.set_states(blob)
         if upd is self._updater:
             self._optimizer = upd.optimizer
+
+
+def _shape_key(executor, shapes=None):
+    """The input shapes an executor is bound at, as a key: each argument's
+    shape, ``shapes`` overriding."""
+    shapes = shapes or {}
+    return tuple((n, tuple(shapes.get(n, a.shape)))
+                 for n, a in executor.arg_dict.items())
+
+
+def _same_params(old, cur, shapes) -> bool:
+    """Whether ``old`` holds ``cur``'s arrays for every argument and aux
+    state that is not an input of ``shapes``."""
+    return all(old.arg_dict[n] is a for n, a in cur.arg_dict.items()
+               if n not in shapes) and \
+        all(old.aux_dict.get(n) is a for n, a in cur.aux_dict.items())
 
 
 def _parse_shapes(data_shapes, label_shapes):

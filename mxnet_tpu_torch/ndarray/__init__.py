@@ -13,6 +13,8 @@ from . import linalg, random  # noqa: E402
 
 make_nd_functions(globals())
 
+from . import contrib, image  # noqa: E402
+
 
 _internal = InternalNamespace(globals(), __name__)
 
@@ -184,7 +186,15 @@ def split_v2(ary, indices_or_sections, axis=0, squeeze_axis=False):
                   axis=axis, squeeze_axis=squeeze_axis)
 
 
+def Custom(*args, op_type=None, **kwargs):
+    """A Python custom op run eagerly, on the tape under `autograd.record`
+    (reference `mx.nd.Custom`; `operator.Custom`)."""
+    from ..operator import Custom as _custom
+    return _custom(*args, op_type=op_type, **kwargs)
+
+
 __all__ = ["NDArray", "CSRNDArray", "RowSparseNDArray", "array", "zeros",
            "ones", "full", "empty", "arange", "waitall", "invoke",
-           "concat_nd", "sparse", "random", "linalg", "save", "load",
+           "concat_nd", "sparse", "random", "linalg", "contrib", "image",
+           "save", "load",
            "load_frombuffer"]

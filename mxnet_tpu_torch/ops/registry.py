@@ -10,7 +10,10 @@ Flags, as in the reference: an op that ``needs_rng`` takes an explicit
 where the JAX op takes a key); one that ``uses_train_mode`` reads the
 ``__train`` attr the executor injects; ``mutate_inputs`` names the input
 slots whose new values follow the visible outputs (MXNet's
-FMutateInputs).
+FMutateInputs).  An op with ``program_state`` keeps state for the life of
+one plan (a `Custom` op's operator instance, a control-flow op's body
+plans): the plan builder gives each of its steps a dict of its own under
+the ``PROGRAM_STATE`` attr.
 """
 from __future__ import annotations
 
@@ -22,10 +25,14 @@ from ..base import MXNetError, _Null, str_to_attr, torch_dtype
 
 __all__ = ["Attrs", "OpDef", "register", "alias", "get_op", "list_ops",
            "apply_op", "eval_shape_op", "canonical_attrs",
-           "split_positional_attrs", "attach_prefixed", "DEVICE"]
+           "split_positional_attrs", "attach_prefixed", "DEVICE",
+           "PROGRAM_STATE"]
 
 #: the attr through which a zero-input op learns the device to build on
 DEVICE = "__device"
+#: the attr through which a ``program_state`` op reaches its plan step's
+#: own dict
+PROGRAM_STATE = "__program_state"
 
 
 class Attrs(dict):
@@ -82,18 +89,23 @@ class OpDef:
                  needs_rng: bool = False, uses_train_mode: bool = False,
                  mutate_inputs: Sequence[int] = (),
                  input_names: Optional[Sequence[str]] = None,
-                 attr_names: Optional[Sequence[str]] = None):
+                 attr_names: Optional[Sequence[str]] = None,
+                 program_state: bool = False):
         self.name = name
         self.fn = fn
         self.num_inputs = num_inputs          # None => variadic
         self._num_outputs = num_outputs
         self.needs_rng = needs_rng            # fn(attrs, generator, *arrays)
         self.uses_train_mode = uses_train_mode  # executor injects __train
-        self.mutate_inputs = tuple(mutate_inputs)
+        # a tuple of slots, or a function of the attrs (`_subgraph_op`
+        # mutates the outer inputs its inner graph mutates)
+        self.mutate_inputs = mutate_inputs if callable(mutate_inputs) \
+            else tuple(mutate_inputs)
         self.input_names = list(input_names) if input_names else None
         # attrs that may follow the tensors positionally, in this order
         # (``clip(data, a_min, a_max)``)
         self.attr_names = list(attr_names) if attr_names else None
+        self.program_state = program_state
         self.doc = fn.__doc__ or ""
         self.aliases: List[str] = []
 
@@ -110,6 +122,8 @@ class OpDef:
 
     def mutate_slots(self, attrs: Attrs) -> Tuple[int, ...]:
         """The input slots this op writes back (FMutateInputs)."""
+        if callable(self.mutate_inputs):
+            return tuple(self.mutate_inputs(attrs))
         return self.mutate_inputs
 
     def __repr__(self):

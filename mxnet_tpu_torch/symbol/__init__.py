@@ -105,8 +105,9 @@ for _n in SYM_FLUENT_METHODS:
 
 
 from . import sparse  # noqa: E402
+from . import contrib, image  # noqa: E402
 
 __all__ = ["Symbol", "var", "Variable", "Group", "sparse", "load",
            "load_json", "invoke_sym", "concat_nd", "zeros", "ones", "full",
-           "arange", "eye", "random", "linalg", "name_prefix_scope",
+           "arange", "eye", "random", "linalg", "contrib", "image", "name_prefix_scope",
            "hypot", "split_v2"]

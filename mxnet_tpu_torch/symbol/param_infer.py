@@ -3,10 +3,14 @@ Convolution, Deconvolution, LayerNorm, InstanceNorm, BatchNorm, PReLU,
 Embedding, RNN and SoftmaxOutput rules of
 `mxnet_tpu/symbol/param_infer.py`): the shapes of a node's parameter and
 label variables from its data shape, so a graph binds from data shapes
-alone."""
+alone.  Through `_subgraph_op`, `_foreach` and `_while_loop` the inner or
+body graph's own partial inference runs on the known shapes and its
+resolved free variables map back to the outer ones (the JAX package's
+`_subgraph_rule`, `_foreach_rule` and `_while_rule`)."""
 from __future__ import annotations
 
-from typing import Dict
+import json
+from typing import Dict, Optional
 
 from ..attribute import strip_annotations
 from ..ops.registry import Attrs
@@ -107,9 +111,132 @@ _RULES = {
 }
 
 
+def _in_shape(node, slot, shapes) -> Optional[tuple]:
+    if slot >= len(node.inputs):
+        return None
+    inp, idx = node.inputs[slot]
+    return shapes.get(inp.name if inp.is_var else f"{inp.name}#{idx}")
+
+
+def _var_name(node, slot) -> Optional[str]:
+    if slot >= len(node.inputs):
+        return None
+    inp, _ = node.inputs[slot]
+    return inp.name if inp.is_var else None
+
+
+def _resolved(inner, known) -> Optional[Dict[str, tuple]]:
+    """The inner graph's argument and aux shapes given ``known``, or None
+    when its partial inference fails."""
+    try:
+        arg_shapes, _, aux_shapes = inner.infer_shape_partial(**known)
+    except Exception:
+        return None
+    out = dict(zip(inner.list_arguments(), arg_shapes or []))
+    out.update(zip(inner.list_auxiliary_states(), aux_shapes or []))
+    return out
+
+
+def _subgraph_rule(node, shapes) -> Dict[str, tuple]:
+    """Back-fill through a fused subgraph node: its inner graph's partial
+    inference on the known external shapes, mapped back to the outer
+    variables its inputs alias."""
+    from .symbol import load_json
+    a = Attrs(strip_annotations(node.attrs))
+    inner = load_json(a.get_str("__subgraph__"))
+    input_names = json.loads(a.get_str("__inputs__"))
+    known = {}
+    for i, vname in enumerate(input_names):
+        s = _in_shape(node, i, shapes)
+        if s is not None:
+            known[vname] = s
+    resolved = _resolved(inner, known) if known else None
+    if not resolved:
+        return {}
+    out = {}
+    for i, vname in enumerate(input_names):
+        shape = resolved.get(vname)
+        name = _var_name(node, i)
+        if name is not None and shape is not None \
+                and shapes.get(name) is None:
+            out[name] = tuple(int(d) for d in shape)
+    return out
+
+
+def _body_backfill(node, shapes, graph_key, ph_shapes, free_names,
+                   free_offset) -> Dict[str, tuple]:
+    """A control-flow body's partial inference with the placeholder
+    shapes, its resolved free variables (the weights it closes over)
+    mapped back to the outer variables."""
+    from .symbol import load_json
+    a = Attrs(strip_annotations(node.attrs))
+    known = {k: v for k, v in ph_shapes.items() if v is not None}
+    resolved = _resolved(load_json(a.get_str(graph_key)), known) \
+        if known else None
+    if not resolved:
+        return {}
+    out = {}
+    for j, fname in enumerate(free_names):
+        shape = resolved.get(fname)
+        name = _var_name(node, free_offset + j)
+        if name is not None and shape is not None \
+                and shapes.get(name) is None:
+            out[name] = tuple(int(d) for d in shape)
+    return out
+
+
+def _foreach_rule(node, shapes) -> Dict[str, tuple]:
+    """A foreach body's free variables: per-step data shapes drop the
+    scan axis; states keep theirs (reference control_flow.cc
+    ForeachShape)."""
+    a = Attrs(strip_annotations(node.attrs))
+    data_names = json.loads(a.get_str("__data_names__"))
+    state_names = json.loads(a.get_str("__state_names__"))
+    free_names = json.loads(a.get_str("__free_names__"))
+    ph = {}
+    for i, n in enumerate(data_names):
+        s = _in_shape(node, i, shapes)
+        if s is not None and len(s) >= 1:
+            ph[n] = tuple(s[1:])
+    for i, n in enumerate(state_names):
+        s = _in_shape(node, len(data_names) + i, shapes)
+        if s is not None:
+            ph[n] = tuple(s)
+    return _body_backfill(node, shapes, "__subgraph__", ph, free_names,
+                          len(data_names) + len(state_names))
+
+
+def _while_rule(node, shapes) -> Dict[str, tuple]:
+    """A while loop's condition and body free variables, from the loop
+    variables' shapes."""
+    a = Attrs(strip_annotations(node.attrs))
+    var_names = json.loads(a.get_str("__var_names__"))
+    cond_free = json.loads(a.get_str("__cond_free__"))
+    body_free = json.loads(a.get_str("__body_free__"))
+    ph = {}
+    for i, n in enumerate(var_names):
+        s = _in_shape(node, i, shapes)
+        if s is not None:
+            ph[n] = tuple(s)
+    out = _body_backfill(node, shapes, "__cond__", ph, cond_free,
+                         len(var_names))
+    out.update(_body_backfill(node, shapes, "__body__", ph, body_free,
+                              len(var_names) + len(cond_free)))
+    return out
+
+
+_GRAPH_RULES = {
+    "_subgraph_op": _subgraph_rule,
+    "_foreach": _foreach_rule,
+    "_while_loop": _while_rule,
+}
+
+
 def infer_param_shapes(node, shapes) -> Dict[str, tuple]:
     """Shapes of ``node``'s variable inputs deducible from its data input
     (slot 0), given ``shapes`` {value key -> shape or None}."""
+    if node.op in _GRAPH_RULES:
+        return _GRAPH_RULES[node.op](node, shapes)
     rule = _RULES.get(node.op)
     if rule is None or not node.inputs:
         return {}

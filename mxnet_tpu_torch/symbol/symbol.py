@@ -387,10 +387,10 @@ class Symbol:
             "use executor.backward or autograd")
 
     def get_backend_symbol(self, backend):
-        """Partition the graph for a subgraph backend: the port has no
-        subgraph properties yet, so every backend is refused."""
-        raise MXNetError(f"get_backend_symbol: no subgraph backend "
-                         f"{backend!r} in the PyTorch port")
+        """This graph partitioned by the named subgraph property
+        (reference `symbol.py:get_backend_symbol`; `subgraph.py`)."""
+        from ..subgraph import get_subgraph_property, partition
+        return partition(self, get_subgraph_property(backend))
 
     def astype(self, dtype=None, **kwargs):
         """``sym.cast(self, dtype=...)``."""
@@ -471,9 +471,24 @@ class Symbol:
     def bind(self, ctx=None, args=None, args_grad=None, grad_req="write",
              aux_states=None):
         """An `Executor` over this graph with ``args`` bound (and, where
-        ``args_grad`` gives buffers, their gradients per ``grad_req``)."""
+        ``args_grad`` gives buffers, their gradients per ``grad_req``).
+        ``MXNET_SUBGRAPH_BACKEND`` partitions the graph first; positional
+        lists stay aligned to this symbol's order."""
         from ..executor import Executor  # the executor imports symbols
-        return Executor(self, ctx, args=args, args_grad=args_grad,
+        from ..subgraph import apply_env_backend
+        part = apply_env_backend(self)
+        if part is not self:
+            arg_names = self.list_arguments()
+            if isinstance(args, (list, tuple)):
+                args = dict(zip(arg_names, args))
+            if isinstance(args_grad, (list, tuple)):
+                args_grad = dict(zip(arg_names, args_grad))
+            if isinstance(grad_req, (list, tuple)):
+                grad_req = dict(zip(arg_names, grad_req))
+            if isinstance(aux_states, (list, tuple)):
+                aux_states = dict(zip(self.list_auxiliary_states(),
+                                      aux_states))
+        return Executor(part, ctx, args=args, args_grad=args_grad,
                         grad_req=grad_req, aux_states=aux_states)
 
     def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
@@ -483,9 +498,12 @@ class Symbol:
         shapes inferred from the given input ``shapes`` (reference
         `symbol.py:1369`).  ``type_dict`` names dtypes other than
         float32; the arguments it does not name take the float dtype
-        `infer_type` propagates to them."""
+        `infer_type` propagates to them.  ``MXNET_SUBGRAPH_BACKEND``
+        partitions the graph first."""
         from ..executor import Executor
         from ..ndarray.ndarray import zeros
+        from ..subgraph import apply_env_backend
+        self = apply_env_backend(self)
         if ctx is None:
             ctx = default_context("simple_bind")
         arg_shapes, _, aux_shapes = self.infer_shape(**shapes)
