@@ -614,6 +614,20 @@ CF_DECODE_ITERS, CF_DECODE_STEPS = 60, 45
 CF_HEAD_STEPS, CF_RESHAPE_T, CF_TIMED = 3, 35, 10
 # 14e: calls of a hybridized host-reading block, each with new inputs
 CF_HOST_CALLS = 6
+# phase 15: BERT-base behind the micro-batcher; 15c's traffic (cut the
+# request counts first if the run nears its limit)
+SERVE_SEQ = 128
+SERVE_LADDER = (1, 2, 4, 8, 16)
+SERVE_REQUESTS = 400
+SERVE_SWAP_REQUESTS = 200
+SERVE_CLIENTS = 4
+SERVE_DELAY_MS = 2.0
+# a row served alone (rung 1) against itself inside a fuller rung, over its
+# largest magnitude: the rungs' GEMMs run at other M, which cuBLAS tiles
+# and orders otherwise (1.4e-6 to 2.3e-6 on an H100 at 700 W, over
+# CAPTURE_TOL); at one rung the rows are bit-equal
+RUNG_TOL = 1e-5
+SERVE_RUNG_TIMED = 20
 # 14e: example/module/sequential_module.py's MLP on MNIST-shaped data
 SEQ_MLP = dict(features=784, batch=100, steps=5, lr=0.1)
 SEQ_TOL = 1e-6
@@ -1191,6 +1205,8 @@ def _rewrites(pred):
 def env(**values):
     """Environment switches for the Predictors and modules built and run
     inside."""
+    # mxtpu-lint: disable=raw-env-read -- save and restore of the
+    # switches the caller sets, not a knob read
     old = {k: os.environ.get(k) for k in values}
     os.environ.update(values)
     try:
@@ -1213,6 +1229,16 @@ def eager():
     return env(MXTPU_GRAPH_COMPILE="0")
 
 
+def _trace_settle():
+    """A ~1 ms spin kernel and a synchronize at the start of a profiled
+    region: on some machines the trace misses the kernels of the first
+    milliseconds after the profiler starts (a whole run of this script on
+    an H100 once lost all 20 K4 kernels of a 4 ms replay); the spin
+    kernel is not counted by name."""
+    torch.cuda._sleep(2_000_000)
+    torch.cuda.synchronize()
+
+
 def replay_launches(run):
     """Kernel launches of one call of ``run`` (after a warm one), from a
     profiler trace: ``({kernel name: launches}, {runtime launch call:
@@ -1224,6 +1250,7 @@ def replay_launches(run):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        _trace_settle()
         run()
         torch.cuda.synchronize()
     events = prof.key_averages()
@@ -5815,6 +5842,442 @@ def phase_control_flow(card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the one-server serving plane, observed by the port's profiler
+# ---------------------------------------------------------------------------
+
+def _serve_feed(rows, seq, vocab, rng):
+    """``rows`` BERT requests: token ids and one row of positions each."""
+    return {"data": rng.randint(0, vocab, (rows, seq)).astype(np.float32),
+            "positions": np.tile(np.arange(seq, dtype=np.float32),
+                                 (rows, 1))}
+
+
+def _row_rel_err(got, want):
+    """max |got - want| over the largest |want| of two numpy arrays."""
+    return float(np.abs(got - want).max()) / \
+        max(float(np.abs(want).max()), 1e-30)
+
+
+def serving_export(cfg, blob, seq, ladder, tmpdir, ref_pallas="0",
+                   tol=SLICE_TOL):
+    """15a: export, load and capture.  The live Predictor's pool and the
+    blob's must agree bitwise at every rung, both within ``tol`` of an
+    unfused-graph Predictor; a row alone (rung 1) within CAPTURE_TOL of the
+    same row in a full rung; a truncated blob refused."""
+    from mxnet_tpu_torch.predictor import CompiledBlobError
+    from mxnet_tpu_torch.serving import CompiledModelPool
+    n_layers = cfg["num_layers"]
+    sym = bert_encoder(mt.sym, **cfg)
+    bound = max(ladder) // 2
+    shapes = {"data": (bound, seq), "positions": (bound, seq)}
+    path = os.path.join(tmpdir, "bert_v1.blob")
+    with pallas_mode("auto"):
+        pred = mt.Predictor(sym.tojson(), blob, shapes)
+    if _rewrites(pred) != n_layers:
+        raise AssertionError(f"pallas_select rewrote {_rewrites(pred)} "
+                             f"attention sites, want {n_layers}")
+    t0 = time.perf_counter()
+    pred.export_compiled(path, dynamic_batch=True)
+    export_s = time.perf_counter() - t0
+    blob_bytes = os.path.getsize(path)
+    hk.reset_launch_counts()
+    t0 = time.perf_counter()
+    live = CompiledModelPool(pred, batch_ladder=ladder)
+    live_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pool = CompiledModelPool(path, batch_ladder=ladder)
+    blob_s = time.perf_counter() - t0
+    # each rung's eager warm-up launches K1 for real; its capture none
+    warm = n_layers * len(ladder) * 2 if pool.devices[0].type == "cuda" \
+        else hk.LAUNCHES["flash_attn_fwd"]
+    if hk.LAUNCHES["flash_attn_fwd"] != warm:
+        raise AssertionError(f"building the pools counted launches "
+                             f"{dict(hk.LAUNCHES)}, want {warm} (the "
+                             "warm-ups'): a capture's launches count at its "
+                             "replays")
+    if pool.devices[0].type == "cuda" and \
+            not all(p.captured for p in pool._exec[0].values()):
+        raise AssertionError("a rung of the blob pool is not captured")
+    rng = np.random.RandomState(SEED + 15)
+    feeds = {r: _serve_feed(r, seq, cfg["vocab"], rng) for r in ladder}
+    outs, worst_ref = {}, 0.0
+    with pallas_mode(ref_pallas):
+        ref = mt.Predictor(sym.tojson(), blob, shapes)
+    if _rewrites(ref) != 0:
+        raise AssertionError("the unfused reference swapped kernels in")
+    for r in ladder:
+        before = hk.LAUNCHES["flash_attn_fwd"]
+        got = pool.run(feeds[r])[0]
+        if hk.LAUNCHES["flash_attn_fwd"] - before != n_layers:
+            raise AssertionError(f"rung {r}: a replay launched K1 "
+                                 f"{hk.LAUNCHES['flash_attn_fwd'] - before}"
+                                 f" times, want {n_layers}")
+        want = live.run(feeds[r])[0]
+        if got.shape != (r, seq, cfg["hidden"]) or \
+                not np.isfinite(got).all():
+            raise AssertionError(f"rung {r}: output {got.shape} not finite")
+        if not np.array_equal(got, want):
+            raise AssertionError(f"rung {r}: blob pool off the live pool by "
+                                 f"{float(np.abs(got - want).max())}")
+        with pallas_mode(ref_pallas):
+            ref.reshape({"data": (r, seq), "positions": (r, seq)})
+            ref.forward(**feeds[r])
+            unfused = ref.get_output(0).asnumpy()
+        np.testing.assert_allclose(got, unfused, rtol=tol, atol=tol)
+        worst_ref = max(worst_ref, float(np.abs(got - unfused).max()))
+        outs[r] = got
+    del ref
+    # a row alone (rung 1) against the same row inside each fuller rung:
+    # the rungs run their GEMMs at other M, which cuBLAS tiles otherwise
+    rung_errs = {}
+    for r in ladder[1:]:
+        lone = pool.run({k: v[:1] for k, v in feeds[r].items()})[0]
+        rung_errs[r] = _row_rel_err(lone[0], outs[r][0])
+    rung_err = max(rung_errs.values()) if rung_errs else 0.0
+    if rung_err > RUNG_TOL:
+        raise AssertionError(f"row 0 alone (rung {ladder[0]}) off the same "
+                             f"row at the other rungs by {rung_errs} of its "
+                             f"largest magnitude > {RUNG_TOL}")
+    # one pool.run a rung (replay and the rows' host copy), host-timed
+    rung_ms = {}
+    for r in ladder:
+        lat = []
+        for _ in range(SERVE_RUNG_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pool.run(feeds[r])
+            lat.append((time.perf_counter() - t0) * 1e3)
+        rung_ms[r] = float(np.percentile(lat, 50))
+    cut = os.path.join(tmpdir, "bert_cut.blob")
+    with open(path, "rb") as f, open(cut, "wb") as g:
+        g.write(f.read(blob_bytes // 2))
+    try:
+        CompiledModelPool(cut, batch_ladder=[1])
+    except CompiledBlobError as e:
+        refused = str(e)[:160]
+    else:
+        raise AssertionError("a truncated blob was served")
+    os.remove(cut)
+    rec = {"serving": "export", "blob_bytes": blob_bytes,
+           "export_s": export_s, "live_pool_capture_s": live_s,
+           "blob_load_and_capture_s": blob_s, "ladder": list(ladder),
+           "max_abs_diff_vs_unfused": worst_ref,
+           "rung1_vs_rung_rel_err": rung_errs, "pool_run_p50_ms": rung_ms,
+           "truncated_refused": refused,
+           "launches": dict(hk.LAUNCHES)}
+    log(json.dumps(rec))
+    return pred, live, pool, path, feeds, rec
+
+
+def _graph_k1_counts(events, kernel="flash_attn_fwd_kernel"):
+    """K1 launches per ``cudaGraphLaunch`` of a Chrome trace, by the
+    correlation id a graph's kernels share with its launch call; and the
+    K1 launches outside any graph launch."""
+    launches = {e["args"]["correlation"] for e in events
+                if e.get("name") == "cudaGraphLaunch"
+                and "correlation" in e.get("args", {})}
+    per = {c: 0 for c in launches}
+    stray = 0
+    for e in events:
+        if e.get("cat") != "kernel" or kernel not in e.get("name", ""):
+            continue
+        c = e.get("args", {}).get("correlation")
+        if c in per:
+            per[c] += 1
+        else:
+            stray += 1
+    return per, stray
+
+
+def serving_profile(pool, feeds, n_layers, tmpdir):
+    """15b: the port's own profiler around one ``pool.run`` per rung: its
+    Chrome trace must show each replay as one graph launch holding
+    ``n_layers`` K1 launches, and `dumps()` the serve family.  The
+    session's first graph launch is a warm-up left out of the count: in
+    a whole run of this script the trace holds 11 of its 12 K1 launches,
+    even after `_trace_settle` (12 when phase 15 runs alone)."""
+    trace = os.path.join(tmpdir, "serve_trace.json")
+    top = max(feeds)
+    torch.cuda.synchronize()
+    mt.profiler.set_config(filename=trace)
+    mt.profiler.start()
+    _trace_settle()
+    pool.run(feeds[top])
+    for r in sorted(feeds):
+        with mt.profiler.Task(name=f"serve.rung_{r}"):
+            pool.run(feeds[r])
+    mt.profiler.stop()
+    if mt.profiler.dump() != trace:
+        raise AssertionError("profiler.dump wrote no trace")
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    per, stray = _graph_k1_counts(events)
+    launches = [per[c] for c in sorted(per)]
+    counts = launches[1:]
+    if counts != [n_layers] * len(feeds) or stray:
+        raise AssertionError(f"the trace's graph launches held K1 "
+                             f"{launches} (the first a warm-up) and {stray} "
+                             f"K1 launches outside them; want {len(feeds)} "
+                             f"launches of {n_layers} after the warm-up")
+    table = mt.profiler.dumps()
+    if "-- serve --" not in table or "serve.rung_1" not in table:
+        raise AssertionError("profiler.dumps() lacks the serve family or "
+                             "the rung spans")
+    rec = {"serving": "profile", "trace_bytes": os.path.getsize(trace),
+           "trace_events": len(events), "graph_launches": len(launches),
+           "k1_per_graph_launch": launches}
+    log(json.dumps(rec))
+    return rec
+
+
+@contextlib.contextmanager
+def _recording():
+    """Every ``CompiledModelPool.run`` inside, whichever pool serves
+    (a deploy builds its own), kept as (pool, input tokens, rung)."""
+    from mxnet_tpu_torch.serving import CompiledModelPool
+    seen = []
+    run = CompiledModelPool.run
+
+    def recorded(self, feed, replica=0):
+        seen.append((self, np.array(feed["data"]),
+                     self.rung_for(len(feed["data"]))))
+        return run(self, feed, replica=replica)
+    CompiledModelPool.run = recorded
+    try:
+        yield seen
+    finally:
+        CompiledModelPool.run = run
+
+
+def _dispatch_of(seen, data):
+    """The pool and rung whose dispatch carried the request rows
+    ``data``."""
+    n = len(data)
+    for pool, batch, rung in seen:
+        for i in range(len(batch) - n + 1):
+            if np.array_equal(batch[i:i + n], data):
+                return pool, rung
+    raise AssertionError("a request's rows were never dispatched")
+
+
+def _client_traffic(host, port, n_requests, clients, seq, vocab, seed,
+                    retry_draining=False, during=None):
+    """``clients`` threads sending 1-3-row requests (``n_requests`` in
+    all, and with ``during`` until it has returned too); returns
+    [(request, reply, ms)] and the failures.  With ``retry_draining`` a
+    refusal during a hot swap's drain is sent again and counted;
+    ``during()`` runs on this thread while they send."""
+    import threading
+    from mxnet_tpu_torch.serving import ServeClient, ServerDrainingError
+    results, failures, refusals = [], [], []
+    lock = threading.Lock()
+    done = threading.Event()
+    if during is None:
+        done.set()
+
+    def client(k):
+        rng = np.random.RandomState(seed + k)
+        sent = 0
+        with ServeClient(host, port, retry_deadline=30.0) as cli:
+            while sent < n_requests // clients or not done.is_set():
+                sent += 1
+                feed = _serve_feed(int(rng.randint(1, 4)), seq, vocab, rng)
+                while True:
+                    t0 = time.perf_counter()
+                    try:
+                        out = cli.infer(feed)[0]
+                    except ServerDrainingError as e:
+                        if retry_draining:
+                            with lock:
+                                refusals.append(1)
+                            time.sleep(0.001)
+                            continue
+                        with lock:
+                            failures.append(repr(e))
+                        out = None
+                    except Exception as e:
+                        with lock:
+                            failures.append(repr(e))
+                        out = None
+                    break
+                ms = (time.perf_counter() - t0) * 1e3
+                with lock:
+                    results.append((feed, out, ms))
+
+    ts = [threading.Thread(target=client, args=(k,)) for k in range(clients)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    if during is not None:
+        try:
+            during()
+        finally:
+            done.set()
+    for t in ts:
+        t.join()
+    return results, failures, len(refusals), time.perf_counter() - t0
+
+
+def _check_replies(seen, results):
+    """Each reply equals bitwise the same rows run at the rung (of the
+    pool) they were dispatched at; returns the count per rung."""
+    per_rung = {}
+    for feed, out, _ms in results:
+        pool, rung = _dispatch_of(seen, feed["data"])
+        n = len(feed["data"])
+        prog = pool._exec[0][rung]
+        want = prog([feed[k] for k in pool.input_names], rows=n)[0]
+        if out is None or not np.array_equal(out, want):
+            raise AssertionError(f"a {n}-row reply is not the rung-{rung} "
+                                 "run of its rows")
+        per_rung[rung] = per_rung.get(rung, 0) + 1
+    return per_rung
+
+
+def serving_wire(pool, seq, vocab, n_requests=SERVE_REQUESTS,
+                 clients=SERVE_CLIENTS):
+    """15c: `ModelServer` behind the micro-batcher, `ServeClient`s over
+    the wire; every reply checked bitwise at its dispatch rung."""
+    from mxnet_tpu_torch.serving import ModelServer
+    mt.profiler.reset_serve_counters()
+    with _recording() as seen:
+        with env(MXTPU_SERVE_MAX_DELAY_MS=str(SERVE_DELAY_MS)):
+            srv = ModelServer(pool, model_version="v1")
+        with srv:
+            host, port = srv.serve()
+            results, failures, _r, wall = _client_traffic(
+                host, port, n_requests, clients, seq, vocab, SEED + 150)
+            counters = mt.profiler.serve_counters(window_s=600.0)
+    if failures or len(results) != n_requests:
+        raise AssertionError(f"{len(failures)} requests failed: "
+                             f"{failures[:3]}")
+    checked = _check_replies(seen, results)
+    lat = np.array([ms for _f, _o, ms in results])
+    rows = sum(len(f["data"]) for f, _o, _m in results)
+    q = np.percentile(lat, [50, 90, 99])
+    rec = {"serving": "wire", "requests": n_requests, "clients": clients,
+           "max_delay_ms": SERVE_DELAY_MS, "rows": rows,
+           "p50_ms": float(q[0]), "p90_ms": float(q[1]),
+           "p99_ms": float(q[2]), "wall_s": wall, "rows_per_s": rows / wall,
+           "replies_checked_per_rung": checked,
+           "dispatches_per_rung": {k: v for k, v in counters.items()
+                                   if k.startswith("rung_")},
+           "serve_counters": counters}
+    log(json.dumps(rec, default=float))
+    return rec
+
+
+def serving_swap(pool, pred, path, seq, vocab, tmpdir,
+                 n_requests=SERVE_SWAP_REQUESTS, clients=SERVE_CLIENTS):
+    """15d: a deploy of a second blob during traffic and a rollback: no
+    request fails (a refusal during a drain is sent again and counted),
+    every reply is bitwise its rung's run, `stats()` names the version
+    served; then one traced request's id in the server's ``serve.infer``
+    span, read from the flight recorder."""
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.serving import ModelServer, ServeClient
+    path2 = os.path.join(tmpdir, "bert_v2.blob")
+    pred.export_compiled(path2, dynamic_batch=True)
+    versions = {}
+    with _recording() as seen:
+        with env(MXTPU_SERVE_MAX_DELAY_MS=str(SERVE_DELAY_MS)):
+            srv = ModelServer(pool, model_version="v1")
+        with srv:
+            host, port = srv.serve()
+
+            def swap():
+                time.sleep(0.2)
+                t0 = time.perf_counter()
+                srv.deploy(path2, version="v2")
+                versions["deploy_s"] = time.perf_counter() - t0
+                versions["v2"] = srv._pool
+                with ServeClient(host, port) as cli:
+                    versions["after_deploy"] = cli.stats()["model_version"]
+                time.sleep(0.2)
+                t0 = time.perf_counter()
+                srv.deploy(path, version="v1")
+                versions["rollback_s"] = time.perf_counter() - t0
+                with ServeClient(host, port) as cli:
+                    versions["after_rollback"] = \
+                        cli.stats()["model_version"]
+
+            results, failures, refusals, wall = _client_traffic(
+                host, port, n_requests, clients, seq, vocab, SEED + 160,
+                retry_draining=True, during=swap)
+            telemetry.reset()
+            with ServeClient(host, port) as cli, telemetry.trace() as tid:
+                cli.infer(_serve_feed(1, seq, vocab,
+                                      np.random.RandomState(SEED + 170)))
+            spans = [r for r in telemetry.flight_records()
+                     if r["name"] == "serve.infer" and r.get("trace") == tid]
+    if failures or len(results) < n_requests:
+        raise AssertionError(f"{len(failures)} requests failed during the "
+                             f"swap: {failures[:3]}")
+    if not any(p is versions["v2"] for p, _b, _r in seen):
+        raise AssertionError("no request was served by the deployed v2")
+    if versions.get("after_deploy") != "v2" or \
+            versions.get("after_rollback") != "v1":
+        raise AssertionError(f"stats named {versions}")
+    if not spans:
+        raise AssertionError("the server's serve.infer span lost the "
+                             "request's trace id")
+    checked = _check_replies(seen, results)
+    rec = {"serving": "hot_swap", "requests": len(results),
+           "drain_refusals_resent": refusals, "wall_s": wall,
+           "deploy_s": versions["deploy_s"],
+           "rollback_s": versions["rollback_s"],
+           "v2_dispatches": sum(1 for p, _b, _r in seen
+                                if p is versions["v2"]),
+           "versions": [versions["after_deploy"],
+                        versions["after_rollback"]],
+           "replies_checked_per_rung": checked, "trace_id": tid,
+           "serve_infer_spans": len(spans)}
+    log(json.dumps(rec))
+    return rec
+
+
+def phase_serving(card, cfg=None, seq=SERVE_SEQ, ladder=SERVE_LADDER,
+                  profile=True):
+    """Phase 15: BERT-base served through the whole plane.  Returns its
+    K1 launches."""
+    t_phase = time.perf_counter()
+    cfg = dict(cfg or BERT_BASE)
+    n_layers = cfg["num_layers"]
+    sym = bert_encoder(mt.sym, **cfg)
+    shapes = {"data": (1, seq), "positions": (1, seq)}
+    arg_shapes, _, _ = sym.infer_shape(**shapes)
+    params = random_params({n: s for n, s in zip(sym.list_arguments(),
+                                                 arg_shapes)
+                            if n not in shapes}, SEED)
+    blob = dumps_ndarrays({"arg:" + n: NDArray(torch.from_numpy(a))
+                           for n, a in params.items()})
+    del params
+    tmpdir = tempfile.mkdtemp(prefix="mxtt_serve_")
+    try:
+        hk.reset_launch_counts()
+        pred, live, pool, path, feeds, export = serving_export(
+            cfg, blob, seq, ladder, tmpdir)
+        del live
+        prof = serving_profile(pool, feeds, n_layers, tmpdir) \
+            if profile else None
+        wire = serving_wire(pool, seq, cfg["vocab"])
+        swap = serving_swap(pool, pred, path, seq, cfg["vocab"], tmpdir)
+        launches = dict(hk.LAUNCHES)
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+    if any(launches[k] for k in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv",
+                                 "lstm_gates")):
+        raise AssertionError(f"phase 15 launched {launches}; want K1 only")
+    rec = {"phase": "serving", "card": card, "dtype": "float32",
+           "seq": seq, "export": export, "profile": prof, "wire": wire,
+           "hot_swap": swap, "launches": launches,
+           "phase_s": time.perf_counter() - t_phase}
+    log(json.dumps(rec, default=float))
+    log(f"serving: phase 15 in {rec['phase_s']:.1f} s")
+    return launches
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -5832,20 +6295,23 @@ def main():
     ops_launches = phase_ops(card)
     data_launches = phase_data(card)
     cf_launches = phase_control_flow(card)
+    plane_launches = phase_serving(card)
     leaked = [m for m in ("jax", "mxnet_tpu") if m in sys.modules]
     if leaked:
         raise SystemExit(f"chip_smoke: the port imported {leaked}")
     log(f"launches: serving {serve_launches}, training {train_launches}, "
         f"LSTM serving {lstm_launches}, fit {fit_launches}, RNN "
         f"{rnn_launches}, state {state_launches}, ops {ops_launches}, "
-        f"data {data_launches}, control flow {cf_launches}")
+        f"data {data_launches}, control flow {cf_launches}, serving plane "
+        f"{plane_launches}")
     kernels = [{
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:92",
         "launches": serve_launches["flash_attn_fwd"] +
         train_launches["flash_attn_fwd"] + fit_launches["flash_attn_fwd"] +
-        state_launches["flash_attn_fwd"],
+        state_launches["flash_attn_fwd"] +
+        plane_launches["flash_attn_fwd"],
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],

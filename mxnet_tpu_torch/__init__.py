@@ -37,7 +37,12 @@ optimizer and initializer of the JAX package; and the data plane:
 `recordio`, the native host library (`io_native`), `image` (`img`) with
 its detection pipeline, the image iterators of `io` staging uint8
 batches to the card through pinned buffers, and the `engine` that runs
-`io.PrefetchingIter`'s fetches.  On the card, inference
+`io.PrefetchingIter`'s fetches; observability (`profiler` over
+`torch.profiler` with the counter families, `telemetry`, `log`,
+`test_utils`, `analysis`) and the one-server serving plane
+(`Predictor.export_compiled`, `ps_wire`, `serving.CompiledModelPool` with
+one CUDA graph per ladder rung, `ModelServer`, `ServeClient`).  On the
+card, inference
 forwards, hybridized predict-mode forwards and Module's whole training
 step run as CUDA graphs.
 """
@@ -66,6 +71,8 @@ from .attribute import AttrScope  # noqa: E402
 from .ndarray import NDArray  # noqa: E402
 from .executor import Executor  # noqa: E402
 from . import operator, subgraph  # noqa: E402
+from . import log, profiler, telemetry, test_utils  # noqa: E402
+from . import predictor, ps_wire, serving  # noqa: E402
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "cpu_pinned",
            "cpu_shared", "current_context", "num_gpus", "nd", "sym",
@@ -75,4 +82,5 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "cpu_pinned",
            "lr_scheduler", "metric", "callback", "model", "Predictor",
            "autograd", "gluon", "kvstore", "kv", "monitor", "mon", "Monitor",
            "checkpoint", "engine", "recordio", "image", "img", "operator",
-           "subgraph"]
+           "subgraph", "log", "profiler", "telemetry", "test_utils",
+           "predictor", "ps_wire", "serving"]

@@ -1,0 +1,500 @@
+"""AST lint rules over the port's own package (the counterpart of
+`mxnet_tpu/analysis/lint_rules.py`), encoding the same process
+invariants:
+
+* ``env-registry`` -- every ``MXTPU_*``/``MXNET_*`` env var the code
+  reads (via ``os.environ``, ``os.getenv`` *or* ``config.get_env``) must
+  be registered in the port's ``config.py``; an unregistered knob is
+  silently stringly-typed.
+* ``raw-env-read`` -- direct ``os.environ`` reads of knob-shaped names
+  (``MXTPU_``/``MXNET_``/``DMLC_``) outside ``config.py`` are banned in
+  favor of ``config.get_env`` (typed, registered, one parse).
+* ``pickle-in-wire`` -- no ``pickle`` import in wire modules
+  (``ps_wire``, ``serving``, ...): frames use the versioned binary
+  codec; pickle on the wire is slow, version-fragile and an RCE surface.
+* ``signal-chain`` -- every ``signal.signal(...)`` install must chain
+  the previous handler (call ``signal.getsignal`` in the same scope or
+  capture the install's return value), so a second component never
+  silently disarms the first's SIGTERM hook.
+* ``ckpt-atomic-write`` -- in checkpoint-path modules, no write-mode
+  ``open`` / ``os.replace`` / ``os.rename`` / ``shutil.move`` outside
+  ``serialization.atomic_write`` (+ its fsync helper): a checkpoint
+  either exists whole or not at all.
+* ``host-sync-in-capture`` -- the port's form of the JAX package's
+  ``host-sync-in-jit``: no host sync (``.asnumpy()``, ``.item()``,
+  ``.tolist()``, ``.cpu()``, ``.numpy()``, ``float()``/``int()`` of a
+  value, ``torch.cuda.synchronize()``) inside a function handed to
+  ``CapturedGraph`` or ``warm_up``: a CUDA graph cannot hold a host
+  read, and the capture fails or freezes the value it read.
+
+Suppression: append ``# mxtpu-lint: disable=<rule> -- <reason>`` on the
+finding's line (or the line directly above).  The reason is mandatory --
+a suppression without one is itself reported.  Accepted findings live in
+``mxnet_tpu_torch/analysis/lint_baseline.json`` keyed by
+:attr:`LintFinding.key` (no line numbers -- keys survive unrelated
+edits); `tools/torch_lint.py` is the CLI.
+"""
+from __future__ import annotations
+
+import ast
+import os
+import re
+from dataclasses import dataclass
+from typing import Any, Dict, Iterable, List, Optional, Set, Tuple
+
+__all__ = ["LintFinding", "LintConfig", "RULES", "lint_source",
+           "lint_path", "collect_registered_env", "iter_python_files",
+           "KNOB_RE", "REGISTRY_RE", "PACKAGE"]
+
+#: names that must go through config.get_env outside config.py
+KNOB_RE = re.compile(r"^(MXTPU|MXNET|DMLC)_[A-Z0-9_]+$")
+#: names that must additionally be registered in config.py
+REGISTRY_RE = re.compile(r"^(MXTPU|MXNET)_[A-Z0-9_]+$")
+
+_SUPPRESS_RE = re.compile(
+    r"#\s*mxtpu-lint:\s*disable=([a-z0-9_,-]+)"
+    r"(?:\s*--\s*(?P<reason>\S.*))?")
+
+#: module basenames on the wire frame path (pickle ban), the JAX
+#: package's set: an accepted pickle use is baselined, not exempted, so
+#: any NEW one is visible in review.
+WIRE_MODULES = frozenset({
+    "ps_wire.py", "serving.py", "serving_fleet.py", "comm_plane.py",
+    "ps_server.py", "kvstore_server.py",
+})
+#: modules on the checkpoint commit path (atomic_write discipline)
+CKPT_MODULES = frozenset({"checkpoint.py", "serialization.py"})
+#: functions allowed to touch files raw inside CKPT_MODULES
+CKPT_ALLOWED_FUNCS = frozenset({"atomic_write", "_fsync_dir"})
+
+RULES = ("env-registry", "raw-env-read", "pickle-in-wire",
+         "signal-chain", "ckpt-atomic-write", "host-sync-in-capture")
+
+#: the package the rules walk, and where its baseline lives
+PACKAGE = "mxnet_tpu_torch"
+
+
+@dataclass
+class LintFinding:
+    rule: str
+    path: str            # repo-relative path
+    line: int
+    message: str
+    token: str = ""      # rule-specific stable identity component
+
+    @property
+    def key(self) -> str:
+        """Baseline identity: ``rule:relpath:token`` — deliberately no
+        line number, so baseline entries survive unrelated edits."""
+        return f"{self.rule}:{self.path}:{self.token or 'module'}"
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {"rule": self.rule, "path": self.path, "line": self.line,
+                "message": self.message, "key": self.key}
+
+
+@dataclass
+class LintConfig:
+    """What the rules consider 'registered' / in-scope for this tree."""
+    registered_env: frozenset = frozenset()
+    registered_prefixes: Tuple[str, ...] = ()
+    wire_modules: frozenset = WIRE_MODULES
+    ckpt_modules: frozenset = CKPT_MODULES
+
+    def is_registered(self, name: str) -> bool:
+        return name in self.registered_env or \
+            any(name.startswith(p) for p in self.registered_prefixes)
+
+
+def collect_registered_env(config_source: str) -> LintConfig:
+    """Harvest every registered knob name from ``config.py``'s source.
+
+    Any string constant in config.py matching the registry shape counts
+    (the ``_reg(...)`` table, plus names only mentioned in aliases or
+    loops).  f-strings built in registration loops (the GPU-pool block)
+    contribute their constant prefix as a wildcard."""
+    tree = ast.parse(config_source)
+    names: Set[str] = set()
+    prefixes: Set[str] = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            if REGISTRY_RE.match(node.value):
+                names.add(node.value)
+        elif isinstance(node, ast.JoinedStr) and node.values:
+            head = node.values[0]
+            if isinstance(head, ast.Constant) and \
+                    isinstance(head.value, str) and \
+                    re.match(r"^(MXTPU|MXNET)_", head.value):
+                prefixes.add(head.value)
+    return LintConfig(registered_env=frozenset(names),
+                      registered_prefixes=tuple(sorted(prefixes)))
+
+
+# ---------------------------------------------------------------------------
+# suppression comments
+
+
+def _suppressions(source: str) -> Tuple[Dict[int, Set[str]], Set[int],
+                                        List[int]]:
+    """Map line -> suppressed rule set, the set of comment-only lines
+    (a suppression travels through the contiguous comment block it sits
+    in, so a two-line reason still covers the statement below), and the
+    lines whose suppression is missing the mandatory ``-- reason``."""
+    by_line: Dict[int, Set[str]] = {}
+    comment_lines: Set[int] = set()
+    missing_reason: List[int] = []
+    for i, line in enumerate(source.splitlines(), start=1):
+        if line.lstrip().startswith("#"):
+            comment_lines.add(i)
+        m = _SUPPRESS_RE.search(line)
+        if not m:
+            continue
+        rules = {r.strip() for r in m.group(1).split(",") if r.strip()}
+        by_line[i] = rules
+        if not m.group("reason"):
+            missing_reason.append(i)
+    return by_line, comment_lines, missing_reason
+
+
+def _is_suppressed(finding: LintFinding, by_line: Dict[int, Set[str]],
+                   comment_lines: Set[int]) -> bool:
+    def _match(ln: int) -> bool:
+        rules = by_line.get(ln)
+        return bool(rules) and (finding.rule in rules or "all" in rules)
+
+    if _match(finding.line):
+        return True
+    ln = finding.line - 1
+    while ln in comment_lines:           # walk up the comment block
+        if _match(ln):
+            return True
+        ln -= 1
+    return False
+
+
+# ---------------------------------------------------------------------------
+# AST helpers
+
+
+def _dotted(node: ast.AST) -> str:
+    """'os.environ.get' for nested Attribute/Name chains, '' otherwise."""
+    parts: List[str] = []
+    while isinstance(node, ast.Attribute):
+        parts.append(node.attr)
+        node = node.value
+    if isinstance(node, ast.Name):
+        parts.append(node.id)
+        return ".".join(reversed(parts))
+    return ""
+
+
+def _const_str(node: ast.AST) -> Optional[str]:
+    if isinstance(node, ast.Constant) and isinstance(node.value, str):
+        return node.value
+    return None
+
+
+def _parent_map(tree: ast.AST) -> Dict[ast.AST, ast.AST]:
+    parents: Dict[ast.AST, ast.AST] = {}
+    for node in ast.walk(tree):
+        for child in ast.iter_child_nodes(node):
+            parents[child] = node
+    return parents
+
+
+def _enclosing_func(node: ast.AST,
+                    parents: Dict[ast.AST, ast.AST]) -> Optional[ast.AST]:
+    cur = parents.get(node)
+    while cur is not None:
+        if isinstance(cur, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            return cur
+        cur = parents.get(cur)
+    return None
+
+
+# ---------------------------------------------------------------------------
+# env read extraction
+
+
+def _env_reads(tree: ast.AST):
+    """Yield (node, name_or_None, how) for every env access.
+
+    how in {"environ", "getenv", "get_env"}; name is None for dynamic
+    (non-literal) keys."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call):
+            fn = _dotted(node.func)
+            if fn.endswith("environ.get") or fn.endswith(".getenv") or \
+                    fn == "getenv":
+                name = _const_str(node.args[0]) if node.args else None
+                how = "environ" if "environ" in fn else "getenv"
+                yield node, name, how
+            elif fn.endswith("get_env") and node.args:
+                yield node, _const_str(node.args[0]), "get_env"
+            elif fn.endswith("environ.setdefault") and node.args:
+                yield node, _const_str(node.args[0]), "environ"
+        elif isinstance(node, ast.Subscript):
+            # loads only: `os.environ["X"] = v` is configuration, not a read
+            if _dotted(node.value).endswith("environ") and \
+                    isinstance(node.ctx, ast.Load):
+                yield node, _const_str(node.slice), "environ"
+
+
+# ---------------------------------------------------------------------------
+# the rules
+
+
+def _rule_env(tree, relpath, cfg: LintConfig) -> List[LintFinding]:
+    base = os.path.basename(relpath)
+    out: List[LintFinding] = []
+    if base == "config.py":
+        return out  # config.py IS the registry
+    for node, name, how in _env_reads(tree):
+        if name is None:
+            if how != "get_env":
+                out.append(LintFinding(
+                    "raw-env-read", relpath, node.lineno,
+                    "dynamic os.environ read (non-literal key) outside "
+                    "config.py — route through config.get_env so the "
+                    "knob is typed and registered", token="dynamic"))
+            continue
+        if how != "get_env" and KNOB_RE.match(name):
+            out.append(LintFinding(
+                "raw-env-read", relpath, node.lineno,
+                f"direct os.environ read of knob {name!r} outside "
+                "config.py — use config.get_env (typed, registered, "
+                "one parse)", token=name))
+        if REGISTRY_RE.match(name) and not cfg.is_registered(name):
+            out.append(LintFinding(
+                "env-registry", relpath, node.lineno,
+                f"env knob {name!r} is read here but not registered in "
+                "config.py -- register it with type/default/doc",
+                token=name))
+    return out
+
+
+def _rule_pickle(tree, relpath, cfg: LintConfig) -> List[LintFinding]:
+    if os.path.basename(relpath) not in cfg.wire_modules:
+        return []
+    out: List[LintFinding] = []
+    for node in ast.walk(tree):
+        names: List[str] = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names = [node.module]
+        for n in names:
+            root = n.split(".")[0]
+            if root in ("pickle", "cPickle", "dill", "cloudpickle"):
+                out.append(LintFinding(
+                    "pickle-in-wire", relpath, node.lineno,
+                    f"`{n}` imported in a wire module -- frames must "
+                    "use the versioned binary codec: pickle on the wire "
+                    "is slow, version-fragile, and an RCE surface",
+                    token=root))
+    return out
+
+
+def _rule_signal(tree, relpath, cfg: LintConfig,
+                 parents: Dict[ast.AST, ast.AST]) -> List[LintFinding]:
+    out: List[LintFinding] = []
+    for node in ast.walk(tree):
+        if not (isinstance(node, ast.Call) and
+                _dotted(node.func).endswith("signal.signal")):
+            continue
+        scope = _enclosing_func(node, parents) or tree
+        chains = any(
+            isinstance(n, ast.Call) and
+            _dotted(n.func).endswith("signal.getsignal")
+            for n in ast.walk(scope))
+        parent = parents.get(node)
+        captured = isinstance(parent, (ast.Assign, ast.AnnAssign,
+                                       ast.NamedExpr))
+        if not (chains or captured):
+            fname = getattr(scope, "name", "<module>")
+            out.append(LintFinding(
+                "signal-chain", relpath, node.lineno,
+                "signal.signal install that neither captures the "
+                "previous handler nor calls signal.getsignal in the "
+                "same scope -- this clobbers whoever registered first; "
+                "chain the prior handler",
+                token=fname))
+    return out
+
+
+_COMMIT_CALLS = ("os.replace", "os.rename", "shutil.move")
+
+
+def _rule_ckpt(tree, relpath, cfg: LintConfig,
+               parents: Dict[ast.AST, ast.AST]) -> List[LintFinding]:
+    if os.path.basename(relpath) not in cfg.ckpt_modules:
+        return []
+    out: List[LintFinding] = []
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call):
+            continue
+        fn = _dotted(node.func)
+        bad = None
+        if fn == "open" and len(node.args) >= 2:
+            mode = _const_str(node.args[1])
+            if mode and any(c in mode for c in "wax"):
+                bad = f"open(mode={mode!r})"
+        elif any(fn.endswith(c) for c in _COMMIT_CALLS):
+            bad = fn
+        if bad is None:
+            continue
+        scope = _enclosing_func(node, parents)
+        sname = getattr(scope, "name", "<module>")
+        if sname in CKPT_ALLOWED_FUNCS:
+            continue
+        out.append(LintFinding(
+            "ckpt-atomic-write", relpath, node.lineno,
+            f"{bad} in checkpoint path function `{sname}` -- all file "
+            "commits must go through serialization.atomic_write "
+            "(tmp + fsync + rename) so a crash never leaves a torn "
+            "checkpoint", token=f"{sname}:{bad}"))
+    return out
+
+
+_HOST_SYNC_ATTRS = ("asnumpy", "item", "tolist", "cpu", "numpy")
+#: callables whose first positional argument is a function run under a
+#: CUDA graph capture (or as the eager warm-up of one)
+_CAPTURE_CALLS = ("CapturedGraph", "warm_up")
+
+
+def _captured_functions(tree: ast.AST,
+                        parents: Dict[ast.AST, ast.AST]) -> List[ast.AST]:
+    """FunctionDefs handed by name as the first positional argument of a
+    ``CapturedGraph(...)`` or ``warm_up(...)`` call (bare or dotted),
+    resolved in the scope of the call: the function defined by that name
+    directly in the call's enclosing function (or module), so a
+    same-named function elsewhere is not taken for it."""
+    wanted: Set[Tuple[Any, str]] = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call):
+            fn = _dotted(node.func)
+            if fn.split(".")[-1] in _CAPTURE_CALLS and node.args and \
+                    isinstance(node.args[0], ast.Name):
+                scope = _enclosing_func(node, parents) or tree
+                wanted.add((id(scope), node.args[0].id))
+    out = []
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            scope = _enclosing_func(node, parents) or tree
+            if (id(scope), node.name) in wanted and \
+                    not isinstance(parents.get(node), ast.ClassDef):
+                out.append(node)
+    return out
+
+
+def _rule_host_sync(tree, relpath, cfg: LintConfig,
+                    parents: Dict[ast.AST, ast.AST]) -> List[LintFinding]:
+    out: List[LintFinding] = []
+    for fdef in _captured_functions(tree, parents):
+        for node in ast.walk(fdef):
+            if not isinstance(node, ast.Call):
+                continue
+            sync = None
+            if isinstance(node.func, ast.Attribute) and \
+                    node.func.attr in _HOST_SYNC_ATTRS and not node.args:
+                sync = f".{node.func.attr}()"
+            elif isinstance(node.func, ast.Name) and \
+                    node.func.id in ("float", "int") and \
+                    len(node.args) == 1 and \
+                    not isinstance(node.args[0], ast.Constant):
+                sync = f"{node.func.id}(...)"
+            elif _dotted(node.func).endswith("cuda.synchronize"):
+                sync = "torch.cuda.synchronize()"
+            if sync:
+                out.append(LintFinding(
+                    "host-sync-in-capture", relpath, node.lineno,
+                    f"{sync} inside `{fdef.name}`, which a CUDA graph "
+                    "captures -- a graph cannot hold a host read; keep "
+                    "the value on the device and read it after the "
+                    "replay", token=f"{fdef.name}:{sync}"))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# driver
+
+
+def lint_source(source: str, relpath: str,
+                cfg: Optional[LintConfig] = None,
+                rules: Optional[Iterable[str]] = None) -> List[LintFinding]:
+    """Run the rules over one file's source; returns active (not
+    comment-suppressed) findings.  Suppression comments missing the
+    mandatory reason are themselves reported as ``raw-env-read``-sev
+    findings under rule name they suppress."""
+    cfg = cfg or LintConfig()
+    enabled = set(rules) if rules is not None else set(RULES)
+    try:
+        tree = ast.parse(source)
+    except SyntaxError as e:
+        return [LintFinding("syntax", relpath, e.lineno or 0,
+                            f"unparseable: {e.msg}", token="syntax")]
+    parents = _parent_map(tree)
+
+    findings: List[LintFinding] = []
+    if {"env-registry", "raw-env-read"} & enabled:
+        findings += [f for f in _rule_env(tree, relpath, cfg)
+                     if f.rule in enabled]
+    if "pickle-in-wire" in enabled:
+        findings += _rule_pickle(tree, relpath, cfg)
+    if "signal-chain" in enabled:
+        findings += _rule_signal(tree, relpath, cfg, parents)
+    if "ckpt-atomic-write" in enabled:
+        findings += _rule_ckpt(tree, relpath, cfg, parents)
+    if "host-sync-in-capture" in enabled:
+        findings += _rule_host_sync(tree, relpath, cfg, parents)
+
+    by_line, comment_lines, missing_reason = _suppressions(source)
+    kept = [f for f in findings
+            if not _is_suppressed(f, by_line, comment_lines)]
+    for ln in missing_reason:
+        kept.append(LintFinding(
+            "suppression-reason", relpath, ln,
+            "mxtpu-lint suppression without a `-- reason`; every "
+            "suppression must say why the raw access is legitimate",
+            token=f"line-has-no-reason"))
+    return kept
+
+
+def iter_python_files(root: str) -> List[str]:
+    """Repo-relative paths of the lintable tree: the port's package, its
+    tools (``tools/torch_*.py``) and ``chip_smoke.py``, skipping hidden
+    and cache dirs."""
+    out: List[str] = []
+    top = os.path.join(root, PACKAGE)
+    for dirpath, dirnames, filenames in os.walk(top):
+        dirnames[:] = [d for d in dirnames
+                       if not d.startswith((".", "__pycache__"))]
+        for fn in sorted(filenames):
+            if fn.endswith(".py"):
+                out.append(os.path.relpath(os.path.join(dirpath, fn), root))
+    tools = os.path.join(root, "tools")
+    if os.path.isdir(tools):
+        out += [os.path.join("tools", fn) for fn in sorted(os.listdir(tools))
+                if fn.startswith("torch_") and fn.endswith(".py")]
+    if os.path.exists(os.path.join(root, "chip_smoke.py")):
+        out.append("chip_smoke.py")
+    return sorted(out)
+
+
+def lint_path(root: str,
+              rules: Optional[Iterable[str]] = None) -> List[LintFinding]:
+    """Lint the port's tree under ``root``.  The registered-knob set is
+    harvested from the port's own config.py."""
+    cfg_path = os.path.join(root, PACKAGE, "config.py")
+    if os.path.exists(cfg_path):
+        with open(cfg_path, "r") as f:
+            cfg = collect_registered_env(f.read())
+    else:
+        cfg = LintConfig()
+    findings: List[LintFinding] = []
+    for rel in iter_python_files(root):
+        with open(os.path.join(root, rel), "r") as f:
+            src = f.read()
+        findings += lint_source(src, rel.replace(os.sep, "/"), cfg,
+                                rules=rules)
+    return findings

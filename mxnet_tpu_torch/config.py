@@ -93,6 +93,10 @@ _reg("MXTPU_FAST_DECODE", _flag, True,
      "(about 1 LSB of luma error); 0 decodes exactly (ISLOW)")
 
 
+_reg("MXTPU_PS_ADDR", str, "",
+     "host:port of the JAX package's async parameter server; set with "
+     "BYTEPS_ENABLE_ASYNC=1, a dist_async store refuses to start, since "
+     "the parameter server is a later slice of the port (kvstore.py)")
 _reg("MXTPU_CKPT_DIR", str, "",
      "root directory of the CheckpointManager auto-resume path: set, "
      "Module.fit checkpoints every epoch and resumes from latest_valid() "
@@ -105,6 +109,69 @@ _reg("MXTPU_CKPT_COMMIT_DELAY", float, 0.0,
      "seconds slept between writing a checkpoint's data files and "
      "committing its MANIFEST.json, which widens the window a crash test "
      "kills in")
+
+
+# --- profiler (profiler.py) ------------------------------------------------
+_reg("MXNET_PROFILER_AUTOSTART", _flag, False,
+     "start a capture (torch.profiler, CPU and CUDA activities) at import "
+     "of profiler.py")
+_reg("MXNET_PROFILER_MODE", int, 0,
+     "0 = symbolic ops only, 1 = all (profiler.py aggregate filter)")
+
+# --- serving plane (serving.py) --------------------------------------------
+_reg("MXTPU_SERVE_BATCH_LADDER", str, "1,2,4,8,16",
+     "ascending padded batch sizes the compiled model pool captures the "
+     "forward at; every dispatch is padded up to the smallest rung that "
+     "fits (pad rows masked out of responses)")
+_reg("MXTPU_SERVE_MAX_BATCH", int, 16,
+     "micro-batching queue flushes as soon as this many rows are pending "
+     "(the 'full batch' flush); clamped to the top ladder rung")
+_reg("MXTPU_SERVE_MAX_DELAY_MS", float, 5.0,
+     "micro-batching deadline: the oldest pending request waits at most "
+     "this long before the batch flushes part-full (latency bound)")
+_reg("MXTPU_SERVE_QUEUE_LIMIT", int, 256,
+     "bound on pending ROWS in the micro-batching queue; submits past it "
+     "are shed immediately with ServerOverloadError")
+_reg("MXTPU_SERVE_RETRY_DEADLINE", float, 10.0,
+     "ServeClient reconnect budget: seconds of exponential-backoff retry "
+     "after a dropped or poisoned front-door connection; also bounds the "
+     "backoff spent honoring a retry_after_ms overload hint")
+_reg("MXTPU_SERVE_DRAIN_TIMEOUT", float, 10.0,
+     "bound (seconds) on draining a server ahead of a hot swap: queued "
+     "rows must flush and in-flight batches complete within it, else "
+     "DrainTimeoutError and the old model keeps serving")
+_reg("MXTPU_SERVE_PRIORITY", str, "",
+     "priority class ServeClient stamps into the infer-frame ctx dict "
+     "('low'/'normal'/'high'); empty = no ctx header sent")
+
+# --- telemetry plane (telemetry.py) ----------------------------------------
+_reg("MXTPU_TELEMETRY_DIR", str, "",
+     "directory the telemetry event stream is mirrored to as one JSONL "
+     "file per process (events-<role>-<pid>.jsonl); empty = in-memory ring "
+     "only")
+_reg("MXTPU_FLIGHT_RECORDER", _flag, True,
+     "enable the flight recorder's crash handlers (uncaught-exception hook "
+     "and SIGTERM dump); the event ring itself always records")
+_reg("MXTPU_FLIGHT_RECORDER_SIZE", int, 512,
+     "bound on the flight-recorder ring: most recent events kept per "
+     "process (read once at import)")
+_reg("MXTPU_FLIGHT_RECORDER_PATH", str, "",
+     "file flight-recorder dumps append to; empty = stderr")
+_reg("MXTPU_FLIGHT_RECORDER_SIGNALS", _flag, True,
+     "install the SIGTERM dump handler (main thread only; re-raises the "
+     "default action after dumping)")
+_reg("MXTPU_FLIGHT_RECORDER_MIN_INTERVAL_S", float, 5.0,
+     "throttle between automatic error-path flight-recorder dumps; 0 = "
+     "dump on every structured error")
+_reg("MXTPU_SLOW_STEP_WINDOW", int, 32,
+     "trailing window (steps) of the Module.fit slow-step watchdog's "
+     "baseline median")
+_reg("MXTPU_SLOW_STEP_FACTOR", float, 3.0,
+     "a step slower than factor x the trailing median emits a structured "
+     "slow_step event blaming input vs compute vs comm")
+_reg("MXTPU_WORKER_ID", str, "",
+     "telemetry worker-id override; empty falls back to DMLC_RANK "
+     "(telemetry event tagging)")
 
 
 def get_env(name: str, default: Optional[Any] = None):

@@ -29,6 +29,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from . import profiler as _prof
 from . import random as _random
 from .base import MXNetError
 from .context import Context, default_context
@@ -182,6 +183,7 @@ class Executor:
         self._ingest_inputs(kwargs)
         if self._graph_plan is None:
             self._graph_plan = build_steps(self._symbol)
+        _prof.bump_counter("dispatches")
         return self._run(None, bool(is_train))
 
     def graph_program(self, train=False) -> GraphProgram:
@@ -219,6 +221,7 @@ class Executor:
                 out_grads = [out_grads]
             cts = [_tensor(g) for g in out_grads]
         tape, self._tape = self._tape, None
+        _prof.bump_counter("dispatches")
         backward_tape(tape, cts, self._grad_req,
                       {n: self.grad_dict[n].data for n in names})
         return self.grad_arrays

@@ -22,6 +22,7 @@ from __future__ import annotations
 from typing import Dict, List
 
 from .. import optimizer as opt
+from .. import profiler as _prof
 from ..base import MXNetError
 from .parameter import Parameter, ParameterDict
 
@@ -138,6 +139,8 @@ class Trainer:
         if not batch:
             return
         if not (fused_enabled() and self._updater.update_multi(batch)):
+            if fused_enabled():
+                _prof.bump_counter("fallback_steps")
             for i, grad, arr in batch:
                 self._updater(i, grad, arr)
         for _, _, arr in batch:

@@ -28,6 +28,12 @@ A kernel launch inside a capture runs no kernel: `CapturedGraph` keeps
 the launches each capture records out of `hopper_kernels.LAUNCHES` and
 adds them there at every replay.
 
+Observability: `profiler.graph_counters()` (``graph_compiles``,
+``graph_cache_hits``, ``retraces``, ``dispatches_saved``,
+``fallback_island_nodes``) and the step counters ``dispatches`` and
+``graph_captures`` (the JAX package's ``jit_traces``); every program
+build runs inside a ``telemetry.span("graph.compile")``.
+
 Fallback islands.  `deny_ops` (``DEFAULT_DENY_OPS`` = ``{"Custom"}`` plus
 ``MXTPU_GRAPH_COMPILE_DENY``) are the ops that stay out of one program, as
 in the JAX package: a program over a graph that holds one is partitioned
@@ -55,14 +61,18 @@ from __future__ import annotations
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import functools
+import threading
 
+import numpy as np
 import torch
 
 from . import config, graph_opt
+from . import profiler as _prof
+from . import telemetry
 from .attribute import strip_annotations
 from .base import MXNetError
 from .ops import registry as _reg
-from .ops.hopper_kernels import LAUNCHES
+from .ops.hopper_kernels import count_launch, recording_launches
 from .ops.registry import DEVICE, PROGRAM_STATE, Attrs
 from .subgraph import (SubgraphProperty, SubgraphSelector,
                        register_subgraph_property)
@@ -73,7 +83,7 @@ __all__ = ["GraphProgram", "GraphCompiler", "Tape", "CapturedGraph",
            "record_steps", "tape_grads", "backward_tape", "warm_up",
            "feed_key", "deny_ops", "DEFAULT_DENY_OPS", "uncapturable_ops",
            "one_graph", "graph_ops", "lower_step_fn",
-           "GraphCompileProperty",
+           "GraphCompileProperty", "StaticProgram",
            "program_for"]
 
 
@@ -355,7 +365,8 @@ def _tensors(out):
 
 class CapturedGraph:
     """``fn`` captured once as a CUDA graph (after the caller's
-    `warm_up`), its outputs kept as the graph's static tensors.  The
+    `warm_up`), its outputs kept as the graph's static tensors, and ``fn``
+    itself, so the tensors it reads outlive the capture.  The
     kernel launches the capture records count at each `replay`, not at
     the capture; ``generator`` (the stream Dropout draws from) is
     registered, so each replay draws new numbers.  Graphs given one
@@ -372,27 +383,110 @@ class CapturedGraph:
                     "this PyTorch cannot register a generator with a CUDA "
                     "graph; set MXTPU_GRAPH_COMPILE=0 to run eagerly")
             self.graph.register_generator_state(generator)
-        before = dict(LAUNCHES)
         try:
             # thread-local: a loader thread staging the next batch on its
-            # own stream (io._Stager) may synchronize or allocate while
-            # this thread captures
+            # own stream (io._Stager), or a serving thread replaying
+            # another graph, may synchronize or allocate while this
+            # thread captures; the launches on the capture stream count
+            # apart from theirs
             with torch.cuda.device(device), \
                     torch.cuda.graph(self.graph, pool=pool,
                                      capture_error_mode="thread_local"):
-                self.outputs = fn()
+                with recording_launches(torch.cuda.current_stream(
+                        device).cuda_stream) as recorded:
+                    self.outputs = fn()
         except Exception as e:
             raise MXNetError(f"CUDA graph capture failed: {e}; set "
                              "MXTPU_GRAPH_COMPILE=0 to run eagerly") from e
-        finally:
-            self.launches = {k: LAUNCHES[k] - before[k] for k in before}
-            LAUNCHES.update(before)
+        self.launches = {k: n for k, n in recorded.items() if n}
+        # a replay reads the addresses the capture recorded: keep what the
+        # function reads (its closure's tensors) alive with the graph
+        self._fn = fn
+        _prof.bump_counter("graph_captures")
 
     def replay(self):
         self.graph.replay()
         for k, n in self.launches.items():
-            LAUNCHES[k] += n
+            count_launch(k, n)
         return self.outputs
+
+
+class StaticProgram:
+    """A `build_steps` plan at fixed input shapes on one device, fed
+    through static input buffers: the unit the serving pool holds per
+    (device, ladder rung).
+
+    ``weights`` ({name: tensor on ``device``}) are read in place;
+    ``inputs`` are ``[(name, shape, numpy dtype)]``, each given a static
+    buffer of that shape.  On a CUDA device (unless
+    ``MXTPU_GRAPH_COMPILE=0``) the plan is warmed and captured here,
+    once, and every call replays it; elsewhere every call runs the same
+    plan eagerly.  A call writes its arrays into the static inputs (with
+    ``rows``, each padded up to its buffer's leading dimension by
+    repeating its last row), runs, and copies every output (its first
+    ``rows`` rows) to the host before the next call may touch the
+    buffers: calls are serialized by ``lock`` (one per device replica, so
+    the rungs of one replica never run at once), and no result aliases a
+    static buffer."""
+
+    def __init__(self, plan, weights: Mapping[str, torch.Tensor],
+                 inputs: Sequence[Tuple[str, Tuple[int, ...], np.dtype]],
+                 device: torch.device,
+                 lock: Optional[threading.Lock] = None):
+        self.device = device
+        self.lock = lock if lock is not None else threading.Lock()
+        self._names = [n for n, _s, _d in inputs]
+        self.static = {
+            n: torch.zeros(tuple(shape),
+                           dtype=torch.from_numpy(np.zeros((), d)).dtype,
+                           device=device)
+            for n, shape, d in inputs}
+        # the program holds its weights: a capture reads their addresses
+        self._feed = feed = {**weights, **self.static}
+
+        def run():
+            return run_steps(plan, feed, False)[0]
+        self._graph = None
+        self._run = run
+        if device.type == "cuda" and graph_compile_enabled():
+            with torch.cuda.device(device):
+                warm_up(run, device)
+                self._graph = CapturedGraph(run, device)
+            self._run = self._graph.replay
+
+    @property
+    def captured(self) -> bool:
+        return self._graph is not None
+
+    def __call__(self, arrays: Sequence[np.ndarray],
+                 rows: Optional[int] = None) -> List[np.ndarray]:
+        padded = []
+        for name, arr in zip(self._names, arrays):
+            want = tuple(self.static[name].shape)
+            if rows is not None and arr.shape[0] < want[0]:
+                arr = np.concatenate(
+                    [arr, np.repeat(arr[-1:], want[0] - arr.shape[0],
+                                    axis=0)], axis=0)
+            if tuple(arr.shape) != want:
+                raise MXNetError(f"input {name!r}: shape {arr.shape} does "
+                                 f"not match the program's {want}")
+            padded.append(torch.from_numpy(np.ascontiguousarray(arr)))
+        with self.lock:
+            if self.device.type == "cuda":
+                with torch.cuda.device(self.device):
+                    return self._call(padded, rows)
+            return self._call(padded, rows)
+
+    def _call(self, padded, rows) -> List[np.ndarray]:
+        with torch.no_grad():
+            for name, src in zip(self._names, padded):
+                self.static[name].copy_(src)
+        outs = self._run()
+        if rows is not None:
+            outs = [o[:rows] for o in outs]
+        # the host copies end the use of the static buffers
+        return [o.to("cpu").numpy() if o.is_cuda else o.clone().numpy()
+                for o in outs]
 
 
 class _Island:
@@ -502,17 +596,23 @@ class GraphProgram:
         still draws masks)."""
         feed = {**feed, **self.const_feed}
         if not self.captured:
+            # eager: one host dispatch per step of the plan
+            _prof.bump_counter("dispatches", len(self._plan[1]))
             return run_steps(self._plan, feed, self.train, generator)
         if not self.one_graph:
             return self._forward_islands(feed), {}
         key = feed_key(feed)
         graph = self._graphs.get(key)
+        _prof.bump_counter("dispatches")
         if graph is None:
             def run():
                 return run_steps(self._plan, feed, False)[0]
             outs = warm_up(run, self.device)
+            if self._graphs:
+                _prof.bump_graph("retraces")
             self._graphs[key] = CapturedGraph(run, self.device)
             return outs, {}
+        _prof.bump_graph("dispatches_saved", max(0, len(self._plan[1]) - 1))
         return [o.clone() for o in graph.replay()], {}
 
     def _forward_islands(self, feed) -> List[torch.Tensor]:
@@ -520,6 +620,7 @@ class GraphProgram:
         eagerly where nothing is captured), the uncapturable nodes
         eagerly between them."""
         var_names, steps, head_keys = self._island_plan
+        _prof.bump_counter("dispatches", len(steps))
         vals = {n: feed[n] for n in var_names}
         gen = None
         for i, (op, attrs, in_keys, out_keys, _mut) in enumerate(steps):
@@ -538,6 +639,22 @@ class GraphProgram:
                     outs = _call(op, attrs, ins, False, gen, self.device)
             vals.update(zip(out_keys, outs))
         return [vals[k].clone() for k in head_keys]
+
+    def audit(self, feed: Optional[Mapping[str, torch.Tensor]] = None):
+        """Statically audit the plan this program captures
+        (`analysis.program_audit`): no host-bound op outside declared
+        fallback islands (for a program with islands, the island plan,
+        whose eager nodes are declared), and, given ``feed`` (the bound
+        inputs), no float64 promotion.  Runs no kernel.  Returns the
+        Finding list (empty = clean), counted in the ``audit`` family."""
+        from .analysis import program_audit as _audit
+        islands = self._island_plan is not None
+        plan = self._island_plan if islands else self._plan
+        if feed is not None:
+            feed = {**feed, **self.const_feed}
+        return _audit.record(_audit.audit_plan(
+            "graph_program:" + ("train" if self.train else "fwd"), plan,
+            feed=feed, islands=islands))
 
     def forward_train(self, feed: Mapping[str, torch.Tensor],
                       grad_names: Sequence[str],
@@ -583,6 +700,7 @@ class GraphCompiler:
         train = bool(train)
         prog = executor._own_programs.get(train)
         if prog is not None:
+            _prof.bump_graph("graph_cache_hits")
             return prog
         bound = {**executor.arg_dict, **executor.aux_dict}
         sig = tuple(sorted((n, tuple(a.shape), a.data.dtype)
@@ -590,11 +708,20 @@ class GraphCompiler:
         by_sig = executor._programs.setdefault(train, {})
         prog = by_sig.get(sig)
         if prog is None:
-            prog = by_sig[sig] = GraphProgram(
-                executor._symbol, train,
-                input_shapes={n: a.shape for n, a in bound.items()},
-                device=executor._ctx.device,
-                input_dtypes={n: a.data.dtype for n, a in bound.items()})
+            with telemetry.span("graph.compile", train=train,
+                                outputs=",".join(executor.output_names[:4])):
+                prog = by_sig[sig] = GraphProgram(
+                    executor._symbol, train,
+                    input_shapes={n: a.shape for n, a in bound.items()},
+                    device=executor._ctx.device,
+                    input_dtypes={n: a.data.dtype
+                                  for n, a in bound.items()})
+            _prof.bump_graph("graph_compiles")
+            if prog.fallback_nodes:
+                _prof.bump_graph("fallback_island_nodes",
+                                 prog.fallback_nodes)
+        else:
+            _prof.bump_graph("graph_cache_hits")
         executor._own_programs[train] = prog
         return prog
 

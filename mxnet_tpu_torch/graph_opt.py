@@ -55,6 +55,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from . import config
+from . import profiler as _prof
 from .attribute import strip_annotations
 from .base import MXNetError
 from .ops import registry as _reg
@@ -805,6 +806,13 @@ def optimize(symbol, shapes: Optional[Dict] = None,
         wall_ms = (time.perf_counter() - t0) * 1e3
         reports.append(PassReport(name, before, _n_compute(symbol), rewrites,
                                   round(wall_ms, 3), parity, details))
+        if rewrites:
+            _prof.bump_graph(f"graph_opt/{name}_rewrites", rewrites)
+    _prof.bump_graph("graph_opt/runs")
+    if reports:
+        removed = reports[0].nodes_before - reports[-1].nodes_after
+        if removed > 0:
+            _prof.bump_graph("graph_opt/nodes_removed", removed)
     return PipelineResult(symbol, const_feed, reports, True)
 
 
@@ -825,6 +833,7 @@ def _check_train_invariants(orig, opt) -> None:
     if orig._aux_var_names() != opt._aux_var_names():
         raise MXNetError("graph_opt: training rewrite changed the aux "
                          "state set")
+    _prof.bump_graph("graph_opt/train_verifies")
 
 
 def training_result(symbol):

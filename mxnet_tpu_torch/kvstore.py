@@ -30,7 +30,9 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from . import profiler as _prof
 from .base import MXNetError
+from .config import get_env
 from .ndarray import ndarray as _nd
 from .ndarray.ndarray import NDArray
 from .ndarray.sparse import BaseSparseNDArray, RowSparseNDArray
@@ -45,7 +47,7 @@ def _byteps_hook() -> bool:
     """The JAX package's asynchronous parameter-server switch."""
     flag = os.environ.get("BYTEPS_ENABLE_ASYNC", "").strip().lower()
     return flag not in ("", "0", "false") and \
-        bool(os.environ.get("MXTPU_PS_ADDR"))
+        bool(get_env("MXTPU_PS_ADDR"))
 
 
 class KVStore:
@@ -109,6 +111,12 @@ class KVStore:
     def _push_one(self, k, merged):
         """One key's push: the 2-bit quantization of a dense value under
         compression, then the optimizer (or a plain write)."""
+        # the JAX package's comm plane counts every local key on its
+        # per-key path (no buckets without a second process)
+        _prof.bump_comm("fallback_keys")
+        _prof.bump_comm("fallback_keys_sparse"
+                        if isinstance(merged, BaseSparseNDArray)
+                        else "fallback_keys_dense")
         if self._gc is not None and \
                 not isinstance(merged, BaseSparseNDArray):
             merged = NDArray(self._gc.quantize(k, merged.data).to(

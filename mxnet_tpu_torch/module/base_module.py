@@ -7,7 +7,10 @@ init_optimizer, then per batch one `fused_step` (the whole step as one
 program, captured as a CUDA graph on the card) where the module has one,
 else ``forward_backward()`` + ``update()``; the metric is updated on the
 host unless the step accumulated it itself (``last_step_metric_done``).
-``score`` and ``predict`` run inference forwards.
+Each step runs under a `telemetry.trace` id, stamps the steps/s gauge and
+feeds a `telemetry.SlowStepWatchdog` (input wait vs compute vs comm, on
+host clocks), as in the JAX package.  ``score`` and ``predict`` run
+inference forwards.
 
 With ``MXTPU_CKPT_DIR`` set, ``fit`` commits a checkpoint after every
 epoch (`checkpoint.CheckpointManager.save_module`) and, on a restart,
@@ -26,6 +29,8 @@ from typing import List
 import torch
 
 from .. import metric as metric_mod
+from .. import profiler as _prof
+from .. import telemetry as _tele
 from ..base import MXNetError
 from ..ndarray.ndarray import NDArray
 
@@ -193,19 +198,41 @@ class BaseModule:
         if not isinstance(eval_metric, metric_mod.EvalMetric):
             eval_metric = metric_mod.create(eval_metric)
 
+        # trailing-window anomaly detector: attributes a slow step to
+        # input wait vs compute vs comm through a structured event (host
+        # clocks only: nothing here waits for the card)
+        watchdog = _tele.SlowStepWatchdog()
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
             eval_metric.reset()
             nbatch = 0
             train_data.reset()
-            for data_batch in train_data:
-                if monitor is not None:
-                    monitor.tic()
-                if not self.fused_step(data_batch, eval_metric=eval_metric):
-                    self.forward_backward(data_batch)
-                    self.update()
-                if not self.last_step_metric_done:
-                    self.update_metric(eval_metric, data_batch.label)
+            data_iter = iter(train_data)
+            while True:
+                t_in = time.perf_counter()
+                try:
+                    data_batch = next(data_iter)
+                except StopIteration:
+                    break
+                input_s = time.perf_counter() - t_in
+                comm0 = float(_prof.comm_counters().get("blocked_s", 0.0))
+                t_step = time.perf_counter()
+                # one trace id per training step
+                with _tele.trace():
+                    if monitor is not None:
+                        monitor.tic()
+                    if not self.fused_step(data_batch,
+                                           eval_metric=eval_metric):
+                        self.forward_backward(data_batch)
+                        self.update()
+                    if not self.last_step_metric_done:
+                        self.update_metric(eval_metric, data_batch.label)
+                step_s = time.perf_counter() - t_step
+                comm_s = max(0.0, float(_prof.comm_counters()
+                                        .get("blocked_s", 0.0)) - comm0)
+                _tele.mark_step()
+                watchdog.observe(nbatch, input_s,
+                                 max(0.0, step_s - comm_s), comm_s)
                 if monitor is not None:
                     monitor.toc_print()
                 if batch_end_callback is not None:

@@ -36,6 +36,7 @@ import torch
 
 from .. import initializer as init_mod
 from .. import optimizer as opt_mod
+from .. import profiler as _prof
 from ..base import MXNetError
 from ..fused_step import fused_enabled
 from ..context import default_context
@@ -337,6 +338,7 @@ class Module(BaseModule):
         fst.attach_metric(eval_metric,
                           [d.name for d in self._label_shapes])
         if not fst.step(feeds):
+            _prof.bump_counter("fallback_steps")
             return False
         self.last_step_metric_done = fst.metric_in_trace
         return True

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from .. import autograd
+from .. import profiler as _prof
 from .. import random as _random
 from ..base import _Null
 from ..context import default_context
@@ -105,6 +106,7 @@ def invoke(op_name: str, *args, out=None, **kwargs):
                                 else attrs[DEVICE])
     a = Attrs(attrs)
     n_vis = op.num_outputs(a)
+    _prof.bump_counter("dispatches")  # one host dispatch per op invoke
     with autograd.grad_mode():
         outs = _reg.apply_op(op_name, tensors, attrs, generator=gen)
         if torch.is_grad_enabled():

@@ -20,11 +20,19 @@ Each kernel sits beside its plain PyTorch version.  A wrapper takes the
 plain version only for a tensor on the CPU (``meta`` tensors, which carry
 shapes and no values, take it too for shape inference); on a CUDA tensor
 it launches the kernel or raises.  `LAUNCHES` counts launches per kernel,
-so a run can show that its path went through the kernels.
+so a run can show that its path went through the kernels: `count_launch`
+adds to it under a lock, and a launch on a stream inside
+`recording_launches` (the stream a CUDA graph is being captured on, whose
+launches run nothing until a replay) counts into that capture's dict
+instead, from whichever thread makes it (autograd runs a captured
+backward on its own thread, on the forward's stream), so a capture
+neither takes nor hides the replays other threads count meanwhile.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -36,16 +44,51 @@ from .registry import register
 
 __all__ = ["flash_attention", "flash_attention_with_lse", "check_attention",
            "check_kernel_inputs", "KERNEL_HEAD_DIMS", "lstm_gates",
-           "check_lstm_kernel_inputs", "LAUNCHES", "reset_launch_counts"]
+           "check_lstm_kernel_inputs", "LAUNCHES", "reset_launch_counts",
+           "count_launch", "recording_launches"]
 
 #: launches per kernel since the last `reset_launch_counts`
 LAUNCHES: Dict[str, int] = {"flash_attn_fwd": 0, "flash_attn_bwd_dq": 0,
                             "flash_attn_bwd_dkv": 0, "lstm_gates": 0}
 
 
+_LAUNCH_LOCK = threading.Lock()
+#: raw stream handle -> the launch record of the capture running on it
+_RECORDING: Dict[int, Dict[str, int]] = {}
+
+
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCH_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def count_launch(kernel: str, n: int = 1, stream: int = 0) -> None:
+    """Count ``n`` launches of ``kernel`` made on raw stream handle
+    ``stream``: into the record of a capture on that stream, else into
+    `LAUNCHES`."""
+    with _LAUNCH_LOCK:
+        rec = _RECORDING.get(stream) if stream else None
+        if rec is not None:
+            rec[kernel] = rec.get(kernel, 0) + n
+        else:
+            LAUNCHES[kernel] += n
+
+
+@contextlib.contextmanager
+def recording_launches(stream: int):
+    """The launches counted on raw stream handle ``stream`` inside, by
+    any thread, as a dict {kernel: n} kept out of `LAUNCHES`."""
+    counts: Dict[str, int] = {}
+    with _LAUNCH_LOCK:
+        if stream in _RECORDING:
+            raise MXNetError(f"stream 0x{stream:x} is already recording")
+        _RECORDING[stream] = counts
+    try:
+        yield counts
+    finally:
+        with _LAUNCH_LOCK:
+            del _RECORDING[stream]
 
 
 _NEG_INF = -1e30
@@ -164,14 +207,15 @@ def _call(entry: str, index: int, *args) -> None:
     CUDA device ``index``, which is made the current device only when it is
     not already; raise if the launch was refused, count it if not."""
     fn = _kernel_fn(entry)
+    stream = _current_stream(index)
     if _current_device() == index:
-        err = fn(*args, _current_stream(index))
+        err = fn(*args, stream)
     else:
         with torch.cuda.device(index):
-            err = fn(*args, _current_stream(index))
+            err = fn(*args, stream)
     if err:
         raise _cuda_error(entry, err)
-    LAUNCHES[_ENTRIES[entry][1]] += 1
+    count_launch(_ENTRIES[entry][1], stream=stream)
 
 
 def _launch(entry: str, q, k, ptrs, causal, scale) -> None:

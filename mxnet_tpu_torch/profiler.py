@@ -1,0 +1,1160 @@
+"""Profiler: the `mx.profiler` surface over `torch.profiler` (the
+counterpart of `mxnet_tpu/profiler.py`).
+
+Reference `src/profiler/profiler.h:256` + `python/mxnet/profiler.py`
+(`set_config/start/stop/dump/dumps`): the reference tags every engine opr
+and emits Chrome tracing JSON.  Here a capture is a `torch.profiler`
+profile with CPU and CUDA activities (the card's kernels, inside CUDA
+graph launches too), and `dump` writes it as one Chrome-trace JSON file
+at ``set_config(filename=...)`` (the JAX package writes an xplane
+directory instead).  Host-side spans (`Task`, `Frame`, `Event`, `Marker`)
+are `torch.profiler.record_function` ranges while a capture runs, and
+feed the in-memory aggregate table that `dumps` prints beside every
+counter family.  The counter families, gauges, `metrics_snapshot` and
+`metrics_text` are the JAX package's, family for family and key for key.
+Env-var autostart parity: `MXNET_PROFILER_AUTOSTART` (reference
+`docs/faq/env_var.md:179`).
+"""
+from __future__ import annotations
+
+import json
+import os
+import tempfile
+import threading
+import time
+from collections import deque
+from typing import Any, Dict, Optional
+
+import torch
+
+
+__all__ = ["set_config", "start", "stop", "dump", "dumps", "pause", "resume",
+           "Task", "Frame", "Event", "Counter", "Marker",
+           "step_counters", "reset_step_counters", "bump_counter",
+           "comm_counters", "reset_comm_counters", "bump_comm",
+           "serve_counters", "reset_serve_counters", "bump_serve",
+           "graph_counters", "reset_graph_counters", "bump_graph",
+           "spmd_counters", "reset_spmd_counters", "bump_spmd", "set_spmd",
+           "driver_counters", "reset_driver_counters", "bump_driver",
+           "set_driver",
+           "mesh_counters", "reset_mesh_counters", "bump_mesh",
+           "set_mesh",
+           "embed_counters", "reset_embed_counters", "bump_embed",
+           "set_embed",
+           "router_counters", "reset_router_counters", "bump_router",
+           "bump_router_many",
+           "autoscale_counters", "reset_autoscale_counters",
+           "bump_autoscale",
+           "audit_counters", "reset_audit_counters", "bump_audit",
+           "set_audit",
+           "bump_serve_many", "observe_serve_latency",
+           "observe_serve_latencies", "observe_span",
+           "register_gauge", "unregister_gauge", "gauges",
+           "register_metrics_family", "unregister_metrics_family",
+           "metrics_snapshot", "metrics_text",
+           "bump_unified", "set_unified", "unified_counters",
+           "reset_unified_counters", "bump_gen", "bump_gen_many",
+           "gen_counters", "reset_gen_counters"]
+
+_config: Dict[str, Any] = {"filename": "profile.json", "aggregate_stats": False}
+_state: Dict[str, Any] = {"running": False, "paused": False, "prof": None,
+                          "segments": [], "file": None}
+_aggregate: Dict[str, Dict[str, float]] = {}
+
+
+def observe_span(name: str, dt_ms: float) -> None:
+    """Fold one completed span into the aggregate table (count, total
+    and min/max — `aggregate_stats.cc` parity).  Called by `_Span.stop`
+    and by `telemetry.span`."""
+    rec = _aggregate.get(name)
+    if rec is None:
+        _aggregate[name] = {"count": 1, "total_ms": dt_ms,
+                            "min_ms": dt_ms, "max_ms": dt_ms}
+        return
+    rec["count"] += 1
+    rec["total_ms"] += dt_ms
+    if dt_ms < rec.get("min_ms", dt_ms):
+        rec["min_ms"] = dt_ms
+    if dt_ms > rec.get("max_ms", dt_ms):
+        rec["max_ms"] = dt_ms
+
+# ---------------------------------------------------------------------------
+# Step-level dispatch counters (fused train-step observability)
+# ---------------------------------------------------------------------------
+# The reference counted engine-opr pushes per segment; here the analogous
+# hot-path quantity is host dispatches per training step.  Every imperative
+# op invoke, every executor forward/backward, every program forward and
+# every one-graph step bumps "dispatches" (a CUDA graph replay is one
+# dispatch); a CUDA graph capture bumps "graph_captures", so a
+# steady-state loop holding it flat proves the hot path never captures.
+_STEP_COUNTERS: Dict[str, int] = {}
+
+
+def bump_counter(name: str, n: int = 1):
+    """Increment a step counter (cheap host dict add — safe on hot paths)."""
+    _STEP_COUNTERS[name] = _STEP_COUNTERS.get(name, 0) + n
+
+
+def step_counters() -> Dict[str, int]:
+    """Snapshot of the dispatch/retrace/donation counters:
+
+    * ``dispatches`` — host dispatches (op invokes + executor
+      forward/backward calls + program forwards + one-graph steps; a
+      CUDA graph replay counts one)
+    * ``graph_captures`` — CUDA graph captures (the port's counterpart
+      of the JAX package's ``jit_traces``)
+    * ``fused_steps`` / ``fallback_steps`` — whole-step fusion engagement
+    * ``multi_tensor_groups`` — (op, hyperparameters, dtype) groups
+      applied per multi-tensor update
+
+    Deltas around a step give per-step numbers: the fused path is O(1)
+    dispatches/step, the per-param path O(#params)."""
+    return dict(_STEP_COUNTERS)
+
+
+def reset_step_counters():
+    _STEP_COUNTERS.clear()
+
+
+# ---------------------------------------------------------------------------
+# Communication-plane counters (bucketed/overlapped gradient comms)
+# ---------------------------------------------------------------------------
+_COMM_COUNTERS: Dict[str, float] = {}
+
+
+def bump_comm(name: str, n=1):
+    """Increment a comm-plane counter (host dict add — hot-path safe)."""
+    _COMM_COUNTERS[name] = _COMM_COUNTERS.get(name, 0) + n
+
+
+def comm_counters() -> Dict[str, float]:
+    """Snapshot of the gradient-communication counters
+    (`mxnet_tpu.comm_plane`):
+
+    * ``bytes`` — payload bytes through the comm plane (bucket buffers
+      on the collective path + wire-v2 frame bytes on the PS path)
+    * ``frames`` — comm rounds issued: one per bucket allreduce, one
+      per PS batch frame, one per unbucketed fallback key (the quantity
+      bucketing collapses from O(#params) to O(#buckets))
+    * ``buckets`` — dtype-homogeneous flat buffers built
+    * ``fallback_keys`` — keys that took the bitwise-exact per-key path
+      (sparse / compressed / heterogeneous / bucketing disabled)
+    * ``wire_frames`` / ``wire_bytes`` — PS transport frames actually
+      sent (retries included), counted at the socket
+    * ``busy_s`` / ``blocked_s`` — seconds the comms lane spent working
+      vs. seconds callers spent blocked waiting on it;
+      ``overlap_fraction`` = 1 − blocked/busy (1.0 = comms fully hidden
+      behind compute, 0.0 = fully synchronous)
+    * ``inversions`` — times a job ran while a strictly-higher-priority
+      job sat queued behind it (the FIFO determinism the collective
+      path requires makes these observable rather than impossible)
+    * ``epoch_changes`` — elastic-membership transitions the comm plane
+      acted on (flush + bucket-plan invalidation, so no bucket ever
+      spans two memberships); ``bucket_plan_hits`` / ``_misses`` meter
+      the memoized packing
+    * ``stale_refreshes`` — async push frames refused by the server's
+      bounded-staleness guard and self-healed with a pull + one retry
+
+    Deltas around a step give per-step numbers."""
+    out = dict(_COMM_COUNTERS)
+    busy = float(out.get("busy_s", 0.0))
+    blocked = float(out.get("blocked_s", 0.0))
+    out["overlap_fraction"] = (
+        max(0.0, min(1.0, 1.0 - blocked / busy)) if busy > 0 else 0.0)
+    return out
+
+
+def reset_comm_counters():
+    _COMM_COUNTERS.clear()
+
+
+# ---------------------------------------------------------------------------
+# Graph-compiler counters (mxnet_tpu.graph_compile whole-graph programs)
+# ---------------------------------------------------------------------------
+_GRAPH_COUNTERS: Dict[str, float] = {}
+
+
+def bump_graph(name: str, n=1):
+    """Increment a graph-compiler counter (host dict add — hot-path safe)."""
+    _GRAPH_COUNTERS[name] = _GRAPH_COUNTERS.get(name, 0) + n
+
+
+def graph_counters() -> Dict[str, float]:
+    """Snapshot of the whole-graph-compiler counters
+    (`mxnet_tpu.graph_compile`):
+
+    * ``graph_compiles`` — GraphPrograms built (one per (symbol, train
+      mode, donation plan); the `telemetry.span('graph.compile')` wraps
+      each build)
+    * ``graph_cache_hits`` — program lookups answered from a cache
+      (executor-local or BucketingModule's per-bucket-key cache) instead
+      of building a new program
+    * ``retraces`` — new CUDA graph captures of an existing program (a
+      new input signature through the same program; flat in steady
+      state)
+    * ``dispatches_saved`` — op dispatches avoided vs. interpreting the
+      same graph op-by-op (compute-node count minus dispatches actually
+      launched, summed per compiled call)
+    * ``fallback_island_nodes`` — non-lowerable nodes carved out of
+      compiled programs at build time; they execute op-by-op between the
+      compiled islands (0 = the whole graph is one program)
+
+    Deltas around a forward give per-call numbers."""
+    return dict(_GRAPH_COUNTERS)
+
+
+def reset_graph_counters():
+    _GRAPH_COUNTERS.clear()
+
+
+# ---------------------------------------------------------------------------
+# SPMD counters (mxnet_tpu.parallel.spmd_step one-program mesh training)
+# ---------------------------------------------------------------------------
+_SPMD_COUNTERS: Dict[str, float] = {}
+
+
+def bump_spmd(name: str, n=1):
+    """Increment an SPMD-plane counter (host dict add — hot-path safe)."""
+    _SPMD_COUNTERS[name] = _SPMD_COUNTERS.get(name, 0) + n
+
+
+def set_spmd(name: str, value: float):
+    """Overwrite an SPMD gauge (replicas, shard_fraction, ...)."""
+    _SPMD_COUNTERS[name] = value
+
+
+def spmd_counters() -> Dict[str, float]:
+    """Snapshot of the one-program SPMD training counters
+    (`mxnet_tpu.parallel.spmd_step`):
+
+    * ``spmd_steps`` — batches served by the one-program SPMD step
+      (also mirrored into the general step-counter family)
+    * ``replicas`` — gauge: mesh size N of the active SPMD step
+    * ``reduce_scatter_bytes`` — cumulative payload bytes entering the
+      per-bucket gradient reduce-scatter (ZeRO-1 mode only; the
+      allreduce baseline's psum is not counted here)
+    * ``all_gather_bytes`` — cumulative payload bytes of the updated-
+      parameter all-gather (ZeRO-1 mode only)
+    * ``shard_fraction`` — gauge: optimizer-state bytes held by this
+      process's first device / logical state bytes, measured from the
+      live buffers' addressable shards (≈ 1/N under ZeRO-1, 1.0 in
+      allreduce mode)
+    * ``state_bytes_per_replica`` / ``state_bytes_total`` — the raw
+      numbers behind ``shard_fraction``
+    * ``resharding_events`` — shard scatter/merge authority transfers
+      (first step, checkpoint loads, classic-path interludes)
+
+    Deltas around a step give per-step numbers."""
+    return dict(_SPMD_COUNTERS)
+
+
+def reset_spmd_counters():
+    _SPMD_COUNTERS.clear()
+
+
+# ---------------------------------------------------------------------------
+# Unified-step counters (mxnet_tpu.unified_step one-substrate training)
+# ---------------------------------------------------------------------------
+_UNIFIED_COUNTERS: Dict[str, float] = {}
+
+
+def bump_unified(name: str, n=1):
+    """Increment a unified-step-plane counter (host dict add)."""
+    _UNIFIED_COUNTERS[name] = _UNIFIED_COUNTERS.get(name, 0) + n
+
+
+def set_unified(name: str, value: float):
+    """Overwrite a unified-step gauge (train_opt_rewrites, ...)."""
+    _UNIFIED_COUNTERS[name] = value
+
+
+def unified_counters() -> Dict[str, float]:
+    """Snapshot of the unified-train-step counters
+    (`mxnet_tpu.unified_step`):
+
+    * ``unified_steps`` — batches served by the one-substrate step
+      (dense or sharded profile; the legacy ``fused_steps``/
+      ``spmd_steps`` step counters still tick for their profile)
+    * ``metric_in_trace_steps`` — steps whose metric accumulation rode
+      INSIDE the compiled program (no per-step metric dispatches)
+    * ``train_opt_rewrites`` — gauge: graph-opt rewrites applied to the
+      most recently built training graph (sum over its PassReports)
+    * ``train_opt_nodes_before`` / ``train_opt_nodes_after`` — gauges:
+      compute-node counts around the training pass pipeline
+
+    Deltas around a step give per-step numbers."""
+    return dict(_UNIFIED_COUNTERS)
+
+
+def reset_unified_counters():
+    _UNIFIED_COUNTERS.clear()
+
+
+# ---------------------------------------------------------------------------
+# Training-driver counters (mxnet_tpu.train_driver robustness plane)
+# ---------------------------------------------------------------------------
+_DRIVER_COUNTERS: Dict[str, float] = {}
+
+
+def bump_driver(name: str, n=1):
+    """Increment a training-driver counter (host dict add)."""
+    _DRIVER_COUNTERS[name] = _DRIVER_COUNTERS.get(name, 0) + n
+
+
+def set_driver(name: str, value: float):
+    """Overwrite a training-driver gauge (supervised worker count)."""
+    _DRIVER_COUNTERS[name] = value
+
+
+def driver_counters() -> Dict[str, float]:
+    """Snapshot of the preemption-safe training-driver counters
+    (`mxnet_tpu.train_driver`):
+
+    * ``preempt_signals`` — SIGTERM/SIGINT stop requests received
+    * ``preempts`` — clean step-boundary preemption exits taken
+    * ``preempt_ckpt_commits`` / ``preempt_ckpt_timeouts`` /
+      ``preempt_ckpt_errors`` — fate of the bounded final checkpoint a
+      preemption triggers (commit beat the
+      ``MXTPU_PREEMPT_CKPT_TIMEOUT_S`` bound / was abandoned past it /
+      raised)
+    * ``anomaly_skipped_steps`` — optimizer updates the device-side
+      anomaly guard (``MXTPU_ANOMALY_GUARD``) skipped for a non-finite
+      loss or gradient norm
+    * ``anomaly_trips`` — `GradientAnomalyError` escalations after
+      ``MXTPU_ANOMALY_LIMIT`` consecutive skips
+    * ``worker_restarts`` — crashed workers respawned (fresh identity,
+      jittered backoff)
+    * ``worker_preempts`` — workers that exited with the clean
+      `PREEMPTED_EXIT_CODE` (never respawned)
+    * ``crash_loop_opens`` — crash-loop breakers opened
+      (``MXTPU_DRIVER_CRASH_LIMIT`` deaths inside the window)
+    * ``heartbeat_deaths`` — silent workers a heartbeat lease expiry
+      killed ahead of the exit-code path
+    * ``workers`` — gauge: worker slots under supervision
+    """
+    return dict(_DRIVER_COUNTERS)
+
+
+def reset_driver_counters():
+    _DRIVER_COUNTERS.clear()
+
+
+# ---------------------------------------------------------------------------
+# Elastic-mesh counters (mxnet_tpu.parallel.elastic_mesh device-loss plane)
+# ---------------------------------------------------------------------------
+_MESH_COUNTERS: Dict[str, float] = {}
+
+
+def bump_mesh(name: str, n=1):
+    """Increment an elastic-mesh counter (host dict add — hot-path safe)."""
+    _MESH_COUNTERS[name] = _MESH_COUNTERS.get(name, 0) + n
+
+
+def set_mesh(name: str, value: float):
+    """Overwrite an elastic-mesh gauge."""
+    _MESH_COUNTERS[name] = value
+
+
+def mesh_counters() -> Dict[str, float]:
+    """Snapshot of the elastic-mesh device-loss counters
+    (`mxnet_tpu.parallel.elastic_mesh` + the supervisor shrink path):
+
+    * ``device_losses`` — devices the per-step sentinel watchdog
+      declared hung/dead (each raises one `MeshDegradedError`)
+    * ``reshards`` — supervisor-driven mesh shrinks completed (the
+      SpmdTrainStep rebuilt over the surviving n' devices)
+    * ``reshard_ms`` — cumulative wall time of those shrinks (state
+      recovery + release + iterator reshard)
+    * ``buddy_recoveries`` — lost ZeRO-1 shards reconstructed in-memory
+      from the ring-successor buddy copy (MXTPU_SPMD_SHARD_REDUNDANCY)
+    * ``disk_recoveries`` — losses that fell back to a
+      ``latest_valid()`` disk checkpoint restore (no usable buddy)
+    * ``degraded_steps`` — SPMD steps run on a shrunken mesh after a
+      device loss (0 until the first shrink)
+
+    Deltas around a run give per-incident numbers."""
+    return dict(_MESH_COUNTERS)
+
+
+def reset_mesh_counters():
+    _MESH_COUNTERS.clear()
+
+
+# ---------------------------------------------------------------------------
+# Embedding-plane counters (mxnet_tpu.embedding_plane sparse tables)
+# ---------------------------------------------------------------------------
+_EMBED_COUNTERS: Dict[str, float] = {}
+
+
+def bump_embed(name: str, n=1):
+    """Increment an embedding-plane counter (host dict add — hot-path
+    safe; the plane's wire work runs on the engine comms lane but every
+    bump happens on the caller thread)."""
+    _EMBED_COUNTERS[name] = _EMBED_COUNTERS.get(name, 0) + n
+
+
+def set_embed(name: str, value: float):
+    """Overwrite an embedding gauge (``state_rows_alloc`` — the server's
+    cumulative lazily-allocated optimizer-state rows, echoed back on
+    every partial push)."""
+    _EMBED_COUNTERS[name] = value
+
+
+def embed_counters() -> Dict[str, float]:
+    """Snapshot of the sparse-embedding-plane counters
+    (`mxnet_tpu.embedding_plane`):
+
+    * ``ids_requested`` — embedding ids presented to lookup/prefetch
+      (duplicates included — the raw batch demand)
+    * ``rows_pulled`` — unique rows actually fetched over the wire
+      after in-batch dedup (what the partial pull paid for)
+    * ``rows_pushed`` — unique gradient rows pushed after the on-device
+      segment-sum collapsed duplicate ids
+    * ``pull_frames`` / ``push_frames`` — wire round-trips, one per
+      table shard a batch actually touched
+    * ``pull_bytes`` / ``push_bytes`` — row payload bytes over the wire
+      (the quantity that must scale with touched rows, not vocab)
+    * ``bytes_saved_vs_dense`` — bytes a dense full-table pull would
+      have moved minus what the partial pull moved, accumulated per pull
+    * ``state_rows_alloc`` — gauge: optimizer-state rows the server has
+      materialized lazily (first-touch allocation ⇒ O(touched-vocab)
+      server memory)
+    * ``stale_refreshes`` — SSP-refused partial pushes self-healed with
+      a refresh pull + one retry
+    * ``dedup_ratio`` — derived: ids_requested / rows_pulled (>= 1;
+      2.0 means each fetched row served two batch ids on average)
+
+    Deltas around a step give per-step numbers."""
+    out = dict(_EMBED_COUNTERS)
+    req = float(out.get("ids_requested", 0))
+    pulled = float(out.get("rows_pulled", 0))
+    out["dedup_ratio"] = (req / pulled) if pulled > 0 else 0.0
+    return out
+
+
+def reset_embed_counters():
+    _EMBED_COUNTERS.clear()
+
+
+# ---------------------------------------------------------------------------
+# Serving-plane counters (mxnet_tpu.serving micro-batched inference)
+# ---------------------------------------------------------------------------
+# Unlike the step/comm counters, the serving runtime is genuinely
+# multi-threaded (batcher thread + one dispatcher per replica + a socket
+# thread per connection), so these go through a lock: GIL-racy dict
+# read-modify-write would drop increments exactly when the numbers
+# matter (under load).
+_SERVE_COUNTERS: Dict[str, float] = {}
+# completion ring: (monotonic completion time, request latency seconds).
+# Bounded so a long-lived server never grows host memory; 8192 completed
+# requests is plenty for stable p99 estimates at any sane window.
+_SERVE_LAT: "deque" = deque(maxlen=8192)
+_SERVE_LOCK = threading.Lock()
+
+
+def bump_serve(name: str, n=1):
+    """Increment a serving counter (lock-protected: the serving plane is
+    multi-threaded, unlike the step/comm hot paths)."""
+    with _SERVE_LOCK:
+        _SERVE_COUNTERS[name] = _SERVE_COUNTERS.get(name, 0) + n
+
+
+def bump_serve_many(updates: Dict[str, float]):
+    """Increment several serving counters under ONE lock acquisition —
+    the dispatch hot path batches its per-flush bumps through here so
+    counter locking stays per-batch, not per-request."""
+    with _SERVE_LOCK:
+        for name, n in updates.items():
+            _SERVE_COUNTERS[name] = _SERVE_COUNTERS.get(name, 0) + n
+
+
+def observe_serve_latency(latency_s: float, now: Optional[float] = None):
+    """Record one completed request's end-to-end latency (enqueue ->
+    response ready), stamped with its completion time for QPS windows."""
+    with _SERVE_LOCK:
+        _SERVE_LAT.append((time.monotonic() if now is None else now,
+                           float(latency_s)))
+
+
+def observe_serve_latencies(latencies_s, now: float):
+    """Batch form of :func:`observe_serve_latency`: one lock, one
+    completion stamp for every request answered by the same flush."""
+    with _SERVE_LOCK:
+        for lat in latencies_s:
+            _SERVE_LAT.append((now, float(lat)))
+
+
+def _percentile(sorted_vals, q: float) -> float:
+    """Nearest-rank percentile over an already-sorted list."""
+    if not sorted_vals:
+        return 0.0
+    idx = min(len(sorted_vals) - 1, max(0, int(q * len(sorted_vals))))
+    return sorted_vals[idx]
+
+
+def serve_counters(window_s: float = 10.0) -> Dict[str, float]:
+    """Snapshot of the inference-serving counters (`mxnet_tpu.serving`):
+
+    * ``requests`` / ``responses`` / ``request_errors`` — accepted into
+      the queue / answered / failed inside the dispatcher
+    * ``shed`` — requests refused with ``ServerOverloadError`` at the
+      bounded queue (load shedding, NOT a failure of admitted work)
+    * ``batches`` — micro-batches flushed; ``flush_max_batch`` /
+      ``flush_deadline`` split them by trigger
+    * ``rows`` / ``pad_rows`` — real request rows dispatched vs padding
+      rows added to reach a ladder rung; ``batch_occupancy`` =
+      rows/(rows+pad_rows) (1.0 = every dispatched row was real) and
+      ``pad_waste`` is its complement — the device-time fraction burned
+      on padding
+    * ``dispatches`` / ``rung_<b>_dispatches`` — captured-graph replays
+      (total and per ladder rung); ``rungs_compiled`` — captures (all at
+      pool construction: flat after startup proves the hot path never
+      captures)
+    * ``wire_errors`` — malformed front-door frames (connection dropped)
+    * ``qps`` — responses per second over the trailing ``window_s``
+      seconds (completion-stamped ring, so an idle server decays to 0)
+    * ``p50_ms`` / ``p99_ms`` — end-to-end request latency percentiles
+      over the same window (enqueue -> response ready, padding +
+      batching delay included)
+    """
+    with _SERVE_LOCK:
+        out: Dict[str, float] = dict(_SERVE_COUNTERS)
+        lat = list(_SERVE_LAT)
+    rows = float(out.get("rows", 0))
+    pads = float(out.get("pad_rows", 0))
+    total = rows + pads
+    out["batch_occupancy"] = rows / total if total > 0 else 0.0
+    out["pad_waste"] = pads / total if total > 0 else 0.0
+    now = time.monotonic()
+    recent = [l for (t, l) in lat if now - t <= window_s]
+    out["qps"] = len(recent) / window_s if recent else 0.0
+    recent.sort()
+    out["p50_ms"] = _percentile(recent, 0.50) * 1e3
+    out["p99_ms"] = _percentile(recent, 0.99) * 1e3
+    return out
+
+
+def reset_serve_counters():
+    with _SERVE_LOCK:
+        _SERVE_COUNTERS.clear()
+        _SERVE_LAT.clear()
+
+
+# ---------------------------------------------------------------------------
+# Generation counters (mxnet_tpu.generation continuous-batching plane)
+# ---------------------------------------------------------------------------
+# The decode lane is threaded like the serving plane (pump thread +
+# per-connection handler threads submitting), so this family is
+# lock-protected too.  TTFT rides a completion-stamped ring like the
+# serve latency ring; tokens/s rides a (completion time, token count)
+# ring so an idle decoder decays to 0.
+_GEN_COUNTERS: Dict[str, float] = {}
+_GEN_TTFT: "deque" = deque(maxlen=8192)
+_GEN_TOKENS: "deque" = deque(maxlen=8192)
+_GEN_SLOTS = {"active": 0, "total": 0}
+_GEN_LOCK = threading.Lock()
+
+
+def bump_gen(name: str, n=1):
+    """Increment a generation counter."""
+    with _GEN_LOCK:
+        _GEN_COUNTERS[name] = _GEN_COUNTERS.get(name, 0) + n
+
+
+def bump_gen_many(updates: Dict[str, float]):
+    """Increment several generation counters under ONE lock
+    acquisition (the per-chunk hot path batches through here)."""
+    with _GEN_LOCK:
+        for name, n in updates.items():
+            _GEN_COUNTERS[name] = _GEN_COUNTERS.get(name, 0) + n
+
+
+def set_gen_slots(active: int, total: int):
+    """Publish the decode arena's live occupancy (slots holding an
+    in-flight sequence / arena width)."""
+    with _GEN_LOCK:
+        _GEN_SLOTS["active"] = int(active)
+        _GEN_SLOTS["total"] = int(total)
+
+
+def observe_gen_ttft(ttft_s: float, now: Optional[float] = None):
+    """Record one sequence's time-to-first-token (submit -> first
+    generated token visible at a chunk boundary), completion-stamped
+    for windowed percentiles."""
+    with _GEN_LOCK:
+        _GEN_TTFT.append((time.monotonic() if now is None else now,
+                          float(ttft_s)))
+
+
+def observe_gen_tokens(n: int, now: Optional[float] = None):
+    """Record ``n`` generated tokens completing now (tokens/s window)."""
+    with _GEN_LOCK:
+        _GEN_TOKENS.append((time.monotonic() if now is None else now,
+                            int(n)))
+
+
+def gen_counters(window_s: float = 10.0) -> Dict[str, float]:
+    """Snapshot of the generation counters (`mxnet_tpu.generation`):
+
+    * ``requests`` / ``admits`` / ``evictions`` — submitted to the
+      decode lane / installed into an arena slot / finished sequences
+      whose slot freed at a chunk boundary
+    * ``chunks`` / ``steps`` — chunk-program dispatches and the decode
+      steps they covered (steps = chunks x chunk_steps: the arena is
+      fixed-shape, so dispatched steps, not per-slot progress)
+    * ``sheds`` / ``priority_sheds`` / ``deadline_refusals`` — queue-
+      full refusals / queued low-priority requests shed to admit normal
+      traffic / requests refused because the estimated wait already
+      exceeded their deadline budget (never queued to die)
+    * ``slots_active`` / ``slots_total`` / ``occupancy`` — live arena
+      occupancy (occupancy = active/total; 1.0 = every slot decoding)
+    * ``ttft_ms_p50`` / ``ttft_ms_p99`` — time-to-first-token
+      percentiles over the trailing ``window_s`` seconds
+    * ``tokens_per_s`` — generated tokens per second over the same
+      window (completion-stamped, so an idle decoder decays to 0)
+    """
+    with _GEN_LOCK:
+        out: Dict[str, float] = dict(_GEN_COUNTERS)
+        ttft = list(_GEN_TTFT)
+        toks = list(_GEN_TOKENS)
+        active = _GEN_SLOTS["active"]
+        total = _GEN_SLOTS["total"]
+    out["slots_active"] = float(active)
+    out["slots_total"] = float(total)
+    out["occupancy"] = active / total if total > 0 else 0.0
+    now = time.monotonic()
+    recent = sorted(l for (t, l) in ttft if now - t <= window_s)
+    out["ttft_ms_p50"] = _percentile(recent, 0.50) * 1e3
+    out["ttft_ms_p99"] = _percentile(recent, 0.99) * 1e3
+    recent_toks = sum(n for (t, n) in toks if now - t <= window_s)
+    out["tokens_per_s"] = recent_toks / window_s if recent_toks else 0.0
+    return out
+
+
+def reset_gen_counters():
+    with _GEN_LOCK:
+        _GEN_COUNTERS.clear()
+        _GEN_TTFT.clear()
+        _GEN_TOKENS.clear()
+        _GEN_SLOTS["active"] = 0
+        _GEN_SLOTS["total"] = 0
+
+
+# ---------------------------------------------------------------------------
+# Fleet-router counters (mxnet_tpu.serving_fleet resilience plane)
+# ---------------------------------------------------------------------------
+# The router is as multi-threaded as the serving runtime (one handler
+# thread per client connection + the health checker + the supervisor
+# monitor), so this family is lock-protected like the serve counters.
+_ROUTER_COUNTERS: Dict[str, float] = {}
+_ROUTER_LOCK = threading.Lock()
+
+
+def bump_router(name: str, n=1):
+    """Increment a fleet-router counter (lock-protected)."""
+    with _ROUTER_LOCK:
+        _ROUTER_COUNTERS[name] = _ROUTER_COUNTERS.get(name, 0) + n
+
+
+def bump_router_many(updates: Dict[str, float]):
+    """Increment several router counters under one lock acquisition."""
+    with _ROUTER_LOCK:
+        for name, n in updates.items():
+            _ROUTER_COUNTERS[name] = _ROUTER_COUNTERS.get(name, 0) + n
+
+
+def router_counters() -> Dict[str, float]:
+    """Snapshot of the fleet-router counters (`mxnet_tpu.serving_fleet`):
+
+    * ``requests`` / ``responses`` — infer frames routed / answered
+    * ``failovers`` — in-flight requests resubmitted once to a healthy
+      replica after the first replica died, hung or desynced (safe: the
+      serving path is read-only); ``drain_bounces`` — requests bounced
+      off a replica that started draining underneath the router
+    * ``replica_errors`` — replica-side transport failures observed
+    * ``no_healthy_replica`` — requests failed because the whole fleet
+      was down (structured ``NoHealthyReplicaError``)
+    * ``sheds_relayed`` — replica overload sheds relayed to the client
+      with a ``retry_after_ms`` hint derived from the replica's queue
+      depth and p99
+    * ``breaker_open`` / ``breaker_half_open`` / ``breaker_closed`` —
+      per-replica circuit-breaker transitions INTO each state
+    * ``health_probes`` / ``health_failures`` — active health checks
+      sent / failed (ping + stats poll per replica per interval)
+    * ``drains`` / ``hot_swaps`` / ``deploys`` / ``deploy_failures`` /
+      ``rollbacks`` — rolling-deploy machinery: per-replica drains,
+      per-replica pool swaps, whole-fleet deploys completed/aborted,
+      rollbacks to the previous registry version
+    * ``canary_passes`` / ``canary_mismatches`` — post-deploy canary
+      requests whose pinned-input output matched / diverged from the
+      old version (a mismatch aborts + rolls back the deploy)
+    * ``replica_restarts`` / ``crash_loop_opens`` — supervisor respawns
+      of dead replica processes and crash-loop breakers opened (a slot
+      abandoned after too many restarts inside the window)
+
+    Deltas around an incident are the forensic record."""
+    with _ROUTER_LOCK:
+        return dict(_ROUTER_COUNTERS)
+
+
+def reset_router_counters():
+    with _ROUTER_LOCK:
+        _ROUTER_COUNTERS.clear()
+
+
+# ---------------------------------------------------------------------------
+# Autoscale counters (mxnet_tpu.autoscale elasticity plane)
+# ---------------------------------------------------------------------------
+# Bumped from the autoscaler control loop AND from the router's
+# admission / warm-up paths (per-connection handler threads), so this
+# family is lock-protected like the router counters.
+_AUTOSCALE_COUNTERS: Dict[str, float] = {}
+_AUTOSCALE_LOCK = threading.Lock()
+
+
+def bump_autoscale(name: str, n=1):
+    """Increment an autoscale counter (lock-protected)."""
+    with _AUTOSCALE_LOCK:
+        _AUTOSCALE_COUNTERS[name] = _AUTOSCALE_COUNTERS.get(name, 0) + n
+
+
+def autoscale_counters() -> Dict[str, float]:
+    """Snapshot of the serving-fleet autoscale counters
+    (`mxnet_tpu.autoscale` + the router's admission plane):
+
+    * ``polls`` — autoscaler control-loop decisions taken
+    * ``scale_ups`` / ``scale_downs`` — replicas spawned under queue /
+      p99 pressure, replicas retired after the sustained-idle window
+    * ``warmups`` — fresh replicas promoted warming -> active after
+      passing a health probe (a cold replica never takes traffic)
+    * ``warmup_failures`` — warming replicas abandoned after the
+      warm-up timeout without ever passing a probe
+    * ``brownout_enters`` / ``brownout_exits`` — declared degraded-mode
+      transitions at max fleet + sustained saturation, and the clean
+      recoveries that restored the base batching ladder
+    * ``deadline_sheds`` — requests refused at admission because their
+      declared deadline budget could not be met (refused immediately
+      with an honest ``retry_after_ms``, never queued to die)
+    * ``priority_sheds`` — low-priority requests shed first while the
+      fleet is in brownout
+    * ``cooldown_holds`` — scale decisions suppressed by the
+      hysteresis cooldown window
+
+    Deltas around a spike are the forensic record."""
+    with _AUTOSCALE_LOCK:
+        return dict(_AUTOSCALE_COUNTERS)
+
+
+def reset_autoscale_counters():
+    with _AUTOSCALE_LOCK:
+        _AUTOSCALE_COUNTERS.clear()
+
+
+# ---------------------------------------------------------------------------
+# Static-analysis audit counters (mxnet_tpu.analysis.program_audit)
+# ---------------------------------------------------------------------------
+_AUDIT_COUNTERS: Dict[str, float] = {}
+
+
+def bump_audit(name: str, n=1):
+    """Increment a program-audit counter (host dict add)."""
+    _AUDIT_COUNTERS[name] = _AUDIT_COUNTERS.get(name, 0) + n
+
+
+def set_audit(name: str, value: float):
+    """Overwrite a program-audit gauge."""
+    _AUDIT_COUNTERS[name] = value
+
+
+def audit_counters() -> Dict[str, float]:
+    """Snapshot of the static program-audit counters
+    (`mxnet_tpu.analysis.program_audit`):
+
+    * ``programs_audited`` — step programs walked by the auditor (their
+      plan, and with live tensors, one step's storage)
+    * ``clean_programs`` — audited programs with ZERO findings
+    * ``findings_total`` — findings across all audits, plus a
+      ``findings_<rule>`` counter per rule id (``host_callback``,
+      ``donation_miss``, ``f64_promotion``, ``retrace_hazard``)
+    * ``donated_leaves_checked`` / ``donation_aliases_confirmed`` — how
+      many parameters the step updates in place vs. how many kept their
+      storage (``data_ptr``) across a step
+
+    Every finding is also printed as a grep-able ``AUDIT-FINDINGS``
+    forensic line by `analysis.program_audit.dump_findings`."""
+    return dict(_AUDIT_COUNTERS)
+
+
+def reset_audit_counters():
+    _AUDIT_COUNTERS.clear()
+
+
+# ---------------------------------------------------------------------------
+# One metrics surface: every counter family + live gauges, one snapshot
+# ---------------------------------------------------------------------------
+# Subsystems that own state a bare counter can't capture register here:
+# gauges are zero-arg callables returning a number (serve queue depth,
+# steps/s); families are zero-arg callables returning a dict (the PS
+# client/server counters, membership state).  `metrics_snapshot()` is
+# the single pane of glass the serving `stats` op answers with.
+_GAUGES: Dict[str, Any] = {}
+_FAMILIES: Dict[str, Any] = {}
+
+
+def register_gauge(name: str, fn) -> None:
+    """Register a live gauge: ``fn()`` -> number, sampled at snapshot
+    time.  Re-registering a name replaces it (latest owner wins)."""
+    _GAUGES[str(name)] = fn
+
+
+def unregister_gauge(name: str) -> None:
+    _GAUGES.pop(str(name), None)
+
+
+def register_metrics_family(name: str, fn) -> None:
+    """Register a counter family: ``fn()`` -> dict, merged into
+    `metrics_snapshot()` under ``name``.  Latest owner wins."""
+    _FAMILIES[str(name)] = fn
+
+
+def unregister_metrics_family(name: str) -> None:
+    _FAMILIES.pop(str(name), None)
+
+
+def gauges() -> Dict[str, float]:
+    """Sample every registered gauge (a broken gauge reports NaN rather
+    than poisoning the snapshot)."""
+    out: Dict[str, float] = {}
+    for name, fn in list(_GAUGES.items()):
+        try:
+            out[name] = float(fn())
+        except Exception:
+            out[name] = float("nan")
+    return out
+
+
+def metrics_snapshot() -> Dict[str, Dict[str, Any]]:
+    """THE unified metrics surface: every counter family (step, comm,
+    serve, plus whatever subsystems registered — e.g. ``ps``) and the
+    live gauges, as one nested dict of plain wire-encodable values."""
+    out: Dict[str, Dict[str, Any]] = {
+        "step": dict(step_counters()),
+        "comm": comm_counters(),
+        "serve": serve_counters(),
+        "gen": gen_counters(),
+        "graph": graph_counters(),
+        "router": router_counters(),
+        "autoscale": autoscale_counters(),
+        "spmd": spmd_counters(),
+        "unified": unified_counters(),
+        "driver": driver_counters(),
+        "mesh": mesh_counters(),
+        "embed": embed_counters(),
+        "audit": audit_counters(),
+    }
+    for name, fn in list(_FAMILIES.items()):
+        try:
+            fam = fn()
+            out[name] = dict(fam) if isinstance(fam, dict) else \
+                {"value": fam}
+        except Exception as e:
+            out[name] = {"error": f"{type(e).__name__}: {e}"}
+    out["gauges"] = gauges()
+    return out
+
+
+def _metric_name(*parts: str) -> str:
+    toks = []
+    for p in parts:
+        toks.append("".join(c if c.isalnum() else "_" for c in str(p)))
+    return "mxtpu_" + "_".join(t for t in toks if t)
+
+
+def metrics_text(snapshot: Optional[Dict[str, Dict[str, Any]]] = None) -> str:
+    """Prometheus-style text exposition of `metrics_snapshot()`: one
+    ``mxtpu_<family>_<name> <value>`` line per numeric metric
+    (non-numeric family entries — membership lists, logs — are
+    skipped; scrape the stats op for those)."""
+    snap = metrics_snapshot() if snapshot is None else snapshot
+    lines = []
+    for family in sorted(snap):
+        vals = snap[family]
+        if not isinstance(vals, dict):
+            continue
+        for key in sorted(vals, key=str):
+            v = vals[key]
+            if isinstance(v, bool):
+                v = int(v)
+            if isinstance(v, (int, float)):
+                lines.append(f"{_metric_name(family, key)} {v}")
+    return "\n".join(lines) + ("\n" if lines else "")
+
+
+def set_config(**kwargs):
+    """Accepts the reference's kwargs (profile_all, profile_symbolic,
+    profile_imperative, profile_memory, profile_api, filename,
+    aggregate_stats...); the capture records CPU and CUDA activity, so
+    the booleans are recorded but do not subset the trace."""
+    _config.update(kwargs)
+
+
+def profiler_set_config(mode="symbolic", filename="profile.json"):
+    _config["filename"] = filename
+
+
+def _activities():
+    from torch.profiler import ProfilerActivity
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    return acts
+
+
+def start(profile_process="worker"):
+    """Begin capture (reference `MXProfileSetState(1)`): a new trace;
+    what an earlier capture recorded is dropped."""
+    if _state["running"]:
+        return
+    _state["segments"] = []
+    _begin()
+
+
+def _begin():
+    prof = torch.profiler.profile(activities=_activities())
+    prof.start()
+    _state["prof"] = prof
+    _state["running"] = True
+    _state["paused"] = False
+
+
+def _end():
+    prof = _state.get("prof")
+    if prof is not None:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        prof.stop()
+        _state["segments"].append(prof)
+        _state["prof"] = None
+    _state["running"] = False
+
+
+def stop(profile_process="worker"):
+    if not _state["running"]:
+        return
+    _end()
+
+
+def pause(profile_process="worker"):
+    """Suspend capture WITHOUT forgetting the trace: `resume` records into
+    the same logical profile, so one dump holds every segment (the
+    reference's ProfilerState toggling)."""
+    if not _state["running"]:
+        return
+    _end()
+    _state["paused"] = True
+
+
+def resume(profile_process="worker"):
+    """Resume a paused capture into the SAME trace (see `pause`); without
+    a prior pause this is plain `start`."""
+    if _state["running"]:
+        return
+    if _state["paused"]:
+        _begin()
+        return
+    start(profile_process)
+
+
+def _trace_events() -> list:
+    """The Chrome-trace events of every segment captured since the last
+    `start` (a running capture is stopped first)."""
+    if _state["running"]:
+        _end()
+    events = []
+    for prof in _state["segments"]:
+        fd, tmp = tempfile.mkstemp(suffix=".json")
+        os.close(fd)
+        try:
+            prof.export_chrome_trace(tmp)
+            with open(tmp) as f:
+                events.extend(json.load(f).get("traceEvents", []))
+        finally:
+            os.remove(tmp)
+    return events
+
+
+def dump(finished=True, profile_process="worker"):
+    """Finish capture and write every segment's events as one
+    Chrome-tracing JSON file at the configured ``filename``; returns its
+    path, or None when nothing was captured."""
+    if not _state["segments"] and not _state["running"]:
+        return None
+    out = _config.get("filename", "profile.json")
+    events = _trace_events()
+    d = os.path.dirname(os.path.abspath(out))
+    os.makedirs(d, exist_ok=True)
+    with open(out, "w") as f:
+        json.dump({"traceEvents": events}, f)
+    _state["file"] = out
+    return out
+
+
+def set_state(state="stop", profile_process="worker"):
+    """Deprecated-in-reference state toggle (`profiler.py:set_state`):
+    'run' starts profiling, 'stop' stops it."""
+    if state == "run":
+        start(profile_process)
+    elif state == "stop":
+        stop(profile_process)
+    else:
+        raise ValueError(f"unknown profiler state {state!r}")
+
+
+def profiler_set_state(state="stop"):
+    """Deprecated alias of :func:`set_state` (reference keeps both)."""
+    import warnings
+    warnings.warn("profiler.profiler_set_state is deprecated; use "
+                  "profiler.set_state", DeprecationWarning)
+    set_state(state)
+
+
+def dump_profile():
+    """Deprecated alias of :func:`dump` (reference `profiler.py:dump_profile`)."""
+    import warnings
+    warnings.warn("profiler.dump_profile is deprecated; use profiler.dump",
+                  DeprecationWarning)
+    dump(True)
+
+
+def set_kvstore_handle(handle):
+    """Reference `profiler.py:set_kvstore_handle` -- attaches server-side
+    profiling to a kvstore.  The port's store runs in one process (no
+    server processes yet); accepted as a no-op."""
+
+
+def dumps(reset=False):
+    """In-memory aggregate table (reference `aggregate_stats.cc`:
+    Count/Total/Min/Max/Mean) followed by every counter family, so one
+    call prints the whole picture."""
+    lines = [f"{'Name':<40}{'Count':<10}{'Total(ms)':<14}{'Min(ms)':<12}"
+             f"{'Max(ms)':<12}{'Mean(ms)':<12}"]
+    for name, rec in sorted(_aggregate.items()):
+        count = int(rec["count"])
+        mean = rec["total_ms"] / count if count else 0.0
+        lines.append(f"{name:<40}{count:<10}{rec['total_ms']:<14.3f}"
+                     f"{rec.get('min_ms', 0.0):<12.3f}"
+                     f"{rec.get('max_ms', 0.0):<12.3f}{mean:<12.3f}")
+    snap = metrics_snapshot()
+    for family in sorted(snap):
+        vals = snap[family]
+        if not vals:
+            continue
+        lines.append(f"-- {family} --")
+        for key in sorted(vals):
+            lines.append(f"{key:<54}{vals[key]!r}")
+    if reset:
+        _aggregate.clear()
+    return "\n".join(lines)
+
+
+class _Span:
+    """Host-side span: feeds both the aggregate table and (while a capture
+    runs) a `torch.profiler.record_function` range in the trace."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._t0 = None
+        self._ann = None
+
+    def start(self):
+        self._t0 = time.perf_counter()
+        # only pay for a range while a capture runs -- host spans in
+        # steady state are a perf_counter read
+        if _state["running"]:
+            self._ann = torch.profiler.record_function(self.name)
+            self._ann.__enter__()
+
+    def stop(self):
+        if self._ann is not None:
+            self._ann.__exit__(None, None, None)
+            self._ann = None
+        if self._t0 is not None:
+            observe_span(self.name, (time.perf_counter() - self._t0) * 1e3)
+
+    def __enter__(self):
+        self.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop()
+
+
+class Task(_Span):
+    """Reference `ProfileTask`."""
+    def __init__(self, domain=None, name="task"):
+        super().__init__(name if isinstance(name, str) else str(name))
+
+
+class Frame(_Span):
+    def __init__(self, domain=None, name="frame"):
+        super().__init__(str(name))
+
+
+class Event(_Span):
+    def __init__(self, name="event"):
+        super().__init__(str(name))
+
+
+class Counter:
+    """Reference `ProfileCounter`."""
+    def __init__(self, domain=None, name="counter", value=0):
+        self.name = str(name)
+        self.value = value
+
+    def set_value(self, v):
+        self.value = v
+
+    def increment(self, delta=1):
+        self.value += delta
+
+    def decrement(self, delta=1):
+        self.value -= delta
+
+    def __iadd__(self, v):
+        self.value += v
+        return self
+
+    def __isub__(self, v):
+        self.value -= v
+        return self
+
+
+class Domain:
+    def __init__(self, name):
+        self.name = name
+
+
+class Marker:
+    """Reference `ProfileMarker`: an INSTANT event -- `mark(scope)` stamps
+    a zero-duration entry into the aggregate table (and a range in the
+    trace while a capture runs)."""
+
+    def __init__(self, domain=None, name="marker"):
+        self.name = str(name)
+
+    def mark(self, scope="process"):
+        rec = _aggregate.setdefault(self.name,
+                                    {"count": 0, "total_ms": 0.0})
+        rec["count"] += 1
+        if _state["running"]:
+            with torch.profiler.record_function(self.name):
+                pass
+
+
+from .config import get_env as _get_env  # noqa: E402
+if _get_env("MXNET_PROFILER_AUTOSTART"):
+    # the reference writes the autostarted profile at exit; stopping the
+    # capture there also keeps the profiler's teardown out of exit
+    import atexit
+    atexit.register(dump)
+    start()

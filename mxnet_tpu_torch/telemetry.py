@@ -1,0 +1,434 @@
+"""Telemetry plane: structured events, cross-process trace propagation,
+and an always-on flight recorder (the counterpart of
+`mxnet_tpu/telemetry.py`, plain Python, the same records).
+
+1. **Events and spans** -- :func:`event` stamps a structured record (wall
+   + monotonic clocks, process role, worker id, thread) into a bounded
+   in-process ring and, when ``MXTPU_TELEMETRY_DIR`` is set, appends it
+   to a per-process JSONL log.  :class:`span` times a region, feeds the
+   ``profiler`` aggregate table, and emits a duration event.  Both are
+   cheap enough for hot paths: a dict build + deque append when no
+   telemetry dir is set.
+
+2. **Trace propagation** -- :class:`trace` opens a trace id in
+   thread-local context; :func:`wire_context` serializes it as the
+   optional trailing context dict that serving ``infer`` frames carry
+   (peers that predate it never see it: old serving frames simply omit
+   the fourth element).  :func:`adopt` installs a received context on
+   the handler thread so server-side events join the caller's trace.
+
+3. **Flight recorder** -- the ring is always recording (size
+   ``MXTPU_FLIGHT_RECORDER_SIZE``).  :func:`dump_flight_recorder` prints
+   it in one grep-able format (every line prefixed ``FLIGHT-RECORDER``),
+   and :func:`install_crash_handlers` arranges automatic dumps on
+   uncaught exceptions and SIGTERM, chaining the handler it replaces;
+   structured error paths (serving overload sheds, drain timeouts, a
+   poisoned dispatch) call :func:`record_error` themselves.
+
+On top of the events, :class:`SlowStepWatchdog` (used by
+``Module.fit``) keeps a trailing window of step times and emits a
+``slow_step`` event attributing an anomalous step to input vs compute
+vs comm.
+"""
+from __future__ import annotations
+
+import json
+import os
+import signal
+import sys
+import threading
+import time
+import uuid
+from collections import deque
+from typing import Any, Dict, List, Optional
+
+from .config import get_env
+
+__all__ = ["event", "span", "trace", "adopt", "new_trace_id",
+           "current_trace", "wire_context", "CTX_KEY",
+           "flight_records", "dump_flight_recorder", "record_error",
+           "install_crash_handlers", "reset",
+           "SlowStepWatchdog", "mark_step", "steps_per_s"]
+
+# Reserved key of the optional wire context dict.  No PS op takes a
+# top-level dict with this key as its last positional argument, so a
+# telemetry-aware server can strip it unambiguously.
+CTX_KEY = "_trace"
+
+_tls = threading.local()
+# RLock: a SIGTERM dump may interrupt the main thread inside event()
+_lock = threading.RLock()
+_ring: deque = deque(maxlen=int(get_env("MXTPU_FLIGHT_RECORDER_SIZE", 512)))
+# JSONL writers keyed by pid so a fork never appends to the parent's file
+_writers: Dict[int, Any] = {}
+_last_dump = {"t": 0.0}
+_installed = {"crash": False}
+# the live SIGTERM handler + the handler it replaced, so repeat
+# installs can recognise (and never clobber) a chain built on top of it
+_term: Dict[str, Any] = {"handler": None, "prev": None}
+
+
+def _role() -> str:
+    # mxtpu-lint: disable=raw-env-read -- DMLC_* is the launcher's
+    # protocol (assigned per process), not a user knob
+    return os.environ.get("DMLC_ROLE", "worker")
+
+
+def _worker_id() -> str:
+    # no function-level package import here: event() runs on handler
+    # threads that may start while the main thread is still importing
+    # the package, and a call-time `from . import config` would block on
+    # the import lock.  Use the module-level get_env binding.
+    wid = get_env("MXTPU_WORKER_ID")
+    # mxtpu-lint: disable=raw-env-read -- DMLC_* launcher protocol
+    return wid or os.environ.get("DMLC_RANK") or ""
+
+
+# ---------------------------------------------------------------------------
+# trace-context propagation
+# ---------------------------------------------------------------------------
+
+def new_trace_id() -> str:
+    return uuid.uuid4().hex[:16]
+
+
+def current_trace() -> Optional[str]:
+    """The trace id ambient on this thread, or None."""
+    return getattr(_tls, "trace", None)
+
+
+class trace:
+    """Open (or join) a trace on this thread::
+
+        with telemetry.trace() as tid:      # new id
+            ...
+        with telemetry.trace(tid):          # join an existing one
+            ...
+    """
+
+    def __init__(self, trace_id: Optional[str] = None,
+                 name: Optional[str] = None):
+        self.trace_id = trace_id or new_trace_id()
+        self.name = name
+        self._prev: Optional[str] = None
+
+    def __enter__(self) -> str:
+        self._prev = current_trace()
+        _tls.trace = self.trace_id
+        if self.name:
+            event("trace.begin", label=self.name)
+        return self.trace_id
+
+    def __exit__(self, *exc):
+        if self.name:
+            event("trace.end", label=self.name)
+        _tls.trace = self._prev
+
+
+def wire_context() -> Optional[Dict[str, str]]:
+    """The context dict to append to an outgoing wire frame, or None
+    when no trace is ambient (old-peer safe: nothing is ever sent)."""
+    tid = current_trace()
+    return {CTX_KEY: tid} if tid else None
+
+
+def adopt(ctx):
+    """Install a received wire context on the handling thread.  Accepts
+    anything (None, a non-dict, a dict without the key) and degrades to
+    a no-op so handlers can call it unconditionally."""
+    tid = ctx.get(CTX_KEY) if isinstance(ctx, dict) else None
+    return trace(tid) if tid else _NullCtx()
+
+
+class _NullCtx:
+    def __enter__(self):
+        return current_trace()
+
+    def __exit__(self, *exc):
+        return False
+
+
+# ---------------------------------------------------------------------------
+# events + JSONL logs + flight-recorder ring
+# ---------------------------------------------------------------------------
+
+def _writer():
+    """Per-process JSONL sink under MXTPU_TELEMETRY_DIR (None = off)."""
+    tdir = get_env("MXTPU_TELEMETRY_DIR", "")
+    if not tdir:
+        return None
+    pid = os.getpid()
+    w = _writers.get(pid)
+    if w is None:
+        os.makedirs(tdir, exist_ok=True)
+        path = os.path.join(tdir, f"events-{_role()}-{pid}.jsonl")
+        w = open(path, "a", buffering=1)
+        _writers[pid] = w
+    return w
+
+
+def event(name: str, *, dur_ms: Optional[float] = None,
+          trace_id: Optional[str] = None, **fields) -> Dict[str, Any]:
+    """Record one structured event (always into the flight-recorder
+    ring; into the JSONL log too when a telemetry dir is set).
+
+    ``dur_ms`` marks a completed span (the event's timestamps are its
+    END; begin = ts - dur).  ``trace_id`` overrides the thread-ambient
+    trace id.  Extra keyword fields ride along verbatim."""
+    rec: Dict[str, Any] = {
+        "name": name,
+        "ts": time.time(),
+        "mono": time.monotonic(),
+        "pid": os.getpid(),
+        "role": _role(),
+        "worker": _worker_id(),
+        "thread": threading.current_thread().name,
+    }
+    tid = trace_id or current_trace()
+    if tid:
+        rec["trace"] = tid
+    if dur_ms is not None:
+        rec["dur_ms"] = float(dur_ms)
+    if fields:
+        rec.update(fields)
+    with _lock:
+        _ring.append(rec)
+        w = _writer()
+        if w is not None:
+            try:
+                w.write(json.dumps(rec, default=str) + "\n")
+            except (OSError, ValueError):
+                pass
+    return rec
+
+
+class span:
+    """Time a region: emits one duration event at exit and feeds the
+    profiler aggregate table (so `profiler.dumps()` sees it)::
+
+        with telemetry.span("ps.server.push", worker=wid):
+            ...
+    """
+
+    __slots__ = ("name", "fields", "_t0")
+
+    def __init__(self, name: str, **fields):
+        self.name = name
+        self.fields = fields
+        self._t0 = None
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, etype, exc, tb):
+        dt_ms = (time.perf_counter() - self._t0) * 1e3
+        # the module-global ``_prof`` (bound at the bottom of this file)
+        # rather than a lazy ``from . import profiler``, for the same
+        # import-lock reason as ``_worker_id``
+        _prof.observe_span(self.name, dt_ms)
+        if etype is not None:
+            self.fields["error"] = etype.__name__
+        event(self.name, dur_ms=dt_ms, **self.fields)
+        return False
+
+
+# ---------------------------------------------------------------------------
+# flight recorder
+# ---------------------------------------------------------------------------
+
+def flight_records() -> List[Dict[str, Any]]:
+    with _lock:
+        return list(_ring)
+
+
+def dump_flight_recorder(reason: str = "manual", file=None) -> str:
+    """Dump the ring in the one grep-able forensic format (every line
+    prefixed ``FLIGHT-RECORDER``).  Destination precedence: explicit
+    ``file`` > ``MXTPU_FLIGHT_RECORDER_PATH`` (appended) > stderr.
+    Returns the dumped text."""
+    recs = flight_records()
+    lines = [f"FLIGHT-RECORDER == dump ({reason}) role={_role()} "
+             f"pid={os.getpid()} events={len(recs)} =="]
+    for r in recs:
+        try:
+            lines.append("FLIGHT-RECORDER " + json.dumps(r, default=str))
+        except (TypeError, ValueError):
+            lines.append("FLIGHT-RECORDER " + repr(r))
+    text = "\n".join(lines)
+    path = get_env("MXTPU_FLIGHT_RECORDER_PATH", "")
+    try:
+        if file is not None:
+            file.write(text + "\n")
+        elif path:
+            with open(path, "a") as f:
+                f.write(text + "\n")
+        else:
+            sys.stderr.write(text + "\n")
+    except OSError:
+        pass
+    return text
+
+
+def record_error(exc_or_msg, *, dump: bool = True,
+                 **fields) -> Dict[str, Any]:
+    """Record a structured error event and (throttled) dump the flight
+    recorder -- the hook the serving shed and dispatch paths call when
+    something worth a postmortem happens."""
+    if isinstance(exc_or_msg, BaseException):
+        fields.setdefault("kind", type(exc_or_msg).__name__)
+        msg = str(exc_or_msg)
+    else:
+        msg = str(exc_or_msg)
+    rec = event("error", msg=msg, **fields)
+    if dump:
+        min_iv = float(get_env("MXTPU_FLIGHT_RECORDER_MIN_INTERVAL_S", 5.0))
+        now = time.monotonic()
+        with _lock:
+            due = now - _last_dump["t"] >= min_iv
+            if due:
+                _last_dump["t"] = now
+        if due:
+            dump_flight_recorder(f"error:{fields.get('kind', 'n/a')}")
+    return rec
+
+
+def install_crash_handlers() -> None:
+    """Arrange automatic flight-recorder dumps on uncaught exceptions
+    and (main thread only, re-raising the default action afterwards)
+    SIGTERM.  Idempotent; gated by ``MXTPU_FLIGHT_RECORDER``.
+
+    SIGTERM composes instead of clobbering: a handler installed AFTER
+    this one (e.g. the training driver's preemption handler) may chain
+    by calling the previous handler it captured.  When ours fires as a
+    link in such a chain — it is no longer the handler ``signal``
+    reports as installed — it only dumps and returns, leaving process
+    exit to the outer handler; only when it is still the installed
+    handler does it restore its own predecessor and re-raise.  Repeat
+    installs recognise both our own handler and any callable marked
+    ``_mxtpu_sigterm_chain`` and leave the chain untouched."""
+    if not get_env("MXTPU_FLIGHT_RECORDER", True):
+        return
+    if not _installed["crash"]:
+        _installed["crash"] = True
+
+        prev_hook = sys.excepthook
+
+        def _hook(etype, value, tb):
+            try:
+                event("uncaught", kind=etype.__name__, msg=str(value))
+                dump_flight_recorder(f"uncaught:{etype.__name__}")
+            except Exception:
+                pass
+            prev_hook(etype, value, tb)
+
+        sys.excepthook = _hook
+
+    if (get_env("MXTPU_FLIGHT_RECORDER_SIGNALS", True)
+            and threading.current_thread() is threading.main_thread()):
+        try:
+            cur = signal.getsignal(signal.SIGTERM)
+            if (cur is not None and cur is _term["handler"]) \
+                    or getattr(cur, "_mxtpu_sigterm_chain", False):
+                return  # ours, or a chain built on ours — keep it
+            prev = cur
+
+            def _on_term(signum, frame):
+                try:
+                    dump_flight_recorder("SIGTERM")
+                finally:
+                    if signal.getsignal(signal.SIGTERM) is _on_term:
+                        # still the installed handler: restore our
+                        # predecessor + re-raise so the process dies
+                        # the way its supervisor expects
+                        signal.signal(
+                            signal.SIGTERM,
+                            prev if callable(prev) else signal.SIG_DFL)
+                        os.kill(os.getpid(), signal.SIGTERM)
+                    # else: invoked as a chained link of a handler
+                    # installed after us — exit is its decision
+
+            _on_term._mxtpu_flight_recorder = True
+            _term["handler"] = _on_term
+            _term["prev"] = prev
+            signal.signal(signal.SIGTERM, _on_term)
+        except (ValueError, OSError):
+            pass  # not the main thread after all / embedded interpreter
+
+
+def reset() -> None:
+    """Clear the ring and the dump throttle (tests)."""
+    with _lock:
+        _ring.clear()
+        _last_dump["t"] = 0.0
+
+
+# ---------------------------------------------------------------------------
+# steps/s + the slow-step watchdog
+# ---------------------------------------------------------------------------
+
+_STEP_TIMES: deque = deque(maxlen=1024)
+
+
+def mark_step(now: Optional[float] = None) -> None:
+    """Stamp one completed training step (feeds the steps/s gauge)."""
+    with _lock:
+        _STEP_TIMES.append(time.monotonic() if now is None else now)
+
+
+def steps_per_s(window_s: float = 10.0) -> float:
+    now = time.monotonic()
+    with _lock:
+        n = sum(1 for t in _STEP_TIMES if now - t <= window_s)
+    return n / window_s if n else 0.0
+
+
+class SlowStepWatchdog:
+    """Trailing-window anomaly detector for training steps.
+
+    ``observe(step, input_s, compute_s, comm_s)`` compares the step's
+    total against the trailing-window median; past
+    ``MXTPU_SLOW_STEP_FACTOR`` × median it emits a structured
+    ``slow_step`` event blaming the dominant component (input wait vs
+    compute vs comm block).  The anomalous step is observed AFTER the
+    check so a stall cannot poison its own baseline."""
+
+    def __init__(self, window: Optional[int] = None,
+                 factor: Optional[float] = None,
+                 min_warmup: int = 4):
+        self.window = int(window if window is not None
+                          else get_env("MXTPU_SLOW_STEP_WINDOW", 32))
+        self.factor = float(factor if factor is not None
+                            else get_env("MXTPU_SLOW_STEP_FACTOR", 3.0))
+        self.min_warmup = max(2, int(min_warmup))
+        self._hist: deque = deque(maxlen=max(2, self.window))
+        self.triggered = 0
+
+    def observe(self, step: int, input_s: float, compute_s: float,
+                comm_s: float) -> Optional[Dict[str, Any]]:
+        total = float(input_s) + float(compute_s) + float(comm_s)
+        rec = None
+        if len(self._hist) >= self.min_warmup:
+            ordered = sorted(self._hist)
+            median = ordered[len(ordered) // 2]
+            if median > 0 and total > self.factor * median:
+                parts = {"input": float(input_s),
+                         "compute": float(compute_s),
+                         "comm": float(comm_s)}
+                blame = max(parts, key=parts.get)
+                self.triggered += 1
+                rec = event("slow_step", step=int(step), blame=blame,
+                            total_s=total, baseline_s=median,
+                            factor=total / median,
+                            input_s=float(input_s),
+                            compute_s=float(compute_s),
+                            comm_s=float(comm_s))
+        self._hist.append(total)
+        return rec
+
+
+# steps/s is a first-class gauge on the one metrics surface
+from . import profiler as _prof  # noqa: E402  (bottom: avoids import cycle)
+_prof.register_gauge("steps_per_s", steps_per_s)
+
+install_crash_handlers()

@@ -47,6 +47,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from . import config
+from . import profiler as _prof
 from . import random as _random
 from .graph_compile import (CapturedGraph, build_steps, feed_key,
                             graph_compile_enabled, record_steps, tape_grads,
@@ -237,6 +238,13 @@ class UnifiedTrainStep:
                            if n in wanted}
         sym, reports = training_result(executor._symbol)
         self.opt_reports = list(reports)
+        if reports:
+            _prof.bump_unified("train_opt_rewrites",
+                               sum(r.rewrites for r in reports))
+            _prof.set_unified("train_opt_nodes_before",
+                              reports[0].nodes_before)
+            _prof.set_unified("train_opt_nodes_after",
+                              reports[-1].nodes_after)
         self._plan = build_steps(sym)
         self._device = executor._ctx.device
         self._graphs: Dict[Tuple, CapturedGraph] = {}
@@ -252,6 +260,10 @@ class UnifiedTrainStep:
         #: (device tensors; True and None with the guard off)
         self.last_step_ok: Any = True
         self.last_grad_norm: Optional[torch.Tensor] = None
+        # what `audit` reads of the last step: its update layout and
+        # scalars, and the storage of what it updates in place
+        self._audit_last: Optional[Dict[str, Any]] = None
+        self._capture_ptrs: Dict[Tuple, Dict[str, int]] = {}
 
     @property
     def captured(self) -> bool:
@@ -402,6 +414,11 @@ class UnifiedTrainStep:
                     s.acc.add_(inc)
             return outs, ok, gnorm
 
+        inplace = {f"weight:{n}": w for n, w in zip(names, ws)}
+        inplace.update({f"state{k}:{names[p]}": t
+                        for p in range(len(names))
+                        for k, t in enumerate(states[p])})
+        ptrs_before = {k: t.data_ptr() for k, t in inplace.items()}
         if self.captured:
             key = (tuple((op, canonical_attrs(st), tuple(p))
                          for op, st, p in layout), rescale, clip, guard,
@@ -413,11 +430,25 @@ class UnifiedTrainStep:
             if graph is None:
                 res = warm_up(body, self._device)
                 self._graphs[key] = CapturedGraph(body, self._device, gen)
+                self._capture_ptrs[key] = dict(ptrs_before)
             else:
                 res = graph.replay()
+            ptrs_before = self._capture_ptrs[key]
         else:
             res = body()
+        self._audit_last = {
+            "layout": layout, "values": values, "feed": feed,
+            "before": ptrs_before,
+            "after": {k: t.data_ptr() for k, t in inplace.items()}}
         outs, ok, gnorm = res
+        # host dict adds around the replay, never inside the captured body
+        _prof.bump_counter("dispatches")
+        _prof.bump_counter("fused_steps")
+        _prof.bump_counter("multi_tensor_groups", len(layout))
+        if unified_enabled():
+            _prof.bump_unified("unified_steps")
+        if slots:
+            _prof.bump_unified("metric_in_trace_steps")
         exec_.outputs = [NDArray(o) for o in outs]
         exec_._tape = None
         self.last_step_ok = ok if guard else True
@@ -425,3 +456,37 @@ class UnifiedTrainStep:
         self._metric_commit({n: tuple(exec_.arg_dict[n].shape)
                              for s in slots for _oi, n in s.pairs})
         return True
+
+    def audit(self):
+        """Statically audit the last step (`analysis.program_audit`): no
+        host-bound op in the training plan, no float64 promotion, no
+        lr/wd among an update group's static hyperparameters or the
+        plan's attrs (they must come from the step's device buffer), and
+        every weight and optimizer state the update writes in place kept
+        its storage across the step and since its capture.  Runs no
+        kernel.  Returns the Finding list (empty = clean)."""
+        from .analysis import program_audit as _audit
+        last = self._audit_last
+        if last is None:
+            raise RuntimeError("audit() needs a step first -- call step() "
+                               "once, then audit")
+        lrs = [float(v[0]) for v in last["values"]]
+        wds = [float(v[1]) for v in last["values"]]
+        hazards = {"lr": lrs, "wd": wds}
+        findings = _audit.audit_plan("fused_step", self._plan,
+                                     feed=last["feed"],
+                                     hazard_values=hazards)
+        for j, (op, static, _poss) in enumerate(last["layout"]):
+            for key, value in static.items():
+                hit = None if isinstance(value, bool) else \
+                    _audit._matches(value, _audit._hazards(hazards))
+                if hit is not None:
+                    findings.append(_audit.Finding(
+                        "fused_step", _audit.R_RETRACE, f"groups[{j}]",
+                        f"{hit[0]}={hit[1]!r} is a static hyperparameter "
+                        f"{key!r} of the `{op}` update group: a new value "
+                        "is a new capture", primitive=str(op),
+                        extra={"label": hit[0], "value": hit[1]}))
+        findings += _audit.audit_storage("fused_step", last["before"],
+                                         last["after"])
+        return _audit.record(findings)

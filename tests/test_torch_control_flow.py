@@ -405,8 +405,12 @@ def _rnn_data():
 def test_module_fit_trains_foreach_rnn():
     """The reference test's settings (10 epochs of Adam at lr 0.02) train
     the port's foreach RNN past 0.9 accuracy, the cell weights allocated
-    by the body-shape back-fill."""
+    by the body-shape back-fill.  The initializer draws from the port's
+    generator, seeded here: unseeded, its state is whatever the tests run
+    before this one in the same process left (1 of 12 seeds lands at
+    exactly 0.9)."""
     X, y = _rnn_data()
+    mt.random.seed(0)
     with mt.cpu():
         it = mt.io.NDArrayIter(X, y, batch_size=8,
                                label_name="softmax_label")
