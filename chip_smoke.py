@@ -64,7 +64,7 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    bucket, T = 60 and T = 10.  The graph optimizer must swap all 2·T LSTM
    cells onto K4 (and no attention site); each forward must launch K4 2·T
    times and K1 never; 4 requests per bucket must match a Predictor of the
-   unfused graph within 1e-4; then 200 (T = 60) and 400 (T = 10) warm
+   unfused graph within 1e-4; then 100 (T = 60) and 400 (T = 10) warm
    requests are timed and one forward at T = 60 is profiled.  As in
    phase 4, one replay per bucket must launch K4 2·T times in the trace,
    and an eager Predictor per bucket must give the captured outputs.
@@ -288,8 +288,52 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    the card (the island plan) against the CPU, both branches.  K4 is the
    phase's only TPU kernel, in 14b.
 
+16. the rest of the serving plane, fp32 with TF32 off.  16a: phase 6's
+   PTB LSTM LM as one decode step (`lm_cell_symbol`: heads ``[logits,
+   h0', c0', h1', c1']``) rewritten by ``graph_opt.optimize``, which must
+   put both LSTM sites on `_fused_lstm_gates` (K4); one step of it within
+   LSTM_SLICE_TOL of the unfused cell's on the same seeded states; as
+   `generation.DecodeEngine` (GEN_SLOTS slots, GEN_CHUNK steps a chunk,
+   prompts up to GEN_PROMPT, outputs up to GEN_TOKENS) its chunk must be
+   one graph launch holding 2 · GEN_CHUNK K4 launches in the profiler's
+   trace (the session's first launch a warm-up, as in 15b), and both
+   programs are built once (``traces`` 2 through every
+   admission); GEN_PROMPTS prompts of GEN_PROMPT_LEN tokens of synthetic
+   Markov text asking for GEN_NEW tokens, decoded through `DecodeService`
+   continuously (the main path: K4 2 · GEN_CHUNK times a chunk) and with
+   ``MXTPU_GEN_CONTINUOUS=0``, each bit-equal to ``decode_sequential``;
+   a cell with an eos id stops every sequence at its first eos.  Printed:
+   the chunk replay's ms, tokens/s each way, TTFT p50/p99, mean
+   occupancy, one profiled chunk's idle share.  16b: the cell saved as a
+   decode blob, registered in a `ModelRegistry`, loaded back and decoding
+   bit-equal; then `ModelServer(phase 15's pool, decode=DecodeService)`
+   with 4 client threads interleaving ``generate`` (each reply equal to
+   the oracle's) and ``infer`` (each reply bit-equal to its rung's run).
+   16c: FLEET_REPLICAS replica processes (``python -m
+   mxnet_tpu_torch.serving_fleet --replica``, phase 15's blob at the
+   FLEET_LADDER, the decode blob as ``--gen-blob``) on the one card under
+   a `ReplicaSupervisor`, a `Router` in this process: its reply bit-equal
+   to each replica's direct one at rung 4 and within RUNG_TOL of phase
+   15's pool, as every reply of the traffic; FLEET_REQUESTS clean
+   requests from FLEET_CLIENTS clients, then FLEET_CHAOS_REQUESTS with a
+   `FaultPlan` SIGKILL of a replica at dispatch FLEET_KILL_AT (no request
+   lost; the supervisor's respawn readmitted by a health probe); a
+   rolling deploy to a same-weights v2 past its canary, a v3 of other
+   weights refused by the canary and rolled back, a corrupt blob
+   (``corrupt_blob_on_deploy``) rolled back, a rollback to v1, and
+   ``Router.generate`` equal to the oracle.  16d: an `Autoscaler` (SCALE)
+   over one replica: a burst of SCALE_BURST clients at poll
+   SCALE_SPIKE_AT grows the fleet, the fresh replica is SIGKILLed before
+   its warm-up (untouched by traffic while warming) and respawned, and
+   after the burst the fleet returns to its floor; no request lost.
+   Printed: rows/s and client p50/p99 through the router, each replica's
+   start-up, deploy, refusal and rollback seconds, the scale-up's seconds
+   from spawn to admitted, the card's peak memory (``nvidia-smi``).  K4
+   runs in 16a-b, K1 in 16b's pool and in the replicas.
+
 If the run nears its time limit, cut the serving phases' ``TIMED`` and
-``LSTM_TIMED`` counts before anything of the training phase.
+``LSTM_TIMED`` counts and FLEET_REQUESTS before anything of the training
+phase.
 
 The line before the last is the JSON kernel report; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -366,7 +410,7 @@ SLICE_TOL = 1e-3
 CAPTURE_TOL = 1e-6
 # requests timed per bound sequence length, after the checked ones and one
 # warm-up
-TIMED = {512: 200, 128: 400}
+TIMED = {512: 100, 128: 400}
 # training slice: each parameter's gradient against the unfused graph's,
 # relative to its largest magnitude (the reference's attention-gradient
 # tolerance); the key biases, zero in exact arithmetic, are held below
@@ -396,7 +440,7 @@ LSTM_OPS = 3 * 3 + 2 + 3 + 1
 LSTM_SLICE_TOL = 1e-4
 # LSTM LM: requests timed per bucket, after the checked ones and one warm-up
 LSTM_BATCH = 32
-LSTM_TIMED = {60: 200, 10: 400}
+LSTM_TIMED = {60: 100, 10: 400}
 # Gluon ResNet-50: serving batch and requests timed per way; training batch,
 # warm-up and timed steps; the train_cifar10.py optimizer settings, the lr
 # reached by a linear ramp over the 12 updates: at a constant 0.05 (8x the
@@ -628,6 +672,28 @@ SERVE_DELAY_MS = 2.0
 # CAPTURE_TOL); at one rung the rows are bit-equal
 RUNG_TOL = 1e-5
 SERVE_RUNG_TIMED = 20
+# phase 16: the PTB LSTM LM decoded by the slot arena (the LM's published
+# batch of 32 as the arena width), GEN_PROMPTS prompts of GEN_PROMPT_LEN
+# tokens of synthetic Markov text asking for GEN_NEW tokens; the fused
+# decode cell's step against the unfused one within LSTM_SLICE_TOL
+GEN_SLOTS, GEN_CHUNK, GEN_PROMPT, GEN_TOKENS = 32, 16, 64, 128
+GEN_PROMPTS, GEN_PROMPT_LEN, GEN_NEW = 128, (4, 64), (8, 128)
+GEN_WIRE_REQUESTS = 64
+# 16c: replica processes on the one card, phase 15's blob at this ladder;
+# FLEET_REQUESTS clean requests, then FLEET_CHAOS_REQUESTS with a SIGKILL
+# at router dispatch FLEET_KILL_AT (cut these first if the run nears its
+# limit)
+FLEET_REPLICAS, FLEET_LADDER = 3, (1, 2, 4, 8)
+FLEET_REQUESTS, FLEET_CHAOS_REQUESTS, FLEET_KILL_AT = 400, 200, 40
+FLEET_CLIENTS, FLEET_READY_S, FLEET_WAIT_S = 4, 180.0, 120.0
+# 16d: the autoscaler from a floor of 1 to at most 3 replicas, a burst of
+# SCALE_BURST clients at poll SCALE_SPIKE_AT, the idle window set short
+# (the cooldown outlasts the scale-up's spawn, kill and respawn, so the
+# burst grows the fleet once and the floor follows soon after it ends)
+SCALE = dict(min_replicas=1, max_replicas=3, up_queue_rows=4,
+             down_queue_rows=1, idle_window_s=2.0, cooldown_s=30.0,
+             interval_s=0.2, warmup_timeout_s=180.0, drain_wait_s=5.0)
+SCALE_BURST, SCALE_SPIKE_AT = 16, 3
 # 14e: example/module/sequential_module.py's MLP on MNIST-shaped data
 SEQ_MLP = dict(features=784, batch=100, steps=5, lr=0.1)
 SEQ_TOL = 1e-6
@@ -6238,9 +6304,10 @@ def serving_swap(pool, pred, path, seq, vocab, tmpdir,
 
 
 def phase_serving(card, cfg=None, seq=SERVE_SEQ, ladder=SERVE_LADDER,
-                  profile=True):
+                  profile=True, keep=False):
     """Phase 15: BERT-base served through the whole plane.  Returns its
-    K1 launches."""
+    K1 launches; with ``keep`` also what phase 16 serves on (the pool,
+    the blobs, their directory, which the caller then removes)."""
     t_phase = time.perf_counter()
     cfg = dict(cfg or BERT_BASE)
     n_layers = cfg["num_layers"]
@@ -6264,7 +6331,10 @@ def phase_serving(card, cfg=None, seq=SERVE_SEQ, ladder=SERVE_LADDER,
         wire = serving_wire(pool, seq, cfg["vocab"])
         swap = serving_swap(pool, pred, path, seq, cfg["vocab"], tmpdir)
         launches = dict(hk.LAUNCHES)
-    finally:
+    except BaseException:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+        raise
+    if not keep:
         shutil.rmtree(tmpdir, ignore_errors=True)
     if any(launches[k] for k in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv",
                                  "lstm_gates")):
@@ -6275,6 +6345,818 @@ def phase_serving(card, cfg=None, seq=SERVE_SEQ, ladder=SERVE_LADDER,
            "phase_s": time.perf_counter() - t_phase}
     log(json.dumps(rec, default=float))
     log(f"serving: phase 15 in {rec['phase_s']:.1f} s")
+    if keep:
+        return launches, dict(
+            pool=pool, cfg=cfg, seq=seq, tmpdir=tmpdir, v1=path,
+            v2=os.path.join(tmpdir, "bert_v2.blob"), sym=sym,
+            shapes={"data": (max(ladder) // 2, seq),
+                    "positions": (max(ladder) // 2, seq)})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the rest of the serving plane -- the decode arena on K4, the
+# decode lane on the wire, a fleet of replica processes, the autoscaler
+# ---------------------------------------------------------------------------
+
+def lm_cell_symbol(mx, num_layers=2, num_hidden=200, num_embed=200,
+                   vocab=10000):
+    """One step of MXNet's PTB LSTM LM built with package ``mx``: the
+    token embedded, each `rnn.LSTMCell` of the stack stepped on the state
+    variables ``h<i>``, ``c<i>``, the decoder; heads ``[logits, h0', c0',
+    h1', c1', ...]`` (the shape `generation.DecodeCell.from_symbol`
+    takes)."""
+    sym = mx.sym
+    x = sym.Embedding(sym.var("token"), input_dim=vocab,
+                      output_dim=num_embed, name="embed")
+    states = []
+    for i in range(num_layers):
+        cell = mx.rnn.LSTMCell(num_hidden=num_hidden, prefix=f"lstm_l{i}_")
+        x, (h, c) = cell(x, [sym.var(f"h{i}"), sym.var(f"c{i}")])
+        states += [h, c]
+    return sym.Group([sym.FullyConnected(x, num_hidden=vocab, name="pred")]
+                     + states)
+
+
+def lm_decode_cells(cfg, slots, device):
+    """The LM's decode cell rewritten by `graph_opt` (every LSTM site on
+    `_fused_lstm_gates`, K4) and the unfused one, on the same seeded
+    weights on ``device``."""
+    from mxnet_tpu_torch import graph_opt
+    from mxnet_tpu_torch.generation import DecodeCell
+    sym = lm_cell_symbol(mt, **cfg)
+    order = [f"{k}{i}" for i in range(cfg["num_layers"]) for k in "hc"]
+    shapes = {"token": (slots,)}
+    shapes.update({n: (slots, cfg["num_hidden"]) for n in order})
+    arg_shapes, _, _ = sym.infer_shape(**shapes)
+    params = random_params({n: s for n, s in zip(sym.list_arguments(),
+                                                 arg_shapes)
+                            if n not in shapes}, SEED + 16)
+    specs = {n: ((cfg["num_hidden"],), np.float32) for n in order}
+    with pallas_mode("auto"):
+        res = graph_opt.optimize(sym, shapes=shapes,
+                                 device=torch.device(device))
+    fused_sites = json.loads(res.symbol.tojson())["nodes"]
+    n_fused = sum(1 for n in fused_sites if n["op"] == "_fused_lstm_gates")
+    if n_fused != cfg["num_layers"]:
+        raise AssertionError(f"graph_opt put {n_fused} LSTM sites on K4, "
+                             f"want {cfg['num_layers']}")
+    feed = dict(params)
+    feed.update({k: v.numpy() for k, v in res.const_feed.items()})
+    ctx = mt.gpu(0)
+    fused = DecodeCell.from_symbol(res.symbol, feed, specs, cfg["vocab"],
+                                   state_order=order, ctx=ctx)
+    unfused = DecodeCell.from_symbol(sym, params, specs, cfg["vocab"],
+                                     state_order=order, ctx=ctx)
+    return fused, unfused, order
+
+
+def _cell_step_err(fused, unfused, order, cfg, slots):
+    """One step of both cells on the same seeded arena states and
+    tokens: the worst of logits' and states' max |a - b| over the largest
+    |b|."""
+    rng = np.random.RandomState(SEED + 161)
+    dev = fused.device
+    state = {n: torch.from_numpy((0.5 * rng.randn(
+        slots, cfg["num_hidden"])).astype(np.float32)).to(dev)
+        for n in order}
+    tok = torch.from_numpy(rng.randint(0, cfg["vocab"], slots)
+                           .astype(np.int32)).to(dev)
+    with torch.inference_mode():
+        s1, l1 = fused.step_fn(fused.params, state, tok)
+        s2, l2 = unfused.step_fn(unfused.params, state, tok)
+    errs = {"logits": _row_rel_err(l1.cpu().numpy(), l2.cpu().numpy())}
+    for n in order:
+        errs[n] = _row_rel_err(s1[n].cpu().numpy(), s2[n].cpu().numpy())
+    return errs
+
+
+def _gen_prompts(vocab, n, seed):
+    """``n`` prompts of GEN_PROMPT_LEN tokens cut from one synthetic
+    Markov stream, and budgets in GEN_NEW, from ``seed``."""
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(GEN_PROMPT_LEN[0], GEN_PROMPT_LEN[1] + 1, n)
+    budgets = [int(b) for b in rng.randint(GEN_NEW[0], GEN_NEW[1] + 1, n)]
+    stream = _markov_stream(vocab, int(lens.sum()), seed).astype(np.int32)
+    cuts = np.cumsum(lens)[:-1]
+    return [p.copy() for p in np.split(stream, cuts)], budgets
+
+
+def _serve_decode(svc, prompts, budgets):
+    """Every prompt submitted to ``svc`` at once; the outputs, the wall
+    seconds to the last one and each request's TTFT ms."""
+    t0 = time.perf_counter()
+    futs = [svc.submit(p, b) for p, b in zip(prompts, budgets)]
+    outs = [f.result(timeout=600.0) for f in futs]
+    return outs, time.perf_counter() - t0, [f.ttft_ms for f in futs]
+
+
+def _same_tokens(what, got, want):
+    bad = [i for i, (g, w) in enumerate(zip(got, want))
+           if not np.array_equal(np.asarray(g), w)]
+    if bad or len(got) != len(want):
+        raise AssertionError(f"{what}: sequences {bad[:8]} differ from "
+                             f"decode_sequential")
+
+
+def chunk_replay_check(eng, want):
+    """Two chunks of ``eng`` under the profiler, each one graph launch:
+    the second must hold ``want`` K4 launches by the Chrome trace's
+    correlation ids, and no K4 may run outside a graph launch.  The
+    session's first graph launch is a warm-up left out of the count (as
+    in 15b: in a whole run of this script on an H100 at 700 W it read 30
+    of 32)."""
+    from torch.profiler import ProfilerActivity, profile
+    eng.step_chunk()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _trace_settle()
+        eng.step_chunk()
+        eng.step_chunk()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    per, stray = _graph_k1_counts(events, kernel="lstm_gates_kernel")
+    launches = [per[c] for c in sorted(per)]
+    rec = {"replay": "decode chunk", "k4_per_graph_launch": launches,
+           "k4_outside_graphs": stray}
+    log(json.dumps(rec))
+    if len(launches) != 2 or launches[-1] != want or stray:
+        raise AssertionError(f"two chunk replays held K4 {launches} (the "
+                             f"first a warm-up) and {stray} K4 launches "
+                             f"outside them; want {want} in the second")
+    return rec
+
+
+def decode_arena(card, cfg=None, slots=GEN_SLOTS, chunk=GEN_CHUNK,
+                 n_prompts=GEN_PROMPTS):
+    """16a: the slot arena on K4.  Returns the engine, the fused cell, the
+    prompts, budgets and oracle outputs, the record and the main path's
+    launches (the continuous decode's)."""
+    from mxnet_tpu_torch.generation import (DecodeCell, DecodeEngine,
+                                            DecodeService)
+    cfg = dict(cfg or PTB_LSTM)
+    fused, unfused, order = lm_decode_cells(cfg, slots, "cuda")
+    step_errs = _cell_step_err(fused, unfused, order, cfg, slots)
+    if max(step_errs.values()) > LSTM_SLICE_TOL:
+        raise AssertionError(f"the fused cell's step off the unfused one "
+                             f"by {step_errs} > {LSTM_SLICE_TOL}")
+    del unfused
+    eng = DecodeEngine(fused, slots=slots, chunk_steps=chunk,
+                       max_prompt=GEN_PROMPT, max_tokens=GEN_TOKENS)
+    prompts, budgets = _gen_prompts(cfg["vocab"], n_prompts, SEED + 16)
+    eng.decode(prompts[:2], [2, 2])           # builds both programs
+    if eng.traces != 2:
+        raise AssertionError(f"the engine built {eng.traces} programs "
+                             "for its first decode, want 2")
+    replay = chunk_replay_check(eng, cfg["num_layers"] * chunk)
+    chunk_run = eng._programs["chunk"]
+    chunk_ms = time_ms(chunk_run, iters=50)
+    prof = profile_gluon("decode chunk", eng.step_chunk)
+    oracle = eng.decode_sequential(prompts, budgets)
+    # the main path: continuous decode through the scheduler, counted
+    mt.profiler.reset_gen_counters()
+    hk.reset_launch_counts()
+    occupancy = []
+    step = eng.step_chunk
+
+    def counted_step():
+        occupancy.append(eng.slots_active / eng.slots)
+        return step()
+    eng.step_chunk = counted_step
+    with DecodeService(eng, continuous=True, queue_limit=n_prompts) as svc:
+        cont, cont_s, ttft = _serve_decode(svc, prompts, budgets)
+    eng.step_chunk = step
+    launches = dict(hk.LAUNCHES)
+    chunks = int(mt.profiler.gen_counters()["chunks"])
+    if launches["lstm_gates"] != cfg["num_layers"] * chunk * chunks or \
+            not chunks:
+        raise AssertionError(f"{chunks} chunk replays launched K4 "
+                             f"{launches['lstm_gates']} times, want "
+                             f"{cfg['num_layers'] * chunk} each")
+    _same_tokens("continuous decode", cont, oracle)
+    with env(MXTPU_GEN_CONTINUOUS="0"):
+        svc = DecodeService(eng, queue_limit=n_prompts)
+    with svc:
+        if svc.continuous:
+            raise AssertionError("MXTPU_GEN_CONTINUOUS=0 left the "
+                                 "service continuous")
+        stat, stat_s, _ = _serve_decode(svc, prompts, budgets)
+    _same_tokens("static decode", stat, oracle)
+    # eos: a cell stopping on the third token the first prompt makes
+    eos = int(oracle[0][2])
+    eos_cell = DecodeCell(fused.step_fn, fused.params, fused.state_specs,
+                          fused.vocab_size, eos_id=eos,
+                          state_order=fused.state_order, ctx=fused.device)
+    eos_eng = DecodeEngine(eos_cell, slots=slots, chunk_steps=chunk,
+                           max_prompt=GEN_PROMPT, max_tokens=GEN_TOKENS)
+    eos_out = eos_eng.decode(prompts[:slots], budgets[:slots])
+    stopped = 0
+    for got, want in zip(eos_out, oracle[:slots]):
+        hit = np.flatnonzero(want == eos)
+        cut = want[:hit[0] + 1] if len(hit) else want
+        stopped += bool(len(hit)) and len(cut) < len(want)
+        if not np.array_equal(got, cut):
+            raise AssertionError("an eos run did not stop at its eos")
+    del eos_eng
+    if eng.traces != 2:
+        raise AssertionError(f"admissions rebuilt the engine's programs: "
+                             f"{eng.traces} built, want 2")
+    tokens = sum(len(o) for o in oracle)
+    rec = {"generation": "arena", "card": card, "slots": slots,
+           "chunk_steps": chunk, "prompts": n_prompts, "tokens": tokens,
+           "step_err_vs_unfused": step_errs, "replay": replay,
+           "chunk_replay_ms": chunk_ms, "chunk_profile_idle_share":
+           prof["idle_share"], "chunk_device_busy_ms":
+           prof["device_busy_ms"], "chunk_wall_ms": prof["wall_ms"],
+           "continuous_s": cont_s, "continuous_tokens_per_s":
+           tokens / cont_s, "static_s": stat_s, "static_tokens_per_s":
+           tokens / stat_s, "ttft_ms_p50": float(np.percentile(ttft, 50)),
+           "ttft_ms_p99": float(np.percentile(ttft, 99)),
+           "mean_occupancy": float(np.mean(occupancy)), "chunks": chunks,
+           "eos_id": eos, "eos_stopped": int(stopped),
+           "traces": eng.traces, "launches": launches}
+    log(json.dumps(rec, default=float))
+    return eng, fused, prompts, budgets, oracle, rec, launches
+
+
+def decode_lane(card, eng, fused, prompts, budgets, oracle, pool, seq,
+                vocab, tmpdir, n_requests=GEN_WIRE_REQUESTS,
+                clients=SERVE_CLIENTS):
+    """16b: the LM cell as a decode blob through the registry and back,
+    then `ModelServer(pool, decode=DecodeService(engine))` with 4 client
+    threads interleaving ``generate`` and ``infer``.  Returns the path of
+    the decode blob, the record and the launches of the traffic."""
+    import threading
+    from mxnet_tpu_torch.generation import (DecodeEngine, DecodeService,
+                                            load_decode_blob,
+                                            save_decode_blob)
+    from mxnet_tpu_torch.serving import ModelServer, ServeClient
+    from mxnet_tpu_torch.serving_fleet import ModelRegistry
+    path = os.path.join(tmpdir, "ptb_lm.mxdblob")
+    save_decode_blob(path, fused)
+    reg = ModelRegistry()
+    crc = reg.register("lm-v1", path)
+    back = DecodeEngine(load_decode_blob(reg.resolve("lm-v1")[0],
+                                         ctx=mt.gpu(0)),
+                        slots=eng.slots, chunk_steps=eng.chunk_steps,
+                        max_prompt=eng.max_prompt,
+                        max_tokens=eng.max_tokens)
+    _same_tokens("the decode blob loaded back",
+                 back.decode_sequential(prompts[:4], budgets[:4]),
+                 oracle[:4])
+    del back
+    hk.reset_launch_counts()
+    results, gens, failures = [], [], []
+    lock = threading.Lock()
+    with _recording() as seen:
+        with env(MXTPU_SERVE_MAX_DELAY_MS=str(SERVE_DELAY_MS)):
+            srv = ModelServer(pool, model_version="v1",
+                              decode=DecodeService(eng, queue_limit=64))
+        with srv:
+            host, port = srv.serve()
+
+            def client(k):
+                rng = np.random.RandomState(SEED + 165 + k)
+                with ServeClient(host, port, retry_deadline=30.0) as cli:
+                    for j in range(k, n_requests, clients):
+                        try:
+                            if j % 2:
+                                i = j % len(prompts)
+                                got = cli.generate(prompts[i], budgets[i])
+                                with lock:
+                                    gens.append((i, got))
+                            else:
+                                feed = _serve_feed(int(rng.randint(1, 4)),
+                                                   seq, vocab, rng)
+                                out = cli.infer(feed)[0]
+                                with lock:
+                                    results.append((feed, out, 0.0))
+                        except Exception as e:
+                            with lock:
+                                failures.append(repr(e))
+
+            t0 = time.perf_counter()
+            ts = [threading.Thread(target=client, args=(k,), daemon=True)
+                  for k in range(clients)]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join()
+            wall = time.perf_counter() - t0
+            with ServeClient(host, port) as cli:
+                stats = cli.stats()
+    launches = dict(hk.LAUNCHES)
+    if failures:
+        raise AssertionError(f"{len(failures)} requests failed on the "
+                             f"decode lane: {failures[:3]}")
+    for i, got in gens:
+        if not np.array_equal(got, oracle[i]):
+            raise AssertionError(f"generate reply {i} off the oracle")
+    checked = _check_replies(seen, results)
+    if stats.get("gen_slots") != eng.slots or "gen_continuous" not in stats:
+        raise AssertionError(f"stats lack the decode lane: {stats}")
+    if not launches["lstm_gates"] or not launches["flash_attn_fwd"]:
+        raise AssertionError(f"the mixed traffic launched {launches}")
+    rec = {"generation": "wire", "card": card, "blob_crc": crc,
+           "blob_bytes": os.path.getsize(path), "generate": len(gens),
+           "infer": len(results), "wall_s": wall,
+           "replies_checked_per_rung": checked, "launches": launches}
+    log(json.dumps(rec))
+    return path, rec, launches
+
+
+def _gpu_memory_sampler():
+    """A thread sampling the card's used memory (MiB, ``nvidia-smi``) every
+    half second; ``stop()`` returns the peak."""
+    import threading
+    peak, done = [0], threading.Event()
+
+    def run():
+        while not done.is_set():
+            try:
+                out = subprocess.run(
+                    ["nvidia-smi", "--query-gpu=memory.used",
+                     "--format=csv,noheader,nounits"], capture_output=True,
+                    text=True, timeout=10).stdout.split()
+                peak[0] = max([peak[0]] + [int(v) for v in out[:1]])
+            except (OSError, ValueError, subprocess.SubprocessError):
+                pass
+            done.wait(0.5)
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+
+    def stop():
+        done.set()
+        t.join(timeout=15)
+        return peak[0]
+    return stop
+
+
+def _fleet_env():
+    """The replicas' knobs: the ladder, the decode arena, the batcher's
+    deadline."""
+    return {"MXTPU_SERVE_BATCH_LADDER": ",".join(map(str, FLEET_LADDER)),
+            "MXTPU_SERVE_MAX_DELAY_MS": str(SERVE_DELAY_MS),
+            "MXTPU_GEN_SLOTS": str(GEN_SLOTS),
+            "MXTPU_GEN_CHUNK_STEPS": str(GEN_CHUNK),
+            "MXTPU_GEN_MAX_PROMPT": str(GEN_PROMPT),
+            "MXTPU_GEN_MAX_TOKENS": str(GEN_TOKENS)}
+
+
+def _fleet_traffic(addr, n_requests, clients, seq, vocab, seed,
+                   until=None):
+    """``clients`` threads sending 1-3-row requests through ``addr``
+    (``n_requests`` in all, and on until ``until`` is set when given):
+    ([(request, reply, ms)], lost, sheds, wall s).  A shed is the
+    contract; any other failure is a lost request."""
+    import threading
+    from mxnet_tpu_torch.serving import ServeClient, ServerOverloadError
+    results, lost, sheds = [], [], [0]
+    lock = threading.Lock()
+
+    def client(k):
+        rng = np.random.RandomState(seed + k)
+        sent = 0
+        with ServeClient(*addr, retry_deadline=30.0, seed=seed + k) as cli:
+            while sent < n_requests // clients or \
+                    (until is not None and not until.is_set()):
+                sent += 1
+                feed = _serve_feed(int(rng.randint(1, 4)), seq, vocab, rng)
+                t0 = time.perf_counter()
+                try:
+                    out = cli.infer(feed)[0]
+                except ServerOverloadError:
+                    with lock:
+                        sheds[0] += 1
+                    continue
+                except Exception as e:
+                    with lock:
+                        lost.append(repr(e))
+                    continue
+                with lock:
+                    results.append((feed, out,
+                                    (time.perf_counter() - t0) * 1e3))
+
+    ts = [threading.Thread(target=client, args=(k,), daemon=True)
+          for k in range(clients)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    return ts, results, lost, sheds, t0
+
+
+def _join_traffic(traffic):
+    ts, results, lost, sheds, t0 = traffic
+    for t in ts:
+        t.join()
+    return results, lost, sheds[0], time.perf_counter() - t0
+
+
+def _near_pool(pool, results):
+    """Each reply within RUNG_TOL of the parent's pool run of its rows;
+    returns the worst relative error."""
+    worst = 0.0
+    for feed, out, _ms in results:
+        want = pool.run(feed)[0]
+        err = _row_rel_err(out, want)
+        if out.shape != want.shape or err > RUNG_TOL:
+            raise AssertionError(f"a reply through the fleet is {err} off "
+                                 f"the parent's pool (> {RUNG_TOL})")
+        worst = max(worst, err)
+    return worst
+
+
+def _traffic_rec(results, lost, sheds, wall):
+    lat = np.array([ms for _f, _o, ms in results])
+    rows = sum(len(f["data"]) for f, _o, _m in results)
+    q = np.percentile(lat, [50, 99]) if len(lat) else [0.0, 0.0]
+    return {"requests": len(results), "lost": len(lost), "sheds": sheds,
+            "rows": rows, "wall_s": wall, "rows_per_s": rows / wall,
+            "p50_ms": float(q[0]), "p99_ms": float(q[1])}
+
+
+def _wait(cond, what, timeout=FLEET_WAIT_S):
+    t_end = time.perf_counter() + timeout
+    while not cond():
+        if time.perf_counter() > t_end:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.05)
+
+
+def fleet_phase(card, art, gen_blob, prompts, budgets, oracle,
+                replica_ctx=None, n=FLEET_REPLICAS):
+    """16c: ``n`` replica processes on the one card behind a Router with
+    a ReplicaSupervisor: parity with a direct replica and the parent's
+    pool, clean traffic, a SIGKILL mid-traffic, rolling deploys (a good
+    one, a canary refusal, a corrupt blob), a rollback, generate."""
+    import signal
+    import threading
+    from mxnet_tpu_torch import fault_injection as fi
+    from mxnet_tpu_torch.serving import ServeClient
+    from mxnet_tpu_torch.serving_fleet import (CanaryMismatchError,
+                                               ModelRegistry,
+                                               ReplicaSupervisor, Router,
+                                               spawn_replica_process)
+    pool, seq, cfg = art["pool"], art["seq"], art["cfg"]
+    vocab = cfg["vocab"]
+    reg = ModelRegistry()
+    for v in ("v1", "v2", "v3"):
+        reg.register(v, art[v])
+    reg.set_current("v1")
+    startup = []
+
+    def spawn(slot):
+        path, _ = reg.resolve(reg.current)
+        t0 = time.perf_counter()
+        out = spawn_replica_process(path, version=reg.current,
+                                    env=_fleet_env(), gen_blob=gen_blob,
+                                    ctx=replica_ctx,
+                                    ready_timeout=FLEET_READY_S)
+        startup.append(time.perf_counter() - t0)
+        return out
+
+    pre, errs = {}, []
+
+    def prestart(slot):
+        try:
+            pre[slot] = spawn(slot)
+        except Exception as e:
+            errs.append(e)
+    ts = [threading.Thread(target=prestart, args=(s,)) for s in range(n)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    parallel_start = time.perf_counter() - t0
+    sup = router = None
+    trickle = threading.Event()
+    try:
+        if errs:
+            raise errs[0]
+        rng = np.random.RandomState(SEED + 166)
+        canary = _serve_feed(4, seq, vocab, rng)
+        router = Router([("127.0.0.1", 1)] * n, registry=reg, canary=canary,
+                        start_health=False, breaker_failures=2,
+                        breaker_cooldown_s=0.3, health_interval=0.1,
+                        seed=SEED)
+        sup = ReplicaSupervisor(
+            lambda s: pre.pop(s) if s in pre else spawn(s), slots=n,
+            router=router, backoff_base_s=0.1, backoff_max_s=0.5,
+            crash_limit=10, seed=SEED)
+        sup.start(monitor=True)
+        router.health_cycle()
+        router.start_health()
+        addr = router.serve("127.0.0.1", 0)
+        # parity: the router's reply against each replica's direct one
+        x = _serve_feed(4, seq, vocab, rng)
+        routed = router.infer(x)[0]
+        for a in sup.addresses:
+            with ServeClient(*a) as cli:
+                if not np.array_equal(cli.infer(x)[0], routed):
+                    raise AssertionError("a replica's direct reply is not "
+                                         "bit-equal to the router's")
+        parity_err = _row_rel_err(
+            routed, pool._exec[0][4]([x[k] for k in pool.input_names],
+                                     rows=4)[0])
+        if parity_err > RUNG_TOL:
+            raise AssertionError(f"the fleet's reply is {parity_err} off "
+                                 f"the parent's pool at rung 4")
+        clean = _join_traffic(_fleet_traffic(addr, FLEET_REQUESTS,
+                                             FLEET_CLIENTS, seq, vocab,
+                                             SEED + 167))
+        if clean[1] or clean[2]:
+            raise AssertionError(f"clean traffic lost {clean[1][:3]} "
+                                 f"and shed {clean[2]}")
+        worst = _near_pool(pool, clean[0])
+        # a SIGKILL mid-traffic
+        victim = {}
+
+        def sigkill(_idx):
+            proc = sup.procs[1]
+            victim["pid"] = proc.pid
+            victim["t"] = time.perf_counter()
+            os.kill(proc.pid, signal.SIGKILL)
+        plan = fi.install(fi.FaultPlan(kill_replica_at=(FLEET_KILL_AT,),
+                                       on_kill_replica=sigkill))
+        chaos = _join_traffic(_fleet_traffic(addr, FLEET_CHAOS_REQUESTS,
+                                             FLEET_CLIENTS, seq, vocab,
+                                             SEED + 168))
+        fi.clear()
+        if plan.summary()["replica_kills"] != 1 or not victim:
+            raise AssertionError("the chaos kill never fired")
+        if chaos[1]:
+            raise AssertionError(f"the SIGKILL lost requests: "
+                                 f"{chaos[1][:3]}")
+        _near_pool(pool, chaos[0])
+        rep1 = router.replicas[1]
+        _wait(lambda: sup.procs[1].pid != victim["pid"]
+              and rep1.pid == sup.procs[1].pid
+              and rep1.breaker.state == "closed" and rep1.state == "active",
+              "the killed replica's respawn and readmission")
+        readmit_s = time.perf_counter() - victim["t"]
+        counters = mt.profiler.router_counters()
+        # deploys under a trickle of traffic
+        bg = _fleet_traffic(addr, 0, 1, seq, vocab, SEED + 169,
+                            until=trickle)
+        t0 = time.perf_counter()
+        router.deploy("v2")
+        deploy_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        try:
+            router.deploy("v3")
+        except CanaryMismatchError:
+            pass
+        else:
+            raise AssertionError("the canary let v3 (other weights) in")
+        refused_s = time.perf_counter() - t0
+        if reg.current != "v2":
+            raise AssertionError(f"after the refused v3 the registry names "
+                                 f"{reg.current}")
+        fi.install(fi.FaultPlan(corrupt_blob_on_deploy=(1,)))
+        t0 = time.perf_counter()
+        try:
+            router.deploy("v1")
+        except mt.MXNetError:
+            pass
+        else:
+            raise AssertionError("a corrupt blob was deployed")
+        finally:
+            fi.clear()
+        corrupt_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = router.rollback()
+        rollback_s = time.perf_counter() - t0
+        trickle.set()
+        bg = _join_traffic(bg)
+        if bg[1] or back != "v1" or reg.current != "v1":
+            raise AssertionError(f"deploys lost {bg[1][:3]} or rolled "
+                                 f"back to {back}")
+        router.health_cycle()
+        versions = [r.version for r in router.replicas]
+        if versions != ["v1"] * n:
+            raise AssertionError(f"replicas serve {versions} after the "
+                                 "rollback")
+        for i in range(6):
+            if not np.array_equal(router.generate(prompts[i], budgets[i]),
+                                  oracle[i]):
+                raise AssertionError(f"Router.generate {i} off the oracle")
+        rec = {"fleet": "replicas", "card": card, "replicas": n,
+               "ladder": list(FLEET_LADDER),
+               "startup_to_ready_s": startup,
+               "parallel_start_s": parallel_start,
+               "router_vs_pool_rel_err": parity_err,
+               "clean": _traffic_rec(*clean), "worst_vs_pool": worst,
+               "chaos": _traffic_rec(*chaos),
+               "killed_to_readmitted_s": readmit_s,
+               "deploy_s": deploy_s, "canary_refused_s": refused_s,
+               "corrupt_refused_s": corrupt_s, "rollback_s": rollback_s,
+               "deploy_traffic": _traffic_rec(*bg),
+               "router_counters": counters}
+        log(json.dumps(rec, default=float))
+        return rec
+    finally:
+        fi.clear()
+        trickle.set()
+        if sup is not None:
+            sup.stop()
+        if router is not None:
+            router.close()
+        for proc, _a in pre.values():
+            proc.kill()
+
+
+def autoscale_phase(card, art, replica_ctx=None):
+    """16d: the autoscaler from a floor of 1 replica to at most 3 under a
+    burst, a SIGKILL of the fresh replica before its warm-up, back to the
+    floor after the idle window; no request lost but sheds."""
+    import signal
+    import threading
+    from mxnet_tpu_torch import fault_injection as fi
+    from mxnet_tpu_torch.autoscale import Autoscaler
+    from mxnet_tpu_torch.serving import ServeClient
+    from mxnet_tpu_torch.serving_fleet import (ReplicaSupervisor, Router,
+                                               spawn_replica_process)
+    seq, vocab = art["seq"], art["cfg"]["vocab"]
+    spawned = []
+
+    def spawn(slot):
+        t0 = time.perf_counter()
+        out = spawn_replica_process(art["v1"], version="v1",
+                                    env=_fleet_env(), ctx=replica_ctx,
+                                    ready_timeout=FLEET_READY_S)
+        spawned.append((slot, t0, time.perf_counter()))
+        return out
+
+    mt.profiler.reset_autoscale_counters()
+    mt.profiler.reset_router_counters()
+    router = Router([("127.0.0.1", 1)], start_health=False,
+                    breaker_failures=2, breaker_cooldown_s=0.3,
+                    health_interval=0.1, seed=SEED)
+    sup = ReplicaSupervisor(spawn, slots=1, router=router,
+                            backoff_base_s=0.1, backoff_max_s=0.5,
+                            crash_limit=10, seed=SEED)
+    events, burst_stop, base_stop = {}, threading.Event(), threading.Event()
+    traffic = []
+    scaler = None
+
+    def spike(_n):
+        events["spike_t"] = time.perf_counter()
+        traffic.append(_fleet_traffic(events["addr"], 0, SCALE_BURST, seq,
+                                      vocab, SEED + 170, until=burst_stop))
+
+    def kill_fresh(_n):
+        rep = router.replicas[-1]
+        events["fresh_state"] = rep.state
+        with ServeClient(*rep.addr, retry_deadline=5.0) as cli:
+            events["fresh_requests"] = cli.stats().get("requests", 0)
+        events["killed"] = (len(router.replicas) - 1, sup.procs[-1].pid,
+                            time.perf_counter())
+        os.kill(sup.procs[-1].pid, signal.SIGKILL)
+
+    plan = fi.install(fi.FaultPlan(
+        traffic_spike_at=(SCALE_SPIKE_AT,), on_traffic_spike=spike,
+        kill_replica_during_scale=(1,),
+        on_kill_replica_during_scale=kill_fresh))
+    try:
+        sup.start(monitor=True)
+        router.health_cycle()
+        router.start_health()
+        events["addr"] = router.serve("127.0.0.1", 0)
+        base = _fleet_traffic(events["addr"], 0, 1, seq, vocab,
+                              SEED + 171, until=base_stop)
+        scaler = Autoscaler(router, sup, seed=SEED, **SCALE)
+        scaler.start()
+        ac = mt.profiler.autoscale_counters
+        _wait(lambda: ac().get("scale_ups", 0) >= 1
+              and ac().get("warmups", 0) >= 1 and "killed" in events
+              and mt.profiler.router_counters().get(
+                  "replica_restarts", 0) >= 1,
+              "the scale-up, the fresh replica's respawn and warm-up",
+              timeout=3 * FLEET_READY_S)
+        slot = events["killed"][0]
+        _wait(lambda: router.replicas[slot].state == "active",
+              "the respawned replica's admission")
+        admitted_t = time.perf_counter()
+        grown = sum(1 for r in router.replicas if r.state == "active")
+        burst_stop.set()
+        burst = _join_traffic(traffic[0]) if traffic else ([], [], 0, 0.0)
+        _wait(lambda: sum(1 for r in router.replicas
+                          if r.state == "active") == SCALE["min_replicas"]
+              and ac().get("scale_downs", 0) >= 1
+              and not any(r.state == "warming" for r in router.replicas)
+              and not router.brownout,
+              "the fleet's return to its floor", timeout=3 * FLEET_READY_S)
+        floor_t = time.perf_counter()
+        base_stop.set()
+        base = _join_traffic(base)
+        scaler.stop()
+        lost = burst[1] + base[1]
+        if lost:
+            raise AssertionError(f"the autoscale run lost {lost[:3]}")
+        # the health thread may probe the fresh replica before the kill:
+        # then it was admitted already, and only a warming one must be
+        # untouched
+        if events.get("fresh_state") == "warming" and \
+                events.get("fresh_requests") != 0:
+            raise AssertionError(f"the fresh replica took traffic before "
+                                 f"its warm-up: {events}")
+        _near_pool(art["pool"], burst[0][:50] + base[0][:10])
+        starts = [t for s, t, _ in spawned if s == slot]
+        counters = ac()
+        rec = {"fleet": "autoscale", "card": card, **SCALE,
+               "burst_clients": SCALE_BURST, "grown_to": grown,
+               "spawn_to_ready_s": [e - s for _, s, e in spawned],
+               "scale_up_spawn_to_admitted_s": admitted_t - starts[0],
+               "respawn_to_admitted_s": admitted_t - starts[-1],
+               "spike_to_floor_s": floor_t - events["spike_t"],
+               "burst": _traffic_rec(*burst), "base": _traffic_rec(*base),
+               "fresh_state_at_kill": events.get("fresh_state"),
+               "fresh_requests_at_kill": events.get("fresh_requests"),
+               "autoscale_counters": counters,
+               "plan": plan.summary(),
+               "router_counters": mt.profiler.router_counters()}
+        log(json.dumps(rec, default=float))
+        return rec
+    finally:
+        fi.clear()
+        burst_stop.set()
+        base_stop.set()
+        if scaler is not None:
+            scaler.stop()
+        sup.stop()
+        router.close()
+
+
+def _other_weights_blob(art):
+    """Phase 15's model with other seeded weights, exported beside its
+    blobs: the version the canary must refuse."""
+    sym, shapes = art["sym"], art["shapes"]
+    arg_shapes, _, _ = sym.infer_shape(**shapes)
+    params = random_params({n: s for n, s in zip(sym.list_arguments(),
+                                                 arg_shapes)
+                            if n not in shapes}, SEED + 163)
+    blob = dumps_ndarrays({"arg:" + n: NDArray(torch.from_numpy(a))
+                           for n, a in params.items()})
+    del params
+    with pallas_mode("auto"):
+        pred = mt.Predictor(sym.tojson(), blob, shapes)
+    path = os.path.join(art["tmpdir"], "bert_v3.blob")
+    pred.export_compiled(path, dynamic_batch=True)
+    return path
+
+
+def phase_generation(card, art, cfg=None, replica_ctx=None):
+    """Phase 16 on phase 15's artifacts (``art``, whose directory it
+    removes).  Returns the launches of its main paths (16a's continuous
+    decode and 16b's mixed traffic)."""
+    import gc
+    t_phase = time.perf_counter()
+    # the earlier phases' cached blocks go back to the card: the replica
+    # processes allocate beside this one
+    gc.collect()
+    torch.cuda.empty_cache()
+    stop_sampler = _gpu_memory_sampler()
+    try:
+        eng, fused, prompts, budgets, oracle, arena, a_launch = \
+            decode_arena(card, cfg)
+        gen_blob, wire, b_launch = decode_lane(
+            card, eng, fused, prompts, budgets, oracle, art["pool"],
+            art["seq"], art["cfg"]["vocab"], art["tmpdir"])
+        art["v3"] = _other_weights_blob(art)
+        fleet = fleet_phase(card, art, gen_blob, prompts, budgets, oracle,
+                            replica_ctx=replica_ctx)
+        scale = autoscale_phase(card, art, replica_ctx=replica_ctx)
+    finally:
+        peak = stop_sampler()
+        shutil.rmtree(art["tmpdir"], ignore_errors=True)
+    launches = {k: a_launch[k] + b_launch[k] for k in a_launch}
+    if launches["flash_attn_bwd_dq"] or launches["flash_attn_bwd_dkv"]:
+        raise AssertionError(f"phase 16 launched {launches}")
+    rec = {"phase": "generation", "card": card,
+           "arena": {k: arena[k] for k in (
+               "chunk_replay_ms", "continuous_tokens_per_s",
+               "static_tokens_per_s", "ttft_ms_p50", "ttft_ms_p99",
+               "mean_occupancy", "chunk_profile_idle_share")},
+           "wire_s": wire["wall_s"],
+           "fleet_rows_per_s": fleet["clean"]["rows_per_s"],
+           "fleet_p50_ms": fleet["clean"]["p50_ms"],
+           "fleet_p99_ms": fleet["clean"]["p99_ms"],
+           "scale_up_spawn_to_admitted_s":
+           scale["scale_up_spawn_to_admitted_s"],
+           "gpu_memory_peak_mib": peak, "launches": launches,
+           "phase_s": time.perf_counter() - t_phase}
+    log(json.dumps(rec, default=float))
+    log(f"generation: phase 16 in {rec['phase_s']:.1f} s")
     return launches
 
 
@@ -6295,7 +7177,8 @@ def main():
     ops_launches = phase_ops(card)
     data_launches = phase_data(card)
     cf_launches = phase_control_flow(card)
-    plane_launches = phase_serving(card)
+    plane_launches, served = phase_serving(card, keep=True)
+    gen_launches = phase_generation(card, served)
     leaked = [m for m in ("jax", "mxnet_tpu") if m in sys.modules]
     if leaked:
         raise SystemExit(f"chip_smoke: the port imported {leaked}")
@@ -6303,7 +7186,7 @@ def main():
         f"LSTM serving {lstm_launches}, fit {fit_launches}, RNN "
         f"{rnn_launches}, state {state_launches}, ops {ops_launches}, "
         f"data {data_launches}, control flow {cf_launches}, serving plane "
-        f"{plane_launches}")
+        f"{plane_launches}, generation {gen_launches}")
     kernels = [{
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -6311,7 +7194,7 @@ def main():
         "launches": serve_launches["flash_attn_fwd"] +
         train_launches["flash_attn_fwd"] + fit_launches["flash_attn_fwd"] +
         state_launches["flash_attn_fwd"] +
-        plane_launches["flash_attn_fwd"],
+        plane_launches["flash_attn_fwd"] + gen_launches["flash_attn_fwd"],
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
@@ -6334,7 +7217,8 @@ def main():
         "source": "mxnet_tpu_torch/csrc/lstm_gates.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:452",
         "launches": lstm_launches["lstm_gates"] +
-        rnn_launches["lstm_gates"] + cf_launches["lstm_gates"],
+        rnn_launches["lstm_gates"] + cf_launches["lstm_gates"] +
+        gen_launches["lstm_gates"],
         "max_abs_err": k4["max_abs_err"], "ms": k4["ms"],
         "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
         "bound_by": k4["bound_by"], "library_ms": k4["library_ms"],

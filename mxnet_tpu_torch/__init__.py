@@ -41,8 +41,11 @@ batches to the card through pinned buffers, and the `engine` that runs
 `torch.profiler` with the counter families, `telemetry`, `log`,
 `test_utils`, `analysis`) and the one-server serving plane
 (`Predictor.export_compiled`, `ps_wire`, `serving.CompiledModelPool` with
-one CUDA graph per ladder rung, `ModelServer`, `ServeClient`).  On the
-card, inference
+one CUDA graph per ladder rung, `ModelServer`, `ServeClient`) and the rest
+of it: `generation` (the continuous-batching slot arena, its chunk one
+CUDA graph), `serving_fleet` (`Router`, `ModelRegistry`,
+`ReplicaSupervisor`, replica processes), `autoscale` and
+`fault_injection`.  On the card, inference
 forwards, hybridized predict-mode forwards and Module's whole training
 step run as CUDA graphs.
 """
@@ -73,6 +76,8 @@ from .executor import Executor  # noqa: E402
 from . import operator, subgraph  # noqa: E402
 from . import log, profiler, telemetry, test_utils  # noqa: E402
 from . import predictor, ps_wire, serving  # noqa: E402
+from . import fault_injection, generation  # noqa: E402
+from . import serving_fleet, autoscale  # noqa: E402
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "cpu_pinned",
            "cpu_shared", "current_context", "num_gpus", "nd", "sym",
@@ -83,4 +88,5 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "cpu_pinned",
            "autograd", "gluon", "kvstore", "kv", "monitor", "mon", "Monitor",
            "checkpoint", "engine", "recordio", "image", "img", "operator",
            "subgraph", "log", "profiler", "telemetry", "test_utils",
-           "predictor", "ps_wire", "serving"]
+           "predictor", "ps_wire", "serving", "fault_injection",
+           "generation", "serving_fleet", "autoscale"]

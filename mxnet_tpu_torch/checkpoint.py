@@ -20,8 +20,10 @@ other; ``rng`` is the writing package's own generator state
 
 ``MXTPU_CKPT_DIR`` makes `Module.fit` checkpoint every epoch and resume
 from `latest_valid()` on restart (`auto_manager`), with retention
-``MXTPU_CKPT_KEEP``.  The JAX package's ``MXTPU_CKPT_FAULT_PLAN``
-(seeded write faults) waits for the port of `fault_injection.py`.
+``MXTPU_CKPT_KEEP``.  ``MXTPU_CKPT_FAULT_PLAN`` (a `fault_injection.
+FilePlan` spec: seeded crashes, fsync failures and corruptions at exact
+write indices) drives every `atomic_write` of this process, as in the JAX
+package.
 """
 from __future__ import annotations
 

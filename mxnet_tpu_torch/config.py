@@ -105,6 +105,13 @@ _reg("MXTPU_CKPT_DIR", str, "",
 _reg("MXTPU_CKPT_KEEP", int, 3,
      "rolling retention: committed checkpoints the CheckpointManager keeps; "
      "older ones (and stale aborted saves) are deleted at each commit")
+_reg("MXTPU_CKPT_FAULT_PLAN", str, "",
+     "fault_injection.FilePlan spec (e.g. 'kill_before_rename=3') applied "
+     "to every atomic checkpoint write in this process; tests only")
+_reg("MXTPU_PS_FAULT_PLAN", str, "",
+     "fault_injection.FaultPlan spec (e.g. 'seed=7,duplicate_every=3'); "
+     "its consumer, the parameter-server client, is a later slice of the "
+     "port (fault_injection.active)")
 _reg("MXTPU_CKPT_COMMIT_DELAY", float, 0.0,
      "seconds slept between writing a checkpoint's data files and "
      "committing its MANIFEST.json, which widens the window a crash test "
@@ -143,6 +150,92 @@ _reg("MXTPU_SERVE_DRAIN_TIMEOUT", float, 10.0,
 _reg("MXTPU_SERVE_PRIORITY", str, "",
      "priority class ServeClient stamps into the infer-frame ctx dict "
      "('low'/'normal'/'high'); empty = no ctx header sent")
+
+# --- fleet serving resilience plane (serving_fleet.py) ---------------------
+_reg("MXTPU_SERVE_FLEET", _flag, True,
+     "enable the fleet routing tier (serving_fleet.Router); 0 is the kill "
+     "switch: Router construction refuses and clients connect straight to "
+     "one ModelServer")
+_reg("MXTPU_SERVE_HEALTH_INTERVAL", float, 0.5,
+     "router active-health-check period: every interval each replica is "
+     "pinged and its stats polled (queue depth, p99, model version); probe "
+     "outcomes drive the per-replica circuit breaker")
+_reg("MXTPU_SERVE_HEALTH_TIMEOUT", float, 2.0,
+     "socket timeout on one router health probe; a probe slower than this "
+     "counts as a breaker failure")
+_reg("MXTPU_SERVE_BREAKER_FAILURES", int, 3,
+     "consecutive failures (probe or routed request) that open a "
+     "replica's circuit breaker: open = traffic shed away from it")
+_reg("MXTPU_SERVE_BREAKER_COOLDOWN_S", float, 2.0,
+     "seconds an open breaker waits before going half-open; the next "
+     "health probe then closes it (recovery) or re-opens it")
+_reg("MXTPU_SERVE_BREAKER_P99_MS", float, 0.0,
+     "latency breaker: a replica whose polled p99 exceeds this counts a "
+     "breaker failure per health cycle; 0 disables the latency trip")
+_reg("MXTPU_SERVE_ROUTER_TIMEOUT", float, 30.0,
+     "socket timeout on one routed request; a replica that hangs past it "
+     "counts a breaker failure and the request fails over once")
+_reg("MXTPU_SERVE_DEPLOY_TIMEOUT", float, 120.0,
+     "bound (seconds) on one replica's deploy op during a rolling hot swap "
+     "(blob load and the ladder's captures happen inside it)")
+
+# --- autoscale and admission control (autoscale.py) -------------------------
+_reg("MXTPU_SERVE_AUTOSCALE", _flag, True,
+     "enable the serving-fleet autoscaler (autoscale.Autoscaler); 0 is the "
+     "kill switch: Autoscaler construction refuses and the fleet keeps the "
+     "size it was built with")
+_reg("MXTPU_SERVE_SCALE_UP_QUEUE_ROWS", int, 32,
+     "scale-up trigger: mean queued rows per active replica at or above "
+     "this spawns a replica (set well below MXTPU_SERVE_QUEUE_LIMIT)")
+_reg("MXTPU_SERVE_SCALE_UP_P99_MS", float, 0.0,
+     "scale-up trigger: worst active-replica p99 at or above this (ms) "
+     "spawns a replica; 0 disables the latency trigger")
+_reg("MXTPU_SERVE_SCALE_DOWN_QUEUE_ROWS", int, 2,
+     "hysteresis low watermark: the fleet only counts as idle while mean "
+     "queued rows per active replica stays at or below this")
+_reg("MXTPU_SERVE_SCALE_IDLE_S", float, 10.0,
+     "sustained-idle window: seconds the fleet must stay below the down "
+     "watermark before one replica is retired")
+_reg("MXTPU_SERVE_SCALE_COOLDOWN_S", float, 5.0,
+     "minimum seconds between two scale actions in either direction")
+_reg("MXTPU_SERVE_MIN_REPLICAS", int, 1,
+     "floor the autoscaler never retires below")
+_reg("MXTPU_SERVE_MAX_REPLICAS", int, 8,
+     "ceiling the autoscaler never spawns above; at the ceiling and still "
+     "saturated, the fleet enters brownout")
+_reg("MXTPU_SERVE_SCALE_INTERVAL_S", float, 1.0,
+     "autoscaler control-loop polling period (jittered +/-20 %, seeded)")
+_reg("MXTPU_SERVE_WARMUP_TIMEOUT_S", float, 60.0,
+     "bound on a fresh replica's warm-up: it must capture its ladder and "
+     "pass a router health probe within this or it is retired unadmitted")
+_reg("MXTPU_SERVE_BROWNOUT_DELAY_FACTOR", float, 4.0,
+     "brownout: factor MXTPU_SERVE_MAX_DELAY_MS is widened by on every "
+     "replica while degraded; restored exactly on exit")
+_reg("MXTPU_SERVE_BROWNOUT_RUNG_CAP", int, 0,
+     "brownout: cap each replica's flush size to this ladder rung while "
+     "degraded; 0 = leave the flush size alone")
+
+# --- generation / continuous batching (generation.py) -----------------------
+_reg("MXTPU_GEN_CONTINUOUS", _flag, True,
+     "continuous-batching kill switch for the decode lane: 1 fills free "
+     "arena slots at every chunk boundary; 0 runs static run-to-completion "
+     "batches through the same chunk program")
+_reg("MXTPU_GEN_SLOTS", int, 8,
+     "decode arena width K: sequences generated at once per DecodeEngine, "
+     "fixed at engine build")
+_reg("MXTPU_GEN_CHUNK_STEPS", int, 16,
+     "decode steps per chunk replay; admission and eviction happen at "
+     "chunk boundaries")
+_reg("MXTPU_GEN_QUEUE_LIMIT", int, 64,
+     "bound on queued generation requests awaiting a free slot; submits "
+     "past it are shed with ServerOverloadError (low priority first)")
+_reg("MXTPU_GEN_MAX_PROMPT", int, 64,
+     "static per-slot prompt buffer length; longer prompts are refused")
+_reg("MXTPU_GEN_MAX_TOKENS", int, 256,
+     "static per-slot output buffer length: the cap on max_new_tokens")
+_reg("MXTPU_GEN_STALL_MS", float, 5000.0,
+     "a chunk slower than this (wall ms) records a 'decode_stall' event in "
+     "the flight recorder; 0 disables")
 
 # --- telemetry plane (telemetry.py) ----------------------------------------
 _reg("MXTPU_TELEMETRY_DIR", str, "",

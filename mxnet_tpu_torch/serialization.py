@@ -34,6 +34,7 @@ from typing import Dict, List, Mapping, Sequence, Union
 import numpy as np
 import torch
 
+from . import fault_injection as _fault
 from .base import DTYPE_TO_ID, ID_TO_DTYPE, MXNetError
 from .context import Context
 from .ndarray.ndarray import NDArray
@@ -307,23 +308,37 @@ def atomic_write(fname: str, payload, checksum: bool = True) -> str:
     """Write ``payload`` (with the CRC32 footer when ``checksum``) so that a
     crash at any instant leaves the old file or the new one whole: a
     temporary file beside ``fname``, fsync, `os.replace`, fsync of the
-    directory (the JAX package's order).  Returns ``fname``."""
+    directory (the JAX package's order).  Returns ``fname``.
+
+    Consults the active `fault_injection.FilePlan` at the JAX package's
+    four points (tests): an injected crash (`InjectedCrash`) leaves the
+    temporary file behind exactly as a real death between write and rename
+    would.  An ``OSError`` (a failed write, fsync or rename, injected or
+    genuine) removes the temporary file before it propagates."""
     payload = bytes(payload)
     blob = payload + make_footer(payload) if checksum else payload
     dirname = os.path.dirname(os.path.abspath(fname)) or "."
+    plan = _fault.file_active()
+    n = plan.write_begin(fname) if plan is not None else 0
     fd, tmp = tempfile.mkstemp(prefix=os.path.basename(fname) + ".tmp.",
                                dir=dirname)
     try:
         with os.fdopen(fd, "wb") as f:
             f.write(blob)
             f.flush()
+            if plan is not None:
+                plan.on_fsync(n)             # may raise an injected OSError
             os.fsync(f.fileno())
+        if plan is not None:
+            plan.on_pre_rename(n)            # may raise InjectedCrash
         os.replace(tmp, fname)
-    except BaseException:
+    except OSError:
         if os.path.exists(tmp):
             os.unlink(tmp)
         raise
     _fsync_dir(dirname)
+    if plan is not None:
+        plan.on_committed(n, fname)          # may corrupt the final file
     return fname
 
 

@@ -32,9 +32,9 @@ Three layers, composable bottom-up:
    tagged frames of `ps_wire.py`, byte-compatible with the JAX
    package's, so either package's `ServeClient` talks to either's
    server.  `deploy` captures a new pool while the old one keeps
-   serving, then drains and swaps.  The generation lane (``decode=`` and
-   the ``generate`` wire op) waits for the port of `generation.py` and
-   raises until then.
+   serving, then drains and swaps.  ``decode=`` attaches the generation
+   lane (a `generation.DecodeService`) that answers the ``generate`` wire
+   op beside the infer ladder.
 
 `profiler.serve_counters()` exposes QPS, p50/p99 latency, batch
 occupancy, pad waste and shed count; `telemetry` spans and the flight
@@ -556,8 +556,11 @@ class ModelServer:
     no capture.  ``model_version`` names the artifact in the `stats`
     reply so a router can verify what each replica actually serves.
 
-    ``decode`` (the JAX package's generation lane) raises until
-    `generation.py` is ported, and so does the ``generate`` wire op.
+    ``decode`` attaches an optional generation lane beside the
+    micro-batch ladder: a `generation.DecodeService` (continuous-batching
+    slot arena) answering the ``generate`` wire op; its queue depth and
+    slot occupancy ride the `stats` reply so the fleet's saturation
+    signals account for decode slots, not just queue rows.
     """
 
     def __init__(self, pool: CompiledModelPool,
@@ -566,10 +569,6 @@ class ModelServer:
                  queue_limit: Optional[int] = None,
                  model_version: Optional[str] = None,
                  decode=None):
-        if decode is not None:
-            raise MXNetError(
-                "ModelServer(decode=...): the generation lane waits for "
-                "the port of generation.py")
         self._pool = pool
         self._model_version = model_version
         self._decode = decode
@@ -686,12 +685,11 @@ class ModelServer:
                  priority: Optional[str] = None,
                  deadline_ms: Optional[float] = None,
                  timeout: Optional[float] = None) -> np.ndarray:
-        """In-process decode-lane convenience (the JAX package's); the
-        lane waits for the port of generation.py, so this raises."""
+        """In-process decode-lane convenience: submit one generation
+        request through the continuous-batching scheduler and block
+        for its tokens."""
         if self._decode is None:
-            raise MXNetError("this server has no decode lane: the "
-                             "generation lane waits for the port of "
-                             "generation.py")
+            raise MXNetError("this server has no decode lane")
         fut = self._decode.submit(prompt, max_new_tokens,
                                   priority=priority,
                                   deadline_ms=deadline_ms)
@@ -1087,8 +1085,8 @@ class ModelServer:
                     "{'prompt': arr, 'max_new_tokens': n}[, ctx])")
             if self._decode is None:
                 raise MXNetError(
-                    "this server has no decode lane (the generation lane "
-                    "waits for the port of generation.py)")
+                    "this server has no decode lane (ModelServer was "
+                    "built without decode=DecodeService)")
             req_id, spec = msg[1], msg[2]
             ctx = msg[3] if len(msg) == 4 else None
             priority = deadline_ms = None

@@ -1,7 +1,7 @@
 """The PyTorch port's crash-consistent checkpoints against the JAX
 package (`mxnet_tpu/checkpoint.py`, `mxnet_tpu/serialization.py`; cases
-adapted from `tests/test_checkpoint.py`, less the `FAULT_PLAN` ones,
-which wait for `fault_injection.py`): the footer and atomic writes, the
+adapted from `tests/test_checkpoint.py`): the footer and atomic writes
+with `fault_injection.FilePlan`'s injected faults, the
 manager's commit, retention and `latest_valid` past torn, uncommitted and
 corrupt steps, `fit`'s ``MXTPU_CKPT_DIR`` resume bit-equal to an
 uninterrupted run, `module_checkpoint` with a manager, a Gluon Trainer's
@@ -65,6 +65,82 @@ def test_atomic_write_keeps_the_old_file_on_a_failed_replace(tmp_path,
     monkeypatch.undo()
     assert S.read_payload(f) == b"old"
     assert os.listdir(tmp_path) == ["x.params"]
+
+
+def _listing(directory):
+    """File names with a temporary file's random suffix cut off, and the
+    bytes of every file that is not temporary."""
+    names = sorted(n.split(".tmp.")[0] + ".tmp." if ".tmp." in n else n
+                   for n in os.listdir(directory))
+    data = {n: open(os.path.join(directory, n), "rb").read()
+            for n in os.listdir(directory) if ".tmp." not in n}
+    return names, data
+
+
+def test_injected_crash_leaves_the_tmp_file_as_the_reference(tmp_path):
+    """``FilePlan(kill_before_rename=2)`` in both packages: the second
+    write dies between its temporary file and the rename, and each
+    package's directory holds the same files -- the old file whole and the
+    temporary file left behind, as after a real SIGKILL -- with equal
+    bytes and equal plan summaries."""
+    from mxnet_tpu import fault_injection as jfi
+    from mxnet_tpu_torch import fault_injection as tfi
+    out = {}
+    for name, ser, fi in (("port", S, tfi), ("ref", mx.serialization, jfi)):
+        d = tmp_path / name
+        d.mkdir()
+        f = str(d / "a.params")
+        plan = fi.install_file(fi.FilePlan(kill_before_rename=2))
+        try:
+            ser.atomic_write(f, b"old payload")
+            with pytest.raises(fi.InjectedCrash):
+                ser.atomic_write(f, b"new payload")
+        finally:
+            fi.clear_file()
+        out[name] = (_listing(d), plan.summary())
+    assert out["port"] == out["ref"]
+    (names, data), summary = out["port"]
+    assert names == ["a.params", "a.params.tmp."]
+    assert S.read_payload(str(tmp_path / "port" / "a.params")) == \
+        b"old payload"
+    assert summary == {"kills": 1, "fsync_fails": 0, "truncates": 0,
+                       "flips": 0, "writes": 2}
+
+
+@pytest.mark.parametrize("spec", ["fail_fsync=1", "truncate_on_write=1,"
+                                  "truncate_at=7", "flip_on_write=1,"
+                                  "flip_at=3,seed=5"])
+def test_ckpt_fault_plan_env_as_the_reference(tmp_path, monkeypatch, spec):
+    """``MXTPU_CKPT_FAULT_PLAN`` drives both packages' writers the same:
+    an injected fsync failure keeps the old file (the port also removes
+    its temporary file after an ``OSError``), a truncation or a flip
+    leaves the same corrupt bytes; both plans' summaries agree."""
+    from mxnet_tpu import fault_injection as jfi
+    from mxnet_tpu_torch import fault_injection as tfi
+    monkeypatch.setenv("MXTPU_CKPT_FAULT_PLAN", spec)
+    payload = b"0123456789" * 3
+    files, summaries = {}, {}
+    for name, ser, fi in (("port", S, tfi), ("ref", mx.serialization, jfi)):
+        f = str(tmp_path / f"{name}.params")
+        open(f, "wb").write(b"before")
+        fi._FILE_ENV_PLANS.clear()
+        try:
+            ser.atomic_write(f, payload)
+        except OSError:
+            pass
+        files[name] = open(f, "rb").read()
+        summaries[name] = fi.file_active().summary()
+    assert files["port"] == files["ref"]
+    assert summaries["port"] == summaries["ref"]
+    assert summaries["port"]["writes"] == 1
+    if spec.startswith("fail_fsync"):
+        assert files["port"] == b"before"
+        assert summaries["port"]["fsync_fails"] == 1
+        assert not [n for n in os.listdir(tmp_path)
+                    if n.startswith("port") and ".tmp." in n]
+    else:
+        assert files["port"] != payload + S.make_footer(payload)
+        assert files["port"][:3] == payload[:3]
 
 
 def test_corrupt_footer_is_structured(tmp_path):

@@ -633,15 +633,26 @@ def test_closed_server_submit_raises_draining_closed(mlp_pool):
 
 
 def test_generation_lane_waits_for_its_port(mlp_pool):
-    with pytest.raises(MXNetError, match="generation"):
-        ModelServer(mlp_pool, decode=object())
+    """The generation lane is ported: a server without a decode lane
+    refuses ``generate`` by name, in process and on the wire, and one
+    built with ``decode=`` answers it (`tests/test_torch_generation.py`
+    holds the lane against the JAX package)."""
+    from mxnet_tpu_torch.generation import (DecodeEngine, DecodeService,
+                                            make_tanh_rnn_cell)
     with ModelServer(mlp_pool, max_delay_ms=2.0) as srv:
-        with pytest.raises(MXNetError, match="generation"):
+        with pytest.raises(MXNetError, match="no decode lane"):
             srv.generate(np.zeros(3, np.int32), 4)
         host, port = srv.serve()
         with ServeClient(host, port, retry_deadline=5.0) as cli:
-            with pytest.raises(MXNetError, match="generation"):
+            with pytest.raises(MXNetError, match="no decode lane"):
                 cli.generate(np.zeros(3, np.int32), 4)
+    eng = DecodeEngine(make_tanh_rnn_cell(vocab=8, embed=4, hidden=8,
+                                          ctx=mt.cpu()),
+                       slots=2, chunk_steps=2, max_prompt=4, max_tokens=4)
+    want = eng.decode_sequential([np.zeros(3, np.int32)], [4])[0]
+    with ModelServer(mlp_pool, max_delay_ms=2.0,
+                     decode=DecodeService(eng)) as srv:
+        assert np.array_equal(srv.generate(np.zeros(3, np.int32), 4), want)
 
 
 def test_front_door_infer_ping_stats(mlp_pool):
