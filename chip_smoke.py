@@ -331,6 +331,33 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    from spawn to admitted, the card's peak memory (``nvidia-smi``).  K4
    runs in 16a-b, K1 in 16b's pool and in the replicas.
 
+17. contexts -- several contexts in one process.  17a: phase 5's
+   BERT-base (dropout 0.1, BERT's Adam) through
+   ``Module(context=[gpu(0), gpu(0)])``, which folds onto gpu(0) with the
+   JAX package's warning, CTX_FOLD_STEPS steps on a fixed batch beside
+   ``Module(context=gpu(0))``, the device generator seeded alike: every
+   parameter bit-equal after them, K1-K3 once per layer a step.  17b:
+   `DataParallelExecutorManager` over [gpu(0), gpu(0)] with work_load_list
+   [1, 3] (slices of 2 and 6 rows) on the same graph with the head's
+   ``normalization='null'`` and dropout 0: one forward/backward whose two
+   executors' summed gradients lie within TRAIN_GRAD_TOL of each
+   gradient's largest magnitude of one executor's over the batch (the
+   key biases, zero in exact arithmetic, within KEY_BIAS_TOL of the
+   largest gradient of all, as in phase 5); K1-K3
+   once per layer in each executor; each executor's step and the
+   manager's timed (CUDA events).  17c: MXNet's Gluon MNIST MLP (Dense
+   128 relu, 64 relu, 10) with replicas on [gpu(0), cpu(0)] fed by
+   `split_and_load`, ``Trainer(kvstore='device')`` (SGD, lr 0.1, momentum
+   0.9) for CTX_MLP_STEPS steps at batch 100 of seeded 784-wide data:
+   within CTX_TOL of one context on the whole batch, the replicas within
+   CTX_TOL of each other.  17d: the reference's model-parallel matrix
+   factorization (embeddings in group "embed" on cpu(0), the dense head in
+   "dense" on gpu(0), `Module(group2ctxs=...)`) at MovieLens-10M's id
+   ranges (MF), CTX_MF_STEPS steps of Adam beside the same module on
+   gpu(0): every gradient of every step within CTX_TOL, each group's
+   arrays and gradients on its device.  The split of one module's batch
+   across distinct cards needs two cards and is logged as skipped.
+
 If the run nears its time limit, cut the serving phases' ``TIMED`` and
 ``LSTM_TIMED`` counts and FLEET_REQUESTS before anything of the training
 phase.
@@ -421,6 +448,18 @@ TRAIN_STEPS, WARM_STEPS, TIMED_STEPS = 20, 2, 20
 # BERT's published Adam settings, in MXNet's L2 form of weight decay
 ADAM = dict(learning_rate=1e-4, wd=0.01, beta2=0.999, epsilon=1e-6)
 ATTN_KERNELS = ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
+# phase 17: steps of the fold (17a), CUDA-event rounds per step time
+# (17b), the MNIST MLP's steps and batch (17c, example/gluon/mnist's
+# batch), the matrix factorization at MovieLens-10M's id ranges with the
+# example's factor and hidden widths and Adam's lr (17d), and the
+# tolerance of 17c-17d's parameters and gradients against one context,
+# of their largest magnitudes
+CTX_FOLD_STEPS, CTX_TIMED = 3, 5
+CTX_MLP_STEPS, CTX_MLP_BATCH = 5, 100
+MF = dict(users=71567, items=65133, factor=128, hidden=128, batch=256,
+          lr=0.02)
+CTX_MF_STEPS = 20
+CTX_TOL = 1e-5
 # fit phase: FIT_BATCHES fixed batches, FIT_EPOCHS epochs; FIT_K captured
 # steps against as many eager ones, whose weights must agree within FIT_TOL
 # of each parameter's largest magnitude; FIT_TIMED steps timed per path
@@ -7160,6 +7199,385 @@ def phase_generation(card, art, cfg=None, replica_ctx=None):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 17: several contexts in one process
+# ---------------------------------------------------------------------------
+
+def _context_mlm(sym, ctx, params, batch, seq):
+    """Phase 5's `Module` over ``ctx`` (a context or a list), bound for
+    training and initialized from ``params``, with BERT's Adam."""
+    mod = mt.mod.Module(sym, data_names=("data", "positions"),
+                        label_names=("mlm_label",), context=ctx)
+    mod.bind([("data", (batch, seq)), ("positions", (1, seq))],
+             [("mlm_label", (batch, seq))])
+    mod.init_params(arg_params=params)
+    mod.init_optimizer(optimizer="adam", optimizer_params=ADAM)
+    return mod
+
+
+def contexts_fold(cfg, params, batch, seq, steps=CTX_FOLD_STEPS):
+    """17a: `Module(context=[gpu(0), gpu(0)])` folds onto gpu(0) and trains
+    bit-equal to `Module(context=gpu(0))`: the same ``steps`` steps of
+    phase 5's model (dropout 0.1, BERT's Adam) on the same batch, the
+    device generator seeded alike before each run.  Returns the folded
+    module's launches and the step ms (the steps after the first)."""
+    import logging
+    data = _mlm_batch(cfg["vocab"], batch, seq)
+    sym = bert_mlm(mt.sym, **cfg)
+    runs = []
+    for ctx in ([mt.gpu(0), mt.gpu(0)], mt.gpu(0)):
+        records = []
+        handler = logging.Handler()
+        handler.emit = records.append
+        logging.getLogger().addHandler(handler)
+        try:
+            mod = _context_mlm(sym, ctx, params, batch, seq)
+        finally:
+            logging.getLogger().removeHandler(handler)
+        mt.random.seed(SEED)
+        hk.reset_launch_counts()
+        for i in range(steps):
+            if i == 1:      # the steps after the first, which builds
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            mod.forward(data, is_train=True)
+            mod.backward()
+            mod.update()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / (steps - 1)
+        launches = dict(hk.LAUNCHES)
+        _check_launches(f"17a {ctx}", launches, cfg["num_layers"] * steps)
+        arg, _ = mod.get_params()
+        runs.append((launches, ms, {k: v.data for k, v in arg.items()},
+                     [r.getMessage() for r in records]))
+        del mod
+        torch.cuda.empty_cache()
+    (launches, ms, folded, warned), (_, ms1, single, _) = runs
+    if not any("duplicate devices" in w for w in warned):
+        raise AssertionError(f"17a: no fold warning in {warned}")
+    unequal = [k for k in single if not torch.equal(folded[k], single[k])]
+    if unequal:
+        raise AssertionError(f"17a: {len(unequal)} parameters differ after "
+                             f"{steps} steps, e.g. {unequal[:3]}")
+    log(f"contexts: 17a the fold {warned[0]!r}; {len(single)} parameters "
+        f"bit-equal after {steps} steps; step {ms:.2f} ms folded, "
+        f"{ms1:.2f} ms one context")
+    return launches, {"folded_step_ms": ms, "single_step_ms": ms1,
+                      "bit_equal_params": len(single)}
+
+
+def _manager_batch(vocab, batch, seq):
+    """One batch with one row of positions per sample, with the
+    descriptions `DataParallelExecutorManager` slices by."""
+    rng = np.random.RandomState(SEED + 17)
+    data = rng.randint(0, vocab, (batch, seq)).astype(np.float32)
+    label = np.where(rng.rand(batch, seq) < 0.15, data, -1.0) \
+        .astype(np.float32)
+    pos = np.tile(np.arange(seq, dtype=np.float32), (batch, 1))
+    dev = mt.gpu(0)
+    return mt.io.DataBatch(
+        [mt.nd.array(data, ctx=dev), mt.nd.array(pos, ctx=dev)],
+        [mt.nd.array(label, ctx=dev)],
+        provide_data=[mt.io.DataDesc("data", (batch, seq)),
+                      mt.io.DataDesc("positions", (batch, seq))],
+        provide_label=[mt.io.DataDesc("mlm_label", (batch, seq))])
+
+
+def _summed_head(cfg):
+    """Phase 5's graph with the loss head's gradient summed over the
+    masked positions (``normalization='null'``) and dropout off, so the
+    slices' gradients add up to the whole batch's."""
+    internals = bert_mlm(mt.sym, **dict(cfg, dropout=0.0)).get_internals()
+    return mt.sym.SoftmaxOutput(internals["mlm_flat_output"],
+                                internals["mlm_label_flat_output"],
+                                use_ignore=True, ignore_label=-1,
+                                normalization="null", name="mlm")
+
+
+def _manager(sym, ctxs, batch, params, work_load_list=None):
+    from mxnet_tpu_torch.executor_manager import DataParallelExecutorManager
+    mgr = DataParallelExecutorManager(sym, ctxs, batch,
+                                      work_load_list=work_load_list)
+    mgr.set_params(params, {})
+    mgr.load_data_batch(batch)
+    return mgr
+
+
+def _event_ms(fn, n=CTX_TIMED):
+    """CUDA-event ms of ``fn`` (one warm call first), the mean of ``n``."""
+    fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def contexts_manager(card, cfg, params, batch, seq):
+    """17b: two executors on the one card, `DataParallelExecutorManager`
+    over [gpu(0), gpu(0)] with work_load_list [1, 3]: one forward/backward
+    whose summed gradients must lie within TRAIN_GRAD_TOL of each gradient's
+    largest magnitude of one executor's over the whole batch; K1-K3 launch
+    once per layer in each executor.  Returns the launches and the step
+    times (each executor's and the manager's)."""
+    sym = _summed_head(cfg)
+    data = _manager_batch(cfg["vocab"], batch, seq)
+    nd_params = {k: mt.nd.array(v, ctx=mt.gpu(0)) for k, v in params.items()}
+    mgr = _manager(sym, [mt.gpu(0), mt.gpu(0)], data, nd_params, [1, 3])
+    sizes = [s.stop - s.start for s in mgr.slices]
+    execs = mgr.curr_execgrp.train_execs
+    if sizes != [2, 6] or execs[0].arg_dict["mlm_transform_weight"] is \
+            execs[1].arg_dict["mlm_transform_weight"]:
+        raise AssertionError(f"17b: slices {sizes}, shared buffers")
+    hk.reset_launch_counts()
+    mgr.forward(is_train=True)
+    mgr.backward()
+    torch.cuda.synchronize()
+    launches = dict(hk.LAUNCHES)
+    _check_launches("17b two executors", launches, 2 * cfg["num_layers"])
+    summed = {n: sum(g.data.double() for g in gl)
+              for n, gl in zip(mgr.param_names, mgr.grad_arrays)}
+    one = _manager(sym, [mt.gpu(0)], data, nd_params)
+    one.forward(is_train=True)
+    one.backward()
+    wants = {n: gl[0].data.double()
+             for n, gl in zip(one.param_names, one.grad_arrays)}
+    scale = max(float(w.abs().max()) for w in wants.values())
+    worst, key_bias = (None, 0.0), 0.0
+    for name, want in wants.items():
+        diff = float((summed[name] - want).abs().max())
+        if name.endswith("_key_bias"):
+            # zero in exact arithmetic, as in phase 5: held against the
+            # largest gradient of all
+            key_bias = max(key_bias, diff / scale)
+            continue
+        err = diff / max(float(want.abs().max()), 1e-30)
+        if err > worst[1]:
+            worst = (name, err)
+    log(f"contexts: 17b worst summed gradient {worst[0]} {worst[1]:.3e} "
+        f"of its largest magnitude; key biases {key_bias:.3e} of the "
+        "largest gradient")
+    if worst[1] > TRAIN_GRAD_TOL or key_bias > KEY_BIAS_TOL:
+        raise AssertionError(f"17b: gradient of {worst[0]} off by "
+                             f"{worst[1]}, key biases by {key_bias}")
+
+    def step(texec):
+        def run():
+            texec.compiled_forward(is_train=True)
+            texec.compiled_backward()
+        return run
+
+    def both():
+        mgr.forward(is_train=True)
+        mgr.backward()
+    rec = {"executor_ms": [_event_ms(step(e)) for e in execs],
+           "manager_ms": _event_ms(both),
+           "one_executor_ms": _event_ms(step(one.curr_execgrp
+                                             .train_execs[0])),
+           "slices": sizes, "worst_grad": worst,
+           "key_bias_of_largest": key_bias, "card": card}
+    log(json.dumps({"contexts_17b": rec}))
+    del mgr, one, execs
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
+def _mnist_mlp(ctxs, weights):
+    """MXNet's Gluon MNIST MLP (example/gluon/mnist: Dense 128 relu,
+    Dense 64 relu, Dense 10) with ``weights`` on every context of
+    ``ctxs``."""
+    net = mt.gluon.nn.Sequential()
+    net.add(mt.gluon.nn.Dense(128, activation="relu", in_units=784),
+            mt.gluon.nn.Dense(64, activation="relu", in_units=128),
+            mt.gluon.nn.Dense(10, in_units=64))
+    net.initialize(ctx=ctxs)
+    for p, w in zip(net.collect_params().values(), weights):
+        p.set_data(w)
+    return net
+
+
+def contexts_replicas(card, steps=CTX_MLP_STEPS, batch=CTX_MLP_BATCH):
+    """17c: the MLP's replicas on [gpu(0), cpu(0)], each fed its half of
+    the batch by `split_and_load`, `Trainer(kvstore='device')` (SGD, lr
+    0.1, momentum 0.9): after ``steps`` steps every parameter within
+    CTX_TOL of one context's on the whole batch, of its largest magnitude,
+    and the two replicas within CTX_TOL of each other."""
+    rng = np.random.RandomState(SEED + 170)
+    shapes = [p.shape for p in
+              _mnist_mlp([mt.cpu(0)], []).collect_params().values()]
+    weights = [(rng.randn(*s) / np.sqrt(s[-1])).astype(np.float32)
+               for s in shapes]
+    xs = rng.rand(steps, batch, 784).astype(np.float32)
+    ys = rng.randint(0, 10, (steps, batch)).astype(np.float32)
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    sgd = {"learning_rate": 0.1, "momentum": 0.9}
+    out = {}
+    for what, ctxs in (("replicas", [mt.gpu(0), mt.cpu(0)]),
+                       ("one", [mt.gpu(0)])):
+        net = _mnist_mlp(ctxs, weights)
+        trainer = mt.gluon.Trainer(net.collect_params(), "sgd", sgd,
+                                   kvstore="device")
+        t0 = time.perf_counter()
+        for i in range(steps):
+            parts = zip(mt.gluon.utils.split_and_load(xs[i], ctxs),
+                        mt.gluon.utils.split_and_load(ys[i], ctxs))
+            with mt.autograd.record():
+                losses = [loss_fn(net(x), y) for x, y in parts]
+            for loss in losses:
+                loss.backward()
+            trainer.step(batch)
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+        if what == "replicas" and trainer._kvstore is None:
+            raise AssertionError("17c: the trainer made no store")
+        out[what] = ([[d.data.detach().cpu() for d in p.list_data()]
+                      for p in net.collect_params().values()], wall)
+    worst_one = worst_pair = 0.0
+    for (gpu_w, cpu_w), (want,) in zip(out["replicas"][0], out["one"][0]):
+        scale = max(float(want.abs().max()), 1e-30)
+        worst_one = max(worst_one, float((gpu_w - want).abs().max()) / scale)
+        worst_pair = max(worst_pair,
+                         float((gpu_w - cpu_w).abs().max()) / scale)
+    rec = {"steps": steps, "batch": batch,
+           "replicas_vs_one_context": worst_one,
+           "gpu_vs_cpu_replica": worst_pair,
+           "step_ms_replicas": out["replicas"][1],
+           "step_ms_one": out["one"][1], "card": card}
+    log(json.dumps({"contexts_17c": rec}))
+    if worst_one > CTX_TOL or worst_pair > CTX_TOL:
+        raise AssertionError(f"17c: {rec}")
+    return rec
+
+
+def mf_symbol(num_users, num_items, factor, hidden):
+    """MXNet's example/model-parallel/matrix_factorization, as
+    example/model_parallel/train_matrix_factorization.py builds it: the
+    embeddings in ctx_group "embed", the dense head in "dense"."""
+    user, item, score = (mt.sym.var(n) for n in ("user", "item", "score"))
+    with mt.AttrScope(ctx_group="embed"):
+        u = mt.sym.Embedding(user, input_dim=num_users, output_dim=factor,
+                             name="user_embed")
+        v = mt.sym.Embedding(item, input_dim=num_items, output_dim=factor,
+                             name="item_embed")
+    with mt.AttrScope(ctx_group="dense"):
+        u = mt.sym.FullyConnected(u, num_hidden=hidden, name="user_fc")
+        v = mt.sym.FullyConnected(v, num_hidden=hidden, name="item_fc")
+        pred = mt.sym.sum(u * v, axis=1)
+        return mt.sym.LinearRegressionOutput(pred, score)
+
+
+def contexts_model_parallel(card, mf=MF, steps=CTX_MF_STEPS):
+    """17d: the matrix factorization with its embedding tables on cpu(0)
+    and its dense head on gpu(0) (`Module(group2ctxs=...)`), trained
+    ``steps`` steps (Adam, the example's lr) beside the same module on
+    gpu(0) alone: every gradient of every step within CTX_TOL of its
+    largest magnitude, each group's arrays and gradients on its group's
+    device."""
+    rng = np.random.RandomState(SEED + 171)
+    U = (rng.randn(mf["users"], mf["factor"]) * 0.5).astype(np.float32)
+    V = (rng.randn(mf["items"], mf["factor"]) * 0.5).astype(np.float32)
+    users = rng.randint(0, mf["users"], (steps, mf["batch"]))
+    items = rng.randint(0, mf["items"], (steps, mf["batch"]))
+    scores = (U[users] * V[items]).sum(-1).astype(np.float32)
+    sym = mf_symbol(mf["users"], mf["items"], mf["factor"], mf["hidden"])
+    shapes = {"user": (mf["batch"],), "item": (mf["batch"],),
+              "score": (mf["batch"],)}
+    arg_shapes, _, _ = sym.infer_shape(**shapes)
+    params = random_params({n: s for n, s in zip(sym.list_arguments(),
+                                                 arg_shapes)
+                            if n not in shapes}, SEED + 172)
+    mods = []
+    for kw in ({"group2ctxs": {"embed": mt.cpu(0), "dense": mt.gpu(0)}},
+               {}):
+        mod = mt.mod.Module(sym, data_names=("user", "item"),
+                            label_names=("score",), context=mt.gpu(0), **kw)
+        mod.bind([("user", shapes["user"]), ("item", shapes["item"])],
+                 [("score", shapes["score"])])
+        mod.init_params(arg_params={k: mt.nd.array(v, ctx=mt.gpu(0))
+                                    for k, v in params.items()})
+        mod.init_optimizer(optimizer="adam",
+                           optimizer_params={"learning_rate": mf["lr"]})
+        mods.append(mod)
+    placed, single = mods
+    embed, dense = mt.cpu(0), mt.gpu(0)
+    want = {"user_embed_weight": embed, "item_embed_weight": embed,
+            "user": embed, "item": embed, "user_fc_weight": dense,
+            "item_fc_weight": dense, "score": dense}
+    for name, ctx in want.items():
+        for arr in (placed._exec.arg_dict[name],
+                    placed._exec.grad_dict.get(name)):
+            if arr is not None and (arr.data.device != ctx.device
+                                    or arr.context != ctx):
+                raise AssertionError(f"17d: {name} in {arr.context} on "
+                                     f"{arr.data.device}, want {ctx}")
+    worst, times = (None, 0.0), {"placed": 0.0, "single": 0.0}
+    for i in range(steps):
+        grads = []
+        for what, mod in (("placed", placed), ("single", single)):
+            batch = mt.io.DataBatch(
+                [mt.nd.array(users[i], ctx=mt.gpu(0)),
+                 mt.nd.array(items[i], ctx=mt.gpu(0))],
+                [mt.nd.array(scores[i], ctx=mt.gpu(0))])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mod.forward(batch, is_train=True)
+            mod.backward()
+            torch.cuda.synchronize()
+            times[what] += (time.perf_counter() - t0) * 1e3 / steps
+            grads.append({k: g.data.to(dense.device, torch.float64)
+                          for k, g in mod._exec.grad_dict.items()})
+            mod.update()
+        for name, want in grads[1].items():
+            err = float((grads[0][name] - want).abs().max()) / \
+                max(float(want.abs().max()), 1e-30)
+            if err > worst[1]:
+                worst = (f"{name}@{i}", err)
+    rec = {"users": mf["users"], "items": mf["items"],
+           "factor": mf["factor"], "batch": mf["batch"], "steps": steps,
+           "worst_grad": worst,
+           "fwd_bwd_ms_placed": times["placed"],
+           "fwd_bwd_ms_gpu_only": times["single"],
+           "tables_mb": (mf["users"] + mf["items"]) * mf["factor"] * 4 / 1e6,
+           "card": card}
+    log(json.dumps({"contexts_17d": rec}))
+    if worst[1] > CTX_TOL:
+        raise AssertionError(f"17d: gradient {worst[0]} off by {worst[1]}")
+    return rec
+
+
+def phase_contexts(card, cfg=None, batch=8, seq=512):
+    """Phase 17: several contexts in one process (17a-17d).  Returns the
+    launches of its main paths (17a's folded module and 17b's two
+    executors)."""
+    t_phase = time.perf_counter()
+    cfg = dict(BERT_BASE if cfg is None else cfg)
+    shapes = {"data": (batch, seq), "positions": (1, seq),
+              "mlm_label": (batch, seq)}
+    sym = bert_mlm(mt.sym, **cfg)
+    arg_shapes, _, _ = sym.infer_shape(**shapes)
+    params = random_params({n: s for n, s in zip(sym.list_arguments(),
+                                                 arg_shapes)
+                            if n not in shapes}, SEED)
+    a_launch, fold = contexts_fold(cfg, params, batch, seq)
+    b_launch, two = contexts_manager(card, cfg, params, batch, seq)
+    del params
+    replicas = contexts_replicas(card)
+    mp = contexts_model_parallel(card)
+    if torch.cuda.device_count() == 1:
+        log("contexts: the split of one module's batch across distinct "
+            "cards skipped (count == 1)")
+    launches = {k: a_launch[k] + b_launch[k] for k in a_launch}
+    rec = {"phase": "contexts", "card": card, "fold": fold,
+           "executor_ms": two["executor_ms"], "manager_ms": two["manager_ms"],
+           "replicas": replicas["replicas_vs_one_context"],
+           "model_parallel_worst_grad": mp["worst_grad"],
+           "launches": launches, "phase_s": time.perf_counter() - t_phase}
+    log(json.dumps(rec, default=float))
+    log(f"contexts: phase 17 in {rec['phase_s']:.1f} s")
+    return launches
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -7179,6 +7597,7 @@ def main():
     cf_launches = phase_control_flow(card)
     plane_launches, served = phase_serving(card, keep=True)
     gen_launches = phase_generation(card, served)
+    ctx_launches = phase_contexts(card)
     leaked = [m for m in ("jax", "mxnet_tpu") if m in sys.modules]
     if leaked:
         raise SystemExit(f"chip_smoke: the port imported {leaked}")
@@ -7186,7 +7605,8 @@ def main():
         f"LSTM serving {lstm_launches}, fit {fit_launches}, RNN "
         f"{rnn_launches}, state {state_launches}, ops {ops_launches}, "
         f"data {data_launches}, control flow {cf_launches}, serving plane "
-        f"{plane_launches}, generation {gen_launches}")
+        f"{plane_launches}, generation {gen_launches}, contexts "
+        f"{ctx_launches}")
     kernels = [{
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -7194,7 +7614,8 @@ def main():
         "launches": serve_launches["flash_attn_fwd"] +
         train_launches["flash_attn_fwd"] + fit_launches["flash_attn_fwd"] +
         state_launches["flash_attn_fwd"] +
-        plane_launches["flash_attn_fwd"] + gen_launches["flash_attn_fwd"],
+        plane_launches["flash_attn_fwd"] + gen_launches["flash_attn_fwd"] +
+        ctx_launches["flash_attn_fwd"],
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
@@ -7207,7 +7628,7 @@ def main():
             "source": "mxnet_tpu_torch/csrc/flash_attn_bwd.cu",
             "replaces": f"mxnet_tpu/ops/pallas_kernels.py:{line}",
             "launches": train_launches[name] + fit_launches[name] +
-            state_launches[name],
+            state_launches[name] + ctx_launches[name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],

@@ -45,7 +45,9 @@ one CUDA graph per ladder rung, `ModelServer`, `ServeClient`) and the rest
 of it: `generation` (the continuous-batching slot arena, its chunk one
 CUDA graph), `serving_fleet` (`Router`, `ModelRegistry`,
 `ReplicaSupervisor`, replica processes), `autoscale` and
-`fault_injection`.  On the card, inference
+`fault_injection`; several contexts in one process: `executor_manager`,
+Module and `gluon.Trainer` over context lists, and ``group2ctx`` model
+parallelism.  On the card, inference
 forwards, hybridized predict-mode forwards and Module's whole training
 step run as CUDA graphs.
 """
@@ -78,6 +80,7 @@ from . import log, profiler, telemetry, test_utils  # noqa: E402
 from . import predictor, ps_wire, serving  # noqa: E402
 from . import fault_injection, generation  # noqa: E402
 from . import serving_fleet, autoscale  # noqa: E402
+from . import executor_manager  # noqa: E402
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "cpu_pinned",
            "cpu_shared", "current_context", "num_gpus", "nd", "sym",
@@ -89,4 +92,4 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "cpu_pinned",
            "checkpoint", "engine", "recordio", "image", "img", "operator",
            "subgraph", "log", "profiler", "telemetry", "test_utils",
            "predictor", "ps_wire", "serving", "fault_injection",
-           "generation", "serving_fleet", "autoscale"]
+           "generation", "serving_fleet", "autoscale", "executor_manager"]

@@ -187,11 +187,16 @@ def backward(heads, head_grads=None, retain_graph: bool = False,
     grads = _grads(outs, seeds, [v.data for v in variables],
                    retain_graph or create_graph, create_graph) \
         if variables else []
+    # a deferred error on a head reaches every gradient written from it
+    poison = next((h._deferred_error for h in
+                   (heads if isinstance(heads, (list, tuple)) else [heads])
+                   if isinstance(h, NDArray) and h._deferred_error
+                   is not None), None)
     written = []
     for v, g in zip(variables, grads):
         if g is None:
             continue
-        g = g.to(v.dtype)
+        g = g.to(v._tdtype)
         if create_graph:
             # rebind: the gradient stays on the graph
             if v._grad is None:
@@ -209,6 +214,7 @@ def backward(heads, head_grads=None, retain_graph: bool = False,
                 else:
                     v._grad.data.copy_(g)
         v._fresh_grad = True
+        v._grad._poison(poison)
         written.append(v._grad)
     return written
 
@@ -232,7 +238,8 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     outs, seeds = _heads_and_seeds(heads, head_grads)
     grads = _grads(outs, seeds, [v.data for v in variables], retain_graph,
                    create_graph)
-    return [NDArray(g.to(v.dtype) if create_graph else g.detach().to(v.dtype))
+    return [NDArray(g.to(v._tdtype) if create_graph
+                    else g.detach().to(v._tdtype))
             if g is not None else NDArray(torch.zeros_like(v.data.detach()))
             for v, g in zip(variables, grads)]
 

@@ -17,7 +17,7 @@ import torch
 
 __all__ = ["MXNetError", "NotImplementedForSymbol", "InternalNamespace",
            "_Null", "str_to_attr", "DTYPE_TO_ID", "ID_TO_DTYPE",
-           "numpy_dtype", "torch_dtype"]
+           "numpy_dtype", "torch_dtype", "dtype_np", "dtype_name"]
 
 
 class MXNetError(RuntimeError):
@@ -118,10 +118,28 @@ _NUMPY_NAMES = {torch.float32: "float32", torch.float64: "float64",
                 torch.int64: "int64", torch.bool: "bool"}
 
 
-def numpy_dtype(dtype: torch.dtype):
-    """The numpy dtype holding a torch dtype's values exactly (bfloat16,
-    which numpy lacks, widens to float32)."""
-    return np.dtype(_NUMPY_NAMES.get(dtype, "float32"))
+def numpy_dtype(dtype):
+    """The numpy dtype holding a torch (or numpy) dtype's values exactly
+    (bfloat16, which numpy lacks, widens to float32)."""
+    if isinstance(dtype, torch.dtype):
+        return np.dtype(_NUMPY_NAMES.get(dtype, "float32"))
+    return np.dtype(dtype)
+
+
+_DTYPE_NP = {t: np.dtype(n) for t, n in _NUMPY_NAMES.items()}
+
+
+def dtype_np(dtype: torch.dtype):
+    """An array's dtype as MXNet reports it: the numpy dtype of a torch
+    dtype.  bfloat16, which numpy lacks, stays ``torch.bfloat16``, so
+    ``astype(x.dtype)`` and ``zeros(shape, dtype=x.dtype)`` keep it."""
+    return _DTYPE_NP.get(dtype, dtype)
+
+
+def dtype_name(dtype) -> str:
+    """The name of a torch dtype, numpy dtype or dtype name
+    (``"float32"``, ``"bfloat16"``)."""
+    return str(torch_dtype(dtype)).replace("torch.", "")
 
 
 def torch_dtype(dtype) -> torch.dtype:

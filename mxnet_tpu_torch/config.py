@@ -13,15 +13,23 @@ import os
 from collections import namedtuple
 from typing import Any, Dict, Optional
 
-__all__ = ["EnvVar", "get_env"]
+__all__ = ["EnvVar", "get_env", "set_env", "registry", "summary",
+           "ACTIVE", "SUBSUMED", "NOT_APPLICABLE"]
 
-EnvVar = namedtuple("EnvVar", ["name", "type", "default", "doc"])
+#: a knob's status, as the JAX package classifies its knobs: ``active``
+#: changes behavior here; ``subsumed`` and ``n/a`` are accepted and have
+#: no effect (every knob this package registers is active)
+ACTIVE = "active"
+SUBSUMED = "subsumed"
+NOT_APPLICABLE = "n/a"
+
+EnvVar = namedtuple("EnvVar", ["name", "type", "default", "status", "doc"])
 
 _R: Dict[str, EnvVar] = {}
 
 
-def _reg(name, typ, default, doc):
-    _R[name] = EnvVar(name, typ, default, doc)
+def _reg(name, typ, default, doc, status=ACTIVE):
+    _R[name] = EnvVar(name, typ, default, status, doc)
 
 
 _reg("MXTPU_GRAPH_OPT", str, "1",
@@ -43,6 +51,14 @@ _reg("MXTPU_UNIFIED_STEP", str, "1",
      "(graph_opt.train_passes)")
 
 
+_reg("MXTPU_GRAPH_OPT_VERIFY", str, "0",
+     "'1' value-verifies every optimized training graph bitwise "
+     "(outputs, aux updates, gradients) against the unoptimized graph "
+     "when it is built (graph_opt.training_symbol)")
+_reg("MXTPU_CONV_LAYOUT", str, "",
+     "'NHWC' runs convolution and pooling channels-last (torch's "
+     "channels_last memory format, which cuDNN takes natively); read once "
+     "at import (ops/nn.py), so set it before importing the package")
 _reg("MXTPU_GRAPH_OPT_FOLD_MAX_MB", int, 64,
      "constant-folding budget: skip the fold when the baked constants "
      "would exceed this many MB (graph_opt fold_const)")
@@ -280,3 +296,21 @@ def get_env(name: str, default: Optional[Any] = None):
         return spec.type(raw)
     except (TypeError, ValueError):
         return spec.default
+
+
+def registry() -> Dict[str, EnvVar]:
+    """Every registered knob, by name."""
+    return dict(_R)
+
+
+def set_env(name: str, value) -> None:
+    os.environ[name] = str(value)
+
+
+def summary() -> str:
+    """A table of every knob, its status and its current value."""
+    lines = [f"{'variable':44} {'status':9} value"]
+    for name in sorted(_R):
+        spec = _R[name]
+        lines.append(f"{name:44} {spec.status:9} {get_env(name)!r}")
+    return "\n".join(lines)

@@ -21,6 +21,13 @@ runs the composed graph recorded on the tape, as the JAX package's
 executor does for a program with fallback islands.  `reshape` gives an
 executor at new input shapes over the same parameters, with the
 reference's rules (`reshape`'s docstring).
+
+Model parallelism (``group2ctx``, a map from ``ctx_group`` names to
+contexts): each variable lives in its group's context (`group_placement`),
+each op runs on its group's device, and a value crossing groups is copied
+at the boundary, forward and backward; gradients land on their
+variable's device.  Such an executor runs its graph eagerly, as composed,
+with no rewrite and no capture.
 """
 from __future__ import annotations
 
@@ -35,9 +42,9 @@ from .base import MXNetError
 from .context import Context, default_context
 from .graph_compile import (GraphCompiler, GraphProgram, Tape, backward_tape,
                             build_steps, record_steps, run_steps)
-from .ndarray.ndarray import NDArray
+from .ndarray.ndarray import NDArray, zeros
 
-__all__ = ["Executor", "build_graph_fn"]
+__all__ = ["Executor", "build_graph_fn", "group_placement"]
 
 
 def build_graph_fn(symbol, train: bool = False):
@@ -56,23 +63,49 @@ def build_graph_fn(symbol, train: bool = False):
 _GRAD_REQS = ("null", "write", "add")
 
 
+def group_placement(symbol, group2ctx) -> Dict[str, Context]:
+    """The context of each variable under ``group2ctx`` (the JAX
+    package's `simple_bind` rule, reference `PlaceDevice`): a variable's
+    own ``ctx_group`` wins, else the group of its first consumer in
+    topological order that has one; variables of neither stay in the
+    executor's default context."""
+    from .symbol.symbol import _topo
+    var_ctx: Dict[str, Context] = {}
+    if not group2ctx:
+        return var_ctx
+    for node in _topo(symbol._heads):
+        g = node.attrs.get("ctx_group")
+        if node.is_var:
+            if g in group2ctx:
+                var_ctx[node.name] = group2ctx[g]
+            continue
+        if g not in group2ctx:
+            continue
+        for (inp, _i) in node.inputs:
+            if inp.is_var and inp.attrs.get("ctx_group") not in group2ctx:
+                var_ctx.setdefault(inp.name, group2ctx[g])
+    return var_ctx
+
+
 class Executor:
     """Reference `include/mxnet/executor.h` surface: arg_dict, grad_dict,
     aux_dict, forward, backward, outputs."""
 
     def __init__(self, symbol, ctx: Optional[Context] = None, args=None,
-                 args_grad=None, grad_req="write", aux_states=None):
+                 args_grad=None, grad_req="write", aux_states=None,
+                 group2ctx=None):
         self._symbol = symbol
         self._ctx = ctx if ctx is not None else default_context("bind")
+        self._group2ctx = dict(group2ctx) if group2ctx else None
+        self._var_ctx = group_placement(symbol, self._group2ctx)
         self.arg_names = symbol.list_arguments()
         self.aux_names = symbol.list_auxiliary_states()
         self.output_names = symbol.list_outputs()
-        device = self._ctx.device
         self.arg_dict: Dict[str, NDArray] = {
-            n: NDArray(_tensor(a).to(device))
+            n: self._bound(n, a)
             for n, a in _by_name(args, self.arg_names, "args").items()}
         self.aux_dict: Dict[str, NDArray] = {
-            n: NDArray(_tensor(a).to(device))
+            n: self._bound(n, a)
             for n, a in _by_name(aux_states, self.aux_names, "aux_states",
                                  allow_missing=True).items()}
         if isinstance(grad_req, str):
@@ -88,7 +121,7 @@ class Executor:
                              f"{sorted(bad)}")
         # a gradient buffer lives where its argument does
         self.grad_dict: Dict[str, NDArray] = {
-            n: NDArray(_tensor(g).to(device))
+            n: self._bound(n, g, self.arg_dict[n].context)
             for n, g in _by_name(args_grad, self.arg_names, "args_grad",
                                  allow_missing=True).items()}
         self.outputs: List[NDArray] = []
@@ -97,11 +130,44 @@ class Executor:
         self._programs: Dict[bool, Dict[tuple, GraphProgram]] = {}
         self._own_programs: Dict[bool, GraphProgram] = {}
         self._graph_plan = None
+        # each plan step's device under group2ctx, else None
+        self._placement = None
         self._tape: Optional[Tape] = None
         self._tape_program: Optional[GraphProgram] = None
         self._monitor = None
         # name -> the storage a shrunk argument views (`reshape`)
         self._roots: Dict[str, torch.Tensor] = {}
+
+    def _bound(self, name, value, ctx: Optional[Context] = None) -> NDArray:
+        """``value`` as the array bound for ``name``: in ``ctx``, else in
+        the variable's group context, else the executor's.  Under
+        ``group2ctx`` an NDArray keeps the context the caller made it
+        in."""
+        if ctx is None:
+            ctx = self._var_ctx.get(name, self._ctx)
+            if self._group2ctx and isinstance(value, NDArray):
+                ctx = value.context
+        return NDArray(_tensor(value).to(ctx.device), ctx)
+
+    def _plan(self):
+        """The composed graph's plan and, under ``group2ctx``, each step's
+        device, built on first use."""
+        if self._graph_plan is None:
+            self._graph_plan = build_steps(self._symbol)
+            if self._group2ctx:
+                from .symbol.symbol import _topo
+                self._placement = [
+                    self._node_context(n).device
+                    for n in _topo(self._symbol._heads) if not n.is_var]
+        return self._graph_plan
+
+    def _node_context(self, node) -> Context:
+        """The context a node's values live in: its group's (a variable's
+        by `group_placement`), else the executor's."""
+        if node.is_var:
+            return self._var_ctx.get(node.name, self._ctx)
+        return (self._group2ctx or {}).get(node.attrs.get("ctx_group"),
+                                           self._ctx)
 
     @property
     def _grad_arg_names(self) -> List[str]:
@@ -147,7 +213,8 @@ class Executor:
         or of the training program, recorded for backward."""
         gen = _random.generator(self._ctx.device)
         if program is None:
-            return record_steps(self._graph_plan, self._feed(), names, gen)
+            return record_steps(self._plan(), self._feed(), names, gen,
+                                self._placement)
         if not program.train:
             program = self.graph_program(True)
         return program.forward_train(self._feed(), names, gen)
@@ -160,12 +227,14 @@ class Executor:
             outs, aux, self._tape = self._record(program, names)
         else:
             feed, gen = self._feed(), _random.generator(self._ctx.device)
-            outs, aux = run_steps(self._graph_plan, feed, is_train, gen) \
+            outs, aux = run_steps(self._plan(), feed, is_train, gen,
+                                  self._placement) \
                 if program is None else program.forward(feed, gen)
             self._tape = None
         if is_train:
             self._write_aux(aux)
-        self.outputs = [NDArray(o) for o in outs]
+        self.outputs = [NDArray(o, self._node_context(node))
+                        for o, (node, _i) in zip(outs, self._symbol._heads)]
         if self._monitor is not None:
             for name, arr in zip(self.output_names, self.outputs):
                 self._monitor(name, arr)
@@ -181,8 +250,7 @@ class Executor:
     def forward(self, is_train=False, **kwargs) -> List[NDArray]:
         """Run the graph as composed (no rewrites)."""
         self._ingest_inputs(kwargs)
-        if self._graph_plan is None:
-            self._graph_plan = build_steps(self._symbol)
+        self._plan()
         _prof.bump_counter("dispatches")
         return self._run(None, bool(is_train))
 
@@ -193,8 +261,11 @@ class Executor:
 
     def compiled_forward(self, is_train=False, **kwargs) -> List[NDArray]:
         """Forward through the optimized `GraphProgram` of the mode; a
-        training forward over a graph with fallback islands runs the
-        composed graph instead (`forward`)."""
+        training forward over a graph with fallback islands, and any
+        forward under ``group2ctx``, runs the composed graph instead
+        (`forward`)."""
+        if self._group2ctx:
+            return self.forward(is_train=is_train, **kwargs)
         program = self.graph_program(is_train)
         if is_train and program.has_islands:
             return self.forward(is_train=True, **kwargs)
@@ -261,7 +332,8 @@ class Executor:
             n = int(np.prod(shape))
             if n <= root.numel():
                 roots[name] = root
-                return NDArray(root.view(-1)[:n].view(tuple(shape)))
+                return NDArray(root.view(-1)[:n].view(tuple(shape)),
+                               cur.context)
             if not allow_up_sizing:
                 raise MXNetError(
                     f"New shape of arg:{name} larger than original. First "
@@ -269,19 +341,20 @@ class Executor:
                     "efficient than the reverse. If you really want to "
                     "up size, set allow_up_sizing=True to enable "
                     "allocation of new arrays.")
-            return NDArray(torch.zeros(tuple(shape), dtype=cur.dtype,
-                                       device=cur.data.device))
+            return NDArray(torch.zeros(tuple(shape), dtype=cur._tdtype,
+                                       device=cur.data.device), cur.context)
 
         args = {n: remap(n, self.arg_dict[n], s)
                 for n, s in zip(self.arg_names, arg_shapes)}
         aux = {n: remap(n, self.aux_dict[n], s)
                for n, s in zip(self.aux_names, aux_shapes)
                if n in self.aux_dict}
-        grads = {n: torch.zeros(args[n].shape, dtype=args[n].dtype,
-                                device=args[n].data.device)
+        grads = {n: zeros(args[n].shape, ctx=args[n].context,
+                          dtype=args[n]._tdtype)
                  for n in self.grad_dict}
         new = Executor(self._symbol, self._ctx, args=args, args_grad=grads,
-                       grad_req=dict(self._grad_req), aux_states=aux)
+                       grad_req=dict(self._grad_req), aux_states=aux,
+                       group2ctx=self._group2ctx)
         # the same arrays, not new handles over their tensors
         new.arg_dict.update(args)
         new.aux_dict.update(aux)

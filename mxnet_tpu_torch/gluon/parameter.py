@@ -18,8 +18,8 @@ import numpy as np
 import torch
 
 from .. import initializer as init_mod
-from ..base import MXNetError, torch_dtype
-from ..context import Context, cpu, default_context
+from ..base import MXNetError, dtype_np, torch_dtype
+from ..context import Context, cpu, current_context, default_context
 from ..ndarray.ndarray import NDArray, zeros
 
 __all__ = ["Parameter", "Constant", "ParameterDict",
@@ -49,7 +49,7 @@ class Parameter:
         self.name = name
         self._grad_req = grad_req if differentiable else "null"
         self.shape = tuple(shape) if shape is not None else None
-        self.dtype = torch_dtype(dtype)
+        self._tdtype = torch_dtype(dtype)
         self.lr_mult = lr_mult
         self.wd_mult = wd_mult
         self.init = init
@@ -58,6 +58,15 @@ class Parameter:
         self._data: Optional[List[NDArray]] = None
         self._ctx_list: Optional[List[Context]] = None
         self._deferred_init = None
+
+    @property
+    def dtype(self):
+        """The numpy dtype of the values (`base.dtype_np`)."""
+        return dtype_np(self._tdtype)
+
+    @dtype.setter
+    def dtype(self, dtype):
+        self._tdtype = torch_dtype(dtype)
 
     @property
     def grad_req(self):
@@ -97,7 +106,8 @@ class Parameter:
             init_mod.create(default_init)(desc, host)
         else:
             init_mod.create(default_init)(self.name, host)
-        self._data = [NDArray(host.data.to(c.device, self.dtype, copy=True))
+        self._data = [NDArray(host.data.to(c.device, self._tdtype,
+                                           copy=True), c)
                       for c in self._ctx_list]
         self._deferred_init = None
         self._init_grad()
@@ -125,11 +135,21 @@ class Parameter:
             raise MXNetError(
                 f"parameter {self.name} has not been initialized; call "
                 ".initialize() first")
-        if ctx is None or len(self._data) == 1:
-            return self._data[0]
+        if ctx is None:
+            if len(self._data) == 1:
+                return self._data[0]
+            # the replica of the current context, else the first
+            try:
+                ctx = current_context()
+            except MXNetError:
+                return self._data[0]
+            return next((d for d in self._data if d.context == ctx),
+                        self._data[0])
         for d in self._data:
             if d.context == ctx:
                 return d
+        if len(self._data) == 1:
+            return self._data[0]
         raise MXNetError(f"parameter {self.name} was not initialized on "
                          f"context {ctx}")
 
@@ -162,7 +182,7 @@ class Parameter:
         src = data.data if isinstance(data, NDArray) else \
             torch.as_tensor(np.asarray(data))
         for d in self._data:
-            d._set_data(src.detach().to(d.data.device, d.dtype))
+            d._set_data(src.detach().to(d.data.device, d._tdtype))
 
     def zero_grad(self):
         if self._data is None:
@@ -177,16 +197,16 @@ class Parameter:
         if self._data is not None:
             value = self._data[0].data.detach()
             self._ctx_list = ctx
-            self._data = [NDArray(value.to(c.device, copy=True))
+            self._data = [NDArray(value.to(c.device, copy=True), c)
                           for c in ctx]
             self._init_grad()
         else:
             self._ctx_list = ctx
 
     def cast(self, dtype):
-        self.dtype = torch_dtype(dtype)
+        self._tdtype = torch_dtype(dtype)
         if self._data is not None:
-            self._data = [NDArray(d.data.detach().to(self.dtype))
+            self._data = [NDArray(d.data.detach().to(self._tdtype), d.context)
                           for d in self._data]
             self._init_grad()
 
@@ -194,7 +214,7 @@ class Parameter:
         """The Symbol variable of this parameter."""
         from ..symbol import var
         return var(self.name, shape=self.shape,
-                   dtype=str(self.dtype).replace("torch.", ""))
+                   dtype=str(self._tdtype).replace("torch.", ""))
 
     def __repr__(self):
         return (f"Parameter {self.name} (shape={self.shape}, "

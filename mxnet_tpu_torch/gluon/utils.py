@@ -1,10 +1,12 @@
 """Gluon utilities (the counterpart of `mxnet_tpu/gluon/utils.py`; reference
 `python/mxnet/gluon/utils.py`): splitting a batch across contexts,
-global-norm gradient clipping and the SHA-1 file check.  `download`
-waits: nothing here fetches from the network."""
+global-norm gradient clipping, the SHA-1 file check and `download`,
+which serves local paths and ``file://`` URLs and fetches nothing from
+the network."""
 from __future__ import annotations
 
 import hashlib
+import os
 import warnings
 
 import torch
@@ -12,7 +14,8 @@ import torch
 from ..base import MXNetError
 from ..ndarray.ndarray import NDArray, array
 
-__all__ = ["split_data", "split_and_load", "clip_global_norm", "check_sha1"]
+__all__ = ["split_data", "split_and_load", "clip_global_norm", "check_sha1",
+           "download"]
 
 
 def split_data(data, num_slice, batch_axis=0, even_split=True):
@@ -79,3 +82,21 @@ def check_sha1(filename, sha1_hash):
         for chunk in iter(lambda: f.read(1 << 20), b""):
             sha1.update(chunk)
     return sha1.hexdigest() == sha1_hash
+
+
+def download(url, path=None, overwrite=False, sha1_hash=None):
+    """``url`` copied to ``path`` (reference `utils.py:download`), through
+    `test_utils.download`: a local path or a ``file://`` URL; a network
+    URL raises."""
+    from ..test_utils import download as _dl
+    fname = None
+    dirname = None
+    if path is not None:
+        if os.path.isdir(path) or path.endswith(os.sep):
+            dirname = path
+        else:
+            dirname, fname = os.path.split(path)
+    out = _dl(url, fname=fname, dirname=dirname or None)
+    if sha1_hash and not check_sha1(out, sha1_hash):
+        raise MXNetError(f"downloaded file {out} failed sha1 check")
+    return out

@@ -61,6 +61,7 @@ from __future__ import annotations
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import functools
+import gc
 import threading
 
 import numpy as np
@@ -213,13 +214,17 @@ def build_steps(symbol):
 
 def run_plan(plan, feed: Mapping[str, torch.Tensor], train: bool = False,
              generator: Optional[torch.Generator] = None,
-             device: Optional[torch.device] = None
+             device: Optional[torch.device] = None,
+             placement: Optional[Sequence[torch.device]] = None
              ) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
     """A `build_steps` plan run on ``feed`` under the caller's grad mode
     (with grad on, autograd records the steps on the feed's own tensors,
     as a `gluon.SymbolBlock` under `autograd.record` needs): the outputs
     and the mutated variables' new values.  Zero-input ops build on
-    ``device``, by default the feed's."""
+    ``device``, by default the feed's.  ``placement`` gives each step's
+    device (``group2ctx``): a step's inputs are copied there first, so a
+    run of steps on one device is a segment with a copy at each boundary,
+    and autograd carries the gradients back across it."""
     var_names, steps, head_keys = plan
     vals: Dict[str, torch.Tensor] = {}
     for name in var_names:
@@ -230,9 +235,13 @@ def run_plan(plan, feed: Mapping[str, torch.Tensor], train: bool = False,
     if device is None and feed:
         device = next(iter(feed.values())).device
     aux: Dict[str, torch.Tensor] = {}
-    for op, attrs, in_keys, out_keys, mutated in steps:
-        outs = _call(op, attrs, [vals[k] for k in in_keys], train,
-                     generator, device)
+    for i, (op, attrs, in_keys, out_keys, mutated) in enumerate(steps):
+        ins = [vals[k] for k in in_keys]
+        dev = device
+        if placement is not None:
+            dev = placement[i]
+            ins = [t if t.device == dev else t.to(dev) for t in ins]
+        outs = _call(op, attrs, ins, train, generator, dev)
         for k, o in zip(out_keys, outs):
             vals[k] = o
         for name, o in zip(mutated, outs[len(out_keys):]):
@@ -253,14 +262,15 @@ def _call(op, attrs, ins, train, generator, device) -> Tuple:
 
 
 def run_steps(plan, feed: Mapping[str, torch.Tensor], train: bool = False,
-              generator: Optional[torch.Generator] = None
+              generator: Optional[torch.Generator] = None,
+              placement: Optional[Sequence[torch.device]] = None
               ) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
     """Run a `build_steps` plan on ``feed`` {variable name -> tensor}
     under `torch.inference_mode`; ``train`` switches the train-mode ops
     (Dropout draws from ``generator``).  Returns the outputs and the new
     values of the mutated variables."""
     with torch.inference_mode():
-        return run_plan(plan, feed, train, generator)
+        return run_plan(plan, feed, train, generator, placement=placement)
 
 
 class Tape:
@@ -275,7 +285,8 @@ class Tape:
 
 
 def record_steps(plan, feed: Mapping[str, torch.Tensor],
-                 grad_names: Sequence[str], generator: torch.Generator
+                 grad_names: Sequence[str], generator: torch.Generator,
+                 placement: Optional[Sequence[torch.device]] = None
                  ) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor],
                             Tape]:
     """Run a plan in train mode with autograd recording, the
@@ -285,7 +296,8 @@ def record_steps(plan, feed: Mapping[str, torch.Tensor],
     values, and the tape."""
     leaves = {n: feed[n].detach().requires_grad_(True) for n in grad_names}
     with torch.enable_grad():
-        outs, aux = run_plan(plan, {**feed, **leaves}, True, generator)
+        outs, aux = run_plan(plan, {**feed, **leaves}, True, generator,
+                             placement=placement)
     return [o.detach() for o in outs], aux, Tape(leaves, outs)
 
 
@@ -383,6 +395,13 @@ class CapturedGraph:
                     "this PyTorch cannot register a generator with a CUDA "
                     "graph; set MXTPU_GRAPH_COMPILE=0 to run eagerly")
             self.graph.register_generator_state(generator)
+        # no garbage collection while capturing: a program and its graph
+        # form a reference cycle (the graph keeps the function that reads
+        # the program), so a collection can destroy a dead program's
+        # graph, which is not permitted during a capture and invalidates
+        # it
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             # thread-local: a loader thread staging the next batch on its
             # own stream (io._Stager), or a serving thread replaying
@@ -398,6 +417,9 @@ class CapturedGraph:
         except Exception as e:
             raise MXNetError(f"CUDA graph capture failed: {e}; set "
                              "MXTPU_GRAPH_COMPILE=0 to run eagerly") from e
+        finally:
+            if collecting:
+                gc.enable()
         self.launches = {k: n for k, n in recorded.items() if n}
         # a replay reads the addresses the capture recorded: keep what the
         # function reads (its closure's tensors) alive with the graph

@@ -66,6 +66,7 @@ from .symbol.symbol import Symbol, _Node, _infer_graph, _topo, _value_key
 
 __all__ = ["PassReport", "PipelineResult", "optimize", "graph_opt_enabled",
            "skipped_passes", "pallas_mode", "train_passes", "training_result",
+           "training_symbol", "verify_bitwise",
            "INFER_PASSES", "TRAIN_PASSES", "TRAIN_PASSES_UNIFIED"]
 
 
@@ -836,12 +837,76 @@ def _check_train_invariants(orig, opt) -> None:
     _prof.bump_graph("graph_opt/train_verifies")
 
 
-def training_result(symbol):
+def _verify_enabled() -> bool:
+    return str(config.get_env("MXTPU_GRAPH_OPT_VERIFY", "0")).strip() \
+        .lower() in ("1", "true", "on")
+
+
+def verify_bitwise(orig, opt, feed, key, train: bool):
+    """Run both graphs eagerly on ``feed`` with one random stream (a
+    generator seeded with ``key``) and require identical outputs,
+    identical auxiliary updates (each one the optimized graph still
+    makes) and, for a training graph, identical gradients of every float
+    input for ones as head gradients.  Raises MXNetError on a mismatch;
+    returns True."""
+    from .graph_compile import build_steps, run_plan
+    device = next(iter(feed.values())).device
+    floats = {n for n, v in feed.items() if v.is_floating_point()} \
+        if train else set()
+
+    def run(sym):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(key))
+        leaves = {n: feed[n].detach().requires_grad_(True) for n in floats}
+        with torch.enable_grad() if train else torch.no_grad():
+            outs, aux = run_plan(build_steps(sym), {**feed, **leaves},
+                                 train, gen)
+            grads = {}
+            live = [o for o in outs if o.requires_grad]
+            if live:
+                gs = torch.autograd.grad(
+                    live, list(leaves.values()),
+                    [torch.ones_like(o) for o in live], allow_unused=True)
+                grads = {n: (torch.zeros_like(leaves[n]) if g is None
+                             else g) for n, g in zip(leaves, gs)}
+        return [o.detach() for o in outs], aux, grads
+
+    o0, a0, g0 = run(orig)
+    o1, a1, g1 = run(opt)
+    for i, (x, y) in enumerate(zip(o0, o1)):
+        if not torch.equal(x, y):
+            raise MXNetError(f"graph_opt: bitwise verify failed on "
+                             f"output {i}")
+    for name, val in a1.items():
+        if name not in a0 or not torch.equal(a0[name].detach(),
+                                             val.detach()):
+            raise MXNetError(f"graph_opt: bitwise verify failed on aux "
+                             f"update {name!r}")
+    for name in g0:
+        if not torch.equal(g0[name], g1[name]):
+            raise MXNetError(f"graph_opt: bitwise verify failed on "
+                             f"gradient of {name!r}")
+    return True
+
+
+def training_result(symbol, verify_feed=None, verify_key=None):
     """`train_passes()` over a training graph: ``(symbol, reports)``, with
-    the invariants checked whenever a pass rewrote the graph; the reports
-    are empty when the optimizer is disabled."""
+    the invariants checked whenever a pass rewrote the graph, and under
+    ``MXTPU_GRAPH_OPT_VERIFY=1`` with a live feed the bitwise check of
+    `verify_bitwise`; the reports are empty when the optimizer is
+    disabled."""
     res = optimize(symbol, train=True)
     if not res.enabled or res.symbol is symbol:
         return symbol, list(res.reports)
     _check_train_invariants(symbol, res.symbol)
+    if _verify_enabled() and verify_feed is not None \
+            and verify_key is not None:
+        verify_bitwise(symbol, res.symbol, verify_feed, verify_key,
+                       train=True)
     return res.symbol, list(res.reports)
+
+
+def training_symbol(symbol, verify_feed=None, verify_key=None):
+    """`training_result`'s optimized symbol alone."""
+    return training_result(symbol, verify_feed=verify_feed,
+                           verify_key=verify_key)[0]

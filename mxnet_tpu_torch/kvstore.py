@@ -120,7 +120,7 @@ class KVStore:
         if self._gc is not None and \
                 not isinstance(merged, BaseSparseNDArray):
             merged = NDArray(self._gc.quantize(k, merged.data).to(
-                merged.dtype))
+                merged._tdtype))
         if self._updater is not None:
             self._updater(_as_int_key(k), merged, self._store[k])
         else:
@@ -130,7 +130,7 @@ class KVStore:
         src = self._store[k].data
         with torch.no_grad():
             for o in outs:
-                o._set_data(src.to(device=o.data.device, dtype=o.dtype))
+                o._set_data(src.to(device=o.data.device, dtype=o._tdtype))
 
     def _pull_outs(self, k, olist, ignore_sparse):
         """The dense outs of a pull: ``ignore_sparse`` skips sparse ones,
@@ -212,7 +212,7 @@ class KVStore:
                     o._sp_shape = tuple(src.shape)
                 else:
                     dense = torch.zeros_like(src).index_copy_(0, ids, rows)
-                    o._set_data(dense.to(device=dev, dtype=o.dtype))
+                    o._set_data(dense.to(device=dev, dtype=o._tdtype))
 
     # -- optimizer ------------------------------------------------------
     def set_optimizer(self, optimizer):

@@ -1,6 +1,16 @@
 """Module: symbolic training on one device (the counterpart of
 `mxnet_tpu/module/module.py`; reference `python/mxnet/module/module.py`).
 
+A ``context`` list folds onto its first context, as the JAX package folds
+a list whose devices repeat: the module's results are those of one
+context.  Every CPU list folds so (all CPU contexts are the host), and so
+does ``[gpu(0), gpu(0)]``; a list of distinct cards folds too, with a
+warning, until a run with two cards holds the split of a batch across
+them.  `executor_manager` runs one executor per context.  ``group2ctxs``
+places the ``ctx_group`` groups of the symbol (model parallelism,
+`Symbol.simple_bind`'s ``group2ctx``); such a module never takes the
+fused step.
+
 ``bind`` → ``init_params`` → ``init_optimizer``, then per batch
 ``forward`` / ``backward`` / ``update``, or ``fit`` over a data iterator.
 The module trains through its executor's training `GraphProgram` and
@@ -52,18 +62,17 @@ __all__ = ["Module"]
 class Module(BaseModule):
     def __init__(self, symbol, data_names=("data",),
                  label_names=("softmax_label",), logger=logging,
-                 context=None, fixed_param_names=None, state_names=None):
+                 context=None, work_load_list=None, fixed_param_names=None,
+                 state_names=None, group2ctxs=None, compression_params=None):
         super().__init__(logger)
         self.symbol = symbol
         self._data_names = list(data_names)
         self._label_names = list(label_names or [])
         if isinstance(context, (list, tuple)):
-            if len(context) != 1:
-                raise MXNetError("Module: one context per module until "
-                                 "data parallelism is ported")
-            context = context[0]
+            context = _fold_contexts(list(context), work_load_list, logger)
         self._context = context if context is not None else \
             default_context("Module")
+        self._group2ctxs = _one_group2ctx(group2ctxs, logger)
         self._fixed_param_names = set(fixed_param_names or [])
         self._state_names = list(state_names or [])
         self._exec = None
@@ -120,20 +129,29 @@ class Module(BaseModule):
 
     # ------------------------------------------------------------------
     def bind(self, data_shapes, label_shapes=None, for_training=True,
-             inputs_need_grad=False, force_rebind=False, grad_req="write"):
+             inputs_need_grad=False, force_rebind=False, shared_module=None,
+             grad_req="write"):
         """Allocate the executor for these input shapes (reference
         `module.py:364` → simple_bind).  Labels and fixed parameters
         never take gradients, nor do states; data only with
-        ``inputs_need_grad``."""
+        ``inputs_need_grad``.  With ``shared_module`` (bound) the
+        parameters, their gradients and the auxiliary states are that
+        module's arrays (`Symbol.simple_bind`'s ``shared_exec``: the
+        train/validation pair), and a shape that differs raises
+        ValueError."""
         if self.binded and not force_rebind:
             return self
+        if shared_module is not None and not shared_module.binded:
+            raise MXNetError("shared_module must be binded before sharing")
         self._data_shapes, self._label_shapes, shapes = _parse_shapes(
             data_shapes, label_shapes)
         type_dict = {d.name: d.dtype
                      for d in self._data_shapes + self._label_shapes}
         self._exec = self.symbol.simple_bind(
             ctx=self._context, grad_req=grad_req if for_training else "null",
-            type_dict=type_dict, **shapes)
+            type_dict=type_dict, group2ctx=self._group2ctxs,
+            shared_exec=shared_module._exec if shared_module else None,
+            **shapes)
         self._execs = {}
         self._fused_train_step = None
         keep = set(self._data_names) if inputs_need_grad else set()
@@ -144,6 +162,8 @@ class Module(BaseModule):
                     name in self._state_names:
                 self._exec._grad_req[name] = "null"
                 self._exec.grad_dict.pop(name, None)
+        if shared_module is not None:
+            self.params_initialized = shared_module.params_initialized
         self.binded = True
         self.for_training = for_training
         if not self.params_initialized and self._preloaded is not None:
@@ -310,7 +330,7 @@ class Module(BaseModule):
         if not (fused_enabled() and self.binded and self.params_initialized
                 and self.optimizer_initialized and self.for_training
                 and self._kvstore is None and self._exec._monitor is None
-                and self._one_graph()):
+                and self._group2ctxs is None and self._one_graph()):
             return False
         if any(getattr(a, "stype", "default") != "default"
                for a in list(data_batch.data) + list(data_batch.label or [])):
@@ -488,6 +508,45 @@ class Module(BaseModule):
         upd.set_states(blob)
         if upd is self._updater:
             self._optimizer = upd.optimizer
+
+
+def _fold_contexts(ctxs, work_load_list, logger):
+    """The one context a list folds onto (its first), with the JAX
+    package's warnings where it would not split the batch."""
+    if len(ctxs) > 1:
+        devices = [c.device for c in ctxs]
+        if work_load_list is not None and len(set(work_load_list)) > 1:
+            logger.warning(
+                "non-uniform work_load_list is not supported by the "
+                "mesh data-parallel path; running on %s only (use "
+                "mxnet_tpu_torch.executor_manager for weighted slicing)",
+                ctxs[0])
+        elif len(set(devices)) < len(devices):
+            logger.warning(
+                "context list resolves to duplicate devices (%s); running "
+                "single-device on %s", devices, ctxs[0])
+        else:
+            logger.warning(
+                "context list spans %d devices (%s); running single-device "
+                "on %s: splitting a batch across cards waits for a run on "
+                "two cards", len(devices), devices, ctxs[0])
+    return ctxs[0]
+
+
+def _one_group2ctx(group2ctxs, logger):
+    """``group2ctxs`` as one {group: context} map, reduced as the JAX
+    package reduces it: a list of per-context maps and a map of
+    per-context lists take their first entry."""
+    if isinstance(group2ctxs, (list, tuple)) and group2ctxs:
+        if len(group2ctxs) > 1:
+            logger.info("group2ctxs list has %d per-replica dicts; the "
+                        "module runs one executor, using the first",
+                        len(group2ctxs))
+        group2ctxs = group2ctxs[0]
+    if isinstance(group2ctxs, dict):
+        return {g: (c[0] if isinstance(c, (list, tuple)) else c)
+                for g, c in group2ctxs.items()}
+    return None
 
 
 def _shape_key(executor, shapes=None):

@@ -38,6 +38,25 @@ def load(fname):
     return load_ndarrays(fname)
 
 
+def imdecode(str_img, clip_rect=(0, 0, 0, 0), out=None, index=0,
+             channels=3, mean=None):
+    """An encoded image decoded (reference `ndarray.py:imdecode`, served
+    by `image.imdecode`): HWC, cropped to ``clip_rect`` (x0, y0, x1, y1)
+    when it is set, less ``mean`` as float32 when given, written into
+    ``out`` when given."""
+    from ..image import imdecode as _imdecode
+    img = _imdecode(str_img, flag=1 if channels == 3 else 0)
+    x0, y0, x1, y1 = clip_rect
+    if x1 > 0 and y1 > 0:
+        img = img[y0:y1, x0:x1]
+    if mean is not None:
+        img = img.astype("float32") - mean
+    if out is not None:
+        out[:] = img
+        return out
+    return img
+
+
 def load_frombuffer(buf):
     """`load` from the bytes of such a file."""
     from ..serialization import loads_ndarrays
@@ -197,4 +216,4 @@ __all__ = ["NDArray", "CSRNDArray", "RowSparseNDArray", "array", "zeros",
            "ones", "full", "empty", "arange", "waitall", "invoke",
            "concat_nd", "sparse", "random", "linalg", "contrib", "image",
            "save", "load",
-           "load_frombuffer"]
+           "load_frombuffer", "imdecode"]

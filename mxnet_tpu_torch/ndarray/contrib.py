@@ -88,7 +88,7 @@ def while_loop(cond_fn: Callable, func: Callable, loop_vars,
         arr = _stack(slot)
         if steps < max_iterations:
             pad = torch.zeros((max_iterations - steps,) + arr.shape[1:],
-                              dtype=arr.dtype, device=arr.data.device)
+                              dtype=arr._tdtype, device=arr.data.device)
             arr = invoke("Concat", arr, NDArray(pad), dim=0, num_args=2)
         stacked.append(arr)
     out_val = (stacked[0] if len(stacked) == 1 else stacked) \

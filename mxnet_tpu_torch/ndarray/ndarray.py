@@ -24,11 +24,15 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..base import torch_dtype
+from ..base import MXNetError, dtype_np, torch_dtype
 from ..context import Context, default_context
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
            "waitall"]
+
+#: the live arrays that carry a deferred error not yet raised by `waitall`
+POISONED: "weakref.WeakValueDictionary[int, NDArray]" = \
+    weakref.WeakValueDictionary()
 
 #: the live variables (`attach_grad`, `autograd.mark_variables`): what a
 #: backward may write gradients into
@@ -47,17 +51,29 @@ def _invoke(op_name, *args, **kwargs):
 
 
 class NDArray:
-    """An array on one device."""
+    """An array on one device, in one context.
 
-    __slots__ = ("data", "_grad", "_grad_req", "_fresh_grad", "_version",
-                 "__weakref__")
+    ``ctx`` is the `Context` the array belongs to; when none is given it
+    is the context of the tensor's device.  Several contexts may share a
+    device (``cpu(0)`` and ``cpu(1)`` both live on the host), and the
+    array keeps the one it was made in, as MXNet's does.
 
-    def __init__(self, data: torch.Tensor):
+    A deferred error (a sampler given invalid parameters) rides on the
+    array and on every array computed from it, and is raised where the
+    values are read on the host (`asnumpy`, `wait_to_read`, `waitall`).
+    """
+
+    __slots__ = ("data", "_ctx", "_grad", "_grad_req", "_fresh_grad",
+                 "_version", "_deferred_error", "__weakref__")
+
+    def __init__(self, data: torch.Tensor, ctx: Optional[Context] = None):
         self.data = data
+        self._ctx = ctx
         self._grad: Optional[NDArray] = None
         self._grad_req = "null"
         self._fresh_grad = False
         self._version = 0
+        self._deferred_error: Optional[Exception] = None
 
     # -- properties ---------------------------------------------------------
     @property
@@ -65,7 +81,13 @@ class NDArray:
         return tuple(self.data.shape)
 
     @property
-    def dtype(self) -> torch.dtype:
+    def dtype(self):
+        """The numpy dtype of the values (`base.dtype_np`)."""
+        return dtype_np(self._tdtype)
+
+    @property
+    def _tdtype(self) -> torch.dtype:
+        """The torch dtype of the values."""
         return self.data.dtype
 
     @property
@@ -78,7 +100,10 @@ class NDArray:
 
     @property
     def context(self) -> Context:
-        return Context.of(self.data.device)
+        ctx = self._ctx
+        if ctx is None or ctx.device != self.data.device:
+            return Context.of(self.data.device)
+        return ctx
 
     @property
     def ctx(self) -> Context:
@@ -121,8 +146,34 @@ class NDArray:
             value = value.detach().requires_grad_(True)
         self.data = value
 
+    # -- deferred errors ----------------------------------------------------
+    def _poison(self, error: Optional[Exception]) -> "NDArray":
+        """Set (or, with None, clear) this array's deferred error."""
+        self._deferred_error = error
+        if error is not None:
+            POISONED[id(self)] = self
+        else:
+            POISONED.pop(id(self), None)
+        return self
+
+    def _carry_poison(self, out: "NDArray") -> "NDArray":
+        """``out``, derived from this array (a view, copy or detach),
+        with this array's deferred error."""
+        if self._deferred_error is not None:
+            out._poison(self._deferred_error)
+        return out
+
+    def _check_deferred(self):
+        e = self._deferred_error
+        if e is not None:
+            POISONED.pop(id(self), None)
+            raise MXNetError(
+                f"deferred async failure surfaced at sync point: {e}"
+            ) from e
+
     # -- sync and host copies -----------------------------------------------
     def wait_to_read(self):
+        self._check_deferred()
         if self.data.is_cuda:
             torch.cuda.synchronize(self.data.device)
 
@@ -130,6 +181,7 @@ class NDArray:
 
     def asnumpy(self) -> np.ndarray:
         """A host copy (bfloat16 widens to float32, which numpy lacks)."""
+        self._check_deferred()
         t = self.data.detach().to("cpu")
         if t.dtype == torch.bfloat16:
             t = t.float()
@@ -177,29 +229,35 @@ class NDArray:
     # -- conversions --------------------------------------------------------
     def astype(self, dtype, copy=True) -> "NDArray":
         dtype = torch_dtype(dtype)
-        if not copy and dtype == self.dtype:
+        if not copy and dtype == self._tdtype:
             return self
         return _invoke("cast", self, dtype=str(dtype).replace("torch.", ""))
 
     def copy(self) -> "NDArray":
         with _grad_mode():
-            return NDArray(self.data.clone())
+            return self._carry_poison(NDArray(self.data.clone(),
+                                              self.context))
 
     def copyto(self, other) -> "NDArray":
         """Copy into an NDArray (in place) or onto a context (reference
         `CopyFromTo`)."""
         if isinstance(other, NDArray):
             other._set_data(self.data.detach().to(other.data.device))
-            return other
+            return other._poison(self._deferred_error)
         if isinstance(other, Context):
-            return NDArray(self.data.detach().to(other.device, copy=True))
+            return self._carry_poison(NDArray(
+                self.data.detach().to(other.device, copy=True), other))
         raise TypeError(f"copyto does not support type {type(other)}")
 
     def as_in_context(self, ctx: Context) -> "NDArray":
+        """This array in context ``ctx``: itself when it is there, else a
+        new array on ``ctx`` (a copy also where the two contexts share a
+        device, as MXNet's `CopyFromTo` gives)."""
         if ctx == self.context:
             return self
         with _grad_mode():
-            return NDArray(self.data.to(ctx.device))
+            return self._carry_poison(NDArray(
+                self.data.to(ctx.device, copy=True), ctx))
 
     as_in_ctx = as_in_context
 
@@ -213,7 +271,8 @@ class NDArray:
             shape = tuple(kwargs["shape"])
         shape = infer_reshape(self.shape, shape)
         with _grad_mode():
-            return NDArray(self.data.reshape(shape))
+            return self._carry_poison(NDArray(self.data.reshape(shape),
+                                              self.context))
 
     def reshape_like(self, other) -> "NDArray":
         return self.reshape(other.shape)
@@ -232,10 +291,11 @@ class NDArray:
         package."""
         from .. import autograd
         autograd.mark_variables(self, NDArray(torch.zeros_like(
-            self.data, memory_format=torch.contiguous_format)), grad_req)
+            self.data, memory_format=torch.contiguous_format),
+            self.context), grad_req)
 
     def detach(self) -> "NDArray":
-        return NDArray(self.data.detach())
+        return self._carry_poison(NDArray(self.data.detach(), self.context))
 
     def backward(self, out_grad=None, retain_graph=False, train_mode=True,
                  create_graph=False):
@@ -254,17 +314,31 @@ class NDArray:
         return key
 
     def __getitem__(self, key) -> "NDArray":
+        key, flips = _positive_key(self._key(key), self.shape)
         with _grad_mode():
-            return NDArray(self.data[self._key(key)])
+            t = self.data[key]
+            if flips:
+                t = torch.flip(t, flips)
+            return self._carry_poison(NDArray(t, self.context))
 
     def __setitem__(self, key, value):
         if isinstance(value, NDArray):
             value = value.data
         elif not isinstance(value, (int, float, bool, torch.Tensor)):
-            value = torch.as_tensor(np.asarray(value), dtype=self.dtype,
+            value = torch.as_tensor(np.asarray(value), dtype=self._tdtype,
                                     device=self.data.device)
+        key, flips = _positive_key(self._key(key), self.shape)
         with torch.no_grad():
-            self.data[self._key(key)] = value
+            if flips:
+                # the reversed axes, written through the same elements
+                # in increasing order with the value flipped to match
+                view = self.data[key]
+                value = torch.as_tensor(value, dtype=view.dtype,
+                                        device=view.device)
+                view.copy_(torch.flip(value.broadcast_to(view.shape),
+                                      flips))
+            else:
+                self.data[key] = value
         self._version += 1
 
     def slice(self, begin, end, step=None) -> "NDArray":
@@ -343,13 +417,19 @@ class NDArray:
 
     def _inplace(self, other, op, scalar_op):
         res = self._binop(other, op, scalar_op)
-        self._set_data(res.data.to(self.dtype))
-        return self
+        self._set_data(res.data.to(self._tdtype))
+        return self._poison(res._deferred_error)
 
     def __iadd__(self, o): return self._inplace(o, "broadcast_add", "_plus_scalar")
     def __isub__(self, o): return self._inplace(o, "broadcast_sub", "_minus_scalar")
     def __imul__(self, o): return self._inplace(o, "broadcast_mul", "_mul_scalar")
     def __itruediv__(self, o): return self._inplace(o, "broadcast_div", "_div_scalar")
+    def __imod__(self, o): return self._inplace(o, "broadcast_mod", "_mod_scalar")
+
+    # the py2-era spellings MXNet still exposes
+    __div__ = __truediv__
+    __rdiv__ = __rtruediv__
+    __idiv__ = __itruediv__
 
     # -- fluent reductions and math -----------------------------------------
     def sum(self, axis=None, keepdims=False):
@@ -420,8 +500,46 @@ class NDArray:
         return _invoke("ones_like", self)
 
 
-def _device(ctx: Optional[Context], what: str) -> torch.device:
-    return (ctx or default_context(what)).device
+def _positive_key(key, shape):
+    """``key`` with every slice of negative step made positive over the
+    same elements, and the axes of the result to flip back; torch takes
+    no negative step.  A whole-array ``[:]`` of a 0-d array is ``[...]``.
+    Keys with tensor or list parts pass unchanged."""
+    if not shape and isinstance(key, slice) and key == slice(None):
+        return Ellipsis, []
+    parts = key if isinstance(key, tuple) else (key,)
+    if not any(isinstance(k, slice) and k.step is not None and k.step < 0
+               for k in parts):
+        return key, []
+    if any(not isinstance(k, (slice, int, np.integer, type(None),
+                              type(Ellipsis))) for k in parts):
+        return key, []
+    n_axes = sum(1 for k in parts if k is not None and k is not Ellipsis)
+    out, flips, ax, out_ax = [], [], 0, 0
+    for k in parts:
+        if k is Ellipsis:
+            skip = len(shape) - n_axes
+            ax += skip
+            out_ax += skip
+            out.append(k)
+        elif k is None:
+            out_ax += 1
+            out.append(k)
+        elif isinstance(k, slice):
+            if k.step is not None and k.step < 0:
+                start, stop, step = k.indices(shape[ax])
+                count = len(range(start, stop, step))
+                first = start + step * (count - 1) if count else 0
+                k = slice(first, first + (-step) * count if count else 0,
+                          -step)
+                flips.append(out_ax)
+            out.append(k)
+            ax += 1
+            out_ax += 1
+        else:
+            out.append(k)
+            ax += 1
+    return tuple(out), flips
 
 
 def array(source, ctx: Optional[Context] = None, dtype=None) -> NDArray:
@@ -441,46 +559,72 @@ def array(source, ctx: Optional[Context] = None, dtype=None) -> NDArray:
         t = torch.tensor(np.asarray(source))
         if dtype is None:
             dtype = torch.float32
-    t = t.to(device=_device(ctx, "nd.array"),
+    ctx = ctx or default_context("nd.array")
+    t = t.to(device=ctx.device,
              dtype=torch_dtype(dtype) if dtype is not None else None)
-    return NDArray(t)
+    return NDArray(t, ctx)
 
 
-def zeros(shape, ctx: Optional[Context] = None, dtype=None) -> NDArray:
-    """Zeros on ``ctx`` (the card when none is given)."""
-    return NDArray(torch.zeros(tuple(shape), device=_device(ctx, "nd.zeros"),
-                               dtype=torch_dtype(dtype or "float32")))
+def _device(ctx: Optional[Context], what: str) -> torch.device:
+    return (ctx or default_context(what)).device
+
+
+def _shape(shape):
+    return (shape,) if isinstance(shape, int) else tuple(shape)
+
+
+def zeros(shape, ctx: Optional[Context] = None, dtype=None,
+          stype=None) -> NDArray:
+    """Zeros on ``ctx`` (the card when none is given); a sparse
+    ``stype`` gives `sparse.zeros`."""
+    if stype not in (None, "default"):
+        from . import sparse
+        return sparse.zeros(stype, shape, ctx, dtype)
+    ctx = ctx or default_context("nd.zeros")
+    return NDArray(torch.zeros(_shape(shape), device=ctx.device,
+                               dtype=torch_dtype(dtype or "float32")), ctx)
 
 
 def ones(shape, ctx: Optional[Context] = None, dtype=None) -> NDArray:
-    return NDArray(torch.ones(tuple(shape), device=_device(ctx, "nd.ones"),
-                              dtype=torch_dtype(dtype or "float32")))
+    ctx = ctx or default_context("nd.ones")
+    return NDArray(torch.ones(_shape(shape), device=ctx.device,
+                              dtype=torch_dtype(dtype or "float32")), ctx)
 
 
 def full(shape, val, ctx: Optional[Context] = None, dtype=None) -> NDArray:
-    return NDArray(torch.full(tuple(shape), float(val),
-                              device=_device(ctx, "nd.full"),
-                              dtype=torch_dtype(dtype or "float32")))
+    ctx = ctx or default_context("nd.full")
+    return NDArray(torch.full(_shape(shape), float(val), device=ctx.device,
+                              dtype=torch_dtype(dtype or "float32")), ctx)
 
 
-def empty(shape, ctx: Optional[Context] = None, dtype=None) -> NDArray:
-    return zeros(shape, ctx, dtype)
+def empty(shape, ctx: Optional[Context] = None, dtype=None,
+          stype=None) -> NDArray:
+    return zeros(shape, ctx, dtype, stype=stype)
 
 
 def arange(start, stop=None, step=1.0, repeat=1, ctx=None,
            dtype=None) -> NDArray:
     if stop is None:
         start, stop = 0.0, start
+    ctx = ctx or default_context("nd.arange")
     t = torch.arange(float(start), float(stop), float(step),
-                     device=_device(ctx, "nd.arange"),
+                     device=ctx.device,
                      dtype=torch_dtype(dtype or "float32"))
-    return NDArray(t.repeat_interleave(repeat) if repeat > 1 else t)
+    return NDArray(t.repeat_interleave(repeat) if repeat > 1 else t, ctx)
 
 
 def waitall():
-    """Wait for every device's queued work (reference `nd.waitall`)."""
+    """Wait for every device's queued work (reference `nd.waitall`), and
+    raise a deferred error that a live array still carries (MXNet's
+    `WaitForAll` rethrows, once)."""
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
+    pending = list(POISONED.values())
+    POISONED.clear()
+    if pending:
+        e = pending[0]._deferred_error
+        raise MXNetError(
+            f"deferred async failure surfaced at sync point: {e}") from e
 
 
 #: ops attached as methods, ``x.topk(k=2)`` for ``nd.topk(x, k=2)`` (the

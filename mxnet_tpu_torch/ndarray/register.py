@@ -7,7 +7,16 @@ input's device, an op that reads ``__train`` gets
 `autograd.is_training()` unless the caller set it, an op's mutated inputs
 (MXNet's FMutateInputs, BatchNorm's moving statistics) are written back
 into the caller's arrays, and ``out=`` (an NDArray or a list of them)
-receives the results and is returned.  Under `autograd.record` the op
+receives the results and is returned.  Results take the context of the
+first input.
+
+Errors that MXNet raises asynchronously are deferred as it defers them:
+a sampler given invalid parameters (its validator, run here on the
+host-known attrs) or an input that carries a deferred error gives
+outputs that carry the error, and it is raised where they are read on
+the host (`NDArray.asnumpy`, `wait_to_read`, `waitall`).  A sampler
+whose validator failed draws nothing: its outputs are zeros of the right
+shape.  Under `autograd.record` the op
 runs with torch's grad mode on, so autograd records it; otherwise under
 `torch.no_grad()`.
 """
@@ -21,7 +30,7 @@ import torch
 from .. import autograd
 from .. import profiler as _prof
 from .. import random as _random
-from ..base import _Null
+from ..base import MXNetError, _Null
 from ..context import default_context
 from ..ops import registry as _reg
 from ..ops.registry import DEVICE, Attrs
@@ -106,18 +115,39 @@ def invoke(op_name: str, *args, out=None, **kwargs):
                                 else attrs[DEVICE])
     a = Attrs(attrs)
     n_vis = op.num_outputs(a)
+    deferred = next((x._deferred_error for x in nd_inputs
+                     if x._deferred_error is not None), None)
+    invalid = None
+    vfn = _reg.get_validator(op_name)
+    if vfn is not None and deferred is None:
+        try:
+            vfn(a)
+        except MXNetError as e:
+            deferred = invalid = e
     _prof.bump_counter("dispatches")  # one host dispatch per op invoke
-    with autograd.grad_mode():
-        outs = _reg.apply_op(op_name, tensors, attrs, generator=gen)
-        if torch.is_grad_enabled():
-            outs = _keep_on_tape(outs, n_vis, tensors)
+    if invalid is not None:
+        # the validated ops are the zero-input samplers: their placeholder
+        # is zeros of the asked shape and dtype
+        outs = (torch.zeros(a.get_tuple("shape", ()) or (),
+                            dtype=a.get_dtype("dtype", torch.float32),
+                            device=attrs[DEVICE]),)
+    else:
+        with autograd.grad_mode():
+            outs = _reg.apply_op(op_name, tensors, attrs, generator=gen)
+            if torch.is_grad_enabled():
+                outs = _keep_on_tape(outs, n_vis, tensors)
     for slot, val in zip(op.mutate_slots(a), outs[n_vis:]):
         nd_inputs[slot]._set_data(val)
-    res = [NDArray(o) for o in outs[:n_vis]]
+        nd_inputs[slot]._poison(deferred)
+    res = [NDArray(o, ctx) for o in outs[:n_vis]]
+    if deferred is not None:
+        for r in res:
+            r._poison(deferred)
     if out is not None:
         dsts = out if isinstance(out, (list, tuple)) else [out]
         for dst, src in zip(dsts, res):
-            dst._set_data(src.data.to(dst.dtype))
+            dst._set_data(src.data.to(dst._tdtype))
+            dst._poison(deferred)
         return out
     return res[0] if len(res) == 1 else res
 

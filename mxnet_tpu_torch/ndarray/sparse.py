@@ -68,6 +68,8 @@ class BaseSparseNDArray(NDArray):
         self._grad_req = "null"
         self._fresh_grad = False
         self._version = 0
+        self._ctx = None
+        self._deferred_error = None
         self._sp_shape = tuple(int(d) for d in shape)
         self._dense_src = None
         self._cache = {}
@@ -87,7 +89,7 @@ class BaseSparseNDArray(NDArray):
         return self._sp_shape
 
     @property
-    def dtype(self) -> torch.dtype:
+    def _tdtype(self) -> torch.dtype:
         return self._sp_data.dtype
 
     @property
@@ -100,29 +102,42 @@ class BaseSparseNDArray(NDArray):
 
     @property
     def context(self) -> Context:
-        return Context.of(self._sp_data.device)
+        ctx = self._ctx
+        if ctx is None or ctx.device != self._sp_data.device:
+            return Context.of(self._sp_data.device)
+        return ctx
 
     @property
     def sp_data(self) -> NDArray:
-        return NDArray(self._sp_data)
+        return NDArray(self._sp_data, self.context)
 
     @property
     def indices(self) -> NDArray:
-        return NDArray(self._sp_indices)
+        return NDArray(self._sp_indices, self.context)
 
     def todense_data(self) -> torch.Tensor:
         raise NotImplementedError
 
     def asnumpy(self) -> np.ndarray:
+        self._check_deferred()
         return NDArray(self.data).asnumpy()
 
     def tostype(self, stype: str):
         return self if stype == self.stype else cast_storage(self, stype)
 
     def todense(self) -> NDArray:
-        return NDArray(self.data)
+        return self._carry_poison(NDArray(self.data, self.context))
+
+    def __getitem__(self, key):
+        """An element or a dense slice: a view of the dense value, which
+        a later write into this array refreshes (`_adopt`)."""
+        views = self._cache.get("views")
+        if views is None:
+            views = self._cache["views"] = self.todense_data()
+        return NDArray(views, self.context)[key]
 
     def wait_to_read(self):
+        self._check_deferred()
         if self._sp_data.is_cuda:
             torch.cuda.synchronize(self._sp_data.device)
 
@@ -139,7 +154,8 @@ class BaseSparseNDArray(NDArray):
         if isinstance(value, NDArray):
             dense = value.data
         elif isinstance(value, (int, float, bool, np.number)):
-            dense = torch.full(self._sp_shape, float(value), dtype=self.dtype,
+            dense = torch.full(self._sp_shape, float(value),
+                               dtype=self._tdtype,
                                device=self._sp_data.device)
         else:
             dense = torch.as_tensor(np.asarray(value))
@@ -154,9 +170,14 @@ class BaseSparseNDArray(NDArray):
                              f"a {self.stype} array of shape "
                              f"{self._sp_shape}")
         value = value.detach().to(device=self._sp_data.device,
-                                  dtype=self.dtype)
+                                  dtype=self._tdtype)
         self._version += 1
+        views = self._cache.get("views")
         self._adopt(_compress(value, self.stype))
+        if views is not None:
+            with torch.no_grad():
+                views.copy_(value)
+            self._cache["views"] = views
 
     def _adopt(self, other: "BaseSparseNDArray") -> None:
         raise NotImplementedError
@@ -178,10 +199,10 @@ class BaseSparseNDArray(NDArray):
             name = scalar_op
             if reverse:
                 name = self._REVERSE_SCALAR.get(scalar_op, scalar_op)
-            key = (name, repr(float(other)), str(self.dtype))
+            key = (name, repr(float(other)), str(self._tdtype))
             keeps = _ZERO_PRESERVING.get(key)
             if keeps is None:
-                zero = torch.zeros((1,), dtype=self.dtype)
+                zero = torch.zeros((1,), dtype=self._tdtype)
                 at0 = _reg.apply_op(name, [zero], {"scalar": float(other)})
                 keeps = _ZERO_PRESERVING[key] = float(at0[0][0]) == 0.0
             if keeps:
@@ -226,7 +247,7 @@ class CSRNDArray(BaseSparseNDArray):
 
     @property
     def indptr(self) -> NDArray:
-        return NDArray(self._sp_indptr)
+        return NDArray(self._sp_indptr, self.context)
 
     @property
     def nnz(self) -> int:
@@ -325,7 +346,7 @@ class CSRNDArray(BaseSparseNDArray):
         return super().__getitem__(key)
 
     def todense_data(self) -> torch.Tensor:
-        out = torch.zeros(self._sp_shape, dtype=self.dtype,
+        out = torch.zeros(self._sp_shape, dtype=self._tdtype,
                           device=self._sp_data.device)
         if self.nnz:
             out = out.index_put((self._row_ids(), self._sp_indices.long()),
@@ -372,7 +393,7 @@ class RowSparseNDArray(BaseSparseNDArray):
         return RowSparseNDArray(values, self._sp_indices, self._sp_shape)
 
     def todense_data(self) -> torch.Tensor:
-        out = torch.zeros(self._sp_shape, dtype=self.dtype,
+        out = torch.zeros(self._sp_shape, dtype=self._tdtype,
                           device=self._sp_data.device)
         if self._sp_indices.numel():
             out = out.index_put((self._sp_indices.long(),), self._sp_data,

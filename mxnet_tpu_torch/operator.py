@@ -53,7 +53,7 @@ class CustomOp:
             return
         s = src.data if isinstance(src, NDArray) else \
             torch.as_tensor(np.asarray(src))
-        s = s.to(device=dst.data.device, dtype=dst.dtype)
+        s = s.to(device=dst.data.device, dtype=dst._tdtype)
         with torch.no_grad():
             if req == "add":
                 dst.data.add_(s)

@@ -71,6 +71,22 @@ def _layout_perm(layout):
     return [layout.index("N"), layout.index("C")] + sp
 
 
+# MXTPU_CONV_LAYOUT=NHWC runs 2-D convolution and pooling channels-last:
+# the operands keep their NCHW shapes in torch's channels_last memory
+# format, which cuDNN takes natively.  Read once at import, as the JAX
+# package reads it, so set it before importing the package.
+from ..config import get_env as _get_env
+_NHWC_LAYOUT = _get_env("MXTPU_CONV_LAYOUT", "").upper() == "NHWC"
+
+
+def _use_nhwc():
+    return _NHWC_LAYOUT
+
+
+def _channels_last(t):
+    return t.contiguous(memory_format=torch.channels_last)
+
+
 def _conv_args(attrs, n):
     return (_pair(attrs.get_tuple("stride", None), n),
             _pair(attrs.get_tuple("pad", None) or (0,) * n, n),
@@ -94,6 +110,8 @@ def _convolution(attrs, data, weight, bias=None):
     if perm is not None:
         data = data.permute(perm)
         weight = weight.permute(perm)
+    elif n == 2 and _use_nhwc():
+        data, weight = _channels_last(data), _channels_last(weight)
     out = _CONV[n](data, weight, bias, stride, pad, dilate,
                    attrs.get_int("num_group", 1))
     if perm is not None:
@@ -200,6 +218,8 @@ def _pooling(attrs, data):
         return data.mean(dim=sp_axes, keepdim=True)
     perm = _layout_perm(layout)
     x = data.permute(perm) if perm is not None else data
+    if perm is None and n == 2 and _use_nhwc():
+        x = _channels_last(x)
     size = x.shape[2:]
     if conv == "full":
         pads = []

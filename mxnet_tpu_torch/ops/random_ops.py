@@ -28,7 +28,7 @@ import math
 import torch
 
 from ..base import MXNetError
-from .registry import DEVICE, alias, register
+from .registry import DEVICE, alias, register, register_validator
 
 
 def _shape(attrs):
@@ -173,6 +173,41 @@ def _sampler(dist):
 
 for _dist in _DISTS:
     _sampler(_dist)
+
+
+# -- validators of the samplers' parameters, run at imperative dispatch ------
+
+@register_validator("_random_normal")
+def _check_normal(attrs):
+    scale = attrs.get_float("scale", 1.0)
+    _check(scale > 0, "normal: scale (standard deviation) must be "
+           f"positive, got {scale}")
+
+
+@register_validator("_random_gamma")
+def _check_gamma(attrs):
+    _check(attrs.get_float("alpha", 1.0) > 0
+           and attrs.get_float("beta", 1.0) > 0,
+           "gamma: alpha and beta must be positive")
+
+
+@register_validator("_random_exponential")
+def _check_exponential(attrs):
+    _check(attrs.get_float("lam", 1.0) > 0,
+           "exponential: lam must be positive")
+
+
+@register_validator("_random_poisson")
+def _check_poisson(attrs):
+    _check(attrs.get_float("lam", 1.0) >= 0,
+           "poisson: lam must be non-negative")
+
+
+@register_validator("_random_negative_binomial")
+def _check_negbin(attrs):
+    k, p = attrs.get_int("k", 1), attrs.get_float("p", 1.0)
+    _check(k > 0 and 0.0 < p <= 1.0,
+           "negative_binomial: need k > 0 and 0 < p <= 1")
 
 
 @register("_random_randint", num_inputs=0, needs_rng=True,

@@ -26,7 +26,7 @@ from ..base import MXNetError, _Null, str_to_attr, torch_dtype
 __all__ = ["Attrs", "OpDef", "register", "alias", "get_op", "list_ops",
            "apply_op", "eval_shape_op", "canonical_attrs",
            "split_positional_attrs", "attach_prefixed", "DEVICE",
-           "PROGRAM_STATE"]
+           "PROGRAM_STATE", "register_validator", "get_validator"]
 
 #: the attr through which a zero-input op learns the device to build on
 DEVICE = "__device"
@@ -149,6 +149,26 @@ def alias(name: str, *names: str):
     for n in names:
         _REGISTRY[n] = op
         op.aliases.append(n)
+
+
+#: attr validators, op name -> fn(Attrs) raising MXNetError.  Imperative
+#: dispatch runs them on the host-known attrs and defers the failure to
+#: the output's sync point (MXNet's parameter checks run inside its
+#: asynchronous engine and surface at WaitToRead)
+_VALIDATORS: Dict[str, Callable] = {}
+
+
+def register_validator(name: str):
+    def deco(fn):
+        _VALIDATORS[name] = fn
+        return fn
+    return deco
+
+
+def get_validator(name: str):
+    """The validator of op ``name`` or of the op it aliases, or None."""
+    op = _REGISTRY.get(name)
+    return _VALIDATORS.get(op.name if op is not None else name)
 
 
 def get_op(name: str) -> OpDef:

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import struct
 import threading
-from typing import Dict, List, Mapping, Optional, Tuple, Union
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -122,13 +122,20 @@ class Predictor:
 
     ``params`` is a `.params` blob or its parsed form, a mapping of
     ``arg:``/``aux:``-prefixed or bare names to NDArrays (for example from
-    `serialization.params_from_numpy`)."""
+    `serialization.params_from_numpy`).  ``output_names`` serves those
+    outputs of the graph (`Symbol.list_outputs` names) instead of its
+    heads; ``input_types`` gives inputs a dtype other than float32 (an
+    int8 deploy graph's)."""
 
     def __init__(self, symbol_json: str,
                  params: Union[bytes, Mapping[str, NDArray]],
                  input_shapes: Dict[str, Tuple[int, ...]],
-                 ctx: Optional[Context] = None):
+                 ctx: Optional[Context] = None,
+                 output_names: Optional[Sequence[str]] = None,
+                 input_types: Optional[Dict[str, object]] = None):
         self._sym = _sym.load_json(symbol_json)
+        if output_names:
+            self._sym = _sym.Group([self._sym[n] for n in output_names])
         self._ctx = ctx if ctx is not None else default_context("Predictor")
         if isinstance(params, (bytes, bytearray)):
             loaded = load_ndarray_bytes(params) if params else {}
@@ -142,6 +149,8 @@ class Predictor:
         self._aux_params = {k[4:]: v for k, v in loaded.items()
                             if k.startswith("aux:")}
         self._inputs: Dict[str, object] = {}
+        self._input_types = {n: np.dtype(t)
+                             for n, t in (input_types or {}).items()}
         self._bind(dict(input_shapes))
 
     def _bind(self, input_shapes: Dict[str, Tuple[int, ...]]):
@@ -150,7 +159,8 @@ class Predictor:
         args = {}
         for name, shape in zip(self._sym.list_arguments(), arg_shapes):
             if name in input_shapes:
-                args[name] = zeros(shape, ctx=self._ctx)
+                args[name] = zeros(shape, ctx=self._ctx,
+                                   dtype=self._input_types.get(name))
             elif name in self._arg_params:
                 args[name] = self._arg_params[name]
             else:

@@ -967,30 +967,39 @@ def resume(profile_process="worker"):
 
 def _trace_events() -> list:
     """The Chrome-trace events of every segment captured since the last
-    `start` (a running capture is stopped first)."""
+    `start` (a running capture is stopped first).  A segment is exported
+    once, and its events take its place: torch exports a profile once."""
     if _state["running"]:
         _end()
     events = []
-    for prof in _state["segments"]:
-        fd, tmp = tempfile.mkstemp(suffix=".json")
-        os.close(fd)
-        try:
-            prof.export_chrome_trace(tmp)
-            with open(tmp) as f:
-                events.extend(json.load(f).get("traceEvents", []))
-        finally:
-            os.remove(tmp)
+    for i, seg in enumerate(_state["segments"]):
+        if not isinstance(seg, list):
+            fd, tmp = tempfile.mkstemp(suffix=".json")
+            os.close(fd)
+            try:
+                seg.export_chrome_trace(tmp)
+                with open(tmp) as f:
+                    seg = json.load(f).get("traceEvents", [])
+            finally:
+                os.remove(tmp)
+            _state["segments"][i] = seg
+        events.extend(seg)
     return events
 
 
 def dump(finished=True, profile_process="worker"):
-    """Finish capture and write every segment's events as one
-    Chrome-tracing JSON file at the configured ``filename``; returns its
-    path, or None when nothing was captured."""
+    """Write every segment's events as one Chrome-tracing JSON file at
+    the configured ``filename``; returns its path, or None when nothing
+    was captured.  ``finished`` ends the capture; otherwise a running
+    capture goes on in a new segment, and the next dump writes the file
+    again with what it adds (MXNet's continuous dumps)."""
     if not _state["segments"] and not _state["running"]:
         return None
     out = _config.get("filename", "profile.json")
+    resume_after = _state["running"] and not finished
     events = _trace_events()
+    if resume_after:
+        _begin()
     d = os.path.dirname(os.path.abspath(out))
     os.makedirs(d, exist_ok=True)
     with open(out, "w") as f:

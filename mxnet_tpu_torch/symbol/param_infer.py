@@ -96,6 +96,11 @@ def _softmax_output_label(a, data):
     return {1: tuple(data[:-1])}
 
 
+def _regression_label(a, data):
+    """A regression head's label has the data's shape."""
+    return {1: tuple(data)}
+
+
 _RULES = {
     "FullyConnected": _fc,
     "Convolution": _conv,
@@ -108,6 +113,9 @@ _RULES = {
     "RNN": _rnn,
     "SoftmaxOutput": _softmax_output_label,
     "Softmax": _softmax_output_label,
+    "LinearRegressionOutput": _regression_label,
+    "MAERegressionOutput": _regression_label,
+    "LogisticRegressionOutput": _regression_label,
 }
 
 

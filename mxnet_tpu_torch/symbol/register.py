@@ -5,7 +5,8 @@ from __future__ import annotations
 
 from typing import Any, Dict
 
-from ..base import _Null
+from ..attribute import USER_KEYS_ATTR
+from ..base import MXNetError, _Null
 from ..ops import registry as _reg
 from ..ops.registry import Attrs
 from .symbol import Symbol, _NAMES, _new_op_node, var
@@ -35,11 +36,33 @@ _SYM_INPUTS = {
     # output heads create their `<name>_label` variable when not given
     "SoftmaxOutput": lambda a: ["data", "label"],
     "Softmax": lambda a: ["data", "label"],
+    "LinearRegressionOutput": lambda a: ["data", "label"],
+    "MAERegressionOutput": lambda a: ["data", "label"],
+    "LogisticRegressionOutput": lambda a: ["data", "label"],
+    "SVMOutput": lambda a: ["data", "label"],
 }
+
+
+def _user_attrs(user_attr) -> Dict[str, Any]:
+    """An op's ``attr={...}``, checked as the reference checks it: each
+    key is marked ``__key__`` (a bare key could override an op parameter)
+    and holds no comma or whitespace (the keys are joined by commas into
+    ``__user_keys__``, which `strip_annotations` splits before the op
+    runs)."""
+    for k in user_attr:
+        if not (k.startswith("__") and k.endswith("__") and len(k) > 4):
+            raise MXNetError(f"Attribute name {k!r} is not supported. Op "
+                             "attributes must be marked like __key__")
+        if "," in k or any(c.isspace() for c in k):
+            raise MXNetError(f"Attribute name {k!r} is not supported: "
+                             "commas and whitespace are not allowed in "
+                             "attribute keys")
+    return {**user_attr, USER_KEYS_ATTR: ",".join(sorted(user_attr))}
 
 
 def invoke_sym(op_name: str, *args, name=None, **kwargs) -> Symbol:
     op = _reg.get_op(op_name)
+    user_attr = kwargs.pop("attr", None)
     inputs, pos_attrs = _reg.split_positional_attrs(
         op, [a for a in args if a is not None], kwargs, Symbol)
     kwargs.update(pos_attrs)
@@ -50,12 +73,17 @@ def invoke_sym(op_name: str, *args, name=None, **kwargs) -> Symbol:
                              if v is not _Null}
     if name is None:
         name = _NAMES.get(op_name.lstrip("_"))
+    if user_attr:
+        attrs.update(_user_attrs(user_attr))
 
     if op_name in _SYM_INPUTS:
         want = _SYM_INPUTS[op_name](Attrs(attrs))
         pos = {want[i]: s for i, s in enumerate(inputs) if i < len(want)}
         pos.update(named)
-        inputs = [pos[n] if n in pos else var(f"{name}_{n}") for n in want]
+        # a parameter made here carries the op's user attrs
+        extra = {"attr": dict(user_attr)} if user_attr else {}
+        inputs = [pos[n] if n in pos else var(f"{name}_{n}", **extra)
+                  for n in want]
     elif named and op.input_names:
         pos = {op.input_names[i]: s for i, s in enumerate(inputs)}
         pos.update(named)

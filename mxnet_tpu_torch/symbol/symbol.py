@@ -21,8 +21,8 @@ import torch
 
 from ..attribute import current as _attr_scope
 from ..attribute import strip_annotations
-from ..base import (MXNetError, NotImplementedForSymbol, numpy_dtype,
-                    str_to_attr)
+from ..base import (MXNetError, NotImplementedForSymbol, dtype_name,
+                    numpy_dtype, str_to_attr)
 from ..context import default_context
 from ..ops import registry as _reg
 from ..ops.registry import Attrs
@@ -143,6 +143,66 @@ class Symbol:
         if isinstance(idx, slice):
             return Symbol(self._heads[idx])
         return Symbol([self._heads[idx]])
+
+    def __call__(self, *args, name=None, **kwargs):
+        """Late composition (reference `symbol.py:__call__`): this graph
+        with its free variables replaced by the given one-output symbols,
+        positionally in variable order or by name (not both).  ``name``
+        renames the composed head node.  This symbol is unchanged."""
+        if args and kwargs:
+            raise MXNetError(
+                "compose only accepts input Symbols either as positional "
+                "or keyword arguments, not both")
+
+        def entry_of(key, sym):
+            if not isinstance(sym, Symbol):
+                raise MXNetError(f"compose: {key} must be a Symbol, got "
+                                 f"{type(sym).__name__}")
+            if len(sym._heads) != 1:
+                raise MXNetError(
+                    f"compose: {key} must have exactly one output, has "
+                    f"{len(sym._heads)}")
+            return sym._heads[0]
+
+        subs: Dict[str, Tuple[_Node, int]] = {}
+        free = [n for n in self._nodes() if n.is_var]
+        free_names = {n.name for n in free}
+        if len(args) > len(free):
+            raise MXNetError(f"compose: {len(args)} args for {len(free)} "
+                             "free variables")
+        for var_node, sym in zip(free, args):
+            subs[var_node.name] = entry_of(var_node.name, sym)
+        for key, sym in kwargs.items():
+            if key not in free_names:
+                raise MXNetError(f"compose: no free variable {key!r}")
+            subs[key] = entry_of(key, sym)
+        if not subs and name is None:
+            return Symbol(list(self._heads))
+
+        touched: Dict[int, bool] = {}
+        for node in self._nodes():
+            touched[id(node)] = (node.name in subs if node.is_var else
+                                 any(touched[id(i)] for (i, _) in node.inputs))
+        memo: Dict[int, _Node] = {}
+        for node in self._nodes():
+            if node.is_var or not touched[id(node)]:
+                memo[id(node)] = node  # an untouched subgraph is shared
+                continue
+            memo[id(node)] = _Node(node.op, node.name, dict(node.attrs), [
+                subs[i.name] if i.is_var and i.name in subs
+                else (memo[id(i)], k) for (i, k) in node.inputs])
+        heads = [subs[n.name] if n.is_var and n.name in subs
+                 else (memo[id(n)], i) for (n, i) in self._heads]
+        if name is not None and len(heads) == 1 and not heads[0][0].is_var:
+            top, idx = heads[0]
+            if any(top is n for (n, _) in self._heads):
+                # an untouched head is copied, so that the rename leaves
+                # this graph as it was
+                top = _Node(top.op, top.name, dict(top.attrs),
+                            list(top.inputs))
+            top.name = name
+            heads[0] = (top, idx)
+        return Symbol(heads)
 
     # -- composition sugar --------------------------------------------------
     def _binop(self, other, op, scalar_op, reverse=False):
@@ -469,14 +529,16 @@ class Symbol:
         return self.bind(ctx, args=kwargs, grad_req="null").forward()
 
     def bind(self, ctx=None, args=None, args_grad=None, grad_req="write",
-             aux_states=None):
+             aux_states=None, group2ctx=None, shared_exec=None):
         """An `Executor` over this graph with ``args`` bound (and, where
         ``args_grad`` gives buffers, their gradients per ``grad_req``).
-        ``MXNET_SUBGRAPH_BACKEND`` partitions the graph first; positional
-        lists stay aligned to this symbol's order."""
+        ``MXNET_SUBGRAPH_BACKEND`` partitions the graph first, unless
+        ``group2ctx`` places its groups (`Executor`); positional lists
+        stay aligned to this symbol's order.  ``shared_exec`` is accepted
+        as the reference accepts it: the arrays given are the storage."""
         from ..executor import Executor  # the executor imports symbols
         from ..subgraph import apply_env_backend
-        part = apply_env_backend(self)
+        part = self if group2ctx else apply_env_backend(self)
         if part is not self:
             arg_names = self.list_arguments()
             if isinstance(args, (list, tuple)):
@@ -489,21 +551,28 @@ class Symbol:
                 aux_states = dict(zip(self.list_auxiliary_states(),
                                       aux_states))
         return Executor(part, ctx, args=args, args_grad=args_grad,
-                        grad_req=grad_req, aux_states=aux_states)
+                        grad_req=grad_req, aux_states=aux_states,
+                        group2ctx=group2ctx)
 
     def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
-                    **shapes):
+                    group2ctx=None, shared_exec=None, **shapes):
         """Bind with every argument, gradient and auxiliary state
         allocated as zeros on ``ctx`` (the card when none is given), their
         shapes inferred from the given input ``shapes`` (reference
         `symbol.py:1369`).  ``type_dict`` names dtypes other than
         float32; the arguments it does not name take the float dtype
         `infer_type` propagates to them.  ``MXNET_SUBGRAPH_BACKEND``
-        partitions the graph first."""
-        from ..executor import Executor
+        partitions the graph first, unless ``group2ctx`` is given: then
+        each array is allocated in its group's context
+        (`executor.group_placement`).  ``shared_exec`` lends its arrays:
+        each argument (but the inputs ``shapes`` names), gradient and
+        auxiliary state it holds is bound as the same array, not a copy,
+        and a shape that differs raises ValueError."""
+        from ..executor import Executor, group_placement
         from ..ndarray.ndarray import zeros
         from ..subgraph import apply_env_backend
-        self = apply_env_backend(self)
+        if not group2ctx:
+            self = apply_env_backend(self)
         if ctx is None:
             ctx = default_context("simple_bind")
         arg_shapes, _, aux_shapes = self.infer_shape(**shapes)
@@ -518,16 +587,49 @@ class Symbol:
             return inferred if np.issubdtype(inferred, np.floating) \
                 else "float32"
 
-        args = {n: zeros(s, ctx=ctx, dtype=dtype(n, t)) for n, s, t in
-                zip(self.list_arguments(), arg_shapes, arg_types)}
-        aux = {n: zeros(s, ctx=ctx, dtype=dtype(n, t)) for n, s, t in
-               zip(self.list_auxiliary_states(), aux_shapes, aux_types)}
+        var_ctx = group_placement(self, group2ctx)
+        args = {n: zeros(s, ctx=var_ctx.get(n, ctx), dtype=dtype(n, t))
+                for n, s, t in zip(self.list_arguments(), arg_shapes,
+                                   arg_types)}
+        aux = {n: zeros(s, ctx=var_ctx.get(n, ctx), dtype=dtype(n, t))
+               for n, s, t in zip(self.list_auxiliary_states(), aux_shapes,
+                                  aux_types)}
         args_grad = None
         if grad_req != "null":
-            args_grad = {n: zeros(a.shape, ctx=ctx, dtype=a.dtype)
+            args_grad = {n: zeros(a.shape, ctx=a.context, dtype=a._tdtype)
                          for n, a in args.items()}
-        return Executor(self, ctx, args=args, args_grad=args_grad,
-                        grad_req=grad_req, aux_states=aux)
+        if shared_exec is not None:
+            _share_arrays(shared_exec, args, args_grad, aux, set(shapes))
+        ex = Executor(self, ctx, args=args, args_grad=args_grad,
+                      grad_req=grad_req, aux_states=aux, group2ctx=group2ctx)
+        # the same arrays, not new handles over their tensors
+        ex.arg_dict.update(args)
+        ex.aux_dict.update(aux)
+        if args_grad is not None:
+            ex.grad_dict.update({n: g for n, g in args_grad.items()
+                                 if n in ex.grad_dict})
+        return ex
+
+
+def _share_arrays(src, args, args_grad, aux, inputs) -> None:
+    """Put ``src``'s parameter arrays (its arguments but ``inputs``, their
+    gradients, its auxiliary states) in place of the new ones in
+    ``args``, ``args_grad`` and ``aux``; a shape that differs raises
+    ValueError, since a parameter left at zeros would pass unnoticed."""
+    for what, mine, theirs in (("parameter", args, src.arg_dict),
+                               ("aux state", aux, src.aux_dict)):
+        for name, arr in theirs.items():
+            if name in inputs or name not in mine:
+                continue
+            if tuple(arr.shape) != tuple(mine[name].shape):
+                raise ValueError(
+                    f"shared_module: {what} {name!r} shape "
+                    f"{tuple(arr.shape)} does not match this module's "
+                    f"{tuple(mine[name].shape)}")
+            mine[name] = arr
+            if what == "parameter" and args_grad is not None \
+                    and name in args_grad and name in src.grad_dict:
+                args_grad[name] = src.grad_dict[name]
 
 
 #: the op that computes ``scalar op x`` for a scalar op of ``x op scalar``
@@ -552,13 +654,201 @@ def _attr_str(v) -> str:
 
 
 def _var_shape(node: _Node) -> Optional[tuple]:
+    """A variable's declared ``__shape__`` (0 marks an unknown dim)."""
     raw = node.attrs.get("__shape__")
     if raw is None:
         return None
-    shape = tuple(str_to_attr(raw) if isinstance(raw, str) else raw)
-    # the reference's 0-as-unknown convention: a partial declaration does
-    # not pin the shape
-    return None if 0 in shape else shape
+    return tuple(str_to_attr(raw) if isinstance(raw, str) else raw)
+
+
+def _punify(a, b):
+    """Two partial shapes (0 an unknown dim) merged into one; raises on a
+    conflict."""
+    if a is None:
+        return tuple(b)
+    if b is None:
+        return tuple(a)
+    if len(a) != len(b):
+        raise MXNetError(f"shape rank mismatch: {a} vs {b}")
+    out = []
+    for x, y in zip(a, b):
+        if x == 0:
+            out.append(y)
+        elif y == 0 or x == y:
+            out.append(x)
+        else:
+            raise MXNetError(f"incompatible shapes: {a} vs {b}")
+    return tuple(out)
+
+
+_PARTIAL_BINARY = ("broadcast_add", "broadcast_sub", "broadcast_mul",
+                   "broadcast_div", "elemwise_add", "elemwise_sub",
+                   "elemwise_mul", "elemwise_div", "_Plus", "_plus")
+
+
+def _partial_updates(node, get, attrs):
+    """``{value key: partial shape}``: what the partial-shape rules of the
+    core op families (the reference's InferShape of
+    `elemwise_op_common.h`, `fully_connected.cc`, `slice_channel.cc`,
+    `convolution.cc`, `concat.cc`) learn of ``node``'s inputs and outputs,
+    forward and backward, from the partial shapes ``get(key)`` gives."""
+    op = node.op
+    ups: Dict[str, tuple] = {}
+    in_keys = [_value_key(e) for e in node.inputs]
+    out0 = _entry_key((node, 0))
+
+    def merge(key, new):
+        cur = get(key)
+        try:
+            uni = _punify(cur, new)
+        except MXNetError:
+            raise MXNetError(
+                f"shape inference failed at node {node.name} ({op}): "
+                f"{cur} vs {new}")
+        if uni != (tuple(cur) if cur is not None else None):
+            ups[key] = uni
+
+    if op in _PARTIAL_BINARY and len(in_keys) == 2:
+        # as the reference's broadcast rule, an unknown dim is filled from
+        # the other operand or from the output
+        sa, sb = get(in_keys[0]), get(in_keys[1])
+        so = get(out0)
+        if sa is not None and sb is not None and len(sa) == len(sb):
+            o = []
+            for x, y in zip(sa, sb):
+                if x == y or y in (0, 1):
+                    o.append(x)
+                elif x in (0, 1):
+                    o.append(y)
+                else:
+                    raise MXNetError(
+                        f"shape inference failed at node {node.name} "
+                        f"({op}): incompatible shapes {sa} vs {sb}")
+            merge(out0, tuple(o))
+        if so is not None:
+            for k, sh in ((in_keys[0], sa), (in_keys[1], sb)):
+                if sh is not None and len(sh) == len(so):
+                    merge(k, tuple(si if si == 1 and oi != 1 else oi
+                                   if si == 0 else si
+                                   for si, oi in zip(sh, so)))
+        return ups
+    if op == "FullyConnected":
+        num_hidden = attrs.get_int("num_hidden", 0)
+        sd, so = get(in_keys[0]), get(out0)
+        if sd is not None and len(sd) == 2:
+            merge(out0, (sd[0], num_hidden))
+        if so is not None and len(so) == 2 and sd is not None \
+                and len(sd) == 2:
+            merge(in_keys[0], (so[0], sd[1]))
+        return ups
+    if op == "Activation" or op in ("relu", "sigmoid", "tanh", "softsign"):
+        si, so = get(in_keys[0]), get(out0)
+        if si is not None:
+            merge(out0, si)
+        if so is not None:
+            merge(in_keys[0], so)
+        return ups
+    if op == "SliceChannel":
+        k = attrs.get_int("num_outputs", 1)
+        ax = attrs.get_int("axis", 1)
+        squeeze = attrs.get_bool("squeeze_axis", False)
+        si = get(in_keys[0])
+        known_out = None
+        for o in (get(_entry_key((node, i))) for i in range(k)):
+            if o is not None:
+                known_out = _punify(known_out, o)
+        if known_out is not None:
+            for i in range(k):
+                merge(_entry_key((node, i)), known_out)
+        if si is not None:
+            ax_ = ax % len(si)
+            if si[ax_] and si[ax_] % k != 0:
+                raise MXNetError(
+                    f"SliceChannel: axis {ax} size {si[ax_]} not "
+                    f"divisible by num_outputs={k}")
+            if squeeze and si[ax_] and si[ax_] != k:
+                raise MXNetError(
+                    f"SliceChannel: squeeze_axis requires axis size "
+                    f"{si[ax_]} == num_outputs={k}")
+            per = si[ax_] // k if si[ax_] else 0
+            o = (si[:ax_] + ((per,) if not squeeze else ())
+                 + si[ax_ + 1:])
+            for i in range(k):
+                merge(_entry_key((node, i)), o)
+        if known_out is not None:
+            if squeeze:
+                ax_ = ax % (len(known_out) + 1)
+                inp = known_out[:ax_] + (k,) + known_out[ax_:]
+            else:
+                ax_ = ax % len(known_out)
+                inp = (known_out[:ax_] + (known_out[ax_] * k,)
+                       + known_out[ax_ + 1:])
+            merge(in_keys[0], inp)
+        return ups
+    if op == "Convolution":
+        kern = attrs.get_tuple("kernel", None) or ()
+        if len(kern) != 2 or attrs.get_str("layout", "None") not in (
+                "None", "NCHW"):
+            return ups
+        stride = attrs.get_tuple("stride", None) or (1, 1)
+        pad = attrs.get_tuple("pad", None) or (0, 0)
+        dil = attrs.get_tuple("dilate", None) or (1, 1)
+        nf = attrs.get_int("num_filter", 0)
+        si, so = get(in_keys[0]), get(out0)
+
+        def fwd(d, i):
+            if not d:
+                return 0
+            eff = dil[i] * (kern[i] - 1) + 1
+            return (d + 2 * pad[i] - eff) // stride[i] + 1
+
+        def bwd(d, i):
+            # exact at stride 1 only: a larger stride maps several input
+            # sizes to one output size
+            if not d or stride[i] != 1:
+                return 0
+            eff = dil[i] * (kern[i] - 1) + 1
+            return (d - 1) * stride[i] + eff - 2 * pad[i]
+
+        if si is not None and len(si) == 4:
+            merge(out0, (si[0], nf, fwd(si[2], 0), fwd(si[3], 1)))
+        if so is not None and len(so) == 4:
+            cur_in = si if si is not None else (0, 0, 0, 0)
+            merge(in_keys[0], (so[0], cur_in[1] if len(cur_in) == 4
+                               else 0, bwd(so[2], 0), bwd(so[3], 1)))
+        return ups
+    if op == "Concat":
+        dim = attrs.get_int("dim", 1)
+        ins = [get(k) for k in in_keys]
+        so = get(out0)
+        ref = next((sh for sh in ins if sh is not None), None)
+        if ref is not None:
+            dim_ = dim % len(ref)
+            if any(sh is not None and len(sh) != len(ref) for sh in ins):
+                raise MXNetError(
+                    f"Concat: rank mismatch across inputs "
+                    f"{[sh for sh in ins if sh is not None]}")
+            tot = sum(sh[dim_] for sh in ins) \
+                if all(sh is not None and sh[dim_] for sh in ins) else 0
+            o = list(ref)
+            for sh in ins:
+                if sh is not None:
+                    for i, v in enumerate(sh):
+                        if i != dim_ and v and not o[i]:
+                            o[i] = v
+            o[dim_] = tot
+            merge(out0, tuple(o))
+        if so is not None:
+            dim_ = dim % len(so)
+            for k, sh in zip(in_keys, ins):
+                if sh is not None and len(sh) != len(so):
+                    raise MXNetError(
+                        f"Concat: rank mismatch {sh} vs output {so}")
+                want = list(so)
+                want[dim_] = sh[dim_] if sh is not None else 0
+                merge(k, tuple(want))
+        return ups
+    return ups
 
 
 def _infer_graph(heads, known: Dict[str, tuple], partial: bool,
@@ -567,37 +857,79 @@ def _infer_graph(heads, known: Dict[str, tuple], partial: bool,
     this pass can resolve: each op runs on meta tensors once all its
     inputs are known; parameter inputs are back-filled from data shapes
     first (the reference's bidirectional InferShape for the layered ops).
+    Where that stalls and a shape holds unknown (0) dims, the partial
+    rules (`_partial_updates`) fill them from the other operand or the
+    output, and the exact pass resumes, checking what they predicted.
     A variable's dtype is float32 unless ``known_dtypes`` names it."""
     nodes = _topo(heads)
     known_dtypes = known_dtypes or {}
     shapes: Dict[str, Optional[tuple]] = {}
+    partials: Dict[str, tuple] = {}
+    predicted: set = set()   # resolved by the partial rules, not yet run
     dtypes: Dict[str, torch.dtype] = {}
     for n in nodes:
         if n.is_var:
-            shapes[n.name] = (known[n.name] if n.name in known
-                              else _var_shape(n))
+            shape = known[n.name] if n.name in known else _var_shape(n)
+            if shape is not None and 0 in shape:
+                partials[n.name] = tuple(shape)
+                shape = None
+            shapes[n.name] = shape
             dtypes[n.name] = known_dtypes.get(n.name, torch.float32)
-    for node in nodes:
-        if node.is_var:
-            continue
-        keys = [_value_key(e) for e in node.inputs]
-        if any(shapes.get(k) is None for k in keys):
-            for vname, shp in infer_param_shapes(node, shapes).items():
-                if shapes.get(vname) is None:
-                    shapes[vname] = shp
-        in_shapes = [shapes.get(k) for k in keys]
-        if any(s is None for s in in_shapes):
-            continue
-        try:
-            out_shapes, out_dtypes = _reg.eval_shape_op(
-                node.op, in_shapes, [dtypes[k] for k in keys],
-                strip_annotations(node.attrs))
-        except Exception as e:
-            raise MXNetError(f"shape inference failed at node {node.name} "
-                             f"({node.op}): {e}") from e
-        for i, (s, d) in enumerate(zip(out_shapes, out_dtypes)):
-            shapes[_entry_key((node, i))] = s
-            dtypes[_entry_key((node, i))] = d
+    progress = True
+    while progress:
+        progress = False
+        for node in nodes:
+            if node.is_var:
+                continue
+            out0 = _entry_key((node, 0))
+            keys = [_value_key(e) for e in node.inputs]
+            if out0 in shapes and out0 not in predicted:
+                continue
+            if any(shapes.get(k) is None for k in keys):
+                for vname, shp in infer_param_shapes(node, shapes).items():
+                    if shapes.get(vname) is None:
+                        shapes[vname] = shp
+                        progress = True
+            in_shapes = [shapes.get(k) for k in keys]
+            if any(s is None for s in in_shapes):
+                continue
+            try:
+                out_shapes, out_dtypes = _reg.eval_shape_op(
+                    node.op, in_shapes,
+                    [dtypes.get(k, torch.float32) for k in keys],
+                    strip_annotations(node.attrs))
+            except Exception as e:
+                raise MXNetError(f"shape inference failed at node "
+                                 f"{node.name} ({node.op}): {e}") from e
+            for i, (s, d) in enumerate(zip(out_shapes, out_dtypes)):
+                key = _entry_key((node, i))
+                prev = shapes.get(key)
+                if prev is not None and tuple(prev) != tuple(s):
+                    raise MXNetError(
+                        f"shape inference failed at node {node.name} "
+                        f"({node.op}): partial {prev} vs evaluated {s}")
+                shapes[key] = s
+                dtypes[key] = d
+                predicted.discard(key)
+            progress = True
+        if not progress and partials:
+            def get(key):
+                s = shapes.get(key)
+                return s if s is not None else partials.get(key)
+
+            for node in nodes:
+                if node.is_var:
+                    continue
+                attrs = Attrs(strip_annotations(node.attrs))
+                for key, new in _partial_updates(node, get, attrs).items():
+                    if 0 in new:
+                        partials[key] = new
+                    else:
+                        partials.pop(key, None)
+                        if shapes.get(key) is None:
+                            shapes[key] = new
+                            predicted.add(key)
+                    progress = True
     missing = [n.name for n in nodes if n.is_var and shapes.get(n.name) is None]
     if missing and not partial:
         raise MXNetError(f"infer_shape: unresolved arguments {missing}")
@@ -620,7 +952,7 @@ def var(name: str, shape=None, dtype=None, init=None, lr_mult=None,
     if shape is not None:
         attrs["__shape__"] = tuple(shape)
     if dtype is not None:
-        attrs["__dtype__"] = str(dtype).replace("torch.", "")
+        attrs["__dtype__"] = dtype_name(dtype)
     if init is not None:
         attrs["__init__"] = init.dumps() if hasattr(init, "dumps") \
             else str(init)
@@ -644,8 +976,42 @@ def Group(symbols: Sequence[Symbol]) -> Symbol:
     return Symbol(heads)
 
 
+def _upgrade_legacy_json(graph: dict) -> dict:
+    """Pre-1.0 symbol JSON, upgraded in place (reference
+    `src/nnvm/legacy_json_util.cc`): a node's ``param`` (op parameters)
+    and ``attr`` (user attributes) merge into ``attrs``, 2-wide
+    ``inputs``/``heads`` entries get their version field, and the ``*_v1``
+    op spellings become today's ops."""
+    for nj in graph.get("nodes", []):
+        legacy = {}
+        for key in ("param", "attr"):
+            d = nj.pop(key, None)
+            if d:
+                legacy.update(d)
+        if legacy:
+            nj["attrs"] = {**legacy, **(nj.get("attrs") or {})}
+        nj["inputs"] = [list(e) + [0] * (3 - len(e))
+                        for e in nj.get("inputs", [])]
+        if nj.get("op") in _LEGACY_OP_RENAMES:
+            nj["op"] = _LEGACY_OP_RENAMES[nj["op"]]
+    heads = graph.get("heads") or graph.get("head") or []
+    graph["heads"] = [list(e) + [0] * (3 - len(e)) for e in heads]
+    return graph
+
+
+#: the ``*_v1`` ops of old model files, served by today's ops
+_LEGACY_OP_RENAMES = {
+    "BatchNorm_v1": "BatchNorm",
+    "Convolution_v1": "Convolution",
+    "Pooling_v1": "Pooling",
+    "Flatten_v1": "Flatten",
+    "Concat_v1": "Concat",
+    "Dropout_v1": "Dropout",
+}
+
+
 def load_json(json_str: str) -> Symbol:
-    graph = json.loads(json_str)
+    graph = _upgrade_legacy_json(json.loads(json_str))
     built: List[_Node] = []
     for nj in graph["nodes"]:
         inputs = [(built[i[0]], i[1]) for i in nj.get("inputs", [])]

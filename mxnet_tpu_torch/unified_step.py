@@ -100,15 +100,16 @@ def guard_verdict(outs: Sequence[torch.Tensor], gsq: torch.Tensor
 
 def _group(plans, ws, lrs, wds):
     """The positions of one update, grouped by (op, static attrs, weight
-    dtype, lr, wd) in first-seen order: ``[(op, static, positions)]`` and
-    each group's ``(lr, wd)``."""
+    dtype and device, lr, wd) in first-seen order: ``[(op, static,
+    positions)]`` and each group's ``(lr, wd)``.  Weights on several
+    devices (``group2ctx``) make one group per device."""
     groups: Dict[Tuple, List[int]] = {}
     for pos, (op_name, static) in enumerate(plans):
-        key = (op_name, canonical_attrs(static), ws[pos].dtype, lrs[pos],
-               wds[pos])
+        key = (op_name, canonical_attrs(static), ws[pos].dtype,
+               ws[pos].device, lrs[pos], wds[pos])
         groups.setdefault(key, []).append(pos)
     layout = [(key[0], dict(key[1]), poss) for key, poss in groups.items()]
-    return layout, [(key[3], key[4]) for key in groups]
+    return layout, [(key[4], key[5]) for key in groups]
 
 
 def _traced_apply(layout, ws, gs, states, scalars, rescale, clip) -> None:
@@ -236,7 +237,14 @@ class UnifiedTrainStep:
         self._train_names = [n for n in executor.arg_names if n in wanted]
         self._train_idx = {n: i for i, n in enumerate(executor.arg_names)
                            if n in wanted}
-        sym, reports = training_result(executor._symbol)
+        # MXTPU_GRAPH_OPT_VERIFY=1 checks the optimized graph against the
+        # bound values, on a random stream of its own
+        verify_feed = {n: a.data for d in (executor.arg_dict,
+                                           executor.aux_dict)
+                       for n, a in d.items()}
+        sym, reports = training_result(executor._symbol,
+                                       verify_feed=verify_feed,
+                                       verify_key=0)
         self.opt_reports = list(reports)
         if reports:
             _prof.bump_unified("train_opt_rewrites",

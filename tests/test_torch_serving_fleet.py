@@ -596,6 +596,64 @@ def test_canary_mismatch_aborts_and_rolls_back(blobs):
         fleet.close()
 
 
+def _int8_predictor(pkg, ctx_kw, dumps, batch=4):
+    """int8 enters as int8 (``input_types``) and dequantizes in the
+    graph, the JAX fleet test's model."""
+    data = pkg.sym.var("data")
+    x = pkg.sym.Cast(data, dtype="float32", name="deq") * (1.0 / 127.0)
+    fc = pkg.sym.FullyConnected(x, num_hidden=3, name="fc")
+    rng = np.random.RandomState(7)
+    params = dumps({
+        "arg:fc_weight": pkg.nd.array(rng.randn(3, 6).astype(np.float32),
+                                      **ctx_kw),
+        "arg:fc_bias": pkg.nd.array(np.zeros(3, np.float32), **ctx_kw)})
+    return pkg.Predictor(fc.tojson(), params, {"data": (batch, 6)},
+                         input_types={"data": np.int8}, **ctx_kw)
+
+
+def test_int8_blobs_through_router_end_to_end(tmp_path):
+    """int8 blobs on the whole fleet path, as the JAX package's test:
+    registered, routed bit-equal to a direct pool run, hot-swapped to a
+    second int8 version and still bit-equal; the values equal the JAX
+    package's Predictor on the same input."""
+    import mxnet_tpu as mx
+    from mxnet_tpu.serialization import dumps_ndarrays as jdumps
+    blob_i1 = str(tmp_path / "i1.mxtblob")
+    blob_i2 = str(tmp_path / "i2.mxtblob")
+    for blob in (blob_i1, blob_i2):
+        _int8_predictor(mt, {"ctx": CPU}, dumps_ndarrays).export_compiled(
+            blob, dynamic_batch=True)
+    reg = ModelRegistry()
+    reg.register("i1", blob_i1)
+    reg.register("i2", blob_i2)
+    reg.set_current("i1")
+    x = {"data": np.random.RandomState(8).randint(
+        -128, 128, size=(4, 6)).astype(np.int8)}
+    ref = _int8_predictor(mx, {}, jdumps)
+    ref.forward(**x)
+    fleet = _Fleet(blob_i1, n=2, version="i1", registry=reg, canary=x)
+    try:
+        pool = _pool(blob_i1)
+        assert pool.input_dtypes["data"] == np.int8
+        direct = pool.run(x)[0]
+        np.testing.assert_allclose(direct, np.asarray(ref.get_output(0)),
+                                   rtol=1e-5, atol=1e-6)
+        for _ in range(4):
+            routed = fleet.router.infer(x)
+            assert routed[0].dtype == direct.dtype
+            assert routed[0].tobytes() == direct.tobytes()
+        fleet.router.deploy("i2")
+        fleet.router.health_cycle()
+        snap = fleet.router.fleet_stats()
+        assert [r["model_version"] for r in snap["replicas"]] == ["i2"] * 2
+        assert fleet.router.infer(x)[0].tobytes() == direct.tobytes()
+        c = profiler.router_counters()
+        assert c.get("hot_swaps", 0) == 2 and c.get("canary_passes", 0) == 2
+        assert c.get("deploy_failures", 0) == 0
+    finally:
+        fleet.close()
+
+
 def test_corrupt_blob_deploy_rolls_back(blobs):
     reg = _registry_for(blobs, "v1", "v2")
     fleet = _Fleet(blobs["v1"], n=2, registry=reg, canary=_pinned_input())

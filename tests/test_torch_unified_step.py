@@ -343,7 +343,7 @@ def test_multi_precision_updates_a_float32_master_copy():
         master = upd.states[0][1]
         out.append((np.asarray(w.asnumpy(), np.float32), master.asnumpy()))
         if pkg is mt:
-            assert master.dtype == torch.float32
+            assert master.dtype == np.float32
             assert opt._fused_plan(0, w, upd.states[0]) is None
     np.testing.assert_allclose(out[1][1], out[0][1], rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(out[1][0], out[0][0], rtol=1e-2, atol=1e-2)
