@@ -358,6 +358,40 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    arrays and gradients on its device.  The split of one module's batch
    across distinct cards needs two cards and is logged as skipped.
 
+18. distributed -- the parameter-server plane across processes, each
+   process a `tests/torch_bert_dist_worker.py` (the port's own worker
+   script; every child checks that it imported neither JAX nor the JAX
+   package and prints its K1-K3 launch counts, which the kernel report
+   adds).  18a: phase 5's BERT-base MLM at its published widths, fp32,
+   dropout 0, the head's gradient summed (``normalization='null'``):
+   one process steps DIST_STEPS times on the whole 8 x 512 batch with
+   BERT's Adam; then two worker processes of ``tools/launch.py
+   --launcher local -n 2`` on the one card, joined over gloo, each on its
+   4 rows through ``Module`` with ``kvstore='dist_sync'`` (Adam on the
+   store): their parameters must be bit-equal to each other after every
+   step and within TRAIN_GRAD_TOL of each parameter's largest magnitude
+   of the one process after the last; the step ms and its share spent in
+   the store's push and pull are printed.  18b: ``BYTEPS_ENABLE_ASYNC=1
+   tools/launch.py -n 2 -s 1``: one server process (the same command,
+   entered by importing the package under ``DMLC_ROLE=server``) and two
+   workers with ``kvstore='dist_async'``.  Without a server optimizer
+   (``stored += recved``) each worker pushes its gradients of DIST_STEPS
+   steps and their float64 sums are exchanged; each worker's pull must
+   equal the initial weights plus both sums within ``pushes · 2^-24 ·
+   (max|w0| + Σ max|g|)``.  With BERT's Adam set on the server
+   (``set_optimizer``), DIST_ASYNC_STEPS asynchronous steps a worker with
+   dropout 0.1 must lower each worker's loss; the server's stats
+   (pushes, pulls, the staleness histogram, dead workers, which must be
+   none) and the comm counters (``push_batch`` frames, bytes) are
+   printed.  K1-K3 launch once per layer a step in every process.  18c:
+   11a's sparse linear classification at avazu-app's 1,000,000 features,
+   batch 8192, with the weight a ``(1000000, 1)`` table of the embedding
+   plane row-sharded over two in-process server shards in sync mode
+   (sparse SGD on the shards), EMBED_STEPS steps on the card against
+   11a's local-store path on the same batches: the weight within
+   EMBED_TOL (bit-equal printed), the pull bytes of each step 4 x the
+   batch's unique ids; `embed_counters` and both step times printed.
+
 If the run nears its time limit, cut the serving phases' ``TIMED`` and
 ``LSTM_TIMED`` counts and FLEET_REQUESTS before anything of the training
 phase.
@@ -588,6 +622,15 @@ RNN_STEP_TIMED = 10
 # detached between batches
 WORD_LM = dict(vocab=10000, embed=200, hidden=200, layers=2, dropout=0.2)
 WORD_BPTT, WORD_BATCH, WORD_LR, WORD_CLIP, WORD_STEPS = 35, 32, 20.0, 0.2, 16
+# phase 18: steps of 18a (and of 18b's first part), 18b's asynchronous
+# steps with the server's Adam, 18c's steps, the tolerance of 18c's weight
+# against the local store's, the worker script, the launcher, and each
+# job's time limit
+DIST_STEPS, DIST_ASYNC_STEPS, EMBED_STEPS = 3, 10, 20
+EMBED_TOL = 1e-6
+DIST_WORKER = os.path.join(HERE, "tests", "torch_bert_dist_worker.py")
+DIST_LAUNCH = os.path.join(HERE, "tools", "launch.py")
+DIST_TIMEOUT = 420
 # phase 11a: the reference's example/sparse/linear_classification.py
 # local-store loop at the width of LIBSVM's avazu-app (1,000,000 features)
 # and the example's batch 8192 and lr; rows one-hot in 15 fields with
@@ -7578,6 +7621,323 @@ def phase_contexts(card, cfg=None, batch=8, seq=512):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the parameter-server plane across processes
+# ---------------------------------------------------------------------------
+
+def _free_port_pair():
+    """A port whose successor is free too: the group's store binds the
+    first, the parameter server the second (`ps_server.ps_port`)."""
+    import socket
+    while True:
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s2 = socket.socket()
+        try:
+            s2.bind(("127.0.0.1", port + 1))
+        except OSError:
+            s.close()
+            continue
+        s.close()
+        s2.close()
+        return port
+
+
+def _child_env(**extra):
+    """The environment of phase 18's processes: the checkout on the path,
+    no launcher or hook variables of this process, ``extra`` on top."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("DMLC_", "BYTEPS_", "MXTPU_PS_"))}
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    env.update({k: str(v) for k, v in extra.items()})
+    return env
+
+
+def _run_job(what, cmd, env, timeout=DIST_TIMEOUT):
+    """Run ``cmd`` in a session of its own; on its time limit, kill the
+    whole session (the launcher's workers and server too).  Its output,
+    or an error with the output's tail."""
+    import signal
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, cwd=HERE, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise AssertionError(f"{what}: no end within {timeout} s:\n"
+                             f"{out[-4000:]}")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+    if proc.returncode != 0:
+        raise AssertionError(f"{what}: exit {proc.returncode}:\n"
+                             f"{out[-6000:]}")
+    log(f"{what}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _worker_records(what, out, workdir, mode, n):
+    """The records the ``mode`` processes wrote to ``workdir``, by rank;
+    ``n`` of them."""
+    recs = []
+    for rank in range(n):
+        path = os.path.join(workdir, f"{mode}-{rank}.json")
+        if not os.path.exists(path):
+            raise AssertionError(f"{what}: rank {rank} wrote no record:\n"
+                                 f"{out[-4000:]}")
+        with open(path) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def _dist_launches(what, recs, per_process, cuda):
+    """Sum the processes' K1-K3 counts; on the card each process must
+    have launched each one ``per_process`` times."""
+    total = dict.fromkeys(ATTN_KERNELS, 0)
+    for rec in recs:
+        for k in ATTN_KERNELS:
+            n = rec["launches"][k]
+            if cuda and n != per_process:
+                raise AssertionError(f"{what}: rank {rec['rank']} launched "
+                                     f"{k} {n} times, want {per_process}")
+            total[k] += n
+    return total
+
+
+def _params_vs_reference(workdir):
+    """Every parameter of the dist_sync run against one process on the
+    whole batch: max |diff| over the reference's largest magnitude."""
+    ref = np.load(os.path.join(workdir, "reference.npz"))
+    got = np.load(os.path.join(workdir, "sync.npz"))
+    if sorted(ref.files) != sorted(got.files):
+        raise AssertionError("18a: parameter sets differ")
+    worst = {}
+    for k in ref.files:
+        a, b = ref[k], got[k]
+        if not np.isfinite(b).all():
+            raise AssertionError(f"18a: {k} is not finite")
+        worst[k] = float(np.abs(a - b).max() /
+                         max(float(np.abs(a).max()), 1e-30))
+    return sorted(worst.items(), key=lambda kv: -kv[1])
+
+
+def dist_bert(card, cfg, batch, seq, steps, async_steps, ctx):
+    """18a and 18b: BERT-base MLM by worker processes of
+    `tests/torch_bert_dist_worker.py` on the one card, over ``dist_sync``
+    (a gloo group) and through the async server (``tools/launch.py -s 1``
+    with ``BYTEPS_ENABLE_ASYNC=1``)."""
+    cuda = ctx == "gpu"
+    per_step = cfg["num_layers"]
+    workdir = tempfile.mkdtemp(prefix="mxtpu_dist_")
+    common = [workdir, "--cfg", json.dumps(cfg), "--batch", str(batch),
+              "--seq", str(seq), "--steps", str(steps), "--async-steps",
+              str(async_steps), "--ctx", ctx]
+    worker = [sys.executable, "-u", DIST_WORKER]
+    launch = [sys.executable, DIST_LAUNCH, "--launcher", "local", "-n", "2"]
+    try:
+        # 18a: one process on the whole batch, then two over dist_sync
+        out = _run_job("18a reference", worker + ["reference"] + common,
+                       _child_env())
+        ref = _worker_records("18a reference", out, workdir, "reference",
+                              1)
+        out = _run_job("18a dist_sync", launch + ["--"] + worker +
+                       ["sync"] + common,
+                       _child_env(DMLC_PS_ROOT_PORT=_free_port_pair()))
+        sync = _worker_records("18a dist_sync", out, workdir, "sync", 2)
+        if sync[0]["digests"] != sync[1]["digests"]:
+            raise AssertionError("18a: the workers' parameters differ "
+                                 f"({sync[0]['digests']} vs "
+                                 f"{sync[1]['digests']})")
+        ranked = _params_vs_reference(workdir)
+        log(f"18a: two workers bit-equal after each of {steps} steps; "
+            f"worst parameters against one process on the whole batch "
+            f"{[(n, f'{e:.3e}') for n, e in ranked[:4]]}")
+        if ranked[0][1] > TRAIN_GRAD_TOL:
+            raise AssertionError(f"18a: {ranked[0][0]} off by "
+                                 f"{ranked[0][1]} relative")
+        launches = _dist_launches("18a reference", ref, per_step * steps,
+                                  cuda)
+        for k, v in _dist_launches("18a dist_sync", sync, per_step * steps,
+                                   cuda).items():
+            launches[k] += v
+        # 18b: the fork's async server, with and without its optimizer
+        out = _run_job("18b async server", launch + ["-s", "1", "--"] +
+                       worker + ["async"] + common,
+                       _child_env(DMLC_PS_ROOT_PORT=_free_port_pair(),
+                                  BYTEPS_ENABLE_ASYNC=1))
+        asyn = _worker_records("18b async server", out, workdir, "async",
+                               2)
+        server = asyn[0]["server"]
+        if server["dead_workers"] or server["sync_mode"]:
+            raise AssertionError(f"18b: server {server}")
+        for k, v in _dist_launches("18b async server", asyn,
+                                   per_step * (steps + async_steps),
+                                   cuda).items():
+            launches[k] += v
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    rec = {"sub": "18ab_dist_bert", "card": card, "batch": batch,
+           "seq": seq, "layers": cfg["num_layers"], "steps": steps,
+           "reference_step_ms": ref[0]["step_ms"],
+           "sync_step_ms": [r["step_ms"] for r in sync],
+           "sync_comm_ms": [r["comm_ms"] for r in sync],
+           "sync_comm_share": [r["comm_share"] for r in sync],
+           "sync_comm": sync[0]["comm"],
+           "sync_worst_param": ranked[0],
+           "async_part1_push_ms": [r["part1_push_ms"] for r in asyn],
+           "async_part1_worst_over_bound": [r["part1_worst_over_bound"]
+                                            for r in asyn],
+           "async_step_ms": [r["step_ms"] for r in asyn],
+           "async_comm_share": [r["comm_share"] for r in asyn],
+           "async_losses": [r["losses"] for r in asyn],
+           "async_comm": asyn[0]["comm"], "server": server,
+           "launches": launches}
+    log(json.dumps(rec, default=float))
+    return launches, rec
+
+
+def embed_plane_linear(card, dim=AVAZU["dim"], batch=AVAZU["batch"],
+                       steps=EMBED_STEPS, nnz=AVAZU["nnz"], lr=AVAZU["lr"],
+                       device="cuda"):
+    """18c: 11a's sparse linear classification with its weight as a
+    ``(dim, 1)`` table of the embedding plane, row-sharded over two
+    in-process server shards in sync mode (sparse SGD on the shards), one
+    worker on the card, against 11a's local-store path (the updater on
+    push, ``row_sparse_pull``) on the same batches."""
+    from mxnet_tpu_torch import ps_server, profiler
+    from mxnet_tpu_torch.embedding_plane import EmbeddingPlane
+    from mxnet_tpu_torch.ndarray import sparse as msp
+    ctx = mt.gpu(0) if device == "cuda" else mt.cpu()
+    dev = ctx.device
+    data = _avazu_batches(dim, batch, steps, nnz, SEED + 11)
+    xs = [msp.csr_matrix((v, i, p), shape=(batch, dim), ctx=ctx)
+          for p, i, v, _ in data]
+    eps = 1e-7
+
+    def probs(z, yb):
+        with np.errstate(over="ignore"):
+            p = 1.0 / (1.0 + np.exp(-z))
+        loss = float(-(yb * np.log(p + eps) +
+                       (1 - yb) * np.log(1 - p + eps)).mean())
+        return p, loss
+
+    # the local store (11a's loop)
+    kv = mt.kv.create("local")
+    kv.init("w", mt.nd.zeros((dim, 1), ctx=ctx))
+    kv.set_optimizer(mt.optimizer.SGD(learning_rate=lr))
+    weight = mt.nd.zeros((dim, 1), ctx=ctx)
+    bias, local_ms, local_losses = np.zeros((1,), np.float32), [], []
+    for k in range(steps):
+        _sync(weight.data)
+        t0 = time.perf_counter()
+        yb = data[k][3]
+        p, loss = probs(msp.dot(xs[k], weight).asnumpy() + bias, yb)
+        gz = mt.nd.array((p - yb) / batch, ctx=ctx)
+        grad = msp.dot(xs[k], gz, transpose_a=True).tostype("row_sparse")
+        kv.push("w", grad)
+        kv.pull("w", out=weight)
+        bias -= lr * float((p - yb).mean())
+        _sync(weight.data)
+        local_ms.append((time.perf_counter() - t0) * 1e3)
+        local_losses.append(loss)
+
+    # the plane: two shards, sync mode, sparse SGD on the shards
+    hook = os.environ.pop("BYTEPS_ENABLE_ASYNC", None)
+    srvs = [ps_server.KVStoreServer(num_workers=1).start()
+            for _ in range(2)]
+    if hook is not None:
+        os.environ["BYTEPS_ENABLE_ASYNC"] = hook
+    plane = EmbeddingPlane.connect([("127.0.0.1", s.port) for s in srvs],
+                                   worker_id="w0", heartbeat=False)
+    try:
+        tbl = plane.table("w", dim, 1, init="zeros",
+                          optimizer={"kind": "sgd", "lr": lr}, ctx=ctx)
+        profiler.reset_embed_counters()
+        bias, ms, losses, pulled, wanted = \
+            np.zeros((1,), np.float32), [], [], [], []
+        counts = torch.full((batch,), nnz, dtype=torch.long, device=dev)
+        for k in range(steps):
+            ids = data[k][1].reshape(batch, nnz)
+            yb = data[k][3]
+            before = profiler.embed_counters().get("pull_bytes", 0)
+            _sync(counts)
+            t0 = time.perf_counter()
+            lk = tbl.lookup(pending=tbl.prefetch(ids))
+            # each row's 15 weights summed in column order, as the CSR
+            # product sums them
+            z = msp._segment_sum(lk.value.data.reshape(-1, 1), counts)
+            p, loss = probs(z.cpu().numpy() + bias, yb)
+            gz = torch.as_tensor(((p - yb) / batch).astype(np.float32),
+                                 device=dev)
+            tbl.push_grad(lk, gz[:, None, :].expand(batch, nnz, 1))
+            bias -= lr * float((p - yb).mean())
+            _sync(counts)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+            pulled.append(profiler.embed_counters()["pull_bytes"] - before)
+            wanted.append(int(np.unique(ids).size) * 4)
+        touched = np.unique(np.concatenate([d[1] for d in data]))
+        rows = tbl._pull_rows(touched)[:, 0]
+        local = weight.asnumpy()[:, 0]
+        err = float(np.abs(rows - local[touched]).max())
+        untouched_zero = bool(np.count_nonzero(local) <=
+                              np.count_nonzero(local[touched]))
+        stats = plane.clients[0].stats()
+        counters = profiler.embed_counters()
+    finally:
+        plane.close()
+        for srv in srvs:
+            srv.shutdown()
+    bit_equal = err == 0.0
+    log(f"18c: {steps} steps at {dim} rows over 2 shards: weight against "
+        f"the local store {err:.3e} (bit-equal {bit_equal}); loss "
+        f"{losses[0]:.5f} -> {losses[-1]:.5f}; pull bytes a step "
+        f"{pulled[:3]}... for the batch's unique ids {wanted[:3]}...")
+    if err > EMBED_TOL or not untouched_zero:
+        raise AssertionError(f"18c: the plane's weight is off the local "
+                             f"store's by {err}")
+    if pulled != wanted:
+        raise AssertionError(f"18c: pull bytes {pulled} do not follow the "
+                             f"batch's unique ids {wanted}")
+    if not np.allclose(losses, local_losses, rtol=0, atol=EMBED_TOL):
+        raise AssertionError("18c: losses differ from the local store's")
+    rec = {"sub": "18c_embedding_plane", "card": card, "dim": dim,
+           "batch": batch, "steps": steps, "shards": 2,
+           "weight_max_abs_diff": err, "bit_equal": bit_equal,
+           "step_p50_ms": float(np.median(ms[2:])),
+           "local_store_step_p50_ms": float(np.median(local_ms[2:])),
+           "pull_bytes_per_step": pulled, "unique_ids_bytes": wanted,
+           "vocab_bytes": dim * 4, "embed_counters": counters,
+           "rows_materialized": stats["embed_tables"]["w"][
+               "rows_materialized"]}
+    log(json.dumps(rec, default=float))
+    return rec
+
+
+def phase_distributed(card, cfg=None, batch=8, seq=512, steps=DIST_STEPS,
+                      async_steps=DIST_ASYNC_STEPS, ctx="gpu",
+                      embed=None):
+    """Phase 18: the parameter-server plane across processes (18a-18c).
+    Returns the K1-K3 launches of its worker processes."""
+    t_phase = time.perf_counter()
+    cfg = dict(BERT_BASE if cfg is None else cfg)
+    launches, rec = dist_bert(card, cfg, batch, seq, steps, async_steps,
+                              ctx)
+    emb = embed_plane_linear(card, **(embed or {}))
+    phase_s = time.perf_counter() - t_phase
+    log(json.dumps({"phase": "distributed", "card": card,
+                    "launches": launches, "phase_s": phase_s,
+                    "embed_step_p50_ms": emb["step_p50_ms"]},
+                   default=float))
+    log(f"distributed: phase 18 in {phase_s:.1f} s")
+    launches["lstm_gates"] = 0
+    return launches
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -7598,6 +7958,7 @@ def main():
     plane_launches, served = phase_serving(card, keep=True)
     gen_launches = phase_generation(card, served)
     ctx_launches = phase_contexts(card)
+    dist_launches = phase_distributed(card)
     leaked = [m for m in ("jax", "mxnet_tpu") if m in sys.modules]
     if leaked:
         raise SystemExit(f"chip_smoke: the port imported {leaked}")
@@ -7606,7 +7967,7 @@ def main():
         f"{rnn_launches}, state {state_launches}, ops {ops_launches}, "
         f"data {data_launches}, control flow {cf_launches}, serving plane "
         f"{plane_launches}, generation {gen_launches}, contexts "
-        f"{ctx_launches}")
+        f"{ctx_launches}, distributed {dist_launches}")
     kernels = [{
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -7615,7 +7976,7 @@ def main():
         train_launches["flash_attn_fwd"] + fit_launches["flash_attn_fwd"] +
         state_launches["flash_attn_fwd"] +
         plane_launches["flash_attn_fwd"] + gen_launches["flash_attn_fwd"] +
-        ctx_launches["flash_attn_fwd"],
+        ctx_launches["flash_attn_fwd"] + dist_launches["flash_attn_fwd"],
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
@@ -7628,7 +7989,8 @@ def main():
             "source": "mxnet_tpu_torch/csrc/flash_attn_bwd.cu",
             "replaces": f"mxnet_tpu/ops/pallas_kernels.py:{line}",
             "launches": train_launches[name] + fit_launches[name] +
-            state_launches[name] + ctx_launches[name],
+            state_launches[name] + ctx_launches[name] +
+            dist_launches[name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],

@@ -47,7 +47,12 @@ CUDA graph), `serving_fleet` (`Router`, `ModelRegistry`,
 `ReplicaSupervisor`, replica processes), `autoscale` and
 `fault_injection`; several contexts in one process: `executor_manager`,
 Module and `gluon.Trainer` over context lists, and ``group2ctx`` model
-parallelism.  On the card, inference
+parallelism; and the parameter-server plane: the ``dist`` stores of
+`kvstore` over a `torch.distributed` group (`parallel.distributed`,
+formed from the launcher's ``DMLC_*`` env), the fork's asynchronous
+`ps_server` (``BYTEPS_ENABLE_ASYNC``; under ``DMLC_ROLE=server`` importing
+the package serves it, `kvstore_server`), the bucketed, overlapped
+`comm_plane` and the row-sharded `embedding_plane`.  On the card, inference
 forwards, hybridized predict-mode forwards and Module's whole training
 step run as CUDA graphs.
 """
@@ -81,6 +86,8 @@ from . import predictor, ps_wire, serving  # noqa: E402
 from . import fault_injection, generation  # noqa: E402
 from . import serving_fleet, autoscale  # noqa: E402
 from . import executor_manager  # noqa: E402
+from . import parallel, ps_server, comm_plane  # noqa: E402
+from . import embedding_plane  # noqa: E402
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "cpu_pinned",
            "cpu_shared", "current_context", "num_gpus", "nd", "sym",
@@ -92,4 +99,11 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "cpu_pinned",
            "checkpoint", "engine", "recordio", "image", "img", "operator",
            "subgraph", "log", "profiler", "telemetry", "test_utils",
            "predictor", "ps_wire", "serving", "fault_injection",
-           "generation", "serving_fleet", "autoscale", "executor_manager"]
+           "generation", "serving_fleet", "autoscale", "executor_manager",
+           "parallel", "ps_server", "comm_plane", "embedding_plane",
+           "kvstore_server"]
+
+# imported last, as the reference's (`python/mxnet/__init__.py:91`): under
+# DMLC_ROLE=server with BYTEPS_ENABLE_ASYNC set, this process becomes the
+# asynchronous parameter server here
+from . import kvstore_server  # noqa: E402

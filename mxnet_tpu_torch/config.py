@@ -109,10 +109,6 @@ _reg("MXTPU_FAST_DECODE", _flag, True,
      "(about 1 LSB of luma error); 0 decodes exactly (ISLOW)")
 
 
-_reg("MXTPU_PS_ADDR", str, "",
-     "host:port of the JAX package's async parameter server; set with "
-     "BYTEPS_ENABLE_ASYNC=1, a dist_async store refuses to start, since "
-     "the parameter server is a later slice of the port (kvstore.py)")
 _reg("MXTPU_CKPT_DIR", str, "",
      "root directory of the CheckpointManager auto-resume path: set, "
      "Module.fit checkpoints every epoch and resumes from latest_valid() "
@@ -124,14 +120,108 @@ _reg("MXTPU_CKPT_KEEP", int, 3,
 _reg("MXTPU_CKPT_FAULT_PLAN", str, "",
      "fault_injection.FilePlan spec (e.g. 'kill_before_rename=3') applied "
      "to every atomic checkpoint write in this process; tests only")
-_reg("MXTPU_PS_FAULT_PLAN", str, "",
-     "fault_injection.FaultPlan spec (e.g. 'seed=7,duplicate_every=3'); "
-     "its consumer, the parameter-server client, is a later slice of the "
-     "port (fault_injection.active)")
 _reg("MXTPU_CKPT_COMMIT_DELAY", float, 0.0,
      "seconds slept between writing a checkpoint's data files and "
      "committing its MANIFEST.json, which widens the window a crash test "
      "kills in")
+
+
+# --- launcher protocol and process group (parallel/distributed.py) --------
+_reg("DMLC_ROLE", str, "worker", "launcher process role: under 'server' "
+     "with BYTEPS_ENABLE_ASYNC set, importing the package serves the "
+     "async parameter server (kvstore_server.py)")
+_reg("DMLC_NUM_WORKER", int, 1, "launcher world size")
+_reg("DMLC_NUM_SERVER", int, 0, "parameter-server processes the launcher "
+     "spawned; > 0 lets dist_async derive the server's address from "
+     "DMLC_PS_ROOT_URI (ps_server.resolve_addr)", SUBSUMED)
+_reg("MXTPU_NUM_PROCESSES", int, None,
+     "multi-process world size; DMLC_NUM_WORKER takes precedence "
+     "(parallel/distributed.initialize)")
+_reg("MXTPU_PROCESS_ID", int, None,
+     "this process's rank; DMLC_WORKER_ID takes precedence "
+     "(parallel/distributed.initialize)")
+
+# --- async parameter server (ps_server.py) --------------------------------
+_reg("MXTPU_PS_ADDR", str, "",
+     "host:port of the async KVStoreServer (overrides the DMLC-derived "
+     "address); empty = derive from DMLC_PS_ROOT_URI when a server role "
+     "was launched")
+_reg("MXTPU_PS_PORT", int, 0,
+     "port the async PS binds/dials; 0 = DMLC_PS_ROOT_PORT + 1")
+_reg("MXTPU_PS_RETRY_DEADLINE", float, 30.0,
+     "seconds a PSClient keeps retrying one request across reconnects "
+     "before failing it")
+_reg("MXTPU_PS_RETRY_BASE", float, 0.05,
+     "base delay of the client's exponential reconnect backoff (jittered)")
+_reg("MXTPU_PS_RETRY_MAX", float, 2.0,
+     "cap on a single reconnect backoff sleep")
+_reg("MXTPU_PS_HEARTBEAT_INTERVAL", float, 2.0,
+     "seconds between client liveness heartbeats (side connection); "
+     "<= 0 disables the heartbeat thread")
+_reg("MXTPU_PS_LEASE_TIMEOUT", float, 10.0,
+     "server-side lease: a heartbeating worker silent this long is "
+     "presumed dead")
+_reg("MXTPU_PS_ROUND_TIMEOUT", float, 120.0,
+     "upper bound on any blocked sync round / barrier wait; past it the "
+     "server fails the wait with a structured round-timeout error")
+_reg("MXTPU_PS_EVICT_DEAD", _flag, False,
+     "1 = evict lease-expired workers from sync membership so remaining "
+     "workers' rounds complete at the reduced count; default = fail "
+     "blocked pulls/barriers with an error naming the dead worker")
+_reg("MXTPU_PS_DEDUP_WINDOW", int, 128,
+     "per-worker idempotency window: how many state-mutating requests "
+     "the server remembers for exactly-once retry replay")
+_reg("MXTPU_PS_FAULT_PLAN", str, "",
+     "fault_injection.FaultPlan spec (e.g. 'seed=7,duplicate_every=3') "
+     "applied to every PSClient created in this process; tests only")
+_reg("MXTPU_PS_SNAPSHOT", str, "",
+     "path the DMLC_ROLE=server loop restores durable PS state from at "
+     "start (if present) and writes it to at exit")
+_reg("MXTPU_PS_MAX_STALENESS", int, -1,
+     "async-mode SSP bound: a push whose pulled-version of the key is "
+     "more than this many versions behind is refused (StalePushError; "
+     "the comm plane pulls + retries once), and in block mode a push "
+     "that would leave any live member further behind than this blocks "
+     "until the laggard pulls; -1 = unbounded staleness (the reference's "
+     "BytePS behavior)")
+_reg("MXTPU_PS_STALENESS_MODE", str, "refuse",
+     "'refuse' = only the pusher's own staleness is policed (stale "
+     "pushes get StalePushError); 'block' = additionally hold pushes "
+     "that would drop a live laggard past the bound until it catches up")
+_reg("MXTPU_PS_ELASTIC_JOIN", _flag, False,
+     "1 = a dist_async KVStore joins PS membership at creation (the "
+     "cold-join path for workers added to a running job); the epoch "
+     "bump triggers resharding on the incumbents at their next "
+     "check_epoch()")
+
+# --- gradient communication plane (comm_plane.py) -------------------------
+_reg("MXTPU_COMM_BUCKET_BYTES", int, 4 * 1024 * 1024,
+     "target size of the dtype-homogeneous flat buffers dense gradients "
+     "are bucketed into before the cross-worker collective / PS batch "
+     "frame (one comm round per bucket instead of per key); 0 disables "
+     "bucketing -- every key takes the per-key path")
+_reg("MXTPU_COMM_OVERLAP", _flag, True,
+     "run dist/PS kvstore communication on the background comms lane "
+     "(push enqueues and returns; pull hands back a pending handle "
+     "resolved at the array's next read) so comms overlap compute; 0 = "
+     "fully synchronous inline communication")
+
+# --- sparse embedding plane (embedding_plane.py) --------------------------
+_reg("MXTPU_EMBED_PLANE", _flag, True,
+     "the server-sharded sparse embedding plane: EmbeddingPlane tables "
+     "with deferred partial row pulls, row-sparse gradients riding the "
+     "PS wire as row payloads, and the PS-path partial row fetch in "
+     "KVStore.row_sparse_pull.  0 = kill switch: EmbeddingPlane refuses "
+     "to construct and the densifying PS push and local-cache "
+     "row_sparse_pull run instead")
+_reg("MXTPU_EMBED_VNODES", int, 64,
+     "virtual nodes per server shard on the embedding hash ring; the "
+     "ring is deterministic in (shard id, vnode index), so elastic "
+     "join/leave remaps only the arc the changed shard owned")
+_reg("MXTPU_EMBED_PREFETCH", _flag, True,
+     "run EmbeddingTable partial pulls on the engine comms lane so the "
+     "deferred pull overlaps forward compute; 0 = pull inline at "
+     "prefetch()/lookup() time")
 
 
 # --- profiler (profiler.py) ------------------------------------------------

@@ -23,13 +23,14 @@ and their consumers in this package:
 * **parameter-server transport events** (drop, duplicate, delay,
   timeout, kill server, membership joins, drains and kill-rejoins:
   :meth:`FaultPlan.client_send_event` / :meth:`client_recv_event`),
-  **training-driver events** (``preempt_at``, ``kill_worker_at``:
+  consulted by `ps_server.PSClient` around each data frame; a client
+  takes the plan :func:`active` at its construction (an installed plan,
+  else ``MXTPU_PS_FAULT_PLAN``);
+* **training-driver events** (``preempt_at``, ``kill_worker_at``:
   :meth:`driver_step_event`) and **mesh-device events**
   (``kill_device_at``, ``hang_device_at``: :meth:`mesh_step_event`) are
-  held by their own logic; their consumers (the PS client, the training
-  supervisor, the elastic mesh's probe) are the distributed slice of the
-  port, which is still to come.  ``MXTPU_PS_FAULT_PLAN`` is parsed by
-  :func:`active` for them.
+  held by their own logic; their consumers (the training supervisor, the
+  elastic mesh's probe) come with the port's SPMD plane.
 
 :class:`FilePlan` is the same idea for the durable-checkpoint writer
 (`serialization.atomic_write`): ``kill_before_rename`` raises

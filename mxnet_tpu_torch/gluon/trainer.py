@@ -21,7 +21,9 @@ one's device and writes the sum back into each (or, with
 ``update_on_kvstore``, the store runs the optimizer and each replica
 pulls the weight).  Each replica has its own updater, seeded from the
 first one's states, so the replicas' optimizer states evolve alike.  A
-``dist`` store raises until the port's distributed plane comes.
+``dist`` store is always created: it sums the gradients over the job's
+processes (`kvstore`, over the process group or the async parameter
+server), and with one process it is a one-worker store.
 """
 from __future__ import annotations
 
@@ -91,7 +93,9 @@ class Trainer:
 
     def _init_kvstore(self):
         """Create the store where a parameter has several replicas or the
-        store is ``dist`` (reference `trainer.py:169`)."""
+        store is ``dist`` (reference `trainer.py:169`): a ``dist`` store
+        sums the gradients over the job's processes (one process: a
+        one-worker store)."""
         self._kv_initialized = True
         kv = self._kv_type
         if kv is None or kv is False:
@@ -99,12 +103,6 @@ class Trainer:
         replicas = max((len(p.list_ctx()) for p in self._params), default=1)
         if replicas <= 1 and "dist" not in str(getattr(kv, "type", kv)):
             return
-        if "dist" in str(getattr(kv, "type", kv)):
-            raise MXNetError(
-                f"Trainer: kvstore={kv!r} over {replicas} context(s) needs "
-                "data parallelism across devices or processes, which comes "
-                "with the port's SPMD trainer over torch.distributed.  Use "
-                "one context per parameter, or kvstore=None")
         from .. import kvstore as kvs
         self._kvstore = kv if isinstance(kv, kvs.KVStore) \
             else kvs.create(str(kv))
@@ -139,6 +137,25 @@ class Trainer:
     @property
     def learning_rate(self):
         return self._optimizer.learning_rate
+
+    def set_epoch_callback(self, fn):
+        """Elastic PS: install the membership-epoch callback on the store
+        (``fn(epoch, rank, num_workers)``, fired by :meth:`check_epoch`),
+        where an input pipeline reshards with
+        ``iter.repartition(num_workers, rank)``."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._kvstore is not None:
+            self._kvstore.set_epoch_callback(fn)
+
+    def check_epoch(self):
+        """Poll the elastic PS membership (`KVStore.check_epoch`): the new
+        epoch after a transition, else None."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._kvstore is None:
+            return None
+        return self._kvstore.check_epoch()
 
     @property
     def optimizer(self):

@@ -12,8 +12,9 @@ The arithmetic is the reference's::
 
 and the wire form packs 16 two-bit codes into each uint32 word, element
 j of a word at bit 2·(j mod 16), the JAX package's layout.  A local store
-applies the quantized gradient; the packed form serves the stores across
-processes, which wait for the distributed group.
+applies the quantized gradient; across processes a ``dist`` store gathers
+each rank's packed words and sums their dequantized values
+(`decompress_sum`).
 """
 from __future__ import annotations
 

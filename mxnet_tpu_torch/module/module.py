@@ -24,8 +24,10 @@ net's carried states): zeros at bind, never trained, read and written by
 and read the JAX package's ``prefix-symbol.json`` + ``prefix-NNNN.params``
 (and ``.states`` for the optimizer).  With a `kvstore.KVStore` object
 (or a ``dist`` type name) ``init_optimizer`` updates on the store: the
-store runs the optimizer, and each update pushes the gradients and pulls
-the weights back.  A store, a `monitor.Monitor` (`install_monitor`) or
+store runs the optimizer (on the summed gradient of the job's processes
+for ``dist_sync``, on the parameter server for ``dist_async`` with the
+BytePS hook), and each update pushes the gradients and pulls the weights
+back through the store's comm plane.  A store, a `monitor.Monitor` (`install_monitor`) or
 a sparse input batch takes the step off the fused path onto
 ``forward_backward`` + ``update``, as in the JAX package.  So does a graph
 that holds an op no CUDA graph can hold (`graph_compile.one_graph`: a

@@ -63,17 +63,53 @@ class NDArray:
     values are read on the host (`asnumpy`, `wait_to_read`, `waitall`).
     """
 
-    __slots__ = ("data", "_ctx", "_grad", "_grad_req", "_fresh_grad",
-                 "_version", "_deferred_error", "__weakref__")
+    __slots__ = ("_data", "_ctx", "_grad", "_grad_req", "_fresh_grad",
+                 "_version", "_deferred_error", "_pending", "__weakref__")
 
     def __init__(self, data: torch.Tensor, ctx: Optional[Context] = None):
-        self.data = data
+        self._data = data
         self._ctx = ctx
         self._grad: Optional[NDArray] = None
         self._grad_req = "null"
         self._fresh_grad = False
         self._version = 0
         self._deferred_error: Optional[Exception] = None
+        # an in-flight pull of the comm plane (`comm_plane.PendingPull`):
+        # its result is this array's next value, written at the next
+        # read or write, so an overlapped kvstore pull behaves as the
+        # synchronous one at every sync point
+        self._pending = None
+
+    # -- the tensor ---------------------------------------------------------
+    @property
+    def data(self) -> torch.Tensor:
+        """The tensor (after landing an in-flight pull)."""
+        if self._pending is not None:
+            self._resolve_pending()
+        return self._data
+
+    @data.setter
+    def data(self, value: torch.Tensor) -> None:
+        if self._pending is not None:
+            # a write replaces the pull's value, after it lands
+            self._resolve_pending()
+        self._data = value
+
+    def _resolve_pending(self):
+        """Land an in-flight comm-plane pull: its value is written under
+        this handle, or its failure raised and kept as a deferred error.
+        The handle is cleared first, so the write's own reads see none."""
+        pend, self._pending = self._pending, None
+        if pend is None:
+            return
+        try:
+            new_data = pend.result()
+        except Exception as e:
+            self._poison(e)
+            raise MXNetError(
+                f"deferred async failure surfaced at sync point: {e}"
+            ) from e
+        self._set_data(new_data)
 
     # -- properties ---------------------------------------------------------
     @property
@@ -144,7 +180,7 @@ class NDArray:
             return
         if self._grad_req != "null" and not recorded:
             value = value.detach().requires_grad_(True)
-        self.data = value
+        self._data = value
 
     # -- deferred errors ----------------------------------------------------
     def _poison(self, error: Optional[Exception]) -> "NDArray":

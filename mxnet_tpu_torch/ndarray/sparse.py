@@ -70,6 +70,7 @@ class BaseSparseNDArray(NDArray):
         self._version = 0
         self._ctx = None
         self._deferred_error = None
+        self._pending = None
         self._sp_shape = tuple(int(d) for d in shape)
         self._dense_src = None
         self._cache = {}

@@ -585,18 +585,45 @@ def test_trainer_guards_and_states(tmp_path):
 
 
 def test_trainer_refuses_a_store():
-    # replicas on several contexts reduce through the local store; a dist
-    # store waits for the port's distributed plane
+    # (the name is kept from the refusal this test held before the dist
+    # stores came.)  Replicas on several contexts reduce through the local
+    # store; a dist store is created on one context too: one process is a
+    # one-worker store, and the steps equal the JAX package's Trainer over
+    # its own dist_sync store on the same inputs
     net = tx.gluon.nn.Dense(2, in_units=3)
     net.initialize(ctx=[tx.cpu(0), tx.cpu(1)])
     tr = tx.gluon.Trainer(net.collect_params(), "sgd",
                           {"learning_rate": 0.1})
     tr.allreduce_grads()
     assert tr._kvstore is not None and tr._kvstore.type == "device"
-    tr = tx.gluon.Trainer(net.collect_params(), "sgd",
-                          {"learning_rate": 0.1}, kvstore="dist_sync")
-    with pytest.raises(tx.MXNetError, match="SPMD trainer"):
-        tr.allreduce_grads()
+    rs = np.random.RandomState(4)
+    w = rs.randn(2, 3).astype(np.float32)
+    xs = [rs.randn(4, 3).astype(np.float32) for _ in range(3)]
+    for update_on_kvstore in (None, True):
+        _dist_trainer_steps(update_on_kvstore, w, xs)
+
+
+def _dist_trainer_steps(update_on_kvstore, w, xs):
+    res = {}
+    for k, pkg in (("torch", tx), ("jax", jx)):
+        d = pkg.gluon.nn.Dense(2, in_units=3, use_bias=False,
+                               prefix="dist_")
+        _init(pkg, d)
+        d.weight.set_data(_arr(pkg, w))
+        tr = pkg.gluon.Trainer(d.collect_params(), "sgd",
+                               {"learning_rate": 0.1, "momentum": 0.9},
+                               kvstore="dist_sync",
+                               update_on_kvstore=update_on_kvstore)
+        for x in xs:
+            with pkg.autograd.record():
+                loss = (d(_arr(pkg, x)) ** 2).sum()
+            loss.backward()
+            tr.step(4)
+        assert tr._kvstore is not None
+        assert (tr._kvstore.type, tr._kvstore.rank,
+                tr._kvstore.num_workers) == ("dist_sync", 0, 1)
+        res[k] = {"w": d.weight.data().asnumpy()}
+    _compare(res["torch"], res["jax"])
 
 
 # ---------------------------------------------------------------------------

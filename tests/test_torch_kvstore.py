@@ -190,17 +190,48 @@ def test_row_sparse_gradient_push_densifies_like_reference():
 
 
 def test_dist_async_warns_or_refuses(monkeypatch):
+    # (the name is kept from the refusal this test held before the
+    # parameter server came.)  Without the hook: warned, dist_sync
+    # semantics, as the JAX package
+    monkeypatch.delenv("BYTEPS_ENABLE_ASYNC", raising=False)
+    monkeypatch.delenv("MXTPU_PS_ADDR", raising=False)
     with pytest.warns(UserWarning, match="synchronous"):
         kv = mt.kv.create("dist_async")
+    with pytest.warns(UserWarning, match="BYTEPS_ENABLE_ASYNC"):
+        jkv = mx.kv.create("dist_async")
+    assert kv._ps is None and jkv._ps is None
     kv.init("a", _t(np.zeros(SHAPE)))
     kv.push("a", _t(np.ones(SHAPE) * 7))
-    out = mt.nd.zeros(SHAPE, ctx=CPU)
-    kv.pull("a", out=out)
-    np.testing.assert_array_equal(out.asnumpy(), 7 * np.ones(SHAPE))
+    jkv.init("a", _j(np.zeros(SHAPE)))
+    jkv.push("a", _j(np.ones(SHAPE) * 7))
+    j, t = _pull_both(jkv, kv, "a")
+    np.testing.assert_array_equal(t, 7 * np.ones(SHAPE))
+    np.testing.assert_array_equal(t, j)
+    # with the hook and a server: no warning, pushes accumulate on the
+    # server (stored += recved), each package's store on its own server
+    from mxnet_tpu import ps_server as jps
+    from mxnet_tpu_torch import ps_server as tps
     monkeypatch.setenv("BYTEPS_ENABLE_ASYNC", "1")
-    monkeypatch.setenv("MXTPU_PS_ADDR", "127.0.0.1:9")
-    with pytest.raises(MXNetError, match="ps_server.py"):
-        mt.kv.create("dist_async")
+    got = {}
+    for name, pkg, ps, arr in (("torch", mt, tps, _t), ("jax", mx, jps, _j)):
+        srv = ps.KVStoreServer(num_workers=2).start()
+        try:
+            monkeypatch.setenv("MXTPU_PS_ADDR", f"127.0.0.1:{srv.port}")
+            with warnings.catch_warnings():
+                warnings.simplefilter("error")
+                store = pkg.kv.create("dist_async")
+            assert store._ps is not None
+            store.init("a", arr(np.zeros(SHAPE)))
+            for _ in range(2):
+                store.push("a", arr(np.ones(SHAPE) * 7))
+            out = (mt.nd.zeros(SHAPE, ctx=CPU) if pkg is mt
+                   else mx.nd.zeros(SHAPE))
+            store.pull("a", out=out)
+            got[name] = out.asnumpy()
+        finally:
+            srv.shutdown()
+    np.testing.assert_array_equal(got["torch"], 14 * np.ones(SHAPE))
+    np.testing.assert_array_equal(got["torch"], got["jax"])
     with pytest.raises(MXNetError, match="unknown KVStore"):
         mt.kv.create("bogus")
 

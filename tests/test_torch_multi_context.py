@@ -304,9 +304,13 @@ def test_trainer_multi_device_allreduce_and_split_and_load():
     parts = mt.gluon.utils.split_and_load(np.arange(8, dtype=np.float32),
                                           ctxs)
     assert [str(a.context) for a in parts] == ["cpu(0)", "cpu(1)"]
-    with pytest.raises(mt.base.MXNetError, match="SPMD trainer"):
-        t = mt.gluon.Trainer({"w": p}, "sgd", kvstore="dist_sync")
-        t.step(1)
+    # a dist store in one process: a one-worker store over the replicas,
+    # as the JAX package's (its sum of the replicas' gradients, then SGD)
+    got = _replica_steps(mt, "dist_sync", "sgd", {"learning_rate": 1.0})
+    want = _replica_steps(mx, "dist_sync", "sgd", {"learning_rate": 1.0})
+    for (t0, t1), (j0, _j1) in zip(got, want):
+        np.testing.assert_array_equal(t0, t1)
+        np.testing.assert_array_equal(t0, j0)
 
 
 # -- group2ctx ---------------------------------------------------------------
