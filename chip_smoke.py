@@ -391,6 +391,49 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    11a's local-store path on the same batches: the weight within
    EMBED_TOL (bit-equal printed), the pull bytes of each step 4 x the
    batch's unique ids; `embed_counters` and both step times printed.
+19. spmd -- the SPMD plane (`mxnet_tpu_torch.parallel`) and the training
+   driver.  The script's own process joins a group of one (NCCL) for the
+   one-rank halves; two processes of ``tools/launch.py --launcher local
+   -n 2`` (SPMD_ENTRY), started once and sharing the card over gloo, run
+   the two-rank halves of 19a-19d and write their records to files.
+   First, K1 and K2/K3 at one ring hop's shape ([1, 12, 4096, 64] fp32,
+   causal and not, K2/K3 with a random dLSE) against their plain
+   versions, as in phases 3 and 3b.  19a: `resnet50_v1()` at its
+   published widths, batch 32 at 224, SGD (momentum 0.9, wd 1e-4, lr
+   0.01), SPMD_STEPS steps through `SPMDTrainer`, held in float64 (in
+   train mode the random-init net turns fp32 rounding into gradients a
+   few percent apart): on one rank within SPMD_RESNET_TOL of
+   `gluon.Trainer` (phase 8's path) from the same weights; on two (dp 2,
+   16 + 16 rows, BatchNorm's moments over the whole batch) within
+   SPMD_RESNET_TOL of one rank, the arrays zero in exact arithmetic (the
+   biases of convolutions that feed a BatchNorm, no larger than
+   SPMD_ZERO_FLOOR) left out; the same steps
+   in fp32 are timed, each step's ms and its share in the collectives
+   printed.  19b: the ring LM of
+   `model_zoo.ring_lm` (train_ring_lm.py's model at RING_LM_CARD: BERT-
+   base's attention widths, causal, seq 8192, batch 1), SPMD_STEPS Adam
+   steps at sp 1 and sp 2 (4096 positions a rank): the first step's
+   logits within RING_OUT_TOL and every parameter's gradient within
+   RING_GRAD_TOL of sp 1 (over their largest magnitudes); K1-K3's
+   launches a step printed (at sp 2 rank r launches K1 r + 1 times).
+   19c: phase 5's BERT-base MLM at 8 x 512 (dropout 0) through
+   ``Module.fit``, SPMD_STEPS steps: on one rank ``MXTPU_SPMD=1`` (the
+   sharded step, captured) within SPMD_FIT_TOL of the unified step; on
+   two ranks ``MXTPU_SPMD_ZERO1=1`` within SPMD_FIT_TOL of one rank and
+   bit-equal (weights and Adam states) to ``MXTPU_SPMD_ZERO1=0``; each
+   rank's optimizer-state bytes must be half the total.  19d:
+   train_pipeline_moe.py's pipeline (PIPE_CFG: 2 stages over pp 2, 8
+   microbatches) and Switch MoE (MOE_CFG: 4 experts over ep 2) with SGD:
+   the loss falls and its trajectory is within PIPE_TOL of one rank's
+   (the stages in sequence; the experts on one rank).  19e: phase 5's
+   BERT-base ``Module.fit`` (PREEMPT batches, dropout 0.1, BERT's Adam)
+   under ``MXTPU_ANOMALY_GUARD=1`` with a fault plan poisoning one step:
+   run A here; run B in a child (PREEMPT_ENTRY) under a
+   `train_driver.TrainingSupervisor` with a checkpoint directory, sent
+   SIGTERM after a batch mid-epoch, must exit 75 with a committed
+   mid-epoch ``preempted`` checkpoint; run C here resumes from it and
+   must end bit-equal to A (weights and Adam states); A and B each skip
+   the poisoned step once.
 
 If the run nears its time limit, cut the serving phases' ``TIMED`` and
 ``LSTM_TIMED`` counts and FLEET_REQUESTS before anything of the training
@@ -626,11 +669,46 @@ WORD_BPTT, WORD_BATCH, WORD_LR, WORD_CLIP, WORD_STEPS = 35, 32, 20.0, 0.2, 16
 # steps with the server's Adam, 18c's steps, the tolerance of 18c's weight
 # against the local store's, the worker script, the launcher, and each
 # job's time limit
-DIST_STEPS, DIST_ASYNC_STEPS, EMBED_STEPS = 3, 10, 20
+DIST_STEPS, DIST_ASYNC_STEPS, EMBED_STEPS = 3, 4, 20
 EMBED_TOL = 1e-6
 DIST_WORKER = os.path.join(HERE, "tests", "torch_bert_dist_worker.py")
 DIST_LAUNCH = os.path.join(HERE, "tools", "launch.py")
 DIST_TIMEOUT = 420
+# phase 19: steps of each trained path; ResNet-50 v1 at its published
+# widths (19a); the ring LM at BERT-base's attention widths (19b, head dim
+# 64, train_ring_lm.py's vocab; its lr of 1e-2, made for width 64, drove
+# the loss up at width 768 on the card, so 1e-3); phase 5's BERT-base MLM
+# (19c, 19e);
+# train_pipeline_moe.py's run_pipeline and run_moe (19d, fewer steps);
+# 19e's batches, the step its fault plan poisons, the batch after which
+# the child takes its SIGTERM
+SPMD_STEPS = 3
+SPMD_RESNET = dict(batch=32, side=224, classes=1000, steps=SPMD_STEPS,
+                   lr=0.01, reference=False)
+RING_LM_CARD = dict(vocab=32, dim=768, heads=12, seq_len=8192, batch=1,
+                    lr=1e-3, steps=SPMD_STEPS)
+SPMD_BERT = dict(batch=8, seq=512, steps=SPMD_STEPS)
+PIPE_CFG = dict(stages=2, micro=8, batch=4, width=16, steps=20, lr=0.3)
+MOE_CFG = dict(tokens=128, width=16, hidden=32, experts=4, steps=30, lr=0.3)
+PREEMPT = dict(batches=6, poison_at=2, sigterm_after=3)
+# phase 19's limits: 19a's float64 weights after SPMD_STEPS steps
+# (SPMDTrainer against gluon.Trainer on one rank, two ranks against one),
+# max |diff| over each array's largest magnitude; 19b's outputs and first-step
+# gradients at sp 2 against sp 1 (tests/test_pallas.py:25,51's tolerances);
+# 19c's weights at two ranks against one (and the one-rank sharded step
+# against the unified one); 19d's loss trajectories at two ranks against
+# one rank
+SPMD_RESNET_TOL = 1e-6
+# ResNet-50's bottleneck convolutions feed BatchNorm, so their biases take
+# a zero gradient in exact arithmetic: float64 arrays no larger than this
+# hold rounding noise alone and are left out of 19a's comparison
+SPMD_ZERO_FLOOR = 1e-9
+RING_OUT_TOL, RING_GRAD_TOL = 2e-4, 2e-3
+SPMD_FIT_TOL = 1e-4
+PIPE_TOL = 1e-4
+SPMD_TIMEOUT = 600
+SPMD_ENTRY = "import sys, chip_smoke as cs; cs.spmd_worker(sys.argv[1])"
+PREEMPT_ENTRY = "import sys, chip_smoke as cs; cs.preempt_child(sys.argv[1])"
 # phase 11a: the reference's example/sparse/linear_classification.py
 # local-store loop at the width of LIBSVM's avazu-app (1,000,000 features)
 # and the example's batch 8192 and lr; rows one-hot in 15 fields with
@@ -7938,6 +8016,688 @@ def phase_distributed(card, cfg=None, batch=8, seq=512, steps=DIST_STEPS,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the SPMD plane and the training driver
+# ---------------------------------------------------------------------------
+
+def _spmd_rank():
+    from mxnet_tpu_torch.parallel import distributed as dist
+    return dist.rank(), dist.size()
+
+
+def _spmd_ctx(device):
+    """This rank's context: its card (``cuda:rank % count``), or the host."""
+    from mxnet_tpu_torch.parallel import devices
+    with (mt.cpu() if device == "cpu" else contextlib.nullcontext()):
+        dev = devices()[_spmd_rank()[0]].device
+    return (mt.gpu(dev.index or 0) if dev.type == "cuda" else mt.cpu()), dev
+
+
+def _spmd_sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _comm_s():
+    from mxnet_tpu_torch import profiler
+    return float(profiler.comm_counters().get("blocked_s", 0.0))
+
+
+def _np_rel_err(got, want):
+    """max |got - want| over want's largest magnitude."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _worst(got, want, floor=0.0):
+    """The worst array of ``got`` against ``want`` (dicts of arrays) by
+    `_np_rel_err`: (name, error); arrays of ``want`` whose largest magnitude
+    is at most ``floor`` (zero in exact arithmetic, their values rounding
+    noise) are left out."""
+    errs = {k: _np_rel_err(got[k], want[k]) for k in want
+            if np.abs(want[k]).max() > floor}
+    name = max(errs, key=errs.get)
+    return name, errs[name]
+
+
+def _resnet_net(ctx, classes, side, dtype="float32"):
+    mt.random.seed(SEED)
+    net = vision.resnet50_v1(classes=classes, prefix="resnet50_v1_")
+    net.initialize(mt.init.Xavier(magnitude=2), ctx=ctx)
+    net(mt.nd.zeros((1, 3, side, side), ctx=ctx))
+    if dtype != "float32":
+        net.cast(dtype)
+    return net
+
+
+def _net_arrays(net):
+    return {k: p.data().asnumpy() for k, p in net.collect_params().items()}
+
+
+def spmd_resnet(workdir, tag, device="cuda", cfg=None):
+    """19a: `resnet50_v1()` at batch SPMD_RESNET["batch"] through
+    `SPMDTrainer` over every rank (dp = the group's size, BatchNorm's
+    moments over the whole batch), SGD with momentum.  The numbers are
+    held in float64: a random-init ResNet-50 in train mode turns fp32
+    rounding into gradient differences of a few percent (a different
+    but equivalent BatchNorm formula on one process moves them 2 %), so
+    fp32 cannot tell a wrong step from a rounding; the steps are timed
+    in fp32.  With ``reference`` (one rank) the same float64 steps also
+    run through `gluon.Trainer` (phase 8's path) from the same weights.
+    Rank 0 writes the float64 weights."""
+    from mxnet_tpu_torch import parallel as par
+    from mxnet_tpu_torch.gluon import loss as gloss
+    cfg = dict(SPMD_RESNET, **(cfg or {}))
+    rank, n = _spmd_rank()
+    ctx, dev = _spmd_ctx(device)
+    b, side, classes = cfg["batch"], cfg["side"], cfg["classes"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    x32 = torch.randn((b, 3, side, side), generator=gen, device=dev)
+    y = torch.randint(0, classes, (b,), generator=gen, device=dev).float()
+    opt = dict(learning_rate=cfg["lr"], momentum=0.9, wd=1e-4)
+    rec = {"sub": "19a_resnet50", "ranks": n, "batch": b}
+    out = {}
+    for dtype in ("float64", "float32"):
+        x = x32.to(getattr(torch, dtype))
+        if cfg["reference"] and dtype == "float64":
+            net = _resnet_net(ctx, classes, side, dtype)
+            trainer = mt.gluon.Trainer(net.collect_params(), "sgd",
+                                       dict(opt))
+            lfn = gloss.SoftmaxCrossEntropyLoss()
+            xs, ys = NDArray(x, ctx), NDArray(y.to(x.dtype), ctx)
+            for _ in range(cfg["steps"]):
+                with mt.autograd.record():
+                    loss = lfn(net(xs), ys)
+                loss.backward()
+                trainer.step(b)
+            gluon_w = _net_arrays(net)
+            del net, trainer
+        net = _resnet_net(ctx, classes, side, dtype)
+        tr = par.SPMDTrainer(net, mt.optimizer.SGD(**opt),
+                             gloss.SoftmaxCrossEntropyLoss(),
+                             mesh=par.auto_mesh(devices=par.devices(dev)))
+        losses, ms, comm = [], [], []
+        for _ in range(cfg["steps"]):
+            _spmd_sync(dev)
+            c0, t0 = _comm_s(), time.perf_counter()
+            losses.append(float(tr.step(x, y.to(x.dtype))))
+            _spmd_sync(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            comm.append((_comm_s() - c0) * 1e3)
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"19a: {dtype} losses {losses}")
+        tr.sync_to_block()
+        if dtype == "float64":
+            w = _net_arrays(net)
+            rec["float64_losses"] = losses
+            if cfg["reference"]:
+                rec["vs_gluon_trainer"] = _worst(w, gluon_w,
+                                                 SPMD_ZERO_FLOOR)
+                if rec["vs_gluon_trainer"][1] > SPMD_RESNET_TOL:
+                    raise AssertionError(
+                        f"19a: SPMDTrainer against gluon.Trainer "
+                        f"{rec['vs_gluon_trainer']}")
+            if rank == 0:
+                np.savez(os.path.join(workdir, f"resnet-{tag}.npz"), **w)
+            del w
+        else:
+            rec.update(losses=losses, step_ms=ms, comm_ms=comm,
+                       comm_share=[c / m for c, m in zip(comm, ms)])
+        del tr, net
+    return rec
+
+
+def spmd_ring_lm(workdir, tag, device="cuda", cfg=None):
+    """19b: the ring LM of `model_zoo.ring_lm` (train_ring_lm.py's model)
+    at RING_LM_CARD, causal, over sp = the group's size, SPMD_STEPS Adam
+    steps on needle batches; K1 on each hop, K2/K3 in the backward.  Rank
+    0 writes the first step's logits and gradients."""
+    from mxnet_tpu_torch import parallel as par
+    from mxnet_tpu_torch.model_zoo import (needle_batch, ring_lm_adam,
+                                           ring_lm_loss,
+                                           ring_lm_numpy_params)
+    from mxnet_tpu_torch.serialization import tree_from_numpy
+    c = dict(RING_LM_CARD, **(cfg or {}))
+    rank, n = _spmd_rank()
+    _ctx, dev = _spmd_ctx(device)
+    mesh = par.make_mesh({par.SP: n}, devices=par.devices(dev))
+    params = tree_from_numpy(
+        ring_lm_numpy_params(SEED, c["vocab"], c["dim"], c["seq_len"]),
+        dev, requires_grad=True)
+    state = tuple({k: torch.zeros_like(v) for k, v in params.items()}
+                  for _ in range(2))
+    rs = np.random.RandomState(SEED + 19)
+    before = dict(hk.LAUNCHES)
+    losses, ms, comm = [], [], []
+    for t in range(1, c["steps"] + 1):
+        tok, tgt = (torch.as_tensor(a, device=dev) for a in needle_batch(
+            rs, c["batch"], c["seq_len"], c["vocab"]))
+        _spmd_sync(dev)
+        c0, t0 = _comm_s(), time.perf_counter()
+        loss, logits = ring_lm_loss(params, tok, tgt, mesh, c["heads"])
+        grads = torch.autograd.grad(loss, list(params.values()))
+        if t == 1 and rank == 0:
+            first = {"logits": logits.detach().cpu().numpy()}
+            first.update({f"d_{k}": g.cpu().numpy()
+                          for k, g in zip(params, grads)})
+            np.savez(os.path.join(workdir, f"ring-{tag}.npz"), **first)
+        ring_lm_adam(params, dict(zip(params, grads)), state, t, c["lr"])
+        losses.append(float(loss.detach()))
+        _spmd_sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        comm.append((_comm_s() - c0) * 1e3)
+    launches = {k: hk.LAUNCHES[k] - before.get(k, 0) for k in ATTN_KERNELS}
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"19b: losses {losses}")
+    return {"sub": "19b_ring_lm", "ranks": n, "sp_block": c["seq_len"] // n,
+            "losses": losses, "step_ms": ms, "comm_ms": comm,
+            "comm_share": [a / b for a, b in zip(comm, ms)],
+            "launches": launches,
+            "launches_per_step": {k: v / c["steps"]
+                                  for k, v in launches.items()}}
+
+
+_BERT_PARAMS = {}
+
+
+def _bert_params(sym, shapes):
+    """Phase 5's seeded weights for ``sym`` at ``shapes``, made once a
+    process."""
+    arg_shapes, _, _ = sym.infer_shape(**shapes)
+    want = {k: s for k, s in zip(sym.list_arguments(), arg_shapes)
+            if k not in shapes}
+    key = tuple(sorted(want.items()))
+    if key not in _BERT_PARAMS:
+        _BERT_PARAMS.clear()
+        _BERT_PARAMS[key] = random_params(want, SEED)
+    return _BERT_PARAMS[key]
+
+
+def _spmd_bert_iter(vocab, batch, seq, steps):
+    rng = np.random.RandomState(SEED + 5)
+    n = steps * batch
+    data = rng.randint(0, vocab, (n, seq)).astype(np.float32)
+    label = np.where(rng.rand(n, seq) < 0.15, data, -1.0).astype(np.float32)
+    pos = np.tile(np.arange(seq, dtype=np.float32), (n, 1))
+    return mt.io.NDArrayIter({"data": data, "positions": pos},
+                             {"mlm_label": label}, batch_size=batch)
+
+
+def spmd_bert_fit(device="cuda", cfg=None, spmd="auto", zero1=True,
+                  batch=8, seq=512, steps=SPMD_STEPS):
+    """19c: phase 5's BERT-base MLM (dropout 0) through ``Module.fit`` at
+    batch x seq under ``MXTPU_SPMD=spmd`` (unset: the unified step) and
+    ``MXTPU_SPMD_ZERO1``; returns (record, trained weights, Adam states)."""
+    from mxnet_tpu_torch import profiler
+    cfg = dict(BERT_BASE if cfg is None else cfg)
+    ctx, dev = _spmd_ctx(device)
+    sym = bert_mlm(mt.sym, **dict(cfg, dropout=0.0))
+    shapes = {"data": (batch, seq), "positions": (batch, seq),
+              "mlm_label": (batch, seq)}
+    params = _bert_params(sym, shapes)
+    it = _spmd_bert_iter(cfg["vocab"], batch, seq, steps)
+    mod = mt.mod.Module(sym, data_names=("data", "positions"),
+                        label_names=("mlm_label",), context=ctx)
+    profiler.reset_spmd_counters()
+    stamps = []
+
+    def stamp(_p):
+        _spmd_sync(dev)
+        stamps.append((time.perf_counter(), _comm_s()))
+
+    with env(MXTPU_SPMD=spmd, MXTPU_SPMD_ZERO1="1" if zero1 else "0"):
+        _spmd_sync(dev)
+        t0, c0 = time.perf_counter(), _comm_s()
+        mod.fit(it, num_epoch=1, optimizer="adam",
+                optimizer_params=_fit_adam(), batch_end_callback=stamp,
+                arg_params={k: mt.nd.array(v, ctx=ctx)
+                            for k, v in params.items()})
+    marks = [(t0, c0)] + stamps
+    ms = [(b[0] - a[0]) * 1e3 for a, b in zip(marks, marks[1:])]
+    comm = [(b[1] - a[1]) * 1e3 for a, b in zip(marks, marks[1:])]
+    arg, _ = mod.get_params()
+    weights = {k: v.asnumpy() for k, v in arg.items()}
+    if mod._spmd_train_step is not None:
+        # the states live in the sharded step's buffers (gathered here,
+        # by every rank together)
+        mod._spmd_train_step.export_states()
+    states = {}
+    for k, st in mod._active_updater().states.items():
+        for i, s in enumerate(st if isinstance(st, tuple) else (st,)):
+            states[f"{k}:{i}"] = s.asnumpy()
+    rec = {"spmd": spmd, "zero1": zero1, "step_ms": ms, "comm_ms": comm,
+           "comm_share": [a / b for a, b in zip(comm, ms)],
+           "spmd_counters": profiler.spmd_counters(),
+           "sharded": mod._spmd_train_step is not None}
+    del mod
+    return rec, weights, states
+
+
+def _bit_equal(a, b):
+    return all(np.array_equal(a[k], b[k]) for k in a) and a.keys() == b.keys()
+
+
+def spmd_pipe_moe(device="cuda", pipe=None, moe=None):
+    """19d: train_pipeline_moe.py's configurations.  The pipeline (its
+    run_pipeline: S stages of tanh(x W + b), K microbatches) over pp = the
+    group's size, or, on one rank, the same stages applied in sequence;
+    the Switch MoE (its run_moe) with its experts over ep = the group's
+    size, or on one rank.  Plain SGD; returns the losses."""
+    from mxnet_tpu_torch import parallel as par
+    p = dict(PIPE_CFG, **(pipe or {}))
+    m = dict(MOE_CFG, **(moe or {}))
+    _rank, n = _spmd_rank()
+    _ctx, dev = _spmd_ctx(device)
+    rs = np.random.RandomState(0)
+    s, k, b, d = p["stages"], p["micro"], p["batch"], p["width"]
+    stages = [{"w": torch.tensor(rs.randn(d, d).astype(np.float32) * 0.3,
+                                 device=dev),
+               "b": torch.zeros(d, device=dev)} for _ in range(s)]
+    x = torch.tensor(rs.randn(k, b, d).astype(np.float32), device=dev)
+    target = torch.tanh(x @ torch.tensor(
+        rs.randn(d, d).astype(np.float32) * 0.5, device=dev))
+    stacked = {key: v.requires_grad_(True) for key, v in
+               par.stack_stage_params(stages).items()}
+
+    def fn(q, a):
+        return torch.tanh(a @ q["w"] + q["b"])
+
+    mesh = par.auto_mesh(pp=s, devices=par.devices(dev)) if n == s \
+        else None
+    pipe_losses, t0 = [], time.perf_counter()
+    for _ in range(p["steps"]):
+        if mesh is not None:
+            out = par.pipeline_apply(fn, stacked, x, mesh)
+        else:
+            out = x
+            for i in range(s):
+                out = fn({key: v[i] for key, v in stacked.items()}, out)
+        loss = ((out - target) ** 2).mean()
+        grads = torch.autograd.grad(loss, list(stacked.values()))
+        with torch.no_grad():
+            for v, g in zip(stacked.values(), grads):
+                v.sub_(p["lr"] * g)
+        pipe_losses.append(float(loss.detach()))
+    pipe_ms = (time.perf_counter() - t0) * 1e3 / p["steps"]
+    rs = np.random.RandomState(1)
+    params = par.MoEParams(*(a.to(dev).requires_grad_(True) for a in
+                             par.init_moe(SEED, m["width"], m["hidden"],
+                                          m["experts"])))
+    xm = torch.tensor(rs.randn(m["tokens"], m["width"]).astype(np.float32),
+                      device=dev)
+    tm = torch.sin(xm * 1.5)
+    emesh = par.auto_mesh(ep=n, devices=par.devices(dev)) if n > 1 else None
+    moe_losses, t0 = [], time.perf_counter()
+    for _ in range(m["steps"]):
+        y, aux = par.moe_ffn(params, xm, mesh=emesh)
+        loss = ((y - tm) ** 2).mean() + 0.01 * aux["aux_loss"]
+        grads = torch.autograd.grad(loss, list(params))
+        with torch.no_grad():
+            for v, g in zip(params, grads):
+                v.sub_(m["lr"] * g)
+        moe_losses.append(float(loss.detach()))
+    moe_ms = (time.perf_counter() - t0) * 1e3 / m["steps"]
+    for name, ls in (("pipeline", pipe_losses), ("moe", moe_losses)):
+        if not (np.isfinite(ls).all() and ls[-1] < ls[0]):
+            raise AssertionError(f"19d: the {name} loss did not fall: {ls}")
+    return {"sub": "19d_pipeline_moe", "ranks": n,
+            "pipeline_losses": pipe_losses, "pipeline_step_ms": pipe_ms,
+            "moe_losses": moe_losses, "moe_step_ms": moe_ms}
+
+
+def spmd_worker(job_file):
+    """A rank of phase 19's two-rank group (`tools/launch.py -n 2`): 19a-19d
+    over the gloo group on the shared card, records to ``workdir``."""
+    from mxnet_tpu_torch.parallel import distributed as dist
+    with open(job_file) as f:
+        job = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.initialize()
+    rank, n = _spmd_rank()
+    device, workdir = job["device"], job["workdir"]
+    hk.reset_launch_counts()
+    rec = {"rank": rank, "ranks": n, "backend": dist.backend()}
+    rec["resnet"] = spmd_resnet(workdir, "two", device,
+                                dict(job["resnet"], reference=False))
+    rec["ring"] = spmd_ring_lm(workdir, "two", device, job["ring"])
+    bert = job["bert"]
+    one = np.load(os.path.join(workdir, "bert-one.npz"))
+    z1, wz1, sz1 = spmd_bert_fit(device, bert["cfg"], "auto", True,
+                                 bert["batch"], bert["seq"], bert["steps"])
+    ar, war, sar = spmd_bert_fit(device, bert["cfg"], "auto", False,
+                                 bert["batch"], bert["seq"], bert["steps"])
+    rec["bert"] = {"zero1": z1, "allreduce": ar,
+                   "zero1_bit_equal_allreduce": _bit_equal(wz1, war) and
+                   _bit_equal(sz1, sar),
+                   "vs_one_rank": _worst(wz1, {k: one[k] for k in one.files})}
+    del wz1, war, sz1, sar
+    rec["pipe_moe"] = spmd_pipe_moe(device, job["pipe"], job["moe"])
+    rec["launches"] = dict(hk.LAUNCHES)
+    with open(os.path.join(workdir, f"spmd-{rank}.json"), "w") as f:
+        json.dump(rec, f, default=float)
+    dist.barrier()
+
+
+def _spmd_group(device):
+    """The script's own process as a group of one (NCCL on the card)."""
+    from mxnet_tpu_torch.parallel import distributed as dist
+    dist.initialize(f"127.0.0.1:{_free_port_pair()}", num_processes=1,
+                    process_id=0, backend="nccl" if device == "cuda"
+                    else "gloo")
+    return dist.backend()
+
+
+def preempt_child(job_file):
+    """19e's preempted run: BERT-base ``Module.fit`` under a
+    `TrainingSupervisor` (SIGTERM handlers, ``main_guard``) with the
+    checkpoint directory, the anomaly guard and a poisoned step; reports
+    each finished batch to ``progress`` (the parent's cue to SIGTERM)."""
+    from mxnet_tpu_torch import fault_injection as fi
+    from mxnet_tpu_torch import train_driver as drv
+    with open(job_file) as f:
+        job = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fi.install(fi.FaultPlan(poison_step_at=job["poison_at"]))
+
+    def progress(p):
+        with open(job["progress"], "w") as f:
+            f.write(str(p.nbatch + 1))
+
+    with drv.TrainingSupervisor() as sup:
+        with sup.main_guard():
+            _preempt_fit(job, batch_end_callback=progress)
+            sys.exit(0)
+
+
+def _preempt_fit(job, batch_end_callback=None):
+    """19e's fit: one epoch of job["batches"] BERT batches (dropout 0.1,
+    BERT's Adam), weights from the seed; the module."""
+    cfg, batch, seq = job["cfg"], job["batch"], job["seq"]
+    ctx = mt.gpu(0) if job["device"] == "cuda" else mt.cpu()
+    sym = bert_mlm(mt.sym, **cfg)
+    shapes = {"data": (batch, seq), "positions": (batch, seq),
+              "mlm_label": (batch, seq)}
+    params = _bert_params(sym, shapes)
+    it = _spmd_bert_iter(cfg["vocab"], batch, seq, job["batches"])
+    mod = mt.mod.Module(sym, data_names=("data", "positions"),
+                        label_names=("mlm_label",), context=ctx)
+    mt.random.seed(SEED)
+    mod.fit(it, num_epoch=1, optimizer="adam", optimizer_params=_fit_adam(),
+            batch_end_callback=batch_end_callback,
+            arg_params={k: mt.nd.array(v, ctx=ctx) for k, v in params.items()})
+    return mod
+
+
+def spmd_preempt(card, workdir, device="cuda", cfg=None, batch=8, seq=512):
+    """19e: A, this process, fits PREEMPT["batches"] batches under the
+    anomaly guard with step PREEMPT["poison_at"] poisoned by the fault
+    plan; B, a child, runs the same fit with a checkpoint directory under
+    a `TrainingSupervisor` and takes a SIGTERM after its batch
+    PREEMPT["sigterm_after"]: it must exit 75 with a committed mid-epoch
+    checkpoint; C, this process, resumes from it and must end bit-equal
+    to A, parameters and Adam states; each run skips the poisoned step
+    once (B's before its checkpoint, so C's none)."""
+    import signal as _signal
+    from mxnet_tpu_torch import fault_injection as fi
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+    cfg = dict(BERT_BASE if cfg is None else cfg)
+    p = dict(PREEMPT)
+    job = {"cfg": cfg, "batch": batch, "seq": seq, "device": device,
+           "batches": p["batches"], "poison_at": p["poison_at"],
+           "progress": os.path.join(workdir, "progress"),
+           "job": os.path.join(workdir, "preempt.json"),
+           "log": os.path.join(workdir, "preempt.log")}
+    ckpt = os.path.join(workdir, "ckpt")
+    t0 = time.perf_counter()
+    with env(MXTPU_ANOMALY_GUARD="1"):
+        profiler.reset_driver_counters()
+        plan = fi.install(fi.FaultPlan(poison_step_at=p["poison_at"]))
+        try:
+            a = _module_state(_preempt_fit(job))
+        finally:
+            fi.clear()
+        skipped_a = profiler.driver_counters().get("anomaly_skipped_steps")
+        if plan.poisoned_steps != 1 or skipped_a != 1:
+            raise AssertionError(f"19e: run A poisoned {plan.poisoned_steps}"
+                                 f" steps, the guard skipped {skipped_a}")
+        a_s = time.perf_counter() - t0
+        with open(job["job"], "w") as f:
+            json.dump(job, f)
+        t1 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-u", "-c", PREEMPT_ENTRY,
+                                 job["job"]], cwd=HERE,
+                                env=dict(os.environ, MXTPU_CKPT_DIR=ckpt),
+                                stdout=open(job["log"], "w"),
+                                stderr=subprocess.STDOUT)
+        try:
+            deadline = time.time() + CKPT_CHILD_TIMEOUT
+            while True:
+                done = 0
+                if os.path.exists(job["progress"]):
+                    with open(job["progress"]) as f:
+                        done = int(f.read() or 0)
+                if done >= p["sigterm_after"]:
+                    break
+                if proc.poll() is not None or time.time() > deadline:
+                    raise AssertionError("19e: child B never reached batch "
+                                         f"{p['sigterm_after']}:\n"
+                                         f"{_child_log(job)}")
+                time.sleep(0.01)
+            sent_after = done
+            proc.send_signal(_signal.SIGTERM)
+            code = proc.wait(timeout=CKPT_CHILD_TIMEOUT)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        b_s = time.perf_counter() - t1
+        if code != 75:
+            raise AssertionError(f"19e: child B exited {code}, want 75:\n"
+                                 f"{_child_log(job)}")
+        mgr = CheckpointManager(ckpt)
+        ck = mgr.latest_valid()
+        loaded = mgr.load(ck)
+        cursor = loaded.get("batch")
+        if not ((loaded.get("extra") or {}).get("preempted") and
+                cursor is not None and 0 < cursor < p["batches"]):
+            raise AssertionError(f"19e: the checkpoint is not a mid-epoch "
+                                 f"preemption snapshot: {ck.manifest}")
+        profiler.reset_driver_counters()
+        t2 = time.perf_counter()
+        with env(MXTPU_CKPT_DIR=ckpt):
+            c = _module_state(_preempt_fit(job))
+        c_s = time.perf_counter() - t2
+        skipped_c = profiler.driver_counters().get("anomaly_skipped_steps",
+                                                   0)
+    worst = _worst(c, a)
+    rec = {"sub": "19e_preemption", "card": card, "batches": p["batches"],
+           "sigterm_after_batch": sent_after, "exit_code": code,
+           "checkpoint_batch": cursor, "poisoned_step": p["poison_at"],
+           "skipped": {"A": skipped_a, "C": skipped_c},
+           "bit_equal": bool(_bit_equal(c, a)), "worst": worst,
+           "run_s": {"A": a_s, "B": b_s, "C": c_s}}
+    log(json.dumps(rec, default=float))
+    if not rec["bit_equal"]:
+        raise AssertionError(f"19e: the resumed run is off the "
+                             f"uninterrupted one: {worst}")
+    if skipped_c:
+        raise AssertionError("19e: the resumed run skipped a step")
+    return rec
+
+
+def phase_spmd(card, device="cuda", resnet=None, ring=None, bert=None,
+               pipe=None, moe=None, preempt=None):
+    """Phase 19: the SPMD plane (19a-19d) and the training driver (19e).
+    The one-rank halves run here, in a group of one; the two-rank halves
+    in two processes of `tools/launch.py -n 2` started once, sharing the
+    card over gloo.  Returns the K1-K3 launches of both."""
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="mxtpu_spmd_")
+    bert = dict(SPMD_BERT, **(bert or {}))
+    bert["cfg"] = dict(BERT_BASE, **bert.get("cfg", {}))
+    job = {"device": device, "workdir": workdir,
+           "resnet": dict(SPMD_RESNET, **(resnet or {})),
+           "ring": dict(RING_LM_CARD, **(ring or {})), "bert": bert,
+           "pipe": dict(PIPE_CFG, **(pipe or {})),
+           "moe": dict(MOE_CFG, **(moe or {}))}
+    from mxnet_tpu_torch.parallel import distributed as dist
+    try:
+        backend = _spmd_group(device)
+        hop = []
+        if device == "cuda":
+            # K1-K3 at one ring hop's shapes (sp 2 at the card's config),
+            # causal and not, K2/K3 with a random dLSE
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+            c = dict(RING_LM_CARD, **job["ring"])
+            shape = (c["batch"], c["heads"], c["seq_len"] // 2,
+                     c["dim"] // c["heads"])
+            with torch.no_grad():
+                for causal in (False, True):
+                    hop.append(check_attention("ring_hop", shape, shape[2],
+                                               torch.float32, causal, gen))
+                    hop += check_attention_backward(
+                        "ring_hop", shape, shape[2], torch.float32, causal,
+                        gen)
+        before = dict(hk.LAUNCHES)
+        one = {"resnet": spmd_resnet(workdir, "one", device,
+                                     dict(job["resnet"], reference=True)),
+               "ring": spmd_ring_lm(workdir, "one", device, job["ring"])}
+        r1, w1, s1 = spmd_bert_fit(device, bert["cfg"], "1", True,
+                                   bert["batch"], bert["seq"], bert["steps"])
+        rd, wd, sd = spmd_bert_fit(device, bert["cfg"], "", True,
+                                   bert["batch"], bert["seq"], bert["steps"])
+        one["bert"] = {"sharded": r1, "unified": rd,
+                       "sharded_vs_unified": _worst(w1, wd),
+                       "bit_equal": _bit_equal(w1, wd) and
+                       _bit_equal(s1, sd)}
+        np.savez(os.path.join(workdir, "bert-one.npz"), **w1)
+        del w1, wd, s1, sd
+        one["pipe_moe"] = spmd_pipe_moe(device, job["pipe"], job["moe"])
+        one_launches = {k: hk.LAUNCHES[k] - before.get(k, 0)
+                        for k in ATTN_KERNELS}
+        one["card"] = card
+        log(json.dumps({"sub": "19_one_rank", "backend": backend, **one},
+                       default=float))
+        if not (r1["sharded"] and not rd["sharded"]):
+            raise AssertionError("19c: MXTPU_SPMD=1 did not take the "
+                                 "sharded step (or unset did)")
+        if one["bert"]["sharded_vs_unified"][1] > SPMD_FIT_TOL:
+            raise AssertionError(f"19c: the one-rank sharded step is off "
+                                 f"the unified one: "
+                                 f"{one['bert']['sharded_vs_unified']}")
+        job_file = os.path.join(workdir, "spmd-job.json")
+        with open(job_file, "w") as f:
+            json.dump(job, f)
+        launch = [sys.executable, DIST_LAUNCH, "--launcher", "local", "-n",
+                  "2", "--", sys.executable, "-u", "-c", SPMD_ENTRY,
+                  job_file]
+        out = _run_job("19 two ranks", launch,
+                       _child_env(DMLC_PS_ROOT_PORT=_free_port_pair()),
+                       timeout=SPMD_TIMEOUT)
+        two = _worker_records("19 two ranks", out, workdir, "spmd", 2)
+        checks = _spmd_checks(workdir, one, two)
+        pre = spmd_preempt(card, workdir, device,
+                           dict(bert["cfg"], **(preempt or {}).get("cfg",
+                                                                   {})),
+                           (preempt or {}).get("batch", bert["batch"]),
+                           (preempt or {}).get("seq", bert["seq"]))
+    finally:
+        if dist.size() == 1 and dist.backend() is not None:
+            import torch.distributed as tdist
+            tdist.destroy_process_group()
+        shutil.rmtree(workdir, ignore_errors=True)
+    launches = {k: one_launches[k] + sum(r["launches"][k] for r in two)
+                for k in ATTN_KERNELS}
+    rec = {"phase": "spmd", "card": card, "launches": launches,
+           "ring_hop_kernel_errors": [
+               (r.get("kernel", "flash_attn_fwd"), r["causal"],
+                r["max_abs_err"]) for r in hop],
+           "one_rank_launches": one_launches,
+           "two_rank_launches": [{k: r["launches"][k] for k in ATTN_KERNELS}
+                                 for r in two],
+           "checks": checks, "preempt": pre,
+           "phase_s": time.perf_counter() - t_phase}
+    log(json.dumps(rec, default=float))
+    log(f"spmd: phase 19 in {rec['phase_s']:.1f} s")
+    launches["lstm_gates"] = 0
+    return launches
+
+
+def _spmd_checks(workdir, one, two):
+    """Hold the two-rank records against the one-rank ones; the summary
+    record."""
+    r0 = two[0]
+    res1 = np.load(os.path.join(workdir, "resnet-one.npz"))
+    res2 = np.load(os.path.join(workdir, "resnet-two.npz"))
+    resnet = _worst({k: res2[k] for k in res2.files},
+                    {k: res1[k] for k in res1.files}, SPMD_ZERO_FLOOR)
+    ring1 = np.load(os.path.join(workdir, "ring-one.npz"))
+    ring2 = np.load(os.path.join(workdir, "ring-two.npz"))
+    ring_out = _np_rel_err(ring2["logits"], ring1["logits"])
+    ring_grad = _worst({k: ring2[k] for k in ring2.files if k != "logits"},
+                       {k: ring1[k] for k in ring1.files if k != "logits"})
+    bert = r0["bert"]
+    pm1, pm2 = one["pipe_moe"], r0["pipe_moe"]
+    pipe = _np_rel_err(pm2["pipeline_losses"], pm1["pipeline_losses"])
+    moe = _np_rel_err(pm2["moe_losses"], pm1["moe_losses"])
+    counters = bert["zero1"]["spmd_counters"]
+    rec = {"sub": "19_checks", "card": one["card"],
+           "19a_two_vs_one": resnet,
+           "19a_step_ms": {"one": one["resnet"]["step_ms"],
+                           "two": [r["resnet"]["step_ms"] for r in two]},
+           "19a_comm_share_two": [r["resnet"]["comm_share"] for r in two],
+           "19a_vs_gluon_trainer": one["resnet"]["vs_gluon_trainer"],
+           "19b_outputs": ring_out, "19b_grads": ring_grad,
+           "19b_step_ms": {"one": one["ring"]["step_ms"],
+                           "two": [r["ring"]["step_ms"] for r in two]},
+           "19b_comm_share_two": [r["ring"]["comm_share"] for r in two],
+           "19b_launches_per_step": {
+               "one": one["ring"]["launches_per_step"],
+               "two": [r["ring"]["launches_per_step"] for r in two]},
+           "19c_zero1_bit_equal_allreduce":
+               [r["bert"]["zero1_bit_equal_allreduce"] for r in two],
+           "19c_two_vs_one": bert["vs_one_rank"],
+           "19c_step_ms": {"one_sharded": one["bert"]["sharded"]["step_ms"],
+                           "one_unified": one["bert"]["unified"]["step_ms"],
+                           "two_zero1": bert["zero1"]["step_ms"],
+                           "two_allreduce": bert["allreduce"]["step_ms"]},
+           "19c_comm_share_two": bert["zero1"]["comm_share"],
+           "19c_state_bytes_per_replica": counters.get(
+               "state_bytes_per_replica"),
+           "19c_state_bytes_total": counters.get("state_bytes_total"),
+           "19c_one_rank_bit_equal_unified": one["bert"]["bit_equal"],
+           "19d_pipeline": pipe, "19d_moe": moe,
+           "19d_losses": {"pipeline": [pm1["pipeline_losses"][0],
+                                       pm2["pipeline_losses"][-1]],
+                          "moe": [pm1["moe_losses"][0],
+                                  pm2["moe_losses"][-1]]},
+           "19d_step_ms": {"one": [pm1["pipeline_step_ms"],
+                                   pm1["moe_step_ms"]],
+                           "two": [pm2["pipeline_step_ms"],
+                                   pm2["moe_step_ms"]]}}
+    log(json.dumps(rec, default=float))
+    for what, err, tol in (("19a: two ranks against one", resnet[1],
+                            SPMD_RESNET_TOL),
+                           ("19b: outputs", ring_out, RING_OUT_TOL),
+                           ("19b: gradients", ring_grad[1], RING_GRAD_TOL),
+                           ("19c: two ranks against one",
+                            bert["vs_one_rank"][1], SPMD_FIT_TOL),
+                           ("19d: the pipeline's losses", pipe, PIPE_TOL),
+                           ("19d: the MoE's losses", moe, PIPE_TOL)):
+        if not err <= tol:
+            raise AssertionError(f"{what} off by {err} (tolerance {tol})")
+    if not all(rec["19c_zero1_bit_equal_allreduce"]):
+        raise AssertionError("19c: ZeRO-1 is not bit-equal to the "
+                             "all-reduce baseline")
+    if counters.get("state_bytes_per_replica", 0) * 2 != \
+            counters.get("state_bytes_total", -1):
+        raise AssertionError(f"19c: state bytes {counters}")
+    return rec
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -7959,6 +8719,7 @@ def main():
     gen_launches = phase_generation(card, served)
     ctx_launches = phase_contexts(card)
     dist_launches = phase_distributed(card)
+    spmd_launches = phase_spmd(card)
     leaked = [m for m in ("jax", "mxnet_tpu") if m in sys.modules]
     if leaked:
         raise SystemExit(f"chip_smoke: the port imported {leaked}")
@@ -7967,7 +8728,8 @@ def main():
         f"{rnn_launches}, state {state_launches}, ops {ops_launches}, "
         f"data {data_launches}, control flow {cf_launches}, serving plane "
         f"{plane_launches}, generation {gen_launches}, contexts "
-        f"{ctx_launches}, distributed {dist_launches}")
+        f"{ctx_launches}, distributed {dist_launches}, spmd "
+        f"{spmd_launches}")
     kernels = [{
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -7976,7 +8738,8 @@ def main():
         train_launches["flash_attn_fwd"] + fit_launches["flash_attn_fwd"] +
         state_launches["flash_attn_fwd"] +
         plane_launches["flash_attn_fwd"] + gen_launches["flash_attn_fwd"] +
-        ctx_launches["flash_attn_fwd"] + dist_launches["flash_attn_fwd"],
+        ctx_launches["flash_attn_fwd"] + dist_launches["flash_attn_fwd"] +
+        spmd_launches["flash_attn_fwd"],
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
@@ -7990,7 +8753,7 @@ def main():
             "replaces": f"mxnet_tpu/ops/pallas_kernels.py:{line}",
             "launches": train_launches[name] + fit_launches[name] +
             state_launches[name] + ctx_launches[name] +
-            dist_launches[name],
+            dist_launches[name] + spmd_launches[name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],

@@ -170,12 +170,22 @@ class CheckpointManager:
                     batch: Optional[int] = None,
                     extra: Optional[Dict[str, Any]] = None) -> Checkpoint:
         """A bound Module's parameters (``arg:``/``aux:`` prefixed) and
-        the optimizer states of the updater that drives it."""
+        the optimizer states of the updater that drives it.  A module
+        stepping through the SPMD plane (``MXTPU_SPMD``) records
+        ``{"spmd": {"replicas": N, "zero1": bool}}`` in ``extra`` as
+        provenance only: the updater merges the sharded states into the
+        per-parameter format first, so the checkpoint loads at any
+        replica count."""
         arg, aux = module.get_params()
         params = {f"arg:{k}": v for k, v in (arg or {}).items()}
         params.update({f"aux:{k}": v for k, v in (aux or {}).items()})
         getter = getattr(module, "_active_updater", None)
         upd = getter() if getter is not None else None
+        sst = getattr(module, "_spmd_train_step", None)
+        if sst is not None and getattr(sst, "_mesh", None) is not None:
+            extra = dict(extra or {})
+            extra.setdefault("spmd", {"replicas": int(sst._n),
+                                      "zero1": bool(sst._zero1)})
         return self.save(step, params=params, updater=upd, epoch=epoch,
                          batch=batch, extra=extra)
 

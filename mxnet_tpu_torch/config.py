@@ -95,6 +95,48 @@ _reg("MXTPU_ANOMALY_GUARD", _flag, False,
      "(unified_step.anomaly_guard_enabled)")
 
 
+_reg("MXTPU_ANOMALY_LIMIT", int, 3,
+     "consecutive anomaly-guard skips that raise GradientAnomalyError "
+     "(train_driver.AnomalyGuard)")
+
+# --- the SPMD plane (parallel/) ------------------------------------------
+_reg("MXTPU_SPMD", str, "",
+     "one-program data parallelism for Module.fit (parallel/spmd_step.py): "
+     "''/0 = off; 'auto'/'all' = a dp mesh over every rank of the process "
+     "group; an integer n = the first n ranks (1 is a real one-rank mesh)")
+_reg("MXTPU_SPMD_ZERO1", str, "1",
+     "ZeRO-1 sharding of the weight update across the dp mesh: each rank "
+     "keeps and updates 1/N of the optimizer state; 0 = the all-reduce "
+     "baseline (every rank updates everything), bit-equal to it")
+_reg("MXTPU_RING_FLASH", str, "1",
+     "'0' swaps ring attention's per-hop flash kernel for the plain "
+     "per-block softmax (parallel/ring_attention.py)")
+_reg("MXTPU_HEARTBEAT_PORT", int, 9099,
+     "port of rank 0's heartbeat monitor (parallel/failure.py)")
+
+# --- the training driver (train_driver.py) --------------------------------
+_reg("MXTPU_DRIVER", _flag, True,
+     "the TrainingSupervisor plane: preemption signals, worker "
+     "supervision and the anomaly-guard escalation in fit; 0 is the kill "
+     "switch")
+_reg("MXTPU_PREEMPT_CKPT_TIMEOUT_S", float, 30.0,
+     "bound (seconds) on the final checkpoint a preemption writes; past "
+     "it the save is abandoned (the MANIFEST commit keeps it invisible)")
+_reg("MXTPU_DRIVER_SIGINT", _flag, False,
+     "treat SIGINT like a preemption SIGTERM in the TrainingSupervisor")
+_reg("MXTPU_DRIVER_BACKOFF_BASE_S", float, 0.2,
+     "base of the seeded jittered exponential backoff before a crashed "
+     "worker is respawned")
+_reg("MXTPU_DRIVER_BACKOFF_MAX_S", float, 5.0,
+     "cap on one worker-respawn backoff delay")
+_reg("MXTPU_DRIVER_CRASH_WINDOW_S", float, 30.0,
+     "sliding window over which worker deaths count toward the "
+     "crash-loop breaker")
+_reg("MXTPU_DRIVER_CRASH_LIMIT", int, 5,
+     "deaths of one worker slot inside the crash window that open the "
+     "crash-loop breaker (CrashLoopError)")
+
+
 _reg("MXNET_ENGINE_TYPE", str, "ThreadedEnginePerDevice",
      "engine kind: 'NaiveEngine' runs every push synchronously on the "
      "caller's turn (engine.Engine)")

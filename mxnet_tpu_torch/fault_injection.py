@@ -27,10 +27,18 @@ and their consumers in this package:
   takes the plan :func:`active` at its construction (an installed plan,
   else ``MXTPU_PS_FAULT_PLAN``);
 * **training-driver events** (``preempt_at``, ``kill_worker_at``:
-  :meth:`driver_step_event`) and **mesh-device events**
-  (``kill_device_at``, ``hang_device_at``: :meth:`mesh_step_event`) are
-  held by their own logic; their consumers (the training supervisor, the
-  elastic mesh's probe) come with the port's SPMD plane.
+  :meth:`driver_step_event`), consumed by `train_driver.
+  TrainingSupervisor` at each step boundary, and **mesh-device events**
+  (``kill_device_at``, ``hang_device_at``: :meth:`mesh_step_event`),
+  held by their own logic until the elastic mesh's probe is ported;
+* **poisoned steps** (``poison_step_at``: :meth:`poison_step_event`),
+  the port's own: the unified training step (dense or sharded) consults
+  the plan once per step and runs a poisoned one eagerly with NaN
+  gradients, so ``MXTPU_ANOMALY_GUARD`` must skip it.  The JAX package's
+  tests poison a batch with NaN inputs instead, which a model that looks
+  its inputs up (BERT's token and position ids) never propagates.  Its
+  count, ``poisoned_steps``, stays out of ``summary()``, which keeps the
+  JAX package's keys.
 
 :class:`FilePlan` is the same idea for the durable-checkpoint writer
 (`serialization.atomic_write`): ``kill_before_rename`` raises
@@ -141,6 +149,7 @@ class FaultPlan:
                  on_kill_device: Optional[Callable[[int], None]] = None,
                  hang_device_at: Sequence[int] = (),
                  on_hang_device: Optional[Callable[[int], None]] = None,
+                 poison_step_at: Sequence[int] = (),
                  traffic_spike_at: Sequence[int] = (),
                  on_traffic_spike: Optional[Callable[[int], None]] = None,
                  kill_replica_during_scale: Sequence[int] = (),
@@ -188,6 +197,9 @@ class FaultPlan:
         # themselves; absent a hook the driver's defaults apply).
         self.preempt_at = _as_indices(preempt_at)
         self.on_preempt = on_preempt
+        self.poison_step_at = _as_indices(poison_step_at)
+        self.train_steps = 0
+        self.poisoned_steps = 0
         self.kill_worker_at = _as_indices(kill_worker_at)
         self.on_kill_worker = on_kill_worker
         # elastic-mesh chaos events: fired by the mesh health
@@ -351,6 +363,15 @@ class FaultPlan:
             if self.on_kill_worker is not None:
                 self.on_kill_worker(n)
         return n
+
+    def poison_step_event(self) -> bool:
+        """Consulted by the unified training step once per step, before
+        it runs: True when the 1-based step index is one to poison."""
+        with self._lock:
+            self.train_steps += 1
+            hit = self.train_steps in self.poison_step_at
+            self.poisoned_steps += int(hit)
+        return hit
 
     # -- mesh-side hooks (called by the elastic-mesh health probe) -------
     def mesh_step_event(self) -> int:

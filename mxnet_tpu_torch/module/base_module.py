@@ -16,9 +16,15 @@ With ``MXTPU_CKPT_DIR`` set, ``fit`` commits a checkpoint after every
 epoch (`checkpoint.CheckpointManager.save_module`) and, on a restart,
 resumes after the newest valid one: parameters, optimizer states (with
 their update counts) and the generators restored, so that the resumed
-run ends where an uninterrupted one does.  The JAX package's preemption
-supervisor (`train_driver.py`) and its mid-epoch ``preempted`` resume
-wait for the port of that module.
+run ends where an uninterrupted one does.  A mid-epoch ``preempted``
+snapshot of the preemption supervisor (`train_driver`) resumes inside
+its epoch: the batches the preempted run consumed are read from the
+(deterministic) iterator and skipped, so the continuation equals an
+uninterrupted run bit for bit.  Under an activated `train_driver.
+TrainingSupervisor` each step boundary honors a pending stop (the
+bounded final checkpoint, then `TrainingPreempted`), and with
+``MXTPU_ANOMALY_GUARD`` an `AnomalyGuard` counts the steps the device
+skipped.
 """
 from __future__ import annotations
 
@@ -31,7 +37,6 @@ import torch
 from .. import metric as metric_mod
 from .. import profiler as _prof
 from .. import telemetry as _tele
-from ..base import MXNetError
 from ..ndarray.ndarray import NDArray
 
 __all__ = ["BaseModule"]
@@ -157,6 +162,7 @@ class BaseModule:
         initializer = initializer or init_mod.Uniform(0.01)
         ckpt_mgr = auto_manager(logger=self.logger)
         resume = None
+        skip_batches = 0
         if ckpt_mgr is not None:
             ck = ckpt_mgr.latest_valid()
             if ck is not None:
@@ -164,16 +170,22 @@ class BaseModule:
                 arg_r, aux_r = split_arg_aux(resume.get("params") or {})
                 arg_params = dict(arg_params or {}, **arg_r)
                 aux_params = dict(aux_params or {}, **aux_r)
+                done = ck.epoch if ck.epoch is not None else ck.step
                 if (resume.get("extra") or {}).get("preempted") and \
                         resume.get("batch") is not None:
-                    raise MXNetError(
-                        f"{ck} is a mid-epoch preemption snapshot of the "
-                        "JAX package's train_driver; resuming inside an "
-                        "epoch waits for the port of that module")
-                done = ck.epoch if ck.epoch is not None else ck.step
-                begin_epoch = max(begin_epoch, int(done) + 1)
-                self.logger.info("MXTPU_CKPT_DIR auto-resume: restored %s; "
-                                 "continuing at epoch %d", ck, begin_epoch)
+                    # a mid-epoch preemption snapshot: redo that epoch
+                    # from the recorded batch cursor
+                    begin_epoch = max(begin_epoch, int(done))
+                    skip_batches = int(resume["batch"])
+                    self.logger.info(
+                        "MXTPU_CKPT_DIR auto-resume (preempted): restored "
+                        "%s; redoing epoch %d from batch %d", ck,
+                        begin_epoch, skip_batches)
+                else:
+                    begin_epoch = max(begin_epoch, int(done) + 1)
+                    self.logger.info(
+                        "MXTPU_CKPT_DIR auto-resume: restored %s; "
+                        "continuing at epoch %d", ck, begin_epoch)
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
@@ -198,6 +210,11 @@ class BaseModule:
         if not isinstance(eval_metric, metric_mod.EvalMetric):
             eval_metric = metric_mod.create(eval_metric)
 
+        from .. import train_driver as _drv
+        # the ambient preemption supervisor (None unless one was activated
+        # with MXTPU_DRIVER on) and the host half of MXTPU_ANOMALY_GUARD
+        sup = _drv.current()
+        anomaly_guard = _drv.AnomalyGuard.maybe(logger=self.logger)
         # trailing-window anomaly detector: attributes a slow step to
         # input wait vs compute vs comm through a structured event (host
         # clocks only: nothing here waits for the card)
@@ -214,6 +231,11 @@ class BaseModule:
                     data_batch = next(data_iter)
                 except StopIteration:
                     break
+                if nbatch < skip_batches:
+                    # preempt-resume fast-forward: the preempted run
+                    # consumed these before its final checkpoint
+                    nbatch += 1
+                    continue
                 input_s = time.perf_counter() - t_in
                 comm0 = float(_prof.comm_counters().get("blocked_s", 0.0))
                 t_step = time.perf_counter()
@@ -240,6 +262,15 @@ class BaseModule:
                         cb(_BatchEndParam(epoch, nbatch, eval_metric,
                                           locals()))
                 nbatch += 1
+                if anomaly_guard is not None:
+                    anomaly_guard.after_step(self, epoch=epoch,
+                                             nbatch=nbatch)
+                if sup is not None:
+                    # step boundary: fault-plan driver events, and a
+                    # pending stop's final checkpoint at this cursor
+                    sup.on_step_end(module=self, ckpt_mgr=ckpt_mgr,
+                                    epoch=epoch, nbatch=nbatch)
+            skip_batches = 0
             for name, val in eval_metric.get_name_value():
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
             self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
@@ -252,6 +283,11 @@ class BaseModule:
             if ckpt_mgr is not None:
                 ckpt_mgr.save_module(self, step=epoch, epoch=epoch,
                                      batch=nbatch)
+            if sup is not None:
+                # a stop after the epoch's last step: the per-epoch save
+                # above, when there is one, is the final checkpoint
+                sup.on_epoch_end(module=self, ckpt_mgr=ckpt_mgr,
+                                 epoch=epoch, saved=ckpt_mgr is not None)
             if eval_data is not None:
                 res = self.score(eval_data, validation_metric,
                                  batch_end_callback=eval_batch_end_callback,

@@ -83,6 +83,8 @@ class Module(BaseModule):
         self._data_shapes = None
         self._label_shapes = None
         self._fused_train_step = None
+        # the sharded step under MXTPU_SPMD (parallel/spmd_step.py)
+        self._spmd_train_step = None
         # input shapes -> (the executor bound or reshaped to them, its
         # fused step or None)
         self._execs: Dict[tuple, list] = {}
@@ -156,6 +158,9 @@ class Module(BaseModule):
             **shapes)
         self._execs = {}
         self._fused_train_step = None
+        if self._spmd_train_step is not None:
+            self._spmd_train_step.release()
+            self._spmd_train_step = None
         keep = set(self._data_names) if inputs_need_grad else set()
         for name in list(self._exec._grad_req):
             if name in keep:
@@ -350,6 +355,15 @@ class Module(BaseModule):
         feeds = self._batch_feeds(data_batch)
         if set(feeds) != inputs - set(self._state_names):
             return False
+        label_names = [d.name for d in self._label_shapes]
+        # the one-program SPMD step (MXTPU_SPMD); its fallback hands the
+        # states back and drops through to the dense step for this batch
+        sst = self._get_spmd_step(train_names)
+        if sst is not None:
+            sst.attach_metric(eval_metric, label_names)
+            if sst.step(feeds):
+                self.last_step_metric_done = sst.metric_in_trace
+                return True
         fst = self._fused_train_step
         if (fst is None or fst._exec is not self._exec
                 or fst._optimizer is not self._optimizer
@@ -357,13 +371,42 @@ class Module(BaseModule):
                 or fst._train_names != train_names):
             fst = self._fused_train_step = self._exec.make_fused_step(
                 self._optimizer, self._updater, train_names)
-        fst.attach_metric(eval_metric,
-                          [d.name for d in self._label_shapes])
+        fst.attach_metric(eval_metric, label_names)
         if not fst.step(feeds):
             _prof.bump_counter("fallback_steps")
             return False
         self.last_step_metric_done = fst.metric_in_trace
         return True
+
+    def _get_spmd_step(self, train_names):
+        """The `SpmdTrainStep` over the ``MXTPU_SPMD`` mesh, or None when
+        the plane is off or this rank is not in the mesh.  A new
+        optimizer, updater, parameter set, mesh size or ZeRO-1 setting
+        rebuilds it (the old one hands its states back first); a reshape
+        of the same symbol rebinds it."""
+        from ..parallel import spmd_step as _spmd
+        from ..parallel.mesh import devices
+        if not _spmd.spmd_enabled():
+            return None
+        mesh = _spmd.resolve_mesh(devices(self._exec._ctx.device))
+        if mesh is None or mesh._coords is None:
+            return None
+        sst = self._spmd_train_step
+        if sst is not None and (
+                sst._optimizer is not self._optimizer
+                or sst._updater is not self._updater
+                or sst._train_names != train_names
+                or sst._mesh is not mesh
+                or sst._zero1 != _spmd.zero1_enabled()):
+            sst.release()
+            sst = None
+        if sst is None:
+            sst = self._spmd_train_step = _spmd.SpmdTrainStep(
+                self._exec, self._optimizer, self._updater, train_names,
+                mesh=mesh)
+        elif sst._exec is not self._exec:
+            sst.rebind(self._exec)
+        return sst
 
     def _one_graph(self) -> bool:
         """`graph_compile.one_graph` of the module's symbol, computed

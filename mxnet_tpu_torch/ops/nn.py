@@ -15,6 +15,9 @@ JAX package leaves them to XLA (``dot_general``,
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 import torch.nn.functional as F
 
@@ -383,6 +386,47 @@ def _instance_norm(attrs, data, gamma, beta):
             + beta.reshape(shape))
 
 
+class _BatchStats(threading.local):
+    def __init__(self):
+        super().__init__()
+        self.reduce = None
+        self.ranks = 1
+
+
+_BATCH_STATS = _BatchStats()
+
+
+@contextlib.contextmanager
+def batch_stats_scope(reduce, ranks: int):
+    """Inside, the batch is split over ``ranks`` data-parallel ranks and
+    ``reduce`` sums a per-rank tensor over them (differentiably: the SPMD
+    plane's ``psum`` over dp, bound to its mesh, since a backward may run
+    on another thread).  A training BatchNorm then takes its moments over
+    the whole batch, and SoftmaxOutput's 'batch' and 'valid'
+    normalizations count the whole batch, as one device would."""
+    prev = (_BATCH_STATS.reduce, _BATCH_STATS.ranks)
+    _BATCH_STATS.reduce, _BATCH_STATS.ranks = reduce, int(ranks)
+    try:
+        yield
+    finally:
+        _BATCH_STATS.reduce, _BATCH_STATS.ranks = prev
+
+
+def _global_moments(data, red, reduce, ranks):
+    """The mean and biased variance over ``red`` of the batch the ranks
+    hold together, in fp32 or wider (two passes)."""
+    x = data if data.dtype == torch.float64 else data.float()
+    count = x.numel() // x.shape[[i for i in range(x.dim())
+                                  if i not in red][0]] * ranks
+    mean = reduce(x.sum(dim=red)) / count
+    shape = [1] * x.dim()
+    ax = [i for i in range(x.dim()) if i not in red][0]
+    shape[ax] = x.shape[ax]
+    xc = x - mean.reshape(shape)
+    var = reduce((xc * xc).sum(dim=red)) / count
+    return mean, var
+
+
 @register("BatchNorm", num_inputs=5,
           input_names=["data", "gamma", "beta", "moving_mean", "moving_var"],
           num_outputs=lambda a: 3 if a.get_bool("output_mean_var", False)
@@ -406,6 +450,19 @@ def _batch_norm(attrs, data, gamma, beta, moving_mean, moving_var):
     if attrs.get_bool("fix_gamma", True):
         # ones that stay on the graph: gamma gets its zero gradient
         gamma = gamma * 0 + 1
+    if train and _BATCH_STATS.reduce is not None:
+        mean, var = _global_moments(data, red, _BATCH_STATS.reduce,
+                                    _BATCH_STATS.ranks)
+        with torch.no_grad():
+            new_mm = momentum * moving_mean + (1 - momentum) * mean
+            new_mv = momentum * moving_var + (1 - momentum) * var
+        inv = torch.rsqrt(var + eps)
+        out = ((data.to(mean.dtype) - mean.reshape(bshape)) *
+               (inv * gamma.to(mean.dtype)).reshape(bshape) +
+               beta.to(mean.dtype).reshape(bshape)).to(data.dtype)
+        if attrs.get_bool("output_mean_var", False):
+            return out, mean, var, new_mm, new_mv
+        return out, new_mm, new_mv
     if not attrs.get_bool("output_mean_var", False):
         # one fused normalization (cuDNN's on the card); the moving
         # statistics take the batch's biased variance, as MXNet's do
@@ -549,6 +606,9 @@ class _SoftmaxOutput(torch.autograd.Function):
         ctx.save_for_backward(out, label)
         ctx.opts = (ignore_label, use_ignore, grad_scale, normalization,
                     multi, out_grad, smooth_alpha)
+        # under batch_stats_scope the batch is split over ranks: 'batch'
+        # and 'valid' normalize by the whole batch's count
+        ctx.batch = (_BATCH_STATS.reduce, _BATCH_STATS.ranks)
         return out
 
     @staticmethod
@@ -575,11 +635,14 @@ class _SoftmaxOutput(torch.autograd.Function):
         if use_ignore:
             grad *= (label != ignore_label).to(out.dtype).unsqueeze(-1)
         spatial = (label.numel() // label.shape[0]) if multi else 1
+        reduce, ranks = ctx.batch
         if normalization == "batch":
-            denom = float(label.shape[0] * spatial)
+            denom = float(label.shape[0] * spatial * ranks)
         elif normalization == "valid":
-            denom = (idx != int(ignore_label)).sum().to(out.dtype) \
-                .clamp_min(1.0)
+            valid = (idx != int(ignore_label)).sum().to(out.dtype)
+            if reduce is not None:
+                valid = reduce(valid)
+            denom = valid.clamp_min(1.0)
         else:  # null
             denom = float(spatial)
         grad *= grad_scale / denom

@@ -753,6 +753,15 @@ class Updater:
         self.optimizer = optimizer
         self.states: Dict[Any, Any] = {}
         self.states_synced: Dict[Any, bool] = {}
+        # the sharded training step (`unified_step`, MXTPU_SPMD) while it
+        # holds the states in its flat buffers: every path that reads or
+        # writes them goes through it
+        self._spmd_bridge = None
+
+    def _relinquish(self) -> None:
+        b = getattr(self, "_spmd_bridge", None)
+        if b is not None:
+            b.relinquish()
 
     def _state(self, index, weight):
         if index not in self.states:
@@ -771,6 +780,7 @@ class Updater:
         self.optimizer._set_current_context(weight.context.device_id)
 
     def __call__(self, index, grad, weight):
+        self._relinquish()
         self._set_context(weight)
         self.optimizer.update_multi_precision(index, weight, grad,
                                               self._state(index, weight))
@@ -780,6 +790,9 @@ class Updater:
         `optimizer.py:1668`): ``{index: numpy state}``, or with
         ``dump_optimizer`` ``(states, optimizer)``, the optimizer carrying
         the update counts."""
+        b = getattr(self, "_spmd_bridge", None)
+        if b is not None:
+            b.export_states()
         states = {k: _state_to_numpy(v) for k, v in self.states.items()}
         obj = (states, self.optimizer) if dump_optimizer else states
         buf = io.BytesIO()
@@ -799,6 +812,9 @@ class Updater:
             states = obj
         self.states = {k: _state_from_numpy(v) for k, v in states.items()}
         self.states_synced = {k: False for k in self.states}
+        b = getattr(self, "_spmd_bridge", None)
+        if b is not None:
+            b.invalidate()
 
     def update_multi(self, items) -> bool:
         """Update many parameters (``items``: ``[(index, grad, weight)]``)
@@ -808,6 +824,7 @@ class Updater:
         for one of them."""
         if not items:
             return True
+        self._relinquish()
         self._set_context(items[0][2])
         prepared = [(index, weight, grad, self._state(index, weight))
                     for index, grad, weight in items]

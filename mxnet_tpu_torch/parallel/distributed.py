@@ -1,6 +1,6 @@
 """The process group (the counterpart of
-`mxnet_tpu/parallel/distributed.py`'s ``initialize``, ``rank``, ``size``
-and ``barrier``).
+`mxnet_tpu/parallel/distributed.py`: ``initialize``, ``rank``, ``size``,
+``barrier`` and ``global_mesh``).
 
 The reference wires its processes with the launcher's env contract
 (``DMLC_PS_ROOT_URI`` / ``DMLC_PS_ROOT_PORT`` / ``DMLC_NUM_WORKER`` /
@@ -32,7 +32,8 @@ from .. import config
 from ..base import MXNetError
 
 __all__ = ["initialize", "rank", "size", "barrier", "is_initialized",
-           "backend", "all_gather", "all_gather_sum"]
+           "backend", "all_gather", "all_gather_sum", "new_group",
+           "gather_parts", "global_mesh"]
 
 #: seconds the group waits for its ranks to join, and a collective for
 #: its peers, when ``initialize`` is given no ``timeout``
@@ -66,8 +67,10 @@ def initialize(coordinator_address: Optional[str] = None,
     ``DMLC_NUM_WORKER`` (else ``MXTPU_NUM_PROCESSES``) the world size,
     ``DMLC_WORKER_ID`` (else ``MXTPU_PROCESS_ID``) this rank.  One process
     (no env) is a no-op, as ``launch.py -n 1``, and a later call reads the
-    env again.  A group that does not form within ``timeout`` seconds
-    raises `MXNetError`."""
+    env again; a group of one forms only when the caller passes the
+    store's address itself (a one-rank NCCL group, say).  A group that
+    does not form within ``timeout`` seconds raises `MXNetError`."""
+    explicit_one = coordinator_address is not None and num_processes == 1
     if _group_up():
         _state["initialized"] = True
         return
@@ -89,7 +92,7 @@ def initialize(coordinator_address: Optional[str] = None,
         if r is None:
             r = config.get_env("MXTPU_PROCESS_ID")
         process_id = int(r) if r is not None else None
-    if num_processes and num_processes > 1:
+    if num_processes and (num_processes > 1 or explicit_one):
         if not coordinator_address or process_id is None:
             raise MXNetError(
                 f"a group of {num_processes} processes needs the store's "
@@ -142,7 +145,32 @@ _WIRE_VIEW = {torch.uint16: torch.int16, torch.uint32: torch.int32,
               torch.uint64: torch.int64}
 
 
-def _gather_on(t: torch.Tensor) -> List[torch.Tensor]:
+def new_group(ranks):
+    """The sub-group of ``ranks``, formed by its members alone (the others
+    need not call), with the group's collective timeout."""
+    return tdist.new_group(sorted(int(r) for r in ranks),
+                           timeout=datetime.timedelta(
+                               seconds=DEFAULT_TIMEOUT_S),
+                           use_local_synchronization=True)
+
+
+def gather_parts(t: torch.Tensor, group=None,
+                 line=None) -> List[torch.Tensor]:
+    """Every member's ``t`` (the members of ``group``, by default the
+    whole group), in the order of ``line`` (their global ranks; rank
+    order by default), on the device the backend gathers on: the tensor's
+    card for NCCL, the host for gloo, where a device tensor is copied
+    over synchronously first."""
+    if group is None and size() <= 1:
+        return [t]
+    parts = _gather_on(t, group)
+    if line is None:
+        return parts
+    by_rank = dict(zip(sorted(line), parts))
+    return [by_rank[r] for r in line]
+
+
+def _gather_on(t: torch.Tensor, group=None) -> List[torch.Tensor]:
     """Every rank's ``t``, in rank order, on the device the backend
     gathers on (the tensor's card for NCCL, the host for gloo)."""
     if backend() != "nccl" and t.device.type != "cpu":
@@ -155,8 +183,9 @@ def _gather_on(t: torch.Tensor) -> List[torch.Tensor]:
     # signed type of their width, bit for bit
     wire = _WIRE_VIEW.get(t.dtype)
     src = t.view(wire) if wire is not None else t
-    parts = [torch.empty_like(src) for _ in range(size())]
-    tdist.all_gather(parts, src)
+    n = size() if group is None else tdist.get_world_size(group)
+    parts = [torch.empty_like(src) for _ in range(n)]
+    tdist.all_gather(parts, src, group=group)
     return [p.view(t.dtype) for p in parts] if wire is not None else parts
 
 
@@ -178,3 +207,11 @@ def all_gather_sum(t: torch.Tensor) -> torch.Tensor:
     for p in parts[1:]:
         total.add_(p)
     return total.to(t.device)
+
+
+def global_mesh(tp: int = 1, pp: int = 1, sp: int = 1, ep: int = 1):
+    """A mesh over every rank of the group (dp fills the remainder): pass
+    it to `SPMDTrainer` for data and model parallelism across
+    processes."""
+    from .mesh import auto_mesh
+    return auto_mesh(size(), tp=tp, pp=pp, sp=sp, ep=ep)

@@ -41,7 +41,8 @@ from .ndarray.ndarray import NDArray
 
 __all__ = ["dumps_ndarrays", "loads_ndarrays", "save_ndarrays",
            "load_ndarrays", "strip_arg_aux", "atomic_write", "read_payload",
-           "make_footer", "split_footer", "params_from_numpy", "crc32_file",
+           "make_footer", "split_footer", "params_from_numpy",
+           "tree_from_numpy", "block_params_from_numpy", "crc32_file",
            "CheckpointCorruptError"]
 
 _LIST_MAGIC = 0x112
@@ -287,6 +288,40 @@ def params_from_numpy(arrays: Mapping[str, np.ndarray],
     return {name: NDArray(torch.tensor(np.ascontiguousarray(a),
                                        device=ctx.device))
             for name, a in arrays.items()}
+
+
+def tree_from_numpy(tree, device=None, requires_grad: bool = False):
+    """A tree of numpy arrays (dicts, lists, tuples, NamedTuples: the ring
+    LM's parameter dict, stage-stacked pipeline parameters, `MoEParams`)
+    as the same tree of tensors on ``device`` (a torch device or a
+    Context), dtypes kept; ``requires_grad`` marks the floating leaves."""
+    dev = getattr(device, "device", device)
+
+    def conv(a):
+        t = torch.tensor(np.ascontiguousarray(a), device=dev)
+        return t.requires_grad_(True) if requires_grad and \
+            t.is_floating_point() else t
+
+    if isinstance(tree, dict):
+        return type(tree)((k, tree_from_numpy(v, device, requires_grad))
+                          for k, v in tree.items())
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*[tree_from_numpy(v, device, requires_grad)
+                            for v in tree])
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_from_numpy(v, device, requires_grad)
+                          for v in tree)
+    return conv(tree)
+
+
+def block_params_from_numpy(block, arrays: Mapping[str, np.ndarray]):
+    """Write ``{parameter name: numpy array}`` into a Gluon block's
+    initialized parameters (a block `SPMDTrainer` then trains); returns
+    the block.  Every name must be one of the block's."""
+    params = block.collect_params()
+    for name, a in arrays.items():
+        params[name].set_data(np.array(a))   # a writable copy
+    return block
 
 
 def _fsync_dir(dirname: str) -> None:

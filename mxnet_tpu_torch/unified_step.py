@@ -1,6 +1,6 @@
-"""The training step as one program (the counterpart of the dense profile
-of `mxnet_tpu/unified_step.py`; its sharded profile, `ShardingSpec`, waits
-for `parallel/`).
+"""The training step as one program (the counterpart of
+`mxnet_tpu/unified_step.py`: its dense profile and, under a
+`ShardingSpec`, its sharded profile).
 
 `UnifiedTrainStep` runs forward, backward, the multi-tensor optimizer
 update, the in-step metric and the anomaly guard as one step.  On a CUDA
@@ -34,6 +34,30 @@ group instead of a handful per parameter (``Updater.update_multi``).
 The JAX package computes this update in XLA, not in a Pallas kernel, so
 PyTorch's multi-tensor ops are its counterpart here.
 
+The sharded profile (`ShardingSpec`: a one-axis ``dp`` mesh of ranks and
+ZeRO-1 on or off) is the JAX package's one-program SPMD step with each
+rank as one replica.  A rank runs forward and backward on its rows of the
+global batch (an executor reshaped to them, sharing the parameters), with
+BatchNorm's moments and SoftmaxOutput's normalizer taken over the whole
+batch (`ops.nn.batch_stats_scope`), so the step is one device's on the
+whole batch.  The gradients go into one flat bucket per (update op,
+static hyperparameters, dtype, state dtypes, lr, wd) group, padded to a
+multiple of 64·N elements.  Under ZeRO-1 each bucket is reduce-scattered
+(each rank gets the rank-ordered sum of its 1/N block), the rank updates
+its block of the weights with its 1/N of the optimizer state, and the
+new weights are all-gathered; without it (the all-reduce baseline) every
+rank sums the whole bucket and updates everything.  Block r of the sum is
+the same bits either way and the update ops are elementwise, so the two
+are bit-equal.  The optimizer state lives in the flat buffers between
+steps (the per-parameter states hold 1-element placeholders); the
+updater's ``_spmd_bridge`` exports them back for a checkpoint
+(`Updater.get_states`), re-imports after a load, and hands authority
+back to the per-parameter paths (`relinquish`).  A batch the mesh does
+not divide (a ragged tail) falls back to the dense step for that batch.
+With one rank the step captures as a CUDA graph on the card, as the dense
+one does; with several, the collectives stage through the host in rank
+order and the step runs eagerly.
+
 Switches, under the JAX package's names: ``MXTPU_UNIFIED_STEP`` (the
 training pass list, and fit's in-step metric), ``MXTPU_UNIFIED_METRIC``
 (the metric alone), ``MXTPU_ANOMALY_GUARD`` (the device-side skip of a
@@ -44,6 +68,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import config
@@ -59,7 +84,7 @@ from .ops.registry import canonical_attrs
 
 __all__ = ["unified_enabled", "metric_in_trace_enabled",
            "anomaly_guard_enabled", "guard_verdict", "multi_tensor_apply",
-           "UnifiedTrainStep"]
+           "ShardingSpec", "UnifiedTrainStep"]
 
 
 def _on(name: str) -> bool:
@@ -80,6 +105,20 @@ def metric_in_trace_enabled() -> bool:
 def anomaly_guard_enabled() -> bool:
     """``MXTPU_ANOMALY_GUARD`` (default off)."""
     return bool(config.get_env("MXTPU_ANOMALY_GUARD"))
+
+
+def _poisoned() -> bool:
+    """Whether the active fault plan poisons this step
+    (`fault_injection.FaultPlan.poison_step_at`): it then runs eagerly
+    with NaN gradients, which the anomaly guard must skip."""
+    from . import fault_injection as _fi
+    plan = _fi.active()
+    return plan is not None and bool(plan.poison_step_at) and \
+        plan.poison_step_event()
+
+
+def _poison(gs: List[torch.Tensor]) -> List[torch.Tensor]:
+    return [g + float("nan") for g in gs]
 
 
 def guard_verdict(outs: Sequence[torch.Tensor], gsq: torch.Tensor
@@ -158,6 +197,62 @@ def multi_tensor_apply(optimizer, items) -> bool:
 
 
 # ---------------------------------------------------------------------------
+# the sharding annotation and the bucket layout (the sharded profile)
+# ---------------------------------------------------------------------------
+
+#: a shard of a bucket is a multiple of this many elements, so a block
+#: and the whole buffer meet the elementwise kernels' vector loops alike
+_SHARD_ALIGN = 64
+
+
+class ShardingSpec:
+    """The annotation that turns the dense step into the sharded one:
+    ``mesh`` is a one-axis ``dp`` mesh of ranks, ``zero1`` shards the
+    update across it (off = the all-reduce baseline)."""
+
+    __slots__ = ("mesh", "zero1")
+
+    def __init__(self, mesh, zero1: bool = True):
+        self.mesh = mesh
+        self.zero1 = bool(zero1)
+
+
+class _Group:
+    """One bucket: the members' layout in the flat buffer and the
+    per-parameter state NDArrays it exports into."""
+
+    __slots__ = ("op_name", "static", "w_dtype", "slot_dtypes", "names",
+                 "positions", "shapes", "sizes", "offsets", "total",
+                 "padded", "shard", "slot_nds")
+
+    def __init__(self, op_name, static, w_dtype, slot_dtypes):
+        self.op_name, self.static = op_name, static
+        self.w_dtype, self.slot_dtypes = w_dtype, slot_dtypes
+        self.names: List[str] = []
+        self.positions: List[int] = []
+        self.shapes: List[Tuple[int, ...]] = []
+        self.sizes: List[int] = []
+        self.offsets: List[int] = []
+        self.total = self.padded = self.shard = 0
+        self.slot_nds: List[List[Any]] = []
+
+    def add(self, name, pos, shape, st_nds):
+        size = int(np.prod(shape)) if shape else 1
+        self.names.append(name)
+        self.positions.append(pos)
+        self.shapes.append(tuple(shape))
+        self.sizes.append(size)
+        self.offsets.append(self.total)
+        self.total += size
+        self.slot_nds.append(list(st_nds))
+
+    def finalize(self, n):
+        unit = n * _SHARD_ALIGN
+        self.padded = -(-self.total // unit) * unit
+        self.shard = self.padded // n
+
+
+# ---------------------------------------------------------------------------
 # the in-step metric
 # ---------------------------------------------------------------------------
 
@@ -229,7 +324,8 @@ class UnifiedTrainStep:
     undifferentiated.  The head gradients are ones, as `Module.fit`'s
     ``backward()`` gives."""
 
-    def __init__(self, executor, optimizer, updater, train_names):
+    def __init__(self, executor, optimizer, updater, train_names,
+                 sharding: Optional[ShardingSpec] = None):
         self._exec = executor
         self._optimizer = optimizer
         self._updater = updater
@@ -272,11 +368,39 @@ class UnifiedTrainStep:
         # scalars, and the storage of what it updates in place
         self._audit_last: Optional[Dict[str, Any]] = None
         self._capture_ptrs: Dict[Tuple, Dict[str, int]] = {}
+        self._spec = sharding
+        self._mesh = None
+        self._n = 1
+        self._zero1 = False
+        if sharding is not None:
+            if sharding.mesh is None:
+                raise ValueError("the sharded profile needs a mesh on its "
+                                 "ShardingSpec")
+            self._mesh = sharding.mesh
+            self._n = int(self._mesh.size)
+            self._zero1 = bool(sharding.zero1)
+            self._groups: Optional[List[_Group]] = None
+            self._flat_states: List[Tuple[torch.Tensor, ...]] = []
+            self._stale = True
+            self._disabled = False
+            self._locals: Dict[Tuple, Any] = {}
+            self._split_ok: Dict[Tuple, bool] = {}
+            updater._spmd_bridge = self
 
     @property
     def captured(self) -> bool:
-        """Whether steps run as CUDA graphs."""
-        return self._device.type == "cuda" and graph_compile_enabled()
+        """Whether steps run as CUDA graphs (the dense profile, and the
+        sharded one over one rank)."""
+        return self._device.type == "cuda" and graph_compile_enabled() \
+            and self._n == 1
+
+    @property
+    def sharded(self) -> bool:
+        return self._spec is not None
+
+    def rebind(self, executor):
+        """Adopt a reshaped executor of the same symbol and arguments."""
+        self._exec = executor
 
     # -- metric ----------------------------------------------------------
     def attach_metric(self, eval_metric, label_names) -> bool:
@@ -358,10 +482,16 @@ class UnifiedTrainStep:
         name).  True with the executor's outputs set; False, with nothing
         changed, when the optimizer has no multi-tensor plan for a
         parameter (the caller then runs ``forward_backward`` +
-        ``update``)."""
+        ``update``), or, sharded, when this batch cannot run sharded (the
+        state authority then goes back to the updater)."""
+        self.metric_in_trace = False
+        if self._spec is not None:
+            return self._step_sharded(feeds)
         exec_, upd = self._exec, self._updater
         opt = upd.optimizer
-        self.metric_in_trace = False
+        b = getattr(upd, "_spmd_bridge", None)
+        if b is not None:
+            b.relinquish()
         ws_nd = [exec_.arg_dict[n] for n in self._train_names]
         if len({id(w) for w in ws_nd}) != len(ws_nd):
             return False
@@ -395,11 +525,15 @@ class UnifiedTrainStep:
         names = self._train_names
         aux_dict = exec_.aux_dict
 
+        poison = _poisoned()
+
         def body():
             outs, aux, tape = record_steps(self._plan, feed, names, gen)
             grads = tape_grads(tape, [torch.ones_like(o) for o in outs])
             gs = [grads[n] if grads[n] is not None else torch.zeros_like(w)
                   for n, w in zip(names, ws)]
+            if poison:
+                gs = _poison(gs)
             ok = gnorm = None
             with torch.no_grad():
                 if guard:
@@ -427,7 +561,7 @@ class UnifiedTrainStep:
                         for p in range(len(names))
                         for k, t in enumerate(states[p])})
         ptrs_before = {k: t.data_ptr() for k, t in inplace.items()}
-        if self.captured:
+        if self.captured and not poison:
             key = (tuple((op, canonical_attrs(st), tuple(p))
                          for op, st, p in layout), rescale, clip, guard,
                    tuple((s.axis, s.pairs) for s in slots),
@@ -463,6 +597,365 @@ class UnifiedTrainStep:
         self.last_grad_norm = gnorm
         self._metric_commit({n: tuple(exec_.arg_dict[n].shape)
                              for s in slots for _oi, n in s.pairs})
+        return True
+
+    # -- the sharded profile: the bridge to the updater's states ----------
+    def _gather_full(self, buf: torch.Tensor) -> torch.Tensor:
+        """A flat state buffer whole (its shards gathered under ZeRO-1)."""
+        from .parallel import collectives as C
+        from .parallel.mesh import DP
+        if self._zero1 and self._n > 1:
+            return C._gather_raw(buf, self._mesh, DP, 0, True)
+        return buf
+
+    def export_states(self) -> None:
+        """Write the flat buffers back into the per-parameter state
+        NDArrays (the checkpoint format); the buffers stay the authority.
+        Under ZeRO-1 over several ranks every rank must call it together
+        (the shards are gathered)."""
+        if not self.sharded or self._groups is None or self._stale:
+            return
+        for grp, bufs in zip(self._groups, self._flat_states):
+            for k in range(len(grp.slot_dtypes)):
+                full = self._gather_full(bufs[k])
+                for m, (size, off, shape) in enumerate(
+                        zip(grp.sizes, grp.offsets, grp.shapes)):
+                    grp.slot_nds[m][k]._set_data(
+                        full[off:off + size].reshape(shape).clone())
+
+    def relinquish(self) -> None:
+        """Hand the state authority back to the updater's per-parameter
+        states (a dense or per-parameter update is next): export, and
+        import again before the next sharded step."""
+        if not self.sharded:
+            return
+        if self._groups is not None and not self._stale:
+            self.export_states()
+            self._stale = True
+            _prof.bump_spmd("resharding_events")
+
+    def invalidate(self) -> None:
+        """The updater's states were replaced (a checkpoint load): import
+        them at the next step."""
+        if self.sharded:
+            self._stale = True
+
+    def release(self) -> None:
+        """Detach from the updater (the module replaces this step)."""
+        if not self.sharded:
+            return
+        self.relinquish()
+        if getattr(self._updater, "_spmd_bridge", None) is self:
+            self._updater._spmd_bridge = None
+
+    def _build_groups(self, lrs, wds) -> None:
+        exec_, upd = self._exec, self._updater
+        opt = upd.optimizer
+        by_key: Dict[Tuple, _Group] = {}
+        order: List[_Group] = []
+        for pos, name in enumerate(self._train_names):
+            i = self._train_idx[name]
+            w = exec_.arg_dict[name]
+            plan = opt._fused_plan(i, w, upd._state(i, w))
+            op_name, static, st_list = plan
+            key = (op_name, canonical_attrs(static), w._tdtype,
+                   tuple(s._tdtype for s in st_list), lrs[pos], wds[pos])
+            grp = by_key.get(key)
+            if grp is None:
+                grp = by_key[key] = _Group(op_name, dict(static),
+                                           w._tdtype, key[3])
+                order.append(grp)
+            grp.add(name, pos, tuple(w.shape), st_list)
+        for grp in order:
+            grp.finalize(self._n)
+        self._groups = order
+        self._graphs.clear()
+
+    def _refresh_slots(self) -> None:
+        """Point each member at the updater's current state NDArrays (a
+        checkpoint load replaces them)."""
+        exec_, upd = self._exec, self._updater
+        opt = upd.optimizer
+        for grp in self._groups:
+            for m, name in enumerate(grp.names):
+                i = self._train_idx[name]
+                w = exec_.arg_dict[name]
+                grp.slot_nds[m] = list(opt._fused_plan(
+                    i, w, upd._state(i, w))[2])
+
+    def _import_states(self) -> None:
+        """Flatten the per-parameter states into each bucket's buffer
+        (this rank's block under ZeRO-1) and leave 1-element placeholders
+        behind, so the state really is O(P/N) between checkpoints."""
+        from .parallel.mesh import DP
+        r = self._mesh.axis_index(DP)
+        flat_states = []
+        for grp in self._groups:
+            bufs = []
+            for k, dt in enumerate(grp.slot_dtypes):
+                parts = [grp.slot_nds[m][k].data.reshape(-1).to(
+                    self._device, dt) for m in range(len(grp.names))]
+                pad = grp.padded - grp.total
+                if pad:
+                    parts.append(torch.zeros(pad, dtype=dt,
+                                             device=self._device))
+                flat = torch.cat(parts)
+                if self._zero1:
+                    flat = flat[r * grp.shard:(r + 1) * grp.shard].clone()
+                bufs.append(flat)
+            flat_states.append(tuple(bufs))
+            for m in range(len(grp.names)):
+                for k, dt in enumerate(grp.slot_dtypes):
+                    grp.slot_nds[m][k]._set_data(
+                        torch.zeros(1, dtype=dt, device=self._device))
+        self._flat_states = flat_states
+        self._stale = False
+        self._graphs.clear()
+        _prof.bump_spmd("resharding_events")
+        self._record_shard_fraction()
+
+    def _record_shard_fraction(self) -> None:
+        """The optimizer state this rank holds over the logical total,
+        from the live buffers."""
+        local = total = 0
+        for grp, bufs in zip(self._groups or [], self._flat_states):
+            for b in bufs:
+                local += b.numel() * b.element_size()
+                total += grp.padded * b.element_size()
+        if total == 0:   # a stateless optimizer: the update's share
+            frac = (1.0 / self._n) if self._zero1 else 1.0
+        else:
+            frac = local / total
+        _prof.set_spmd("shard_fraction", frac)
+        _prof.set_spmd("state_bytes_per_replica", float(local))
+        _prof.set_spmd("state_bytes_total", float(total))
+
+    def _fallback(self, transient: bool = True) -> bool:
+        self.relinquish()
+        if not transient:
+            self._disabled = True
+        return False
+
+    def _local_exec(self, feeds, local_batch):
+        """The executor at this rank's rows (sharing the parameters), one
+        per input shape set."""
+        exec_ = self._exec
+        if self._n == 1:
+            return exec_
+        shapes = {n: (local_batch,) + tuple(a.shape)[1:]
+                  for n, a in feeds.items()}
+        key = (id(exec_), tuple(sorted(shapes.items())))
+        hit = self._locals.get(key)
+        if hit is None or hit[0] is not exec_:
+            hit = self._locals[key] = (exec_, exec_.reshape(**shapes))
+        return hit[1]
+
+    def _outputs_split(self, feeds, batch) -> bool:
+        """Every output's dim 0 splits with the batch: at the rows of one
+        rank it is 1/N of the whole batch's, the other dims the same (a
+        batch-major (B·L, V) head too), so the gather over dp in rank
+        order reassembles it."""
+        key = (id(self._exec._symbol),
+               tuple(sorted((n, tuple(a.shape)) for n, a in feeds.items())))
+        hit = self._split_ok.get(key)
+        if hit is not None:
+            return hit
+        shapes = {n: tuple(a.shape) for n, a in self._exec.arg_dict.items()}
+        shapes.update({n: tuple(a.shape) for n, a in feeds.items()})
+        local = dict(shapes)
+        local.update({n: (batch // self._n,) + tuple(a.shape)[1:]
+                      for n, a in feeds.items()})
+        try:
+            _, whole, _ = self._exec._symbol.infer_shape(**shapes)
+            _, part, _ = self._exec._symbol.infer_shape(**local)
+            ok = all(w and p and p[0] * self._n == w[0] and p[1:] == w[1:]
+                     for w, p in zip(whole, part))
+        except Exception:  # noqa: BLE001 -- any failure: not splittable
+            ok = False
+        self._split_ok[key] = ok
+        return ok
+
+    # -- the sharded profile: the step --------------------------------------
+    def _step_sharded(self, feeds) -> bool:
+        from .ops.nn import batch_stats_scope
+        from .parallel import collectives as C
+        from .parallel.mesh import DP
+        exec_, upd = self._exec, self._updater
+        opt = upd.optimizer
+        if self._disabled:
+            return False
+        if getattr(upd, "_spmd_bridge", None) is not self:
+            upd._spmd_bridge = self
+        ws_nd = [exec_.arg_dict[n] for n in self._train_names]
+        if len({id(w) for w in ws_nd}) != len(ws_nd):
+            return self._fallback()
+        batches = {tuple(a.shape)[0] for a in feeds.values()
+                   if tuple(getattr(a, "shape", ()))}
+        if len(batches) != 1:
+            return self._fallback()
+        batch = batches.pop()
+        if batch % self._n:
+            return self._fallback()   # a ragged tail: the dense step
+        if any(getattr(a, "stype", "default") != "default"
+               for a in feeds.values()):
+            return self._fallback()
+        if not self._outputs_split(feeds, batch):
+            return self._fallback(transient=False)
+        for name, w in zip(self._train_names, ws_nd):
+            i = self._train_idx[name]
+            if opt._fused_plan(i, w, upd._state(i, w)) is None:
+                return self._fallback(transient=False)
+        opt._set_current_context(exec_._ctx.device_id)
+        # the update counts advance here, after every fallback check
+        lrs, wds = self._host_scalars(opt)
+        if self._groups is None or any(
+                len({(lrs[p], wds[p]) for p in g.positions}) > 1
+                for g in self._groups):
+            self.relinquish()
+            self._build_groups(lrs, wds)
+        if self._stale:
+            self._refresh_slots()
+            self._import_states()
+
+        mesh, n, zero1 = self._mesh, self._n, self._zero1
+        r = mesh.axis_index(DP)
+        lexec = self._local_exec(feeds, batch // n)
+        lb = batch // n
+        with torch.no_grad():
+            for name, arr in feeds.items():
+                src = arr.data if isinstance(arr, NDArray) else \
+                    torch.as_tensor(arr)
+                lexec.arg_dict[name].data.copy_(src[r * lb:(r + 1) * lb])
+        values = [(lrs[g.positions[0]], wds[g.positions[0]])
+                  for g in self._groups]
+        scalars = self._scalars(values)
+        rescale = float(opt.rescale_grad)
+        clip = None if opt.clip_gradient is None \
+            else float(opt.clip_gradient)
+        guard = anomaly_guard_enabled()
+        self._metric_prepare()
+        slots = self._metric_plan or []
+        feed = lexec._feed()
+        gen = _random.generator(self._device)
+        names = self._train_names
+        ws = [w.data for w in ws_nd]
+        aux_dict = exec_.aux_dict
+        groups, flat_states = self._groups, self._flat_states
+        reduce = C.reducer(mesh, (DP,)) if n > 1 else None
+
+        def psum(x):
+            return C._psum_raw(x, mesh, DP) if n > 1 else x
+
+        poison = _poisoned()
+
+        def body():
+            scope = batch_stats_scope(reduce, n) if n > 1 else \
+                batch_stats_scope(None, 1)
+            with scope:
+                outs, aux, tape = record_steps(self._plan, feed, names, gen)
+                grads = tape_grads(tape, [torch.ones_like(o) for o in outs])
+            gs = [grads[nm] if grads[nm] is not None else
+                  torch.zeros_like(w) for nm, w in zip(names, ws)]
+            if poison:
+                gs = _poison(gs)
+            ok = gnorm = None
+            with torch.no_grad():
+                gsq = torch.zeros((), dtype=torch.float32,
+                                  device=self._device)
+                plans = []
+                for gi, grp in enumerate(groups):
+                    pad = grp.padded - grp.total
+                    parts = [gs[p].reshape(-1) for p in grp.positions]
+                    wparts = [ws[p].reshape(-1) for p in grp.positions]
+                    if pad:
+                        z = torch.zeros(pad, dtype=grp.w_dtype,
+                                        device=self._device)
+                        parts.append(z)
+                        wparts.append(z)
+                    flat_g = torch.cat(parts)
+                    flat_w = torch.cat(wparts)
+                    if zero1 and n > 1:
+                        g = C._block(psum(flat_g), mesh, DP, 0)
+                        w = flat_w[r * grp.shard:(r + 1) * grp.shard]
+                        w = w.clone()
+                    else:
+                        g, w = psum(flat_g), flat_w
+                    if guard:
+                        gsq = gsq + g.float().square().sum()
+                    plans.append((w, g))
+                if guard:
+                    if zero1 and n > 1:
+                        gsq = psum(gsq)
+                    bad = torch.zeros((), dtype=torch.float32,
+                                      device=self._device)
+                    for o in outs:
+                        bad = bad + (~torch.isfinite(o).all()).float()
+                    ok, gnorm = guard_verdict([], gsq)
+                    ok = ok & (psum(bad) == 0)
+                    kept = [t for t, _ in plans] + \
+                        [t for st in flat_states for t in st]
+                    before = [t.clone() for t in kept]
+                for gi, (grp, (w, g)) in enumerate(zip(groups, plans)):
+                    lr, wd = scalars[gi]
+                    apply_multi(grp.op_name, grp.static, [w], [g],
+                                [[t] for t in flat_states[gi]], lr, wd,
+                                rescale, clip)
+                if guard:
+                    for t, b in zip(kept, before):
+                        t.copy_(torch.where(ok, t, b))
+                for grp, (w, _g) in zip(groups, plans):
+                    full = C._gather_raw(w, mesh, DP, 0, True) \
+                        if zero1 and n > 1 else w
+                    for p, size, off in zip(grp.positions, grp.sizes,
+                                            grp.offsets):
+                        ws[p].view(-1).copy_(full[off:off + size])
+                for nm, val in aux.items():
+                    if nm in aux_dict:
+                        new = val if not guard else \
+                            torch.where(ok, val, aux_dict[nm].data)
+                        aux_dict[nm].data.copy_(new)
+                for s, inc in zip(slots, _metric_incs(slots, outs, feed)):
+                    s.acc.add_(psum(inc.float()))
+            return outs, ok, gnorm
+
+        if self.captured and not poison:
+            key = ("sharded", tuple(g.op_name for g in groups), rescale,
+                   clip, guard, tuple((s.axis, s.pairs) for s in slots),
+                   feed_key({**feed, **{f"state{j}": t for j, t in
+                                        enumerate(t for st in flat_states
+                                                  for t in st)}}))
+            graph = self._graphs.get(key)
+            if graph is None:
+                res = warm_up(body, self._device)
+                self._graphs[key] = CapturedGraph(body, self._device, gen)
+            else:
+                res = graph.replay()
+        else:
+            res = body()
+        outs, ok, gnorm = res
+        _prof.bump_counter("dispatches")
+        _prof.bump_counter("spmd_steps")
+        _prof.bump_spmd("spmd_steps")
+        if unified_enabled():
+            _prof.bump_unified("unified_steps")
+        if slots:
+            _prof.bump_unified("metric_in_trace_steps")
+        _prof.set_spmd("replicas", float(n))
+        if zero1 and n > 1:
+            moved = float(sum(g.padded * torch.empty(
+                (), dtype=g.w_dtype).element_size() for g in groups))
+            _prof.bump_spmd("reduce_scatter_bytes", moved)
+            _prof.bump_spmd("all_gather_bytes", moved)
+        self._record_shard_fraction()
+        if n > 1:
+            outs = [C._gather_raw(o, mesh, DP, 0, True) for o in outs]
+        exec_.outputs = [NDArray(o) for o in outs]
+        exec_._tape = None
+        lexec._tape = None
+        self.last_step_ok = ok if guard else True
+        self.last_grad_norm = gnorm
+        self._metric_commit({nm: tuple(exec_.arg_dict[nm].shape)
+                             for s in slots for _oi, nm in s.pairs})
         return True
 
     def audit(self):

@@ -476,8 +476,10 @@ def test_checkpoint_restores_across_packages(tmp_path, direction):
 
 
 def test_fit_refuses_a_mid_epoch_preemption_snapshot(tmp_path, monkeypatch):
-    """The JAX package's supervisor writes ``preempted`` snapshots inside
-    an epoch; resuming one waits for the port of `train_driver.py`."""
+    """A supervisor's ``preempted`` snapshot inside an epoch is no longer
+    refused (`train_driver.py` is ported): fit redoes that epoch from the
+    recorded batch cursor, skipping the batches the preempted run
+    consumed, then goes on to the next epoch from its first batch."""
     d = str(tmp_path / "ckpt")
     mgr = CheckpointManager(d)
     mgr.save(0, params={"arg:fc1_bias": _arr(np.zeros(16))}, epoch=0,
@@ -485,5 +487,9 @@ def test_fit_refuses_a_mid_epoch_preemption_snapshot(tmp_path, monkeypatch):
     monkeypatch.setenv("MXTPU_CKPT_DIR", d)
     x, y = _data()
     mod = mt.mod.Module(_mlp(mt), context=CPU)
-    with pytest.raises(MXNetError, match="train_driver"):
-        mod.fit(mt.io.NDArrayIter(x, y, batch_size=12), num_epoch=2)
+    seen = []
+    mod.fit(mt.io.NDArrayIter(x, y, batch_size=12), num_epoch=2,
+            batch_end_callback=lambda p: seen.append((p.epoch, p.nbatch)))
+    n = -(-len(x) // 12)
+    assert seen == [(0, b) for b in range(2, n)] + \
+        [(1, b) for b in range(n)]

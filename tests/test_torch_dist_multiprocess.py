@@ -5,10 +5,9 @@ launcher's ``DMLC_*`` env, each asserting the closed-form arithmetic of
 `tests/torch_dist_sync_worker.py` (the counterpart of
 `tests/test_dist_multiprocess.py`): push/pull rounds for fp32 and fp16,
 dense and row-sparse, the 2-bit path, and `gluon.Trainer` / `Module`
-steps over the store equal to one process on the whole batch.
-
-The JAX worker's SPMDTrainer step over a process-spanning mesh waits for
-the port's SPMD plane (ROADMAP Queue A item 6d).
+steps over the store equal to one process on the whole batch, and an
+`SPMDTrainer` step over the mesh that spans the processes equal to one
+process's.
 """
 import os
 import socket

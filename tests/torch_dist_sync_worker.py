@@ -11,8 +11,8 @@ rate-scaled accumulate updater, a key holds
 row_sparse, and the 2-bit path sums every worker's dequantized stream.
 Then a `gluon.Trainer` and a `Module` over ``dist_sync`` take SGD steps
 on each worker's shard of one batch and must equal one process that
-steps on the whole batch.  The JAX worker's SPMDTrainer step waits for
-the port's SPMD plane.
+steps on the whole batch; an `SPMDTrainer` step over the mesh that spans
+the processes must equal a trainer over one process on the same batch.
 
 Runs on the host (``cpu``, the default) or on ``gpu`` (argv[1]); it
 imports neither JAX nor the JAX package.
@@ -183,6 +183,46 @@ def test_module(rank, nworker):
                                err_msg=f"rank {rank}")
 
 
+def test_spmd_trainer(rank, nworker):
+    """One dp=nworker SPMDTrainer step over the mesh that spans the
+    processes equals a trainer over this process alone on the same
+    global batch (the JAX worker's check)."""
+    from mxnet_tpu_torch import parallel as par
+    from mxnet_tpu_torch.gluon import nn, loss as gloss
+
+    rng = np.random.RandomState(7)
+    w1 = rng.randn(16, 8).astype(np.float32) * 0.1
+    b1 = np.zeros(16, np.float32)
+    w2 = rng.randn(4, 16).astype(np.float32) * 0.1
+    b2 = np.zeros(4, np.float32)
+    x = rng.randn(8, 8).astype(np.float32)
+    y = (np.arange(8) % 4).astype(np.float32)
+
+    def build(mesh_devices):
+        net = nn.HybridSequential()
+        net.add(nn.Dense(16, activation="relu"), nn.Dense(4))
+        net.initialize()
+        net(mt.nd.array(x[:2]))
+        params = net.collect_params()
+        for name, val in zip(list(params.keys()), (w1, b1, w2, b2)):
+            params[name].set_data(mt.nd.array(val))
+        mesh = par.auto_mesh(len(mesh_devices), devices=mesh_devices)
+        return par.SPMDTrainer(
+            net, mt.optimizer.SGD(learning_rate=0.1, momentum=0.9),
+            gloss.SoftmaxCrossEntropyLoss(), mesh=mesh)
+
+    tr_dist = build(par.devices())               # spans every process
+    ld = float(tr_dist.step(x, y))
+    tr_local = build(par.devices()[rank:rank + 1])   # this process only
+    ll = float(tr_local.step(x, y))
+    assert np.isfinite(ld) and np.isfinite(ll)
+    assert abs(ld - ll) < 1e-4, (rank, ld, ll)
+    for nd_, nl in zip(tr_dist._train_names, tr_local._train_names):
+        np.testing.assert_allclose(
+            np.asarray(tr_dist.params[nd_]), np.asarray(tr_local.params[nl]),
+            rtol=1e-5, atol=1e-5, err_msg=f"rank {rank} param {nd_}")
+
+
 def main():
     assert "jax" not in sys.modules and "mxnet_tpu" not in sys.modules
     ctx = mt.gpu(0) if (sys.argv[1:] or ["cpu"])[0] == "gpu" else mt.cpu()
@@ -203,6 +243,8 @@ def main():
         test_trainer(rank, nworker)
         test_module(rank, nworker)
         dist.barrier("after_training")
+        test_spmd_trainer(rank, nworker)
+        dist.barrier("after_spmd_trainer")
     print(f"WORKER {rank}/{nworker} ALL PASSED", flush=True)
 
 

@@ -34,7 +34,8 @@ _SUBS = (
     (r"\bfrom mxnet_tpu import\b", "from mxnet_tpu_torch import"),
     (r"\bfrom mxnet_tpu\.", "from mxnet_tpu_torch."),
     (r'"(dist_async_worker|ps_chaos_worker|ps_elastic_worker|'
-     r'embed_chaos_worker|dist_sync_worker)\.py"', r'"torch_\1.py"'),
+     r'embed_chaos_worker|dist_sync_worker|preempt_chaos_worker|'
+     r'ckpt_chaos_worker)\.py"', r'"torch_\1.py"'),
 )
 
 _READS = ("pull", "pull_batch", "pull_rows", "embed_pull")
