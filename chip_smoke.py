@@ -362,8 +362,9 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    process a `tests/torch_bert_dist_worker.py` (the port's own worker
    script; every child checks that it imported neither JAX nor the JAX
    package and prints its K1-K3 launch counts, which the kernel report
-   adds).  18a: phase 5's BERT-base MLM at its published widths, fp32,
-   dropout 0, the head's gradient summed (``normalization='null'``):
+   adds).  18a: phase 5's BERT-base MLM at its published widths and
+   DIST_LAYERS of its layers, fp32, dropout 0, the head's gradient summed
+   (``normalization='null'``):
    one process steps DIST_STEPS times on the whole 8 x 512 batch with
    BERT's Adam; then two worker processes of ``tools/launch.py
    --launcher local -n 2`` on the one card, joined over gloo, each on its
@@ -417,7 +418,7 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    RING_GRAD_TOL of sp 1 (over their largest magnitudes); K1-K3's
    launches a step printed (at sp 2 rank r launches K1 r + 1 times).
    19c: phase 5's BERT-base MLM at 8 x 512 (dropout 0) through
-   ``Module.fit``, SPMD_STEPS steps: on one rank ``MXTPU_SPMD=1`` (the
+   ``Module.fit``, SPMD_BERT["steps"] steps: on one rank ``MXTPU_SPMD=1`` (the
    sharded step, captured) within SPMD_FIT_TOL of the unified step; on
    two ranks ``MXTPU_SPMD_ZERO1=1`` within SPMD_FIT_TOL of one rank and
    bit-equal (weights and Adam states) to ``MXTPU_SPMD_ZERO1=0``; each
@@ -434,10 +435,52 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    mid-epoch ``preempted`` checkpoint; run C here resumes from it and
    must end bit-equal to A (weights and Adam states); A and B each skip
    the poisoned step once.
+20. elastic mesh and contrib ops.  20a: phase 19c's BERT-base MLM (12
+   layers at their published widths, 8 x 512, dropout 0, BERT's Adam)
+   through ``Module.fit`` under ``MXTPU_SPMD=2`` with ZeRO-1,
+   ``MXTPU_SPMD_SHARD_REDUNDANCY=1`` and a `TrainingSupervisor`, on two
+   processes started with the launcher's ``DMLC_*`` env and sharing the
+   card over gloo, 2 batches an epoch for 2 epochs; the fault plan's
+   ``kill_device_at`` ends rank 1's process (exit 86) at step 3's probe.
+   Rank 0 must detect it within the probe's bound
+   (ELASTIC_STEP_TIMEOUT_S), census-attributed (``device_killed``, rank
+   1 lost), recover the lost Adam shard from its buddy copy
+   (``buddy_recoveries`` 1, ``disk_recoveries`` 0), shrink to one
+   captured rank, retry batch 3 and end after step 4 bit-equal (weights
+   and Adam states) to a fresh one-rank ``fit`` resumed from the
+   checkpoint after step 2.  20b: the same with 2 layers, redundancy off
+   and ``hang_device_at``: rank 1 stops itself (SIGSTOP), the census
+   attributes the hang after the bound (``device_hang``), the disk
+   checkpoint is restored, bit-equal the same way; the script kills the
+   stopped rank.  Detection seconds, ``reshard_ms`` and each batch's ms
+   are printed.  20c: `resnet50_v1()` at its published widths, exported
+   (each convolution and dense layer named after its weights, as MXNet's
+   export names them), calibrated (``naive``) on INT8["calib"] batches of
+   32 x 224 and quantized with the first convolution and the dense head
+   excluded, as MXNet's ``imagenet_gen_qsym.py`` does; served by
+   `Predictor` on the card beside the fp32 export, p50 and images/s of
+   each, in turns.  Three int8 convolutions (the first, and the first of
+   the two widest reductions, K 2304 and 4608) at their real inputs give
+   int32 sums bit-equal to the port's CPU path and to the op run
+   eagerly on the card; the whole int8 model at INT8["cpu_batch"] within
+   INT8_CPU_TOL of the CPU path.  20d: every case of
+   `tests/torch_contrib_cases.py` (the 57 names of the contrib ops, int8
+   included) on the card against the port's CPU path within CONTRIB_TOL
+   (integer outputs exactly; the samplers by structure); SSD-300's head
+   (SSD300: 8732 anchors, batch 32, 20 classes and background,
+   ``nms_threshold`` 0.45, ``nms_topk`` 400) through MultiBoxPrior,
+   MultiBoxTarget (hard-negative mining) and MultiBoxDetection, the card
+   against the CPU path (anchors, box masks, positives and detections
+   equal, box targets within CONTRIB_TOL, SSD_NEG_OVERLAP of the hard
+   negatives shared); then `example/ssd/train_ssd.py`'s SSDNet and loss,
+   SSD_TRAIN["steps"] SGD steps on its synthetic shapes, the loss must
+   fall.  K1-K3 launch once per layer a step in 20a-b.
 
-If the run nears its time limit, cut the serving phases' ``TIMED`` and
-``LSTM_TIMED`` counts and FLEET_REQUESTS before anything of the training
-phase.
+The time limit: phase 20 came with cuts elsewhere (18a-b at
+DIST_LAYERS of BERT-base's 12 layers and DIST_ASYNC_STEPS 2 of 4, the
+serving phases' ``TIMED`` and ``LSTM_TIMED`` counts halved, 19c at 2 of
+3 steps).  If the run nears its limit again, cut FLEET_REQUESTS, then
+19c's all-reduce run, before anything else of the training phases.
 
 The line before the last is the JSON kernel report; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -514,7 +557,7 @@ SLICE_TOL = 1e-3
 CAPTURE_TOL = 1e-6
 # requests timed per bound sequence length, after the checked ones and one
 # warm-up
-TIMED = {512: 100, 128: 400}
+TIMED = {512: 50, 128: 200}
 # training slice: each parameter's gradient against the unfused graph's,
 # relative to its largest magnitude (the reference's attention-gradient
 # tolerance); the key biases, zero in exact arithmetic, are held below
@@ -556,7 +599,7 @@ LSTM_OPS = 3 * 3 + 2 + 3 + 1
 LSTM_SLICE_TOL = 1e-4
 # LSTM LM: requests timed per bucket, after the checked ones and one warm-up
 LSTM_BATCH = 32
-LSTM_TIMED = {60: 100, 10: 400}
+LSTM_TIMED = {60: 50, 10: 200}
 # Gluon ResNet-50: serving batch and requests timed per way; training batch,
 # warm-up and timed steps; the train_cifar10.py optimizer settings, the lr
 # reached by a linear ramp over the 12 updates: at a constant 0.05 (8x the
@@ -669,7 +712,10 @@ WORD_BPTT, WORD_BATCH, WORD_LR, WORD_CLIP, WORD_STEPS = 35, 32, 20.0, 0.2, 16
 # steps with the server's Adam, 18c's steps, the tolerance of 18c's weight
 # against the local store's, the worker script, the launcher, and each
 # job's time limit
-DIST_STEPS, DIST_ASYNC_STEPS, EMBED_STEPS = 3, 4, 20
+DIST_STEPS, DIST_ASYNC_STEPS, EMBED_STEPS = 3, 2, 20
+# 18a-b's BERT: BERT-base's widths at 4 of its 12 layers (cut for the
+# script's time limit since phase 20 came; K1-K3 once per layer a step)
+DIST_LAYERS = 4
 EMBED_TOL = 1e-6
 DIST_WORKER = os.path.join(HERE, "tests", "torch_bert_dist_worker.py")
 DIST_LAUNCH = os.path.join(HERE, "tools", "launch.py")
@@ -687,7 +733,7 @@ SPMD_RESNET = dict(batch=32, side=224, classes=1000, steps=SPMD_STEPS,
                    lr=0.01, reference=False)
 RING_LM_CARD = dict(vocab=32, dim=768, heads=12, seq_len=8192, batch=1,
                     lr=1e-3, steps=SPMD_STEPS)
-SPMD_BERT = dict(batch=8, seq=512, steps=SPMD_STEPS)
+SPMD_BERT = dict(batch=8, seq=512, steps=2)
 PIPE_CFG = dict(stages=2, micro=8, batch=4, width=16, steps=20, lr=0.3)
 MOE_CFG = dict(tokens=128, width=16, hidden=32, experts=4, steps=30, lr=0.3)
 PREEMPT = dict(batches=6, poison_at=2, sigterm_after=3)
@@ -709,6 +755,45 @@ PIPE_TOL = 1e-4
 SPMD_TIMEOUT = 600
 SPMD_ENTRY = "import sys, chip_smoke as cs; cs.spmd_worker(sys.argv[1])"
 PREEMPT_ENTRY = "import sys, chip_smoke as cs; cs.preempt_child(sys.argv[1])"
+# phase 20: 20a-b, the elastic mesh: phase 19c's BERT-base MLM fit (2
+# batches an epoch, 2 epochs) on two ranks, the second lost at step 3's
+# probe (ELASTIC_LOSS_STEP: epoch 1's first), 20a with all 12 layers, the
+# buddy copy and a kill, 20b with 2 layers, no redundancy and a stopped
+# rank; the probe's bound, and the launcher's time limit for each
+ELASTIC = {"a": dict(layers=12, batch=8, seq=512, redundancy=1,
+                     fault="kill_device_at"),
+           "b": dict(layers=2, batch=8, seq=512, redundancy=0,
+                     fault="hang_device_at")}
+ELASTIC_LOSS_STEP = 3
+ELASTIC_STEP_TIMEOUT_S = 10.0
+ELASTIC_TIMEOUT = 900
+ELASTIC_ENTRY = "import sys, chip_smoke as cs; cs.elastic_worker(sys.argv[1])"
+# 20c: resnet50_v1 at its published widths, int8: the calibration
+# batches, the timed requests a predictor (in turns with fp32), the batch
+# of the whole-model check against the CPU path and its limit (max |diff|
+# over the largest logit: the card's float layers round apart from the
+# CPU's, and an int8 payload one level apart moves a logit by its scale)
+INT8 = dict(batch=32, side=224, classes=1000, calib=2, timed=10,
+            cpu_batch=2)
+INT8_CPU_TOL = 0.05
+# 20d: the contrib cases on the card against the CPU path (1e-5 of the
+# largest magnitude, the op sweep's; integer outputs exactly); SSD-300's
+# head from MXNet's example/ssd (VGG16-reduced at 300: feature maps
+# 38/19/10/5/3/1, their sizes, ratios and steps; 8732 anchors; VOC's 20
+# classes and background; batch 32); the share of hard negatives the card
+# and the CPU must agree on (the mining ranks a softmax, whose sums round
+# apart); train_ssd.py's SSDNet, its steps and batch
+CONTRIB_TOL = 1e-5
+SSD300 = [(38, (0.1, 0.141), (1, 2, 0.5), 8 / 300),
+          (19, (0.2, 0.272), (1, 2, 0.5, 3, 1 / 3), 16 / 300),
+          (10, (0.37, 0.447), (1, 2, 0.5, 3, 1 / 3), 32 / 300),
+          (5, (0.54, 0.619), (1, 2, 0.5, 3, 1 / 3), 64 / 300),
+          (3, (0.71, 0.79), (1, 2, 0.5), 100 / 300),
+          (1, (0.88, 0.961), (1, 2, 0.5), 1.0)]
+SSD300_BATCH = 32
+SSD300_CLASSES = 20
+SSD_NEG_OVERLAP = 0.999
+SSD_TRAIN = dict(steps=20, batch=32, image=64)
 # phase 11a: the reference's example/sparse/linear_classification.py
 # local-store loop at the width of LIBSVM's avazu-app (1,000,000 features)
 # and the example's batch 8192 and lr; rows one-hot in 15 fields with
@@ -8002,7 +8087,8 @@ def phase_distributed(card, cfg=None, batch=8, seq=512, steps=DIST_STEPS,
     """Phase 18: the parameter-server plane across processes (18a-18c).
     Returns the K1-K3 launches of its worker processes."""
     t_phase = time.perf_counter()
-    cfg = dict(BERT_BASE if cfg is None else cfg)
+    cfg = dict(dict(BERT_BASE, num_layers=DIST_LAYERS) if cfg is None
+               else cfg)
     launches, rec = dist_bert(card, cfg, batch, seq, steps, async_steps,
                               ctx)
     emb = embed_plane_linear(card, **(embed or {}))
@@ -8698,6 +8784,658 @@ def _spmd_checks(workdir, one, two):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the elastic mesh and the contrib op tail with int8
+# ---------------------------------------------------------------------------
+
+from mxnet_tpu_torch.train_driver import TrainingSupervisor  # noqa: E402
+from mxnet_tpu_torch.parallel.elastic_mesh import (  # noqa: E402
+    CENSUS_TIMEOUT_S, KILLED_EXIT_CODE, _process_state)
+
+
+class _ElasticSupervisor(TrainingSupervisor):
+    """20a-b's supervisor: records when and what the mesh probe raised."""
+
+    def __init__(self):
+        super().__init__()
+        self.losses = []
+
+    def on_mesh_degraded(self, exc, **kw):
+        self.losses.append({"t": time.perf_counter(), "reason": exc.reason,
+                            "lost": exc.lost, "mesh_size": exc.mesh_size,
+                            "census": {str(k): v
+                                       for k, v in exc.census.items()},
+                            "step": exc.step, "timeout_s": exc.timeout_s})
+        super().on_mesh_degraded(exc, **kw)
+
+
+def _elastic_fit(job, ctx, dev, sup=None):
+    """One 2-epoch ``Module.fit`` of the job's BERT MLM (dropout 0,
+    BERT's Adam) on 2 batches an epoch; (module, each batch's end time)."""
+    cfg = dict(BERT_BASE, num_layers=job["layers"], **job.get("cfg", {}))
+    batch, seq = job["batch"], job["seq"]
+    sym = bert_mlm(mt.sym, **dict(cfg, dropout=0.0))
+    shapes = {"data": (batch, seq), "positions": (batch, seq),
+              "mlm_label": (batch, seq)}
+    params = _bert_params(sym, shapes)
+    it = _spmd_bert_iter(cfg["vocab"], batch, seq, 2)
+    mod = mt.mod.Module(sym, data_names=("data", "positions"),
+                        label_names=("mlm_label",), context=ctx)
+    stamps = []
+
+    def stamp(p):
+        _spmd_sync(dev)
+        stamps.append((p.epoch, p.nbatch, time.perf_counter()))
+
+    if sup is not None:
+        sup.activate()
+    try:
+        _spmd_sync(dev)
+        stamps.append((0, -1, time.perf_counter()))
+        mod.fit(it, num_epoch=2, optimizer="adam",
+                optimizer_params=_fit_adam(), batch_end_callback=stamp,
+                arg_params={k: mt.nd.array(v, ctx=ctx)
+                            for k, v in params.items()})
+    finally:
+        if sup is not None:
+            sup.deactivate()
+    return mod, stamps
+
+
+def elastic_worker(job_file):
+    """A rank of 20a or 20b (`phase_elastic`): the chaos fit under a
+    `TrainingSupervisor`, the mesh's last rank lost at step 3's probe;
+    the survivor then fits afresh on one rank from the epoch-0 checkpoint
+    and records both."""
+    from mxnet_tpu_torch import fault_injection as fi
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+    from mxnet_tpu_torch.parallel import distributed as dist
+    from mxnet_tpu_torch.parallel import elastic_mesh as em
+    with open(job_file) as f:
+        job = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.initialize()
+    rank, n = _spmd_rank()
+    workdir, tag = job["workdir"], job["tag"]
+    chaos_dir = os.path.join(workdir, f"ck-{tag}-{rank}")
+    os.environ.update(
+        MXTPU_SPMD=str(n), MXTPU_SPMD_ZERO1="1",
+        MXTPU_SPMD_SHARD_REDUNDANCY=str(job["redundancy"]),
+        MXTPU_MESH_STEP_TIMEOUT_S=str(ELASTIC_STEP_TIMEOUT_S),
+        MXTPU_CKPT_DIR=chaos_dir)
+    ctx, dev = _spmd_ctx(job["device"])
+    hk.reset_launch_counts()
+    profiler.reset_mesh_counters()
+    probes = []
+    check = em.MeshHealthMonitor.check
+
+    def timed_check(monitor):
+        probes.append(time.perf_counter())
+        return check(monitor)
+
+    em.MeshHealthMonitor.check = timed_check
+    sup = _ElasticSupervisor()
+    fi.install(fi.FaultPlan(**{job["fault"]: [ELASTIC_LOSS_STEP]}))
+    try:
+        mod, stamps = _elastic_fit(job, ctx, dev, sup)
+    finally:
+        fi.clear()
+    # only the survivor gets here: the victim left at step 3's probe
+    em.MeshHealthMonitor.check = check
+    mod._spmd_train_step.export_states()
+    chaos = _module_state(mod)
+    rec = {"rank": rank, "ranks": n, "tag": tag,
+           "mesh": profiler.mesh_counters(), "loss": sup.losses,
+           "after_n": mod._spmd_train_step._n,
+           "shrinks": em.shrink_count(),
+           "chaos_launches": dict(hk.LAUNCHES)}
+    # the probe that raised: the last one before the supervisor's call
+    if sup.losses:
+        t_probe = max(t for t in probes if t <= sup.losses[0]["t"])
+        rec["detect_s"] = sup.losses[0]["t"] - t_probe
+    else:
+        rec["detect_s"] = None
+    # each batch's ms (batch 3's holds the epoch-0 checkpoint, the
+    # detection, the recovery and the retry on one rank)
+    rec["step_ms"] = [(b[2] - a[2]) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    # the fresh one-rank fit from the checkpoint after step 2
+    src = CheckpointManager(chaos_dir).step_dir(0)
+    ref_dir = os.path.join(workdir, f"fresh-{tag}")
+    shutil.copytree(src, os.path.join(ref_dir, os.path.basename(src)))
+    em.reset_state()
+    os.environ.update(MXTPU_SPMD="1", MXTPU_CKPT_DIR=ref_dir)
+    ref_mod, ref_stamps = _elastic_fit(job, ctx, dev)
+    ref_mod._spmd_train_step.export_states()
+    ref = _module_state(ref_mod)
+    rec["fresh_step_ms"] = [(b[2] - a[2]) * 1e3
+                            for a, b in zip(ref_stamps, ref_stamps[1:])]
+    rec["bit_equal"] = _bit_equal(chaos, ref)
+    rec["worst"] = _worst(chaos, ref) if not rec["bit_equal"] else None
+    rec["launches"] = dict(hk.LAUNCHES)
+    with open(os.path.join(workdir, f"elastic-{tag}.json"), "w") as f:
+        json.dump(rec, f, default=float)
+    log(f"RANK {rank} elastic {tag} DONE")
+    sys.stdout.flush()
+    # the group lost a member: leave without tearing its groups down
+    os._exit(0)
+
+
+def _run_elastic(tag, job, workdir):
+    """Start 20a's or 20b's two ranks (the launcher's ``DMLC_*`` env, a
+    session each), wait for the survivor, kill the stopped victim; the
+    survivor's record and both exit codes."""
+    import signal
+    job = dict(job, tag=tag, workdir=workdir)
+    job_file = os.path.join(workdir, f"elastic-{tag}-job.json")
+    with open(job_file, "w") as f:
+        json.dump(job, f)
+    port = _free_port_pair()
+    procs, logs = [], []
+    for rank in range(2):
+        out = open(os.path.join(workdir, f"elastic-{tag}-{rank}.log"), "w+")
+        logs.append(out)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-u", "-c", ELASTIC_ENTRY, job_file],
+            env=_child_env(DMLC_ROLE="worker", DMLC_PS_ROOT_URI="127.0.0.1",
+                           DMLC_PS_ROOT_PORT=port, DMLC_NUM_WORKER=2,
+                           DMLC_NUM_SERVER=0, DMLC_WORKER_ID=rank),
+            cwd=HERE, stdout=out, stderr=subprocess.STDOUT,
+            start_new_session=True))
+    deadline = time.monotonic() + ELASTIC_TIMEOUT
+    stopped = False
+    try:
+        while procs[0].poll() is None and time.monotonic() < deadline:
+            time.sleep(0.2)
+        if procs[1].poll() is None:
+            stopped = _process_state(procs[1].pid) == "T"
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+    text = ""
+    for rank, out in enumerate(logs):
+        out.seek(0)
+        text += f"--- rank {rank}\n" + out.read()[-4000:]
+        out.close()
+    codes = [p.returncode for p in procs]
+    path = os.path.join(workdir, f"elastic-{tag}.json")
+    if codes[0] != 0 or not os.path.exists(path):
+        raise AssertionError(f"20 {tag}: the survivor exit {codes[0]}:\n"
+                             f"{text[-8000:]}")
+    with open(path) as f:
+        rec = json.load(f)
+    rec.update(exit_codes=codes, victim_stopped=stopped)
+    return rec
+
+
+def phase_elastic(card, device="cuda", elastic=None):
+    """20a-b: BERT-base MLM ``fit`` under ``MXTPU_SPMD=2`` on two ranks
+    sharing the card over gloo, the second rank lost at step 3's probe
+    (killed in 20a, with buddy redundancy; stopped in 20b, without); the
+    survivor detects it, recovers, shrinks to one rank and must end
+    bit-equal to a fresh one-rank fit from the epoch-0 checkpoint.
+    Returns the K1-K3 launches."""
+    t0 = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="mxtpu_elastic_")
+    recs = {}
+    try:
+        for tag, job in (elastic or ELASTIC).items():
+            job = dict(job, device=device)
+            t_sub = time.perf_counter()
+            rec = recs[tag] = _run_elastic(tag, job, workdir)
+            rec["sub_s"] = time.perf_counter() - t_sub
+            killed = job["fault"] == "kill_device_at"
+            loss = rec["loss"][0] if rec["loss"] else {}
+            want_codes = [0, KILLED_EXIT_CODE if killed else -9]
+            want = dict(buddy_recoveries=1, disk_recoveries=0) \
+                if job["redundancy"] else \
+                dict(buddy_recoveries=0, disk_recoveries=1)
+            m = rec["mesh"]
+            log(json.dumps({"sub": f"20{tag}", "card": card,
+                            "layers": job["layers"],
+                            "fault": job["fault"],
+                            "exit_codes": rec["exit_codes"],
+                            "victim_stopped": rec["victim_stopped"],
+                            "detect_s": rec["detect_s"],
+                            "reason": loss.get("reason"),
+                            "census": loss.get("census"),
+                            "reshard_ms": m.get("reshard_ms"),
+                            "mesh": m, "after_n": rec["after_n"],
+                            "step_ms_before_after": rec["step_ms"],
+                            "fresh_step_ms": rec["fresh_step_ms"],
+                            "bit_equal": rec["bit_equal"],
+                            "worst": rec["worst"],
+                            "launches": rec["launches"],
+                            "sub_s": rec["sub_s"]}, default=float))
+            if rec["exit_codes"] != want_codes or \
+                    (not killed and not rec["victim_stopped"]):
+                raise AssertionError(f"20{tag}: exit codes "
+                                     f"{rec['exit_codes']} (victim stopped "
+                                     f"{rec['victim_stopped']}), want "
+                                     f"{want_codes}")
+            if loss.get("reason") != ("device_killed" if killed
+                                      else "device_hang") or \
+                    loss.get("lost") != [1] or \
+                    loss.get("census") != {"0": "ok", "1": "lost"}:
+                raise AssertionError(f"20{tag}: the loss {loss}")
+            # a killed rank within the watchdog's bound; a stopped one
+            # after the whole bound, then the census's (and a second of the
+            # host's slack)
+            limit = ELASTIC_STEP_TIMEOUT_S if killed else \
+                ELASTIC_STEP_TIMEOUT_S + CENSUS_TIMEOUT_S + 1.0
+            if not rec["detect_s"] or rec["detect_s"] > limit:
+                raise AssertionError(f"20{tag}: detected after "
+                                     f"{rec['detect_s']} s")
+            if any(m.get(k, 0) != v for k, v in want.items()) or \
+                    m.get("reshards") != 1 or rec["after_n"] != 1 or \
+                    not m.get("degraded_steps"):
+                raise AssertionError(f"20{tag}: mesh counters {m}, "
+                                     f"n' {rec['after_n']}")
+            if not rec["bit_equal"]:
+                raise AssertionError(f"20{tag}: the shrunk run is not "
+                                     "bit-equal to the fresh one-rank fit: "
+                                     f"{rec['worst']}")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    launches = {k: sum(r["launches"][k] for r in recs.values())
+                for k in ATTN_KERNELS}
+    log(f"elastic: 20a-b in {time.perf_counter() - t0:.1f} s, launches "
+        f"{launches}")
+    if device == "cuda" and any(v == 0 for v in launches.values()):
+        raise AssertionError(f"20a-b launched {launches}")
+    return launches
+
+
+def _named_after_weights(sym_json):
+    """The exported graph with each convolution and dense layer named
+    after its weight (``resnet50_v1_stage1_conv2d0``), as MXNet's Gluon
+    export names them: the quantization pass finds a layer's weight by
+    its name."""
+    graph = json.loads(sym_json)
+    nodes = graph["nodes"]
+    for node in nodes:
+        if node["op"] in ("Convolution", "FullyConnected"):
+            w = nodes[node["inputs"][1][0]]["name"]
+            node["name"] = w[:-len("_weight")]
+    return json.dumps(graph)
+
+
+def _int8_layer_inputs(qsym, name):
+    """The input entries of quantized layer ``name`` as internal output
+    names of ``qsym``."""
+    graph = json.loads(qsym.tojson())
+    nodes = graph["nodes"]
+    node = next(n for n in nodes if n["name"] == name)
+    outs = qsym.get_internals().list_outputs()
+    names = []
+    for nid, idx, _ in node["inputs"]:
+        src = nodes[nid]
+        if src["op"] == "null":
+            names.append(src["name"])
+        elif f"{src['name']}_output{idx}" in outs:
+            names.append(f"{src['name']}_output{idx}")
+        else:
+            names.append(f"{src['name']}_output")
+    return names
+
+
+def phase_int8(card, cfg=None, device="cuda"):
+    """20c: `resnet50_v1()` at its published widths, exported, calibrated
+    (naive) on INT8["calib"] synthetic batches, quantized with its first
+    convolution and its dense head excluded, served by `Predictor` on the
+    card."""
+    from mxnet_tpu_torch.contrib.quantization import quantize_model
+    c = dict(INT8, **(cfg or {}))
+    t0 = time.perf_counter()
+    gpu = mt.gpu(0) if device == "cuda" else mt.Context("cpu", 0)
+    cpu = mt.cpu()
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    batch, side = c["batch"], c["side"]
+    rng = np.random.RandomState(SEED + 20)
+    net = _resnet_net(gpu, c["classes"], side)
+    net.hybridize()
+    x = rng.uniform(-1, 1, (batch, 3, side, side)).astype(np.float32)
+    net(mt.nd.array(x, ctx=gpu))
+    out_dir = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    prefix = os.path.join(out_dir, "resnet50_v1_int8")
+    net.export(prefix)
+    with open(prefix + "-symbol.json") as f:
+        sym = mt.sym.load_json(_named_after_weights(f.read()))
+    with open(prefix + "-0000.params", "rb") as f:
+        fp32_blob = f.read()
+    loaded = mt.serialization.loads_ndarrays(fp32_blob)
+    args = {k[4:]: v for k, v in loaded.items() if k.startswith("arg:")}
+    auxs = {k[4:]: v for k, v in loaded.items() if k.startswith("aux:")}
+    layers = [n["name"] for n in json.loads(sym.tojson())["nodes"]
+              if n["op"] in ("Convolution", "FullyConnected")]
+    excluded = (layers[0], layers[-1])
+    calib = mt.io.NDArrayIter(
+        rng.uniform(-1, 1, (c["calib"] * batch, 3, side, side))
+        .astype(np.float32), batch_size=batch)
+    t_q = time.perf_counter()
+    qsym, qargs, qauxs = quantize_model(
+        sym, args, auxs, excluded_sym_names=excluded, calib_mode="naive",
+        calib_data=calib, ctx=gpu)
+    quant_s = time.perf_counter() - t_q
+    js = qsym.tojson()
+    counts = {op: js.count(f'"op": "{op}"') for op in (
+        "_contrib_quantized_conv", "_contrib_requantize",
+        "_contrib_quantize_v2", "_contrib_dequantize",
+        "_contrib_quantized_act", "_contrib_quantized_pooling")}
+    if counts["_contrib_quantized_conv"] != len(layers) - 2:
+        raise AssertionError(f"20c: {counts} for {len(layers)} layers")
+    qblob = {**{f"arg:{k}": v for k, v in qargs.items()},
+             **{f"aux:{k}": v for k, v in qauxs.items()}}
+    pred = mt.Predictor(js, qblob, {"data": (batch, 3, side, side)},
+                        ctx=gpu)
+    fp32 = mt.Predictor(sym.tojson(), fp32_blob,
+                        {"data": (batch, 3, side, side)}, ctx=gpu)
+    req = mt.nd.array(x, ctx=gpu)
+
+    def serve(p):
+        p.forward(data=req)
+        return p.get_output(0)
+
+    q_out = serve(pred).asnumpy()
+    f_out = serve(fp32).asnumpy()
+    if not np.isfinite(q_out).all() or q_out.shape != (batch, c["classes"]):
+        raise AssertionError(f"20c: int8 outputs {q_out.shape}")
+    lat = {}
+    for name, p in (("int8", pred), ("fp32", fp32), ("int8_", pred),
+                    ("fp32_", fp32)):
+        ms = []
+        for _ in range(c["timed"]):
+            sync()
+            t = time.perf_counter()
+            serve(p)
+            sync()
+            ms.append((time.perf_counter() - t) * 1e3)
+        lat.setdefault(name.rstrip("_"), []).extend(ms)
+    # a few int8 layers at their real inputs: the card's int32 sums
+    # against the CPU path's, bit for bit
+    int8_layers = [n["name"] for n in json.loads(js)["nodes"]
+                   if n["op"] == "_contrib_quantized_conv"]
+    ks = {n: int(np.prod(qargs[f"{n[:-len('_int8')]}_weight_quantized"]
+                         .shape[1:])) for n in int8_layers}
+    # the first layer, and the first of each of the two widest reductions
+    picks = [int8_layers[0]] + [next(n for n in int8_layers if ks[n] == k)
+                                for k in sorted(set(ks.values()))[-2:]]
+    internals = qsym.get_internals()
+    bits = {}
+    for name in picks:
+        ins = _int8_layer_inputs(qsym, name)
+        group = mt.sym.Group([internals[n] for n in ins
+                              if n not in qargs] +
+                             [internals[f"{name}_output0"]])
+        ex = group.simple_bind(ctx=gpu, grad_req="null",
+                               data=(batch, 3, side, side))
+        ex.copy_params_from(qargs, qauxs, allow_extra_params=True)
+        outs = [o.asnumpy() for o in ex.forward(is_train=False, data=req)]
+        feed = dict(zip([n for n in ins if n not in qargs], outs[:-1]))
+        vals = [feed[n] if n in feed else qargs[n].asnumpy() for n in ins]
+        node = next(nd for nd in json.loads(js)["nodes"]
+                    if nd["name"] == name)
+        attrs = {k: v for k, v in node.get("attrs", {}).items()}
+        card_acc = outs[-1]
+        with cpu:
+            cpu_acc = mt.nd._contrib_quantized_conv(
+                *[mt.nd.array(v, dtype=v.dtype, ctx=cpu) for v in vals],
+                **attrs)[0].asnumpy()
+        eager = mt.nd._contrib_quantized_conv(
+            *[mt.nd.array(v, dtype=v.dtype, ctx=gpu) for v in vals],
+            **attrs)[0].asnumpy()
+        bits[name] = {"K": ks[name], "shape": list(card_acc.shape),
+                      "max_abs": int(np.abs(card_acc).max()),
+                      "bit_equal_cpu": bool(np.array_equal(card_acc,
+                                                           cpu_acc)),
+                      "bit_equal_eager": bool(np.array_equal(card_acc,
+                                                             eager))}
+    # the whole int8 model on the CPU path at a small batch
+    small = x[:c["cpu_batch"]]
+    pred_small = mt.Predictor(js, qblob, {"data": small.shape}, ctx=gpu)
+    pred_small.forward(data=mt.nd.array(small, ctx=gpu))
+    card_small = pred_small.get_output(0).asnumpy()
+    with cpu:
+        pred_cpu = mt.Predictor(js, {k: v.as_in_context(cpu)
+                                     for k, v in qblob.items()},
+                                {"data": small.shape}, ctx=cpu)
+        pred_cpu.forward(data=mt.nd.array(small, ctx=cpu))
+        cpu_small = pred_cpu.get_output(0).asnumpy()
+    cpu_err = _np_rel_err(card_small, cpu_small)
+    p50 = {k: float(np.percentile(v, 50)) for k, v in lat.items()}
+    rec = {"sub": "20c", "card": card, "batch": batch, "side": side,
+           "layers": len(layers), "excluded": list(excluded),
+           "graph": counts, "quantize_s": quant_s,
+           "int32_layers": bits, "int8_vs_cpu_path": cpu_err,
+           "int8_vs_fp32": _np_rel_err(q_out, f_out),
+           "top1_agree_fp32": float((q_out.argmax(1) ==
+                                     f_out.argmax(1)).mean()),
+           "p50_ms": p50,
+           "images_per_s": {k: batch * 1e3 / v for k, v in p50.items()},
+           "phase_s": time.perf_counter() - t0}
+    log(json.dumps(rec, default=float))
+    bad = [n for n, b in bits.items()
+           if not (b["bit_equal_cpu"] and b["bit_equal_eager"])]
+    if bad:
+        raise AssertionError(f"20c: int32 sums differ from the CPU path in "
+                             f"{bad}")
+    if cpu_err > INT8_CPU_TOL:
+        raise AssertionError(f"20c: int8 outputs off the CPU path by "
+                             f"{cpu_err} (tolerance {INT8_CPU_TOL})")
+    del pred, fp32, pred_small, net
+    return rec
+
+
+def _ssd300_anchors(ctx):
+    """MultiBoxPrior over SSD-300's six feature maps (VGG16-reduced at
+    300: 38, 19, 10, 5, 3, 1), concatenated: (1, 8732, 4)."""
+    outs = []
+    for side, sizes, ratios, step in SSD300:
+        feat = mt.nd.zeros((1, 1, side, side), ctx=ctx)
+        outs.append(mt.nd.contrib.MultiBoxPrior(feat, sizes=sizes,
+                                                ratios=ratios,
+                                                steps=(step, step)))
+    return mt.nd.concat(*outs, dim=1)
+
+
+def _ssd300_inputs():
+    rng = np.random.RandomState(SEED + 21)
+    b, c = SSD300_BATCH, SSD300_CLASSES
+    labels = np.full((b, 8, 5), -1.0, np.float32)
+    for i in range(b):
+        m = rng.randint(1, 9)
+        xy = rng.uniform(0, 0.7, (m, 2))
+        wh = rng.uniform(0.05, 0.3, (m, 2))
+        labels[i, :m, 0] = rng.randint(0, c, m)
+        labels[i, :m, 1:] = np.concatenate([xy, xy + wh], 1)
+    logits = rng.randn(b, c + 1, 8732).astype(np.float32)
+    e = np.exp(logits - logits.max(1, keepdims=True))
+    probs = (e / e.sum(1, keepdims=True)).astype(np.float32)
+    return labels, logits, probs
+
+
+def _ssd_train(ctx, cfg):
+    """`example/ssd/train_ssd.py`'s SSDNet and loss, ``steps`` SGD steps on
+    its synthetic shapes; the losses and each step's ms."""
+    nd, ag = mt.nd, mt.autograd
+    sizes, ratios, ncls = [0.3, 0.5, 0.7], [1.0, 1.5, 0.67], 3
+    na = len(sizes) + len(ratios) - 1
+    rng = np.random.RandomState(SEED + 22)
+    steps = cfg["steps"]
+    n, side = cfg["batch"] * 4, cfg["image"]
+    X = rng.uniform(0, 0.2, (n, 3, side, side)).astype(np.float32)
+    L = np.zeros((n, 1, 5), np.float32)
+    for i in range(n):
+        cls = rng.randint(ncls)
+        w, h = rng.uniform(0.3, 0.6, 2)
+        x0, y0 = rng.uniform(0.05, 0.9 - w), rng.uniform(0.05, 0.9 - h)
+        X[i, cls, int(y0 * side):int((y0 + h) * side),
+          int(x0 * side):int((x0 + w) * side)] += 0.8
+        L[i, 0] = [cls, x0, y0, x0 + w, y0 + h]
+    gl = mt.gluon
+    mt.random.seed(SEED)
+    with ctx:
+        backbone = gl.nn.Sequential()
+        for filters in (16, 32, 64):
+            backbone.add(gl.nn.Conv2D(filters, 3, padding=1),
+                         gl.nn.BatchNorm(), gl.nn.Activation("relu"),
+                         gl.nn.MaxPool2D(2))
+        cls_head = gl.nn.Conv2D(na * (ncls + 1), 3, padding=1)
+        loc_head = gl.nn.Conv2D(na * 4, 3, padding=1)
+        blocks = [backbone, cls_head, loc_head]
+        for blk in blocks:
+            blk.initialize(ctx=ctx)
+        feat = backbone(nd.zeros((2, 3, side, side), ctx=ctx))
+        cls_head(feat)
+        loc_head(feat)
+        params = {}
+        for blk in blocks:
+            params.update(blk.collect_params())
+        trainer = gl.Trainer(params, "sgd", {"learning_rate": 0.02,
+                                             "momentum": 0.9, "wd": 1e-4})
+        ce = gl.loss.SoftmaxCrossEntropyLoss()
+        bs = cfg["batch"]
+        losses, ms = [], []
+        for step in range(steps):
+            idx = np.arange(step * bs, (step + 1) * bs) % n
+            x = nd.array(X[idx], ctx=ctx)
+            y = nd.array(L[idx], ctx=ctx)
+            _spmd_sync(ctx.device)
+            t = time.perf_counter()
+            with ag.record():
+                feat = backbone(x)
+                anchors = nd.contrib.MultiBoxPrior(feat, sizes=sizes,
+                                                   ratios=ratios)
+                cls = nd.reshape(nd.transpose(cls_head(feat),
+                                              axes=(0, 2, 3, 1)),
+                                 shape=(0, -1, ncls + 1))
+                loc = nd.reshape(nd.transpose(loc_head(feat),
+                                              axes=(0, 2, 3, 1)),
+                                 shape=(0, -1))
+                loc_t, loc_mask, cls_t = nd.contrib.MultiBoxTarget(
+                    anchors, y, nd.transpose(cls, axes=(0, 2, 1)),
+                    negative_mining_ratio=3.0, negative_mining_thresh=0.5)
+                flat = nd.reshape(cls, shape=(-1, ncls + 1))
+                tgt = nd.reshape(cls_t, shape=(-1,))
+                per_anchor = ce(flat, nd.maximum(tgt, 0.0))
+                num_pos = nd.maximum((cls_t > 0).sum(), 1.0)
+                lc = (per_anchor * (tgt >= 0)).sum() / num_pos
+                ll = nd.smooth_l1((loc - loc_t) * loc_mask,
+                                  scalar=1.0).sum() / num_pos
+                loss = lc + ll
+            loss.backward()
+            trainer.step(1)
+            losses.append(float(loss.asnumpy()))
+            ms.append((time.perf_counter() - t) * 1e3)
+    return losses, ms
+
+
+def phase_contrib(card, device="cuda", ssd=None):
+    """20d: every contrib case of `tests/torch_contrib_cases.py` (the 57
+    names) on the card against the port's CPU path, the samplers by
+    structure; SSD-300's detection head (8732 anchors, 21 classes, batch
+    32) on the card against the CPU path; `train_ssd.py`'s SSDNet,
+    SSD_TRAIN["steps"] steps with the loss falling."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import torch_contrib_cases as cc
+    import torch_sweep_cases as cases
+    t0 = time.perf_counter()
+    gpu = mt.gpu(0) if device == "cuda" else mt.Context("cpu", 0)
+    cpu = mt.cpu()
+    train = dict(SSD_TRAIN, **(ssd or {}))
+    worst = {}
+    for case, (name, inputs, attrs, wrt) in sorted(cc.CASES.items()):
+        got, ggrad = cases.run_case(mt, name, inputs, attrs, wrt,
+                                    make=cc.maker(mt, gpu))
+        with cpu:
+            want, wgrad = cases.run_case(mt, name, inputs, attrs, wrt,
+                                         make=cc.maker(mt, cpu))
+        errs = []
+        for g, w in list(zip(got, want)) + list(zip(ggrad, wgrad)):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                raise AssertionError(f"20d {case}: {g.shape} {g.dtype} "
+                                     f"against {w.shape} {w.dtype}")
+            if not np.issubdtype(w.dtype, np.floating):
+                if not np.array_equal(g, w):
+                    raise AssertionError(f"20d {case}: integer outputs "
+                                         "differ from the CPU path")
+                errs.append(0.0)
+            else:
+                errs.append(_np_rel_err(g, w) if np.abs(w).max() > 0
+                            else float(np.abs(g).max()))
+        worst[case] = max(errs)
+    for case, (name, inputs, attrs) in sorted(cc.SAMPLERS.items()):
+        verts, neigh = getattr(mt.nd, name)(
+            *[cc.maker(mt, gpu)(x) for x in inputs], **attrs)
+        cc.sampler_structure(inputs[0], inputs[-1], verts.asnumpy(),
+                             neigh.asnumpy(), attrs["num_neighbor"],
+                             attrs["max_num_vertices"])
+    over = {k: v for k, v in worst.items() if v > CONTRIB_TOL}
+    # SSD-300's head
+    labels, logits, probs = _ssd300_inputs()
+    head = {}
+    nms_ms = None
+    for dev in (gpu, cpu):
+        with dev:
+            anchors = _ssd300_anchors(dev)
+            target = mt.nd.contrib.MultiBoxTarget(
+                anchors, mt.nd.array(labels, ctx=dev),
+                mt.nd.array(logits, ctx=dev), overlap_threshold=0.5,
+                negative_mining_ratio=3.0, negative_mining_thresh=0.5)
+            loc = mt.nd.zeros((SSD300_BATCH, 8732 * 4), ctx=dev)
+            p = mt.nd.array(probs, ctx=dev)
+            det = mt.nd.contrib.MultiBoxDetection(
+                p, loc, anchors, nms_threshold=0.45, nms_topk=400)
+            head["card" if dev is gpu else "cpu"] = [anchors.asnumpy()] + \
+                [t.asnumpy() for t in target] + [det.asnumpy()]
+            if dev is gpu and device == "cuda":
+                nms_ms = time_ms(lambda: mt.nd.contrib.MultiBoxDetection(
+                    p, loc, anchors, nms_threshold=0.45,
+                    nms_topk=400).wait_to_read(), iters=5, warmup=1)
+    g, c_ = head["card"], head["cpu"]
+    n_anchor = g[0].shape[1]
+    pos_equal = np.array_equal(g[3] > 0, c_[3] > 0) and \
+        np.array_equal(np.where(g[3] > 0, g[3], 0),
+                       np.where(c_[3] > 0, c_[3], 0))
+    neg_count = np.array_equal((g[3] == 0).sum(1), (c_[3] == 0).sum(1))
+    neg_overlap = float(((g[3] == 0) & (c_[3] == 0)).sum() /
+                        max((c_[3] == 0).sum(), 1))
+    ssd = {"anchors": n_anchor,
+           "anchors_equal": bool(np.array_equal(g[0], c_[0])),
+           "box_target_err": _np_rel_err(g[1], c_[1]),
+           "box_mask_equal": bool(np.array_equal(g[2], c_[2])),
+           "positives_equal": bool(pos_equal),
+           "negative_counts_equal": bool(neg_count),
+           "negative_overlap": neg_overlap,
+           "detection_equal": bool(np.array_equal(g[4], c_[4])),
+           "kept": int((g[4][..., 0] >= 0).sum()), "nms_ms": nms_ms}
+    losses, ms = _ssd_train(gpu, train)
+    ssd_train = {"loss_first": float(np.mean(losses[:3])),
+                 "loss_last": float(np.mean(losses[-3:])),
+                 "step_ms_p50": float(np.percentile(ms[2:], 50))}
+    rec = {"sub": "20d", "card": card, "cases": len(worst),
+           "worst": max(worst.items(), key=lambda kv: kv[1]),
+           "over_tol": over, "ssd300": ssd, "ssd_train": ssd_train,
+           "phase_s": time.perf_counter() - t0}
+    log(json.dumps(rec, default=float))
+    if over:
+        raise AssertionError(f"20d: off the CPU path: {over}")
+    if n_anchor != 8732 or not (ssd["anchors_equal"] and
+                                ssd["box_mask_equal"] and pos_equal and
+                                neg_count and ssd["detection_equal"]) or \
+            ssd["box_target_err"] > CONTRIB_TOL or \
+            neg_overlap < SSD_NEG_OVERLAP:
+        raise AssertionError(f"20d: SSD-300's head {ssd}")
+    if not ssd_train["loss_last"] < ssd_train["loss_first"]:
+        raise AssertionError(f"20d: SSDNet's loss did not fall "
+                             f"{ssd_train}")
+    return rec
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -8720,6 +9458,9 @@ def main():
     ctx_launches = phase_contexts(card)
     dist_launches = phase_distributed(card)
     spmd_launches = phase_spmd(card)
+    elastic_launches = phase_elastic(card)
+    phase_int8(card)
+    phase_contrib(card)
     leaked = [m for m in ("jax", "mxnet_tpu") if m in sys.modules]
     if leaked:
         raise SystemExit(f"chip_smoke: the port imported {leaked}")
@@ -8729,7 +9470,7 @@ def main():
         f"data {data_launches}, control flow {cf_launches}, serving plane "
         f"{plane_launches}, generation {gen_launches}, contexts "
         f"{ctx_launches}, distributed {dist_launches}, spmd "
-        f"{spmd_launches}")
+        f"{spmd_launches}, elastic {elastic_launches}")
     kernels = [{
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -8739,7 +9480,7 @@ def main():
         state_launches["flash_attn_fwd"] +
         plane_launches["flash_attn_fwd"] + gen_launches["flash_attn_fwd"] +
         ctx_launches["flash_attn_fwd"] + dist_launches["flash_attn_fwd"] +
-        spmd_launches["flash_attn_fwd"],
+        spmd_launches["flash_attn_fwd"] + elastic_launches["flash_attn_fwd"],
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
@@ -8753,7 +9494,8 @@ def main():
             "replaces": f"mxnet_tpu/ops/pallas_kernels.py:{line}",
             "launches": train_launches[name] + fit_launches[name] +
             state_launches[name] + ctx_launches[name] +
-            dist_launches[name] + spmd_launches[name],
+            dist_launches[name] + spmd_launches[name] +
+            elastic_launches[name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],

@@ -88,6 +88,7 @@ from . import serving_fleet, autoscale  # noqa: E402
 from . import executor_manager  # noqa: E402
 from . import parallel, ps_server, comm_plane  # noqa: E402
 from . import embedding_plane  # noqa: E402
+from . import contrib  # noqa: E402
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "cpu_pinned",
            "cpu_shared", "current_context", "num_gpus", "nd", "sym",
@@ -101,7 +102,7 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "cpu_pinned",
            "predictor", "ps_wire", "serving", "fault_injection",
            "generation", "serving_fleet", "autoscale", "executor_manager",
            "parallel", "ps_server", "comm_plane", "embedding_plane",
-           "kvstore_server"]
+           "kvstore_server", "contrib"]
 
 # imported last, as the reference's (`python/mxnet/__init__.py:91`): under
 # DMLC_ROLE=server with BYTEPS_ENABLE_ASYNC set, this process becomes the

@@ -113,6 +113,30 @@ _reg("MXTPU_RING_FLASH", str, "1",
      "per-block softmax (parallel/ring_attention.py)")
 _reg("MXTPU_HEARTBEAT_PORT", int, 9099,
      "port of rank 0's heartbeat monitor (parallel/failure.py)")
+_reg("MXTPU_SPMD_SHARD_REDUNDANCY", _flag, False,
+     "buddy redundancy of the ZeRO-1 optimizer-state shards: each rank "
+     "also keeps its ring successor's shard, updated locally from the "
+     "summed gradient it already holds (state 1/N -> 2/N, no extra "
+     "traffic), so the loss of one rank recovers in memory instead of "
+     "from a disk checkpoint (unified_step.UnifiedTrainStep.recover_lost)")
+
+# --- the elastic mesh (parallel/elastic_mesh.py) --------------------------
+_reg("MXTPU_MESH_ELASTIC", _flag, True,
+     "mesh health monitoring of the sharded SPMD step: every step is "
+     "preceded by a one-element sentinel sum over the mesh's dp line on a "
+     "watchdog thread, so a dead or stopped rank raises a structured "
+     "MeshDegradedError instead of blocking a collective; 0 is the kill "
+     "switch (no probe, the fault plan never consulted)")
+_reg("MXTPU_MESH_STEP_TIMEOUT_S", float, 60.0,
+     "watchdog bound (seconds) on the elastic-mesh sentinel: a probe not "
+     "done within it runs the census (a roll call through the group's "
+     "store) that names the lost ranks; <=0 skips the probe (injected "
+     "kills and hangs still fire)")
+_reg("MXTPU_MESH_ON_LOSS", str, "shrink",
+     "TrainingSupervisor policy on MeshDegradedError: 'shrink' recovers "
+     "the lost shard (buddy copy, else the latest valid checkpoint), bans "
+     "the lost ranks and rebuilds the step over the survivors; 'preempt' "
+     "writes the bounded final checkpoint and exits 75")
 
 # --- the training driver (train_driver.py) --------------------------------
 _reg("MXTPU_DRIVER", _flag, True,

@@ -30,7 +30,8 @@ and their consumers in this package:
   :meth:`driver_step_event`), consumed by `train_driver.
   TrainingSupervisor` at each step boundary, and **mesh-device events**
   (``kill_device_at``, ``hang_device_at``: :meth:`mesh_step_event`),
-  held by their own logic until the elastic mesh's probe is ported;
+  consumed by `parallel.elastic_mesh`'s probe before each sharded step:
+  the mesh's last rank really exits or stops there;
 * **poisoned steps** (``poison_step_at``: :meth:`poison_step_event`),
   the port's own: the unified training step (dense or sharded) consults
   the plan once per step and runs a poisoned one eagerly with NaN

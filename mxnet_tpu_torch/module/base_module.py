@@ -219,6 +219,7 @@ class BaseModule:
         # input wait vs compute vs comm through a structured event (host
         # clocks only: nothing here waits for the card)
         watchdog = _tele.SlowStepWatchdog()
+        from ..parallel.elastic_mesh import MeshDegradedError as _MeshDeg
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
             eval_metric.reset()
@@ -240,15 +241,29 @@ class BaseModule:
                 comm0 = float(_prof.comm_counters().get("blocked_s", 0.0))
                 t_step = time.perf_counter()
                 # one trace id per training step
-                with _tele.trace():
-                    if monitor is not None:
-                        monitor.tic()
-                    if not self.fused_step(data_batch,
-                                           eval_metric=eval_metric):
-                        self.forward_backward(data_batch)
-                        self.update()
-                    if not self.last_step_metric_done:
-                        self.update_metric(eval_metric, data_batch.label)
+                while True:
+                    try:
+                        with _tele.trace():
+                            if monitor is not None:
+                                monitor.tic()
+                            if not self.fused_step(data_batch,
+                                                   eval_metric=eval_metric):
+                                self.forward_backward(data_batch)
+                                self.update()
+                            if not self.last_step_metric_done:
+                                self.update_metric(eval_metric,
+                                                   data_batch.label)
+                        break
+                    except _MeshDeg as mexc:
+                        if sup is None:
+                            raise
+                        # a mesh member is lost: the probe fired before
+                        # anything mutated, so after the supervisor shrinks
+                        # (or preempts, which raises) the same batch retries
+                        sup.on_mesh_degraded(mexc, module=self,
+                                             ckpt_mgr=ckpt_mgr, epoch=epoch,
+                                             nbatch=nbatch,
+                                             train_data=train_data)
                 step_s = time.perf_counter() - t_step
                 comm_s = max(0.0, float(_prof.comm_counters()
                                         .get("blocked_s", 0.0)) - comm0)

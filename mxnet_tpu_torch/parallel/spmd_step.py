@@ -41,13 +41,20 @@ def zero1_enabled() -> bool:
 
 def resolve_mesh(devices=None) -> Optional[Mesh]:
     """The one-axis ``dp`` mesh ``MXTPU_SPMD`` names (over ``devices``, by
-    default every rank's device), or None when the knob is off.  A count
-    larger than the group is clamped to it.  Meshes are kept, so their
-    process groups form once."""
+    default every rank's device), or None when the knob is off.  Ranks
+    the elastic mesh banned (`elastic_mesh.ban_device`: lost ranks) are
+    never adopted.  A count larger than the ranks left is clamped to
+    them.  Meshes are kept, so their process groups form once."""
+    from .elastic_mesh import banned_ids
     v = config.get_env("MXTPU_SPMD", "").strip().lower()
     if v in _OFF:
         return None
     devs = list(devices) if devices is not None else list(_devices())
+    banned = banned_ids()
+    if banned:
+        devs = [d for d in devs if int(d.id) not in banned]
+        if not devs:
+            return None
     if v in ("true", "on", "auto", "all"):
         n = len(devs)
     else:
@@ -58,7 +65,7 @@ def resolve_mesh(devices=None) -> Optional[Mesh]:
         if n < 1:
             return None
         n = min(n, len(devs))
-    key = (tuple(devs[:n]), _dist.size())
+    key = (tuple(devs[:n]), _dist.size(), banned)
     mesh = _MESHES.get(key)
     if mesh is None:
         grid = np.empty(n, dtype=object)

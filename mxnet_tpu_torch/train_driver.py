@@ -44,12 +44,14 @@ not checkpointed is lost.  This module owns that story end to end:
   ``MXTPU_ANOMALY_LIMIT``, with every skip recorded into the flight
   recorder as a ``grad_anomaly`` event.
 
+* **Mesh loss** -- `TrainingSupervisor.on_mesh_degraded` applies
+  ``MXTPU_MESH_ON_LOSS`` when the SPMD probe of `parallel.elastic_mesh`
+  raised `MeshDegradedError` (a rank died or stopped answering): shrink
+  over the survivors and retry the batch, or preempt.
+
 ``MXTPU_DRIVER=0`` is the kill switch: `activate()` refuses, signal
 handlers never install, `current()` returns None and every existing
 code path runs exactly as before.
-
-The mesh device-loss policy (``on_mesh_degraded``, the JAX package's
-elastic-mesh shrink) comes with the port of `parallel/elastic_mesh.py`.
 """
 from __future__ import annotations
 
@@ -389,6 +391,111 @@ class TrainingSupervisor:
         if self._stop.is_set():
             self.finalize_preemption(module, ckpt_mgr, epoch=epoch,
                                      nbatch=nbatch)
+
+    def on_mesh_degraded(self, exc, module=None, ckpt_mgr=None,
+                         epoch: Optional[int] = None,
+                         nbatch: Optional[int] = None,
+                         train_data=None) -> None:
+        """Mesh loss policy (`parallel.elastic_mesh`): `fit` calls this
+        when the SPMD probe raised `MeshDegradedError` ahead of a step.
+        ``MXTPU_MESH_ON_LOSS=preempt``, or a loss the census could not
+        attribute, takes the bounded-checkpoint exit-75 path (with the
+        buddy copies merged first where they cover the loss, so the
+        checkpoint holds the live state; without them it writes nothing
+        and the last valid checkpoint stays the resume point).  ``shrink``
+        recovers the lost ZeRO-1 shard (the buddy copy, else the
+        ``latest_valid()`` checkpoint), releases the step, bans the lost
+        ranks, sets ``MXTPU_SPMD`` to the n' survivors, routes the lost
+        ranks through the heartbeat's forgiveness path, and returns: `fit`
+        then retries the same batch on the survivors' mesh."""
+        from . import config as _cfg
+        from . import profiler as _prof
+        from . import telemetry as _tele
+        from .parallel import elastic_mesh as _em
+        lost = list(exc.lost)
+        n_prime = int(exc.mesh_size) - len(lost)
+        hb = self._hb_monitor
+        if hb is not None:
+            # a lost rank rides the silent-worker machinery: its lease
+            # expires now, the next sweep reports it once
+            for r in lost:
+                try:
+                    hb.report_device_loss(self._hb_rank_of(r))
+                except Exception:  # noqa: BLE001
+                    pass
+        sst = getattr(module, "_spmd_train_step", None)
+        if _em.on_loss_policy() == "preempt" or not lost or n_prime < 1:
+            self.request_stop(
+                f"mesh degraded ({exc.reason}): lost "
+                f"{lost or 'unattributed'} of {exc.mesh_size}")
+            saveable = module
+            if sst is not None:
+                # the flat shards live on the lost ranks too: merge what
+                # survives, never gather over the broken mesh
+                if not lost or sst.recover_lost(lost) is False:
+                    sst.invalidate()
+                    saveable = None
+                sst.release()
+                module._spmd_train_step = None
+            self.finalize_preemption(saveable, ckpt_mgr, epoch=epoch,
+                                     nbatch=nbatch)  # raises
+        t0 = time.perf_counter()
+        mode = "none-needed"
+        if sst is not None:
+            mode = sst.recover_lost(lost)
+            if mode is False:
+                # the flat shards are incomplete: never export them over
+                # the per-parameter states
+                sst.invalidate()
+            sst.release()
+            module._spmd_train_step = None
+        if mode == "buddy":
+            _prof.bump_mesh("buddy_recoveries")
+        elif mode is False:
+            ck = ckpt_mgr.latest_valid() if ckpt_mgr is not None else None
+            if ck is None:
+                self.logger.error(
+                    "mesh shrink: the lost shard has no buddy copy "
+                    "(MXTPU_SPMD_SHARD_REDUNDANCY off?) and no valid "
+                    "checkpoint exists; preempting instead")
+                self.request_stop(f"mesh degraded, unrecoverable: {exc}")
+                self.finalize_preemption(None, ckpt_mgr, epoch=epoch,
+                                         nbatch=nbatch)  # raises
+            ckpt_mgr.restore(ck, module=module)
+            _prof.bump_mesh("disk_recoveries")
+        for did in exc.lost_device_ids:
+            _em.ban_device(did)
+        _cfg.set_env("MXTPU_SPMD", str(n_prime))
+        _em.note_shrunk()
+        if hb is not None:
+            for r in lost:
+                hb.forget(self._hb_rank_of(r))
+        if train_data is not None and hasattr(train_data, "repartition"):
+            # re-anchor this worker's slice only when the partition
+            # changed: repartition() rewinds, and mid-epoch that would
+            # replay batches (a mesh shrink keeps the worker count)
+            kv = getattr(module, "_kvstore", None)
+            nw = int(getattr(kv, "num_workers", 1) or 1)
+            rk = int(getattr(kv, "rank", 0) or 0)
+            cur = (int(getattr(train_data, "num_parts", 1) or 1),
+                   int(getattr(train_data, "part_index", 0) or 0))
+            if cur != (nw, rk):
+                try:
+                    train_data.repartition(nw, rk)
+                except Exception as e:  # noqa: BLE001
+                    _tele.record_error(e, kind="mesh_reshard_iter",
+                                       dump=False)
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        _prof.bump_mesh("reshards")
+        _prof.bump_mesh("reshard_ms", dt_ms)
+        _tele.event("mesh_shrunk", n_from=int(exc.mesh_size),
+                    n_to=n_prime, lost=lost, recovery=str(mode),
+                    reshard_ms=round(dt_ms, 3), reason=exc.reason,
+                    epoch=epoch, batch=nbatch)
+        self.logger.warning(
+            "mesh degraded (%s): lost rank(s) %s of %d; recovered via %s, "
+            "training continues at n'=%d (%.0f ms reshard)",
+            exc.reason, lost, exc.mesh_size, mode, n_prime, dt_ms)
 
     def on_epoch_end(self, module=None, ckpt_mgr=None,
                      epoch: Optional[int] = None,

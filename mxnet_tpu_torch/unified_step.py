@@ -208,13 +208,16 @@ _SHARD_ALIGN = 64
 class ShardingSpec:
     """The annotation that turns the dense step into the sharded one:
     ``mesh`` is a one-axis ``dp`` mesh of ranks, ``zero1`` shards the
-    update across it (off = the all-reduce baseline)."""
+    update across it (off = the all-reduce baseline); ``redundancy`` keeps
+    each rank's ring successor's state shard as a buddy copy (None =
+    ``MXTPU_SPMD_SHARD_REDUNDANCY``)."""
 
-    __slots__ = ("mesh", "zero1")
+    __slots__ = ("mesh", "zero1", "redundancy")
 
-    def __init__(self, mesh, zero1: bool = True):
+    def __init__(self, mesh, zero1: bool = True, redundancy=None):
         self.mesh = mesh
         self.zero1 = bool(zero1)
+        self.redundancy = redundancy
 
 
 class _Group:
@@ -372,15 +375,25 @@ class UnifiedTrainStep:
         self._mesh = None
         self._n = 1
         self._zero1 = False
+        self._redundancy = False
         if sharding is not None:
+            from .parallel import elastic_mesh as _emesh
             if sharding.mesh is None:
                 raise ValueError("the sharded profile needs a mesh on its "
                                  "ShardingSpec")
             self._mesh = sharding.mesh
             self._n = int(self._mesh.size)
             self._zero1 = bool(sharding.zero1)
+            red = sharding.redundancy
+            if red is None:
+                red = _emesh.shard_redundancy_enabled()
+            # buddy redundancy: each rank also keeps its ring successor's
+            # state shard, updated from the summed gradient it holds anyway
+            self._redundancy = bool(red) and self._zero1 and self._n > 1
             self._groups: Optional[List[_Group]] = None
             self._flat_states: List[Tuple[torch.Tensor, ...]] = []
+            self._buddy_states: Optional[List[Tuple[torch.Tensor, ...]]] = \
+                None
             self._stale = True
             self._disabled = False
             self._locals: Dict[Tuple, Any] = {}
@@ -648,6 +661,60 @@ class UnifiedTrainStep:
         if getattr(self._updater, "_spmd_bridge", None) is self:
             self._updater._spmd_bridge = None
 
+    def recover_lost(self, lost):
+        """Make the updater's per-parameter states the authority again
+        after losing mesh positions ``lost``, without anything of the lost
+        ranks.  ``"none-needed"``: they already are, or the survivors hold
+        everything (stale buffers, the all-reduce baseline, a stateless
+        optimizer); ``"buddy"``: the survivors gathered their shards and
+        the buddy copies of the lost ones (over a fresh group of theirs)
+        and merged them into the per-parameter states; False: a lost
+        shard has no surviving copy (no redundancy, or its buddy holder is
+        lost too), the caller restores a checkpoint.  On success the flat
+        buffers are stale, so the rebuilt step imports the merged state."""
+        from .parallel import distributed as _dist
+        lost_set = {int(r) for r in lost}
+        if not self.sharded or self._groups is None or self._stale:
+            return "none-needed"
+        if not self._zero1 or self._n == 1:
+            self.export_states()
+            self._stale = True
+            _prof.bump_spmd("resharding_events")
+            return "none-needed"
+        if not any(grp.slot_dtypes for grp in self._groups):
+            self._stale = True
+            return "none-needed"
+        if not self._redundancy or self._buddy_states is None:
+            return False
+        n = self._n
+        if any((r - 1) % n in lost_set for r in lost_set):
+            return False   # a lost rank's buddy holder is lost too
+        survivors = [p for p in range(n) if p not in lost_set]
+        ranks = [int(self._mesh.ranks.flat[p]) for p in survivors]
+        group = _dist.new_group(ranks) if len(ranks) > 1 else None
+        for grp, bufs, buddies in zip(self._groups, self._flat_states,
+                                      self._buddy_states):
+            sz = grp.shard
+            for k, dt in enumerate(grp.slot_dtypes):
+                mine = torch.stack([bufs[k], buddies[k]])
+                parts = [mine] if group is None else [
+                    t.to(self._device) for t in
+                    _dist.gather_parts(mine, group, line=ranks)]
+                full = torch.empty(grp.padded, dtype=dt, device=self._device)
+                for p, part in zip(survivors, parts):
+                    full[p * sz:(p + 1) * sz] = part[0]
+                    q = (p + 1) % n
+                    if q in lost_set:
+                        full[q * sz:(q + 1) * sz] = part[1]
+                for m, (size, off, shape) in enumerate(
+                        zip(grp.sizes, grp.offsets, grp.shapes)):
+                    grp.slot_nds[m][k]._set_data(
+                        full[off:off + size].reshape(shape).clone())
+        self._stale = True
+        self._buddy_states = None
+        _prof.bump_spmd("resharding_events")
+        return "buddy"
+
     def _build_groups(self, lrs, wds) -> None:
         exec_, upd = self._exec, self._updater
         opt = upd.optimizer
@@ -689,9 +756,10 @@ class UnifiedTrainStep:
         behind, so the state really is O(P/N) between checkpoints."""
         from .parallel.mesh import DP
         r = self._mesh.axis_index(DP)
-        flat_states = []
+        s = (r + 1) % self._n
+        flat_states, buddy_states = [], []
         for grp in self._groups:
-            bufs = []
+            bufs, buddies = [], []
             for k, dt in enumerate(grp.slot_dtypes):
                 parts = [grp.slot_nds[m][k].data.reshape(-1).to(
                     self._device, dt) for m in range(len(grp.names))]
@@ -700,15 +768,21 @@ class UnifiedTrainStep:
                     parts.append(torch.zeros(pad, dtype=dt,
                                              device=self._device))
                 flat = torch.cat(parts)
+                if self._redundancy:
+                    # the successor's shard, from step 0 on
+                    buddies.append(
+                        flat[s * grp.shard:(s + 1) * grp.shard].clone())
                 if self._zero1:
                     flat = flat[r * grp.shard:(r + 1) * grp.shard].clone()
                 bufs.append(flat)
             flat_states.append(tuple(bufs))
+            buddy_states.append(tuple(buddies))
             for m in range(len(grp.names)):
                 for k, dt in enumerate(grp.slot_dtypes):
                     grp.slot_nds[m][k]._set_data(
                         torch.zeros(1, dtype=dt, device=self._device))
         self._flat_states = flat_states
+        self._buddy_states = buddy_states if self._redundancy else None
         self._stale = False
         self._graphs.clear()
         _prof.bump_spmd("resharding_events")
@@ -722,6 +796,10 @@ class UnifiedTrainStep:
             for b in bufs:
                 local += b.numel() * b.element_size()
                 total += grp.padded * b.element_size()
+        # the buddy copies count toward the bytes held, not the total
+        for bufs in self._buddy_states or []:
+            for b in bufs:
+                local += b.numel() * b.element_size()
         if total == 0:   # a stateless optimizer: the update's share
             frac = (1.0 / self._n) if self._zero1 else 1.0
         else:
@@ -779,6 +857,7 @@ class UnifiedTrainStep:
     def _step_sharded(self, feeds) -> bool:
         from .ops.nn import batch_stats_scope
         from .parallel import collectives as C
+        from .parallel import elastic_mesh as _emesh
         from .parallel.mesh import DP
         exec_, upd = self._exec, self._updater
         opt = upd.optimizer
@@ -805,6 +884,14 @@ class UnifiedTrainStep:
             i = self._train_idx[name]
             if opt._fused_plan(i, w, upd._state(i, w)) is None:
                 return self._fallback(transient=False)
+        # mesh health (MXTPU_MESH_ELASTIC): the bounded probe runs before
+        # anything mutates (the update counts advance just below), so a
+        # lost rank raises MeshDegradedError here with nothing applied and
+        # the supervisor's retry of this batch counts it once
+        if _emesh.elastic_enabled():
+            _emesh.monitor_for(self._mesh).check()
+            if _emesh.shrink_count():
+                _prof.bump_mesh("degraded_steps")
         opt._set_current_context(exec_._ctx.device_id)
         # the update counts advance here, after every fallback check
         lrs, wds = self._host_scalars(opt)
@@ -841,6 +928,8 @@ class UnifiedTrainStep:
         ws = [w.data for w in ws_nd]
         aux_dict = exec_.aux_dict
         groups, flat_states = self._groups, self._flat_states
+        buddy_states = self._buddy_states or []
+        succ = (r + 1) % n
         reduce = C.reducer(mesh, (DP,)) if n > 1 else None
 
         def psum(x):
@@ -862,7 +951,7 @@ class UnifiedTrainStep:
             with torch.no_grad():
                 gsq = torch.zeros((), dtype=torch.float32,
                                   device=self._device)
-                plans = []
+                plans, buddy_plans = [], []
                 for gi, grp in enumerate(groups):
                     pad = grp.padded - grp.total
                     parts = [gs[p].reshape(-1) for p in grp.positions]
@@ -875,9 +964,17 @@ class UnifiedTrainStep:
                     flat_g = torch.cat(parts)
                     flat_w = torch.cat(wparts)
                     if zero1 and n > 1:
-                        g = C._block(psum(flat_g), mesh, DP, 0)
+                        full_g = psum(flat_g)
+                        g = C._block(full_g, mesh, DP, 0)
                         w = flat_w[r * grp.shard:(r + 1) * grp.shard]
                         w = w.clone()
+                        if buddy_states:
+                            # the successor's block of the same sum and of
+                            # the same replicated weights: its update, bit
+                            # for bit, with no traffic of its own
+                            lo, hi = succ * grp.shard, (succ + 1) * grp.shard
+                            buddy_plans.append((flat_w[lo:hi].clone(),
+                                                full_g[lo:hi]))
                     else:
                         g, w = psum(flat_g), flat_w
                     if guard:
@@ -893,12 +990,18 @@ class UnifiedTrainStep:
                     ok, gnorm = guard_verdict([], gsq)
                     ok = ok & (psum(bad) == 0)
                     kept = [t for t, _ in plans] + \
-                        [t for st in flat_states for t in st]
+                        [t for st in flat_states for t in st] + \
+                        [t for st in buddy_states for t in st]
                     before = [t.clone() for t in kept]
                 for gi, (grp, (w, g)) in enumerate(zip(groups, plans)):
                     lr, wd = scalars[gi]
                     apply_multi(grp.op_name, grp.static, [w], [g],
                                 [[t] for t in flat_states[gi]], lr, wd,
+                                rescale, clip)
+                for gi, (grp, (w, g)) in enumerate(zip(groups, buddy_plans)):
+                    lr, wd = scalars[gi]
+                    apply_multi(grp.op_name, grp.static, [w], [g],
+                                [[t] for t in buddy_states[gi]], lr, wd,
                                 rescale, clip)
                 if guard:
                     for t, b in zip(kept, before):

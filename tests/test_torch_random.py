@@ -130,6 +130,8 @@ def test_discrete_distribution(case):
 _P2 = np.array([[0.5, 1.0, 2.0], [1.5, 2.5, 3.0]], np.float32)
 _PR = np.array([[0.2, 0.3, 0.5], [0.6, 0.3, 0.1]], np.float32)
 _DATA = np.zeros((2, 3), np.float32)
+_ADJ = np.array([[0, 1, 2, 0, 0], [1, 0, 0, 3, 0], [2, 0, 0, 4, 5],
+                 [0, 3, 4, 0, 0], [0, 0, 5, 0, 0]], np.float32)
 CALLS = {
     "_random_uniform": ([], {"low": -1, "high": 2, "shape": (3, 4)}),
     "_random_normal": ([], {"loc": 1, "scale": 2, "shape": (3, 4)}),
@@ -160,6 +162,13 @@ CALLS = {
     "_sample_multinomial_one": ([_PR[0]], {}),
     "_sample_multinomial_get_prob": ([_PR], {"shape": 5, "get_prob": True}),
     "_shuffle": ([_P2], {}),
+    "_contrib_dgl_csr_neighbor_uniform_sample": (
+        [_ADJ, np.array([0, 2], np.float32)],
+        {"num_neighbor": 2, "max_num_vertices": 6}),
+    "_contrib_dgl_csr_neighbor_non_uniform_sample": (
+        [_ADJ, np.array([0.1, 0.2, 0.3, 0.2, 0.2], np.float32),
+         np.array([2, 3], np.float32)],
+        {"num_neighbor": 3, "max_num_vertices": 7}),
 }
 
 

@@ -247,8 +247,11 @@ def test_fault_plan_poisoned_step_is_skipped(monkeypatch, spmd):
         after = _fit(X, Y, epochs=2)   # step 5 is epoch 1's first
     finally:
         fi.clear()
+    # the sharded step's elastic-mesh probe consults the plan once a step
+    mesh_steps = 8 if spmd else 0
     assert plan.poisoned_steps == 1 and plan.summary() == \
-        fi.FaultPlan().summary() | {"driver_steps": 0}
+        fi.FaultPlan().summary() | {"driver_steps": 0,
+                                    "mesh_steps": mesh_steps}
     assert _prof.driver_counters().get("anomaly_skipped_steps") == 1
     for k, v in after.items():
         assert np.isfinite(v).all(), k

@@ -536,6 +536,41 @@ def suite_spmd_step(rank, n, workdir):
     return res
 
 
+def sync_bn_inputs():
+    rs = np.random.RandomState(61)
+    return (rs.randn(8, 3, 4, 4).astype(np.float32) *
+            np.array([1.0, 2.0, 0.5], np.float32)[None, :, None, None],
+            rs.uniform(0.5, 1.5, 3).astype(np.float32),
+            rs.randn(3).astype(np.float32),
+            rs.randn(3).astype(np.float32),
+            rs.uniform(0.5, 2, 3).astype(np.float32))
+
+
+def suite_sync_bn(rank, n):
+    """``SyncBatchNorm`` in training inside `shard_map` over dp: each
+    rank's output rows and the moving statistics it writes."""
+    from mxnet_tpu_torch.ops.registry import Attrs, canonical_attrs, get_op
+    fn = get_op("_contrib_SyncBatchNorm").fn
+    attrs = Attrs(canonical_attrs(dict(axis_name="dp", fix_gamma=False,
+                                       __train=True)))
+    mesh = par.make_mesh({par.DP: n})
+    x, gamma, beta, mm, mv = (_t(a) for a in sync_bn_inputs())
+    rows = x.shape[0] // n
+    out = {}
+
+    def body(xb, g, b, m, v):
+        o, nm, nv = fn(attrs, xb, g, b, m, v)
+        out["moving_mean"], out["moving_var"] = nm, nv
+        return o
+
+    full = C.shard_map(body, mesh=mesh,
+                       in_specs=(P(par.DP), P(), P(), P(), P()),
+                       out_specs=P(par.DP))(x, gamma, beta, mm, mv)
+    return {"out": full[rank * rows:(rank + 1) * rows].numpy(),
+            "moving_mean": out["moving_mean"].numpy(),
+            "moving_var": out["moving_var"].numpy()}
+
+
 def main():
     suite, outdir = sys.argv[1], sys.argv[2]
     dist.initialize()
