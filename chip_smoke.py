@@ -183,7 +183,7 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    `LibSVMIter` on a file the phase writes, SGD, Adam and AdaGrad each
    under that test's MSE; the trained ``v`` (row_sparse) and a csr batch
    through one ``.params``.  11c: phase 7's fit (dropout 0.1, BERT's
-   Adam) with ``MXTPU_CKPT_DIR``: run A in this process; run B in a child
+   Adam; CKPT_LAYERS of BERT-base's 12 layers) with ``MXTPU_CKPT_DIR``: run A in this process; run B in a child
    SIGKILLed while epoch 2's checkpoint is written (the window widened by
    ``MXTPU_CKPT_COMMIT_DELAY``), after which ``latest_valid()`` must name
    epoch 1's; a second child resumes and must end bit-equal to run A,
@@ -435,8 +435,9 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    mid-epoch ``preempted`` checkpoint; run C here resumes from it and
    must end bit-equal to A (weights and Adam states); A and B each skip
    the poisoned step once.
-20. elastic mesh and contrib ops.  20a: phase 19c's BERT-base MLM (12
-   layers at their published widths, 8 x 512, dropout 0, BERT's Adam)
+20. elastic mesh and contrib ops.  20a: phase 19c's BERT-base MLM (4 of
+   its 12 layers at their published widths, 8 x 512, dropout 0, BERT's
+   Adam)
    through ``Module.fit`` under ``MXTPU_SPMD=2`` with ZeRO-1,
    ``MXTPU_SPMD_SHARD_REDUNDANCY=1`` and a `TrainingSupervisor`, on two
    processes started with the launcher's ``DMLC_*`` env and sharing the
@@ -475,12 +476,59 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    negatives shared); then `example/ssd/train_ssd.py`'s SSDNet and loss,
    SSD_TRAIN["steps"] SGD steps on its synthetic shapes, the loss must
    fall.  K1-K3 launch once per layer a step in 20a-b.
+21. the front end (`gluon.contrib`, `contrib`, `rtc`, the rest).  21a:
+   the LSTM-2048-512 language model of Jozefowicz et al., "Exploring the
+   Limits of Language Modeling" (arXiv 1602.02410), on One Billion Word at
+   its published widths (LM1B: vocabulary 793,471, embedding 512 through
+   `gluon.contrib.nn.SparseEmbedding`, one `LSTMPCell` of 2048 projected
+   to 512 inside a `VariationalDropoutCell`, bptt 20, batch 128, sampled
+   softmax over 8192 ``rand_zipfian`` negatives with the log-expected-
+   count correction as `example/rnn/sampled_softmax_lm.py` scores,
+   Adagrad at lr 0.2 with eps 1; ~823 M parameters, random from the seed,
+   on a Zipf Markov token stream from the seed): one step at dropout 0
+   gives every parameter's gradient within LM1B_TOL of the same step in
+   float64 on the card (the same sampled ids); the full-softmax
+   evaluation at 16 x 20 has a finite perplexity, its log-probs within
+   LM1B_TOL of float64, and hybridized (each cell step, the embedding and
+   the softmax layer CUDA graph replays) within CAPTURE_TOL of eager; then
+   LM1B["steps"] Adagrad steps with dropout 0.1 must lower the loss on a
+   fixed batch and fixed samples; the step's ms and tokens/s, the eval's
+   ms and the peak memory are printed.  21b: `resnet50_v1()` at its
+   published widths exported by Gluon, written by
+   `contrib.onnx.export_model` on the card and on the CPU (the same bytes),
+   read back by `import_model` and served by `Predictor` at batch 32 x
+   224 within ONNX_TOL of the Gluon net's own outputs; the p50.  21c:
+   `SVRGModule` with `LinearRegressionOutput` on YearPredictionMSD's 90
+   features, synthetic from the seed, at 46,372 rows (a tenth of its
+   463,715 training rows, cut for the time limit), batch 100, a full pass
+   every 2 epochs, 4 epochs of SGD, shuffle off: the weights within
+   SVRG_TOL of the CPU path, the last epoch's training MSE within 2x of
+   numpy's least squares, one TSV row a batch from
+   `contrib.tensorboard.LogMetricsCallback`.  21d: MXNet's
+   `rtc.CudaModule` example (``axpy``) compiled by NVRTC for sm_90a at
+   RTC_N elements, ``y`` equal to ``y + alpha * x`` read by a torch op on
+   the same stream without a synchronize; ``axpy<float>`` and
+   ``axpy<double>`` through ``exports``; a compile error raises with
+   NVRTC's log; the compile ms.  21e: every `gluon.contrib` block and
+   cell at small shapes, eager and hybridized, a `CustomEmbedding` of a
+   10,000 x 300 file written from the seed (``idx_to_vec`` on the card
+   equal to the file's rows), `resource`'s temp spaces and streams,
+   `runtime.Features()` with CUDA, and a `TorchBlock` around a torch
+   ``nn.Sequential`` inside a Gluon net (the input's storage reaches the
+   torch module) on the card against the CPU path within FRONT_TOL.  No
+   TPU kernel lies on this phase's path: `LSTMPCell` splits its gates
+   with ``split``, which the graph optimizer's LSTM matcher does not
+   take, in either package.
 
-The time limit: phase 20 came with cuts elsewhere (18a-b at
-DIST_LAYERS of BERT-base's 12 layers and DIST_ASYNC_STEPS 2 of 4, the
-serving phases' ``TIMED`` and ``LSTM_TIMED`` counts halved, 19c at 2 of
-3 steps).  If the run nears its limit again, cut FLEET_REQUESTS, then
-19c's all-reduce run, before anything else of the training phases.
+The time limit: phase 20 came with cuts elsewhere (18a-b at 4 of
+BERT-base's 12 layers and DIST_ASYNC_STEPS 2 of 4, the serving phases'
+``TIMED`` and ``LSTM_TIMED`` counts halved, 19c at 2 of 3 steps).  Phase
+21 came with these: the kernels build on a thread while phases 8, 9, 12
+and 13, which launch none of them, run first (they share the host with
+``nvcc`` for it); FLEET_REQUESTS and FLEET_CHAOS_REQUESTS at 100; 18a-b
+at DIST_LAYERS 2, 11c at CKPT_LAYERS 4 and 20a at 4 of BERT-base's 12
+layers.  If the run nears its limit again, cut 19c's all-reduce run
+before anything else of the training phases.
 
 The line before the last is the JSON kernel report; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -494,6 +542,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -555,6 +604,9 @@ SLICE_TOL = 1e-3
 # eagerly: the same kernels on the same inputs, within CAPTURE_TOL of the
 # output's largest magnitude
 CAPTURE_TOL = 1e-6
+# the spin kernels of the graph replayed first in `replay_launches`'s
+# profiled region
+SETTLE_KERNELS = 8
 # requests timed per bound sequence length, after the checked ones and one
 # warm-up
 TIMED = {512: 50, 128: 200}
@@ -713,9 +765,10 @@ WORD_BPTT, WORD_BATCH, WORD_LR, WORD_CLIP, WORD_STEPS = 35, 32, 20.0, 0.2, 16
 # against the local store's, the worker script, the launcher, and each
 # job's time limit
 DIST_STEPS, DIST_ASYNC_STEPS, EMBED_STEPS = 3, 2, 20
-# 18a-b's BERT: BERT-base's widths at 4 of its 12 layers (cut for the
-# script's time limit since phase 20 came; K1-K3 once per layer a step)
-DIST_LAYERS = 4
+# 18a-b's BERT: BERT-base's widths at 2 of its 12 layers (cut for the
+# script's time limit: to 4 when phase 20 came, to 2 with phase 21; K1-K3
+# once per layer a step)
+DIST_LAYERS = 2
 EMBED_TOL = 1e-6
 DIST_WORKER = os.path.join(HERE, "tests", "torch_bert_dist_worker.py")
 DIST_LAUNCH = os.path.join(HERE, "tools", "launch.py")
@@ -757,10 +810,11 @@ SPMD_ENTRY = "import sys, chip_smoke as cs; cs.spmd_worker(sys.argv[1])"
 PREEMPT_ENTRY = "import sys, chip_smoke as cs; cs.preempt_child(sys.argv[1])"
 # phase 20: 20a-b, the elastic mesh: phase 19c's BERT-base MLM fit (2
 # batches an epoch, 2 epochs) on two ranks, the second lost at step 3's
-# probe (ELASTIC_LOSS_STEP: epoch 1's first), 20a with all 12 layers, the
-# buddy copy and a kill, 20b with 2 layers, no redundancy and a stopped
-# rank; the probe's bound, and the launcher's time limit for each
-ELASTIC = {"a": dict(layers=12, batch=8, seq=512, redundancy=1,
+# probe (ELASTIC_LOSS_STEP: epoch 1's first), 20a with 4 layers (all 12
+# until phase 21 came and the time limit cut them), the buddy copy and a
+# kill, 20b with 2 layers, no redundancy and a stopped rank; the probe's
+# bound, and the launcher's time limit for each
+ELASTIC = {"a": dict(layers=4, batch=8, seq=512, redundancy=1,
                      fault="kill_device_at"),
            "b": dict(layers=2, batch=8, seq=512, redundancy=0,
                      fault="hang_device_at")}
@@ -794,6 +848,35 @@ SSD300_BATCH = 32
 SSD300_CLASSES = 20
 SSD_NEG_OVERLAP = 0.999
 SSD_TRAIN = dict(steps=20, batch=32, image=64)
+# phase 21a: the LSTM-2048-512 language model of Jozefowicz et al.,
+# "Exploring the Limits of Language Modeling" (arXiv 1602.02410), on One
+# Billion Word at its published widths: vocabulary 793,471, embedding 512,
+# one LSTMP layer of 2048 projected to 512, bptt 20, batch 128, sampled
+# softmax over 8192 log-uniform negatives, Adagrad at lr 0.2 with eps 1
+# and dropout 0.1 (MXNet's example/rnn/large_word_lm settings for this
+# model); one layer (the paper's model), 5 steps
+LM1B = dict(vocab=793471, embed=512, hidden=2048, proj=512, bptt=20,
+            batch=128, sampled=8192, lr=0.2, eps=1.0, dropout=0.1, steps=5,
+            eval_batch=16, init=0.05)
+# a gradient or a log-prob against the same step run in float64, over its
+# largest magnitude
+LM1B_TOL = 1e-4
+# 21b: the ONNX round trip of resnet50_v1 served at batch 32
+ONNX_BATCH = 32
+ONNX_TOL = 1e-5
+ONNX_TIMED = 10
+# 21c: YearPredictionMSD's 90 features, synthetic from the seed, at a
+# tenth of its 463,715 training rows (cut for the time limit); batch 100,
+# a full-gradient pass every 2 epochs, 4 epochs, SGD
+SVRG_CFG = dict(rows=46372, features=90, batch=100, update_freq=2,
+                epochs=4, lr=0.05)
+SVRG_TOL = 1e-5
+# 21d: MXNet's rtc example kernel over 2^24 elements
+RTC_N = 1 << 24
+# 21e: the contrib blocks, cells and the rest at small shapes, the card
+# against the port's CPU path over the largest magnitude
+FRONT_TOL = 1e-5
+EMBED_FILE = dict(tokens=10000, dim=300)
 # phase 11a: the reference's example/sparse/linear_classification.py
 # local-store loop at the width of LIBSVM's avazu-app (1,000,000 features)
 # and the example's batch 8192 and lr; rows one-hot in 15 fields with
@@ -815,6 +898,9 @@ FM_RUNS = (("sgd", 18, 0.02), ("adam", 10, 0.05), ("adagrad", 20, 0.09))
 # time limit
 CKPT_COMMIT_DELAY = 5.0
 CKPT_CHILD_TIMEOUT = 600
+# 11c's BERT: BERT-base's widths at 4 of its 12 layers (cut for the
+# script's time limit when phase 21 came)
+CKPT_LAYERS = 4
 # how 11c starts a child (a CPU rehearsal puts its own entry here)
 CHILD_ENTRY = "import sys, chip_smoke as cs; cs.ckpt_child(sys.argv[1])"
 # phase 7's record, which 11d prints its step beside
@@ -929,7 +1015,7 @@ GEN_WIRE_REQUESTS = 64
 # at router dispatch FLEET_KILL_AT (cut these first if the run nears its
 # limit)
 FLEET_REPLICAS, FLEET_LADDER = 3, (1, 2, 4, 8)
-FLEET_REQUESTS, FLEET_CHAOS_REQUESTS, FLEET_KILL_AT = 400, 200, 40
+FLEET_REQUESTS, FLEET_CHAOS_REQUESTS, FLEET_KILL_AT = 100, 100, 40
 FLEET_CLIENTS, FLEET_READY_S, FLEET_WAIT_S = 4, 180.0, 120.0
 # 16d: the autoscaler from a floor of 1 to at most 3 replicas, a burst of
 # SCALE_BURST clients at poll SCALE_SPIKE_AT, the idle window set short
@@ -1540,6 +1626,21 @@ def eager():
     return env(MXTPU_GRAPH_COMPILE="0")
 
 
+_SETTLE_GRAPH = []
+
+
+def _settle_graph():
+    """A CUDA graph of SETTLE_KERNELS short spin kernels, captured once,
+    which `replay_launches` replays first in its profiled region."""
+    if not _SETTLE_GRAPH:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(SETTLE_KERNELS):
+                torch.cuda._sleep(1000)
+        _SETTLE_GRAPH.append(graph)
+    return _SETTLE_GRAPH[0]
+
+
 def _trace_settle():
     """A ~1 ms spin kernel and a synchronize at the start of a profiled
     region: on some machines the trace misses the kernels of the first
@@ -1558,18 +1659,33 @@ def replay_launches(run):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     run()
+    settle = _settle_graph()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _trace_settle()
+        # in a whole run a session's first graph launch loses some of its
+        # kernel records (1 of 120 K4 in phase 6, 1 of 12 K1 in 15b, 2 of
+        # 32 K4 in 16a): the settling graph, not counted by name, is that
+        # launch here
+        settle.replay()
         run()
         torch.cuda.synchronize()
     events = prof.key_averages()
+    # the spins (`_trace_settle`'s and the settling graph's) left out
     kernels = {e.key: e.count for e in events
-               if e.device_type == DeviceType.CUDA}
+               if e.device_type == DeviceType.CUDA
+               and "spin_kernel" not in e.key}
     host = {e.key: e.count for e in events
             if e.device_type == DeviceType.CPU and ("LaunchKernel" in e.key
                                                    or "GraphLaunch" in e.key)}
+    graph_key = next((k for k in host if "GraphLaunch" in k), None)
+    if graph_key is None:
+        raise AssertionError("the settling graph's launch is not in the "
+                             "profiler's trace")
+    host[graph_key] -= 1
+    if not host[graph_key]:
+        del host[graph_key]
     return kernels, host
 
 
@@ -4112,7 +4228,8 @@ def ckpt_resume(card, cfg=None, batch=8, seq=512):
     import signal
     from mxnet_tpu_torch.checkpoint import CheckpointManager, MANIFEST_NAME
     from mxnet_tpu_torch.serialization import save_ndarrays
-    cfg = dict(BERT_BASE if cfg is None else cfg)
+    cfg = dict(dict(BERT_BASE, num_layers=CKPT_LAYERS) if cfg is None
+               else cfg)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     it = _fit_iter(cfg["vocab"], batch, seq)
     shapes = {d.name: d.shape for d in it.provide_data + it.provide_label}
@@ -9436,9 +9553,709 @@ def phase_contrib(card, device="cuda", ssd=None):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the front end (gluon.contrib, contrib, rtc, the rest)
+# ---------------------------------------------------------------------------
+
+def _sync_fn(device):
+    return torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+
+def _rel_err_t(got, want):
+    """max |got - want| over want's largest magnitude, on the tensors'
+    device in float64."""
+    got, want = got.double(), want.double()
+    return float((got - want).abs().max() /
+                 want.abs().max().clamp_min(1e-30))
+
+
+class Lm1bDecoder(mt.gluon.HybridBlock):
+    """The softmax layer: a (vocab, proj) table and a bias; its forward
+    is the full softmax's log-probabilities."""
+
+    def __init__(self, vocab, proj, **kwargs):
+        super().__init__(**kwargs)
+        self._vocab = vocab
+        with self.name_scope():
+            self.weight = self.params.get("weight", shape=(vocab, proj))
+            self.bias = self.params.get("bias", shape=(vocab,),
+                                        init="zeros")
+
+    def hybrid_forward(self, F, h, weight, bias):
+        return F.log_softmax(F.FullyConnected(h, weight, bias,
+                                              num_hidden=self._vocab),
+                             axis=-1)
+
+
+class Lm1bLM(mt.gluon.Block):
+    """LSTM-2048-512 of "Exploring the Limits of Language Modeling" from
+    `gluon.contrib`: a SparseEmbedding, one LSTMPCell inside a
+    VariationalDropoutCell, and the softmax layer."""
+
+    def __init__(self, cfg, **kwargs):
+        super().__init__(**kwargs)
+        self.cfg = cfg
+        contrib = mt.gluon.contrib
+        with self.name_scope():
+            self.embed = contrib.nn.SparseEmbedding(cfg["vocab"],
+                                                    cfg["embed"])
+            self.cell = contrib.rnn.VariationalDropoutCell(
+                contrib.rnn.LSTMPCell(cfg["hidden"], cfg["proj"],
+                                      input_size=cfg["embed"]),
+                drop_inputs=cfg["dropout"], drop_outputs=cfg["dropout"])
+            self.decoder = Lm1bDecoder(cfg["vocab"], cfg["proj"])
+
+    def set_dropout(self, p):
+        self.cell.drop_inputs = self.cell.drop_outputs = p
+
+    def encode(self, tokens):
+        emb = self.embed(tokens)
+        begin = self.cell.begin_state(batch_size=tokens.shape[0],
+                                      ctx=tokens.context, dtype=emb.dtype)
+        out, _ = self.cell.unroll(tokens.shape[1], emb, begin_state=begin,
+                                  layout="NTC", merge_outputs=True)
+        return out.reshape((-1, self.cfg["proj"]))
+
+    def forward(self, tokens):
+        return self.decoder(self.encode(tokens))
+
+
+def lm1b_sampled_loss(model, x, y, samples, log_true, log_samp):
+    """train_lm's sampled softmax: the true class against the sampled
+    ones, each logit less the log of its expected count, accidental hits
+    masked; the mean negative log-likelihood of the true class."""
+    nd = mt.nd
+    c = model.cfg
+    h = model.encode(x)
+    yf = y.reshape((-1,))
+    w = model.decoder.weight.data(x.context)
+    b = model.decoder.bias.data(x.context)
+    kw = dict(input_dim=c["vocab"], output_dim=c["proj"])
+    true_logit = (h * nd.Embedding(yf, w, **kw)).sum(axis=1) + \
+        nd.take(b, yf) - log_true
+    samp_logit = nd.dot(h, nd.Embedding(samples, w, **kw),
+                        transpose_b=True) + \
+        (nd.take(b, samples) - log_samp).reshape((1, -1))
+    hit = nd.broadcast_equal(samples.reshape((1, -1)), yf.reshape((-1, 1)))
+    logits = nd.concat(true_logit.reshape((-1, 1)), samp_logit - hit * 1e9,
+                       dim=1)
+    return -nd.slice_axis(nd.log_softmax(logits, axis=1), axis=1, begin=0,
+                          end=1).mean()
+
+
+def zipf_markov_stream(vocab, rows, length, seed):
+    """Token rows whose next token is the previous one's class (mod 97)
+    plus a Zipf draw: a Zipf-skewed marginal with a Markov dependence."""
+    rng = np.random.RandomState(seed)
+    out = np.empty((rows, length), np.int64)
+    out[:, 0] = (rng.zipf(1.3, rows) - 1) % vocab
+    for t in range(1, length):
+        out[:, t] = (out[:, t - 1] % 97 + rng.zipf(1.3, rows) - 1) % vocab
+    return out.astype(np.float32)
+
+
+def lm1b_language_model(card, device="cuda", cfg=None):
+    """21a: LSTM-2048-512 on the card: one step at dropout 0 against the
+    same step in float64, the full-softmax evaluation (eager, captured
+    and in float64), then Adagrad steps with dropout."""
+    c = dict(LM1B, **(cfg or {}))
+    gpu = mt.gpu(0) if device == "cuda" else mt.Context("cpu", 0)
+    sync = _sync_fn(device)
+    t0 = time.perf_counter()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    mt.random.seed(SEED)
+    model = Lm1bLM(c, prefix="lm1b_")
+    model.initialize(mt.init.Uniform(c["init"]), ctx=gpu)
+    params = list(model.collect_params().values())
+    n_params = sum(int(np.prod(p.shape)) for p in params)
+    model64 = Lm1bLM(c, prefix="lm1b64_")
+    model64.cast("float64")
+    model64.initialize(mt.init.Zero(), ctx=gpu)
+    params64 = list(model64.collect_params().values())
+    for p, q in zip(params, params64):
+        q.set_data(p.data().astype("float64"))
+    stream = zipf_markov_stream(c["vocab"], c["batch"] + c["eval_batch"],
+                                c["bptt"] + 1, SEED + 21)
+    x = mt.nd.array(stream[:c["batch"], :-1], ctx=gpu)
+    y = mt.nd.array(stream[:c["batch"], 1:], ctx=gpu)
+    ex = mt.nd.array(stream[c["batch"]:, :-1], ctx=gpu)
+    ey = stream[c["batch"]:, 1:].reshape(-1).astype(np.int64)
+
+    def draw():
+        s, e_true, e_samp = mt.nd.contrib.rand_zipfian(
+            y.reshape((-1,)), c["sampled"], c["vocab"])
+        return (s.astype("float32"), mt.nd.log(e_true),
+                mt.nd.log(e_samp))
+
+    # one step at dropout 0 on the same sampled ids, fp32 against float64
+    model.set_dropout(0.0)
+    model64.set_dropout(0.0)
+    samples, log_true, log_samp = draw()
+    grads = {}
+    losses = {}
+    for tag, m in (("fp32", model), ("fp64", model64)):
+        cast = (lambda a: a) if tag == "fp32" else \
+            (lambda a: a.astype("float64"))
+        with mt.autograd.record():
+            loss = lm1b_sampled_loss(m, x, y, cast(samples),
+                                     cast(log_true), cast(log_samp))
+        loss.backward()
+        losses[tag] = float(loss.asnumpy())
+        grads[tag] = [p.grad().data for p in m.collect_params().values()]
+    grad_err = {p.name[len("lm1b_"):]: _rel_err_t(g, g64)
+                for p, g, g64 in zip(params, grads["fp32"], grads["fp64"])}
+    touched = int(((grads["fp32"][0] != 0).any(dim=1)).sum())
+    del grads
+    # the full-softmax evaluation: eager, captured, float64
+    lp = model(ex)
+    lp64 = model64(ex)
+    sync()
+    lp_err = _rel_err_t(lp.data, lp64.data)
+    picked = lp.data[torch.arange(len(ey), device=lp.data.device),
+                     torch.as_tensor(ey, device=lp.data.device)]
+    ppl = float(torch.exp(-picked.double().mean()))
+    del lp64, model64, params64
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    def evaluate():
+        out = model(ex)
+        sync()
+        return out
+
+    t = time.perf_counter()
+    evaluate()
+    eval_ms = (time.perf_counter() - t) * 1e3
+    model.hybridize()
+    captured = [evaluate() for _ in range(2)]
+    t = time.perf_counter()
+    captured.append(evaluate())
+    eval_captured_ms = (time.perf_counter() - t) * 1e3
+    capture_err = max(_rel_err_t(o.data, lp.data) for o in captured)
+    model.hybridize(False)
+    del captured, lp
+    # Adagrad with dropout: the loss on a fixed batch and fixed samples
+    # (predict mode) before and after
+    model.set_dropout(c["dropout"])
+    fixed = draw()
+    before = float(lm1b_sampled_loss(model, x, y, *fixed).asnumpy())
+    trainer = mt.gluon.Trainer(model.collect_params(), "adagrad",
+                               {"learning_rate": c["lr"], "eps": c["eps"]})
+    step_ms = []
+    for _ in range(c["steps"]):
+        sync()
+        t = time.perf_counter()
+        s = draw()
+        with mt.autograd.record():
+            loss = lm1b_sampled_loss(model, x, y, *s)
+        loss.backward()
+        trainer.step(1)
+        sync()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    after = float(lm1b_sampled_loss(model, x, y, *fixed).asnumpy())
+    tokens = c["batch"] * c["bptt"]
+    rec = {"sub": "21a", "card": card, "params": n_params,
+           "params_gb": n_params * 4 / 1e9, "loss_fp32": losses["fp32"],
+           "loss_fp64": losses["fp64"], "grad_err": grad_err,
+           "embedding_rows_touched": touched, "eval_ppl": ppl,
+           "eval_logprob_err_fp64": lp_err, "eval_capture_err": capture_err,
+           "eval_ms": eval_ms, "eval_captured_ms": eval_captured_ms,
+           "loss_before": before, "loss_after": after,
+           "step_ms": step_ms,
+           "step_ms_p50": float(np.percentile(step_ms[1:] or step_ms, 50)),
+           "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                       if device == "cuda" else None),
+           "phase_s": time.perf_counter() - t0}
+    rec["tokens_per_s"] = tokens / rec["step_ms_p50"] * 1e3
+    log(json.dumps(rec, default=float))
+    bad = {k: v for k, v in grad_err.items() if not v <= LM1B_TOL}
+    if bad or not np.isfinite(losses["fp32"]):
+        raise AssertionError(f"21a: gradients off float64: {bad}")
+    if not (lp_err <= LM1B_TOL and np.isfinite(ppl)):
+        raise AssertionError(f"21a: evaluation log-probs {lp_err}, "
+                             f"perplexity {ppl}")
+    if not capture_err <= CAPTURE_TOL:
+        raise AssertionError(f"21a: captured log-probs {capture_err}")
+    if not after < before:
+        raise AssertionError(f"21a: Adagrad did not lower the loss "
+                             f"{before} -> {after}")
+    del model, trainer
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def onnx_round_trip(card, device="cuda", batch=ONNX_BATCH, side=224,
+                    classes=1000, timed=ONNX_TIMED):
+    """21b: resnet50_v1 exported by Gluon, written to ONNX on the card and
+    on the CPU (the same bytes), read back and served by `Predictor` on
+    the card against the Gluon net's own outputs."""
+    from mxnet_tpu_torch.contrib import onnx as onnx_mod
+    t0 = time.perf_counter()
+    gpu = mt.gpu(0) if device == "cuda" else mt.Context("cpu", 0)
+    sync = _sync_fn(device)
+    net = _resnet_net(gpu, classes, side)
+    rng = np.random.RandomState(SEED + 22)
+    x = mt.nd.array(rng.uniform(-1, 1, (batch, 3, side, side))
+                    .astype(np.float32), ctx=gpu)
+    want = net(x).data
+    out_dir = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    prefix = os.path.join(out_dir, "resnet50_v1_onnx")
+    net.export(prefix)
+    sym = mt.sym.load(prefix + "-symbol.json")
+    loaded = mt.serialization.load_ndarrays(prefix + "-0000.params")
+    params = {k.split(":", 1)[-1]: v for k, v in loaded.items()}
+    shape = (batch, 3, side, side)
+    files = {}
+    for tag, ctx in (("card", gpu), ("cpu", mt.cpu())):
+        path = f"{prefix}-{tag}.onnx"
+        with ctx:
+            onnx_mod.export_model(
+                sym, {k: v.as_in_context(ctx) for k, v in params.items()},
+                [shape], onnx_file_path=path)
+        with open(path, "rb") as f:
+            files[tag] = f.read()
+    with gpu:
+        isym, iarg, iaux = onnx_mod.import_model(f"{prefix}-card.onnx")
+    blob = {**{f"arg:{k}": v for k, v in iarg.items()},
+            **{f"aux:{k}": v for k, v in iaux.items()}}
+    pred = mt.Predictor(isym.tojson(), blob, {"data": shape}, ctx=gpu)
+
+    def serve():
+        pred.forward(data=x)
+        out = pred.get_output(0)
+        sync()
+        return out
+
+    got = serve().data
+    err = _rel_err_t(got, want)
+    ms = []
+    for _ in range(timed):
+        t = time.perf_counter()
+        serve()
+        ms.append((time.perf_counter() - t) * 1e3)
+    nodes = json.loads(isym.tojson())["nodes"]
+    rec = {"sub": "21b", "card": card, "batch": batch,
+           "onnx_bytes": len(files["card"]),
+           "bytes_equal_cpu": files["card"] == files["cpu"],
+           "ops": len([n for n in nodes if n["op"] != "null"]),
+           "err": err, "p50_ms": float(np.percentile(ms, 50)),
+           "phase_s": time.perf_counter() - t0}
+    log(json.dumps(rec, default=float))
+    if not rec["bytes_equal_cpu"]:
+        raise AssertionError("21b: the card's ONNX bytes differ from the "
+                             "CPU path's")
+    if not (got.shape == want.shape and err <= ONNX_TOL):
+        raise AssertionError(f"21b: served ONNX outputs {err} off Gluon's")
+    return rec
+
+
+def _svrg_fit(ctx, X, Y, cfg, logdir):
+    """One SVRGModule fit on ``ctx``, its batch-end metrics logged by
+    `contrib.tensorboard.LogMetricsCallback` to the TSV writer."""
+    sym = mt.sym
+    out = sym.FullyConnected(sym.var("data"), num_hidden=1, name="fc")
+    out = sym.LinearRegressionOutput(out, sym.var("lro_label"), name="lro")
+    tb = mt.contrib.tensorboard
+    cb = tb.LogMetricsCallback(logdir, prefix="train",
+                               summary_writer=tb._TsvWriter(logdir))
+    with ctx:
+        it = mt.io.NDArrayIter(X, Y, batch_size=cfg["batch"], shuffle=False,
+                               label_name="lro_label")
+        mod = mt.contrib.svrg_optimization.SVRGModule(
+            out, data_names=("data",), label_names=("lro_label",),
+            update_freq=cfg["update_freq"], context=ctx)
+        t = time.perf_counter()
+        mod.fit(it, num_epoch=cfg["epochs"], optimizer="sgd",
+                optimizer_params={"learning_rate": cfg["lr"]},
+                initializer=mt.init.Zero(), eval_metric="mse",
+                batch_end_callback=cb)
+        secs = time.perf_counter() - t
+        args, _ = mod.get_params()
+    with open(os.path.join(logdir, "events.tsv")) as f:
+        rows = f.read().splitlines()
+    mse = [float(r.split("\t")[2]) for r in rows]
+    return {k: v.asnumpy() for k, v in args.items()}, rows, mse, secs
+
+
+def svrg_regression(card, device="cuda", cfg=None):
+    """21c: SVRGModule on YearPredictionMSD's 90 features (synthetic),
+    the card against the CPU path on the same batches, the training MSE
+    against least squares, a TSV row a batch."""
+    c = dict(SVRG_CFG, **(cfg or {}))
+    t0 = time.perf_counter()
+    gpu = mt.gpu(0) if device == "cuda" else mt.Context("cpu", 0)
+    rng = np.random.RandomState(SEED + 23)
+    X = rng.randn(c["rows"], c["features"]).astype(np.float32)
+    w = rng.randn(c["features"]).astype(np.float32) * 0.5
+    # labels centred, as the years are for regression
+    Y = (X @ w + rng.randn(c["rows"]).astype(np.float32) * 3.0
+         ).astype(np.float32)
+    Xb = np.hstack([X, np.ones((c["rows"], 1), np.float32)]).astype(
+        np.float64)
+    lsq = np.linalg.lstsq(Xb, Y.astype(np.float64), rcond=None)[0]
+    lsq_mse = float(np.mean((Xb @ lsq - Y) ** 2))
+    runs = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_svrg_",
+                           dir=os.path.join(HERE, "build"))
+    try:
+        for tag, ctx in (("card", gpu), ("cpu", mt.cpu())):
+            runs[tag] = _svrg_fit(ctx, X, Y, c, os.path.join(tmp, tag))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    (wc, rows, mse, secs), (wp, _, _, cpu_s) = runs["card"], runs["cpu"]
+    err = max(_np_rel_err(wc[k], wp[k]) for k in wp)
+    n_batches = -(-c["rows"] // c["batch"])
+    last = mse[-n_batches:]
+    rec = {"sub": "21c", "card": card, "rows": c["rows"],
+           "weights_err_cpu": err, "lsq_mse": lsq_mse,
+           "train_mse_last_epoch": float(np.mean(last)),
+           "tsv_rows": len(rows),
+           "fit_s": secs, "cpu_fit_s": cpu_s,
+           "batches_per_s": c["epochs"] * n_batches / secs,
+           "phase_s": time.perf_counter() - t0}
+    log(json.dumps(rec, default=float))
+    if not err <= SVRG_TOL:
+        raise AssertionError(f"21c: weights {err} off the CPU path")
+    if not rec["train_mse_last_epoch"] <= 2 * lsq_mse:
+        raise AssertionError(f"21c: training MSE {rec}")
+    if len(rows) != c["epochs"] * n_batches:
+        raise AssertionError(f"21c: {len(rows)} TSV rows")
+    return rec
+
+
+RTC_SOURCE = r'''
+extern "C" __global__ void axpy(const float *x, float *y, float alpha) {
+    int i = threadIdx.x + blockIdx.x * blockDim.x;
+    y[i] += alpha * x[i];
+}
+'''
+RTC_TEMPLATE = r'''
+template <typename T>
+__global__ void axpy(const T *x, T *y, T alpha, int n) {
+    int i = threadIdx.x + blockIdx.x * blockDim.x;
+    if (i < n) y[i] += alpha * x[i];
+}
+'''
+
+
+def rtc_kernels(card):
+    """21d: MXNet's `rtc.CudaModule` example compiled by NVRTC and
+    launched on torch's stream, templated kernels through ``exports``, a
+    compile error carrying NVRTC's log."""
+    t0 = time.perf_counter()
+    gpu = mt.gpu(0)
+    n = RTC_N
+    t = time.perf_counter()
+    mod = mt.rtc.CudaModule(RTC_SOURCE, options=("--fmad=false",))
+    compile_ms = (time.perf_counter() - t) * 1e3
+    k = mod.get_kernel("axpy", "const float *x, float *y, float alpha")
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    x = NDArray(torch.randn(n, device="cuda", generator=g), gpu)
+    y = NDArray(torch.randn(n, device="cuda", generator=g), gpu)
+    want = y.data + 3.0 * x.data
+    k.launch([x, y, 3.0], gpu, (n // 256,), (256,))
+    # a torch op on the same stream reads the kernel's writes
+    equal = bool(torch.equal(y.data, want))
+    launch_ms = time_ms(lambda: k.launch([x, y, 0.0], gpu, (n // 256,),
+                                         (256,)), iters=20)
+    t = time.perf_counter()
+    tmod = mt.rtc.CudaModule(RTC_TEMPLATE, options=("--fmad=false",),
+                             exports=("axpy<float>", "axpy<double>"))
+    template_ms = (time.perf_counter() - t) * 1e3
+    templ = {}
+    for dt, tdt in (("float", torch.float32), ("double", torch.float64)):
+        kt = tmod.get_kernel(f"axpy<{dt}>", f"const {dt} *x, {dt} *y, "
+                             f"{dt} alpha, int n")
+        m = 1000003
+        a = NDArray(torch.randn(m, device="cuda", generator=g, dtype=tdt),
+                    gpu)
+        b = NDArray(torch.randn(m, device="cuda", generator=g, dtype=tdt),
+                    gpu)
+        expect = b.data + 0.5 * a.data
+        kt.launch([a, b, 0.5, m], gpu, (-(-m // 128),), (128,))
+        templ[dt] = bool(torch.equal(b.data, expect))
+    try:
+        mt.rtc.CudaModule('extern "C" __global__ void bad(float *y) '
+                          '{ y[0] = undeclared_name; }')
+        compile_error = None
+    except mt.MXNetError as e:
+        compile_error = str(e)
+    rec = {"sub": "21d", "card": card, "n": n, "arch": mod.arch,
+           "compile_ms": compile_ms, "template_compile_ms": template_ms,
+           "axpy_equal": equal, "axpy_ms": launch_ms,
+           "axpy_gbs": 3 * 4 * n / launch_ms / 1e6,
+           "templates_equal": templ,
+           "compile_error_logged": bool(compile_error and
+                                        "undeclared_name" in compile_error),
+           "phase_s": time.perf_counter() - t0}
+    log(json.dumps(rec, default=float))
+    if not (equal and all(templ.values())):
+        raise AssertionError(f"21d: rtc kernels wrote other values {rec}")
+    if not rec["compile_error_logged"]:
+        raise AssertionError(f"21d: a compile error gave {compile_error!r}")
+    return rec
+
+
+def _front_blocks():
+    """(name, make(prefix), inputs, call) of the contrib blocks and cells
+    at small shapes."""
+    cnn, crnn = mt.gluon.contrib.nn, mt.gluon.contrib.rnn
+    rs = np.random.RandomState(SEED + 24)
+
+    def r(*shape):
+        return rs.randn(*shape).astype(np.float32)
+
+    def unroll(steps):
+        def call(cell, x):
+            outs, states = cell.unroll(steps, x, layout="NTC",
+                                       merge_outputs=True)
+            return [outs] + list(states)
+        return call
+
+    def plain(b, *x):
+        return b(*x)
+
+    def conc(cls):
+        def make(prefix):
+            net = cls(axis=1, prefix=prefix)
+            with net.name_scope():
+                net.add(mt.gluon.nn.Dense(4, in_units=3),
+                        mt.gluon.nn.Dense(6, in_units=3))
+            return net
+        return make
+
+    out = [
+        ("HybridConcurrent", conc(cnn.HybridConcurrent), [r(2, 3)], plain),
+        ("Concurrent", conc(cnn.Concurrent), [r(2, 3)], plain),
+        ("Identity", lambda p: cnn.Identity(prefix=p), [r(2, 3)], plain),
+        ("SparseEmbedding", lambda p: cnn.SparseEmbedding(
+            50, 8, prefix=p), [np.array([[1, 7, 7], [0, 49, 3]],
+                                        np.float32)], plain),
+        ("SyncBatchNorm", lambda p: cnn.SyncBatchNorm(
+            in_channels=3, prefix=p), [r(4, 3, 5, 5)], plain),
+        ("PixelShuffle1D", lambda p: cnn.PixelShuffle1D(3, prefix=p),
+         [r(2, 6, 5)], plain),
+        ("PixelShuffle2D", lambda p: cnn.PixelShuffle2D(2, prefix=p),
+         [r(2, 8, 3, 4)], plain),
+        ("PixelShuffle3D", lambda p: cnn.PixelShuffle3D(2, prefix=p),
+         [r(2, 16, 2, 3, 2)], plain),
+        ("LSTMPCell", lambda p: crnn.LSTMPCell(16, 8, prefix=p),
+         [r(2, 3, 6)], unroll(3)),
+        ("VariationalDropoutCell", lambda p: crnn.VariationalDropoutCell(
+            crnn.LSTMPCell(16, 8, prefix=p)), [r(2, 3, 6)], unroll(3)),
+    ]
+    spatial = {1: (6,), 2: (5, 4), 3: (3, 4, 3)}
+    for d in (1, 2, 3):
+        for kind in ("RNN", "LSTM", "GRU"):
+            name = f"Conv{d}D{kind}Cell"
+            cls = getattr(crnn, name)
+            out.append((name, lambda p, cls=cls, d=d: cls(
+                (2,) + spatial[d], 4, 3, 3, prefix=p),
+                [r(2, 3, 2, *spatial[d])], unroll(3)))
+    return out
+
+
+def _front_run(make, inputs, call, ctx, values, hybridize):
+    blk = make("fb_")
+    with ctx:
+        blk.initialize(ctx=ctx)
+        xs = [mt.nd.array(x, ctx=ctx) for x in inputs]
+        call(blk, *xs)
+        for i, p in enumerate(blk.collect_params().values()):
+            p.set_data(mt.nd.array(values(i, p.shape), ctx=ctx))
+        if hybridize:
+            blk.hybridize()
+        for x in xs:
+            x.attach_grad()
+        rs = np.random.RandomState(5)
+        with mt.autograd.record():
+            outs = call(blk, *xs)
+            outs = outs if isinstance(outs, list) else [outs]
+            loss = None
+            for o in outs:
+                term = (o * mt.nd.array(rs.randn(*o.shape).astype(
+                    np.float32), ctx=ctx)).sum()
+                loss = term if loss is None else loss + term
+        loss.backward()
+        # gradients, and the moving statistics where there is none
+        return ([o.asnumpy() for o in outs] +
+                [x.grad.asnumpy() for x in xs] +
+                [(p.grad() if p.grad_req != "null" else p.data()).asnumpy()
+                 for p in blk.collect_params().values()])
+
+
+def front_end_rest(card, device="cuda"):
+    """21e: the contrib blocks and cells (eager and hybridized),
+    CustomEmbedding from a 10,000 x 300 file, resource, runtime and a
+    TorchBlock, on the card against the CPU path."""
+    t0 = time.perf_counter()
+    gpu = mt.gpu(0) if device == "cuda" else mt.Context("cpu", 0)
+    cpu = mt.cpu()
+
+    def values(i, shape):
+        v = np.random.RandomState(100 + i).randn(*shape).astype(
+            np.float32) * 0.3
+        return v
+
+    worst = {}
+    for name, make, inputs, call in _front_blocks():
+        want = _front_run(make, inputs, call, cpu, values, False)
+        for hyb in (False, True):
+            got = _front_run(make, inputs, call, gpu, values, hyb)
+            worst[f"{name}{'/hybridized' if hyb else ''}"] = max(
+                _np_rel_err(g, w) if np.abs(w).max() > 0 else
+                float(np.abs(g).max()) for g, w in zip(got, want))
+    # CustomEmbedding from a file written from the seed
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_text_",
+                           dir=os.path.join(HERE, "build"))
+    try:
+        rs = np.random.RandomState(SEED + 25)
+        n, dim = EMBED_FILE["tokens"], EMBED_FILE["dim"]
+        mat = rs.randn(n, dim).astype(np.float32)
+        path = os.path.join(tmp, "vectors.txt")
+        with open(path, "w") as f:
+            for i in range(n):
+                f.write(f"tok{i} " + " ".join(f"{v:.6f}" for v in mat[i])
+                        + "\n")
+        t = time.perf_counter()
+        with gpu:
+            emb = mt.contrib.text.CustomEmbedding(path)
+        load_s = time.perf_counter() - t
+        rows = np.loadtxt(path, usecols=range(1, dim + 1),
+                          dtype=np.float64).astype(np.float32)
+        table = emb.idx_to_vec
+        embed_ok = (table.context == gpu and
+                    np.array_equal(table.asnumpy()[1:], rows) and
+                    not table.asnumpy()[0].any())
+        vecs = emb.get_vecs_by_tokens(["tok5", "nope", "tok9999"])
+        embed_ok = embed_ok and vecs.context == gpu and np.array_equal(
+            vecs.asnumpy(), np.stack([rows[5], np.zeros(dim), rows[9999]]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # resource: temp spaces and streams on the card
+    from mxnet_tpu_torch import resource
+    with gpu:
+        r = resource.request(resource.ResourceRequest.kTempSpace)
+        a = r.get_space((64, 64))
+        b = r.get_space((16,), dtype=np.int32)
+        space_ok = (a.data.device == gpu.device and
+                    b.data.data_ptr() == a.data.data_ptr() and
+                    r.space_nbytes == 64 * 64 * 4)
+        resource.seed(7, gpu)
+        d1 = resource.request(resource.ResourceRequest.kRandom).uniform(
+            (1000,)).asnumpy()
+        p1 = resource.request(
+            resource.ResourceRequest.kParallelRandom).normal((1000,))
+        resource.seed(7, gpu)
+        d2 = resource.request(resource.ResourceRequest.kRandom).uniform(
+            (1000,)).asnumpy()
+        streams_ok = (np.array_equal(d1, d2) and p1.data.device ==
+                      gpu.device and not np.allclose(d1, p1.asnumpy()))
+    feats = mt.runtime.Features()
+    # a TorchBlock inside a Gluon net
+    torch_rec = {}
+    for tag, ctx in (("card", gpu), ("cpu", cpu)):
+        torch.manual_seed(SEED)
+        seen = []
+
+        class Seen(torch.nn.Module):
+            def forward(self, x):
+                seen.append(x.data_ptr())
+                return x
+
+        seq = torch.nn.Sequential(Seen(), torch.nn.Linear(32, 64),
+                                  torch.nn.ReLU(), torch.nn.Linear(64, 10))
+        net = mt.gluon.nn.Sequential(prefix="tbnet_")
+        with net.name_scope():
+            net.add(mt.gluon.nn.Dense(32, in_units=16))
+            net.add(mt.plugin.TorchBlock(seq))
+        net.initialize(mt.init.Xavier(), ctx=ctx)
+        for i, p in enumerate(net.collect_params().values()):
+            if i < 2:
+                p.set_data(mt.nd.array(values(50 + i, p.shape), ctx=ctx))
+        x = mt.nd.array(np.random.RandomState(9).randn(8, 16)
+                        .astype(np.float32), ctx=ctx)
+        x.attach_grad()
+        with mt.autograd.record():
+            h = net[0](x)
+            out = net[1](h)
+            loss = (out * out).sum()
+        loss.backward()
+        torch_rec[tag] = ([out.asnumpy(), x.grad.asnumpy()] +
+                          [p.grad().asnumpy()
+                           for p in net.collect_params().values()],
+                          seen == [h.data.data_ptr()])
+    torch_err = max(_np_rel_err(g, w) for g, w in
+                    zip(torch_rec["card"][0], torch_rec["cpu"][0]))
+    rec = {"sub": "21e", "card": card, "blocks": len(worst),
+           "worst": max(worst.items(), key=lambda kv: kv[1]),
+           "embedding_equal": bool(embed_ok), "embedding_load_s": load_s,
+           "temp_space_ok": bool(space_ok), "streams_ok": bool(streams_ok),
+           "features_cuda": feats.is_enabled("CUDA"),
+           "torch_block_err": torch_err,
+           "torch_block_same_storage": torch_rec["card"][1],
+           "phase_s": time.perf_counter() - t0}
+    log(json.dumps(rec, default=float))
+    over = {k: v for k, v in worst.items() if not v <= FRONT_TOL}
+    if over:
+        raise AssertionError(f"21e: blocks off the CPU path: {over}")
+    if not (embed_ok and space_ok and streams_ok):
+        raise AssertionError(f"21e: {rec}")
+    if device == "cuda" and not feats.is_enabled("CUDA"):
+        raise AssertionError("21e: runtime.Features() has no CUDA")
+    if not (torch_err <= FRONT_TOL and torch_rec["card"][1]):
+        raise AssertionError(f"21e: the TorchBlock {rec}")
+    return rec
+
+
+def phase_front_end(card, device="cuda", lm=None, svrg=None, onnx=None):
+    """Phase 21: 21a-e."""
+    t0 = time.perf_counter()
+    recs = [lm1b_language_model(card, device, lm),
+            onnx_round_trip(card, device, **(onnx or {})),
+            svrg_regression(card, device, svrg)]
+    if device == "cuda":
+        recs.append(rtc_kernels(card))
+    recs.append(front_end_rest(card, device))
+    log(f"phase 21 in {time.perf_counter() - t0:.1f} s")
+    return recs
+
+
+class _Background(threading.Thread):
+    """``fn()`` on a thread of its own; `result` joins it and re-raises
+    what it raised."""
+
+    def __init__(self, fn):
+        super().__init__(daemon=True)
+        self._fn = fn
+        self._error = None
+        self.start()
+
+    def run(self):
+        try:
+            self._fn()
+        except BaseException as e:  # handed to the joining thread
+            self._error = e
+
+    def result(self):
+        self.join()
+        if self._error is not None:
+            raise self._error
+
+
 def main():
     card = phase_device()
-    phase_build()
+    # the kernels build (one nvcc a source) while the phases that launch
+    # none of them run: Gluon, the zoo, the op surface, the data plane
+    build = _Background(phase_build)
+    phase_gluon(card)
+    phase_zoo(card)
+    ops_launches = phase_ops(card)
+    data_launches = phase_data(card)
+    build.result()
     k1 = phase_kernels()
     bwd = phase_backward_kernels()
     k4, _ = phase_lstm_kernels()
@@ -9446,12 +10263,8 @@ def main():
     train_launches = phase_train(card)
     lstm_launches = phase_lstm_serving(card)
     fit_launches = phase_fit(card)
-    phase_gluon(card)
-    phase_zoo(card)
     rnn_launches = phase_rnn(card)
     state_launches = phase_state(card)
-    ops_launches = phase_ops(card)
-    data_launches = phase_data(card)
     cf_launches = phase_control_flow(card)
     plane_launches, served = phase_serving(card, keep=True)
     gen_launches = phase_generation(card, served)
@@ -9461,6 +10274,7 @@ def main():
     elastic_launches = phase_elastic(card)
     phase_int8(card)
     phase_contrib(card)
+    phase_front_end(card)
     leaked = [m for m in ("jax", "mxnet_tpu") if m in sys.modules]
     if leaked:
         raise SystemExit(f"chip_smoke: the port imported {leaked}")

@@ -52,11 +52,15 @@ parallelism; and the parameter-server plane: the ``dist`` stores of
 formed from the launcher's ``DMLC_*`` env), the fork's asynchronous
 `ps_server` (``BYTEPS_ENABLE_ASYNC``; under ``DMLC_ROLE=server`` importing
 the package serves it, `kvstore_server`), the bucketed, overlapped
-`comm_plane` and the row-sharded `embedding_plane`.  On the card, inference
+`comm_plane` and the row-sharded `embedding_plane`; and the front end:
+`gluon.contrib`, `contrib` (text, SVRG, ONNX, TensorBoard, TensorRT's
+flags), `registry`, `resource`, `runtime`, `rtc` (CUDA source compiled
+by NVRTC at run time), the torch `plugin` (``mx.th``), `notebook`,
+`libinfo`, `misc`, `util` and the doc builders.  On the card, inference
 forwards, hybridized predict-mode forwards and Module's whole training
 step run as CUDA graphs.
 """
-from . import base, config, ops  # noqa: F401
+from . import base, config, registry, ops  # noqa: F401
 from .base import MXNetError
 from .context import (Context, cpu, cpu_pinned, cpu_shared,
                       current_context, gpu, num_gpus)
@@ -89,6 +93,10 @@ from . import executor_manager  # noqa: E402
 from . import parallel, ps_server, comm_plane  # noqa: E402
 from . import embedding_plane  # noqa: E402
 from . import contrib  # noqa: E402
+from . import libinfo, misc, util, ndarray_doc, symbol_doc  # noqa: E402
+from . import notebook, runtime, rtc, resource  # noqa: E402
+from . import plugin, torch  # noqa: E402
+from . import torch as th  # noqa: E402
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "cpu_pinned",
            "cpu_shared", "current_context", "num_gpus", "nd", "sym",
@@ -102,7 +110,9 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "cpu_pinned",
            "predictor", "ps_wire", "serving", "fault_injection",
            "generation", "serving_fleet", "autoscale", "executor_manager",
            "parallel", "ps_server", "comm_plane", "embedding_plane",
-           "kvstore_server", "contrib"]
+           "kvstore_server", "contrib", "registry", "libinfo", "misc",
+           "util", "ndarray_doc", "symbol_doc", "notebook", "runtime", "rtc",
+           "resource", "plugin", "torch", "th"]
 
 # imported last, as the reference's (`python/mxnet/__init__.py:91`): under
 # DMLC_ROLE=server with BYTEPS_ENABLE_ASYNC set, this process becomes the

@@ -10,14 +10,16 @@ means the same thing in both packages.
 from __future__ import annotations
 
 import ast
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
 
 __all__ = ["MXNetError", "NotImplementedForSymbol", "InternalNamespace",
            "_Null", "str_to_attr", "DTYPE_TO_ID", "ID_TO_DTYPE",
-           "numpy_dtype", "torch_dtype", "dtype_np", "dtype_name"]
+           "numpy_dtype", "torch_dtype", "dtype_np", "dtype_name",
+           "env_int", "env_bool", "env_str", "attr_to_str",
+           "classproperty"]
 
 
 class MXNetError(RuntimeError):
@@ -153,3 +155,54 @@ def torch_dtype(dtype) -> torch.dtype:
         if n == name:
             return t
     raise MXNetError(f"dtype {dtype!r} has no torch counterpart here")
+
+
+# ---------------------------------------------------------------------------
+# typed environment reads by name (reference: dmlc::GetEnv at the use
+# site) through `config.get_env`, and the attr codec's writing half, as
+# the JAX package's base
+# ---------------------------------------------------------------------------
+
+def _env(name: str, caster: Callable, default):
+    from .config import get_env
+    raw = get_env(name)
+    if raw is None or raw == "":
+        return default
+    try:
+        return caster(raw)
+    except (TypeError, ValueError):
+        return default
+
+
+def env_int(name: str, default: int = 0) -> int:
+    return _env(name, int, default)
+
+
+def env_bool(name: str, default: bool = False) -> bool:
+    return _env(name, lambda s: s.strip().lower() not in ("0", "false", ""),
+                default)
+
+
+def env_str(name: str, default: str = "") -> str:
+    return _env(name, str, default)
+
+
+def attr_to_str(value: Any) -> str:
+    """An attr value as the Symbol JSON stores it; `str_to_attr` reads it
+    back."""
+    if isinstance(value, bool):
+        return "1" if value else "0"
+    if isinstance(value, (list, tuple)):
+        if len(value) == 1:
+            # trailing comma so the string reads back as a 1-tuple
+            return "(" + attr_to_str(value[0]) + ",)"
+        return "(" + ", ".join(attr_to_str(v) for v in value) + ")"
+    return str(value)
+
+
+class classproperty:
+    def __init__(self, fget):
+        self.fget = fget
+
+    def __get__(self, obj, owner):
+        return self.fget(owner)

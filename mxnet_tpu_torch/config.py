@@ -192,6 +192,13 @@ _reg("MXTPU_CKPT_COMMIT_DELAY", float, 0.0,
      "kills in")
 
 
+# --- the front end (resource.py, contrib/text) -----------------------------
+_reg("MXNET_EXEC_NUM_TEMP", int, 1,
+     "round-robin temp-space pool size per context in resource.py")
+_reg("MXNET_HOME", str, os.path.join(os.path.expanduser("~"), ".mxnet"),
+     "cache root: pre-placed embedding files under embeddings/ "
+     "(contrib/text/embedding.py)")
+
 # --- launcher protocol and process group (parallel/distributed.py) --------
 _reg("DMLC_ROLE", str, "worker", "launcher process role: under 'server' "
      "with BYTEPS_ENABLE_ASYNC set, importing the package serves the "

@@ -1,6 +1,6 @@
 """Gluon: the imperative and hybrid network API (the counterpart of
-`mxnet_tpu/gluon`; reference `python/mxnet/gluon/`).  The contrib
-layers wait for a later slice."""
+`mxnet_tpu/gluon`; reference `python/mxnet/gluon/`), with the
+experimental layers and cells of `contrib`."""
 from . import parameter
 from .parameter import Constant, Parameter, ParameterDict
 from . import block
@@ -11,8 +11,9 @@ from . import loss
 from . import data
 from .trainer import Trainer
 from . import model_zoo
+from . import contrib
 from . import utils
 
 __all__ = ["Block", "HybridBlock", "SymbolBlock", "Parameter", "Constant",
            "ParameterDict", "Trainer", "nn", "rnn", "loss", "data",
-           "model_zoo", "utils", "parameter", "block"]
+           "model_zoo", "contrib", "utils", "parameter", "block"]

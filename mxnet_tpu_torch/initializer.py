@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from . import random as _random
+from . import registry as _registry_mod
 from .base import MXNetError
 from .ndarray.ndarray import NDArray
 
@@ -32,25 +33,31 @@ _NAME_ALIASES = {"zeros": "zero", "ones": "one", "gaussian": "normal"}
 
 def register(klass):
     _INIT_REGISTRY[klass.__name__.lower()] = klass
+    # also listed by `registry.get_registry(Initializer)`, as in the JAX
+    # package
+    _registry_mod.get_register_func(Initializer, "initializer")(klass)
     return klass
 
 
 def create(name, **kwargs):
     """An initializer from its name (an instance passes through; no name
-    gives `Uniform`)."""
+    gives `Uniform`); a name registered through
+    `registry.get_register_func(Initializer, ...)` resolves too."""
     if isinstance(name, Initializer):
         return name
     if not name:
         return Uniform()
-    if isinstance(name, str) and name.startswith("["):
-        # the JSON spelling `Initializer.dumps` writes into ``__init__``
-        import json
-        name, kw = json.loads(name)
-        kwargs = dict(kw, **kwargs)
+    if isinstance(name, str) and name.startswith(("[", "{")):
+        # the JSON spellings (`Initializer.dumps` writes the list one)
+        return _registry_mod.get_create_func(Initializer, "initializer")(
+            name, **kwargs)
     key = _NAME_ALIASES.get(str(name).lower(), str(name).lower())
-    if key not in _INIT_REGISTRY:
-        raise MXNetError(f"unknown initializer {name!r}")
-    return _INIT_REGISTRY[key](**kwargs)
+    if key in _INIT_REGISTRY:
+        return _INIT_REGISTRY[key](**kwargs)
+    shared = _registry_mod.get_registry(Initializer)
+    if key in shared:
+        return shared[key](**kwargs)
+    raise MXNetError(f"unknown initializer {name!r}")
 
 
 class InitDesc(str):

@@ -4,8 +4,8 @@ reference's module-level helpers (the named arithmetic and comparisons,
 ``eye``, ``concatenate``, ``onehot_encode``, ``split_v2``)."""
 from .. import ops as _ops  # noqa: F401  (registers the ops)
 from ..base import InternalNamespace
-from .ndarray import (NDArray, arange, array, empty, full, ones, waitall,
-                      zeros)
+from .ndarray import (NDArray, arange, array, concat_nd, empty, full, ones,
+                      waitall, zeros)
 from .register import invoke, make_nd_functions
 from . import sparse  # noqa: E402
 from .sparse import CSRNDArray, RowSparseNDArray  # noqa: E402
@@ -17,12 +17,6 @@ from . import contrib, image  # noqa: E402
 
 
 _internal = InternalNamespace(globals(), __name__)
-
-
-def concat_nd(arrays, axis=0):
-    """``Concat`` of a list of NDArrays along ``axis`` (the JAX package's
-    `ndarray.concat_nd`)."""
-    return invoke("Concat", *arrays, dim=axis, num_args=len(arrays))
 
 
 def save(fname, data):

@@ -28,7 +28,7 @@ from ..base import MXNetError, dtype_np, torch_dtype
 from ..context import Context, default_context
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
-           "waitall"]
+           "concat_nd", "waitall"]
 
 #: the live arrays that carry a deferred error not yet raised by `waitall`
 POISONED: "weakref.WeakValueDictionary[int, NDArray]" = \
@@ -647,6 +647,12 @@ def arange(start, stop=None, step=1.0, repeat=1, ctx=None,
                      device=ctx.device,
                      dtype=torch_dtype(dtype or "float32"))
     return NDArray(t.repeat_interleave(repeat) if repeat > 1 else t, ctx)
+
+
+def concat_nd(arrays, axis=0) -> NDArray:
+    """``Concat`` of a list of NDArrays along ``axis``."""
+    from .register import invoke
+    return invoke("Concat", *arrays, dim=axis, num_args=len(arrays))
 
 
 def waitall():

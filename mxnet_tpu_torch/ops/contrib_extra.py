@@ -525,7 +525,9 @@ def _mapped_axis(axis_name):
 def _sync_batch_norm(attrs, data, gamma, beta, moving_mean, moving_var):
     """Cross-rank BatchNorm: in training, the batch moments, then (inside
     a map over ``axis_name``) their mean over that axis, as the JAX
-    package's ``lax.pmean`` of the mean and of the variance."""
+    package's ``lax.pmean`` of the mean and of the variance; under
+    `SPMDTrainer` (`ops.nn.batch_stats_scope`) the whole batch's moments,
+    as BatchNorm's."""
     eps = attrs.get_float("eps", 1e-3)
     momentum = attrs.get_float("momentum", 0.9)
     fix_gamma = attrs.get_bool("fix_gamma", True)
@@ -536,10 +538,15 @@ def _sync_batch_norm(attrs, data, gamma, beta, moving_mean, moving_var):
         mean = data.mean(dim=axes)
         var = data.var(dim=axes, unbiased=False)
         axis = attrs.get_str("axis_name", None)
+        from .nn import _BATCH_STATS, _global_moments
         if _mapped_axis(axis) is not None:
             from ..parallel import collectives as C
             mean = C.pmean(mean, axis)
             var = C.pmean(var, axis)
+        elif _BATCH_STATS.reduce is not None:
+            mean, var = _global_moments(data, axes, _BATCH_STATS.reduce,
+                                        _BATCH_STATS.ranks)
+            mean, var = mean.to(data.dtype), var.to(data.dtype)
         with torch.no_grad():
             new_mean = momentum * moving_mean + (1 - momentum) * mean
             new_var = momentum * moving_var + (1 - momentum) * var

@@ -34,6 +34,9 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
+# one build at a time in a process: a `load` during a build started on
+# another thread waits for it, then finds the library built
+_BUILD_LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -80,6 +83,11 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     ``nvcc`` processes at once.  Returns ``{name: compiler log}`` (the
     ``ptxas -v`` register and shared-memory report; empty when the library
     was already built).  Raises `MXNetError` with the log when one fails."""
+    with _BUILD_LOCK:
+        return _build(names)
+
+
+def _build(names: Iterable[str]) -> Dict[str, str]:
     os.makedirs(BUILD_DIR, exist_ok=True)
     jobs = {}
     logs = {}

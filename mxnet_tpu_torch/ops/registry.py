@@ -23,8 +23,8 @@ import torch
 
 from ..base import MXNetError, _Null, str_to_attr, torch_dtype
 
-__all__ = ["Attrs", "OpDef", "register", "alias", "get_op", "list_ops",
-           "apply_op", "eval_shape_op", "canonical_attrs",
+__all__ = ["Attrs", "OpDef", "register", "alias", "get_op", "has_op",
+           "list_ops", "apply_op", "eval_shape_op", "canonical_attrs",
            "split_positional_attrs", "attach_prefixed", "DEVICE",
            "PROGRAM_STATE", "register_validator", "get_validator"]
 
@@ -169,6 +169,10 @@ def get_validator(name: str):
     """The validator of op ``name`` or of the op it aliases, or None."""
     op = _REGISTRY.get(name)
     return _VALIDATORS.get(op.name if op is not None else name)
+
+
+def has_op(name: str) -> bool:
+    return name in _REGISTRY
 
 
 def get_op(name: str) -> OpDef:

@@ -61,12 +61,17 @@ def seed(seed_state: int, ctx: Union[str, Context] = "all") -> None:
             _STREAMS.seed = seed_state
             for gen in _STREAMS.generators.values():
                 gen.manual_seed(seed_state)
-            return
-        device = _device(ctx)
-        gen = _STREAMS.generators.get(device)
-        if gen is None:
-            gen = _STREAMS.generators[device] = torch.Generator(device=device)
-        gen.manual_seed(seed_state)
+        else:
+            device = _device(ctx)
+            gen = _STREAMS.generators.get(device)
+            if gen is None:
+                gen = _STREAMS.generators[device] = torch.Generator(
+                    device=device)
+            gen.manual_seed(seed_state)
+    # the resource manager's streams follow (reference
+    # `ResourceManager::SeedRandom`)
+    from . import resource
+    resource.seed(seed_state, ctx=None if ctx == "all" else ctx)
 
 
 def current_seed() -> int:

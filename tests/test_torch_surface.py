@@ -373,3 +373,93 @@ def test_simple_bind_takes_inferred_dtypes():
         m.counters.clear()
     args, aux = dtypes(mt, CPU, "float64")
     assert set(args.values()) | set(aux.values()) == {np.dtype(np.float64)}
+
+
+# -- the port is whole -------------------------------------------------------
+
+import importlib  # noqa: E402
+import os  # noqa: E402
+
+_JAX_ROOT = os.path.dirname(mx.__file__)
+_PORT_ROOT = os.path.dirname(mt.__file__)
+# the one file of the JAX package whose counterpart has another name
+_RENAMED = {"ops/pallas_kernels.py": "ops/hopper_kernels.py"}
+# names of the JAX package's `__all__` that are JAX's own and have no
+# meaning in the port, each with the reason
+_JAX_ONLY = {
+    "mxnet_tpu": {"tpu": "a TPU context", "num_tpus": "TPU devices"},
+    "mxnet_tpu.context": {"tpu": "a TPU context", "num_tpus": "TPU devices"},
+    "mxnet_tpu.analysis": {
+        "audit_callable": "audits a jaxpr", "audit_jaxpr": "audits a jaxpr"},
+    "mxnet_tpu.analysis.program_audit": {
+        n: "audits a jaxpr or its lowering" for n in (
+            "HOST_CALLBACK_PRIMITIVES", "audit_jaxpr", "audit_lowered",
+            "audit_callable", "abstractify")},
+    "mxnet_tpu.autograd": {
+        "Node": "a node of the JAX package's own tape; the port records "
+                "on torch's"},
+    "mxnet_tpu.executor": {
+        "bind_symbol_function": "the jitted graph function of the JAX "
+                                "package's SymbolBlock; the port's runs its "
+                                "graph through GraphProgram"},
+    "mxnet_tpu.fused_step": {"TracedAttrs": "attrs holding jax tracers"},
+    "mxnet_tpu.unified_step": {"TracedAttrs": "attrs holding jax tracers"},
+    "mxnet_tpu.gluon.model_zoo.model_store": {
+        "get_model_file": "model_store stays refused (no weights may be "
+                          "fetched)",
+        "purge": "model_store stays refused"},
+    "mxnet_tpu.ndarray.ndarray": {"from_jax": "wraps a jax.Array"},
+    "mxnet_tpu.ops.pallas_kernels": {
+        "use_interpret": "Pallas's interpret mode"},
+    "mxnet_tpu.ops.registry": {
+        "compiled_op": "the jit cache of an op",
+        "index_dtype": "the x64-off index policy (the port keeps int64)"},
+    "mxnet_tpu.random": {
+        "next_key": "threefry keys", "host_next_key": "threefry keys",
+        "key_provider": "threefry keys"},
+}
+
+
+def _jax_files():
+    out = []
+    for dirpath, _dirs, files in os.walk(_JAX_ROOT):
+        for f in files:
+            if f.endswith(".py"):
+                out.append(os.path.relpath(os.path.join(dirpath, f),
+                                           _JAX_ROOT))
+    return sorted(out)
+
+
+def _module_name(pkg, rel):
+    parts = rel[:-3].split(os.sep)
+    if parts[-1] == "__init__":
+        parts = parts[:-1]
+    return ".".join([pkg] + parts)
+
+
+def test_every_module_has_its_counterpart():
+    """Every `.py` file of `mxnet_tpu/` has its counterpart at the same
+    path under `mxnet_tpu_torch/` (`ops/pallas_kernels.py` is
+    `ops/hopper_kernels.py`)."""
+    files = _jax_files()
+    assert len(files) >= 186
+    missing = [f for f in files if not os.path.isfile(
+        os.path.join(_PORT_ROOT, _RENAMED.get(f, f)))]
+    assert not missing, missing
+
+
+@pytest.mark.parametrize("rel", _jax_files())
+def test_public_names_have_their_counterparts(rel):
+    """Every name in a JAX module's `__all__` exists in its counterpart,
+    but for the JAX-only names of ``_JAX_ONLY``."""
+    jname = _module_name("mxnet_tpu", rel)
+    jmod = importlib.import_module(jname)
+    names = getattr(jmod, "__all__", None)
+    if names is None:
+        return
+    tmod = importlib.import_module(
+        _module_name("mxnet_tpu_torch", _RENAMED.get(rel, rel)))
+    only = _JAX_ONLY.get(jname, {})
+    assert set(only) <= set(names), jname
+    missing = [n for n in names if n not in only and not hasattr(tmod, n)]
+    assert not missing, f"{tmod.__name__} lacks {missing}"

@@ -10,6 +10,10 @@ the same names, inputs and closed-form assertions.  The source is
 compiled under its own path, so a failure's traceback shows the JAX
 file's lines.
 
+`port_tests(fname, skip)` gives a JAX test file's test functions exec'd
+the same way, each run under ``with cpu():``, for files that mix them
+with tests of their own.
+
 `held(request, monkeypatch, jax_module)` is the body of an autouse
 fixture: it records every value the port's `PSClient`s read
 (``pull``, ``pull_batch``, ``pull_rows``, ``embed_pull``) while the test
@@ -50,6 +54,34 @@ def port_copy(fname, namespace):
     for pat, rep in _SUBS:
         src = re.sub(pat, rep, src)
     exec(compile(src, path, "exec"), namespace)
+
+
+def port_tests(fname, skip=None):
+    """The test functions of ``tests/<fname>`` exec'd on the port
+    (`port_copy`), each wrapped to run under ``with cpu():`` (the port's
+    arrays default to the card), by name.  ``skip`` maps the names left
+    out to the reason each does not apply to the port."""
+    import functools
+
+    import mxnet_tpu_torch as mt
+
+    ns = {"__name__": "port_" + fname[:-3],
+          "__file__": os.path.join(_TESTS, fname)}
+    port_copy(fname, ns)
+    out = {}
+    for name, fn in ns.items():
+        if not name.startswith("test_") or not callable(fn) or \
+                name in (skip or {}):
+            continue
+
+        @functools.wraps(fn)
+        def run(*args, _fn=fn, **kwargs):
+            with mt.cpu():
+                return _fn(*args, **kwargs)
+        out[name] = run
+    missing = set(skip or {}) - set(ns)
+    assert not missing, f"{fname} has no tests {sorted(missing)}"
+    return out
 
 
 class Recorder:
