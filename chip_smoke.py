@@ -427,7 +427,8 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    microbatches) and Switch MoE (MOE_CFG: 4 experts over ep 2) with SGD:
    the loss falls and its trajectory is within PIPE_TOL of one rank's
    (the stages in sequence; the experts on one rank).  19e: phase 5's
-   BERT-base ``Module.fit`` (PREEMPT batches, dropout 0.1, BERT's Adam)
+   BERT-base ``Module.fit`` (PREEMPT["layers"] of its 12 layers, PREEMPT
+   batches, dropout 0.1, BERT's Adam)
    under ``MXTPU_ANOMALY_GUARD=1`` with a fault plan poisoning one step:
    run A here; run B in a child (PREEMPT_ENTRY) under a
    `train_driver.TrainingSupervisor` with a checkpoint directory, sent
@@ -435,7 +436,7 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    mid-epoch ``preempted`` checkpoint; run C here resumes from it and
    must end bit-equal to A (weights and Adam states); A and B each skip
    the poisoned step once.
-20. elastic mesh and contrib ops.  20a: phase 19c's BERT-base MLM (4 of
+20. elastic mesh and contrib ops.  20a: phase 19c's BERT-base MLM (2 of
    its 12 layers at their published widths, 8 x 512, dropout 0, BERT's
    Adam)
    through ``Module.fit`` under ``MXTPU_SPMD=2`` with ZeRO-1,
@@ -519,6 +520,29 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    TPU kernel lies on this phase's path: `LSTMPCell` splits its gates
    with ``split``, which the graph optimizer's LSTM matcher does not
    take, in either package.
+22. mixed precision and the repaired ops.  22a: BERT-base MLM at its
+   published widths in bfloat16 (`bert_mlm(dtype="bfloat16")`: both
+   embedding tables bf16, so every weight after them; dropout 0), batch
+   MP_FIT["batch"] x MP_FIT["seq"], weights from the seed, through
+   ``Module.fit`` under MXNet's mixed-precision recipe, SGD with momentum
+   0.9 and ``multi_precision`` (fp32 master copies and momenta), for
+   MP_FIT["steps"] steps.  First K1, K2 and K3 in bf16 at this path's
+   [8, 12, 512, 64] against their plain versions (phases 3 and 3b's
+   checks), timed beside their bounds and PyTorch's fused attention.
+   Each fit step must be taken by `Module.fused_step` as one CUDA graph
+   (the warm-up, then replays) and launch K1-K3 once per layer, in their
+   bf16 instantiation by the profiler's trace of one replay; the captured
+   steps must leave the weights, the fp32 master copies and the momenta
+   bit-equal to as many eager per-parameter steps
+   (``MXTPU_FUSED_STEP=0``: the ``mp_sgd_mom_update`` op per parameter),
+   and each step's loss within MP_LOSS_TOL of the same steps in fp32.
+   The captured and the eager step's ms are printed (MP_FIT["timed"]
+   steps each).  22b: `linalg_potrf`'s gradient on a POTRF_N x POTRF_N SPD
+   matrix (the symmetric part's Cholesky factor, as the JAX package's) on
+   the card within POTRF_TOL of the CPU path, and in float64 within
+   POTRF_FD_TOL of central differences of the forward; `Ftrl` through
+   ``Module.fit`` on MXNet's MNIST MLP (FTRL_FIT), the captured step
+   bit-equal to the eager one (weights, z and n).
 
 The time limit: phase 20 came with cuts elsewhere (18a-b at 4 of
 BERT-base's 12 layers and DIST_ASYNC_STEPS 2 of 4, the serving phases'
@@ -527,8 +551,11 @@ BERT-base's 12 layers and DIST_ASYNC_STEPS 2 of 4, the serving phases'
 and 13, which launch none of them, run first (they share the host with
 ``nvcc`` for it); FLEET_REQUESTS and FLEET_CHAOS_REQUESTS at 100; 18a-b
 at DIST_LAYERS 2, 11c at CKPT_LAYERS 4 and 20a at 4 of BERT-base's 12
-layers.  If the run nears its limit again, cut 19c's all-reduce run
-before anything else of the training phases.
+layers.  Phase 22 came with these: 11c, 19e and 20a at 2 of BERT-base's
+12 layers, FLEET_REPLICAS 2, and the autoscaler's ``max_replicas`` 2 (the
+whole script had run 1334.7 s of command on a slow host before them).
+If the run nears its limit again, cut 19c's all-reduce run before
+anything else of the training phases.
 
 The line before the last is the JSON kernel report; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -789,7 +816,9 @@ RING_LM_CARD = dict(vocab=32, dim=768, heads=12, seq_len=8192, batch=1,
 SPMD_BERT = dict(batch=8, seq=512, steps=2)
 PIPE_CFG = dict(stages=2, micro=8, batch=4, width=16, steps=20, lr=0.3)
 MOE_CFG = dict(tokens=128, width=16, hidden=32, experts=4, steps=30, lr=0.3)
-PREEMPT = dict(batches=6, poison_at=2, sigterm_after=3)
+# 19e at 2 of BERT-base's 12 layers (cut for the time limit when phase 22
+# came)
+PREEMPT = dict(batches=6, poison_at=2, sigterm_after=3, layers=2)
 # phase 19's limits: 19a's float64 weights after SPMD_STEPS steps
 # (SPMDTrainer against gluon.Trainer on one rank, two ranks against one),
 # max |diff| over each array's largest magnitude; 19b's outputs and first-step
@@ -810,11 +839,12 @@ SPMD_ENTRY = "import sys, chip_smoke as cs; cs.spmd_worker(sys.argv[1])"
 PREEMPT_ENTRY = "import sys, chip_smoke as cs; cs.preempt_child(sys.argv[1])"
 # phase 20: 20a-b, the elastic mesh: phase 19c's BERT-base MLM fit (2
 # batches an epoch, 2 epochs) on two ranks, the second lost at step 3's
-# probe (ELASTIC_LOSS_STEP: epoch 1's first), 20a with 4 layers (all 12
-# until phase 21 came and the time limit cut them), the buddy copy and a
+# probe (ELASTIC_LOSS_STEP: epoch 1's first), 20a with 2 layers (all 12
+# until phase 21 came and the time limit cut them to 4, phase 22 to 2), the
+# buddy copy and a
 # kill, 20b with 2 layers, no redundancy and a stopped rank; the probe's
 # bound, and the launcher's time limit for each
-ELASTIC = {"a": dict(layers=4, batch=8, seq=512, redundancy=1,
+ELASTIC = {"a": dict(layers=2, batch=8, seq=512, redundancy=1,
                      fault="kill_device_at"),
            "b": dict(layers=2, batch=8, seq=512, redundancy=0,
                      fault="hang_device_at")}
@@ -877,6 +907,20 @@ RTC_N = 1 << 24
 # against the port's CPU path over the largest magnitude
 FRONT_TOL = 1e-5
 EMBED_FILE = dict(tokens=10000, dim=300)
+# phase 22a: BERT-base MLM in bfloat16 through Module.fit under MXNet's
+# mixed-precision recipe (SGD, momentum 0.9, multi_precision): MP_FIT's
+# steps captured, eager and in fp32, then timed steps each way; the bf16
+# losses against the fp32 run's, relative
+MP_FIT = dict(batch=8, seq=512, steps=3, timed=10, lr=0.01)
+MP_LOSS_TOL = 2e-2
+# 22b: linalg_potrf's gradient on a POTRF_N x POTRF_N SPD matrix, the card
+# against the CPU path over its largest magnitude; the card's float64
+# gradient against central differences (step POTRF_EPS) in float64
+POTRF_N, POTRF_EPS = 64, 1e-6
+POTRF_TOL, POTRF_FD_TOL = 1e-5, 1e-6
+# 22b: MXNet's MNIST MLP (example/image-classification/symbols/mlp.py, the
+# batch of train_mnist.py) on MNIST-shaped data from the seed, under Ftrl
+FTRL_FIT = dict(features=784, batch=64, batches=4, lr=0.1, lamda1=0.01)
 # phase 11a: the reference's example/sparse/linear_classification.py
 # local-store loop at the width of LIBSVM's avazu-app (1,000,000 features)
 # and the example's batch 8192 and lr; rows one-hot in 15 fields with
@@ -898,9 +942,9 @@ FM_RUNS = (("sgd", 18, 0.02), ("adam", 10, 0.05), ("adagrad", 20, 0.09))
 # time limit
 CKPT_COMMIT_DELAY = 5.0
 CKPT_CHILD_TIMEOUT = 600
-# 11c's BERT: BERT-base's widths at 4 of its 12 layers (cut for the
-# script's time limit when phase 21 came)
-CKPT_LAYERS = 4
+# 11c's BERT: BERT-base's widths at 2 of its 12 layers (cut for the
+# script's time limit: to 4 when phase 21 came, to 2 when phase 22 came)
+CKPT_LAYERS = 2
 # how 11c starts a child (a CPU rehearsal puts its own entry here)
 CHILD_ENTRY = "import sys, chip_smoke as cs; cs.ckpt_child(sys.argv[1])"
 # phase 7's record, which 11d prints its step beside
@@ -1014,14 +1058,14 @@ GEN_WIRE_REQUESTS = 64
 # FLEET_REQUESTS clean requests, then FLEET_CHAOS_REQUESTS with a SIGKILL
 # at router dispatch FLEET_KILL_AT (cut these first if the run nears its
 # limit)
-FLEET_REPLICAS, FLEET_LADDER = 3, (1, 2, 4, 8)
+FLEET_REPLICAS, FLEET_LADDER = 2, (1, 2, 4, 8)
 FLEET_REQUESTS, FLEET_CHAOS_REQUESTS, FLEET_KILL_AT = 100, 100, 40
 FLEET_CLIENTS, FLEET_READY_S, FLEET_WAIT_S = 4, 180.0, 120.0
-# 16d: the autoscaler from a floor of 1 to at most 3 replicas, a burst of
+# 16d: the autoscaler from a floor of 1 to at most 2 replicas, a burst of
 # SCALE_BURST clients at poll SCALE_SPIKE_AT, the idle window set short
 # (the cooldown outlasts the scale-up's spawn, kill and respawn, so the
 # burst grows the fleet once and the floor follows soon after it ends)
-SCALE = dict(min_replicas=1, max_replicas=3, up_queue_rows=4,
+SCALE = dict(min_replicas=1, max_replicas=2, up_queue_rows=4,
              down_queue_rows=1, idle_window_s=2.0, cooldown_s=30.0,
              interval_s=0.2, warmup_timeout_s=180.0, drain_wait_s=5.0)
 SCALE_BURST, SCALE_SPIKE_AT = 16, 3
@@ -1304,7 +1348,8 @@ def check_attention_backward(name, q_shape, lk, dtype, causal, gen):
             "dk": _grad_err(dk, dk_ref, dtype),
             "dv": _grad_err(dv, dv_ref, dtype)}
     lib_ms = None
-    if name == "bert_base" and not causal and dtype == torch.float32:
+    if not causal and (name == "mixed_precision_fit" or (
+            name == "bert_base" and dtype == torch.float32)):
         # one library call for the three gradients (dLSE = 0 there): the
         # backward of PyTorch's fused attention on the same tensors
         leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
@@ -2256,7 +2301,7 @@ def _batch_loss(mod, data_batch):
     prob = mod.get_outputs()[0].data
     flat = data_batch.label[0].data.to(prob.device).reshape(-1)
     rows = torch.nonzero(flat >= 0).squeeze(1)
-    return -torch.log(prob[rows, flat[rows].long()]).mean().item()
+    return -torch.log(prob[rows, flat[rows].long()].float()).mean().item()
 
 
 def _params_err(a, b):
@@ -8646,8 +8691,9 @@ def spmd_preempt(card, workdir, device="cuda", cfg=None, batch=8, seq=512):
     from mxnet_tpu_torch import fault_injection as fi
     from mxnet_tpu_torch import profiler
     from mxnet_tpu_torch.checkpoint import CheckpointManager
-    cfg = dict(BERT_BASE if cfg is None else cfg)
     p = dict(PREEMPT)
+    cfg = dict(dict(BERT_BASE, num_layers=p["layers"]) if cfg is None
+               else cfg)
     job = {"cfg": cfg, "batch": batch, "seq": seq, "device": device,
            "batches": p["batches"], "poison_at": p["poison_at"],
            "progress": os.path.join(workdir, "progress"),
@@ -10224,6 +10270,310 @@ def phase_front_end(card, device="cuda", lm=None, svrg=None, onnx=None):
     return recs
 
 
+# ---------------------------------------------------------------------------
+# phase 22: mixed precision on the captured step, and the repaired ops
+# ---------------------------------------------------------------------------
+
+def _mp_fit(sym, it, params, ctx, fused, opt_params, losses):
+    """One `Module.fit` epoch over ``it`` (``MXTPU_FUSED_STEP`` on or
+    off), with each batch's masked-LM loss appended to ``losses``."""
+    mod = mt.mod.Module(sym, data_names=("data", "positions"),
+                        label_names=("mlm_label",), context=ctx)
+
+    def on_batch(param):
+        losses.append(_batch_loss(mod, param.locals["data_batch"]))
+
+    it.reset()
+    with env(MXTPU_FUSED_STEP="1" if fused else "0"):
+        mod.fit(it, num_epoch=1, optimizer="sgd",
+                optimizer_params=dict(opt_params), arg_params=params,
+                batch_end_callback=on_batch)
+    return mod
+
+
+def _mp_states(mod):
+    """(weights, fp32 master copies, momenta) of a module under
+    multi-precision SGD, by parameter name."""
+    names = mod._exec._grad_arg_names
+    idx = {n: i for i, n in enumerate(mod._exec.arg_names)}
+    states = mod._updater.states
+    return ({n: mod._exec.arg_dict[n].data for n in names},
+            {n: states[idx[n]][1].data for n in names},
+            {n: states[idx[n]][0].data for n in names})
+
+
+def mixed_precision_fit(card, device="cuda", cfg=None, batch=None,
+                        seq=None, steps=None, timed=None):
+    """22a: BERT-base MLM in bfloat16 (`bert_mlm(dtype="bfloat16")`)
+    through ``Module.fit`` with SGD(momentum 0.9, multi_precision): the
+    captured step against the eager per-parameter one, bit for bit, and
+    against the same steps in fp32.  Returns the bf16 fits' launches."""
+    cfg = dict(BERT_BASE if cfg is None else cfg, dropout=0.0)
+    batch = batch or MP_FIT["batch"]
+    seq = seq or MP_FIT["seq"]
+    steps = steps or MP_FIT["steps"]
+    timed = timed or MP_FIT["timed"]
+    n_layers = cfg["num_layers"]
+    ctx = mt.gpu(0) if device == "cuda" else mt.cpu()
+    on_card = device == "cuda"
+    rng = np.random.RandomState(SEED + 22)
+    n = steps * batch
+    data = rng.randint(0, cfg["vocab"], (n, seq)).astype(np.float32)
+    label = np.where(rng.rand(n, seq) < 0.15, data, -1.0).astype(np.float32)
+    pos = np.tile(np.arange(seq, dtype=np.float32), (n, 1))
+    it = mt.io.NDArrayIter({"data": data, "positions": pos},
+                           {"mlm_label": label}, batch_size=batch)
+    shapes = {d.name: d.shape for d in it.provide_data + it.provide_label}
+    sym = bert_mlm(mt.sym, dtype="bfloat16", **cfg)
+    arg_shapes, _, _ = sym.infer_shape(**shapes)
+    params = random_params({n: s for n, s in zip(sym.list_arguments(),
+                                                 arg_shapes)
+                            if n not in shapes}, SEED)
+    opt = dict(learning_rate=MP_FIT["lr"], momentum=0.9,
+               multi_precision=True)
+    names = ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
+
+    # K1-K3 in bf16 at this path's call against their plain versions,
+    # timed beside their bounds (before the counted fits)
+    kernel_recs = {}
+    if on_card:
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+        heads = cfg["heads"]
+        shape = (batch, heads, seq, cfg["hidden"] // heads)
+        with torch.no_grad():
+            kernel_recs["flash_attn_fwd"] = check_attention(
+                "mixed_precision_fit", shape, seq, torch.bfloat16, False,
+                gen)
+            for rec in check_attention_backward(
+                    "mixed_precision_fit", shape, seq, torch.bfloat16,
+                    False, gen):
+                kernel_recs[rec["kernel"]] = rec
+
+    hk.reset_launch_counts()
+    mt.profiler.reset_step_counters()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    cap_losses, eag_losses, f32_losses = [], [], []
+    t0 = time.perf_counter()
+    cap = _mp_fit(sym, it, params, ctx, True, opt, cap_losses)
+    fit_s = time.perf_counter() - t0
+    fused = mt.profiler.step_counters().get("fused_steps", 0)
+    cap_launches = dict(hk.LAUNCHES)
+    step = cap._fused_train_step
+    if fused != steps or step is None or step.captured != on_card:
+        raise AssertionError(f"fit took {fused} fused steps of {steps} "
+                             "(captured on the card)")
+    w, w32, mom = _mp_states(cap)
+    if not all(t.dtype == torch.bfloat16 for t in w.values()) or \
+            not all(t.dtype == torch.float32 for t in w32.values()):
+        raise AssertionError("the weights are not bf16 with fp32 masters")
+    eag = _mp_fit(sym, it, params, ctx, False, opt, eag_losses)
+    ew, ew32, emom = _mp_states(eag)
+    differ = [n for n in w if not (torch.equal(w[n], ew[n]) and
+                                   torch.equal(w32[n], ew32[n]) and
+                                   torch.equal(mom[n], emom[n]))]
+    if differ or cap_losses != eag_losses:
+        raise AssertionError(f"captured against eager per-parameter steps: "
+                             f"{len(differ)} parameters differ ({differ[:4]})"
+                             f", losses {cap_losses} / {eag_losses}")
+    bf16_launches = dict(hk.LAUNCHES)
+    del ew, ew32, emom
+    if on_card:
+        for name in names:
+            if cap_launches[name] != n_layers * steps or \
+                    bf16_launches[name] != 2 * n_layers * steps:
+                raise AssertionError(f"{name}: {cap_launches[name]} launches "
+                                     f"in the captured fit, "
+                                     f"{bf16_launches[name]} in both; want "
+                                     f"{n_layers} a step")
+    f32 = _mp_fit(bert_mlm(mt.sym, **cfg), it, params, ctx, True, opt,
+                  f32_losses)
+    del f32
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(cap_losses,
+                                                      f32_losses))
+    log(f"mixed precision: {steps} bf16 steps in {fit_s:.2f} s, captured "
+        f"bit-equal to eager per-parameter steps (weights, fp32 masters, "
+        f"momenta); losses bf16 {cap_losses}, fp32 {f32_losses}, worst "
+        f"{loss_err:.3e} relative")
+    if not loss_err <= MP_LOSS_TOL:
+        raise AssertionError(f"bf16 loss {loss_err} from fp32's, above "
+                             f"{MP_LOSS_TOL}")
+    if on_card:
+        torch.cuda.empty_cache()
+
+    rec = {"slice": "bert_base_mlm_mixed_precision_fit", "card": card,
+           "batch": batch, "seq": seq, "layers": n_layers,
+           "dtype": "bfloat16", "optimizer": "sgd", "momentum": 0.9,
+           "multi_precision": True, "steps": steps,
+           "fused_steps": fused, "captured": bool(step.captured),
+           "bf16_losses": cap_losses, "fp32_losses": f32_losses,
+           "loss_rel_err_vs_fp32": loss_err,
+           "captured_vs_eager": "bit-equal",
+           "launches_captured_fit": {k: cap_launches[k] for k in names},
+           "launches_bf16_fits": {k: bf16_launches[k] for k in names}}
+    if on_card:
+        it.reset()
+        b = next(iter(it))
+        # the instantiations by name in the trace of one replay: bf16
+        # only (the counts a step are LAUNCHES' above: in a whole run
+        # CUPTI may drop records of a replay, 5 of 12 K1 once)
+        kernels, host = replay_launches(lambda: cap.fused_step(b))
+        got = {n: {dt: sum(c for k, c in kernels.items()
+                           if n + "_kernel" in k and
+                           ("bfloat16" in k) == (dt == "bf16"))
+                   for dt in ("bf16", "other")} for n in names}
+        graphs = sum(v for k, v in host.items() if "GraphLaunch" in k)
+        log(json.dumps({"replay": "mixed-precision fit step",
+                        "kernel_launches_by_type": got,
+                        "all_kernels": sum(kernels.values()),
+                        "host_launch_calls": host}))
+        if graphs < 1 or any(not g["bf16"] or g["other"]
+                             for g in got.values()):
+            raise AssertionError(f"one replay launched {got} in {graphs} "
+                                 "graph launch(es), want bf16 K1-K3 only")
+        rec["captured_ms"] = _step_ms(lambda: cap.fused_step(b), timed)
+        with env(MXTPU_FUSED_STEP="0"):
+            rec["eager_ms"] = _step_ms(lambda: (eag.forward_backward(b),
+                                                eag.update()), timed)
+        rec["tokens_per_s"] = batch * seq / (rec["captured_ms"] / 1e3)
+        rec["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        rec["kernels_bf16"] = {
+            k: {f: r[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms", "max_abs_err")}
+            for k, r in kernel_recs.items()}
+        log(f"mixed precision: step ms captured {rec['captured_ms']:.3f}, "
+            f"eager per-parameter {rec['eager_ms']:.3f}")
+    log(json.dumps(rec))
+    del cap, eag
+    return {k: bf16_launches[k] for k in names + ("lstm_gates",)}
+
+
+def _potrf_grad(a, head, ctx, dtype):
+    x = mt.nd.array(a, ctx=ctx, dtype=dtype)
+    x.attach_grad()
+    with mt.autograd.record():
+        loss = (mt.nd.linalg_potrf(x) *
+                mt.nd.array(head, ctx=ctx, dtype=dtype)).sum()
+    loss.backward()
+    return x.grad.data
+
+
+def potrf_gradient(card, device="cuda"):
+    """22b: linalg_potrf's gradient (the symmetric part's, as the JAX
+    package's) on the card against the CPU path, and in float64 against
+    central differences of the forward."""
+    dev = torch.device(device)
+    ctx = mt.gpu(0) if device == "cuda" else mt.cpu()
+    rng = np.random.RandomState(SEED + 26)
+    m = rng.randn(POTRF_N, POTRF_N)
+    a = m @ m.T / POTRF_N + np.eye(POTRF_N)
+    a[0, 1] += 0.25     # not symmetric: every element counts
+    head = rng.randn(POTRF_N, POTRF_N)
+    g = _potrf_grad(a, head, ctx, "float32").cpu()
+    g_cpu = _potrf_grad(a, head, mt.cpu(), "float32")
+    err_cpu = _rel(g, g_cpu.double())
+    g64 = _potrf_grad(a, head, ctx, "float64")
+    # central differences, every element at once: a batch of perturbed
+    # copies through the card's float64 Cholesky of the symmetric part
+    a_t = torch.tensor(a, dtype=torch.float64, device=dev)
+    w_t = torch.tensor(head, dtype=torch.float64, device=dev)
+    fd = torch.empty(POTRF_N * POTRF_N, dtype=torch.float64, device=dev)
+    eye = torch.eye(POTRF_N * POTRF_N, dtype=torch.float64, device=dev)
+    for lo in range(0, POTRF_N * POTRF_N, 512):
+        d = eye[lo:lo + 512].reshape(-1, POTRF_N, POTRF_N) * POTRF_EPS
+        f = [(torch.linalg.cholesky((x + x.transpose(-1, -2)) / 2) * w_t)
+             .sum((-1, -2)) for x in (a_t + d, a_t - d)]
+        fd[lo:lo + 512] = (f[0] - f[1]) / (2 * POTRF_EPS)
+    fd = fd.reshape(POTRF_N, POTRF_N)
+    err_fd = _rel(g64, fd)
+    err_f32_fd = _rel(g.to(dev), fd)
+    asym = _rel(g64, g64.transpose(0, 1))
+    rec = {"check": "linalg_potrf_gradient", "card": card, "n": POTRF_N,
+           "card_vs_cpu_rel_err": err_cpu, "float64_vs_fd_rel_err": err_fd,
+           "fp32_vs_fd_rel_err": err_f32_fd, "asymmetry": asym}
+    log(json.dumps(rec))
+    if not (err_cpu <= POTRF_TOL and err_fd <= POTRF_FD_TOL
+            and asym <= POTRF_FD_TOL):
+        raise AssertionError(f"linalg_potrf's gradient: {rec}")
+    return rec
+
+
+def _mnist_mlp_sym():
+    data = mt.sym.var("data")
+    net = mt.sym.FullyConnected(data, num_hidden=128, name="fc1")
+    net = mt.sym.Activation(net, act_type="relu", name="relu1")
+    net = mt.sym.FullyConnected(net, num_hidden=64, name="fc2")
+    net = mt.sym.Activation(net, act_type="relu", name="relu2")
+    net = mt.sym.FullyConnected(net, num_hidden=10, name="fc3")
+    return mt.sym.SoftmaxOutput(net, mt.sym.var("softmax_label"),
+                                name="softmax")
+
+
+def ftrl_fit(card, device="cuda"):
+    """22b: Ftrl through ``Module.fit`` on MXNet's MNIST MLP: the captured
+    step (on the card) bit-equal to the eager per-parameter one, the
+    weights, z and n."""
+    ctx = mt.gpu(0) if device == "cuda" else mt.cpu()
+    cfg = FTRL_FIT
+    rng = np.random.RandomState(SEED + 28)
+    n = cfg["batch"] * cfg["batches"]
+    x = rng.rand(n, cfg["features"]).astype(np.float32)
+    y = rng.randint(0, 10, n).astype(np.float32)
+    sym = _mnist_mlp_sym()
+    arg_shapes, _, _ = sym.infer_shape(data=(cfg["batch"], cfg["features"]))
+    params = {nm: (0.05 * rng.randn(*shp)).astype(np.float32)
+              for nm, shp in zip(sym.list_arguments(), arg_shapes)
+              if nm not in ("data", "softmax_label")}
+    it = mt.io.NDArrayIter(x, y, batch_size=cfg["batch"])
+    mods = []
+    for fused in (True, False):
+        mt.profiler.reset_step_counters()
+        mod = mt.mod.Module(sym, context=ctx)
+        it.reset()
+        with env(MXTPU_FUSED_STEP="1" if fused else "0"):
+            mod.fit(it, num_epoch=1, optimizer="ftrl",
+                    optimizer_params=dict(learning_rate=cfg["lr"],
+                                          lamda1=cfg["lamda1"]),
+                    arg_params={k: mt.nd.array(v, ctx=ctx)
+                                for k, v in params.items()})
+        took = mt.profiler.step_counters().get("fused_steps", 0)
+        if took != (cfg["batches"] if fused else 0):
+            raise AssertionError(f"Ftrl fit took {took} fused steps")
+        mods.append(mod)
+    cap, eag = mods
+    if cap._fused_train_step.captured != (device == "cuda"):
+        raise AssertionError("Ftrl's steps were not captured")
+    differ = []
+    for i, name in enumerate(cap._exec.arg_names):
+        if name not in params:
+            continue
+        same = torch.equal(cap._exec.arg_dict[name].data,
+                           eag._exec.arg_dict[name].data)
+        for s, t in zip(cap._updater.states[i], eag._updater.states[i]):
+            same = same and torch.equal(s.data, t.data)
+        if not same:
+            differ.append(name)
+    zero = sum(int((cap._exec.arg_dict[k].data == 0).sum()) for k in params)
+    rec = {"check": "ftrl_mnist_mlp_fit", "card": card,
+           "steps": cfg["batches"], "captured": cap._fused_train_step.captured,
+           "captured_vs_eager": "bit-equal" if not differ else differ,
+           "zero_weights": zero}
+    log(json.dumps(rec))
+    if differ:
+        raise AssertionError(f"Ftrl: captured against eager, {differ} differ")
+    return rec
+
+
+def phase_mixed_precision(card, device="cuda", fit=None):
+    """Phase 22: 22a-b."""
+    t0 = time.perf_counter()
+    launches = mixed_precision_fit(card, device, **(fit or {}))
+    potrf_gradient(card, device)
+    ftrl_fit(card, device)
+    log(f"phase 22 in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 class _Background(threading.Thread):
     """``fn()`` on a thread of its own; `result` joins it and re-raises
     what it raised."""
@@ -10275,6 +10625,7 @@ def main():
     phase_int8(card)
     phase_contrib(card)
     phase_front_end(card)
+    mp_launches = phase_mixed_precision(card)
     leaked = [m for m in ("jax", "mxnet_tpu") if m in sys.modules]
     if leaked:
         raise SystemExit(f"chip_smoke: the port imported {leaked}")
@@ -10284,7 +10635,8 @@ def main():
         f"data {data_launches}, control flow {cf_launches}, serving plane "
         f"{plane_launches}, generation {gen_launches}, contexts "
         f"{ctx_launches}, distributed {dist_launches}, spmd "
-        f"{spmd_launches}, elastic {elastic_launches}")
+        f"{spmd_launches}, elastic {elastic_launches}, mixed precision "
+        f"{mp_launches}")
     kernels = [{
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -10294,7 +10646,8 @@ def main():
         state_launches["flash_attn_fwd"] +
         plane_launches["flash_attn_fwd"] + gen_launches["flash_attn_fwd"] +
         ctx_launches["flash_attn_fwd"] + dist_launches["flash_attn_fwd"] +
-        spmd_launches["flash_attn_fwd"] + elastic_launches["flash_attn_fwd"],
+        spmd_launches["flash_attn_fwd"] + elastic_launches["flash_attn_fwd"] +
+        mp_launches["flash_attn_fwd"],
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
@@ -10309,7 +10662,7 @@ def main():
             "launches": train_launches[name] + fit_launches[name] +
             state_launches[name] + ctx_launches[name] +
             dist_launches[name] + spmd_launches[name] +
-            elastic_launches[name],
+            elastic_launches[name] + mp_launches[name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],

@@ -10,7 +10,8 @@ autograd tape with those arguments as leaves; ``backward`` (or
 ``grad_dict`` by each argument's ``grad_req``.  A train-mode forward
 writes the new values of the auxiliary states it mutates (BatchNorm's
 moving statistics) into ``aux_dict``, in place.  ``make_fused_step``
-builds the one-step training program of `fused_step`.
+builds the one-step training program of `fused_step`, and
+``fused_train_step`` runs one step of it.
 `set_monitor_callback` installs a callback that every forward calls
 with each output's name and value (`monitor.Monitor`).  Bound arrays are
 dense: a sparse array fed or bound is densified through its ``data``.
@@ -125,6 +126,8 @@ class Executor:
             for n, g in _by_name(args_grad, self.arg_names, "args_grad",
                                  allow_missing=True).items()}
         self.outputs: List[NDArray] = []
+        # (optimizer, updater, train_names, step) of `fused_train_step`
+        self._fused_step_cache: Optional[tuple] = None
         # mode -> {signature: program}, shared with reshaped executors
         # (`GraphCompiler`); this executor's own by mode
         self._programs: Dict[bool, Dict[tuple, GraphProgram]] = {}
@@ -217,6 +220,7 @@ class Executor:
                                 self._placement)
         if not program.train:
             program = self.graph_program(True)
+        _prof.bump_counter("dispatches")
         return program.forward_train(self._feed(), names, gen)
 
     def _run(self, program: Optional[GraphProgram],
@@ -368,6 +372,28 @@ class Executor:
         the multi-tensor update) as one program (`fused_step`)."""
         from .fused_step import FusedTrainStep
         return FusedTrainStep(self, optimizer, updater, train_names)
+
+    def fused_train_step(self, optimizer, updater, feed, train_names=None):
+        """One training step over ``feed`` (data and label arrays by
+        argument name) through `make_fused_step`'s program, kept for the
+        next call with the same optimizer, updater and ``train_names``
+        (default: every argument with a gradient that ``feed`` does not
+        hold).  Returns the outputs; raises `MXNetError` where the step
+        declines (an optimizer without a multi-tensor plan): `Module` and
+        `gluon.Trainer` fall back by themselves."""
+        if train_names is None:
+            train_names = [n for n in self._grad_arg_names if n not in feed]
+        cached = self._fused_step_cache
+        if cached is None or cached[0] is not optimizer or \
+                cached[1] is not updater or cached[2] != tuple(train_names):
+            cached = (optimizer, updater, tuple(train_names),
+                      self.make_fused_step(optimizer, updater, train_names))
+            self._fused_step_cache = cached
+        if not cached[3].step(feed):
+            raise MXNetError(
+                f"fused_train_step: no fused plan for "
+                f"{type(optimizer).__name__}")
+        return self.outputs
 
     def copy_params_from(self, arg_params, aux_params=None,
                          allow_extra_params=False) -> None:

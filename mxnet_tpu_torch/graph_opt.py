@@ -49,7 +49,7 @@ regions are shared by identity with the result.
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass, field
+from dataclasses import asdict, dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -100,6 +100,9 @@ class PassReport:
     parity: str
     details: Dict[str, Any] = field(default_factory=dict)
 
+    def to_dict(self) -> Dict[str, Any]:
+        return asdict(self)
+
 
 @dataclass
 class PipelineResult:
@@ -109,6 +112,9 @@ class PipelineResult:
     const_feed: Dict[str, torch.Tensor]
     reports: List[PassReport]
     enabled: bool
+
+    def report_dicts(self) -> List[Dict[str, Any]]:
+        return [r.to_dict() for r in self.reports]
 
 
 # ---------------------------------------------------------------------------

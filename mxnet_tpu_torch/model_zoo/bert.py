@@ -44,28 +44,33 @@ BERT_BASE = dict(num_layers=12, hidden=768, heads=12, ffn=3072, vocab=30522,
 
 def bert_encoder(sym, num_layers: int, hidden: int, heads: int, ffn: int,
                  vocab: int, max_len: int, eps: float = 1e-12,
-                 dropout: float = 0.1, attention: str = "batch_dot"):
+                 dropout: float = 0.1, attention: str = "batch_dot",
+                 dtype: str = "float32"):
     """The encoder graph, built with ``sym`` (either package's)."""
     return _encoder(sym, num_layers, hidden, heads, ffn, vocab, max_len, eps,
-                    dropout, attention)[0]
+                    dropout, attention, dtype)[0]
 
 
 def _encoder(sym, num_layers, hidden, heads, ffn, vocab, max_len, eps,
-             dropout, attention):
-    """The encoder's output and its word-embedding table variable."""
+             dropout, attention, dtype):
+    """The encoder's output and its word-embedding table variable.  A
+    ``dtype`` other than float32 (``"bfloat16"``, ``"float16"``) makes
+    both embedding tables and their outputs that dtype, and so every
+    weight after them (`Symbol.infer_type`)."""
     if attention not in ("batch_dot", "fused"):
         raise ValueError(f"attention must be 'batch_dot' or 'fused', got "
                          f"{attention!r}")
     d = hidden // heads
-    word_weight = sym.var("word_embed_weight")
+    typed = {} if dtype == "float32" else {"dtype": dtype}
+    word_weight = sym.var("word_embed_weight", **typed)
     x = sym.broadcast_add(
         sym.Embedding(sym.var("data"), word_weight, input_dim=vocab,
-                      output_dim=hidden, name="word_embed"),
+                      output_dim=hidden, name="word_embed", **typed),
         sym.Embedding(sym.var("positions"),
                       sym.var("position_embed_weight",
-                              shape=(max_len, hidden)),
+                              shape=(max_len, hidden), **typed),
                       input_dim=max_len, output_dim=hidden,
-                      name="position_embed"),
+                      name="position_embed", **typed),
         name="embed_add")
     x = sym.LayerNorm(x, eps=eps, name="embed_ln")
     x = sym.Dropout(x, p=dropout, name="embed_drop")
@@ -115,7 +120,8 @@ def _encoder(sym, num_layers, hidden, heads, ffn, vocab, max_len, eps,
 
 def bert_mlm(sym, num_layers: int, hidden: int, heads: int, ffn: int,
              vocab: int, max_len: int, eps: float = 1e-12,
-             dropout: float = 0.1, attention: str = "fused"):
+             dropout: float = 0.1, attention: str = "fused",
+             dtype: str = "float32"):
     """BERT's masked-LM pretraining graph, built with ``sym``: the encoder
     (attention ``"fused"`` by default), then BERT's MLM head — dense +
     GELU + LayerNorm, and a decoder onto the vocabulary whose weight is
@@ -127,9 +133,12 @@ def bert_mlm(sym, num_layers: int, hidden: int, heads: int, ffn: int,
     ``normalization='valid'``): the loss and its gradient average over the
     masked positions only, as BERT's and HuggingFace ``BertForMaskedLM``'s
     full-sequence loss do.  The output is the (B·L, vocab) probabilities;
-    its gradient is SoftmaxOutput's defined one."""
+    its gradient is SoftmaxOutput's defined one.  ``dtype`` as
+    `bert_encoder`'s: ``"bfloat16"`` is the mixed-precision graph whose
+    weights an optimizer with ``multi_precision`` keeps float32 master
+    copies of."""
     x, word_weight = _encoder(sym, num_layers, hidden, heads, ffn, vocab,
-                              max_len, eps, dropout, attention)
+                              max_len, eps, dropout, attention, dtype)
     h = sym.FullyConnected(x, num_hidden=hidden, flatten=False,
                            name="mlm_transform")
     h = sym.LeakyReLU(h, act_type="gelu", name="mlm_gelu")

@@ -61,8 +61,12 @@ def _gemm2(attrs, A, B):
 
 @register("linalg_potrf", num_inputs=1, input_names=["A"])
 def _potrf(attrs, A):
-    """The lower Cholesky factor L of A = L L^T."""
-    return torch.linalg.cholesky(A)
+    """The lower Cholesky factor L of A = L L^T, of A's symmetric part
+    (A + A^T) / 2, as ``jnp.linalg.cholesky`` takes it: every element of
+    A counts, so the gradient is symmetric and equals the central
+    differences of this function (LAPACK alone reads the lower
+    triangle)."""
+    return torch.linalg.cholesky((A + _t(A)) / 2)
 
 
 def _eye_like(A):

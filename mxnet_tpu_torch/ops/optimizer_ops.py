@@ -16,9 +16,10 @@ the CPU both give the same bits.  `apply_multi` updates weights and
 states in place under `torch.no_grad()`; the gradient is prepared in the
 reference's order: rescale, then clip, then add ``wd·w``.
 
-The updates that select per element (`ftrl_update`, `ftml_update`, the
-AdamW pair, `_contrib_group_adagrad_update`) are written on one weight
-with the plain tensor ops only; `apply_multi` runs them weight by weight.
+The updates that select per element are written on one weight with the
+plain tensor ops only: `apply_multi` runs `ftrl_update` weight by weight,
+and `ftml_update`, the AdamW pair and `_contrib_group_adagrad_update`
+have no list form.
 
 The registered ops keep MXNet's contract: the weight input is left as it
 was and the new weight is returned (callers pass ``out=weight`` to update
@@ -40,11 +41,34 @@ __all__ = ["apply_multi", "MULTI_UPDATES"]
 Scalar = Union[float, torch.Tensor]
 
 
+def _list_mul(ts, s):
+    """``ts * s``.  A 0-d float32 tensor ``s`` (a captured step's lr or
+    wd) times a narrower list goes through float32: a Python scalar
+    multiplies a bfloat16 or float16 tensor in float32 with one rounding,
+    where the card casts a device scalar to the list's dtype first."""
+    if isinstance(s, torch.Tensor) and ts and \
+            ts[0].element_size() < s.element_size():
+        return [t.to(ts[0].dtype)
+                for t in torch._foreach_mul([t.float() for t in ts], s)]
+    return torch._foreach_mul(ts, s)
+
+
+def _list_mul_(ts, s):
+    """``ts *= s``.  The CPU's in-place list form rounds a Python scalar
+    to a narrow list's dtype before it multiplies, where ``t.mul_(s)``
+    and the out-of-place list form multiply in float32: a narrow list
+    takes the out-of-place form."""
+    if ts and ts[0].element_size() < 4:
+        torch._foreach_copy_(ts, _list_mul(ts, s))
+    else:
+        torch._foreach_mul_(ts, s)
+
+
 class _Lists:
     """An update's arithmetic over lists of tensors: ``torch._foreach_*``,
     a few launches for a whole group."""
-    mul = staticmethod(torch._foreach_mul)
-    mul_ = staticmethod(torch._foreach_mul_)
+    mul = staticmethod(_list_mul)
+    mul_ = staticmethod(_list_mul_)
     add = staticmethod(torch._foreach_add)
     add_ = staticmethod(torch._foreach_add_)
     sub_ = staticmethod(torch._foreach_sub_)
@@ -225,6 +249,44 @@ def _mp_sgd_mom(ops, ws, gs, states, lr, wd, rescale, clip, static):
     ops.copy_(ws, w32s)
 
 
+def _prep_one(grad, dtype, rescale, clip):
+    g = grad.to(dtype) * rescale
+    return g.clamp(-clip, clip) if clip is not None and clip > 0 else g
+
+
+def _div(x: torch.Tensor, s: Scalar) -> torch.Tensor:
+    """``x / s``, the same bits for a Python float ``s`` and for a 0-d
+    float32 tensor (a captured step's lr): a true division, in float32
+    for a narrower ``x``.  The card divides by a Python scalar through its
+    rounded reciprocal, and casts a device scalar to a narrow ``x``'s
+    dtype first."""
+    if not isinstance(s, torch.Tensor):
+        s = torch.tensor(s, device=x.device,
+                         dtype=torch.float64 if x.dtype == torch.float64
+                         else torch.float32)
+    if x.element_size() < s.element_size():
+        return (x.float() / s).to(x.dtype)
+    return x / s
+
+
+def _ftrl(ops, ws, gs, states, lr, wd, rescale, clip, static):
+    """FTRL-Proximal (McMahan et al.), weight by weight: z and n
+    accumulate, and a weight whose |z| stays within lamda1 is zero."""
+    lamda1 = float(static.get("lamda1", 0.01))
+    beta = float(static.get("beta", 1.0))
+    for w, grad, z, n in zip(ws, gs, *states):
+        g = _prep_one(grad, w.dtype, rescale, clip)
+        new_n = n + g * g
+        sigma = _div(new_n.sqrt() - n.sqrt(), lr)
+        new_z = z + g - sigma * w
+        w.copy_(torch.where(
+            new_z.abs() <= lamda1, torch.zeros_like(w),
+            -(new_z - new_z.sign() * lamda1)
+            / (_div(beta + new_n.sqrt(), lr) + wd)))
+        z.copy_(new_z)
+        n.copy_(new_n)
+
+
 #: op name -> its update ``fn(ops, ws, gs, state lists, lr, wd, rescale,
 #: clip, static attrs)``
 MULTI_UPDATES: Dict[str, Callable] = {
@@ -239,6 +301,7 @@ MULTI_UPDATES: Dict[str, Callable] = {
     "signum_update": _signum,
     "mp_sgd_update": _mp_sgd,
     "mp_sgd_mom_update": _mp_sgd_mom,
+    "ftrl_update": _ftrl,
 }
 
 
@@ -398,30 +461,12 @@ def multi_sum_sq(attrs, *arrays):
     return torch.stack([a.float().square().sum() for a in arrays])
 
 
-def _prep_one(grad, dtype, rescale, clip):
-    g = grad.to(dtype) * rescale
-    return g.clamp(-clip, clip) if clip is not None and clip > 0 else g
-
-
 @register("ftrl_update", num_inputs=4,
           input_names=["weight", "grad", "z", "n"], mutate_inputs=(2, 3))
-@torch.no_grad()
 def ftrl_update(attrs, weight, grad, z, n):
     """FTRL-Proximal (McMahan et al.): z and n accumulate, and a weight
     whose |z| stays within lamda1 is zero."""
-    lr, wd, rescale, clip = _common(attrs)
-    lamda1 = attrs.get_float("lamda1", 0.01)
-    beta = attrs.get_float("beta", 1.0)
-    g = _prep_one(grad, weight.dtype, rescale, clip)
-    new_n = n + g * g
-    sigma = (new_n.sqrt() - n.sqrt()) / lr
-    new_z = z + g - sigma * weight
-    new_w = torch.where(
-        new_z.abs() <= lamda1, torch.zeros_like(weight),
-        -(new_z - new_z.sign() * lamda1) / ((beta + new_n.sqrt()) / lr + wd))
-    z.copy_(new_z)
-    n.copy_(new_n)
-    return new_w
+    return _single("ftrl_update", attrs, weight, grad, [z, n])
 
 
 @register("ftml_update", num_inputs=5,

@@ -37,6 +37,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from .. import profiler as _prof
 from .. import random as _random
 from ..base import MXNetError
 from ..ndarray.ndarray import NDArray
@@ -76,6 +77,7 @@ def _zeros_like(weight: NDArray) -> NDArray:
 def _run(op_name: str, tensors, **attrs) -> None:
     """Op ``op_name`` on ``tensors`` (weight, grad, states): the states
     update in place, and the new weight is written into the weight."""
+    _prof.bump_counter("dispatches")   # one host dispatch per update op
     new = _reg.apply_op(op_name, [t.data for t in tensors], attrs)[0]
     tensors[0].data.copy_(new)
 
@@ -303,7 +305,12 @@ class SGD(Optimizer):
 
     def _fused_plan(self, index, weight, state):
         if self._mp_active(weight):
-            return None  # the per-parameter ``mp_sgd`` ops
+            # the ``mp_sgd`` ops: the float32 master copy is a state slot
+            mom, w32 = state
+            if mom is not None:
+                return ("mp_sgd_mom_update", {"momentum": self.momentum},
+                        [mom, w32])
+            return ("mp_sgd_update", {}, [w32])
         if state is not None:
             return ("sgd_mom_update", {"momentum": self.momentum}, [state])
         return ("sgd_update", {}, [])
@@ -532,6 +539,13 @@ class Ftrl(Optimizer):
         z, n = state
         _run("ftrl_update", (weight, grad, z, n), lamda1=self.lamda1,
              beta=self.beta, **self._base_kwargs(index))
+
+    def _fused_plan(self, index, weight, state):
+        if self._mp_active(weight):
+            return None
+        z, n = state
+        return ("ftrl_update", {"lamda1": self.lamda1, "beta": self.beta},
+                [z, n])
 
 
 @register

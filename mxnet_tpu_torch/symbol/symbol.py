@@ -22,7 +22,7 @@ import torch
 from ..attribute import current as _attr_scope
 from ..attribute import strip_annotations
 from ..base import (MXNetError, NotImplementedForSymbol, dtype_name,
-                    numpy_dtype, str_to_attr)
+                    dtype_np, str_to_attr, torch_dtype)
 from ..context import default_context
 from ..ops import registry as _reg
 from ..ops.registry import Attrs
@@ -112,6 +112,27 @@ def _value_key(entry: Tuple[_Node, int]) -> str:
     """Key of an entry's value: a variable under its plain name."""
     node, idx = entry
     return node.name if node.is_var else f"{node.name}#{idx}"
+
+
+def _type_of(dtype):
+    """A dtype as `Symbol.infer_type` gives it: numpy's, or
+    ``torch.bfloat16``."""
+    return dtype_np(torch_dtype(dtype)) if isinstance(dtype, torch.dtype) \
+        or str(dtype) in ("bfloat16", "bf16") else np.dtype(dtype)
+
+
+def _result_type(dts):
+    """The promotion of ``dts``: numpy's, with bfloat16 as the JAX package
+    promotes it (a wider float wins, float16 and bfloat16 give float32,
+    integers give bfloat16)."""
+    if not any(d is torch.bfloat16 for d in dts):
+        return np.result_type(*dts)
+    floats = [d for d in dts
+              if d is not torch.bfloat16 and np.issubdtype(d, np.floating)]
+    if not floats:
+        return torch.bfloat16
+    wide = np.result_type(*floats)
+    return wide if wide.itemsize >= 4 else np.dtype(np.float32)
 
 
 class Symbol:
@@ -394,20 +415,21 @@ class Symbol:
         return arg_shapes, out_shapes, aux_shapes
 
     def infer_type(self, *args, **kwargs):
-        """``(arg_types, out_types, aux_types)`` as numpy dtypes, from the
-        known inputs' dtypes (positional in `list_arguments` order, or by
-        name): each node's output takes its ``dtype`` attr, else the
-        promotion of its inputs' dtypes, and an unknown variable input
-        adopts what the node's known inputs agree on (the JAX package's
-        propagation)."""
-        known: Dict[str, np.dtype] = {}
+        """``(arg_types, out_types, aux_types)`` as numpy dtypes
+        (``torch.bfloat16`` for bfloat16, which numpy lacks, as an
+        NDArray's ``dtype``), from the known inputs' dtypes (positional
+        in `list_arguments` order, or by name): each node's output takes
+        its ``dtype`` attr, else the promotion of its inputs' dtypes, and
+        an unknown variable input adopts what the node's known inputs
+        agree on (the JAX package's propagation)."""
+        known: Dict[str, Any] = {}
         arg_names = self.list_arguments()
         for name, t in zip(arg_names, args):
             if t is not None:
-                known[name] = np.dtype(t)
-        known.update({k: np.dtype(v) for k, v in kwargs.items()
+                known[name] = _type_of(t)
+        known.update({k: _type_of(v) for k, v in kwargs.items()
                       if v is not None})
-        dtypes: Dict[str, np.dtype] = {}
+        dtypes: Dict[str, Any] = {}
         for node in self._nodes():
             if node.is_var:
                 if node.name in known:
@@ -415,18 +437,18 @@ class Symbol:
                 else:
                     forced = Attrs(node.attrs).get_dtype("__dtype__", None)
                     if forced is not None:
-                        dtypes[node.name] = numpy_dtype(forced)
+                        dtypes[node.name] = _type_of(forced)
                 continue
             keys = [(_value_key(e), e[0].is_var) for e in node.inputs]
             in_dts = [dtypes.get(k) for k, _ in keys]
             resolved = [d for d in in_dts if d is not None]
-            fill = (np.result_type(*resolved) if resolved
+            fill = (_result_type(resolved) if resolved
                     else np.dtype(np.float32))
             for (k, is_var), d in zip(keys, in_dts):
                 if d is None and is_var:
                     dtypes[k] = fill
             forced = Attrs(node.attrs).get_dtype("dtype", None)
-            out_dt = numpy_dtype(forced) if forced is not None else fill
+            out_dt = _type_of(forced) if forced is not None else fill
             for i in range(node.num_outputs):
                 dtypes[_entry_key((node, i))] = out_dt
         f32 = np.dtype(np.float32)
@@ -584,8 +606,8 @@ class Symbol:
         def dtype(name, inferred):
             if name in type_dict:
                 return type_dict[name]
-            return inferred if np.issubdtype(inferred, np.floating) \
-                else "float32"
+            return inferred if inferred is torch.bfloat16 or \
+                np.issubdtype(inferred, np.floating) else "float32"
 
         var_ctx = group_placement(self, group2ctx)
         args = {n: zeros(s, ctx=var_ctx.get(n, ctx), dtype=dtype(n, t))

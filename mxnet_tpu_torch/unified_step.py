@@ -191,8 +191,10 @@ def multi_tensor_apply(optimizer, items) -> bool:
     clip = None if optimizer.clip_gradient is None \
         else float(optimizer.clip_gradient)
     _traced_apply(layout, ws, [it[2].data for it in items],
-           [[s.data for s in sl] for sl in state_nds], scalars,
-           float(optimizer.rescale_grad), clip)
+                  [[s.data for s in sl] for sl in state_nds], scalars,
+                  float(optimizer.rescale_grad), clip)
+    _prof.bump_counter("dispatches")
+    _prof.bump_counter("multi_tensor_groups", len(layout))
     return True
 
 

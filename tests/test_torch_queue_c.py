@@ -1,4 +1,4 @@
-"""Queue C items 13-25 of the port, each held against the JAX package on
+"""Queue C items 13-33 of the port, each held against the JAX package on
 the CPU with the same numpy inputs: numpy dtypes on arrays and
 parameters (bfloat16 kept through ``astype``/``zeros``), slices of
 negative step and of 0-d arrays with their gradient, Symbol composition
@@ -8,7 +8,12 @@ regression heads' labels in shape inference, `Module.bind`'s
 repeated ``profiler.dump(False)``, ``%=`` and the ``__div__`` spellings,
 ``nd.zeros(stype=)`` and fresh element views of a sparse array, deferred
 sampler errors, the ``config`` surface with its two knobs, ``nd.imdecode``
-and ``gluon.utils.download``, and the context an NDArray keeps."""
+and ``gluon.utils.download``, the context an NDArray keeps,
+`linalg_potrf` on A's symmetric part, the multi-tensor update of master
+copies, Ftrl and bfloat16 weights against the per-parameter one,
+`Executor.fused_train_step`, bfloat16 through `infer_type`, the pass
+reports as dicts, the per-parameter step's dispatch count, and bfloat16
+BERT trained through `Module.fit` on the captured step."""
 import io
 import json
 import os
@@ -530,3 +535,316 @@ def test_ndarray_keeps_its_context():
         assert str(x.grad(p.cpu(0)).context) == "cpu(0)"
         assert [str(d.context) for d in x.list_data()] == \
             ["cpu(0)", "cpu(1)"]
+
+
+# -- 26: linalg_potrf reads A's symmetric part ------------------------------
+
+def test_potrf_symmetric_part_and_gradient():
+    rs = np.random.RandomState(26)
+    m = rs.randn(4, 4)
+    a = (m @ m.T + 4 * np.eye(4)).astype(np.float32)
+    a[0, 2] += 0.3      # not symmetric: every element counts
+    head = rs.randn(4, 4).astype(np.float32)
+    res = {}
+    for p, c in ((mt, CPU), (mx, JCPU)):
+        x = p.nd.array(a, ctx=c)
+        x.attach_grad()
+        with p.autograd.record():
+            out = p.nd.linalg_potrf(x)
+            loss = (out * p.nd.array(head, ctx=c)).sum()
+        loss.backward()
+        res[p] = out.asnumpy(), x.grad.asnumpy()
+    (ot, gt), (oj, gj) = res[mt], res[mx]
+    np.testing.assert_allclose(ot, oj, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(gt, gj, rtol=1e-4, atol=1e-5)
+
+    # central differences of the port's own forward, in float64
+    def f(x):
+        with CPU:
+            return float((mt.nd.linalg_potrf(mt.nd.array(x, dtype="float64"))
+                          .asnumpy() * head).sum())
+    a64, eps, fd = a.astype(np.float64), 1e-6, np.zeros((4, 4))
+    for i in range(4):
+        for j in range(4):
+            d = np.zeros((4, 4))
+            d[i, j] = eps
+            fd[i, j] = (f(a64 + d) - f(a64 - d)) / (2 * eps)
+    np.testing.assert_allclose(gt, fd, rtol=1e-4, atol=1e-5)
+
+
+# -- 27-29: the multi-tensor update against the per-parameter one -----------
+
+_SHAPES = [(3, 4), (7,), (2, 3, 2), (1,), (5, 1)]
+_MIXED = ["float32", "bfloat16", "float32", "bfloat16", "float32"]
+
+
+def _updater_run(p, multi, make_opt, dtypes, steps=5):
+    rng = np.random.RandomState(3)
+    base_w = [rng.randn(*s).astype(np.float32) for s in _SHAPES]
+    base_g = [rng.randn(*s).astype(np.float32) for s in _SHAPES]
+    ctx = CPU if p is mt else JCPU
+    ws = [p.nd.array(w, ctx=ctx, dtype=dt) for w, dt in zip(base_w, dtypes)]
+    upd = p.optimizer.get_updater(make_opt(p))
+    for step in range(steps):
+        items = [(i, p.nd.array(g * (0.5 + 0.25 * step), ctx=ctx,
+                                dtype=w.dtype), w)
+                 for i, (g, w) in enumerate(zip(base_g, ws))]
+        if multi:
+            assert upd.update_multi(items), "no multi-tensor plan"
+        else:
+            for i, g, w in items:
+                upd(i, g, w)
+    return ws, upd
+
+
+def _flat_states(upd):
+    out = []
+    for i in sorted(upd.states):
+        st = upd.states[i]
+        for s in (st if isinstance(st, tuple) else (st,)):
+            if s is not None:
+                out.append(s.data.float().numpy())
+    return out
+
+
+@pytest.mark.parametrize("make_opt,dtypes", [
+    # 29: bfloat16 weights beside float32 ones, no master copies
+    (lambda p: p.optimizer.SGD(learning_rate=0.05, momentum=0.9), _MIXED),
+    # 27: master copies and momenta (multi_mp_sgd_mom_update)
+    (lambda p: p.optimizer.SGD(learning_rate=0.05, momentum=0.9,
+                               multi_precision=True), ["bfloat16"] * 5),
+    (lambda p: p.optimizer.SGD(learning_rate=0.05, multi_precision=True),
+     ["bfloat16", "bfloat16", "float32", "bfloat16", "float32"]),
+    # 28: Ftrl's z and n
+    (lambda p: p.optimizer.Ftrl(learning_rate=0.1, wd=1e-3), ["float32"] * 5),
+], ids=["sgd-mixed-dtypes", "mp-sgd-momentum", "mp-sgd", "ftrl"])
+def test_multi_tensor_update_matches_per_parameter(make_opt, dtypes):
+    w_m, u_m = _updater_run(mt, True, make_opt, dtypes)
+    w_p, u_p = _updater_run(mt, False, make_opt, dtypes)
+    for a, b in zip(w_m, w_p):
+        assert torch.equal(a.data, b.data)
+    for a, b in zip(_flat_states(u_m), _flat_states(u_p)):
+        assert np.array_equal(a, b)
+    w_j, _ = _updater_run(mx, False, make_opt, dtypes)
+    for a, b, dt in zip(w_m, w_j, dtypes):
+        b = np.asarray(b.asnumpy(), np.float32)
+        tol = 1e-6 if dt == "float32" else 1e-2
+        assert np.abs(a.asnumpy() - b).max() <= tol * max(np.abs(b).max(), 1)
+
+
+def test_ftrl_master_copies_take_the_loop():
+    for p in (mt, mx):
+        ctx = CPU if p is mt else JCPU
+        w = p.nd.array(X, ctx=ctx, dtype="bfloat16")
+        upd = p.optimizer.get_updater(p.optimizer.Ftrl(multi_precision=True))
+        assert upd.update_multi([(0, p.nd.array(X, ctx=ctx,
+                                                dtype="bfloat16"), w)]) \
+            is False
+
+
+# -- 30: Executor.fused_train_step ------------------------------------------
+
+def _mlp(p):
+    net = p.sym.FullyConnected(p.sym.var("data"), num_hidden=12, name="fc1")
+    net = p.sym.Activation(net, act_type="relu")
+    net = p.sym.FullyConnected(net, num_hidden=4, name="fc2")
+    return p.sym.SoftmaxOutput(net, p.sym.var("sm_label"), name="sm")
+
+
+def _mlp_module(p, opt, **kw):
+    ctx = CPU if p is mt else JCPU
+    rs = np.random.RandomState(30)
+    mod = p.mod.Module(_mlp(p), label_names=("sm_label",), context=ctx)
+    mod.bind(data_shapes=[("data", (6, 5))],
+             label_shapes=[("sm_label", (6,))])
+    shapes = dict(zip(mod._exec.arg_names, _mlp(p).infer_shape(
+        data=(6, 5), sm_label=(6,))[0]))
+    mod.init_params(arg_params={
+        n: p.nd.array(0.3 * rs.randn(*shapes[n]).astype(np.float32),
+                      ctx=ctx)
+        for n in ("fc1_weight", "fc1_bias", "fc2_weight", "fc2_bias")})
+    mod.init_optimizer(optimizer=opt, optimizer_params=kw)
+    return mod
+
+
+def test_executor_fused_train_step(monkeypatch):
+    monkeypatch.setenv("MXTPU_FUSED_STEP", "1")
+    rs = np.random.RandomState(31)
+    data = rs.randn(6, 5).astype(np.float32)
+    label = (np.arange(6) % 4).astype(np.float32)
+    res = []
+    for p in (mt, mx):
+        ctx = CPU if p is mt else JCPU
+        mod = _mlp_module(p, "sgd", learning_rate=0.1, momentum=0.9,
+                          rescale_grad=1.0 / 6)
+        feed = {"data": p.nd.array(data, ctx=ctx),
+                "sm_label": p.nd.array(label, ctx=ctx)}
+        for _ in range(2):
+            outs = mod._exec.fused_train_step(mod._optimizer, mod._updater,
+                                              feed)
+        res.append((outs[0].asnumpy(),
+                    {k: v.asnumpy() for k, v in mod.get_params()[0].items()}))
+        bare = _mlp_module(p, "adadelta")
+        with pytest.raises((TError, JError), match="fused"):
+            bare._exec.fused_train_step(bare._optimizer, bare._updater, feed)
+    (ot, pt), (oj, pj) = res
+    np.testing.assert_allclose(ot, oj, rtol=1e-5, atol=1e-6)
+    for k in pj:
+        np.testing.assert_allclose(pt[k], pj[k], rtol=1e-5, atol=1e-6)
+
+
+# -- 31: bfloat16 through infer_type and simple_bind ------------------------
+
+def _typed(p):
+    e = p.sym.Embedding(p.sym.var("data"), p.sym.var("w", dtype="bfloat16"),
+                        input_dim=10, output_dim=4, dtype="bfloat16",
+                        name="emb")
+    h = p.sym.LayerNorm(p.sym.FullyConnected(e, num_hidden=3,
+                                             flatten=False, name="fc"),
+                        name="ln")
+    return p.sym.SoftmaxOutput(p.sym.reshape(h, shape=(-1, 3)),
+                               p.sym.reshape(p.sym.var("lab"), shape=(-1,)),
+                               name="sm")
+
+
+def test_infer_type_keeps_bfloat16():
+    from mxnet_tpu_torch.base import dtype_name
+    (ta, to, _), (ja, jo, _) = _both(
+        lambda p, c: _typed(p).infer_type(data="float32", lab="float32"))
+    assert [dtype_name(t) for t in ta] == [np.dtype(j).name for j in ja]
+    assert [dtype_name(t) for t in to] == [np.dtype(j).name for j in jo]
+    assert ta[1] is torch.bfloat16 and ta[0] == np.float32
+    exe = _typed(mt).simple_bind(
+        ctx=CPU, type_dict={"data": "float32", "lab": "float32"},
+        data=(2, 5), lab=(2, 5))
+    assert exe.arg_dict["fc_weight"].data.dtype == torch.bfloat16
+    assert exe.arg_dict["data"].data.dtype == torch.float32
+
+
+# -- 32: the graph pass reports as dicts -------------------------------------
+
+def test_pass_report_dicts():
+    def dicts(p):
+        x = p.sym.var("data")
+        net = p.sym.broadcast_add(p.sym.sigmoid(x), p.sym.sigmoid(x))
+        res = p.graph_opt.optimize(net, train=False)
+        return [dict(d, wall_ms=0.0) for d in res.report_dicts()], \
+            [r.to_dict()["name"] for r in res.reports]
+    (td, tn), (jd, jn) = _both(lambda p, c: dicts(p))
+    assert tn == jn
+    for a, b in zip(td, jd):
+        assert set(a) == set(b)
+        assert {k: a[k] for k in ("name", "nodes_before", "nodes_after",
+                                  "rewrites", "parity")} == \
+            {k: b[k] for k in ("name", "nodes_before", "nodes_after",
+                               "rewrites", "parity")}
+
+
+# -- 33: the dispatch counts of the per-parameter step -----------------------
+
+def test_unfused_step_dispatch_counts(monkeypatch):
+    monkeypatch.setenv("MXTPU_FUSED_STEP", "0")
+    rs = np.random.RandomState(33)
+    counts = []
+    for p in (mt, mx):
+        ctx = CPU if p is mt else JCPU
+        mod = _mlp_module(p, "sgd", learning_rate=0.1, momentum=0.9)
+        batch = p.io.DataBatch(
+            [p.nd.array(rs.randn(6, 5).astype(np.float32), ctx=ctx)],
+            [p.nd.array((np.arange(6) % 4).astype(np.float32), ctx=ctx)])
+        for _ in range(2):
+            p.profiler.reset_step_counters()
+            mod.forward_backward(batch)
+            mod.update()
+        counts.append(p.profiler.step_counters().get("dispatches", 0))
+    assert counts[0] == counts[1] == 2 + 4
+
+
+# -- the path 27 and 31 open: bfloat16 BERT through Module.fit ---------------
+
+BF16_BERT = dict(num_layers=2, hidden=64, heads=4, ffn=128, vocab=97,
+                 max_len=32, dropout=0.0)
+BB, BL, BSTEPS = 4, 32, 3
+
+
+def _bf16_fit(p, monkeypatch, fused, dtype="bfloat16"):
+    """3 steps of MXNet's mixed-precision recipe (SGD, momentum 0.9,
+    ``multi_precision``) on the bfloat16 BERT MLM: the module, the last
+    batch's masked-LM loss."""
+    from mxnet_tpu_torch.model_zoo import bert_mlm, random_params
+    monkeypatch.setenv("MXTPU_FUSED_STEP", "1" if fused else "0")
+    ctx = CPU if p is mt else JCPU
+    sym = bert_mlm(p.sym, dtype=dtype, **BF16_BERT)
+    shapes = dict(data=(BB, BL), positions=(BB, BL), mlm_label=(BB, BL))
+    arg_shapes, _, _ = sym.infer_shape(**shapes)
+    params = random_params({n: s for n, s in zip(sym.list_arguments(),
+                                                 arg_shapes)
+                            if n not in shapes}, seed=0)
+    rng = np.random.RandomState(7)
+    ids = rng.randint(0, BF16_BERT["vocab"], (BB * BSTEPS, BL)) \
+        .astype(np.float32)
+    lab = np.where(rng.rand(BB * BSTEPS, BL) < 0.15, ids, -1.0) \
+        .astype(np.float32)
+    pos = np.tile(np.arange(BL, dtype=np.float32), (BB * BSTEPS, 1))
+    it = p.io.NDArrayIter({"data": ids, "positions": pos},
+                          {"mlm_label": lab}, batch_size=BB)
+    mod = p.mod.Module(sym, data_names=("data", "positions"),
+                       label_names=("mlm_label",), context=ctx)
+    mod.fit(it, num_epoch=1, optimizer="sgd",
+            optimizer_params=dict(learning_rate=0.1, momentum=0.9,
+                                  multi_precision=True),
+            arg_params={n: p.nd.array(a, ctx=ctx)
+                        for n, a in params.items()})
+    probs = np.asarray(mod.get_outputs()[0].asnumpy(), np.float64)
+    last = lab[-BB:].reshape(-1)
+    keep = last >= 0
+    loss = -np.log(probs[keep, last[keep].astype(int)]).mean()
+    return mod, loss
+
+
+def test_bf16_bert_fit_captured_step(monkeypatch):
+    mt.profiler.reset_step_counters()
+    fused, loss = _bf16_fit(mt, monkeypatch, True)
+    assert mt.profiler.step_counters().get("fused_steps") == BSTEPS
+    eager, loss_e = _bf16_fit(mt, monkeypatch, False)
+    assert loss == loss_e
+    names = [n for n in fused._exec.arg_names
+             if n not in ("data", "positions", "mlm_label")]
+    assert all(fused._exec.arg_dict[n].data.dtype == torch.bfloat16
+               for n in names)
+    for n in names:
+        assert torch.equal(fused._exec.arg_dict[n].data,
+                           eager._exec.arg_dict[n].data), n
+    for k, st in fused._updater.states.items():
+        (mom, w32), (mom_e, w32_e) = st, eager._updater.states[k]
+        assert w32.data.dtype == torch.float32
+        assert torch.equal(mom.data, mom_e.data)
+        assert torch.equal(w32.data, w32_e.data)
+    jmod, jloss = _bf16_fit(mx, monkeypatch, True)
+    assert abs(loss - jloss) <= 2e-2 * abs(jloss)
+    jparams = jmod.get_params()[0]
+    for n in names:
+        a = fused._exec.arg_dict[n].asnumpy()
+        b = np.asarray(jparams[n].asnumpy(), np.float32)
+        assert np.abs(a - b).max() <= 2e-2 * np.abs(b).max(), n
+
+
+def test_bf16_bert_fit_sharded_profile(monkeypatch):
+    """The one-rank sharded step (``MXTPU_SPMD=1``: the flat buckets carry
+    the momenta and the fp32 master copies as slots) against the dense
+    captured step, bit for bit."""
+    monkeypatch.setenv("MXTPU_SPMD", "1")
+    mt.profiler.reset_step_counters()
+    with CPU:
+        sharded, loss_s = _bf16_fit(mt, monkeypatch, True)
+    assert mt.profiler.step_counters().get("spmd_steps") == BSTEPS
+    sharded._updater.get_states()     # the flat buffers exported back
+    monkeypatch.setenv("MXTPU_SPMD", "")
+    dense, loss_d = _bf16_fit(mt, monkeypatch, True)
+    assert loss_s == loss_d
+    for n in dense._exec._grad_arg_names:
+        assert torch.equal(sharded._exec.arg_dict[n].data,
+                           dense._exec.arg_dict[n].data), n
+    for k, st in dense._updater.states.items():
+        for a, b in zip(sharded._updater.states[k], st):
+            assert torch.equal(a.data, b.data), k

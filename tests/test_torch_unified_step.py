@@ -320,8 +320,9 @@ def test_guard_verdict():
 def test_multi_precision_updates_a_float32_master_copy():
     """SGD with ``multi_precision`` on a bfloat16 weight keeps a float32
     copy beside its momentum and steps that copy, as the reference's
-    ``mp_sgd_mom_update`` does; such a weight takes the per-parameter
-    path (no multi-tensor plan)."""
+    ``mp_sgd_mom_update`` does; its multi-tensor plan is that op with
+    the momentum and the master copy as its state slots, as the
+    reference's."""
     import jax.numpy as jnp
     rng = np.random.RandomState(12)
     w0 = rng.randn(5, 3).astype(np.float32)
@@ -342,8 +343,10 @@ def test_multi_precision_updates_a_float32_master_copy():
             upd(0, g, w)
         master = upd.states[0][1]
         out.append((np.asarray(w.asnumpy(), np.float32), master.asnumpy()))
+        plan = opt._fused_plan(0, w, upd.states[0])
+        assert plan[:2] == ("mp_sgd_mom_update", {"momentum": 0.9})
+        assert plan[2][0] is upd.states[0][0] and plan[2][1] is master
         if pkg is mt:
             assert master.dtype == np.float32
-            assert opt._fused_plan(0, w, upd.states[0]) is None
     np.testing.assert_allclose(out[1][1], out[0][1], rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(out[1][0], out[0][0], rtol=1e-2, atol=1e-2)
