@@ -11,22 +11,28 @@ Phases; any failure ends the run with a non-zero exit and no result line:
 1. device  -- the card's name and power limit (``nvidia-smi``), the
    capability check, TF32 off (parity is held in fp32).
 2. build   -- every kernel of `mxnet_tpu_torch/csrc`, one ``nvcc`` per
-   source, all started together; prints the seconds and the ptxas report.
+   source, all started together; prints the seconds and the ptxas report
+   (registers, spills, and any wgmma serialization warning).
 3. kernels -- K1 against its plain PyTorch version on the same inputs on
    the card (fp32 at 2e-4, within K1_SPLIT_TOL of O's largest magnitude
    and with a signed bias toward zero below K1_BIAS_TOL of O's mean
-   magnitude; bf16 compared in bf16 at 2e-2), at the main path's shape and
-   others and on an input off 16-byte alignment, with the kernel's, the
-   plain version's and one PyTorch library call's times beside the bound
-   and its share (bound / ms).
+   magnitude; bf16, K1's wgmma kernel, compared in bf16 at 2e-2 with the
+   logsumexp at the fp32 2e-4), at the main path's shape and others (bf16
+   at every head dim, Lq != Lk, a ragged Lq of 100, a negative scale) and
+   on inputs off 16-byte alignment in both dtypes.  Each case has two
+   times for K1 and for one PyTorch library call: ``ms``, back-to-back
+   calls through the wrapper (host time included), and ``device_ms``, a
+   CUDA graph of DEVICE_CALLS calls replayed DEVICE_REPLAYS times; the
+   bound's share is of the device time; the plain version's ms beside.
 3b. backward kernels -- K2 (dq) and K3 (dk, dv) against their plain
    versions on K1's residuals with a nonzero dLSE: BERT-base's
    [8, 12, 512, 64] and [8, 12, 128, 64] calls, causal, bf16, head dims
    16/32/128, Lq != Lk and inputs off 16-byte alignment; fp32 within
-   2e-3, bf16 within 2e-2 of the gradient's largest magnitude; times
-   beside the bound, its share (bound / ms) and one library call (the
-   backward of PyTorch's fused attention, for K2 + K3, printed beside
-   K2 + K3).
+   2e-3, with a signed bias toward zero of dq, dk and dv below
+   K23_BIAS_TOL of their mean magnitudes, bf16 within 2e-2 of the
+   gradient's largest magnitude; call and device times as phase 3's
+   beside the bound and its share and one library call (the backward of
+   PyTorch's fused attention, for K2 + K3, printed beside K2 + K3).
 3c. LSTM kernel -- K4 against its plain version: the LM's [32, 800] gates
    and [32, 200] cell, [20, 6000], [4096, 4096], an odd H = 13, and bf16
    gates with fp32 or bf16 cells; fp32 within 1e-5, bf16 within 2e-2
@@ -417,7 +423,8 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    logits within RING_OUT_TOL and every parameter's gradient within
    RING_GRAD_TOL of sp 1 (over their largest magnitudes); K1-K3's
    launches a step printed (at sp 2 rank r launches K1 r + 1 times).
-   19c: phase 5's BERT-base MLM at 8 x 512 (dropout 0) through
+   19c: phase 5's BERT-base MLM (4 of its 12 layers) at 8 x 512
+   (dropout 0) through
    ``Module.fit``, SPMD_BERT["steps"] steps: on one rank ``MXTPU_SPMD=1`` (the
    sharded step, captured) within SPMD_FIT_TOL of the unified step; on
    two ranks ``MXTPU_SPMD_ZERO1=1`` within SPMD_FIT_TOL of one rank and
@@ -528,10 +535,11 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    0.9 and ``multi_precision`` (fp32 master copies and momenta), for
    MP_FIT["steps"] steps.  First K1, K2 and K3 in bf16 at this path's
    [8, 12, 512, 64] against their plain versions (phases 3 and 3b's
-   checks), timed beside their bounds and PyTorch's fused attention.
-   Each fit step must be taken by `Module.fused_step` as one CUDA graph
-   (the warm-up, then replays) and launch K1-K3 once per layer, in their
-   bf16 instantiation by the profiler's trace of one replay; the captured
+   checks), timed (call and device times) beside their bounds and
+   PyTorch's fused attention.  Each fit step must be taken by
+   `Module.fused_step` as one CUDA graph (the warm-up, then replays) and
+   launch K1-K3 once per layer, in their bf16 instantiation by the
+   profiler's trace of one replay (K1 as its wgmma kernel); the captured
    steps must leave the weights, the fp32 master copies and the momenta
    bit-equal to as many eager per-parameter steps
    (``MXTPU_FUSED_STEP=0``: the ``mp_sgd_mom_update`` op per parameter),
@@ -554,8 +562,11 @@ at DIST_LAYERS 2, 11c at CKPT_LAYERS 4 and 20a at 4 of BERT-base's 12
 layers.  Phase 22 came with these: 11c, 19e and 20a at 2 of BERT-base's
 12 layers, FLEET_REPLICAS 2, and the autoscaler's ``max_replicas`` 2 (the
 whole script had run 1334.7 s of command on a slow host before them).
-If the run nears its limit again, cut 19c's all-reduce run before
-anything else of the training phases.
+Phase 3's bf16 cases and device times came with these: 19c at 4 of
+BERT-base's 12 layers, and 19e at PREEMPT["layers"] as phase 22 meant
+(`phase_spmd` had handed it the whole model; the whole script ran 1132 s
+of command before the 19c cut).  If the run nears its limit again, cut
+19c's all-reduce run before anything else of the training phases.
 
 The line before the last is the JSON kernel report; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -603,6 +614,9 @@ FP32_FLOPS = 67e12
 # beats the 67 TFLOP/s outside the tensor cores; bf16 at the bf16 rate
 ATTN_PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+# device times: back-to-back calls a captured CUDA graph holds, and its
+# timed replays (`device_ms`)
+DEVICE_CALLS, DEVICE_REPLAYS = 20, 10
 # attention gradients: the reference's own tolerance (tests/test_pallas.py,
 # rtol = atol = 2e-3) in fp32; bf16 relative to the gradient's largest
 # magnitude
@@ -625,6 +639,20 @@ K1_SPLIT_TOL = 2e-5
 # it put the training gradients past their limit); the kept sums of 4
 # chunks read 5.5e-7, sums of 8 read 7.4e-7 (PERF.md)
 K1_BIAS_TOL = 1.5e-6
+# fp32 K2/K3's dq, dk and dv must carry no more drift toward zero than
+# their design does: their signed bias mean((g - g_ref)·sign(g_ref)) over
+# mean |g_ref| above -K23_BIAS_TOL for sums of up to K23_BIAS_TERMS terms,
+# and above -K23_BIAS_TOL times terms / K23_BIAS_TERMS for longer ones (dq
+# sums over the keys, dk and dv over the queries).  Each is summed in one
+# tensor-core accumulator, which truncates as it adds (see K1_BIAS_TOL),
+# so the drift grows with the sum's length.  On the H100 the first reading
+# of phase 3b's fp32 cases (sums of 64-512 terms) put every bias below
+# zero, the worst -4.5e-6 (dk at BERT-base's causal [8, 12, 512, 64]); at
+# a ring hop's 4096 terms dq, dk and dv read -1.0e-5 to -3.1e-5 (6.8x the
+# drift for 8x the terms; PERF.md).  The limit leaves about twice the
+# drift at each length: a kernel that lost its TF32 small parts, or that
+# drifted faster per add, breaks it
+K23_BIAS_TOL, K23_BIAS_TERMS = 1e-5, 512
 # 12 LayerNorm'd layers of fp32 sums taken in another order
 SLICE_TOL = 1e-3
 # a captured forward (a CUDA graph replay) against the same program run
@@ -804,7 +832,7 @@ DIST_TIMEOUT = 420
 # widths (19a); the ring LM at BERT-base's attention widths (19b, head dim
 # 64, train_ring_lm.py's vocab; its lr of 1e-2, made for width 64, drove
 # the loss up at width 768 on the card, so 1e-3); phase 5's BERT-base MLM
-# (19c, 19e);
+# (19c at 4 of its 12 layers, 19e at PREEMPT["layers"]);
 # train_pipeline_moe.py's run_pipeline and run_moe (19d, fewer steps);
 # 19e's batches, the step its fault plan poisons, the batch after which
 # the child takes its SIGTERM
@@ -813,7 +841,7 @@ SPMD_RESNET = dict(batch=32, side=224, classes=1000, steps=SPMD_STEPS,
                    lr=0.01, reference=False)
 RING_LM_CARD = dict(vocab=32, dim=768, heads=12, seq_len=8192, batch=1,
                     lr=1e-3, steps=SPMD_STEPS)
-SPMD_BERT = dict(batch=8, seq=512, steps=2)
+SPMD_BERT = dict(batch=8, seq=512, steps=2, cfg=dict(num_layers=4))
 PIPE_CFG = dict(stages=2, micro=8, batch=4, width=16, steps=20, lr=0.3)
 MOE_CFG = dict(tokens=128, width=16, hidden=32, experts=4, steps=30, lr=0.3)
 # 19e at 2 of BERT-base's 12 layers (cut for the time limit when phase 22
@@ -1109,6 +1137,38 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(make, calls=DEVICE_CALLS, replays=DEVICE_REPLAYS):
+    """Device time of one call: a CUDA graph captures ``calls``
+    back-to-back calls, its ``replays`` replays are timed with CUDA events,
+    and the time is divided by the calls, so none of the calls' host time
+    (the wrapper, its checks, the launch) is in it.  ``make()`` runs on the
+    capture's stream and returns the function to time, so a backward whose
+    forward ``make`` runs is captured on the forward's stream."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn = make()
+        for _ in range(3):
+            fn()
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (replays * calls)
+    del graph
+    return ms
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -1136,7 +1196,8 @@ def phase_device():
 
 def _instantiation(entry):
     """``kernel<template args>`` from a mangled entry name, e.g.
-    ``flash_attn_fwd_kernel<Li64EfLb0>`` (D 64, float, not causal)."""
+    ``flash_attn_fwd_kernel<Li64ELb0>`` (K1 fp32, D 64, not causal) or
+    ``flash_attn_fwd_wgmma_kernel<Li128ELb1>`` (K1 bf16, D 128, causal)."""
     m = re.search(r"((?:flash_attn|lstm_gates)\w*?_kernel)I(.*?)EEv", entry)
     return f"{m.group(1)}<{m.group(2).rstrip('E')}>" if m else entry
 
@@ -1152,7 +1213,8 @@ def phase_build():
             m = re.search(r"Compiling entry function '([^']+)'", line)
             if m:
                 entry = _instantiation(m.group(1))
-            elif "Used" in line or "spill" in line:
+            elif "Used" in line or "spill" in line or \
+                    "Performance" in line:
                 log(f"  {entry}: {line.strip()}")
     return secs
 
@@ -1175,16 +1237,21 @@ def _attention_bound(q, k, causal):
                                      else "operations")
 
 
-def check_attention(name, q_shape, lk, dtype, causal, gen):
-    """K1 against its plain version on one input; returns the record."""
+def check_attention(name, q_shape, lk, dtype, causal, gen, scale=None):
+    """K1 against its plain version on one input; returns the record: the
+    errors, the call times (``ms``: back-to-back calls through the
+    wrapper) and the device times (``device_ms``, `device_ms`) of K1 and
+    of PyTorch's fused attention, the bound and its share of the device
+    time.  ``scale`` defaults to D^-0.5."""
     d = q_shape[-1]
     kv_shape = tuple(q_shape[:-2]) + (lk, d)
     dev = torch.device("cuda", 0)
     q = torch.randn(q_shape, generator=gen, device=dev).to(dtype)
     k = torch.randn(kv_shape, generator=gen, device=dev).to(dtype)
     v = torch.randn(kv_shape, generator=gen, device=dev).to(dtype)
-    scale = d ** -0.5
-    o, lse = hk.flash_attention_with_lse(q, k, v, causal=causal)
+    scale = d ** -0.5 if scale is None else scale
+    o, lse = hk.flash_attention_with_lse(q, k, v, causal=causal,
+                                         scale=scale)
     o_ref, lse_ref = hk._flash_attention_with_lse_plain(
         q, k, v, causal=causal, scale=scale)
     torch.cuda.synchronize()
@@ -1192,21 +1259,30 @@ def check_attention(name, q_shape, lk, dtype, causal, gen):
     # layout it is fastest on
     lib_qkv = (q, k, v) if q.dim() == 4 else (q[None], k[None], v[None])
     err, rel, bias = _forward_err(o, lse, o_ref, lse_ref)
+
+    def kernel():
+        return hk.flash_attention_with_lse(q, k, v, causal=causal,
+                                           scale=scale)
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            *lib_qkv, is_causal=causal, scale=scale)
+
     rec = {
         "check": name, "q": list(q_shape), "lk": lk,
         "dtype": str(dtype).replace("torch.", ""), "causal": causal,
+        "scale": scale,
         "max_abs_err": err, "max_rel_err": rel, "signed_bias": bias,
         "lse_max_abs_err": (lse - lse_ref).abs().max().item(),
-        "ms": time_ms(lambda: hk.flash_attention_with_lse(
-            q, k, v, causal=causal)),
+        "ms": time_ms(kernel),
+        "device_ms": device_ms(lambda: kernel),
         "plain_ms": time_ms(lambda: hk._flash_attention_with_lse_plain(
             q, k, v, causal=causal, scale=scale)),
-        "library_ms": time_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                *lib_qkv, is_causal=causal, scale=scale)),
+        "library_ms": time_ms(library),
+        "library_device_ms": device_ms(lambda: library),
     }
     rec["bound_ms"], rec["bound_by"] = _attention_bound(q, k, causal)
-    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
     log(json.dumps(rec))
     return rec
 
@@ -1236,7 +1312,7 @@ def _forward_err(o, lse, o_ref, lse_ref):
 
 
 def _odd_view(t):
-    """A contiguous copy of ``t`` whose storage starts 4 bytes past a
+    """A contiguous copy of ``t`` whose storage starts one element past a
     16-byte boundary (a view at an odd offset)."""
     flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
     flat[1:] = t.reshape(-1)
@@ -1246,19 +1322,21 @@ def _odd_view(t):
     return view
 
 
-def check_misaligned_forward(gen):
+def check_misaligned_forward(gen, dtype=torch.float32):
     """K1 on inputs off 16-byte alignment: the wrapper copies them to
-    aligned memory for cp.async; O and lse must match the plain version."""
+    aligned memory for cp.async (fp32) and TMA (bf16); O and lse must match
+    the plain version."""
     dev = torch.device("cuda", 0)
     shape = (1, 2, 128, 32)
-    q, k, v = (_odd_view(torch.randn(shape, generator=gen, device=dev))
-               for _ in range(3))
+    q, k, v = (_odd_view(torch.randn(shape, generator=gen, device=dev)
+                         .to(dtype)) for _ in range(3))
     o, lse = hk.flash_attention_with_lse(q, k, v, causal=True)
     o_ref, lse_ref = hk._flash_attention_with_lse_plain(
         q, k, v, causal=True, scale=shape[-1] ** -0.5)
     torch.cuda.synchronize()
     err, rel, bias = _forward_err(o, lse, o_ref, lse_ref)
     log(json.dumps({"check": "misaligned", "kernel": "flash_attn_fwd",
+                    "dtype": str(dtype).replace("torch.", ""),
                     "q": list(shape), "max_abs_err": err,
                     "max_rel_err": rel, "signed_bias": bias}))
 
@@ -1277,10 +1355,23 @@ def phase_kernels():
         cases += [("small", (2, 3, 256, 16), 256, torch.float32, causal),
                   ("lq_ne_lk", (2, 4, 128, 64), 256, torch.float32, causal),
                   ("d32", (1, 2, 128, 32), 128, torch.float32, causal),
-                  ("d128", (2, 2, 256, 128), 256, torch.bfloat16, causal)]
+                  ("d128", (2, 2, 256, 128), 256, torch.bfloat16, causal),
+                  # bf16 at every head dim the wgmma kernel is built for
+                  # (32- and 64-byte swizzles), Lq != Lk, and a ragged Lq
+                  # (a query tile past the rows: TMA's zeros, not stored)
+                  ("small", (2, 3, 256, 16), 256, torch.bfloat16, causal),
+                  ("d32", (1, 2, 128, 32), 128, torch.bfloat16, causal),
+                  ("lq_ne_lk", (2, 4, 128, 64), 256, torch.bfloat16, causal),
+                  ("ragged", (2, 4, 100, 64), 128, torch.bfloat16, causal)]
     with torch.no_grad():
         recs = [check_attention(*c, gen) for c in cases]
+        # bf16 at a scale below zero: the wgmma kernel's path without the
+        # scale folded into the exponent
+        for causal in (False, True):
+            check_attention("negative_scale", (2, 4, 128, 64), 128,
+                            torch.bfloat16, causal, gen, scale=-0.125)
         check_misaligned_forward(gen)
+        check_misaligned_forward(gen, torch.bfloat16)
     # the main path's call: BERT-base attention at seq 512, fp32, no mask
     return recs[0]
 
@@ -1305,22 +1396,32 @@ def _backward_bound(q, k, causal, dkv):
                                      else "operations")
 
 
-def _grad_err(got, want, dtype):
-    """(max |got - want|, the same over max |want|) in fp32; fp32 must be
-    within GRAD_TOL (rtol and atol, the reference's attention-gradient
-    tolerance) and within SPLIT_TF32_TOL of the gradient's largest
-    magnitude, bf16 within BF16_GRAD_TOL of it."""
+def _grad_err(got, want, dtype, terms):
+    """(max |got - want|, the same over max |want|, the signed bias
+    mean((got - want)·sign(want)) over mean |want|) in fp32 for a gradient
+    summed over ``terms`` keys or queries; fp32 must be within GRAD_TOL
+    (rtol and atol, the reference's attention-gradient tolerance), within
+    SPLIT_TF32_TOL of the gradient's largest magnitude and with a bias
+    above the K23_BIAS_TOL limit for its length, bf16 within BF16_GRAD_TOL
+    of its largest magnitude."""
     got, want = got.float(), want.float()
-    err = (got - want).abs().max().item()
+    diff = got - want
+    err = diff.abs().max().item()
     rel = err / want.abs().max().item()
+    bias = ((diff * want.sign()).mean() / want.abs().mean()).item()
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=GRAD_TOL, atol=GRAD_TOL)
         if rel > SPLIT_TF32_TOL:
             raise AssertionError(f"fp32 gradient off by {rel} of its largest "
                                  f"magnitude, above {SPLIT_TF32_TOL}")
+        limit = K23_BIAS_TOL * max(1.0, terms / K23_BIAS_TERMS)
+        if bias < -limit:
+            raise AssertionError(f"fp32 gradient summed over {terms} terms "
+                                 f"drifts toward zero by {-bias} of its mean "
+                                 f"magnitude, above {limit}")
     elif rel > BF16_GRAD_TOL:
         raise AssertionError(f"bf16 gradient off by {err}")
-    return err, rel
+    return err, rel, bias
 
 
 def check_attention_backward(name, q_shape, lk, dtype, causal, gen):
@@ -1344,41 +1445,48 @@ def check_attention_backward(name, q_shape, lk, dtype, causal, gen):
     dq_ref = hk._attn_dq_plain(*args, **kw)
     dk_ref, dv_ref = hk._attn_dkv_plain(*args, **kw)
     torch.cuda.synchronize()
-    errs = {"dq": _grad_err(dq, dq_ref, dtype),
-            "dk": _grad_err(dk, dk_ref, dtype),
-            "dv": _grad_err(dv, dv_ref, dtype)}
-    lib_ms = None
+    lq = q_shape[-2]
+    errs = {"dq": _grad_err(dq, dq_ref, dtype, lk),
+            "dk": _grad_err(dk, dk_ref, dtype, lq),
+            "dv": _grad_err(dv, dv_ref, dtype, lq)}
+    lib_ms = lib_device_ms = None
     if not causal and (name == "mixed_precision_fit" or (
             name == "bert_base" and dtype == torch.float32)):
         # one library call for the three gradients (dLSE = 0 there): the
         # backward of PyTorch's fused attention on the same tensors
-        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
-        with torch.enable_grad():
-            out = torch.nn.functional.scaled_dot_product_attention(
-                *leaves, scale=scale)
-            lib_ms = time_ms(lambda: torch.autograd.grad(
-                out, leaves, do, retain_graph=True))
+        def library():
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v)]
+            with torch.enable_grad():
+                out = torch.nn.functional.scaled_dot_product_attention(
+                    *leaves, scale=scale)
+            return lambda: torch.autograd.grad(out, leaves, do,
+                                               retain_graph=True)
+        lib_ms = time_ms(library())
+        lib_device_ms = device_ms(library)
     recs = []
-    for kernel, fn, plain, dkv, (err, rel) in (
+    for kernel, fn, plain, dkv, parts in (
             ("flash_attn_bwd_dq", lambda: hk._attn_dq_cuda(*args, **kw),
-             lambda: hk._attn_dq_plain(*args, **kw), False, errs["dq"]),
+             lambda: hk._attn_dq_plain(*args, **kw), False, ("dq",)),
             ("flash_attn_bwd_dkv", lambda: hk._attn_dkv_cuda(*args, **kw),
-             lambda: hk._attn_dkv_plain(*args, **kw), True,
-             tuple(map(max, errs["dk"], errs["dv"])))):
+             lambda: hk._attn_dkv_plain(*args, **kw), True, ("dk", "dv"))):
         rec = {"check": name, "kernel": kernel, "q": list(q_shape), "lk": lk,
                "dtype": str(dtype).replace("torch.", ""), "causal": causal,
-               "max_abs_err": err, "max_rel_err": rel, "ms": time_ms(fn),
+               "max_abs_err": max(errs[g][0] for g in parts),
+               "max_rel_err": max(errs[g][1] for g in parts),
+               **{f"{g}_signed_bias": errs[g][2] for g in parts},
+               "ms": time_ms(fn), "device_ms": device_ms(lambda: fn),
                "plain_ms": time_ms(plain),
-               "library_ms": lib_ms}
+               "library_ms": lib_ms, "library_device_ms": lib_device_ms}
         rec["bound_ms"], rec["bound_by"] = _backward_bound(q, k, causal, dkv)
-        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
         log(json.dumps(rec))
         recs.append(rec)
     if lib_ms is not None:
-        both = recs[0]["ms"] + recs[1]["ms"]
-        log(json.dumps({"check": name, "k2_plus_k3_ms": both,
-                        "library_ms": lib_ms,
-                        "k2_plus_k3_over_library": both / lib_ms}))
+        both = recs[0]["device_ms"] + recs[1]["device_ms"]
+        log(json.dumps({"check": name, "k2_plus_k3_device_ms": both,
+                        "library_device_ms": lib_device_ms,
+                        "k2_plus_k3_over_library": both / lib_device_ms}))
     return recs
 
 
@@ -1398,8 +1506,8 @@ def check_misaligned_backward(gen):
     got = (hk._attn_dq_cuda(*args, **kw), *hk._attn_dkv_cuda(*args, **kw))
     want = (hk._attn_dq_plain(*args, **kw), *hk._attn_dkv_plain(*args, **kw))
     torch.cuda.synchronize()
-    err, rel = map(max, *(_grad_err(g, w, torch.float32)
-                          for g, w in zip(got, want)))
+    err, rel, _ = map(max, *(_grad_err(g, w, torch.float32, shape[2])
+                             for g, w in zip(got, want)))
     log(json.dumps({"check": "misaligned", "q": list(shape),
                     "max_abs_err": err, "max_rel_err": rel}))
 
@@ -8848,9 +8956,10 @@ def phase_spmd(card, device="cuda", resnet=None, ring=None, bert=None,
                        timeout=SPMD_TIMEOUT)
         two = _worker_records("19 two ranks", out, workdir, "spmd", 2)
         checks = _spmd_checks(workdir, one, two)
+        # 19e at PREEMPT["layers"] of the model's layers
         pre = spmd_preempt(card, workdir, device,
-                           dict(bert["cfg"], **(preempt or {}).get("cfg",
-                                                                   {})),
+                           {**bert["cfg"], "num_layers": PREEMPT["layers"],
+                            **(preempt or {}).get("cfg", {})},
                            (preempt or {}).get("batch", bert["batch"]),
                            (preempt or {}).get("seq", bert["seq"]))
     finally:
@@ -10302,6 +10411,20 @@ def _mp_states(mod):
             {n: states[idx[n]][0].data for n in names})
 
 
+def _bf16_instantiation(name, kernel):
+    """Whether profiler kernel name ``kernel`` is attention kernel
+    ``name``'s bf16 instantiation (True), another of its instantiations
+    (False) or another kernel (None).  K1's bf16 kernel is a wgmma kernel
+    of its own, K2's and K3's a template instantiated for bf16."""
+    if name == "flash_attn_fwd":
+        if "flash_attn_fwd_wgmma_kernel" in kernel:
+            return True
+        return False if "flash_attn_fwd_kernel" in kernel else None
+    if name + "_kernel" not in kernel:
+        return None
+    return "bfloat16" in kernel
+
+
 def mixed_precision_fit(card, device="cuda", cfg=None, batch=None,
                         seq=None, steps=None, timed=None):
     """22a: BERT-base MLM in bfloat16 (`bert_mlm(dtype="bfloat16")`)
@@ -10415,12 +10538,12 @@ def mixed_precision_fit(card, device="cuda", cfg=None, batch=None,
         it.reset()
         b = next(iter(it))
         # the instantiations by name in the trace of one replay: bf16
-        # only (the counts a step are LAUNCHES' above: in a whole run
-        # CUPTI may drop records of a replay, 5 of 12 K1 once)
+        # only, K1 as its wgmma kernel (the counts a step are LAUNCHES'
+        # above: in a whole run CUPTI may drop records of a replay, 5 of 12
+        # K1 once)
         kernels, host = replay_launches(lambda: cap.fused_step(b))
         got = {n: {dt: sum(c for k, c in kernels.items()
-                           if n + "_kernel" in k and
-                           ("bfloat16" in k) == (dt == "bf16"))
+                           if _bf16_instantiation(n, k) == (dt == "bf16"))
                    for dt in ("bf16", "other")} for n in names}
         graphs = sum(v for k, v in host.items() if "GraphLaunch" in k)
         log(json.dumps({"replay": "mixed-precision fit step",
@@ -10438,8 +10561,9 @@ def mixed_precision_fit(card, device="cuda", cfg=None, batch=None,
         rec["tokens_per_s"] = batch * seq / (rec["captured_ms"] / 1e3)
         rec["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         rec["kernels_bf16"] = {
-            k: {f: r[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                  "library_ms", "max_abs_err")}
+            k: {f: r[f] for f in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                  "bound_share", "bound_by", "library_ms",
+                                  "library_device_ms", "max_abs_err")}
             for k, r in kernel_recs.items()}
         log(f"mixed precision: step ms captured {rec['captured_ms']:.3f}, "
             f"eager per-parameter {rec['eager_ms']:.3f}")

@@ -3,7 +3,8 @@
 
 * `flash_attention` / `flash_attention_with_lse` — K1, the streaming
   online-softmax attention forward, in CUDA C++ (`csrc/flash_attn_fwd.cu`,
-  replacing `pallas_kernels.py:_attn_fwd_kernel`), and its gradient: K2
+  replacing `pallas_kernels.py:_attn_fwd_kernel`; fp32 on mma.sync, bf16
+  on wgmma fed by TMA, `csrc/hopper_wgmma.cuh`), and its gradient: K2
   (dq) and K3 (dk, dv) in `csrc/flash_attn_bwd.cu`, replacing
   `_attn_dq_kernel` and `_attn_dkv_kernel`.  The pair is one
   `torch.autograd.Function`, as the JAX package's is one `jax.custom_vjp`.
@@ -291,9 +292,10 @@ def _attn_dkv_plain(q, k, v, do, lse, delta, dlse, *, causal: bool,
 
 
 def _aligned(*tensors):
-    """K1-K3 copy their [L, D] tiles with 16-byte cp.async: a tensor
-    whose storage starts elsewhere (a contiguous view at an odd offset)
-    is copied to fresh, aligned memory first."""
+    """K1-K3 copy their [L, D] tiles with 16-byte cp.async, and K1's bf16
+    kernel by TMA, which wants a 16-byte aligned base: a tensor whose
+    storage starts elsewhere (a contiguous view at an odd offset) is
+    copied to fresh, aligned memory first."""
     return [t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors]
 
 
