@@ -26,13 +26,17 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    bound's share is of the device time; the plain version's ms beside.
 3b. backward kernels -- K2 (dq) and K3 (dk, dv) against their plain
    versions on K1's residuals with a nonzero dLSE: BERT-base's
-   [8, 12, 512, 64] and [8, 12, 128, 64] calls, causal, bf16, head dims
-   16/32/128, Lq != Lk and inputs off 16-byte alignment; fp32 within
-   2e-3, with a signed bias toward zero of dq, dk and dv below
-   K23_BIAS_TOL of their mean magnitudes, bf16 within 2e-2 of the
-   gradient's largest magnitude; call and device times as phase 3's
-   beside the bound and its share and one library call (the backward of
-   PyTorch's fused attention, for K2 + K3, printed beside K2 + K3).
+   [8, 12, 512, 64] and [8, 12, 128, 64] calls, causal, bf16 (K2's and
+   K3's wgmma kernels) at every head dim, Lq != Lk, a ragged Lq of 100
+   and a ragged Lk of 100, a negative scale, and inputs off 16-byte
+   alignment in both dtypes (bf16 with its lse, delta and dlse rows off
+   it too); fp32 within 2e-3, with a signed bias toward zero of dq, dk
+   and dv below K23_BIAS_TOL of their mean magnitudes, bf16 within 2e-2
+   of the gradient's largest magnitude, each gradient's signed bias
+   printed; call and device times as phase 3's beside the bound and its
+   share and, at BERT-base's [8, 12, 512, 64] in both dtypes, causal and
+   not, one library call (the backward of PyTorch's fused attention, for
+   K2 + K3, printed beside K2 + K3).
 3c. LSTM kernel -- K4 against its plain version: the LM's [32, 800] gates
    and [32, 200] cell, [20, 6000], [4096, 4096], an odd H = 13, and bf16
    gates with fp32 or bf16 cells; fp32 within 1e-5, bf16 within 2e-2
@@ -539,7 +543,9 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    PyTorch's fused attention.  Each fit step must be taken by
    `Module.fused_step` as one CUDA graph (the warm-up, then replays) and
    launch K1-K3 once per layer, in their bf16 instantiation by the
-   profiler's trace of one replay (K1 as its wgmma kernel); the captured
+   profiler's trace of one replay (each as its wgmma kernel:
+   ``flash_attn_fwd_wgmma_kernel``, ``flash_attn_bwd_dq_wgmma_kernel``,
+   ``flash_attn_bwd_dkv_wgmma_kernel``, and no other); the captured
    steps must leave the weights, the fp32 master copies and the momenta
    bit-equal to as many eager per-parameter steps
    (``MXTPU_FUSED_STEP=0``: the ``mp_sgd_mom_update`` op per parameter),
@@ -565,10 +571,15 @@ whole script had run 1334.7 s of command on a slow host before them).
 Phase 3's bf16 cases and device times came with these: 19c at 4 of
 BERT-base's 12 layers, and 19e at PREEMPT["layers"] as phase 22 meant
 (`phase_spmd` had handed it the whole model; the whole script ran 1132 s
-of command before the 19c cut).  If the run nears its limit again, cut
+of command before the 19c cut).  Phase 3b's bf16 cases (every head dim,
+ragged lengths, a negative scale, a misaligned view) came with K2's and K3's
+wgmma backward, about 15 s.  If the run nears its limit again, cut
 19c's all-reduce run before anything else of the training phases.
 
-The line before the last is the JSON kernel report; the last line is
+The line before the last is the JSON kernel report: K1-K3 (their fp32
+kernels, launched on every path but 22a's) with phase 3's and 3b's
+BERT-base records, K1-K3's bf16 wgmma kernels (``*_wgmma``, launched on
+22a's path) with 22a's records, and K4; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 import contextlib
@@ -1198,7 +1209,7 @@ def _instantiation(entry):
     """``kernel<template args>`` from a mangled entry name, e.g.
     ``flash_attn_fwd_kernel<Li64ELb0>`` (K1 fp32, D 64, not causal) or
     ``flash_attn_fwd_wgmma_kernel<Li128ELb1>`` (K1 bf16, D 128, causal)."""
-    m = re.search(r"((?:flash_attn|lstm_gates)\w*?_kernel)I(.*?)EEv", entry)
+    m = re.search(r"\d((?:flash_attn|lstm_gates)\w*?_kernel)I(.*?)EEv", entry)
     return f"{m.group(1)}<{m.group(2).rstrip('E')}>" if m else entry
 
 
@@ -1424,9 +1435,11 @@ def _grad_err(got, want, dtype, terms):
     return err, rel, bias
 
 
-def check_attention_backward(name, q_shape, lk, dtype, causal, gen):
+def check_attention_backward(name, q_shape, lk, dtype, causal, gen,
+                             scale=None):
     """K2 and K3 against their plain versions on one input, the forward
-    residuals from K1 and a nonzero dLSE; returns the two records."""
+    residuals from K1 and a nonzero dLSE; returns the two records.
+    ``scale`` defaults to D^-0.5."""
     d = q_shape[-1]
     kv_shape = tuple(q_shape[:-2]) + (lk, d)
     dev = torch.device("cuda", 0)
@@ -1435,8 +1448,8 @@ def check_attention_backward(name, q_shape, lk, dtype, causal, gen):
     k, v = (torch.randn(kv_shape, generator=gen, device=dev).to(dtype)
             for _ in range(2))
     dlse = torch.randn(q_shape[:-1], generator=gen, device=dev)
-    scale = d ** -0.5
-    o, lse = hk.flash_attention_with_lse(q, k, v, causal=causal)
+    scale = d ** -0.5 if scale is None else scale
+    o, lse = hk.flash_attention_with_lse(q, k, v, causal=causal, scale=scale)
     delta = (do.float() * o.float()).sum(-1)
     args = (q, k, v, do, lse, delta, dlse)
     kw = dict(causal=causal, scale=scale)
@@ -1450,8 +1463,7 @@ def check_attention_backward(name, q_shape, lk, dtype, causal, gen):
             "dk": _grad_err(dk, dk_ref, dtype, lq),
             "dv": _grad_err(dv, dv_ref, dtype, lq)}
     lib_ms = lib_device_ms = None
-    if not causal and (name == "mixed_precision_fit" or (
-            name == "bert_base" and dtype == torch.float32)):
+    if name in ("mixed_precision_fit", "bert_base"):
         # one library call for the three gradients (dLSE = 0 there): the
         # backward of PyTorch's fused attention on the same tensors
         def library():
@@ -1459,7 +1471,7 @@ def check_attention_backward(name, q_shape, lk, dtype, causal, gen):
                       for t in (q, k, v)]
             with torch.enable_grad():
                 out = torch.nn.functional.scaled_dot_product_attention(
-                    *leaves, scale=scale)
+                    *leaves, is_causal=causal, scale=scale)
             return lambda: torch.autograd.grad(out, leaves, do,
                                                retain_graph=True)
         lib_ms = time_ms(library())
@@ -1472,7 +1484,7 @@ def check_attention_backward(name, q_shape, lk, dtype, causal, gen):
              lambda: hk._attn_dkv_plain(*args, **kw), True, ("dk", "dv"))):
         rec = {"check": name, "kernel": kernel, "q": list(q_shape), "lk": lk,
                "dtype": str(dtype).replace("torch.", ""), "causal": causal,
-               "max_abs_err": max(errs[g][0] for g in parts),
+               "scale": scale, "max_abs_err": max(errs[g][0] for g in parts),
                "max_rel_err": max(errs[g][1] for g in parts),
                **{f"{g}_signed_bias": errs[g][2] for g in parts},
                "ms": time_ms(fn), "device_ms": device_ms(lambda: fn),
@@ -1484,32 +1496,40 @@ def check_attention_backward(name, q_shape, lk, dtype, causal, gen):
         recs.append(rec)
     if lib_ms is not None:
         both = recs[0]["device_ms"] + recs[1]["device_ms"]
-        log(json.dumps({"check": name, "k2_plus_k3_device_ms": both,
+        log(json.dumps({"check": name, "dtype": recs[0]["dtype"],
+                        "causal": causal, "k2_plus_k3_device_ms": both,
                         "library_device_ms": lib_device_ms,
                         "k2_plus_k3_over_library": both / lib_device_ms}))
     return recs
 
 
-def check_misaligned_backward(gen):
-    """K2 and K3 on inputs whose storage starts 4 bytes past a 16-byte
+def check_misaligned_backward(gen, dtype=torch.float32):
+    """K2 and K3 on inputs whose storage starts one element past a 16-byte
     boundary (a contiguous view at an odd offset): the wrappers copy them
-    to aligned memory for cp.async; the gradients must match the plain
+    to aligned memory for cp.async (fp32) and TMA (bf16, whose K3 also
+    reads the lse, delta and dlse rows by TMA: they are off alignment
+    too, and dLSE nonzero); the gradients must match the plain
     versions."""
     dev = torch.device("cuda", 0)
     shape = (1, 2, 128, 32)
-    q, k, v, do = (_odd_view(torch.randn(shape, generator=gen, device=dev))
-                   for _ in range(4))
+    q, k, v, do = (_odd_view(torch.randn(shape, generator=gen, device=dev)
+                             .to(dtype)) for _ in range(4))
     o, lse = hk.flash_attention_with_lse(q, k, v)
-    delta = (do * o).sum(-1)
-    args = (q, k, v, do, lse, delta, torch.zeros_like(lse))
+    delta = (do.float() * o.float()).sum(-1)
+    dlse = torch.zeros_like(lse)
+    if dtype == torch.bfloat16:
+        dlse = torch.randn(lse.shape, generator=gen, device=dev)
+        lse, delta, dlse = (_odd_view(t) for t in (lse, delta, dlse))
+    args = (q, k, v, do, lse, delta, dlse)
     kw = dict(causal=False, scale=shape[-1] ** -0.5)
     got = (hk._attn_dq_cuda(*args, **kw), *hk._attn_dkv_cuda(*args, **kw))
     want = (hk._attn_dq_plain(*args, **kw), *hk._attn_dkv_plain(*args, **kw))
     torch.cuda.synchronize()
-    err, rel, _ = map(max, *(_grad_err(g, w, torch.float32, shape[2])
+    err, rel, _ = map(max, *(_grad_err(g, w, dtype, shape[2])
                              for g, w in zip(got, want)))
-    log(json.dumps({"check": "misaligned", "q": list(shape),
-                    "max_abs_err": err, "max_rel_err": rel}))
+    log(json.dumps({"check": "misaligned", "dtype": str(dtype).replace(
+        "torch.", ""), "q": list(shape), "max_abs_err": err,
+        "max_rel_err": rel}))
 
 
 def phase_backward_kernels():
@@ -1528,10 +1548,33 @@ def phase_backward_kernels():
                   ("d128", (2, 2, 256, 128), 256, torch.float32, causal),
                   ("d128", (2, 2, 256, 128), 256, torch.bfloat16, causal),
                   ("lq_ne_lk", (1, 2, 64, 16), 256, torch.float32, causal),
-                  ("lq_ne_lk", (2, 4, 64, 64), 256, torch.float32, causal)]
+                  ("lq_ne_lk", (2, 4, 64, 64), 256, torch.float32, causal),
+                  # bf16 at every head dim the wgmma kernels are built for
+                  # (32- and 64-byte swizzles), Lq != Lk both ways, a
+                  # ragged Lq (a query tile past the rows: TMA's zeros, K3's
+                  # rows of the next (b, h), masked) and a ragged Lk
+                  ("d16", (2, 3, 256, 16), 256, torch.bfloat16, causal),
+                  ("d32", (1, 2, 128, 32), 128, torch.bfloat16, causal),
+                  ("lq_ne_lk", (1, 2, 64, 16), 256, torch.bfloat16, causal),
+                  ("lq_ne_lk", (2, 4, 64, 64), 256, torch.bfloat16, causal),
+                  ("lq_gt_lk", (2, 2, 256, 128), 128, torch.bfloat16,
+                   causal),
+                  ("ragged_lq", (2, 4, 100, 64), 128, torch.bfloat16,
+                   causal),
+                  ("ragged_lq", (1, 2, 100, 128), 128, torch.bfloat16,
+                   causal),
+                  ("ragged_lk", (2, 4, 128, 64), 100, torch.bfloat16,
+                   causal)]
     with torch.no_grad():
         recs = [check_attention_backward(*c, gen) for c in cases]
+        # bf16 at a scale below zero: p = exp2(fma(s, c, -lse log2e)) with
+        # c < 0 (no row max is taken, so the fold holds)
+        for causal in (False, True):
+            check_attention_backward("negative_scale", (2, 4, 128, 64), 128,
+                                     torch.bfloat16, causal, gen,
+                                     scale=-0.125)
         check_misaligned_backward(gen)
+        check_misaligned_backward(gen, torch.bfloat16)
     return {r["kernel"]: r for r in recs[0]}
 
 
@@ -10414,15 +10457,12 @@ def _mp_states(mod):
 def _bf16_instantiation(name, kernel):
     """Whether profiler kernel name ``kernel`` is attention kernel
     ``name``'s bf16 instantiation (True), another of its instantiations
-    (False) or another kernel (None).  K1's bf16 kernel is a wgmma kernel
-    of its own, K2's and K3's a template instantiated for bf16."""
-    if name == "flash_attn_fwd":
-        if "flash_attn_fwd_wgmma_kernel" in kernel:
-            return True
-        return False if "flash_attn_fwd_kernel" in kernel else None
-    if name + "_kernel" not in kernel:
-        return None
-    return "bfloat16" in kernel
+    (False) or another kernel (None).  K1-K3's bf16 kernels are wgmma
+    kernels of their own (``<name>_wgmma_kernel``); their fp32 kernels are
+    ``<name>_kernel``."""
+    if name + "_wgmma_kernel" in kernel:
+        return True
+    return False if name + "_kernel" in kernel else None
 
 
 def mixed_precision_fit(card, device="cuda", cfg=None, batch=None,
@@ -10430,7 +10470,8 @@ def mixed_precision_fit(card, device="cuda", cfg=None, batch=None,
     """22a: BERT-base MLM in bfloat16 (`bert_mlm(dtype="bfloat16")`)
     through ``Module.fit`` with SGD(momentum 0.9, multi_precision): the
     captured step against the eager per-parameter one, bit for bit, and
-    against the same steps in fp32.  Returns the bf16 fits' launches."""
+    against the same steps in fp32.  Returns the bf16 fits' launches and,
+    on the card, K1-K3's records at this path's call."""
     cfg = dict(BERT_BASE if cfg is None else cfg, dropout=0.0)
     batch = batch or MP_FIT["batch"]
     seq = seq or MP_FIT["seq"]
@@ -10569,7 +10610,8 @@ def mixed_precision_fit(card, device="cuda", cfg=None, batch=None,
             f"eager per-parameter {rec['eager_ms']:.3f}")
     log(json.dumps(rec))
     del cap, eag
-    return {k: bf16_launches[k] for k in names + ("lstm_gates",)}
+    return ({k: bf16_launches[k] for k in names + ("lstm_gates",)},
+            kernel_recs)
 
 
 def _potrf_grad(a, head, ctx, dtype):
@@ -10689,13 +10731,14 @@ def ftrl_fit(card, device="cuda"):
 
 
 def phase_mixed_precision(card, device="cuda", fit=None):
-    """Phase 22: 22a-b."""
+    """Phase 22: 22a-b.  Returns 22a's launches and K1-K3's bf16
+    records."""
     t0 = time.perf_counter()
-    launches = mixed_precision_fit(card, device, **(fit or {}))
+    launches, kernel_recs = mixed_precision_fit(card, device, **(fit or {}))
     potrf_gradient(card, device)
     ftrl_fit(card, device)
     log(f"phase 22 in {time.perf_counter() - t0:.1f} s")
-    return launches
+    return launches, kernel_recs
 
 
 class _Background(threading.Thread):
@@ -10749,7 +10792,7 @@ def main():
     phase_int8(card)
     phase_contrib(card)
     phase_front_end(card)
-    mp_launches = phase_mixed_precision(card)
+    mp_launches, mp_kernels = phase_mixed_precision(card)
     leaked = [m for m in ("jax", "mxnet_tpu") if m in sys.modules]
     if leaked:
         raise SystemExit(f"chip_smoke: the port imported {leaked}")
@@ -10761,47 +10804,42 @@ def main():
         f"{ctx_launches}, distributed {dist_launches}, spmd "
         f"{spmd_launches}, elastic {elastic_launches}, mixed precision "
         f"{mp_launches}")
-    kernels = [{
-        "name": "flash_attn_fwd", "route": "cuda",
-        "source": "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
-        "replaces": "mxnet_tpu/ops/pallas_kernels.py:92",
-        "launches": serve_launches["flash_attn_fwd"] +
-        train_launches["flash_attn_fwd"] + fit_launches["flash_attn_fwd"] +
-        state_launches["flash_attn_fwd"] +
+    def entry(name, source, line, launches, rec):
+        return {"name": name, "route": "cuda",
+                "source": f"mxnet_tpu_torch/csrc/{source}.cu",
+                "replaces": f"mxnet_tpu/ops/pallas_kernels.py:{line}",
+                "launches": launches,
+                **{f: rec[f] for f in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by",
+                                       "library_ms")}}
+
+    # fp32 K1-K3 (mma.sync) on every path but 22a; bf16 K1-K3 (their
+    # wgmma kernels) on 22a's
+    kernels = [entry(
+        "flash_attn_fwd", "flash_attn_fwd", 92,
+        serve_launches["flash_attn_fwd"] + train_launches["flash_attn_fwd"] +
+        fit_launches["flash_attn_fwd"] + state_launches["flash_attn_fwd"] +
         plane_launches["flash_attn_fwd"] + gen_launches["flash_attn_fwd"] +
         ctx_launches["flash_attn_fwd"] + dist_launches["flash_attn_fwd"] +
-        spmd_launches["flash_attn_fwd"] + elastic_launches["flash_attn_fwd"] +
-        mp_launches["flash_attn_fwd"],
-        "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
-        "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
-    }]
+        spmd_launches["flash_attn_fwd"] + elastic_launches["flash_attn_fwd"],
+        k1)]
     for name, line in (("flash_attn_bwd_dq", 141),
                        ("flash_attn_bwd_dkv", 184)):
-        rec = bwd[name]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "mxnet_tpu_torch/csrc/flash_attn_bwd.cu",
-            "replaces": f"mxnet_tpu/ops/pallas_kernels.py:{line}",
-            "launches": train_launches[name] + fit_launches[name] +
+        kernels.append(entry(
+            name, "flash_attn_bwd", line,
+            train_launches[name] + fit_launches[name] +
             state_launches[name] + ctx_launches[name] +
             dist_launches[name] + spmd_launches[name] +
-            elastic_launches[name] + mp_launches[name],
-            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-        })
-    kernels.append({
-        "name": "lstm_gates", "route": "cuda",
-        "source": "mxnet_tpu_torch/csrc/lstm_gates.cu",
-        "replaces": "mxnet_tpu/ops/pallas_kernels.py:452",
-        "launches": lstm_launches["lstm_gates"] +
-        rnn_launches["lstm_gates"] + cf_launches["lstm_gates"] +
-        gen_launches["lstm_gates"],
-        "max_abs_err": k4["max_abs_err"], "ms": k4["ms"],
-        "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
-        "bound_by": k4["bound_by"], "library_ms": k4["library_ms"],
-    })
+            elastic_launches[name], bwd[name]))
+    for name, source, line in (("flash_attn_fwd", "flash_attn_fwd", 92),
+                               ("flash_attn_bwd_dq", "flash_attn_bwd", 141),
+                               ("flash_attn_bwd_dkv", "flash_attn_bwd", 184)):
+        kernels.append(entry(name + "_wgmma", source, line,
+                             mp_launches[name], mp_kernels[name]))
+    kernels.append(entry(
+        "lstm_gates", "lstm_gates", 452,
+        lstm_launches["lstm_gates"] + rnn_launches["lstm_gates"] +
+        cf_launches["lstm_gates"] + gen_launches["lstm_gates"], k4))
     if any(k["launches"] == 0 for k in kernels):
         raise SystemExit("chip_smoke: a kernel of the path never launched")
     print(json.dumps({"kernels": kernels}))

@@ -111,6 +111,7 @@
 
 #include <type_traits>
 
+#include "hopper_host.cuh"
 #include "hopper_mma.cuh"
 #include "hopper_wgmma.cuh"
 
@@ -388,25 +389,6 @@ struct WgSmem {
   static constexpr int ALLOC = BARS + (1 + 2 * WG_STAGES) * 8 + 1024;
 };
 
-// 2^x to about 2 ulp (ex2.approx; 0 for -inf and for large negative x)
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-template <int DH>
-__device__ __forceinline__ void wgmma_pv(float (&d)[DH / 2],
-                                         const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (DH == 64) {
-    hwg::wgmma_rs_n64(d, a, b, 1);
-  } else if constexpr (DH == 32) {
-    hwg::wgmma_rs_n32(d, a, b, 1);
-  } else {
-    hwg::wgmma_rs_n16(d, a, b, 1);
-  }
-}
-
 template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(WG_NT, D == 128 ? 2 : 3)
 flash_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
@@ -420,8 +402,7 @@ flash_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   constexpr uint32_t SBO = 8 * ROW;  // from one 8-row group to the next
   constexpr float MASKED2 = MASKED * LOG2E;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  unsigned char* smem =
-      smem_raw + ((1024 - (hwg::smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* smem = hwg::align_1024(smem_raw);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + S::BARS);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + WG_STAGES;
@@ -433,17 +414,9 @@ flash_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int k_end = CAUSAL ? min(lk, min(q0 + WG_BM, lq)) : lk;
   const int n_kt = (k_end + BN - 1) / BN;
 
-  if (threadIdx.x == 0) {
-    hwg::mbar_init(q_full, 1);
-    for (int i = 0; i < WG_STAGES; ++i) {
-      hwg::mbar_init(&full[i], 1);
-      hwg::mbar_init(&empty[i], WG_CONSUMERS);
-    }
-    hwg::mbar_fence_init();
-  }
-  __syncthreads();
+  hwg::init_ring_barriers(q_full, WG_STAGES, WG_CONSUMERS);
 
-  if (__shfl_sync(0xffffffffu, threadIdx.x / WG_CONSUMERS, 0) != 0) {
+  if (hwg::producer_warp(WG_CONSUMERS)) {
     // the producer: Q once, then each key tile into its stage once the
     // consumers have freed the stage's previous tile (completion
     // it / WG_STAGES - 1 of its empty barrier)
@@ -512,7 +485,7 @@ flash_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int kc = 0; kc < BN / 16; ++kc)
 #pragma unroll
       for (int h = 0; h < HALVES; ++h)
-        wgmma_pv<DH>(acc[h], p[kc],
+        hwg::wgmma_rs<DH>(acc[h], p[kc],
                      hwg::make_desc(vt + h * BN * ROW + kc * 16 * ROW,
                                     BN * ROW, SBO, LAYOUT));
     hwg::commit();
@@ -558,13 +531,13 @@ flash_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
         mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
         const float m_new = fmaxf(m_row[h], FOLD ? mx[h] * c : mx[h]);
-        alpha[h] = exp2_approx(m_row[h] - m_new);
+        alpha[h] = hwg::exp2_approx(m_row[h] - m_new);
         m_row[h] = m_new;
       }
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) {
         const float m = m_row[(i >> 1) & 1];
-        s[i] = exp2_approx(FOLD ? fmaf(s[i], c, -m) : s[i] - m);
+        s[i] = hwg::exp2_approx(FOLD ? fmaf(s[i], c, -m) : s[i] - m);
         sum[(i >> 1) & 1] += s[i];
       }
     };
@@ -627,23 +600,6 @@ flash_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 // launches
 // ---------------------------------------------------------------------------
 
-// raises a kernel's dynamic shared-memory limit once per device (``raised``
-// is the kernel's own): at BERT's seq 128 the call's host time is the
-// kernel's time
-template <typename K>
-cudaError_t allow_smem(K kernel, int smem, bool (&raised)[64]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= 64 || !raised[dev]) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    if (dev >= 0 && dev < 64) raised[dev] = true;
-  }
-  return cudaSuccess;
-}
-
 template <int D, bool CAUSAL>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int bh, int lq, int lk, float scale,
@@ -651,7 +607,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   auto kernel = flash_attn_fwd_kernel<D, CAUSAL>;
   constexpr int smem = smem_bytes<D>();
   static bool raised[64] = {};
-  cudaError_t err = allow_smem(kernel, smem, raised);
+  cudaError_t err = hhost::allow_smem(kernel, smem, raised);
   if (err != cudaSuccess) return err;
   const int n_qt = (lq + BM - 1) / BM;
   const long long blocks = (long long)bh * n_qt;
@@ -663,57 +619,6 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-// the CUDA driver API's cuTensorMapEncodeTiled, reached through the
-// runtime so that the library links against the runtime alone
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-cudaError_t encode_tiled(EncodeTiled* out) {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* sym = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &sym, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &sym, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || sym == nullptr)
-      return cudaErrorSymbolNotFound;
-    fn = reinterpret_cast<EncodeTiled>(sym);
-  }
-  *out = fn;
-  return cudaSuccess;
-}
-
-// the map of a bf16 [bh][rows][d] tensor read in boxes of ``box_rows`` rows
-// of ``box_cols`` columns, swizzled at the box's row width
-CUresult encode_bf16(EncodeTiled fn, CUtensorMap* map, const void* base,
-                     int bh, int rows, int d, int box_cols, int box_rows) {
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
-                              (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2,
-                                 (cuuint64_t)rows * d * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  const int row_bytes = box_cols * 2;
-  const CUtensorMapSwizzle swizzle =
-      row_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-      : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                        : CU_TENSOR_MAP_SWIZZLE_32B;
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
 template <int D, bool CAUSAL>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          void* o, void* lse, int bh, int lq, int lk,
@@ -721,20 +626,20 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   using S = WgSmem<D>;
   auto kernel = flash_attn_fwd_wgmma_kernel<D, CAUSAL>;
   static bool raised[64] = {};
-  cudaError_t err = allow_smem(kernel, S::ALLOC, raised);
+  cudaError_t err = hhost::allow_smem(kernel, S::ALLOC, raised);
   if (err != cudaSuccess) return err;
   const int n_qt = (lq + WG_BM - 1) / WG_BM;
   const long long blocks = (long long)bh * n_qt;
   if (blocks <= 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  EncodeTiled fn;
-  err = encode_tiled(&fn);
+  hhost::EncodeTiled fn;
+  err = hhost::encode_tiled(&fn);
   if (err != cudaSuccess) return err;
   CUtensorMap tq, tk, tv;
-  CUresult res = encode_bf16(fn, &tq, q, bh, lq, D, S::DH, WG_BM);
+  CUresult res = hhost::encode_bf16(fn, &tq, q, bh, lq, D, S::DH, WG_BM);
   if (res == CUDA_SUCCESS)
-    res = encode_bf16(fn, &tk, k, bh, lk, D, S::DH, WG_BN);
+    res = hhost::encode_bf16(fn, &tk, k, bh, lk, D, S::DH, WG_BN);
   if (res == CUDA_SUCCESS)
-    res = encode_bf16(fn, &tv, v, bh, lk, D, S::DH, WG_BN);
+    res = hhost::encode_bf16(fn, &tv, v, bh, lk, D, S::DH, WG_BN);
   if (res != CUDA_SUCCESS) return static_cast<cudaError_t>(res);
   kernel<<<dim3((unsigned)blocks), WG_NT, S::ALLOC, stream>>>(
       tq, tk, tv, static_cast<bf16*>(o), static_cast<float*>(lse), lq, lk,

@@ -1,8 +1,8 @@
 // Warp-level tensor-core products and asynchronous tile copies for the
 // Hopper kernels of this package (sm_90a).
 //
-// Products run on mma.sync: m16n8k8 TF32 for fp32 inputs and m16n8k16
-// bf16 for bf16 inputs, both accumulating in fp32.  An fp32 product is
+// Products run on mma.sync m16n8k8 TF32 for fp32 inputs, accumulating in
+// fp32 (bf16 inputs run on wgmma, hopper_wgmma.cuh).  An fp32 product is
 // taken at fp32 accuracy in three TF32 passes: each operand is split as
 // x = big + small, with big = x rounded to TF32 to nearest, ties away
 // (what cvt.rna.tf32.f32 gives), and small = x - big, exact in fp32, then
@@ -24,13 +24,13 @@
 // The sum over k does not care about the order of k, so an accumulator is
 // taken as an A operand with k permuted inside each 8-column chunk (slot t
 // is column 2t, slot t+4 is column 2t+1), and the B operand of that
-// product is loaded with the same permutation (`load_b`).  For bf16 the
-// accumulators of two neighbouring n8 tiles are the m16n8k16 A fragment as
-// they stand (as in FlashAttention-2), rounded to bf16.
+// product is loaded with the same permutation (`load_b`).
 //
-// Shared-memory tiles are row-major with rows padded by 16 bytes (4 floats
-// or 8 bf16), which keeps every fragment load below free of bank
-// conflicts and every row 16-byte aligned for cp.async and ldmatrix.
+// Shared-memory tiles are row-major with rows padded by 16 bytes (4
+// floats), which keeps every fragment load below free of bank conflicts
+// and every row 16-byte aligned for cp.async and ldmatrix.  pack_bf16
+// rounds two accumulator values into the register A operand of the wgmma
+// kernels' products.
 
 #pragma once
 
@@ -55,13 +55,6 @@ struct FragA32 {
 struct FragB32 {
   uint32_t hi[2], lo[2];
 };
-// bf16 operands: two bf16 values in each register, the lower k index low
-struct FragA16 {
-  uint32_t x[4];
-};
-struct FragB16 {
-  uint32_t x[2];
-};
 
 template <typename T>
 struct Frag;
@@ -70,12 +63,6 @@ struct Frag<float> {
   using A = FragA32;
   using B = FragB32;
   static constexpr int K = 8;  // depth of one mma
-};
-template <>
-struct Frag<bf16> {
-  using A = FragA16;
-  using B = FragB16;
-  static constexpr int K = 16;
 };
 
 // elements of padding at the end of each shared-memory row (16 bytes)
@@ -94,11 +81,6 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
 }
 
 // four 8-row x 16-byte matrices from shared memory: lane l gives the
@@ -120,11 +102,6 @@ __device__ __forceinline__ void load_a(FragA32& a, const float* s, int st,
   ldsm_x4(r, s + (r0 + (l & 7) + (m & 1) * 8) * st + k0 + (m >> 1) * 4);
 #pragma unroll
   for (int i = 0; i < 4; ++i) split(__uint_as_float(r[i]), a.hi[i], a.lo[i]);
-}
-__device__ __forceinline__ void load_a(FragA16& a, const bf16* s, int st,
-                                       int r0, int k0) {
-  const int l = threadIdx.x & 31, m = l >> 3;
-  ldsm_x4(a.x, s + (r0 + (l & 7) + (m & 1) * 8) * st + k0 + (m >> 1) * 8);
 }
 // A from a tile split once before: its big parts in ``hi``, its small
 // parts in ``lo``, two [M][K] tiles of one row stride (K1's Q tile)
@@ -150,32 +127,15 @@ __device__ __forceinline__ void load_bt2(FragB32& b0, FragB32& b1,
   split(__uint_as_float(r[2]), b1.hi[0], b1.lo[0]);
   split(__uint_as_float(r[3]), b1.hi[1], b1.lo[1]);
 }
-__device__ __forceinline__ void load_bt2(FragB16& b0, FragB16& b1,
-                                         const bf16* s, int st, int n0,
-                                         int k0) {
-  const int l = threadIdx.x & 31, m = l >> 3;
-  uint32_t r[4];
-  ldsm_x4(r, s + (n0 + (l & 7) + (m >> 1) * 8) * st + k0 + (m & 1) * 8);
-  b0.x[0] = r[0];
-  b0.x[1] = r[1];
-  b1.x[0] = r[2];
-  b1.x[1] = r[3];
-}
 
 // B = tile for a row-major [K][N] tile: the k chunk from row k0, n columns
-// from n0 (the key tile of ds k).  fp32 takes k in the permuted order of
-// a_from_c: slot t is row k0 + 2t, slot t+4 is row k0 + 2t + 1.
+// from n0 (the key tile of ds k), k in the permuted order of a_from_c:
+// slot t is row k0 + 2t, slot t+4 is row k0 + 2t + 1.
 __device__ __forceinline__ void load_b(FragB32& b, const float* s, int st,
                                        int k0, int n0) {
   const float* p = s + (k0 + 2 * lane_t()) * st + n0 + lane_g();
   split(p[0], b.hi[0], b.lo[0]);
   split(p[st], b.hi[1], b.lo[1]);
-}
-__device__ __forceinline__ void load_b(FragB16& b, const bf16* s, int st,
-                                       int k0, int n0) {
-  const bf16* p = s + (k0 + 2 * lane_t()) * st + n0 + lane_g();
-  b.x[0] = pack_bf16(p[0], p[st]);
-  b.x[1] = pack_bf16(p[8 * st], p[9 * st]);
 }
 
 // A from accumulators: k chunk kc of a 16 x N accumulator tile c[N/8][4]
@@ -186,14 +146,6 @@ __device__ __forceinline__ void a_from_c(FragA32& a, const float (&c)[NJ][4],
   split(c[kc][2], a.hi[1], a.lo[1]);  // (g+8, 2t)   -> slot (g+8, t)
   split(c[kc][1], a.hi[2], a.lo[2]);  // (g, 2t+1)   -> slot (g, t+4)
   split(c[kc][3], a.hi[3], a.lo[3]);  // (g+8, 2t+1) -> slot (g+8, t+4)
-}
-template <int NJ>
-__device__ __forceinline__ void a_from_c(FragA16& a, const float (&c)[NJ][4],
-                                         int kc) {
-  a.x[0] = pack_bf16(c[2 * kc][0], c[2 * kc][1]);
-  a.x[1] = pack_bf16(c[2 * kc][2], c[2 * kc][3]);
-  a.x[2] = pack_bf16(c[2 * kc + 1][0], c[2 * kc + 1][1]);
-  a.x[3] = pack_bf16(c[2 * kc + 1][2], c[2 * kc + 1][3]);
 }
 
 // ---------------------------------------------------------------------------
@@ -231,15 +183,6 @@ __device__ __forceinline__ void mma_alone(float (&d)[4], const FragA32& a,
         "r"(b.hi[0]), "r"(b.hi[1]), "f"(0.f));
   mma_tf32(d, a.hi, b.lo);
   mma_tf32(d, a.hi, b.hi);
-}
-
-__device__ __forceinline__ void mma(float (&d)[4], const FragA16& a,
-                                    const FragB16& b) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a.x[0]), "r"(a.x[1]), "r"(a.x[2]), "r"(a.x[3]), "r"(b.x[0]),
-        "r"(b.x[1]));
 }
 
 // ---------------------------------------------------------------------------

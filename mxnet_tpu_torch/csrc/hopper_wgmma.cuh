@@ -44,7 +44,10 @@
 // fills what lies past the tensor's end with zeros, and counts the bytes
 // onto an mbarrier.  A box is taken from a rank-3 map [outer][rows][cols],
 // so a box past the end of one (b, h)'s rows reads zeros, never the next
-// one's rows.
+// one's rows.  fp32 rows [b·h][L] (the backward's lse, delta and dlse)
+// come through a rank-1 map over all b·h·L values, which takes any L: a
+// box that runs past one (b, h)'s rows reads the next one's, which the
+// kernel masks, and zeros past the last.
 //
 // mbarrier.  A barrier completes a phase when its expected arrivals have
 // arrived and the bytes announced by `arrive_expect_tx` have landed;
@@ -113,6 +116,37 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// the barriers of a ring of ``stages`` stages at ``bars``: one for the
+// tiles loaded once (1 arrival), full[stages] (the producer's arrival) and
+// empty[stages] (``consumers`` arrivals), initialised by thread 0 before a
+// __syncthreads
+__device__ __forceinline__ void init_ring_barriers(uint64_t* bars,
+                                                   int stages,
+                                                   int consumers) {
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(bars + 1 + i, 1);
+      mbar_init(bars + 1 + stages + i, consumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+}
+
+// the block's dynamic shared memory from its first 1024-byte boundary (the
+// 128-byte swizzle's atom)
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* raw) {
+  return raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
+}
+
+// whether this thread is in the producer warp that follows ``consumers``
+// consumer threads, by a test the compiler sees as warp-uniform (a branch
+// it cannot prove uniform serializes the consumers' wgmma: C7518)
+__device__ __forceinline__ bool producer_warp(int consumers) {
+  return __shfl_sync(0xffffffffu, threadIdx.x / consumers, 0) != 0;
+}
+
 // ---------------------------------------------------------------------------
 // TMA
 // ---------------------------------------------------------------------------
@@ -128,6 +162,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
           smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
       "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// the box at element c0 of the rank-1 ``map`` into ``dst`` (128-byte
+// aligned), its bytes counted onto ``bar``
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3}], [%2];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0)
       : "memory");
 }
 
@@ -170,6 +215,23 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (+)= a b for a 64 x 16 A and a 16 x 32 B both read from shared
+// memory through descriptors, both K-major
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a,
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
 // d (+)= a b for a 64 x 16 A and a 16 x 64 B both read from shared
@@ -256,6 +318,41 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
         "r"(accumulate));
+}
+
+// the SS product of N columns (32 or 64), both operands K-major
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  static_assert(N == 32 || N == 64, "an SS product of 32 or 64 columns");
+  if constexpr (N == 64) {
+    wgmma_ss_n64(d, a, b, accumulate);
+  } else {
+    wgmma_ss_n32(d, a, b, accumulate);
+  }
+}
+
+// d += a b, the RS product of N columns (16, 32 or 64) with B read
+// MN-major
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  static_assert(N == 16 || N == 32 || N == 64,
+                "an RS product of 16, 32 or 64 columns");
+  if constexpr (N == 64) {
+    wgmma_rs_n64(d, a, b, 1);
+  } else if constexpr (N == 32) {
+    wgmma_rs_n32(d, a, b, 1);
+  } else {
+    wgmma_rs_n16(d, a, b, 1);
+  }
+}
+
+// 2^x to about 2 ulp (ex2.approx; 0 for -inf and for large negative x)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 }  // namespace hwg

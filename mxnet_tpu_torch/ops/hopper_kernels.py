@@ -6,7 +6,8 @@
   replacing `pallas_kernels.py:_attn_fwd_kernel`; fp32 on mma.sync, bf16
   on wgmma fed by TMA, `csrc/hopper_wgmma.cuh`), and its gradient: K2
   (dq) and K3 (dk, dv) in `csrc/flash_attn_bwd.cu`, replacing
-  `_attn_dq_kernel` and `_attn_dkv_kernel`.  The pair is one
+  `_attn_dq_kernel` and `_attn_dkv_kernel` (fp32 on mma.sync, bf16 on
+  wgmma fed by TMA).  The pair is one
   `torch.autograd.Function`, as the JAX package's is one `jax.custom_vjp`.
   It backs the `_fused_attention` op, which `graph_opt`'s
   ``pallas_select`` pass swaps in for MXNet's batch_dot/softmax attention
@@ -292,10 +293,10 @@ def _attn_dkv_plain(q, k, v, do, lse, delta, dlse, *, causal: bool,
 
 
 def _aligned(*tensors):
-    """K1-K3 copy their [L, D] tiles with 16-byte cp.async, and K1's bf16
-    kernel by TMA, which wants a 16-byte aligned base: a tensor whose
-    storage starts elsewhere (a contiguous view at an odd offset) is
-    copied to fresh, aligned memory first."""
+    """K1-K3 copy their [L, D] tiles with 16-byte cp.async (fp32) or by
+    TMA (bf16; K3's lse, delta and dlse rows too), which want a 16-byte
+    aligned base: a tensor whose storage starts elsewhere (a contiguous
+    view at an odd offset) is copied to fresh, aligned memory first."""
     return [t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors]
 
 
@@ -310,7 +311,7 @@ def _attn_dq_cuda(q, k, v, do, lse, delta, dlse, *, causal, scale):
 
 def _attn_dkv_cuda(q, k, v, do, lse, delta, dlse, *, causal, scale):
     _check_cuda_inputs(q, k, v, do)
-    q, k, v, do = _aligned(q, k, v, do)
+    q, k, v, do, lse, delta, dlse = _aligned(q, k, v, do, lse, delta, dlse)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("mxtt_flash_attn_bwd_dkv", q, k,
             (q, k, v, do, lse, delta, dlse, dk, dv), causal, scale)
