@@ -14,12 +14,13 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    source, all started together; prints the seconds and the ptxas report
    (registers, spills, and any wgmma serialization warning).
 3. kernels -- K1 against its plain PyTorch version on the same inputs on
-   the card (fp32 at 2e-4, within K1_SPLIT_TOL of O's largest magnitude
-   and with a signed bias toward zero below K1_BIAS_TOL of O's mean
-   magnitude; bf16, K1's wgmma kernel, compared in bf16 at 2e-2 with the
-   logsumexp at the fp32 2e-4), at the main path's shape and others (bf16
-   at every head dim, Lq != Lk, a ragged Lq of 100, a negative scale) and
-   on inputs off 16-byte alignment in both dtypes.  Each case has two
+   the card (fp32, K1's three-pass TF32 wgmma kernel, at 2e-4, within
+   K1_SPLIT_TOL of O's largest magnitude and with a signed bias toward
+   zero below K1_BIAS_TOL of O's mean magnitude; bf16, K1's wgmma kernel,
+   compared in bf16 at 2e-2 with the logsumexp at the fp32 2e-4), at the
+   main path's shape and others (both dtypes at every head dim, Lq != Lk,
+   a ragged Lq of 100, a negative scale) and on inputs off 16-byte
+   alignment in both dtypes.  Each case has two
    times for K1 and for one PyTorch library call: ``ms``, back-to-back
    calls through the wrapper (host time included), and ``device_ms``, a
    CUDA graph of DEVICE_CALLS calls replayed DEVICE_REPLAYS times; the
@@ -577,7 +578,8 @@ wgmma backward, about 15 s.  If the run nears its limit again, cut
 19c's all-reduce run before anything else of the training phases.
 
 The line before the last is the JSON kernel report: K1-K3 (their fp32
-kernels, launched on every path but 22a's) with phase 3's and 3b's
+kernels, launched on every path but 22a's; K1's named
+``flash_attn_fwd_tf32``, its TF32 wgmma kernel) with phase 3's and 3b's
 BERT-base records, K1-K3's bf16 wgmma kernels (``*_wgmma``, launched on
 22a's path) with 22a's records, and K4; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -686,6 +688,13 @@ TRAIN_STEPS, WARM_STEPS, TIMED_STEPS = 20, 2, 20
 # BERT's published Adam settings, in MXNet's L2 form of weight decay
 ADAM = dict(learning_rate=1e-4, wd=0.01, beta2=0.999, epsilon=1e-6)
 ATTN_KERNELS = ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
+# their fp32 instantiations' names in a profiler trace (K1 on three-pass
+# TF32 wgmma, K2 and K3 on mma.sync); the bf16 ones are
+# ``<name>_wgmma_kernel``
+FP32_KERNEL = {"flash_attn_fwd": "flash_attn_fwd_tf32_kernel",
+               "flash_attn_bwd_dq": "flash_attn_bwd_dq_kernel",
+               "flash_attn_bwd_dkv": "flash_attn_bwd_dkv_kernel"}
+K1_FP32 = FP32_KERNEL["flash_attn_fwd"]
 # phase 17: steps of the fold (17a), CUDA-event rounds per step time
 # (17b), the MNIST MLP's steps and batch (17c, example/gluon/mnist's
 # batch), the matrix factorization at MovieLens-10M's id ranges with the
@@ -1207,7 +1216,7 @@ def phase_device():
 
 def _instantiation(entry):
     """``kernel<template args>`` from a mangled entry name, e.g.
-    ``flash_attn_fwd_kernel<Li64ELb0>`` (K1 fp32, D 64, not causal) or
+    ``flash_attn_fwd_tf32_kernel<Li64ELb0>`` (K1 fp32, D 64, not causal) or
     ``flash_attn_fwd_wgmma_kernel<Li128ELb1>`` (K1 bf16, D 128, causal)."""
     m = re.search(r"\d((?:flash_attn|lstm_gates)\w*?_kernel)I(.*?)EEv", entry)
     return f"{m.group(1)}<{m.group(2).rstrip('E')}>" if m else entry
@@ -1335,7 +1344,7 @@ def _odd_view(t):
 
 def check_misaligned_forward(gen, dtype=torch.float32):
     """K1 on inputs off 16-byte alignment: the wrapper copies them to
-    aligned memory for cp.async (fp32) and TMA (bf16); O and lse must match
+    aligned memory for TMA (both dtypes); O and lse must match
     the plain version."""
     dev = torch.device("cuda", 0)
     shape = (1, 2, 128, 32)
@@ -1366,6 +1375,11 @@ def phase_kernels():
         cases += [("small", (2, 3, 256, 16), 256, torch.float32, causal),
                   ("lq_ne_lk", (2, 4, 128, 64), 256, torch.float32, causal),
                   ("d32", (1, 2, 128, 32), 128, torch.float32, causal),
+                  # fp32 at D = 128 (one consumer warpgroup, 32-key
+                  # tiles) and a ragged Lq (a block's second warpgroup
+                  # past the rows)
+                  ("d128", (2, 2, 256, 128), 256, torch.float32, causal),
+                  ("ragged", (2, 4, 100, 64), 128, torch.float32, causal),
                   ("d128", (2, 2, 256, 128), 256, torch.bfloat16, causal),
                   # bf16 at every head dim the wgmma kernel is built for
                   # (32- and 64-byte swizzles), Lq != Lk, and a ragged Lq
@@ -1376,11 +1390,12 @@ def phase_kernels():
                   ("ragged", (2, 4, 100, 64), 128, torch.bfloat16, causal)]
     with torch.no_grad():
         recs = [check_attention(*c, gen) for c in cases]
-        # bf16 at a scale below zero: the wgmma kernel's path without the
-        # scale folded into the exponent
-        for causal in (False, True):
-            check_attention("negative_scale", (2, 4, 128, 64), 128,
-                            torch.bfloat16, causal, gen, scale=-0.125)
+        # a scale below zero: bf16's path without the scale folded into
+        # the exponent; fp32 scales q before the split
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (False, True):
+                check_attention("negative_scale", (2, 4, 128, 64), 128,
+                                dtype, causal, gen, scale=-0.125)
         check_misaligned_forward(gen)
         check_misaligned_forward(gen, torch.bfloat16)
     # the main path's call: BERT-base attention at seq 512, fp32, no mask
@@ -1769,7 +1784,7 @@ def profile_forward(tag, pred, feed):
            "idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else
            "not measured",
            "k1_ms": sum(ms for key, ms, _ in rows
-                        if "flash_attn_fwd_kernel" in key),
+                        if K1_FP32 in key),
            "k4_ms": sum(ms for key, ms, _ in rows
                         if "lstm_gates_kernel" in key),
            "k4_launches": sum(n for key, _, n in rows
@@ -1980,12 +1995,12 @@ def phase_slice(card):
         # each forward replays its CUDA graph: K1 inside it, by the trace
         check_replay("BERT serving seq 128",
                      lambda: pred.forward(**feeds_short[0]),
-                     {"flash_attn_fwd_kernel": n_layers})
+                     {K1_FP32: n_layers})
         # diagnostics after the counted run: where a forward's time goes
         profile_forward("K1 seq 128", pred, feeds_short[0])
         pred.reshape(shapes)
         check_replay("BERT serving seq 512", lambda: pred.forward(**feeds[0]),
-                     {"flash_attn_fwd_kernel": n_layers})
+                     {K1_FP32: n_layers})
         profile_forward("K1 seq 512", pred, feeds[0])
 
     # the same path run eagerly (MXTPU_GRAPH_COMPILE=0), whose outputs the
@@ -2155,9 +2170,9 @@ def profile_step(mod, batch_data):
            "idle_share": (1.0 - busy / wall_ms) if busy else "not measured",
            "forward_ms": fwd, "backward_ms": busy - fwd - upd,
            "optimizer_update_ms": upd, "fp32_gemm_ms": gemm,
-           "k1_ms": _kernel_ms(kernels, "flash_attn_fwd_kernel"),
-           "k2_ms": _kernel_ms(kernels, "flash_attn_bwd_dq_kernel"),
-           "k3_ms": _kernel_ms(kernels, "flash_attn_bwd_dkv_kernel"),
+           "k1_ms": _kernel_ms(kernels, K1_FP32),
+           "k2_ms": _kernel_ms(kernels, FP32_KERNEL["flash_attn_bwd_dq"]),
+           "k3_ms": _kernel_ms(kernels, FP32_KERNEL["flash_attn_bwd_dkv"]),
            "softmax_output_ms": (sum(host[k] for k in smo_keys)
                                  if smo_keys else "not measured"),
            "softmax_output_events": smo_keys,
@@ -2358,7 +2373,7 @@ def phase_lstm_serving(card):
             check_replay(f"LSTM LM T {t}",
                          lambda t=t: preds[t].forward(**feeds[t][0]),
                          {"lstm_gates_kernel": 2 * t,
-                          "flash_attn_fwd_kernel": 0})
+                          K1_FP32: 0})
         # diagnostics after the counted run
         split = {t: _forward_and_copy(preds[t], feeds[t][0])
                  for t in buckets}
@@ -2496,9 +2511,7 @@ def phase_fit(card, cfg=None, batch=8, seq=512):
                                                  arg_shapes)
                             if n not in shapes}, SEED)
     batches = list(it)
-    want = {"flash_attn_fwd_kernel": n_layers,
-            "flash_attn_bwd_dq_kernel": n_layers,
-            "flash_attn_bwd_dkv_kernel": n_layers}
+    want = {FP32_KERNEL[n]: n_layers for n in ATTN_KERNELS}
 
     # 1. the captured step against the eager one: dropout 0, the same
     # weights and batches, the scheduler's lr new at every step
@@ -6594,7 +6607,7 @@ def serving_export(cfg, blob, seq, ladder, tmpdir, ref_pallas="0",
     return pred, live, pool, path, feeds, rec
 
 
-def _graph_k1_counts(events, kernel="flash_attn_fwd_kernel"):
+def _graph_k1_counts(events, kernel=K1_FP32):
     """K1 launches per ``cudaGraphLaunch`` of a Chrome trace, by the
     correlation id a graph's kernels share with its launch call; and the
     K1 launches outside any graph launch."""
@@ -10456,13 +10469,12 @@ def _mp_states(mod):
 
 def _bf16_instantiation(name, kernel):
     """Whether profiler kernel name ``kernel`` is attention kernel
-    ``name``'s bf16 instantiation (True), another of its instantiations
-    (False) or another kernel (None).  K1-K3's bf16 kernels are wgmma
-    kernels of their own (``<name>_wgmma_kernel``); their fp32 kernels are
-    ``<name>_kernel``."""
+    ``name``'s bf16 instantiation (True), its fp32 one (False) or another
+    kernel (None).  K1-K3's bf16 kernels are wgmma kernels of their own
+    (``<name>_wgmma_kernel``); their fp32 kernels are `FP32_KERNEL`'s."""
     if name + "_wgmma_kernel" in kernel:
         return True
-    return False if name + "_kernel" in kernel else None
+    return False if FP32_KERNEL[name] in kernel else None
 
 
 def mixed_precision_fit(card, device="cuda", cfg=None, batch=None,
@@ -10813,10 +10825,10 @@ def main():
                                        "bound_ms", "bound_by",
                                        "library_ms")}}
 
-    # fp32 K1-K3 (mma.sync) on every path but 22a; bf16 K1-K3 (their
-    # wgmma kernels) on 22a's
+    # fp32 K1 (its three-pass TF32 wgmma kernel) and K2-K3 (mma.sync) on
+    # every path but 22a; bf16 K1-K3 (their wgmma kernels) on 22a's
     kernels = [entry(
-        "flash_attn_fwd", "flash_attn_fwd", 92,
+        "flash_attn_fwd_tf32", "flash_attn_fwd", 92,
         serve_launches["flash_attn_fwd"] + train_launches["flash_attn_fwd"] +
         fit_launches["flash_attn_fwd"] + state_launches["flash_attn_fwd"] +
         plane_launches["flash_attn_fwd"] + gen_launches["flash_attn_fwd"] +

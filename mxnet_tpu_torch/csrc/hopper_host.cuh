@@ -66,6 +66,30 @@ inline CUresult encode_bf16(EncodeTiled fn, CUtensorMap* map,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
+// the map of an fp32 [bh][rows][d] tensor read in boxes of ``box_rows``
+// rows of ``box_cols`` columns, swizzled at the box's row width: 32
+// columns (128 bytes) a box at d >= 32, so d = 64 is read as two column
+// blocks and d = 128 as four; 16 columns (64 bytes) at d = 16.  fp32 K1
+// reads its Q, K and V tiles through these and splits them into TF32
+// parts in shared memory.
+inline CUresult encode_f32(EncodeTiled fn, CUtensorMap* map, const void* base,
+                           int bh, int rows, int d, int box_cols,
+                           int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
+                              (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 4,
+                                 (cuuint64_t)rows * d * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle = box_cols == 32
+                                         ? CU_TENSOR_MAP_SWIZZLE_128B
+                                         : CU_TENSOR_MAP_SWIZZLE_64B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base),
+            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
 // the rank-1 map of ``n`` fp32 values read in boxes of ``box`` values (a
 // multiple of 4: 16 bytes), unswizzled
 inline CUresult encode_f32_rows(EncodeTiled fn, CUtensorMap* map,

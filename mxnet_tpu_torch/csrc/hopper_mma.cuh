@@ -1,8 +1,9 @@
 // Warp-level tensor-core products and asynchronous tile copies for the
 // Hopper kernels of this package (sm_90a).
 //
-// Products run on mma.sync m16n8k8 TF32 for fp32 inputs, accumulating in
-// fp32 (bf16 inputs run on wgmma, hopper_wgmma.cuh).  An fp32 product is
+// Products run on mma.sync m16n8k8 TF32 for fp32 K2 and K3, accumulating
+// in fp32 (fp32 K1 and every bf16 kernel run on wgmma, hopper_wgmma.cuh;
+// fp32 K1 splits its operands with `split` below).  An fp32 product is
 // taken at fp32 accuracy in three TF32 passes: each operand is split as
 // x = big + small, with big = x rounded to TF32 to nearest, ties away
 // (what cvt.rna.tf32.f32 gives), and small = x - big, exact in fp32, then
@@ -103,16 +104,6 @@ __device__ __forceinline__ void load_a(FragA32& a, const float* s, int st,
 #pragma unroll
   for (int i = 0; i < 4; ++i) split(__uint_as_float(r[i]), a.hi[i], a.lo[i]);
 }
-// A from a tile split once before: its big parts in ``hi``, its small
-// parts in ``lo``, two [M][K] tiles of one row stride (K1's Q tile)
-__device__ __forceinline__ void load_a(FragA32& a, const float* hi,
-                                       const float* lo, int st, int r0,
-                                       int k0) {
-  const int l = threadIdx.x & 31, m = l >> 3;
-  const int off = (r0 + (l & 7) + (m & 1) * 8) * st + k0 + (m >> 1) * 4;
-  ldsm_x4(a.hi, hi + off);
-  ldsm_x4(a.lo, lo + off);
-}
 
 // B = tile^T for a row-major [N][K] tile, for the two n tiles at n0 and
 // n0 + 8 and the k chunk at column k0 (the key tile of q k^T)
@@ -164,23 +155,6 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ void mma(float (&d)[4], const FragA32& a,
                                     const FragB32& b) {
   mma_tf32(d, a.lo, b.hi);
-  mma_tf32(d, a.hi, b.lo);
-  mma_tf32(d, a.hi, b.hi);
-}
-
-// d = a b alone (d's old value is not read), in three passes.  The tensor
-// cores round toward zero as they accumulate, so a long sum taken in one
-// accumulator drifts toward zero by up to an ulp of the running sum per
-// mma.  K1's O, which the attention backward compares against through
-// delta = rowsum(dO * O), starts each sum of a few chunks with this and
-// adds the sum to O in fp32, which rounds to nearest.
-__device__ __forceinline__ void mma_alone(float (&d)[4], const FragA32& a,
-                                          const FragB32& b) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a.lo[0]), "r"(a.lo[1]), "r"(a.lo[2]), "r"(a.lo[3]),
-        "r"(b.hi[0]), "r"(b.hi[1]), "f"(0.f));
   mma_tf32(d, a.hi, b.lo);
   mma_tf32(d, a.hi, b.hi);
 }

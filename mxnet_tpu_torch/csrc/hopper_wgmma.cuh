@@ -20,6 +20,13 @@
 // written since, `commit` closes a group, `wait<N>` returns when at most N
 // groups are in flight, and only then may their registers be read.
 //
+// tf32 products (fp32 K1's three passes) are m64nNk8: 8 deep, 32 bytes of
+// a row as bf16's 16 are.  Both operands must be K-major: the transpose
+// bits exist only for 16-bit types.  The RS form's A registers are each
+// warp's m16n8k8 tf32 A fragment (a[0] = (g, t), a[1] = (g+8, t),
+// a[2] = (g, t+4), a[3] = (g+8, t+4)), mma.sync's; the hardware reads an
+// operand's top 19 bits.
+//
 // Descriptors.  Tiles lie in shared memory as TMA writes them with a
 // swizzle of S = 32, 64 or 128 bytes: rows of S bytes (S / 2 bf16
 // columns), 8 rows to a swizzle atom of 8·S bytes, each 16-byte piece of
@@ -346,6 +353,204 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
   } else {
     wgmma_rs_n16(d, a, b, 1);
   }
+}
+
+// d (+)= a b for a 64 x 8 A and an 8 x 32 B, both tf32 read from shared
+// memory through descriptors, both K-major
+__device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t a,
+                                                 uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (+)= a b for a 64 x 8 A and an 8 x 64 B, both tf32 read from shared
+// memory through descriptors, both K-major
+__device__ __forceinline__ void wgmma_tf32_ss_n64(float (&d)[32], uint64_t a,
+                                               uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (+)= a b for a 64 x 8 tf32 A from registers (the m16n8k8 tf32 A
+// fragment of each warp's 16 rows) and an 8 x 16 tf32 B read from shared
+// memory, K-major
+__device__ __forceinline__ void wgmma_tf32_rs_n16(float (&d)[8],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// d (+)= a b for a 64 x 8 tf32 A from registers (the m16n8k8 tf32 A
+// fragment of each warp's 16 rows) and an 8 x 32 tf32 B read from shared
+// memory, K-major
+__device__ __forceinline__ void wgmma_tf32_rs_n32(float (&d)[16],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// d (+)= a b for a 64 x 8 tf32 A from registers (the m16n8k8 tf32 A
+// fragment of each warp's 16 rows) and an 8 x 64 tf32 B read from shared
+// memory, K-major
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// d (+)= a b for a 64 x 8 tf32 A from registers (the m16n8k8 tf32 A
+// fragment of each warp's 16 rows) and an 8 x 128 tf32 B read from shared
+// memory, K-major
+__device__ __forceinline__ void wgmma_tf32_rs_n128(float (&d)[64],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+
+// the tf32 SS product of N columns (32 or 64)
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  static_assert(N == 32 || N == 64, "a tf32 SS product of 32 or 64 columns");
+  if constexpr (N == 64) {
+    wgmma_tf32_ss_n64(d, a, b, accumulate);
+  } else {
+    wgmma_tf32_ss_n32(d, a, b, accumulate);
+  }
+}
+
+// the tf32 RS product of N columns (16, 32, 64 or 128)
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128,
+                "a tf32 RS product of 16, 32, 64 or 128 columns");
+  if constexpr (N == 128) {
+    wgmma_tf32_rs_n128(d, a, b, accumulate);
+  } else if constexpr (N == 64) {
+    wgmma_tf32_rs_n64(d, a, b, accumulate);
+  } else if constexpr (N == 32) {
+    wgmma_tf32_rs_n32(d, a, b, accumulate);
+  } else {
+    wgmma_tf32_rs_n16(d, a, b, accumulate);
+  }
+}
+
+// orders this thread's shared-memory accesses before later accesses by
+// the asynchronous proxy (wgmma's operand reads, TMA's writes)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// named barrier ``id`` (1-15; 0 is __syncthreads) over ``threads`` threads
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// byte offset ``off`` (from a 1024-byte boundary, as TMA writes with a
+// swizzle of ROW bytes: 32, 64 or 128) moved to where the swizzle puts it:
+// the 16-byte piece index XORed with the 128-byte line index
+template <int ROW>
+__device__ __forceinline__ int swizzle(int off) {
+  static_assert(ROW == 32 || ROW == 64 || ROW == 128, "a TMA swizzle width");
+  return off ^ (((off >> 7) & (ROW / 16 - 1)) << 4);
 }
 
 // 2^x to about 2 ulp (ex2.approx; 0 for -inf and for large negative x)

@@ -3,11 +3,11 @@
 
 * `flash_attention` / `flash_attention_with_lse` — K1, the streaming
   online-softmax attention forward, in CUDA C++ (`csrc/flash_attn_fwd.cu`,
-  replacing `pallas_kernels.py:_attn_fwd_kernel`; fp32 on mma.sync, bf16
-  on wgmma fed by TMA, `csrc/hopper_wgmma.cuh`), and its gradient: K2
-  (dq) and K3 (dk, dv) in `csrc/flash_attn_bwd.cu`, replacing
-  `_attn_dq_kernel` and `_attn_dkv_kernel` (fp32 on mma.sync, bf16 on
-  wgmma fed by TMA).  The pair is one
+  replacing `pallas_kernels.py:_attn_fwd_kernel`; fp32 in three TF32
+  passes and bf16 both on wgmma fed by TMA, `csrc/hopper_wgmma.cuh`),
+  and its gradient: K2 (dq) and K3 (dk, dv) in `csrc/flash_attn_bwd.cu`,
+  replacing `_attn_dq_kernel` and `_attn_dkv_kernel` (fp32 on mma.sync,
+  bf16 on wgmma fed by TMA).  The pair is one
   `torch.autograd.Function`, as the JAX package's is one `jax.custom_vjp`.
   It backs the `_fused_attention` op, which `graph_opt`'s
   ``pallas_select`` pass swaps in for MXNet's batch_dot/softmax attention
@@ -293,10 +293,11 @@ def _attn_dkv_plain(q, k, v, do, lse, delta, dlse, *, causal: bool,
 
 
 def _aligned(*tensors):
-    """K1-K3 copy their [L, D] tiles with 16-byte cp.async (fp32) or by
-    TMA (bf16; K3's lse, delta and dlse rows too), which want a 16-byte
-    aligned base: a tensor whose storage starts elsewhere (a contiguous
-    view at an odd offset) is copied to fresh, aligned memory first."""
+    """K1 reads its [L, D] tiles by TMA, K2 and K3 with 16-byte cp.async
+    (fp32) or by TMA (bf16; K3's lse, delta and dlse rows too), which want
+    a 16-byte aligned base: a tensor whose storage starts elsewhere (a
+    contiguous view at an odd offset) is copied to fresh, aligned memory
+    first."""
     return [t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors]
 
 

@@ -372,7 +372,7 @@ def test_tf32_rounding_is_to_nearest_ties_away():
 # ---------------------------------------------------------------------------
 
 def _k1_key_rows(d):
-    """Rows of K1's streamed key tile (`key_rows` in flash_attn_fwd.cu)."""
+    """Keys of fp32 K1's key tile (`TfCfg<D>::BN` in flash_attn_fwd.cu)."""
     return 64 if d <= 64 else 32
 
 
@@ -539,9 +539,9 @@ def _truncated_pv_drift(seed, std, chunks, rows=512, lk=512, d=64):
 
 def test_k1_chunk_sums_keep_o_unbiased_under_truncation():
     """Why K1 sums every `SUM_CHUNKS` chunks of p·v in an accumulator of
-    their own (started by `mma_alone`) and adds them to O in fp32: O
-    summed in one running accumulator over the sequence drifts toward zero
-    at BERT-like scores (small, so O is a mean with cancellation), and its
+    their own (its first product adding to nothing) and adds them to O
+    in fp32: O summed in one running accumulator over the sequence drifts
+    toward zero at BERT-like scores (small, so O is a mean with cancellation), and its
     error grows far past a plain fp32 product's; the backward's
     delta = rowsum(dO∘O) carries that error into every dsᵢⱼ.  Sums of a
     few chunks added in fp32 keep O within a plain product's error."""
